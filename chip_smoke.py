@@ -6,19 +6,34 @@
 Phases (any failure exits nonzero and prints no result line):
 
 1. Require CUDA (no CPU fallback); print the card's name and power limit.
-2. Build the interpreter kernel (csrc/program_eval.cu) from the checkout.
-3. Hold the kernel against its plain PyTorch version at the benchmark
+2. Build the three kernels (csrc/program_eval.cu, program_multi.cu,
+   program_grad.cu) from the checkout, one nvcc per source, in parallel.
+3. Hold kernel #1 against its plain PyTorch version at the benchmark
    shapes: 16,384 random trees (maxsize 30, + - * / exp abs cos), 5
    features, 10,000 rows. Validity bit-equal; loss and cost within rtol
    1e-5 (the row sums run in another order); inf in the same places; the
    cost form equal to the plain form + loss_to_cost bit for bit;
    dedup=True equal to dedup=False bit for bit; two launches identical.
    Times the kernel (CUDA events) and the plain version.
-4. Main path: `Engine` at 512 islands x 256 members x 10,000 rows x 5
-   features, tournament 16, maxsize 30, no constant optimizer:
-   init_state, one warm-up iteration, two timed iterations. Prints
-   evals/s, seconds per iteration, kernel launches, peak memory.
-5. `equation_search(..., niterations=3, device="cuda")` on the same data.
+4. Hold kernels #2 and #3 against their plain versions at the constant
+   optimizer's bench shapes: 18,432 trees (512 islands x 36 selected),
+   V = 24 line-search variants for #2 and V = 3 restarts for #3, 10,000
+   rows. Validity bit-equal; loss within rtol 1e-5 with inf in the same
+   places; #2 with V = 1 bit-equal to #1's plain form; #3's loss bit-equal
+   to #2's on the same variants; gradients non-finite in the same pairs
+   and otherwise within 1e-4 of the sum of the absolute per-row terms;
+   two launches bit-identical. Times both (CUDA events) and reckons
+   their bounds.
+5. Main path: `Engine` at the headline configuration, 512 islands x 256
+   members x 10,000 rows x 5 features, tournament 16, maxsize 30, the
+   constant optimizer on (the default): init_state, one warm-up
+   iteration, two timed iterations. Prints evals/s (the optimizer's
+   f_calls included), seconds per iteration, launches per kernel (per
+   iteration: ncycles + 1 of #1, 8 of #2, 9 of #3), peak memory.
+6. The same without the constant optimizer (the first slice's path) at a
+   cut depth: launches of #1 only.
+7. `equation_search(X, y, niterations=3, device="cuda")` with the default
+   Options on the same data.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -52,12 +67,12 @@ def bench_data():
     return X, y
 
 
-def bench_options(sr, ncycles: int, populations: int = 512):
+def bench_options(sr, ncycles: int, populations: int = 512, optimize: bool = True):
     return sr.Options(
         binary_operators=["+", "-", "*", "/"], unary_operators=["exp", "abs", "cos"],
         maxsize=30, populations=populations, population_size=256,
         tournament_selection_n=16, ncycles_per_iteration=ncycles,
-        should_optimize_constants=False, save_to_file=False)
+        should_optimize_constants=optimize, save_to_file=False)
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -72,8 +87,48 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def same(torch, a, b):
+    """Bit-for-bit equality (NaN payloads included)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def close(torch, a, b):
+    """Within rtol where finite, inf exactly where the other has inf.
+    Returns (same_inf, within, max rel err, max abs err)."""
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    same_inf = bool(torch.equal(fa, fb)) and bool(torch.equal(a[~fa], b[~fb]))
+    err = (a[fa] - b[fb]).abs()
+    within = bool((err <= RTOL * b[fb].abs()).all()) if same_inf else False
+    rel = float((err / b[fb].abs().clamp(min=1e-30)).max()) if same_inf and err.numel() else 0.0
+    return same_inf, within, rel, float(err.max()) if same_inf and err.numel() else 0.0
+
+
+class Checks:
+    def __init__(self):
+        self.failures = []
+
+    def __call__(self, name, ok):
+        print(f"  check {name}: {'ok' if ok else 'FAILED'}")
+        if not ok:
+            self.failures.append(name)
+
+    def raise_if_failed(self, what):
+        if self.failures:
+            raise RuntimeError(f"{what} checks failed: {self.failures}")
+
+
+def bound(ops_count: float, bytes_moved: float):
+    """(bound ms, bound_by): the larger of the FP32-operation time and the
+    byte time on the H100."""
+    bound_ops = ops_count / H100_FP32_FLOPS * 1e3
+    bound_bytes = bytes_moved / H100_HBM_BYTES_S * 1e3
+    return max(bound_ops, bound_bytes), "operations" if bound_ops >= bound_bytes else "bytes"
+
+
 def phase_kernel(torch, sr, dev):
-    """Phase 3: the kernel against its plain version at the bench shapes."""
+    """Phase 3: kernel #1 against its plain version at the bench shapes."""
     from symbolicregression_jl_tpu_torch.core.losses import loss_to_cost
     from symbolicregression_jl_tpu_torch.evolve import rng
     from symbolicregression_jl_tpu_torch.evolve.population import init_population
@@ -112,39 +167,21 @@ def phase_kernel(torch, sr, dev):
     lossc_p, validc_p, cost_p = FE.program_eval_plain(*args, ops, el, cx=cxf, scal=scal)
     torch.cuda.synchronize()
 
-    failures = []
+    check = Checks()
+    _same = lambda a, b: same(torch, a, b)
+    _close = lambda a, b: close(torch, a, b)
 
-    def same(a, b):
-        """Bit-for-bit equality (NaN payloads included)."""
-        if a.dtype == torch.float32:
-            a, b = a.view(torch.int32), b.view(torch.int32)
-        return bool(torch.equal(a, b))
-
-    def check(name, ok):
-        print(f"  check {name}: {'ok' if ok else 'FAILED'}")
-        if not ok:
-            failures.append(name)
-
-    def close(a, b):
-        """Within rtol where finite, inf exactly where the other has inf."""
-        fa, fb = torch.isfinite(a), torch.isfinite(b)
-        same_inf = bool(torch.equal(fa, fb)) and bool(torch.equal(a[~fa], b[~fb]))
-        err = (a[fa] - b[fb]).abs()
-        within = bool((err <= RTOL * b[fb].abs()).all()) if same_inf else False
-        rel = float((err / b[fb].abs().clamp(min=1e-30)).max()) if same_inf and err.numel() else 0.0
-        return same_inf, within, rel, float(err.max()) if same_inf and err.numel() else 0.0
-
-    check("two launches bit-identical", same(loss_k, loss_k2) and same(valid_k, valid_k2))
-    check("validity bit-equal (plain form)", same(valid_k, valid_p))
-    check("validity bit-equal (cost form)", same(validc_k, validc_p))
+    check("two launches bit-identical", _same(loss_k, loss_k2) and _same(valid_k, valid_k2))
+    check("validity bit-equal (plain form)", _same(valid_k, valid_p))
+    check("validity bit-equal (cost form)", _same(validc_k, validc_p))
     # The plain form's loss sum is only meaningful for valid trees.
-    same_inf, within, rel_sum, _ = close(torch.where(valid_p, loss_k, torch.inf),
+    same_inf, within, rel_sum, _ = _close(torch.where(valid_p, loss_k, torch.inf),
                                          torch.where(valid_p, loss_p, torch.inf))
     check(f"loss sum within rtol {RTOL} (max rel err {rel_sum:.3g})", within)
-    same_inf, within, rel_loss, abs_loss = close(lossc_k, lossc_p)
+    same_inf, within, rel_loss, abs_loss = _close(lossc_k, lossc_p)
     check("inf where the plain version has inf (loss)", same_inf)
     check(f"loss within rtol {RTOL} (max rel err {rel_loss:.3g})", within)
-    same_inf, within, rel_cost, _ = close(cost_k, cost_p)
+    same_inf, within, rel_cost, _ = _close(cost_k, cost_p)
     check("inf where the plain version has inf (cost)", same_inf)
     check(f"cost within rtol {RTOL} (max rel err {rel_cost:.3g})", within)
 
@@ -154,10 +191,10 @@ def phase_kernel(torch, sr, dev):
     cost_from_plain = loss_to_cost(loss_from_plain, data.baseline_loss, data.use_baseline,
                                    cx, options.parsimony)
     check("cost form == plain form + loss_to_cost (bit)",
-          same(lossc_k, loss_from_plain) and same(cost_k, cost_from_plain))
+          _same(lossc_k, loss_from_plain) and _same(cost_k, cost_from_plain))
     l_dd, v_dd = FE.fused_loss(trees, data.Xt, data.y, data.weights, ops, el, dedup=True)
     l_nd, v_nd = FE.fused_loss(trees, data.Xt, data.y, data.weights, ops, el, dedup=False)
-    check("dedup=True == dedup=False (bit)", same(l_dd, l_nd) and same(v_dd, v_nd))
+    check("dedup=True == dedup=False (bit)", _same(l_dd, l_nd) and _same(v_dd, v_nd))
 
     ms = cuda_ms(torch, lambda: kernel(*args, ops, el, cx=cxf, scal=scal), reps=10)
     t0 = time.perf_counter()
@@ -171,82 +208,223 @@ def phase_kernel(torch, sr, dev):
     ops_count = step_rows + 4.0 * n * T        # one op per step and row; loss d*d*w + sum
     bytes_moved = 4.0 * (T * L + T + T * CMAX + T + N_FEATURES * n + 2 * n + T + 3
                          + 3 * T)              # inputs once, loss/valid/cost out
-    bound_ops = ops_count / H100_FP32_FLOPS * 1e3
-    bound_bytes = bytes_moved / H100_HBM_BYTES_S * 1e3
+    bound_ms, bound_by = bound(ops_count, bytes_moved)
     print(f"  kernel vs plain at T={T} trees, F={N_FEATURES}, n={n}, L={L}, CMAX={CMAX}: "
           f"{int(valid_k.sum())} valid, mean steps {step_rows / n / T:.3f}")
     print(f"  kernel {ms:.4f} ms (cost form, CUDA events, mean of 10), plain {plain_ms:.1f} ms, "
-          f"bound {max(bound_ops, bound_bytes):.4f} ms "
-          f"({'operations' if bound_ops >= bound_bytes else 'bytes'}: {ops_count:.4g} FP32 ops, "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {ops_count:.4g} FP32 ops, "
           f"{bytes_moved:.4g} bytes)")
-    if failures:
-        raise RuntimeError(f"kernel checks failed: {failures}")
+    check.raise_if_failed("kernel #1")
     return {
         "name": kernel.name, "route": "cuda", "source": kernel.source,
         "replaces": kernel.replaces, "launches": None, "max_abs_err": abs_loss,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bound_ops, bound_bytes),
-        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
     }
 
 
-def phase_main_path(torch, sr, dev, ncycles: int):
-    """Phase 4: Engine.run_iteration at the bench config's full width."""
+def phase_opt_kernels(torch, sr, dev):
+    """Phase 4: kernels #2 and #3 against their plain versions at the
+    constant optimizer's bench shapes."""
+    from symbolicregression_jl_tpu_torch.evolve import rng
+    from symbolicregression_jl_tpu_torch.evolve.population import init_population
+    from symbolicregression_jl_tpu_torch.evolve.step import evolve_config_from_options
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+    from symbolicregression_jl_tpu_torch.ops.program import compile_program
+
+    options = bench_options(sr, 1)
+    X, y = bench_data()
+    ds = sr.make_dataset(X, y, device=dev)
+    data = ds.data
+    cfg = evolve_config_from_options(options, N_FEATURES, dev)
+    k_sel = round(options.population_size * options.optimizer_probability)   # 36
+    trees = init_population(rng.split(rng.key(2, device=dev), options.populations), k_sel,
+                            cfg.mctx).reshape(-1)
+    T = trees.length.shape[0]
+    ops, el = options.operators, options.elementwise_loss
+    prog = compile_program(trees, N_FEATURES, len(ops.binary))
+    instr, nsteps, cvals, const_ok, Xt, yt, w = FE._launch_inputs(
+        prog, data.Xt, data.y, data.weights, N_FEATURES, ops)
+    nconst = prog.nconst.to(torch.int32).contiguous()
+    R = options.optimizer_nrestarts + 1
+    C = 8                                               # max_linesearch
+    V_ls = R * C
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def variants(V):
+        """The trees' constants perturbed V ways, with a few non-finite."""
+        cv = cvals[:, None, :] * (1.0 + 0.5 * torch.randn((T, V, cvals.shape[1]), generator=g,
+                                                          device=dev))
+        cv[::997, -1, 0] = torch.inf
+        return cv.contiguous()
+
+    cv_ls, cv_g = variants(V_ls), variants(R)
+    check = Checks()
+    _same = lambda a, b: same(torch, a, b)
+    _close = lambda a, b: close(torch, a, b)
+    multi, grad = FE.PROGRAM_MULTI, FE.PROGRAM_GRAD
+
+    # kernel #2
+    lk, vk = multi(instr, nsteps, cv_ls, Xt, yt, w, ops, el)
+    lk2, vk2 = multi(instr, nsteps, cv_ls, Xt, yt, w, ops, el)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp, vp = FE.program_multi_plain(instr, nsteps, cv_ls, Xt, yt, w, ops, el)
+    torch.cuda.synchronize()
+    plain_ms_multi = (time.perf_counter() - t0) * 1e3
+    check("#2 two launches bit-identical", _same(lk, lk2) and _same(vk, vk2))
+    check("#2 validity bit-equal", _same(vk, vp))
+    same_inf, within, rel2, abs2 = _close(torch.where(vp, lk, torch.inf),
+                                          torch.where(vp, lp, torch.inf))
+    check("#2 inf where the plain version has inf", same_inf)
+    check(f"#2 loss sum within rtol {RTOL} (max rel err {rel2:.3g})", within)
+    ones = torch.ones(T, dtype=torch.int32, device=dev)
+    l1, v1 = multi(instr, nsteps, cvals[:, None, :].contiguous(), Xt, yt, w, ops, el)
+    l1e, v1e = FE.PROGRAM_EVAL(instr, nsteps, cvals, ones, Xt, yt, w, ops, el)
+    check("#2 with V = 1 == #1's plain form (bit)", _same(l1[:, 0], l1e) and _same(v1[:, 0], v1e))
+
+    # kernel #3
+    gl, gv, gg = grad(instr, nsteps, nconst, cv_g, Xt, yt, w, ops, el)
+    gl2, gv2, gg2 = grad(instr, nsteps, nconst, cv_g, Xt, yt, w, ops, el)
+    lm, vm = multi(instr, nsteps, cv_g, Xt, yt, w, ops, el)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pl, pv, pg, pabs = FE.program_grad_plain(instr, nsteps, nconst, cv_g, Xt, yt, w, ops, el,
+                                             return_abs=True)
+    torch.cuda.synchronize()
+    plain_ms_grad = (time.perf_counter() - t0) * 1e3
+    check("#3 two launches bit-identical", _same(gl, gl2) and _same(gv, gv2) and _same(gg, gg2))
+    check("#3 validity bit-equal", _same(gv, pv))
+    check("#3 loss == #2's on the same variants (bit)", _same(gl, lm) and _same(gv, vm))
+    same_inf, within, rel3, _ = _close(torch.where(pv, gl, torch.inf),
+                                       torch.where(pv, pl, torch.inf))
+    check(f"#3 loss sum within rtol {RTOL} (max rel err {rel3:.3g})", same_inf and within)
+    # Gradients: a valid pair's gradient is non-finite in the same
+    # components; finite ones agree within 1e-4 of the sum of the absolute
+    # per-row terms (each row's derivative agrees within a few ULP; the
+    # rows are summed in another order and may cancel).
+    live = pv[..., None].expand_as(pg)
+    fin_k, fin_p = torch.isfinite(gg), torch.isfinite(pg)
+    check("#3 gradients non-finite in the same places",
+          bool(torch.equal(fin_k[live], fin_p[live])))
+    both = live & fin_k & fin_p
+    gerr = (gg - pg).abs()[both]
+    gtol = 1e-4 * pabs[both]
+    check(f"#3 gradients within 1e-4 of the absolute row sums (max err / scale "
+          f"{float((gerr / pabs[both].clamp(min=1e-30)).max()):.3g})", bool((gerr <= gtol).all()))
+    abs3 = float(gerr.max()) if gerr.numel() else 0.0
+
+    ms_multi = cuda_ms(torch, lambda: multi(instr, nsteps, cv_ls, Xt, yt, w, ops, el), reps=5)
+    ms_grad = cuda_ms(torch, lambda: grad(instr, nsteps, nconst, cv_g, Xt, yt, w, ops, el),
+                      reps=5)
+    n = N_ROWS
+    L, CMAX = instr.shape[1], cvals.shape[1]
+    steps = float(nsteps.to(torch.float64).sum())
+    nc = float(nconst.to(torch.float64).sum())
+    # #2: one operation per step and row, four for the loss term and sum.
+    ops2 = (steps + 4.0 * T) * V_ls * n
+    bytes2 = 4.0 * (T * L + T + T * V_ls * CMAX + N_FEATURES * n + 2 * n + 2 * T * V_ls)
+    # #3: the forward's, then per step and row the derivative and one more
+    # operation per operand, the loss derivative and the constants' sums.
+    ops3 = (3.0 * steps + 8.0 * T + nc) * R * n
+    bytes3 = 4.0 * (T * L + 2 * T + T * R * CMAX + N_FEATURES * n + 2 * n + 2 * T * R
+                    + T * R * CMAX)
+    b2, by2 = bound(ops2, bytes2)
+    b3, by3 = bound(ops3, bytes3)
+    print(f"  {T} trees (mean steps {steps / T:.3f}, mean constants {nc / T:.3f}), {n} rows; "
+          f"{int(vk.sum())} of {T * V_ls} line-search pairs valid, "
+          f"{int(gv.sum())} of {T * R} gradient pairs valid")
+    print(f"  #2 program_multi: {ms_multi:.4f} ms (V={V_ls}, CUDA events, mean of 5), plain "
+          f"{plain_ms_multi:.1f} ms, bound {b2:.4f} ms ({by2}: {ops2:.4g} ops, {bytes2:.4g} B)")
+    print(f"  #3 program_grad: {ms_grad:.4f} ms (V={R}, CUDA events, mean of 5), plain "
+          f"{plain_ms_grad:.1f} ms, bound {b3:.4f} ms ({by3}: {ops3:.4g} ops, {bytes3:.4g} B)")
+    check.raise_if_failed("kernels #2 and #3")
+    row = lambda k, err, ms, plain, b, by: {
+        "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b,
+        "bound_by": by, "library_ms": None}
+    return [row(multi, abs2, ms_multi, plain_ms_multi, b2, by2),
+            row(grad, abs3, ms_grad, plain_ms_grad, b3, by3)]
+
+
+def run_engine(torch, sr, dev, options, iters: int = 2):
+    """init_state, one warm-up iteration, then ``iters`` timed iterations
+    with every kernel's launch count set to 0 just before them. Returns
+    (launches by kernel name, state)."""
     from symbolicregression_jl_tpu_torch.evolve import rng
     from symbolicregression_jl_tpu_torch.evolve.engine import Engine
-    from symbolicregression_jl_tpu_torch.ops.fused_eval import PROGRAM_EVAL
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
 
-    options = bench_options(sr, ncycles)
     X, y = bench_data()
     ds = sr.make_dataset(X, y, device=dev)
     ds.update_baseline_loss(options.elementwise_loss)
     engine = Engine(options, N_FEATURES, device=dev)
     print(f"  islands {options.populations} x members {options.population_size}, "
-          f"rows {N_ROWS} x features {N_FEATURES}, ncycles_per_iteration {ncycles}, "
-          f"turbo {engine.cfg.turbo}, fused cost {engine.cfg.fuse_cost}")
+          f"rows {N_ROWS} x features {N_FEATURES}, ncycles_per_iteration "
+          f"{options.ncycles_per_iteration}, constant optimizer "
+          f"{options.should_optimize_constants}, turbo {engine.cfg.turbo}, fused cost "
+          f"{engine.cfg.fuse_cost}")
     t0 = time.perf_counter()
     state = engine.init_state(rng.key(0, device=dev), ds.data, options.populations)
     state = engine.run_iteration(state, ds.data, options.maxsize)
     torch.cuda.synchronize()
     print(f"  init + warm-up iteration: {time.perf_counter() - t0:.2f} s")
 
+    kernels = (FE.PROGRAM_EVAL, FE.PROGRAM_MULTI, FE.PROGRAM_GRAD)
     evals0 = float(state.num_evals)
     torch.cuda.reset_peak_memory_stats()
-    PROGRAM_EVAL.launches = 0
+    for k in kernels:
+        k.launches = 0
     t0 = time.perf_counter()
-    iters = 2
     for _ in range(iters):
         state = engine.run_iteration(state, ds.data, options.maxsize)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = PROGRAM_EVAL.launches
+    launches = {k.name: k.launches for k in kernels}
     evals = float(state.num_evals) - evals0
-    expected = iters * (ncycles + 1)   # one candidate eval per cycle + the finalize
     print(f"  {iters} timed iterations: {elapsed / iters:.3f} s/iteration, "
           f"{evals / elapsed:.6g} evals/s ({evals:.0f} evals)")
-    print(f"  program_eval launches {launches} (expected {expected}: one per cycle plus the "
-          f"finalize, per iteration)")
+    print(f"  launches {launches}")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    costs = state.pops.cost
-    if launches == 0 or launches != expected:
-        raise RuntimeError(f"main path launched the kernel {launches} times, expected {expected}")
     if not bool(torch.isfinite(state.hof.loss[state.hof.exists]).all()) \
             or not bool(state.hof.exists.any()):
         raise RuntimeError("hall of fame holds no finite entry")
-    if costs.shape != (options.populations, options.population_size):
-        raise RuntimeError(f"population cost has shape {tuple(costs.shape)}")
+    if state.pops.cost.shape != (options.populations, options.population_size):
+        raise RuntimeError(f"population cost has shape {tuple(state.pops.cost.shape)}")
     return launches
 
 
+def phase_main_path(torch, sr, dev, ncycles: int):
+    """Phase 5: the headline configuration, constant optimizer on."""
+    options = bench_options(sr, ncycles)
+    iters = 2
+    launches = run_engine(torch, sr, dev, options, iters)
+    expected = {"program_eval": iters * (ncycles + 1),              # each cycle + finalize
+                "program_multi": iters * options.optimizer_iterations,     # line searches
+                "program_grad": iters * (options.optimizer_iterations + 1)}  # + the first
+    print(f"  expected {expected}")
+    if launches != expected or 0 in launches.values():
+        raise RuntimeError(f"main path launched {launches}, expected {expected}")
+    return launches
+
+
+def phase_no_optimizer(torch, sr, dev, ncycles: int):
+    """Phase 6: the first slice's path (no constant optimizer), cut depth."""
+    options = bench_options(sr, ncycles, optimize=False)
+    launches = run_engine(torch, sr, dev, options, iters=2)
+    expected = {"program_eval": 2 * (ncycles + 1), "program_multi": 0, "program_grad": 0}
+    if launches != expected:
+        raise RuntimeError(f"no-optimizer path launched {launches}, expected {expected}")
+
+
 def phase_search(sr, dev):
-    """Phase 5: equation_search on the bench data."""
+    """Phase 7: equation_search with the default Options on the bench data."""
     X, y = bench_data()
-    options = bench_options(sr, 20, populations=64)
     t0 = time.perf_counter()
-    hof = sr.equation_search(X, y, options=options, niterations=3, seed=0, device=dev)
+    hof = sr.equation_search(X, y, niterations=3, seed=0, device=dev)
     best = min(hof.entries, key=lambda e: e.loss)
-    print(f"  {time.perf_counter() - t0:.2f} s, best loss {best.loss:.6g} at complexity "
-          f"{best.complexity}: {best.equation_string()}")
+    print(f"  default Options: {time.perf_counter() - t0:.2f} s, best loss {best.loss:.6g} at "
+          f"complexity {best.complexity}: {best.equation_string()}")
     if not np.isfinite(best.loss):
         raise RuntimeError("equation_search returned no finite loss")
 
@@ -255,6 +433,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ncycles", type=int, default=100,
                     help="ncycles_per_iteration of the main path (depth only)")
+    ap.add_argument("--ncycles-plain", type=int, default=30,
+                    help="ncycles_per_iteration of the no-optimizer path (depth only)")
     args = ap.parse_args()
 
     import torch
@@ -266,32 +446,46 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import symbolicregression_jl_tpu_torch as sr
     from symbolicregression_jl_tpu_torch.ops import cuda_build
-    from symbolicregression_jl_tpu_torch.ops.fused_eval import PROGRAM_EVAL
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
 
     dev = torch.device("cuda")
     print("[1] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip())
+    card = smi.stdout.strip()
+    print(card)
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
     print("[2] build")
+    kernels = (FE.PROGRAM_EVAL, FE.PROGRAM_MULTI, FE.PROGRAM_GRAD)
     t0 = time.perf_counter()
-    PROGRAM_EVAL.library()
-    print(f"  program_eval.cu: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {cuda_build.build_seconds('program_eval.cu'):.2f} s)")
+    cuda_build.build_all([k._file for k in kernels])
+    for k in kernels:
+        k.library()
+    print(f"  {', '.join(k._file for k in kernels)}: {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {', '.join(f'{cuda_build.build_seconds(k._file):.2f}' for k in kernels)} s, "
+          f"in parallel)")
 
-    print("[3] kernel against plain version")
-    row = phase_kernel(torch, sr, dev)
+    print("[3] kernel #1 against its plain version")
+    rows = [phase_kernel(torch, sr, dev)]
 
-    print("[4] main path")
-    row["launches"] = phase_main_path(torch, sr, dev, args.ncycles)
+    print("[4] kernels #2 and #3 against their plain versions")
+    rows += phase_opt_kernels(torch, sr, dev)
 
-    print("[5] equation_search")
+    print("[5] main path (constant optimizer on)")
+    launches = phase_main_path(torch, sr, dev, args.ncycles)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+
+    print("[6] no-optimizer path")
+    phase_no_optimizer(torch, sr, dev, args.ncycles_plain)
+
+    print("[7] equation_search")
     phase_search(sr, dev)
 
-    print(json.dumps({"kernels": [row]}))
+    print(card)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of ``symbolicregression_jl_tpu``.
 
 The plain-expression ``equation_search`` path runs here on one NVIDIA GPU:
-f32, an elementwise loss, the built-in operators, no constant optimizer.
+f32, an elementwise loss, the built-in operators, the constant optimizer.
 Candidate scoring and the per-iteration finalize re-score go through a
-hand-written CUDA interpreter kernel (``csrc/program_eval.cu``); the rest
-is eager PyTorch. Module paths mirror the JAX package so each module's
+hand-written CUDA interpreter kernel (``csrc/program_eval.cu``), the
+optimizer's line search and gradient through two more
+(``csrc/program_multi.cu``, ``csrc/program_grad.cu``); the rest is eager
+PyTorch. Module paths mirror the JAX package so each module's
 counterpart is easy to find.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -1,13 +1,18 @@
 """Where one engine iteration spends its time on the GPU.
 
     python -m symbolicregression_jl_tpu_torch.bench.profile_iteration [--ncycles N]
+        [--no-optimizer]
 
-Builds the benchmark configuration (512 islands x 256 members, 10,000 rows
-x 5 features, maxsize 30, no constant optimizer), runs one warm-up
-iteration, then one iteration under ``torch.profiler``. Prints the
-iteration's host-clock time, the summed device time of all kernels and
-of the interpreter kernel, the device's busy and idle shares, the number
-of kernel launches, and the ten kernels with the most device time.
+Builds the headline configuration (512 islands x 256 members, 10,000 rows
+x 5 features, maxsize 30, the constant optimizer on unless
+``--no-optimizer``), runs one warm-up iteration, then one iteration under
+``torch.profiler``. Prints the iteration's host-clock time, the summed
+device time of all kernels and of each of the port's three kernels, the
+device's busy and idle shares, the number of kernel launches, the
+constant optimizer's range (``sr:constant_optimizer``: its span on the
+device, the device time of kernels #2 and #3 in it, that of the eager
+L-BFGS ops in it and the idle rest), and the ten kernels with the most
+device time.
 Needs a CUDA device.
 """
 
@@ -38,6 +43,8 @@ def bench_data(n_rows: int = 10_000, n_features: int = 5):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ncycles", type=int, default=10)
+    ap.add_argument("--no-optimizer", action="store_true",
+                    help="profile without the constant optimizer")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_iteration: needs a CUDA device", file=sys.stderr)
@@ -49,7 +56,7 @@ def main() -> int:
     options = sr.Options(
         binary_operators=["+", "-", "*", "/"], unary_operators=["exp", "abs", "cos"],
         maxsize=30, populations=512, population_size=256, tournament_selection_n=16,
-        ncycles_per_iteration=args.ncycles, should_optimize_constants=False,
+        ncycles_per_iteration=args.ncycles, should_optimize_constants=not args.no_optimizer,
         save_to_file=False)
     X, y = bench_data()
     ds = sr.make_dataset(X, y, device=dev)
@@ -67,14 +74,35 @@ def main() -> int:
         wall = time.perf_counter() - t0
 
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = [e for e in events if e.device_time_total > 0]
+    # Named ranges (record_function) also appear on the device timeline as
+    # annotations spanning the kernels they launched; they are not kernels.
+    spans = [e for e in events if e.name.startswith("sr:")]
+    kernels = [e for e in events if e.device_time_total > 0 and not e.name.startswith("sr:")]
     device_us = sum(e.device_time_total for e in kernels)
-    interp_us = sum(e.device_time_total for e in kernels if "program_eval" in e.name)
-    print(f"ncycles_per_iteration {args.ncycles}: iteration {wall:.3f} s (host clock)")
+    print(f"ncycles_per_iteration {args.ncycles}, constant optimizer "
+          f"{options.should_optimize_constants}: iteration {wall:.3f} s (host clock)")
     print(f"device kernel time {device_us / 1e6:.3f} s over {len(kernels)} kernel launches; "
           f"busy {device_us / 1e6 / wall:.1%}, idle {1 - device_us / 1e6 / wall:.1%}")
-    print(f"interpreter kernel {interp_us / 1e6:.4f} s "
-          f"({interp_us / max(device_us, 1):.1%} of device time)")
+    ours = {}
+    for kname in ("program_eval", "program_multi", "program_grad"):
+        hits = [e for e in kernels if f"{kname}_kernel" in e.name]
+        us = sum(e.device_time_total for e in hits)
+        ours[kname] = us
+        print(f"{kname} kernel {us / 1e6:.4f} s over {len(hits)} launches "
+              f"({us / max(device_us, 1):.1%} of device time)")
+    for span in (e for e in spans if e.name == "sr:constant_optimizer"):
+        t0_us, t1_us = span.time_range.start, span.time_range.end
+        inside = [e for e in kernels if t0_us <= e.time_range.start and e.time_range.end <= t1_us]
+        eager = [e for e in inside if "program_multi_kernel" not in e.name
+                 and "program_grad_kernel" not in e.name]
+        eager_us = sum(e.device_time_total for e in eager)
+        span_us = t1_us - t0_us
+        inside_us = sum(e.device_time_total for e in inside)
+        print(f"constant optimizer: device span {span_us / 1e6:.4f} s "
+              f"({span_us / 1e6 / wall:.1%} of the iteration); kernels #2 and #3 "
+              f"{(inside_us - eager_us) / 1e6:.4f} s, eager L-BFGS ops {eager_us / 1e6:.4f} s "
+              f"over {len(eager)} launches, device idle in the span "
+              f"{(span_us - inside_us) / 1e6:.4f} s")
     by_name = {}
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))

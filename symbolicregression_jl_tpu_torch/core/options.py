@@ -738,11 +738,9 @@ def _refuse(what: str, where: str) -> None:
 def check_supported(options: Options) -> None:
     """Raise NotImplementedError for every option outside the plain
     f32 elementwise-loss path this port carries."""
-    if options.should_optimize_constants:
-        _refuse("should_optimize_constants=True (constant optimization)",
-                "the constant-optimizer slice (evolve/constant_opt.py, "
-                "kernels fused_grad_multi and fused_loss_multi); pass "
-                "should_optimize_constants=False")
+    if options.optimizer_bf16_linesearch:
+        _refuse("optimizer_bf16_linesearch=True (bfloat16 line-search evaluations)",
+                "graftstage (step 7)")
     if options.batching:
         _refuse("batching=True (minibatched evaluation)",
                 "the engine slice that ports minibatching")

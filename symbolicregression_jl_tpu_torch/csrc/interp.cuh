@@ -1,0 +1,428 @@
+// Device-side interpreter shared by the program kernels (sm_90a).
+//
+// program_eval.cu (kernel #1), program_multi.cu (#2) and program_grad.cu
+// (#3) include this header, so all three compute every forward step,
+// every elementwise loss and every row reduction with the same code: a
+// (tree, constant vector) pair gives the same bits in each of them.
+//
+// Instruction word: sign << 30 | code << 24 | src1 << 12 | src2, decoded
+// as the JAX package's `_fwd_dispatch` decodes it. `optab[code]` maps
+// each merged opcode of the operator set (`_dispatch_plan`) to its
+// operator: kind << 8 | op id, kind 0 = identity (unmerged plans),
+// 1 = binary, 2 = unary, 3 = the merged add/sub branch
+// a + (1 - 2 sign) * b, whose identity steps read the zero row at
+// address BASE + L.
+//
+// The reverse-mode table (vjp_binary, vjp_unary, loss_vjp) follows the
+// JVP rules JAX applies to the operators' own definitions; its plain
+// PyTorch version is symbolicregression_jl_tpu_torch/ops/vjp.py, which
+// says where the non-finite values land and why.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace sr {
+
+// Operator ids; symbolicregression_jl_tpu_torch/ops/fused_eval.py
+// `_KERNEL_OP_IDS` holds the same table by name.
+enum : int {
+  B_ADD = 0, B_SUB, B_MUL, B_DIV, B_POW, B_MOD, B_MAX, B_MIN, B_ATAN2,
+  B_GT, B_LT, B_GE, B_LE, B_COND, B_OR, B_AND,
+  U_EXP = 32, U_ABS, U_LOG, U_LOG2, U_LOG10, U_LOG1P, U_SQRT, U_CBRT,
+  U_SIN, U_COS, U_TAN, U_SINH, U_COSH, U_TANH, U_ASIN, U_ACOS, U_ATAN,
+  U_ASINH, U_ACOSH, U_ATANH, U_ATANH_CLIP, U_ERF, U_ERFC, U_GAMMA,
+  U_SQUARE, U_CUBE, U_NEG, U_INV, U_RELU, U_ROUND, U_FLOOR, U_CEIL, U_SIGN
+};
+
+enum : int { K_IDENTITY = 0, K_BINARY = 1, K_UNARY = 2, K_ADDSUB = 3 };
+enum : int { LOSS_L2 = 0, LOSS_L1 = 1, LOSS_HUBER = 2 };
+
+__device__ __forceinline__ float qnan() { return __int_as_float(0x7fc00000); }
+
+// Python-style remainder (sign of the divisor), as jnp.mod / torch.remainder.
+__device__ __forceinline__ float py_mod(float a, float b) {
+  float m = fmodf(a, b);
+  if (m != 0.0f && ((m < 0.0f) != (b < 0.0f))) m = __fadd_rn(m, b);
+  return m;
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  if (a != a || b != b) return qnan();
+  return fmaxf(a, b);
+}
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  if (a != a || b != b) return qnan();
+  return fminf(a, b);
+}
+
+__device__ __forceinline__ float safe_pow(float x, float y) {
+  const bool is_int = (y == rintf(y));
+  const bool is_odd = fabsf(py_mod(y, 2.0f)) == 1.0f;
+  const float mag = powf(fabsf(x), y);
+  if (is_int) {
+    if (y < 0.0f && x == 0.0f) return qnan();
+    return (is_odd && x < 0.0f) ? -mag : mag;
+  }
+  const bool bad = (y > 0.0f && x < 0.0f) || (y < 0.0f && x <= 0.0f);
+  return bad ? qnan() : mag;
+}
+
+__device__ __forceinline__ float sign_of(float x) {
+  if (x != x) return x;
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+
+__device__ __forceinline__ float gamma_fn(float x) {
+  const float s = x > 0.0f ? 1.0f : sign_of(sinf(__fmul_rn(3.14159265358979323846f, x)));
+  const float out = __fmul_rn(s, expf(lgammaf(x)));
+  return isinf(out) ? qnan() : out;
+}
+
+__device__ float apply_binary(int id, float a, float b) {
+  switch (id) {
+    case B_ADD: return __fadd_rn(a, b);
+    case B_SUB: return __fsub_rn(a, b);
+    case B_MUL: return __fmul_rn(a, b);
+    case B_DIV: return __fdiv_rn(a, b);
+    case B_POW: return safe_pow(a, b);
+    case B_MOD: return py_mod(a, b);
+    case B_MAX: return nan_max(a, b);
+    case B_MIN: return nan_min(a, b);
+    case B_ATAN2: return atan2f(a, b);
+    case B_GT: return a > b ? 1.0f : 0.0f;
+    case B_LT: return a < b ? 1.0f : 0.0f;
+    case B_GE: return a >= b ? 1.0f : 0.0f;
+    case B_LE: return a <= b ? 1.0f : 0.0f;
+    case B_COND: return a > 0.0f ? b : 0.0f;
+    case B_OR: return (a > 0.0f || b > 0.0f) ? 1.0f : 0.0f;
+    case B_AND: return (a > 0.0f && b > 0.0f) ? 1.0f : 0.0f;
+    default: return qnan();
+  }
+}
+
+__device__ float apply_unary(int id, float x) {
+  switch (id) {
+    case U_EXP: return expf(x);
+    case U_ABS: return fabsf(x);
+    case U_LOG: return x > 0.0f ? logf(x) : qnan();
+    case U_LOG2: return x > 0.0f ? log2f(x) : qnan();
+    case U_LOG10: return x > 0.0f ? log10f(x) : qnan();
+    case U_LOG1P: return x > -1.0f ? log1pf(x) : qnan();
+    case U_SQRT: return x >= 0.0f ? sqrtf(x) : qnan();
+    case U_CBRT: return cbrtf(x);
+    case U_SIN: return sinf(x);
+    case U_COS: return cosf(x);
+    case U_TAN: return tanf(x);
+    case U_SINH: return sinhf(x);
+    case U_COSH: return coshf(x);
+    case U_TANH: return tanhf(x);
+    case U_ASIN: return (x >= -1.0f && x <= 1.0f) ? asinf(x) : qnan();
+    case U_ACOS: return (x >= -1.0f && x <= 1.0f) ? acosf(x) : qnan();
+    case U_ATAN: return atanf(x);
+    case U_ASINH: return asinhf(x);
+    case U_ACOSH: return x >= 1.0f ? acoshf(x) : qnan();
+    case U_ATANH: return (x >= -1.0f && x <= 1.0f) ? atanhf(x) : qnan();
+    case U_ATANH_CLIP: return atanhf(__fsub_rn(py_mod(__fadd_rn(x, 1.0f), 2.0f), 1.0f));
+    case U_ERF: return erff(x);
+    case U_ERFC: return erfcf(x);
+    case U_GAMMA: return gamma_fn(x);
+    case U_SQUARE: return __fmul_rn(x, x);
+    case U_CUBE: return __fmul_rn(__fmul_rn(x, x), x);
+    case U_NEG: return -x;
+    case U_INV: return __fdiv_rn(1.0f, x);
+    case U_RELU: return x > 0.0f ? x : 0.0f;
+    case U_ROUND: return rintf(x);
+    case U_FLOOR: return floorf(x);
+    case U_CEIL: return ceilf(x);
+    case U_SIGN: return sign_of(x);
+    default: return qnan();
+  }
+}
+
+template <int LOSS>
+__device__ __forceinline__ float elementwise_loss(float p, float y) {
+  const float d = __fsub_rn(p, y);
+  if (LOSS == LOSS_L2) return __fmul_rn(d, d);
+  const float a = fabsf(d);
+  if (LOSS == LOSS_L1) return a;
+  // Huber with delta = 1: where(a <= 1, 0.5 * a * a, 1 * (a - 0.5)).
+  return a <= 1.0f ? __fmul_rn(__fmul_rn(0.5f, a), a) : __fsub_rn(a, 0.5f);
+}
+
+// One decoded instruction word.
+struct Step {
+  int kind, id, i1, i2;
+  float sg;  // 1 - 2 * sign, for the merged add/sub branch
+};
+
+__device__ __forceinline__ Step decode(int word, const int* __restrict__ optab,
+                                       int code_mask, int sign_shift) {
+  const int entry = optab[(word >> 24) & code_mask];
+  Step s;
+  s.kind = entry >> 8;
+  s.id = entry & 0xFF;
+  s.i1 = (word >> 12) & 0xFFF;
+  s.i2 = word & 0xFFF;
+  s.sg = (float)(1 - 2 * ((word >> sign_shift) & 1));
+  return s;
+}
+
+// The per-row value buffer of one thread: X features and step results in
+// shared memory laid out [slot][thread], constants shared by the block.
+struct RowBuf {
+  float* sv;        // [(F + L) * bd]
+  const float* sc;  // [CMAX]
+  int F, base, zero_addr, bd, tid;
+
+  // Operand read: X row, constant, earlier step, or the zero row.
+  __device__ __forceinline__ float rd(int a) const {
+    if (a < F) return sv[a * bd + tid];
+    if (a < base) return sc[a - F];
+    if (a < zero_addr) return sv[(F + a - base) * bd + tid];
+    return 0.0f;
+  }
+};
+
+__device__ __forceinline__ float eval_step(const Step& s, const RowBuf& b) {
+  if (s.kind == K_ADDSUB) return __fadd_rn(b.rd(s.i1), __fmul_rn(s.sg, b.rd(s.i2)));
+  if (s.kind == K_BINARY) return apply_binary(s.id, b.rd(s.i1), b.rd(s.i2));
+  if (s.kind == K_UNARY) return apply_unary(s.id, b.rd(s.i1));
+  return b.rd(s.i1);
+}
+
+// Forward sweep of one row: loads the row's features, runs the m steps,
+// stores each result and returns the root value; `ok` drops to false on a
+// non-finite step.
+__device__ __forceinline__ float forward_row(const RowBuf& b, const int* __restrict__ sins,
+                                             const float* __restrict__ X, int n, int r,
+                                             int m, const int* __restrict__ optab,
+                                             int code_mask, int sign_shift, bool& ok) {
+  for (int f = 0; f < b.F; ++f) b.sv[f * b.bd + b.tid] = X[(size_t)f * n + r];
+  float v = 0.0f;
+  for (int k = 0; k < m; ++k) {
+    v = eval_step(decode(sins[k], optab, code_mask, sign_shift), b);
+    b.sv[(b.F + k) * b.bd + b.tid] = v;
+    ok = ok && isfinite(v);
+  }
+  return v;
+}
+
+// The loss term of one row: where(w > 0, elt, 0) * w.
+template <int LOSS>
+__device__ __forceinline__ float loss_term(float v, float yr, float wr) {
+  const float elt = elementwise_loss<LOSS>(v, yr);
+  return __fmul_rn(wr > 0.0f ? elt : 0.0f, wr);
+}
+
+// Fixed-order tree reduction of one value per thread (block size a power
+// of two); the sum is in sred[0] afterwards. No float atomics, so one input
+// always gives one result.
+__device__ __forceinline__ void block_sum(float* sred, float v) {
+  const int tid = threadIdx.x;
+  sred[tid] = v;
+  __syncthreads();
+  for (int s = blockDim.x >> 1; s > 0; s >>= 1) {
+    if (tid < s) sred[tid] = __fadd_rn(sred[tid], sred[tid + s]);
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Reverse-mode table (plain version: ops/vjp.py)
+// ---------------------------------------------------------------------------
+
+// JAX's _balanced_eq: 1 where x is the max/min, halved on a tie.
+__device__ __forceinline__ float balanced(float x, float ans, float other) {
+  return __fdiv_rn(x == ans ? 1.0f : 0.0f, other == ans ? 2.0f : 1.0f);
+}
+
+__device__ __forceinline__ float recip2(float v) { return __fdiv_rn(1.0f, __fmul_rn(v, v)); }
+
+__device__ __forceinline__ float rsqrt_ieee(float v) { return __fdiv_rn(1.0f, sqrtf(v)); }
+
+// Cotangent through clip(x, -1, 1) = min(1, max(-1, x)).
+__device__ __forceinline__ float clip_vjp(float x, float ct_c) {
+  const float m = nan_max(-1.0f, x);
+  const float c = nan_min(1.0f, m);
+  const float ct_m = __fmul_rn(ct_c, balanced(m, c, 1.0f));
+  return __fmul_rn(ct_m, balanced(x, m, -1.0f));
+}
+
+__device__ __forceinline__ float clip1(float x) { return nan_min(1.0f, nan_max(-1.0f, x)); }
+
+// Digamma in double: reflection below 0, recurrence to x >= 6, then the
+// asymptotic series. Poles as torch.digamma: -inf at +0, +inf at -0, NaN at
+// negative integers.
+__device__ double digamma_d(double x) {
+  if (x == 0.0) return copysign(INFINITY, -x);
+  if (x < 0.0 && floor(x) == x) return NAN;
+  double r = 0.0;
+  if (x < 0.0) {
+    r = -3.14159265358979323846 / tan(3.14159265358979323846 * x);
+    x = 1.0 - x;
+  }
+  while (x < 6.0) {
+    r -= 1.0 / x;
+    x += 1.0;
+  }
+  const double f = 1.0 / (x * x);
+  const double t = f * (-1.0 / 12 + f * (1.0 / 120 + f * (-1.0 / 252 + f * (1.0 / 240
+                   + f * (-1.0 / 132)))));
+  return r + log(x) - 0.5 / x + t;
+}
+
+__device__ void vjp_binary(int id, float a, float b, float ct, float& da, float& db) {
+  switch (id) {
+    case B_ADD: da = ct; db = ct; return;
+    case B_SUB: da = ct; db = -ct; return;
+    case B_MUL: da = __fmul_rn(ct, b); db = __fmul_rn(a, ct); return;
+    case B_DIV:
+      da = __fdiv_rn(ct, b);
+      db = -__fmul_rn(__fmul_rn(ct, recip2(b)), a);
+      return;
+    case B_POW: {
+      const bool is_int = (b == rintf(b));
+      const bool is_odd = fabsf(py_mod(b, 2.0f)) == 1.0f;
+      const float ax = fabsf(a);
+      const float mag = powf(ax, b);
+      const float ct_int = is_int ? ct : 0.0f;
+      const float ct_non = is_int ? 0.0f : ct;
+      const float ct_s = (b < 0.0f && a == 0.0f) ? 0.0f : ct_int;
+      const float ct_m1 = (is_odd && a < 0.0f) ? -ct_s : ct_s;
+      const bool bad = (b > 0.0f && a < 0.0f) || (b < 0.0f && a <= 0.0f);
+      const float ct_m2 = bad ? 0.0f : ct_non;
+      const float jac_x = __fmul_rn(b, powf(ax, __fsub_rn(b, 1.0f)));
+      const float jac_y = __fmul_rn(logf(ax == 0.0f ? 1.0f : ax), mag);
+      const float d_ax = __fadd_rn(__fmul_rn(ct_m1, jac_x), __fmul_rn(ct_m2, jac_x));
+      da = a >= 0.0f ? d_ax : -d_ax;
+      db = __fadd_rn(__fmul_rn(ct_m1, jac_y), __fmul_rn(ct_m2, jac_y));
+      return;
+    }
+    case B_MOD: {
+      const float tm = fmodf(a, b);
+      const bool do_plus = ((tm < 0.0f) != (b < 0.0f)) && tm != 0.0f;
+      const float q = __fdiv_rn(a, b);
+      const float jac = __fmul_rn(sign_of(q), floorf(fabsf(q)));
+      da = ct;
+      db = __fadd_rn(-__fmul_rn(ct, jac), do_plus ? ct : 0.0f);
+      return;
+    }
+    case B_MAX: {
+      const float ans = nan_max(a, b);
+      da = __fmul_rn(ct, balanced(a, ans, b));
+      db = __fmul_rn(ct, balanced(b, ans, a));
+      return;
+    }
+    case B_MIN: {
+      const float ans = nan_min(a, b);
+      da = __fmul_rn(ct, balanced(a, ans, b));
+      db = __fmul_rn(ct, balanced(b, ans, a));
+      return;
+    }
+    case B_ATAN2: {
+      const float den = __fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b));
+      da = __fmul_rn(ct, __fdiv_rn(b, den));
+      db = __fmul_rn(ct, __fdiv_rn(-a, den));
+      return;
+    }
+    case B_COND: da = 0.0f; db = a > 0.0f ? ct : 0.0f; return;
+    default: da = 0.0f; db = 0.0f; return;  // comparisons and logical ops
+  }
+}
+
+__device__ float vjp_unary(int id, float x, float ct) {
+  switch (id) {
+    case U_EXP: return __fmul_rn(ct, expf(x));
+    case U_ABS: return x >= 0.0f ? ct : -ct;
+    case U_LOG: return x > 0.0f ? __fdiv_rn(ct, x) : 0.0f;
+    case U_LOG2: return x > 0.0f ? __fdiv_rn(__fdiv_rn(ct, 0.693147182464599609375f), x) : 0.0f;
+    case U_LOG10: return x > 0.0f ? __fdiv_rn(__fmul_rn(ct, 0.4342944920063018798828125f), x)
+                                  : 0.0f;
+    case U_LOG1P: return x > -1.0f ? __fdiv_rn(ct, __fadd_rn(x, 1.0f)) : 0.0f;
+    case U_SQRT: return x >= 0.0f ? __fmul_rn(ct, __fdiv_rn(0.5f, sqrtf(x))) : 0.0f;
+    case U_CBRT: {
+      const float ans = (float)cbrt((double)x);
+      return __fmul_rn(ct, __fmul_rn(0.3333333432674407958984375f, recip2(ans)));
+    }
+    case U_SIN: return __fmul_rn(ct, cosf(x));
+    case U_COS: return __fmul_rn(-ct, sinf(x));
+    case U_TAN: {
+      const float t = tanf(x);
+      return __fmul_rn(ct, __fadd_rn(1.0f, __fmul_rn(t, t)));
+    }
+    case U_SINH: return __fmul_rn(ct, (float)cosh((double)x));
+    case U_COSH: return __fmul_rn(ct, (float)sinh((double)x));
+    case U_TANH: {
+      const float ans = tanhf(x);
+      const float t = __fmul_rn(ct, __fsub_rn(1.0f, ans));
+      return __fadd_rn(t, __fmul_rn(t, ans));
+    }
+    case U_ASIN:
+    case U_ACOS: {
+      const bool ok = x >= -1.0f && x <= 1.0f;
+      const float c = clip1(x);
+      float r = rsqrt_ieee(__fsub_rn(1.0f, __fmul_rn(c, c)));
+      if (id == U_ACOS) r = -r;
+      return clip_vjp(x, __fmul_rn(ok ? ct : 0.0f, r));
+    }
+    case U_ATAN: return __fdiv_rn(ct, __fadd_rn(1.0f, __fmul_rn(x, x)));
+    case U_ASINH: return __fmul_rn(ct, rsqrt_ieee(__fadd_rn(__fmul_rn(x, x), 1.0f)));
+    case U_ACOSH: return x >= 1.0f ? __fmul_rn(ct, rsqrt_ieee(__fsub_rn(__fmul_rn(x, x), 1.0f)))
+                                   : 0.0f;
+    case U_ATANH: {
+      const bool ok = x >= -1.0f && x <= 1.0f;
+      const float c = clip1(x);
+      const float r = __fdiv_rn(1.0f, __fadd_rn(1.0f, c));
+      return clip_vjp(x, __fdiv_rn(__fmul_rn(r, ok ? ct : 0.0f), __fsub_rn(1.0f, c)));
+    }
+    case U_ATANH_CLIP: {
+      const float u = __fsub_rn(py_mod(__fadd_rn(x, 1.0f), 2.0f), 1.0f);
+      const float r = __fdiv_rn(1.0f, __fadd_rn(1.0f, u));
+      return __fdiv_rn(__fmul_rn(r, ct), __fsub_rn(1.0f, u));
+    }
+    case U_ERF:
+      return __fmul_rn(1.12837922573089599609375f, __fmul_rn(ct, expf(-__fmul_rn(x, x))));
+    case U_ERFC:
+      return __fmul_rn(-1.12837922573089599609375f, __fmul_rn(ct, expf(-__fmul_rn(x, x))));
+    case U_GAMMA: {
+      const double xd = (double)x;
+      const double sign = xd > 0.0 ? 1.0 : (double)sign_of((float)sin(3.14159265358979323846 * xd));
+      const double e = exp(lgamma(xd));
+      const float out = (float)(sign * e);
+      const float ct_o = isinf(out) ? 0.0f : ct;
+      const float ct_lg = __fmul_rn(__fmul_rn((float)sign, ct_o), (float)e);
+      return __fmul_rn(ct_lg, (float)digamma_d(xd));
+    }
+    case U_SQUARE: return __fadd_rn(__fmul_rn(ct, x), __fmul_rn(x, ct));
+    case U_CUBE: {
+      const float p = __fmul_rn(x, x);
+      const float ct_p = __fmul_rn(ct, x);
+      return __fadd_rn(__fmul_rn(p, ct), __fadd_rn(__fmul_rn(ct_p, x), __fmul_rn(x, ct_p)));
+    }
+    case U_NEG: return -ct;
+    case U_INV: return -__fmul_rn(__fmul_rn(ct, recip2(x)), 1.0f);
+    case U_RELU: return x > 0.0f ? ct : 0.0f;
+    default: return 0.0f;  // round, floor, ceil, sign
+  }
+}
+
+// d elementwise_loss / d pred, cotangent `ct`.
+template <int LOSS>
+__device__ __forceinline__ float loss_vjp(float p, float y, float ct) {
+  const float d = __fsub_rn(p, y);
+  if (LOSS == LOSS_L2) return __fadd_rn(__fmul_rn(ct, d), __fmul_rn(d, ct));
+  if (LOSS == LOSS_L1) return d >= 0.0f ? ct : -ct;
+  const float a = fabsf(d);
+  const bool near = a <= 1.0f;
+  const float ct1 = near ? ct : 0.0f;
+  const float ct2 = near ? 0.0f : ct;
+  const float ct_a = __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(0.5f, a), ct1),
+                                         __fmul_rn(0.5f, __fmul_rn(ct1, a))), ct2);
+  return d >= 0.0f ? ct_a : -ct_a;
+}
+
+}  // namespace sr

@@ -21,6 +21,9 @@
 // 2 = unary, 3 = the merged add/sub branch a + (1 - 2 sign) * b, whose
 // identity steps read the zero row at address BASE + L.
 //
+// The operator code, the decode and the row loop live in interp.cuh,
+// shared with kernels #2 (program_multi.cu) and #3 (program_grad.cu).
+//
 // Design. One CTA per tree, so the opcode switch is warp-uniform: every
 // thread of the block runs the same instruction stream. Threads stride
 // over rows. Each thread keeps its row's X features and step results in
@@ -40,138 +43,11 @@
 // the 132 SMs; making it fast (register-resident buffers, several trees
 // per block, row tiles per warp) is later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "interp.cuh"
+
+using namespace sr;
 
 namespace {
-
-// Operator ids; symbolicregression_jl_tpu_torch/ops/fused_eval.py
-// `_KERNEL_OP_IDS` holds the same table by name.
-enum : int {
-  B_ADD = 0, B_SUB, B_MUL, B_DIV, B_POW, B_MOD, B_MAX, B_MIN, B_ATAN2,
-  B_GT, B_LT, B_GE, B_LE, B_COND, B_OR, B_AND,
-  U_EXP = 32, U_ABS, U_LOG, U_LOG2, U_LOG10, U_LOG1P, U_SQRT, U_CBRT,
-  U_SIN, U_COS, U_TAN, U_SINH, U_COSH, U_TANH, U_ASIN, U_ACOS, U_ATAN,
-  U_ASINH, U_ACOSH, U_ATANH, U_ATANH_CLIP, U_ERF, U_ERFC, U_GAMMA,
-  U_SQUARE, U_CUBE, U_NEG, U_INV, U_RELU, U_ROUND, U_FLOOR, U_CEIL, U_SIGN
-};
-
-enum : int { K_IDENTITY = 0, K_BINARY = 1, K_UNARY = 2, K_ADDSUB = 3 };
-enum : int { LOSS_L2 = 0, LOSS_L1 = 1, LOSS_HUBER = 2 };
-
-__device__ __forceinline__ float qnan() { return __int_as_float(0x7fc00000); }
-
-// Python-style remainder (sign of the divisor), as jnp.mod / torch.remainder.
-__device__ __forceinline__ float py_mod(float a, float b) {
-  float m = fmodf(a, b);
-  if (m != 0.0f && ((m < 0.0f) != (b < 0.0f))) m = __fadd_rn(m, b);
-  return m;
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  if (a != a || b != b) return qnan();
-  return fmaxf(a, b);
-}
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  if (a != a || b != b) return qnan();
-  return fminf(a, b);
-}
-
-__device__ __forceinline__ float safe_pow(float x, float y) {
-  const bool is_int = (y == rintf(y));
-  const bool is_odd = fabsf(py_mod(y, 2.0f)) == 1.0f;
-  const float mag = powf(fabsf(x), y);
-  if (is_int) {
-    if (y < 0.0f && x == 0.0f) return qnan();
-    return (is_odd && x < 0.0f) ? -mag : mag;
-  }
-  const bool bad = (y > 0.0f && x < 0.0f) || (y < 0.0f && x <= 0.0f);
-  return bad ? qnan() : mag;
-}
-
-__device__ __forceinline__ float sign_of(float x) {
-  if (x != x) return x;
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
-}
-
-__device__ __forceinline__ float gamma_fn(float x) {
-  const float s = x > 0.0f ? 1.0f : sign_of(sinf(__fmul_rn(3.14159265358979323846f, x)));
-  const float out = __fmul_rn(s, expf(lgammaf(x)));
-  return isinf(out) ? qnan() : out;
-}
-
-__device__ float apply_binary(int id, float a, float b) {
-  switch (id) {
-    case B_ADD: return __fadd_rn(a, b);
-    case B_SUB: return __fsub_rn(a, b);
-    case B_MUL: return __fmul_rn(a, b);
-    case B_DIV: return __fdiv_rn(a, b);
-    case B_POW: return safe_pow(a, b);
-    case B_MOD: return py_mod(a, b);
-    case B_MAX: return nan_max(a, b);
-    case B_MIN: return nan_min(a, b);
-    case B_ATAN2: return atan2f(a, b);
-    case B_GT: return a > b ? 1.0f : 0.0f;
-    case B_LT: return a < b ? 1.0f : 0.0f;
-    case B_GE: return a >= b ? 1.0f : 0.0f;
-    case B_LE: return a <= b ? 1.0f : 0.0f;
-    case B_COND: return a > 0.0f ? b : 0.0f;
-    case B_OR: return (a > 0.0f || b > 0.0f) ? 1.0f : 0.0f;
-    case B_AND: return (a > 0.0f && b > 0.0f) ? 1.0f : 0.0f;
-    default: return qnan();
-  }
-}
-
-__device__ float apply_unary(int id, float x) {
-  switch (id) {
-    case U_EXP: return expf(x);
-    case U_ABS: return fabsf(x);
-    case U_LOG: return x > 0.0f ? logf(x) : qnan();
-    case U_LOG2: return x > 0.0f ? log2f(x) : qnan();
-    case U_LOG10: return x > 0.0f ? log10f(x) : qnan();
-    case U_LOG1P: return x > -1.0f ? log1pf(x) : qnan();
-    case U_SQRT: return x >= 0.0f ? sqrtf(x) : qnan();
-    case U_CBRT: return cbrtf(x);
-    case U_SIN: return sinf(x);
-    case U_COS: return cosf(x);
-    case U_TAN: return tanf(x);
-    case U_SINH: return sinhf(x);
-    case U_COSH: return coshf(x);
-    case U_TANH: return tanhf(x);
-    case U_ASIN: return (x >= -1.0f && x <= 1.0f) ? asinf(x) : qnan();
-    case U_ACOS: return (x >= -1.0f && x <= 1.0f) ? acosf(x) : qnan();
-    case U_ATAN: return atanf(x);
-    case U_ASINH: return asinhf(x);
-    case U_ACOSH: return x >= 1.0f ? acoshf(x) : qnan();
-    case U_ATANH: return (x >= -1.0f && x <= 1.0f) ? atanhf(x) : qnan();
-    case U_ATANH_CLIP: return atanhf(__fsub_rn(py_mod(__fadd_rn(x, 1.0f), 2.0f), 1.0f));
-    case U_ERF: return erff(x);
-    case U_ERFC: return erfcf(x);
-    case U_GAMMA: return gamma_fn(x);
-    case U_SQUARE: return __fmul_rn(x, x);
-    case U_CUBE: return __fmul_rn(__fmul_rn(x, x), x);
-    case U_NEG: return -x;
-    case U_INV: return __fdiv_rn(1.0f, x);
-    case U_RELU: return x > 0.0f ? x : 0.0f;
-    case U_ROUND: return rintf(x);
-    case U_FLOOR: return floorf(x);
-    case U_CEIL: return ceilf(x);
-    case U_SIGN: return sign_of(x);
-    default: return qnan();
-  }
-}
-
-template <int LOSS>
-__device__ __forceinline__ float elementwise_loss(float p, float y) {
-  const float d = __fsub_rn(p, y);
-  if (LOSS == LOSS_L2) return __fmul_rn(d, d);
-  const float a = fabsf(d);
-  if (LOSS == LOSS_L1) return a;
-  // Huber with delta = 1: where(a <= 1, 0.5 * a * a, 1 * (a - 0.5)).
-  return a <= 1.0f ? __fmul_rn(__fmul_rn(0.5f, a), a) : __fsub_rn(a, 0.5f);
-}
 
 template <int LOSS, bool COST>
 __global__ void program_eval_kernel(
@@ -204,51 +80,16 @@ __global__ void program_eval_kernel(
   __syncthreads();
 
   const int m = nsteps[t];
+  const RowBuf b{sv, sc, F, base, zero_addr, bd, tid};
   float acc = 0.0f;
   bool ok = true;
   for (int r = tid; r < n; r += bd) {
-    for (int f = 0; f < F; ++f) sv[f * bd + tid] = X[(size_t)f * n + r];
-    float v = 0.0f;
-    for (int k = 0; k < m; ++k) {
-      const int word = sins[k];
-      const int code = (word >> 24) & code_mask;
-      const int i1 = (word >> 12) & 0xFFF;
-      const int i2 = word & 0xFFF;
-      // Operand reads: X row, constant, earlier step, or the zero row.
-      auto rd = [&](int a) -> float {
-        if (a < F) return sv[a * bd + tid];
-        if (a < base) return sc[a - F];
-        if (a < zero_addr) return sv[(F + a - base) * bd + tid];
-        return 0.0f;
-      };
-      const int entry = optab[code];
-      const int kind = entry >> 8;
-      const int id = entry & 0xFF;
-      if (kind == K_ADDSUB) {
-        const float sg = (float)(1 - 2 * ((word >> sign_shift) & 1));
-        v = __fadd_rn(rd(i1), __fmul_rn(sg, rd(i2)));
-      } else if (kind == K_BINARY) {
-        v = apply_binary(id, rd(i1), rd(i2));
-      } else if (kind == K_UNARY) {
-        v = apply_unary(id, rd(i1));
-      } else {
-        v = rd(i1);
-      }
-      sv[(F + k) * bd + tid] = v;
-      ok = ok && isfinite(v);
-    }
-    const float wr = w[r];
-    const float elt = elementwise_loss<LOSS>(v, y[r]);
-    acc = __fadd_rn(acc, __fmul_rn(wr > 0.0f ? elt : 0.0f, wr));
+    const float v = forward_row(b, sins, X, n, r, m, optab, code_mask, sign_shift, ok);
+    acc = __fadd_rn(acc, loss_term<LOSS>(v, y[r], w[r]));
   }
 
   const int all_ok = __syncthreads_and(ok ? 1 : 0);
-  sred[tid] = acc;
-  __syncthreads();
-  for (int s = bd >> 1; s > 0; s >>= 1) {
-    if (tid < s) sred[tid] = __fadd_rn(sred[tid], sred[tid + s]);
-    __syncthreads();
-  }
+  block_sum(sred, acc);
   if (tid == 0) {
     const float total = sred[0];
     const int valid = (all_ok && isfinite(total) && const_ok[t] != 0) ? 1 : 0;

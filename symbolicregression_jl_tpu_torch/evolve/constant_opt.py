@@ -1,0 +1,296 @@
+"""Batched constant optimization (port of ``evolve/constant_opt.py``).
+
+Every selected member is optimized at once, with ``nrestarts`` perturbed
+restarts ``x0 * (1 + 0.5 eps)`` as an extra batch axis; a member takes the
+best restart's constants only when that beats its loss before the
+optimization. Two forms, as in the JAX package:
+
+- :func:`optimize_constants_fused` (the kernel path, ``turbo``): L-BFGS in
+  the compressed constant space of ``compile_program``; each iteration is
+  one launch of kernel #2 for all R*C line-search candidates and one of
+  kernel #3 for the accepted point's loss and gradient (one more kernel #3
+  launch comes before the loop).
+- :func:`optimize_constants_batch` (the eager path): dense BFGS with a
+  backtracking Armijo line search over the eager interpreter
+  (``ops/eval.py``), differentiated by ``torch.autograd``; the JAX
+  package's per-member ``vmap`` is a written-out [members, restarts] axis.
+
+The JAX ``scan`` loops are Python loops over tensors with no host
+synchronisation inside them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..core.losses import aggregate_loss
+from ..ops.encoding import LEAF_CONST, TreeBatch
+from ..ops.eval import eval_tree_batch
+from ..ops.fused_eval import fused_grad_multi, fused_loss_multi
+from ..ops.program import _scatter_drop, compile_program
+from . import rng
+
+__all__ = ["OptimizerConfig", "optimize_constants_batch", "optimize_constants_fused"]
+
+
+class OptimizerConfig(NamedTuple):
+    """The semantic fields of the JAX package's OptimizerConfig; its
+    TPU launch-geometry fields (V-chunks, VMEM budgets, tree blocks) have
+    no counterpart here."""
+
+    iterations: int = 8          # optimizer_iterations default
+    nrestarts: int = 2           # optimizer_nrestarts
+    max_linesearch: int = 8
+    c1: float = 1e-4             # Armijo condition coefficient
+    shrink: float = 0.5
+    ls_bf16: bool = False        # bfloat16 line-search evaluations (graftstage)
+    # Freeze rows whose line search failed (1-step programs) and skip
+    # members with no constants; f_calls counts only live rows.
+    early_exit: bool = False
+
+
+def _step_sizes(cfg: OptimizerConfig, device) -> torch.Tensor:
+    return torch.tensor(cfg.shrink, dtype=torch.float32, device=device) ** torch.arange(
+        cfg.max_linesearch, dtype=torch.float32, device=device)
+
+
+def _first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis (0 when none)."""
+    return torch.argmax(mask.to(torch.int32), dim=-1)
+
+
+def optimize_constants_fused(key, trees: TreeBatch, do_opt: torch.Tensor, data,
+                             elementwise_loss, operators, cfg: OptimizerConfig):
+    """L-BFGS with a batched line search through kernels #2 and #3.
+
+    ``trees`` [P, L], ``do_opt`` [P] bool. Returns (new_const [P, L],
+    improved [P], new_loss [P], f_calls [P])."""
+    if cfg.ls_bf16:
+        raise NotImplementedError(
+            "ls_bf16 (bfloat16 line-search evaluations) is not in the PyTorch port yet; "
+            "it comes with graftstage (ROADMAP.md queue 1 step 7).")
+    P, L = trees.arity.shape
+    R = cfg.nrestarts + 1
+    C = cfg.max_linesearch
+    X, y, w = data.Xt, data.y, data.weights
+    F = X.shape[0]
+    dev = X.device
+
+    # Optimize in the program's compressed constant space: the gradient
+    # kernel produces gradients there, and the winners scatter back into
+    # slot order once at the end.
+    prog = compile_program(trees, F, len(operators.binary))
+    CM = prog.cmax
+    used = torch.arange(CM, device=dev)[None, :] < prog.nconst[:, None]
+
+    eps = rng.normal(key, (P, cfg.nrestarts, CM))
+    base = prog.cvals
+    starts = torch.cat([base[:, None], base[:, None] * (1.0 + 0.5 * eps)], dim=1)
+    x = starts.reshape(P * R, CM)
+    mask_r = used.repeat_interleave(R, dim=0)
+    M = P * R
+
+    def vg(consts, pg):
+        loss, _, gcomp = fused_grad_multi(pg, consts.reshape(P, R, CM), X, y, w, F,
+                                          operators, elementwise_loss)
+        return loss.reshape(M), torch.where(mask_r, gcomp.reshape(M, CM), 0.0)
+
+    def fused_many(cand_x, pg):
+        loss, _ = fused_loss_multi(pg, cand_x.reshape(P, R * C, CM), X, y, w, F,
+                                   operators, elementwise_loss)
+        return loss.reshape(M, C)
+
+    ts = _step_sizes(cfg, dev)
+    fx0, g0 = vg(x, prog)
+    fx, g = fx0, g0
+    calls = torch.ones(M, dtype=torch.float32, device=dev)
+    if cfg.early_exit:
+        active = (do_opt & (prog.nconst > 0)).repeat_interleave(R)
+    else:
+        active = torch.ones(M, dtype=torch.bool, device=dev)
+
+    # L-BFGS two-loop recursion; the history covers the whole fixed
+    # budget. Newest (s, y, rho) first; empty slots have rho == 0.
+    hlen = min(int(cfg.iterations), 8)
+    S = torch.zeros((hlen, M, CM), dtype=x.dtype, device=dev)
+    Y = torch.zeros_like(S)
+    rho = torch.zeros((hlen, M), dtype=x.dtype, device=dev)
+
+    def lbfgs_direction(g, S, Y, rho):
+        q = g
+        alphas = []
+        for i in range(hlen):
+            alpha = rho[i] * torch.sum(S[i] * q, dim=1)
+            q = q - alpha[:, None] * Y[i]
+            alphas.append(alpha)
+        yy = torch.sum(Y[0] * Y[0], dim=1)
+        sy = torch.sum(S[0] * Y[0], dim=1)
+        gamma = torch.where((rho[0] != 0) & (yy > 0), sy / torch.clamp(yy, min=1e-30), 1.0)
+        q = q * torch.clamp(gamma, 1e-8, 1e8)[:, None]
+        for i in reversed(range(hlen)):
+            beta = rho[i] * torch.sum(Y[i] * q, dim=1)
+            q = q + (alphas[i] - beta)[:, None] * S[i]
+        return -q
+
+    for _ in range(cfg.iterations):
+        pg = prog
+        if cfg.early_exit:
+            tree_live = torch.any(active.reshape(P, R), dim=1)
+            pg = dataclasses.replace(prog, nsteps=torch.where(tree_live, prog.nsteps, 1))
+        d = lbfgs_direction(g, S, Y, rho)
+        dg = torch.sum(d * g, dim=1)
+        use_sd = (dg >= 0) | ~torch.all(torch.isfinite(d), dim=1)
+        d = torch.where(use_sd[:, None], -g, d)
+        dg = torch.where(use_sd, -torch.sum(g * g, dim=1), dg)
+
+        # all candidate steps in one launch: [M, C, CM]
+        cand_x = x[:, None, :] + ts[None, :, None] * d[:, None, :]
+        f_cand = fused_many(cand_x, pg)
+        armijo = (f_cand <= fx[:, None] + cfg.c1 * ts[None, :] * dg[:, None]) \
+            & torch.isfinite(f_cand)
+        any_ok = torch.any(armijo, dim=1) & active
+        t_star = torch.where(any_ok, ts[_first_true(armijo)], 0.0)
+        s = t_star[:, None] * d
+        x_new = x + s
+        f_new, g_new = vg(x_new, pg)
+        # Descent guard: reject a step the accepted point's loss calls uphill.
+        any_ok = any_ok & (f_new <= fx)
+        s = torch.where(any_ok[:, None], s, 0.0)
+        x_new = torch.where(any_ok[:, None], x_new, x)
+        f_new = torch.where(any_ok, f_new, fx)
+        g_new = torch.where(any_ok[:, None], g_new, g)
+        yv = g_new - g
+        sy = torch.sum(s * yv, dim=1)
+        rho_new = torch.where(torch.abs(sy) > 1e-10, 1.0 / sy, 0.0)
+        S = torch.cat([s[None], S[:-1]], dim=0)
+        Y = torch.cat([yv[None], Y[:-1]], dim=0)
+        rho = torch.cat([rho_new[None], rho[:-1]], dim=0)
+        calls = calls + (C + 1) * active.to(calls.dtype)
+        if cfg.early_exit:
+            active = any_ok
+        x, fx, g = x_new, f_new, g_new
+
+    # Best over restarts, accepted only if better than the original loss
+    # (restart 0 starts at the member's constants).
+    baseline = fx0.reshape(P, R)[:, 0]
+    fx = torch.where(torch.isnan(fx), torch.inf, fx).reshape(P, R)
+    best_r = torch.argmin(fx, dim=1)
+    f_best = torch.gather(fx, 1, best_r[:, None])[:, 0]
+    x_best = torch.gather(x.reshape(P, R, CM), 1,
+                          best_r[:, None, None].expand(P, 1, CM))[:, 0]
+    improved = do_opt & (f_best < baseline) & torch.isfinite(f_best)
+    scattered = _scatter_drop(trees.const, prog.cslot, x_best, accumulate=False)
+    new_const = torch.where(improved[:, None], scattered, trees.const)
+    f_calls = torch.sum(calls.reshape(P, R), dim=1) * do_opt
+    return new_const, improved, torch.where(improved, f_best, baseline), f_calls
+
+
+def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
+                             elementwise_loss, operators, cfg: OptimizerConfig,
+                             params: Optional[torch.Tensor] = None):
+    """Dense BFGS with a backtracking Armijo line search on the eager
+    interpreter, per member and restart.
+
+    ``trees`` [P, L] with ``key`` [2], or [I, P, L] with ``key`` [I, 2]
+    (one key per island, the JAX package's per-island ``vmap``); member m
+    draws its restart perturbations from ``split(key, P)[m]``. Returns
+    (new_const, improved, new_loss, f_calls) with the leading dims of
+    ``trees``."""
+    if params is not None and params.shape[-2] > 0:
+        raise NotImplementedError(
+            "parametric expressions (params) are not in the PyTorch port yet; they come "
+            "with the expression-plugin slice (ROADMAP.md queue 1 step 8).")
+    lead = trees.batch_shape
+    L = trees.max_nodes
+    keys = rng.split(key, lead[-1]).reshape(-1, 2)
+    flat = trees.reshape(-1)
+    do_opt = do_opt.reshape(-1)
+    P = flat.arity.shape[0]
+    R = cfg.nrestarts + 1
+    C = cfg.max_linesearch
+    X, y, w = data.Xt, data.y, data.weights
+    dev = X.device
+    slot = torch.arange(L, device=dev)
+    cmask = (slot[None, :] < flat.length[:, None]) & (flat.arity == 0) & (flat.op == LEAF_CONST)
+    x0 = flat.const
+
+    # Trees per interpreter call, so that its [trees, L, rows] buffer stays
+    # near 2^24 elements.
+    chunk = max(1, (1 << 24) // max(L * X.shape[1], 1))
+
+    def loss_of(xb, reps: int):
+        """Loss of each member's tree with the constants ``xb`` [P*reps, L]."""
+        rep = lambda a: a.repeat_interleave(reps, dim=0)
+        c = torch.where(rep(cmask), xb, rep(x0))
+        member = TreeBatch(rep(flat.arity), rep(flat.op), rep(flat.feat), c, rep(flat.length))
+        parts = []
+        for i in range(0, c.shape[0], chunk):
+            pred, valid = eval_tree_batch(member[i:i + chunk], X, operators)
+            parts.append(aggregate_loss(elementwise_loss, pred, y, valid, w))
+        return torch.cat(parts)
+
+    mask_r = cmask.repeat_interleave(R, dim=0)
+
+    def value_and_grad(xb):
+        """Each tree's loss depends on its own constants only, so the
+        gradient of the summed loss is every tree's own gradient."""
+        xb = xb.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = loss_of(xb, R)
+            (g,) = torch.autograd.grad(loss.sum(), xb)
+        g = torch.where(mask_r, g, 0.0)
+        return loss.detach(), torch.where(torch.isfinite(g), g, 0.0)
+
+    with torch.no_grad():
+        baseline = loss_of(x0, 1)
+    eps = rng.normal(keys, (cfg.nrestarts, L))
+    x = torch.cat([x0[:, None], x0[:, None] * (1.0 + 0.5 * eps)], dim=1).reshape(P * R, L)
+    M = P * R
+    ts = _step_sizes(cfg, dev)
+    eye = torch.eye(L, dtype=x.dtype, device=dev)
+    H = eye.expand(M, L, L)
+    fx, g = value_and_grad(x)
+    calls = torch.ones(M, dtype=torch.float32, device=dev)
+    for _ in range(cfg.iterations):
+        d = -(H @ g[:, :, None])[:, :, 0]
+        dg = torch.sum(d * g, dim=1)
+        use_sd = dg >= 0
+        d = torch.where(use_sd[:, None], -g, d)
+        dg = torch.where(use_sd, -torch.sum(g * g, dim=1), dg)
+        # The C backtracking trial points do not depend on each other's
+        # losses: all are evaluated at once and the first Armijo point taken.
+        with torch.no_grad():
+            f_try = loss_of((x[:, None, :] + ts[None, :, None] * d[:, None, :]).reshape(M * C, L),
+                            R * C).reshape(M, C)
+        ok = (f_try <= fx[:, None] + cfg.c1 * ts[None, :] * dg[:, None]) & torch.isfinite(f_try)
+        found = torch.any(ok, dim=1)
+        t_star = torch.where(found, ts[_first_true(ok)], 0.0)
+        s = t_star[:, None] * d
+        x_new = x + s
+        f_new, g_new = value_and_grad(x_new)
+        f_new = torch.where(found, f_new, fx)
+        x_new = torch.where(found[:, None], x_new, x)
+        g_new = torch.where(found[:, None], g_new, g)
+        yv = g_new - g
+        sy = torch.sum(s * yv, dim=1)
+        rho = torch.where(torch.abs(sy) > 1e-10, 1.0 / sy, 0.0)
+        I_rs = eye - rho[:, None, None] * (s[:, :, None] * yv[:, None, :])
+        H_new = I_rs @ H @ I_rs.transpose(1, 2) + rho[:, None, None] * (s[:, :, None] * s[:, None, :])
+        keep = torch.isfinite(H_new).all(dim=(1, 2)) & (rho != 0)
+        H = torch.where(keep[:, None, None], H_new, H)
+        calls = calls + (C + 1)
+        x, fx, g = x_new, f_new, g_new
+
+    fs = torch.where(torch.isnan(fx), torch.inf, fx).reshape(P, R)
+    best = torch.argmin(fs, dim=1)
+    f_best = torch.gather(fx.reshape(P, R), 1, best[:, None])[:, 0]
+    x_best = torch.gather(x.reshape(P, R, L), 1, best[:, None, None].expand(P, 1, L))[:, 0]
+    improved = do_opt & (f_best < baseline) & torch.isfinite(f_best)
+    new_const = torch.where(improved[:, None] & cmask, x_best, x0)
+    new_loss = torch.where(improved, f_best, baseline)
+    f_calls = torch.sum(calls.reshape(P, R), dim=1) * do_opt
+    return (new_const.reshape(*lead, L), improved.reshape(lead), new_loss.reshape(lead),
+            f_calls.reshape(lead))

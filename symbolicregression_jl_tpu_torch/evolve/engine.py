@@ -6,14 +6,14 @@ iteration for every island at once:
 
     s_r_cycle (ncycles bulk generation steps over the annealing ramp)
     -> constant folding (simplify)
+    -> constant optimization of the selected members (evolve/constant_opt.py)
     -> finalize costs (the whole population re-scored, duplicates once)
     -> hall-of-fame merge across islands
     -> migration (island <- best members of all islands, island <- HoF)
     -> running-statistics update (frequency histogram, windowing)
 
-The constant optimizer (``should_optimize_constants=True``) is refused:
-it comes with the next slice. With it off the JAX package's epilogue
-draws no optimizer randomness, so the key streams stay the same.
+The optimizer's randomness is drawn as the JAX package draws it
+(``_epilogue_draws``), so one key gives the same selection in both.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from ..device import resolve_device
 from ..ops.complexity import ComplexityTables, build_complexity_tables
 from ..ops.encoding import TreeBatch
 from . import rng
+from .constant_opt import OptimizerConfig, optimize_constants_batch, optimize_constants_fused
 from .population import PopulationState, init_population
 from .simplify import fold_constants_batch
 from .step import (EvolveConfig, HofState, empty_hof, eval_cost_batch,
@@ -83,6 +84,8 @@ class Engine:
         self.device = resolve_device(device)
         self.cfg: EvolveConfig = evolve_config_from_options(options, nfeatures, self.device)
         self.tables: ComplexityTables = build_complexity_tables(options, nfeatures, self.device)
+        self.opt_cfg = OptimizerConfig(iterations=options.optimizer_iterations,
+                                       nrestarts=options.optimizer_nrestarts)
         self.window_size = float(window_size)
 
     def _eval(self, trees: TreeBatch, data: DeviceData, *, fuse_cost: bool,
@@ -91,6 +94,33 @@ class Engine:
         return eval_cost_batch(trees, data, self.options.elementwise_loss, self.tables,
                                cfg.operators, cfg.parsimony, turbo=cfg.turbo,
                                fuse_cost=fuse_cost, dedup=dedup)
+
+    def _epilogue_draws(self, k_opt, I: int):
+        """The optimizer's selection size and its island-major random
+        draws, as the JAX package makes them. Returns
+        ``(k_sel, scores, gate, ko2)``; ``scores`` and ``gate`` are None
+        when the epilogue optimizes nothing."""
+        options = self.options
+        P = self.cfg.population_size
+        k_sel = max(1, round(P * options.optimizer_probability))
+        gate_p = min(P * options.optimizer_probability / k_sel, 1.0)
+        opt_kind_on = float(options.mutation_weights.optimize) > 0
+        if opt_kind_on:
+            # Cover the expected number of members marked by
+            # `optimize`-kind mutations this iteration.
+            frac_opt = float(options.mutation_weights.optimize) / max(
+                float(options.mutation_weights.as_vector().sum()), 1e-12)
+            expected = self.cfg.n_slots * self.cfg.ncycles * frac_opt
+            k_sel = max(k_sel, min(P, math.ceil(expected)))
+        do_optimize = options.should_optimize_constants and (
+            options.optimizer_probability > 0 or opt_kind_on)
+        scores = gate = None
+        ko2 = k_opt
+        if do_optimize:
+            ko1, ko2, ko3 = rng.split(k_opt, 3)
+            scores = rng.uniform(ko1, (I, P))
+            gate = rng.bernoulli(ko3, gate_p, (I, k_sel))
+        return k_sel, scores, gate, ko2
 
     # ------------------------------------------------------------------
     def init_state(self, key: torch.Tensor, data: DeviceData, n_islands: int) -> SearchDeviceState:
@@ -133,7 +163,7 @@ class Engine:
         I = state.birth.shape[0]
         P = cfg.population_size
         ks = rng.split(state.key, 5)
-        key, _k_batch, k_cycle, _k_opt, k_mig = (ks[i] for i in range(5))
+        key, _k_batch, k_cycle, k_opt, k_mig = (ks[i] for i in range(5))
 
         pops, best_seen, nev, birth, ref, marks = s_r_cycle(
             rng.split(k_cycle, I), state.pops, data, state.stats.normalized_frequencies,
@@ -141,7 +171,10 @@ class Engine:
             options.elementwise_loss)
         num_evals = state.num_evals + torch.sum(nev)
 
-        pops, ref = self._island_epilogue(pops, ref, marks[0], data)
+        k_sel, scores, gate, ko2 = self._epilogue_draws(k_opt, I)
+        pops, ref, f_calls = self._island_epilogue(pops, ref, marks[0], marks[1], scores,
+                                                   gate, ko2, data, k_sel)
+        num_evals = num_evals + f_calls
         num_evals = num_evals + I * P  # the finalize re-eval
 
         # ---- merge best_seen + final pops into the global HoF ----
@@ -182,22 +215,63 @@ class Engine:
         return SearchDeviceState(pops=pops, hof=hof, stats=stats, birth=birth, ref=ref,
                                  num_evals=num_evals, key=key)
 
-    def _island_epilogue(self, pops: PopulationState, ref, simp_mark, data: DeviceData):
-        """Fold constants, finalize costs, rotate lineage refs."""
+    def _island_epilogue(self, pops: PopulationState, ref, simp_mark, opt_mark, scores, gate,
+                         opt_key, data: DeviceData, k_sel: int):
+        """Fold constants, optimize the selected members' constants,
+        finalize costs, rotate lineage refs. Returns (pops, ref, f_calls)."""
         cfg = self.cfg
+        options = self.options
         I, P = pops.cost.shape
         if cfg.should_simplify:
             pops = dataclasses.replace(pops, trees=fold_constants_batch(pops.trees,
                                                                         cfg.operators))
-        elif float(self.options.mutation_weights.simplify) > 0:
+        elif float(options.mutation_weights.simplify) > 0:
             from ..ops.encoding import select_tree
 
             folded = fold_constants_batch(pops.trees, cfg.operators)
             pops = dataclasses.replace(pops, trees=select_tree(simp_mark, folded, pops.trees))
+        f_calls = torch.zeros((), dtype=torch.float32, device=self.device)
+        if scores is not None:
+            pops, f_calls = self._optimize(pops, opt_mark, scores, gate, opt_key, data, k_sel)
         pops = self._finalize_costs(pops, data)
         new_refs = ref[:, None] + torch.arange(P, dtype=torch.int32, device=self.device)[None, :]
         pops = dataclasses.replace(pops, parent=pops.ref, ref=new_refs)
-        return pops, ref + P
+        return pops, ref + P, f_calls
+
+    def _optimize(self, pops: PopulationState, opt_mark, scores, gate, opt_key,
+                  data: DeviceData, k_sel: int):
+        """Select ``k_sel`` members per island (``optimize``-marked ones
+        first), optimize their constants and scatter the winners back.
+        Returns (pops, total f_calls)."""
+        cfg = self.cfg
+        options = self.options
+        I, P = pops.cost.shape
+        L = cfg.max_nodes
+        opt_kind_on = float(options.mutation_weights.optimize) > 0
+        if opt_kind_on:
+            scores = scores + 10.0 * opt_mark.to(scores.dtype)
+        # jax.lax.top_k: the larger score first, the lower index first on ties.
+        sel_idx = torch.sort(scores, dim=1, descending=True, stable=True)[1][:, :k_sel]
+        if opt_kind_on:
+            gate = gate | torch.gather(opt_mark, 1, sel_idx)
+        sub = TreeBatch(*(torch.gather(f, 1, sel_idx[:, :, None].expand(I, k_sel, L))
+                          for f in (pops.trees.arity, pops.trees.op, pops.trees.feat,
+                                    pops.trees.const)),
+                        torch.gather(pops.trees.length, 1, sel_idx))
+        # A named range for torch.profiler (bench/profile_iteration.py).
+        with torch.profiler.record_function("sr:constant_optimizer"):
+            if cfg.turbo:
+                new_const, _, _, f_calls = optimize_constants_fused(
+                    opt_key, sub.reshape(I * k_sel), gate.reshape(I * k_sel), data,
+                    options.elementwise_loss, cfg.operators, self.opt_cfg)
+                new_const = new_const.reshape(I, k_sel, L)
+            else:
+                new_const, _, _, f_calls = optimize_constants_batch(
+                    rng.split(opt_key, I), sub, gate, data, options.elementwise_loss,
+                    cfg.operators, self.opt_cfg)
+        const = pops.trees.const.scatter(1, sel_idx[:, :, None].expand(I, k_sel, L), new_const)
+        pops = dataclasses.replace(pops, trees=dataclasses.replace(pops.trees, const=const))
+        return pops, torch.sum(f_calls)
 
     def _finalize_costs(self, pops: PopulationState, data: DeviceData) -> PopulationState:
         """Re-score every member on the whole dataset. On the kernel path

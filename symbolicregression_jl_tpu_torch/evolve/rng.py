@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 __all__ = ["key", "split", "fold_in", "random_bits", "uniform", "bernoulli",
-           "gumbel", "categorical", "permutation", "USlice", "u_randint",
+           "gumbel", "categorical", "permutation", "normal", "USlice", "u_randint",
            "u_masked_choice", "u_bernoulli", "u_normal", "u_categorical_weights"]
 
 _ROT0 = (13, 15, 26, 6)
@@ -271,6 +271,87 @@ def ndtri(p: torch.Tensor) -> torch.Tensor:
     x = torch.where(p > _f32(1.0 - np.exp(-2.0)), x, -x)
     x = torch.where(p == 0.0, -torch.inf, torch.where(p == 1.0, torch.inf, x))
     return x
+
+
+# XLA's float32 ErfInv (the chlo decomposition): Giles' single-precision
+# polynomials in w = -log1p(-x*x), one for w < 5 and one above.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+# XLA's CPU log1p: a Cephes rational function below sqrt(2) - 1, else log(1 + x).
+_LOG1P_NUM = (4.5270000862445199635215E-5, 4.9854102823193375972212E-1,
+              6.5787325942061044846969E0, 2.9911919328553073277375E1,
+              6.0949667980987787057556E1, 5.7112963590585538103336E1,
+              2.0039553499201281259648E1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167E1, 8.3047565967967209469434E1,
+              2.2176239823732856465394E2, 3.0909872225312059774938E2,
+              2.1642788614495947685003E2, 6.0118660497603843919306E1)
+# XLA's CPU logf: the Cephes polynomial.
+_LOGF_P = (7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1, -1.2420140846E-1,
+           1.4249322787E-1, -1.6668057665E-1, 2.0000714765E-1, -2.4999993993E-1,
+           3.3333331174E-1)
+
+
+def _fma(a, b, c):
+    """float32 fused multiply-add (float64 product of float32 values is exact)."""
+    a = torch.as_tensor(a, dtype=torch.float32)
+    return (a.double() * torch.as_tensor(b).double()
+            + torch.as_tensor(c).double()).to(torch.float32)
+
+
+def _xla_logf(v: torch.Tensor) -> torch.Tensor:
+    """float32 natural log, XLA CPU's Cephes evaluation (finite v > 0)."""
+    m, e = torch.frexp(torch.clamp(v, min=_f32(np.finfo(np.float32).tiny)))
+    e = e.to(torch.float32)
+    small = m < _f32(np.sqrt(0.5))
+    e = e - small.to(torch.float32)
+    x = (m - 1.0) + torch.where(small, m, 0.0)
+    x2 = x * x
+    x3 = x2 * x
+    p = [_f32(c) for c in _LOGF_P]
+    y, y1, y2 = _fma(p[0], x, p[1]), _fma(p[3], x, p[4]), _fma(p[6], x, p[7])
+    y, y1, y2 = _fma(y, x, p[2]), _fma(y1, x, p[5]), _fma(y2, x, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2) * x3
+    y = _fma(e, _f32(-2.12194440e-4), y)
+    x = _fma(_f32(-0.5), x2, x) + y
+    return _fma(e, _f32(0.693359375), x)
+
+
+def _xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """float32 log1p as XLA's CPU backend computes it (x > -1)."""
+    x2 = x * x
+    num = torch.zeros_like(x)
+    den = torch.zeros_like(x)
+    for c in _LOG1P_NUM:
+        num = _fma(num, x, _f32(c))
+    for c in _LOG1P_DEN:
+        den = _fma(den, x, _f32(c))
+    small = x + _fma(_f32(-0.5), x2, (x * x2) * (num / den))
+    return torch.where(x.abs() < _f32(np.sqrt(2.0) - 1.0), small, _xla_logf(x + 1.0))
+
+
+def _erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.erf_inv`` in float32 with XLA's polynomial, each Horner
+    step one fused multiply-add. Bit-equal to the JAX package's CPU
+    results where x*x < sqrt(2) - 1 (the rational log1p branch); past it
+    XLA's CPU logf is emulated and a few values in 10^5 differ by an ULP."""
+    w = -_xla_log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    lo = torch.tensor([_f32(c) for c in _ERFINV_LT5], device=x.device)
+    hi = torch.tensor([_f32(c) for c in _ERFINV_GE5], device=x.device)
+    p = torch.where(lt, lo[0], hi[0])
+    for i in range(1, len(_ERFINV_LT5)):
+        p = _fma(p, w, torch.where(lt, lo[i], hi[i]))
+    return torch.where(x.abs() == 1.0, x * torch.inf, p * x)
+
+
+def normal(k: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal`` float32: sqrt(2) * erf_inv(u), u uniform on
+    (nextafter(-1, 0), 1): [..., *shape]."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return _f32(np.sqrt(2.0)) * _erf_inv(uniform(k, shape, lo, 1.0))
 
 
 def u_normal(u: torch.Tensor) -> torch.Tensor:

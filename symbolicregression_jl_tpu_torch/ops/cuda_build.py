@@ -20,7 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict, Tuple
 
-__all__ = ["NVCC_FLAGS", "build_dir", "load_library", "source_path", "build_seconds"]
+__all__ = ["NVCC_FLAGS", "build_dir", "build_all", "load_library", "source_path",
+           "build_seconds"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -50,26 +51,47 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Tuple[Path, str]:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, named by a hash of the source, the headers of
+    ``csrc/`` it may include, and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return build_dir() / f"{src.stem}-{digest}.so", digest
+
+
+def build_all(names) -> Dict[str, Path]:
+    """Compile every ``csrc/<name>`` whose library is missing, one nvcc
+    process per source, all started together; return the libraries' paths."""
+    out, running = {}, []
+    for name in names:
+        src = source_path(name)
+        so, _ = _target(src)
+        out[name] = so
+        if so.exists():
+            continue
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running.append((name, src, so, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, src, so, tmp, proc, t0 in running:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src.name}:\n{stdout}\n{stderr}")
+            continue
+        os.replace(tmp, so)
+        _BUILD_SECONDS[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>`` if its library is missing; return its path."""
-    src = source_path(name)
-    so, _ = _target(src)
-    if so.exists():
-        return so
-    so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)
-    _BUILD_SECONDS[name] = time.perf_counter() - t0
-    return so
+    return build_all([name])[name]
 
 
 def load_library(name: str) -> ctypes.CDLL:

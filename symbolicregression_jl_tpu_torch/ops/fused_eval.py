@@ -1,17 +1,25 @@
-"""Fused program evaluation: the interpreter kernel and its wrappers.
+"""Fused program evaluation: the interpreter kernels and their wrappers.
 
-Port of the program-kernel part of ``symbolicregression_jl_tpu/ops/fused_eval.py``
-(``_program_launch`` / ``_make_program_kernel``). A TreeBatch compiles to a
-leaf-free program (ops/program.py); :func:`_pack_instr` packs each step into
-one int32 word ``sign << 30 | code << 24 | src1 << 12 | src2`` with the same
-dispatch layout as the JAX package (``_dispatch_plan``), and the kernel in
-``csrc/program_eval.cu`` runs every program over every row, returning the
-per-tree loss and validity, optionally with the loss -> cost epilogue.
+Port of the program-kernel part of ``symbolicregression_jl_tpu/ops/fused_eval.py``.
+A TreeBatch compiles to a leaf-free program (ops/program.py);
+:func:`_pack_instr` packs each step into one int32 word
+``sign << 30 | code << 24 | src1 << 12 | src2`` with the same dispatch
+layout as the JAX package (``_dispatch_plan``). Three CUDA kernels run the
+programs over every row:
 
-:data:`PROGRAM_EVAL` is the kernel's wrapper. Given tensors on the CPU it
-runs :func:`program_eval_plain`, the eager PyTorch version of the same
-function (the CPU path and the kernel's test oracle); given CUDA tensors
-it launches the kernel or raises, never falling back.
+- ``csrc/program_eval.cu`` (:data:`PROGRAM_EVAL`, ``_program_launch``):
+  per-tree loss and validity, optionally with the loss -> cost epilogue;
+- ``csrc/program_multi.cu`` (:data:`PROGRAM_MULTI`, ``fused_loss_multi``):
+  loss and validity for every (tree, constant vector) pair;
+- ``csrc/program_grad.cu`` (:data:`PROGRAM_GRAD`, ``fused_grad_multi``):
+  the same plus d(loss)/d(constants), by a forward and an adjoint sweep.
+
+Each wrapper, given tensors on the CPU, runs its plain PyTorch version
+(:func:`program_eval_plain`, :func:`program_multi_plain`,
+:func:`program_grad_plain`: the CPU path and the kernel's test oracle);
+given CUDA tensors it launches the kernel or raises, never falling back.
+The TPU kernels' V-chunking and tree blocks worked around VMEM and are not
+carried over: each call is one launch.
 """
 
 from __future__ import annotations
@@ -25,11 +33,14 @@ import torch
 from ..core.losses import LOSS_REGISTRY, baseline_normalization, l1_dist_loss, l2_dist_loss
 from .encoding import TreeBatch
 from .operators import OPERATOR_REGISTRY, OperatorSet
-from .program import TreeProgram, compile_program
+from .program import TreeProgram, compile_program, scatter_const_grads
+from .vjp import loss_vjp, vjp_binary, vjp_unary
 
-__all__ = ["PROGRAM_EVAL", "fused_loss", "fused_loss_program", "fused_loss_dedup",
-           "fused_cost", "fused_cost_program", "program_eval_plain",
-           "supports_fused_eval"]
+__all__ = ["PROGRAM_EVAL", "PROGRAM_MULTI", "PROGRAM_GRAD", "fused_loss",
+           "fused_loss_program", "fused_loss_dedup", "fused_cost", "fused_cost_program",
+           "fused_loss_multi", "fused_grad_multi", "fused_grad_program",
+           "fused_loss_and_const_grad", "program_eval_plain", "program_multi_plain",
+           "program_grad_plain", "supports_fused_eval"]
 
 
 def supports_fused_eval(operators: OperatorSet) -> bool:
@@ -213,11 +224,133 @@ def program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators: Opera
     return loss, valid, cost
 
 
+def program_multi_plain(instr, nsteps, cvals_v, X, y, w, operators: OperatorSet,
+                        loss_fn: Callable):
+    """Eager version of kernel #2: the plain form of :func:`program_eval_plain`
+    for every (tree, variant) pair of ``cvals_v`` [T, V, CMAX]. Returns
+    (loss_sum [T, V], valid [T, V]); constant validity is the caller's."""
+    T, V, CMAX = cvals_v.shape
+    ok = torch.ones(T * V, dtype=torch.int32, device=X.device)
+    loss, valid = program_eval_plain(
+        instr.repeat_interleave(V, dim=0), nsteps.repeat_interleave(V, dim=0),
+        cvals_v.reshape(T * V, CMAX), ok, X, y, w, operators, loss_fn)
+    return loss.reshape(T, V), valid.reshape(T, V)
+
+
+def _bwd_branches(operators: OperatorSet):
+    """(code -> callable(a, b, sign, ct) -> (d1, d2 or None)) in the plan's
+    dispatch order, mirroring the JAX package's ``_bwd_dispatch``."""
+    plan = _dispatch_plan(operators)
+    out = []
+    if plan.merged:
+        out.append(lambda a, b, s, ct: (ct, (1 - 2 * s).to(ct.dtype)[:, None] * ct))
+        for j in plan.other_bin:
+            out.append(lambda a, b, s, ct, f=vjp_binary(operators.binary[j]): f(a, b, ct))
+    else:
+        out.append(lambda a, b, s, ct: (ct, None))
+        for op in operators.binary:
+            out.append(lambda a, b, s, ct, f=vjp_binary(op): f(a, b, ct))
+    for op in operators.unary:
+        out.append(lambda a, b, s, ct, f=vjp_unary(op): (f(a, ct), None))
+    return out
+
+
+def program_grad_plain(instr, nsteps, nconst, cvals_v, X, y, w, operators: OperatorSet,
+                       loss_fn: Callable, max_elems: int = 1 << 25, return_abs: bool = False):
+    """Eager version of kernel #3: kernel #2's loss and validity plus
+    d(loss_sum)/d(cvals) for every (tree, variant) pair, by a forward sweep
+    and a reverse adjoint sweep with the derivative table of ops/vjp.py.
+
+    Returns (loss_sum [T, V], valid [T, V], gcomp [T, V, CMAX]); with
+    ``return_abs`` also the row sums of the constants' absolute adjoints
+    [T, V, CMAX] (the scale a comparison of two summation orders needs)."""
+    plan = _dispatch_plan(operators)
+    T, V, CMAX = cvals_v.shape
+    L = instr.shape[1]
+    F, n = X.shape
+    BASE = F + CMAX
+    nbuf = BASE + L + 1
+    dev = X.device
+    fwd = _branches(operators)
+    bwd = _bwd_branches(operators)
+    dloss = loss_vjp(loss_fn)
+    code_mask = 0x3F if plan.merged else 0x7F
+    P = T * V
+    ins_all = instr.repeat_interleave(V, dim=0)
+    m_all = nsteps.repeat_interleave(V, dim=0).long()
+    nc_all = nconst.repeat_interleave(V, dim=0).long()
+    cv_all = cvals_v.reshape(P, CMAX)
+    chunk = max(1, max_elems // max(2 * nbuf * n, 1))
+    parts = []
+    for s in range(0, P, chunk):
+        ins, m, cv = ins_all[s:s + chunk], m_all[s:s + chunk], cv_all[s:s + chunk]
+        Pc = ins.shape[0]
+        rows = torch.arange(Pc, device=dev)
+        buf = torch.zeros((Pc, nbuf, n), dtype=X.dtype, device=dev)
+        buf[:, :F] = X
+        buf[:, F:BASE] = cv[:, :, None]
+        vmask = torch.ones((Pc, n), dtype=torch.bool, device=dev)
+        kmax = int(m.max()) if Pc else 0
+        words = []
+        for k in range(kmax):
+            word = ins[:, k]
+            code = (word >> 24) & code_mask
+            i1 = ((word >> 12) & 0xFFF).long()
+            i2 = (word & 0xFFF).long()
+            sign = (word >> 30) & 1
+            words.append((code, i1, i2, sign))
+            a, b = buf[rows, i1], buf[rows, i2]
+            val = None
+            for c in torch.unique(code).tolist():
+                v = fwd[c](a, b, sign)
+                val = v if val is None else torch.where((code == c)[:, None], v, val)
+            active = k < m
+            buf[:, BASE + k] = val
+            vmask &= torch.isfinite(val) | ~active[:, None]
+        pred = buf[rows, BASE + m - 1]
+        elt = torch.where(w > 0, loss_fn(pred, y), 0.0)
+        total = torch.sum(elt * w, dim=-1)
+        valid = vmask.all(dim=-1) & torch.isfinite(total)
+
+        adj = torch.zeros_like(buf)
+        adj[rows, BASE + m - 1] = torch.where(w > 0, dloss(pred, y, w.expand_as(pred)), 0.0)
+        for k in reversed(range(kmax)):
+            code, i1, i2, sign = words[k]
+            active = k < m
+            ct = adj[rows, BASE + k]
+            a, b = buf[rows, i1], buf[rows, i2]
+            d1 = torch.zeros_like(ct)
+            d2 = torch.zeros_like(ct)
+            two = torch.zeros_like(active)
+            for c in torch.unique(code[active]).tolist():
+                sel = (code == c) & active
+                o1, o2 = bwd[c](a, b, sign, ct)
+                d1 = torch.where(sel[:, None], o1, d1)
+                if o2 is not None:
+                    d2 = torch.where(sel[:, None], o2, d2)
+                    two |= sel
+            adj[rows[active], i1[active]] = d1[active]
+            adj[rows[two], i2[two]] = d2[two]
+        cadj = adj[:, F:BASE]
+        used = torch.arange(CMAX, device=dev)[None, :] < nc_all[s:s + chunk, None]
+        gcomp = torch.where(used, cadj.sum(dim=-1), 0.0)
+        gabs = torch.where(used, cadj.abs().sum(dim=-1), 0.0)
+        parts.append((total, valid, gcomp, gabs))
+    if parts:
+        total, valid, gcomp, gabs = (torch.cat(z) for z in zip(*parts))
+    else:
+        total = torch.zeros(0, dtype=X.dtype, device=dev)
+        valid = torch.zeros(0, dtype=torch.bool, device=dev)
+        gcomp = gabs = torch.zeros((0, CMAX), dtype=X.dtype, device=dev)
+    out = (total.reshape(T, V), valid.reshape(T, V), gcomp.reshape(T, V, CMAX))
+    return out + (gabs.reshape(T, V, CMAX),) if return_abs else out
+
+
 # ---------------------------------------------------------------------------
-# The CUDA kernel's wrapper
+# The CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
 
-# Operator ids of csrc/program_eval.cu, by canonical operator name.
+# Operator ids of csrc/interp.cuh, by canonical operator name.
 _KERNEL_OP_IDS = {
     "+": 0, "-": 1, "*": 2, "/": 3, "^": 4, "mod": 5, "max": 6, "min": 7,
     "atan2": 8, "greater": 9, "less": 10, "greater_equal": 11,
@@ -269,39 +402,43 @@ def _optab_list(operators: OperatorSet) -> Tuple[int, ...]:
     return tuple(tab)
 
 
-class ProgramEvalKernel:
-    """Wrapper of ``sr_program_eval`` (csrc/program_eval.cu).
+class _ProgramKernel:
+    """Shared parts of the kernels' wrappers: the library (built at first
+    use), the block size, the opcode table on the device and the input
+    checks. ``launches`` counts kernel launches; each wrapper increments
+    it where it launches its kernel and nowhere else."""
 
-    ``launches`` counts kernel launches; it is incremented where the
-    kernel is launched and nowhere else."""
-
-    name = "program_eval"
-    source = "symbolicregression_jl_tpu_torch/csrc/program_eval.cu"
-    replaces = "symbolicregression_jl_tpu/ops/fused_eval.py:505 (_program_launch / _make_program_kernel)"
+    name = ""
+    source = ""
+    replaces = ""
+    _file = ""
+    _entry = ""
 
     def __init__(self):
         self.launches = 0
         self._lib = None
         self._optab = {}
 
+    def _bind(self, lib):
+        raise NotImplementedError
+
     def library(self):
         """Build (at first use) and bind the shared library."""
         if self._lib is None:
             from .cuda_build import load_library
 
-            lib = load_library("program_eval.cu")
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.sr_program_eval.argtypes = [p] * 10 + [i] * 9 + [p, p, p, p]
-            lib.sr_program_eval.restype = ctypes.c_int
-            lib.sr_program_eval_smem.argtypes = [i, i, i, i]
-            lib.sr_program_eval_smem.restype = ctypes.c_size_t
+            lib = load_library(self._file)
+            getattr(lib, self._entry + "_smem").argtypes = [ctypes.c_int] * 4
+            getattr(lib, self._entry + "_smem").restype = ctypes.c_size_t
+            getattr(lib, self._entry).restype = ctypes.c_int
+            self._bind(lib)
             self._lib = lib
         return self._lib
 
     def _block(self, L: int, CMAX: int, F: int) -> int:
-        lib = self.library()
+        smem = getattr(self.library(), self._entry + "_smem")
         for block in (256, 128, 64, 32):
-            if lib.sr_program_eval_smem(block, L, CMAX, F) <= _SMEM_LIMIT:
+            if smem(block, L, CMAX, F) <= _SMEM_LIMIT:
                 return block
         raise ValueError(f"{F} features and {L} steps do not fit one block's shared memory")
 
@@ -313,64 +450,171 @@ class ProgramEvalKernel:
             self._optab[key] = tab
         return tab
 
+    def _layout(self, operators: OperatorSet, X, L: int, CMAX: int, F: int):
+        """(opcode table on the device, block size, opcode mask) of a launch."""
+        _check_packable(operators, F + CMAX, L)
+        code_mask = 0x3F if _dispatch_plan(operators).merged else 0x7F
+        return self._device_optab(operators, X.device), self._block(L, CMAX, F), code_mask
+
+    def _check(self, X, loss_fn, ints, floats):
+        """Device, dtype and contiguity of every input; the loss kind."""
+        if X.device.type != "cuda":
+            raise ValueError(f"{self.name}: unsupported device {X.device}")
+        loss_kind = _KERNEL_LOSS.get(loss_fn)
+        if loss_kind is None:
+            raise NotImplementedError(
+                f"the CUDA kernel {self.name} implements the L2, L1 and Huber "
+                f"elementwise losses only")
+        for group, dtype, kind in ((ints, torch.int32, "int32"),
+                                   (floats, torch.float32, "float32")):
+            for nm, t in group.items():
+                if t.device != X.device:
+                    raise ValueError(f"{self.name}: {nm} is on {t.device}, X on {X.device}")
+                if not t.is_contiguous():
+                    raise ValueError(f"{self.name}: {nm} must be contiguous")
+                if t.dtype != dtype:
+                    raise TypeError(f"{self.name}: {nm} must be {kind}")
+        return loss_kind
+
+    def _launch(self, *args):
+        rc = getattr(self.library(), self._entry)(*args)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {rc}")
+        self.launches += 1
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr()) if t is not None else None
+
+
+def _stream(X):
+    return ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream)
+
+
+class ProgramEvalKernel(_ProgramKernel):
+    """Wrapper of ``sr_program_eval`` (csrc/program_eval.cu)."""
+
+    name = "program_eval"
+    source = "symbolicregression_jl_tpu_torch/csrc/program_eval.cu"
+    replaces = "symbolicregression_jl_tpu/ops/fused_eval.py:505 (_program_launch / _make_program_kernel)"
+    _file = "program_eval.cu"
+    _entry = "sr_program_eval"
+
+    def _bind(self, lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.sr_program_eval.argtypes = [p] * 10 + [i] * 9 + [p, p, p, p]
+
     def __call__(self, instr, nsteps, cvals, const_ok, X, y, w, operators: OperatorSet,
                  loss_fn: Callable, cx=None, scal=None):
         if X.device.type == "cpu":
             return program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w,
                                       operators, loss_fn, cx=cx, scal=scal)
-        if X.device.type != "cuda":
-            raise ValueError(f"program_eval: unsupported device {X.device}")
-        loss_kind = _KERNEL_LOSS.get(loss_fn)
-        if loss_kind is None:
-            raise NotImplementedError(
-                "the CUDA interpreter kernel implements the L2, L1 and Huber "
-                "elementwise losses only")
         T, L = instr.shape
         F, n = X.shape
         CMAX = cvals.shape[1]
         cost_form = cx is not None
-        named = dict(instr=instr, nsteps=nsteps, cvals=cvals, const_ok=const_ok,
-                     X=X, y=y, w=w)
+        floats = dict(cvals=cvals, X=X, y=y, w=w)
         if cost_form:
-            named.update(cx=cx, scal=scal)
-        for nm, t in named.items():
-            if t.device != X.device:
-                raise ValueError(f"program_eval: {nm} is on {t.device}, X on {X.device}")
-            if not t.is_contiguous():
-                raise ValueError(f"program_eval: {nm} must be contiguous")
-        for nm in ("instr", "nsteps", "const_ok"):
-            if named[nm].dtype != torch.int32:
-                raise TypeError(f"program_eval: {nm} must be int32")
-        for nm in ("cvals", "X", "y", "w") + (("cx", "scal") if cost_form else ()):
-            if named[nm].dtype != torch.float32:
-                raise TypeError(f"program_eval: {nm} must be float32")
+            floats.update(cx=cx, scal=scal)
+        loss_kind = self._check(X, loss_fn, dict(instr=instr, nsteps=nsteps,
+                                                 const_ok=const_ok), floats)
         if (nsteps.shape != (T,) or const_ok.shape != (T,) or cvals.shape[0] != T
                 or y.shape != (n,) or w.shape != (n,)
                 or (cost_form and (cx.shape != (T,) or scal.shape != (3,)))):
             raise ValueError("program_eval: inconsistent shapes")
-        plan = _dispatch_plan(operators)
-        _check_packable(operators, F + CMAX, L)
-        optab = self._device_optab(operators, X.device)
-        block = self._block(L, CMAX, F)
+        optab, block, code_mask = self._layout(operators, X, L, CMAX, F)
         loss = torch.empty(T, dtype=torch.float32, device=X.device)
         valid = torch.empty(T, dtype=torch.int32, device=X.device)
         cost = torch.empty(T, dtype=torch.float32, device=X.device) if cost_form else None
-        ptr = lambda t: ctypes.c_void_p(t.data_ptr()) if t is not None else None
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        rc = self.library().sr_program_eval(
-            ptr(instr), ptr(nsteps), ptr(cvals), ptr(const_ok), ptr(X), ptr(y), ptr(w),
-            ptr(cx), ptr(scal), ptr(optab), T, L, CMAX, F, n, block, loss_kind,
-            0x3F if plan.merged else 0x7F, 30, ptr(loss), ptr(valid), ptr(cost),
-            ctypes.c_void_p(stream))
-        if rc != 0:
-            raise RuntimeError(f"program_eval kernel launch failed: CUDA error {rc}")
-        self.launches += 1
+        self._launch(
+            _ptr(instr), _ptr(nsteps), _ptr(cvals), _ptr(const_ok), _ptr(X), _ptr(y), _ptr(w),
+            _ptr(cx), _ptr(scal), _ptr(optab), T, L, CMAX, F, n, block, loss_kind,
+            code_mask, 30, _ptr(loss), _ptr(valid), _ptr(cost),
+            _stream(X))
         if cost_form:
             return loss, valid.bool(), cost
         return loss, valid.bool()
 
 
+class ProgramMultiKernel(_ProgramKernel):
+    """Wrapper of ``sr_program_multi`` (csrc/program_multi.cu): (loss_sum,
+    valid) [T, V] for every (tree, constant vector) pair."""
+
+    name = "program_multi"
+    source = "symbolicregression_jl_tpu_torch/csrc/program_multi.cu"
+    replaces = "symbolicregression_jl_tpu/ops/fused_eval.py:830 (fused_loss_multi / _make_multi_kernel)"
+    _file = "program_multi.cu"
+    _entry = "sr_program_multi"
+
+    def _bind(self, lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.sr_program_multi.argtypes = [p] * 7 + [i] * 10 + [p, p, p]
+
+    def __call__(self, instr, nsteps, cvals_v, X, y, w, operators: OperatorSet,
+                 loss_fn: Callable):
+        if X.device.type == "cpu":
+            return program_multi_plain(instr, nsteps, cvals_v, X, y, w, operators, loss_fn)
+        T, L = instr.shape
+        F, n = X.shape
+        V, CMAX = cvals_v.shape[1], cvals_v.shape[2]
+        loss_kind = self._check(X, loss_fn, dict(instr=instr, nsteps=nsteps),
+                                dict(cvals_v=cvals_v, X=X, y=y, w=w))
+        if (nsteps.shape != (T,) or cvals_v.shape[0] != T or y.shape != (n,)
+                or w.shape != (n,)):
+            raise ValueError("program_multi: inconsistent shapes")
+        optab, block, code_mask = self._layout(operators, X, L, CMAX, F)
+        loss = torch.empty((T, V), dtype=torch.float32, device=X.device)
+        valid = torch.empty((T, V), dtype=torch.int32, device=X.device)
+        self._launch(
+            _ptr(instr), _ptr(nsteps), _ptr(cvals_v), _ptr(X), _ptr(y), _ptr(w), _ptr(optab),
+            T, V, L, CMAX, F, n, block, loss_kind, code_mask, 30,
+            _ptr(loss), _ptr(valid), _stream(X))
+        return loss, valid.bool()
+
+
+class ProgramGradKernel(_ProgramKernel):
+    """Wrapper of ``sr_program_grad`` (csrc/program_grad.cu): (loss_sum,
+    valid) [T, V] and d(loss_sum)/d(cvals) [T, V, CMAX] for every pair."""
+
+    name = "program_grad"
+    source = "symbolicregression_jl_tpu_torch/csrc/program_grad.cu"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:1250 "
+                "(fused_grad_multi / _make_multi_grad_kernel)")
+    _file = "program_grad.cu"
+    _entry = "sr_program_grad"
+
+    def _bind(self, lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.sr_program_grad.argtypes = [p] * 8 + [i] * 10 + [p, p, p, p]
+
+    def __call__(self, instr, nsteps, nconst, cvals_v, X, y, w, operators: OperatorSet,
+                 loss_fn: Callable):
+        if X.device.type == "cpu":
+            return program_grad_plain(instr, nsteps, nconst, cvals_v, X, y, w, operators,
+                                      loss_fn)
+        T, L = instr.shape
+        F, n = X.shape
+        V, CMAX = cvals_v.shape[1], cvals_v.shape[2]
+        loss_kind = self._check(X, loss_fn, dict(instr=instr, nsteps=nsteps, nconst=nconst),
+                                dict(cvals_v=cvals_v, X=X, y=y, w=w))
+        if (nsteps.shape != (T,) or nconst.shape != (T,) or cvals_v.shape[0] != T
+                or y.shape != (n,) or w.shape != (n,)):
+            raise ValueError("program_grad: inconsistent shapes")
+        optab, block, code_mask = self._layout(operators, X, L, CMAX, F)
+        loss = torch.empty((T, V), dtype=torch.float32, device=X.device)
+        valid = torch.empty((T, V), dtype=torch.int32, device=X.device)
+        gcomp = torch.empty((T, V, CMAX), dtype=torch.float32, device=X.device)
+        self._launch(
+            _ptr(instr), _ptr(nsteps), _ptr(nconst), _ptr(cvals_v), _ptr(X), _ptr(y), _ptr(w),
+            _ptr(optab), T, V, L, CMAX, F, n, block, loss_kind,
+            code_mask, 30, _ptr(loss), _ptr(valid), _ptr(gcomp),
+            _stream(X))
+        return loss, valid.bool(), gcomp
+
+
 PROGRAM_EVAL = ProgramEvalKernel()
+PROGRAM_MULTI = ProgramMultiKernel()
+PROGRAM_GRAD = ProgramGradKernel()
 
 
 # ---------------------------------------------------------------------------
@@ -485,3 +729,85 @@ def fused_cost(trees: TreeBatch, X, y, weights, complexity, operators: OperatorS
         baseline_loss=baseline_loss, use_baseline=use_baseline, parsimony=parsimony)
     return (cost.reshape(batch_shape), loss.reshape(batch_shape),
             valid.reshape(batch_shape))
+
+
+# ---------------------------------------------------------------------------
+# Multi-variant entry points (the constant optimizer's line search and
+# gradient; same names and semantics as the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def _multi_inputs(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
+                  operators: OperatorSet):
+    """Kernel #2/#3 inputs and each pair's constant validity [T, V]."""
+    instr, nsteps, _, _, Xc, yc, w = _launch_inputs(prog, X, y, weights, nfeatures, operators)
+    used = torch.arange(prog.cmax, device=X.device)[None, None, :] < prog.nconst[:, None, None]
+    ok_v = torch.all(torch.isfinite(cvals_v) | ~used, dim=-1)
+    return (instr, nsteps, cvals_v.to(X.dtype).contiguous(), Xc, yc, w), ok_v
+
+
+def fused_loss_multi(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
+                     operators: OperatorSet, loss_fn: Callable, *, bf16: bool = False):
+    """Mean loss for every (tree, constant-variant) pair: (loss, valid)
+    [T, V] each, from one launch of kernel #2. Invalid pairs (a non-finite
+    step or loss, or a non-finite used constant) get loss inf."""
+    if bf16:
+        raise NotImplementedError(
+            "bf16=True (bfloat16 line-search evaluations) is not in the PyTorch port "
+            "yet; it comes with graftstage (ROADMAP.md queue 1 step 7).")
+    (instr, nsteps, cv, Xc, yc, w), ok_v = _multi_inputs(prog, cvals_v, X, y, weights,
+                                                         nfeatures, operators)
+    loss_sum, valid = PROGRAM_MULTI(instr, nsteps, cv, Xc, yc, w, operators, loss_fn)
+    valid = valid & ok_v
+    loss = loss_sum / _denominator(weights, X)
+    loss = torch.where(valid & torch.isfinite(loss), loss, torch.inf)
+    return loss, valid
+
+
+def fused_grad_multi(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
+                     operators: OperatorSet, loss_fn: Callable):
+    """(loss [T, V], valid [T, V], dloss/dcvals [T, V, CMAX]) per (tree,
+    constant-variant) pair, from one launch of kernel #3. A bad pair (an
+    invalid one, or one whose mean loss is not finite) gets loss inf and a
+    zero gradient; a non-finite gradient component becomes 0."""
+    (instr, nsteps, cv, Xc, yc, w), ok_v = _multi_inputs(prog, cvals_v, X, y, weights,
+                                                         nfeatures, operators)
+    nconst = prog.nconst.to(torch.int32).contiguous()
+    loss_sum, valid, gcomp = PROGRAM_GRAD(instr, nsteps, nconst, cv, Xc, yc, w,
+                                          operators, loss_fn)
+    valid = valid & ok_v
+    denom = _denominator(weights, X)
+    loss = loss_sum / denom
+    grad = gcomp / denom
+    bad = ~(valid & torch.isfinite(loss))
+    loss = torch.where(bad, torch.inf, loss)
+    grad = torch.where(bad[..., None] | ~torch.isfinite(grad), 0.0, grad)
+    return loss, valid, grad
+
+
+def fused_grad_program(prog: TreeProgram, X, y, weights, nfeatures: int,
+                       operators: OperatorSet, loss_fn: Callable):
+    """(loss [T], valid [T], dloss/dcvals [T, CMAX]): the single-variant
+    view of :func:`fused_grad_multi` (constants from ``prog.cvals``)."""
+    loss, valid, grad = fused_grad_multi(prog, prog.cvals[:, None, :], X, y, weights,
+                                         nfeatures, operators, loss_fn)
+    return loss[:, 0], valid[:, 0], grad[:, 0]
+
+
+def fused_loss_and_const_grad(trees: TreeBatch, child, X, y, weights,
+                              operators: OperatorSet, loss_fn: Callable):
+    """(loss, valid, dloss/dconst) per tree: the gradient with respect to
+    every constant-leaf slot of ``trees.const`` (zero elsewhere, zero for
+    invalid trees). ``child`` is accepted for the JAX signature and unused."""
+    del child
+    batch_shape = trees.batch_shape
+    flat = trees.reshape(-1) if batch_shape else trees.reshape(1)
+    L = flat.arity.shape[-1]
+    F = X.shape[0]
+    prog = compile_program(flat, F, len(operators.binary))
+    loss, valid, gcomp = fused_grad_program(prog, X, y, weights, F, operators, loss_fn)
+    grad = scatter_const_grads(prog, gcomp, L)
+    if batch_shape:
+        return (loss.reshape(batch_shape), valid.reshape(batch_shape),
+                grad.reshape(*batch_shape, L))
+    return loss[0], valid[0], grad[0]

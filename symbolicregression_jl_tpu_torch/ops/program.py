@@ -25,7 +25,8 @@ import torch
 
 from .encoding import LEAF_VAR, TreeBatch, lane_take, structure_from_arity
 
-__all__ = ["TreeProgram", "compile_program", "program_cmax"]
+__all__ = ["TreeProgram", "compile_program", "program_cmax", "update_consts",
+           "const_mask_compressed", "scatter_const_grads"]
 
 
 def program_cmax(max_nodes: int) -> int:
@@ -118,3 +119,42 @@ def compile_program(trees: TreeBatch, nfeatures: int, n_binary: int) -> TreeProg
                        src2=src2.to(torch.int32), nsteps=nsteps,
                        cvals=cvals.to(const.dtype), cslot=cslot, nconst=nconst,
                        const_ok=const_ok)
+
+
+def update_consts(prog: TreeProgram, const: torch.Tensor) -> TreeProgram:
+    """Re-bind a program to new constant vectors ``const`` [T, L] (slot
+    order); the structure fields are reused untouched."""
+    L = const.shape[-1]
+    used = prog.cslot < L
+    gathered = lane_take(const, torch.clamp(prog.cslot, 0, L - 1))
+    cvals = torch.where(used, gathered, 0.0).to(const.dtype)
+    const_ok = torch.all(torch.isfinite(gathered) | ~used, dim=-1)
+    return dataclasses.replace(prog, cvals=cvals, const_ok=const_ok)
+
+
+def const_mask_compressed(prog: TreeProgram) -> torch.Tensor:
+    """[T, CMAX] float mask of used constant slots."""
+    return (prog.cslot < prog.max_steps).to(prog.cvals.dtype)
+
+
+def _scatter_drop(target: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
+                  accumulate: bool) -> torch.Tensor:
+    """Scatter ``src`` [T, C] into ``target`` [T, L] at columns ``idx``;
+    indices equal to L are dropped (written into a padded column that is
+    cut off), as the JAX package's ``mode="drop"``."""
+    T, L = target.shape
+    out = torch.cat([target, torch.zeros((T, 1), dtype=target.dtype,
+                                         device=target.device)], dim=1)
+    idx = idx.long()
+    if accumulate:
+        out = out.scatter_add(1, idx, src.to(out.dtype))
+    else:
+        out = out.scatter(1, idx, src.to(out.dtype))
+    return out[:, :L]
+
+
+def scatter_const_grads(prog: TreeProgram, gcomp: torch.Tensor, max_nodes: int) -> torch.Tensor:
+    """Scatter compressed per-constant gradients [T, CMAX] -> [T, L]."""
+    T = gcomp.shape[0]
+    out = torch.zeros((T, max_nodes), dtype=gcomp.dtype, device=gcomp.device)
+    return _scatter_drop(out, prog.cslot, gcomp, accumulate=True)

@@ -1,4 +1,4 @@
-"""Tests of the port's CUDA kernel; they need an NVIDIA card and skip
+"""Tests of the port's CUDA kernels; they need an NVIDIA card and skip
 without one.
 
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -127,3 +127,82 @@ def test_search_on_card(cuda_device):
     assert np.isfinite(min(e.loss for e in a.entries))
     assert [(e.complexity, e.loss) for e in a.entries] == [(e.complexity, e.loss)
                                                           for e in b.entries]
+
+
+def _multi_args(device, binary, n: int, V: int, T: int = 256):
+    """Kernel inputs for T random trees with V perturbed constant vectors
+    each (a few non-finite), plus the trees' nconst and own constants."""
+    opts = _options(binary)
+    cfg = evolve_config_from_options(opts, 3, device)
+    trees = init_population(rng.split(rng.key(5, device=device), T // 64), 64,
+                            cfg.mctx, nlength=5).reshape(-1)
+    g = np.random.default_rng(2)
+    X = torch.from_numpy(g.uniform(-3, 3, (3, n)).astype(np.float32)).to(device)
+    y = torch.from_numpy(g.normal(size=n).astype(np.float32)).to(device)
+    w = torch.from_numpy(np.where(g.random(n) < 0.1, 0.0, g.uniform(0.2, 2, n))
+                         .astype(np.float32)).to(device)
+    prog = compile_program(trees, 3, len(opts.operators.binary))
+    instr, nsteps, cvals, _, X, y, w = SF._launch_inputs(prog, X, y, w, 3, opts.operators)
+    gen = torch.Generator(device=device).manual_seed(1)
+    cv = cvals[:, None, :] * (1.0 + 0.5 * torch.randn((T, V, cvals.shape[1]), generator=gen,
+                                                      device=device))
+    cv[::17, -1, 0] = torch.inf
+    nconst = prog.nconst.to(torch.int32).contiguous()
+    return opts.operators, instr, nsteps, nconst, cv.contiguous(), X, y, w, cvals
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binary", [("+", "-", "*", "/"), ("*", "/", "-")])
+@pytest.mark.parametrize("loss", [SL.l2_dist_loss, SL.l1_dist_loss, SL.LOSS_REGISTRY["huber"]])
+def test_multi_and_grad_kernels_match_plain_versions(cuda_device, binary, loss):
+    """Kernel #2: validity bit-equal, loss sums within rtol 1e-5 with inf
+    in the same places, V = 1 bit-equal to kernel #1's plain form. Kernel
+    #3: validity bit-equal, loss bit-equal to #2's, gradients non-finite
+    in the same places and within 1e-4 of the absolute row sums; two
+    launches bit-identical."""
+    ops, instr, nsteps, nconst, cv, X, y, w, cvals = _multi_args(cuda_device, binary, 1000, 5)
+    T = instr.shape[0]
+    multi, grad = SF.ProgramMultiKernel(), SF.ProgramGradKernel()
+    lk, vk = multi(instr, nsteps, cv, X, y, w, ops, loss)
+    lp, vp = SF.program_multi_plain(instr, nsteps, cv, X, y, w, ops, loss)
+    assert torch.equal(vk, vp)
+    _close(torch.where(vp, lk, torch.inf), torch.where(vp, lp, torch.inf))
+    ones = torch.ones(T, dtype=torch.int32, device=cuda_device)
+    l1, v1 = multi(instr, nsteps, cvals[:, None, :].contiguous(), X, y, w, ops, loss)
+    l1e, v1e = SF.ProgramEvalKernel()(instr, nsteps, cvals, ones, X, y, w, ops, loss)
+    assert torch.equal(l1[:, 0].view(torch.int32), l1e.view(torch.int32))
+    assert torch.equal(v1[:, 0], v1e)
+    gl, gv, gg = grad(instr, nsteps, nconst, cv, X, y, w, ops, loss)
+    gl2, gv2, gg2 = grad(instr, nsteps, nconst, cv, X, y, w, ops, loss)
+    assert multi.launches == 2 and grad.launches == 2
+    assert torch.equal(gg.view(torch.int32), gg2.view(torch.int32))
+    assert torch.equal(gv, vk) and torch.equal(gl.view(torch.int32), lk.view(torch.int32))
+    pl, pv, pg, pabs = SF.program_grad_plain(instr, nsteps, nconst, cv, X, y, w, ops, loss,
+                                             return_abs=True)
+    assert torch.equal(gv, pv)
+    live = pv[..., None].expand_as(pg)
+    assert torch.equal(torch.isfinite(gg)[live], torch.isfinite(pg)[live])
+    both = live & torch.isfinite(gg) & torch.isfinite(pg)
+    assert bool(((gg - pg).abs()[both] <= 1e-4 * pabs[both]).all())
+
+
+@pytest.mark.cuda
+def test_engine_iteration_launches_optimizer_kernels(cuda_device):
+    """With the constant optimizer on, one iteration launches kernel #2
+    once per L-BFGS iteration and kernel #3 once more than that."""
+    opts = _options(should_optimize_constants=True)
+    g = np.random.default_rng(1)
+    X = g.uniform(-3, 3, (300, 3)).astype(np.float32)
+    y = (X[:, 0] * X[:, 0] + np.cos(X[:, 1])).astype(np.float32)
+    ds = S.make_dataset(X, y, device=cuda_device)
+    ds.update_baseline_loss(opts.elementwise_loss)
+    engine = Engine(opts, 3, device=cuda_device)
+    state = engine.init_state(rng.key(0, device=cuda_device), ds.data, opts.populations)
+    before = (SF.PROGRAM_EVAL.launches, SF.PROGRAM_MULTI.launches, SF.PROGRAM_GRAD.launches)
+    state = engine.run_iteration(state, ds.data, opts.maxsize)
+    torch.cuda.synchronize()
+    after = (SF.PROGRAM_EVAL.launches, SF.PROGRAM_MULTI.launches, SF.PROGRAM_GRAD.launches)
+    iters = opts.optimizer_iterations
+    assert [a - b for a, b in zip(after, before)] == [opts.ncycles_per_iteration + 1, iters,
+                                                      iters + 1]
+    assert bool(torch.isfinite(state.hof.loss[state.hof.exists]).all())

@@ -27,7 +27,7 @@ from symbolicregression_jl_tpu_torch import interop
 from symbolicregression_jl_tpu_torch.core import losses as SL
 from symbolicregression_jl_tpu_torch.ops import encoding as SE
 from symbolicregression_jl_tpu_torch.ops import fused_eval as SF
-from symbolicregression_jl_tpu_torch.ops.program import compile_program
+from symbolicregression_jl_tpu_torch.ops.program import compile_program, scatter_const_grads
 
 from torch_parity import assert_close, to_np
 
@@ -218,3 +218,224 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         SF.ProgramEvalKernel()(*meta, sops, SL.l2_dist_loss)
 
+
+
+# ---------------------------------------------------------------------------
+# Kernels #2 and #3: fused_loss_multi and fused_grad_multi
+# ---------------------------------------------------------------------------
+
+GRAD_RTOL = 1e-4
+
+
+def _variants(jp, V: int, seed: int):
+    """[T, V, CMAX] constant vectors: the trees' own constants perturbed,
+    with a non-finite candidate constant in two pairs."""
+    rng = np.random.default_rng(seed)
+    cv = np.asarray(jp.cvals)[:, None, :] * (
+        1.0 + 0.3 * rng.normal(size=(jp.cvals.shape[0], V, jp.cvals.shape[1])))
+    cv = cv.astype(np.float32)
+    used = np.arange(cv.shape[2])[None, :] < np.asarray(jp.nconst)[:, None]
+    t = np.argwhere(used[:, 0])[:2, 0]
+    cv[t[0], V - 1, 0] = np.inf
+    cv[t[1], 0, 0] = np.nan
+    return cv
+
+
+def _assert_grad_close(jg, sg, scale, what):
+    """Gradients: zeroed (non-finite or bad-pair) components in the same
+    places; elsewhere within GRAD_RTOL of the sum of the absolute per-row
+    terms. Each row's derivative agrees within a few ULP, but the rows are
+    summed in another order and may cancel, so the error is bounded
+    relative to that sum rather than to the (possibly small) gradient."""
+    jg, sg, scale = np.asarray(jg), np.asarray(sg), np.asarray(scale)
+    assert np.array_equal(jg == 0, sg == 0), what
+    live = jg != 0
+    assert np.all(np.abs(jg - sg)[live] <= GRAD_RTOL * scale[live]), (
+        what, np.max(np.abs(jg - sg)[live] - GRAD_RTOL * scale[live], initial=0))
+
+
+@pytest.mark.parametrize("layout,weighted,V,n", [("merged", True, 5, 64),
+                                                 ("legacy", False, 1, 257)])
+def test_fused_multi_and_grad_match_jax(layout, weighted, V, n):
+    """Kernels #2 and #3 (plain versions here) against the JAX package's
+    interpret-mode kernels, with weight-0 rows and non-finite candidate
+    constants: validity and the zeroed-gradient pattern bit-equal, loss
+    within rtol 1e-5 with inf in the same places, gradients as stated in
+    _assert_grad_close."""
+    from symbolicregression_jl_tpu.ops.program import compile_program as j_compile
+
+    jops, sops, jt, st = _batch(layout, 0, T=16)
+    X, y, w = _data(n, weighted, 0)
+    jp = j_compile(jt, 3, len(jops.binary))
+    sp = compile_program(st, 3, len(sops.binary))
+    cv = _variants(jp, V, 1)
+    args_j = (jp, _j(cv), _j(X), _j(y), _j(w), 3, jops, JL.l2_dist_loss)
+    args_s = (sp, _t(cv), _t(X), _t(y), _t(w), 3, sops, SL.l2_dist_loss)
+    jl, jv = JF.fused_loss_multi(*args_j, interpret=True)
+    sl, sv = SF.fused_loss_multi(*args_s)
+    assert np.array_equal(to_np(jv), to_np(sv))
+    assert_close(to_np(jl), to_np(sl), RTOL, "loss")
+    jgl, jgv, jg = JF.fused_grad_multi(*args_j, interpret=True)
+    sgl, sgv, sg = SF.fused_grad_multi(*args_s)
+    assert np.array_equal(to_np(jgv), to_np(sgv)) and np.array_equal(to_np(sgv), to_np(sv))
+    assert_close(to_np(jgl), to_np(sgl), RTOL, "grad-kernel loss")
+    assert np.array_equal(to_np(sgl).view(np.int32), to_np(sl).view(np.int32))
+    instr = SF._pack_instr(sp, sops, 3 + sp.cmax + sp.max_steps)
+    wt = torch.ones(n) if w is None else _t(w)
+    *_, gabs = SF.program_grad_plain(instr, sp.nsteps, sp.nconst, _t(cv), _t(X), _t(y), wt,
+                                     sops, SL.l2_dist_loss, return_abs=True)
+    _assert_grad_close(to_np(jg), to_np(sg), to_np(gabs) / float(wt.sum()), "grad")
+
+
+def test_grad_plain_matches_autograd_where_finite():
+    """The adjoint sweep against torch.autograd of the multi-variant plain
+    version, on pairs where both are finite (autograd's rules are not
+    JAX's where the values are not): within 1e-5 of the sum of the
+    absolute per-row terms, the two summing the rows in other orders."""
+    _, sops, _, st = _batch("merged", 2, T=24)
+    X, y, w = _data(128, True, 2)
+    sp = compile_program(st, 3, len(sops.binary))
+    instr = SF._pack_instr(sp, sops, 3 + sp.cmax + sp.max_steps)
+    cv = _t(np.asarray(sp.cvals)[:, None, :].repeat(3, 1) * np.float32([1.0, 0.9, 1.1])[None, :,
+                                                                                       None])
+    cv = cv.clone().requires_grad_(True)
+    loss, valid = SF.program_multi_plain(instr, sp.nsteps, cv, _t(X), _t(y), _t(w), sops,
+                                         SL.l2_dist_loss)
+    ok = valid & torch.isfinite(loss)
+    (g_auto,) = torch.autograd.grad(torch.where(ok, loss, 0.0).sum(), cv)
+    gl, gv, g, gabs = SF.program_grad_plain(instr, sp.nsteps, sp.nconst, cv.detach(), _t(X),
+                                            _t(y), _t(w), sops, SL.l2_dist_loss, return_abs=True)
+    assert torch.equal(gv, valid)
+    assert torch.equal(gl.view(torch.int32), loss.detach().view(torch.int32))
+    # The plain version evaluates every branch of the opcode switch and
+    # selects; autograd sends a zero cotangent into the untaken branches,
+    # where 0 / 0 can make NaN. Only pairs finite on both sides compare.
+    ok = ok & torch.isfinite(g).all(-1) & torch.isfinite(g_auto).all(-1)
+    assert ok.sum() > 20
+    assert torch.all((g - g_auto).abs()[ok] <= 1e-5 * gabs[ok] + 1e-30)
+
+
+def test_fused_grad_program_and_const_grad_scatter():
+    """The single-variant views: fused_grad_program is V = 1 of
+    fused_grad_multi; fused_loss_and_const_grad scatters it to slot order."""
+    _, sops, _, st = _batch("merged", 1, T=16)
+    X, y, w = _data(64, True, 1)
+    sp = compile_program(st, 3, len(sops.binary))
+    l1, v1, g1 = SF.fused_grad_program(sp, _t(X), _t(y), _t(w), 3, sops, SL.l2_dist_loss)
+    lm, vm, gm = SF.fused_grad_multi(sp, sp.cvals[:, None], _t(X), _t(y), _t(w), 3, sops,
+                                     SL.l2_dist_loss)
+    assert torch.equal(l1, lm[:, 0]) and torch.equal(v1, vm[:, 0]) and torch.equal(g1, gm[:, 0])
+    l2, v2, g2 = SF.fused_loss_and_const_grad(st, None, _t(X), _t(y), _t(w), sops,
+                                              SL.l2_dist_loss)
+    assert torch.equal(l2, l1) and torch.equal(v2, v1)
+    assert torch.equal(g2, scatter_const_grads(sp, g1, st.max_nodes))
+
+
+def test_multi_refusals():
+    _, sops, _, st = _batch("merged", 0, T=8)
+    X, y, _ = _data(16, False)
+    sp = compile_program(st, 3, len(sops.binary))
+    with pytest.raises(NotImplementedError, match="graftstage"):
+        SF.fused_loss_multi(sp, sp.cvals[:, None], _t(X), _t(y), None, 3, sops,
+                            SL.l2_dist_loss, bf16=True)
+    with pytest.raises(NotImplementedError, match="L2, L1 and Huber"):
+        SF.fused_grad_multi(sp, sp.cvals[:, None], _t(X), _t(y), None, 3, sops,
+                            SL.LOSS_REGISTRY["logcosh"])
+    custom = S.OperatorSet(["+", "*"], [S.Op("twice", 1, lambda x: 2 * x)])
+    with pytest.raises(NotImplementedError, match="built-in operators only"):
+        SF.program_grad_plain(torch.zeros((1, 2), dtype=torch.int32),
+                              torch.ones(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
+                              torch.zeros((1, 1, 1)), _t(X), _t(y), torch.ones(16), custom,
+                              SL.l2_dist_loss)
+
+
+# ---------------------------------------------------------------------------
+# The derivative table, operator by operator
+# ---------------------------------------------------------------------------
+
+_ALL_UNARY = [n for n, o in J.ops.operators.OPERATOR_REGISTRY.items() if o.arity == 1]
+_ALL_BINARY = [n for n, o in J.ops.operators.OPERATOR_REGISTRY.items() if o.arity == 2]
+_EDGES = np.array([-100, -88, -10, -3, -2, -1.5, -1, -0.75, -0.5, -1e-30, -0.0, 0.0, 1e-30,
+                   0.3, 0.5, 1, 1.5, 2, 2.5, 3, 10, 88, 100, 3e38], np.float32)
+_CTS = np.array([1.0, 0.0, -2.5], np.float32)   # ct = 0: a weight-0 row's cotangent
+
+
+def _table_close(want, got, rtol, what):
+    """NaN and +-inf in the same places; finite values within rtol (and
+    1e-30 absolute: XLA's CPU backend flushes subnormal results to 0)."""
+    want, got = np.asarray(want), np.asarray(got)
+    assert np.array_equal(np.isnan(want), np.isnan(got)), what
+    assert np.array_equal(np.isinf(want), np.isinf(got)), what
+    assert np.array_equal(want[np.isinf(want)], got[np.isinf(got)]), what
+    f = np.isfinite(want)
+    np.testing.assert_allclose(got[f], want[f], rtol=rtol, atol=1e-30, err_msg=what)
+
+
+def test_derivative_table_matches_jax_vjp():
+    """Every built-in operator's and loss's reverse-mode derivative against
+    jax.vjp of the JAX package's operator, on a grid of domain edges x
+    cotangents (0 included): non-finite values in the same places, finite
+    ones within rtol 1e-4 (tanh's 1 - tanh(x)^2 near |x| = 3 turns the two
+    backends' 1-ULP tanh difference into 2e-5)."""
+    from symbolicregression_jl_tpu.core import losses as JLoss
+    from symbolicregression_jl_tpu_torch.ops import vjp as SV
+
+    x, ct = np.meshgrid(_EDGES, _CTS, indexing="ij")
+    for name in _ALL_UNARY:
+        fn = J.ops.operators.OPERATOR_REGISTRY[name].fn
+        (want,) = jax.vjp(fn, jnp.asarray(x))[1](jnp.asarray(ct))
+        got = SV.UNARY_VJP[name](_t(x), _t(ct))
+        _table_close(to_np(want), to_np(got), 1e-4, name)
+    a, b, ct3 = np.meshgrid(_EDGES, _EDGES, _CTS, indexing="ij")
+    for name in _ALL_BINARY:
+        fn = J.ops.operators.OPERATOR_REGISTRY[name].fn
+        wa, wb = jax.vjp(fn, jnp.asarray(a), jnp.asarray(b))[1](jnp.asarray(ct3))
+        ga, gb = SV.BINARY_VJP[name](_t(a), _t(b), _t(ct3))
+        _table_close(to_np(wa), to_np(ga), 1e-4, name + " (first operand)")
+        _table_close(to_np(wb), to_np(gb), 1e-4, name + " (second operand)")
+    for jf, sf in ((JLoss.l2_dist_loss, SL.l2_dist_loss), (JLoss.l1_dist_loss, SL.l1_dist_loss),
+                   (JLoss.huber_loss(1.0), SL.LOSS_REGISTRY["HuberLoss"])):
+        (want,) = jax.vjp(lambda p: jf(p, jnp.asarray(b)), jnp.asarray(a))[1](jnp.asarray(ct3))
+        _table_close(to_np(want), to_np(SV.loss_vjp(sf)(_t(a), _t(b), _t(ct3))), 1e-5,
+                     sf.__name__)
+
+
+def test_every_operator_gradient_matches_jax_kernel():
+    """Kernel #3 (plain version) against the JAX package's interpret-mode
+    kernel with every built-in operator in one operator set, one tree per
+    operator, on rows at domain edges (0, +-1, ...) of which every fifth
+    has weight 0: validity, the zeroed-gradient pattern and the gradients
+    (as in _assert_grad_close) operator by operator."""
+    from symbolicregression_jl_tpu.ops.program import compile_program as j_compile
+
+    jops, sops = J.OperatorSet(_ALL_BINARY, _ALL_UNARY), S.OperatorSet(_ALL_BINARY, _ALL_UNARY)
+    names = ["x1", "x2"]
+    parse = lambda e: J.parse_expression(e, jops, names)
+    exprs = ([f"{u}(x1 * 1.0)" for u in _ALL_UNARY] + [f"{u}(x2 * 1.0)" for u in _ALL_UNARY]
+             + [f"{b}(x1 * 1.0, x2 + 0.0)" for b in _ALL_BINARY])
+    trees = [parse(e) for e in exprs[:2 * len(_ALL_UNARY)]] + [
+        J.ops.tree.Node(op=op, children=[parse("x1 * 1.0"), parse("x2 + 0.0")])
+        for op in jops.binary]
+    jt = JE.encode_population(trees, 8, jops)
+    st = interop.tree_batch(jax.tree.map(np.asarray, jt))
+    edges = np.array([-3, -2, -1.25, -1, -0.75, -0.5, -0.25, 0, 0.25, 0.5, 0.75, 1, 1.25, 2, 3],
+                     np.float32)
+    n = 64
+    rng = np.random.default_rng(0)
+    X = np.stack([np.resize(edges, n), rng.permutation(np.resize(edges[3:12], n))])
+    y = rng.normal(size=n).astype(np.float32)
+    w = rng.uniform(0.5, 2, n).astype(np.float32)
+    w[::5] = 0.0
+    jp, sp = j_compile(jt, 2, len(jops.binary)), compile_program(st, 2, len(sops.binary))
+    cv = np.array(jp.cvals)[:, None, :]
+    _, jv, jg = JF.fused_grad_multi(jp, _j(cv), _j(X), _j(y), _j(w), 2, jops, JL.l2_dist_loss,
+                                    interpret=True)
+    _, sv, sg = SF.fused_grad_multi(sp, _t(cv), _t(X), _t(y), _t(w), 2, sops, SL.l2_dist_loss)
+    instr = SF._pack_instr(sp, sops, 2 + sp.cmax + sp.max_steps)
+    *_, gabs = SF.program_grad_plain(instr, sp.nsteps, sp.nconst, _t(cv), _t(X), _t(y), _t(w),
+                                     sops, SL.l2_dist_loss, return_abs=True)
+    scale = to_np(gabs) / float(w.sum())
+    for i, e in enumerate(exprs):
+        assert to_np(jv)[i] == to_np(sv)[i], e
+        _assert_grad_close(to_np(jg)[i], to_np(sg)[i], scale[i], e)
+    assert to_np(sv).sum() > len(exprs) // 2

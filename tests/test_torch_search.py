@@ -85,7 +85,7 @@ def test_kernel_wrapper_not_launched_on_cpu():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(should_optimize_constants=True),
+    dict(optimizer_bf16_linesearch=True),
     dict(batching=True),
     dict(staged_eval=True),
     dict(eval_precision="bf16"),
@@ -106,8 +106,36 @@ def test_options_outside_the_slice_refuse(kw):
 
 
 def test_default_options_refuse_without_constant_optimizer_off():
-    with pytest.raises(NotImplementedError, match="should_optimize_constants"):
-        Engine(S.Options(save_to_file=False), 2, device="cpu")
+    """The constant optimizer is in the port: the default Options (which
+    turn it on) build an engine; only its bfloat16 line search refuses,
+    naming its slice."""
+    engine = Engine(S.Options(save_to_file=False), 2, device="cpu")
+    assert engine.options.should_optimize_constants
+    assert engine.opt_cfg.iterations == 8 and engine.opt_cfg.nrestarts == 2
+    with pytest.raises(NotImplementedError, match="graftstage"):
+        Engine(S.Options(optimizer_bf16_linesearch=True, save_to_file=False), 2, device="cpu")
+
+
+def test_default_options_search_runs_the_constant_optimizer(monkeypatch):
+    """equation_search with the default Options on the CPU runs the eager
+    constant optimizer (turbo is off on the CPU) every iteration. Every
+    option keeps its default except the depth, ncycles_per_iteration,
+    cut from 380 to 20 to keep the test short."""
+    from symbolicregression_jl_tpu_torch.evolve import engine as engine_module
+
+    calls = []
+    real = engine_module.optimize_constants_batch
+
+    def counting(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(engine_module, "optimize_constants_batch", counting)
+    X, y = _problem(n=32)
+    hof = S.equation_search(X, y, options=S.Options(ncycles_per_iteration=20), niterations=1,
+                            seed=0, device="cpu")
+    assert len(calls) == 1
+    assert np.isfinite(min(e.loss for e in hof.entries))
 
 
 @pytest.mark.parametrize("kw", [dict(resume="auto"), dict(saved_state=object()),
@@ -161,7 +189,7 @@ def test_port_search_runs_without_jax_loaded():
         "y = X[:, 0] * 2.0\n"
         "o = S.Options(binary_operators=['+', '*'], populations=2, population_size=16,\n"
         "              ncycles_per_iteration=2, tournament_selection_n=4, maxsize=8,\n"
-        "              should_optimize_constants=False, save_to_file=False)\n"
+        "              save_to_file=False)\n"
         "S.equation_search(X, y, options=o, niterations=1, seed=0, device='cpu')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "      ('jax', 'jaxlib', 'symbolicregression_jl_tpu'))))\n"
