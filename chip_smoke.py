@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--ncycles N]
+    python3 chip_smoke.py [--ncycles N] [--ncycles-plain N]
 
 Phases (any failure exits nonzero and prints no result line):
 
 1. Require CUDA (no CPU fallback); print the card's name and power limit.
-2. Build the three kernels (csrc/program_eval.cu, program_multi.cu,
-   program_grad.cu) from the checkout, one nvcc per source, in parallel.
+2. Build the five kernels (csrc/program_eval.cu, program_multi.cu,
+   program_grad.cu, program_predict.cu, program_predict_vjp.cu) from the
+   checkout, one nvcc per source, all started together.
 3. Hold kernel #1 against its plain PyTorch version at the benchmark
    shapes: 16,384 random trees (maxsize 30, + - * / exp abs cos), 5
    features, 10,000 rows. Validity bit-equal; loss and cost within rtol
@@ -34,6 +35,40 @@ Phases (any failure exits nonzero and prints no result line):
    cut depth: launches of #1 only.
 7. `equation_search(X, y, niterations=3, device="cuda")` with the default
    Options on the same data.
+8. Hold kernels #4 and #5 against their plain versions at the template
+   cycle's shapes: 16,384 random trees (maxsize 30, + - * cos), 10,000
+   rows, random cotangents for #5, every fifth tree's const_ok cleared;
+   three inputs: shared X (F = 1), the same with overflow rows (every 97th
+   row +-1e20, so x * x overflows and inf - inf gives NaN), and per-member
+   X (F = 2) with overflow rows in every seventh tree's X. Validity
+   bit-equal; predictions, gcomp and gx NaN in the same places and +-inf
+   in the same places, and otherwise predictions and gx within rtol 1e-5,
+   or within 1e-5 of the tree's largest finite |value| where the rows
+   cancel, and gcomp within 1e-4 of the sum of the absolute per-row
+   terms; two launches bit-identical. Prints each input's valid trees and
+   non-finite predictions. Times both (CUDA events; the shared and
+   per-member inputs) and reckons their bounds.
+9. Template main path: `Engine` at the JAX package's chip-sized template
+   cell (bench/cell.py FULL, variant "template": 512 islands x 256
+   members, tournament 16, maxsize 30, + - * cos, 10,000 rows x 2
+   features from seed 1234, structure f(x1) * f(x1) + g(x2),
+   optimizer_probability 0, 100 cycles): init_state, one warm-up
+   iteration, two timed iterations. Launches of #4 must be 3 x (ncycles +
+   1) per iteration,
+   none of #1-#3 or #5; the best hall-of-fame member's loss is recomputed
+   on the host from its decoded expression.
+10. The template constant optimizer: the same structure at 64 islands x
+   256 (the default optimizer_probability 0.14; at 512 islands the
+   line search's 442,368 members would need 17.7 GB per [members, rows]
+   tensor), cut to TEMPLATE_OPT_CYCLES = 10 cycles (the optimizer runs
+   once per iteration whatever the depth, so the cut saves the evolution
+   cycles' time within the time limit and leaves the optimizer's launches
+   as they are). Launches of #5 must be 27 per iteration (9
+   gradient passes x 3 call sites); prints #4's launches and the
+   optimizer's share of the evaluations (f_calls).
+11. A composition structure g(f(x1), x2) through
+   `equation_search(..., device="cuda")`: kernels #4 and #5 in per-member
+   mode. Prints the best loss and its string.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -52,6 +87,9 @@ import numpy as np
 
 N_ROWS = 10_000
 N_FEATURES = 5
+ISLANDS = 512               # the headline and template cells' width
+TEMPLATE_CYCLES = 100       # the template cell's ncycles_per_iteration (bench/cell.py FULL)
+TEMPLATE_OPT_CYCLES = 10    # the template optimizer phase's cut depth (phase 10)
 RTOL = 1e-5
 H100_FP32_FLOPS = 67e12     # non-tensor-core FP32 peak, H100 SXM data sheet
 H100_HBM_BYTES_S = 3.35e12  # HBM3 bandwidth, H100 SXM data sheet
@@ -67,7 +105,9 @@ def bench_data():
     return X, y
 
 
-def bench_options(sr, ncycles: int, populations: int = 512, optimize: bool = True):
+def bench_options(sr, ncycles: int, populations: int = 0, optimize: bool = True):
+    """The headline configuration; ``populations`` 0 means ISLANDS."""
+    populations = populations or ISLANDS
     return sr.Options(
         binary_operators=["+", "-", "*", "/"], unary_operators=["exp", "abs", "cos"],
         maxsize=30, populations=populations, population_size=256,
@@ -94,11 +134,19 @@ def same(torch, a, b):
     return bool(torch.equal(a, b))
 
 
+def nonfinite_match(torch, a, b):
+    """NaN in the same places, and +-inf in the same places with the same
+    sign (NaN compares unequal to itself, so the masks are compared)."""
+    ia, ib = torch.isinf(a), torch.isinf(b)
+    return (bool(torch.equal(torch.isnan(a), torch.isnan(b))) and bool(torch.equal(ia, ib))
+            and bool(torch.equal(a[ia], b[ib])))
+
+
 def close(torch, a, b):
-    """Within rtol where finite, inf exactly where the other has inf.
+    """Within rtol where finite, non-finite exactly where the other is.
     Returns (same_inf, within, max rel err, max abs err)."""
     fa, fb = torch.isfinite(a), torch.isfinite(b)
-    same_inf = bool(torch.equal(fa, fb)) and bool(torch.equal(a[~fa], b[~fb]))
+    same_inf = nonfinite_match(torch, a, b)
     err = (a[fa] - b[fb]).abs()
     within = bool((err <= RTOL * b[fb].abs()).all()) if same_inf else False
     rel = float((err / b[fb].abs().clamp(min=1e-30)).max()) if same_inf and err.numel() else 0.0
@@ -347,40 +395,53 @@ def phase_opt_kernels(torch, sr, dev):
             row(grad, abs3, ms_grad, plain_ms_grad, b3, by3)]
 
 
-def run_engine(torch, sr, dev, options, iters: int = 2):
-    """init_state, one warm-up iteration, then ``iters`` timed iterations
-    with every kernel's launch count set to 0 just before them. Returns
-    (launches by kernel name, state)."""
-    from symbolicregression_jl_tpu_torch.evolve import rng
-    from symbolicregression_jl_tpu_torch.evolve.engine import Engine
+KERNEL_NAMES = ("PROGRAM_EVAL", "PROGRAM_MULTI", "PROGRAM_GRAD", "PROGRAM_PREDICT",
+                "PROGRAM_PREDICT_VJP")
+
+
+def kernels():
     from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
 
-    X, y = bench_data()
+    return [getattr(FE, k) for k in KERNEL_NAMES]
+
+
+def run_engine(torch, sr, dev, options, iters: int = 2, data=None, on_engine=None):
+    """init_state, one warm-up iteration, then ``iters`` timed iterations
+    with every kernel's launch count set to 0 just before them. ``data``
+    is (X, y), the bench problem by default; ``on_engine`` sees the engine
+    before the timed iterations. Returns (launches by kernel name, state,
+    engine, evaluations in the timed iterations)."""
+    from symbolicregression_jl_tpu_torch.evolve import rng
+    from symbolicregression_jl_tpu_torch.evolve.engine import Engine
+
+    X, y = bench_data() if data is None else data
     ds = sr.make_dataset(X, y, device=dev)
     ds.update_baseline_loss(options.elementwise_loss)
-    engine = Engine(options, N_FEATURES, device=dev)
+    engine = Engine(options, X.shape[1], device=dev)
     print(f"  islands {options.populations} x members {options.population_size}, "
-          f"rows {N_ROWS} x features {N_FEATURES}, ncycles_per_iteration "
+          f"rows {X.shape[0]} x features {X.shape[1]}, ncycles_per_iteration "
           f"{options.ncycles_per_iteration}, constant optimizer "
-          f"{options.should_optimize_constants}, turbo {engine.cfg.turbo}, fused cost "
+          f"{options.should_optimize_constants} (probability {options.optimizer_probability}), "
+          f"template {engine.template is not None}, turbo {engine.cfg.turbo}, fused cost "
           f"{engine.cfg.fuse_cost}")
     t0 = time.perf_counter()
     state = engine.init_state(rng.key(0, device=dev), ds.data, options.populations)
     state = engine.run_iteration(state, ds.data, options.maxsize)
     torch.cuda.synchronize()
     print(f"  init + warm-up iteration: {time.perf_counter() - t0:.2f} s")
+    if on_engine is not None:
+        on_engine(engine)
 
-    kernels = (FE.PROGRAM_EVAL, FE.PROGRAM_MULTI, FE.PROGRAM_GRAD)
     evals0 = float(state.num_evals)
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels:
+    for k in kernels():
         k.launches = 0
     t0 = time.perf_counter()
     for _ in range(iters):
         state = engine.run_iteration(state, ds.data, options.maxsize)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
+    launches = {k.name: k.launches for k in kernels()}
     evals = float(state.num_evals) - evals0
     print(f"  {iters} timed iterations: {elapsed / iters:.3f} s/iteration, "
           f"{evals / elapsed:.6g} evals/s ({evals:.0f} evals)")
@@ -391,19 +452,21 @@ def run_engine(torch, sr, dev, options, iters: int = 2):
         raise RuntimeError("hall of fame holds no finite entry")
     if state.pops.cost.shape != (options.populations, options.population_size):
         raise RuntimeError(f"population cost has shape {tuple(state.pops.cost.shape)}")
-    return launches
+    return launches, state, engine, evals
 
 
 def phase_main_path(torch, sr, dev, ncycles: int):
     """Phase 5: the headline configuration, constant optimizer on."""
     options = bench_options(sr, ncycles)
     iters = 2
-    launches = run_engine(torch, sr, dev, options, iters)
+    launches, _, _, _ = run_engine(torch, sr, dev, options, iters)
     expected = {"program_eval": iters * (ncycles + 1),              # each cycle + finalize
                 "program_multi": iters * options.optimizer_iterations,     # line searches
-                "program_grad": iters * (options.optimizer_iterations + 1)}  # + the first
+                "program_grad": iters * (options.optimizer_iterations + 1),  # + the first
+                "program_predict": 0, "program_predict_vjp": 0}
     print(f"  expected {expected}")
-    if launches != expected or 0 in launches.values():
+    if launches != expected or 0 in (launches[k] for k in ("program_eval", "program_multi",
+                                                            "program_grad")):
         raise RuntimeError(f"main path launched {launches}, expected {expected}")
     return launches
 
@@ -411,8 +474,9 @@ def phase_main_path(torch, sr, dev, ncycles: int):
 def phase_no_optimizer(torch, sr, dev, ncycles: int):
     """Phase 6: the first slice's path (no constant optimizer), cut depth."""
     options = bench_options(sr, ncycles, optimize=False)
-    launches = run_engine(torch, sr, dev, options, iters=2)
-    expected = {"program_eval": 2 * (ncycles + 1), "program_multi": 0, "program_grad": 0}
+    launches, _, _, _ = run_engine(torch, sr, dev, options, iters=2)
+    expected = {"program_eval": 2 * (ncycles + 1), "program_multi": 0, "program_grad": 0,
+                "program_predict": 0, "program_predict_vjp": 0}
     if launches != expected:
         raise RuntimeError(f"no-optimizer path launched {launches}, expected {expected}")
 
@@ -427,6 +491,262 @@ def phase_search(sr, dev):
           f"complexity {best.complexity}: {best.equation_string()}")
     if not np.isfinite(best.loss):
         raise RuntimeError("equation_search returned no finite loss")
+
+
+# ---------------------------------------------------------------------------
+# Template expressions (kernels #4 and #5)
+# ---------------------------------------------------------------------------
+
+
+def template_data():
+    """The JAX package's template cell data (bench/cell.py, variant
+    "template"): 10,000 rows x 2 features from seed 1234 uniform on
+    [-2, 2], y = (1.5 x1)^2 + cos(2 x2)."""
+    rng = np.random.default_rng(1234)
+    X = rng.uniform(-2.0, 2.0, (N_ROWS, 2)).astype(np.float32)
+    y = ((1.5 * X[:, 0]) ** 2 + np.cos(2.0 * X[:, 1])).astype(np.float32)
+    return X, y
+
+
+def template_options(sr, ncycles: int, populations: int = 0, combiner=None, **kw):
+    """bench/cell.py FULL with variant "template" (optimizer_probability 0
+    unless given); ``populations`` 0 means ISLANDS."""
+    populations = populations or ISLANDS
+    from symbolicregression_jl_tpu_torch.models import template_spec
+
+    combiner = combiner or (lambda f, g, x1, x2: f(x1) * f(x1) + g(x2))
+    spec = template_spec(expressions=("f", "g"))(combiner)
+    base = dict(binary_operators=["+", "-", "*"], unary_operators=["cos"], maxsize=30,
+                populations=populations, population_size=256, tournament_selection_n=16,
+                ncycles_per_iteration=ncycles, optimizer_probability=0.0,
+                expression_spec=spec, save_to_file=False)
+    base.update(kw)
+    return sr.Options(**base)
+
+
+def tree_close(torch, a, b, rtol=RTOL):
+    """[T, ...] values: non-finite in the same places (``nonfinite_match``)
+    and otherwise within ``rtol``, or within ``rtol`` of the tree's largest
+    finite |b| where the rows cancel. Returns (ok, worst relative error,
+    worst error over the tree's scale, worst absolute error)."""
+    a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+    fb = torch.isfinite(b)
+    if not nonfinite_match(torch, a, b):
+        return False, float("inf"), float("inf"), float("inf")
+    scale = torch.where(fb, b.abs(), 0.0).amax(dim=-1, keepdim=True).expand_as(b)[fb]
+    err = (a - b).abs()[fb]
+    if not err.numel():
+        return True, 0.0, 0.0, 0.0
+    mag = b.abs()[fb]
+    ok = bool(((err <= rtol * mag) | (err <= rtol * scale)).all())
+    rel = float((err / mag.clamp(min=1e-30)).max())
+    return ok, rel, float((err / scale.clamp(min=1e-30)).max()), float(err.max())
+
+
+OVERFLOW = 1e20   # x * x overflows float32 at this |x|; x + c, x * c and cos(x) do not
+
+
+def predict_inputs(torch, sr, dev, F: int, per_member: bool, overflow: bool, g):
+    """Kernel #4/#5 inputs at the template cycle's shapes: 16,384 random
+    trees over F arguments (every fifth tree's const_ok cleared), X on
+    [-2, 2] (shared [F, n] or per-member [T, F, n]), random cotangents.
+    ``overflow`` sets every 97th row to +-OVERFLOW: in every tree's X when
+    shared, in every seventh tree's when per-member."""
+    from symbolicregression_jl_tpu_torch.evolve import rng
+    from symbolicregression_jl_tpu_torch.evolve.population import init_population
+    from symbolicregression_jl_tpu_torch.evolve.step import evolve_config_from_options
+    from symbolicregression_jl_tpu_torch.ops.program import compile_program
+
+    options = template_options(sr, 1)
+    T, n = ISLANDS * 2 * 16, N_ROWS   # the cycle's candidates: islands x 2 x ceil(256 / 16)
+    cfg = evolve_config_from_options(options, F, dev)
+    trees = init_population(rng.split(rng.key(5 + F, device=dev), 64), T // 64, cfg.mctx,
+                            nlength=5).reshape(-1)
+    prog = compile_program(trees, F, len(options.operators.binary))
+    X = torch.rand((T, F, n) if per_member else (F, n), generator=g, device=dev) * 4 - 2
+    if overflow:
+        big = X[::7, :, ::97] if per_member else X[:, ::97]
+        big.copy_(torch.where(big < 0, -OVERFLOW, OVERFLOW))
+    ct = torch.randn((T, n), generator=g, device=dev)
+    ok = prog.const_ok.clone()
+    ok[::5] = False
+    return options.operators, prog, X, ct, ok.to(torch.int32).contiguous()
+
+
+def phase_predict_kernels(torch, sr, dev):
+    """Phase 8: kernels #4 and #5 against their plain versions at the
+    template cycle's shapes, in both X modes and with overflow rows."""
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+    check = Checks()
+    _same = lambda a, b: same(torch, a, b)
+    k4, k5 = FE.PROGRAM_PREDICT, FE.PROGRAM_PREDICT_VJP
+    g = torch.Generator(device=dev).manual_seed(4)
+    report, errs4, errs5 = {}, [], []
+    for mode, F, per_member, overflow in (("shared", 1, False, False),
+                                          ("shared, overflow rows", 1, False, True),
+                                          ("per-member", 2, True, True)):
+        ops, prog, X, ct, ok = predict_inputs(torch, sr, dev, F, per_member, overflow, g)
+        instr, nsteps, cvals, Xc = FE._predict_inputs(prog, X, F, ops)
+        nconst = prog.nconst.to(torch.int32).contiguous()
+        T, n = ct.shape
+
+        pk, vk = k4(instr, nsteps, cvals, ok, Xc, ops)
+        pk2, vk2 = k4(instr, nsteps, cvals, ok, Xc, ops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pp, vp = FE.program_predict_plain(instr, nsteps, cvals, ok, Xc, ops)
+        torch.cuda.synchronize()
+        plain4 = (time.perf_counter() - t0) * 1e3
+        check(f"#4 {mode}: two launches bit-identical", _same(pk, pk2) and _same(vk, vk2))
+        check(f"#4 {mode}: validity bit-equal", _same(vk, vp))
+        good, rel4, scl4, abs4 = tree_close(torch, pk, pp)
+        check(f"#4 {mode}: predictions NaN and +-inf in the same places, otherwise within "
+              f"rtol {RTOL} or {RTOL} of the tree's largest |pred| (worst relative error "
+              f"{rel4:.3g}, worst over the tree's scale {scl4:.3g})", good)
+        errs4.append(abs4)
+
+        gk, xk = k5(instr, nsteps, nconst, cvals, Xc, ct, ops)
+        gk2, xk2 = k5(instr, nsteps, nconst, cvals, Xc, ct, ops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gp, xp, gabs = FE.program_predict_vjp_plain(instr, nsteps, nconst, cvals, Xc, ct, ops,
+                                                    return_abs=True)
+        torch.cuda.synchronize()
+        plain5 = (time.perf_counter() - t0) * 1e3
+        check(f"#5 {mode}: two launches bit-identical",
+              _same(gk, gk2) and (xk is None or _same(xk, xk2)))
+        check(f"#5 {mode}: gcomp NaN and +-inf in the same places",
+              nonfinite_match(torch, gk, gp))
+        both = torch.isfinite(gabs) & torch.isfinite(gk) & torch.isfinite(gp)
+        gerr = (gk - gp).abs()[both]
+        gscale = float((gerr / gabs[both].clamp(min=1e-30)).max()) if gerr.numel() else 0.0
+        check(f"#5 {mode}: gcomp within 1e-4 of the absolute row sums (worst error over "
+              f"that scale {gscale:.3g})", bool((gerr <= 1e-4 * gabs[both]).all()))
+        errs5.append(float(gerr.max()) if gerr.numel() else 0.0)
+        if per_member:
+            good, relx, sclx, absx = tree_close(torch, xk, xp)
+            check(f"#5 {mode}: gx NaN and +-inf in the same places, otherwise within rtol "
+                  f"{RTOL} or {RTOL} of the tree's largest |gx| (worst relative error "
+                  f"{relx:.3g}, worst over the tree's scale {sclx:.3g})", good)
+            errs5.append(absx)
+        steps = float(nsteps.to(torch.float64).sum())
+        nc = float(nconst.to(torch.float64).sum())
+        print(f"  {mode} X (F = {F}): {T} trees, mean steps {steps / T:.3f}, mean constants "
+              f"{nc / T:.3f}, {int(vk.sum())} of {T} valid ({int((ok == 0).sum())} with "
+              f"const_ok cleared), {n} rows; {int((~torch.isfinite(pk)).sum())} of {pk.numel()} "
+              f"predictions non-finite ({int(torch.isnan(pk).sum())} NaN), "
+              f"{int((~torch.isfinite(gk)).sum())} of {gk.numel()} gcomp entries non-finite")
+
+        if not overflow or per_member:
+            ms4 = cuda_ms(torch, lambda: k4(instr, nsteps, cvals, ok, Xc, ops), reps=5)
+            ms5 = cuda_ms(torch, lambda: k5(instr, nsteps, nconst, cvals, Xc, ct, ops), reps=5)
+            L, CMAX = instr.shape[1], cvals.shape[1]
+            xbytes = 4.0 * (T if per_member else 1) * F * n
+            # #4: one operation per step and row; inputs once, pred and valid out.
+            b4, by4 = bound(steps * n,
+                            4.0 * (T * L + 2 * T + T * CMAX) + xbytes + 4.0 * T * (n + 1))
+            # #5: the forward's, then per step and row the derivative and one more
+            # operation per operand, and the constants' sums; ct in, gcomp (and gx) out.
+            b5, by5 = bound((3.0 * steps + nc) * n,
+                            4.0 * (T * L + 2 * T + 2 * T * CMAX + T * n) + xbytes
+                            + (xbytes if per_member else 0.0))
+            print(f"  #4 program_predict: {ms4:.4f} ms (CUDA events, mean of 5), plain "
+                  f"{plain4:.1f} ms, bound {b4:.4f} ms ({by4})")
+            print(f"  #5 program_predict_vjp: {ms5:.4f} ms (CUDA events, mean of 5), plain "
+                  f"{plain5:.1f} ms, bound {b5:.4f} ms ({by5})")
+            report[mode] = {k4: (ms4, plain4, b4, by4), k5: (ms5, plain5, b5, by5)}
+        del pk, pk2, pp, gk, gk2, gp, gabs, xk, xk2, xp, X, ct
+        torch.cuda.empty_cache()
+    check.raise_if_failed("kernels #4 and #5")
+
+    def row(k, errs):
+        """Times of the shared input (the main path's call sites); the
+        largest error of all three inputs."""
+        ms, plain, b, by = report["shared"][k]
+        return {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+                "launches": None, "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
+                "bound_ms": b, "bound_by": by, "library_ms": None}
+
+    return [row(k4, errs4), row(k5, errs5)]
+
+
+def phase_template_main_path(torch, sr, dev):
+    """Phase 9: the template cell at full width; kernel #4 only."""
+    ncycles = TEMPLATE_CYCLES
+    options = template_options(sr, ncycles)
+    iters = 2
+    launches, state, engine, _ = run_engine(torch, sr, dev, options, iters,
+                                            data=template_data())
+    expected = {"program_eval": 0, "program_multi": 0, "program_grad": 0,
+                "program_predict": iters * 3 * (ncycles + 1), "program_predict_vjp": 0}
+    print(f"  expected {expected}")
+    if launches != expected:
+        raise RuntimeError(f"template path launched {launches}, expected {expected}")
+    # The best member's loss, recomputed on the host from its decoded expression.
+    hof = sr.HallOfFame.from_device(state.hof, options.operators, template=engine.template)
+    best = min(hof.entries, key=lambda e: e.loss)
+    X, y = template_data()
+    host = best.template_expr(X, device="cpu").astype(np.float64)
+    mse = float(np.mean((host - y) ** 2))
+    print(f"  best: loss {best.loss:.6g} at complexity {best.complexity}: "
+          f"{best.equation_string()}; host recomputation {mse:.6g}")
+    if not abs(mse - best.loss) <= 1e-4 * max(best.loss, 1e-6):
+        raise RuntimeError(f"hall of fame loss {best.loss} but the host computes {mse}")
+    return launches
+
+
+def phase_template_optimizer(torch, sr, dev):
+    """Phase 10: the template constant optimizer at 64 islands; kernel #5."""
+    ncycles = TEMPLATE_OPT_CYCLES
+    options = template_options(sr, ncycles, populations=ISLANDS // 8,
+                               optimizer_probability=0.14)
+    f_calls = []
+
+    def record(engine):
+        optimize = engine._optimize
+
+        def recorded(*a, **kw):
+            pops, calls = optimize(*a, **kw)
+            f_calls.append(float(calls))
+            return pops, calls
+
+        engine._optimize = recorded
+
+    iters = 1
+    launches, state, engine, evals = run_engine(torch, sr, dev, options, iters,
+                                                data=template_data(), on_engine=record)
+    passes = options.optimizer_iterations + 1
+    expected5 = iters * 3 * passes
+    expected4 = iters * 3 * (ncycles + 1 + passes + options.optimizer_iterations)
+    print(f"  expected program_predict_vjp {expected5}, program_predict {expected4}")
+    if (launches["program_predict_vjp"] != expected5 or launches["program_predict"] != expected4
+            or launches["program_eval"] or launches["program_multi"] or launches["program_grad"]):
+        raise RuntimeError(f"template optimizer launched {launches}")
+    print(f"  launches in the optimizer: #5 {launches['program_predict_vjp']}, #4 "
+          f"{launches['program_predict'] - iters * 3 * (ncycles + 1)}")
+    print(f"  optimizer f_calls {sum(f_calls):.0f} of {evals:.0f} evaluations in {iters} "
+          f"iteration(s): {sum(f_calls) / evals:.1%}")
+    return launches
+
+
+def phase_template_search(torch, sr, dev):
+    """Phase 11: a composition structure through equation_search."""
+    X, y = template_data()
+    y = (np.cos(1.5 * X[:, 0]) * X[:, 1]).astype(np.float32)
+    options = template_options(sr, 20, populations=32, population_size=64,
+                               tournament_selection_n=8, optimizer_probability=0.14,
+                               combiner=lambda f, g, x1, x2: g(f(x1), x2))
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+    before = FE.PROGRAM_PREDICT_VJP.launches
+    t0 = time.perf_counter()
+    hof = sr.equation_search(X, y, options=options, niterations=2, seed=0, device=dev)
+    best = min(hof.entries, key=lambda e: e.loss)
+    print(f"  g(f(x1), x2) on y = cos(1.5 x1) x2: {time.perf_counter() - t0:.2f} s, best loss "
+          f"{best.loss:.6g} at complexity {best.complexity}: {best.equation_string()}")
+    if not np.isfinite(best.loss) or FE.PROGRAM_PREDICT_VJP.launches == before:
+        raise RuntimeError("the composition search returned no finite loss or ran no #5")
 
 
 def main() -> int:
@@ -446,7 +766,6 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import symbolicregression_jl_tpu_torch as sr
     from symbolicregression_jl_tpu_torch.ops import cuda_build
-    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
 
     dev = torch.device("cuda")
     print("[1] device")
@@ -458,14 +777,13 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     print("[2] build")
-    kernels = (FE.PROGRAM_EVAL, FE.PROGRAM_MULTI, FE.PROGRAM_GRAD)
     t0 = time.perf_counter()
-    cuda_build.build_all([k._file for k in kernels])
-    for k in kernels:
+    cuda_build.build_all([k._file for k in kernels()])
+    for k in kernels():
         k.library()
-    print(f"  {', '.join(k._file for k in kernels)}: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {', '.join(f'{cuda_build.build_seconds(k._file):.2f}' for k in kernels)} s, "
-          f"in parallel)")
+    print(f"  {', '.join(k._file for k in kernels())}: {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {', '.join(f'{cuda_build.build_seconds(k._file):.2f}' for k in kernels())} "
+          f"s, in parallel)")
 
     print("[3] kernel #1 against its plain version")
     rows = [phase_kernel(torch, sr, dev)]
@@ -483,6 +801,20 @@ def main() -> int:
 
     print("[7] equation_search")
     phase_search(sr, dev)
+
+    print("[8] kernels #4 and #5 against their plain versions")
+    rows += phase_predict_kernels(torch, sr, dev)
+
+    print("[9] template main path")
+    launches = phase_template_main_path(torch, sr, dev)
+    rows[3]["launches"] = launches["program_predict"]
+
+    print("[10] template constant optimizer")
+    launches = phase_template_optimizer(torch, sr, dev)
+    rows[4]["launches"] = launches["program_predict_vjp"]
+
+    print("[11] template composition search")
+    phase_template_search(torch, sr, dev)
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -1,13 +1,16 @@
 """PyTorch/CUDA port of ``symbolicregression_jl_tpu``.
 
-The plain-expression ``equation_search`` path runs here on one NVIDIA GPU:
-f32, an elementwise loss, the built-in operators, the constant optimizer.
-Candidate scoring and the per-iteration finalize re-score go through a
-hand-written CUDA interpreter kernel (``csrc/program_eval.cu``), the
-optimizer's line search and gradient through two more
-(``csrc/program_multi.cu``, ``csrc/program_grad.cu``); the rest is eager
-PyTorch. Module paths mirror the JAX package so each module's
-counterpart is easy to find.
+``equation_search`` runs here on one NVIDIA GPU for plain expressions and
+for template expressions (``Options(expression_spec=TemplateExpressionSpec(...))``,
+``models/``): f32, an elementwise loss, the built-in operators, the
+constant optimizer. Candidate scoring and the per-iteration finalize
+re-score go through a hand-written CUDA interpreter kernel
+(``csrc/program_eval.cu``), the optimizer's line search and gradient
+through two more (``csrc/program_multi.cu``, ``csrc/program_grad.cu``),
+and template expressions' call sites through the predict kernel and its
+backward (``csrc/program_predict.cu``, ``csrc/program_predict_vjp.cu``);
+the rest is eager PyTorch. Module paths mirror the JAX package so each
+module's counterpart is easy to find.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without CUDA and without that request they raise.

@@ -1,8 +1,9 @@
 """Host-side hall of fame: pareto frontier, scores, formatting.
 
-Port of ``symbolicregression_jl_tpu/api/hall_of_fame.py`` for plain
-expressions. The device-resident `HofState` (best member per complexity,
-evolve/step.py) is decoded into host `Node` trees here.
+Port of ``symbolicregression_jl_tpu/api/hall_of_fame.py``. The
+device-resident `HofState` (best member per complexity, evolve/step.py) is
+decoded into host `Node` trees here, or into a `HostTemplateExpression`
+of named subtrees for template members.
 """
 
 from __future__ import annotations
@@ -22,15 +23,20 @@ __all__ = ["HallOfFameEntry", "HallOfFame", "calculate_pareto_frontier", "comput
 
 @dataclasses.dataclass
 class HallOfFameEntry:
-    """One best-at-complexity member."""
+    """One best-at-complexity member. Template members decode to
+    ``template_expr`` (a HostTemplateExpression) and have no ``tree``."""
 
-    tree: Node
+    tree: Optional[Node]
     loss: float
     cost: float
     complexity: int
     score: float = 0.0
+    template_expr: Optional["object"] = None
 
     def equation_string(self, variable_names=None, precision: int = 5) -> str:
+        if self.template_expr is not None:
+            # Subexpression arguments print as #1..#k; variable names do not apply.
+            return self.template_expr.string(precision=precision)
         return string_tree(self.tree, variable_names=variable_names, precision=precision)
 
 
@@ -41,20 +47,32 @@ class HallOfFame:
     entries: List[HallOfFameEntry]
 
     @staticmethod
-    def from_device(hof_state, operators: OperatorSet) -> "HallOfFame":
-        """Decode a device HofState into host entries (existing only)."""
+    def from_device(hof_state, operators: OperatorSet, template=None) -> "HallOfFame":
+        """Decode a device HofState into host entries (existing only).
+        With ``template`` (a TemplateStructure) the trees carry a key axis
+        [maxsize, K, L] and each entry decodes to a HostTemplateExpression."""
         host = lambda t: t.detach().cpu().numpy()
         exists = host(hof_state.exists)
         cost = host(hof_state.cost)
         loss = host(hof_state.loss)
         complexity = host(hof_state.complexity)
-        arity, op, feat, const, length = (host(f) for f in hof_state.trees.fields())
-        entries = [
-            HallOfFameEntry(
-                tree=decode_tree(arity[i], op[i], feat[i], const[i], length[i], operators),
-                loss=float(loss[i]), cost=float(cost[i]), complexity=int(complexity[i]))
-            for i in range(exists.shape[0]) if exists[i]
-        ]
+        fields = [host(f) for f in hof_state.trees.fields()]
+
+        def decode(*index):
+            return decode_tree(*(f[index] for f in fields), operators)
+
+        def entry(i):
+            common = dict(loss=float(loss[i]), cost=float(cost[i]),
+                          complexity=int(complexity[i]))
+            if template is None:
+                return HallOfFameEntry(tree=decode(i), **common)
+            from ..models.template import HostTemplateExpression
+
+            trees = {key: decode(i, k) for k, key in enumerate(template.expr_keys)}
+            return HallOfFameEntry(tree=None, template_expr=HostTemplateExpression(
+                trees=trees, structure=template, operators=operators), **common)
+
+        entries = [entry(i) for i in range(exists.shape[0]) if exists[i]]
         entries.sort(key=lambda e: e.complexity)
         return HallOfFame(entries=entries)
 

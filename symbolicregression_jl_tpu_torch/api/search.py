@@ -1,6 +1,7 @@
-"""`equation_search`: the plain-expression search loop on one device.
+"""`equation_search`: the search loop on one device.
 
-Port of the plain path of ``symbolicregression_jl_tpu/api/search.py``:
+Port of ``symbolicregression_jl_tpu/api/search.py`` for plain and
+template expressions (``Options(expression_spec=TemplateExpressionSpec(...))``):
 one output, no warm start, no checkpoints, no telemetry, one device. The
 loop runs `Engine.run_iteration` ``niterations`` times with the maxsize
 warm-up, decodes the hall of fame after each iteration, and stops early
@@ -104,6 +105,10 @@ def equation_search(X, y, *, options: Optional[Options] = None, niterations: int
         ds.display_variable_names = list(display_variable_names)
     ds.update_baseline_loss(options.elementwise_loss)
     engine = Engine(options, ds.nfeatures, device=dev)
+    if engine.template is not None and ds.nfeatures != engine.template.n_variables:
+        raise ValueError(
+            f"Template combiner consumes {engine.template.n_variables} variables but the "
+            f"dataset has {ds.nfeatures} features")
     _, k_init = rng.split(rng.key(seed, device=dev), 2)
     state = engine.init_state(k_init, ds.data, options.populations)
 
@@ -119,7 +124,7 @@ def equation_search(X, y, *, options: Optional[Options] = None, niterations: int
         state = engine.run_iteration(state, ds.data, cur_maxsize)
         cycles_remaining -= options.ncycles_per_iteration
         it += 1
-        hof = HallOfFame.from_device(state.hof, options.operators)
+        hof = HallOfFame.from_device(state.hof, options.operators, template=engine.template)
         if options.early_stop_condition is not None and any(
                 options.early_stop_condition(e.loss, e.complexity) for e in hof.entries):
             stop_reason = "early_stop_condition"

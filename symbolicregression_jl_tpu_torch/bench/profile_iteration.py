@@ -1,18 +1,21 @@
 """Where one engine iteration spends its time on the GPU.
 
     python -m symbolicregression_jl_tpu_torch.bench.profile_iteration [--ncycles N]
-        [--no-optimizer]
+        [--no-optimizer] [--template]
 
 Builds the headline configuration (512 islands x 256 members, 10,000 rows
 x 5 features, maxsize 30, the constant optimizer on unless
-``--no-optimizer``), runs one warm-up iteration, then one iteration under
-``torch.profiler``. Prints the iteration's host-clock time, the summed
-device time of all kernels and of each of the port's three kernels, the
-device's busy and idle shares, the number of kernel launches, the
-constant optimizer's range (``sr:constant_optimizer``: its span on the
-device, the device time of kernels #2 and #3 in it, that of the eager
-L-BFGS ops in it and the idle rest), and the ten kernels with the most
-device time.
+``--no-optimizer``) or, with ``--template``, the template cell (the JAX
+package's bench/cell.py FULL, variant "template": 512 islands x 256
+members, 10,000 rows x 2 features from seed 1234, + - * cos, structure
+f(x1) * f(x1) + g(x2), optimizer_probability 0), runs one warm-up
+iteration, then one iteration under ``torch.profiler``. Prints the
+iteration's host-clock time, the summed device time of all kernels and of
+each of the port's five kernels, the device's busy and idle shares, the
+number of kernel launches, each named range (``sr:constant_optimizer``,
+``sr:template_eval``: its span on the device summed over its occurrences,
+the device time of the port's kernels in it, that of the eager ops in it
+and the idle rest), and the ten kernels with the most device time.
 Needs a CUDA device.
 """
 
@@ -40,11 +43,20 @@ def bench_data(n_rows: int = 10_000, n_features: int = 5):
     return X, y
 
 
+def template_data(n_rows: int = 10_000):
+    """The template cell's problem from seed 1234: y = (1.5 x1)^2 + cos(2 x2)."""
+    g = np.random.default_rng(1234)
+    X = g.uniform(-2.0, 2.0, (n_rows, 2)).astype(np.float32)
+    return X, ((1.5 * X[:, 0]) ** 2 + np.cos(2.0 * X[:, 1])).astype(np.float32)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ncycles", type=int, default=10)
     ap.add_argument("--no-optimizer", action="store_true",
                     help="profile without the constant optimizer")
+    ap.add_argument("--template", action="store_true",
+                    help="profile the template-expression cell instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_iteration: needs a CUDA device", file=sys.stderr)
@@ -53,12 +65,24 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip())
-    options = sr.Options(
-        binary_operators=["+", "-", "*", "/"], unary_operators=["exp", "abs", "cos"],
-        maxsize=30, populations=512, population_size=256, tournament_selection_n=16,
-        ncycles_per_iteration=args.ncycles, should_optimize_constants=not args.no_optimizer,
-        save_to_file=False)
-    X, y = bench_data()
+    if args.template:
+        from symbolicregression_jl_tpu_torch.models import template_spec
+
+        spec = template_spec(expressions=("f", "g"))(lambda f, g, x1, x2: f(x1) * f(x1) + g(x2))
+        options = sr.Options(
+            binary_operators=["+", "-", "*"], unary_operators=["cos"], maxsize=30,
+            populations=512, population_size=256, tournament_selection_n=16,
+            ncycles_per_iteration=args.ncycles, optimizer_probability=0.0,
+            should_optimize_constants=not args.no_optimizer, expression_spec=spec,
+            save_to_file=False)
+        X, y = template_data()
+    else:
+        options = sr.Options(
+            binary_operators=["+", "-", "*", "/"], unary_operators=["exp", "abs", "cos"],
+            maxsize=30, populations=512, population_size=256, tournament_selection_n=16,
+            ncycles_per_iteration=args.ncycles, should_optimize_constants=not args.no_optimizer,
+            save_to_file=False)
+        X, y = bench_data()
     ds = sr.make_dataset(X, y, device=dev)
     ds.update_baseline_loss(options.elementwise_loss)
     engine = Engine(options, X.shape[1], device=dev)
@@ -79,29 +103,36 @@ def main() -> int:
     spans = [e for e in events if e.name.startswith("sr:")]
     kernels = [e for e in events if e.device_time_total > 0 and not e.name.startswith("sr:")]
     device_us = sum(e.device_time_total for e in kernels)
-    print(f"ncycles_per_iteration {args.ncycles}, constant optimizer "
-          f"{options.should_optimize_constants}: iteration {wall:.3f} s (host clock)")
+    print(f"{'template' if args.template else 'headline'} cell, ncycles_per_iteration "
+          f"{args.ncycles}, constant optimizer {options.should_optimize_constants} "
+          f"(probability {options.optimizer_probability}): iteration {wall:.3f} s (host clock)")
     print(f"device kernel time {device_us / 1e6:.3f} s over {len(kernels)} kernel launches; "
           f"busy {device_us / 1e6 / wall:.1%}, idle {1 - device_us / 1e6 / wall:.1%}")
     ours = {}
-    for kname in ("program_eval", "program_multi", "program_grad"):
+    for kname in ("program_eval", "program_multi", "program_grad", "program_predict",
+                  "program_predict_vjp"):
         hits = [e for e in kernels if f"{kname}_kernel" in e.name]
         us = sum(e.device_time_total for e in hits)
         ours[kname] = us
         print(f"{kname} kernel {us / 1e6:.4f} s over {len(hits)} launches "
               f"({us / max(device_us, 1):.1%} of device time)")
-    for span in (e for e in spans if e.name == "sr:constant_optimizer"):
-        t0_us, t1_us = span.time_range.start, span.time_range.end
-        inside = [e for e in kernels if t0_us <= e.time_range.start and e.time_range.end <= t1_us]
-        eager = [e for e in inside if "program_multi_kernel" not in e.name
-                 and "program_grad_kernel" not in e.name]
-        eager_us = sum(e.device_time_total for e in eager)
-        span_us = t1_us - t0_us
-        inside_us = sum(e.device_time_total for e in inside)
-        print(f"constant optimizer: device span {span_us / 1e6:.4f} s "
-              f"({span_us / 1e6 / wall:.1%} of the iteration); kernels #2 and #3 "
-              f"{(inside_us - eager_us) / 1e6:.4f} s, eager L-BFGS ops {eager_us / 1e6:.4f} s "
-              f"over {len(eager)} launches, device idle in the span "
+    for name in sorted({e.name for e in spans}):
+        # Every occurrence of a named range: its span on the device, the
+        # port's kernels and the other (eager) kernels inside it, the idle rest.
+        span_us = inside_us = eager_us = 0.0
+        n_eager = 0
+        for span in (e for e in spans if e.name == name):
+            t0_us, t1_us = span.time_range.start, span.time_range.end
+            inside = [e for e in kernels
+                      if t0_us <= e.time_range.start and e.time_range.end <= t1_us]
+            eager = [e for e in inside if "program_" not in e.name]
+            span_us += t1_us - t0_us
+            inside_us += sum(e.device_time_total for e in inside)
+            eager_us += sum(e.device_time_total for e in eager)
+            n_eager += len(eager)
+        print(f"{name}: device span {span_us / 1e6:.4f} s ({span_us / 1e6 / wall:.1%} of the "
+              f"iteration); the port's kernels {(inside_us - eager_us) / 1e6:.4f} s, eager ops "
+              f"{eager_us / 1e6:.4f} s over {n_eager} launches, device idle in the span "
               f"{(span_us - inside_us) / 1e6:.4f} s")
     by_name = {}
     for e in kernels:

@@ -1,10 +1,10 @@
 """Search options: copy of ``symbolicregression_jl_tpu/core/options.py``.
 
 `Options` carries every search hyperparameter with the same defaults and
-the same validation errors as the JAX package. The PyTorch port runs the
-plain-expression path only; :func:`check_supported` refuses, by name and
-with the later slice that brings it, every option this port does not
-carry yet.
+the same validation errors as the JAX package. The PyTorch port runs
+plain expressions and template expressions without parameters;
+:func:`check_supported` refuses, by name and with the later slice that
+brings it, every option this port does not carry yet.
 """
 
 from __future__ import annotations
@@ -735,9 +735,33 @@ def _refuse(what: str, where: str) -> None:
     )
 
 
+def _check_expression_spec(options: Options) -> None:
+    """Plain expressions and templates without parameters run; a template
+    with D(...) call sites runs without the constant optimizer."""
+    from ..models.spec import ExpressionSpec, ParametricExpressionSpec, TemplateExpressionSpec
+
+    spec = options.expression_spec
+    if spec is None or type(spec) is ExpressionSpec:
+        return
+    if isinstance(spec, ParametricExpressionSpec):
+        _refuse("ParametricExpressionSpec (parametric expressions)",
+                "the parametric slice, which ports the parametric variant of kernel #1 "
+                "(step 8)")
+    if not isinstance(spec, TemplateExpressionSpec):
+        _refuse(f"expression_spec of type {type(spec).__name__}", "a later slice")
+    if spec.structure.has_params:
+        _refuse("template parameters (a TemplateStructure with parameter vectors)",
+                "the template-parameter slice (step 8)")
+    if spec.structure.uses_deriv and options.should_optimize_constants:
+        _refuse("constant optimization of a template with D(...) call sites "
+                "(should_optimize_constants=True; it needs second-order derivatives)",
+                "the interpreter-path slice of templates (step 8)")
+
+
 def check_supported(options: Options) -> None:
-    """Raise NotImplementedError for every option outside the plain
-    f32 elementwise-loss path this port carries."""
+    """Raise NotImplementedError for every option outside the f32
+    elementwise-loss paths this port carries (plain and template
+    expressions)."""
     if options.optimizer_bf16_linesearch:
         _refuse("optimizer_bf16_linesearch=True (bfloat16 line-search evaluations)",
                 "graftstage (step 7)")
@@ -748,9 +772,7 @@ def check_supported(options: Options) -> None:
         _refuse("staged_eval=True", "graftstage (step 7)")
     if options.eval_precision != "f32":
         _refuse('eval_precision="bf16"', "graftstage (step 7)")
-    if options.expression_spec is not None:
-        _refuse("expression_spec (parametric/template expressions)",
-                "the expression-plugin slice (step 8)")
+    _check_expression_spec(options)
     if options.dimensional_constraint_penalty is not None:
         _refuse("dimensional_constraint_penalty (units)",
                 "the expression-plugin slice (step 8)")

@@ -1,9 +1,10 @@
 // Device-side interpreter shared by the program kernels (sm_90a).
 //
-// program_eval.cu (kernel #1), program_multi.cu (#2) and program_grad.cu
-// (#3) include this header, so all three compute every forward step,
-// every elementwise loss and every row reduction with the same code: a
-// (tree, constant vector) pair gives the same bits in each of them.
+// program_eval.cu (kernel #1), program_multi.cu (#2), program_grad.cu
+// (#3), program_predict.cu (#4) and program_predict_vjp.cu (#5) include
+// this header, so all five compute every forward step, every elementwise
+// loss and every row reduction with the same code: a (tree, constant
+// vector) pair gives the same bits in each of them.
 //
 // Instruction word: sign << 30 | code << 24 | src1 << 12 | src2, decoded
 // as the JAX package's `_fwd_dispatch` decodes it. `optab[code]` maps

@@ -14,6 +14,13 @@ optimization. Two forms, as in the JAX package:
   backtracking Armijo line search over the eager interpreter
   (``ops/eval.py``), differentiated by ``torch.autograd``; the JAX
   package's per-member ``vmap`` is a written-out [members, restarts] axis.
+- :func:`optimize_constants_template` (template expressions): L-BFGS
+  over every subexpression's constants at once; each gradient is
+  ``torch.autograd`` through the batched template evaluation, whose call
+  sites run kernel #4 forward and kernel #5 backward
+  (``fused_predict_ad``), and each line search one batched evaluation.
+  It runs the same L-BFGS loop as the fused form (:func:`_lbfgs_restarts`)
+  with its own evaluator.
 
 The JAX ``scan`` loops are Python loops over tensors with no host
 synchronisation inside them.
@@ -33,7 +40,8 @@ from ..ops.fused_eval import fused_grad_multi, fused_loss_multi
 from ..ops.program import _scatter_drop, compile_program
 from . import rng
 
-__all__ = ["OptimizerConfig", "optimize_constants_batch", "optimize_constants_fused"]
+__all__ = ["OptimizerConfig", "optimize_constants_batch", "optimize_constants_fused",
+           "optimize_constants_template"]
 
 
 class OptimizerConfig(NamedTuple):
@@ -60,6 +68,114 @@ def _step_sizes(cfg: OptimizerConfig, device) -> torch.Tensor:
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
     """Index of the first True along the last axis (0 when none)."""
     return torch.argmax(mask.to(torch.int32), dim=-1)
+
+
+def _lbfgs_direction(g, S, Y, rho):
+    """L-BFGS two-loop recursion over the history (newest first; empty
+    slots have rho == 0) with the gamma scaling of the JAX package."""
+    hlen = S.shape[0]
+    q = g
+    alphas = []
+    for i in range(hlen):
+        alpha = rho[i] * torch.sum(S[i] * q, dim=1)
+        q = q - alpha[:, None] * Y[i]
+        alphas.append(alpha)
+    yy = torch.sum(Y[0] * Y[0], dim=1)
+    sy = torch.sum(S[0] * Y[0], dim=1)
+    gamma = torch.where((rho[0] != 0) & (yy > 0), sy / torch.clamp(yy, min=1e-30), 1.0)
+    q = q * torch.clamp(gamma, 1e-8, 1e8)[:, None]
+    for i in reversed(range(hlen)):
+        beta = rho[i] * torch.sum(Y[i] * q, dim=1)
+        q = q + (alphas[i] - beta)[:, None] * S[i]
+    return -q
+
+
+def _best_restart(x, fx, baseline, calls, do_opt):
+    """Each member's best restart, taken only when it beats ``baseline``
+    (the member's loss before the optimization). ``x`` [P, R, D], ``fx``
+    and ``calls`` [P * R]. Returns (x_best [P, D], improved [P], new_loss
+    [P], f_calls [P])."""
+    P, R, D = x.shape
+    fs = torch.where(torch.isnan(fx), torch.inf, fx).reshape(P, R)
+    best = torch.argmin(fs, dim=1)
+    f_best = torch.gather(fs, 1, best[:, None])[:, 0]
+    x_best = torch.gather(x, 1, best[:, None, None].expand(P, 1, D))[:, 0]
+    improved = do_opt & (f_best < baseline) & torch.isfinite(f_best)
+    f_calls = torch.sum(calls.reshape(P, R), dim=1) * do_opt
+    return x_best, improved, torch.where(improved, f_best, baseline), f_calls
+
+
+def _lbfgs_restarts(starts, do_opt, vg, line_losses, cfg: OptimizerConfig, active=None,
+                    descent_guard: bool = False):
+    """L-BFGS from every restart's start point, with all C step sizes of
+    the Armijo line search evaluated in one batch; then each member's best
+    restart (:func:`_best_restart` against restart 0's first loss).
+
+    ``starts`` [P, R, D]: restart 0 is the member's own constants.
+    ``vg(x [M, D], active)`` gives the loss [M] and gradient [M, D] of the
+    M = P * R rows; ``line_losses(cand [M, C, D], active)`` the losses
+    [M, C] of every row's candidate steps. ``active`` [M] (early exit)
+    freezes a row once its line search fails and is passed on to both
+    (None at the first gradient, and throughout without early exit).
+    ``descent_guard`` also rejects a step that the accepted point's loss
+    calls uphill."""
+    P, R, D = starts.shape
+    M = P * R
+    C = cfg.max_linesearch
+    dev = starts.device
+    x = starts.reshape(M, D)
+    ts = _step_sizes(cfg, dev)
+    fx0, g = vg(x, None)
+    fx = fx0
+    calls = torch.ones(M, dtype=torch.float32, device=dev)
+
+    # L-BFGS two-loop recursion; the history covers the whole fixed
+    # budget. Newest (s, y, rho) first; empty slots have rho == 0.
+    hlen = min(int(cfg.iterations), 8)
+    S = torch.zeros((hlen, M, D), dtype=x.dtype, device=dev)
+    Y = torch.zeros_like(S)
+    rho = torch.zeros((hlen, M), dtype=x.dtype, device=dev)
+
+    for _ in range(cfg.iterations):
+        d = _lbfgs_direction(g, S, Y, rho)
+        dg = torch.sum(d * g, dim=1)
+        use_sd = (dg >= 0) | ~torch.all(torch.isfinite(d), dim=1)
+        d = torch.where(use_sd[:, None], -g, d)
+        dg = torch.where(use_sd, -torch.sum(g * g, dim=1), dg)
+
+        # all candidate steps in one batch: [M, C, D]
+        with torch.no_grad():
+            f_cand = line_losses(x[:, None, :] + ts[None, :, None] * d[:, None, :], active)
+        armijo = (f_cand <= fx[:, None] + cfg.c1 * ts[None, :] * dg[:, None]) \
+            & torch.isfinite(f_cand)
+        any_ok = torch.any(armijo, dim=1)
+        if active is not None:
+            any_ok = any_ok & active
+        t_star = torch.where(any_ok, ts[_first_true(armijo)], 0.0)
+        s = t_star[:, None] * d
+        x_new = x + s
+        f_new, g_new = vg(x_new, active)
+        if descent_guard:
+            # Reject a step the accepted point's loss calls uphill.
+            any_ok = any_ok & (f_new <= fx)
+            s = torch.where(any_ok[:, None], s, 0.0)
+        x_new = torch.where(any_ok[:, None], x_new, x)
+        f_new = torch.where(any_ok, f_new, fx)
+        g_new = torch.where(any_ok[:, None], g_new, g)
+        yv = g_new - g
+        sy = torch.sum(s * yv, dim=1)
+        rho_new = torch.where(torch.abs(sy) > 1e-10, 1.0 / sy, 0.0)
+        S = torch.cat([s[None], S[:-1]], dim=0)
+        Y = torch.cat([yv[None], Y[:-1]], dim=0)
+        rho = torch.cat([rho_new[None], rho[:-1]], dim=0)
+        if active is None:
+            calls = calls + (C + 1)
+        else:
+            calls = calls + (C + 1) * active.to(calls.dtype)
+            active = any_ok
+        x, fx, g = x_new, f_new, g_new
+
+    return _best_restart(x.reshape(P, R, D), fx, fx0.reshape(P, R)[:, 0], calls, do_opt)
 
 
 def optimize_constants_fused(key, trees: TreeBatch, do_opt: torch.Tensor, data,
@@ -89,103 +205,32 @@ def optimize_constants_fused(key, trees: TreeBatch, do_opt: torch.Tensor, data,
     eps = rng.normal(key, (P, cfg.nrestarts, CM))
     base = prog.cvals
     starts = torch.cat([base[:, None], base[:, None] * (1.0 + 0.5 * eps)], dim=1)
-    x = starts.reshape(P * R, CM)
     mask_r = used.repeat_interleave(R, dim=0)
     M = P * R
 
-    def vg(consts, pg):
-        loss, _, gcomp = fused_grad_multi(pg, consts.reshape(P, R, CM), X, y, w, F,
-                                          operators, elementwise_loss)
+    def program(active):
+        """With early exit, a tree none of whose restarts is active runs one step."""
+        if active is None:
+            return prog
+        tree_live = torch.any(active.reshape(P, R), dim=1)
+        return dataclasses.replace(prog, nsteps=torch.where(tree_live, prog.nsteps, 1))
+
+    def vg(consts, active):
+        loss, _, gcomp = fused_grad_multi(program(active), consts.reshape(P, R, CM), X, y, w,
+                                          F, operators, elementwise_loss)
         return loss.reshape(M), torch.where(mask_r, gcomp.reshape(M, CM), 0.0)
 
-    def fused_many(cand_x, pg):
-        loss, _ = fused_loss_multi(pg, cand_x.reshape(P, R * C, CM), X, y, w, F,
+    def fused_many(cand_x, active):
+        loss, _ = fused_loss_multi(program(active), cand_x.reshape(P, R * C, CM), X, y, w, F,
                                    operators, elementwise_loss)
         return loss.reshape(M, C)
 
-    ts = _step_sizes(cfg, dev)
-    fx0, g0 = vg(x, prog)
-    fx, g = fx0, g0
-    calls = torch.ones(M, dtype=torch.float32, device=dev)
-    if cfg.early_exit:
-        active = (do_opt & (prog.nconst > 0)).repeat_interleave(R)
-    else:
-        active = torch.ones(M, dtype=torch.bool, device=dev)
-
-    # L-BFGS two-loop recursion; the history covers the whole fixed
-    # budget. Newest (s, y, rho) first; empty slots have rho == 0.
-    hlen = min(int(cfg.iterations), 8)
-    S = torch.zeros((hlen, M, CM), dtype=x.dtype, device=dev)
-    Y = torch.zeros_like(S)
-    rho = torch.zeros((hlen, M), dtype=x.dtype, device=dev)
-
-    def lbfgs_direction(g, S, Y, rho):
-        q = g
-        alphas = []
-        for i in range(hlen):
-            alpha = rho[i] * torch.sum(S[i] * q, dim=1)
-            q = q - alpha[:, None] * Y[i]
-            alphas.append(alpha)
-        yy = torch.sum(Y[0] * Y[0], dim=1)
-        sy = torch.sum(S[0] * Y[0], dim=1)
-        gamma = torch.where((rho[0] != 0) & (yy > 0), sy / torch.clamp(yy, min=1e-30), 1.0)
-        q = q * torch.clamp(gamma, 1e-8, 1e8)[:, None]
-        for i in reversed(range(hlen)):
-            beta = rho[i] * torch.sum(Y[i] * q, dim=1)
-            q = q + (alphas[i] - beta)[:, None] * S[i]
-        return -q
-
-    for _ in range(cfg.iterations):
-        pg = prog
-        if cfg.early_exit:
-            tree_live = torch.any(active.reshape(P, R), dim=1)
-            pg = dataclasses.replace(prog, nsteps=torch.where(tree_live, prog.nsteps, 1))
-        d = lbfgs_direction(g, S, Y, rho)
-        dg = torch.sum(d * g, dim=1)
-        use_sd = (dg >= 0) | ~torch.all(torch.isfinite(d), dim=1)
-        d = torch.where(use_sd[:, None], -g, d)
-        dg = torch.where(use_sd, -torch.sum(g * g, dim=1), dg)
-
-        # all candidate steps in one launch: [M, C, CM]
-        cand_x = x[:, None, :] + ts[None, :, None] * d[:, None, :]
-        f_cand = fused_many(cand_x, pg)
-        armijo = (f_cand <= fx[:, None] + cfg.c1 * ts[None, :] * dg[:, None]) \
-            & torch.isfinite(f_cand)
-        any_ok = torch.any(armijo, dim=1) & active
-        t_star = torch.where(any_ok, ts[_first_true(armijo)], 0.0)
-        s = t_star[:, None] * d
-        x_new = x + s
-        f_new, g_new = vg(x_new, pg)
-        # Descent guard: reject a step the accepted point's loss calls uphill.
-        any_ok = any_ok & (f_new <= fx)
-        s = torch.where(any_ok[:, None], s, 0.0)
-        x_new = torch.where(any_ok[:, None], x_new, x)
-        f_new = torch.where(any_ok, f_new, fx)
-        g_new = torch.where(any_ok[:, None], g_new, g)
-        yv = g_new - g
-        sy = torch.sum(s * yv, dim=1)
-        rho_new = torch.where(torch.abs(sy) > 1e-10, 1.0 / sy, 0.0)
-        S = torch.cat([s[None], S[:-1]], dim=0)
-        Y = torch.cat([yv[None], Y[:-1]], dim=0)
-        rho = torch.cat([rho_new[None], rho[:-1]], dim=0)
-        calls = calls + (C + 1) * active.to(calls.dtype)
-        if cfg.early_exit:
-            active = any_ok
-        x, fx, g = x_new, f_new, g_new
-
-    # Best over restarts, accepted only if better than the original loss
-    # (restart 0 starts at the member's constants).
-    baseline = fx0.reshape(P, R)[:, 0]
-    fx = torch.where(torch.isnan(fx), torch.inf, fx).reshape(P, R)
-    best_r = torch.argmin(fx, dim=1)
-    f_best = torch.gather(fx, 1, best_r[:, None])[:, 0]
-    x_best = torch.gather(x.reshape(P, R, CM), 1,
-                          best_r[:, None, None].expand(P, 1, CM))[:, 0]
-    improved = do_opt & (f_best < baseline) & torch.isfinite(f_best)
+    active = (do_opt & (prog.nconst > 0)).repeat_interleave(R) if cfg.early_exit else None
+    x_best, improved, new_loss, f_calls = _lbfgs_restarts(
+        starts, do_opt, vg, fused_many, cfg, active=active, descent_guard=True)
     scattered = _scatter_drop(trees.const, prog.cslot, x_best, accumulate=False)
     new_const = torch.where(improved[:, None], scattered, trees.const)
-    f_calls = torch.sum(calls.reshape(P, R), dim=1) * do_opt
-    return new_const, improved, torch.where(improved, f_best, baseline), f_calls
+    return new_const, improved, new_loss, f_calls
 
 
 def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
@@ -284,13 +329,84 @@ def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
         calls = calls + (C + 1)
         x, fx, g = x_new, f_new, g_new
 
-    fs = torch.where(torch.isnan(fx), torch.inf, fx).reshape(P, R)
-    best = torch.argmin(fs, dim=1)
-    f_best = torch.gather(fx.reshape(P, R), 1, best[:, None])[:, 0]
-    x_best = torch.gather(x.reshape(P, R, L), 1, best[:, None, None].expand(P, 1, L))[:, 0]
-    improved = do_opt & (f_best < baseline) & torch.isfinite(f_best)
+    x_best, improved, new_loss, f_calls = _best_restart(x.reshape(P, R, L), fx, baseline, calls,
+                                                        do_opt)
     new_const = torch.where(improved[:, None] & cmask, x_best, x0)
-    new_loss = torch.where(improved, f_best, baseline)
-    f_calls = torch.sum(calls.reshape(P, R), dim=1) * do_opt
     return (new_const.reshape(*lead, L), improved.reshape(lead), new_loss.reshape(lead),
+            f_calls.reshape(lead))
+
+
+def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, data,
+                                elementwise_loss, operators, cfg: OptimizerConfig, template,
+                                fused: bool = False):
+    """Joint L-BFGS over every subexpression's constants of template
+    members, one flat vector of K * L slots per member.
+
+    ``trees`` [P, K, L] with ``key`` [2], or [I, P, K, L] with ``key``
+    [I, 2] (one key per island, as the JAX package vmaps it over islands):
+    member m of island i draws its restart perturbations from
+    ``normal(key[i], (P, nrestarts, K * L))[m]``, and all islands' members
+    run as one batch, so each pass launches once per call site. Each
+    iteration is one gradient pass (``torch.autograd`` through
+    :func:`~..models.template.eval_template_batch`: kernel #4 forward,
+    kernel #5 backward when ``fused``) and one batched line search of
+    every restart's C candidate steps. Returns (new_const, improved,
+    new_loss, f_calls) with the leading dims of ``trees``."""
+    from ..models.template import eval_template_batch
+
+    if template.has_params:
+        raise NotImplementedError(
+            "template parameters are not in the PyTorch port yet; they come with the "
+            "template-parameter slice (ROADMAP.md queue 1 step 8).")
+    if template.uses_deriv:
+        raise NotImplementedError(
+            "constant optimization of templates with D(...) call sites needs second-order "
+            "derivatives; it comes with the interpreter-path slice (ROADMAP.md queue 1 "
+            "step 8).")
+    K, L = trees.arity.shape[-2:]
+    lead = trees.length.shape[:-1]
+    Dm = K * L
+    eps = rng.normal(key, (lead[-1], cfg.nrestarts, Dm))
+    flat = trees.reshape(-1, K)
+    do_opt = do_opt.reshape(-1)
+    P = flat.length.shape[0]
+    R = cfg.nrestarts + 1
+    C = cfg.max_linesearch
+    X, y, w = data.Xt, data.y, data.weights
+    dev = X.device
+    slot = torch.arange(L, device=dev)
+    cmask = (slot < flat.length[..., None]) & (flat.arity == 0) & (flat.op == LEAF_CONST)
+    x0 = flat.const.reshape(P, Dm)
+
+    def loss_of(xb, reps: int):
+        """Loss of each member with the constants ``xb`` [P*reps, K*L]."""
+        m = xb.shape[0]
+        rep = lambda a: a.repeat_interleave(reps, dim=0)
+        c = torch.where(rep(cmask), xb.reshape(m, K, L), rep(flat.const))
+        member = TreeBatch(rep(flat.arity), rep(flat.op), rep(flat.feat), c, rep(flat.length))
+        pred, valid = eval_template_batch(member, X, template, operators, fused=fused)
+        return aggregate_loss(elementwise_loss, pred, y, valid, w)
+
+    mask_r = cmask.reshape(P, Dm).repeat_interleave(R, dim=0)
+
+    def value_and_grad(xb, _active):
+        """Each member's loss depends on its own constants only, so the
+        gradient of the summed finite losses is every member's own."""
+        xb = xb.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = loss_of(xb, R)
+            total = torch.where(torch.isfinite(loss), loss, 0.0).sum()
+            (g,) = torch.autograd.grad(total, xb)
+        g = torch.where(mask_r, g, 0.0)
+        return loss.detach(), torch.where(torch.isfinite(g), g, 0.0)
+
+    def line_losses(cand_x, _active):
+        return loss_of(cand_x.reshape(-1, Dm), R * C).reshape(P * R, C)
+
+    eps = eps.reshape(P, cfg.nrestarts, Dm)
+    starts = torch.cat([x0[:, None], x0[:, None] * (1.0 + 0.5 * eps)], dim=1)
+    x_best, improved, new_loss, f_calls = _lbfgs_restarts(starts, do_opt, value_and_grad,
+                                                          line_losses, cfg)
+    new_const = torch.where(improved[:, None] & cmask.reshape(P, Dm), x_best, x0)
+    return (new_const.reshape(*lead, K, L), improved.reshape(lead), new_loss.reshape(lead),
             f_calls.reshape(lead))

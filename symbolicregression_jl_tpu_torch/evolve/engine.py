@@ -1,8 +1,8 @@
 """The per-iteration engine: islands evolve, simplify, finalize, migrate.
 
-Port of ``symbolicregression_jl_tpu/evolve/engine.py`` for plain
-expressions on one device. One `Engine.run_iteration` is one reference
-iteration for every island at once:
+Port of ``symbolicregression_jl_tpu/evolve/engine.py`` for plain and
+template expressions on one device. One `Engine.run_iteration` is one
+reference iteration for every island at once:
 
     s_r_cycle (ncycles bulk generation steps over the annealing ramp)
     -> constant folding (simplify)
@@ -14,6 +14,9 @@ iteration for every island at once:
 
 The optimizer's randomness is drawn as the JAX package draws it
 (``_epilogue_draws``), so one key gives the same selection in both.
+Template members (``Options(expression_spec=TemplateExpressionSpec(...))``)
+carry a key axis, trees [I, P, K, L]; they fold per subexpression, and
+their constants are optimized jointly (``optimize_constants_template``).
 """
 
 from __future__ import annotations
@@ -30,11 +33,12 @@ from ..device import resolve_device
 from ..ops.complexity import ComplexityTables, build_complexity_tables
 from ..ops.encoding import TreeBatch
 from . import rng
-from .constant_opt import OptimizerConfig, optimize_constants_batch, optimize_constants_fused
-from .population import PopulationState, init_population
+from .constant_opt import (OptimizerConfig, optimize_constants_batch, optimize_constants_fused,
+                           optimize_constants_template)
+from .population import PopulationState, init_population, init_template_population
 from .simplify import fold_constants_batch
-from .step import (EvolveConfig, HofState, empty_hof, eval_cost_batch,
-                   evolve_config_from_options, s_r_cycle, take_members, update_hof)
+from .step import (EvolveConfig, HofState, _take_rows, empty_hof, eval_cost_batch,
+                   evolve_config_from_options, s_r_cycle, take_members, template_k, update_hof)
 
 __all__ = ["RunningStats", "SearchDeviceState", "Engine"]
 
@@ -72,6 +76,18 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape((-1,) + x.shape[2:])
 
 
+def _flat_trees(trees: TreeBatch) -> TreeBatch:
+    """[I, P, ...] trees -> [I * P, ...]."""
+    return TreeBatch(*(_flat(f) for f in trees.fields()))
+
+
+def _template_of(options: Options):
+    from ..models.spec import TemplateExpressionSpec
+
+    spec = options.expression_spec
+    return spec.structure if isinstance(spec, TemplateExpressionSpec) else None
+
+
 class Engine:
     """Search engine for one (options, dataset width) pair on one device."""
 
@@ -82,7 +98,9 @@ class Engine:
         self.options = options
         self.nfeatures = nfeatures
         self.device = resolve_device(device)
-        self.cfg: EvolveConfig = evolve_config_from_options(options, nfeatures, self.device)
+        self.template = _template_of(options)
+        self.cfg: EvolveConfig = evolve_config_from_options(options, nfeatures, self.device,
+                                                            template=self.template)
         self.tables: ComplexityTables = build_complexity_tables(options, nfeatures, self.device)
         self.opt_cfg = OptimizerConfig(iterations=options.optimizer_iterations,
                                        nrestarts=options.optimizer_nrestarts)
@@ -93,7 +111,7 @@ class Engine:
         cfg = self.cfg
         return eval_cost_batch(trees, data, self.options.elementwise_loss, self.tables,
                                cfg.operators, cfg.parsimony, turbo=cfg.turbo,
-                               fuse_cost=fuse_cost, dedup=dedup)
+                               fuse_cost=fuse_cost, dedup=dedup, template=cfg.template)
 
     def _epilogue_draws(self, k_opt, I: int):
         """The optimizer's selection size and its island-major random
@@ -130,8 +148,12 @@ class Engine:
         dev = self.device
         key = key.to(dev)
         k_init, _k_params, k_state = rng.split(key, 3)
-        trees = init_population(rng.split(k_init, n_islands), P, cfg.mctx)
-        cost, loss, cx = self._eval(trees.reshape(-1), data, fuse_cost=cfg.fuse_cost)
+        if cfg.template is not None:
+            trees = init_template_population(rng.split(k_init, n_islands), P, cfg.template,
+                                             cfg.mctx)
+        else:
+            trees = init_population(rng.split(k_init, n_islands), P, cfg.mctx)
+        cost, loss, cx = self._eval(_flat_trees(trees), data, fuse_cost=cfg.fuse_cost)
         arange = torch.arange(P, dtype=torch.int32, device=dev)
         pops = PopulationState(
             trees=trees,
@@ -146,7 +168,7 @@ class Engine:
         freq = torch.ones(cfg.maxsize, dtype=torch.float32, device=dev)
         return SearchDeviceState(
             pops=pops,
-            hof=empty_hof((), cfg.maxsize, cfg.max_nodes, dev),
+            hof=empty_hof((), cfg.maxsize, cfg.max_nodes, dev, template_k=template_k(cfg)),
             stats=RunningStats(freq, freq / torch.sum(freq)),
             birth=torch.full((n_islands,), P, dtype=torch.int32, device=dev),
             ref=torch.full((n_islands,), P, dtype=torch.int32, device=dev),
@@ -178,10 +200,10 @@ class Engine:
         num_evals = num_evals + I * P  # the finalize re-eval
 
         # ---- merge best_seen + final pops into the global HoF ----
-        hof = update_hof(state.hof, TreeBatch(*(_flat(f) for f in best_seen.trees.fields())),
+        hof = update_hof(state.hof, _flat_trees(best_seen.trees),
                          _flat(torch.where(best_seen.exists, best_seen.cost, math.inf)),
                          _flat(best_seen.loss), _flat(best_seen.complexity), cfg.maxsize)
-        hof = update_hof(hof, pops.trees.reshape(I * P), _flat(pops.cost), _flat(pops.loss),
+        hof = update_hof(hof, _flat_trees(pops.trees), _flat(pops.cost), _flat(pops.loss),
                          _flat(pops.complexity), cfg.maxsize)
 
         # ---- migration ----
@@ -190,7 +212,7 @@ class Engine:
             order = torch.argsort(pops.cost, dim=1, stable=True)[:, :topn]
             pool = take_members(pops, order)
             pool = PopulationState(
-                trees=pool.trees.reshape(I * topn), cost=_flat(pool.cost),
+                trees=_flat_trees(pool.trees), cost=_flat(pool.cost),
                 loss=_flat(pool.loss), complexity=_flat(pool.complexity),
                 birth=_flat(pool.birth), ref=_flat(pool.ref), parent=_flat(pool.parent))
             km = rng.split(k_mig, 4)
@@ -246,7 +268,6 @@ class Engine:
         cfg = self.cfg
         options = self.options
         I, P = pops.cost.shape
-        L = cfg.max_nodes
         opt_kind_on = float(options.mutation_weights.optimize) > 0
         if opt_kind_on:
             scores = scores + 10.0 * opt_mark.to(scores.dtype)
@@ -254,32 +275,37 @@ class Engine:
         sel_idx = torch.sort(scores, dim=1, descending=True, stable=True)[1][:, :k_sel]
         if opt_kind_on:
             gate = gate | torch.gather(opt_mark, 1, sel_idx)
-        sub = TreeBatch(*(torch.gather(f, 1, sel_idx[:, :, None].expand(I, k_sel, L))
-                          for f in (pops.trees.arity, pops.trees.op, pops.trees.feat,
-                                    pops.trees.const)),
-                        torch.gather(pops.trees.length, 1, sel_idx))
+        sub = TreeBatch(*(_take_rows(f, sel_idx) for f in pops.trees.fields()))
         # A named range for torch.profiler (bench/profile_iteration.py).
         with torch.profiler.record_function("sr:constant_optimizer"):
-            if cfg.turbo:
+            if cfg.template is not None:
+                # One key per island, as the JAX package vmaps it; all
+                # islands' members run as one batch.
+                new_const, _, _, f_calls = optimize_constants_template(
+                    rng.split(opt_key, I), sub, gate, data, options.elementwise_loss,
+                    cfg.operators, self.opt_cfg, cfg.template, fused=cfg.turbo)
+            elif cfg.turbo:
                 new_const, _, _, f_calls = optimize_constants_fused(
                     opt_key, sub.reshape(I * k_sel), gate.reshape(I * k_sel), data,
                     options.elementwise_loss, cfg.operators, self.opt_cfg)
-                new_const = new_const.reshape(I, k_sel, L)
+                new_const = new_const.reshape(I, k_sel, cfg.max_nodes)
             else:
                 new_const, _, _, f_calls = optimize_constants_batch(
                     rng.split(opt_key, I), sub, gate, data, options.elementwise_loss,
                     cfg.operators, self.opt_cfg)
-        const = pops.trees.const.scatter(1, sel_idx[:, :, None].expand(I, k_sel, L), new_const)
+        idx = sel_idx.reshape(I, k_sel, *(1,) * (new_const.dim() - 2)).expand(new_const.shape)
+        const = pops.trees.const.scatter(1, idx, new_const)
         pops = dataclasses.replace(pops, trees=dataclasses.replace(pops.trees, const=const))
         return pops, torch.sum(f_calls)
 
     def _finalize_costs(self, pops: PopulationState, data: DeviceData) -> PopulationState:
         """Re-score every member on the whole dataset. On the kernel path
         identical (structure, constants) members across all islands run
-        once (``fused_loss(dedup=True)``); results are bit-equal."""
+        once (``fused_loss(dedup=True)``); results are bit-equal. Template
+        members are all re-scored (no dedup, as in the JAX package)."""
         I, P = pops.cost.shape
         cfg = self.cfg
-        cost, loss, cx = self._eval(pops.trees.reshape(I * P), data,
+        cost, loss, cx = self._eval(_flat_trees(pops.trees), data,
                                     fuse_cost=cfg.fuse_cost, dedup=cfg.turbo)
         return dataclasses.replace(pops, cost=cost.reshape(I, P), loss=loss.reshape(I, P),
                                    complexity=cx.reshape(I, P))

@@ -14,7 +14,7 @@ package, so the same uniforms give the same trees.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple, Union
 
 import torch
 
@@ -33,10 +33,12 @@ __all__ = [
 
 
 class MutationContext(NamedTuple):
-    """Static context shared by the mutation functions."""
+    """Context shared by the mutation functions. ``nfeatures`` is an int,
+    or for template expressions an int tensor [N] with the argument count
+    of each row's chosen subexpression."""
 
     nops: Tuple[int, ...]      # per-arity operator counts (1-based arity)
-    nfeatures: int
+    nfeatures: Union[int, torch.Tensor]
     max_nodes: int             # L
     perturbation_factor: float
     probability_negate_constant: float
@@ -65,6 +67,15 @@ def branch_nu(ctx: MutationContext) -> Dict[str, int]:
 
 def gen_tree_nu(ctx: MutationContext) -> int:
     return 8 * ctx.max_nodes
+
+
+def _at_least_1(v):
+    return torch.clamp(v, min=1) if isinstance(v, torch.Tensor) else max(v, 1)
+
+
+def _per_row(v):
+    """A per-row tensor [N] as a column [N, 1]; an int as it is."""
+    return v[:, None] if isinstance(v, torch.Tensor) else v
 
 
 def _slot_mask(tree: TreeBatch) -> torch.Tensor:
@@ -147,12 +158,14 @@ def mutate_feature(u, tree: TreeBatch, ctx: MutationContext):
     mask = _slot_mask(tree) & (tree.arity == 0) & (tree.op == LEAF_VAR)
     idx, has_any = u_masked_choice(s.take(ctx.max_nodes), mask)
     u_delta = s.take1()
-    if ctx.nfeatures <= 1:
-        return tree, _true(tree)
     nf = ctx.nfeatures
-    delta = u_randint(u_delta, max(nf - 1, 1)) + 1
-    new_feat = torch.remainder(_lane_get(tree.feat, idx) + delta, max(nf, 1))
-    feat = torch.where(has_any[:, None], _set_at(tree.feat, idx, new_feat), tree.feat)
+    if isinstance(nf, int) and nf <= 1:
+        return tree, _true(tree)
+    delta = u_randint(u_delta, _at_least_1(nf - 1)) + 1
+    new_feat = torch.remainder(_lane_get(tree.feat, idx) + delta, _at_least_1(nf))
+    # An int nf is > 1 here; a per-row one leaves rows with one argument as they are.
+    changed = has_any & (nf > 1) if isinstance(nf, torch.Tensor) else has_any
+    feat = torch.where(changed[:, None], _set_at(tree.feat, idx, new_feat), tree.feat)
     return TreeBatch(tree.arity, tree.op, feat, tree.const, tree.length), _true(tree)
 
 
@@ -202,7 +215,7 @@ def _sample_leaf(u4, ctx: MutationContext):
     50/50 constant ~ randn / variable ~ uniform feature."""
     val = u_normal(u4[:, 1])
     nf = ctx.nfeatures
-    f = u_randint(u4[:, 2], max(nf, 1))
+    f = u_randint(u4[:, 2], _at_least_1(nf))
     is_const = u_bernoulli(u4[:, 0]) | (nf <= 0)
     code = torch.where(is_const, LEAF_CONST, LEAF_VAR).to(torch.int32)
     feat = torch.where(is_const, 0, f).to(torch.int32)
@@ -444,10 +457,10 @@ def _random_postfix_from_counts(u, n_binary, n_unary, ctx: MutationContext):
     op_u = u_randint(s.take(L), max(nuna, 1))
     op_b = u_randint(s.take(L), max(nbin, 1))
 
-    nf = ctx.nfeatures
+    nf = _per_row(ctx.nfeatures)
     u_choice = s.take(L)
     const_vals = u_normal(s.take(L))
-    feat_vals = u_randint(s.take(L), max(nf, 1))
+    feat_vals = u_randint(s.take(L), _at_least_1(nf))
     s.take(L)  # parameter-leaf draws (parametric expressions only)
     is_const = (u_choice < 0.5) | (nf <= 0)
     leaf_code = torch.where(is_const, LEAF_CONST, LEAF_VAR).to(torch.int32)

@@ -1,9 +1,9 @@
 """Population state and random initialization (port of ``evolve/population.py``).
 
 The reference's vector of PopMember becomes a struct of tensors with a
-member axis; leading axes stack islands. Plain expressions only: the JAX
-package's per-member parameter banks (parametric expressions) are not
-carried.
+member axis; leading axes stack islands. Template members carry a key
+axis: trees [..., P, K, L]. The JAX package's per-member parameter banks
+(parametric expressions, template parameters) are not carried.
 """
 
 from __future__ import annotations
@@ -16,12 +16,12 @@ from ..ops.encoding import TreeBatch
 from . import rng
 from .mutation import MutationContext, gen_random_tree
 
-__all__ = ["PopulationState", "init_population"]
+__all__ = ["PopulationState", "init_population", "init_template_population"]
 
 
 @dataclasses.dataclass
 class PopulationState:
-    trees: TreeBatch          # fields [..., P, L]
+    trees: TreeBatch          # fields [..., P, L] ([..., P, K, L] for templates)
     cost: torch.Tensor        # [..., P] float32
     loss: torch.Tensor        # [..., P] float32
     complexity: torch.Tensor  # [..., P] int32
@@ -43,3 +43,16 @@ def init_population(keys: torch.Tensor, population_size: int, ctx: MutationConte
     flat = member_keys.reshape(-1, 2)
     trees = gen_random_tree(flat, nlength, ctx)
     return trees.reshape(*member_keys.shape[:-1])
+
+
+def init_template_population(keys: torch.Tensor, population_size: int, template,
+                             ctx: MutationContext, nlength: int = 3) -> TreeBatch:
+    """Random template members [..., P, K, L], one population per key:
+    subexpression k is generated with its own argument count from
+    ``fold_in(key, k)``, as the JAX package draws it."""
+    subs = [init_population(rng.fold_in(keys, k), population_size,
+                            ctx._replace(nfeatures=nf), nlength)
+            for k, nf in enumerate(template.num_features)]
+    slot = lambda name: torch.stack([getattr(t, name) for t in subs], dim=-2)
+    return TreeBatch(slot("arity"), slot("op"), slot("feat"), slot("const"),
+                     torch.stack([t.length for t in subs], dim=-1))

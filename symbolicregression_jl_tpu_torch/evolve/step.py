@@ -1,9 +1,12 @@
 """The evolution step: tournaments, mutations, accepts, replacement.
 
-Port of ``symbolicregression_jl_tpu/evolve/step.py`` for plain
-expressions. Where the JAX package vmaps one island's step over the
-island axis, every function here takes that axis explicitly: population
-fields are ``[I, P, ...]`` and keys ``[I, 2]``. One generation step runs
+Port of ``symbolicregression_jl_tpu/evolve/step.py`` for plain and
+template expressions. Where the JAX package vmaps one island's step over
+the island axis, every function here takes that axis explicitly:
+population fields are ``[I, P, ...]`` (trees ``[I, P, L]``, or
+``[I, P, K, L]`` for templates) and keys ``[I, 2]``. A template member
+mutates one randomly chosen subexpression per slot, with that
+subexpression's argument count for feature draws. One generation step runs
 the ``ceil(P / tournament_n)`` slots of every island in parallel from one
 population snapshot; each slot makes up to two babies (a mutation, or
 crossover's pair) that replace the oldest members. The speculative
@@ -25,18 +28,19 @@ import torch
 from ..core.losses import aggregate_loss, loss_to_cost
 from ..core.options import MUTATION_KINDS, Options
 from ..ops.complexity import ComplexityTables, check_constraints_batch, compute_complexity_batch
-from ..ops.encoding import LEAF_CONST, TreeBatch, select_tree, structure_from_arity
+from ..ops.encoding import LEAF_CONST, LEAF_VAR, TreeBatch, select_tree, structure_from_arity
 from ..ops.eval import eval_tree_batch
 from ..ops.fused_eval import fused_cost, fused_loss, supports_fused_eval
 from ..ops.operators import OperatorSet
 from . import mutation as M
 from . import rng
 from .population import PopulationState
-from .rng import USlice, u_bernoulli, u_categorical_weights
+from .rng import USlice, u_bernoulli, u_categorical_weights, u_randint
 from .tournament import tournament_select
 
 __all__ = ["EvolveConfig", "HofState", "evolve_config_from_options", "eval_cost_batch",
-           "generation_step", "empty_hof", "update_hof", "s_r_cycle", "take_members"]
+           "generation_step", "empty_hof", "update_hof", "s_r_cycle", "take_members",
+           "template_check_batch", "template_k"]
 
 _KIND = {name: i for i, name in enumerate(MUTATION_KINDS)}
 _IMMEDIATE_KINDS = (_KIND["simplify"], _KIND["do_nothing"], _KIND["optimize"],
@@ -72,8 +76,11 @@ class EvolveConfig(NamedTuple):
     perturbation_factor: float
     probability_negate_constant: float
     ncycles: int
-    turbo: bool       # candidate and finalize evals through the interpreter kernel
+    turbo: bool       # candidate and finalize evals through the interpreter kernels
     fuse_cost: bool   # the kernel's loss -> cost epilogue on candidate evals
+    # Template expressions: the structure (combiner and per-key arities);
+    # trees gain a key axis [..., K, L].
+    template: "object" = None
 
     @property
     def n_slots(self) -> int:
@@ -90,8 +97,8 @@ class EvolveConfig(NamedTuple):
         )
 
 
-def evolve_config_from_options(options: Options, nfeatures: int,
-                               device: torch.device) -> EvolveConfig:
+def evolve_config_from_options(options: Options, nfeatures: int, device: torch.device,
+                               template=None) -> EvolveConfig:
     """``turbo`` defaults to on for a CUDA device and off on the CPU."""
     turbo = options.turbo if options.turbo is not None else device.type == "cuda"
     turbo = bool(turbo) and supports_fused_eval(options.operators)
@@ -119,6 +126,7 @@ def evolve_config_from_options(options: Options, nfeatures: int,
         ncycles=options.ncycles_per_iteration,
         turbo=turbo,
         fuse_cost=turbo and options.fuse_cost_epilogue is not False,
+        template=template,
     )
 
 
@@ -129,14 +137,29 @@ def evolve_config_from_options(options: Options, nfeatures: int,
 
 def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: ComplexityTables,
                     operators: OperatorSet, parsimony: float, *, turbo: bool = False,
-                    fuse_cost: bool = False, dedup: bool = False):
+                    fuse_cost: bool = False, dedup: bool = False, template=None):
     """(cost, loss, complexity) per tree, any batch shape.
 
     ``turbo`` runs the interpreter kernel (ops/fused_eval.py); with
     ``fuse_cost`` (and not ``dedup``) the kernel's epilogue also computes
     the cost. Otherwise the eager interpreter (ops/eval.py) predicts and
-    the loss and cost follow in PyTorch."""
+    the loss and cost follow in PyTorch.
+
+    With a ``template`` structure the members' trees are [..., K, L]: the
+    combiner runs over the subexpressions (kernel #4 per call site with
+    ``turbo``, its plain version otherwise), complexity is summed over K,
+    and ``fuse_cost``/``dedup`` do not apply."""
     X, y, w = data.Xt, data.y, data.weights
+    if template is not None:
+        from ..models.template import eval_template_batch
+
+        # A named range for torch.profiler (bench/profile_iteration.py).
+        with torch.profiler.record_function("sr:template_eval"):
+            pred, valid = eval_template_batch(trees, X, template, operators, fused=turbo)
+            loss = aggregate_loss(elementwise_loss, pred, y, valid, w)
+        complexity = compute_complexity_batch(trees, tables).sum(dim=-1).to(torch.int32)
+        cost = loss_to_cost(loss, data.baseline_loss, data.use_baseline, complexity, parsimony)
+        return cost, loss, complexity
     complexity = compute_complexity_batch(trees, tables)
     if turbo and fuse_cost and not dedup:
         cost, loss, _ = fused_cost(
@@ -196,8 +219,10 @@ def _stable_top(mask: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _condition_weights(base_w: torch.Tensor, tree: TreeBatch, complexity, cur_maxsize,
-                       cfg: EvolveConfig) -> torch.Tensor:
-    """condition_mutation_weights! for a batch of target trees: [..., K]."""
+                       cfg: EvolveConfig, nfeat_dyn=None) -> torch.Tensor:
+    """condition_mutation_weights! for a batch of target trees: [..., kinds].
+    ``nfeat_dyn`` (templates) is each target subexpression's argument
+    count in place of the dataset's feature count."""
     L = cfg.max_nodes
     slot = torch.arange(L, device=tree.device)
     mask = slot < tree.length[..., None]
@@ -221,9 +246,12 @@ def _condition_weights(base_w: torch.Tensor, tree: TreeBatch, complexity, cur_ma
     zero_where("mutate_constant", root_is_leaf & ~root_is_const)
     zero_where("mutate_feature", root_is_leaf & root_is_const)
     zero_where("swap_operands", ~has_binary)
-    k = _KIND["mutate_constant"]
-    w[..., k] = w[..., k] * torch.clamp(n_const, max=8).to(w.dtype) / 8.0
-    if cfg.nfeatures <= 1:
+    if cfg.template is None:  # templates skip the constant-count scaling
+        k = _KIND["mutate_constant"]
+        w[..., k] = w[..., k] * torch.clamp(n_const, max=8).to(w.dtype) / 8.0
+    if nfeat_dyn is not None:
+        zero_where("mutate_feature", nfeat_dyn <= 1)
+    elif cfg.nfeatures <= 1:
         w[..., _KIND["mutate_feature"]] = 0.0
     too_big = complexity >= cur_maxsize
     zero_where("add_node", too_big)
@@ -238,9 +266,10 @@ def _attempt_nu(cfg: EvolveConfig) -> int:
 
 
 def _apply_kind(kind, u_all, tree: TreeBatch, temperature, cur_maxsize, cfg: EvolveConfig,
-                structure):
-    """Every mutation branch on a flat [N] batch, selected by ``kind``."""
-    mctx = cfg.mctx
+                structure, mctx=None):
+    """Every mutation branch on a flat [N] batch, selected by ``kind``;
+    ``mctx`` overrides ``cfg.mctx`` (templates pass per-row ``nfeatures``)."""
+    mctx = mctx if mctx is not None else cfg.mctx
     budgets = M.branch_nu(mctx)
     s = USlice(u_all)
     branches = []
@@ -298,6 +327,58 @@ def _structure(tree: TreeBatch):
     return child, size, None
 
 
+def template_check_batch(trees: TreeBatch, options: Options, tables: ComplexityTables,
+                         cur_maxsize, template) -> torch.Tensor:
+    """check_constraints for template members [..., K, L]: every
+    subexpression passes its own constraints, the complexity summed over K
+    is at most ``cur_maxsize``, and no subexpression reads an argument
+    beyond its arity."""
+    per = check_constraints_batch(trees, options, tables, cur_maxsize)       # [..., K]
+    cx = compute_complexity_batch(trees, tables)                            # [..., K]
+    ok = per.all(dim=-1) & (cx.sum(dim=-1) <= cur_maxsize)
+    nfeat = torch.tensor(template.num_features, dtype=torch.int32, device=trees.device)
+    in_tree = torch.arange(trees.max_nodes, device=trees.device) < trees.length[..., None]
+    bad_feat = (in_tree & (trees.arity == 0) & (trees.op == LEAF_VAR)
+                & (trees.feat >= nfeat[:, None]))
+    return ok & ~bad_feat.any(dim=-1).any(dim=-1)
+
+
+def _take_sub(trees: TreeBatch, k: torch.Tensor) -> TreeBatch:
+    """Subexpression ``k`` [...] of each template member [..., K, L]."""
+    kk = k.long()
+    L = trees.max_nodes
+    slot = lambda x: torch.gather(x, -2, kk[..., None, None].expand(*kk.shape, 1, L))[..., 0, :]
+    return TreeBatch(slot(trees.arity), slot(trees.op), slot(trees.feat), slot(trees.const),
+                     torch.gather(trees.length, -1, kk[..., None])[..., 0])
+
+
+def _put_sub(trees: TreeBatch, sub: TreeBatch, k: torch.Tensor) -> TreeBatch:
+    """Write ``sub`` [..., L] into subexpression ``k`` [...] of ``trees``."""
+    K = trees.length.shape[-1]
+    hit = torch.arange(K, device=k.device) == k[..., None]                  # [..., K]
+    slot = lambda x, v: torch.where(hit[..., None], v[..., None, :], x)
+    return TreeBatch(slot(trees.arity, sub.arity), slot(trees.op, sub.op),
+                     slot(trees.feat, sub.feat), slot(trees.const, sub.const),
+                     torch.where(hit, sub.length[..., None], trees.length))
+
+
+def template_k(cfg: EvolveConfig) -> int:
+    """The number of subexpressions of a template config, else 0."""
+    return cfg.template.n_subexpressions if cfg.template is not None else 0
+
+
+def _member_shape(trees: TreeBatch, template):
+    """The member batch shape: the tree batch shape without the key axis."""
+    return trees.batch_shape[:-1] if template is not None else trees.batch_shape
+
+
+def _flat_members(trees: TreeBatch, template) -> TreeBatch:
+    """Members flattened to [N, L], or [N, K, L] for templates."""
+    if template is None:
+        return trees.reshape(-1)
+    return trees.reshape(-1, template.n_subexpressions)
+
+
 # ---------------------------------------------------------------------------
 # One bulk generation step (== one reg_evol_cycle)
 # ---------------------------------------------------------------------------
@@ -347,15 +428,47 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
     NKINDS = len(MUTATION_KINDS)
     ATT_NU = _attempt_nu(cfg)
     L2 = 2 * L
-    SLOT_NU = 1 + NKINDS + A * ATT_NU + A * L2 + 1 + 1 + 4
+    template = cfg.template
+    TK = 2 if template is not None else 0     # template key draws
+    SLOT_NU = 1 + NKINDS + TK + A * ATT_NU + A * L2 + 1 + 1 + 4
     u = rng.uniform(slot_keys3[..., 2, :], (SLOT_NU,))   # [I, B, SLOT_NU]
     s = USlice(u)
     is_xover = u_bernoulli(s.take1(), cfg.crossover_probability)
 
     base_w = torch.as_tensor(options.mutation_weights.as_vector(), dtype=torch.float32,
                              device=dev)
-    tgt1, tgt2 = m1.trees, m2.trees
-    w = _condition_weights(base_w, tgt1, m1.complexity, cur_maxsize, cfg)
+    attempts = lambda x: x.unsqueeze(-1).expand(I, B, A).reshape(-1)
+    if template is not None:
+        # One random subexpression per member; its arity drives feature draws.
+        K = template.n_subexpressions
+        u_tk = s.take(TK)
+        sub1 = u_randint(u_tk[..., 0], K)
+        sub2 = u_randint(u_tk[..., 1], K)
+        nfeat1 = torch.tensor(template.num_features, dtype=torch.int32, device=dev)[sub1.long()]
+        tgt1, tgt2 = _take_sub(m1.trees, sub1), _take_sub(m2.trees, sub2)
+        mctx1 = cfg.mctx._replace(nfeatures=attempts(nfeat1))
+        w = _condition_weights(base_w, tgt1, m1.complexity, cur_maxsize, cfg,
+                               nfeat_dyn=nfeat1)
+
+        def members(trees: TreeBatch, src: TreeBatch, k):
+            """Attempt trees put back into their members: [I * B * A, K, L]."""
+            return _put_sub(_expand_attempts(src, A), trees, attempts(k))
+
+        def check(trees):
+            return template_check_batch(trees, options, tables, cur_maxsize, template)
+
+        by_attempt = lambda t: t.reshape(I, B, A, K)
+    else:
+        tgt1, tgt2 = m1.trees, m2.trees
+        mctx1 = None
+        w = _condition_weights(base_w, tgt1, m1.complexity, cur_maxsize, cfg)
+        members = lambda trees, src, k: trees
+        sub1 = sub2 = None
+
+        def check(trees):
+            return check_constraints_batch(trees, options, tables, cur_maxsize)
+
+        by_attempt = lambda t: t.reshape(I, B, A)
 
     # ---- mutation path ----
     kind = u_categorical_weights(s.take(NKINDS), w)          # [I, B]
@@ -365,12 +478,11 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
 
     att_u = s.take(A * ATT_NU).reshape(I * B * A, ATT_NU)
     flat1 = _expand_attempts(tgt1, A)
-    att_trees, att_ok = _apply_kind(
-        kind.unsqueeze(-1).expand(I, B, A).reshape(-1), att_u, flat1, temperature,
-        cur_maxsize, cfg, _structure(flat1))
-    att_cons = check_constraints_batch(att_trees, options, tables, cur_maxsize)
-    att_valid = (att_ok & att_cons).reshape(I, B, A)
-    mut_tree, mut_success = _first_valid(att_valid, att_trees.reshape(I, B, A), tgt1)
+    att_trees, att_ok = _apply_kind(attempts(kind), att_u, flat1, temperature, cur_maxsize, cfg,
+                                    _structure(flat1), mctx=mctx1)
+    att_trees = members(att_trees, m1.trees, sub1)
+    att_valid = (att_ok & check(att_trees)).reshape(I, B, A)
+    mut_tree, mut_success = _first_valid(att_valid, by_attempt(att_trees), m1.trees)
 
     s.take1()   # parameter-row branch draw (parametric expressions only)
     s.take(4)
@@ -380,11 +492,10 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
     flat2 = _expand_attempts(tgt2, A)
     c1s, c2s, ok1s, ok2s = M.crossover_trees(xa_u, flat1, flat2, cfg.mctx,
                                              _structure(flat1), _structure(flat2))
-    cons1 = check_constraints_batch(c1s, options, tables, cur_maxsize)
-    cons2 = check_constraints_batch(c2s, options, tables, cur_maxsize)
-    pair_valid = (ok1s & ok2s & cons1 & cons2).reshape(I, B, A)
-    xo1, xo_success = _first_valid(pair_valid, c1s.reshape(I, B, A), tgt1)
-    xo2, _ = _first_valid(pair_valid, c2s.reshape(I, B, A), tgt2)
+    c1s, c2s = members(c1s, m1.trees, sub1), members(c2s, m2.trees, sub2)
+    pair_valid = (ok1s & ok2s & check(c1s) & check(c2s)).reshape(I, B, A)
+    xo1, xo_success = _first_valid(pair_valid, by_attempt(c1s), m1.trees)
+    xo2, _ = _first_valid(pair_valid, by_attempt(c2s), m2.trees)
 
     cand1 = select_tree(is_xover, xo1, mut_tree)
     cand2 = xo2
@@ -405,17 +516,17 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
         k2 = min(B, int(math.ceil(B * p_x + 3.0 * math.sqrt(B * p_x * (1.0 - p_x)) + 1.0)))
 
     def _eval(trees: TreeBatch):
-        bshape = trees.batch_shape
-        c, lo, cx = eval_cost_batch(trees.reshape(-1), data, elementwise_loss, tables,
-                                    cfg.operators, cfg.parsimony, turbo=cfg.turbo,
-                                    fuse_cost=cfg.fuse_cost)
+        bshape = _member_shape(trees, template)
+        c, lo, cx = eval_cost_batch(_flat_members(trees, template), data, elementwise_loss,
+                                    tables, cfg.operators, cfg.parsimony, turbo=cfg.turbo,
+                                    fuse_cost=cfg.fuse_cost, template=template)
         return c.reshape(bshape), lo.reshape(bshape), cx.reshape(bshape)
 
     inf = torch.tensor(math.inf, dtype=torch.float32, device=dev)
     if 0 < k2 < B:
         sel2 = _stable_top(is_xover, k2)                         # [I, k2]
         cand2_sel = _take_trees(cand2, sel2, clamp=True)
-        slot_bad2 = ~torch.isfinite(cand2.const).all(-1)        # [I, B]
+        slot_bad2 = ~torch.isfinite(cand2.const).reshape(I, B, -1).all(-1)   # [I, B]
         packed = TreeBatch(*(torch.cat([a, b], dim=1)
                              for a, b in zip(cand1.fields(), cand2_sel.fields())))
         c_all, l_all, x_all = _eval(packed)
@@ -469,12 +580,12 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
     lane = torch.arange(L, device=dev)
     cleaf = ((pop.trees.arity == 0) & (pop.trees.op == LEAF_CONST)
              & (lane < pop.trees.length[..., None]))
-    bad_const = (cleaf & ~torch.isfinite(pop.trees.const)).any(-1)       # [I, P]
+    bad_const = (cleaf & ~torch.isfinite(pop.trees.const)).reshape(I, P, -1).any(-1)
     slot_bad1 = torch.gather(bad_const, 1, i1.long())                      # [I, B]
     fb = m1.trees
     fb_cleaf = (fb.arity == 0) & (fb.op == LEAF_CONST)
-    fb = dataclasses.replace(fb, const=torch.where(slot_bad1[..., None] & fb_cleaf,
-                                                   math.nan, fb.const))
+    nan_mark = slot_bad1.reshape(I, B, *(1,) * (fb.const.dim() - 2)) & fb_cleaf
+    fb = dataclasses.replace(fb, const=torch.where(nan_mark, math.nan, fb.const))
     accept1 = accepted_mut & ~immediate
     baby1_tree = select_tree(accept1, cand1, fb)
     baby1_cost = torch.where(accept1, after_cost, m1_cost)
@@ -540,10 +651,13 @@ class HofState:
     exists: torch.Tensor      # [..., maxsize] bool
 
 
-def empty_hof(batch_shape, maxsize: int, max_nodes: int, device) -> HofState:
+def empty_hof(batch_shape, maxsize: int, max_nodes: int, device,
+              template_k: int = 0) -> HofState:
+    """``template_k`` > 0 gives the trees the template key axis."""
     shape = (*batch_shape, maxsize)
+    tree_shape = (*shape, template_k) if template_k else shape
     return HofState(
-        trees=TreeBatch.empty(shape, max_nodes, device),
+        trees=TreeBatch.empty(tree_shape, max_nodes, device),
         cost=torch.full(shape, math.inf, dtype=torch.float32, device=device),
         loss=torch.full(shape, math.inf, dtype=torch.float32, device=device),
         complexity=torch.zeros(shape, dtype=torch.int32, device=device),
@@ -587,7 +701,7 @@ def s_r_cycle(key, pop: PopulationState, data, stats_nf, cur_maxsize, birth0, re
     [I], birth0, ref0, marks)."""
     I, P = pop.cost.shape
     dev = pop.cost.device
-    hof = empty_hof((I,), cfg.maxsize, cfg.max_nodes, dev)
+    hof = empty_hof((I,), cfg.maxsize, cfg.max_nodes, dev, template_k=template_k(cfg))
     marks = (torch.zeros((I, P), dtype=torch.bool, device=dev),
              torch.zeros((I, P), dtype=torch.bool, device=dev))
     nev = torch.zeros(I, dtype=torch.float32, device=dev)

@@ -5,6 +5,8 @@ example ``jax.tree.map(np.asarray, state)``, and ``jax.random.key_data``
 for a key); this module never sees a JAX array. Each function reads the
 fields by name, so any object with those numpy attributes will do. Both
 packages can then start from the same population and the same key.
+Template states carry over as they are: their trees keep the key axis
+([I, P, K, L] in the populations, [maxsize, K, L] in the hall of fame).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ def tree_batch(t, device="cpu") -> TreeBatch:
 
 
 def population_state(p, device="cpu") -> PopulationState:
-    """Plain-expression populations (the JAX package's zero-sized
+    """Plain or template populations (the JAX package's zero-sized
     parameter banks are dropped)."""
     return PopulationState(
         trees=tree_batch(p.trees, device),

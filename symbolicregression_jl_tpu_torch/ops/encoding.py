@@ -22,6 +22,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .operators import OperatorSet
 from .tree import Node
 
@@ -218,7 +219,10 @@ def decode_tree(arity, op, feat, const, length, operators: OperatorSet) -> Node:
 
 
 def encode_population(trees: Sequence[Node], max_nodes: int,
-                      operators: OperatorSet, device="cpu") -> TreeBatch:
+                      operators: OperatorSet, device=None) -> TreeBatch:
+    """Host trees -> a [len(trees), max_nodes] TreeBatch on ``device``
+    (CUDA unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
     n = len(trees)
     arity = np.zeros((n, max_nodes), np.int32)
     op = np.zeros((n, max_nodes), np.int32)
@@ -228,7 +232,6 @@ def encode_population(trees: Sequence[Node], max_nodes: int,
     for i, t in enumerate(trees):
         arity[i], op[i], feat[i], const[i], length[i] = encode_tree(
             t, max_nodes, operators)
-    dev = torch.device(device)
     return TreeBatch(*(torch.from_numpy(a).to(dev)
                        for a in (arity, op, feat, const, length)))
 

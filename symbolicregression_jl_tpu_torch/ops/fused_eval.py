@@ -4,7 +4,7 @@ Port of the program-kernel part of ``symbolicregression_jl_tpu/ops/fused_eval.py
 A TreeBatch compiles to a leaf-free program (ops/program.py);
 :func:`_pack_instr` packs each step into one int32 word
 ``sign << 30 | code << 24 | src1 << 12 | src2`` with the same dispatch
-layout as the JAX package (``_dispatch_plan``). Three CUDA kernels run the
+layout as the JAX package (``_dispatch_plan``). Five CUDA kernels run the
 programs over every row:
 
 - ``csrc/program_eval.cu`` (:data:`PROGRAM_EVAL`, ``_program_launch``):
@@ -12,11 +12,16 @@ programs over every row:
 - ``csrc/program_multi.cu`` (:data:`PROGRAM_MULTI`, ``fused_loss_multi``):
   loss and validity for every (tree, constant vector) pair;
 - ``csrc/program_grad.cu`` (:data:`PROGRAM_GRAD`, ``fused_grad_multi``):
-  the same plus d(loss)/d(constants), by a forward and an adjoint sweep.
+  the same plus d(loss)/d(constants), by a forward and an adjoint sweep;
+- ``csrc/program_predict.cu`` (:data:`PROGRAM_PREDICT`,
+  ``fused_predict_program``): raw row predictions and validity per tree,
+  for template expressions' subexpression call sites;
+- ``csrc/program_predict_vjp.cu`` (:data:`PROGRAM_PREDICT_VJP`,
+  ``fused_predict_vjp_program``): its backward, seeded with row cotangents
+  (the ``torch.autograd.Function`` :func:`fused_predict_ad`).
 
 Each wrapper, given tensors on the CPU, runs its plain PyTorch version
-(:func:`program_eval_plain`, :func:`program_multi_plain`,
-:func:`program_grad_plain`: the CPU path and the kernel's test oracle);
+(``program_*_plain``: the CPU path and the kernel's test oracle);
 given CUDA tensors it launches the kernel or raises, never falling back.
 The TPU kernels' V-chunking and tree blocks worked around VMEM and are not
 carried over: each call is one launch.
@@ -36,11 +41,13 @@ from .operators import OPERATOR_REGISTRY, OperatorSet
 from .program import TreeProgram, compile_program, scatter_const_grads
 from .vjp import loss_vjp, vjp_binary, vjp_unary
 
-__all__ = ["PROGRAM_EVAL", "PROGRAM_MULTI", "PROGRAM_GRAD", "fused_loss",
-           "fused_loss_program", "fused_loss_dedup", "fused_cost", "fused_cost_program",
-           "fused_loss_multi", "fused_grad_multi", "fused_grad_program",
-           "fused_loss_and_const_grad", "program_eval_plain", "program_multi_plain",
-           "program_grad_plain", "supports_fused_eval"]
+__all__ = ["PROGRAM_EVAL", "PROGRAM_MULTI", "PROGRAM_GRAD", "PROGRAM_PREDICT",
+           "PROGRAM_PREDICT_VJP", "fused_loss", "fused_loss_program", "fused_loss_dedup",
+           "fused_cost", "fused_cost_program", "fused_loss_multi", "fused_grad_multi",
+           "fused_grad_program", "fused_loss_and_const_grad", "fused_predict_program",
+           "fused_predict_vjp_program", "fused_predict", "fused_predict_ad",
+           "program_eval_plain", "program_multi_plain", "program_grad_plain",
+           "program_predict_plain", "program_predict_vjp_plain", "supports_fused_eval"]
 
 
 def supports_fused_eval(operators: OperatorSet) -> bool:
@@ -163,6 +170,50 @@ def _branches(operators: OperatorSet):
     return out
 
 
+def _plain_forward(instr, nsteps, cvals, X, operators: OperatorSet):
+    """Forward sweep of packed programs on a [T, F + CMAX + L + 1, n]
+    value buffer (X rows, constants, one row per step, the zero row), as
+    the kernels run it. ``X`` is [F, n] (shared) or [T, F, n] (one
+    argument block per tree). Returns (buf, vmask [T, n]: every live step
+    finite on the row, the decoded (code, src1, src2, sign) of each step)."""
+    plan = _dispatch_plan(operators)
+    T, L = instr.shape
+    F, n = X.shape[-2:]
+    BASE = F + cvals.shape[1]
+    dev = X.device
+    branches = _branches(operators)
+    code_mask = 0x3F if plan.merged else 0x7F
+    m = nsteps.long()
+    rows = torch.arange(T, device=dev)
+    buf = torch.zeros((T, BASE + L + 1, n), dtype=X.dtype, device=dev)
+    buf[:, :F] = X
+    buf[:, F:BASE] = cvals[:, :, None]
+    vmask = torch.ones((T, n), dtype=torch.bool, device=dev)
+    words = []
+    for k in range(int(m.max()) if T else 0):
+        word = instr[:, k]
+        code = (word >> 24) & code_mask
+        i1 = ((word >> 12) & 0xFFF).long()
+        i2 = (word & 0xFFF).long()
+        sign = (word >> 30) & 1
+        words.append((code, i1, i2, sign))
+        a = buf[rows, i1]
+        b = buf[rows, i2]
+        val = None
+        for c in torch.unique(code).tolist():
+            v = branches[c](a, b, sign)
+            val = v if val is None else torch.where((code == c)[:, None], v, val)
+        buf[:, BASE + k] = val
+        vmask &= torch.isfinite(val) | ~(k < m)[:, None]
+    return buf, vmask, words
+
+
+def _root(buf, nsteps, base: int):
+    """Each tree's last step row [T, n]."""
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    return buf[rows, base + nsteps.long() - 1]
+
+
 def program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators: OperatorSet,
                        loss_fn: Callable, cx=None, scal=None, max_elems: int = 1 << 26):
     """Eager version of the kernel: an explicit loop over program steps on
@@ -171,49 +222,21 @@ def program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators: Opera
     Returns (loss_sum, valid) for the plain form, or (loss, valid, cost)
     with the cost epilogue when ``cx`` [T] and ``scal`` [3] are given.
     Trees run in chunks of at most ``max_elems`` buffer elements."""
-    plan = _dispatch_plan(operators)
     T, L = instr.shape
     F, n = X.shape
-    CMAX = cvals.shape[1]
-    BASE = F + CMAX
-    nbuf = BASE + L + 1
-    dev = X.device
-    branches = _branches(operators)
-    code_mask = 0x3F if plan.merged else 0x7F
-    chunk = max(1, max_elems // max(nbuf * n, 1))
+    BASE = F + cvals.shape[1]
+    chunk = max(1, max_elems // max((BASE + L + 1) * n, 1))
     loss_parts, valid_parts = [], []
     for s in range(0, T, chunk):
-        ins = instr[s:s + chunk]
-        m = nsteps[s:s + chunk].long()
-        Tc = ins.shape[0]
-        rows = torch.arange(Tc, device=dev)
-        buf = torch.zeros((Tc, nbuf, n), dtype=X.dtype, device=dev)
-        buf[:, :F] = X
-        buf[:, F:BASE] = cvals[s:s + chunk, :, None]
-        vmask = torch.ones((Tc, n), dtype=torch.bool, device=dev)
-        kmax = int(m.max()) if Tc else 0
-        for k in range(kmax):
-            word = ins[:, k]
-            code = (word >> 24) & code_mask
-            i1 = ((word >> 12) & 0xFFF).long()
-            i2 = (word & 0xFFF).long()
-            sign = (word >> 30) & 1
-            a = buf[rows, i1]
-            b = buf[rows, i2]
-            val = None
-            for c in torch.unique(code).tolist():
-                v = branches[c](a, b, sign)
-                val = v if val is None else torch.where((code == c)[:, None], v, val)
-            active = k < m
-            buf[:, BASE + k] = val
-            vmask &= torch.isfinite(val) | ~active[:, None]
-        pred = buf[rows, BASE + m - 1]
-        elt = loss_fn(pred, y)
+        e = s + chunk
+        buf, vmask, _ = _plain_forward(instr[s:e], nsteps[s:e], cvals[s:e], X, operators)
+        elt = loss_fn(_root(buf, nsteps[s:e], BASE), y)
         elt = torch.where(w > 0, elt, 0.0)
         total = torch.sum(elt * w, dim=-1)
-        valid = vmask.all(dim=-1) & torch.isfinite(total) & (const_ok[s:s + chunk] != 0)
+        valid = vmask.all(dim=-1) & torch.isfinite(total) & (const_ok[s:e] != 0)
         loss_parts.append(total)
         valid_parts.append(valid)
+    dev = X.device
     total = torch.cat(loss_parts) if loss_parts else torch.zeros(0, dtype=X.dtype, device=dev)
     valid = torch.cat(valid_parts) if valid_parts else torch.zeros(0, dtype=torch.bool, device=dev)
     if cx is None:
@@ -255,6 +278,54 @@ def _bwd_branches(operators: OperatorSet):
     return out
 
 
+def _plain_backward(buf, words, nsteps, seed, base: int, operators: OperatorSet,
+                    acc_below: int = 0):
+    """Reverse sweep of :func:`_plain_forward`'s buffer: the adjoint of
+    every buffer row [T, nbuf, n] from the root's cotangent ``seed``
+    [T, n], with the derivative table of ops/vjp.py. Operand adjoints at
+    addresses below ``acc_below`` accumulate (operand 1, then operand 2);
+    the others are stored, every node having one parent."""
+    bwd = _bwd_branches(operators)
+    T = buf.shape[0]
+    rows = torch.arange(T, device=buf.device)
+    m = nsteps.long()
+    adj = torch.zeros_like(buf)
+    adj[rows, base + m - 1] = seed
+
+    def store(idx, val, sel):
+        if acc_below:
+            val = torch.where((idx < acc_below)[:, None], adj[rows, idx] + val, val)
+        adj[rows[sel], idx[sel]] = val[sel]
+
+    for k in reversed(range(len(words))):
+        code, i1, i2, sign = words[k]
+        active = k < m
+        ct = adj[rows, base + k]
+        a, b = buf[rows, i1], buf[rows, i2]
+        d1 = torch.zeros_like(ct)
+        d2 = torch.zeros_like(ct)
+        two = torch.zeros_like(active)
+        for c in torch.unique(code[active]).tolist():
+            sel = (code == c) & active
+            o1, o2 = bwd[c](a, b, sign, ct)
+            d1 = torch.where(sel[:, None], o1, d1)
+            if o2 is not None:
+                d2 = torch.where(sel[:, None], o2, d2)
+                two |= sel
+        store(i1, d1, active)
+        store(i2, d2, two)
+    return adj
+
+
+def _const_sums(adj, nconst, F: int, CMAX: int):
+    """Row sums of the constants' adjoints [T, CMAX] (0 past nconst) and
+    of their absolute values."""
+    cadj = adj[:, F:F + CMAX]
+    used = torch.arange(CMAX, device=adj.device)[None, :] < nconst.long()[:, None]
+    return (torch.where(used, cadj.sum(dim=-1), 0.0),
+            torch.where(used, cadj.abs().sum(dim=-1), 0.0))
+
+
 def program_grad_plain(instr, nsteps, nconst, cvals_v, X, y, w, operators: OperatorSet,
                        loss_fn: Callable, max_elems: int = 1 << 25, return_abs: bool = False):
     """Eager version of kernel #3: kernel #2's loss and validity plus
@@ -264,77 +335,29 @@ def program_grad_plain(instr, nsteps, nconst, cvals_v, X, y, w, operators: Opera
     Returns (loss_sum [T, V], valid [T, V], gcomp [T, V, CMAX]); with
     ``return_abs`` also the row sums of the constants' absolute adjoints
     [T, V, CMAX] (the scale a comparison of two summation orders needs)."""
-    plan = _dispatch_plan(operators)
     T, V, CMAX = cvals_v.shape
     L = instr.shape[1]
     F, n = X.shape
     BASE = F + CMAX
-    nbuf = BASE + L + 1
     dev = X.device
-    fwd = _branches(operators)
-    bwd = _bwd_branches(operators)
     dloss = loss_vjp(loss_fn)
-    code_mask = 0x3F if plan.merged else 0x7F
     P = T * V
     ins_all = instr.repeat_interleave(V, dim=0)
-    m_all = nsteps.repeat_interleave(V, dim=0).long()
-    nc_all = nconst.repeat_interleave(V, dim=0).long()
+    m_all = nsteps.repeat_interleave(V, dim=0)
+    nc_all = nconst.repeat_interleave(V, dim=0)
     cv_all = cvals_v.reshape(P, CMAX)
-    chunk = max(1, max_elems // max(2 * nbuf * n, 1))
+    chunk = max(1, max_elems // max(2 * (BASE + L + 1) * n, 1))
     parts = []
     for s in range(0, P, chunk):
-        ins, m, cv = ins_all[s:s + chunk], m_all[s:s + chunk], cv_all[s:s + chunk]
-        Pc = ins.shape[0]
-        rows = torch.arange(Pc, device=dev)
-        buf = torch.zeros((Pc, nbuf, n), dtype=X.dtype, device=dev)
-        buf[:, :F] = X
-        buf[:, F:BASE] = cv[:, :, None]
-        vmask = torch.ones((Pc, n), dtype=torch.bool, device=dev)
-        kmax = int(m.max()) if Pc else 0
-        words = []
-        for k in range(kmax):
-            word = ins[:, k]
-            code = (word >> 24) & code_mask
-            i1 = ((word >> 12) & 0xFFF).long()
-            i2 = (word & 0xFFF).long()
-            sign = (word >> 30) & 1
-            words.append((code, i1, i2, sign))
-            a, b = buf[rows, i1], buf[rows, i2]
-            val = None
-            for c in torch.unique(code).tolist():
-                v = fwd[c](a, b, sign)
-                val = v if val is None else torch.where((code == c)[:, None], v, val)
-            active = k < m
-            buf[:, BASE + k] = val
-            vmask &= torch.isfinite(val) | ~active[:, None]
-        pred = buf[rows, BASE + m - 1]
+        e = s + chunk
+        buf, vmask, words = _plain_forward(ins_all[s:e], m_all[s:e], cv_all[s:e], X, operators)
+        pred = _root(buf, m_all[s:e], BASE)
         elt = torch.where(w > 0, loss_fn(pred, y), 0.0)
         total = torch.sum(elt * w, dim=-1)
         valid = vmask.all(dim=-1) & torch.isfinite(total)
-
-        adj = torch.zeros_like(buf)
-        adj[rows, BASE + m - 1] = torch.where(w > 0, dloss(pred, y, w.expand_as(pred)), 0.0)
-        for k in reversed(range(kmax)):
-            code, i1, i2, sign = words[k]
-            active = k < m
-            ct = adj[rows, BASE + k]
-            a, b = buf[rows, i1], buf[rows, i2]
-            d1 = torch.zeros_like(ct)
-            d2 = torch.zeros_like(ct)
-            two = torch.zeros_like(active)
-            for c in torch.unique(code[active]).tolist():
-                sel = (code == c) & active
-                o1, o2 = bwd[c](a, b, sign, ct)
-                d1 = torch.where(sel[:, None], o1, d1)
-                if o2 is not None:
-                    d2 = torch.where(sel[:, None], o2, d2)
-                    two |= sel
-            adj[rows[active], i1[active]] = d1[active]
-            adj[rows[two], i2[two]] = d2[two]
-        cadj = adj[:, F:BASE]
-        used = torch.arange(CMAX, device=dev)[None, :] < nc_all[s:s + chunk, None]
-        gcomp = torch.where(used, cadj.sum(dim=-1), 0.0)
-        gabs = torch.where(used, cadj.abs().sum(dim=-1), 0.0)
+        seed = torch.where(w > 0, dloss(pred, y, w.expand_as(pred)), 0.0)
+        adj = _plain_backward(buf, words, m_all[s:e], seed, BASE, operators)
+        gcomp, gabs = _const_sums(adj, nc_all[s:e], F, CMAX)
         parts.append((total, valid, gcomp, gabs))
     if parts:
         total, valid, gcomp, gabs = (torch.cat(z) for z in zip(*parts))
@@ -344,6 +367,61 @@ def program_grad_plain(instr, nsteps, nconst, cvals_v, X, y, w, operators: Opera
         gcomp = gabs = torch.zeros((0, CMAX), dtype=X.dtype, device=dev)
     out = (total.reshape(T, V), valid.reshape(T, V), gcomp.reshape(T, V, CMAX))
     return out + (gabs.reshape(T, V, CMAX),) if return_abs else out
+
+
+def program_predict_plain(instr, nsteps, cvals, const_ok, X, operators: OperatorSet,
+                          max_elems: int = 1 << 26):
+    """Eager version of kernel #4: each tree's raw row predictions (the
+    last step's value) and validity (every step finite on every row, and
+    ``const_ok``). ``X`` is [F, n] or [T, F, n]. Returns (pred [T, n],
+    valid [T])."""
+    T, L = instr.shape
+    F, n = X.shape[-2:]
+    BASE = F + cvals.shape[1]
+    per_member = X.dim() == 3
+    chunk = max(1, max_elems // max((BASE + L + 1) * n, 1))
+    preds, valids = [], []
+    for s in range(0, T, chunk):
+        e = s + chunk
+        buf, vmask, _ = _plain_forward(instr[s:e], nsteps[s:e], cvals[s:e],
+                                       X[s:e] if per_member else X, operators)
+        preds.append(_root(buf, nsteps[s:e], BASE))
+        valids.append(vmask.all(dim=-1) & (const_ok[s:e] != 0))
+    if not preds:
+        return (torch.zeros((0, n), dtype=X.dtype, device=X.device),
+                torch.zeros(0, dtype=torch.bool, device=X.device))
+    return torch.cat(preds), torch.cat(valids)
+
+
+def program_predict_vjp_plain(instr, nsteps, nconst, cvals, X, ct, operators: OperatorSet,
+                              max_elems: int = 1 << 25, return_abs: bool = False):
+    """Eager version of kernel #5: d(sum_r ct * pred)/d(cvals) [T, CMAX]
+    (raw, 0 past nconst) and, for per-member ``X`` [T, F, n], the raw
+    d/dX [T, F, n] (None for shared X), by the forward sweep and a reverse
+    sweep seeded with ``ct`` [T, n]. X-region adjoints accumulate. With
+    ``return_abs`` also the row sums of the constants' absolute adjoints."""
+    T, L = instr.shape
+    F, n = X.shape[-2:]
+    CMAX = cvals.shape[1]
+    BASE = F + CMAX
+    per_member = X.dim() == 3
+    chunk = max(1, max_elems // max(2 * (BASE + L + 1) * n, 1))
+    parts = []
+    for s in range(0, T, chunk):
+        e = s + chunk
+        buf, _, words = _plain_forward(instr[s:e], nsteps[s:e], cvals[s:e],
+                                       X[s:e] if per_member else X, operators)
+        adj = _plain_backward(buf, words, nsteps[s:e], ct[s:e], BASE, operators, acc_below=F)
+        gcomp, gabs = _const_sums(adj, nconst[s:e], F, CMAX)
+        parts.append((gcomp, gabs, adj[:, :F] if per_member else None))
+    if parts:
+        gcomp = torch.cat([p[0] for p in parts])
+        gabs = torch.cat([p[1] for p in parts])
+        gx = torch.cat([p[2] for p in parts]) if per_member else None
+    else:
+        gcomp = gabs = torch.zeros((0, CMAX), dtype=X.dtype, device=X.device)
+        gx = torch.zeros((0, F, n), dtype=X.dtype, device=X.device) if per_member else None
+    return (gcomp, gx, gabs) if return_abs else (gcomp, gx)
 
 
 # ---------------------------------------------------------------------------
@@ -457,11 +535,12 @@ class _ProgramKernel:
         return self._device_optab(operators, X.device), self._block(L, CMAX, F), code_mask
 
     def _check(self, X, loss_fn, ints, floats):
-        """Device, dtype and contiguity of every input; the loss kind."""
+        """Device, dtype and contiguity of every input; the loss kind
+        (None for the kernels that compute no loss)."""
         if X.device.type != "cuda":
             raise ValueError(f"{self.name}: unsupported device {X.device}")
-        loss_kind = _KERNEL_LOSS.get(loss_fn)
-        if loss_kind is None:
+        loss_kind = _KERNEL_LOSS.get(loss_fn) if loss_fn is not None else None
+        if loss_kind is None and loss_fn is not None:
             raise NotImplementedError(
                 f"the CUDA kernel {self.name} implements the L2, L1 and Huber "
                 f"elementwise losses only")
@@ -612,9 +691,89 @@ class ProgramGradKernel(_ProgramKernel):
         return loss, valid.bool(), gcomp
 
 
+class ProgramPredictKernel(_ProgramKernel):
+    """Wrapper of ``sr_program_predict`` (csrc/program_predict.cu): (pred
+    [T, n], valid [T]) per tree over shared X [F, n] or per-member X
+    [T, F, n]."""
+
+    name = "program_predict"
+    source = "symbolicregression_jl_tpu_torch/csrc/program_predict.cu"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:1612 "
+                "(fused_predict_program / _make_program_predict_kernel)")
+    _file = "program_predict.cu"
+    _entry = "sr_program_predict"
+
+    def _bind(self, lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.sr_program_predict.argtypes = [p] * 6 + [i] * 9 + [p, p, p]
+
+    def __call__(self, instr, nsteps, cvals, const_ok, X, operators: OperatorSet):
+        if X.device.type == "cpu":
+            return program_predict_plain(instr, nsteps, cvals, const_ok, X, operators)
+        T, L = instr.shape
+        F, n = X.shape[-2:]
+        CMAX = cvals.shape[1]
+        per_member = X.dim() == 3
+        self._check(X, None, dict(instr=instr, nsteps=nsteps, const_ok=const_ok),
+                    dict(cvals=cvals, X=X))
+        if (nsteps.shape != (T,) or const_ok.shape != (T,) or cvals.shape[0] != T
+                or X.dim() not in (2, 3) or (per_member and X.shape[0] != T)):
+            raise ValueError("program_predict: inconsistent shapes")
+        optab, block, code_mask = self._layout(operators, X, L, CMAX, F)
+        pred = torch.empty((T, n), dtype=torch.float32, device=X.device)
+        valid = torch.empty(T, dtype=torch.int32, device=X.device)
+        self._launch(
+            _ptr(instr), _ptr(nsteps), _ptr(cvals), _ptr(const_ok), _ptr(X), _ptr(optab),
+            T, L, CMAX, F, n, block, int(per_member), code_mask, 30,
+            _ptr(pred), _ptr(valid), _stream(X))
+        return pred, valid.bool()
+
+
+class ProgramPredictVjpKernel(_ProgramKernel):
+    """Wrapper of ``sr_program_predict_vjp`` (csrc/program_predict_vjp.cu):
+    the raw d(sum ct * pred)/d(cvals) [T, CMAX] and, for per-member X, the
+    raw d/dX [T, F, n] (None for shared X)."""
+
+    name = "program_predict_vjp"
+    source = "symbolicregression_jl_tpu_torch/csrc/program_predict_vjp.cu"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:1832 "
+                "(_fused_predict_vjp_program / _make_program_predict_vjp_kernel)")
+    _file = "program_predict_vjp.cu"
+    _entry = "sr_program_predict_vjp"
+
+    def _bind(self, lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.sr_program_predict_vjp.argtypes = [p] * 7 + [i] * 9 + [p, p, p]
+
+    def __call__(self, instr, nsteps, nconst, cvals, X, ct, operators: OperatorSet):
+        if X.device.type == "cpu":
+            return program_predict_vjp_plain(instr, nsteps, nconst, cvals, X, ct, operators)
+        T, L = instr.shape
+        F, n = X.shape[-2:]
+        CMAX = cvals.shape[1]
+        per_member = X.dim() == 3
+        self._check(X, None, dict(instr=instr, nsteps=nsteps, nconst=nconst),
+                    dict(cvals=cvals, X=X, ct=ct))
+        if (nsteps.shape != (T,) or nconst.shape != (T,) or cvals.shape[0] != T
+                or ct.shape != (T, n) or X.dim() not in (2, 3)
+                or (per_member and X.shape[0] != T)):
+            raise ValueError("program_predict_vjp: inconsistent shapes")
+        optab, block, code_mask = self._layout(operators, X, L, CMAX, F)
+        gcomp = torch.empty((T, CMAX), dtype=torch.float32, device=X.device)
+        gx = (torch.empty((T, F, n), dtype=torch.float32, device=X.device)
+              if per_member else None)
+        self._launch(
+            _ptr(instr), _ptr(nsteps), _ptr(nconst), _ptr(cvals), _ptr(X), _ptr(ct),
+            _ptr(optab), T, L, CMAX, F, n, block, int(per_member), code_mask, 30,
+            _ptr(gcomp), _ptr(gx), _stream(X))
+        return gcomp, gx
+
+
 PROGRAM_EVAL = ProgramEvalKernel()
 PROGRAM_MULTI = ProgramMultiKernel()
 PROGRAM_GRAD = ProgramGradKernel()
+PROGRAM_PREDICT = ProgramPredictKernel()
+PROGRAM_PREDICT_VJP = ProgramPredictVjpKernel()
 
 
 # ---------------------------------------------------------------------------
@@ -811,3 +970,91 @@ def fused_loss_and_const_grad(trees: TreeBatch, child, X, y, weights,
         return (loss.reshape(batch_shape), valid.reshape(batch_shape),
                 grad.reshape(*batch_shape, L))
     return loss[0], valid[0], grad[0]
+
+
+# ---------------------------------------------------------------------------
+# Predict entry points (template expressions; same names and semantics as
+# the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def _predict_inputs(prog: TreeProgram, X, nfeatures: int, operators: OperatorSet):
+    T, L = prog.code.shape
+    BASE = nfeatures + prog.cmax
+    _check_packable(operators, BASE, L)
+    return (_pack_instr(prog, operators, BASE + L).contiguous(),
+            prog.nsteps.to(torch.int32).contiguous(), prog.cvals.to(X.dtype).contiguous(),
+            X.contiguous())
+
+
+def fused_predict_program(prog: TreeProgram, X, nfeatures: int, operators: OperatorSet, *,
+                          plain: bool = False):
+    """Per-tree row predictions (pred [T, n], valid [T]) of compiled
+    programs from one launch of kernel #4. ``X`` is shared dataset columns
+    [F, n] or per-member argument rows [T, F, n]; ``plain`` runs the
+    kernel's plain version (the turbo-off path)."""
+    instr, nsteps, cvals, Xc = _predict_inputs(prog, X, nfeatures, operators)
+    ok = prog.const_ok.to(torch.int32).contiguous()
+    run = program_predict_plain if plain else PROGRAM_PREDICT
+    return run(instr, nsteps, cvals, ok, Xc, operators)
+
+
+def fused_predict_vjp_program(prog: TreeProgram, X, ct, nfeatures: int,
+                              operators: OperatorSet, *, plain: bool = False):
+    """d(sum(ct * pred))/d(cvals) [T, CMAX], non-finite entries zeroed,
+    and in per-member mode the raw d/dX [T, F, n] (None for shared X), from
+    one launch of kernel #5."""
+    instr, nsteps, cvals, Xc = _predict_inputs(prog, X, nfeatures, operators)
+    nconst = prog.nconst.to(torch.int32).contiguous()
+    run = program_predict_vjp_plain if plain else PROGRAM_PREDICT_VJP
+    gcomp, gx = run(instr, nsteps, nconst, cvals, Xc, ct.to(X.dtype).contiguous(), operators)
+    return torch.where(torch.isfinite(gcomp), gcomp, 0.0), gx
+
+
+def fused_predict(trees: TreeBatch, X, operators: OperatorSet):
+    """Per-tree predictions over all rows of shared ``X`` [F, n]: (pred
+    [..., n], valid [...]) with the TreeBatch's batch dims. Validity is the
+    interpreter's: a non-finite step output on any row, or a non-finite
+    constant, invalidates the tree."""
+    batch_shape = trees.batch_shape
+    flat = trees.reshape(-1)
+    F, n = X.shape
+    prog = compile_program(flat, F, len(operators.binary))
+    pred, valid = fused_predict_program(prog, X, F, operators)
+    return pred.reshape(*batch_shape, n), valid.reshape(batch_shape)
+
+
+class _PredictAD(torch.autograd.Function):
+    """Kernel #4 forward, kernel #5 backward. The program compiled by the
+    forward is kept on ``ctx`` for the backward."""
+
+    @staticmethod
+    def forward(ctx, const, X, trees: TreeBatch, operators: OperatorSet, plain: bool):
+        F = X.shape[-2]
+        prog = compile_program(TreeBatch(trees.arity, trees.op, trees.feat, const, trees.length),
+                               F, len(operators.binary))
+        pred, valid = fused_predict_program(prog, X, F, operators, plain=plain)
+        ctx.prog, ctx.operators, ctx.plain, ctx.L = prog, operators, plain, trees.max_nodes
+        ctx.save_for_backward(X)
+        ctx.mark_non_differentiable(valid)
+        return pred, valid
+
+    @staticmethod
+    def backward(ctx, ct_pred, _ct_valid):
+        (X,) = ctx.saved_tensors
+        gcomp, gx = fused_predict_vjp_program(ctx.prog, X, ct_pred, X.shape[-2], ctx.operators,
+                                              plain=ctx.plain)
+        gconst = scatter_const_grads(ctx.prog, gcomp, ctx.L) if ctx.needs_input_grad[0] else None
+        gX = None
+        if ctx.needs_input_grad[1]:
+            gX = gx if gx is not None else torch.zeros_like(X)
+        return gconst, gX, None, None, None
+
+
+def fused_predict_ad(trees: TreeBatch, X, operators: OperatorSet, *, plain: bool = False):
+    """`fused_predict` differentiable by ``torch.autograd``: (pred [T, n],
+    valid [T]) for flat [T, L] trees. Gradients flow into ``trees.const``
+    (kernel #5, scattered to slot order); per-member ``X`` [T, F, n]
+    receives its row cotangents, shared ``X`` [F, n] zeros; ``valid`` takes
+    no gradient. ``plain`` runs the kernels' plain versions."""
+    return _PredictAD.apply(trees.const, X, trees, operators, plain)

@@ -206,3 +206,155 @@ def test_engine_iteration_launches_optimizer_kernels(cuda_device):
     assert [a - b for a, b in zip(after, before)] == [opts.ncycles_per_iteration + 1, iters,
                                                       iters + 1]
     assert bool(torch.isfinite(state.hof.loss[state.hof.exists]).all())
+
+
+def _predict_args(device, n: int, F: int, per_member: bool, T: int = 256,
+                  overflow: bool = False):
+    """Random programs over F arguments, their X (shared [F, n] or
+    per-member [T, F, n]) and random row cotangents. ``overflow`` sets
+    every 97th row to +-1e20 (x * x overflows, inf - inf gives NaN): in
+    every tree's X when shared, in every seventh tree's when per-member."""
+    opts = _options(("+", "-", "*"), unary_operators=["cos"])
+    cfg = evolve_config_from_options(opts, F, device)
+    trees = init_population(rng.split(rng.key(7, device=device), T // 64), 64, cfg.mctx,
+                            nlength=5).reshape(-1)
+    prog = compile_program(trees, F, len(opts.operators.binary))
+    g = np.random.default_rng(3)
+    X = g.uniform(-3, 3, (T, F, n) if per_member else (F, n)).astype(np.float32)
+    if overflow:
+        big = X[::7, :, ::97] if per_member else X[:, ::97]
+        big[...] = np.where(big < 0, -1e20, 1e20)
+    X = torch.from_numpy(X).to(device)
+    ct = torch.from_numpy(g.normal(size=(T, n)).astype(np.float32)).to(device)
+    return opts.operators, prog, X, ct
+
+
+def _nonfinite_match(a, b):
+    """NaN in the same places, +-inf in the same places with the same sign."""
+    ia, ib = torch.isinf(a), torch.isinf(b)
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    assert torch.equal(ia, ib) and torch.equal(a[ia], b[ib])
+
+
+def _pred_close(a, b):
+    """Non-finite in the same places; finite values within 1e-5 of the
+    tree's largest |pred| (rtol 1e-5 where no cancellation happens)."""
+    _nonfinite_match(a, b)
+    fb = torch.isfinite(b)
+    scale = torch.where(fb, b.abs(), 0.0).amax(dim=-1, keepdim=True).expand_as(b)
+    assert bool(((a - b).abs()[fb] <= 1e-5 * scale[fb]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_member,F,overflow", [(False, 1, False), (False, 1, True),
+                                                    (True, 2, True)])
+def test_predict_kernels_match_plain_versions(cuda_device, per_member, F, overflow):
+    """Every fifth tree's const_ok cleared. Kernel #4: validity bit-equal
+    (some trees valid, some not), predictions close (``_pred_close``).
+    Kernel #5 with random cotangents: gcomp NaN and +-inf in the same
+    places and otherwise within 1e-4 of the absolute row sums, gx
+    (per-member) non-finite in the same places and within 1e-5 of its
+    largest |gx| per tree. Two launches of each bit-identical."""
+    ops, prog, X, ct = _predict_args(cuda_device, 1000, F, per_member, overflow=overflow)
+    instr, nsteps, cvals, Xc = SF._predict_inputs(prog, X, F, ops)
+    ok = prog.const_ok.clone()
+    ok[::5] = False
+    ok = ok.to(torch.int32).contiguous()
+    nconst = prog.nconst.to(torch.int32).contiguous()
+    k4, k5 = SF.ProgramPredictKernel(), SF.ProgramPredictVjpKernel()
+    pk, vk = k4(instr, nsteps, cvals, ok, Xc, ops)
+    pk2, vk2 = k4(instr, nsteps, cvals, ok, Xc, ops)
+    pp, vp = SF.program_predict_plain(instr, nsteps, cvals, ok, Xc, ops)
+    assert torch.equal(pk.view(torch.int32), pk2.view(torch.int32)) and torch.equal(vk, vk2)
+    assert torch.equal(vk, vp) and 0 < int(vk.sum()) < vk.numel()
+    assert overflow == bool((~torch.isfinite(pk)).any())
+    _pred_close(pk, pp)
+    gk, xk = k5(instr, nsteps, nconst, cvals, Xc, ct, ops)
+    gk2, xk2 = k5(instr, nsteps, nconst, cvals, Xc, ct, ops)
+    assert k4.launches == 2 and k5.launches == 2
+    gp, xp, gabs = SF.program_predict_vjp_plain(instr, nsteps, nconst, cvals, Xc, ct, ops,
+                                                return_abs=True)
+    assert torch.equal(gk.view(torch.int32), gk2.view(torch.int32))
+    _nonfinite_match(gk, gp)
+    both = torch.isfinite(gabs) & torch.isfinite(gk)
+    assert bool(((gk - gp).abs()[both] <= 1e-4 * gabs[both]).all())
+    assert (xk is None) == (not per_member)
+    if per_member:
+        assert torch.equal(xk.view(torch.int32), xk2.view(torch.int32))
+        _pred_close(xk.reshape(xk.shape[0], -1), xp.reshape(xp.shape[0], -1))
+
+
+@pytest.mark.cuda
+def test_predict_vjp_kernel_accumulates_repeated_arguments(cuda_device):
+    """d(x1 * x1) = 2 x1 ct, d(x1 + x1) = 2 ct, d(x1 - x1) = 0 on the card."""
+    ops = S.OperatorSet(["+", "-", "*"], ["cos"])
+    exprs = ["x1 * x1", "x1 + x1", "x1 - x1"]
+    from symbolicregression_jl_tpu_torch.ops.encoding import encode_population
+
+    trees = encode_population([S.parse_expression(e, ops, ["x1"]) for e in exprs], 4, ops,
+                              device=cuda_device)
+    prog = compile_program(trees, 1, 3)
+    g = np.random.default_rng(4)
+    X = torch.from_numpy(g.normal(size=(3, 1, 300)).astype(np.float32)).to(cuda_device)
+    ct = torch.from_numpy(g.normal(size=(3, 300)).astype(np.float32)).to(cuda_device)
+    _, gx = SF.fused_predict_vjp_program(prog, X, ct, 1, ops)
+    assert torch.equal(gx[0, 0], 2 * X[0, 0] * ct[0])
+    assert torch.equal(gx[1, 0], 2 * ct[1])
+    assert not bool(gx[2].any())
+
+
+def _template_engine(device, **kw):
+    from symbolicregression_jl_tpu_torch.models import template_spec
+
+    spec = template_spec(expressions=("f", "g"))(lambda f, g, x1, x2: f(x1) * f(x1) + g(x2))
+    opts = _options(("+", "-", "*"), unary_operators=["cos"], expression_spec=spec, turbo=True,
+                    **kw)
+    g = np.random.default_rng(5)
+    X = g.uniform(-2, 2, (300, 2)).astype(np.float32)
+    y = ((1.5 * X[:, 0]) ** 2 + np.cos(2 * X[:, 1])).astype(np.float32)
+    ds = S.make_dataset(X, y, device=device)
+    ds.update_baseline_loss(opts.elementwise_loss)
+    return opts, ds, Engine(opts, 2, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimize", [False, True])
+def test_template_iteration_launches_predict_kernels(cuda_device, optimize):
+    """A template iteration scores candidates and the finalize through
+    kernel #4 (three call sites per evaluation), and its constant
+    optimizer differentiates through kernel #5 (three per gradient pass,
+    nine passes); kernels #1-#3 do not run."""
+    opts, ds, engine = _template_engine(cuda_device, should_optimize_constants=optimize)
+    assert engine.cfg.turbo and engine.template is not None
+    state = engine.init_state(rng.key(0, device=cuda_device), ds.data, opts.populations)
+    kernels = (SF.PROGRAM_EVAL, SF.PROGRAM_MULTI, SF.PROGRAM_GRAD, SF.PROGRAM_PREDICT,
+               SF.PROGRAM_PREDICT_VJP)
+    before = [k.launches for k in kernels]
+    state = engine.run_iteration(state, ds.data, opts.maxsize)
+    torch.cuda.synchronize()
+    d = [k.launches - b for k, b in zip(kernels, before)]
+    passes = opts.optimizer_iterations + 1
+    assert d[:3] == [0, 0, 0]
+    assert d[4] == (3 * passes if optimize else 0)
+    extra = 3 * (passes + opts.optimizer_iterations) if optimize else 0
+    assert d[3] == 3 * (opts.ncycles_per_iteration + 1) + extra
+    assert bool(torch.isfinite(state.hof.loss[state.hof.exists]).all())
+
+
+@pytest.mark.cuda
+def test_template_composition_search_on_card(cuda_device):
+    """g(f(x1), x2) runs kernels #4 and #5 in per-member mode; one seed
+    gives one hall of fame."""
+    from symbolicregression_jl_tpu_torch.models import template_spec
+
+    spec = template_spec(expressions=("f", "g"))(lambda f, g, x1, x2: g(f(x1), x2))
+    opts = _options(("+", "-", "*"), unary_operators=["cos"], expression_spec=spec,
+                    should_optimize_constants=True)
+    g = np.random.default_rng(6)
+    X = g.uniform(-2, 2, (200, 2)).astype(np.float32)
+    y = (np.cos(1.5 * X[:, 0]) * X[:, 1]).astype(np.float32)
+    runs = [S.equation_search(X, y, options=opts, niterations=2, seed=0, device=cuda_device)
+            for _ in range(2)]
+    assert np.isfinite(min(e.loss for e in runs[0].entries))
+    assert [e.equation_string() for e in runs[0].entries] == [e.equation_string()
+                                                            for e in runs[1].entries]

@@ -154,7 +154,7 @@ def test_dedup_keeps_nonfinite_constants_invalid():
     names = ["x1", "x2", "x3"]
     exprs = ["2.0 * x1 + 1.0", "2.0 * x1 + 1.0", "3.0 * x1 + 1.0", "x2"]
     batch = SE.encode_population([S.parse_expression(e, sops, names) for e in exprs],
-                                 MAXSIZE, sops)
+                                 MAXSIZE, sops, device="cpu")
     const = batch.const.clone()
     const[0] = torch.where(batch.arity[0] == 0, torch.nan, const[0])
     batch = dataclasses.replace(batch, const=const)

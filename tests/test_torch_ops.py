@@ -113,7 +113,7 @@ def test_parse_print_encode_equal(opsets):
     for a, b in zip(jt, st):
         assert JT.string_tree(a, names) == ST.string_tree(b, names)
     jb = JE.encode_population(jt, MAXSIZE, jops)
-    sb = SE.encode_population(st, MAXSIZE, sops)
+    sb = SE.encode_population(st, MAXSIZE, sops, device="cpu")
     for f in ("arity", "op", "feat", "length"):
         assert np.array_equal(to_np(getattr(jb, f)), to_np(getattr(sb, f))), f
     assert np.array_equal(to_np(jb.const).view(np.int32), to_np(sb.const).view(np.int32))

@@ -19,6 +19,8 @@ import torch
 
 import symbolicregression_jl_tpu_torch as S
 from symbolicregression_jl_tpu_torch.evolve.engine import Engine
+from symbolicregression_jl_tpu_torch.models import D, ParametricExpressionSpec, template_spec
+from symbolicregression_jl_tpu_torch.ops.encoding import encode_population
 from symbolicregression_jl_tpu_torch.ops.fused_eval import PROGRAM_EVAL
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -93,6 +95,11 @@ def test_kernel_wrapper_not_launched_on_cpu():
     dict(use_recorder=True),
     dict(dimensional_constraint_penalty=1000.0),
     dict(loss_function=lambda pred, y, w: 0.0),
+    dict(expression_spec=ParametricExpressionSpec(max_parameters=1)),
+    dict(expression_spec=template_spec(expressions=("f",), parameters={"p": 1})(
+        lambda f, x1, x2, p: f(x1) * p[0] + x2)),
+    dict(expression_spec=template_spec(expressions=("f",))(lambda f, x1, x2: D(f, 1)(x1) + x2),
+         should_optimize_constants=True),
 ])
 def test_options_outside_the_slice_refuse(kw):
     base = dict(binary_operators=["+", "*"], save_to_file=False)
@@ -159,6 +166,9 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
         Engine(_options(), 2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         S.equation_search(X, y, options=_options(), niterations=1)
+    ops = _options().operators
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        encode_population([S.parse_expression("x1 * 2.0", ops)], 4, ops)
 
 
 def _imports(path: pathlib.Path):
@@ -179,17 +189,22 @@ def test_port_sources_import_no_jax():
             assert top not in ("jax", "jaxlib", "symbolicregression_jl_tpu"), (path, mod)
 
 
-def test_port_search_runs_without_jax_loaded():
-    """A fresh interpreter runs a tiny port search and never loads JAX or
-    the JAX package."""
+@pytest.mark.parametrize("spec", [
+    "None",
+    "template_spec(expressions=('f', 'g'))(lambda f, g, x1, x2: g(f(x1), x2))",
+])
+def test_port_search_runs_without_jax_loaded(spec):
+    """A fresh interpreter runs a tiny port search, plain or template, and
+    never loads JAX or the JAX package."""
     code = (
         "import sys, json, numpy as np\n"
         "import symbolicregression_jl_tpu_torch as S\n"
+        "from symbolicregression_jl_tpu_torch.models import template_spec\n"
         "X = np.random.default_rng(0).normal(size=(32, 2)).astype(np.float32)\n"
         "y = X[:, 0] * 2.0\n"
         "o = S.Options(binary_operators=['+', '*'], populations=2, population_size=16,\n"
         "              ncycles_per_iteration=2, tournament_selection_n=4, maxsize=8,\n"
-        "              save_to_file=False)\n"
+        f"              expression_spec={spec}, save_to_file=False)\n"
         "S.equation_search(X, y, options=o, niterations=1, seed=0, device='cpu')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "      ('jax', 'jaxlib', 'symbolicregression_jl_tpu'))))\n"
