@@ -6,9 +6,10 @@
 Phases (any failure exits nonzero and prints no result line):
 
 1. Require CUDA (no CPU fallback); print the card's name and power limit.
-2. Build the five kernels (csrc/program_eval.cu, program_multi.cu,
-   program_grad.cu, program_predict.cu, program_predict_vjp.cu) from the
-   checkout, one nvcc per source, all started together.
+2. Build the kernels' five sources (csrc/program_eval.cu, which holds
+   #1 and its parametric form #1p, program_multi.cu, program_grad.cu,
+   program_predict.cu, program_predict_vjp.cu) from the checkout, one
+   nvcc per source, all started together.
 3. Hold kernel #1 against its plain PyTorch version at the benchmark
    shapes: 16,384 random trees (maxsize 30, + - * / exp abs cos), 5
    features, 10,000 rows. Validity bit-equal; loss and cost within rtol
@@ -33,8 +34,9 @@ Phases (any failure exits nonzero and prints no result line):
    iteration: ncycles + 1 of #1, 8 of #2, 9 of #3), peak memory.
 6. The same without the constant optimizer (the first slice's path) at a
    cut depth: launches of #1 only.
-7. `equation_search(X, y, niterations=3, device="cuda")` with the default
-   Options on the same data.
+7. `equation_search(X, y, niterations=2, device="cuda")` with the default
+   Options on the same data; two iterations keep the whole script well
+   within its time limit.
 8. Hold kernels #4 and #5 against their plain versions at the template
    cycle's shapes: 16,384 random trees (maxsize 30, + - * cos), 10,000
    rows, random cotangents for #5, every fifth tree's const_ok cleared;
@@ -69,6 +71,30 @@ Phases (any failure exits nonzero and prints no result line):
 11. A composition structure g(f(x1), x2) through
    `equation_search(..., device="cuda")`: kernels #4 and #5 in per-member
    mode. Prints the best loss and its string.
+12. Hold kernel #1's parametric form (#1p, ``bank[t, p, class[r]]`` per
+   parameter leaf) against its plain version: 16,384 random parametric
+   trees (F = 2, NP = 2, NC = 3), 10,000 rows, every fifth tree's
+   const_ok cleared, every 97th row's X at +-1e20, every 11th tree's bank
+   +inf for class 2 only. Validity bit-equal; loss sums NaN and +-inf in
+   the same places and within rtol 1e-5 on valid trees; two launches
+   bit-identical. Times it (CUDA events), the plain version, and #1 on
+   the same trees with their parameter leaves read as constants.
+13. Parametric main path: `Engine` at the JAX package's chip-sized
+   parametric cell (bench/cell.py FULL, variant "parametric": 512 islands
+   x 256 members, tournament 16, maxsize 30, + - * cos, 10,000 rows x 2
+   features from seed 1234, class = integers(0, 3), y = amp[class] cos(x1)
+   + x2, max_parameters 1, optimizer_probability 0, 100 cycles): launches
+   of #1p must be ncycles + 1 per iteration, none of the other kernels;
+   prints the best member with its (1, 3) bank.
+14. The parametric constant optimizer (eager BFGS over constants and
+   banks, torch.autograd through the interpreter): the same problem at 64
+   islands x 256, the default optimizer_probability 0.14, cut to
+   TEMPLATE_OPT_CYCLES = 10 cycles; prints the f_calls share and the peak
+   memory.
+15. `equation_search(..., device="cuda")` on tests/test_parametric.py's
+   per-class-offset problem (extra={"class": ...}) and on
+   tests/test_template.py's template with parameters f(x1) + p[0] x2 +
+   p[1]; fails past those tests' thresholds.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -396,7 +422,7 @@ def phase_opt_kernels(torch, sr, dev):
 
 
 KERNEL_NAMES = ("PROGRAM_EVAL", "PROGRAM_MULTI", "PROGRAM_GRAD", "PROGRAM_PREDICT",
-                "PROGRAM_PREDICT_VJP")
+                "PROGRAM_PREDICT_VJP", "PROGRAM_EVAL_PARAM")
 
 
 def kernels():
@@ -405,24 +431,29 @@ def kernels():
     return [getattr(FE, k) for k in KERNEL_NAMES]
 
 
-def run_engine(torch, sr, dev, options, iters: int = 2, data=None, on_engine=None):
+def run_engine(torch, sr, dev, options, iters: int = 2, data=None, on_engine=None, extra=None):
     """init_state, one warm-up iteration, then ``iters`` timed iterations
     with every kernel's launch count set to 0 just before them. ``data``
-    is (X, y), the bench problem by default; ``on_engine`` sees the engine
-    before the timed iterations. Returns (launches by kernel name, state,
-    engine, evaluations in the timed iterations)."""
+    is (X, y), the bench problem by default; ``extra`` its class column
+    for parametric options; ``on_engine`` sees the engine before the
+    timed iterations. Returns (launches by kernel name, state, engine,
+    evaluations in the timed iterations)."""
     from symbolicregression_jl_tpu_torch.evolve import rng
     from symbolicregression_jl_tpu_torch.evolve.engine import Engine
 
     X, y = bench_data() if data is None else data
-    ds = sr.make_dataset(X, y, device=dev)
+    ds = sr.make_dataset(X, y, extra=extra, device=dev)
     ds.update_baseline_loss(options.elementwise_loss)
-    engine = Engine(options, X.shape[1], device=dev)
+    n_params = n_classes = 0
+    if isinstance(options.expression_spec, sr.ParametricExpressionSpec):
+        n_params, n_classes = options.expression_spec.max_parameters, ds.n_classes
+    engine = Engine(options, X.shape[1], device=dev, n_params=n_params, n_classes=n_classes)
     print(f"  islands {options.populations} x members {options.population_size}, "
           f"rows {X.shape[0]} x features {X.shape[1]}, ncycles_per_iteration "
           f"{options.ncycles_per_iteration}, constant optimizer "
           f"{options.should_optimize_constants} (probability {options.optimizer_probability}), "
-          f"template {engine.template is not None}, turbo {engine.cfg.turbo}, fused cost "
+          f"template {engine.template is not None}, parameter banks "
+          f"{engine.cfg.n_params} x {engine.cfg.n_classes}, turbo {engine.cfg.turbo}, fused cost "
           f"{engine.cfg.fuse_cost}")
     t0 = time.perf_counter()
     state = engine.init_state(rng.key(0, device=dev), ds.data, options.populations)
@@ -463,7 +494,7 @@ def phase_main_path(torch, sr, dev, ncycles: int):
     expected = {"program_eval": iters * (ncycles + 1),              # each cycle + finalize
                 "program_multi": iters * options.optimizer_iterations,     # line searches
                 "program_grad": iters * (options.optimizer_iterations + 1),  # + the first
-                "program_predict": 0, "program_predict_vjp": 0}
+                "program_predict": 0, "program_predict_vjp": 0, "program_eval_param": 0}
     print(f"  expected {expected}")
     if launches != expected or 0 in (launches[k] for k in ("program_eval", "program_multi",
                                                             "program_grad")):
@@ -476,7 +507,7 @@ def phase_no_optimizer(torch, sr, dev, ncycles: int):
     options = bench_options(sr, ncycles, optimize=False)
     launches, _, _, _ = run_engine(torch, sr, dev, options, iters=2)
     expected = {"program_eval": 2 * (ncycles + 1), "program_multi": 0, "program_grad": 0,
-                "program_predict": 0, "program_predict_vjp": 0}
+                "program_predict": 0, "program_predict_vjp": 0, "program_eval_param": 0}
     if launches != expected:
         raise RuntimeError(f"no-optimizer path launched {launches}, expected {expected}")
 
@@ -485,7 +516,7 @@ def phase_search(sr, dev):
     """Phase 7: equation_search with the default Options on the bench data."""
     X, y = bench_data()
     t0 = time.perf_counter()
-    hof = sr.equation_search(X, y, niterations=3, seed=0, device=dev)
+    hof = sr.equation_search(X, y, niterations=2, seed=0, device=dev)
     best = min(hof.entries, key=lambda e: e.loss)
     print(f"  default Options: {time.perf_counter() - t0:.2f} s, best loss {best.loss:.6g} at "
           f"complexity {best.complexity}: {best.equation_string()}")
@@ -679,7 +710,8 @@ def phase_template_main_path(torch, sr, dev):
     launches, state, engine, _ = run_engine(torch, sr, dev, options, iters,
                                             data=template_data())
     expected = {"program_eval": 0, "program_multi": 0, "program_grad": 0,
-                "program_predict": iters * 3 * (ncycles + 1), "program_predict_vjp": 0}
+                "program_predict": iters * 3 * (ncycles + 1), "program_predict_vjp": 0,
+                "program_eval_param": 0}
     print(f"  expected {expected}")
     if launches != expected:
         raise RuntimeError(f"template path launched {launches}, expected {expected}")
@@ -721,7 +753,8 @@ def phase_template_optimizer(torch, sr, dev):
     expected4 = iters * 3 * (ncycles + 1 + passes + options.optimizer_iterations)
     print(f"  expected program_predict_vjp {expected5}, program_predict {expected4}")
     if (launches["program_predict_vjp"] != expected5 or launches["program_predict"] != expected4
-            or launches["program_eval"] or launches["program_multi"] or launches["program_grad"]):
+            or launches["program_eval"] or launches["program_multi"] or launches["program_grad"]
+            or launches["program_eval_param"]):
         raise RuntimeError(f"template optimizer launched {launches}")
     print(f"  launches in the optimizer: #5 {launches['program_predict_vjp']}, #4 "
           f"{launches['program_predict'] - iters * 3 * (ncycles + 1)}")
@@ -747,6 +780,214 @@ def phase_template_search(torch, sr, dev):
           f"{best.loss:.6g} at complexity {best.complexity}: {best.equation_string()}")
     if not np.isfinite(best.loss) or FE.PROGRAM_PREDICT_VJP.launches == before:
         raise RuntimeError("the composition search returned no finite loss or ran no #5")
+
+
+# ---------------------------------------------------------------------------
+# Parametric expressions (kernel #1's parametric form) and template
+# parameters
+# ---------------------------------------------------------------------------
+
+
+def parametric_data():
+    """The JAX package's parametric cell data (bench/cell.py, variant
+    "parametric"): 10,000 rows x 2 features from seed 1234 uniform on
+    [-2, 2], class = integers(0, 3), y = amp[class] cos(x1) + x2 with
+    amp = [1, 2, 3]."""
+    rng = np.random.default_rng(1234)
+    X = rng.uniform(-2.0, 2.0, (N_ROWS, 2)).astype(np.float32)
+    cls = rng.integers(0, 3, N_ROWS)
+    y = (np.array([1.0, 2.0, 3.0], np.float32)[cls] * np.cos(X[:, 0]) + X[:, 1]).astype(
+        np.float32)
+    return X, y, cls
+
+
+def parametric_options(sr, ncycles: int, populations: int = 0, **kw):
+    """bench/cell.py FULL with variant "parametric": max_parameters 1,
+    optimizer_probability 0 unless given; ``populations`` 0 means ISLANDS."""
+    base = dict(binary_operators=["+", "-", "*"], unary_operators=["cos"], maxsize=30,
+                populations=populations or ISLANDS, population_size=256,
+                tournament_selection_n=16, ncycles_per_iteration=ncycles,
+                optimizer_probability=0.0,
+                expression_spec=sr.ParametricExpressionSpec(max_parameters=1),
+                save_to_file=False)
+    base.update(kw)
+    return sr.Options(**base)
+
+
+def phase_param_kernel(torch, sr, dev):
+    """Phase 12: kernel #1's parametric form against its plain version."""
+    from symbolicregression_jl_tpu_torch.evolve import rng
+    from symbolicregression_jl_tpu_torch.evolve.population import init_population
+    from symbolicregression_jl_tpu_torch.evolve.step import evolve_config_from_options
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+    from symbolicregression_jl_tpu_torch.ops.program import compile_program
+
+    F, NP, NC, n = 2, 2, 3, N_ROWS
+    options = parametric_options(sr, 1)
+    cfg = evolve_config_from_options(options, F, dev, n_params=NP, n_classes=NC)
+    T = ISLANDS * 2 * 16      # the cycle's candidates: islands x 2 x ceil(256 / 16)
+    trees = init_population(rng.split(rng.key(7, device=dev), 64), T // 64, cfg.mctx,
+                            nlength=5).reshape(-1)
+    ops, el = options.operators, options.elementwise_loss
+    g = torch.Generator(device=dev).manual_seed(12)
+    X = torch.rand((F, n), generator=g, device=dev) * 4 - 2
+    big = X[:, ::97]
+    big.copy_(torch.where(big < 0, -OVERFLOW, OVERFLOW))
+    y = torch.randn(n, generator=g, device=dev)
+    cls = torch.randint(0, NC, (n,), generator=g, device=dev, dtype=torch.int32)
+    bank = torch.randn((T, NP, NC), generator=g, device=dev)
+    bank[::11, :, 2] = torch.inf
+    prog = compile_program(trees, F, len(ops.binary), n_params=NP)
+    instr, nsteps, cvals, ok, Xc, yc, w = FE._launch_inputs(prog, X, y, None, F, ops, NP)
+    ok = ok.clone()
+    ok[::5] = 0
+    args = (instr, nsteps, cvals, ok, bank, cls, Xc, yc, w)
+
+    kernel = FE.PROGRAM_EVAL_PARAM
+    lk, vk = kernel(*args, ops, el)
+    lk2, vk2 = kernel(*args, ops, el)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp, vp = FE.program_eval_plain(instr, nsteps, cvals, ok, Xc, yc, w, ops, el, bank=bank,
+                                   class_idx=cls)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+
+    check = Checks()
+    check("two launches bit-identical", same(torch, lk, lk2) and same(torch, vk, vk2))
+    check("validity bit-equal", same(torch, vk, vp))
+    check("loss sums NaN and +-inf in the same places", nonfinite_match(torch, lk, lp))
+    same_inf, within, rel, abs_err = close(torch, torch.where(vp, lk, torch.inf),
+                                           torch.where(vp, lp, torch.inf))
+    check(f"loss sum within rtol {RTOL} on valid trees (max rel err {rel:.3g})", within)
+    ms = cuda_ms(torch, lambda: kernel(*args, ops, el), reps=10)
+
+    # #1 (NP = 0) on the same trees: their parameter leaves alias constants.
+    prog0 = compile_program(trees, F, len(ops.binary))
+    args0 = FE._launch_inputs(prog0, X, y, None, F, ops)
+    FE.PROGRAM_EVAL(*args0, ops, el)
+    ms0 = cuda_ms(torch, lambda: FE.PROGRAM_EVAL(*args0, ops, el), reps=10)
+
+    L, CMAX = instr.shape[1], cvals.shape[1]
+    steps = float(nsteps.to(torch.float64).sum())
+    ops_count = steps * n + 4.0 * n * T       # one op per step and row; loss d*d*w + sum
+    bytes_moved = 4.0 * (T * L + 3 * T + T * CMAX + T * NP * NC + n + F * n + 2 * n + T)
+    bound_ms, bound_by = bound(ops_count, bytes_moved)
+    pleaf = ((trees.arity == 0) & (trees.op == 2)
+             & (torch.arange(trees.max_nodes, device=dev) < trees.length[:, None])).any(-1)
+    print(f"  {T} parametric trees (F = {F}, NP = {NP}, NC = {NC}), {n} rows, L = {L}, "
+          f"mean steps {steps / T:.3f}, {int(pleaf.sum())} with parameter leaves; "
+          f"{int(vk.sum())} of {T} valid ({int((ok == 0).sum())} with const_ok cleared, "
+          f"{int((~torch.isfinite(bank).all(-1).all(-1)).sum())} with a non-finite bank entry)")
+    print(f"  #1p program_eval_param: {ms:.4f} ms (CUDA events, mean of 10), plain "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}: {ops_count:.4g} FP32 ops, "
+          f"{bytes_moved:.4g} bytes); #1 (NP = 0, parameter leaves as constants) on the same "
+          f"trees {ms0:.4f} ms")
+    check.raise_if_failed("kernel #1p")
+    return {"name": kernel.name, "route": "cuda", "source": kernel.source,
+            "replaces": kernel.replaces, "launches": None, "max_abs_err": abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def phase_parametric_main_path(torch, sr, dev):
+    """Phase 13: the parametric cell at full width; kernel #1p only."""
+    ncycles = TEMPLATE_CYCLES
+    options = parametric_options(sr, ncycles)
+    X, y, cls = parametric_data()
+    iters = 2
+    launches, state, engine, _ = run_engine(torch, sr, dev, options, iters, data=(X, y),
+                                            extra={"class": cls})
+    expected = {name: 0 for name in launches}
+    expected["program_eval_param"] = iters * (ncycles + 1)
+    print(f"  expected {expected}")
+    if launches != expected:
+        raise RuntimeError(f"parametric path launched {launches}, expected {expected}")
+    hof = sr.HallOfFame.from_device(state.hof, options.operators)
+    best = min(hof.entries, key=lambda e: e.loss)
+    print(f"  best: loss {best.loss:.6g} at complexity {best.complexity}: "
+          f"{best.equation_string()}, bank {np.array2string(best.params, precision=5)}")
+    if best.params is None or best.params.shape != (1, 3):
+        raise RuntimeError("the best member carries no (1, 3) parameter bank")
+    return launches
+
+
+def phase_parametric_optimizer(torch, sr, dev):
+    """Phase 14: the parametric constant optimizer (eager BFGS over the
+    constants and the banks) at 64 islands and 10 cycles."""
+    options = parametric_options(sr, TEMPLATE_OPT_CYCLES, populations=ISLANDS // 8,
+                                 optimizer_probability=0.14)
+    X, y, cls = parametric_data()
+    f_calls = []
+
+    def record(engine):
+        optimize = engine._optimize
+
+        def recorded(*a, **kw):
+            pops, calls = optimize(*a, **kw)
+            f_calls.append(float(calls))
+            return pops, calls
+
+        engine._optimize = recorded
+
+    iters = 1
+    t0 = time.perf_counter()
+    launches, _, _, evals = run_engine(torch, sr, dev, options, iters, data=(X, y),
+                                       extra={"class": cls}, on_engine=record)
+    if launches["program_eval_param"] != iters * (TEMPLATE_OPT_CYCLES + 1) or any(
+            v for k, v in launches.items() if k != "program_eval_param"):
+        raise RuntimeError(f"parametric optimizer path launched {launches}")
+    print(f"  optimizer f_calls {sum(f_calls):.0f} of {evals:.0f} evaluations in {iters} "
+          f"iteration(s): {sum(f_calls) / evals:.1%}; phase {time.perf_counter() - t0:.1f} s")
+
+
+def phase_plugin_searches(torch, sr, dev):
+    """Phase 15: a parametric search and a template search with
+    parameters through equation_search on the card."""
+    from symbolicregression_jl_tpu_torch.models import template_spec
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+    # tests/test_parametric.py:60-84: per-class offsets.
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-2, 2, (128, 2)).astype(np.float32)
+    cls = rng.integers(0, 3, 128)
+    y = (X[:, 0] * 1.5 + np.array([0.5, -1.0, 2.0])[cls]).astype(np.float32)
+    o = sr.Options(binary_operators=["+", "*"], unary_operators=[], maxsize=8, populations=2,
+                   population_size=12, ncycles_per_iteration=10, tournament_selection_n=4,
+                   expression_spec=sr.ParametricExpressionSpec(max_parameters=1),
+                   optimizer_probability=0.5, optimizer_iterations=4, save_to_file=False)
+    before = FE.PROGRAM_EVAL_PARAM.launches
+    t0 = time.perf_counter()
+    hof = sr.equation_search(X, y, options=o, niterations=12, seed=0, extra={"class": cls},
+                             device=dev)
+    best = min(hof.entries, key=lambda e: e.loss)
+    print(f"  parametric, y = 1.5 x1 + offset[class]: {time.perf_counter() - t0:.2f} s, best "
+          f"loss {best.loss:.6g}: {best.equation_string()}, bank "
+          f"{np.array2string(best.params, precision=5)}")
+    if not best.loss < 0.05 or best.params is None or best.params.shape != (1, 3) \
+            or FE.PROGRAM_EVAL_PARAM.launches == before:
+        raise RuntimeError("the parametric search missed the test's threshold (loss < 0.05, "
+                           "a (1, 3) bank) or ran no #1p")
+
+    # tests/test_template.py:249-276: f(x1) + p[0] x2 + p[1].
+    spec = template_spec(expressions=("f",), parameters={"p": 2})(
+        lambda f, x1, x2, p: f(x1) + p[0] * x2 + p[1])
+    rng = np.random.default_rng(1)
+    X = rng.uniform(-2, 2, (200, 2)).astype(np.float32)
+    y = (X[:, 0] ** 2 + 3.0 * X[:, 1] - 0.5).astype(np.float32)
+    o = sr.Options(binary_operators=["+", "-", "*"], unary_operators=[], maxsize=8,
+                   populations=4, population_size=20, ncycles_per_iteration=8,
+                   optimizer_probability=0.3, expression_spec=spec, save_to_file=False)
+    t0 = time.perf_counter()
+    hof = sr.equation_search(X, y, options=o, niterations=8, seed=0, device=dev)
+    best = min(hof.entries, key=lambda e: e.loss)
+    params = best.template_expr.params
+    print(f"  template with parameters, y = x1^2 + 3 x2 - 0.5: {time.perf_counter() - t0:.2f} "
+          f"s, best loss {best.loss:.6g}: {best.equation_string()}")
+    if not best.loss < 1e-6 or params is None or not np.allclose(sorted(params), [-0.5, 3.0],
+                                                                   atol=1e-2):
+        raise RuntimeError("the template search with parameters missed the test's thresholds "
+                           "(loss < 1e-6, p = [3, -0.5] within 1e-2)")
 
 
 def main() -> int:
@@ -778,11 +1019,12 @@ def main() -> int:
 
     print("[2] build")
     t0 = time.perf_counter()
-    cuda_build.build_all([k._file for k in kernels()])
+    files = list(dict.fromkeys(k._file for k in kernels()))
+    cuda_build.build_all(files)
     for k in kernels():
         k.library()
-    print(f"  {', '.join(k._file for k in kernels())}: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {', '.join(f'{cuda_build.build_seconds(k._file):.2f}' for k in kernels())} "
+    print(f"  {', '.join(files)}: {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {', '.join(f'{cuda_build.build_seconds(f):.2f}' for f in files)} "
           f"s, in parallel)")
 
     print("[3] kernel #1 against its plain version")
@@ -815,6 +1057,19 @@ def main() -> int:
 
     print("[11] template composition search")
     phase_template_search(torch, sr, dev)
+
+    print("[12] kernel #1p (parametric form of #1) against its plain version")
+    rows.append(phase_param_kernel(torch, sr, dev))
+
+    print("[13] parametric main path")
+    launches = phase_parametric_main_path(torch, sr, dev)
+    rows[5]["launches"] = launches["program_eval_param"]
+
+    print("[14] parametric constant optimizer")
+    phase_parametric_optimizer(torch, sr, dev)
+
+    print("[15] parametric search and template search with parameters")
+    phase_plugin_searches(torch, sr, dev)
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -1,11 +1,14 @@
 """PyTorch/CUDA port of ``symbolicregression_jl_tpu``.
 
-``equation_search`` runs here on one NVIDIA GPU for plain expressions and
-for template expressions (``Options(expression_spec=TemplateExpressionSpec(...))``,
+``equation_search`` runs here on one NVIDIA GPU for plain expressions,
+parametric expressions (``Options(expression_spec=ParametricExpressionSpec(...))``
+with ``extra={"class": ...}``) and template expressions, parameter
+vectors included (``Options(expression_spec=TemplateExpressionSpec(...))``,
 ``models/``): f32, an elementwise loss, the built-in operators, the
 constant optimizer. Candidate scoring and the per-iteration finalize
 re-score go through a hand-written CUDA interpreter kernel
-(``csrc/program_eval.cu``), the optimizer's line search and gradient
+(``csrc/program_eval.cu``, with a parametric form that reads each
+member's parameter bank by the row's class), the optimizer's line search and gradient
 through two more (``csrc/program_multi.cu``, ``csrc/program_grad.cu``),
 and template expressions' call sites through the predict kernel and its
 backward (``csrc/program_predict.cu``, ``csrc/program_predict_vjp.cu``);
@@ -21,12 +24,14 @@ from .api.search import equation_search
 from .core.dataset import Dataset, make_dataset
 from .core.options import MutationWeights, Options
 from .evolve.engine import Engine
+from .models.spec import ExpressionSpec, ParametricExpressionSpec, TemplateExpressionSpec
 from .ops.operators import Op, OperatorSet
 from .ops.tree import Node, parse_expression, string_tree
 
 __all__ = [
     "Dataset",
     "Engine",
+    "ExpressionSpec",
     "HallOfFame",
     "HallOfFameEntry",
     "MutationWeights",
@@ -34,6 +39,8 @@ __all__ = [
     "Op",
     "OperatorSet",
     "Options",
+    "ParametricExpressionSpec",
+    "TemplateExpressionSpec",
     "equation_search",
     "make_dataset",
     "parse_expression",

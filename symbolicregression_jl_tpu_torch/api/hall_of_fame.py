@@ -2,8 +2,10 @@
 
 Port of ``symbolicregression_jl_tpu/api/hall_of_fame.py``. The
 device-resident `HofState` (best member per complexity, evolve/step.py) is
-decoded into host `Node` trees here, or into a `HostTemplateExpression`
-of named subtrees for template members.
+decoded into host `Node` trees here (with their (n_params, n_classes)
+parameter matrix for parametric members), or into a
+`HostTemplateExpression` of named subtrees and parameter values for
+template members.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ __all__ = ["HallOfFameEntry", "HallOfFame", "calculate_pareto_frontier", "comput
 
 @dataclasses.dataclass
 class HallOfFameEntry:
-    """One best-at-complexity member. Template members decode to
+    """One best-at-complexity member. Parametric members carry their
+    (n_params, n_classes) ``params``; template members decode to
     ``template_expr`` (a HostTemplateExpression) and have no ``tree``."""
 
     tree: Optional[Node]
@@ -31,6 +34,7 @@ class HallOfFameEntry:
     cost: float
     complexity: int
     score: float = 0.0
+    params: Optional[np.ndarray] = None
     template_expr: Optional["object"] = None
 
     def equation_string(self, variable_names=None, precision: int = 5) -> str:
@@ -56,6 +60,8 @@ class HallOfFame:
         cost = host(hof_state.cost)
         loss = host(hof_state.loss)
         complexity = host(hof_state.complexity)
+        params = host(hof_state.params)
+        has_params = params.shape[-2] > 0
         fields = [host(f) for f in hof_state.trees.fields()]
 
         def decode(*index):
@@ -65,12 +71,14 @@ class HallOfFame:
             common = dict(loss=float(loss[i]), cost=float(cost[i]),
                           complexity=int(complexity[i]))
             if template is None:
-                return HallOfFameEntry(tree=decode(i), **common)
+                return HallOfFameEntry(tree=decode(i), params=params[i] if has_params else None,
+                                       **common)
             from ..models.template import HostTemplateExpression
 
             trees = {key: decode(i, k) for k, key in enumerate(template.expr_keys)}
             return HallOfFameEntry(tree=None, template_expr=HostTemplateExpression(
-                trees=trees, structure=template, operators=operators), **common)
+                trees=trees, structure=template, operators=operators,
+                params=params[i, :, 0] if has_params else None), **common)
 
         entries = [entry(i) for i in range(exists.shape[0]) if exists[i]]
         entries.sort(key=lambda e: e.complexity)

@@ -1,8 +1,11 @@
 """`equation_search`: the search loop on one device.
 
-Port of ``symbolicregression_jl_tpu/api/search.py`` for plain and
-template expressions (``Options(expression_spec=TemplateExpressionSpec(...))``):
-one output, no warm start, no checkpoints, no telemetry, one device. The
+Port of ``symbolicregression_jl_tpu/api/search.py`` for plain,
+parametric (``Options(expression_spec=ParametricExpressionSpec(...))``
+with ``extra={"class": ...}``) and template expressions
+(``Options(expression_spec=TemplateExpressionSpec(...))``, parameter
+vectors included): one output, no warm start, no checkpoints, no
+telemetry, one device. The
 loop runs `Engine.run_iteration` ``niterations`` times with the maxsize
 warm-up, decodes the hall of fame after each iteration, and stops early
 on ``timeout_in_seconds``, ``max_evals`` or ``early_stop_condition``
@@ -23,6 +26,7 @@ from ..core.options import Options, check_supported
 from ..device import resolve_device
 from ..evolve import rng
 from ..evolve.engine import Engine
+from ..models.spec import ParametricExpressionSpec
 from .hall_of_fame import HallOfFame, string_dominating_pareto_curve
 
 __all__ = ["equation_search", "get_cur_maxsize"]
@@ -46,7 +50,7 @@ _LATER = {
     "y_variable_names": "the search-API slice (multi-output)",
     "X_units": "the expression-plugin slice (units)",
     "y_units": "the expression-plugin slice (units)",
-    "extra": "the expression-plugin slice (template extras)",
+    "extra": "a later slice (extra columns other than `class`)",
     "guesses": "the search-API slice (warm starts)",
     "initial_population": "the search-API slice (warm starts)",
     "saved_state": "the search-API slice (checkpoint and resume)",
@@ -76,8 +80,9 @@ def equation_search(X, y, *, options: Optional[Options] = None, niterations: int
     fame. The other arguments are the JAX package's; those outside the
     plain-expression path, and such options, raise NotImplementedError
     naming the slice that brings them."""
+    other_extra = {k: v for k, v in (extra or {}).items() if k not in ("class", "classes")}
     given = dict(y_variable_names=y_variable_names, X_units=X_units, y_units=y_units,
-                 extra=extra, guesses=guesses, initial_population=initial_population,
+                 extra=other_extra or None, guesses=guesses, initial_population=initial_population,
                  saved_state=saved_state, resume=resume, runtime_options=runtime_options,
                  progress=progress, run_id=run_id, return_state=return_state or None,
                  dtype=None if dtype in (None, np.float32, torch.float32, "float32") else dtype)
@@ -100,11 +105,18 @@ def equation_search(X, y, *, options: Optional[Options] = None, niterations: int
             raise ValueError("deterministic=True requires a seed (pass seed= or Options(seed=...))")
         seed = int(np.random.randint(0, 2**31 - 1))
 
-    ds = make_dataset(X, y, weights=weights, variable_names=variable_names, device=dev)
+    ds = make_dataset(X, y, weights=weights, variable_names=variable_names, extra=extra,
+                      device=dev)
     if display_variable_names is not None:
         ds.display_variable_names = list(display_variable_names)
     ds.update_baseline_loss(options.elementwise_loss)
-    engine = Engine(options, ds.nfeatures, device=dev)
+    n_params = n_classes = 0
+    if isinstance(options.expression_spec, ParametricExpressionSpec):
+        if ds.data.class_idx is None:
+            raise ValueError("ParametricExpressionSpec requires a `class` column: pass "
+                             "extra={'class': ...}")
+        n_params, n_classes = options.expression_spec.max_parameters, ds.n_classes
+    engine = Engine(options, ds.nfeatures, device=dev, n_params=n_params, n_classes=n_classes)
     if engine.template is not None and ds.nfeatures != engine.template.n_variables:
         raise ValueError(
             f"Template combiner consumes {engine.template.n_variables} variables but the "

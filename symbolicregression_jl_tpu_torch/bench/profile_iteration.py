@@ -1,17 +1,21 @@
 """Where one engine iteration spends its time on the GPU.
 
     python -m symbolicregression_jl_tpu_torch.bench.profile_iteration [--ncycles N]
-        [--no-optimizer] [--template]
+        [--no-optimizer] [--template | --parametric]
 
 Builds the headline configuration (512 islands x 256 members, 10,000 rows
 x 5 features, maxsize 30, the constant optimizer on unless
 ``--no-optimizer``) or, with ``--template``, the template cell (the JAX
 package's bench/cell.py FULL, variant "template": 512 islands x 256
 members, 10,000 rows x 2 features from seed 1234, + - * cos, structure
-f(x1) * f(x1) + g(x2), optimizer_probability 0), runs one warm-up
-iteration, then one iteration under ``torch.profiler``. Prints the
-iteration's host-clock time, the summed device time of all kernels and of
-each of the port's five kernels, the device's busy and idle shares, the
+f(x1) * f(x1) + g(x2), optimizer_probability 0) or, with
+``--parametric``, the parametric cell (the same cell with variant
+"parametric": class = integers(0, 3) from the same generator, y =
+amp[class] cos(x1) + x2, max_parameters 1, optimizer_probability 0),
+runs one warm-up iteration, then one iteration under ``torch.profiler``.
+Prints the iteration's host-clock time, the summed device time of all
+kernels and of each of the port's kernels (#1's plain and parametric
+forms apart), the device's busy and idle shares, the
 number of kernel launches, each named range (``sr:constant_optimizer``,
 ``sr:template_eval``: its span on the device summed over its occurrences,
 the device time of the port's kernels in it, that of the eager ops in it
@@ -22,6 +26,7 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import sys
 import time
@@ -50,13 +55,37 @@ def template_data(n_rows: int = 10_000):
     return X, ((1.5 * X[:, 0]) ** 2 + np.cos(2.0 * X[:, 1])).astype(np.float32)
 
 
+def parametric_data(n_rows: int = 10_000):
+    """The parametric cell's problem from seed 1234: y = amp[class] cos(x1) + x2."""
+    g = np.random.default_rng(1234)
+    X = g.uniform(-2.0, 2.0, (n_rows, 2)).astype(np.float32)
+    cls = g.integers(0, 3, n_rows)
+    y = (np.array([1.0, 2.0, 3.0], np.float32)[cls] * np.cos(X[:, 0]) + X[:, 1]).astype(
+        np.float32)
+    return X, y, cls
+
+
+# Kernel names as the profiler reports them: #1's parametric form is the
+# program_eval_kernel instantiation whose last template argument is true.
+_KERNEL_PATTERNS = {
+    "program_eval": r"program_eval_kernel<\d+, (true|false), false>",
+    "program_eval_param": r"program_eval_kernel<\d+, (true|false), true>",
+    "program_multi": r"program_multi_kernel", "program_grad": r"program_grad_kernel",
+    "program_predict": r"program_predict_kernel",
+    "program_predict_vjp": r"program_predict_vjp_kernel",
+}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ncycles", type=int, default=10)
     ap.add_argument("--no-optimizer", action="store_true",
                     help="profile without the constant optimizer")
-    ap.add_argument("--template", action="store_true",
-                    help="profile the template-expression cell instead")
+    cell = ap.add_mutually_exclusive_group()
+    cell.add_argument("--template", action="store_true",
+                      help="profile the template-expression cell instead")
+    cell.add_argument("--parametric", action="store_true",
+                      help="profile the parametric-expression cell instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_iteration: needs a CUDA device", file=sys.stderr)
@@ -76,6 +105,14 @@ def main() -> int:
             should_optimize_constants=not args.no_optimizer, expression_spec=spec,
             save_to_file=False)
         X, y = template_data()
+    elif args.parametric:
+        options = sr.Options(
+            binary_operators=["+", "-", "*"], unary_operators=["cos"], maxsize=30,
+            populations=512, population_size=256, tournament_selection_n=16,
+            ncycles_per_iteration=args.ncycles, optimizer_probability=0.0,
+            should_optimize_constants=not args.no_optimizer,
+            expression_spec=sr.ParametricExpressionSpec(max_parameters=1), save_to_file=False)
+        X, y, cls = parametric_data()
     else:
         options = sr.Options(
             binary_operators=["+", "-", "*", "/"], unary_operators=["exp", "abs", "cos"],
@@ -83,9 +120,10 @@ def main() -> int:
             ncycles_per_iteration=args.ncycles, should_optimize_constants=not args.no_optimizer,
             save_to_file=False)
         X, y = bench_data()
-    ds = sr.make_dataset(X, y, device=dev)
+    ds = sr.make_dataset(X, y, extra={"class": cls} if args.parametric else None, device=dev)
     ds.update_baseline_loss(options.elementwise_loss)
-    engine = Engine(options, X.shape[1], device=dev)
+    engine = Engine(options, X.shape[1], device=dev, n_params=1 if args.parametric else 0,
+                    n_classes=ds.n_classes)
     state = engine.init_state(rng.key(0, device=dev), ds.data, options.populations)
     state = engine.run_iteration(state, ds.data, options.maxsize)
     torch.cuda.synchronize()
@@ -103,15 +141,15 @@ def main() -> int:
     spans = [e for e in events if e.name.startswith("sr:")]
     kernels = [e for e in events if e.device_time_total > 0 and not e.name.startswith("sr:")]
     device_us = sum(e.device_time_total for e in kernels)
-    print(f"{'template' if args.template else 'headline'} cell, ncycles_per_iteration "
+    cell_name = "template" if args.template else "parametric" if args.parametric else "headline"
+    print(f"{cell_name} cell, ncycles_per_iteration "
           f"{args.ncycles}, constant optimizer {options.should_optimize_constants} "
           f"(probability {options.optimizer_probability}): iteration {wall:.3f} s (host clock)")
     print(f"device kernel time {device_us / 1e6:.3f} s over {len(kernels)} kernel launches; "
           f"busy {device_us / 1e6 / wall:.1%}, idle {1 - device_us / 1e6 / wall:.1%}")
     ours = {}
-    for kname in ("program_eval", "program_multi", "program_grad", "program_predict",
-                  "program_predict_vjp"):
-        hits = [e for e in kernels if f"{kname}_kernel" in e.name]
+    for kname, pattern in _KERNEL_PATTERNS.items():
+        hits = [e for e in kernels if re.search(pattern, e.name)]
         us = sum(e.device_time_total for e in hits)
         ours[kname] = us
         print(f"{kname} kernel {us / 1e6:.4f} s over {len(hits)} launches "

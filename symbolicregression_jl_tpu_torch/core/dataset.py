@@ -9,7 +9,7 @@ row.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,6 +34,9 @@ class DeviceData:
     weights: Optional[torch.Tensor]  # [n] float32 or None
     baseline_loss: torch.Tensor      # 0-d float32
     use_baseline: torch.Tensor       # 0-d bool
+    # Each row's class [n] int32 (the ``class`` column of ``extra``, as
+    # indices into its sorted unique values), or None.
+    class_idx: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -72,6 +75,12 @@ class Dataset:
     def is_weighted(self) -> bool:
         return self.data.weights is not None
 
+    @property
+    def n_classes(self) -> int:
+        if self.data.class_idx is None:
+            return 0
+        return int(self.data.class_idx.max()) + 1
+
     def update_baseline_loss(self, elementwise_loss) -> None:
         """Evaluate the constant (avg-y) predictor to set the baseline."""
         if self.avg_y is None:
@@ -103,10 +112,15 @@ def make_dataset(
     weights=None,
     variable_names: Optional[Sequence[str]] = None,
     y_variable_name: Optional[str] = None,
+    extra: Optional[Dict[str, Any]] = None,
     device=None,
 ) -> Dataset:
     """Build a Dataset from ``X: (n, nfeatures)`` and ``y: (n,)`` on
-    ``device`` (CUDA unless ``device="cpu"``). Data is float32."""
+    ``device`` (CUDA unless ``device="cpu"``). Data is float32.
+
+    ``extra={"class": values}`` (or ``"classes"``) gives each row a class
+    for parametric expressions: ``class_idx`` holds each value's index
+    among the sorted unique values."""
     dev = resolve_device(device)
     X = np.asarray(X)
     if X.ndim != 2:
@@ -118,6 +132,11 @@ def make_dataset(
     w_arr = None if weights is None else np.asarray(weights, np.float32).reshape(-1)
     if w_arr is not None and w_arr.shape[0] != n:
         raise ValueError(f"weights has {w_arr.shape[0]} rows but X has {n}")
+    extra = dict(extra or {})
+    class_idx = None
+    if "class" in extra or "classes" in extra:
+        cls = np.asarray(extra.get("class", extra.get("classes"))).reshape(-1)
+        class_idx = np.searchsorted(np.unique(cls), cls).astype(np.int32)
 
     variable_names = list(variable_names or [f"x{i + 1}" for i in range(nfeatures)])
     default_names = [f"x{i + 1}" for i in range(nfeatures)]
@@ -140,6 +159,7 @@ def make_dataset(
         weights=None if w_arr is None else t(w_arr),
         baseline_loss=torch.ones((), dtype=torch.float32, device=dev),
         use_baseline=torch.tensor(True, device=dev),
+        class_idx=None if class_idx is None else t(class_idx),
     )
     return Dataset(
         data=data, n=n, nfeatures=nfeatures, avg_y=avg_y,

@@ -736,22 +736,16 @@ def _refuse(what: str, where: str) -> None:
 
 
 def _check_expression_spec(options: Options) -> None:
-    """Plain expressions and templates without parameters run; a template
-    with D(...) call sites runs without the constant optimizer."""
+    """Plain, parametric and template expressions run (templates with
+    parameter vectors too); a template with D(...) call sites runs without
+    the constant optimizer."""
     from ..models.spec import ExpressionSpec, ParametricExpressionSpec, TemplateExpressionSpec
 
     spec = options.expression_spec
-    if spec is None or type(spec) is ExpressionSpec:
+    if spec is None or type(spec) is ExpressionSpec or isinstance(spec, ParametricExpressionSpec):
         return
-    if isinstance(spec, ParametricExpressionSpec):
-        _refuse("ParametricExpressionSpec (parametric expressions)",
-                "the parametric slice, which ports the parametric variant of kernel #1 "
-                "(step 8)")
     if not isinstance(spec, TemplateExpressionSpec):
         _refuse(f"expression_spec of type {type(spec).__name__}", "a later slice")
-    if spec.structure.has_params:
-        _refuse("template parameters (a TemplateStructure with parameter vectors)",
-                "the template-parameter slice (step 8)")
     if spec.structure.uses_deriv and options.should_optimize_constants:
         _refuse("constant optimization of a template with D(...) call sites "
                 "(should_optimize_constants=True; it needs second-order derivatives)",
@@ -760,8 +754,8 @@ def _check_expression_spec(options: Options) -> None:
 
 def check_supported(options: Options) -> None:
     """Raise NotImplementedError for every option outside the f32
-    elementwise-loss paths this port carries (plain and template
-    expressions)."""
+    elementwise-loss paths this port carries (plain, parametric and
+    template expressions)."""
     if options.optimizer_bf16_linesearch:
         _refuse("optimizer_bf16_linesearch=True (bfloat16 line-search evaluations)",
                 "graftstage (step 7)")

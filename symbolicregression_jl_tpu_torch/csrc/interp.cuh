@@ -174,12 +174,14 @@ __device__ __forceinline__ Step decode(int word, const int* __restrict__ optab,
 
 // The per-row value buffer of one thread: X features and step results in
 // shared memory laid out [slot][thread], constants shared by the block.
+// `F` is the width of the per-row region: the X features, and for the
+// parametric form of kernel #1 the row's parameter values after them.
 struct RowBuf {
   float* sv;        // [(F + L) * bd]
   const float* sc;  // [CMAX]
   int F, base, zero_addr, bd, tid;
 
-  // Operand read: X row, constant, earlier step, or the zero row.
+  // Operand read: per-row value, constant, earlier step, or the zero row.
   __device__ __forceinline__ float rd(int a) const {
     if (a < F) return sv[a * bd + tid];
     if (a < base) return sc[a - F];
@@ -195,14 +197,12 @@ __device__ __forceinline__ float eval_step(const Step& s, const RowBuf& b) {
   return b.rd(s.i1);
 }
 
-// Forward sweep of one row: loads the row's features, runs the m steps,
-// stores each result and returns the root value; `ok` drops to false on a
-// non-finite step.
-__device__ __forceinline__ float forward_row(const RowBuf& b, const int* __restrict__ sins,
-                                             const float* __restrict__ X, int n, int r,
-                                             int m, const int* __restrict__ optab,
-                                             int code_mask, int sign_shift, bool& ok) {
-  for (int f = 0; f < b.F; ++f) b.sv[f * b.bd + b.tid] = X[(size_t)f * n + r];
+// Runs the m steps of one row whose per-row values are loaded, stores each
+// result and returns the root value; `ok` drops to false on a non-finite
+// step.
+__device__ __forceinline__ float run_steps(const RowBuf& b, const int* __restrict__ sins,
+                                           int m, const int* __restrict__ optab,
+                                           int code_mask, int sign_shift, bool& ok) {
   float v = 0.0f;
   for (int k = 0; k < m; ++k) {
     v = eval_step(decode(sins[k], optab, code_mask, sign_shift), b);
@@ -210,6 +210,15 @@ __device__ __forceinline__ float forward_row(const RowBuf& b, const int* __restr
     ok = ok && isfinite(v);
   }
   return v;
+}
+
+// Forward sweep of one row: loads the row's features, then run_steps.
+__device__ __forceinline__ float forward_row(const RowBuf& b, const int* __restrict__ sins,
+                                             const float* __restrict__ X, int n, int r,
+                                             int m, const int* __restrict__ optab,
+                                             int code_mask, int sign_shift, bool& ok) {
+  for (int f = 0; f < b.F; ++f) b.sv[f * b.bd + b.tid] = X[(size_t)f * n + r];
+  return run_steps(b, sins, m, optab, code_mask, sign_shift, ok);
 }
 
 // The loss term of one row: where(w > 0, elt, 0) * w.

@@ -21,6 +21,20 @@
 // 2 = unary, 3 = the merged add/sub branch a + (1 - 2 sign) * b, whose
 // identity steps read the zero row at address BASE + L.
 //
+// Parametric form (sr_program_eval_param; the TPU kernel's `nparam > 0`
+// variant): the plain form over a buffer whose per-row region holds the
+// row's X features and then its NP parameter values,
+//
+//   buf[F + p] = bank[t, p, class_idx[r]],   base = F + NP + CMAX,
+//
+// so a LEAF_PARAM operand reads its tree's bank entry for the row's class.
+// The TPU kernel built that row as a sum over class one-hots,
+// sum_c onehot[c, r] * bank[t, p, c], a workaround for a gather on the
+// TPU; this kernel gathers, as the JAX package's interpreter path and the
+// reference do, so a non-finite bank entry reaches only its own class's
+// rows (0 * inf does not spread NaN to the others). The tree's bank
+// (NP x NC floats) sits in shared memory; each row reads its class once.
+//
 // The operator code, the decode and the row loop live in interp.cuh,
 // shared with kernels #2 (program_multi.cu) and #3 (program_grad.cu).
 //
@@ -41,7 +55,10 @@
 // The design keeps everything a step touches on chip (shared memory) and
 // launches one block per tree so that tens of thousands of blocks fill
 // the 132 SMs; making it fast (register-resident buffers, several trees
-// per block, row tiles per warp) is later work.
+// per block, row tiles per warp) is later work. The parametric form adds
+// per row NP shared-memory stores and one read of `class_idx` (n ints,
+// L2-resident like X); its device-memory traffic grows by the banks,
+// T x NP x NC floats.
 
 #include "interp.cuh"
 
@@ -49,42 +66,57 @@ using namespace sr;
 
 namespace {
 
-template <int LOSS, bool COST>
+template <int LOSS, bool COST, bool PARAM>
 __global__ void program_eval_kernel(
     const int* __restrict__ instr,      // [T, L]
     const int* __restrict__ nsteps,     // [T]
     const float* __restrict__ cvals,    // [T, CMAX]
     const int* __restrict__ const_ok,   // [T]
+    const float* __restrict__ bank,     // [T, NP, NC]  (parametric form)
+    const int* __restrict__ class_idx,  // [n]          (parametric form)
     const float* __restrict__ X,        // [F, n]
     const float* __restrict__ y,        // [n]
     const float* __restrict__ w,        // [n]
     const float* __restrict__ cx,       // [T]   (cost form)
     const float* __restrict__ scal,     // [3]   denom, norm, parsimony (cost form)
     const int* __restrict__ optab,      // [n_codes]
-    int L, int CMAX, int F, int n, int code_mask, int sign_shift,
+    int L, int CMAX, int F, int NP, int NC, int n, int code_mask, int sign_shift,
     float* __restrict__ loss_out, int* __restrict__ valid_out,
     float* __restrict__ cost_out) {
   extern __shared__ float smem[];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const int bd = blockDim.x;
-  float* sv = smem;                          // [(F + L) * bd] per-row values
-  float* sc = sv + (size_t)(F + L) * bd;     // [CMAX] constants
-  float* sred = sc + CMAX;                   // [bd] reduction scratch
+  const int R = F + NP;                      // per-row region: X features, parameters
+  float* sv = smem;                          // [(R + L) * bd] per-row values
+  float* sc = sv + (size_t)(R + L) * bd;     // [CMAX] constants
+  float* sbank = sc + CMAX;                  // [NP * NC] the tree's parameter bank
+  float* sred = sbank + NP * NC;             // [bd] reduction scratch
   int* sins = reinterpret_cast<int*>(sred + bd);  // [L] instruction words
 
-  const int base = F + CMAX;
+  const int base = R + CMAX;
   const int zero_addr = base + L;
   for (int i = tid; i < L; i += bd) sins[i] = instr[(size_t)t * L + i];
   for (int i = tid; i < CMAX; i += bd) sc[i] = cvals[(size_t)t * CMAX + i];
+  if (PARAM) {
+    for (int i = tid; i < NP * NC; i += bd) sbank[i] = bank[(size_t)t * NP * NC + i];
+  }
   __syncthreads();
 
   const int m = nsteps[t];
-  const RowBuf b{sv, sc, F, base, zero_addr, bd, tid};
+  const RowBuf b{sv, sc, R, base, zero_addr, bd, tid};
   float acc = 0.0f;
   bool ok = true;
   for (int r = tid; r < n; r += bd) {
-    const float v = forward_row(b, sins, X, n, r, m, optab, code_mask, sign_shift, ok);
+    float v;
+    if (PARAM) {
+      for (int f = 0; f < F; ++f) sv[f * bd + tid] = X[(size_t)f * n + r];
+      const int c = min(max(class_idx[r], 0), NC - 1);
+      for (int p = 0; p < NP; ++p) sv[(F + p) * bd + tid] = sbank[p * NC + c];
+      v = run_steps(b, sins, m, optab, code_mask, sign_shift, ok);
+    } else {
+      v = forward_row(b, sins, X, n, r, m, optab, code_mask, sign_shift, ok);
+    }
     acc = __fadd_rn(acc, loss_term<LOSS>(v, y[r], w[r]));
   }
 
@@ -105,20 +137,20 @@ __global__ void program_eval_kernel(
   }
 }
 
-template <int LOSS, bool COST>
+template <int LOSS, bool COST, bool PARAM>
 cudaError_t launch_one(int T, int block, size_t smem, cudaStream_t stream,
                        const int* instr, const int* nsteps, const float* cvals,
-                       const int* const_ok, const float* X, const float* y,
-                       const float* w, const float* cx, const float* scal,
-                       const int* optab, int L, int CMAX, int F, int n,
-                       int code_mask, int sign_shift, float* loss, int* valid,
+                       const int* const_ok, const float* bank, const int* class_idx,
+                       const float* X, const float* y, const float* w, const float* cx,
+                       const float* scal, const int* optab, int L, int CMAX, int F, int NP,
+                       int NC, int n, int code_mask, int sign_shift, float* loss, int* valid,
                        float* cost) {
-  auto kern = program_eval_kernel<LOSS, COST>;
+  auto kern = program_eval_kernel<LOSS, COST, PARAM>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<T, block, smem, stream>>>(instr, nsteps, cvals, const_ok, X, y, w, cx,
-                                   scal, optab, L, CMAX, F, n, code_mask,
+  kern<<<T, block, smem, stream>>>(instr, nsteps, cvals, const_ok, bank, class_idx, X, y, w,
+                                   cx, scal, optab, L, CMAX, F, NP, NC, n, code_mask,
                                    sign_shift, loss, valid, cost);
   return cudaGetLastError();
 }
@@ -146,13 +178,53 @@ extern "C" int sr_program_eval(const int* instr, const int* nsteps,
   cudaError_t err;
 #define SR_LAUNCH(LK)                                                              \
   err = (cost != nullptr)                                                          \
-            ? launch_one<LK, true>(T, block, smem, s, instr, nsteps, cvals,        \
-                                   const_ok, X, y, w, cx, scal, optab, L, CMAX, F, \
-                                   n, code_mask, sign_shift, loss, valid, cost)   \
-            : launch_one<LK, false>(T, block, smem, s, instr, nsteps, cvals,       \
-                                    const_ok, X, y, w, cx, scal, optab, L, CMAX,  \
-                                    F, n, code_mask, sign_shift, loss, valid,     \
-                                    cost);
+            ? launch_one<LK, true, false>(T, block, smem, s, instr, nsteps, cvals, \
+                                          const_ok, nullptr, nullptr, X, y, w, cx, \
+                                          scal, optab, L, CMAX, F, 0, 0, n,        \
+                                          code_mask, sign_shift, loss, valid, cost) \
+            : launch_one<LK, false, false>(T, block, smem, s, instr, nsteps,       \
+                                           cvals, const_ok, nullptr, nullptr, X,   \
+                                           y, w, cx, scal, optab, L, CMAX, F, 0,   \
+                                           0, n, code_mask, sign_shift, loss,      \
+                                           valid, cost);
+  switch (loss_kind) {
+    case LOSS_L2: SR_LAUNCH(LOSS_L2) break;
+    case LOSS_L1: SR_LAUNCH(LOSS_L1) break;
+    case LOSS_HUBER: SR_LAUNCH(LOSS_HUBER) break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SR_LAUNCH
+  return (int)err;
+}
+
+// Dynamic shared memory of a parametric launch: the per-row region grows
+// by NP rows and the tree's bank takes NP * NC floats.
+extern "C" size_t sr_program_eval_param_smem(int block, int L, int CMAX, int F, int NP,
+                                             int NC) {
+  return sizeof(float) * ((size_t)(F + NP + L) * block + CMAX + (size_t)NP * NC + block) +
+         sizeof(int) * L;
+}
+
+// The parametric form (plain form only): `bank` [T, NP, NC], `class_idx`
+// [n] with values in [0, NC). Returns cudaGetLastError() (0 on success).
+extern "C" int sr_program_eval_param(const int* instr, const int* nsteps,
+                                     const float* cvals, const int* const_ok,
+                                     const float* bank, const int* class_idx,
+                                     const float* X, const float* y, const float* w,
+                                     const int* optab, int T, int L, int CMAX, int F,
+                                     int NP, int NC, int n, int block, int loss_kind,
+                                     int code_mask, int sign_shift, float* loss,
+                                     int* valid, void* stream) {
+  if (T == 0) return 0;
+  if (NP < 1 || NC < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = sr_program_eval_param_smem(block, L, CMAX, F, NP, NC);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err;
+#define SR_LAUNCH(LK)                                                                   \
+  err = launch_one<LK, false, true>(T, block, smem, s, instr, nsteps, cvals, const_ok, \
+                                    bank, class_idx, X, y, w, nullptr, nullptr, optab, \
+                                    L, CMAX, F, NP, NC, n, code_mask, sign_shift, loss, \
+                                    valid, nullptr);
   switch (loss_kind) {
     case LOSS_L2: SR_LAUNCH(LOSS_L2) break;
     case LOSS_L1: SR_LAUNCH(LOSS_L1) break;

@@ -14,13 +14,16 @@ optimization. Two forms, as in the JAX package:
   backtracking Armijo line search over the eager interpreter
   (``ops/eval.py``), differentiated by ``torch.autograd``; the JAX
   package's per-member ``vmap`` is a written-out [members, restarts] axis.
+  Parametric members optimize their parameter banks jointly with their
+  constants here, one flat vector [L + NP * NC] per member.
 - :func:`optimize_constants_template` (template expressions): L-BFGS
   over every subexpression's constants at once; each gradient is
   ``torch.autograd`` through the batched template evaluation, whose call
   sites run kernel #4 forward and kernel #5 backward
   (``fused_predict_ad``), and each line search one batched evaluation.
   It runs the same L-BFGS loop as the fused form (:func:`_lbfgs_restarts`)
-  with its own evaluator.
+  with its own evaluator; a template's parameter vector joins the
+  constants in the optimized vector.
 
 The JAX ``scan`` loops are Python loops over tensors with no host
 synchronisation inside them.
@@ -243,11 +246,11 @@ def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
     (one key per island, the JAX package's per-island ``vmap``); member m
     draws its restart perturbations from ``split(key, P)[m]``. Returns
     (new_const, improved, new_loss, f_calls) with the leading dims of
-    ``trees``."""
-    if params is not None and params.shape[-2] > 0:
-        raise NotImplementedError(
-            "parametric expressions (params) are not in the PyTorch port yet; they come "
-            "with the expression-plugin slice (ROADMAP.md queue 1 step 8).")
+    ``trees``, and new_params last when ``params`` is given.
+
+    ``params`` [..., NP, NC] are parametric members' banks, read through
+    the dataset's class column and optimized jointly with the constants
+    (one flat vector of L + NP * NC values per member)."""
     lead = trees.batch_shape
     L = trees.max_nodes
     keys = rng.split(key, lead[-1]).reshape(-1, 2)
@@ -258,45 +261,67 @@ def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
     C = cfg.max_linesearch
     X, y, w = data.Xt, data.y, data.weights
     dev = X.device
+    parametric = params is not None and params.shape[-2] > 0
+    NP, NC = params.shape[-2:] if parametric else (0, 0)
+    D = L + NP * NC
     slot = torch.arange(L, device=dev)
     cmask = (slot[None, :] < flat.length[:, None]) & (flat.arity == 0) & (flat.op == LEAF_CONST)
     x0 = flat.const
+    if parametric:
+        cmask = torch.cat([cmask, torch.ones((P, NP * NC), dtype=torch.bool, device=dev)], 1)
+        x0 = torch.cat([x0, params.reshape(P, NP * NC)], dim=1)
+        cls = data.class_idx.long()
 
-    # Trees per interpreter call, so that its [trees, L, rows] buffer stays
-    # near 2^24 elements.
-    chunk = max(1, (1 << 24) // max(L * X.shape[1], 1))
+    def chunk_loss(xb, idx):
+        """Losses of members ``idx`` [m] with the constants (and parameter
+        banks) ``xb`` [m, D]."""
+        c = torch.where(cmask[idx], xb, x0[idx])
+        member = TreeBatch(flat.arity[idx], flat.op[idx], flat.feat[idx], c[:, :L],
+                           flat.length[idx])
+        prows = c[:, L:].reshape(-1, NP, NC)[..., cls] if parametric else None
+        pred, valid = eval_tree_batch(member, X, operators, prows)
+        return aggregate_loss(elementwise_loss, pred, y, valid, w)
+
+    # Rows per interpreter call: its [rows, L, n] value buffer holds about
+    # 2^28 elements without gradients and 2^27 with them, whose autograd
+    # graph (a few such buffers) each chunk frees by its own backward pass,
+    # so the memory stays bounded whatever the number of members, and the
+    # chunks stay few: each costs the interpreter's eager launches.
+    per_row = max(L * X.shape[1], 1)
+    chunk_ng, chunk_g = max(1, (1 << 28) // per_row), max(1, (1 << 27) // per_row)
 
     def loss_of(xb, reps: int):
-        """Loss of each member's tree with the constants ``xb`` [P*reps, L]."""
-        rep = lambda a: a.repeat_interleave(reps, dim=0)
-        c = torch.where(rep(cmask), xb, rep(x0))
-        member = TreeBatch(rep(flat.arity), rep(flat.op), rep(flat.feat), c, rep(flat.length))
-        parts = []
-        for i in range(0, c.shape[0], chunk):
-            pred, valid = eval_tree_batch(member[i:i + chunk], X, operators)
-            parts.append(aggregate_loss(elementwise_loss, pred, y, valid, w))
-        return torch.cat(parts)
+        """Loss of each row of ``xb`` [P*reps, D]: row j is member j // reps."""
+        idx = torch.arange(xb.shape[0], device=dev) // reps
+        return torch.cat([chunk_loss(xb[i:i + chunk_ng], idx[i:i + chunk_ng])
+                          for i in range(0, xb.shape[0], chunk_ng)])
 
     mask_r = cmask.repeat_interleave(R, dim=0)
 
     def value_and_grad(xb):
         """Each tree's loss depends on its own constants only, so the
-        gradient of the summed loss is every tree's own gradient."""
-        xb = xb.detach().requires_grad_(True)
-        with torch.enable_grad():
-            loss = loss_of(xb, R)
-            (g,) = torch.autograd.grad(loss.sum(), xb)
-        g = torch.where(mask_r, g, 0.0)
-        return loss.detach(), torch.where(torch.isfinite(g), g, 0.0)
+        gradient of the summed loss is every tree's own gradient; each chunk
+        of rows runs its own backward pass."""
+        idx = torch.arange(xb.shape[0], device=dev) // R
+        losses, grads = [], []
+        for i in range(0, xb.shape[0], chunk_g):
+            xi = xb[i:i + chunk_g].detach().requires_grad_(True)
+            with torch.enable_grad():
+                loss = chunk_loss(xi, idx[i:i + chunk_g])
+                (g,) = torch.autograd.grad(loss.sum(), xi)
+            losses.append(loss.detach())
+            grads.append(g)
+        g = torch.where(mask_r, torch.cat(grads), 0.0)
+        return torch.cat(losses), torch.where(torch.isfinite(g), g, 0.0)
 
     with torch.no_grad():
         baseline = loss_of(x0, 1)
-    eps = rng.normal(keys, (cfg.nrestarts, L))
-    x = torch.cat([x0[:, None], x0[:, None] * (1.0 + 0.5 * eps)], dim=1).reshape(P * R, L)
+    eps = rng.normal(keys, (cfg.nrestarts, D))
+    x = torch.cat([x0[:, None], x0[:, None] * (1.0 + 0.5 * eps)], dim=1).reshape(P * R, D)
     M = P * R
     ts = _step_sizes(cfg, dev)
-    eye = torch.eye(L, dtype=x.dtype, device=dev)
-    H = eye.expand(M, L, L)
+    eye = torch.eye(D, dtype=x.dtype, device=dev)
+    H = eye.expand(M, D, D)
     fx, g = value_and_grad(x)
     calls = torch.ones(M, dtype=torch.float32, device=dev)
     for _ in range(cfg.iterations):
@@ -308,7 +333,7 @@ def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
         # The C backtracking trial points do not depend on each other's
         # losses: all are evaluated at once and the first Armijo point taken.
         with torch.no_grad():
-            f_try = loss_of((x[:, None, :] + ts[None, :, None] * d[:, None, :]).reshape(M * C, L),
+            f_try = loss_of((x[:, None, :] + ts[None, :, None] * d[:, None, :]).reshape(M * C, D),
                             R * C).reshape(M, C)
         ok = (f_try <= fx[:, None] + cfg.c1 * ts[None, :] * dg[:, None]) & torch.isfinite(f_try)
         found = torch.any(ok, dim=1)
@@ -329,18 +354,22 @@ def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
         calls = calls + (C + 1)
         x, fx, g = x_new, f_new, g_new
 
-    x_best, improved, new_loss, f_calls = _best_restart(x.reshape(P, R, L), fx, baseline, calls,
+    x_best, improved, new_loss, f_calls = _best_restart(x.reshape(P, R, D), fx, baseline, calls,
                                                         do_opt)
-    new_const = torch.where(improved[:, None] & cmask, x_best, x0)
-    return (new_const.reshape(*lead, L), improved.reshape(lead), new_loss.reshape(lead),
-            f_calls.reshape(lead))
+    new_x = torch.where(improved[:, None] & cmask, x_best, x0)
+    out = (new_x[:, :L].reshape(*lead, L), improved.reshape(lead), new_loss.reshape(lead),
+           f_calls.reshape(lead))
+    if params is None:
+        return out
+    return out + (new_x[:, L:].reshape(params.shape) if parametric else params,)
 
 
 def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, data,
                                 elementwise_loss, operators, cfg: OptimizerConfig, template,
-                                fused: bool = False):
+                                fused: bool = False, params: Optional[torch.Tensor] = None):
     """Joint L-BFGS over every subexpression's constants of template
-    members, one flat vector of K * L slots per member.
+    members and their parameter vectors, one flat vector of K * L + T
+    values per member (T = the template's total parameters).
 
     ``trees`` [P, K, L] with ``key`` [2], or [I, P, K, L] with ``key``
     [I, 2] (one key per island, as the JAX package vmaps it over islands):
@@ -350,14 +379,12 @@ def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, dat
     iteration is one gradient pass (``torch.autograd`` through
     :func:`~..models.template.eval_template_batch`: kernel #4 forward,
     kernel #5 backward when ``fused``) and one batched line search of
-    every restart's C candidate steps. Returns (new_const, improved,
-    new_loss, f_calls) with the leading dims of ``trees``."""
+    every restart's C candidate steps. ``params`` [..., T, 1] are the
+    members' parameter vectors. Returns (new_const, improved, new_loss,
+    f_calls) with the leading dims of ``trees``, and new_params last when
+    ``params`` is given."""
     from ..models.template import eval_template_batch
 
-    if template.has_params:
-        raise NotImplementedError(
-            "template parameters are not in the PyTorch port yet; they come with the "
-            "template-parameter slice (ROADMAP.md queue 1 step 8).")
     if template.uses_deriv:
         raise NotImplementedError(
             "constant optimization of templates with D(...) call sites needs second-order "
@@ -365,7 +392,8 @@ def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, dat
             "step 8).")
     K, L = trees.arity.shape[-2:]
     lead = trees.length.shape[:-1]
-    Dm = K * L
+    T = template.total_params
+    Dm = K * L + T
     eps = rng.normal(key, (lead[-1], cfg.nrestarts, Dm))
     flat = trees.reshape(-1, K)
     do_opt = do_opt.reshape(-1)
@@ -376,18 +404,24 @@ def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, dat
     dev = X.device
     slot = torch.arange(L, device=dev)
     cmask = (slot < flat.length[..., None]) & (flat.arity == 0) & (flat.op == LEAF_CONST)
-    x0 = flat.const.reshape(P, Dm)
+    xmask = torch.cat([cmask.reshape(P, K * L), torch.ones((P, T), dtype=torch.bool, device=dev)],
+                      dim=1)
+    p0 = (params.reshape(P, T) if params is not None and T
+          else torch.zeros((P, T), dtype=flat.const.dtype, device=dev))
+    x0 = torch.cat([flat.const.reshape(P, K * L), p0], dim=1)
 
     def loss_of(xb, reps: int):
-        """Loss of each member with the constants ``xb`` [P*reps, K*L]."""
+        """Loss of each member with the constants and parameters ``xb``
+        [P*reps, K*L + T]."""
         m = xb.shape[0]
         rep = lambda a: a.repeat_interleave(reps, dim=0)
-        c = torch.where(rep(cmask), xb.reshape(m, K, L), rep(flat.const))
+        c = torch.where(rep(cmask), xb[:, :K * L].reshape(m, K, L), rep(flat.const))
         member = TreeBatch(rep(flat.arity), rep(flat.op), rep(flat.feat), c, rep(flat.length))
-        pred, valid = eval_template_batch(member, X, template, operators, fused=fused)
+        pred, valid = eval_template_batch(member, X, template, operators,
+                                          params=xb[:, K * L:] if T else None, fused=fused)
         return aggregate_loss(elementwise_loss, pred, y, valid, w)
 
-    mask_r = cmask.reshape(P, Dm).repeat_interleave(R, dim=0)
+    mask_r = xmask.repeat_interleave(R, dim=0)
 
     def value_and_grad(xb, _active):
         """Each member's loss depends on its own constants only, so the
@@ -407,6 +441,9 @@ def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, dat
     starts = torch.cat([x0[:, None], x0[:, None] * (1.0 + 0.5 * eps)], dim=1)
     x_best, improved, new_loss, f_calls = _lbfgs_restarts(starts, do_opt, value_and_grad,
                                                           line_losses, cfg)
-    new_const = torch.where(improved[:, None] & cmask.reshape(P, Dm), x_best, x0)
-    return (new_const.reshape(*lead, K, L), improved.reshape(lead), new_loss.reshape(lead),
-            f_calls.reshape(lead))
+    new_x = torch.where(improved[:, None] & xmask, x_best, x0)
+    out = (new_x[:, :K * L].reshape(*lead, K, L), improved.reshape(lead), new_loss.reshape(lead),
+           f_calls.reshape(lead))
+    if params is None:
+        return out
+    return out + (new_x[:, K * L:].reshape(*lead, T, 1),)

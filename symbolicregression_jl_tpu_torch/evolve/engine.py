@@ -1,7 +1,7 @@
 """The per-iteration engine: islands evolve, simplify, finalize, migrate.
 
-Port of ``symbolicregression_jl_tpu/evolve/engine.py`` for plain and
-template expressions on one device. One `Engine.run_iteration` is one
+Port of ``symbolicregression_jl_tpu/evolve/engine.py`` for plain,
+parametric and template expressions on one device. One `Engine.run_iteration` is one
 reference iteration for every island at once:
 
     s_r_cycle (ncycles bulk generation steps over the annealing ramp)
@@ -17,6 +17,10 @@ The optimizer's randomness is drawn as the JAX package draws it
 Template members (``Options(expression_spec=TemplateExpressionSpec(...))``)
 carry a key axis, trees [I, P, K, L]; they fold per subexpression, and
 their constants are optimized jointly (``optimize_constants_template``).
+Every member carries a parameter bank ``params`` [I, P, NP, NC]:
+parametric members' per-class parameters (``n_params``, ``n_classes``),
+or a template's parameter vector as [total_params, 1]. The optimizer
+takes the banks jointly with the constants, on the eager path.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from ..ops.encoding import TreeBatch
 from . import rng
 from .constant_opt import (OptimizerConfig, optimize_constants_batch, optimize_constants_fused,
                            optimize_constants_template)
-from .population import PopulationState, init_population, init_template_population
+from .population import PopulationState, init_params, init_population, init_template_population
 from .simplify import fold_constants_batch
 from .step import (EvolveConfig, HofState, _take_rows, empty_hof, eval_cost_batch,
                    evolve_config_from_options, s_r_cycle, take_members, template_k, update_hof)
@@ -73,7 +77,8 @@ def _move_window(freq, window_size: float, maxsize: int):
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
-    return x.reshape((-1,) + x.shape[2:])
+    """[I, P, ...] -> [I * P, ...] (zero-sized banks included)."""
+    return x.reshape((x.shape[0] * x.shape[1],) + x.shape[2:])
 
 
 def _flat_trees(trees: TreeBatch) -> TreeBatch:
@@ -89,29 +94,40 @@ def _template_of(options: Options):
 
 
 class Engine:
-    """Search engine for one (options, dataset width) pair on one device."""
+    """Search engine for one (options, dataset width) pair on one device.
+    ``n_params``/``n_classes`` size parametric members' banks; templates
+    set them from their parameter vectors."""
 
     def __init__(self, options: Options, nfeatures: int,
                  device: Optional[Union[str, torch.device]] = None,
-                 window_size: int = 100_000):
+                 window_size: int = 100_000, n_params: int = 0, n_classes: int = 0):
         check_supported(options)
         self.options = options
         self.nfeatures = nfeatures
         self.device = resolve_device(device)
         self.template = _template_of(options)
+        if self.template is not None:
+            # Template parameters ride the member bank as [total_params, 1].
+            n_params = self.template.total_params
+            n_classes = 1 if n_params else 0
         self.cfg: EvolveConfig = evolve_config_from_options(options, nfeatures, self.device,
+                                                            n_params=n_params,
+                                                            n_classes=n_classes,
                                                             template=self.template)
         self.tables: ComplexityTables = build_complexity_tables(options, nfeatures, self.device)
         self.opt_cfg = OptimizerConfig(iterations=options.optimizer_iterations,
                                        nrestarts=options.optimizer_nrestarts)
         self.window_size = float(window_size)
 
-    def _eval(self, trees: TreeBatch, data: DeviceData, *, fuse_cost: bool,
+    def _eval(self, trees: TreeBatch, params, data: DeviceData, *, fuse_cost: bool,
               dedup: bool = False):
+        """Costs of flat members ``trees`` with their banks ``params``."""
         cfg = self.cfg
         return eval_cost_batch(trees, data, self.options.elementwise_loss, self.tables,
-                               cfg.operators, cfg.parsimony, turbo=cfg.turbo,
-                               fuse_cost=fuse_cost, dedup=dedup, template=cfg.template)
+                               cfg.operators, cfg.parsimony,
+                               member_params=params if cfg.n_params else None,
+                               turbo=cfg.turbo, fuse_cost=fuse_cost, dedup=dedup,
+                               template=cfg.template)
 
     def _epilogue_draws(self, k_opt, I: int):
         """The optimizer's selection size and its island-major random
@@ -147,13 +163,15 @@ class Engine:
         P = cfg.population_size
         dev = self.device
         key = key.to(dev)
-        k_init, _k_params, k_state = rng.split(key, 3)
+        k_init, k_params, k_state = rng.split(key, 3)
         if cfg.template is not None:
             trees = init_template_population(rng.split(k_init, n_islands), P, cfg.template,
                                              cfg.mctx)
         else:
             trees = init_population(rng.split(k_init, n_islands), P, cfg.mctx)
-        cost, loss, cx = self._eval(_flat_trees(trees), data, fuse_cost=cfg.fuse_cost)
+        params = init_params(k_params, (n_islands, P), cfg.n_params, cfg.n_classes)
+        cost, loss, cx = self._eval(_flat_trees(trees), _flat(params), data,
+                                    fuse_cost=cfg.fuse_cost)
         arange = torch.arange(P, dtype=torch.int32, device=dev)
         pops = PopulationState(
             trees=trees,
@@ -164,11 +182,13 @@ class Engine:
             ref=arange[None, :] + torch.arange(n_islands, dtype=torch.int32,
                                                device=dev)[:, None] * 1_000_000,
             parent=torch.full((n_islands, P), -1, dtype=torch.int32, device=dev),
+            params=params,
         )
         freq = torch.ones(cfg.maxsize, dtype=torch.float32, device=dev)
         return SearchDeviceState(
             pops=pops,
-            hof=empty_hof((), cfg.maxsize, cfg.max_nodes, dev, template_k=template_k(cfg)),
+            hof=empty_hof((), cfg.maxsize, cfg.max_nodes, dev, template_k=template_k(cfg),
+                          n_params=cfg.n_params, n_classes=cfg.n_classes),
             stats=RunningStats(freq, freq / torch.sum(freq)),
             birth=torch.full((n_islands,), P, dtype=torch.int32, device=dev),
             ref=torch.full((n_islands,), P, dtype=torch.int32, device=dev),
@@ -202,9 +222,10 @@ class Engine:
         # ---- merge best_seen + final pops into the global HoF ----
         hof = update_hof(state.hof, _flat_trees(best_seen.trees),
                          _flat(torch.where(best_seen.exists, best_seen.cost, math.inf)),
-                         _flat(best_seen.loss), _flat(best_seen.complexity), cfg.maxsize)
+                         _flat(best_seen.loss), _flat(best_seen.complexity), cfg.maxsize,
+                         params=_flat(best_seen.params))
         hof = update_hof(hof, _flat_trees(pops.trees), _flat(pops.cost), _flat(pops.loss),
-                         _flat(pops.complexity), cfg.maxsize)
+                         _flat(pops.complexity), cfg.maxsize, params=_flat(pops.params))
 
         # ---- migration ----
         if options.migration:
@@ -214,7 +235,8 @@ class Engine:
             pool = PopulationState(
                 trees=_flat_trees(pool.trees), cost=_flat(pool.cost),
                 loss=_flat(pool.loss), complexity=_flat(pool.complexity),
-                birth=_flat(pool.birth), ref=_flat(pool.ref), parent=_flat(pool.parent))
+                birth=_flat(pool.birth), ref=_flat(pool.ref), parent=_flat(pool.parent),
+                params=_flat(pool.params))
             km = rng.split(k_mig, 4)
             pops, birth = _migrate(km[0], pops, pool, options.fraction_replaced, birth, I, P,
                                    candidate_mask=torch.isfinite(pool.cost))
@@ -223,7 +245,7 @@ class Engine:
                 hof_pool = PopulationState(
                     trees=hof.trees, cost=torch.where(hof.exists, hof.cost, math.inf),
                     loss=hof.loss, complexity=hof.complexity, birth=zeros, ref=zeros,
-                    parent=zeros)
+                    parent=zeros, params=hof.params)
                 pops, birth = _migrate(km[1], pops, hof_pool, options.fraction_replaced_hof,
                                        birth, I, P, candidate_mask=hof.exists)
 
@@ -276,36 +298,45 @@ class Engine:
         if opt_kind_on:
             gate = gate | torch.gather(opt_mark, 1, sel_idx)
         sub = TreeBatch(*(_take_rows(f, sel_idx) for f in pops.trees.fields()))
+        # Parametric and template members optimize their banks jointly with
+        # their constants, on the eager path (never the fused L-BFGS).
+        sub_p = _take_rows(pops.params, sel_idx) if cfg.n_params else None
         # A named range for torch.profiler (bench/profile_iteration.py).
         with torch.profiler.record_function("sr:constant_optimizer"):
             if cfg.template is not None:
                 # One key per island, as the JAX package vmaps it; all
                 # islands' members run as one batch.
-                new_const, _, _, f_calls = optimize_constants_template(
+                out = optimize_constants_template(
                     rng.split(opt_key, I), sub, gate, data, options.elementwise_loss,
-                    cfg.operators, self.opt_cfg, cfg.template, fused=cfg.turbo)
-            elif cfg.turbo:
-                new_const, _, _, f_calls = optimize_constants_fused(
+                    cfg.operators, self.opt_cfg, cfg.template, fused=cfg.turbo, params=sub_p)
+            elif cfg.turbo and not cfg.n_params:
+                out = optimize_constants_fused(
                     opt_key, sub.reshape(I * k_sel), gate.reshape(I * k_sel), data,
                     options.elementwise_loss, cfg.operators, self.opt_cfg)
-                new_const = new_const.reshape(I, k_sel, cfg.max_nodes)
+                out = (out[0].reshape(I, k_sel, cfg.max_nodes),) + out[1:]
             else:
-                new_const, _, _, f_calls = optimize_constants_batch(
+                out = optimize_constants_batch(
                     rng.split(opt_key, I), sub, gate, data, options.elementwise_loss,
-                    cfg.operators, self.opt_cfg)
+                    cfg.operators, self.opt_cfg, params=sub_p)
+        # (new_const, improved, new_loss, f_calls[, new_params])
+        new_const, f_calls = out[0], out[3]
         idx = sel_idx.reshape(I, k_sel, *(1,) * (new_const.dim() - 2)).expand(new_const.shape)
         const = pops.trees.const.scatter(1, idx, new_const)
         pops = dataclasses.replace(pops, trees=dataclasses.replace(pops.trees, const=const))
+        if sub_p is not None:
+            pidx = sel_idx[..., None, None].expand(out[4].shape)
+            pops = dataclasses.replace(pops, params=pops.params.scatter(1, pidx, out[4]))
         return pops, torch.sum(f_calls)
 
     def _finalize_costs(self, pops: PopulationState, data: DeviceData) -> PopulationState:
         """Re-score every member on the whole dataset. On the kernel path
         identical (structure, constants) members across all islands run
         once (``fused_loss(dedup=True)``); results are bit-equal. Template
-        members are all re-scored (no dedup, as in the JAX package)."""
+        and parametric members are all re-scored (no dedup, as in the JAX
+        package)."""
         I, P = pops.cost.shape
         cfg = self.cfg
-        cost, loss, cx = self._eval(_flat_trees(pops.trees), data,
+        cost, loss, cx = self._eval(_flat_trees(pops.trees), _flat(pops.params), data,
                                     fuse_cost=cfg.fuse_cost, dedup=cfg.turbo)
         return dataclasses.replace(pops, cost=cost.reshape(I, P), loss=loss.reshape(I, P),
                                    complexity=cx.reshape(I, P))
@@ -355,5 +386,6 @@ def _migrate(key, pops: PopulationState, pool: PopulationState, frac: float, bir
         birth=torch.where(replace, new_birth, pops.birth),
         ref=scat(pops.ref, take(pool.ref)),
         parent=scat(pops.parent, take(pool.parent)),
+        params=scat(pops.params, take(pool.params)) if pops.params.numel() else pops.params,
     )
     return out, birth + P

@@ -18,7 +18,7 @@ from typing import Dict, NamedTuple, Tuple, Union
 
 import torch
 
-from ..ops.encoding import (LEAF_CONST, LEAF_VAR, MAX_ARITY, TreeBatch, lane_take,
+from ..ops.encoding import (LEAF_CONST, LEAF_PARAM, LEAF_VAR, MAX_ARITY, TreeBatch, lane_take,
                             select_tree, structure_from_arity)
 from . import rng
 from .pieces import combine_sources, concat_pieces, splice_span
@@ -27,7 +27,7 @@ from .rng import USlice, u_bernoulli, u_categorical_weights, u_masked_choice, u_
 __all__ = [
     "MutationContext", "branch_nu", "gen_tree_nu", "mutate_constant", "mutate_operator",
     "mutate_feature", "swap_operands", "rotate_tree", "add_node", "insert_random_op",
-    "delete_node", "randomize_tree", "crossover_trees", "gen_random_tree",
+    "delete_node", "randomize_tree", "crossover_trees", "gen_random_tree", "mutate_parameter_row",
     "gen_random_tree_fixed_size_u",
 ]
 
@@ -35,13 +35,15 @@ __all__ = [
 class MutationContext(NamedTuple):
     """Context shared by the mutation functions. ``nfeatures`` is an int,
     or for template expressions an int tensor [N] with the argument count
-    of each row's chosen subexpression."""
+    of each row's chosen subexpression. ``n_params`` > 0 (parametric
+    expressions) adds parameter leaves to the random-leaf draws."""
 
     nops: Tuple[int, ...]      # per-arity operator counts (1-based arity)
     nfeatures: Union[int, torch.Tensor]
     max_nodes: int             # L
     perturbation_factor: float
     probability_negate_constant: float
+    n_params: int = 0
 
 
 _SCRATCH_NU = 4 * MAX_ARITY
@@ -136,6 +138,19 @@ def mutate_constant(u, tree: TreeBatch, temperature, ctx: MutationContext):
     return TreeBatch(tree.arity, tree.op, tree.feat, const, tree.length), _true(tree)
 
 
+def mutate_parameter_row(u, params: torch.Tensor, temperature, ctx: MutationContext):
+    """Scale one whole parameter row (all classes) of each member's bank
+    by a mutate factor: the parametric branch of mutate_constant.
+    ``params`` [N, NP, NC], ``u`` [N, 4]."""
+    if params.shape[-2] == 0:
+        return params
+    s = USlice(u)
+    row = u_randint(s.take1(), params.shape[-2])
+    factor = _mutate_factor(s.take(3), temperature, ctx)
+    hit = torch.arange(params.shape[-2], device=params.device) == row[:, None]
+    return torch.where(hit[:, :, None], params * factor[:, None, None], params)
+
+
 def _true(tree: TreeBatch) -> torch.Tensor:
     return torch.ones(tree.length.shape, dtype=torch.bool, device=tree.device)
 
@@ -212,14 +227,22 @@ def delete_node(u, tree: TreeBatch, ctx: MutationContext, structure=None):
 
 def _sample_leaf(u4, ctx: MutationContext):
     """(op_code, feat, const) of one random leaf per row from 4 uniforms:
-    50/50 constant ~ randn / variable ~ uniform feature."""
+    50/50 constant ~ randn / variable ~ uniform feature; with parameters,
+    uniform thirds constant / variable / parameter ~ uniform index."""
     val = u_normal(u4[:, 1])
     nf = ctx.nfeatures
     f = u_randint(u4[:, 2], _at_least_1(nf))
-    is_const = u_bernoulli(u4[:, 0]) | (nf <= 0)
-    code = torch.where(is_const, LEAF_CONST, LEAF_VAR).to(torch.int32)
-    feat = torch.where(is_const, 0, f).to(torch.int32)
-    return code, feat, torch.where(is_const, val, 0.0)
+    if ctx.n_params > 0:
+        choice = u_randint(u4[:, 0], 3)
+        p = u_randint(u4[:, 3], ctx.n_params)
+        is_const = (choice == 0) | (nf <= 0)
+        code = torch.where(is_const, LEAF_CONST, torch.where(choice == 1, LEAF_VAR, LEAF_PARAM))
+        feat = torch.where(is_const, 0, torch.where(choice == 1, f, p))
+    else:
+        is_const = u_bernoulli(u4[:, 0]) | (nf <= 0)
+        code = torch.where(is_const, LEAF_CONST, LEAF_VAR)
+        feat = torch.where(is_const, 0, f)
+    return code.to(torch.int32), feat.to(torch.int32), torch.where(is_const, val, 0.0)
 
 
 def _make_leaf_scratch(u, ctx: MutationContext):
@@ -461,10 +484,18 @@ def _random_postfix_from_counts(u, n_binary, n_unary, ctx: MutationContext):
     u_choice = s.take(L)
     const_vals = u_normal(s.take(L))
     feat_vals = u_randint(s.take(L), _at_least_1(nf))
-    s.take(L)  # parameter-leaf draws (parametric expressions only)
-    is_const = (u_choice < 0.5) | (nf <= 0)
-    leaf_code = torch.where(is_const, LEAF_CONST, LEAF_VAR).to(torch.int32)
-    leaf_feat = torch.where(is_const, 0, feat_vals)
+    u_param = s.take(L)
+    if ctx.n_params > 0:
+        choice = u_randint(u_choice, 3)
+        p_vals = u_randint(u_param, ctx.n_params)
+        is_const = (choice == 0) | (nf <= 0)
+        leaf_code = torch.where(is_const, LEAF_CONST,
+                                torch.where(choice == 1, LEAF_VAR, LEAF_PARAM)).to(torch.int32)
+        leaf_feat = torch.where(is_const, 0, torch.where(choice == 1, feat_vals, p_vals))
+    else:
+        is_const = (u_choice < 0.5) | (nf <= 0)
+        leaf_code = torch.where(is_const, LEAF_CONST, LEAF_VAR).to(torch.int32)
+        leaf_feat = torch.where(is_const, 0, feat_vals)
 
     op = torch.where(arity == 2, op_b, torch.where(arity == 1, op_u, leaf_code)).to(torch.int32)
     feat = torch.where((arity == 0) & live, leaf_feat, 0).to(torch.int32)

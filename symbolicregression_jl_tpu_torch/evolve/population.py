@@ -2,8 +2,10 @@
 
 The reference's vector of PopMember becomes a struct of tensors with a
 member axis; leading axes stack islands. Template members carry a key
-axis: trees [..., P, K, L]. The JAX package's per-member parameter banks
-(parametric expressions, template parameters) are not carried.
+axis: trees [..., P, K, L]. Every member has a parameter bank
+``params`` [..., P, NP, NC]: its per-class parameters for parametric
+expressions, its template parameter vector as [total_params, 1] for
+templates with parameters, and zero-sized (NP = NC = 0) otherwise.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from ..ops.encoding import TreeBatch
 from . import rng
 from .mutation import MutationContext, gen_random_tree
 
-__all__ = ["PopulationState", "init_population", "init_template_population"]
+__all__ = ["PopulationState", "init_population", "init_template_population", "init_params",
+           "zero_params"]
 
 
 @dataclasses.dataclass
@@ -28,10 +31,28 @@ class PopulationState:
     birth: torch.Tensor       # [..., P] int32 birth-order ticks
     ref: torch.Tensor         # [..., P] int32 lineage id
     parent: torch.Tensor      # [..., P] int32 parent lineage id
+    params: torch.Tensor      # [..., P, NP, NC] float32 parameter banks
 
     @property
     def pop_size(self) -> int:
         return self.cost.shape[-1]
+
+    @property
+    def n_params(self) -> int:
+        return self.params.shape[-2]
+
+
+def zero_params(batch_shape, n_params: int, n_classes: int, device) -> torch.Tensor:
+    return torch.zeros((*batch_shape, n_params, n_classes), dtype=torch.float32, device=device)
+
+
+def init_params(key: torch.Tensor, batch_shape, n_params: int, n_classes: int) -> torch.Tensor:
+    """Standard-normal parameter banks [*batch_shape, NP, NC], drawn as
+    ``jax.random.normal(key, shape)`` draws them; zero-sized without
+    parameters."""
+    if n_params == 0:
+        return zero_params(batch_shape, n_params, n_classes, key.device)
+    return rng.normal(key, (*batch_shape, n_params, n_classes))
 
 
 def init_population(keys: torch.Tensor, population_size: int, ctx: MutationContext,

@@ -1,12 +1,15 @@
 """The evolution step: tournaments, mutations, accepts, replacement.
 
-Port of ``symbolicregression_jl_tpu/evolve/step.py`` for plain and
-template expressions. Where the JAX package vmaps one island's step over
+Port of ``symbolicregression_jl_tpu/evolve/step.py`` for plain,
+parametric and template expressions. Where the JAX package vmaps one island's step over
 the island axis, every function here takes that axis explicitly:
 population fields are ``[I, P, ...]`` (trees ``[I, P, L]``, or
 ``[I, P, K, L]`` for templates) and keys ``[I, 2]``. A template member
 mutates one randomly chosen subexpression per slot, with that
-subexpression's argument count for feature draws. One generation step runs
+subexpression's argument count for feature draws. Members with parameter
+banks (``params`` [I, P, NP, NC]) carry them through every take,
+mutation, crossover and replacement; ``mutate_constant`` scales one bank
+row instead of a constant half the time. One generation step runs
 the ``ceil(P / tournament_n)`` slots of every island in parallel from one
 population snapshot; each slot makes up to two babies (a mutation, or
 crossover's pair) that replace the oldest members. The speculative
@@ -78,6 +81,10 @@ class EvolveConfig(NamedTuple):
     ncycles: int
     turbo: bool       # candidate and finalize evals through the interpreter kernels
     fuse_cost: bool   # the kernel's loss -> cost epilogue on candidate evals
+    # Per-member parameter banks [NP, NC]: parametric expressions, or a
+    # template's parameter vector as [total_params, 1]; 0 = none.
+    n_params: int = 0
+    n_classes: int = 0
     # Template expressions: the structure (combiner and per-key arities);
     # trees gain a key axis [..., K, L].
     template: "object" = None
@@ -94,10 +101,13 @@ class EvolveConfig(NamedTuple):
             max_nodes=self.max_nodes,
             perturbation_factor=self.perturbation_factor,
             probability_negate_constant=self.probability_negate_constant,
+            # Template parameters live in the bank, not in tree leaves.
+            n_params=0 if self.template is not None else self.n_params,
         )
 
 
 def evolve_config_from_options(options: Options, nfeatures: int, device: torch.device,
+                               n_params: int = 0, n_classes: int = 0,
                                template=None) -> EvolveConfig:
     """``turbo`` defaults to on for a CUDA device and off on the CPU."""
     turbo = options.turbo if options.turbo is not None else device.type == "cuda"
@@ -126,6 +136,8 @@ def evolve_config_from_options(options: Options, nfeatures: int, device: torch.d
         ncycles=options.ncycles_per_iteration,
         turbo=turbo,
         fuse_cost=turbo and options.fuse_cost_epilogue is not False,
+        n_params=n_params,
+        n_classes=n_classes,
         template=template,
     )
 
@@ -136,8 +148,9 @@ def evolve_config_from_options(options: Options, nfeatures: int, device: torch.d
 
 
 def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: ComplexityTables,
-                    operators: OperatorSet, parsimony: float, *, turbo: bool = False,
-                    fuse_cost: bool = False, dedup: bool = False, template=None):
+                    operators: OperatorSet, parsimony: float, *, member_params=None,
+                    turbo: bool = False, fuse_cost: bool = False, dedup: bool = False,
+                    template=None):
     """(cost, loss, complexity) per tree, any batch shape.
 
     ``turbo`` runs the interpreter kernel (ops/fused_eval.py); with
@@ -145,32 +158,48 @@ def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: Complexity
     the cost. Otherwise the eager interpreter (ops/eval.py) predicts and
     the loss and cost follow in PyTorch.
 
+    ``member_params`` [..., NP, NC] are the members' parameter banks.
+    Parametric members read theirs through the dataset's class column
+    (``turbo``: the kernel's parametric form, with no cost epilogue;
+    otherwise the interpreter on the banks gathered by class); without a
+    class column they raise ValueError.
+
     With a ``template`` structure the members' trees are [..., K, L]: the
     combiner runs over the subexpressions (kernel #4 per call site with
-    ``turbo``, its plain version otherwise), complexity is summed over K,
-    and ``fuse_cost``/``dedup`` do not apply."""
+    ``turbo``, its plain version otherwise) and reads the parameter vector
+    ``member_params[..., :, 0]``, complexity is summed over K, and
+    ``fuse_cost``/``dedup`` do not apply."""
     X, y, w = data.Xt, data.y, data.weights
+    has_params = member_params is not None and member_params.shape[-2] > 0
     if template is not None:
         from ..models.template import eval_template_batch
 
+        t_params = member_params[..., :, 0] if has_params else None
         # A named range for torch.profiler (bench/profile_iteration.py).
         with torch.profiler.record_function("sr:template_eval"):
-            pred, valid = eval_template_batch(trees, X, template, operators, fused=turbo)
+            pred, valid = eval_template_batch(trees, X, template, operators, params=t_params,
+                                              fused=turbo)
             loss = aggregate_loss(elementwise_loss, pred, y, valid, w)
         complexity = compute_complexity_batch(trees, tables).sum(dim=-1).to(torch.int32)
         cost = loss_to_cost(loss, data.baseline_loss, data.use_baseline, complexity, parsimony)
         return cost, loss, complexity
+    if has_params and data.class_idx is None:
+        raise ValueError("Parametric evaluation requires a `class` column in the dataset")
     complexity = compute_complexity_batch(trees, tables)
-    if turbo and fuse_cost and not dedup:
+    if turbo and fuse_cost and not dedup and not has_params:
         cost, loss, _ = fused_cost(
             trees, X, y, w, complexity, operators, elementwise_loss,
             baseline_loss=data.baseline_loss, use_baseline=data.use_baseline,
             parsimony=parsimony)
         return cost, loss, complexity
-    if turbo:
+    if turbo and has_params:
+        loss, _ = fused_loss(trees, X, y, w, operators, elementwise_loss, params=member_params,
+                             class_idx=data.class_idx)
+    elif turbo:
         loss, _ = fused_loss(trees, X, y, w, operators, elementwise_loss, dedup=dedup)
     else:
-        pred, valid = eval_tree_batch(trees, X, operators)
+        prows = member_params[..., data.class_idx.long()] if has_params else None
+        pred, valid = eval_tree_batch(trees, X, operators, params=prows)
         loss = aggregate_loss(elementwise_loss, pred, y, valid, w)
     cost = loss_to_cost(loss, data.baseline_loss, data.use_baseline, complexity, parsimony)
     return cost, loss, complexity
@@ -189,22 +218,28 @@ def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, full)
 
 
-def _take_trees(trees: TreeBatch, idx: torch.Tensor, clamp: bool) -> TreeBatch:
-    const = _take_rows(trees.const, idx)
-    if clamp:
-        const = torch.nan_to_num(const, nan=_CLAMP, posinf=_CLAMP, neginf=-_CLAMP)
+def _take_floats(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of a float field, clamped as the one-hot gather does."""
+    return torch.nan_to_num(_take_rows(x, idx), nan=_CLAMP, posinf=_CLAMP, neginf=-_CLAMP)
+
+
+def _take_trees(trees: TreeBatch, idx: torch.Tensor) -> TreeBatch:
+    """Trees ``idx`` [I, B] of each island, constants clamped."""
+    const = _take_floats(trees.const, idx)
     return TreeBatch(_take_rows(trees.arity, idx), _take_rows(trees.op, idx),
                      _take_rows(trees.feat, idx), const, _take_rows(trees.length, idx))
 
 
 def take_members(pop: PopulationState, idx: torch.Tensor) -> PopulationState:
     """Members ``idx`` [I, B] of each island, with the JAX package's
-    one-hot-gather semantics: non-finite constants come back clamped."""
+    one-hot-gather semantics: non-finite constants and parameters come
+    back clamped."""
     t = lambda x: _take_rows(x, idx)
+    params = _take_floats(pop.params, idx) if pop.params.numel() else t(pop.params)
     return PopulationState(
-        trees=_take_trees(pop.trees, idx, clamp=True), cost=t(pop.cost), loss=t(pop.loss),
+        trees=_take_trees(pop.trees, idx), cost=t(pop.cost), loss=t(pop.loss),
         complexity=t(pop.complexity), birth=t(pop.birth), ref=t(pop.ref),
-        parent=t(pop.parent))
+        parent=t(pop.parent), params=params)
 
 
 def _stable_top(mask: torch.Tensor, k: int) -> torch.Tensor:
@@ -246,7 +281,8 @@ def _condition_weights(base_w: torch.Tensor, tree: TreeBatch, complexity, cur_ma
     zero_where("mutate_constant", root_is_leaf & ~root_is_const)
     zero_where("mutate_feature", root_is_leaf & root_is_const)
     zero_where("swap_operands", ~has_binary)
-    if cfg.template is None:  # templates skip the constant-count scaling
+    if cfg.n_params == 0 and cfg.template is None:  # parametric and template members skip
+        # the constant-count scaling
         k = _KIND["mutate_constant"]
         w[..., k] = w[..., k] * torch.clamp(n_const, max=8).to(w.dtype) / 8.0
     if nfeat_dyn is not None:
@@ -484,8 +520,20 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
     att_valid = (att_ok & check(att_trees)).reshape(I, B, A)
     mut_tree, mut_success = _first_valid(att_valid, by_attempt(att_trees), m1.trees)
 
-    s.take1()   # parameter-row branch draw (parametric expressions only)
-    s.take(4)
+    # With parameter banks, mutate_constant scales a bank row instead half
+    # the time, leaving the tree as it was.
+    u_pb = s.take1()
+    u_prow = s.take(4)
+    has_p = cfg.n_params > 0
+    mut_params = m1.params
+    if has_p:
+        mutate_param = (kind == _KIND["mutate_constant"]) & u_bernoulli(u_pb)
+        new_params = M.mutate_parameter_row(u_prow.reshape(I * B, 4),
+                                            m1.params.reshape(I * B, *m1.params.shape[2:]),
+                                            temperature, cfg.mctx).reshape(m1.params.shape)
+        mut_params = torch.where(mutate_param[..., None, None], new_params, m1.params)
+        mut_tree = select_tree(mutate_param, m1.trees, mut_tree)
+        mut_success = mut_success | mutate_param
 
     # ---- crossover path ----
     xa_u = s.take(A * L2).reshape(I * B * A, L2)
@@ -499,6 +547,10 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
 
     cand1 = select_tree(is_xover, xo1, mut_tree)
     cand2 = xo2
+    # Crossover exchanges the whole parameter banks.
+    cand1_params = torch.where(is_xover[..., None, None], m2.params, mut_params) if has_p \
+        else m1.params
+    cand2_params = m1.params
     needs_eval1 = torch.where(is_xover, xo_success, mut_success & ~immediate)
     needs_eval2 = is_xover & xo_success
     accept_u = s.take1()
@@ -515,21 +567,26 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
     else:
         k2 = min(B, int(math.ceil(B * p_x + 3.0 * math.sqrt(B * p_x * (1.0 - p_x)) + 1.0)))
 
-    def _eval(trees: TreeBatch):
+    def _eval(trees: TreeBatch, params):
         bshape = _member_shape(trees, template)
-        c, lo, cx = eval_cost_batch(_flat_members(trees, template), data, elementwise_loss,
-                                    tables, cfg.operators, cfg.parsimony, turbo=cfg.turbo,
-                                    fuse_cost=cfg.fuse_cost, template=template)
+        c, lo, cx = eval_cost_batch(
+            _flat_members(trees, template), data, elementwise_loss, tables, cfg.operators,
+            cfg.parsimony, member_params=params.reshape(-1, *params.shape[-2:]) if has_p else None,
+            turbo=cfg.turbo, fuse_cost=cfg.fuse_cost, template=template)
         return c.reshape(bshape), lo.reshape(bshape), cx.reshape(bshape)
 
     inf = torch.tensor(math.inf, dtype=torch.float32, device=dev)
     if 0 < k2 < B:
         sel2 = _stable_top(is_xover, k2)                         # [I, k2]
-        cand2_sel = _take_trees(cand2, sel2, clamp=True)
+        cand2_sel = _take_trees(cand2, sel2)
         slot_bad2 = ~torch.isfinite(cand2.const).reshape(I, B, -1).all(-1)   # [I, B]
         packed = TreeBatch(*(torch.cat([a, b], dim=1)
                              for a, b in zip(cand1.fields(), cand2_sel.fields())))
-        c_all, l_all, x_all = _eval(packed)
+        packed_params = cand1_params
+        if has_p:
+            slot_bad2 = slot_bad2 | ~torch.isfinite(cand2_params).reshape(I, B, -1).all(-1)
+            packed_params = torch.cat([cand1_params, _take_floats(cand2_params, sel2)], dim=1)
+        c_all, l_all, x_all = _eval(packed, packed_params)
 
         def unpack(v, default):
             v2 = torch.full((I, B), default, dtype=v.dtype, device=dev)
@@ -545,14 +602,15 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
         xo_success = xo_success & ~overflow
         needs_eval2 = needs_eval2 & ~overflow
     elif k2 == 0:
-        cost1, loss1, cx1 = _eval(cand1)
+        cost1, loss1, cx1 = _eval(cand1, cand1_params)
         cost = torch.stack([cost1, inf.expand(I, B)], dim=-1)
         loss = torch.stack([loss1, inf.expand(I, B)], dim=-1)
         complexity = torch.stack([cx1, torch.ones_like(cx1)], dim=-1)
     else:
         both = TreeBatch(*(torch.stack([a, b], dim=2)
                            for a, b in zip(cand1.fields(), cand2.fields())))
-        cost, loss, complexity = _eval(both)
+        cost, loss, complexity = _eval(both, torch.stack([cand1_params, cand2_params], dim=2)
+                                       if has_p else cand1_params)
     needs_eval = torch.stack([needs_eval1, needs_eval2], dim=-1)
     num_evals = needs_eval.to(torch.float32).sum(dim=(1, 2))
 
@@ -574,13 +632,20 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
     accepted_mut = mut_success & ~torch.isnan(after_cost) & anneal_ok
     mut_replace = immediate | accepted_mut | (not cfg.skip_mutation_failures)
 
-    # A kept parent whose genome carried non-finite constants was clamped
-    # by the member take; plant NaN at its constant leaves so it stays
-    # invalid on the next eval, as its parent was.
+    # A kept parent whose genome carried non-finite constants or
+    # parameters was clamped by the member take; plant NaN at its constant
+    # leaves (and in its bank) so it stays invalid on the next eval, as its
+    # parent was.
     lane = torch.arange(L, device=dev)
     cleaf = ((pop.trees.arity == 0) & (pop.trees.op == LEAF_CONST)
              & (lane < pop.trees.length[..., None]))
     bad_const = (cleaf & ~torch.isfinite(pop.trees.const)).reshape(I, P, -1).any(-1)
+    m1_params = m1.params
+    if has_p:
+        bad_params = ~torch.isfinite(pop.params).reshape(I, P, -1).all(-1)
+        bad_p1 = torch.gather(bad_params, 1, i1.long())
+        m1_params = torch.where(bad_p1[..., None, None], math.nan, m1_params)
+        bad_const = bad_const | bad_params
     slot_bad1 = torch.gather(bad_const, 1, i1.long())                      # [I, B]
     fb = m1.trees
     fb_cleaf = (fb.arity == 0) & (fb.op == LEAF_CONST)
@@ -597,6 +662,9 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
     replace1 = torch.where(is_xover, xo_replace, mut_replace)
     replace2 = is_xover & xo_replace
     baby1_tree = select_tree(is_xover, cand1, baby1_tree)
+    if has_p:
+        baby1_params = torch.where((accept1 | is_xover)[..., None, None], cand1_params,
+                                   m1_params)
     baby1_cost = torch.where(is_xover, cost[..., 0], baby1_cost)
     baby1_loss = torch.where(is_xover, loss[..., 0], baby1_loss)
     baby1_cx = torch.where(is_xover, complexity[..., 0], baby1_cx)
@@ -627,6 +695,7 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
         birth=scat(pop.birth, birth0[:, None] + steps),
         ref=scat(pop.ref, ref0[:, None] + steps),
         parent=scat(pop.parent, baby_parent),
+        params=scat(pop.params, flat(baby1_params, cand2_params)) if has_p else pop.params,
     )
     simp_mark, opt_mark = marks
     not_xover = ~is_xover
@@ -649,10 +718,11 @@ class HofState:
     loss: torch.Tensor        # [..., maxsize]
     complexity: torch.Tensor  # [..., maxsize] int32
     exists: torch.Tensor      # [..., maxsize] bool
+    params: torch.Tensor      # [..., maxsize, NP, NC] parameter banks
 
 
 def empty_hof(batch_shape, maxsize: int, max_nodes: int, device,
-              template_k: int = 0) -> HofState:
+              template_k: int = 0, n_params: int = 0, n_classes: int = 0) -> HofState:
     """``template_k`` > 0 gives the trees the template key axis."""
     shape = (*batch_shape, maxsize)
     tree_shape = (*shape, template_k) if template_k else shape
@@ -662,13 +732,15 @@ def empty_hof(batch_shape, maxsize: int, max_nodes: int, device,
         loss=torch.full(shape, math.inf, dtype=torch.float32, device=device),
         complexity=torch.zeros(shape, dtype=torch.int32, device=device),
         exists=torch.zeros(shape, dtype=torch.bool, device=device),
+        params=torch.zeros((*shape, n_params, n_classes), dtype=torch.float32, device=device),
     )
 
 
 def update_hof(hof: HofState, trees: TreeBatch, cost, loss, complexity,
-               maxsize: int) -> HofState:
+               maxsize: int, params=None) -> HofState:
     """Per-complexity best update over the member axis (last axis of
-    ``cost``); leading axes batch independent halls of fame."""
+    ``cost``); leading axes batch independent halls of fame. ``params``
+    are the members' banks (needed when the hall of fame has any)."""
     sizes = torch.arange(1, maxsize + 1, device=cost.device)[:, None]
     m = complexity[..., None, :] == sizes                       # [..., maxsize, P]
     cost_m = torch.where(m, cost[..., None, :], math.inf)
@@ -690,6 +762,7 @@ def update_hof(hof: HofState, trees: TreeBatch, cost, loss, complexity,
         loss=pick(hof.loss, loss),
         complexity=pick(hof.complexity, complexity),
         exists=hof.exists | better,
+        params=pick(hof.params, params) if hof.params.numel() else hof.params,
     )
 
 
@@ -701,7 +774,8 @@ def s_r_cycle(key, pop: PopulationState, data, stats_nf, cur_maxsize, birth0, re
     [I], birth0, ref0, marks)."""
     I, P = pop.cost.shape
     dev = pop.cost.device
-    hof = empty_hof((I,), cfg.maxsize, cfg.max_nodes, dev, template_k=template_k(cfg))
+    hof = empty_hof((I,), cfg.maxsize, cfg.max_nodes, dev, template_k=template_k(cfg),
+                    n_params=cfg.n_params, n_classes=cfg.n_classes)
     marks = (torch.zeros((I, P), dtype=torch.bool, device=dev),
              torch.zeros((I, P), dtype=torch.bool, device=dev))
     nev = torch.zeros(I, dtype=torch.float32, device=dev)
@@ -717,5 +791,6 @@ def s_r_cycle(key, pop: PopulationState, data, stats_nf, cur_maxsize, birth0, re
             k, pop, data, stats_nf, temperature, cur_maxsize, birth0, ref0, cfg, options,
             tables, elementwise_loss, marks)
         nev = nev + nev_c
-        hof = update_hof(hof, pop.trees, pop.cost, pop.loss, pop.complexity, cfg.maxsize)
+        hof = update_hof(hof, pop.trees, pop.cost, pop.loss, pop.complexity, cfg.maxsize,
+                         params=pop.params)
     return pop, hof, nev, birth0, ref0, marks

@@ -4,10 +4,10 @@
 - ``ExpressionSpec``: plain expression trees (the default).
 - ``TemplateExpressionSpec``: K named subexpressions combined by a user
   structure function (models/template.py).
-- ``ParametricExpressionSpec``: trees with per-class parameter leaves. The
-  type exists so that options carrying it compare and print as in the JAX
-  package; the port refuses it (``core.options.check_supported``) until
-  the parametric variant of kernel #1 is ported.
+- ``ParametricExpressionSpec``: trees with parameter leaves ``p1..pK``;
+  every member has a (max_parameters, n_classes) bank, and a leaf reads
+  the entry of the row's class (the dataset's ``class`` column, given
+  through ``equation_search(extra={"class": ...})``).
 """
 
 from __future__ import annotations

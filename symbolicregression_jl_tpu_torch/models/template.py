@@ -18,8 +18,10 @@
   ([M, F, n]).
 
 Population layout: a template member's trees are a TreeBatch with a key
-axis ``[K, L]`` before the slot axis. Template parameters (``ParamVec``
-banks) come with a later slice.
+axis ``[K, L]`` before the slot axis. Its parameter vectors (``ParamVec``
+keys of the combiner) ride the member's parameter bank as one flat
+[total_params, 1] vector; in the batched evaluation each key is a
+:class:`_BatchedParamVec` over every member.
 """
 
 from __future__ import annotations
@@ -50,11 +52,6 @@ __all__ = [
     "parse_template_expression",
     "template_from_dict",
 ]
-
-_PARAMS_LATER = ("template parameters (ParamVec banks in the population) are not in the "
-                 "PyTorch port yet; they come with the template-parameter slice "
-                 "(ROADMAP.md queue 1 step 8).")
-
 
 class TemplateReturnError(TypeError):
     """The combiner returned something other than a ValidVector."""
@@ -386,15 +383,46 @@ def D(f, argnum: int = 1) -> _DerivCallable:
     return _DerivCallable(f, argnum)
 
 
+class _BatchedParamVec:
+    """Member-batched ParamVec: ``p[i]`` is a [M, 1] column (it broadcasts
+    against shared [n] rows and member-batched [M, n] data); a ValidVector
+    index gathers per row, [M, n] (per member when the index itself is
+    member-batched)."""
+
+    def __init__(self, data: torch.Tensor):  # [M, count]
+        self.data = data
+
+    def __getitem__(self, idx):
+        if isinstance(idx, ValidVector):
+            ix = torch.clamp(idx.x.to(torch.int64), 0, self.data.shape[1] - 1)
+            if ix.dim() >= 2:   # member-dependent index [M, n]
+                g = torch.gather(self.data, 1, ix)
+            else:               # shared index rows [n]
+                g = self.data[:, ix]
+            return ValidVector(g, idx.valid)
+        if isinstance(idx, int):
+            if not -len(self) <= idx < len(self):
+                raise IndexError(f"parameter index {idx} out of range [0, {len(self)})")
+            idx = idx % len(self)
+            return self.data[:, idx:idx + 1]
+        return self.data[:, idx]
+
+    def __len__(self):
+        return self.data.shape[1]
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+
 def eval_template_batch(trees: TreeBatch, X: torch.Tensor, structure: TemplateStructure,
                         operators: OperatorSet, params=None, fused: bool = False):
     """Batched template evaluation of trees [..., K, L] over X [F, n];
     returns (y [..., n], valid [...]). The combiner runs once over
     member-batched callables; with ``fused`` each call site is one launch
-    of kernel #4, otherwise its plain version runs. Differentiable with
-    respect to ``trees.const`` through kernel #5."""
-    if structure.has_params or params is not None:
-        raise NotImplementedError(_PARAMS_LATER)
+    of kernel #4, otherwise its plain version runs. A structure with
+    parameter vectors reads them from ``params`` [..., total_params].
+    Differentiable with respect to ``trees.const`` (through kernel #5) and
+    ``params``."""
     K = structure.n_subexpressions
     batch_shape = trees.arity.shape[:-2]
     flat = trees.reshape(-1, K)
@@ -409,7 +437,17 @@ def eval_template_batch(trees: TreeBatch, X: torch.Tensor, structure: TemplateSt
     }
     true = torch.ones((), dtype=torch.bool, device=X.device)
     xs = tuple(ValidVector(X[i], true) for i in range(structure.n_variables))
-    out = structure.combine(SimpleNamespace(**exprs), xs)
+    if structure.has_params:
+        if params is None:
+            raise ValueError("Template has parameters but none were provided")
+        p_flat = params.reshape(M, structure.total_params)
+        pns = SimpleNamespace(**{
+            key: _BatchedParamVec(p_flat[:, off:off + cnt])
+            for key, off, cnt in zip(structure.param_keys, structure.param_offsets,
+                                     structure.num_params)})
+        out = structure.combine(SimpleNamespace(**exprs), pns, xs)
+    else:
+        out = structure.combine(SimpleNamespace(**exprs), xs)
     if not isinstance(out, ValidVector):
         raise TemplateReturnError()
     y = torch.broadcast_to(torch.atleast_2d(out.x), (M, n))
@@ -424,26 +462,48 @@ def parse_template_expression(s: str, structure: TemplateStructure,
     :meth:`HostTemplateExpression.string`."""
     from ..ops.tree import parse_expression
 
-    if structure.has_params:
-        raise NotImplementedError(_PARAMS_LATER)
     trees: Dict[str, object] = {}
+    params = np.zeros((structure.total_params,), np.float64) if structure.has_params else None
+    seen_params = set()
     parts = [p.strip() for p in s.replace("\n", ";").split(";") if p.strip()]
     for part in parts:
         if "=" not in part:
             raise ValueError(f"Template component missing '=': {part!r}")
         name, rhs = part.split("=", 1)
         name = name.strip().lstrip("╭├╰ ").strip()
-        if name not in structure.expr_keys:
+        rhs = rhs.strip()
+        if name in structure.expr_keys:
+            nf = structure.num_features[structure.expr_keys.index(name)]
+            names = [f"x{i + 1}" for i in range(max(nf, 1))]
+            trees[name] = parse_expression(re.sub(r"#(\d+)", r"x\1", rhs), operators,
+                                           variable_names=names)
+        elif name in structure.param_keys:
+            if not (rhs.startswith("[") and rhs.endswith("]")):
+                raise ValueError(f"Parameter vector {name!r} must be [..]")
+            vals = [float(v) for v in rhs[1:-1].split(",") if v.strip()]
+            i = structure.param_keys.index(name)
+            off, cnt = structure.param_offsets[i], structure.num_params[i]
+            if len(vals) != cnt:
+                raise ValueError(f"Parameter {name!r} expects {cnt} values; got {len(vals)}")
+            params[off:off + cnt] = vals
+            seen_params.add(name)
+        else:
             raise ValueError(f"Unknown template component {name!r} (expressions: "
                              f"{structure.expr_keys}, parameters: {structure.param_keys})")
-        nf = structure.num_features[structure.expr_keys.index(name)]
-        names = [f"x{i + 1}" for i in range(max(nf, 1))]
-        trees[name] = parse_expression(re.sub(r"#(\d+)", r"x\1", rhs.strip()), operators,
-                                       variable_names=names)
     missing = [k for k in structure.expr_keys if k not in trees]
     if missing:
         raise ValueError(f"Template string missing subexpressions: {missing}")
-    return HostTemplateExpression(trees=trees, structure=structure, operators=operators)
+    if structure.has_params:
+        if not seen_params:
+            # No parameter vector given: leave them unset rather than zero.
+            params = None
+        else:
+            missing_p = [k for k in structure.param_keys if k not in seen_params]
+            if missing_p:
+                raise ValueError(f"Template string sets {sorted(seen_params)} but is missing "
+                                 f"parameter vectors: {missing_p}")
+    return HostTemplateExpression(trees=trees, structure=structure, operators=operators,
+                                  params=params)
 
 
 def template_from_dict(d: Dict, structure: TemplateStructure,
@@ -453,13 +513,11 @@ def template_from_dict(d: Dict, structure: TemplateStructure,
     :func:`parse_template_expression`."""
     from ..ops.tree import Node, parse_expression
 
-    if structure.has_params:
-        raise NotImplementedError(_PARAMS_LATER)
     missing = [k for k in structure.expr_keys if k not in d]
     if missing:
         raise ValueError(f"Template guess dict missing subexpressions: {missing} "
                          f"(keys: {structure.expr_keys})")
-    unknown = [k for k in d if k not in structure.expr_keys]
+    unknown = [k for k in d if k not in structure.expr_keys and k not in structure.param_keys]
     if unknown:
         raise ValueError(f"Template guess dict has unknown keys: {unknown} (expressions: "
                          f"{structure.expr_keys}, parameters: {structure.param_keys})")
@@ -472,7 +530,19 @@ def template_from_dict(d: Dict, structure: TemplateStructure,
         names = [f"x{i + 1}" for i in range(max(structure.num_features[k], 1))]
         trees[key] = parse_expression(re.sub(r"#(\d+)", r"x\1", str(v)), operators,
                                       variable_names=names)
-    return HostTemplateExpression(trees=trees, structure=structure, operators=operators)
+    params = None
+    if structure.has_params and any(k in d for k in structure.param_keys):
+        missing_p = [k for k in structure.param_keys if k not in d]
+        if missing_p:
+            raise ValueError(f"Template guess dict sets some parameter vectors but is "
+                             f"missing: {missing_p}")
+        params = np.concatenate([np.asarray(d[k], np.float64).reshape(-1)
+                                 for k in structure.param_keys])
+        if params.shape[0] != structure.total_params:
+            raise ValueError(f"Template guess parameters have {params.shape[0]} values; "
+                             f"expected {structure.total_params}")
+    return HostTemplateExpression(trees=trees, structure=structure, operators=operators,
+                                  params=params)
 
 
 # ---------------------------------------------------------------------------
@@ -482,13 +552,14 @@ def template_from_dict(d: Dict, structure: TemplateStructure,
 
 @dataclasses.dataclass
 class HostTemplateExpression:
-    """A decoded template member: named host subtrees. Prints as the JAX
-    package does: ``f = ...; g = ...`` with arguments ``#1..#k``."""
+    """A decoded template member: named host subtrees and parameter values.
+    Prints as the JAX package does: ``f = ...; g = ...; p = [...]`` with
+    arguments ``#1..#k``."""
 
     trees: Dict[str, "object"]          # key -> ops.tree.Node
     structure: TemplateStructure
     operators: OperatorSet
-    params: Optional[np.ndarray] = None  # template parameters (a later slice)
+    params: Optional[np.ndarray] = None  # [total_params]
 
     def string(self, pretty: bool = False, precision: int = 5) -> str:
         from ..ops.tree import string_tree
@@ -498,6 +569,11 @@ class HostTemplateExpression:
             names = [f"#{i + 1}" for i in range(self.structure.num_features[k])]
             s = string_tree(self.trees[key], variable_names=names, precision=precision)
             parts.append(f"{key} = {s}")
+        if self.structure.has_params and self.params is not None:
+            for key, off, cnt in zip(self.structure.param_keys, self.structure.param_offsets,
+                                     self.structure.num_params):
+                vals = ", ".join(f"{float(v):.{precision}g}" for v in self.params[off:off + cnt])
+                parts.append(f"{key} = [{vals}]")
         return ("\n" if pretty else "; ").join(parts)
 
     def __repr__(self) -> str:  # pragma: no cover
@@ -520,7 +596,10 @@ class HostTemplateExpression:
         enc = self.encode(L, device=dev)
         stacked = TreeBatch(*(f[None] for f in enc.fields()))  # [1, K, L]
         Xt = torch.as_tensor(np.asarray(X, dtype=np.float32).T.copy(), device=dev)
-        y, valid = eval_template_batch(stacked, Xt, self.structure, self.operators, fused=True)
+        p = (torch.as_tensor(np.asarray(self.params, np.float32)[None], device=dev)
+             if self.params is not None and self.structure.total_params else None)
+        y, valid = eval_template_batch(stacked, Xt, self.structure, self.operators, params=p,
+                                       fused=True)
         y = y[0].cpu().numpy()
         if not bool(valid[0]):
             return np.full_like(y, np.nan)

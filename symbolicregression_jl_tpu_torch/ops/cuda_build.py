@@ -65,7 +65,7 @@ def build_all(names) -> Dict[str, Path]:
     """Compile every ``csrc/<name>`` whose library is missing, one nvcc
     process per source, all started together; return the libraries' paths."""
     out, running = {}, []
-    for name in names:
+    for name in dict.fromkeys(names):   # each source once, in order
         src = source_path(name)
         so, _ = _target(src)
         out[name] = so

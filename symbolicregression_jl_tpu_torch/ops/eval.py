@@ -10,7 +10,7 @@ any row.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,9 +27,14 @@ def _select(fns, o, *args):
     return out
 
 
-def eval_tree_batch(batch: TreeBatch, X: torch.Tensor,
-                    operators: OperatorSet) -> Tuple[torch.Tensor, torch.Tensor]:
+def eval_tree_batch(batch: TreeBatch, X: torch.Tensor, operators: OperatorSet,
+                    params: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Evaluate a batch of trees over all rows of ``X`` [F, n].
+
+    ``params`` [..., NP, n] (parametric expressions) holds each tree's
+    parameter values per row, already gathered by class; a LEAF_PARAM
+    leaf reads row ``clip(feat, 0, NP - 1)``. Without ``params`` a
+    parameter leaf is invalid.
 
     Returns ``(y[..., n], valid[...])`` with the batch's leading dims."""
     batch_shape = batch.batch_shape
@@ -44,6 +49,7 @@ def eval_tree_batch(batch: TreeBatch, X: torch.Tensor,
     rows = torch.arange(T, device=dev)
     buf = torch.zeros((T, L, n), dtype=dtype, device=dev)
     valid = torch.ones(T, dtype=torch.bool, device=dev)
+    p_flat = None if params is None else params.reshape(T, *params.shape[-2:])
     unary = [o.fn for o in operators.unary]
     binary = [o.fn for o in operators.binary]
     for k in range(L):
@@ -53,8 +59,12 @@ def eval_tree_batch(batch: TreeBatch, X: torch.Tensor,
         c1 = buf[rows, child[:, k, 1]]
         x_row = X[torch.clamp(flat.feat[:, k].long(), 0, F - 1)]
         leaf = torch.where((o == LEAF_CONST)[:, None], flat.const[:, k, None], x_row)
-        # A parameter leaf evaluated without parameters is invalid.
-        leaf = torch.where(((a == 0) & (o == LEAF_PARAM))[:, None], float("nan"), leaf)
+        if p_flat is not None:
+            pi = torch.clamp(flat.feat[:, k].long(), 0, p_flat.shape[1] - 1)
+            leaf = torch.where((o == LEAF_PARAM)[:, None], p_flat[rows, pi], leaf)
+        else:
+            # A parameter leaf evaluated without parameters is invalid.
+            leaf = torch.where(((a == 0) & (o == LEAF_PARAM))[:, None], float("nan"), leaf)
         val = leaf
         if unary:
             oc = torch.clamp(o, 0, len(unary) - 1)

@@ -9,6 +9,8 @@ programs over every row:
 
 - ``csrc/program_eval.cu`` (:data:`PROGRAM_EVAL`, ``_program_launch``):
   per-tree loss and validity, optionally with the loss -> cost epilogue;
+  its parametric form (:data:`PROGRAM_EVAL_PARAM`) reads each tree's
+  parameter bank by the row's class;
 - ``csrc/program_multi.cu`` (:data:`PROGRAM_MULTI`, ``fused_loss_multi``):
   loss and validity for every (tree, constant vector) pair;
 - ``csrc/program_grad.cu`` (:data:`PROGRAM_GRAD`, ``fused_grad_multi``):
@@ -36,12 +38,12 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from ..core.losses import LOSS_REGISTRY, baseline_normalization, l1_dist_loss, l2_dist_loss
-from .encoding import TreeBatch
+from .encoding import LEAF_PARAM, TreeBatch
 from .operators import OPERATOR_REGISTRY, OperatorSet
 from .program import TreeProgram, compile_program, scatter_const_grads
 from .vjp import loss_vjp, vjp_binary, vjp_unary
 
-__all__ = ["PROGRAM_EVAL", "PROGRAM_MULTI", "PROGRAM_GRAD", "PROGRAM_PREDICT",
+__all__ = ["PROGRAM_EVAL", "PROGRAM_EVAL_PARAM", "PROGRAM_MULTI", "PROGRAM_GRAD", "PROGRAM_PREDICT",
            "PROGRAM_PREDICT_VJP", "fused_loss", "fused_loss_program", "fused_loss_dedup",
            "fused_cost", "fused_cost_program", "fused_loss_multi", "fused_grad_multi",
            "fused_grad_program", "fused_loss_and_const_grad", "fused_predict_program",
@@ -170,16 +172,19 @@ def _branches(operators: OperatorSet):
     return out
 
 
-def _plain_forward(instr, nsteps, cvals, X, operators: OperatorSet):
-    """Forward sweep of packed programs on a [T, F + CMAX + L + 1, n]
-    value buffer (X rows, constants, one row per step, the zero row), as
-    the kernels run it. ``X`` is [F, n] (shared) or [T, F, n] (one
-    argument block per tree). Returns (buf, vmask [T, n]: every live step
-    finite on the row, the decoded (code, src1, src2, sign) of each step)."""
+def _plain_forward(instr, nsteps, cvals, X, operators: OperatorSet, prows=None):
+    """Forward sweep of packed programs on a [T, F + NP + CMAX + L + 1, n]
+    value buffer (X rows, parameter rows, constants, one row per step, the
+    zero row), as the kernels run it. ``X`` is [F, n] (shared) or [T, F,
+    n] (one argument block per tree); ``prows`` [T, NP, n] are the rows'
+    parameter values (parametric expressions), else NP = 0. Returns (buf,
+    vmask [T, n]: every live step finite on the row, the decoded (code,
+    src1, src2, sign) of each step)."""
     plan = _dispatch_plan(operators)
     T, L = instr.shape
     F, n = X.shape[-2:]
-    BASE = F + cvals.shape[1]
+    R = F + (0 if prows is None else prows.shape[1])
+    BASE = R + cvals.shape[1]
     dev = X.device
     branches = _branches(operators)
     code_mask = 0x3F if plan.merged else 0x7F
@@ -187,7 +192,9 @@ def _plain_forward(instr, nsteps, cvals, X, operators: OperatorSet):
     rows = torch.arange(T, device=dev)
     buf = torch.zeros((T, BASE + L + 1, n), dtype=X.dtype, device=dev)
     buf[:, :F] = X
-    buf[:, F:BASE] = cvals[:, :, None]
+    if prows is not None:
+        buf[:, F:R] = prows
+    buf[:, R:BASE] = cvals[:, :, None]
     vmask = torch.ones((T, n), dtype=torch.bool, device=dev)
     words = []
     for k in range(int(m.max()) if T else 0):
@@ -214,22 +221,35 @@ def _root(buf, nsteps, base: int):
     return buf[rows, base + nsteps.long() - 1]
 
 
+def _param_rows(bank, class_idx):
+    """Each row's parameter values [T, NP, n]: ``bank[t, p, class_idx[r]]``
+    (class indices clipped to [0, NC), as the kernel reads them)."""
+    cls = torch.clamp(class_idx.long(), 0, bank.shape[-1] - 1)
+    return bank[:, :, cls]
+
+
 def program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators: OperatorSet,
-                       loss_fn: Callable, cx=None, scal=None, max_elems: int = 1 << 26):
+                       loss_fn: Callable, cx=None, scal=None, bank=None, class_idx=None,
+                       max_elems: int = 1 << 26):
     """Eager version of the kernel: an explicit loop over program steps on
     [trees, rows] tensors with the kernel's masking and reduction.
 
     Returns (loss_sum, valid) for the plain form, or (loss, valid, cost)
     with the cost epilogue when ``cx`` [T] and ``scal`` [3] are given.
+    The parametric form takes ``bank`` [T, NP, NC] and ``class_idx`` [n]:
+    parameter p of row r is ``bank[t, p, class_idx[r]]`` (a gather).
     Trees run in chunks of at most ``max_elems`` buffer elements."""
     T, L = instr.shape
     F, n = X.shape
-    BASE = F + cvals.shape[1]
+    NP = 0 if bank is None else bank.shape[1]
+    BASE = F + NP + cvals.shape[1]
     chunk = max(1, max_elems // max((BASE + L + 1) * n, 1))
     loss_parts, valid_parts = [], []
     for s in range(0, T, chunk):
         e = s + chunk
-        buf, vmask, _ = _plain_forward(instr[s:e], nsteps[s:e], cvals[s:e], X, operators)
+        prows = None if bank is None else _param_rows(bank[s:e], class_idx)
+        buf, vmask, _ = _plain_forward(instr[s:e], nsteps[s:e], cvals[s:e], X, operators,
+                                       prows)
         elt = loss_fn(_root(buf, nsteps[s:e], BASE), y)
         elt = torch.where(w > 0, elt, 0.0)
         total = torch.sum(elt * w, dim=-1)
@@ -513,10 +533,12 @@ class _ProgramKernel:
             self._lib = lib
         return self._lib
 
-    def _block(self, L: int, CMAX: int, F: int) -> int:
+    def _block(self, L: int, CMAX: int, F: int, *extra: int) -> int:
+        """The largest block whose shared memory fits; ``extra`` are the
+        size function's further arguments (the parametric form's NP, NC)."""
         smem = getattr(self.library(), self._entry + "_smem")
         for block in (256, 128, 64, 32):
-            if smem(block, L, CMAX, F) <= _SMEM_LIMIT:
+            if smem(block, L, CMAX, F, *extra) <= _SMEM_LIMIT:
                 return block
         raise ValueError(f"{F} features and {L} steps do not fit one block's shared memory")
 
@@ -528,11 +550,13 @@ class _ProgramKernel:
             self._optab[key] = tab
         return tab
 
-    def _layout(self, operators: OperatorSet, X, L: int, CMAX: int, F: int):
+    def _layout(self, operators: OperatorSet, X, L: int, CMAX: int, F: int, NP: int = 0,
+                NC: int = 0):
         """(opcode table on the device, block size, opcode mask) of a launch."""
-        _check_packable(operators, F + CMAX, L)
+        _check_packable(operators, F + NP + CMAX, L)
         code_mask = 0x3F if _dispatch_plan(operators).merged else 0x7F
-        return self._device_optab(operators, X.device), self._block(L, CMAX, F), code_mask
+        block = self._block(L, CMAX, F, NP, NC) if NP else self._block(L, CMAX, F)
+        return self._device_optab(operators, X.device), block, code_mask
 
     def _check(self, X, loss_fn, ints, floats):
         """Device, dtype and contiguity of every input; the loss kind
@@ -612,6 +636,50 @@ class ProgramEvalKernel(_ProgramKernel):
             _stream(X))
         if cost_form:
             return loss, valid.bool(), cost
+        return loss, valid.bool()
+
+
+class ProgramEvalParamKernel(_ProgramKernel):
+    """Wrapper of ``sr_program_eval_param`` (csrc/program_eval.cu), the
+    parametric form of kernel #1: (loss_sum, valid) [T] with each tree's
+    parameter bank [T, NP, NC] read by the row's class. Its own launch
+    count keeps it apart from the plain form's on the main path."""
+
+    name = "program_eval_param"
+    source = "symbolicregression_jl_tpu_torch/csrc/program_eval.cu"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:379 (_make_program_kernel "
+                "nparam > 0 / _program_launch params, class_oh)")
+    _file = "program_eval.cu"
+    _entry = "sr_program_eval_param"
+
+    def _bind(self, lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.sr_program_eval_param_smem.argtypes = [i] * 6
+        lib.sr_program_eval_param.argtypes = [p] * 10 + [i] * 11 + [p, p, p]
+
+    def __call__(self, instr, nsteps, cvals, const_ok, bank, class_idx, X, y, w,
+                 operators: OperatorSet, loss_fn: Callable):
+        if X.device.type == "cpu":
+            return program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators,
+                                      loss_fn, bank=bank, class_idx=class_idx)
+        T, L = instr.shape
+        F, n = X.shape
+        CMAX = cvals.shape[1]
+        NP, NC = bank.shape[1:]
+        loss_kind = self._check(X, loss_fn, dict(instr=instr, nsteps=nsteps, const_ok=const_ok,
+                                                 class_idx=class_idx),
+                                dict(cvals=cvals, bank=bank, X=X, y=y, w=w))
+        if (nsteps.shape != (T,) or const_ok.shape != (T,) or cvals.shape[0] != T
+                or bank.shape[0] != T or NP < 1 or NC < 1 or class_idx.shape != (n,)
+                or y.shape != (n,) or w.shape != (n,)):
+            raise ValueError("program_eval_param: inconsistent shapes")
+        optab, block, code_mask = self._layout(operators, X, L, CMAX, F, NP, NC)
+        loss = torch.empty(T, dtype=torch.float32, device=X.device)
+        valid = torch.empty(T, dtype=torch.int32, device=X.device)
+        self._launch(
+            _ptr(instr), _ptr(nsteps), _ptr(cvals), _ptr(const_ok), _ptr(bank), _ptr(class_idx),
+            _ptr(X), _ptr(y), _ptr(w), _ptr(optab), T, L, CMAX, F, NP, NC, n, block,
+            loss_kind, code_mask, 30, _ptr(loss), _ptr(valid), _stream(X))
         return loss, valid.bool()
 
 
@@ -770,6 +838,7 @@ class ProgramPredictVjpKernel(_ProgramKernel):
 
 
 PROGRAM_EVAL = ProgramEvalKernel()
+PROGRAM_EVAL_PARAM = ProgramEvalParamKernel()
 PROGRAM_MULTI = ProgramMultiKernel()
 PROGRAM_GRAD = ProgramGradKernel()
 PROGRAM_PREDICT = ProgramPredictKernel()
@@ -782,11 +851,11 @@ PROGRAM_PREDICT_VJP = ProgramPredictVjpKernel()
 
 
 def _launch_inputs(prog: TreeProgram, X, y, weights, nfeatures: int,
-                   operators: OperatorSet):
+                   operators: OperatorSet, n_params: int = 0):
     T, L = prog.code.shape
     CMAX = prog.cmax
     n = X.shape[1]
-    BASE = nfeatures + CMAX
+    BASE = nfeatures + n_params + CMAX
     _check_packable(operators, BASE, L)
     instr = _pack_instr(prog, operators, BASE + L).contiguous()
     w = (torch.ones(n, dtype=X.dtype, device=X.device) if weights is None
@@ -805,11 +874,23 @@ def _denominator(weights, X):
 
 
 def fused_loss_program(prog: TreeProgram, X, y, weights, nfeatures: int,
-                       operators: OperatorSet, loss_fn: Callable):
+                       operators: OperatorSet, loss_fn: Callable, *, params=None,
+                       class_idx=None):
     """Mean elementwise loss per compiled program (flat [T]); invalid
-    programs get loss inf. Returns (loss, valid)."""
-    args = _launch_inputs(prog, X, y, weights, nfeatures, operators)
-    loss_sum, valid = PROGRAM_EVAL(*args, operators, loss_fn)
+    programs get loss inf. Returns (loss, valid).
+
+    Parametric programs (compiled with ``n_params = NP``) pass their
+    banks ``params`` [T, NP, NC] and the rows' ``class_idx`` [n]; they run
+    the parametric form of the kernel."""
+    if params is None:
+        args = _launch_inputs(prog, X, y, weights, nfeatures, operators)
+        loss_sum, valid = PROGRAM_EVAL(*args, operators, loss_fn)
+    else:
+        instr, nsteps, cvals, ok, Xc, yc, w = _launch_inputs(prog, X, y, weights, nfeatures,
+                                                             operators, params.shape[1])
+        loss_sum, valid = PROGRAM_EVAL_PARAM(
+            instr, nsteps, cvals, ok, params.to(X.dtype).contiguous(),
+            class_idx.to(torch.int32).contiguous(), Xc, yc, w, operators, loss_fn)
     loss = loss_sum / _denominator(weights, X)
     loss = torch.where(valid & torch.isfinite(loss), loss, torch.inf)
     return loss, valid
@@ -859,16 +940,47 @@ def fused_loss_dedup(prog: TreeProgram, X, y, weights, nfeatures: int,
     return loss_u[inverse], valid_u[inverse]
 
 
+def _params_ok(trees: TreeBatch, params, class_idx):
+    """[T]: every parameter a tree reads is finite for every class some row
+    has, the verdict the interpreter reaches by checking each parameter
+    leaf's value on every row (a non-finite value that an operator absorbs,
+    as exp(-inf) = 0, would otherwise pass). Leaves read parameter
+    ``clip(feat, 0, NP - 1)``."""
+    T, NP, NC = params.shape
+    live = torch.arange(trees.max_nodes, device=params.device) < trees.length[:, None]
+    pleaf = live & (trees.arity == 0) & (trees.op == LEAF_PARAM)
+    pidx = torch.clamp(trees.feat.long(), 0, NP - 1)
+    used = torch.zeros((T, NP + 1), dtype=torch.bool, device=params.device)
+    used = used.scatter(1, torch.where(pleaf, pidx, NP), True)[:, :NP]
+    present = torch.bincount(torch.clamp(class_idx.long(), 0, NC - 1), minlength=NC) > 0
+    bad = ~torch.isfinite(params) & used[:, :, None] & present[None, None, :]
+    return ~bad.reshape(T, -1).any(dim=1)
+
+
 def fused_loss(trees: TreeBatch, X, y, weights, operators: OperatorSet,
-               loss_fn: Callable, *, dedup: bool = False):
+               loss_fn: Callable, *, params=None, class_idx=None, dedup: bool = False):
     """Mean elementwise loss per tree (batch dims kept); invalid trees get
     loss inf. ``dedup`` evaluates each distinct (structure, constants)
-    program once and shares the result (bit-equal)."""
+    program once and shares the result (bit-equal).
+
+    Parametric members pass their banks ``params`` [..., NP, NC] and the
+    dataset's ``class_idx`` [n]: parameter leaves then read
+    ``params[..., p, class_idx[r]]`` per row, through the parametric form
+    of the kernel (dedup does not apply to them). A tree is invalid where
+    a parameter it reads is non-finite for a class some row has, as on the
+    interpreter path."""
     batch_shape = trees.batch_shape
     flat = trees.reshape(-1)
     F = X.shape[0]
-    prog = compile_program(flat, F, len(operators.binary))
-    if dedup:
+    NP = 0 if params is None else params.shape[-2]
+    prog = compile_program(flat, F, len(operators.binary), n_params=NP)
+    if NP > 0:
+        p_flat = params.reshape(-1, NP, params.shape[-1])
+        loss, valid = fused_loss_program(prog, X, y, weights, F, operators, loss_fn,
+                                         params=p_flat, class_idx=class_idx)
+        valid = valid & _params_ok(flat, p_flat, class_idx)
+        loss = torch.where(valid, loss, torch.inf)
+    elif dedup:
         loss, valid = fused_loss_dedup(prog, X, y, weights, F, operators, loss_fn)
     else:
         loss, valid = fused_loss_program(prog, X, y, weights, F, operators, loss_fn)

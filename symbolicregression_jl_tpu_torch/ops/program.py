@@ -3,14 +3,17 @@
 A TreeBatch compiles into a program over one value buffer per row:
 
     buf[0 : F]               X feature values
-    buf[F : F+CMAX]          the tree's constant-leaf values
-    buf[BASE : BASE+L]       one slot per program step (BASE = F + CMAX)
+    buf[F : CBASE]           parametric expressions: the row's parameter
+                             values (NP of them, CBASE = F + NP)
+    buf[CBASE : BASE]        the tree's constant-leaf values
+    buf[BASE : BASE+L]       one slot per program step (BASE = CBASE + CMAX)
 
 Each step is an internal node in postfix order: a merged opcode
 (0 = identity/copy, 1..B = binary, B+1..B+U = unary) plus one or two
 buffer addresses for its operands. Leaves vanish from the instruction
-stream: a variable child is an address < F, a constant child an address
-in [F, BASE). Single-leaf trees compile to one identity step.
+stream: a variable child is an address < F, a parameter child an
+address in [F, CBASE), a constant child an address in [CBASE, BASE).
+Single-leaf trees compile to one identity step.
 
 Validity: the kernel checks finiteness of every step's output per row;
 non-finite constants are caught by ``const_ok`` computed here, so
@@ -23,7 +26,7 @@ import dataclasses
 
 import torch
 
-from .encoding import LEAF_VAR, TreeBatch, lane_take, structure_from_arity
+from .encoding import LEAF_CONST, LEAF_PARAM, LEAF_VAR, TreeBatch, lane_take, structure_from_arity
 
 __all__ = ["TreeProgram", "compile_program", "program_cmax", "update_consts",
            "const_mask_compressed", "scatter_const_grads"]
@@ -60,26 +63,36 @@ class TreeProgram:
         return self.cvals.shape[-1]
 
 
-def compile_program(trees: TreeBatch, nfeatures: int, n_binary: int) -> TreeProgram:
-    """Lower a flat [T, L] TreeBatch to a TreeProgram (plain expressions:
-    LEAF_PARAM leaves alias constant leaves, as in the JAX package with
-    ``n_params == 0``)."""
+def compile_program(trees: TreeBatch, nfeatures: int, n_binary: int,
+                    n_params: int = 0) -> TreeProgram:
+    """Lower a flat [T, L] TreeBatch to a TreeProgram.
+
+    With ``n_params > 0`` LEAF_PARAM leaves address the parameter region
+    by parameter index (clipped to [0, NP)). With ``n_params == 0`` they
+    alias constant leaves through their ``const`` field, as in the JAX
+    package."""
     arity, op, feat, const, length = trees.fields()
     T, L = arity.shape
     dev = arity.device
     cmax = program_cmax(L)
-    CBASE = nfeatures
+    CBASE = nfeatures + n_params
     BASE = CBASE + cmax
     slot = torch.arange(L, dtype=torch.int32, device=dev)
 
     live = slot[None, :] < length[:, None]
     internal = live & (arity > 0)
     ci = torch.cumsum(internal.int(), dim=-1) - internal.int()
-    is_cleaf = live & (arity == 0) & (op != LEAF_VAR)
+    if n_params > 0:
+        is_cleaf = live & (arity == 0) & (op == LEAF_CONST)
+    else:
+        is_cleaf = live & (arity == 0) & (op != LEAF_VAR)
     cj = torch.cumsum(is_cleaf.int(), dim=-1) - is_cleaf.int()
 
     leaf_addr = torch.where(op == LEAF_VAR, torch.clamp(feat, 0, nfeatures - 1),
                             CBASE + torch.clamp(cj, 0, cmax - 1))
+    if n_params > 0:
+        leaf_addr = torch.where(op == LEAF_PARAM, nfeatures + torch.clamp(feat, 0, n_params - 1),
+                                leaf_addr)
     addr = torch.where(internal, BASE + ci, leaf_addr).to(torch.int32)
 
     child, _, _ = structure_from_arity(arity, need_depth=False)

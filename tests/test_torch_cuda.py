@@ -84,6 +84,75 @@ def test_kernel_matches_plain_version(cuda_device, binary, n, loss):
     _close(ck, cp)
 
 
+def _param_args(device, binary, n: int, T: int = 512, NP: int = 2, NC: int = 3):
+    """Random parametric trees (a mutation context with n_params = NP),
+    their banks, a class column and hostile entries: every fifth tree's
+    const_ok cleared, every 97th row's X at +-1e20, and every 11th tree's
+    bank +inf for class 2 only."""
+    opts = _options(binary)
+    cfg = evolve_config_from_options(opts, 3, device, n_params=NP, n_classes=NC)
+    trees = init_population(rng.split(rng.key(5, device=device), T // 64), 64,
+                            cfg.mctx, nlength=5).reshape(-1)
+    g = np.random.default_rng(2)
+    Xn = g.uniform(-3, 3, (3, n)).astype(np.float32)
+    Xn[:, ::97] = 1e20 * np.sign(g.normal(size=Xn[:, ::97].shape))
+    X = torch.from_numpy(Xn).to(device)
+    y = torch.from_numpy(g.normal(size=n).astype(np.float32)).to(device)
+    w = torch.from_numpy(np.where(g.random(n) < 0.1, 0.0, g.uniform(0.2, 2, n))
+                         .astype(np.float32)).to(device)
+    bank = g.normal(size=(T, NP, NC)).astype(np.float32)
+    bank[::11, :, 2] = np.inf
+    cls = torch.from_numpy(g.integers(0, NC, n).astype(np.int32)).to(device)
+    prog = compile_program(trees, 3, len(opts.operators.binary), n_params=NP)
+    instr, nsteps, cvals, ok, Xc, yc, wc = SF._launch_inputs(prog, X, y, w, 3, opts.operators,
+                                                             NP)
+    ok = torch.where(torch.arange(T, device=device) % 5 == 0, 0, ok).to(torch.int32)
+    return opts.operators, (instr, nsteps, cvals, ok, torch.from_numpy(bank).to(device), cls,
+                            Xc, yc, wc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binary", [("+", "-", "*", "/"), ("*", "/", "-")])
+@pytest.mark.parametrize("n", [257, 10_000])
+def test_param_kernel_matches_plain_version(cuda_device, binary, n):
+    """Kernel #1's parametric form (``bank[t, p, class_idx[r]]``) against
+    its plain version: validity bit-equal, loss sum within rtol 1e-5 with
+    NaN and +-inf in the same places, two launches bit-identical, one count
+    per launch; the plain form's count untouched."""
+    ops, args = _param_args(cuda_device, binary, n)
+    kernel = SF.ProgramEvalParamKernel()
+    plain_before = SF.PROGRAM_EVAL.launches
+    lk, vk = kernel(*args, ops, SL.l2_dist_loss)
+    lk2, vk2 = kernel(*args, ops, SL.l2_dist_loss)
+    assert kernel.launches == 2 and SF.PROGRAM_EVAL.launches == plain_before
+    lp, vp = SF.program_eval_plain(*args[:4], *args[6:], ops, SL.l2_dist_loss, bank=args[4],
+                                   class_idx=args[5])
+    assert torch.equal(lk.view(torch.int32), lk2.view(torch.int32)) and torch.equal(vk, vk2)
+    assert torch.equal(vk, vp) and 0 < int(vk.sum()) < vk.numel()
+    _close(torch.where(vp, lk, torch.inf), torch.where(vp, lp, torch.inf))
+
+
+@pytest.mark.cuda
+def test_parametric_engine_launches_param_kernel(cuda_device):
+    """A parametric search's candidate evals and finalize go through the
+    parametric form only: one launch per cycle plus one per iteration."""
+    opts = _options(expression_spec=S.ParametricExpressionSpec(max_parameters=1))
+    g = np.random.default_rng(1)
+    X = g.uniform(-3, 3, (300, 3)).astype(np.float32)
+    cls = g.integers(0, 3, 300)
+    y = (np.array([1.0, 2.0, 3.0])[cls] * np.cos(X[:, 0]) + X[:, 1]).astype(np.float32)
+    ds = S.make_dataset(X, y, extra={"class": cls}, device=cuda_device)
+    ds.update_baseline_loss(opts.elementwise_loss)
+    engine = Engine(opts, 3, device=cuda_device, n_params=1, n_classes=3)
+    state = engine.init_state(rng.key(0, device=cuda_device), ds.data, opts.populations)
+    before = (SF.PROGRAM_EVAL.launches, SF.PROGRAM_EVAL_PARAM.launches)
+    state = engine.run_iteration(state, ds.data, opts.maxsize)
+    torch.cuda.synchronize()
+    assert SF.PROGRAM_EVAL.launches == before[0]
+    assert SF.PROGRAM_EVAL_PARAM.launches - before[1] == opts.ncycles_per_iteration + 1
+    assert bool(torch.isfinite(state.hof.loss[state.hof.exists]).all())
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_bad_inputs(cuda_device):
     ops, args, _, _ = _launch_args(cuda_device, ("+", "*"), 64, T=64)

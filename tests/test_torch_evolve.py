@@ -151,7 +151,7 @@ def test_fold_constants_equal(seed):
     jo, so = _config(unary_operators=["cos", "exp", "abs"])
     jcfg = JS.evolve_config_from_options(jo, 3)
     jt = j_init_population(jax.random.key(seed), 64, jcfg.mctx, jnp.float32, nlength=7)
-    st = interop.tree_batch(jax.tree.map(np.asarray, jt))
+    st = interop.tree_batch(jax.tree.map(np.asarray, jt), device="cpu")
     assert_trees_equal(j_fold(jt, jcfg.operators), s_fold(st, so.operators))
 
 
@@ -166,7 +166,7 @@ def _setup(seed: int, n_islands: int, ncycles: int, annealing: bool):
                      tournament_selection_n=8, annealing=annealing, turbo=False)
     jds = J.make_dataset(X, y)
     jds.update_baseline_loss(jo.elementwise_loss)
-    return jo, so, jds, interop.device_data(jax.tree.map(np.asarray, jds.data))
+    return jo, so, jds, interop.device_data(jax.tree.map(np.asarray, jds.data), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -207,7 +207,7 @@ def test_generation_step_equal(seed, gen_setup, step_fn):
     jp, jn, jb, jr, jm = step_fn(jo, je)(k, pop, jds.data, nf, temp, jnp.int32(16),
                                          jnp.int32(16), marks)
 
-    sp = interop.population_state(jax.tree.map(lambda x: np.asarray(x)[None], pop))
+    sp = interop.population_state(jax.tree.map(lambda x: np.asarray(x)[None], pop), device="cpu")
     smarks = (torch.zeros((1, 16), dtype=torch.bool), torch.zeros((1, 16), dtype=torch.bool))
     out = SS.generation_step(port_key(k)[None], sp, sd, torch.from_numpy(to_np(nf).copy()),
                              torch.tensor(0.5), MAXSIZE, torch.tensor([16], dtype=torch.int32),
@@ -255,7 +255,7 @@ def test_run_iteration_equal(engines, annealing, seed):
     ss_init = se.init_state(port_key(jkey), sd, 2)
     assert_pops_equal(js.pops, ss_init.pops)
 
-    ss = interop.search_state(numpy_state(js))   # before run_iteration donates js
+    ss = interop.search_state(numpy_state(js), device="cpu")   # before run_iteration donates js
     js2 = je.run_iteration(js, jds.data, MAXSIZE)
     ss2 = se.run_iteration(ss, sd, MAXSIZE)
     assert_pops_equal(js2.pops, ss2.pops)

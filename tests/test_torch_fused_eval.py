@@ -75,7 +75,7 @@ def _batch(layout: str, seed: int, T: int = 56):
                                 MAXSIZE, cfg.operators)
     jt = jax.tree.map(lambda a, b: jnp.concatenate([a, b]), rand, hand)
     return cfg.operators, S.OperatorSet(binary, unary), jt, interop.tree_batch(
-        jax.tree.map(np.asarray, jt))
+        jax.tree.map(np.asarray, jt), device="cpu")
 
 
 def _t(a):
@@ -137,7 +137,7 @@ def test_fused_loss_dedup(seed):
     JAX package's dedup path; structure-only duplicates do not merge."""
     jops, sops, jt, _ = _batch("merged", seed, T=24)
     jt = _duplicated(jt, seed)
-    st = interop.tree_batch(jax.tree.map(np.asarray, jt))
+    st = interop.tree_batch(jax.tree.map(np.asarray, jt), device="cpu")
     X, y, w = _data(257, True, seed)
     l_nd, v_nd = SF.fused_loss(st, _t(X), _t(y), _t(w), sops, SL.l2_dist_loss, dedup=False)
     l_dd, v_dd = SF.fused_loss(st, _t(X), _t(y), _t(w), sops, SL.l2_dist_loss, dedup=True)
@@ -417,7 +417,7 @@ def test_every_operator_gradient_matches_jax_kernel():
         J.ops.tree.Node(op=op, children=[parse("x1 * 1.0"), parse("x2 + 0.0")])
         for op in jops.binary]
     jt = JE.encode_population(trees, 8, jops)
-    st = interop.tree_batch(jax.tree.map(np.asarray, jt))
+    st = interop.tree_batch(jax.tree.map(np.asarray, jt), device="cpu")
     edges = np.array([-3, -2, -1.25, -1, -0.75, -0.5, -0.25, 0, 0.25, 0.5, 0.75, 1, 1.25, 2, 3],
                      np.float32)
     n = 64

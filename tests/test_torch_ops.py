@@ -130,7 +130,7 @@ def _random_trees(seed: int, binary, unary, n: int = 64, nfeatures: int = 3):
                      save_to_file=False)
     cfg = j_cfg(opts, nfeatures)
     jt = j_init_population(jax.random.key(seed), n, cfg.mctx, jnp.float32, nlength=6)
-    return opts, cfg, jt, interop.tree_batch(jax.tree.map(np.asarray, jt))
+    return opts, cfg, jt, interop.tree_batch(jax.tree.map(np.asarray, jt), device="cpu")
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import symbolicregression_jl_tpu_torch as S
+from symbolicregression_jl_tpu_torch import interop
 from symbolicregression_jl_tpu_torch.evolve.engine import Engine
 from symbolicregression_jl_tpu_torch.models import D, ParametricExpressionSpec, template_spec
 from symbolicregression_jl_tpu_torch.ops.encoding import encode_population
@@ -95,9 +96,6 @@ def test_kernel_wrapper_not_launched_on_cpu():
     dict(use_recorder=True),
     dict(dimensional_constraint_penalty=1000.0),
     dict(loss_function=lambda pred, y, w: 0.0),
-    dict(expression_spec=ParametricExpressionSpec(max_parameters=1)),
-    dict(expression_spec=template_spec(expressions=("f",), parameters={"p": 1})(
-        lambda f, x1, x2, p: f(x1) * p[0] + x2)),
     dict(expression_spec=template_spec(expressions=("f",))(lambda f, x1, x2: D(f, 1)(x1) + x2),
          should_optimize_constants=True),
 ])
@@ -148,11 +146,44 @@ def test_default_options_search_runs_the_constant_optimizer(monkeypatch):
 @pytest.mark.parametrize("kw", [dict(resume="auto"), dict(saved_state=object()),
                                 dict(X_units=["m", "s"]), dict(return_state=True),
                                 dict(runtime_options=object()), dict(dtype=np.float64),
-                                dict(guesses=["x1"])])
+                                dict(guesses=["x1"]), dict(extra={"weights2": [1.0]})])
 def test_search_arguments_outside_the_slice_refuse(kw):
     with pytest.raises(NotImplementedError, match="PyTorch port"):
         S.equation_search(*_problem(n=16), options=_options(), niterations=1, device="cpu",
                           **kw)
+
+
+def test_parametric_search_on_the_cpu():
+    """A parametric search runs through equation_search with a class
+    column (y = 2 x1 + offset[class]; turbo=True, so candidates go
+    through kernel #1p's wrapper, its plain version here, which counts no
+    launch): its entries carry (1, 3) banks and print their parameter
+    leaves; one seed gives one hall of fame; without the class column it
+    raises ValueError, and guesses stay refused."""
+    from symbolicregression_jl_tpu_torch.ops.fused_eval import PROGRAM_EVAL_PARAM
+
+    rng = np.random.default_rng(3)
+    X = rng.uniform(-2, 2, (96, 2)).astype(np.float32)
+    cls = rng.integers(0, 3, 96)
+    y = (2.0 * X[:, 0] + np.array([1.0, -2.0, 0.5])[cls]).astype(np.float32)
+    o = _options(binary_operators=["+", "*"], unary_operators=[], maxsize=8,
+                 expression_spec=ParametricExpressionSpec(max_parameters=1),
+                 ncycles_per_iteration=4, turbo=True)
+    before = PROGRAM_EVAL_PARAM.launches
+    runs = [S.equation_search(X, y, options=o, niterations=2, seed=1, extra={"class": cls},
+                              device="cpu") for _ in range(2)]
+    assert PROGRAM_EVAL_PARAM.launches == before
+    hof = runs[0]
+    assert [(e.loss, e.equation_string()) for e in hof.entries] == [
+        (e.loss, e.equation_string()) for e in runs[1].entries]
+    assert all(e.params is not None and e.params.shape == (1, 3) for e in hof.entries)
+    assert np.isfinite(min(e.loss for e in hof.entries))
+    assert any("p1" in e.equation_string() for e in hof.entries)
+    with pytest.raises(ValueError, match="class"):
+        S.equation_search(X, y, options=o, niterations=1, device="cpu")
+    with pytest.raises(NotImplementedError, match="PyTorch port"):
+        S.equation_search(X, y, options=o, niterations=1, device="cpu", guesses=["x1"],
+                          extra={"class": cls})
 
 
 def test_entry_points_refuse_missing_cuda(monkeypatch):
@@ -169,6 +200,8 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     ops = _options().operators
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         encode_population([S.parse_expression("x1 * 2.0", ops)], 4, ops)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        interop.tensor(np.zeros(3, np.float32))
 
 
 def _imports(path: pathlib.Path):
@@ -192,10 +225,14 @@ def test_port_sources_import_no_jax():
 @pytest.mark.parametrize("spec", [
     "None",
     "template_spec(expressions=('f', 'g'))(lambda f, g, x1, x2: g(f(x1), x2))",
+    "template_spec(expressions=('f',), parameters={'p': 1})"
+    "(lambda f, x1, x2, p: f(x1) * p[0] + x2)",
+    "S.ParametricExpressionSpec(max_parameters=1)",
 ])
 def test_port_search_runs_without_jax_loaded(spec):
-    """A fresh interpreter runs a tiny port search, plain or template, and
-    never loads JAX or the JAX package."""
+    """A fresh interpreter runs a tiny port search (plain, template,
+    template with parameters, parametric with a class column) and never
+    loads JAX or the JAX package."""
     code = (
         "import sys, json, numpy as np\n"
         "import symbolicregression_jl_tpu_torch as S\n"
@@ -205,7 +242,9 @@ def test_port_search_runs_without_jax_loaded(spec):
         "o = S.Options(binary_operators=['+', '*'], populations=2, population_size=16,\n"
         "              ncycles_per_iteration=2, tournament_selection_n=4, maxsize=8,\n"
         f"              expression_spec={spec}, save_to_file=False)\n"
-        "S.equation_search(X, y, options=o, niterations=1, seed=0, device='cpu')\n"
+        "extra = {'class': np.arange(32) % 3} if isinstance(o.expression_spec,\n"
+        "    S.ParametricExpressionSpec) else None\n"
+        "S.equation_search(X, y, options=o, niterations=1, seed=0, device='cpu', extra=extra)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "      ('jax', 'jaxlib', 'symbolicregression_jl_tpu'))))\n"
     )

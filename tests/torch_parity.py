@@ -30,7 +30,7 @@ def key_words(key) -> np.ndarray:
 
 
 def port_key(key):
-    return interop.key(key_words(key))
+    return interop.key(key_words(key), device="cpu")
 
 
 def numpy_state(state):
