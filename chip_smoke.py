@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--ncycles N] [--ncycles-plain N]
+    python3 chip_smoke.py [--ncycles N] [--ncycles-plain N] [--ncycles-stage N]
 
 Phases (any failure exits nonzero and prints no result line):
 
 1. Require CUDA (no CPU fallback); print the card's name and power limit.
 2. Build the kernels' five sources (csrc/program_eval.cu, which holds
-   #1 and its parametric form #1p, program_multi.cu, program_grad.cu,
+   #1, its parametric form #1p and their bf16 forms 1b, program_multi.cu
+   with #2 and its bf16 form 2b, program_grad.cu,
    program_predict.cu, program_predict_vjp.cu) from the checkout, one
    nvcc per source, all started together.
 3. Hold kernel #1 against its plain PyTorch version at the benchmark
@@ -96,6 +97,37 @@ Phases (any failure exits nonzero and prints no result line):
    tests/test_template.py's template with parameters f(x1) + p[0] x2 +
    p[1]; fails past those tests' thresholds.
 
+16. Hold kernel 1b (#1 with a bf16 value buffer) against its plain bf16
+   version on phase 3's inputs (cost and plain forms) and phase 12's
+   (parametric form), and kernel 2b (#2 with a bf16 buffer) on phase 4's
+   (V = 24): validity bit-equal, NaN and +-inf in the same places, trees of
+   + - * / abs within rtol 1e-5 (both sides store the same bf16 bits), the
+   others with a median relative error below 1e-4 and every one below 1e-2
+   (an ULP of a transcendental in float32 can flip one bf16 rounding); two
+   launches bit-identical; 2b with V = 1 bit-equal to 1b's plain form; and
+   against #1/#1p/#2 in float32 on the same inputs, the rank contract of
+   tests/test_staged_eval.py (finite verdicts agree on 90%, median relative
+   error below 0.02, top-quartile overlap at least 75%). Times each kernel
+   and its float32 counterpart (CUDA events) and reckons the bounds.
+17. The JAX package's graftstage cells at full width (bench/cell.py FULL,
+   variants plain, plain-staged, plain-bf16, plain-staged-bf16: 512 islands
+   x 256, tournament 16, maxsize 30, + - * cos, 10,000 rows x 2 features
+   from seed 1234, y = cos(2.13 x1) + 0.5 x2, optimizer_probability 0,
+   sample fraction 0.125, rescore fraction 0.25) at --ncycles-stage cycles
+   (30): launches per iteration exactly ncycles + 1 of #1 / 1b, or 2 x
+   ncycles + 1 staged (a screen and a rescore per cycle, the finalize
+   without dedup under bf16); after the staged runs every population cost
+   equals an unstaged re-eval at the same precision within rtol 1e-5.
+18. Phase 5's configuration with optimizer_bf16_linesearch at
+   STAGE_LS_CYCLES = 10 cycles: 8 launches of 2b and 9 of #3 per
+   iteration, none of #2; the f_calls share and the best loss beside
+   phase 5's.
+19. equation_search with staged_eval, eval_precision="bf16" and the bf16
+   line search on the plain cell's problem (16 islands x 64) and on phase
+   15's parametric problem: kernels 1b, 2b and 1b's parametric form only;
+   the best member's loss recomputed on the host in float64 from its
+   decoded expression within the bf16 tolerance BF16_SEARCH_TOL.
+
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -131,14 +163,14 @@ def bench_data():
     return X, y
 
 
-def bench_options(sr, ncycles: int, populations: int = 0, optimize: bool = True):
+def bench_options(sr, ncycles: int, populations: int = 0, optimize: bool = True, **kw):
     """The headline configuration; ``populations`` 0 means ISLANDS."""
     populations = populations or ISLANDS
     return sr.Options(
         binary_operators=["+", "-", "*", "/"], unary_operators=["exp", "abs", "cos"],
         maxsize=30, populations=populations, population_size=256,
         tournament_selection_n=16, ncycles_per_iteration=ncycles,
-        should_optimize_constants=optimize, save_to_file=False)
+        should_optimize_constants=optimize, save_to_file=False, **kw)
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -201,9 +233,9 @@ def bound(ops_count: float, bytes_moved: float):
     return max(bound_ops, bound_bytes), "operations" if bound_ops >= bound_bytes else "bytes"
 
 
-def phase_kernel(torch, sr, dev):
-    """Phase 3: kernel #1 against its plain version at the bench shapes."""
-    from symbolicregression_jl_tpu_torch.core.losses import loss_to_cost
+def kernel1_inputs(torch, sr, dev):
+    """Kernel #1's inputs at the bench shapes (phases 3 and 16): 16,384
+    random trees (maxsize 30, + - * / exp abs cos) over the bench data."""
     from symbolicregression_jl_tpu_torch.evolve import rng
     from symbolicregression_jl_tpu_torch.evolve.population import init_population
     from symbolicregression_jl_tpu_torch.evolve.step import evolve_config_from_options
@@ -219,18 +251,27 @@ def phase_kernel(torch, sr, dev):
     data = ds.data
     cfg = evolve_config_from_options(options, N_FEATURES, dev)
     trees = init_population(rng.split(rng.key(1, device=dev), 64), 256, cfg.mctx).reshape(-1)
-    T = trees.length.shape[0]
     tables = build_complexity_tables(options, N_FEATURES, dev)
     cx = compute_complexity_batch(trees, tables)
-    ops, el = options.operators, options.elementwise_loss
-
+    ops = options.operators
     prog = compile_program(trees, N_FEATURES, len(ops.binary))
     args = FE._launch_inputs(prog, data.Xt, data.y, data.weights, N_FEATURES, ops)
     denom = FE._denominator(data.weights, data.Xt)
     norm = FE.baseline_normalization(data.baseline_loss, data.use_baseline)
     scal = torch.stack([denom, norm, torch.tensor(options.parsimony, dtype=torch.float32,
                                                   device=dev)]).contiguous()
-    cxf = cx.to(torch.float32).contiguous()
+    return options, data, trees, cx, prog, args, scal, cx.to(torch.float32).contiguous()
+
+
+def phase_kernel(torch, sr, dev):
+    """Phase 3: kernel #1 against its plain version at the bench shapes."""
+    from symbolicregression_jl_tpu_torch.core.losses import loss_to_cost
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+    options, data, trees, cx, prog, args, scal, cxf = kernel1_inputs(torch, sr, dev)
+    T = trees.length.shape[0]
+    ops, el = options.operators, options.elementwise_loss
+    denom = scal[0]
 
     kernel = FE.PROGRAM_EVAL
     loss_k, valid_k = kernel(*args, ops, el)
@@ -297,9 +338,10 @@ def phase_kernel(torch, sr, dev):
     }
 
 
-def phase_opt_kernels(torch, sr, dev):
-    """Phase 4: kernels #2 and #3 against their plain versions at the
-    constant optimizer's bench shapes."""
+def opt_kernel_inputs(torch, sr, dev):
+    """Kernels #2/#3's inputs at the constant optimizer's bench shapes
+    (phases 4 and 16): 18,432 trees (512 islands x 36 selected), their
+    constants perturbed V = 24 (line search) and V = 3 (gradient) ways."""
     from symbolicregression_jl_tpu_torch.evolve import rng
     from symbolicregression_jl_tpu_torch.evolve.population import init_population
     from symbolicregression_jl_tpu_torch.evolve.step import evolve_config_from_options
@@ -333,6 +375,19 @@ def phase_opt_kernels(torch, sr, dev):
         return cv.contiguous()
 
     cv_ls, cv_g = variants(V_ls), variants(R)
+    return (options, trees, prog, (instr, nsteps, cvals, const_ok, Xt, yt, w), nconst, R, V_ls,
+            cv_ls, cv_g)
+
+
+def phase_opt_kernels(torch, sr, dev):
+    """Phase 4: kernels #2 and #3 against their plain versions at the
+    constant optimizer's bench shapes."""
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+    (options, trees, prog, (instr, nsteps, cvals, const_ok, Xt, yt, w), nconst, R, V_ls, cv_ls,
+     cv_g) = opt_kernel_inputs(torch, sr, dev)
+    T = trees.length.shape[0]
+    ops, el = options.operators, options.elementwise_loss
     check = Checks()
     _same = lambda a, b: same(torch, a, b)
     _close = lambda a, b: close(torch, a, b)
@@ -422,7 +477,8 @@ def phase_opt_kernels(torch, sr, dev):
 
 
 KERNEL_NAMES = ("PROGRAM_EVAL", "PROGRAM_MULTI", "PROGRAM_GRAD", "PROGRAM_PREDICT",
-                "PROGRAM_PREDICT_VJP", "PROGRAM_EVAL_PARAM")
+                "PROGRAM_PREDICT_VJP", "PROGRAM_EVAL_PARAM", "PROGRAM_EVAL_BF16",
+                "PROGRAM_EVAL_PARAM_BF16", "PROGRAM_MULTI_BF16")
 
 
 def kernels():
@@ -486,28 +542,41 @@ def run_engine(torch, sr, dev, options, iters: int = 2, data=None, on_engine=Non
     return launches, state, engine, evals
 
 
+def expect(launches, **counts):
+    """The launch counts a path must show: ``counts``, every other kernel 0."""
+    expected = dict.fromkeys(launches, 0)
+    expected.update(counts)
+    return expected
+
+
+def best_loss(state) -> float:
+    """The hall of fame's best loss."""
+    return float(state.hof.loss[state.hof.exists].min())
+
+
 def phase_main_path(torch, sr, dev, ncycles: int):
-    """Phase 5: the headline configuration, constant optimizer on."""
+    """Phase 5: the headline configuration, constant optimizer on. Returns
+    the launches and the hall of fame's best loss."""
     options = bench_options(sr, ncycles)
     iters = 2
-    launches, _, _, _ = run_engine(torch, sr, dev, options, iters)
-    expected = {"program_eval": iters * (ncycles + 1),              # each cycle + finalize
-                "program_multi": iters * options.optimizer_iterations,     # line searches
-                "program_grad": iters * (options.optimizer_iterations + 1),  # + the first
-                "program_predict": 0, "program_predict_vjp": 0, "program_eval_param": 0}
+    launches, state, _, _ = run_engine(torch, sr, dev, options, iters)
+    expected = expect(launches,
+                      program_eval=iters * (ncycles + 1),              # each cycle + finalize
+                      program_multi=iters * options.optimizer_iterations,     # line searches
+                      program_grad=iters * (options.optimizer_iterations + 1))  # + the first
     print(f"  expected {expected}")
     if launches != expected or 0 in (launches[k] for k in ("program_eval", "program_multi",
                                                             "program_grad")):
         raise RuntimeError(f"main path launched {launches}, expected {expected}")
-    return launches
+    print(f"  hall of fame best loss {best_loss(state):.6g}")
+    return launches, best_loss(state)
 
 
 def phase_no_optimizer(torch, sr, dev, ncycles: int):
     """Phase 6: the first slice's path (no constant optimizer), cut depth."""
     options = bench_options(sr, ncycles, optimize=False)
     launches, _, _, _ = run_engine(torch, sr, dev, options, iters=2)
-    expected = {"program_eval": 2 * (ncycles + 1), "program_multi": 0, "program_grad": 0,
-                "program_predict": 0, "program_predict_vjp": 0, "program_eval_param": 0}
+    expected = expect(launches, program_eval=2 * (ncycles + 1))
     if launches != expected:
         raise RuntimeError(f"no-optimizer path launched {launches}, expected {expected}")
 
@@ -709,9 +778,7 @@ def phase_template_main_path(torch, sr, dev):
     iters = 2
     launches, state, engine, _ = run_engine(torch, sr, dev, options, iters,
                                             data=template_data())
-    expected = {"program_eval": 0, "program_multi": 0, "program_grad": 0,
-                "program_predict": iters * 3 * (ncycles + 1), "program_predict_vjp": 0,
-                "program_eval_param": 0}
+    expected = expect(launches, program_predict=iters * 3 * (ncycles + 1))
     print(f"  expected {expected}")
     if launches != expected:
         raise RuntimeError(f"template path launched {launches}, expected {expected}")
@@ -752,9 +819,7 @@ def phase_template_optimizer(torch, sr, dev):
     expected5 = iters * 3 * passes
     expected4 = iters * 3 * (ncycles + 1 + passes + options.optimizer_iterations)
     print(f"  expected program_predict_vjp {expected5}, program_predict {expected4}")
-    if (launches["program_predict_vjp"] != expected5 or launches["program_predict"] != expected4
-            or launches["program_eval"] or launches["program_multi"] or launches["program_grad"]
-            or launches["program_eval_param"]):
+    if launches != expect(launches, program_predict_vjp=expected5, program_predict=expected4):
         raise RuntimeError(f"template optimizer launched {launches}")
     print(f"  launches in the optimizer: #5 {launches['program_predict_vjp']}, #4 "
           f"{launches['program_predict'] - iters * 3 * (ncycles + 1)}")
@@ -814,8 +879,11 @@ def parametric_options(sr, ncycles: int, populations: int = 0, **kw):
     return sr.Options(**base)
 
 
-def phase_param_kernel(torch, sr, dev):
-    """Phase 12: kernel #1's parametric form against its plain version."""
+def param_kernel_inputs(torch, sr, dev):
+    """Kernel #1p's inputs (phases 12 and 16): 16,384 random parametric
+    trees (F = 2, NP = 2, NC = 3), 10,000 rows, every fifth tree's const_ok
+    cleared, every 97th row's X at +-OVERFLOW, every 11th tree's bank +inf
+    for class 2 only."""
     from symbolicregression_jl_tpu_torch.evolve import rng
     from symbolicregression_jl_tpu_torch.evolve.population import init_population
     from symbolicregression_jl_tpu_torch.evolve.step import evolve_config_from_options
@@ -841,7 +909,19 @@ def phase_param_kernel(torch, sr, dev):
     instr, nsteps, cvals, ok, Xc, yc, w = FE._launch_inputs(prog, X, y, None, F, ops, NP)
     ok = ok.clone()
     ok[::5] = 0
-    args = (instr, nsteps, cvals, ok, bank, cls, Xc, yc, w)
+    return options, trees, X, y, (instr, nsteps, cvals, ok, bank, cls, Xc, yc, w)
+
+
+def phase_param_kernel(torch, sr, dev):
+    """Phase 12: kernel #1's parametric form against its plain version."""
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+    from symbolicregression_jl_tpu_torch.ops.program import compile_program
+
+    F, NP, NC, n = 2, 2, 3, N_ROWS
+    options, trees, X, y, args = param_kernel_inputs(torch, sr, dev)
+    instr, nsteps, cvals, ok, bank, cls, Xc, yc, w = args
+    T = trees.length.shape[0]
+    ops, el = options.operators, options.elementwise_loss
 
     kernel = FE.PROGRAM_EVAL_PARAM
     lk, vk = kernel(*args, ops, el)
@@ -990,12 +1070,430 @@ def phase_plugin_searches(torch, sr, dev):
                            "(loss < 1e-6, p = [3, -0.5] within 1e-2)")
 
 
+# ---------------------------------------------------------------------------
+# graftstage: bf16 value buffers (kernels 1b and 2b) and staged evaluation
+# ---------------------------------------------------------------------------
+
+STAGE_CELLS = ("plain", "plain-staged", "plain-bf16", "plain-staged-bf16")
+STAGE_LS_CYCLES = 10                # phase 18's cut depth (the optimizer runs once per iteration)
+BF16_TRANSCENDENTAL_MEDIAN = 1e-4   # kernel vs plain, trees with a transcendental step
+BF16_TRANSCENDENTAL_MAX = 1e-2
+
+
+def inexact_trees(torch, instr, nsteps, operators):
+    """[T] bool: a live step applies a unary operator other than abs, whose
+    float32 value the kernel and the plain version may round an ULP apart;
+    such an ULP can flip one bf16 rounding (2^-8 relative)."""
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+    tab = torch.tensor(FE._optab_list(operators), device=instr.device)
+    mask = 0x3F if FE._dispatch_plan(operators).merged else 0x7F
+    entry = tab[((instr >> 24) & mask).long()]
+    live = torch.arange(instr.shape[1], device=instr.device)[None, :] < nsteps[:, None]
+    unary = ((entry >> 8) == FE._K_UNARY) & ((entry & 0xFF) != FE._KERNEL_OP_IDS["abs"])
+    return (live & unary).any(dim=1)
+
+
+def bf16_close(torch, a, b, inexact):
+    """Kernel 1b/2b against its plain bf16 version: NaN and +-inf in the
+    same places; on trees of exact operators (+ - * / abs) within rtol
+    1e-5 (the same stored bf16 bits, rows summed in another order); on the
+    others a median relative error below BF16_TRANSCENDENTAL_MEDIAN and
+    every one below BF16_TRANSCENDENTAL_MAX. Returns (ok, worst relative
+    error on exact trees, median and worst on the others, worst absolute
+    error)."""
+    if not nonfinite_match(torch, a, b):
+        return False, float("inf"), float("inf"), float("inf"), float("inf")
+    ex = ~inexact.reshape(inexact.shape + (1,) * (a.dim() - 1)).expand_as(a)
+    fin = torch.isfinite(b)
+    err = (a - b).abs()
+    rel = err / b.abs().clamp(min=1e-30)
+    r_ex = rel[fin & ex]
+    r_in = rel[fin & ~ex]
+    worst_ex = float(r_ex.max()) if r_ex.numel() else 0.0
+    med_in = float(r_in.median()) if r_in.numel() else 0.0
+    worst_in = float(r_in.max()) if r_in.numel() else 0.0
+    ok = (worst_ex <= RTOL and med_in < BF16_TRANSCENDENTAL_MEDIAN
+          and worst_in < BF16_TRANSCENDENTAL_MAX)
+    return ok, worst_ex, med_in, worst_in, float(err[fin].max()) if fin.any() else 0.0
+
+
+def rank_contract(torch, f32, b16):
+    """tests/test_staged_eval.py's contract of bf16 against f32 on the same
+    inputs: finite verdicts agree on 90%, median relative error below 0.02,
+    top-quartile overlap at least 75%. Returns (ok, median relative error,
+    overlap fraction, finite-agreement fraction)."""
+    a, b = f32.double(), b16.double()
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    agree = float((fa == fb).double().mean())
+    both = fa & fb
+    rel = ((b - a).abs() / (a.abs() + 1e-6))[both]
+    med = float(rel.median()) if rel.numel() else 0.0
+    k = max(1, int(both.sum()) // 4)
+    top_a = set(torch.argsort(torch.where(both, a, torch.inf))[:k].tolist())
+    top_b = set(torch.argsort(torch.where(both, b, torch.inf))[:k].tolist())
+    overlap = len(top_a & top_b) / k
+    return agree >= 0.9 and med < 0.02 and overlap >= 0.75, med, overlap, agree
+
+
+def phase_bf16_kernels(torch, sr, dev):
+    """Phase 16: kernels 1b (cost, plain and parametric forms) and 2b
+    against their plain bf16 versions at phases 3, 12 and 4's shapes, and
+    against kernels #1/#1p/#2 in float32 on the same inputs (the rank
+    contract)."""
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+    check = Checks()
+    _same = lambda a, b: same(torch, a, b)
+    rows = []
+
+    # 1b, cost and plain forms, on phase 3's inputs.
+    options, data, trees, cx, prog, args, scal, cxf = kernel1_inputs(torch, sr, dev)
+    ops, el = options.operators, options.elementwise_loss
+    argsb = args[:4] + (FE._bf16_rows(args[4]),) + args[5:]
+    T = trees.length.shape[0]
+    n = N_ROWS
+    inexact = inexact_trees(torch, args[0], args[1], ops)
+    k1b = FE.PROGRAM_EVAL_BF16
+    lk, vk = k1b(*argsb, ops, el)
+    lk2, vk2 = k1b(*argsb, ops, el)
+    lck, vck, ck = k1b(*argsb, ops, el, cx=cxf, scal=scal)
+    lck2, vck2, ck2 = k1b(*argsb, ops, el, cx=cxf, scal=scal)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lcp, vcp, cp = FE.program_eval_plain(*argsb, ops, el, cx=cxf, scal=scal, bf16=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    lp, vp = FE.program_eval_plain(*argsb, ops, el, bf16=True)
+    check("1b two launches bit-identical (plain and cost forms)",
+          _same(lk, lk2) and _same(vk, vk2) and _same(lck, lck2) and _same(ck, ck2))
+    check("1b validity bit-equal (plain and cost forms)", _same(vk, vp) and _same(vck, vcp))
+    errs = []
+    for what, a, b in (("plain-form loss sum", torch.where(vp, lk, torch.inf),
+                        torch.where(vp, lp, torch.inf)),
+                       ("cost-form loss", lck, lcp), ("cost", ck, cp)):
+        ok, wex, med, win, aerr = bf16_close(torch, a, b, inexact)
+        errs.append(aerr)
+        check(f"1b {what}: non-finite in the same places; + - * / abs trees within rtol "
+              f"{RTOL} (worst {wex:.3g}); {int(inexact.sum())} transcendental trees median "
+              f"{med:.3g} < {BF16_TRANSCENDENTAL_MEDIAN:g}, worst {win:.3g} < "
+              f"{BF16_TRANSCENDENTAL_MAX:g}", ok)
+    l32, v32, c32 = FE.PROGRAM_EVAL(*args, ops, el, cx=cxf, scal=scal)
+    ok, med, overlap, agree = rank_contract(torch, c32, ck)
+    check(f"1b rank contract against #1 (cost): finite verdicts agree {agree:.4f} >= 0.9, "
+          f"median relative error {med:.3g} < 0.02, top-quartile overlap {overlap:.4f} >= 0.75",
+          ok)
+    ms = cuda_ms(torch, lambda: k1b(*argsb, ops, el, cx=cxf, scal=scal), reps=10)
+    ms32 = cuda_ms(torch, lambda: FE.PROGRAM_EVAL(*args, ops, el, cx=cxf, scal=scal), reps=10)
+    L, CMAX = args[0].shape[1], args[2].shape[1]
+    step_rows = float(prog.nsteps.to(torch.float64).sum()) * n
+    ops_count = step_rows + 4.0 * n * T
+    bytes_moved = (4.0 * (T * L + T + T * CMAX + T + 2 * n + T + 3 + 3 * T)
+                   + 2.0 * N_FEATURES * n)          # X in bf16
+    b1, by1 = bound(ops_count, bytes_moved)
+    print(f"  1b program_eval_bf16 (cost form, {T} trees x {n} rows, "
+          f"{int(vck.sum())} valid): {ms:.4f} ms (CUDA events, mean of 10), #1 on the same "
+          f"inputs {ms32:.4f} ms, plain {plain_ms:.1f} ms, bound {b1:.4f} ms ({by1})")
+    rows.append({"name": k1b.name, "route": "cuda", "source": k1b.source,
+                 "replaces": k1b.replaces, "launches": None, "max_abs_err": max(errs), "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b1, "bound_by": by1, "library_ms": None})
+    del args, argsb
+    torch.cuda.empty_cache()
+
+    # 1b, parametric form, on phase 12's inputs.
+    poptions, ptrees, X, y, pargs = param_kernel_inputs(torch, sr, dev)
+    instr, nsteps, cvals, ok_, bank, cls, Xc, yc, w = pargs
+    pops, pel = poptions.operators, poptions.elementwise_loss
+    Xb = FE._bf16_rows(Xc)
+    kp = FE.PROGRAM_EVAL_PARAM_BF16
+    call = lambda: kp(instr, nsteps, cvals, ok_, bank, cls, Xb, yc, w, pops, pel)
+    pk, pv = call()
+    pk2, pv2 = call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qk, qv = FE.program_eval_plain(instr, nsteps, cvals, ok_, Xb, yc, w, pops, pel, bank=bank,
+                                   class_idx=cls, bf16=True)
+    torch.cuda.synchronize()
+    pplain_ms = (time.perf_counter() - t0) * 1e3
+    pin = inexact_trees(torch, instr, nsteps, pops)
+    check("1b parametric: two launches bit-identical", _same(pk, pk2) and _same(pv, pv2))
+    check("1b parametric: validity bit-equal", _same(pv, qv))
+    ok, wex, med, win, perr = bf16_close(torch, torch.where(qv, pk, torch.inf),
+                                         torch.where(qv, qk, torch.inf), pin)
+    check(f"1b parametric loss sum: + - * trees within rtol {RTOL} (worst {wex:.3g}); "
+          f"transcendental trees median {med:.3g}, worst {win:.3g}", ok)
+    p32, pv32 = FE.PROGRAM_EVAL_PARAM(*pargs, pops, pel)
+    ok, med, overlap, agree = rank_contract(torch, torch.where(pv32, p32, torch.inf),
+                                            torch.where(pv, pk, torch.inf))
+    check(f"1b parametric rank contract against #1p: agree {agree:.4f}, median {med:.3g}, "
+          f"overlap {overlap:.4f}", ok)
+    pms = cuda_ms(torch, call, reps=10)
+    pms32 = cuda_ms(torch, lambda: FE.PROGRAM_EVAL_PARAM(*pargs, pops, pel), reps=10)
+    PT, PL, PC = instr.shape[0], instr.shape[1], cvals.shape[1]
+    steps = float(nsteps.to(torch.float64).sum())
+    bp, byp = bound(steps * n + 4.0 * n * PT,
+                    4.0 * (PT * PL + 3 * PT + PT * PC + PT * 2 * 3 + n + 2 * n + PT)
+                    + 2.0 * 2 * n)
+    print(f"  1b program_eval_param_bf16 ({PT} trees, {int(pv.sum())} valid): {pms:.4f} ms "
+          f"(CUDA events, mean of 10), #1p on the same inputs {pms32:.4f} ms, plain "
+          f"{pplain_ms:.1f} ms, bound {bp:.4f} ms ({byp})")
+    rows.append({"name": kp.name, "route": "cuda", "source": kp.source, "replaces": kp.replaces,
+                 "launches": None, "max_abs_err": perr, "ms": pms, "plain_ms": pplain_ms,
+                 "bound_ms": bp, "bound_by": byp, "library_ms": None})
+    del pargs, Xb
+    torch.cuda.empty_cache()
+
+    # 2b on phase 4's inputs.
+    (moptions, mtrees, mprog, (instr, nsteps, cvals, _, Xt, yt, w), nconst, R, V_ls, cv_ls,
+     _) = opt_kernel_inputs(torch, sr, dev)
+    mops, mel = moptions.operators, moptions.elementwise_loss
+    Xb = FE._bf16_rows(Xt)
+    k2b = FE.PROGRAM_MULTI_BF16
+    mk, mv = k2b(instr, nsteps, cv_ls, Xb, yt, w, mops, mel)
+    mk2, mv2 = k2b(instr, nsteps, cv_ls, Xb, yt, w, mops, mel)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mp, mvp = FE.program_multi_plain(instr, nsteps, cv_ls, Xb, yt, w, mops, mel, bf16=True)
+    torch.cuda.synchronize()
+    mplain_ms = (time.perf_counter() - t0) * 1e3
+    MT = instr.shape[0]
+    min_ = inexact_trees(torch, instr, nsteps, mops)
+    check("2b two launches bit-identical", _same(mk, mk2) and _same(mv, mv2))
+    check("2b validity bit-equal", _same(mv, mvp))
+    ok, wex, med, win, merr = bf16_close(torch, torch.where(mvp, mk, torch.inf),
+                                         torch.where(mvp, mp, torch.inf), min_)
+    check(f"2b loss sums: + - * / abs trees within rtol {RTOL} (worst {wex:.3g}); "
+          f"transcendental trees median {med:.3g}, worst {win:.3g}", ok)
+    ones = torch.ones(MT, dtype=torch.int32, device=dev)
+    l1, v1 = k2b(instr, nsteps, cvals[:, None, :].contiguous(), Xb, yt, w, mops, mel)
+    l1e, v1e = k1b(instr, nsteps, cvals, ones, Xb, yt, w, mops, mel)
+    check("2b with V = 1 == 1b's plain form (bit)", _same(l1[:, 0], l1e) and _same(v1[:, 0], v1e))
+    m32, mv32 = FE.PROGRAM_MULTI(instr, nsteps, cv_ls, Xt, yt, w, mops, mel)
+    ok, med, overlap, agree = rank_contract(
+        torch, torch.where(mv32, m32, torch.inf).reshape(-1),
+        torch.where(mv, mk, torch.inf).reshape(-1))
+    check(f"2b rank contract against #2: agree {agree:.4f}, median {med:.3g}, overlap "
+          f"{overlap:.4f}", ok)
+    mms = cuda_ms(torch, lambda: k2b(instr, nsteps, cv_ls, Xb, yt, w, mops, mel), reps=5)
+    mms32 = cuda_ms(torch, lambda: FE.PROGRAM_MULTI(instr, nsteps, cv_ls, Xt, yt, w, mops, mel),
+                    reps=5)
+    ML, MC = instr.shape[1], cvals.shape[1]
+    msteps = float(nsteps.to(torch.float64).sum())
+    b2, by2 = bound((msteps + 4.0 * MT) * V_ls * n,
+                    4.0 * (MT * ML + MT + MT * V_ls * MC + 2 * n + 2 * MT * V_ls)
+                    + 2.0 * N_FEATURES * n)
+    print(f"  2b program_multi_bf16 ({MT} trees x V = {V_ls}, {int(mv.sum())} of {mv.numel()} "
+          f"pairs valid): {mms:.4f} ms (CUDA events, mean of 5), #2 on the same inputs "
+          f"{mms32:.4f} ms, plain {mplain_ms:.1f} ms, bound {b2:.4f} ms ({by2})")
+    rows.append({"name": k2b.name, "route": "cuda", "source": k2b.source,
+                 "replaces": k2b.replaces, "launches": None, "max_abs_err": merr, "ms": mms,
+                 "plain_ms": mplain_ms, "bound_ms": b2, "bound_by": by2, "library_ms": None})
+    check.raise_if_failed("kernels 1b and 2b")
+    return rows
+
+
+def stage_data():
+    """The JAX package's plain cell data (bench/cell.py, variant "plain"):
+    10,000 rows x 2 features from seed 1234 uniform on [-2, 2],
+    y = cos(2.13 x1) + 0.5 x2."""
+    rng = np.random.default_rng(1234)
+    X = rng.uniform(-2.0, 2.0, (N_ROWS, 2)).astype(np.float32)
+    y = (np.cos(2.13 * X[:, 0]) + 0.5 * X[:, 1]).astype(np.float32)
+    return X, y
+
+
+def stage_options(sr, variant: str, ncycles: int, populations: int = 0, **kw):
+    """bench/cell.py FULL with one of the plain variants: 512 islands x 256
+    members, tournament 16, maxsize 30, + - * and cos, optimizer_probability
+    0; staging at the default fraction 0.125 (1,250 sample rows) and
+    rescore fraction 0.25."""
+    base = dict(binary_operators=["+", "-", "*"], unary_operators=["cos"], maxsize=30,
+                populations=populations or ISLANDS, population_size=256,
+                tournament_selection_n=16, ncycles_per_iteration=ncycles,
+                optimizer_probability=0.0,
+                eval_precision="bf16" if variant.endswith("bf16") else "f32",
+                staged_eval="staged" in variant, save_to_file=False)
+    base.update(kw)
+    return sr.Options(**base)
+
+
+def phase_stage_cells(torch, sr, dev, ncycles: int):
+    """Phase 17: the four graftstage cells at full width. Launches per
+    iteration exact; after the staged runs every population cost equals an
+    unstaged re-eval at the same precision within rtol 1e-5."""
+    from symbolicregression_jl_tpu_torch.evolve.step import rescore_count, resolve_sample_rows
+
+    iters = 2
+    out = {}
+    for variant in STAGE_CELLS:
+        print(f"  -- {variant}")
+        options = stage_options(sr, variant, ncycles)
+        launches, state, engine, _ = run_engine(torch, sr, dev, options, iters,
+                                                data=stage_data())
+        staged = engine.cfg.staged_eval
+        per_iter = (2 if staged else 1) * ncycles + 1
+        kernel = "program_eval_bf16" if engine.cfg.eval_bf16 else "program_eval"
+        expected = expect(launches, **{kernel: iters * per_iter})
+        print(f"  expected {expected}")
+        if launches != expected:
+            raise RuntimeError(f"{variant} launched {launches}, expected {expected}")
+        if staged:
+            n_cand = 2 * engine.cfg.n_slots
+            print(f"  screen {resolve_sample_rows(engine.cfg, N_ROWS)} of {N_ROWS} rows; "
+                  f"rescore {rescore_count(engine.cfg, n_cand)} of up to {n_cand} candidates "
+                  f"per island")
+            I, P = state.pops.cost.shape
+            ds = sr.make_dataset(*stage_data(), device=dev)
+            ds.update_baseline_loss(options.elementwise_loss)
+            flat = state.pops.trees.reshape(-1)
+            params = state.pops.params.reshape(I * P, *state.pops.params.shape[2:])
+            cost = state.pops.cost.reshape(-1)
+            c_ref, _, _ = engine._eval(flat, params, ds.data, fuse_cost=engine.cfg.fuse_cost)
+            fin = torch.isfinite(c_ref)
+            good = nonfinite_match(torch, cost, c_ref) and bool(
+                ((cost - c_ref).abs()[fin] <= 1e-5 * c_ref.abs()[fin]).all())
+            print(f"  population costs == an unstaged re-eval at the same precision (rtol 1e-5; "
+                  f"{int(fin.sum())} of {fin.numel()} finite): {'ok' if good else 'FAILED'}")
+            if not good:
+                raise RuntimeError(f"{variant}: a population cost is not its full-data cost")
+        print(f"  hall of fame best loss {best_loss(state):.6g}")
+        out[variant] = launches
+        del state, engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_bf16_line_search(torch, sr, dev, ncycles: int, f32_best: float):
+    """Phase 18: phase 5's configuration with the bf16 line search, cut
+    depth: 2b once per L-BFGS iteration, #3 once more, #2 never."""
+    options = bench_options(sr, ncycles, optimizer_bf16_linesearch=True)
+    f_calls = []
+
+    def record(engine):
+        if not engine.opt_cfg.ls_bf16:
+            raise RuntimeError("the engine on the card did not take the bf16 line search")
+        optimize = engine._optimize
+
+        def recorded(*a, **kw):
+            pops, calls = optimize(*a, **kw)
+            f_calls.append(float(calls))
+            return pops, calls
+
+        engine._optimize = recorded
+
+    iters = 2
+    launches, state, _, evals = run_engine(torch, sr, dev, options, iters, on_engine=record)
+    it = options.optimizer_iterations
+    expected = expect(launches, program_eval=iters * (ncycles + 1),
+                      program_multi_bf16=iters * it, program_grad=iters * (it + 1))
+    print(f"  expected {expected}")
+    if launches != expected:
+        raise RuntimeError(f"bf16 line search launched {launches}, expected {expected}")
+    print(f"  optimizer f_calls {sum(f_calls[-iters:]):.0f} of {evals:.0f} evaluations in "
+          f"{iters} iterations: {sum(f_calls[-iters:]) / evals:.1%}")
+    print(f"  hall of fame best loss {best_loss(state):.6g} ({ncycles} cycles, bf16 line "
+          f"search); phase 5 (float32 line search, its depth) {f32_best:.6g}")
+    return launches
+
+
+def host_predict(torch, node, X64, params=None, cls=None):
+    """A decoded tree's predictions in float64 on the host: X64 [n, F]; a
+    parameter leaf reads ``params[p, cls[r]]``."""
+    if node.degree == 0:
+        if node.is_parameter:
+            return torch.from_numpy(params[node.parameter][cls].astype(np.float64))
+        if node.constant:
+            return torch.full((X64.shape[0],), float(node.val), dtype=torch.float64)
+        return torch.from_numpy(X64[:, node.feature])
+    return node.op.fn(*[host_predict(torch, c, X64, params, cls) for c in node.children])
+
+
+# The reported loss comes from the bf16 finalize, so it differs from the
+# host's float64 loss by the bf16 storage error of the predictions p_b:
+# |sqrt(reported) - sqrt(host)| <= RMS(p_b - p) (the triangle inequality in
+# L2). A stored value is off by at most 2^-9 relative; allowing 16 such
+# roundings through the tree, RMS(p_b - p) <= 2^-5 RMS(y) for the fits a
+# search keeps. A broken path (another tree, other rows, a wrong root)
+# misses by O(RMS(y)).
+BF16_SEARCH_TOL = 2.0 ** -5
+
+
+def check_host_loss(torch, best, X, y, what, cls=None):
+    """Fails where the hall of fame's loss of ``best`` is off its float64
+    host recomputation by more than BF16_SEARCH_TOL RMS(y) in root terms."""
+    p = host_predict(torch, best.tree, X.astype(np.float64), best.params, cls).numpy()
+    host = float(np.mean((p - y.astype(np.float64)) ** 2))
+    gap = abs(np.sqrt(best.loss) - np.sqrt(host))
+    tol = BF16_SEARCH_TOL * float(np.sqrt(np.mean(y.astype(np.float64) ** 2)))
+    print(f"  {what}: reported loss {best.loss:.6g}, host float64 {host:.6g}; "
+          f"|sqrt difference| {gap:.3g} <= {tol:.3g}")
+    if not gap <= tol:
+        raise RuntimeError(f"{what}: reported loss {best.loss} but the host computes {host}")
+
+
+def phase_stage_search(torch, sr, dev):
+    """Phase 19: equation_search with all three graftstage options on the
+    plain cell's problem at a small size, and on phase 15's parametric
+    problem (kernel 1b's parametric form)."""
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+    X, y = stage_data()
+    options = stage_options(sr, "plain-staged-bf16", 30, populations=16, population_size=64,
+                            tournament_selection_n=8, optimizer_probability=0.14,
+                            optimizer_bf16_linesearch=True)
+    for k in kernels():
+        k.launches = 0
+    t0 = time.perf_counter()
+    hof = sr.equation_search(X, y, options=options, niterations=3, seed=0, device=dev)
+    launches = {k.name: k.launches for k in kernels()}
+    best = min(hof.entries, key=lambda e: e.loss)
+    print(f"  staged + bf16 + bf16 line search, 16 x 64, {N_ROWS} rows: "
+          f"{time.perf_counter() - t0:.2f} s, best loss {best.loss:.6g} at complexity "
+          f"{best.complexity}: {best.equation_string()}")
+    print(f"  launches {launches}")
+    if not (launches["program_eval_bf16"] and launches["program_multi_bf16"]) or \
+            launches["program_eval"] or launches["program_multi"]:
+        raise RuntimeError("the search did not run on kernels 1b and 2b alone")
+    check_host_loss(torch, best, X, y, "plain")
+
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-2, 2, (128, 2)).astype(np.float32)
+    cls = rng.integers(0, 3, 128)
+    y = (X[:, 0] * 1.5 + np.array([0.5, -1.0, 2.0])[cls]).astype(np.float32)
+    o = sr.Options(binary_operators=["+", "*"], unary_operators=[], maxsize=8, populations=2,
+                   population_size=12, ncycles_per_iteration=10, tournament_selection_n=4,
+                   expression_spec=sr.ParametricExpressionSpec(max_parameters=1),
+                   optimizer_probability=0.5, optimizer_iterations=4, staged_eval=True,
+                   eval_precision="bf16", optimizer_bf16_linesearch=True, save_to_file=False)
+    for k in kernels():
+        k.launches = 0
+    t0 = time.perf_counter()
+    hof = sr.equation_search(X, y, options=o, niterations=12, seed=0, extra={"class": cls},
+                             device=dev)
+    plaunches = {k.name: k.launches for k in kernels()}
+    best = min(hof.entries, key=lambda e: e.loss)
+    print(f"  parametric, staged + bf16, y = 1.5 x1 + offset[class]: "
+          f"{time.perf_counter() - t0:.2f} s, best loss {best.loss:.6g}: "
+          f"{best.equation_string()}, bank {np.array2string(best.params, precision=5)}")
+    print(f"  launches {plaunches}")
+    if plaunches != expect(plaunches, program_eval_param_bf16=plaunches[
+            "program_eval_param_bf16"]) or not plaunches["program_eval_param_bf16"]:
+        raise RuntimeError("the parametric search did not run on kernel 1b's parametric form "
+                           "alone")
+    if not best.loss < 0.05:
+        raise RuntimeError("the parametric search missed phase 15's threshold (loss < 0.05)")
+    check_host_loss(torch, best, X, y, "parametric", cls=np.searchsorted(np.unique(cls), cls))
+    return launches, plaunches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ncycles", type=int, default=100,
                     help="ncycles_per_iteration of the main path (depth only)")
     ap.add_argument("--ncycles-plain", type=int, default=30,
                     help="ncycles_per_iteration of the no-optimizer path (depth only)")
+    ap.add_argument("--ncycles-stage", type=int, default=30,
+                    help="ncycles_per_iteration of the four graftstage cells (depth only)")
     args = ap.parse_args()
 
     import torch
@@ -1034,7 +1532,7 @@ def main() -> int:
     rows += phase_opt_kernels(torch, sr, dev)
 
     print("[5] main path (constant optimizer on)")
-    launches = phase_main_path(torch, sr, dev, args.ncycles)
+    launches, f32_best = phase_main_path(torch, sr, dev, args.ncycles)
     for row in rows:
         row["launches"] = launches[row["name"]]
 
@@ -1070,6 +1568,22 @@ def main() -> int:
 
     print("[15] parametric search and template search with parameters")
     phase_plugin_searches(torch, sr, dev)
+
+    print("[16] kernels 1b and 2b (bf16 value buffers) against their plain versions")
+    bf16_rows = phase_bf16_kernels(torch, sr, dev)
+    rows += bf16_rows
+
+    print("[17] graftstage cells")
+    cells = phase_stage_cells(torch, sr, dev, args.ncycles_stage)
+    bf16_rows[0]["launches"] = cells["plain-staged-bf16"]["program_eval_bf16"]
+
+    print("[18] bf16 line search")
+    launches = phase_bf16_line_search(torch, sr, dev, STAGE_LS_CYCLES, f32_best)
+    bf16_rows[2]["launches"] = launches["program_multi_bf16"]
+
+    print("[19] equation_search with staged_eval, eval_precision='bf16' and the bf16 line search")
+    _, plaunches = phase_stage_search(torch, sr, dev)
+    bf16_rows[1]["launches"] = plaunches["program_eval_param_bf16"]
 
     print(card)
     print(json.dumps({"kernels": rows}))

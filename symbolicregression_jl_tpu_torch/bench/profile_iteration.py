@@ -1,7 +1,7 @@
 """Where one engine iteration spends its time on the GPU.
 
     python -m symbolicregression_jl_tpu_torch.bench.profile_iteration [--ncycles N]
-        [--no-optimizer] [--template | --parametric]
+        [--no-optimizer] [--template | --parametric | [--staged] [--bf16]]
 
 Builds the headline configuration (512 islands x 256 members, 10,000 rows
 x 5 features, maxsize 30, the constant optimizer on unless
@@ -11,11 +11,16 @@ members, 10,000 rows x 2 features from seed 1234, + - * cos, structure
 f(x1) * f(x1) + g(x2), optimizer_probability 0) or, with
 ``--parametric``, the parametric cell (the same cell with variant
 "parametric": class = integers(0, 3) from the same generator, y =
-amp[class] cos(x1) + x2, max_parameters 1, optimizer_probability 0),
+amp[class] cos(x1) + x2, max_parameters 1, optimizer_probability 0) or,
+with ``--staged`` and/or ``--bf16``, the graftstage cells (the same cell
+with variant "plain-staged", "plain-bf16" or "plain-staged-bf16": + - *
+cos, 10,000 rows x 2 features from seed 1234, y = cos(2.13 x1) + 0.5 x2,
+optimizer_probability 0, ``staged_eval`` at the default fractions,
+``eval_precision="bf16"``),
 runs one warm-up iteration, then one iteration under ``torch.profiler``.
 Prints the iteration's host-clock time, the summed device time of all
-kernels and of each of the port's kernels (#1's plain and parametric
-forms apart), the device's busy and idle shares, the
+kernels and of each of the port's kernels (#1's plain, parametric and
+bf16 forms apart), the device's busy and idle shares, the
 number of kernel launches, each named range (``sr:constant_optimizer``,
 ``sr:template_eval``: its span on the device summed over its occurrences,
 the device time of the port's kernels in it, that of the eager ops in it
@@ -55,6 +60,13 @@ def template_data(n_rows: int = 10_000):
     return X, ((1.5 * X[:, 0]) ** 2 + np.cos(2.0 * X[:, 1])).astype(np.float32)
 
 
+def plain_cell_data(n_rows: int = 10_000):
+    """The plain cell's problem from seed 1234: y = cos(2.13 x1) + 0.5 x2."""
+    g = np.random.default_rng(1234)
+    X = g.uniform(-2.0, 2.0, (n_rows, 2)).astype(np.float32)
+    return X, (np.cos(2.13 * X[:, 0]) + 0.5 * X[:, 1]).astype(np.float32)
+
+
 def parametric_data(n_rows: int = 10_000):
     """The parametric cell's problem from seed 1234: y = amp[class] cos(x1) + x2."""
     g = np.random.default_rng(1234)
@@ -65,12 +77,17 @@ def parametric_data(n_rows: int = 10_000):
     return X, y, cls
 
 
-# Kernel names as the profiler reports them: #1's parametric form is the
-# program_eval_kernel instantiation whose last template argument is true.
+# Kernel names as the profiler reports them: the first template argument
+# of program_eval_kernel and program_multi_kernel is the value buffer's
+# storage (float, or __nv_bfloat16 for 1b and 2b); #1's parametric form is
+# the instantiation whose last template argument is true.
 _KERNEL_PATTERNS = {
-    "program_eval": r"program_eval_kernel<\d+, (true|false), false>",
-    "program_eval_param": r"program_eval_kernel<\d+, (true|false), true>",
-    "program_multi": r"program_multi_kernel", "program_grad": r"program_grad_kernel",
+    "program_eval": r"program_eval_kernel<float, \d+, (true|false), false>",
+    "program_eval_param": r"program_eval_kernel<float, \d+, (true|false), true>",
+    "program_eval_bf16": r"program_eval_kernel<__nv_bfloat16, \d+, (true|false), false>",
+    "program_eval_param_bf16": r"program_eval_kernel<__nv_bfloat16, \d+, (true|false), true>",
+    "program_multi": r"program_multi_kernel<float", "program_grad": r"program_grad_kernel",
+    "program_multi_bf16": r"program_multi_kernel<__nv_bfloat16",
     "program_predict": r"program_predict_kernel",
     "program_predict_vjp": r"program_predict_vjp_kernel",
 }
@@ -86,7 +103,14 @@ def main() -> int:
                       help="profile the template-expression cell instead")
     cell.add_argument("--parametric", action="store_true",
                       help="profile the parametric-expression cell instead")
+    ap.add_argument("--staged", action="store_true",
+                    help="profile the plain cell with staged_eval (graftstage)")
+    ap.add_argument("--bf16", action="store_true",
+                    help='profile the plain cell with eval_precision="bf16" (graftstage)')
     args = ap.parse_args()
+    stage = args.staged or args.bf16
+    if stage and (args.template or args.parametric):
+        ap.error("--staged and --bf16 profile the plain cell, not --template or --parametric")
     if not torch.cuda.is_available():
         print("profile_iteration: needs a CUDA device", file=sys.stderr)
         return 2
@@ -113,6 +137,14 @@ def main() -> int:
             should_optimize_constants=not args.no_optimizer,
             expression_spec=sr.ParametricExpressionSpec(max_parameters=1), save_to_file=False)
         X, y, cls = parametric_data()
+    elif stage:
+        options = sr.Options(
+            binary_operators=["+", "-", "*"], unary_operators=["cos"], maxsize=30,
+            populations=512, population_size=256, tournament_selection_n=16,
+            ncycles_per_iteration=args.ncycles, optimizer_probability=0.0,
+            should_optimize_constants=not args.no_optimizer, staged_eval=args.staged,
+            eval_precision="bf16" if args.bf16 else "f32", save_to_file=False)
+        X, y = plain_cell_data()
     else:
         options = sr.Options(
             binary_operators=["+", "-", "*", "/"], unary_operators=["exp", "abs", "cos"],
@@ -141,7 +173,9 @@ def main() -> int:
     spans = [e for e in events if e.name.startswith("sr:")]
     kernels = [e for e in events if e.device_time_total > 0 and not e.name.startswith("sr:")]
     device_us = sum(e.device_time_total for e in kernels)
-    cell_name = "template" if args.template else "parametric" if args.parametric else "headline"
+    cell_name = ("template" if args.template else "parametric" if args.parametric
+                 else "plain" + "-staged" * args.staged + "-bf16" * args.bf16 if stage
+                 else "headline")
     print(f"{cell_name} cell, ncycles_per_iteration "
           f"{args.ncycles}, constant optimizer {options.should_optimize_constants} "
           f"(probability {options.optimizer_probability}): iteration {wall:.3f} s (host clock)")

@@ -37,6 +37,9 @@ class DeviceData:
     # Each row's class [n] int32 (the ``class`` column of ``extra``, as
     # indices into its sorted unique values), or None.
     class_idx: Optional[torch.Tensor] = None
+    # Row samples made by strided_sample, by size (a replace() starts empty).
+    _samples: Dict[int, "DeviceData"] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -45,6 +48,24 @@ class DeviceData:
     @property
     def n(self) -> int:
         return int(self.Xt.shape[1])
+
+    def strided_sample(self, sample_rows: int) -> "DeviceData":
+        """graftstage's screening rows (``ops.fused_eval.strided_sample_indices``)
+        as a DeviceData of their own: X, y, weights and classes gathered
+        once per size and kept, the baseline normalization the full data's."""
+        sample = self._samples.get(sample_rows)
+        if sample is None:
+            from ..ops.fused_eval import strided_sample_indices
+
+            idx = torch.from_numpy(strided_sample_indices(self.n, sample_rows)).to(
+                self.device).long()
+            take = lambda t: None if t is None else t[..., idx].contiguous()
+            sample = DeviceData(Xt=take(self.Xt), y=take(self.y), weights=take(self.weights),
+                                baseline_loss=self.baseline_loss,
+                                use_baseline=self.use_baseline,
+                                class_idx=take(self.class_idx))
+            self._samples[sample_rows] = sample
+        return sample
 
 
 @dataclasses.dataclass

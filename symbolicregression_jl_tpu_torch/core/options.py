@@ -753,19 +753,12 @@ def _check_expression_spec(options: Options) -> None:
 
 
 def check_supported(options: Options) -> None:
-    """Raise NotImplementedError for every option outside the f32
+    """Raise NotImplementedError for every option outside the
     elementwise-loss paths this port carries (plain, parametric and
-    template expressions)."""
-    if options.optimizer_bf16_linesearch:
-        _refuse("optimizer_bf16_linesearch=True (bfloat16 line-search evaluations)",
-                "graftstage (step 7)")
+    template expressions, with graftstage's staged and bf16 evaluation)."""
     if options.batching:
         _refuse("batching=True (minibatched evaluation)",
                 "the engine slice that ports minibatching")
-    if options.staged_eval:
-        _refuse("staged_eval=True", "graftstage (step 7)")
-    if options.eval_precision != "f32":
-        _refuse('eval_precision="bf16"', "graftstage (step 7)")
     _check_expression_spec(options)
     if options.dimensional_constraint_penalty is not None:
         _refuse("dimensional_constraint_penalty (units)",

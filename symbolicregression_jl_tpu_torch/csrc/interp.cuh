@@ -4,7 +4,9 @@
 // (#3), program_predict.cu (#4) and program_predict_vjp.cu (#5) include
 // this header, so all five compute every forward step, every elementwise
 // loss and every row reduction with the same code: a (tree, constant
-// vector) pair gives the same bits in each of them.
+// vector) pair gives the same bits in each of them. The value buffer's
+// storage is a template parameter (RowBufT<S>): float for #1-#5, bf16 for
+// the bf16 forms of #1 and #2 (1b and 2b), which compute in float too.
 //
 // Instruction word: sign << 30 | code << 24 | src1 << 12 | src2, decoded
 // as the JAX package's `_fwd_dispatch` decodes it. `optab[code]` maps
@@ -21,6 +23,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -172,25 +175,53 @@ __device__ __forceinline__ Step decode(int word, const int* __restrict__ optab,
   return s;
 }
 
+// Storage of the value buffer: float (kernels #1-#5), or __nv_bfloat16
+// (the bf16 forms 1b and 2b, graftstage's eval_precision="bf16" and
+// optimizer_bf16_linesearch). A bf16 buffer is only storage: every step
+// reads its operands as float, computes in float and rounds the result to
+// bf16 (round to nearest even) as it stores it. For float both
+// conversions are the identity, so the f32 kernels compile as before.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename S>
+__device__ __forceinline__ S from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Elements of storage type S in front of a block's float scratch, rounded
+// up to keep the scratch 4-byte aligned (a no-op for float).
+template <typename S>
+__host__ __device__ constexpr size_t padded(size_t count) {
+  return sizeof(S) >= 4 ? count : (count + 1) & ~(size_t)1;
+}
+
 // The per-row value buffer of one thread: X features and step results in
 // shared memory laid out [slot][thread], constants shared by the block.
 // `F` is the width of the per-row region: the X features, and for the
 // parametric form of kernel #1 the row's parameter values after them.
-struct RowBuf {
-  float* sv;        // [(F + L) * bd]
-  const float* sc;  // [CMAX]
+template <typename S>
+struct RowBufT {
+  S* sv;        // [(F + L) * bd]
+  const S* sc;  // [CMAX]
   int F, base, zero_addr, bd, tid;
 
   // Operand read: per-row value, constant, earlier step, or the zero row.
   __device__ __forceinline__ float rd(int a) const {
-    if (a < F) return sv[a * bd + tid];
-    if (a < base) return sc[a - F];
-    if (a < zero_addr) return sv[(F + a - base) * bd + tid];
+    if (a < F) return to_f32(sv[a * bd + tid]);
+    if (a < base) return to_f32(sc[a - F]);
+    if (a < zero_addr) return to_f32(sv[(F + a - base) * bd + tid]);
     return 0.0f;
   }
 };
+using RowBuf = RowBufT<float>;
 
-__device__ __forceinline__ float eval_step(const Step& s, const RowBuf& b) {
+template <typename S>
+__device__ __forceinline__ float eval_step(const Step& s, const RowBufT<S>& b) {
   if (s.kind == K_ADDSUB) return __fadd_rn(b.rd(s.i1), __fmul_rn(s.sg, b.rd(s.i2)));
   if (s.kind == K_BINARY) return apply_binary(s.id, b.rd(s.i1), b.rd(s.i2));
   if (s.kind == K_UNARY) return apply_unary(s.id, b.rd(s.i1));
@@ -198,23 +229,29 @@ __device__ __forceinline__ float eval_step(const Step& s, const RowBuf& b) {
 }
 
 // Runs the m steps of one row whose per-row values are loaded, stores each
-// result and returns the root value; `ok` drops to false on a non-finite
-// step.
-__device__ __forceinline__ float run_steps(const RowBuf& b, const int* __restrict__ sins,
+// result and returns the root value as stored; `ok` drops to false on a
+// step whose float value is not finite. With a bf16 buffer a finite value
+// past bf16's range stores as inf with `ok` still true: the inf surfaces
+// in the next step or in the loss, as in the TPU kernel.
+template <typename S>
+__device__ __forceinline__ float run_steps(const RowBufT<S>& b, const int* __restrict__ sins,
                                            int m, const int* __restrict__ optab,
                                            int code_mask, int sign_shift, bool& ok) {
   float v = 0.0f;
   for (int k = 0; k < m; ++k) {
-    v = eval_step(decode(sins[k], optab, code_mask, sign_shift), b);
-    b.sv[(b.F + k) * b.bd + b.tid] = v;
-    ok = ok && isfinite(v);
+    const float r = eval_step(decode(sins[k], optab, code_mask, sign_shift), b);
+    const S st = from_f32<S>(r);
+    b.sv[(b.F + k) * b.bd + b.tid] = st;
+    ok = ok && isfinite(r);
+    v = to_f32(st);
   }
   return v;
 }
 
 // Forward sweep of one row: loads the row's features, then run_steps.
-__device__ __forceinline__ float forward_row(const RowBuf& b, const int* __restrict__ sins,
-                                             const float* __restrict__ X, int n, int r,
+template <typename S>
+__device__ __forceinline__ float forward_row(const RowBufT<S>& b, const int* __restrict__ sins,
+                                             const S* __restrict__ X, int n, int r,
                                              int m, const int* __restrict__ optab,
                                              int code_mask, int sign_shift, bool& ok) {
   for (int f = 0; f < b.F; ++f) b.sv[f * b.bd + b.tid] = X[(size_t)f * n + r];

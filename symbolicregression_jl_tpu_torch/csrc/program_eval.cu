@@ -35,6 +35,17 @@
 // rows (0 * inf does not spread NaN to the others). The tree's bank
 // (NP x NC floats) sits in shared memory; each row reads its class once.
 //
+// bf16 forms (1b: sr_program_eval_bf16 and sr_program_eval_param_bf16;
+// the TPU kernel's `bf16=True` variant, graftstage's eval_precision="bf16"):
+// the same kernel over a bfloat16 value buffer. X arrives as bf16 (the
+// wrapper rounds it once per dataset), the constants and the bank are
+// rounded to bf16 as the block loads them, every step reads bf16
+// operands, computes in float, checks finiteness on the float value and
+// stores the value rounded to bf16 (round to nearest even); the root is
+// the stored value. y, w, the loss terms, the row sums and the cost
+// epilogue stay float. The buffer halves, so a block of 256 threads fits
+// where the float buffer needed a smaller one.
+//
 // The operator code, the decode and the row loop live in interp.cuh,
 // shared with kernels #2 (program_multi.cu) and #3 (program_grad.cu).
 //
@@ -66,7 +77,16 @@ using namespace sr;
 
 namespace {
 
-template <int LOSS, bool COST, bool PARAM>
+// Dynamic shared memory of a launch with `block` threads: the per-row
+// values, the constants and the bank in S, then the reduction scratch
+// and the instruction words.
+template <typename S>
+size_t eval_smem(int block, int L, int CMAX, int F, int NP, int NC) {
+  return sizeof(S) * padded<S>((size_t)(F + NP + L) * block + CMAX + (size_t)NP * NC) +
+         sizeof(float) * block + sizeof(int) * L;
+}
+
+template <typename S, int LOSS, bool COST, bool PARAM>
 __global__ void program_eval_kernel(
     const int* __restrict__ instr,      // [T, L]
     const int* __restrict__ nsteps,     // [T]
@@ -74,7 +94,7 @@ __global__ void program_eval_kernel(
     const int* __restrict__ const_ok,   // [T]
     const float* __restrict__ bank,     // [T, NP, NC]  (parametric form)
     const int* __restrict__ class_idx,  // [n]          (parametric form)
-    const float* __restrict__ X,        // [F, n]
+    const S* __restrict__ X,            // [F, n]
     const float* __restrict__ y,        // [n]
     const float* __restrict__ w,        // [n]
     const float* __restrict__ cx,       // [T]   (cost form)
@@ -88,23 +108,25 @@ __global__ void program_eval_kernel(
   const int tid = threadIdx.x;
   const int bd = blockDim.x;
   const int R = F + NP;                      // per-row region: X features, parameters
-  float* sv = smem;                          // [(R + L) * bd] per-row values
-  float* sc = sv + (size_t)(R + L) * bd;     // [CMAX] constants
-  float* sbank = sc + CMAX;                  // [NP * NC] the tree's parameter bank
-  float* sred = sbank + NP * NC;             // [bd] reduction scratch
+  S* sv = reinterpret_cast<S*>(smem);        // [(R + L) * bd] per-row values
+  S* sc = sv + (size_t)(R + L) * bd;         // [CMAX] constants
+  S* sbank = sc + CMAX;                      // [NP * NC] the tree's parameter bank
+  float* sred = reinterpret_cast<float*>(    // [bd] reduction scratch
+      sv + padded<S>((size_t)(R + L) * bd + CMAX + (size_t)NP * NC));
   int* sins = reinterpret_cast<int*>(sred + bd);  // [L] instruction words
 
   const int base = R + CMAX;
   const int zero_addr = base + L;
   for (int i = tid; i < L; i += bd) sins[i] = instr[(size_t)t * L + i];
-  for (int i = tid; i < CMAX; i += bd) sc[i] = cvals[(size_t)t * CMAX + i];
+  for (int i = tid; i < CMAX; i += bd) sc[i] = from_f32<S>(cvals[(size_t)t * CMAX + i]);
   if (PARAM) {
-    for (int i = tid; i < NP * NC; i += bd) sbank[i] = bank[(size_t)t * NP * NC + i];
+    for (int i = tid; i < NP * NC; i += bd)
+      sbank[i] = from_f32<S>(bank[(size_t)t * NP * NC + i]);
   }
   __syncthreads();
 
   const int m = nsteps[t];
-  const RowBuf b{sv, sc, R, base, zero_addr, bd, tid};
+  const RowBufT<S> b{sv, sc, R, base, zero_addr, bd, tid};
   float acc = 0.0f;
   bool ok = true;
   for (int r = tid; r < n; r += bd) {
@@ -137,15 +159,15 @@ __global__ void program_eval_kernel(
   }
 }
 
-template <int LOSS, bool COST, bool PARAM>
+template <typename S, int LOSS, bool COST, bool PARAM>
 cudaError_t launch_one(int T, int block, size_t smem, cudaStream_t stream,
                        const int* instr, const int* nsteps, const float* cvals,
                        const int* const_ok, const float* bank, const int* class_idx,
-                       const float* X, const float* y, const float* w, const float* cx,
+                       const S* X, const float* y, const float* w, const float* cx,
                        const float* scal, const int* optab, int L, int CMAX, int F, int NP,
                        int NC, int n, int code_mask, int sign_shift, float* loss, int* valid,
                        float* cost) {
-  auto kern = program_eval_kernel<LOSS, COST, PARAM>;
+  auto kern = program_eval_kernel<S, LOSS, COST, PARAM>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -155,11 +177,75 @@ cudaError_t launch_one(int T, int block, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+// The cost and plain forms: `cost` == nullptr selects the plain form.
+template <typename S>
+int eval_entry(const int* instr, const int* nsteps, const float* cvals, const int* const_ok,
+               const S* X, const float* y, const float* w, const float* cx,
+               const float* scal, const int* optab, int T, int L, int CMAX, int F, int n,
+               int block, int loss_kind, int code_mask, int sign_shift, float* loss,
+               int* valid, float* cost, void* stream) {
+  if (T == 0) return 0;
+  const size_t smem = eval_smem<S>(block, L, CMAX, F, 0, 0);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err;
+#define SR_LAUNCH(LK)                                                                 \
+  err = (cost != nullptr)                                                             \
+            ? launch_one<S, LK, true, false>(T, block, smem, s, instr, nsteps, cvals, \
+                                             const_ok, nullptr, nullptr, X, y, w, cx, \
+                                             scal, optab, L, CMAX, F, 0, 0, n,        \
+                                             code_mask, sign_shift, loss, valid,      \
+                                             cost)                                    \
+            : launch_one<S, LK, false, false>(T, block, smem, s, instr, nsteps,       \
+                                              cvals, const_ok, nullptr, nullptr, X,   \
+                                              y, w, cx, scal, optab, L, CMAX, F, 0,   \
+                                              0, n, code_mask, sign_shift, loss,      \
+                                              valid, cost);
+  switch (loss_kind) {
+    case LOSS_L2: SR_LAUNCH(LOSS_L2) break;
+    case LOSS_L1: SR_LAUNCH(LOSS_L1) break;
+    case LOSS_HUBER: SR_LAUNCH(LOSS_HUBER) break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SR_LAUNCH
+  return (int)err;
+}
+
+// The parametric form (plain form only).
+template <typename S>
+int param_entry(const int* instr, const int* nsteps, const float* cvals, const int* const_ok,
+                const float* bank, const int* class_idx, const S* X, const float* y,
+                const float* w, const int* optab, int T, int L, int CMAX, int F, int NP,
+                int NC, int n, int block, int loss_kind, int code_mask, int sign_shift,
+                float* loss, int* valid, void* stream) {
+  if (T == 0) return 0;
+  if (NP < 1 || NC < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = eval_smem<S>(block, L, CMAX, F, NP, NC);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err;
+#define SR_LAUNCH(LK)                                                                     \
+  err = launch_one<S, LK, false, true>(T, block, smem, s, instr, nsteps, cvals, const_ok, \
+                                       bank, class_idx, X, y, w, nullptr, nullptr, optab, \
+                                       L, CMAX, F, NP, NC, n, code_mask, sign_shift, loss, \
+                                       valid, nullptr);
+  switch (loss_kind) {
+    case LOSS_L2: SR_LAUNCH(LOSS_L2) break;
+    case LOSS_L1: SR_LAUNCH(LOSS_L1) break;
+    case LOSS_HUBER: SR_LAUNCH(LOSS_HUBER) break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SR_LAUNCH
+  return (int)err;
+}
+
 }  // namespace
 
-// Dynamic shared memory a launch with `block` threads needs.
-extern "C" size_t sr_program_eval_smem(int block, int L, int CMAX, int F) {
-  return sizeof(float) * ((size_t)(F + L) * block + CMAX + block) + sizeof(int) * L;
+// Dynamic shared memory of a launch with `block` threads; `esize` is the
+// buffer's element size (4: float, 2: bf16), NP = NC = 0 for the
+// non-parametric forms.
+extern "C" size_t sr_program_eval_smem(int block, int L, int CMAX, int F, int NP, int NC,
+                                       int esize) {
+  return esize == 2 ? eval_smem<__nv_bfloat16>(block, L, CMAX, F, NP, NC)
+                    : eval_smem<float>(block, L, CMAX, F, NP, NC);
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
@@ -172,37 +258,23 @@ extern "C" int sr_program_eval(const int* instr, const int* nsteps,
                                int n, int block, int loss_kind, int code_mask,
                                int sign_shift, float* loss, int* valid,
                                float* cost, void* stream) {
-  if (T == 0) return 0;
-  const size_t smem = sr_program_eval_smem(block, L, CMAX, F);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define SR_LAUNCH(LK)                                                              \
-  err = (cost != nullptr)                                                          \
-            ? launch_one<LK, true, false>(T, block, smem, s, instr, nsteps, cvals, \
-                                          const_ok, nullptr, nullptr, X, y, w, cx, \
-                                          scal, optab, L, CMAX, F, 0, 0, n,        \
-                                          code_mask, sign_shift, loss, valid, cost) \
-            : launch_one<LK, false, false>(T, block, smem, s, instr, nsteps,       \
-                                           cvals, const_ok, nullptr, nullptr, X,   \
-                                           y, w, cx, scal, optab, L, CMAX, F, 0,   \
-                                           0, n, code_mask, sign_shift, loss,      \
-                                           valid, cost);
-  switch (loss_kind) {
-    case LOSS_L2: SR_LAUNCH(LOSS_L2) break;
-    case LOSS_L1: SR_LAUNCH(LOSS_L1) break;
-    case LOSS_HUBER: SR_LAUNCH(LOSS_HUBER) break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef SR_LAUNCH
-  return (int)err;
+  return eval_entry<float>(instr, nsteps, cvals, const_ok, X, y, w, cx, scal, optab, T, L,
+                           CMAX, F, n, block, loss_kind, code_mask, sign_shift, loss, valid,
+                           cost, stream);
 }
 
-// Dynamic shared memory of a parametric launch: the per-row region grows
-// by NP rows and the tree's bank takes NP * NC floats.
-extern "C" size_t sr_program_eval_param_smem(int block, int L, int CMAX, int F, int NP,
-                                             int NC) {
-  return sizeof(float) * ((size_t)(F + NP + L) * block + CMAX + (size_t)NP * NC + block) +
-         sizeof(int) * L;
+// Kernel 1b: the same over a bf16 value buffer; X is [F, n] bf16.
+extern "C" int sr_program_eval_bf16(const int* instr, const int* nsteps,
+                                    const float* cvals, const int* const_ok,
+                                    const __nv_bfloat16* X, const float* y, const float* w,
+                                    const float* cx, const float* scal,
+                                    const int* optab, int T, int L, int CMAX, int F,
+                                    int n, int block, int loss_kind, int code_mask,
+                                    int sign_shift, float* loss, int* valid,
+                                    float* cost, void* stream) {
+  return eval_entry<__nv_bfloat16>(instr, nsteps, cvals, const_ok, X, y, w, cx, scal, optab,
+                                   T, L, CMAX, F, n, block, loss_kind, code_mask, sign_shift,
+                                   loss, valid, cost, stream);
 }
 
 // The parametric form (plain form only): `bank` [T, NP, NC], `class_idx`
@@ -215,22 +287,22 @@ extern "C" int sr_program_eval_param(const int* instr, const int* nsteps,
                                      int NP, int NC, int n, int block, int loss_kind,
                                      int code_mask, int sign_shift, float* loss,
                                      int* valid, void* stream) {
-  if (T == 0) return 0;
-  if (NP < 1 || NC < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = sr_program_eval_param_smem(block, L, CMAX, F, NP, NC);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define SR_LAUNCH(LK)                                                                   \
-  err = launch_one<LK, false, true>(T, block, smem, s, instr, nsteps, cvals, const_ok, \
-                                    bank, class_idx, X, y, w, nullptr, nullptr, optab, \
-                                    L, CMAX, F, NP, NC, n, code_mask, sign_shift, loss, \
-                                    valid, nullptr);
-  switch (loss_kind) {
-    case LOSS_L2: SR_LAUNCH(LOSS_L2) break;
-    case LOSS_L1: SR_LAUNCH(LOSS_L1) break;
-    case LOSS_HUBER: SR_LAUNCH(LOSS_HUBER) break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef SR_LAUNCH
-  return (int)err;
+  return param_entry<float>(instr, nsteps, cvals, const_ok, bank, class_idx, X, y, w, optab,
+                            T, L, CMAX, F, NP, NC, n, block, loss_kind, code_mask, sign_shift,
+                            loss, valid, stream);
+}
+
+// Kernel 1b's parametric form: X is [F, n] bf16, the bank rounds to bf16
+// as the block loads it.
+extern "C" int sr_program_eval_param_bf16(const int* instr, const int* nsteps,
+                                          const float* cvals, const int* const_ok,
+                                          const float* bank, const int* class_idx,
+                                          const __nv_bfloat16* X, const float* y,
+                                          const float* w, const int* optab, int T, int L,
+                                          int CMAX, int F, int NP, int NC, int n, int block,
+                                          int loss_kind, int code_mask, int sign_shift,
+                                          float* loss, int* valid, void* stream) {
+  return param_entry<__nv_bfloat16>(instr, nsteps, cvals, const_ok, bank, class_idx, X, y, w,
+                                    optab, T, L, CMAX, F, NP, NC, n, block, loss_kind,
+                                    code_mask, sign_shift, loss, valid, stream);
 }

@@ -22,6 +22,14 @@
 // its per-step scalar dispatch; here every pair is its own block and each
 // call is one launch.
 //
+// bf16 form (2b: sr_program_multi_bf16; the TPU kernel's `bf16=True`
+// variant, graftstage's optimizer_bf16_linesearch): the same over a
+// bfloat16 value buffer, as kernel 1b runs it. X arrives as bf16, each
+// pair's constants round to bf16 as the block loads them, steps compute
+// in float and store rounded; the loss and its row sum stay float. The
+// TPU kernel's 16-variant chunks worked around VMEM and are not copied:
+// one launch per call.
+//
 // What bounds it on the H100. Like kernel #1 it is FP32 ALU and SFU work,
 // (steps x rows) operator evaluations per pair, with X (200 KB at the
 // bench shapes) resident in L2; device-memory traffic is the words and
@@ -34,12 +42,19 @@ using namespace sr;
 
 namespace {
 
-template <int LOSS>
+// Dynamic shared memory a launch with `block` threads needs (kernel #1's).
+template <typename S>
+size_t multi_smem(int block, int L, int CMAX, int F) {
+  return sizeof(S) * padded<S>((size_t)(F + L) * block + CMAX) + sizeof(float) * block +
+         sizeof(int) * L;
+}
+
+template <typename S, int LOSS>
 __global__ void program_multi_kernel(
     const int* __restrict__ instr,      // [T, L]
     const int* __restrict__ nsteps,     // [T]
     const float* __restrict__ cvals_v,  // [T, V, CMAX]
-    const float* __restrict__ X,        // [F, n]
+    const S* __restrict__ X,            // [F, n]
     const float* __restrict__ y,        // [n]
     const float* __restrict__ w,        // [n]
     const int* __restrict__ optab,      // [n_codes]
@@ -50,18 +65,19 @@ __global__ void program_multi_kernel(
   const int t = pair / V;
   const int tid = threadIdx.x;
   const int bd = blockDim.x;
-  float* sv = smem;                          // [(F + L) * bd] per-row values
-  float* sc = sv + (size_t)(F + L) * bd;     // [CMAX] constants of this variant
-  float* sred = sc + CMAX;                   // [bd] reduction scratch
+  S* sv = reinterpret_cast<S*>(smem);        // [(F + L) * bd] per-row values
+  S* sc = sv + (size_t)(F + L) * bd;         // [CMAX] constants of this variant
+  float* sred = reinterpret_cast<float*>(    // [bd] reduction scratch
+      sv + padded<S>((size_t)(F + L) * bd + CMAX));
   int* sins = reinterpret_cast<int*>(sred + bd);  // [L] instruction words
 
   const int base = F + CMAX;
   for (int i = tid; i < L; i += bd) sins[i] = instr[(size_t)t * L + i];
-  for (int i = tid; i < CMAX; i += bd) sc[i] = cvals_v[(size_t)pair * CMAX + i];
+  for (int i = tid; i < CMAX; i += bd) sc[i] = from_f32<S>(cvals_v[(size_t)pair * CMAX + i]);
   __syncthreads();
 
   const int m = nsteps[t];
-  const RowBuf b{sv, sc, F, base, base + L, bd, tid};
+  const RowBufT<S> b{sv, sc, F, base, base + L, bd, tid};
   float acc = 0.0f;
   bool ok = true;
   for (int r = tid; r < n; r += bd) {
@@ -78,13 +94,13 @@ __global__ void program_multi_kernel(
   }
 }
 
-template <int LOSS>
+template <typename S, int LOSS>
 cudaError_t launch_multi(int pairs, int block, size_t smem, cudaStream_t stream,
                          const int* instr, const int* nsteps, const float* cvals_v,
-                         const float* X, const float* y, const float* w,
+                         const S* X, const float* y, const float* w,
                          const int* optab, int V, int L, int CMAX, int F, int n,
                          int code_mask, int sign_shift, float* loss, int* valid) {
-  auto kern = program_multi_kernel<LOSS>;
+  auto kern = program_multi_kernel<S, LOSS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -93,11 +109,37 @@ cudaError_t launch_multi(int pairs, int block, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+template <typename S>
+int multi_entry(const int* instr, const int* nsteps, const float* cvals_v, const S* X,
+                const float* y, const float* w, const int* optab, int T, int V, int L,
+                int CMAX, int F, int n, int block, int loss_kind, int code_mask,
+                int sign_shift, float* loss, int* valid, void* stream) {
+  const long long pairs = (long long)T * V;
+  if (pairs == 0) return 0;
+  if (pairs > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = multi_smem<S>(block, L, CMAX, F);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  switch (loss_kind) {
+#define SR_LAUNCH(LK)                                                             \
+  case LK:                                                                        \
+    return (int)launch_multi<S, LK>((int)pairs, block, smem, s, instr, nsteps,    \
+                                    cvals_v, X, y, w, optab, V, L, CMAX, F, n,    \
+                                    code_mask, sign_shift, loss, valid);
+    SR_LAUNCH(LOSS_L2)
+    SR_LAUNCH(LOSS_L1)
+    SR_LAUNCH(LOSS_HUBER)
+#undef SR_LAUNCH
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// Dynamic shared memory a launch with `block` threads needs (kernel #1's).
-extern "C" size_t sr_program_multi_smem(int block, int L, int CMAX, int F) {
-  return sizeof(float) * ((size_t)(F + L) * block + CMAX + block) + sizeof(int) * L;
+// Dynamic shared memory a launch with `block` threads needs; `esize` is
+// the buffer's element size (4: float, 2: bf16).
+extern "C" size_t sr_program_multi_smem(int block, int L, int CMAX, int F, int esize) {
+  return esize == 2 ? multi_smem<__nv_bfloat16>(block, L, CMAX, F)
+                    : multi_smem<float>(block, L, CMAX, F);
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
@@ -108,21 +150,19 @@ extern "C" int sr_program_multi(const int* instr, const int* nsteps,
                                 int block, int loss_kind, int code_mask,
                                 int sign_shift, float* loss, int* valid,
                                 void* stream) {
-  const long long pairs = (long long)T * V;
-  if (pairs == 0) return 0;
-  if (pairs > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = sr_program_multi_smem(block, L, CMAX, F);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (loss_kind) {
-#define SR_LAUNCH(LK)                                                             \
-  case LK:                                                                        \
-    return (int)launch_multi<LK>((int)pairs, block, smem, s, instr, nsteps,       \
-                                 cvals_v, X, y, w, optab, V, L, CMAX, F, n,       \
-                                 code_mask, sign_shift, loss, valid);
-    SR_LAUNCH(LOSS_L2)
-    SR_LAUNCH(LOSS_L1)
-    SR_LAUNCH(LOSS_HUBER)
-#undef SR_LAUNCH
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return multi_entry<float>(instr, nsteps, cvals_v, X, y, w, optab, T, V, L, CMAX, F, n,
+                            block, loss_kind, code_mask, sign_shift, loss, valid, stream);
+}
+
+// Kernel 2b: the same over a bf16 value buffer; X is [F, n] bf16.
+extern "C" int sr_program_multi_bf16(const int* instr, const int* nsteps,
+                                     const float* cvals_v, const __nv_bfloat16* X,
+                                     const float* y, const float* w, const int* optab,
+                                     int T, int V, int L, int CMAX, int F, int n,
+                                     int block, int loss_kind, int code_mask,
+                                     int sign_shift, float* loss, int* valid,
+                                     void* stream) {
+  return multi_entry<__nv_bfloat16>(instr, nsteps, cvals_v, X, y, w, optab, T, V, L, CMAX, F,
+                                    n, block, loss_kind, code_mask, sign_shift, loss, valid,
+                                    stream);
 }

@@ -7,8 +7,9 @@ optimization. Two forms, as in the JAX package:
 
 - :func:`optimize_constants_fused` (the kernel path, ``turbo``): L-BFGS in
   the compressed constant space of ``compile_program``; each iteration is
-  one launch of kernel #2 for all R*C line-search candidates and one of
-  kernel #3 for the accepted point's loss and gradient (one more kernel #3
+  one launch of kernel #2 for all R*C line-search candidates (kernel 2b,
+  a bfloat16 value buffer, with ``ls_bf16``) and one of kernel #3 for the
+  accepted point's loss and gradient (one more kernel #3
   launch comes before the loop).
 - :func:`optimize_constants_batch` (the eager path): dense BFGS with a
   backtracking Armijo line search over the eager interpreter
@@ -187,10 +188,6 @@ def optimize_constants_fused(key, trees: TreeBatch, do_opt: torch.Tensor, data,
 
     ``trees`` [P, L], ``do_opt`` [P] bool. Returns (new_const [P, L],
     improved [P], new_loss [P], f_calls [P])."""
-    if cfg.ls_bf16:
-        raise NotImplementedError(
-            "ls_bf16 (bfloat16 line-search evaluations) is not in the PyTorch port yet; "
-            "it comes with graftstage (ROADMAP.md queue 1 step 7).")
     P, L = trees.arity.shape
     R = cfg.nrestarts + 1
     C = cfg.max_linesearch
@@ -224,8 +221,11 @@ def optimize_constants_fused(key, trees: TreeBatch, do_opt: torch.Tensor, data,
         return loss.reshape(M), torch.where(mask_r, gcomp.reshape(M, CM), 0.0)
 
     def fused_many(cand_x, active):
+        # ``ls_bf16``: the candidates' losses from kernel 2b only rank the
+        # step sizes; the accepted point's loss is the gradient kernel's
+        # float32 one, and the descent guard rejects a step it calls uphill.
         loss, _ = fused_loss_multi(program(active), cand_x.reshape(P, R * C, CM), X, y, w, F,
-                                   operators, elementwise_loss)
+                                   operators, elementwise_loss, bf16=cfg.ls_bf16)
         return loss.reshape(M, C)
 
     active = (do_opt & (prog.nconst > 0)).repeat_interleave(R) if cfg.early_exit else None

@@ -21,6 +21,13 @@ Every member carries a parameter bank ``params`` [I, P, NP, NC]:
 parametric members' per-class parameters (``n_params``, ``n_classes``),
 or a template's parameter vector as [total_params, 1]. The optimizer
 takes the banks jointly with the constants, on the eager path.
+
+graftstage (``docs/PRECISION.md``): with ``eval_precision="bf16"`` the
+init eval, the cycles and the finalize score on the bf16 value buffer;
+the finalize and the optimizer always read every row (only the cycles'
+candidates are staged). ``optimizer_bf16_linesearch`` runs the L-BFGS
+line search on kernel 2b where the kernels run (``turbo`` on the card);
+elsewhere it stays float32, as the JAX package's interpret mode does.
 """
 
 from __future__ import annotations
@@ -115,8 +122,10 @@ class Engine:
                                                             n_classes=n_classes,
                                                             template=self.template)
         self.tables: ComplexityTables = build_complexity_tables(options, nfeatures, self.device)
-        self.opt_cfg = OptimizerConfig(iterations=options.optimizer_iterations,
-                                       nrestarts=options.optimizer_nrestarts)
+        self.opt_cfg = OptimizerConfig(
+            iterations=options.optimizer_iterations, nrestarts=options.optimizer_nrestarts,
+            ls_bf16=(options.optimizer_bf16_linesearch and self.cfg.turbo
+                     and self.device.type == "cuda"))
         self.window_size = float(window_size)
 
     def _eval(self, trees: TreeBatch, params, data: DeviceData, *, fuse_cost: bool,
@@ -127,7 +136,7 @@ class Engine:
                                cfg.operators, cfg.parsimony,
                                member_params=params if cfg.n_params else None,
                                turbo=cfg.turbo, fuse_cost=fuse_cost, dedup=dedup,
-                               template=cfg.template)
+                               template=cfg.template, bf16=cfg.eval_bf16)
 
     def _epilogue_draws(self, k_opt, I: int):
         """The optimizer's selection size and its island-major random

@@ -18,6 +18,13 @@ constraints.
 
 `s_r_cycle` runs ``ncycles`` steps over the annealing ramp and keeps the
 best member seen per complexity.
+
+graftstage (``docs/PRECISION.md``): ``eval_precision="bf16"`` scores
+candidates on a bfloat16 value buffer (kernel 1b, or the interpreter's
+bf16 mirror) with a float32 loss; ``staged_eval`` screens every candidate
+on a strided sample of rows and rescores only each island's best
+``rescore_fraction`` of them on every row, so only full-data costs reach
+the population.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.losses import aggregate_loss, loss_to_cost
-from ..core.options import MUTATION_KINDS, Options
+from ..core.options import KERNEL_TILE_ROWS, MUTATION_KINDS, Options
 from ..ops.complexity import ComplexityTables, check_constraints_batch, compute_complexity_batch
 from ..ops.encoding import LEAF_CONST, LEAF_VAR, TreeBatch, select_tree, structure_from_arity
 from ..ops.eval import eval_tree_batch
@@ -43,7 +50,8 @@ from .tournament import tournament_select
 
 __all__ = ["EvolveConfig", "HofState", "evolve_config_from_options", "eval_cost_batch",
            "generation_step", "empty_hof", "update_hof", "s_r_cycle", "take_members",
-           "template_check_batch", "template_k"]
+           "template_check_batch", "template_k", "MIN_SAMPLE_ROWS", "resolve_sample_rows",
+           "rescore_count"]
 
 _KIND = {name: i for i, name in enumerate(MUTATION_KINDS)}
 _IMMEDIATE_KINDS = (_KIND["simplify"], _KIND["do_nothing"], _KIND["optimize"],
@@ -88,6 +96,18 @@ class EvolveConfig(NamedTuple):
     # Template expressions: the structure (combiner and per-key arities);
     # trees gain a key axis [..., K, L].
     template: "object" = None
+    # graftstage (docs/PRECISION.md), all off by default: bf16 candidate
+    # evaluations, and the staged screen on ``staged_sample_rows`` rows
+    # (0: ``staged_sample_fraction`` of the data; see resolve_sample_rows)
+    # followed by the full-data rescore of ``rescore_fraction`` of them.
+    # ``eval_tile_rows`` is the resolved eval geometry; here it only caps
+    # the screen's sample.
+    eval_bf16: bool = False
+    staged_eval: bool = False
+    staged_sample_rows: int = 0
+    staged_sample_fraction: float = 0.125
+    rescore_fraction: float = 0.25
+    eval_tile_rows: int = KERNEL_TILE_ROWS
 
     @property
     def n_slots(self) -> int:
@@ -139,6 +159,12 @@ def evolve_config_from_options(options: Options, nfeatures: int, device: torch.d
         n_params=n_params,
         n_classes=n_classes,
         template=template,
+        eval_bf16=options.eval_precision == "bf16",
+        staged_eval=options.staged_eval,
+        staged_sample_rows=options.staged_sample_rows or 0,
+        staged_sample_fraction=options.staged_sample_fraction,
+        rescore_fraction=options.rescore_fraction,
+        eval_tile_rows=options.eval_geometry().tile_rows,
     )
 
 
@@ -150,8 +176,11 @@ def evolve_config_from_options(options: Options, nfeatures: int, device: torch.d
 def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: ComplexityTables,
                     operators: OperatorSet, parsimony: float, *, member_params=None,
                     turbo: bool = False, fuse_cost: bool = False, dedup: bool = False,
-                    template=None):
-    """(cost, loss, complexity) per tree, any batch shape.
+                    template=None, bf16: bool = False):
+    """(cost, loss, complexity) per tree, any batch shape, on the rows of
+    ``data``: the dataset, or a row subset of it such as graftstage's
+    screening sample (``DeviceData.strided_sample``, whose baseline
+    normalization is the full data's).
 
     ``turbo`` runs the interpreter kernel (ops/fused_eval.py); with
     ``fuse_cost`` (and not ``dedup``) the kernel's epilogue also computes
@@ -168,7 +197,14 @@ def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: Complexity
     combiner runs over the subexpressions (kernel #4 per call site with
     ``turbo``, its plain version otherwise) and reads the parameter vector
     ``member_params[..., :, 0]``, complexity is summed over K, and
-    ``fuse_cost``/``dedup`` do not apply."""
+    ``fuse_cost``/``dedup``/``bf16`` do not apply.
+
+    ``bf16`` (``eval_precision="bf16"``) evaluates on a bfloat16 value
+    buffer with a float32 loss: kernel 1b with ``turbo`` (plain and
+    parametric members; no dedup), else the interpreter on bf16 X and
+    constants with the prediction cast back to float32 before the loss
+    (plain members; parametric ones stay float32 there, as in the JAX
+    package)."""
     X, y, w = data.Xt, data.y, data.weights
     has_params = member_params is not None and member_params.shape[-2] > 0
     if template is not None:
@@ -190,19 +226,57 @@ def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: Complexity
         cost, loss, _ = fused_cost(
             trees, X, y, w, complexity, operators, elementwise_loss,
             baseline_loss=data.baseline_loss, use_baseline=data.use_baseline,
-            parsimony=parsimony)
+            parsimony=parsimony, bf16=bf16)
         return cost, loss, complexity
     if turbo and has_params:
         loss, _ = fused_loss(trees, X, y, w, operators, elementwise_loss, params=member_params,
-                             class_idx=data.class_idx)
+                             class_idx=data.class_idx, bf16=bf16)
     elif turbo:
-        loss, _ = fused_loss(trees, X, y, w, operators, elementwise_loss, dedup=dedup)
+        loss, _ = fused_loss(trees, X, y, w, operators, elementwise_loss, dedup=dedup,
+                             bf16=bf16)
+    elif bf16 and not has_params:
+        # The interpreter's mirror of kernel 1b: bf16 X and constants, the
+        # prediction back in float32 before the loss.
+        trees_b = dataclasses.replace(trees, const=trees.const.to(torch.bfloat16))
+        pred, valid = eval_tree_batch(trees_b, X.to(torch.bfloat16), operators)
+        loss = aggregate_loss(elementwise_loss, pred.to(torch.float32), y, valid, w)
     else:
         prows = member_params[..., data.class_idx.long()] if has_params else None
         pred, valid = eval_tree_batch(trees, X, operators, params=prows)
         loss = aggregate_loss(elementwise_loss, pred, y, valid, w)
     cost = loss_to_cost(loss, data.baseline_loss, data.use_baseline, complexity, parsimony)
     return cost, loss, complexity
+
+
+# ---------------------------------------------------------------------------
+# graftstage: staged sample-then-rescore evaluation (docs/PRECISION.md)
+# ---------------------------------------------------------------------------
+
+#: Floor of the screening sample: below it the screen's ranking is too
+#: noisy to be worth a second launch.
+MIN_SAMPLE_ROWS = 64
+
+
+def resolve_sample_rows(cfg: EvolveConfig, n_rows: int) -> int:
+    """The screen's sample size: ``staged_sample_rows`` when set, else
+    ``ceil(staged_sample_fraction * n_rows)``; at least MIN_SAMPLE_ROWS,
+    at most the dataset and ``eval_tile_rows``."""
+    if cfg.staged_sample_rows > 0:
+        k = int(cfg.staged_sample_rows)
+    else:
+        k = int(-(-n_rows * cfg.staged_sample_fraction // 1))
+    k = max(MIN_SAMPLE_ROWS, k)
+    k = min(k, int(n_rows))
+    if cfg.eval_tile_rows:
+        k = min(k, int(cfg.eval_tile_rows))
+    return max(1, k)
+
+
+def rescore_count(cfg: EvolveConfig, n_candidates: int) -> int:
+    """Candidates promoted from the screen to the full-data rescore:
+    ``ceil(rescore_fraction * N)``, at least 1."""
+    r = int(-(-n_candidates * cfg.rescore_fraction // 1))
+    return max(1, min(int(n_candidates), r))
 
 
 # ---------------------------------------------------------------------------
@@ -567,13 +641,47 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
     else:
         k2 = min(B, int(math.ceil(B * p_x + 3.0 * math.sqrt(B * p_x * (1.0 - p_x)) + 1.0)))
 
+    def _eval_on(flat: TreeBatch, p_flat, rows):
+        return eval_cost_batch(flat, rows, elementwise_loss, tables, cfg.operators,
+                               cfg.parsimony, member_params=p_flat, turbo=cfg.turbo,
+                               fuse_cost=cfg.fuse_cost, template=template, bf16=cfg.eval_bf16)
+
+    # graftstage's staged path (templates excepted, as in the JAX package):
+    # every candidate is screened on the strided sample, each island's best
+    # R by screened cost (NaN last, ties to the lower index, as lax.top_k)
+    # is rescored on every row, and the others keep NaN cost and inf loss,
+    # so acceptance keeps their parents and no sample cost enters the
+    # population. One screen launch and one rescore launch per cycle.
+    sample_rows = resolve_sample_rows(cfg, data.n) if cfg.staged_eval and template is None \
+        else data.n
+    staged = sample_rows < data.n
+
     def _eval(trees: TreeBatch, params):
         bshape = _member_shape(trees, template)
-        c, lo, cx = eval_cost_batch(
-            _flat_members(trees, template), data, elementwise_loss, tables, cfg.operators,
-            cfg.parsimony, member_params=params.reshape(-1, *params.shape[-2:]) if has_p else None,
-            turbo=cfg.turbo, fuse_cost=cfg.fuse_cost, template=template)
-        return c.reshape(bshape), lo.reshape(bshape), cx.reshape(bshape)
+        flat = _flat_members(trees, template)
+        p_flat = params.reshape(-1, *params.shape[-2:]) if has_p else None
+        if not staged:
+            c, lo, cx = _eval_on(flat, p_flat, data)
+            return c.reshape(bshape), lo.reshape(bshape), cx.reshape(bshape)
+        NI = flat.length.shape[0] // I                       # candidates per island
+        c_s, _, cx = _eval_on(flat, p_flat, data.strided_sample(sample_rows))
+        R = rescore_count(cfg, NI)
+        score = torch.where(torch.isnan(c_s), math.inf, c_s).reshape(I, NI)
+        sel = torch.argsort(score, dim=1, stable=True)[:, :R]
+        sel = (sel + NI * torch.arange(I, device=dev)[:, None]).reshape(-1)
+        # A genome with non-finite constants or parameters keeps its NaN
+        # verdict whatever the rescore finds.
+        row_bad = ~torch.isfinite(flat.const).reshape(I * NI, -1).all(1)
+        if has_p:
+            row_bad = row_bad | ~torch.isfinite(p_flat).reshape(I * NI, -1).all(1)
+        c_r, l_r, _ = _eval_on(TreeBatch(*(f[sel] for f in flat.fields())),
+                               p_flat[sel] if has_p else None, data)
+        bad = row_bad[sel]
+        cost = torch.full((I * NI,), math.nan, dtype=c_r.dtype, device=dev)
+        loss = torch.full((I * NI,), math.inf, dtype=l_r.dtype, device=dev)
+        cost[sel] = torch.where(bad, math.nan, c_r)
+        loss[sel] = torch.where(bad, math.inf, l_r)
+        return cost.reshape(bshape), loss.reshape(bshape), cx.reshape(bshape)
 
     inf = torch.tensor(math.inf, dtype=torch.float32, device=dev)
     if 0 < k2 < B:

@@ -36,6 +36,10 @@ def eval_tree_batch(batch: TreeBatch, X: torch.Tensor, operators: OperatorSet,
     leaf reads row ``clip(feat, 0, NP - 1)``. Without ``params`` a
     parameter leaf is invalid.
 
+    The buffer takes the constants' dtype: bfloat16 constants and ``X``
+    give graftstage's bf16 mirror of kernel 1b (``evolve.step.eval_cost_batch``
+    with ``bf16``), every node's value rounded to bf16 and checked there.
+
     Returns ``(y[..., n], valid[...])`` with the batch's leading dims."""
     batch_shape = batch.batch_shape
     L = batch.max_nodes

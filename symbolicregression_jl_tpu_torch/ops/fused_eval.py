@@ -10,9 +10,12 @@ programs over every row:
 - ``csrc/program_eval.cu`` (:data:`PROGRAM_EVAL`, ``_program_launch``):
   per-tree loss and validity, optionally with the loss -> cost epilogue;
   its parametric form (:data:`PROGRAM_EVAL_PARAM`) reads each tree's
-  parameter bank by the row's class;
+  parameter bank by the row's class; its bf16 forms
+  (:data:`PROGRAM_EVAL_BF16`, :data:`PROGRAM_EVAL_PARAM_BF16`, kernel 1b)
+  keep the value buffer in bfloat16;
 - ``csrc/program_multi.cu`` (:data:`PROGRAM_MULTI`, ``fused_loss_multi``):
-  loss and validity for every (tree, constant vector) pair;
+  loss and validity for every (tree, constant vector) pair; its bf16 form
+  :data:`PROGRAM_MULTI_BF16` (kernel 2b) is the bf16 line search;
 - ``csrc/program_grad.cu`` (:data:`PROGRAM_GRAD`, ``fused_grad_multi``):
   the same plus d(loss)/d(constants), by a forward and an adjoint sweep;
 - ``csrc/program_predict.cu`` (:data:`PROGRAM_PREDICT`,
@@ -25,6 +28,14 @@ programs over every row:
 Each wrapper, given tensors on the CPU, runs its plain PyTorch version
 (``program_*_plain``: the CPU path and the kernel's test oracle);
 given CUDA tensors it launches the kernel or raises, never falling back.
+
+A bf16 value buffer (graftstage, ``docs/PRECISION.md``) is storage only:
+X, the constants and the parameter values round to bfloat16 (round to
+nearest even) where the buffer takes them, every step reads bf16
+operands, computes in float32, checks finiteness on the float32 value
+and stores the value rounded to bf16; the root (the prediction) is the
+stored value. y, w, the loss, the row sums and the cost epilogue stay
+float32. Losses rank reliably but are not bit-exact against float32.
 The TPU kernels' V-chunking and tree blocks worked around VMEM and are not
 carried over: each call is one launch.
 """
@@ -33,8 +44,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import Callable, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from ..core.losses import LOSS_REGISTRY, baseline_normalization, l1_dist_loss, l2_dist_loss
@@ -43,8 +56,10 @@ from .operators import OPERATOR_REGISTRY, OperatorSet
 from .program import TreeProgram, compile_program, scatter_const_grads
 from .vjp import loss_vjp, vjp_binary, vjp_unary
 
-__all__ = ["PROGRAM_EVAL", "PROGRAM_EVAL_PARAM", "PROGRAM_MULTI", "PROGRAM_GRAD", "PROGRAM_PREDICT",
-           "PROGRAM_PREDICT_VJP", "fused_loss", "fused_loss_program", "fused_loss_dedup",
+__all__ = ["PROGRAM_EVAL", "PROGRAM_EVAL_PARAM", "PROGRAM_EVAL_BF16", "PROGRAM_EVAL_PARAM_BF16",
+           "PROGRAM_MULTI", "PROGRAM_MULTI_BF16", "PROGRAM_GRAD", "PROGRAM_PREDICT",
+           "PROGRAM_PREDICT_VJP", "strided_sample_indices", "fused_loss", "fused_loss_program",
+           "fused_loss_dedup",
            "fused_cost", "fused_cost_program", "fused_loss_multi", "fused_grad_multi",
            "fused_grad_program", "fused_loss_and_const_grad", "fused_predict_program",
            "fused_predict_vjp_program", "fused_predict", "fused_predict_ad",
@@ -55,6 +70,22 @@ __all__ = ["PROGRAM_EVAL", "PROGRAM_EVAL_PARAM", "PROGRAM_MULTI", "PROGRAM_GRAD"
 def supports_fused_eval(operators: OperatorSet) -> bool:
     """The kernel handles arity <= 2 operator sets."""
     return all(d in (1, 2) for d in operators.ops.keys())
+
+
+def strided_sample_indices(n_rows: int, sample_rows: int) -> np.ndarray:
+    """[sample_rows] int32 row indices of graftstage's screening sample:
+    an even stride over the dataset, ``(k * n) // sample_rows``.
+    Deterministic in (n_rows, sample_rows), no RNG, so a resumed or
+    replayed search screens the same rows."""
+    k = int(min(sample_rows, n_rows))
+    if k <= 0:
+        raise ValueError("sample_rows must be positive")
+    return ((np.arange(k, dtype=np.int64) * int(n_rows)) // k).astype(np.int32)
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to bfloat16 (round to nearest even) and back."""
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -172,29 +203,36 @@ def _branches(operators: OperatorSet):
     return out
 
 
-def _plain_forward(instr, nsteps, cvals, X, operators: OperatorSet, prows=None):
+def _plain_forward(instr, nsteps, cvals, X, operators: OperatorSet, prows=None,
+                   bf16: bool = False):
     """Forward sweep of packed programs on a [T, F + NP + CMAX + L + 1, n]
     value buffer (X rows, parameter rows, constants, one row per step, the
     zero row), as the kernels run it. ``X`` is [F, n] (shared) or [T, F,
     n] (one argument block per tree); ``prows`` [T, NP, n] are the rows'
-    parameter values (parametric expressions), else NP = 0. Returns (buf,
-    vmask [T, n]: every live step finite on the row, the decoded (code,
-    src1, src2, sign) of each step)."""
+    parameter values (parametric expressions), else NP = 0. ``bf16`` keeps
+    bf16 values in the (float32) buffer: X, the parameters and the
+    constants round as they enter it, each step computes on them in
+    float32, is checked finite before rounding and is stored rounded.
+    Returns (buf, vmask [T, n]: every live step finite on the row, the
+    decoded (code, src1, src2, sign) of each step)."""
     plan = _dispatch_plan(operators)
     T, L = instr.shape
     F, n = X.shape[-2:]
     R = F + (0 if prows is None else prows.shape[1])
     BASE = R + cvals.shape[1]
     dev = X.device
+    store = _round_bf16 if bf16 else (lambda v: v)
+    if bf16:
+        X = X.to(torch.float32)
     branches = _branches(operators)
     code_mask = 0x3F if plan.merged else 0x7F
     m = nsteps.long()
     rows = torch.arange(T, device=dev)
     buf = torch.zeros((T, BASE + L + 1, n), dtype=X.dtype, device=dev)
-    buf[:, :F] = X
+    buf[:, :F] = store(X)
     if prows is not None:
-        buf[:, F:R] = prows
-    buf[:, R:BASE] = cvals[:, :, None]
+        buf[:, F:R] = store(prows)
+    buf[:, R:BASE] = store(cvals)[:, :, None]
     vmask = torch.ones((T, n), dtype=torch.bool, device=dev)
     words = []
     for k in range(int(m.max()) if T else 0):
@@ -210,7 +248,7 @@ def _plain_forward(instr, nsteps, cvals, X, operators: OperatorSet, prows=None):
         for c in torch.unique(code).tolist():
             v = branches[c](a, b, sign)
             val = v if val is None else torch.where((code == c)[:, None], v, val)
-        buf[:, BASE + k] = val
+        buf[:, BASE + k] = store(val)
         vmask &= torch.isfinite(val) | ~(k < m)[:, None]
     return buf, vmask, words
 
@@ -230,7 +268,7 @@ def _param_rows(bank, class_idx):
 
 def program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators: OperatorSet,
                        loss_fn: Callable, cx=None, scal=None, bank=None, class_idx=None,
-                       max_elems: int = 1 << 26):
+                       max_elems: int = 1 << 26, bf16: bool = False):
     """Eager version of the kernel: an explicit loop over program steps on
     [trees, rows] tensors with the kernel's masking and reduction.
 
@@ -238,6 +276,7 @@ def program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators: Opera
     with the cost epilogue when ``cx`` [T] and ``scal`` [3] are given.
     The parametric form takes ``bank`` [T, NP, NC] and ``class_idx`` [n]:
     parameter p of row r is ``bank[t, p, class_idx[r]]`` (a gather).
+    ``bf16`` is kernel 1b's bf16 value buffer (``X`` float32 or bfloat16).
     Trees run in chunks of at most ``max_elems`` buffer elements."""
     T, L = instr.shape
     F, n = X.shape
@@ -249,7 +288,7 @@ def program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators: Opera
         e = s + chunk
         prows = None if bank is None else _param_rows(bank[s:e], class_idx)
         buf, vmask, _ = _plain_forward(instr[s:e], nsteps[s:e], cvals[s:e], X, operators,
-                                       prows)
+                                       prows, bf16=bf16)
         elt = loss_fn(_root(buf, nsteps[s:e], BASE), y)
         elt = torch.where(w > 0, elt, 0.0)
         total = torch.sum(elt * w, dim=-1)
@@ -257,7 +296,7 @@ def program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators: Opera
         loss_parts.append(total)
         valid_parts.append(valid)
     dev = X.device
-    total = torch.cat(loss_parts) if loss_parts else torch.zeros(0, dtype=X.dtype, device=dev)
+    total = torch.cat(loss_parts) if loss_parts else torch.zeros(0, dtype=y.dtype, device=dev)
     valid = torch.cat(valid_parts) if valid_parts else torch.zeros(0, dtype=torch.bool, device=dev)
     if cx is None:
         return total, valid
@@ -268,15 +307,16 @@ def program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators: Opera
 
 
 def program_multi_plain(instr, nsteps, cvals_v, X, y, w, operators: OperatorSet,
-                        loss_fn: Callable):
+                        loss_fn: Callable, bf16: bool = False):
     """Eager version of kernel #2: the plain form of :func:`program_eval_plain`
     for every (tree, variant) pair of ``cvals_v`` [T, V, CMAX]. Returns
-    (loss_sum [T, V], valid [T, V]); constant validity is the caller's."""
+    (loss_sum [T, V], valid [T, V]); constant validity is the caller's.
+    ``bf16`` is kernel 2b's bf16 value buffer."""
     T, V, CMAX = cvals_v.shape
     ok = torch.ones(T * V, dtype=torch.int32, device=X.device)
     loss, valid = program_eval_plain(
         instr.repeat_interleave(V, dim=0), nsteps.repeat_interleave(V, dim=0),
-        cvals_v.reshape(T * V, CMAX), ok, X, y, w, operators, loss_fn)
+        cvals_v.reshape(T * V, CMAX), ok, X, y, w, operators, loss_fn, bf16=bf16)
     return loss.reshape(T, V), valid.reshape(T, V)
 
 
@@ -504,13 +544,17 @@ class _ProgramKernel:
     """Shared parts of the kernels' wrappers: the library (built at first
     use), the block size, the opcode table on the device and the input
     checks. ``launches`` counts kernel launches; each wrapper increments
-    it where it launches its kernel and nowhere else."""
+    it where it launches its kernel and nowhere else. ``bf16`` wrappers
+    run the kernel over a bfloat16 value buffer and take X as bfloat16."""
 
     name = ""
     source = ""
     replaces = ""
+    bf16 = False
     _file = ""
     _entry = ""
+    _smem = ""        # the shared-memory size function ("": ``_entry + "_smem"``)
+    _smem_nargs = 4
 
     def __init__(self):
         self.launches = 0
@@ -520,23 +564,31 @@ class _ProgramKernel:
     def _bind(self, lib):
         raise NotImplementedError
 
+    def _smem_fn(self, lib):
+        return getattr(lib, self._smem or self._entry + "_smem")
+
+    def _smem_extra(self, NP: int, NC: int) -> tuple:
+        """The size function's arguments after (block, L, CMAX, F)."""
+        return ()
+
     def library(self):
         """Build (at first use) and bind the shared library."""
         if self._lib is None:
             from .cuda_build import load_library
 
             lib = load_library(self._file)
-            getattr(lib, self._entry + "_smem").argtypes = [ctypes.c_int] * 4
-            getattr(lib, self._entry + "_smem").restype = ctypes.c_size_t
+            self._smem_fn(lib).argtypes = [ctypes.c_int] * self._smem_nargs
+            self._smem_fn(lib).restype = ctypes.c_size_t
             getattr(lib, self._entry).restype = ctypes.c_int
             self._bind(lib)
             self._lib = lib
         return self._lib
 
-    def _block(self, L: int, CMAX: int, F: int, *extra: int) -> int:
-        """The largest block whose shared memory fits; ``extra`` are the
-        size function's further arguments (the parametric form's NP, NC)."""
-        smem = getattr(self.library(), self._entry + "_smem")
+    def _block(self, L: int, CMAX: int, F: int, NP: int = 0, NC: int = 0) -> int:
+        """The largest block whose shared memory fits (a bf16 buffer takes
+        half the bytes, so it fits a larger block sooner)."""
+        smem = self._smem_fn(self.library())
+        extra = self._smem_extra(NP, NC)
         for block in (256, 128, 64, 32):
             if smem(block, L, CMAX, F, *extra) <= _SMEM_LIMIT:
                 return block
@@ -555,12 +607,13 @@ class _ProgramKernel:
         """(opcode table on the device, block size, opcode mask) of a launch."""
         _check_packable(operators, F + NP + CMAX, L)
         code_mask = 0x3F if _dispatch_plan(operators).merged else 0x7F
-        block = self._block(L, CMAX, F, NP, NC) if NP else self._block(L, CMAX, F)
+        block = self._block(L, CMAX, F, NP, NC)
         return self._device_optab(operators, X.device), block, code_mask
 
     def _check(self, X, loss_fn, ints, floats):
-        """Device, dtype and contiguity of every input; the loss kind
-        (None for the kernels that compute no loss)."""
+        """Device, dtype and contiguity of every input (``X`` bfloat16 for a
+        bf16 wrapper, the other floats float32); the loss kind (None for the
+        kernels that compute no loss)."""
         if X.device.type != "cuda":
             raise ValueError(f"{self.name}: unsupported device {X.device}")
         loss_kind = _KERNEL_LOSS.get(loss_fn) if loss_fn is not None else None
@@ -568,15 +621,15 @@ class _ProgramKernel:
             raise NotImplementedError(
                 f"the CUDA kernel {self.name} implements the L2, L1 and Huber "
                 f"elementwise losses only")
-        for group, dtype, kind in ((ints, torch.int32, "int32"),
-                                   (floats, torch.float32, "float32")):
+        for group, dtype in ((ints, torch.int32), (floats, torch.float32)):
             for nm, t in group.items():
+                want = torch.bfloat16 if (nm == "X" and self.bf16) else dtype
                 if t.device != X.device:
                     raise ValueError(f"{self.name}: {nm} is on {t.device}, X on {X.device}")
                 if not t.is_contiguous():
                     raise ValueError(f"{self.name}: {nm} must be contiguous")
-                if t.dtype != dtype:
-                    raise TypeError(f"{self.name}: {nm} must be {kind}")
+                if t.dtype != want:
+                    raise TypeError(f"{self.name}: {nm} must be {str(want)[6:]}")
         return loss_kind
 
     def _launch(self, *args):
@@ -602,16 +655,21 @@ class ProgramEvalKernel(_ProgramKernel):
     replaces = "symbolicregression_jl_tpu/ops/fused_eval.py:505 (_program_launch / _make_program_kernel)"
     _file = "program_eval.cu"
     _entry = "sr_program_eval"
+    _smem = "sr_program_eval_smem"
+    _smem_nargs = 7
+
+    def _smem_extra(self, NP, NC):
+        return (NP, NC, 2 if self.bf16 else 4)
 
     def _bind(self, lib):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sr_program_eval.argtypes = [p] * 10 + [i] * 9 + [p, p, p, p]
+        getattr(lib, self._entry).argtypes = [p] * 10 + [i] * 9 + [p, p, p, p]
 
     def __call__(self, instr, nsteps, cvals, const_ok, X, y, w, operators: OperatorSet,
                  loss_fn: Callable, cx=None, scal=None):
         if X.device.type == "cpu":
             return program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w,
-                                      operators, loss_fn, cx=cx, scal=scal)
+                                      operators, loss_fn, cx=cx, scal=scal, bf16=self.bf16)
         T, L = instr.shape
         F, n = X.shape
         CMAX = cvals.shape[1]
@@ -651,17 +709,21 @@ class ProgramEvalParamKernel(_ProgramKernel):
                 "nparam > 0 / _program_launch params, class_oh)")
     _file = "program_eval.cu"
     _entry = "sr_program_eval_param"
+    _smem = "sr_program_eval_smem"
+    _smem_nargs = 7
+
+    def _smem_extra(self, NP, NC):
+        return (NP, NC, 2 if self.bf16 else 4)
 
     def _bind(self, lib):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sr_program_eval_param_smem.argtypes = [i] * 6
-        lib.sr_program_eval_param.argtypes = [p] * 10 + [i] * 11 + [p, p, p]
+        getattr(lib, self._entry).argtypes = [p] * 10 + [i] * 11 + [p, p, p]
 
     def __call__(self, instr, nsteps, cvals, const_ok, bank, class_idx, X, y, w,
                  operators: OperatorSet, loss_fn: Callable):
         if X.device.type == "cpu":
             return program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators,
-                                      loss_fn, bank=bank, class_idx=class_idx)
+                                      loss_fn, bank=bank, class_idx=class_idx, bf16=self.bf16)
         T, L = instr.shape
         F, n = X.shape
         CMAX = cvals.shape[1]
@@ -692,15 +754,21 @@ class ProgramMultiKernel(_ProgramKernel):
     replaces = "symbolicregression_jl_tpu/ops/fused_eval.py:830 (fused_loss_multi / _make_multi_kernel)"
     _file = "program_multi.cu"
     _entry = "sr_program_multi"
+    _smem = "sr_program_multi_smem"
+    _smem_nargs = 5
+
+    def _smem_extra(self, NP, NC):
+        return (2 if self.bf16 else 4,)
 
     def _bind(self, lib):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sr_program_multi.argtypes = [p] * 7 + [i] * 10 + [p, p, p]
+        getattr(lib, self._entry).argtypes = [p] * 7 + [i] * 10 + [p, p, p]
 
     def __call__(self, instr, nsteps, cvals_v, X, y, w, operators: OperatorSet,
                  loss_fn: Callable):
         if X.device.type == "cpu":
-            return program_multi_plain(instr, nsteps, cvals_v, X, y, w, operators, loss_fn)
+            return program_multi_plain(instr, nsteps, cvals_v, X, y, w, operators, loss_fn,
+                                       bf16=self.bf16)
         T, L = instr.shape
         F, n = X.shape
         V, CMAX = cvals_v.shape[1], cvals_v.shape[2]
@@ -837,9 +905,46 @@ class ProgramPredictVjpKernel(_ProgramKernel):
         return gcomp, gx
 
 
+class ProgramEvalBf16Kernel(ProgramEvalKernel):
+    """Wrapper of ``sr_program_eval_bf16`` (csrc/program_eval.cu), kernel
+    1b: kernel #1's cost and plain forms over a bfloat16 value buffer, X
+    [F, n] bfloat16. Its own launch count keeps it apart from #1's."""
+
+    name = "program_eval_bf16"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:519 (_program_launch bf16=True, "
+                "_make_program_kernel bdt stores :417-470)")
+    bf16 = True
+    _entry = "sr_program_eval_bf16"
+
+
+class ProgramEvalParamBf16Kernel(ProgramEvalParamKernel):
+    """Wrapper of ``sr_program_eval_param_bf16`` (csrc/program_eval.cu):
+    kernel 1b's parametric form, the bank rounded to bf16 as it loads."""
+
+    name = "program_eval_param_bf16"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:379 (_make_program_kernel "
+                "nparam > 0 with a bf16 buffer, :417-436)")
+    bf16 = True
+    _entry = "sr_program_eval_param_bf16"
+
+
+class ProgramMultiBf16Kernel(ProgramMultiKernel):
+    """Wrapper of ``sr_program_multi_bf16`` (csrc/program_multi.cu), kernel
+    2b: kernel #2 over a bfloat16 value buffer, X [F, n] bfloat16."""
+
+    name = "program_multi_bf16"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:855 (fused_loss_multi bf16=True "
+                "/ _make_multi_kernel bdt stores)")
+    bf16 = True
+    _entry = "sr_program_multi_bf16"
+
+
 PROGRAM_EVAL = ProgramEvalKernel()
 PROGRAM_EVAL_PARAM = ProgramEvalParamKernel()
+PROGRAM_EVAL_BF16 = ProgramEvalBf16Kernel()
+PROGRAM_EVAL_PARAM_BF16 = ProgramEvalParamBf16Kernel()
 PROGRAM_MULTI = ProgramMultiKernel()
+PROGRAM_MULTI_BF16 = ProgramMultiBf16Kernel()
 PROGRAM_GRAD = ProgramGradKernel()
 PROGRAM_PREDICT = ProgramPredictKernel()
 PROGRAM_PREDICT_VJP = ProgramPredictVjpKernel()
@@ -850,8 +955,27 @@ PROGRAM_PREDICT_VJP = ProgramPredictVjpKernel()
 # ---------------------------------------------------------------------------
 
 
+# X rounded to bfloat16 for the bf16 kernels, one copy per dataset tensor:
+# id(X) -> (weak reference to X, X's version counter, the bf16 copy). A
+# search reads the same X every cycle, so the copy is made once.
+_BF16_ROWS: dict = {}
+
+
+def _bf16_rows(X: torch.Tensor) -> torch.Tensor:
+    """``X`` as a contiguous bfloat16 tensor (round to nearest even),
+    cached while ``X`` lives unmodified."""
+    hit = _BF16_ROWS.get(id(X))
+    if hit is not None and hit[0]() is X and hit[1] == X._version:
+        return hit[2]
+    xb = X.to(torch.bfloat16).contiguous()
+    for k in [k for k, v in _BF16_ROWS.items() if v[0]() is None]:
+        del _BF16_ROWS[k]
+    _BF16_ROWS[id(X)] = (weakref.ref(X), X._version, xb)
+    return xb
+
+
 def _launch_inputs(prog: TreeProgram, X, y, weights, nfeatures: int,
-                   operators: OperatorSet, n_params: int = 0):
+                   operators: OperatorSet, n_params: int = 0, bf16: bool = False):
     T, L = prog.code.shape
     CMAX = prog.cmax
     n = X.shape[1]
@@ -863,7 +987,7 @@ def _launch_inputs(prog: TreeProgram, X, y, weights, nfeatures: int,
     return (instr, prog.nsteps.to(torch.int32).contiguous(),
             prog.cvals.to(X.dtype).contiguous(),
             prog.const_ok.to(torch.int32).contiguous(),
-            X.contiguous(), y.contiguous(), w)
+            _bf16_rows(X) if bf16 else X.contiguous(), y.contiguous(), w)
 
 
 def _denominator(weights, X):
@@ -875,20 +999,21 @@ def _denominator(weights, X):
 
 def fused_loss_program(prog: TreeProgram, X, y, weights, nfeatures: int,
                        operators: OperatorSet, loss_fn: Callable, *, params=None,
-                       class_idx=None):
+                       class_idx=None, bf16: bool = False):
     """Mean elementwise loss per compiled program (flat [T]); invalid
     programs get loss inf. Returns (loss, valid).
 
     Parametric programs (compiled with ``n_params = NP``) pass their
     banks ``params`` [T, NP, NC] and the rows' ``class_idx`` [n]; they run
-    the parametric form of the kernel."""
+    the parametric form of the kernel. ``bf16`` runs kernel 1b (a
+    bfloat16 value buffer, float32 loss)."""
     if params is None:
-        args = _launch_inputs(prog, X, y, weights, nfeatures, operators)
-        loss_sum, valid = PROGRAM_EVAL(*args, operators, loss_fn)
+        args = _launch_inputs(prog, X, y, weights, nfeatures, operators, bf16=bf16)
+        loss_sum, valid = (PROGRAM_EVAL_BF16 if bf16 else PROGRAM_EVAL)(*args, operators, loss_fn)
     else:
         instr, nsteps, cvals, ok, Xc, yc, w = _launch_inputs(prog, X, y, weights, nfeatures,
-                                                             operators, params.shape[1])
-        loss_sum, valid = PROGRAM_EVAL_PARAM(
+                                                             operators, params.shape[1], bf16)
+        loss_sum, valid = (PROGRAM_EVAL_PARAM_BF16 if bf16 else PROGRAM_EVAL_PARAM)(
             instr, nsteps, cvals, ok, params.to(X.dtype).contiguous(),
             class_idx.to(torch.int32).contiguous(), Xc, yc, w, operators, loss_fn)
     loss = loss_sum / _denominator(weights, X)
@@ -898,16 +1023,18 @@ def fused_loss_program(prog: TreeProgram, X, y, weights, nfeatures: int,
 
 def fused_cost_program(prog: TreeProgram, X, y, weights, complexity, nfeatures: int,
                        operators: OperatorSet, loss_fn: Callable, *, baseline_loss,
-                       use_baseline, parsimony):
+                       use_baseline, parsimony, bf16: bool = False):
     """(cost, loss, valid) per compiled program, the cost computed in the
-    kernel's epilogue with ``core.losses.loss_to_cost``'s operation order."""
+    kernel's epilogue with ``core.losses.loss_to_cost``'s operation order
+    (kernel 1b with ``bf16``)."""
     denom = _denominator(weights, X)
     norm = baseline_normalization(baseline_loss.to(X.dtype), use_baseline)
     scal = torch.stack([denom.to(X.dtype), norm.to(X.dtype),
                         torch.tensor(parsimony, dtype=X.dtype, device=X.device)])
-    args = _launch_inputs(prog, X, y, weights, nfeatures, operators)
-    loss, valid, cost = PROGRAM_EVAL(*args, operators, loss_fn,
-                                     cx=complexity.to(X.dtype).contiguous(), scal=scal)
+    args = _launch_inputs(prog, X, y, weights, nfeatures, operators, bf16=bf16)
+    kernel = PROGRAM_EVAL_BF16 if bf16 else PROGRAM_EVAL
+    loss, valid, cost = kernel(*args, operators, loss_fn,
+                               cx=complexity.to(X.dtype).contiguous(), scal=scal)
     return cost, loss, valid
 
 
@@ -958,10 +1085,13 @@ def _params_ok(trees: TreeBatch, params, class_idx):
 
 
 def fused_loss(trees: TreeBatch, X, y, weights, operators: OperatorSet,
-               loss_fn: Callable, *, params=None, class_idx=None, dedup: bool = False):
+               loss_fn: Callable, *, params=None, class_idx=None, dedup: bool = False,
+               bf16: bool = False):
     """Mean elementwise loss per tree (batch dims kept); invalid trees get
     loss inf. ``dedup`` evaluates each distinct (structure, constants)
-    program once and shares the result (bit-equal).
+    program once and shares the result (bit-equal). ``bf16`` runs kernel
+    1b (plain or parametric form) and takes the plain launch even with
+    ``dedup``, as the JAX package does.
 
     Parametric members pass their banks ``params`` [..., NP, NC] and the
     dataset's ``class_idx`` [n]: parameter leaves then read
@@ -977,27 +1107,29 @@ def fused_loss(trees: TreeBatch, X, y, weights, operators: OperatorSet,
     if NP > 0:
         p_flat = params.reshape(-1, NP, params.shape[-1])
         loss, valid = fused_loss_program(prog, X, y, weights, F, operators, loss_fn,
-                                         params=p_flat, class_idx=class_idx)
+                                         params=p_flat, class_idx=class_idx, bf16=bf16)
         valid = valid & _params_ok(flat, p_flat, class_idx)
         loss = torch.where(valid, loss, torch.inf)
-    elif dedup:
+    elif dedup and not bf16:
         loss, valid = fused_loss_dedup(prog, X, y, weights, F, operators, loss_fn)
     else:
-        loss, valid = fused_loss_program(prog, X, y, weights, F, operators, loss_fn)
+        loss, valid = fused_loss_program(prog, X, y, weights, F, operators, loss_fn, bf16=bf16)
     return loss.reshape(batch_shape), valid.reshape(batch_shape)
 
 
 def fused_cost(trees: TreeBatch, X, y, weights, complexity, operators: OperatorSet,
-               loss_fn: Callable, *, baseline_loss, use_baseline, parsimony):
+               loss_fn: Callable, *, baseline_loss, use_baseline, parsimony,
+               bf16: bool = False):
     """(cost, loss, valid) per tree with the loss -> cost epilogue in the
-    kernel: the candidate-scoring hot path of the evolve cycle."""
+    kernel: the candidate-scoring hot path of the evolve cycle (kernel 1b
+    with ``bf16``)."""
     batch_shape = trees.batch_shape
     flat = trees.reshape(-1)
     F = X.shape[0]
     prog = compile_program(flat, F, len(operators.binary))
     cost, loss, valid = fused_cost_program(
         prog, X, y, weights, complexity.reshape(-1), F, operators, loss_fn,
-        baseline_loss=baseline_loss, use_baseline=use_baseline, parsimony=parsimony)
+        baseline_loss=baseline_loss, use_baseline=use_baseline, parsimony=parsimony, bf16=bf16)
     return (cost.reshape(batch_shape), loss.reshape(batch_shape),
             valid.reshape(batch_shape))
 
@@ -1009,9 +1141,10 @@ def fused_cost(trees: TreeBatch, X, y, weights, complexity, operators: OperatorS
 
 
 def _multi_inputs(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
-                  operators: OperatorSet):
+                  operators: OperatorSet, bf16: bool = False):
     """Kernel #2/#3 inputs and each pair's constant validity [T, V]."""
-    instr, nsteps, _, _, Xc, yc, w = _launch_inputs(prog, X, y, weights, nfeatures, operators)
+    instr, nsteps, _, _, Xc, yc, w = _launch_inputs(prog, X, y, weights, nfeatures, operators,
+                                                    bf16=bf16)
     used = torch.arange(prog.cmax, device=X.device)[None, None, :] < prog.nconst[:, None, None]
     ok_v = torch.all(torch.isfinite(cvals_v) | ~used, dim=-1)
     return (instr, nsteps, cvals_v.to(X.dtype).contiguous(), Xc, yc, w), ok_v
@@ -1021,14 +1154,16 @@ def fused_loss_multi(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
                      operators: OperatorSet, loss_fn: Callable, *, bf16: bool = False):
     """Mean loss for every (tree, constant-variant) pair: (loss, valid)
     [T, V] each, from one launch of kernel #2. Invalid pairs (a non-finite
-    step or loss, or a non-finite used constant) get loss inf."""
-    if bf16:
-        raise NotImplementedError(
-            "bf16=True (bfloat16 line-search evaluations) is not in the PyTorch port "
-            "yet; it comes with graftstage (ROADMAP.md queue 1 step 7).")
+    step or loss, or a non-finite used constant) get loss inf.
+
+    ``bf16`` runs kernel 2b (a bfloat16 value buffer, float32 loss): the
+    losses rank reliably but are not bit-exact, so a caller re-verifies an
+    accepted point in float32 (the L-BFGS line search does, through the
+    gradient kernel's loss and its descent check)."""
     (instr, nsteps, cv, Xc, yc, w), ok_v = _multi_inputs(prog, cvals_v, X, y, weights,
-                                                         nfeatures, operators)
-    loss_sum, valid = PROGRAM_MULTI(instr, nsteps, cv, Xc, yc, w, operators, loss_fn)
+                                                         nfeatures, operators, bf16)
+    kernel = PROGRAM_MULTI_BF16 if bf16 else PROGRAM_MULTI
+    loss_sum, valid = kernel(instr, nsteps, cv, Xc, yc, w, operators, loss_fn)
     valid = valid & ok_v
     loss = loss_sum / _denominator(weights, X)
     loss = torch.where(valid & torch.isfinite(loss), loss, torch.inf)

@@ -165,14 +165,6 @@ def test_optimize_constants_batch_matches_jax():
     _assert_optimizer_equal(jr, sr)
 
 
-def test_optimizer_refusals():
-    _, sops, _, st, _, sd, do_opt = _fixed(n=16)
-    el = S.Options(save_to_file=False).elementwise_loss
-    with pytest.raises(NotImplementedError, match="graftstage"):
-        SC.optimize_constants_fused(SR.key(0), st, torch.from_numpy(do_opt), sd, el, sops,
-                                    SC.OptimizerConfig(ls_bf16=True))
-
-
 # ---------------------------------------------------------------------------
 # One engine iteration with the optimizer on
 # ---------------------------------------------------------------------------

@@ -427,3 +427,113 @@ def test_template_composition_search_on_card(cuda_device):
     assert np.isfinite(min(e.loss for e in runs[0].entries))
     assert [e.equation_string() for e in runs[0].entries] == [e.equation_string()
                                                             for e in runs[1].entries]
+
+
+def _inexact(instr, nsteps, ops):
+    """[T] bool: a live step applies a unary operator other than abs, whose
+    float32 value two implementations may round an ULP apart."""
+    tab = torch.tensor(SF._optab_list(ops), device=instr.device)
+    mask = 0x3F if SF._dispatch_plan(ops).merged else 0x7F
+    entry = tab[((instr >> 24) & mask).long()]
+    live = torch.arange(instr.shape[1], device=instr.device)[None, :] < nsteps[:, None]
+    unary = ((entry >> 8) == SF._K_UNARY) & ((entry & 0xFF) != SF._KERNEL_OP_IDS["abs"])
+    return (live & unary).any(dim=1)
+
+
+def _bf16_close(a, b, inexact):
+    """bf16 results: NaN and +-inf in the same places; trees of exact
+    operators (+ - * / abs) within rtol 1e-5, since both sides store the
+    same bf16 bits and only the row sums' order differs; the others with a
+    median relative error below 1e-4 and every one within 1e-2, since an
+    ULP of a transcendental can flip one bf16 rounding (2^-8 relative)."""
+    _nonfinite_match(a, b)
+    ex = ~inexact.reshape(inexact.shape + (1,) * (a.dim() - 1)).expand_as(a)
+    fin = torch.isfinite(b)
+    torch.testing.assert_close(a[fin & ex], b[fin & ex], rtol=RTOL, atol=0)
+    sel = fin & ~ex
+    rel = ((a - b).abs() / b.abs().clamp(min=1e-30))[sel]
+    if rel.numel():
+        assert float(rel.median()) < 1e-4 and float(rel.max()) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binary", [("+", "-", "*", "/"), ("*", "/", "-")])
+@pytest.mark.parametrize("n", [257, 10_000])
+def test_bf16_kernels_match_plain_versions(cuda_device, binary, n):
+    """Kernel 1b (cost, plain and parametric forms) and 2b against their
+    plain bf16 versions on the card: validity bit-equal, results within
+    ``_bf16_close``, two launches bit-identical, one count per launch on
+    their own wrappers; 2b with V = 1 bit-equal to 1b's plain form."""
+    ops, args, cx, scal = _launch_args(cuda_device, binary, n)
+    args = args[:4] + (SF._bf16_rows(args[4]),) + args[5:]
+    inexact = _inexact(args[0], args[1], ops)
+    k1b = SF.ProgramEvalBf16Kernel()
+    before = SF.PROGRAM_EVAL.launches
+    lk, vk = k1b(*args, ops, SL.l2_dist_loss)
+    lk2, vk2 = k1b(*args, ops, SL.l2_dist_loss)
+    lck, vck, ck = k1b(*args, ops, SL.l2_dist_loss, cx=cx, scal=scal)
+    assert k1b.launches == 3 and SF.PROGRAM_EVAL.launches == before
+    lp, vp = SF.program_eval_plain(*args, ops, SL.l2_dist_loss, bf16=True)
+    lcp, vcp, cp = SF.program_eval_plain(*args, ops, SL.l2_dist_loss, cx=cx, scal=scal,
+                                         bf16=True)
+    assert torch.equal(lk.view(torch.int32), lk2.view(torch.int32)) and torch.equal(vk, vk2)
+    assert torch.equal(vk, vp) and torch.equal(vck, vcp)
+    _bf16_close(torch.where(vp, lk, torch.inf), torch.where(vp, lp, torch.inf), inexact)
+    _bf16_close(lck, lcp, inexact)
+    _bf16_close(ck, cp, inexact)
+
+    pops, pargs = _param_args(cuda_device, binary, n)
+    pargs = pargs[:6] + (SF._bf16_rows(pargs[6]),) + pargs[7:]
+    kp = SF.ProgramEvalParamBf16Kernel()
+    pk, pv = kp(*pargs, pops, SL.l2_dist_loss)
+    pk2, _ = kp(*pargs, pops, SL.l2_dist_loss)
+    assert kp.launches == 2
+    qk, qv = SF.program_eval_plain(*pargs[:4], *pargs[6:], pops, SL.l2_dist_loss, bank=pargs[4],
+                                   class_idx=pargs[5], bf16=True)
+    assert torch.equal(pk.view(torch.int32), pk2.view(torch.int32)) and torch.equal(pv, qv)
+    _bf16_close(torch.where(qv, pk, torch.inf), torch.where(qv, qk, torch.inf),
+                _inexact(pargs[0], pargs[1], pops))
+
+    mops, instr, nsteps, _, cv, X, y, w, cvals = _multi_args(cuda_device, binary, n, 5)
+    Xb = SF._bf16_rows(X)
+    k2b = SF.ProgramMultiBf16Kernel()
+    mk, mv = k2b(instr, nsteps, cv, Xb, y, w, mops, SL.l2_dist_loss)
+    mk2, _ = k2b(instr, nsteps, cv, Xb, y, w, mops, SL.l2_dist_loss)
+    mp, mvp = SF.program_multi_plain(instr, nsteps, cv, Xb, y, w, mops, SL.l2_dist_loss,
+                                     bf16=True)
+    assert torch.equal(mk.view(torch.int32), mk2.view(torch.int32)) and torch.equal(mv, mvp)
+    _bf16_close(torch.where(mvp, mk, torch.inf), torch.where(mvp, mp, torch.inf),
+                _inexact(instr, nsteps, mops))
+    ones = torch.ones(instr.shape[0], dtype=torch.int32, device=cuda_device)
+    l1, v1 = k2b(instr, nsteps, cvals[:, None, :].contiguous(), Xb, y, w, mops, SL.l2_dist_loss)
+    l1e, v1e = SF.ProgramEvalBf16Kernel()(instr, nsteps, cvals, ones, Xb, y, w, mops,
+                                          SL.l2_dist_loss)
+    assert torch.equal(l1[:, 0].view(torch.int32), l1e.view(torch.int32))
+    assert torch.equal(v1[:, 0], v1e) and k2b.launches == 3
+
+
+@pytest.mark.cuda
+def test_graftstage_engine_launches_bf16_kernels(cuda_device):
+    """Staged bf16 candidate evals are a screen and a rescore per cycle on
+    kernel 1b, plus the finalize's plain form (no dedup under bf16); the
+    bf16 line search is kernel 2b once per L-BFGS iteration, its gradient
+    kernel #3 as before; kernels #1 and #2 do not run."""
+    opts = _options(should_optimize_constants=True, staged_eval=True, eval_precision="bf16",
+                    optimizer_bf16_linesearch=True)
+    g = np.random.default_rng(1)
+    X = g.uniform(-3, 3, (3000, 3)).astype(np.float32)
+    y = (X[:, 0] * X[:, 0] + np.cos(X[:, 1])).astype(np.float32)
+    ds = S.make_dataset(X, y, device=cuda_device)
+    ds.update_baseline_loss(opts.elementwise_loss)
+    engine = Engine(opts, 3, device=cuda_device)
+    assert engine.opt_cfg.ls_bf16 and engine.cfg.staged_eval and engine.cfg.eval_bf16
+    state = engine.init_state(rng.key(0, device=cuda_device), ds.data, opts.populations)
+    kernels = (SF.PROGRAM_EVAL, SF.PROGRAM_EVAL_BF16, SF.PROGRAM_MULTI, SF.PROGRAM_MULTI_BF16,
+               SF.PROGRAM_GRAD)
+    before = [k.launches for k in kernels]
+    state = engine.run_iteration(state, ds.data, opts.maxsize)
+    torch.cuda.synchronize()
+    iters = opts.optimizer_iterations
+    assert [k.launches - b for k, b in zip(kernels, before)] == [
+        0, 2 * opts.ncycles_per_iteration + 1, 0, iters, iters + 1]
+    assert bool(torch.isfinite(state.hof.loss[state.hof.exists]).all())

@@ -335,9 +335,6 @@ def test_multi_refusals():
     _, sops, _, st = _batch("merged", 0, T=8)
     X, y, _ = _data(16, False)
     sp = compile_program(st, 3, len(sops.binary))
-    with pytest.raises(NotImplementedError, match="graftstage"):
-        SF.fused_loss_multi(sp, sp.cvals[:, None], _t(X), _t(y), None, 3, sops,
-                            SL.l2_dist_loss, bf16=True)
     with pytest.raises(NotImplementedError, match="L2, L1 and Huber"):
         SF.fused_grad_multi(sp, sp.cvals[:, None], _t(X), _t(y), None, 3, sops,
                             SL.LOSS_REGISTRY["logcosh"])
