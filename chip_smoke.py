@@ -10,7 +10,9 @@ Phases (any failure exits nonzero and prints no result line):
    #1, its parametric form #1p and their bf16 forms 1b, program_multi.cu
    with #2 and its bf16 form 2b, program_grad.cu,
    program_predict.cu, program_predict_vjp.cu) from the checkout, one
-   nvcc per source, all started together.
+   nvcc per source, all started together. Prints ptxas's registers,
+   stack and spills of every instantiation of #1 and #2 (the tile
+   interpreter of csrc/interp.cuh).
 3. Hold kernel #1 against its plain PyTorch version at the benchmark
    shapes: 16,384 random trees (maxsize 30, + - * / exp abs cos), 5
    features, 10,000 rows. Validity bit-equal; loss and cost within rtol
@@ -151,6 +153,11 @@ TEMPLATE_OPT_CYCLES = 10    # the template optimizer phase's cut depth (phase 10
 RTOL = 1e-5
 H100_FP32_FLOPS = 67e12     # non-tensor-core FP32 peak, H100 SXM data sheet
 H100_HBM_BYTES_S = 3.35e12  # HBM3 bandwidth, H100 SXM data sheet
+# PR 5's times of the kernels PR 6 redesigned (PERF.md section 6, chip_smoke.py
+# on an NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's.
+PR5_MS = {"program_eval": 1.7189, "program_eval_param": 2.6702, "program_eval_bf16": 1.7574,
+          "program_eval_param_bf16": 2.7767, "program_multi": 46.5144,
+          "program_multi_bf16": 46.0428}
 
 
 def bench_data():
@@ -171,6 +178,47 @@ def bench_options(sr, ncycles: int, populations: int = 0, optimize: bool = True,
         maxsize=30, populations=populations, population_size=256,
         tournament_selection_n=16, ncycles_per_iteration=ncycles,
         should_optimize_constants=optimize, save_to_file=False, **kw)
+
+
+def was(name: str) -> str:
+    """PR 5's time of a redesigned kernel, for the line that prints this run's."""
+    return f" (PR 5: {PR5_MS[name]:.4f} ms)"
+
+
+def ptxas_report(log: str, kernel: str):
+    """(instantiation, registers, stack bytes, spill stores, spill loads) of
+    each entry function whose name contains ``kernel``, from nvcc's
+    ``-Xptxas -v`` report; names demangled where cu++filt or c++filt is
+    installed."""
+    import re
+    import shutil
+
+    rows, name, stack = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, stack = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            stack = tuple(int(g) for g in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and kernel in name:
+            rows.append((name, int(m.group(1))) + (stack or (0, 0, 0)))
+            name = None
+    filt = shutil.which("cu++filt") or shutil.which("/usr/local/cuda/bin/cu++filt") \
+        or shutil.which("c++filt")
+    if filt and rows:
+        out = subprocess.run([filt], input="\n".join(r[0] for r in rows), capture_output=True,
+                             text=True).stdout.splitlines()
+        if len(out) == len(rows):
+            # "void <unnamed>::k<float, (int)0, true, false>(int const*, ...)" -> "k<float, 0, true, false>"
+            short = [re.sub(r"\(int\)", "", o.split("::", 1)[-1]) for o in out]
+            rows = [(o[:o.rfind(">(") + 1] if ">(" in o else o,) + r[1:]
+                    for o, r in zip(short, rows)]
+    return rows
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -326,7 +374,8 @@ def phase_kernel(torch, sr, dev):
     bound_ms, bound_by = bound(ops_count, bytes_moved)
     print(f"  kernel vs plain at T={T} trees, F={N_FEATURES}, n={n}, L={L}, CMAX={CMAX}: "
           f"{int(valid_k.sum())} valid, mean steps {step_rows / n / T:.3f}")
-    print(f"  kernel {ms:.4f} ms (cost form, CUDA events, mean of 10), plain {plain_ms:.1f} ms, "
+    print(f"  kernel {ms:.4f} ms{was(kernel.name)} (cost form, CUDA events, mean of 10), plain "
+          f"{plain_ms:.1f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}: {ops_count:.4g} FP32 ops, "
           f"{bytes_moved:.4g} bytes)")
     check.raise_if_failed("kernel #1")
@@ -463,7 +512,8 @@ def phase_opt_kernels(torch, sr, dev):
     print(f"  {T} trees (mean steps {steps / T:.3f}, mean constants {nc / T:.3f}), {n} rows; "
           f"{int(vk.sum())} of {T * V_ls} line-search pairs valid, "
           f"{int(gv.sum())} of {T * R} gradient pairs valid")
-    print(f"  #2 program_multi: {ms_multi:.4f} ms (V={V_ls}, CUDA events, mean of 5), plain "
+    print(f"  #2 program_multi: {ms_multi:.4f} ms{was(multi.name)} (V={V_ls}, CUDA events, "
+          f"mean of 5), plain "
           f"{plain_ms_multi:.1f} ms, bound {b2:.4f} ms ({by2}: {ops2:.4g} ops, {bytes2:.4g} B)")
     print(f"  #3 program_grad: {ms_grad:.4f} ms (V={R}, CUDA events, mean of 5), plain "
           f"{plain_ms_grad:.1f} ms, bound {b3:.4f} ms ({by3}: {ops3:.4g} ops, {bytes3:.4g} B)")
@@ -959,7 +1009,8 @@ def phase_param_kernel(torch, sr, dev):
           f"mean steps {steps / T:.3f}, {int(pleaf.sum())} with parameter leaves; "
           f"{int(vk.sum())} of {T} valid ({int((ok == 0).sum())} with const_ok cleared, "
           f"{int((~torch.isfinite(bank).all(-1).all(-1)).sum())} with a non-finite bank entry)")
-    print(f"  #1p program_eval_param: {ms:.4f} ms (CUDA events, mean of 10), plain "
+    print(f"  #1p program_eval_param: {ms:.4f} ms{was(kernel.name)} (CUDA events, mean of 10), "
+          f"plain "
           f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}: {ops_count:.4g} FP32 ops, "
           f"{bytes_moved:.4g} bytes); #1 (NP = 0, parameter leaves as constants) on the same "
           f"trees {ms0:.4f} ms")
@@ -1192,7 +1243,8 @@ def phase_bf16_kernels(torch, sr, dev):
                    + 2.0 * N_FEATURES * n)          # X in bf16
     b1, by1 = bound(ops_count, bytes_moved)
     print(f"  1b program_eval_bf16 (cost form, {T} trees x {n} rows, "
-          f"{int(vck.sum())} valid): {ms:.4f} ms (CUDA events, mean of 10), #1 on the same "
+          f"{int(vck.sum())} valid): {ms:.4f} ms{was(k1b.name)} (CUDA events, mean of 10), #1 "
+          f"on the same "
           f"inputs {ms32:.4f} ms, plain {plain_ms:.1f} ms, bound {b1:.4f} ms ({by1})")
     rows.append({"name": k1b.name, "route": "cuda", "source": k1b.source,
                  "replaces": k1b.replaces, "launches": None, "max_abs_err": max(errs), "ms": ms,
@@ -1234,7 +1286,8 @@ def phase_bf16_kernels(torch, sr, dev):
     bp, byp = bound(steps * n + 4.0 * n * PT,
                     4.0 * (PT * PL + 3 * PT + PT * PC + PT * 2 * 3 + n + 2 * n + PT)
                     + 2.0 * 2 * n)
-    print(f"  1b program_eval_param_bf16 ({PT} trees, {int(pv.sum())} valid): {pms:.4f} ms "
+    print(f"  1b program_eval_param_bf16 ({PT} trees, {int(pv.sum())} valid): {pms:.4f} ms"
+          f"{was(kp.name)} "
           f"(CUDA events, mean of 10), #1p on the same inputs {pms32:.4f} ms, plain "
           f"{pplain_ms:.1f} ms, bound {bp:.4f} ms ({byp})")
     rows.append({"name": kp.name, "route": "cuda", "source": kp.source, "replaces": kp.replaces,
@@ -1283,7 +1336,8 @@ def phase_bf16_kernels(torch, sr, dev):
                     4.0 * (MT * ML + MT + MT * V_ls * MC + 2 * n + 2 * MT * V_ls)
                     + 2.0 * N_FEATURES * n)
     print(f"  2b program_multi_bf16 ({MT} trees x V = {V_ls}, {int(mv.sum())} of {mv.numel()} "
-          f"pairs valid): {mms:.4f} ms (CUDA events, mean of 5), #2 on the same inputs "
+          f"pairs valid): {mms:.4f} ms{was(k2b.name)} (CUDA events, mean of 5), #2 on the same "
+          f"inputs "
           f"{mms32:.4f} ms, plain {mplain_ms:.1f} ms, bound {b2:.4f} ms ({by2})")
     rows.append({"name": k2b.name, "route": "cuda", "source": k2b.source,
                  "replaces": k2b.replaces, "launches": None, "max_abs_err": merr, "ms": mms,
@@ -1524,6 +1578,14 @@ def main() -> int:
     print(f"  {', '.join(files)}: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {', '.join(f'{cuda_build.build_seconds(f):.2f}' for f in files)} "
           f"s, in parallel)")
+    for f, kname in (("program_eval.cu", "program_eval_kernel"),
+                     ("program_multi.cu", "program_multi_kernel")):
+        report = ptxas_report(cuda_build.build_log(f), kname)
+        if not report:
+            raise RuntimeError(f"no ptxas report for {kname} in the build of {f}")
+        for name, regs, stack, spill_st, spill_ld in report:
+            print(f"  ptxas {name}: {regs} registers, stack {stack} B, spill stores "
+                  f"{spill_st} B, spill loads {spill_ld} B")
 
     print("[3] kernel #1 against its plain version")
     rows = [phase_kernel(torch, sr, dev)]

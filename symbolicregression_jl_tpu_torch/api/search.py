@@ -45,7 +45,9 @@ def get_cur_maxsize(maxsize: int, warmup_maxsize_by: float, total_cycles: int,
 
 
 # Arguments of the JAX package's `equation_search` that this slice does not
-# carry: each must stay at its default, or the call is refused.
+# carry: each must stay at its default, or the call is refused. `progress`
+# may also be False (the JAX package's `warmup` passes it): no progress bar
+# is what the port does.
 _LATER = {
     "y_variable_names": "the search-API slice (multi-output)",
     "X_units": "the expression-plugin slice (units)",
@@ -84,7 +86,7 @@ def equation_search(X, y, *, options: Optional[Options] = None, niterations: int
     given = dict(y_variable_names=y_variable_names, X_units=X_units, y_units=y_units,
                  extra=other_extra or None, guesses=guesses, initial_population=initial_population,
                  saved_state=saved_state, resume=resume, runtime_options=runtime_options,
-                 progress=progress, run_id=run_id, return_state=return_state or None,
+                 progress=progress or None, run_id=run_id, return_state=return_state or None,
                  dtype=None if dtype in (None, np.float32, torch.float32, "float32") else dtype)
     for name, value in given.items():
         if value is not None:

@@ -24,7 +24,8 @@ bf16 forms apart), the device's busy and idle shares, the
 number of kernel launches, each named range (``sr:constant_optimizer``,
 ``sr:template_eval``: its span on the device summed over its occurrences,
 the device time of the port's kernels in it, that of the eager ops in it
-and the idle rest), and the ten kernels with the most device time.
+and the idle rest), the trees per launch of each of the port's kernels
+in the profiled iteration, and the ten kernels with the most device time.
 Needs a CUDA device.
 """
 
@@ -42,6 +43,7 @@ import torch
 import symbolicregression_jl_tpu_torch as sr
 from symbolicregression_jl_tpu_torch.evolve import rng
 from symbolicregression_jl_tpu_torch.evolve.engine import Engine
+from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
 
 
 def bench_data(n_rows: int = 10_000, n_features: int = 5):
@@ -160,12 +162,31 @@ def main() -> int:
     state = engine.run_iteration(state, ds.data, options.maxsize)
     torch.cuda.synchronize()
 
+    # Trees per launch: each wrapper class that defines __call__ records its
+    # first argument's rows (instr [T, L]) by kernel name for this iteration.
+    trees = {}
+    wrapped = [c for c in {type(getattr(FE, n)) for n in FE.__all__ if n.isupper()}
+               for c in c.__mro__ if "__call__" in c.__dict__ and c.__module__ == FE.__name__]
+    originals = {c: c.__dict__["__call__"] for c in set(wrapped)}
+
+    def recording(orig):
+        def call(self, *a, **kw):
+            trees.setdefault(self.name, []).append(int(a[0].shape[0]))
+            return orig(self, *a, **kw)
+        return call
+
+    for c, orig in originals.items():
+        c.__call__ = recording(orig)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        state = engine.run_iteration(state, ds.data, options.maxsize)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            state = engine.run_iteration(state, ds.data, options.maxsize)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for c, orig in originals.items():
+            c.__call__ = orig
 
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     # Named ranges (record_function) also appear on the device timeline as
@@ -188,6 +209,10 @@ def main() -> int:
         ours[kname] = us
         print(f"{kname} kernel {us / 1e6:.4f} s over {len(hits)} launches "
               f"({us / max(device_us, 1):.1%} of device time)")
+    for kname, sizes in sorted(trees.items()):
+        sizes = sorted(sizes)
+        print(f"{kname}: {len(sizes)} calls, trees per call min {sizes[0]}, median "
+              f"{sizes[len(sizes) // 2]}, max {sizes[-1]}, total {sum(sizes)}")
     for name in sorted({e.name for e in spans}):
         # Every occurrence of a named range: its span on the device, the
         # port's kernels and the other (eager) kernels inside it, the idle rest.

@@ -279,6 +279,412 @@ __device__ __forceinline__ void block_sum(float* sred, float v) {
 }
 
 // ---------------------------------------------------------------------------
+// Tile interpreter of kernels #1 and #2 (program_eval.cu, program_multi.cu)
+// ---------------------------------------------------------------------------
+//
+// A block owns one tree and, for kernel #2, all of the tree's constant
+// vectors. It decodes the tree's m instruction words once into a table of
+// resolved steps in shared memory (decode_tile_program); each thread then
+// carries TILE_ROWS rows through every step (run_tile), so one table read,
+// one operator dispatch and one operand address serve TILE_ROWS
+// independent evaluations; every step is warp-uniform. Kernel #2 runs its
+// vectors in turn on each tile of rows, so the tile's X, y and w are read
+// from L2 once for all of them. The per-row loop above (run_steps) is kept
+// for kernels #3-#5.
+//
+// The fixed lane order. Every (tree, constant vector) sum keeps the order
+// of the per-row loop with block_sum: W reduction lanes; lane j sums
+// loss_term over rows j, j + W, j + 2W, ... in that order from 0.0f; then
+// block_sum's pairwise tree, strides W/2 down to 1, pair (i, i + s). W is
+// the block size the wrappers' `_block` (ops/fused_eval.py) picks from the
+// per-row layout's shared memory, not the tile kernels' thread count: the
+// tile kernels run W / TILE_ROWS threads, thread i owns lanes
+// TILE_ROWS * i ... TILE_ROWS * i + TILE_ROWS - 1, a tile is W consecutive
+// rows (one row of each lane) and the tiles run in row order. Two bit
+// checks rest on this order: kernel #2 with one constant vector equals #1's
+// plain form (both run tree_loss_sums), and kernel #3's loss, which
+// program_grad.cu computes with forward_row and block_sum at the same W,
+// equals #2's on the same constant vectors.
+//
+// The value buffer of a tile is [R + tile_slots(L)][W] in the storage
+// type: R per-row rows (the X features, then the parametric form's
+// parameter values), then the rows that hold step results still to be
+// read. A thread reads and writes only its own columns, so the row loop
+// needs no barrier. A step's result stays in registers for the next step
+// and is stored only when a later step reads it, in a row that is free
+// again once its last reader has run. In a program compiled from a tree
+// (ops/program.py: post-order, every step read once, by its parent) the
+// results held at once are left operands waiting for their right operand's
+// subtree; each needs its own subtree (two nodes at least), its parent and,
+// under the last of them, a step of two nodes, so a tree of L nodes holds at
+// most (L - 2) / 3 of them. A program outside that contract traps.
+
+constexpr int TILE_ROWS = 4;              // rows each thread carries through a step
+constexpr int TILE_MAX_W = 256;           // the largest lane count `_block` picks
+constexpr int TILE_VCH = 8;               // constant vectors per pass over the rows (#2)
+constexpr int TILE_LOADS = 4;             // per-row rows loaded before any is stored
+constexpr int TILE_MIN_BLOCKS = 16;       // #1: blocks per SM its registers must allow (64 a thread)
+constexpr size_t kSmemLimit = 232448;     // bytes of shared memory one H100 block may use
+
+// Rows for held step results in a program of L steps (see above).
+__host__ __device__ constexpr int tile_slots(int L) { return L > 2 ? (L - 2) / 3 : 0; }
+
+// Resolved step: x = op | sign << 8, y and z the operands, w the buffer
+// offset its result is stored at (-1: not stored).
+// op is the operator id of apply_binary / apply_unary, or one of these:
+enum : int { OPX_ADDSUB = 16, OPX_IDENT = 17, OPX_NAN = 18 };
+// Operand: offset << 2 | kind; a row operand's offset is its buffer row
+// times W, a constant's its index in the vector (CMAX: the zero row).
+enum : int { OPD_ROW = 0, OPD_CONST = 1, OPD_PREV = 2 };
+
+// One thread's TILE_ROWS consecutive values of a buffer row, moved as one
+// vector load or store.
+template <typename S, int K>
+struct alignas(sizeof(S) * K) RowPack {
+  S v[K];
+};
+
+__host__ __device__ constexpr size_t align_up(size_t at, size_t a) { return (at + a - 1) / a * a; }
+
+// Byte offsets of a tile block's dynamic shared memory, for passes of
+// `vch` constant vectors.
+struct TileLayout {
+  size_t stab, sv, sacc, sc, sbank, sok, sflag, slast, sfree, total;
+};
+
+template <typename S>
+__host__ __device__ inline TileLayout tile_layout(int W, int L, int CMAX, int R, int NP, int NC,
+                                                  int vch) {
+  const int rows = R + tile_slots(L);
+  TileLayout o;
+  o.stab = 0;                                                             // int4 [L]
+  o.sv = align_up(o.stab + 16 * (size_t)L, 16);                           // S [rows * W]
+  o.sacc = align_up(o.sv + sizeof(S) * (size_t)rows * W, 16);             // float [vch * W]
+  o.sc = o.sacc + 4 * (size_t)vch * W;                                    // S [vch * (CMAX+1)]
+  o.sbank = o.sc + sizeof(S) * (size_t)vch * (CMAX + 1);                  // S [NP * NC]
+  o.sok = align_up(o.sbank + sizeof(S) * (size_t)NP * NC, 4);             // int [vch]
+  o.sflag = o.sok + 4 * (size_t)vch;                                      // int [L]
+  o.slast = o.sflag + 4 * (size_t)L;                                      // int [L]
+  o.sfree = o.slast + 4 * (size_t)L;                                      // int [tile_slots(L)]
+  o.total = o.sfree + 4 * (size_t)tile_slots(L);
+  return o;
+}
+
+// Step u reads buffer address a: when a is step j's result and u reads it
+// later than at once (j < u - 1), j is held until its last reader.
+__device__ __forceinline__ void mark_held(int a, int u, int base, int zero_addr, int* slast) {
+  if (a >= base && a < zero_addr && a - base < u - 1) atomicMax(&slast[a - base], u);
+}
+
+// The operand at buffer address `a` of step u, as RowBufT::rd reads it:
+// per-row value (a < R), constant, an earlier step, or the zero row.
+__device__ __forceinline__ int operand_desc(int a, int u, int R, int base, int zero_addr,
+                                            int CMAX, int W, const int* sflag) {
+  if (a < R) return (a * W) << 2 | OPD_ROW;
+  if (a < base) return (a - R) << 2 | OPD_CONST;
+  if (a >= zero_addr) return CMAX << 2 | OPD_CONST;
+  const int j = a - base;
+  if (j == u - 1) return OPD_PREV;
+  if (j > u - 1 || sflag[j] < 0) __trap();   // not a tree's post-order program
+  return ((R + sflag[j]) * W) << 2 | OPD_ROW;
+}
+
+// Decodes the tree's m words into `stab` [m]. Scratch: `slast` [m] (each
+// step's last reader later than the next step, -1: none), `sflag` [m] (the
+// row a step's result is held in, -1: not held), `sfree` [tile_slots(L)]
+// (the step after which a row is free). Every thread of the block calls
+// it; it ends with a barrier.
+__device__ void decode_tile_program(const int* __restrict__ words, int m,
+                                    const int* __restrict__ optab, int code_mask, int sign_shift,
+                                    int R, int CMAX, int L, int W, int* sflag, int* slast,
+                                    int* sfree, int4* stab) {
+  const int tid = threadIdx.x;
+  const int P = blockDim.x;
+  const int base = R + CMAX;
+  const int zero_addr = base + L;
+  const int nslot = tile_slots(L);
+  for (int u = tid; u < m; u += P) slast[u] = -1;
+  for (int i = tid; i < nslot; i += P) sfree[i] = -1;
+  __syncthreads();
+  for (int u = tid; u < m; u += P) {
+    const int word = words[u];
+    const int kind = optab[(word >> 24) & code_mask] >> 8;
+    mark_held((word >> 12) & 0xFFF, u, base, zero_addr, slast);
+    if (kind == K_BINARY || kind == K_ADDSUB) mark_held(word & 0xFFF, u, base, zero_addr, slast);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // Rows by liveness: step u's result takes a row whose holder's last
+    // reader is u or earlier (operands are read before the result is
+    // stored).
+    for (int u = 0; u < m; ++u) {
+      sflag[u] = -1;
+      if (slast[u] < 0) continue;
+      int row = 0;
+      while (row < nslot && sfree[row] > u) ++row;
+      if (row == nslot) __trap();   // more held results than a tree's program has
+      sflag[u] = row;
+      sfree[row] = slast[u];
+    }
+  }
+  __syncthreads();
+  for (int u = tid; u < m; u += P) {
+    const int word = words[u];
+    const int entry = optab[(word >> 24) & code_mask];
+    const int kind = entry >> 8;
+    const int id = entry & 0xFF;
+    int op;
+    if (kind == K_ADDSUB) op = OPX_ADDSUB;
+    else if (kind == K_BINARY) op = id < 16 ? id : OPX_NAN;
+    else if (kind == K_UNARY) op = (id >= U_EXP && id <= U_SIGN) ? id : OPX_NAN;
+    else op = OPX_IDENT;
+    const bool two = kind == K_BINARY || kind == K_ADDSUB;
+    const int d1 = operand_desc((word >> 12) & 0xFFF, u, R, base, zero_addr, CMAX, W, sflag);
+    const int d2 = two ? operand_desc(word & 0xFFF, u, R, base, zero_addr, CMAX, W, sflag) : 0;
+    const int sign = (word >> sign_shift) & 1;
+    stab[u] = make_int4(op | sign << 8, d1, d2, sflag[u] >= 0 ? (R + sflag[u]) * W : -1);
+  }
+  __syncthreads();
+}
+
+// One operand for the thread's K rows: its column of a buffer row, a
+// constant of the vector `cv`, or the previous step's values.
+template <typename S, int K>
+__device__ __forceinline__ void tile_operand(int desc, const S* col, const S* cv,
+                                             const float (&prev)[K], float (&out)[K]) {
+  const int kind = desc & 3;
+  if (kind == OPD_ROW) {
+    const RowPack<S, K> p = *reinterpret_cast<const RowPack<S, K>*>(col + (desc >> 2));
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = to_f32(p.v[k]);
+  } else if (kind == OPD_CONST) {
+    const float c = to_f32(cv[desc >> 2]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = c;
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = prev[k];
+  }
+}
+
+// Runs the decoded program on the thread's K rows of the tile, whose
+// per-row values are loaded in its column `col`, with the constants `cv`
+// (CMAX + 1 of them, the last 0): each step computes as eval_step does,
+// rounds to S and keeps the stored value for the next step; root[k] is the
+// last step's stored value, as run_steps returns it. chk[k] stays 0 while
+// every step's float value on row k is finite and is NaN after (r * 0 is
+// NaN exactly for an infinite or NaN r, and NaN stays).
+template <typename S, int K>
+__device__ __forceinline__ void run_tile(const int4* __restrict__ stab, int m, S* col,
+                                         const S* cv, float (&root)[K], float (&chk)[K]) {
+  float prev[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    prev[k] = 0.0f;
+    chk[k] = 0.0f;
+  }
+  int4 d = m > 0 ? stab[0] : make_int4(0, 0, 0, -1);
+  for (int s = 0; s < m; ++s) {
+    const int4 dn = s + 1 < m ? stab[s + 1] : d;   // the next step's entry, ahead of its use
+    float a[K], b[K], r[K];
+    tile_operand<S, K>(d.y, col, cv, prev, a);
+    // The second operand loads inside the binary cases: fewer values live
+    // across the dispatch (64 registers hold the unrolled operators).
+#define SR_TILE_BIN(ID)                        \
+  case ID:                                     \
+    tile_operand<S, K>(d.z, col, cv, prev, b); \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) r[k] = apply_binary(ID, a[k], b[k]); \
+    break;
+#define SR_TILE_UN(ID) \
+  case ID:             \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) r[k] = apply_unary(ID, a[k]); \
+    break;
+    switch (d.x & 0xFF) {
+      case OPX_ADDSUB: {
+        tile_operand<S, K>(d.z, col, cv, prev, b);
+        const float sg = (d.x & 0x100) ? -1.0f : 1.0f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) r[k] = __fadd_rn(a[k], __fmul_rn(sg, b[k]));
+        break;
+      }
+      case OPX_IDENT:
+#pragma unroll
+        for (int k = 0; k < K; ++k) r[k] = a[k];
+        break;
+      SR_TILE_BIN(B_ADD) SR_TILE_BIN(B_SUB) SR_TILE_BIN(B_MUL) SR_TILE_BIN(B_DIV)
+      SR_TILE_BIN(B_POW) SR_TILE_BIN(B_MOD) SR_TILE_BIN(B_MAX) SR_TILE_BIN(B_MIN)
+      SR_TILE_BIN(B_ATAN2) SR_TILE_BIN(B_GT) SR_TILE_BIN(B_LT) SR_TILE_BIN(B_GE)
+      SR_TILE_BIN(B_LE) SR_TILE_BIN(B_COND) SR_TILE_BIN(B_OR) SR_TILE_BIN(B_AND)
+      SR_TILE_UN(U_EXP) SR_TILE_UN(U_ABS) SR_TILE_UN(U_LOG) SR_TILE_UN(U_LOG2)
+      SR_TILE_UN(U_LOG10) SR_TILE_UN(U_LOG1P) SR_TILE_UN(U_SQRT) SR_TILE_UN(U_CBRT)
+      SR_TILE_UN(U_SIN) SR_TILE_UN(U_COS) SR_TILE_UN(U_TAN) SR_TILE_UN(U_SINH)
+      SR_TILE_UN(U_COSH) SR_TILE_UN(U_TANH) SR_TILE_UN(U_ASIN) SR_TILE_UN(U_ACOS)
+      SR_TILE_UN(U_ATAN) SR_TILE_UN(U_ASINH) SR_TILE_UN(U_ACOSH) SR_TILE_UN(U_ATANH)
+      SR_TILE_UN(U_ATANH_CLIP) SR_TILE_UN(U_ERF) SR_TILE_UN(U_ERFC) SR_TILE_UN(U_GAMMA)
+      SR_TILE_UN(U_SQUARE) SR_TILE_UN(U_CUBE) SR_TILE_UN(U_NEG) SR_TILE_UN(U_INV)
+      SR_TILE_UN(U_RELU) SR_TILE_UN(U_ROUND) SR_TILE_UN(U_FLOOR) SR_TILE_UN(U_CEIL)
+      SR_TILE_UN(U_SIGN)
+      default:
+#pragma unroll
+        for (int k = 0; k < K; ++k) r[k] = qnan();
+    }
+#undef SR_TILE_BIN
+#undef SR_TILE_UN
+    RowPack<S, K> st;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      chk[k] = __fmaf_rn(r[k], 0.0f, chk[k]);
+      st.v[k] = from_f32<S>(r[k]);
+      prev[k] = to_f32(st.v[k]);
+    }
+    if (d.w >= 0) *reinterpret_cast<RowPack<S, K>*>(col + d.w) = st;
+    d = dn;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) root[k] = prev[k];
+}
+
+// K consecutive values at `src[r]`, r = the thread's first row of the tile:
+// one vector load where the whole pack is in range and aligned, else one
+// guarded load each (rows past n read `fill`).
+template <typename T, int K>
+__device__ __forceinline__ RowPack<T, K> load_rows(const T* __restrict__ src, int r, int n,
+                                                   bool vec, T fill) {
+  RowPack<T, K> p;
+  if (vec && r + K <= n) {
+    p = *reinterpret_cast<const RowPack<T, K>*>(src + r);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) p.v[k] = r + k < n ? src[r + k] : fill;
+  }
+  return p;
+}
+
+// Sums `count` arrays of W floats (x[c * W + i], W a power of two) with
+// block_sum's pairing: strides W/2 down to 1, x[i] = x[i] + x[i + s]. The
+// sums land in x[c * W]. Every thread of the block calls it.
+__device__ __forceinline__ void lane_tree_sum(float* x, int W, int count) {
+  int sh = 0;
+  while ((1 << sh) < W) ++sh;
+  for (int s = W >> 1; s > 0; s >>= 1) {
+    --sh;
+    for (int idx = threadIdx.x; idx < count * s; idx += blockDim.x) {
+      float* row = x + (idx >> sh) * W;
+      const int i = idx & (s - 1);
+      row[i] = __fadd_rn(row[i], row[i + s]);
+    }
+    __syncthreads();
+  }
+}
+
+// The body of a tile block (blockDim.x = W / K): the loss sums of one tree
+// over all n rows for each of its V constant vectors `cvals` [V, CMAX], in
+// passes of `vch` vectors that share each tile's X, y and w. The
+// parametric form (PARAM) fills per-row rows F..F+NP-1 with bank[p,
+// class[r]] (the tree's bank [NP, NC], class clipped to [0, NC)). Calls
+// emit(v, sum, ok) once per vector from one thread; ok: every step finite
+// on every row below n.
+template <typename S, int LOSS, bool PARAM, int K, typename Emit>
+__device__ __forceinline__ void tree_loss_sums(
+    const int* __restrict__ words, int m, const float* __restrict__ cvals,
+    const float* __restrict__ bank, const int* __restrict__ class_idx,
+    const S* __restrict__ X, const float* __restrict__ y, const float* __restrict__ w,
+    const int* __restrict__ optab, int V, int vch, int L, int CMAX, int F, int NP, int NC, int n,
+    int W, int code_mask, int sign_shift, unsigned char* smem, Emit emit) {
+  const int tid = threadIdx.x;
+  const int P = blockDim.x;
+  const int R = F + NP;
+  const TileLayout lay = tile_layout<S>(W, L, CMAX, R, NP, NC, vch);
+  int4* stab = reinterpret_cast<int4*>(smem + lay.stab);
+  S* sv = reinterpret_cast<S*>(smem + lay.sv);
+  float* sacc = reinterpret_cast<float*>(smem + lay.sacc);
+  S* sc = reinterpret_cast<S*>(smem + lay.sc);
+  S* sbank = reinterpret_cast<S*>(smem + lay.sbank);
+  int* sok = reinterpret_cast<int*>(smem + lay.sok);
+
+  if (PARAM) {
+    for (int i = tid; i < NP * NC; i += P) sbank[i] = from_f32<S>(bank[i]);
+  }
+  decode_tile_program(words, m, optab, code_mask, sign_shift, R, CMAX, L, W,
+                      reinterpret_cast<int*>(smem + lay.sflag),
+                      reinterpret_cast<int*>(smem + lay.slast),
+                      reinterpret_cast<int*>(smem + lay.sfree), stab);
+
+  S* col = sv + K * tid;
+  float* acol = sacc + K * tid;
+  const bool vec_x = n % K == 0 && reinterpret_cast<uintptr_t>(X) % sizeof(RowPack<S, K>) == 0;
+  const bool vec_yw = n % K == 0 && reinterpret_cast<uintptr_t>(y) % sizeof(RowPack<float, K>) == 0
+                      && reinterpret_cast<uintptr_t>(w) % sizeof(RowPack<float, K>) == 0;
+  const int CS = CMAX + 1;
+  for (int v0 = 0; v0 < V; v0 += vch) {
+    const int nv = min(vch, V - v0);
+    for (int i = tid; i < nv * CS; i += P) {
+      const int c = i / CS, j = i - c * CS;
+      sc[i] = from_f32<S>(j < CMAX ? cvals[(size_t)(v0 + c) * CMAX + j] : 0.0f);
+    }
+    for (int c = tid; c < nv; c += P) sok[c] = 1;
+    for (int c = 0; c < nv; ++c) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) acol[c * W + k] = 0.0f;
+    }
+    __syncthreads();
+
+    for (int r0 = 0; r0 < n; r0 += W) {
+      const int r = r0 + K * tid;
+      // The tile's loads are issued before their values are stored, so
+      // they travel together (TILE_LOADS features at a time).
+      const RowPack<float, K> yk = load_rows<float, K>(y, r, n, vec_yw, 0.0f);
+      const RowPack<float, K> wk = load_rows<float, K>(w, r, n, vec_yw, 0.0f);
+      int cls[K];
+      if (PARAM) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) cls[k] = r + k < n ? min(max(class_idx[r + k], 0), NC - 1) : 0;
+      }
+      for (int f0 = 0; f0 < F; f0 += TILE_LOADS) {
+        RowPack<S, K> xs[TILE_LOADS];
+#pragma unroll
+        for (int j = 0; j < TILE_LOADS; ++j) {
+          if (f0 + j < F) xs[j] = load_rows<S, K>(X + (size_t)(f0 + j) * n, r, n, vec_x,
+                                                   from_f32<S>(0.0f));
+        }
+#pragma unroll
+        for (int j = 0; j < TILE_LOADS; ++j) {
+          if (f0 + j < F) *reinterpret_cast<RowPack<S, K>*>(col + (f0 + j) * W) = xs[j];
+        }
+      }
+      if (PARAM) {
+        for (int q = 0; q < NP; ++q) {
+          RowPack<S, K> pk;
+#pragma unroll
+          for (int k = 0; k < K; ++k) pk.v[k] = sbank[q * NC + cls[k]];
+          *reinterpret_cast<RowPack<S, K>*>(col + (F + q) * W) = pk;
+        }
+      }
+      for (int c = 0; c < nv; ++c) {
+        float root[K], chk[K];
+        run_tile<S, K>(stab, m, col, sc + c * CS, root, chk);
+        RowPack<float, K> acc = *reinterpret_cast<RowPack<float, K>*>(acol + c * W);
+        bool ok = true;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if (r + k < n) {
+            acc.v[k] = __fadd_rn(acc.v[k], loss_term<LOSS>(root[k], yk.v[k], wk.v[k]));
+            ok = ok && chk[k] == 0.0f;
+          }
+        }
+        *reinterpret_cast<RowPack<float, K>*>(acol + c * W) = acc;
+        if (!ok) sok[c] = 0;
+      }
+    }
+
+    __syncthreads();
+    lane_tree_sum(sacc, W, nv);
+    for (int c = tid; c < nv; c += P) emit(v0 + c, sacc[c * W], sok[c] != 0);
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Reverse-mode table (plain version: ops/vjp.py)
 // ---------------------------------------------------------------------------
 

@@ -46,30 +46,40 @@
 // epilogue stay float. The buffer halves, so a block of 256 threads fits
 // where the float buffer needed a smaller one.
 //
-// The operator code, the decode and the row loop live in interp.cuh,
-// shared with kernels #2 (program_multi.cu) and #3 (program_grad.cu).
+// The operator code and the tile interpreter live in interp.cuh, shared
+// with kernels #2 (program_multi.cu) and #3-#5.
 //
-// Design. One CTA per tree, so the opcode switch is warp-uniform: every
-// thread of the block runs the same instruction stream. Threads stride
-// over rows. Each thread keeps its row's X features and step results in
-// shared memory laid out [slot][thread] (consecutive threads hit
-// consecutive banks); the tree's instruction words and constants sit in
-// shared memory once per block. The reduction over rows is a per-thread
-// sequential sum followed by a fixed-order tree reduction in shared
-// memory: no float atomics, so one input always gives one result.
+// Design. One CTA per tree, so every step is warp-uniform. The block
+// decodes the tree's words once into a shared-memory table of resolved
+// steps (operator, each operand as a buffer offset or a constant index,
+// the row a result is held in), loads the tree's constants (and bank)
+// once, then walks the rows in tiles of W (the wrappers' lane count, 256
+// at the bench shapes) with W / TILE_ROWS threads: each thread issues the
+// loads of its TILE_ROWS consecutive rows' X, y and w together (vector
+// loads where aligned), stores X in its own columns of a [row][lane]
+// shared buffer, then runs every step for its TILE_ROWS rows at once: one
+// table read, one operator dispatch and one operand address per step
+// serve TILE_ROWS evaluations, whose latencies overlap. A step's result
+// stays in registers for the next step and is stored only when a later
+// step reads it, in a row reused by liveness, so the buffer holds
+// R + (L - 2) / 3 rows (14 at the bench shapes, where every step had one
+// before). Each lane's loss terms add in row order into its own float;
+// the lanes reduce in block_sum's fixed pairwise order (see interp.cuh): no
+// float atomics, and the sums keep the per-row loop's bits.
 //
-// What bounds it on the H100. The work is FP32 ALU and SFU work: about
-// (steps x rows) operator evaluations per tree plus three FLOPs of loss
-// per row, with shared-memory traffic for every operand. X (F x n floats,
-// 200 KB at the bench shapes) is read by every block and stays resident
-// in the 50 MB L2, so device-memory traffic is only the per-tree words.
-// The design keeps everything a step touches on chip (shared memory) and
-// launches one block per tree so that tens of thousands of blocks fill
-// the 132 SMs; making it fast (register-resident buffers, several trees
-// per block, row tiles per warp) is later work. The parametric form adds
-// per row NP shared-memory stores and one read of `class_idx` (n ints,
-// L2-resident like X); its device-memory traffic grows by the banks,
-// T x NP x NC floats.
+// What bounds it on the H100. The work is FP32 ALU and SFU work: per
+// (step, row) the operator's own instructions (one for + - *, about ten
+// for / and exp, tens for cos with its range reduction) and a few for the
+// operand and the finiteness check, plus about ten per row for the loss.
+// X, y and w (28 bytes per row in float at F = 5) are read by every block
+// from the 50 MB L2; device-memory traffic is only the per-tree words and
+// constants. The per-row work (the tile's loads and the loss) weighs as
+// much as the steps at the bench's three steps per tree, so the kernel
+// needs many blocks in flight: its registers are capped at 64 a thread
+// (TILE_MIN_BLOCKS), which with the smaller buffer lets 13 blocks share an
+// SM. The parametric form adds per row NP shared-memory stores and one
+// read of `class_idx` (n ints, L2-resident like X); its device-memory
+// traffic grows by the banks, T x NP x NC floats.
 
 #include "interp.cuh"
 
@@ -77,17 +87,16 @@ using namespace sr;
 
 namespace {
 
-// Dynamic shared memory of a launch with `block` threads: the per-row
-// values, the constants and the bank in S, then the reduction scratch
-// and the instruction words.
+// The per-row layout's shared memory with `block` threads (see
+// sr_program_eval_smem).
 template <typename S>
-size_t eval_smem(int block, int L, int CMAX, int F, int NP, int NC) {
+size_t row_layout_smem(int block, int L, int CMAX, int F, int NP, int NC) {
   return sizeof(S) * padded<S>((size_t)(F + NP + L) * block + CMAX + (size_t)NP * NC) +
          sizeof(float) * block + sizeof(int) * L;
 }
 
 template <typename S, int LOSS, bool COST, bool PARAM>
-__global__ void program_eval_kernel(
+__global__ void __launch_bounds__(TILE_MAX_W / TILE_ROWS, TILE_MIN_BLOCKS) program_eval_kernel(
     const int* __restrict__ instr,      // [T, L]
     const int* __restrict__ nsteps,     // [T]
     const float* __restrict__ cvals,    // [T, CMAX]
@@ -100,80 +109,45 @@ __global__ void program_eval_kernel(
     const float* __restrict__ cx,       // [T]   (cost form)
     const float* __restrict__ scal,     // [3]   denom, norm, parsimony (cost form)
     const int* __restrict__ optab,      // [n_codes]
-    int L, int CMAX, int F, int NP, int NC, int n, int code_mask, int sign_shift,
+    int L, int CMAX, int F, int NP, int NC, int n, int W, int code_mask, int sign_shift,
     float* __restrict__ loss_out, int* __restrict__ valid_out,
     float* __restrict__ cost_out) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int bd = blockDim.x;
-  const int R = F + NP;                      // per-row region: X features, parameters
-  S* sv = reinterpret_cast<S*>(smem);        // [(R + L) * bd] per-row values
-  S* sc = sv + (size_t)(R + L) * bd;         // [CMAX] constants
-  S* sbank = sc + CMAX;                      // [NP * NC] the tree's parameter bank
-  float* sred = reinterpret_cast<float*>(    // [bd] reduction scratch
-      sv + padded<S>((size_t)(R + L) * bd + CMAX + (size_t)NP * NC));
-  int* sins = reinterpret_cast<int*>(sred + bd);  // [L] instruction words
-
-  const int base = R + CMAX;
-  const int zero_addr = base + L;
-  for (int i = tid; i < L; i += bd) sins[i] = instr[(size_t)t * L + i];
-  for (int i = tid; i < CMAX; i += bd) sc[i] = from_f32<S>(cvals[(size_t)t * CMAX + i]);
-  if (PARAM) {
-    for (int i = tid; i < NP * NC; i += bd)
-      sbank[i] = from_f32<S>(bank[(size_t)t * NP * NC + i]);
-  }
-  __syncthreads();
-
-  const int m = nsteps[t];
-  const RowBufT<S> b{sv, sc, R, base, zero_addr, bd, tid};
-  float acc = 0.0f;
-  bool ok = true;
-  for (int r = tid; r < n; r += bd) {
-    float v;
-    if (PARAM) {
-      for (int f = 0; f < F; ++f) sv[f * bd + tid] = X[(size_t)f * n + r];
-      const int c = min(max(class_idx[r], 0), NC - 1);
-      for (int p = 0; p < NP; ++p) sv[(F + p) * bd + tid] = sbank[p * NC + c];
-      v = run_steps(b, sins, m, optab, code_mask, sign_shift, ok);
-    } else {
-      v = forward_row(b, sins, X, n, r, m, optab, code_mask, sign_shift, ok);
-    }
-    acc = __fadd_rn(acc, loss_term<LOSS>(v, y[r], w[r]));
-  }
-
-  const int all_ok = __syncthreads_and(ok ? 1 : 0);
-  block_sum(sred, acc);
-  if (tid == 0) {
-    const float total = sred[0];
-    const int valid = (all_ok && isfinite(total) && const_ok[t] != 0) ? 1 : 0;
-    valid_out[t] = valid;
-    if (COST) {
-      const float mean = __fdiv_rn(total, scal[0]);
-      const float lossf = (valid && isfinite(mean)) ? mean : INFINITY;
-      loss_out[t] = lossf;
-      cost_out[t] = __fadd_rn(__fdiv_rn(lossf, scal[1]), __fmul_rn(scal[2], cx[t]));
-    } else {
-      loss_out[t] = total;
-    }
-  }
+  tree_loss_sums<S, LOSS, PARAM, TILE_ROWS>(
+      instr + (size_t)t * L, min(nsteps[t], L), cvals + (size_t)t * CMAX,
+      PARAM ? bank + (size_t)t * NP * NC : nullptr, class_idx, X, y, w, optab, 1, 1, L, CMAX,
+      F, NP, NC, n, W, code_mask, sign_shift, smem, [&](int, float total, bool all_ok) {
+        const int valid = (all_ok && isfinite(total) && const_ok[t] != 0) ? 1 : 0;
+        valid_out[t] = valid;
+        if (COST) {
+          const float mean = __fdiv_rn(total, scal[0]);
+          const float lossf = (valid && isfinite(mean)) ? mean : INFINITY;
+          loss_out[t] = lossf;
+          cost_out[t] = __fadd_rn(__fdiv_rn(lossf, scal[1]), __fmul_rn(scal[2], cx[t]));
+        } else {
+          loss_out[t] = total;
+        }
+      });
 }
 
 template <typename S, int LOSS, bool COST, bool PARAM>
-cudaError_t launch_one(int T, int block, size_t smem, cudaStream_t stream,
-                       const int* instr, const int* nsteps, const float* cvals,
-                       const int* const_ok, const float* bank, const int* class_idx,
-                       const S* X, const float* y, const float* w, const float* cx,
-                       const float* scal, const int* optab, int L, int CMAX, int F, int NP,
-                       int NC, int n, int code_mask, int sign_shift, float* loss, int* valid,
-                       float* cost) {
+cudaError_t launch_one(int T, int W, cudaStream_t stream, const int* instr, const int* nsteps,
+                       const float* cvals, const int* const_ok, const float* bank,
+                       const int* class_idx, const S* X, const float* y, const float* w,
+                       const float* cx, const float* scal, const int* optab, int L, int CMAX,
+                       int F, int NP, int NC, int n, int code_mask, int sign_shift, float* loss,
+                       int* valid, float* cost) {
+  if (W % TILE_ROWS != 0 || W > TILE_MAX_W || (W & (W - 1)) != 0) return cudaErrorInvalidValue;
+  const size_t smem = tile_layout<S>(W, L, CMAX, F + NP, NP, NC, 1).total;
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
   auto kern = program_eval_kernel<S, LOSS, COST, PARAM>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<T, block, smem, stream>>>(instr, nsteps, cvals, const_ok, bank, class_idx, X, y, w,
-                                   cx, scal, optab, L, CMAX, F, NP, NC, n, code_mask,
-                                   sign_shift, loss, valid, cost);
+  kern<<<T, W / TILE_ROWS, smem, stream>>>(instr, nsteps, cvals, const_ok, bank, class_idx, X, y,
+                                           w, cx, scal, optab, L, CMAX, F, NP, NC, n, W,
+                                           code_mask, sign_shift, loss, valid, cost);
   return cudaGetLastError();
 }
 
@@ -182,24 +156,21 @@ template <typename S>
 int eval_entry(const int* instr, const int* nsteps, const float* cvals, const int* const_ok,
                const S* X, const float* y, const float* w, const float* cx,
                const float* scal, const int* optab, int T, int L, int CMAX, int F, int n,
-               int block, int loss_kind, int code_mask, int sign_shift, float* loss,
+               int W, int loss_kind, int code_mask, int sign_shift, float* loss,
                int* valid, float* cost, void* stream) {
   if (T == 0) return 0;
-  const size_t smem = eval_smem<S>(block, L, CMAX, F, 0, 0);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
-#define SR_LAUNCH(LK)                                                                 \
-  err = (cost != nullptr)                                                             \
-            ? launch_one<S, LK, true, false>(T, block, smem, s, instr, nsteps, cvals, \
-                                             const_ok, nullptr, nullptr, X, y, w, cx, \
-                                             scal, optab, L, CMAX, F, 0, 0, n,        \
-                                             code_mask, sign_shift, loss, valid,      \
-                                             cost)                                    \
-            : launch_one<S, LK, false, false>(T, block, smem, s, instr, nsteps,       \
-                                              cvals, const_ok, nullptr, nullptr, X,   \
-                                              y, w, cx, scal, optab, L, CMAX, F, 0,   \
-                                              0, n, code_mask, sign_shift, loss,      \
-                                              valid, cost);
+#define SR_LAUNCH(LK)                                                                     \
+  err = (cost != nullptr)                                                                 \
+            ? launch_one<S, LK, true, false>(T, W, s, instr, nsteps, cvals, const_ok,     \
+                                             nullptr, nullptr, X, y, w, cx, scal, optab,  \
+                                             L, CMAX, F, 0, 0, n, code_mask, sign_shift,  \
+                                             loss, valid, cost)                           \
+            : launch_one<S, LK, false, false>(T, W, s, instr, nsteps, cvals, const_ok,    \
+                                              nullptr, nullptr, X, y, w, cx, scal, optab, \
+                                              L, CMAX, F, 0, 0, n, code_mask, sign_shift, \
+                                              loss, valid, cost);
   switch (loss_kind) {
     case LOSS_L2: SR_LAUNCH(LOSS_L2) break;
     case LOSS_L1: SR_LAUNCH(LOSS_L1) break;
@@ -215,17 +186,16 @@ template <typename S>
 int param_entry(const int* instr, const int* nsteps, const float* cvals, const int* const_ok,
                 const float* bank, const int* class_idx, const S* X, const float* y,
                 const float* w, const int* optab, int T, int L, int CMAX, int F, int NP,
-                int NC, int n, int block, int loss_kind, int code_mask, int sign_shift,
+                int NC, int n, int W, int loss_kind, int code_mask, int sign_shift,
                 float* loss, int* valid, void* stream) {
   if (T == 0) return 0;
   if (NP < 1 || NC < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = eval_smem<S>(block, L, CMAX, F, NP, NC);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err;
-#define SR_LAUNCH(LK)                                                                     \
-  err = launch_one<S, LK, false, true>(T, block, smem, s, instr, nsteps, cvals, const_ok, \
-                                       bank, class_idx, X, y, w, nullptr, nullptr, optab, \
-                                       L, CMAX, F, NP, NC, n, code_mask, sign_shift, loss, \
+#define SR_LAUNCH(LK)                                                                   \
+  err = launch_one<S, LK, false, true>(T, W, s, instr, nsteps, cvals, const_ok, bank,   \
+                                       class_idx, X, y, w, nullptr, nullptr, optab, L,  \
+                                       CMAX, F, NP, NC, n, code_mask, sign_shift, loss, \
                                        valid, nullptr);
   switch (loss_kind) {
     case LOSS_L2: SR_LAUNCH(LOSS_L2) break;
@@ -239,17 +209,22 @@ int param_entry(const int* instr, const int* nsteps, const float* cvals, const i
 
 }  // namespace
 
-// Dynamic shared memory of a launch with `block` threads; `esize` is the
-// buffer's element size (4: float, 2: bf16), NP = NC = 0 for the
-// non-parametric forms.
+// Shared memory of the per-row layout with `block` threads ((F + NP + L)
+// values per thread, the constants, the bank, one reduction float per
+// thread, the words): the wrappers' `_block` picks the lane count W as the
+// largest block whose per-row layout fits, as it did when the kernel ran
+// that layout, so W, and with it every sum's order, stays as it was.
+// `esize` is the buffer's element size (4: float, 2: bf16), NP = NC = 0
+// for the non-parametric forms.
 extern "C" size_t sr_program_eval_smem(int block, int L, int CMAX, int F, int NP, int NC,
                                        int esize) {
-  return esize == 2 ? eval_smem<__nv_bfloat16>(block, L, CMAX, F, NP, NC)
-                    : eval_smem<float>(block, L, CMAX, F, NP, NC);
+  return esize == 2 ? row_layout_smem<__nv_bfloat16>(block, L, CMAX, F, NP, NC)
+                    : row_layout_smem<float>(block, L, CMAX, F, NP, NC);
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
-// `cost` == nullptr selects the plain form.
+// Launch on `stream` with W = `block` lanes (W / TILE_ROWS threads);
+// returns cudaGetLastError() (0 on success). `cost` == nullptr selects the
+// plain form.
 extern "C" int sr_program_eval(const int* instr, const int* nsteps,
                                const float* cvals, const int* const_ok,
                                const float* X, const float* y, const float* w,

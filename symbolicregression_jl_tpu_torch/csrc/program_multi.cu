@@ -13,28 +13,34 @@
 // variants (constant validity, the mean and the inf mapping are applied
 // by the wrapper, ops/fused_eval.py `fused_loss_multi`).
 //
-// Design. One CTA per (tree, variant) pair, running the interpreter of
-// interp.cuh exactly as kernel #1 runs it: the per-thread row loop, the
-// shared-memory [slot][thread] value buffer and the fixed-order tree
-// reduction are the same code. So a pair gives kernel #1's plain-form
-// bits for the same constants, and two launches give the same bits. The
-// TPU kernel's V-chunking and tree blocks worked around its VMEM size and
-// its per-step scalar dispatch; here every pair is its own block and each
-// call is one launch.
+// Design. One CTA per tree, which owns all V of the tree's constant
+// vectors: the tile interpreter of interp.cuh (tree_loss_sums), the same
+// code as kernel #1's. The block decodes the tree's words once, then walks
+// the rows in tiles of W (W / TILE_ROWS threads, TILE_ROWS rows each) and
+// runs every vector of a pass of TILE_VCH vectors on each tile: the
+// tile's X sits in shared memory once for all of them, and each vector's
+// constants (rounded to the storage type) sit side by side, with a
+// per-lane float sum per vector in shared memory. A pair's sum keeps the
+// per-row loop's lane order (interp.cuh), so a pair gives kernel #1's
+// plain-form bits for the same constants, kernel #3's loss bits, and two
+// launches give the same bits. The TPU kernel's V-chunking and tree
+// blocks worked around its VMEM size and its per-step scalar dispatch;
+// here each call is one launch.
 //
 // bf16 form (2b: sr_program_multi_bf16; the TPU kernel's `bf16=True`
 // variant, graftstage's optimizer_bf16_linesearch): the same over a
 // bfloat16 value buffer, as kernel 1b runs it. X arrives as bf16, each
-// pair's constants round to bf16 as the block loads them, steps compute
-// in float and store rounded; the loss and its row sum stay float. The
-// TPU kernel's 16-variant chunks worked around VMEM and are not copied:
-// one launch per call.
+// vector's constants round to bf16 as the block loads them, steps compute
+// in float and store rounded; the loss and its row sum stay float.
 //
 // What bounds it on the H100. Like kernel #1 it is FP32 ALU and SFU work,
-// (steps x rows) operator evaluations per pair, with X (200 KB at the
-// bench shapes) resident in L2; device-memory traffic is the words and
-// constant vectors. Reading the words once per tree instead of once per
-// pair, and keeping the values in registers, is later work.
+// (steps x rows) operator evaluations per pair; X (200 KB at the bench
+// shapes) stays in L2, and each tree reads it ceil(V / TILE_VCH) times,
+// not once per pair; device-memory traffic is the words and the constant
+// vectors. The decode, the operator dispatch and the operand
+// addresses are paid once per step for TILE_ROWS rows, as in kernel #1;
+// what is left is the operators' own work, a few instructions per (step,
+// row) around it, and the per-vector lane sums' shared-memory traffic.
 
 #include "interp.cuh"
 
@@ -42,15 +48,16 @@ using namespace sr;
 
 namespace {
 
-// Dynamic shared memory a launch with `block` threads needs (kernel #1's).
+// The per-row layout's shared memory with `block` threads (see
+// sr_program_multi_smem).
 template <typename S>
-size_t multi_smem(int block, int L, int CMAX, int F) {
+size_t row_layout_smem(int block, int L, int CMAX, int F) {
   return sizeof(S) * padded<S>((size_t)(F + L) * block + CMAX) + sizeof(float) * block +
          sizeof(int) * L;
 }
 
 template <typename S, int LOSS>
-__global__ void program_multi_kernel(
+__global__ void __launch_bounds__(TILE_MAX_W / TILE_ROWS) program_multi_kernel(
     const int* __restrict__ instr,      // [T, L]
     const int* __restrict__ nsteps,     // [T]
     const float* __restrict__ cvals_v,  // [T, V, CMAX]
@@ -58,73 +65,51 @@ __global__ void program_multi_kernel(
     const float* __restrict__ y,        // [n]
     const float* __restrict__ w,        // [n]
     const int* __restrict__ optab,      // [n_codes]
-    int V, int L, int CMAX, int F, int n, int code_mask, int sign_shift,
+    int V, int vch, int L, int CMAX, int F, int n, int W, int code_mask, int sign_shift,
     float* __restrict__ loss_out, int* __restrict__ valid_out) {
-  extern __shared__ float smem[];
-  const int pair = blockIdx.x;
-  const int t = pair / V;
-  const int tid = threadIdx.x;
-  const int bd = blockDim.x;
-  S* sv = reinterpret_cast<S*>(smem);        // [(F + L) * bd] per-row values
-  S* sc = sv + (size_t)(F + L) * bd;         // [CMAX] constants of this variant
-  float* sred = reinterpret_cast<float*>(    // [bd] reduction scratch
-      sv + padded<S>((size_t)(F + L) * bd + CMAX));
-  int* sins = reinterpret_cast<int*>(sred + bd);  // [L] instruction words
-
-  const int base = F + CMAX;
-  for (int i = tid; i < L; i += bd) sins[i] = instr[(size_t)t * L + i];
-  for (int i = tid; i < CMAX; i += bd) sc[i] = from_f32<S>(cvals_v[(size_t)pair * CMAX + i]);
-  __syncthreads();
-
-  const int m = nsteps[t];
-  const RowBufT<S> b{sv, sc, F, base, base + L, bd, tid};
-  float acc = 0.0f;
-  bool ok = true;
-  for (int r = tid; r < n; r += bd) {
-    const float v = forward_row(b, sins, X, n, r, m, optab, code_mask, sign_shift, ok);
-    acc = __fadd_rn(acc, loss_term<LOSS>(v, y[r], w[r]));
-  }
-
-  const int all_ok = __syncthreads_and(ok ? 1 : 0);
-  block_sum(sred, acc);
-  if (tid == 0) {
-    const float total = sred[0];
-    loss_out[pair] = total;
-    valid_out[pair] = (all_ok && isfinite(total)) ? 1 : 0;
-  }
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = blockIdx.x;
+  tree_loss_sums<S, LOSS, false, TILE_ROWS>(
+      instr + (size_t)t * L, min(nsteps[t], L), cvals_v + (size_t)t * V * CMAX, nullptr, nullptr,
+      X, y, w, optab, V, vch, L, CMAX, F, 0, 0, n, W, code_mask, sign_shift, smem,
+      [&](int v, float total, bool all_ok) {
+        loss_out[(size_t)t * V + v] = total;
+        valid_out[(size_t)t * V + v] = (all_ok && isfinite(total)) ? 1 : 0;
+      });
 }
 
 template <typename S, int LOSS>
-cudaError_t launch_multi(int pairs, int block, size_t smem, cudaStream_t stream,
-                         const int* instr, const int* nsteps, const float* cvals_v,
-                         const S* X, const float* y, const float* w,
+cudaError_t launch_multi(int T, int W, cudaStream_t stream, const int* instr, const int* nsteps,
+                         const float* cvals_v, const S* X, const float* y, const float* w,
                          const int* optab, int V, int L, int CMAX, int F, int n,
                          int code_mask, int sign_shift, float* loss, int* valid) {
+  if (W % TILE_ROWS != 0 || W > TILE_MAX_W || (W & (W - 1)) != 0) return cudaErrorInvalidValue;
+  // The most vectors per pass (up to TILE_VCH) whose layout fits.
+  int vch = min(V, TILE_VCH);
+  while (vch > 1 && tile_layout<S>(W, L, CMAX, F, 0, 0, vch).total > kSmemLimit) vch >>= 1;
+  const size_t smem = tile_layout<S>(W, L, CMAX, F, 0, 0, vch).total;
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
   auto kern = program_multi_kernel<S, LOSS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<pairs, block, smem, stream>>>(instr, nsteps, cvals_v, X, y, w, optab, V, L,
-                                       CMAX, F, n, code_mask, sign_shift, loss, valid);
+  kern<<<T, W / TILE_ROWS, smem, stream>>>(instr, nsteps, cvals_v, X, y, w, optab, V, vch, L,
+                                           CMAX, F, n, W, code_mask, sign_shift, loss, valid);
   return cudaGetLastError();
 }
 
 template <typename S>
 int multi_entry(const int* instr, const int* nsteps, const float* cvals_v, const S* X,
                 const float* y, const float* w, const int* optab, int T, int V, int L,
-                int CMAX, int F, int n, int block, int loss_kind, int code_mask,
+                int CMAX, int F, int n, int W, int loss_kind, int code_mask,
                 int sign_shift, float* loss, int* valid, void* stream) {
-  const long long pairs = (long long)T * V;
-  if (pairs == 0) return 0;
-  if (pairs > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = multi_smem<S>(block, L, CMAX, F);
+  if ((long long)T * V == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (loss_kind) {
-#define SR_LAUNCH(LK)                                                             \
-  case LK:                                                                        \
-    return (int)launch_multi<S, LK>((int)pairs, block, smem, s, instr, nsteps,    \
-                                    cvals_v, X, y, w, optab, V, L, CMAX, F, n,    \
-                                    code_mask, sign_shift, loss, valid);
+#define SR_LAUNCH(LK)                                                                 \
+  case LK:                                                                            \
+    return (int)launch_multi<S, LK>(T, W, s, instr, nsteps, cvals_v, X, y, w, optab, V, \
+                                    L, CMAX, F, n, code_mask, sign_shift, loss, valid);
     SR_LAUNCH(LOSS_L2)
     SR_LAUNCH(LOSS_L1)
     SR_LAUNCH(LOSS_HUBER)
@@ -135,14 +120,20 @@ int multi_entry(const int* instr, const int* nsteps, const float* cvals_v, const
 
 }  // namespace
 
-// Dynamic shared memory a launch with `block` threads needs; `esize` is
-// the buffer's element size (4: float, 2: bf16).
+// Shared memory of the per-row layout with `block` threads ((F + L) values
+// per thread, the constants, one reduction float per thread, the words):
+// the wrapper's `_block` picks the lane count W as the largest block whose
+// per-row layout fits, as it did when the kernel ran that layout, so W,
+// and with it every sum's order, stays as it was (and equal to kernel #1's
+// and #3's at the same shapes). `esize` is the buffer's element size (4:
+// float, 2: bf16).
 extern "C" size_t sr_program_multi_smem(int block, int L, int CMAX, int F, int esize) {
-  return esize == 2 ? multi_smem<__nv_bfloat16>(block, L, CMAX, F)
-                    : multi_smem<float>(block, L, CMAX, F);
+  return esize == 2 ? row_layout_smem<__nv_bfloat16>(block, L, CMAX, F)
+                    : row_layout_smem<float>(block, L, CMAX, F);
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// Launch on `stream` with W = `block` lanes (W / TILE_ROWS threads per
+// tree); returns cudaGetLastError() (0 on success).
 extern "C" int sr_program_multi(const int* instr, const int* nsteps,
                                 const float* cvals_v, const float* X,
                                 const float* y, const float* w, const int* optab,

@@ -4,8 +4,10 @@ Each source under ``csrc/`` has a plain C interface and is compiled with
 ``nvcc`` into a shared library that :mod:`ctypes` loads. The library goes
 to ``build/kernels/`` at the root of the checkout (``.gitignore`` lists
 it), named by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads at once. Nothing is built when a
-module is imported: the CPU tests import every module and never build.
+rebuilds and an unchanged one loads at once; ptxas's report of each
+kernel's registers, spills and stack (``-Xptxas -v``) goes beside it
+(:func:`build_log`). Nothing is built when a module is imported: the CPU
+tests import every module and never build.
 """
 
 from __future__ import annotations
@@ -21,10 +23,10 @@ from pathlib import Path
 from typing import Dict, Tuple
 
 __all__ = ["NVCC_FLAGS", "build_dir", "build_all", "load_library", "source_path",
-           "build_seconds"]
+           "build_seconds", "build_log"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PKG = Path(__file__).resolve().parent.parent
 _LOCK = threading.Lock()
@@ -82,6 +84,7 @@ def build_all(names) -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {src.name}:\n{stdout}\n{stderr}")
             continue
+        so.with_suffix(".log").write_text(stderr)
         os.replace(tmp, so)
         _BUILD_SECONDS[name] = time.perf_counter() - t0
     if failed:
@@ -108,3 +111,10 @@ def build_seconds(name: str) -> float:
     """Seconds the last build of ``name`` took in this process (0.0 when
     the library was already on disk)."""
     return _BUILD_SECONDS.get(name, 0.0)
+
+
+def build_log(name: str) -> str:
+    """nvcc's report (ptxas's ``-v`` lines) from the build of ``name``'s
+    current library ("" when it has not been built)."""
+    log = _target(source_path(name))[0].with_suffix(".log")
+    return log.read_text() if log.exists() else ""

@@ -585,8 +585,11 @@ class _ProgramKernel:
         return self._lib
 
     def _block(self, L: int, CMAX: int, F: int, NP: int = 0, NC: int = 0) -> int:
-        """The largest block whose shared memory fits (a bf16 buffer takes
-        half the bytes, so it fits a larger block sooner)."""
+        """The lane count W: the largest block whose per-row layout's
+        shared memory fits (a bf16 buffer takes half the bytes, so it fits
+        a larger block sooner). Kernels #3-#5 run W threads; the tile
+        kernels #1 and #2 run W / 4 and keep W lanes, so each sum keeps the
+        same order (csrc/interp.cuh)."""
         smem = self._smem_fn(self.library())
         extra = self._smem_extra(NP, NC)
         for block in (256, 128, 64, 32):

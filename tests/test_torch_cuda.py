@@ -537,3 +537,204 @@ def test_graftstage_engine_launches_bf16_kernels(cuda_device):
     assert [k.launches - b for k, b in zip(kernels, before)] == [
         0, 2 * opts.ncycles_per_iteration + 1, 0, iters, iters + 1]
     assert bool(torch.isfinite(state.hof.loss[state.hof.exists]).all())
+
+
+# ---------------------------------------------------------------------------
+# The tile interpreter of kernels #1 and #2 (csrc/interp.cuh): the edges of
+# its row tiles and the bit contracts the lane order keeps.
+# ---------------------------------------------------------------------------
+
+TILE_CASES = {
+    # n not a multiple of the lanes (256) or of the rows per thread (4)
+    "ragged": dict(n=1001, nlength=6),
+    # fewer rows than lanes: one partial tile, most lanes empty
+    "n_below_lanes": dict(n=100, nlength=6),
+    # graftstage's screening sample of a 10,000-row dataset
+    "sample_1250": dict(n=1250, nlength=8),
+    # one step per tree: its result is the root, nothing is stored
+    "one_step": dict(n=512, nlength=1),
+    "zero_weights": dict(n=300, nlength=6, zero_weights=True),
+    # every seventh tree's first constant inf, every thirteenth's NaN
+    "nonfinite_const": dict(n=777, nlength=6, nonfinite_const=True),
+}
+
+
+def _tile_args(device, n: int, nlength: int, zero_weights=False, nonfinite_const=False,
+               T: int = 256):
+    """Random trees of + - * / abs (exact operators, so the bf16 forms agree
+    with their plain versions within rtol 1e-5) over 3 features, every 97th
+    row's X at +-1e20, a tenth of the weights 0 (all of them with
+    ``zero_weights``)."""
+    opts = S.Options(binary_operators=["+", "-", "*", "/"], unary_operators=["abs"], maxsize=30,
+                     populations=4, population_size=32, tournament_selection_n=8,
+                     should_optimize_constants=False, save_to_file=False)
+    cfg = evolve_config_from_options(opts, 3, device)
+    trees = init_population(rng.split(rng.key(11, device=device), T // 64), 64, cfg.mctx,
+                            nlength=nlength).reshape(-1)
+    g = np.random.default_rng(n)
+    Xn = g.uniform(-3, 3, (3, n)).astype(np.float32)
+    Xn[:, ::97] = 1e20 * np.sign(g.normal(size=Xn[:, ::97].shape))
+    wn = np.where(g.random(n) < 0.1, 0.0, g.uniform(0.2, 2, n)).astype(np.float32)
+    if zero_weights:
+        wn[:] = 0.0
+    X = torch.from_numpy(Xn).to(device)
+    y = torch.from_numpy(g.normal(size=n).astype(np.float32)).to(device)
+    w = torch.from_numpy(wn).to(device)
+    prog = compile_program(trees, 3, len(opts.operators.binary))
+    instr, nsteps, cvals, ok, X, y, w = SF._launch_inputs(prog, X, y, w, 3, opts.operators)
+    if nonfinite_const:
+        cvals = cvals.clone()
+        cvals[::7, 0] = torch.inf
+        cvals[::13, 0] = torch.nan
+        ok = torch.isfinite(cvals).all(dim=1).to(torch.int32)
+    cx = torch.arange(1, T + 1, dtype=torch.float32, device=device)
+    scal = torch.stack([w.sum().clamp(min=1.0), torch.tensor(1.7, device=device),
+                        torch.tensor(0.0032, device=device)])
+    return opts.operators, prog, (instr, nsteps, cvals, ok, X, y, w), cx, scal
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_tile_kernels_hold_their_contracts(cuda_device, case):
+    """Kernels #1, 1b, #2 and 2b (the tile interpreter) on the tiles'
+    edges: each against its plain version (validity bit-equal; sums within
+    rtol 1e-5 with NaN and +-inf in the same places, the rows being summed
+    in another order); two launches bit-identical; #1's cost form equal to
+    its plain form + loss_to_cost's operations, bit for bit; #2 with V = 1
+    equal to #1's plain form and 2b with V = 1 equal to 1b's, bit for bit;
+    #3's loss equal to #2's on the same constant vectors, bit for bit."""
+    ops, prog, args, cx, scal = _tile_args(cuda_device, **TILE_CASES[case])
+    instr, nsteps, cvals, ok, X, y, w = args
+    T = instr.shape[0]
+    loss = SL.l2_dist_loss
+    k1, k1b, k2, k2b = (SF.ProgramEvalKernel(), SF.ProgramEvalBf16Kernel(),
+                        SF.ProgramMultiKernel(), SF.ProgramMultiBf16Kernel())
+
+    lk, vk = k1(*args, ops, loss)
+    lk2, vk2 = k1(*args, ops, loss)
+    lck, vck, ck = k1(*args, ops, loss, cx=cx, scal=scal)
+    assert k1.launches == 3
+    assert torch.equal(_bits(lk), _bits(lk2)) and torch.equal(vk, vk2)
+    lp, vp = SF.program_eval_plain(*args, ops, loss)
+    lcp, vcp, cp = SF.program_eval_plain(*args, ops, loss, cx=cx, scal=scal)
+    assert torch.equal(vk, vp) and torch.equal(vck, vcp)
+    _nonfinite_match(lk, lp)
+    _close(torch.where(vp, lk, torch.inf), torch.where(vp, lp, torch.inf))
+    _close(lck, lcp)
+    _close(ck, cp)
+    mean = lk / scal[0]
+    loss_ref = torch.where(vk & torch.isfinite(mean), mean, torch.inf)
+    assert torch.equal(_bits(lck), _bits(loss_ref))
+    assert torch.equal(_bits(ck), _bits(loss_ref / scal[1] + scal[2] * cx))
+
+    argsb = args[:4] + (SF._bf16_rows(X),) + args[5:]
+    inexact = torch.zeros(T, dtype=torch.bool, device=cuda_device)
+    bk, bv = k1b(*argsb, ops, loss)
+    bk2, bv2 = k1b(*argsb, ops, loss)
+    assert torch.equal(_bits(bk), _bits(bk2)) and torch.equal(bv, bv2)
+    bp, bvp = SF.program_eval_plain(*argsb, ops, loss, bf16=True)
+    assert torch.equal(bv, bvp)
+    _bf16_close(torch.where(bvp, bk, torch.inf), torch.where(bvp, bp, torch.inf), inexact)
+
+    ones = torch.ones(T, dtype=torch.int32, device=cuda_device)
+    l1e, v1e = k1(instr, nsteps, cvals, ones, X, y, w, ops, loss)
+    b1e, bv1e = k1b(instr, nsteps, cvals, ones, argsb[4], y, w, ops, loss)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for V in (1, 24):
+        cv = (cvals[:, None, :] * (1.0 + 0.5 * torch.randn((T, V, cvals.shape[1]), generator=gen,
+                                                           device=cuda_device))).contiguous()
+        if V == 1:
+            cv = cvals[:, None, :].contiguous()
+        else:
+            cv[::5, 3, 0] = torch.nan
+        mk, mv = k2(instr, nsteps, cv, X, y, w, ops, loss)
+        mk2, mv2 = k2(instr, nsteps, cv, X, y, w, ops, loss)
+        assert torch.equal(_bits(mk), _bits(mk2)) and torch.equal(mv, mv2)
+        mp, mvp = SF.program_multi_plain(instr, nsteps, cv, X, y, w, ops, loss)
+        assert torch.equal(mv, mvp)
+        _close(torch.where(mvp, mk, torch.inf), torch.where(mvp, mp, torch.inf))
+        nk, nv = k2b(instr, nsteps, cv, argsb[4], y, w, ops, loss)
+        np_, nvp = SF.program_multi_plain(instr, nsteps, cv, argsb[4], y, w, ops, loss, bf16=True)
+        assert torch.equal(nv, nvp)
+        _bf16_close(torch.where(nvp, nk, torch.inf), torch.where(nvp, np_, torch.inf), inexact)
+        if V == 1:
+            assert torch.equal(_bits(mk[:, 0]), _bits(l1e)) and torch.equal(mv[:, 0], v1e)
+            assert torch.equal(_bits(nk[:, 0]), _bits(b1e)) and torch.equal(nv[:, 0], bv1e)
+    cv3 = (cvals[:, None, :] * (1.0 + 0.5 * torch.randn((T, 3, cvals.shape[1]), generator=gen,
+                                                        device=cuda_device))).contiguous()
+    gl, gv, _ = SF.ProgramGradKernel()(instr, nsteps, prog.nconst.to(torch.int32).contiguous(),
+                                       cv3, X, y, w, ops, loss)
+    ml, mv3 = k2(instr, nsteps, cv3, X, y, w, ops, loss)
+    assert torch.equal(_bits(gl), _bits(ml)) and torch.equal(gv, mv3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [100, 1001, 1250])
+def test_tile_param_kernel_with_nonfinite_bank(cuda_device, n):
+    """#1p and its bf16 form on the tiles' edges, every eleventh tree's bank
+    +inf for class 2 only (and class indices outside [0, NC) clipped):
+    validity bit-equal to the plain version, sums NaN and +-inf in the same
+    places and within rtol 1e-5 on valid trees; two launches bit-identical."""
+    ops, args = _param_args(cuda_device, ("+", "-", "*", "/"), n)
+    args = list(args)
+    g = np.random.default_rng(n)
+    args[5] = torch.from_numpy(g.integers(-1, 4, n).astype(np.int32)).to(cuda_device)
+    kernel = SF.ProgramEvalParamKernel()
+    lk, vk = kernel(*args, ops, SL.l2_dist_loss)
+    lk2, vk2 = kernel(*args, ops, SL.l2_dist_loss)
+    assert torch.equal(_bits(lk), _bits(lk2)) and torch.equal(vk, vk2)
+    lp, vp = SF.program_eval_plain(*args[:4], *args[6:], ops, SL.l2_dist_loss, bank=args[4],
+                                   class_idx=args[5])
+    assert torch.equal(vk, vp) and 0 < int(vk.sum()) < vk.numel()
+    _nonfinite_match(lk, lp)
+    _close(torch.where(vp, lk, torch.inf), torch.where(vp, lp, torch.inf))
+    bargs = args[:6] + [SF._bf16_rows(args[6])] + args[7:]
+    kb = SF.ProgramEvalParamBf16Kernel()
+    bk, bv = kb(*bargs, ops, SL.l2_dist_loss)
+    bk2, _ = kb(*bargs, ops, SL.l2_dist_loss)
+    assert torch.equal(_bits(bk), _bits(bk2))
+    bp, bvp = SF.program_eval_plain(*bargs[:4], *bargs[6:], ops, SL.l2_dist_loss,
+                                    bank=bargs[4], class_idx=bargs[5], bf16=True)
+    assert torch.equal(bv, bvp)
+    _bf16_close(torch.where(bvp, bk, torch.inf), torch.where(bvp, bp, torch.inf),
+                _inexact(bargs[0], bargs[1], ops))
+
+
+@pytest.mark.cuda
+def test_tile_bf16_overflow_at_the_store(cuda_device):
+    """A step whose float32 value is finite but past bf16's rounding edge
+    (3.3961e38) stores inf with the step still finite: at the root it
+    surfaces in the loss, under `- x1` in the next step. 1b and 2b (V = 1
+    and V = 24) give their plain versions' validity, and float32 keeps all
+    four trees valid."""
+    from symbolicregression_jl_tpu_torch.ops.encoding import encode_population
+    from symbolicregression_jl_tpu_torch.ops.tree import parse_expression
+
+    ops = S.OperatorSet(["+", "-", "*"], ["cos"])
+    exprs = ["x1 * 2.84375", "(x1 * 2.84375) - x1", "x1 * x2", "cos(x1) + 0.5"]
+    trees = encode_population([parse_expression(e, ops, ["x1", "x2"]) for e in exprs], 8, ops,
+                              device=cuda_device)
+    g = np.random.default_rng(4)
+    Xn = g.uniform(-2, 2, (2, 300)).astype(np.float32)
+    Xn[0, 5] = np.float32(1.40625 * 2.0 ** 126)
+    X = torch.from_numpy(Xn).to(cuda_device)
+    y = torch.from_numpy(g.normal(size=300).astype(np.float32)).to(cuda_device)
+    prog = compile_program(trees, 2, 3)
+    args = SF._launch_inputs(prog, X, y, None, 2, ops, bf16=True)
+    lk, vk = SF.ProgramEvalBf16Kernel()(*args, ops, SL.l1_dist_loss)
+    lp, vp = SF.program_eval_plain(*args, ops, SL.l1_dist_loss, bf16=True)
+    assert vk.tolist() == vp.tolist() == [False, False, True, True]
+    _nonfinite_match(lk, lp)
+    instr, nsteps, cvals, _, Xb, yc, w = args
+    for V in (1, 24):
+        cv = cvals[:, None, :].expand(-1, V, -1).contiguous()
+        mk, mv = SF.ProgramMultiBf16Kernel()(instr, nsteps, cv, Xb, yc, w, ops, SL.l1_dist_loss)
+        assert mv.tolist() == [[False] * V, [False] * V, [True] * V, [True] * V]
+        assert torch.equal(_bits(mk[:, 0]), _bits(lk))
+    args32 = SF._launch_inputs(prog, X, y, None, 2, ops)
+    _, v32 = SF.ProgramEvalKernel()(*args32, ops, SL.l1_dist_loss)
+    assert v32.tolist() == [True] * 4

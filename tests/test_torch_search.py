@@ -24,6 +24,10 @@ from symbolicregression_jl_tpu_torch.models import D, ParametricExpressionSpec, 
 from symbolicregression_jl_tpu_torch.ops.encoding import encode_population
 from symbolicregression_jl_tpu_torch.ops.fused_eval import PROGRAM_EVAL
 
+from torch_parity import cap_torch_threads
+
+cap_torch_threads()
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "symbolicregression_jl_tpu_torch"
 
@@ -150,6 +154,21 @@ def test_search_arguments_outside_the_slice_refuse(kw):
     with pytest.raises(NotImplementedError, match="PyTorch port"):
         S.equation_search(*_problem(n=16), options=_options(), niterations=1, device="cpu",
                           **kw)
+
+
+def test_progress_false_runs_and_progress_true_refuses():
+    """progress=False asks for what the port does (no progress bar), as the
+    JAX package's warmup passes it: the search runs. progress=True still
+    refuses, naming the observability slice."""
+    X, y = _problem(n=16)
+    opts = _options(populations=2, population_size=8, ncycles_per_iteration=2,
+                    tournament_selection_n=4)
+    hof = S.equation_search(X, y, options=opts, niterations=1, seed=0, progress=False,
+                            device="cpu")
+    assert np.isfinite(min(e.loss for e in hof.entries))
+    with pytest.raises(NotImplementedError, match="observability slice"):
+        S.equation_search(X, y, options=opts, niterations=1, seed=0, progress=True,
+                          device="cpu")
 
 
 def test_parametric_search_on_the_cpu():

@@ -5,11 +5,29 @@ JAX side's outputs come back as numpy, the port's as CPU tensors.
 """
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
+import torch
 
 from symbolicregression_jl_tpu_torch import interop
+
+
+def cap_torch_threads() -> int:
+    """Under pytest-xdist, give each worker cpu_count // workers of torch's
+    intra-op threads (at least one). The pool defaults to every CPU in
+    each worker; the port's tests run many small eager ops, and six
+    workers' pools on eight CPUs spin against each other (one slow case
+    took 741 s with six copies at the default and 11 s with one thread
+    each). Runs without xdist keep the default. Returns the count."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+    if "PYTEST_XDIST_WORKER" in os.environ and workers > 0:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    return torch.get_num_threads()
+
+
+cap_torch_threads()
 
 TREE_FIELDS = ("arity", "op", "feat", "length")
 POP_INT_FIELDS = ("birth", "ref", "parent", "complexity")
