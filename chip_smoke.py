@@ -11,7 +11,7 @@ Phases (any failure exits nonzero and prints no result line):
    with #2 and its bf16 form 2b, program_grad.cu,
    program_predict.cu, program_predict_vjp.cu) from the checkout, one
    nvcc per source, all started together. Prints ptxas's registers,
-   stack and spills of every instantiation of #1 and #2 (the tile
+   stack and spills of every instantiation of #1, #2, #3 and #4 (the tile
    interpreter of csrc/interp.cuh).
 3. Hold kernel #1 against its plain PyTorch version at the benchmark
    shapes: 16,384 random trees (maxsize 30, + - * / exp abs cos), 5
@@ -27,8 +27,9 @@ Phases (any failure exits nonzero and prints no result line):
    places; #2 with V = 1 bit-equal to #1's plain form; #3's loss bit-equal
    to #2's on the same variants; gradients non-finite in the same pairs
    and otherwise within 1e-4 of the sum of the absolute per-row terms;
-   two launches bit-identical. Times both (CUDA events) and reckons
-   their bounds.
+   two launches bit-identical. #3's checks run again on 18,432 trees whose
+   step counts span its three launch classes (MIXED_NLENGTHS). Times both
+   kernels (CUDA events, #3 on both inputs) and reckons their bounds.
 5. Main path: `Engine` at the headline configuration, 512 islands x 256
    members x 10,000 rows x 5 features, tournament 16, maxsize 30, the
    constant optimizer on (the default): init_state, one warm-up
@@ -158,6 +159,11 @@ H100_HBM_BYTES_S = 3.35e12  # HBM3 bandwidth, H100 SXM data sheet
 PR5_MS = {"program_eval": 1.7189, "program_eval_param": 2.6702, "program_eval_bf16": 1.7574,
           "program_eval_param_bf16": 2.7767, "program_multi": 46.5144,
           "program_multi_bf16": 46.0428}
+# The times of kernels #3 and #4 as per-row kernels, before their tile
+# redesign (PERF.md section 6, chip_smoke.py on an NVIDIA H100 80GB HBM3 at
+# 700 W), printed beside this run's; #4 at the shared and the per-member input.
+PER_ROW_MS = {"program_grad": 18.0438, "program_predict shared": 2.1888,
+              "program_predict per-member": 2.4685}
 
 
 def bench_data():
@@ -181,7 +187,10 @@ def bench_options(sr, ncycles: int, populations: int = 0, optimize: bool = True,
 
 
 def was(name: str) -> str:
-    """PR 5's time of a redesigned kernel, for the line that prints this run's."""
+    """A redesigned kernel's time before its redesign, for the line that
+    prints this run's."""
+    if name in PER_ROW_MS:
+        return f" (per-row kernel: {PER_ROW_MS[name]:.4f} ms)"
     return f" (PR 5: {PR5_MS[name]:.4f} ms)"
 
 
@@ -214,9 +223,10 @@ def ptxas_report(log: str, kernel: str):
         out = subprocess.run([filt], input="\n".join(r[0] for r in rows), capture_output=True,
                              text=True).stdout.splitlines()
         if len(out) == len(rows):
-            # "void <unnamed>::k<float, (int)0, true, false>(int const*, ...)" -> "k<float, 0, true, false>"
+            # "void <unnamed>::k<float, (int)0, true, false>(int const*, ...)"
+            # -> "k<float, 0, true, false>"; "void <unnamed>::k(int const*, ...)" -> "k"
             short = [re.sub(r"\(int\)", "", o.split("::", 1)[-1]) for o in out]
-            rows = [(o[:o.rfind(">(") + 1] if ">(" in o else o,) + r[1:]
+            rows = [(o[:o.rfind(">(") + 1] if ">(" in o else o.split("(", 1)[0],) + r[1:]
                     for o, r in zip(short, rows)]
     return rows
 
@@ -428,6 +438,104 @@ def opt_kernel_inputs(torch, sr, dev):
             cv_ls, cv_g)
 
 
+# Phase 4's second input for #3: islands of 36 trees of a given number of
+# operator draws (init_population's nlength), so that the trees' step
+# counts m fall in csrc/program_grad.cu's launch classes (m <= 4, 5-12, 13
+# or more) in the shares bench/profile_iteration.py counted for #3's trees
+# in the optimizer cell's 10-cycle iteration (65.8%, 33.6%, 0.6%): 337
+# islands of 1-4 draws, 172 of 5-12 and 3 of 16-18.
+MIXED_NLENGTHS = ([1 + i % 4 for i in range(337)] + [5 + i % 8 for i in range(172)]
+                  + [16, 17, 18])
+
+
+def mixed_grad_inputs(torch, sr, dev):
+    """Kernel #3's phase 4 arguments (instr, nsteps, nconst, cvals_v, X, y,
+    w) on 512 x 36 trees of MIXED_NLENGTHS, their constants perturbed
+    V = 3 ways with a few non-finite, and the operators and loss."""
+    from symbolicregression_jl_tpu_torch.evolve import rng
+    from symbolicregression_jl_tpu_torch.evolve.population import init_population
+    from symbolicregression_jl_tpu_torch.evolve.step import evolve_config_from_options
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+    from symbolicregression_jl_tpu_torch.ops.encoding import TreeBatch
+    from symbolicregression_jl_tpu_torch.ops.program import compile_program
+
+    options = bench_options(sr, 1)
+    X, y = bench_data()
+    data = sr.make_dataset(X, y, device=dev).data
+    cfg = evolve_config_from_options(options, N_FEATURES, dev)
+    keys = rng.split(rng.key(3, device=dev), len(MIXED_NLENGTHS))
+    parts = []
+    for nl in sorted(set(MIXED_NLENGTHS)):
+        idx = torch.tensor([i for i, v in enumerate(MIXED_NLENGTHS) if v == nl], device=dev)
+        parts.append(init_population(keys[idx], 36, cfg.mctx, nlength=nl).reshape(-1))
+    trees = TreeBatch(*(torch.cat(f) for f in zip(*(p.fields() for p in parts))))
+    ops, el = options.operators, options.elementwise_loss
+    prog = compile_program(trees, N_FEATURES, len(ops.binary))
+    instr, nsteps, cvals, _, Xt, yt, w = FE._launch_inputs(prog, data.Xt, data.y, data.weights,
+                                                           N_FEATURES, ops)
+    V = options.optimizer_nrestarts + 1
+    g = torch.Generator(device=dev).manual_seed(1)
+    cv = cvals[:, None, :] * (1.0 + 0.5 * torch.randn((cvals.shape[0], V, cvals.shape[1]),
+                                                      generator=g, device=dev))
+    cv[::997, -1, 0] = torch.inf
+    nconst = prog.nconst.to(torch.int32).contiguous()
+    return (instr, nsteps, nconst, cv.contiguous(), Xt, yt, w), ops, el
+
+
+def grad_checks(torch, check, tag, args, ops, el):
+    """Kernel #3 on ``args`` against its plain version and kernel #2 (the
+    checks of phase 4, named with ``tag``). Returns (largest gradient error,
+    plain version's ms, valid pairs)."""
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+    instr, nsteps, nconst, cv, Xt, yt, w = args
+    _same = lambda a, b: same(torch, a, b)
+    gl, gv, gg = FE.PROGRAM_GRAD(*args, ops, el)
+    gl2, gv2, gg2 = FE.PROGRAM_GRAD(*args, ops, el)
+    lm, vm = FE.PROGRAM_MULTI(instr, nsteps, cv, Xt, yt, w, ops, el)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pl, pv, pg, pabs = FE.program_grad_plain(*args, ops, el, return_abs=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(f"#3{tag} two launches bit-identical",
+          _same(gl, gl2) and _same(gv, gv2) and _same(gg, gg2))
+    check(f"#3{tag} validity bit-equal", _same(gv, pv))
+    check(f"#3{tag} loss == #2's on the same variants (bit)", _same(gl, lm) and _same(gv, vm))
+    same_inf, within, rel3, _ = close(torch, torch.where(pv, gl, torch.inf),
+                                      torch.where(pv, pl, torch.inf))
+    check(f"#3{tag} loss sum within rtol {RTOL} (max rel err {rel3:.3g})", same_inf and within)
+    # Gradients: a valid pair's gradient is non-finite in the same
+    # components; finite ones agree within 1e-4 of the sum of the absolute
+    # per-row terms (each row's derivative agrees within a few ULP; the
+    # rows are summed in another order and may cancel).
+    live = pv[..., None].expand_as(pg)
+    fin_k, fin_p = torch.isfinite(gg), torch.isfinite(pg)
+    check(f"#3{tag} gradients non-finite in the same places",
+          bool(torch.equal(fin_k[live], fin_p[live])))
+    both = live & fin_k & fin_p
+    gerr = (gg - pg).abs()[both]
+    gtol = 1e-4 * pabs[both]
+    check(f"#3{tag} gradients within 1e-4 of the absolute row sums (max err / scale "
+          f"{float((gerr / pabs[both].clamp(min=1e-30)).max()):.3g})", bool((gerr <= gtol).all()))
+    return (float(gerr.max()) if gerr.numel() else 0.0), plain_ms, int(gv.sum())
+
+
+def grad_bound(torch, args):
+    """(bound ms, bound_by, operations, bytes) of kernel #3 on ``args``: the
+    forward's operations, then per step and row the derivative and one more
+    operation per operand, the loss derivative and the constants' sums."""
+    instr, nsteps, nconst, cv, Xt, yt, w = args
+    T, V, CMAX = cv.shape
+    L, n = instr.shape[1], Xt.shape[1]
+    steps = float(nsteps.to(torch.float64).sum())
+    nc = float(nconst.to(torch.float64).sum())
+    ops3 = (3.0 * steps + 8.0 * T + nc) * V * n
+    bytes3 = 4.0 * (T * L + 2 * T + T * V * CMAX + Xt.shape[0] * n + 2 * n + 2 * T * V
+                    + T * V * CMAX)
+    return bound(ops3, bytes3) + (ops3, bytes3)
+
+
 def phase_opt_kernels(torch, sr, dev):
     """Phase 4: kernels #2 and #3 against their plain versions at the
     constant optimizer's bench shapes."""
@@ -461,40 +569,16 @@ def phase_opt_kernels(torch, sr, dev):
     l1e, v1e = FE.PROGRAM_EVAL(instr, nsteps, cvals, ones, Xt, yt, w, ops, el)
     check("#2 with V = 1 == #1's plain form (bit)", _same(l1[:, 0], l1e) and _same(v1[:, 0], v1e))
 
-    # kernel #3
-    gl, gv, gg = grad(instr, nsteps, nconst, cv_g, Xt, yt, w, ops, el)
-    gl2, gv2, gg2 = grad(instr, nsteps, nconst, cv_g, Xt, yt, w, ops, el)
-    lm, vm = multi(instr, nsteps, cv_g, Xt, yt, w, ops, el)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pl, pv, pg, pabs = FE.program_grad_plain(instr, nsteps, nconst, cv_g, Xt, yt, w, ops, el,
-                                             return_abs=True)
-    torch.cuda.synchronize()
-    plain_ms_grad = (time.perf_counter() - t0) * 1e3
-    check("#3 two launches bit-identical", _same(gl, gl2) and _same(gv, gv2) and _same(gg, gg2))
-    check("#3 validity bit-equal", _same(gv, pv))
-    check("#3 loss == #2's on the same variants (bit)", _same(gl, lm) and _same(gv, vm))
-    same_inf, within, rel3, _ = _close(torch.where(pv, gl, torch.inf),
-                                       torch.where(pv, pl, torch.inf))
-    check(f"#3 loss sum within rtol {RTOL} (max rel err {rel3:.3g})", same_inf and within)
-    # Gradients: a valid pair's gradient is non-finite in the same
-    # components; finite ones agree within 1e-4 of the sum of the absolute
-    # per-row terms (each row's derivative agrees within a few ULP; the
-    # rows are summed in another order and may cancel).
-    live = pv[..., None].expand_as(pg)
-    fin_k, fin_p = torch.isfinite(gg), torch.isfinite(pg)
-    check("#3 gradients non-finite in the same places",
-          bool(torch.equal(fin_k[live], fin_p[live])))
-    both = live & fin_k & fin_p
-    gerr = (gg - pg).abs()[both]
-    gtol = 1e-4 * pabs[both]
-    check(f"#3 gradients within 1e-4 of the absolute row sums (max err / scale "
-          f"{float((gerr / pabs[both].clamp(min=1e-30)).max()):.3g})", bool((gerr <= gtol).all()))
-    abs3 = float(gerr.max()) if gerr.numel() else 0.0
+    # kernel #3, on phase 4's trees and on trees of every launch class
+    gargs = (instr, nsteps, nconst, cv_g, Xt, yt, w)
+    abs3, plain_ms_grad, gvalid = grad_checks(torch, check, "", gargs, ops, el)
+    margs, mops, mel = mixed_grad_inputs(torch, sr, dev)
+    abs3m, plain_ms_mixed, mvalid = grad_checks(torch, check, " (mixed steps)", margs, mops, mel)
+    abs3 = max(abs3, abs3m)
 
     ms_multi = cuda_ms(torch, lambda: multi(instr, nsteps, cv_ls, Xt, yt, w, ops, el), reps=5)
-    ms_grad = cuda_ms(torch, lambda: grad(instr, nsteps, nconst, cv_g, Xt, yt, w, ops, el),
-                      reps=5)
+    ms_grad = cuda_ms(torch, lambda: grad(*gargs, ops, el), reps=5)
+    ms_mixed = cuda_ms(torch, lambda: grad(*margs, mops, mel), reps=5)
     n = N_ROWS
     L, CMAX = instr.shape[1], cvals.shape[1]
     steps = float(nsteps.to(torch.float64).sum())
@@ -502,21 +586,25 @@ def phase_opt_kernels(torch, sr, dev):
     # #2: one operation per step and row, four for the loss term and sum.
     ops2 = (steps + 4.0 * T) * V_ls * n
     bytes2 = 4.0 * (T * L + T + T * V_ls * CMAX + N_FEATURES * n + 2 * n + 2 * T * V_ls)
-    # #3: the forward's, then per step and row the derivative and one more
-    # operation per operand, the loss derivative and the constants' sums.
-    ops3 = (3.0 * steps + 8.0 * T + nc) * R * n
-    bytes3 = 4.0 * (T * L + 2 * T + T * R * CMAX + N_FEATURES * n + 2 * n + 2 * T * R
-                    + T * R * CMAX)
+    b3, by3, ops3, bytes3 = grad_bound(torch, gargs)
+    b3m, by3m, ops3m, bytes3m = grad_bound(torch, margs)
+    mm = margs[1].to(torch.float64)
     b2, by2 = bound(ops2, bytes2)
-    b3, by3 = bound(ops3, bytes3)
     print(f"  {T} trees (mean steps {steps / T:.3f}, mean constants {nc / T:.3f}), {n} rows; "
           f"{int(vk.sum())} of {T * V_ls} line-search pairs valid, "
-          f"{int(gv.sum())} of {T * R} gradient pairs valid")
+          f"{gvalid} of {T * R} gradient pairs valid")
+    print(f"  mixed steps: {mm.numel()} trees (mean steps {float(mm.mean()):.3f}; m <= 4 "
+          f"{int((mm <= 4).sum())}, 5-12 {int(((mm > 4) & (mm <= 12)).sum())}, 13 or more "
+          f"{int((mm > 12).sum())}), {mvalid} of {mm.numel() * R} gradient pairs valid")
     print(f"  #2 program_multi: {ms_multi:.4f} ms{was(multi.name)} (V={V_ls}, CUDA events, "
           f"mean of 5), plain "
           f"{plain_ms_multi:.1f} ms, bound {b2:.4f} ms ({by2}: {ops2:.4g} ops, {bytes2:.4g} B)")
-    print(f"  #3 program_grad: {ms_grad:.4f} ms (V={R}, CUDA events, mean of 5), plain "
+    print(f"  #3 program_grad: {ms_grad:.4f} ms{was(grad.name)} (V={R}, CUDA events, mean of "
+          f"5), plain "
           f"{plain_ms_grad:.1f} ms, bound {b3:.4f} ms ({by3}: {ops3:.4g} ops, {bytes3:.4g} B)")
+    print(f"  #3 program_grad, mixed steps: {ms_mixed:.4f} ms (V={R}, CUDA events, mean of 5), "
+          f"plain {plain_ms_mixed:.1f} ms, bound {b3m:.4f} ms ({by3m}: {ops3m:.4g} ops, "
+          f"{bytes3m:.4g} B)")
     check.raise_if_failed("kernels #2 and #3")
     row = lambda k, err, ms, plain, b, by: {
         "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
@@ -801,7 +889,8 @@ def phase_predict_kernels(torch, sr, dev):
             b5, by5 = bound((3.0 * steps + nc) * n,
                             4.0 * (T * L + 2 * T + 2 * T * CMAX + T * n) + xbytes
                             + (xbytes if per_member else 0.0))
-            print(f"  #4 program_predict: {ms4:.4f} ms (CUDA events, mean of 5), plain "
+            print(f"  #4 program_predict: {ms4:.4f} ms{was(k4.name + ' ' + mode)} (CUDA events, "
+                  f"mean of 5), plain "
                   f"{plain4:.1f} ms, bound {b4:.4f} ms ({by4})")
             print(f"  #5 program_predict_vjp: {ms5:.4f} ms (CUDA events, mean of 5), plain "
                   f"{plain5:.1f} ms, bound {b5:.4f} ms ({by5})")
@@ -1579,7 +1668,9 @@ def main() -> int:
           f"(nvcc {', '.join(f'{cuda_build.build_seconds(f):.2f}' for f in files)} "
           f"s, in parallel)")
     for f, kname in (("program_eval.cu", "program_eval_kernel"),
-                     ("program_multi.cu", "program_multi_kernel")):
+                     ("program_multi.cu", "program_multi_kernel"),
+                     ("program_grad.cu", "program_grad_kernel"),
+                     ("program_predict.cu", "program_predict_kernel")):
         report = ptxas_report(cuda_build.build_log(f), kname)
         if not report:
             raise RuntimeError(f"no ptxas report for {kname} in the build of {f}")

@@ -2,14 +2,17 @@
 
     python -m symbolicregression_jl_tpu_torch.bench.kernel_turns DIR_A DIR_B [--rounds N]
 
-Runs each checkout's ``chip_smoke.py`` phases 3, 4, 12 and 16 (kernel #1's
-cost form, #2 and #3, #1p, and the bf16 forms 1b and 2b, each held against
-its plain version and timed with CUDA events on the inputs those phases
-build) in fresh processes, in the order A, B, B, A for each round, and
-prints every line they print with the checkout it came from, then each
-kernel's times side by side. Each checkout builds its kernels into its own
-``build/`` on first use. A is usually the parent (``git archive`` of it)
-and B the change. Needs a CUDA device.
+Runs ``chip_smoke.py`` phases 3, 4, 12, 16 and 8 (kernel #1's cost form,
+#2 and #3 (#3 also on trees of mixed step counts), #1p, the bf16 forms 1b
+and 2b, and #4 and #5 with shared and per-member X, each held against its
+plain version and timed with CUDA events on the inputs those phases build)
+on each checkout's package in fresh processes, in the order A, B, B, A for
+each round, and prints every line they print with the checkout it came
+from, then each kernel's times side by side. Both sides run the phases of
+B's ``chip_smoke.py``, so both get the same inputs and checks. Each
+checkout builds its kernels into its own ``build/`` on first use. A is
+usually the parent (``git archive`` of it) and B the change. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -20,23 +23,33 @@ import re
 import subprocess
 import sys
 
-_PHASES = ("phase_kernel", "phase_opt_kernels", "phase_param_kernel", "phase_bf16_kernels")
+_PHASES = ("phase_kernel", "phase_opt_kernels", "phase_param_kernel", "phase_bf16_kernels",
+           "phase_predict_kernels")
 
 # The line each phase prints for a kernel's time: (kernel, pattern).
 _TIMES = (
     ("program_eval (#1, cost form)", r"^  kernel ([\d.]+) ms"),
     ("program_multi (#2)", r"#2 program_multi: ([\d.]+) ms"),
     ("program_grad (#3)", r"#3 program_grad: ([\d.]+) ms"),
+    ("program_grad (#3, mixed steps)", r"#3 program_grad, mixed steps: ([\d.]+) ms"),
     ("program_eval_param (#1p)", r"#1p program_eval_param: ([\d.]+) ms"),
     ("program_eval_bf16 (1b, cost form)", r"1b program_eval_bf16 \(.*\): ([\d.]+) ms"),
     ("program_eval_param_bf16 (1b parametric)", r"1b program_eval_param_bf16 \(.*\): ([\d.]+) ms"),
     ("program_multi_bf16 (2b)", r"2b program_multi_bf16 \(.*\): ([\d.]+) ms"),
+    ("program_predict (#4, {X} X)", r"#4 program_predict: ([\d.]+) ms"),
+    ("program_predict_vjp (#5, {X} X)", r"#5 program_predict_vjp: ([\d.]+) ms"),
 )
+# Phase 8 prints "  shared X (F = 1): ..." or "  per-member X (F = 2): ..."
+# before each input's #4 and #5 times; {X} in a kernel's label is that input.
+_X_INPUT = r"^  (shared|per-member) X \(F = \d+\)"
 
 
-def run_side(root: pathlib.Path) -> str:
-    """One fresh process in ``root`` running the four phases; its output."""
-    code = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke as C; "
+def run_side(root: pathlib.Path, smoke: pathlib.Path) -> str:
+    """One fresh process in ``root`` running the phases of the
+    ``chip_smoke.py`` at ``smoke`` on ``root``'s package; its output."""
+    code = ("import sys, torch, importlib.util as u; sys.path.insert(0, '.'); "
+            f"s = u.spec_from_file_location('chip_smoke', {str(smoke.resolve())!r}); "
+            "C = u.module_from_spec(s); s.loader.exec_module(C); "
             "import symbolicregression_jl_tpu_torch as sr; dev = torch.device('cuda'); "
             + "; ".join(f"print('[{p}]', flush=True); C.{p}(torch, sr, dev)" for p in _PHASES))
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True)
@@ -56,13 +69,18 @@ def main() -> int:
     times = {}
     for rnd in range(args.rounds):
         for side, root in (("A", args.a), ("B", args.b), ("B", args.b), ("A", args.a)):
-            out = run_side(root)
+            out = run_side(root, args.b / "chip_smoke.py")
+            x_input = ""
             for line in out.splitlines():
                 print(f"{side}{rnd} {line}")
+                m = re.search(_X_INPUT, line)
+                if m:
+                    x_input = m.group(1)
                 for kernel, pattern in _TIMES:
                     m = re.search(pattern, line)
                     if m:
-                        times.setdefault(kernel, {"A": [], "B": []})[side].append(float(m.group(1)))
+                        label = kernel.format(X=x_input)
+                        times.setdefault(label, {"A": [], "B": []})[side].append(float(m.group(1)))
     for kernel, by in times.items():
         a, b = by["A"], by["B"]
         ratio = (sum(a) / len(a)) / (sum(b) / len(b)) if a and b else float("nan")

@@ -1,7 +1,8 @@
 """Where one engine iteration spends its time on the GPU.
 
     python -m symbolicregression_jl_tpu_torch.bench.profile_iteration [--ncycles N]
-        [--no-optimizer] [--template | --parametric | [--staged] [--bf16]]
+        [--no-optimizer] [--template | --template-optimizer | --parametric |
+        [--staged] [--bf16]]
 
 Builds the headline configuration (512 islands x 256 members, 10,000 rows
 x 5 features, maxsize 30, the constant optimizer on unless
@@ -9,7 +10,9 @@ x 5 features, maxsize 30, the constant optimizer on unless
 package's bench/cell.py FULL, variant "template": 512 islands x 256
 members, 10,000 rows x 2 features from seed 1234, + - * cos, structure
 f(x1) * f(x1) + g(x2), optimizer_probability 0) or, with
-``--parametric``, the parametric cell (the same cell with variant
+``--template-optimizer``, chip_smoke.py phase 10's template optimizer
+(the same cell at 64 islands with the default optimizer_probability) or,
+with ``--parametric``, the parametric cell (the same cell with variant
 "parametric": class = integers(0, 3) from the same generator, y =
 amp[class] cos(x1) + x2, max_parameters 1, optimizer_probability 0) or,
 with ``--staged`` and/or ``--bf16``, the graftstage cells (the same cell
@@ -24,8 +27,10 @@ bf16 forms apart), the device's busy and idle shares, the
 number of kernel launches, each named range (``sr:constant_optimizer``,
 ``sr:template_eval``: its span on the device summed over its occurrences,
 the device time of the port's kernels in it, that of the eager ops in it
-and the idle rest), the trees per launch of each of the port's kernels
-in the profiled iteration, and the ten kernels with the most device time.
+and the idle rest), the trees per launch and the mean steps per tree of
+each of the port's kernels in the profiled iteration (and for #3 the
+share of trees in each step-count class of csrc/program_grad.cu), and the
+ten kernels with the most device time.
 Needs a CUDA device.
 """
 
@@ -103,6 +108,8 @@ def main() -> int:
     cell = ap.add_mutually_exclusive_group()
     cell.add_argument("--template", action="store_true",
                       help="profile the template-expression cell instead")
+    cell.add_argument("--template-optimizer", action="store_true",
+                      help="profile the template cell's constant optimizer (64 islands)")
     cell.add_argument("--parametric", action="store_true",
                       help="profile the parametric-expression cell instead")
     ap.add_argument("--staged", action="store_true",
@@ -111,8 +118,8 @@ def main() -> int:
                     help='profile the plain cell with eval_precision="bf16" (graftstage)')
     args = ap.parse_args()
     stage = args.staged or args.bf16
-    if stage and (args.template or args.parametric):
-        ap.error("--staged and --bf16 profile the plain cell, not --template or --parametric")
+    if stage and (args.template or args.template_optimizer or args.parametric):
+        ap.error("--staged and --bf16 profile the plain cell, not a template or parametric one")
     if not torch.cuda.is_available():
         print("profile_iteration: needs a CUDA device", file=sys.stderr)
         return 2
@@ -120,16 +127,17 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip())
-    if args.template:
+    if args.template or args.template_optimizer:
         from symbolicregression_jl_tpu_torch.models import template_spec
 
         spec = template_spec(expressions=("f", "g"))(lambda f, g, x1, x2: f(x1) * f(x1) + g(x2))
+        opt = {} if args.template_optimizer else {"optimizer_probability": 0.0}
         options = sr.Options(
             binary_operators=["+", "-", "*"], unary_operators=["cos"], maxsize=30,
-            populations=512, population_size=256, tournament_selection_n=16,
-            ncycles_per_iteration=args.ncycles, optimizer_probability=0.0,
+            populations=64 if args.template_optimizer else 512, population_size=256,
+            tournament_selection_n=16, ncycles_per_iteration=args.ncycles,
             should_optimize_constants=not args.no_optimizer, expression_spec=spec,
-            save_to_file=False)
+            save_to_file=False, **opt)
         X, y = template_data()
     elif args.parametric:
         options = sr.Options(
@@ -164,7 +172,7 @@ def main() -> int:
 
     # Trees per launch: each wrapper class that defines __call__ records its
     # first argument's rows (instr [T, L]) by kernel name for this iteration.
-    trees = {}
+    trees, steps = {}, {}
     wrapped = [c for c in {type(getattr(FE, n)) for n in FE.__all__ if n.isupper()}
                for c in c.__mro__ if "__call__" in c.__dict__ and c.__module__ == FE.__name__]
     originals = {c: c.__dict__["__call__"] for c in set(wrapped)}
@@ -172,6 +180,7 @@ def main() -> int:
     def recording(orig):
         def call(self, *a, **kw):
             trees.setdefault(self.name, []).append(int(a[0].shape[0]))
+            steps.setdefault(self.name, []).append(a[1])   # nsteps, read after the profile
             return orig(self, *a, **kw)
         return call
 
@@ -194,7 +203,8 @@ def main() -> int:
     spans = [e for e in events if e.name.startswith("sr:")]
     kernels = [e for e in events if e.device_time_total > 0 and not e.name.startswith("sr:")]
     device_us = sum(e.device_time_total for e in kernels)
-    cell_name = ("template" if args.template else "parametric" if args.parametric
+    cell_name = ("template" if args.template else "template optimizer"
+                 if args.template_optimizer else "parametric" if args.parametric
                  else "plain" + "-staged" * args.staged + "-bf16" * args.bf16 if stage
                  else "headline")
     print(f"{cell_name} cell, ncycles_per_iteration "
@@ -211,8 +221,14 @@ def main() -> int:
               f"({us / max(device_us, 1):.1%} of device time)")
     for kname, sizes in sorted(trees.items()):
         sizes = sorted(sizes)
+        m = torch.cat(steps[kname]).to(torch.float64)
         print(f"{kname}: {len(sizes)} calls, trees per call min {sizes[0]}, median "
-              f"{sizes[len(sizes) // 2]}, max {sizes[-1]}, total {sum(sizes)}")
+              f"{sizes[len(sizes) // 2]}, max {sizes[-1]}, total {sum(sizes)}; mean steps per "
+              f"tree {float(m.mean()):.3f}")
+        if kname == "program_grad":
+            print(f"  program_grad trees by step count: <= 4 {float((m <= 4).double().mean()):.1%}, "
+                  f"5-12 {float(((m > 4) & (m <= 12)).double().mean()):.1%}, > 12 "
+                  f"{float((m > 12).double().mean()):.1%}")
     for name in sorted({e.name for e in spans}):
         # Every occurrence of a named range: its span on the device, the
         # port's kernels and the other (eager) kernels inside it, the idle rest.

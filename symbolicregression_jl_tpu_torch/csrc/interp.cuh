@@ -5,8 +5,8 @@
 // this header, so all five compute every forward step, every elementwise
 // loss and every row reduction with the same code: a (tree, constant
 // vector) pair gives the same bits in each of them. The value buffer's
-// storage is a template parameter (RowBufT<S>): float for #1-#5, bf16 for
-// the bf16 forms of #1 and #2 (1b and 2b), which compute in float too.
+// storage is a template parameter: float for #1-#5, bf16 for the bf16
+// forms of #1 and #2 (1b and 2b), which compute in float too.
 //
 // Instruction word: sign << 30 | code << 24 | src1 << 12 | src2, decoded
 // as the JAX package's `_fwd_dispatch` decodes it. `optab[code]` maps
@@ -279,18 +279,21 @@ __device__ __forceinline__ void block_sum(float* sred, float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Tile interpreter of kernels #1 and #2 (program_eval.cu, program_multi.cu)
+// Tile interpreter of kernels #1-#4 (program_eval.cu, program_multi.cu,
+// program_grad.cu, program_predict.cu)
 // ---------------------------------------------------------------------------
 //
-// A block owns one tree and, for kernel #2, all of the tree's constant
-// vectors. It decodes the tree's m instruction words once into a table of
-// resolved steps in shared memory (decode_tile_program); each thread then
-// carries TILE_ROWS rows through every step (run_tile), so one table read,
-// one operator dispatch and one operand address serve TILE_ROWS
-// independent evaluations; every step is warp-uniform. Kernel #2 runs its
-// vectors in turn on each tile of rows, so the tile's X, y and w are read
-// from L2 once for all of them. The per-row loop above (run_steps) is kept
-// for kernels #3-#5.
+// A block owns one tree and, for kernels #2 and #3, all of the tree's
+// constant vectors. It decodes the tree's m instruction words once into a
+// table of resolved steps in shared memory (decode_tile_program); each
+// thread then carries TILE_ROWS rows through every step (run_tile), so one
+// table read, one operator dispatch and one operand address serve
+// TILE_ROWS independent evaluations; every step is warp-uniform. Kernels
+// #2 and #3 run their vectors in turn on each tile of rows, so the tile's
+// X, y and w are read from L2 once for all of them. Kernel #3 adds a
+// reverse sweep over a second decoded table (program_grad.cu). The
+// per-row loop above (run_steps, forward_row, RowBufT) is kept for kernel
+// #5 only.
 //
 // The fixed lane order. Every (tree, constant vector) sum keeps the order
 // of the per-row loop with block_sum: W reduction lanes; lane j sums
@@ -302,9 +305,10 @@ __device__ __forceinline__ void block_sum(float* sred, float v) {
 // TILE_ROWS * i ... TILE_ROWS * i + TILE_ROWS - 1, a tile is W consecutive
 // rows (one row of each lane) and the tiles run in row order. Two bit
 // checks rest on this order: kernel #2 with one constant vector equals #1's
-// plain form (both run tree_loss_sums), and kernel #3's loss, which
-// program_grad.cu computes with forward_row and block_sum at the same W,
-// equals #2's on the same constant vectors.
+// plain form (both run tree_loss_sums), and kernel #3's loss, whose lanes
+// sum the same terms in the same order at the same W (its gradient lanes
+// sum each constant's cotangents so too), equals #2's on the same constant
+// vectors. Kernel #4 sums nothing, so it has no lane order.
 //
 // The value buffer of a tile is [R + tile_slots(L)][W] in the storage
 // type: R per-row rows (the X features, then the parametric form's
@@ -347,7 +351,8 @@ struct alignas(sizeof(S) * K) RowPack {
 __host__ __device__ constexpr size_t align_up(size_t at, size_t a) { return (at + a - 1) / a * a; }
 
 // Byte offsets of a tile block's dynamic shared memory, for passes of
-// `vch` constant vectors.
+// `vch` constant vectors (kernel #4: one vector, its row of lane sums
+// unused).
 struct TileLayout {
   size_t stab, sv, sacc, sc, sbank, sok, sflag, slast, sfree, total;
 };
@@ -389,20 +394,27 @@ __device__ __forceinline__ int operand_desc(int a, int u, int R, int base, int z
   return ((R + sflag[j]) * W) << 2 | OPD_ROW;
 }
 
-// Decodes the tree's m words into `stab` [m]. Scratch: `slast` [m] (each
-// step's last reader later than the next step, -1: none), `sflag` [m] (the
-// row a step's result is held in, -1: not held), `sfree` [tile_slots(L)]
-// (the step after which a row is free). Every thread of the block calls
-// it; it ends with a barrier.
-__device__ void decode_tile_program(const int* __restrict__ words, int m,
-                                    const int* __restrict__ optab, int code_mask, int sign_shift,
-                                    int R, int CMAX, int L, int W, int* sflag, int* slast,
-                                    int* sfree, int4* stab) {
+// The resolved op of an optab entry (see OPX_ADDSUB).
+__device__ __forceinline__ int tile_op(int entry) {
+  const int kind = entry >> 8;
+  const int id = entry & 0xFF;
+  if (kind == K_ADDSUB) return OPX_ADDSUB;
+  if (kind == K_BINARY) return id < 16 ? id : OPX_NAN;
+  if (kind == K_UNARY) return (id >= U_EXP && id <= U_SIGN) ? id : OPX_NAN;
+  return OPX_IDENT;
+}
+
+// Rows by liveness for the tree's m words (buffer addresses base.. of its
+// steps, zero_addr of the zero row): `slast` [m] gets each step's last
+// reader later than the next step (-1: none), `sflag` [m] the row of
+// `nslot` its result is held in (-1: not held); `sfree` [nslot] is
+// scratch (the step after which a row is free). Every thread of the block
+// calls it; it ends with a barrier.
+__device__ void tile_liveness(const int* __restrict__ words, int m,
+                              const int* __restrict__ optab, int code_mask, int base,
+                              int zero_addr, int nslot, int* sflag, int* slast, int* sfree) {
   const int tid = threadIdx.x;
   const int P = blockDim.x;
-  const int base = R + CMAX;
-  const int zero_addr = base + L;
-  const int nslot = tile_slots(L);
   for (int u = tid; u < m; u += P) slast[u] = -1;
   for (int i = tid; i < nslot; i += P) sfree[i] = -1;
   __syncthreads();
@@ -414,9 +426,8 @@ __device__ void decode_tile_program(const int* __restrict__ words, int m,
   }
   __syncthreads();
   if (tid == 0) {
-    // Rows by liveness: step u's result takes a row whose holder's last
-    // reader is u or earlier (operands are read before the result is
-    // stored).
+    // Step u's result takes a row whose holder's last reader is u or
+    // earlier (operands are read before the result is stored).
     for (int u = 0; u < m; ++u) {
       sflag[u] = -1;
       if (slast[u] < 0) continue;
@@ -428,21 +439,29 @@ __device__ void decode_tile_program(const int* __restrict__ words, int m,
     }
   }
   __syncthreads();
-  for (int u = tid; u < m; u += P) {
+}
+
+// Decodes the tree's m words into `stab` [m], held results in the rows
+// tile_liveness gives them. Scratch: `slast` and `sflag` [m], `sfree`
+// [tile_slots(L)]. Every thread of the block calls it; it ends with a
+// barrier.
+__device__ void decode_tile_program(const int* __restrict__ words, int m,
+                                    const int* __restrict__ optab, int code_mask, int sign_shift,
+                                    int R, int CMAX, int L, int W, int* sflag, int* slast,
+                                    int* sfree, int4* stab) {
+  const int base = R + CMAX;
+  const int zero_addr = base + L;
+  tile_liveness(words, m, optab, code_mask, base, zero_addr, tile_slots(L), sflag, slast, sfree);
+  for (int u = threadIdx.x; u < m; u += blockDim.x) {
     const int word = words[u];
     const int entry = optab[(word >> 24) & code_mask];
     const int kind = entry >> 8;
-    const int id = entry & 0xFF;
-    int op;
-    if (kind == K_ADDSUB) op = OPX_ADDSUB;
-    else if (kind == K_BINARY) op = id < 16 ? id : OPX_NAN;
-    else if (kind == K_UNARY) op = (id >= U_EXP && id <= U_SIGN) ? id : OPX_NAN;
-    else op = OPX_IDENT;
     const bool two = kind == K_BINARY || kind == K_ADDSUB;
     const int d1 = operand_desc((word >> 12) & 0xFFF, u, R, base, zero_addr, CMAX, W, sflag);
     const int d2 = two ? operand_desc(word & 0xFFF, u, R, base, zero_addr, CMAX, W, sflag) : 0;
     const int sign = (word >> sign_shift) & 1;
-    stab[u] = make_int4(op | sign << 8, d1, d2, sflag[u] >= 0 ? (R + sflag[u]) * W : -1);
+    stab[u] = make_int4(tile_op(entry) | sign << 8, d1, d2,
+                        sflag[u] >= 0 ? (R + sflag[u]) * W : -1);
   }
   __syncthreads();
 }

@@ -6,28 +6,53 @@
 // loss_sum[t, v] and valid[t, v] and the gradient of loss_sum with respect
 // to the tree's constants, gcomp[t, v, c] for c < nconst[t] (0 past it).
 //
-// Per row: the forward sweep of interp.cuh (kernel #2's code, so the loss
-// is bit-equal to kernel #2's), the loss cotangent seeded with the row's
+// Per row: the forward sweep (kernel #2's arithmetic, so the loss is
+// bit-equal to kernel #2's), the loss cotangent seeded with the row's
 // weight and zeroed where w <= 0, then a reverse sweep over the steps that
-// mirrors the JAX package's `_bwd_dispatch`: step k's cotangent sits in
-// adj[BASE + k]; its operands' cotangents are stored at their addresses
-// with plain stores. Every node has one parent, so each adjoint slot is
-// written once per row; two operands of one step collide only in the X
-// region, which is never read, and the identity steps' zero-row adjoint
-// is written and never read. The constants' adjoints (adj[F + c]) are
-// added into a per-thread sum in a fixed order, and the block reduces each
-// with a fixed-order tree: no float atomics. Weight-0 rows are not masked
-// (their cotangent is exactly 0 and 0 * inf is NaN inside an operator's
-// derivative, as in the JAX package); the wrapper zeroes non-finite
-// gradients.
+// mirrors the JAX package's `_bwd_dispatch`. Every node has one parent, so
+// each step's cotangent is written once per row and each constant slot has
+// one reader: the constant's cotangent adds straight into its row's
+// per-lane gradient sum. X's and the zero row's cotangents are never read,
+// so they are not kept. Weight-0 rows are not masked (their cotangent is
+// exactly 0 and 0 * inf is NaN inside an operator's derivative, as in the
+// JAX package); the wrapper zeroes non-finite gradients.
 //
-// Design. One CTA per (tree, variant) pair. Shared memory per block:
-// (F + L) value rows, (F + CMAX + L + 1) adjoint rows and CMAX gradient
-// rows, each one float per thread, plus the words and constants: 104 KB
-// at the bench shapes (F 5, CMAX 15, L 30) with 256 threads, so two
-// blocks fit on an SM. What bounds it on the H100 is again FP32 ALU and
-// SFU work, about three times kernel #2's per pair (forward, derivative,
-// adjoint stores); making it fast is later work.
+// Design. One CTA per tree, which owns all V of the tree's constant
+// vectors, on the tile interpreter of interp.cuh: the block decodes the
+// tree's words once into a forward table and a reverse table
+// (decode_grad_program), then walks the rows in tiles of W (W / GRAD_ROWS
+// threads, GRAD_ROWS rows each); on each tile it runs the vectors of a
+// pass in turn, so the tile's X, y and w are read from L2 once per pass,
+// not once per pair. For each vector run_tile stores every
+// step value the reverse sweep reads in the step's own row, the root stays
+// in registers for the loss and its cotangent, and run_tile_reverse walks
+// the steps back with the cotangent of step k - 1 in registers and the
+// others in adjoint rows reused by liveness. Each lane's loss terms and
+// constant cotangents add in row order into per-lane float sums in shared
+// memory (one row for the loss and one per constant, for each vector of
+// the pass); the block sums each with lane_tree_sum, block_sum's pairing.
+// W is the lane count the per-row layout gave (sr_program_grad_smem, the
+// wrapper's `_block`), so every sum keeps the order of the per-row kernel
+// this replaced: lane j sums rows j, j + W, ... from 0.0f. Hence the loss
+// equals kernel #2's at the same W bit for bit, and loss, valid and gcomp
+// equal the per-row kernel's.
+//
+// Shared memory against occupancy. A block's rows grow with its tree:
+// F + m - 1 value rows, up to tile_slots adjoint rows and 1 + nc rows of
+// sums per vector of a pass, W floats each. Sized for the longest program
+// (L 30 at the bench shapes: 61 KB at W 256) every block would fit three
+// to an SM, though most trees are short. So one call launches the kernel once per class of
+// step counts (GRAD_STEP_CAPS: m <= 4, 5-12, longer), each launch with its
+// class's shared memory and its blocks for the other classes' trees
+// returning at once: 17 KB for the short class (eight blocks of 128
+// threads per SM, as many as the registers allow), 39 KB and 61 KB for the
+// others. A tree with few constants runs several vectors per pass.
+//
+// What bounds it on the H100: FP32 ALU and SFU work, the forward's and the
+// derivatives' instructions per (step, row) and per pair, plus the
+// shared-memory traffic of the stored values, adjoints and sums. X (200 KB
+// at the bench shapes) stays in L2; device-memory traffic is the words,
+// the constant vectors and the gradients.
 
 #include "interp.cuh"
 
@@ -35,8 +60,239 @@ using namespace sr;
 
 namespace {
 
-template <int LOSS>
-__global__ void program_grad_kernel(
+// The reverse table (decode_grad_program): for step u, x = op | sign << 8
+// | (slot + 1) << 9, slot the adjoint row its cotangent waits in (-1: it
+// arrives in registers from step u + 1, or is the root's seed); y and z
+// the operands' values as value_desc gives them; w = dest1 | dest2 << 16,
+// where each operand's cotangent goes: CTD_NEXT the registers of step
+// u - 1 (the operand is step u - 1, the last of u's operands in
+// post-order), CTD_ADJ | slot << 2 an adjoint row (an earlier step, in its
+// liveness row: its cotangent is written at u and read at the step itself,
+// the interval it was held over in the forward sweep), CTD_CONST | c << 2
+// constant c's gradient accumulator (c < nc; each constant slot has one
+// reader), CTD_NONE nowhere (X, the zero row, constants past nc).
+enum : int { CTD_NONE = 0, CTD_NEXT = 1, CTD_ADJ = 2, CTD_CONST = 3 };
+
+// The operand at buffer address `a` as the reverse sweep reads it: as
+// operand_desc gives it, but a step's result in its own row R + j.
+__device__ __forceinline__ int value_desc(int a, int R, int base, int zero_addr, int CMAX, int W) {
+  if (a < R) return (a * W) << 2 | OPD_ROW;
+  if (a < base) return (a - R) << 2 | OPD_CONST;
+  if (a >= zero_addr) return CMAX << 2 | OPD_CONST;
+  return ((R + a - base) * W) << 2 | OPD_ROW;
+}
+
+// Where step u sends the cotangent of its operand at address `a` (see
+// CTD_NONE).
+__device__ __forceinline__ int ct_dest(int a, int u, int R, int base, int zero_addr, int nc,
+                                       const int* sflag) {
+  if (a < R || a >= zero_addr) return CTD_NONE;
+  if (a < base) return a - R < nc ? (a - R) << 2 | CTD_CONST : CTD_NONE;
+  const int j = a - base;
+  if (j == u - 1) return CTD_NEXT;
+  if (j > u - 1 || sflag[j] < 0) __trap();   // not a tree's post-order program
+  return sflag[j] << 2 | CTD_ADJ;
+}
+
+// Decodes the tree's m words into the forward table `stab` [m] (as
+// decode_tile_program does, but every step result that the reverse sweep
+// reads, as an operand of a binary or unary step, or that a later step
+// reads is stored in its own row R + u) and the reverse table `rtab` [m]
+// (see CTD_NONE), whose adjoint rows are the liveness rows tile_liveness
+// gives (`nslot` of them). `nc` is the tree's constant count. Scratch:
+// `sflag`, `slast` and `sneed` [m], `sfree` [nslot]. Every thread of the
+// block calls it; it ends with a barrier. Kept out of line: inlined, it
+// shifts the kernel's register allocation and made #3 9-13% slower on the
+// H100 (PERF.md section 6).
+__device__ __noinline__ void decode_grad_program(const int* __restrict__ words, int m,
+                                    const int* __restrict__ optab, int code_mask, int sign_shift,
+                                    int R, int CMAX, int L, int W, int nc, int nslot, int* sflag,
+                                    int* slast, int* sneed, int* sfree, int4* stab, int4* rtab) {
+  const int tid = threadIdx.x;
+  const int P = blockDim.x;
+  const int base = R + CMAX;
+  const int zero_addr = base + L;
+  for (int u = tid; u < m; u += P) sneed[u] = 0;
+  tile_liveness(words, m, optab, code_mask, base, zero_addr, nslot, sflag, slast, sfree);
+  for (int u = tid; u < m; u += P) {
+    const int word = words[u];
+    const int kind = optab[(word >> 24) & code_mask] >> 8;
+    const int a1 = (word >> 12) & 0xFFF, a2 = word & 0xFFF;
+    if (kind == K_BINARY || kind == K_UNARY) {
+      if (a1 >= base && a1 < zero_addr) sneed[a1 - base] = 1;
+      if (kind == K_BINARY && a2 >= base && a2 < zero_addr) sneed[a2 - base] = 1;
+    }
+  }
+  __syncthreads();
+  for (int u = tid; u < m; u += P) {
+    const int word = words[u];
+    const int entry = optab[(word >> 24) & code_mask];
+    const int kind = entry >> 8;
+    const bool two = kind == K_BINARY || kind == K_ADDSUB;
+    const int a1 = (word >> 12) & 0xFFF, a2 = word & 0xFFF;
+    const int c1 = ct_dest(a1, u, R, base, zero_addr, nc, sflag);
+    const int c2 = two ? ct_dest(a2, u, R, base, zero_addr, nc, sflag) : CTD_NONE;
+    const int v1 = value_desc(a1, R, base, zero_addr, CMAX, W);
+    const int v2 = two ? value_desc(a2, R, base, zero_addr, CMAX, W) : 0;
+    const int op = tile_op(entry) | ((word >> sign_shift) & 1) << 8;
+    // Forward operands: the previous step's result from registers.
+    stab[u] = make_int4(op, (c1 & 3) == CTD_NEXT ? OPD_PREV : v1,
+                        (c2 & 3) == CTD_NEXT ? OPD_PREV : v2,
+                        (sneed[u] || slast[u] >= 0) ? (R + u) * W : -1);
+    rtab[u] = make_int4(op | (sflag[u] + 1) << 9, v1, v2, c1 | c2 << 16);
+  }
+  __syncthreads();
+}
+
+// Sends one operand's cotangents on (see CTD_NONE): into `next` (step
+// u - 1's), the thread's column of an adjoint row of `adj`, or constant
+// c's gradient accumulator row of `gacc`, on the first `live` rows only
+// (the thread's rows below n).
+template <int K>
+__device__ __forceinline__ void route_ct(int dest, const float (&d)[K], float (&next)[K],
+                                         float* adj, float* gacc, int W, int live) {
+  const int kind = dest & 3;
+  if (kind == CTD_NEXT) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) next[k] = d[k];
+  } else if (kind == CTD_ADJ) {
+    RowPack<float, K> p;
+#pragma unroll
+    for (int k = 0; k < K; ++k) p.v[k] = d[k];
+    *reinterpret_cast<RowPack<float, K>*>(adj + (dest >> 2) * W) = p;
+  } else if (kind == CTD_CONST) {
+    RowPack<float, K>* at = reinterpret_cast<RowPack<float, K>*>(gacc + (dest >> 2) * W);
+    RowPack<float, K> g = *at;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (k < live) g.v[k] = __fadd_rn(g.v[k], d[k]);
+    }
+    *at = g;
+  }
+}
+
+// The reverse sweep over the table `rtab` (decode_grad_program), after
+// run_tile stored the values it reads in `col`: the thread's K rows enter
+// with the root's cotangents in `ct`; each step, last to first, takes its
+// cotangents (from the registers, or from its adjoint row of `adj`, the
+// thread's column), computes its operands' cotangents with vjp_binary /
+// vjp_unary, as the per-row sweep of the JAX package's `_bwd_dispatch`
+// does, and routes them (route_ct). Each constant's cotangent adds into its
+// row of `gacc` (the thread's column of one constant vector's gradient
+// accumulators) on the `live` rows. X's and the zero row's cotangents are
+// not kept.
+template <typename S, int K>
+__device__ __forceinline__ void run_tile_reverse(const int4* __restrict__ rtab, int m, const S* col,
+                                                 const S* cv, float* adj, float* gacc, int W,
+                                                 int live, float (&ct)[K]) {
+  const float none[K] = {};
+  for (int s = m - 1; s >= 0; --s) {
+    const int4 e = rtab[s];
+    const int slot = (e.x >> 9) - 1;
+    if (slot >= 0) {
+      const RowPack<float, K> p = *reinterpret_cast<const RowPack<float, K>*>(adj + slot * W);
+#pragma unroll
+      for (int k = 0; k < K; ++k) ct[k] = p.v[k];
+    }
+    float a[K], b[K], d1[K], d2[K];
+#define SR_REV_BIN(ID)                                                          \
+  case ID:                                                                      \
+    tile_operand<S, K>(e.y, col, cv, none, a);                                  \
+    tile_operand<S, K>(e.z, col, cv, none, b);                                  \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) vjp_binary(ID, a[k], b[k], ct[k], d1[k], d2[k]); \
+    break;
+#define SR_REV_UN(ID)                                                          \
+  case ID:                                                                     \
+    tile_operand<S, K>(e.y, col, cv, none, a);                                 \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) d1[k] = vjp_unary(ID, a[k], ct[k]); \
+    break;
+    switch (e.x & 0xFF) {
+      case OPX_ADDSUB: {
+        const float sg = (e.x & 0x100) ? -1.0f : 1.0f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          d1[k] = ct[k];
+          d2[k] = __fmul_rn(sg, ct[k]);
+        }
+        break;
+      }
+      case OPX_IDENT:
+#pragma unroll
+        for (int k = 0; k < K; ++k) d1[k] = ct[k];
+        break;
+      SR_REV_BIN(B_ADD) SR_REV_BIN(B_SUB) SR_REV_BIN(B_MUL) SR_REV_BIN(B_DIV)
+      SR_REV_BIN(B_POW) SR_REV_BIN(B_MOD) SR_REV_BIN(B_MAX) SR_REV_BIN(B_MIN)
+      SR_REV_BIN(B_ATAN2) SR_REV_BIN(B_GT) SR_REV_BIN(B_LT) SR_REV_BIN(B_GE)
+      SR_REV_BIN(B_LE) SR_REV_BIN(B_COND) SR_REV_BIN(B_OR) SR_REV_BIN(B_AND)
+      SR_REV_UN(U_EXP) SR_REV_UN(U_ABS) SR_REV_UN(U_LOG) SR_REV_UN(U_LOG2)
+      SR_REV_UN(U_LOG10) SR_REV_UN(U_LOG1P) SR_REV_UN(U_SQRT) SR_REV_UN(U_CBRT)
+      SR_REV_UN(U_SIN) SR_REV_UN(U_COS) SR_REV_UN(U_TAN) SR_REV_UN(U_SINH)
+      SR_REV_UN(U_COSH) SR_REV_UN(U_TANH) SR_REV_UN(U_ASIN) SR_REV_UN(U_ACOS)
+      SR_REV_UN(U_ATAN) SR_REV_UN(U_ASINH) SR_REV_UN(U_ACOSH) SR_REV_UN(U_ATANH)
+      SR_REV_UN(U_ATANH_CLIP) SR_REV_UN(U_ERF) SR_REV_UN(U_ERFC) SR_REV_UN(U_GAMMA)
+      SR_REV_UN(U_SQUARE) SR_REV_UN(U_CUBE) SR_REV_UN(U_NEG) SR_REV_UN(U_INV)
+      SR_REV_UN(U_RELU) SR_REV_UN(U_ROUND) SR_REV_UN(U_FLOOR) SR_REV_UN(U_CEIL)
+      SR_REV_UN(U_SIGN)
+      default:   // OPX_NAN: vjp_binary's and vjp_unary's zero for an unknown id
+#pragma unroll
+        for (int k = 0; k < K; ++k) d1[k] = d2[k] = 0.0f;
+    }
+#undef SR_REV_BIN
+#undef SR_REV_UN
+    float next[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) next[k] = ct[k];
+    route_ct<K>(e.w & 0xFFFF, d1, next, adj, gacc, W, live);
+    route_ct<K>(e.w >> 16, d2, next, adj, gacc, W, live);
+#pragma unroll
+    for (int k = 0; k < K; ++k) ct[k] = next[k];
+  }
+}
+
+// The launches of one call, by the trees' step counts m: class i takes the
+// trees with GRAD_STEP_CAPS[i - 1] < m <= GRAD_STEP_CAPS[i] (the last class
+// every m up to L), each with the shared memory its largest tree needs, so
+// the many small trees run more blocks per SM than the few large ones.
+constexpr int GRAD_STEP_CAPS[] = {4, 12};
+
+// Rows each thread carries (W / GRAD_ROWS threads a block): two, not the
+// forward kernels' TILE_ROWS, because the reverse sweep's values and
+// dispatch need more registers per row, and more threads on fewer rows
+// each hide the shared-memory latency better. The register cap gives
+// GRAD_MIN_BLOCKS blocks per SM.
+constexpr int GRAD_ROWS = 2;
+constexpr int GRAD_MIN_BLOCKS = 8;
+
+// The shared memory of a class whose trees have at most `mhi` steps: its
+// tables, value and adjoint rows, and `acc` rows of W float sums.
+struct GradLayout {
+  int nslot, acc;
+  size_t stab, rtab, sv, sadj, sacc, sc, sok, sflag, slast, sneed, sfree, total;
+};
+
+__host__ __device__ inline GradLayout grad_layout(int W, int mhi, int L, int CMAX, int F) {
+  GradLayout o;
+  // A tree of m steps has at most 2m + 1 nodes, so it holds at most
+  // tile_slots(2m + 1) results at once and has at most m + 1 constants.
+  o.nslot = tile_slots(min(L, 2 * mhi + 1));
+  o.acc = 1 + min(CMAX, mhi + 1);   // the loss and every constant of one vector
+  o.stab = 0;                                                      // int4 [mhi] forward
+  o.rtab = o.stab + 16 * (size_t)mhi;                              // int4 [mhi] reverse
+  o.sv = align_up(o.rtab + 16 * (size_t)mhi, 16);                  // float [(F + mhi - 1) * W]
+  o.sadj = o.sv + 4 * (size_t)(F + mhi - 1) * W;                   // float [nslot * W]
+  o.sacc = o.sadj + 4 * (size_t)o.nslot * W;                       // float [acc * W]
+  o.sc = o.sacc + 4 * (size_t)o.acc * W;                           // float [acc * (CMAX + 1)]
+  o.sok = o.sc + 4 * (size_t)o.acc * (CMAX + 1);                   // int [acc]
+  o.sflag = o.sok + 4 * (size_t)o.acc;                             // int [mhi]
+  o.slast = o.sflag + 4 * (size_t)mhi;                             // int [mhi]
+  o.sneed = o.slast + 4 * (size_t)mhi;                             // int [mhi]
+  o.sfree = o.sneed + 4 * (size_t)mhi;                             // int [nslot]
+  o.total = o.sfree + 4 * (size_t)o.nslot;
+  return o;
+}
+
+template <int LOSS, int K>
+__global__ void __launch_bounds__(TILE_MAX_W / GRAD_ROWS, GRAD_MIN_BLOCKS) program_grad_kernel(
     const int* __restrict__ instr,      // [T, L]
     const int* __restrict__ nsteps,     // [T]
     const int* __restrict__ nconst,     // [T]
@@ -45,120 +301,166 @@ __global__ void program_grad_kernel(
     const float* __restrict__ y,        // [n]
     const float* __restrict__ w,        // [n]
     const int* __restrict__ optab,      // [n_codes]
-    int V, int L, int CMAX, int F, int n, int code_mask, int sign_shift,
-    float* __restrict__ loss_out, int* __restrict__ valid_out,
+    int V, int L, int CMAX, int F, int n, int W, int mlo, int mhi, int code_mask,
+    int sign_shift, float* __restrict__ loss_out, int* __restrict__ valid_out,
     float* __restrict__ gcomp_out) {    // [T, V, CMAX]
-  extern __shared__ float smem[];
-  const int pair = blockIdx.x;
-  const int t = pair / V;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = blockIdx.x;
+  const int m = min(nsteps[t], L);
+  if (m <= mlo || m > mhi) return;   // another class's tree
   const int tid = threadIdx.x;
-  const int bd = blockDim.x;
-  const int base = F + CMAX;
-  float* sv = smem;                                // [(F + L) * bd] values
-  float* adj = sv + (size_t)(F + L) * bd;          // [(base + L + 1) * bd] adjoints
-  float* gacc = adj + (size_t)(base + L + 1) * bd; // [CMAX * bd] per-thread gradients
-  float* sc = gacc + (size_t)CMAX * bd;            // [CMAX] constants of this variant
-  float* sred = sc + CMAX;                         // [bd] reduction scratch
-  int* sins = reinterpret_cast<int*>(sred + bd);   // [L] instruction words
+  const int P = blockDim.x;
+  const GradLayout lay = grad_layout(W, mhi, L, CMAX, F);
+  float* sv = reinterpret_cast<float*>(smem + lay.sv);
+  float* sacc = reinterpret_cast<float*>(smem + lay.sacc);
+  float* sc = reinterpret_cast<float*>(smem + lay.sc);
+  int* sok = reinterpret_cast<int*>(smem + lay.sok);
+  const int4* stab = reinterpret_cast<const int4*>(smem + lay.stab);
+  const int4* rtab = reinterpret_cast<const int4*>(smem + lay.rtab);
 
-  for (int i = tid; i < L; i += bd) sins[i] = instr[(size_t)t * L + i];
-  for (int i = tid; i < CMAX; i += bd) sc[i] = cvals_v[(size_t)pair * CMAX + i];
-  const int nc = nconst[t];
-  for (int c = 0; c < nc; ++c) gacc[c * bd + tid] = 0.0f;
-  __syncthreads();
+  const int nc = min(max(nconst[t], 0), CMAX);
+  const int G = 1 + nc;                    // sum rows per vector: the loss, then each constant
+  if (G > lay.acc) __trap();               // more constants than a tree of m steps has
+  const int vch = min(V, lay.acc / G);     // vectors per pass
+  decode_grad_program(instr + (size_t)t * L, m, optab, code_mask, sign_shift, F, CMAX, L, W, nc,
+                      lay.nslot, reinterpret_cast<int*>(smem + lay.sflag),
+                      reinterpret_cast<int*>(smem + lay.slast),
+                      reinterpret_cast<int*>(smem + lay.sneed),
+                      reinterpret_cast<int*>(smem + lay.sfree),
+                      reinterpret_cast<int4*>(smem + lay.stab),
+                      reinterpret_cast<int4*>(smem + lay.rtab));
 
-  const int m = nsteps[t];
-  const RowBuf b{sv, sc, F, base, base + L, bd, tid};
-  float acc = 0.0f;
-  bool ok = true;
-  for (int r = tid; r < n; r += bd) {
-    const float v = forward_row(b, sins, X, n, r, m, optab, code_mask, sign_shift, ok);
-    const float yr = y[r];
-    const float wr = w[r];
-    acc = __fadd_rn(acc, loss_term<LOSS>(v, yr, wr));
+  float* col = sv + K * tid;
+  float* adj = reinterpret_cast<float*>(smem + lay.sadj) + K * tid;
+  float* acol = sacc + K * tid;
+  const bool vec_x = n % K == 0 && reinterpret_cast<uintptr_t>(X) % sizeof(RowPack<float, K>) == 0;
+  const bool vec_yw = n % K == 0 && reinterpret_cast<uintptr_t>(y) % sizeof(RowPack<float, K>) == 0
+                      && reinterpret_cast<uintptr_t>(w) % sizeof(RowPack<float, K>) == 0;
+  const int CS = CMAX + 1;
+  for (int v0 = 0; v0 < V; v0 += vch) {
+    const int nv = min(vch, V - v0);
+    const float* cv_t = cvals_v + ((size_t)t * V + v0) * CMAX;
+    for (int i = tid; i < nv * CS; i += P) {
+      const int c = i / CS, j = i - c * CS;
+      sc[i] = j < CMAX ? cv_t[(size_t)c * CMAX + j] : 0.0f;
+    }
+    for (int c = tid; c < nv; c += P) sok[c] = 1;
+    for (int i = tid; i < nv * G * W; i += P) sacc[i] = 0.0f;
+    __syncthreads();
 
-    const float dpred = loss_vjp<LOSS>(v, yr, wr);
-    adj[(base + m - 1) * bd + tid] = wr > 0.0f ? dpred : 0.0f;
-    for (int k = m - 1; k >= 0; --k) {
-      const float ct = adj[(base + k) * bd + tid];
-      const Step s = decode(sins[k], optab, code_mask, sign_shift);
-      if (s.kind == K_ADDSUB) {
-        adj[s.i1 * bd + tid] = ct;
-        adj[s.i2 * bd + tid] = __fmul_rn(s.sg, ct);
-      } else if (s.kind == K_BINARY) {
-        float d1, d2;
-        vjp_binary(s.id, b.rd(s.i1), b.rd(s.i2), ct, d1, d2);
-        adj[s.i1 * bd + tid] = d1;
-        adj[s.i2 * bd + tid] = d2;
-      } else if (s.kind == K_UNARY) {
-        adj[s.i1 * bd + tid] = vjp_unary(s.id, b.rd(s.i1), ct);
-      } else {
-        adj[s.i1 * bd + tid] = ct;
+    for (int r0 = 0; r0 < n; r0 += W) {
+      const int r = r0 + K * tid;
+      if (r >= n) break;   // no barrier in the row loop
+      const int live = min(K, n - r);
+      const RowPack<float, K> yk = load_rows<float, K>(y, r, n, vec_yw, 0.0f);
+      const RowPack<float, K> wk = load_rows<float, K>(w, r, n, vec_yw, 0.0f);
+      for (int f0 = 0; f0 < F; f0 += TILE_LOADS) {
+        RowPack<float, K> xs[TILE_LOADS];
+#pragma unroll
+        for (int j = 0; j < TILE_LOADS; ++j) {
+          if (f0 + j < F) xs[j] = load_rows<float, K>(X + (size_t)(f0 + j) * n, r, n, vec_x, 0.0f);
+        }
+#pragma unroll
+        for (int j = 0; j < TILE_LOADS; ++j) {
+          if (f0 + j < F) *reinterpret_cast<RowPack<float, K>*>(col + (f0 + j) * W) = xs[j];
+        }
+      }
+      for (int c = 0; c < nv; ++c) {
+        const float* cv = sc + c * CS;
+        float* av = acol + (size_t)c * G * W;
+        float root[K], chk[K], ct[K];
+        run_tile<float, K>(stab, m, col, cv, root, chk);
+        RowPack<float, K> lsum = *reinterpret_cast<RowPack<float, K>*>(av);
+        bool ok = true;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if (k < live) {
+            lsum.v[k] = __fadd_rn(lsum.v[k], loss_term<LOSS>(root[k], yk.v[k], wk.v[k]));
+            ok = ok && chk[k] == 0.0f;
+          }
+          const float dpred = loss_vjp<LOSS>(root[k], yk.v[k], wk.v[k]);
+          ct[k] = wk.v[k] > 0.0f ? dpred : 0.0f;
+        }
+        *reinterpret_cast<RowPack<float, K>*>(av) = lsum;
+        if (!ok) sok[c] = 0;
+        run_tile_reverse<float, K>(rtab, m, col, cv, adj, av + W, W, live, ct);
       }
     }
-    for (int c = 0; c < nc; ++c)
-      gacc[c * bd + tid] = __fadd_rn(gacc[c * bd + tid], adj[(F + c) * bd + tid]);
-  }
 
-  const int all_ok = __syncthreads_and(ok ? 1 : 0);
-  block_sum(sred, acc);
-  if (tid == 0) {
-    const float total = sred[0];
-    loss_out[pair] = total;
-    valid_out[pair] = (all_ok && isfinite(total)) ? 1 : 0;
+    __syncthreads();
+    lane_tree_sum(sacc, W, nv * G);
+    for (int c = tid; c < nv; c += P) {
+      const float total = sacc[(size_t)c * G * W];
+      const size_t pair = (size_t)t * V + v0 + c;
+      loss_out[pair] = total;
+      valid_out[pair] = (sok[c] != 0 && isfinite(total)) ? 1 : 0;
+    }
+    for (int i = tid; i < nv * CMAX; i += P) {
+      const int c = i / CMAX, j = i - c * CMAX;
+      gcomp_out[((size_t)t * V + v0 + c) * CMAX + j] =
+          j < nc ? sacc[((size_t)c * G + 1 + j) * W] : 0.0f;
+    }
+    __syncthreads();
   }
-  float* g = gcomp_out + (size_t)pair * CMAX;
-  for (int c = 0; c < nc; ++c) {
-    __syncthreads();  // sred is read by thread 0 above / by the last round
-    block_sum(sred, gacc[c * bd + tid]);
-    if (tid == 0) g[c] = sred[0];
-  }
-  for (int c = nc + tid; c < CMAX; c += bd) g[c] = 0.0f;
 }
 
 template <int LOSS>
-cudaError_t launch_grad(int pairs, int block, size_t smem, cudaStream_t stream,
-                        const int* instr, const int* nsteps, const int* nconst,
-                        const float* cvals_v, const float* X, const float* y,
-                        const float* w, const int* optab, int V, int L, int CMAX,
-                        int F, int n, int code_mask, int sign_shift, float* loss,
-                        int* valid, float* gcomp) {
-  auto kern = program_grad_kernel<LOSS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<pairs, block, smem, stream>>>(instr, nsteps, nconst, cvals_v, X, y, w, optab,
-                                       V, L, CMAX, F, n, code_mask, sign_shift, loss,
-                                       valid, gcomp);
-  return cudaGetLastError();
+cudaError_t launch_grad(int T, int W, cudaStream_t stream, const int* instr, const int* nsteps,
+                        const int* nconst, const float* cvals_v, const float* X, const float* y,
+                        const float* w, const int* optab, int V, int L, int CMAX, int F, int n,
+                        int code_mask, int sign_shift, float* loss, int* valid, float* gcomp) {
+  if (W % GRAD_ROWS != 0 || W > TILE_MAX_W || (W & (W - 1)) != 0) return cudaErrorInvalidValue;
+  if (grad_layout(W, L, L, CMAX, F).total > kSmemLimit) return cudaErrorInvalidValue;
+  auto kern = program_grad_kernel<LOSS, GRAD_ROWS>;
+  int mlo = -1;   // the first class takes every m up to its cap
+  for (int i = 0; mlo < L; ++i) {
+    const int ncap = (int)(sizeof(GRAD_STEP_CAPS) / sizeof(int));
+    const int mhi = i < ncap ? min(GRAD_STEP_CAPS[i], L) : L;
+    if (mhi <= mlo) continue;
+    const size_t smem = grad_layout(W, mhi, L, CMAX, F).total;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<T, W / GRAD_ROWS, smem, stream>>>(instr, nsteps, nconst, cvals_v, X, y, w, optab, V,
+                                             L, CMAX, F, n, W, mlo, mhi, code_mask, sign_shift,
+                                             loss, valid, gcomp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    mlo = mhi;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// Dynamic shared memory a launch with `block` threads needs.
+// Shared memory of the per-row layout with `block` threads ((F + L) value
+// rows, (F + CMAX + L + 1) adjoint rows and CMAX gradient rows of one float
+// per thread, the constants, one reduction float per thread, the words):
+// the wrapper's `_block` picks the lane count W as the largest block whose
+// per-row layout fits, as it did when the kernel ran that layout, so W, and
+// with it every sum's order, stays as it was (and equal to kernel #2's at
+// the same shapes).
 extern "C" size_t sr_program_grad_smem(int block, int L, int CMAX, int F) {
   const size_t rows = (size_t)(F + L) + (F + CMAX + L + 1) + CMAX;
   return sizeof(float) * (rows * block + CMAX + block) + sizeof(int) * L;
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// Launch on `stream` with W = `block` lanes (W / GRAD_ROWS threads per
+// tree), one launch per step-count class; returns cudaGetLastError() (0 on
+// success).
 extern "C" int sr_program_grad(const int* instr, const int* nsteps, const int* nconst,
                                const float* cvals_v, const float* X, const float* y,
                                const float* w, const int* optab, int T, int V, int L,
                                int CMAX, int F, int n, int block, int loss_kind,
                                int code_mask, int sign_shift, float* loss, int* valid,
                                float* gcomp, void* stream) {
-  const long long pairs = (long long)T * V;
-  if (pairs == 0) return 0;
-  if (pairs > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = sr_program_grad_smem(block, L, CMAX, F);
+  if ((long long)T * V == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (loss_kind) {
-#define SR_LAUNCH(LK)                                                               \
-  case LK:                                                                          \
-    return (int)launch_grad<LK>((int)pairs, block, smem, s, instr, nsteps, nconst,  \
-                                cvals_v, X, y, w, optab, V, L, CMAX, F, n,          \
-                                code_mask, sign_shift, loss, valid, gcomp);
+#define SR_LAUNCH(LK)                                                                        \
+  case LK:                                                                                   \
+    return (int)launch_grad<LK>(T, block, s, instr, nsteps, nconst, cvals_v, X, y, w, optab,   \
+                                V, L, CMAX, F, n, code_mask, sign_shift, loss, valid, gcomp);
     SR_LAUNCH(LOSS_L2)
     SR_LAUNCH(LOSS_L1)
     SR_LAUNCH(LOSS_HUBER)

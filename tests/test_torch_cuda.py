@@ -7,6 +7,9 @@ only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +22,9 @@ from symbolicregression_jl_tpu_torch.evolve.population import init_population
 from symbolicregression_jl_tpu_torch.evolve.step import evolve_config_from_options
 from symbolicregression_jl_tpu_torch.ops import fused_eval as SF
 from symbolicregression_jl_tpu_torch.ops.program import compile_program
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from kernel_trees import random_trees, with_written  # noqa: E402
 
 RTOL = 1e-5
 
@@ -738,3 +744,126 @@ def test_tile_bf16_overflow_at_the_store(cuda_device):
     args32 = SF._launch_inputs(prog, X, y, None, 2, ops)
     _, v32 = SF.ProgramEvalKernel()(*args32, ops, SL.l1_dist_loss)
     assert v32.tolist() == [True] * 4
+
+
+# ---------------------------------------------------------------------------
+# Kernels #3 and #4 on the tile interpreter (csrc/program_grad.cu,
+# csrc/program_predict.cu): the tiles' edges, V = 1 and 24, per-member X,
+# constant-only trees and one-step programs.
+# ---------------------------------------------------------------------------
+
+GRAD_CASES = {
+    # n not a multiple of the lanes (256) or of the rows per thread (4)
+    "ragged": dict(n=1001, nlength=6),
+    # fewer rows than lanes: one partial tile
+    "n_below_lanes": dict(n=100, nlength=6),
+    # one step per tree: its result is the root
+    "one_step": dict(n=512, nlength=1),
+    # trees of every step-count class of csrc/program_grad.cu in one call
+    # (m <= 4, 5-12 and 13 or more steps)
+    "step_classes": dict(n=777, nlength=(2, 8, 16)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_tile_grad_kernel_holds_its_contracts(cuda_device, case):
+    """Kernel #3 (the tile interpreter with its reverse sweep) at V = 1, 3
+    and 24 on random and written trees (+ - * / cos abs exp, every 97th
+    row's X at +-1e20, a tenth of the weights 0, a few constants NaN):
+    validity bit-equal to the plain version; loss sums within rtol 1e-5
+    with NaN and +-inf in the same places; gradients of valid pairs
+    non-finite in the same places (but where the finite terms' absolute sum
+    overflows, which the order of the sum decides) and otherwise within
+    1e-4 of the sum of the absolute per-row terms; loss and validity equal
+    to kernel #2's on the same constant vectors, bit for bit; two launches
+    bit-identical."""
+    spec = GRAD_CASES[case]
+    n = spec["n"]
+    opts = _options(maxsize=30)
+    ops, loss = opts.operators, SL.l2_dist_loss
+    cfg = evolve_config_from_options(opts, 3, cuda_device)
+    trees = with_written(random_trees(13, 4, 64, cfg.mctx, spec["nlength"], cuda_device), ops, 3)
+    T = trees.arity.shape[0]
+    g = np.random.default_rng(n)
+    Xn = g.uniform(-3, 3, (3, n)).astype(np.float32)
+    Xn[:, ::97] = 1e20 * np.sign(g.normal(size=Xn[:, ::97].shape))
+    wn = np.where(g.random(n) < 0.1, 0.0, g.uniform(0.2, 2, n)).astype(np.float32)
+    prog = compile_program(trees, 3, len(ops.binary))
+    instr, nsteps, cvals, _, X, y, w = SF._launch_inputs(
+        prog, torch.from_numpy(Xn).to(cuda_device),
+        torch.from_numpy(g.normal(size=n).astype(np.float32)).to(cuda_device),
+        torch.from_numpy(wn).to(cuda_device), 3, ops)
+    nconst = prog.nconst.to(torch.int32).contiguous()
+    k2, k3 = SF.ProgramMultiKernel(), SF.ProgramGradKernel()
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for V in (1, 3, 24):
+        cv = cvals[:, None, :].expand(-1, V, -1).contiguous()
+        if V > 1:
+            cv = (cv * (1.0 + 0.5 * torch.randn(cv.shape, generator=gen, device=cuda_device)))
+            cv[::5, V // 2, 0] = torch.nan
+            cv = cv.contiguous()
+        gl, gv, gg = k3(instr, nsteps, nconst, cv, X, y, w, ops, loss)
+        gl2, gv2, gg2 = k3(instr, nsteps, nconst, cv, X, y, w, ops, loss)
+        assert torch.equal(_bits(gl), _bits(gl2)) and torch.equal(gv, gv2)
+        assert torch.equal(_bits(gg), _bits(gg2))
+        ml, mv = k2(instr, nsteps, cv, X, y, w, ops, loss)
+        assert torch.equal(_bits(gl), _bits(ml)) and torch.equal(gv, mv)
+        pl, pv, pg, pabs = SF.program_grad_plain(instr, nsteps, nconst, cv, X, y, w, ops, loss,
+                                                 return_abs=True)
+        assert torch.equal(gv, pv) and 0 < int(pv.sum()) < pv.numel()
+        _close(torch.where(pv, gl, torch.inf), torch.where(pv, pl, torch.inf))
+        live = pv[..., None].expand_as(pg)
+        fin_k, fin_p = torch.isfinite(gg), torch.isfinite(pg)
+        # Where the absolute per-row terms of a component sum past float32's
+        # range (pabs inf) while every term is finite, the order of the terms
+        # decides whether the sum overflows: one side may be +-inf where the
+        # other is finite. Everywhere else finiteness must agree.
+        order = torch.isinf(pabs) & (torch.isinf(gg) ^ torch.isinf(pg))
+        order &= ~(torch.isnan(gg) | torch.isnan(pg))
+        assert torch.equal(fin_k[live & ~order], fin_p[live & ~order])
+        both = live & fin_k & fin_p
+        assert bool(((gg - pg).abs()[both] <= 1e-4 * pabs[both]).all())
+    assert k3.launches == 6 and T > 256
+
+
+PREDICT_TILE_CASES = {
+    "shared_ragged": dict(n=1001, F=1, per_member=False),
+    "shared_n_below_lanes": dict(n=100, F=3, per_member=False),
+    "per_member_ragged": dict(n=203, F=2, per_member=True),
+    "per_member_aligned": dict(n=512, F=2, per_member=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PREDICT_TILE_CASES))
+def test_tile_predict_kernel_holds_its_contracts(cuda_device, case):
+    """Kernel #4 on the tile interpreter, random and written trees of + - *
+    cos, every fifth tree's const_ok cleared, every 97th row's X at +-1e20
+    (in every seventh tree's X when per-member): validity bit-equal to the
+    plain version; predictions close (``_pred_close``); two launches
+    bit-identical."""
+    spec = PREDICT_TILE_CASES[case]
+    n, F, per_member = spec["n"], spec["F"], spec["per_member"]
+    opts = _options(("+", "-", "*"), unary_operators=["cos"], maxsize=30)
+    ops = opts.operators
+    cfg = evolve_config_from_options(opts, F, cuda_device)
+    trees = with_written(random_trees(17, 4, 64, cfg.mctx, 5, cuda_device), ops, F)
+    T = trees.arity.shape[0]
+    prog = compile_program(trees, F, len(ops.binary))
+    g = np.random.default_rng(n + F)
+    Xn = g.uniform(-2, 2, (T, F, n) if per_member else (F, n)).astype(np.float32)
+    big = Xn[::7, :, ::97] if per_member else Xn[:, ::97]
+    big[...] = np.where(big < 0, -1e20, 1e20)
+    instr, nsteps, cvals, X = SF._predict_inputs(prog, torch.from_numpy(Xn).to(cuda_device), F,
+                                                 ops)
+    ok = prog.const_ok.to(torch.int32).clone()
+    ok[::5] = 0
+    k4 = SF.ProgramPredictKernel()
+    pk, vk = k4(instr, nsteps, cvals, ok, X, ops)
+    pk2, vk2 = k4(instr, nsteps, cvals, ok, X, ops)
+    assert torch.equal(_bits(pk), _bits(pk2)) and torch.equal(vk, vk2)
+    pp, vp = SF.program_predict_plain(instr, nsteps, cvals, ok, X, ops)
+    assert torch.equal(vk, vp) and 0 < int(vp.sum()) < T
+    _pred_close(pk, pp)
+    assert k4.launches == 2
