@@ -11,7 +11,7 @@ Phases (any failure exits nonzero and prints no result line):
    with #2 and its bf16 form 2b, program_grad.cu,
    program_predict.cu, program_predict_vjp.cu) from the checkout, one
    nvcc per source, all started together. Prints ptxas's registers,
-   stack and spills of every instantiation of #1, #2, #3 and #4 (the tile
+   stack and spills of every instantiation of #1-#5 (the tile
    interpreter of csrc/interp.cuh).
 3. Hold kernel #1 against its plain PyTorch version at the benchmark
    shapes: 16,384 random trees (maxsize 30, + - * / exp abs cos), 5
@@ -30,6 +30,8 @@ Phases (any failure exits nonzero and prints no result line):
    two launches bit-identical. #3's checks run again on 18,432 trees whose
    step counts span its three launch classes (MIXED_NLENGTHS). Times both
    kernels (CUDA events, #3 on both inputs) and reckons their bounds.
+   Prints a digest of #3's output bits on each input
+   (bench/kernel_turns.py compares two checkouts' digests).
 5. Main path: `Engine` at the headline configuration, 512 islands x 256
    members x 10,000 rows x 5 features, tournament 16, maxsize 30, the
    constant optimizer on (the default): init_state, one warm-up
@@ -44,16 +46,19 @@ Phases (any failure exits nonzero and prints no result line):
 8. Hold kernels #4 and #5 against their plain versions at the template
    cycle's shapes: 16,384 random trees (maxsize 30, + - * cos), 10,000
    rows, random cotangents for #5, every fifth tree's const_ok cleared;
-   three inputs: shared X (F = 1), the same with overflow rows (every 97th
-   row +-1e20, so x * x overflows and inf - inf gives NaN), and per-member
-   X (F = 2) with overflow rows in every seventh tree's X. Validity
+   four inputs: shared X (F = 1), the same with overflow rows (every 97th
+   row +-1e20, so x * x overflows and inf - inf gives NaN), per-member
+   X (F = 2) with overflow rows in every seventh tree's X, and shared X
+   (F = 1) on trees whose step counts span #5's three launch classes
+   (MIXED_NLENGTHS, 32 trees an island). Validity
    bit-equal; predictions, gcomp and gx NaN in the same places and +-inf
    in the same places, and otherwise predictions and gx within rtol 1e-5,
    or within 1e-5 of the tree's largest finite |value| where the rows
    cancel, and gcomp within 1e-4 of the sum of the absolute per-row
-   terms; two launches bit-identical. Prints each input's valid trees and
-   non-finite predictions. Times both (CUDA events; the shared and
-   per-member inputs) and reckons their bounds.
+   terms; two launches bit-identical. Prints each input's valid trees,
+   non-finite predictions, step-count classes and a digest of #4's and
+   #5's output bits. Times both (CUDA events; the shared, per-member and
+   mixed-step inputs) and reckons their bounds.
 9. Template main path: `Engine` at the JAX package's chip-sized template
    cell (bench/cell.py FULL, variant "template": 512 islands x 256
    members, tournament 16, maxsize 30, + - * cos, 10,000 rows x 2
@@ -159,11 +164,13 @@ H100_HBM_BYTES_S = 3.35e12  # HBM3 bandwidth, H100 SXM data sheet
 PR5_MS = {"program_eval": 1.7189, "program_eval_param": 2.6702, "program_eval_bf16": 1.7574,
           "program_eval_param_bf16": 2.7767, "program_multi": 46.5144,
           "program_multi_bf16": 46.0428}
-# The times of kernels #3 and #4 as per-row kernels, before their tile
+# The times of kernels #3, #4 and #5 as per-row kernels, before their tile
 # redesign (PERF.md section 6, chip_smoke.py on an NVIDIA H100 80GB HBM3 at
-# 700 W), printed beside this run's; #4 at the shared and the per-member input.
+# 700 W), printed beside this run's; #4 and #5 at the shared and the
+# per-member input.
 PER_ROW_MS = {"program_grad": 18.0438, "program_predict shared": 2.1888,
-              "program_predict per-member": 2.4685}
+              "program_predict per-member": 2.4685, "program_predict_vjp shared": 7.4891,
+              "program_predict_vjp per-member": 9.3743}
 
 
 def bench_data():
@@ -192,6 +199,18 @@ def was(name: str) -> str:
     if name in PER_ROW_MS:
         return f" (per-row kernel: {PER_ROW_MS[name]:.4f} ms)"
     return f" (PR 5: {PR5_MS[name]:.4f} ms)"
+
+
+def digest(*ts) -> str:
+    """The first 16 hex digits of a SHA-256 over the tensors' bytes (None
+    skipped): two runs whose outputs differ in any bit differ here."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in ts:
+        if t is not None:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def ptxas_report(log: str, kernel: str):
@@ -448,27 +467,34 @@ MIXED_NLENGTHS = ([1 + i % 4 for i in range(337)] + [5 + i % 8 for i in range(17
                   + [16, 17, 18])
 
 
+def mixed_trees(torch, dev, mctx, seed: int, per_island: int):
+    """Islands of ``per_island`` random trees (init_population) of
+    MIXED_NLENGTHS operator draws each, flat, grouped by draw count."""
+    from symbolicregression_jl_tpu_torch.evolve import rng
+    from symbolicregression_jl_tpu_torch.evolve.population import init_population
+    from symbolicregression_jl_tpu_torch.ops.encoding import TreeBatch
+
+    keys = rng.split(rng.key(seed, device=dev), len(MIXED_NLENGTHS))
+    parts = []
+    for nl in sorted(set(MIXED_NLENGTHS)):
+        idx = torch.tensor([i for i, v in enumerate(MIXED_NLENGTHS) if v == nl], device=dev)
+        parts.append(init_population(keys[idx], per_island, mctx, nlength=nl).reshape(-1))
+    return TreeBatch(*(torch.cat(f) for f in zip(*(p.fields() for p in parts))))
+
+
 def mixed_grad_inputs(torch, sr, dev):
     """Kernel #3's phase 4 arguments (instr, nsteps, nconst, cvals_v, X, y,
     w) on 512 x 36 trees of MIXED_NLENGTHS, their constants perturbed
     V = 3 ways with a few non-finite, and the operators and loss."""
-    from symbolicregression_jl_tpu_torch.evolve import rng
-    from symbolicregression_jl_tpu_torch.evolve.population import init_population
     from symbolicregression_jl_tpu_torch.evolve.step import evolve_config_from_options
     from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
-    from symbolicregression_jl_tpu_torch.ops.encoding import TreeBatch
     from symbolicregression_jl_tpu_torch.ops.program import compile_program
 
     options = bench_options(sr, 1)
     X, y = bench_data()
     data = sr.make_dataset(X, y, device=dev).data
     cfg = evolve_config_from_options(options, N_FEATURES, dev)
-    keys = rng.split(rng.key(3, device=dev), len(MIXED_NLENGTHS))
-    parts = []
-    for nl in sorted(set(MIXED_NLENGTHS)):
-        idx = torch.tensor([i for i, v in enumerate(MIXED_NLENGTHS) if v == nl], device=dev)
-        parts.append(init_population(keys[idx], 36, cfg.mctx, nlength=nl).reshape(-1))
-    trees = TreeBatch(*(torch.cat(f) for f in zip(*(p.fields() for p in parts))))
+    trees = mixed_trees(torch, dev, cfg.mctx, 3, 36)
     ops, el = options.operators, options.elementwise_loss
     prog = compile_program(trees, N_FEATURES, len(ops.binary))
     instr, nsteps, cvals, _, Xt, yt, w = FE._launch_inputs(prog, data.Xt, data.y, data.weights,
@@ -500,6 +526,7 @@ def grad_checks(torch, check, tag, args, ops, el):
     plain_ms = (time.perf_counter() - t0) * 1e3
     check(f"#3{tag} two launches bit-identical",
           _same(gl, gl2) and _same(gv, gv2) and _same(gg, gg2))
+    print(f"  bits #3{tag}: {digest(gl, gv, gg)}")
     check(f"#3{tag} validity bit-equal", _same(gv, pv))
     check(f"#3{tag} loss == #2's on the same variants (bit)", _same(gl, lm) and _same(gv, vm))
     same_inf, within, rel3, _ = close(torch, torch.where(pv, gl, torch.inf),
@@ -784,12 +811,15 @@ def tree_close(torch, a, b, rtol=RTOL):
 OVERFLOW = 1e20   # x * x overflows float32 at this |x|; x + c, x * c and cos(x) do not
 
 
-def predict_inputs(torch, sr, dev, F: int, per_member: bool, overflow: bool, g):
+def predict_inputs(torch, sr, dev, F: int, per_member: bool, overflow: bool, g,
+                   mixed: bool = False):
     """Kernel #4/#5 inputs at the template cycle's shapes: 16,384 random
     trees over F arguments (every fifth tree's const_ok cleared), X on
     [-2, 2] (shared [F, n] or per-member [T, F, n]), random cotangents.
     ``overflow`` sets every 97th row to +-OVERFLOW: in every tree's X when
-    shared, in every seventh tree's when per-member."""
+    shared, in every seventh tree's when per-member. ``mixed``: 512 islands
+    of 32 trees of MIXED_NLENGTHS operator draws, so that their step counts
+    fall in all three launch classes of #5, in place of 5 draws each."""
     from symbolicregression_jl_tpu_torch.evolve import rng
     from symbolicregression_jl_tpu_torch.evolve.population import init_population
     from symbolicregression_jl_tpu_torch.evolve.step import evolve_config_from_options
@@ -798,8 +828,11 @@ def predict_inputs(torch, sr, dev, F: int, per_member: bool, overflow: bool, g):
     options = template_options(sr, 1)
     T, n = ISLANDS * 2 * 16, N_ROWS   # the cycle's candidates: islands x 2 x ceil(256 / 16)
     cfg = evolve_config_from_options(options, F, dev)
-    trees = init_population(rng.split(rng.key(5 + F, device=dev), 64), T // 64, cfg.mctx,
-                            nlength=5).reshape(-1)
+    if mixed:
+        trees = mixed_trees(torch, dev, cfg.mctx, 9, T // len(MIXED_NLENGTHS))
+    else:
+        trees = init_population(rng.split(rng.key(5 + F, device=dev), 64), T // 64, cfg.mctx,
+                                nlength=5).reshape(-1)
     prog = compile_program(trees, F, len(options.operators.binary))
     X = torch.rand((T, F, n) if per_member else (F, n), generator=g, device=dev) * 4 - 2
     if overflow:
@@ -823,8 +856,10 @@ def phase_predict_kernels(torch, sr, dev):
     report, errs4, errs5 = {}, [], []
     for mode, F, per_member, overflow in (("shared", 1, False, False),
                                           ("shared, overflow rows", 1, False, True),
-                                          ("per-member", 2, True, True)):
-        ops, prog, X, ct, ok = predict_inputs(torch, sr, dev, F, per_member, overflow, g)
+                                          ("per-member", 2, True, True),
+                                          ("mixed steps", 1, False, False)):
+        ops, prog, X, ct, ok = predict_inputs(torch, sr, dev, F, per_member, overflow, g,
+                                              mixed=mode == "mixed steps")
         instr, nsteps, cvals, Xc = FE._predict_inputs(prog, X, F, ops)
         nconst = prog.nconst.to(torch.int32).contiguous()
         T, n = ct.shape
@@ -870,11 +905,16 @@ def phase_predict_kernels(torch, sr, dev):
             errs5.append(absx)
         steps = float(nsteps.to(torch.float64).sum())
         nc = float(nconst.to(torch.float64).sum())
-        print(f"  {mode} X (F = {F}): {T} trees, mean steps {steps / T:.3f}, mean constants "
+        mm = nsteps.to(torch.float64)
+        print(f"  {mode} X (F = {F}): {T} trees, mean steps {steps / T:.3f} (m <= 4 "
+              f"{int((mm <= 4).sum())}, 5-12 {int(((mm > 4) & (mm <= 12)).sum())}, 13 or more "
+              f"{int((mm > 12).sum())}), mean constants "
               f"{nc / T:.3f}, {int(vk.sum())} of {T} valid ({int((ok == 0).sum())} with "
               f"const_ok cleared), {n} rows; {int((~torch.isfinite(pk)).sum())} of {pk.numel()} "
               f"predictions non-finite ({int(torch.isnan(pk).sum())} NaN), "
               f"{int((~torch.isfinite(gk)).sum())} of {gk.numel()} gcomp entries non-finite")
+        print(f"  bits #4 {mode}: {digest(pk, vk)}")
+        print(f"  bits #5 {mode}: {digest(gk, xk)}")
 
         if not overflow or per_member:
             ms4 = cuda_ms(torch, lambda: k4(instr, nsteps, cvals, ok, Xc, ops), reps=5)
@@ -889,11 +929,13 @@ def phase_predict_kernels(torch, sr, dev):
             b5, by5 = bound((3.0 * steps + nc) * n,
                             4.0 * (T * L + 2 * T + 2 * T * CMAX + T * n) + xbytes
                             + (xbytes if per_member else 0.0))
-            print(f"  #4 program_predict: {ms4:.4f} ms{was(k4.name + ' ' + mode)} (CUDA events, "
+            # The per-row kernels' times (none for the mixed-step input).
+            before = lambda k: was(f"{k.name} {mode}") if f"{k.name} {mode}" in PER_ROW_MS else ""
+            print(f"  #4 program_predict: {ms4:.4f} ms{before(k4)} (CUDA events, "
                   f"mean of 5), plain "
                   f"{plain4:.1f} ms, bound {b4:.4f} ms ({by4})")
-            print(f"  #5 program_predict_vjp: {ms5:.4f} ms (CUDA events, mean of 5), plain "
-                  f"{plain5:.1f} ms, bound {b5:.4f} ms ({by5})")
+            print(f"  #5 program_predict_vjp: {ms5:.4f} ms{before(k5)} (CUDA "
+                  f"events, mean of 5), plain {plain5:.1f} ms, bound {b5:.4f} ms ({by5})")
             report[mode] = {k4: (ms4, plain4, b4, by4), k5: (ms5, plain5, b5, by5)}
         del pk, pk2, pp, gk, gk2, gp, gabs, xk, xk2, xp, X, ct
         torch.cuda.empty_cache()
@@ -1670,7 +1712,8 @@ def main() -> int:
     for f, kname in (("program_eval.cu", "program_eval_kernel"),
                      ("program_multi.cu", "program_multi_kernel"),
                      ("program_grad.cu", "program_grad_kernel"),
-                     ("program_predict.cu", "program_predict_kernel")):
+                     ("program_predict.cu", "program_predict_kernel"),
+                     ("program_predict_vjp.cu", "program_predict_vjp_kernel")):
         report = ptxas_report(cuda_build.build_log(f), kname)
         if not report:
             raise RuntimeError(f"no ptxas report for {kname} in the build of {f}")

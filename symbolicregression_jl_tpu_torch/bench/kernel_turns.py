@@ -4,15 +4,18 @@
 
 Runs ``chip_smoke.py`` phases 3, 4, 12, 16 and 8 (kernel #1's cost form,
 #2 and #3 (#3 also on trees of mixed step counts), #1p, the bf16 forms 1b
-and 2b, and #4 and #5 with shared and per-member X, each held against its
-plain version and timed with CUDA events on the inputs those phases build)
-on each checkout's package in fresh processes, in the order A, B, B, A for
-each round, and prints every line they print with the checkout it came
-from, then each kernel's times side by side. Both sides run the phases of
+and 2b, and #4 and #5 with shared and per-member X and on trees of mixed
+step counts, each held against its plain version and timed with CUDA
+events on the inputs those phases build) on each checkout's package in
+fresh processes, in the order A, B, B, A for each round, and prints every
+line they print with the checkout it came from, then each kernel's times
+side by side, then whether the digests of #3's, #4's and #5's output bits
+(phases 4 and 8) are the same on both sides. Both sides run the phases of
 B's ``chip_smoke.py``, so both get the same inputs and checks. Each
 checkout builds its kernels into its own ``build/`` on first use. A is
-usually the parent (``git archive`` of it) and B the change. Needs a CUDA
-device.
+usually the parent (``git archive`` of it) and B the change. Exits 1 when
+a digest differs between the two sides or between two runs of one side.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -39,9 +42,13 @@ _TIMES = (
     ("program_predict (#4, {X} X)", r"#4 program_predict: ([\d.]+) ms"),
     ("program_predict_vjp (#5, {X} X)", r"#5 program_predict_vjp: ([\d.]+) ms"),
 )
-# Phase 8 prints "  shared X (F = 1): ..." or "  per-member X (F = 2): ..."
-# before each input's #4 and #5 times; {X} in a kernel's label is that input.
-_X_INPUT = r"^  (shared|per-member) X \(F = \d+\)"
+# Phase 8 prints "  shared X (F = 1): ...", "  per-member X (F = 2): ..." or
+# "  mixed steps X (F = 1): ..." before each input's #4 and #5 times; {X} in
+# a kernel's label is that input.
+_X_INPUT = r"^  (shared|per-member|mixed steps) X \(F = \d+\)"
+# Phases 4 and 8 print "  bits <kernel and input>: <digest>" for the outputs
+# of #3, #4 and #5.
+_BITS = r"^  bits (.+): ([0-9a-f]{16})$"
 
 
 def run_side(root: pathlib.Path, smoke: pathlib.Path) -> str:
@@ -66,7 +73,7 @@ def main() -> int:
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    times = {}
+    times, bits = {}, {}
     for rnd in range(args.rounds):
         for side, root in (("A", args.a), ("B", args.b), ("B", args.b), ("A", args.a)):
             out = run_side(root, args.b / "chip_smoke.py")
@@ -76,6 +83,9 @@ def main() -> int:
                 m = re.search(_X_INPUT, line)
                 if m:
                     x_input = m.group(1)
+                m = re.search(_BITS, line)
+                if m:
+                    bits.setdefault(m.group(1), {"A": set(), "B": set()})[side].add(m.group(2))
                 for kernel, pattern in _TIMES:
                     m = re.search(pattern, line)
                     if m:
@@ -86,7 +96,13 @@ def main() -> int:
         ratio = (sum(a) / len(a)) / (sum(b) / len(b)) if a and b else float("nan")
         print(f"{kernel}: A {' '.join(f'{t:.4f}' for t in a)} ms; B "
               f"{' '.join(f'{t:.4f}' for t in b)} ms; A / B {ratio:.3f}")
-    return 0
+    differ = 0
+    for label, by in bits.items():
+        same = len(by["A"]) == 1 and by["A"] == by["B"]
+        differ += not same
+        print(f"bits {label}: {'A == B' if same else 'DIFFERENT'} "
+              f"(A {' '.join(sorted(by['A']))}; B {' '.join(sorted(by['B']))})")
+    return 1 if differ else 0
 
 
 if __name__ == "__main__":

@@ -28,9 +28,9 @@ number of kernel launches, each named range (``sr:constant_optimizer``,
 ``sr:template_eval``: its span on the device summed over its occurrences,
 the device time of the port's kernels in it, that of the eager ops in it
 and the idle rest), the trees per launch and the mean steps per tree of
-each of the port's kernels in the profiled iteration (and for #3 the
-share of trees in each step-count class of csrc/program_grad.cu), and the
-ten kernels with the most device time.
+each of the port's kernels in the profiled iteration (and for #3 and #5
+the share of trees in each step-count class of csrc/interp.cuh's
+launch_step_classes), and the ten kernels with the most device time.
 Needs a CUDA device.
 """
 
@@ -225,8 +225,8 @@ def main() -> int:
         print(f"{kname}: {len(sizes)} calls, trees per call min {sizes[0]}, median "
               f"{sizes[len(sizes) // 2]}, max {sizes[-1]}, total {sum(sizes)}; mean steps per "
               f"tree {float(m.mean()):.3f}")
-        if kname == "program_grad":
-            print(f"  program_grad trees by step count: <= 4 {float((m <= 4).double().mean()):.1%}, "
+        if kname in ("program_grad", "program_predict_vjp"):
+            print(f"  {kname} trees by step count: <= 4 {float((m <= 4).double().mean()):.1%}, "
                   f"5-12 {float(((m > 4) & (m <= 12)).double().mean()):.1%}, > 12 "
                   f"{float((m > 12).double().mean()):.1%}")
     for name in sorted({e.name for e in spans}):

@@ -157,24 +157,6 @@ __device__ __forceinline__ float elementwise_loss(float p, float y) {
   return a <= 1.0f ? __fmul_rn(__fmul_rn(0.5f, a), a) : __fsub_rn(a, 0.5f);
 }
 
-// One decoded instruction word.
-struct Step {
-  int kind, id, i1, i2;
-  float sg;  // 1 - 2 * sign, for the merged add/sub branch
-};
-
-__device__ __forceinline__ Step decode(int word, const int* __restrict__ optab,
-                                       int code_mask, int sign_shift) {
-  const int entry = optab[(word >> 24) & code_mask];
-  Step s;
-  s.kind = entry >> 8;
-  s.id = entry & 0xFF;
-  s.i1 = (word >> 12) & 0xFFF;
-  s.i2 = word & 0xFFF;
-  s.sg = (float)(1 - 2 * ((word >> sign_shift) & 1));
-  return s;
-}
-
 // Storage of the value buffer: float (kernels #1-#5), or __nv_bfloat16
 // (the bf16 forms 1b and 2b, graftstage's eval_precision="bf16" and
 // optimizer_bf16_linesearch). A bf16 buffer is only storage: every step
@@ -200,64 +182,6 @@ __host__ __device__ constexpr size_t padded(size_t count) {
   return sizeof(S) >= 4 ? count : (count + 1) & ~(size_t)1;
 }
 
-// The per-row value buffer of one thread: X features and step results in
-// shared memory laid out [slot][thread], constants shared by the block.
-// `F` is the width of the per-row region: the X features, and for the
-// parametric form of kernel #1 the row's parameter values after them.
-template <typename S>
-struct RowBufT {
-  S* sv;        // [(F + L) * bd]
-  const S* sc;  // [CMAX]
-  int F, base, zero_addr, bd, tid;
-
-  // Operand read: per-row value, constant, earlier step, or the zero row.
-  __device__ __forceinline__ float rd(int a) const {
-    if (a < F) return to_f32(sv[a * bd + tid]);
-    if (a < base) return to_f32(sc[a - F]);
-    if (a < zero_addr) return to_f32(sv[(F + a - base) * bd + tid]);
-    return 0.0f;
-  }
-};
-using RowBuf = RowBufT<float>;
-
-template <typename S>
-__device__ __forceinline__ float eval_step(const Step& s, const RowBufT<S>& b) {
-  if (s.kind == K_ADDSUB) return __fadd_rn(b.rd(s.i1), __fmul_rn(s.sg, b.rd(s.i2)));
-  if (s.kind == K_BINARY) return apply_binary(s.id, b.rd(s.i1), b.rd(s.i2));
-  if (s.kind == K_UNARY) return apply_unary(s.id, b.rd(s.i1));
-  return b.rd(s.i1);
-}
-
-// Runs the m steps of one row whose per-row values are loaded, stores each
-// result and returns the root value as stored; `ok` drops to false on a
-// step whose float value is not finite. With a bf16 buffer a finite value
-// past bf16's range stores as inf with `ok` still true: the inf surfaces
-// in the next step or in the loss, as in the TPU kernel.
-template <typename S>
-__device__ __forceinline__ float run_steps(const RowBufT<S>& b, const int* __restrict__ sins,
-                                           int m, const int* __restrict__ optab,
-                                           int code_mask, int sign_shift, bool& ok) {
-  float v = 0.0f;
-  for (int k = 0; k < m; ++k) {
-    const float r = eval_step(decode(sins[k], optab, code_mask, sign_shift), b);
-    const S st = from_f32<S>(r);
-    b.sv[(b.F + k) * b.bd + b.tid] = st;
-    ok = ok && isfinite(r);
-    v = to_f32(st);
-  }
-  return v;
-}
-
-// Forward sweep of one row: loads the row's features, then run_steps.
-template <typename S>
-__device__ __forceinline__ float forward_row(const RowBufT<S>& b, const int* __restrict__ sins,
-                                             const S* __restrict__ X, int n, int r,
-                                             int m, const int* __restrict__ optab,
-                                             int code_mask, int sign_shift, bool& ok) {
-  for (int f = 0; f < b.F; ++f) b.sv[f * b.bd + b.tid] = X[(size_t)f * n + r];
-  return run_steps(b, sins, m, optab, code_mask, sign_shift, ok);
-}
-
 // The loss term of one row: where(w > 0, elt, 0) * w.
 template <int LOSS>
 __device__ __forceinline__ float loss_term(float v, float yr, float wr) {
@@ -265,50 +189,38 @@ __device__ __forceinline__ float loss_term(float v, float yr, float wr) {
   return __fmul_rn(wr > 0.0f ? elt : 0.0f, wr);
 }
 
-// Fixed-order tree reduction of one value per thread (block size a power
-// of two); the sum is in sred[0] afterwards. No float atomics, so one input
-// always gives one result.
-__device__ __forceinline__ void block_sum(float* sred, float v) {
-  const int tid = threadIdx.x;
-  sred[tid] = v;
-  __syncthreads();
-  for (int s = blockDim.x >> 1; s > 0; s >>= 1) {
-    if (tid < s) sred[tid] = __fadd_rn(sred[tid], sred[tid + s]);
-    __syncthreads();
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Tile interpreter of kernels #1-#4 (program_eval.cu, program_multi.cu,
-// program_grad.cu, program_predict.cu)
+// Tile interpreter of kernels #1-#5 (program_eval.cu, program_multi.cu,
+// program_grad.cu, program_predict.cu, program_predict_vjp.cu)
 // ---------------------------------------------------------------------------
 //
 // A block owns one tree and, for kernels #2 and #3, all of the tree's
 // constant vectors. It decodes the tree's m instruction words once into a
 // table of resolved steps in shared memory (decode_tile_program); each
-// thread then carries TILE_ROWS rows through every step (run_tile), so one
-// table read, one operator dispatch and one operand address serve
-// TILE_ROWS independent evaluations; every step is warp-uniform. Kernels
-// #2 and #3 run their vectors in turn on each tile of rows, so the tile's
-// X, y and w are read from L2 once for all of them. Kernel #3 adds a
-// reverse sweep over a second decoded table (program_grad.cu). The
-// per-row loop above (run_steps, forward_row, RowBufT) is kept for kernel
-// #5 only.
+// thread then carries K rows through every step (run_tile), so one table
+// read, one operator dispatch and one operand address serve K independent
+// evaluations; every step is warp-uniform. Kernels #2 and #3 run their
+// vectors in turn on each tile of rows, so the tile's X, y and w are read
+// from L2 once for all of them. Kernels #3 and #5 add a reverse sweep over
+// a second decoded table (decode_grad_program, run_tile_reverse, below).
 //
 // The fixed lane order. Every (tree, constant vector) sum keeps the order
-// of the per-row loop with block_sum: W reduction lanes; lane j sums
-// loss_term over rows j, j + W, j + 2W, ... in that order from 0.0f; then
-// block_sum's pairwise tree, strides W/2 down to 1, pair (i, i + s). W is
+// of the per-row kernels these replaced, which ran one row per thread: W
+// reduction lanes; lane j sums its terms over rows j, j + W, j + 2W, ... in
+// that order from 0.0f; then lane_tree_sum's pairwise tree, strides W/2
+// down to 1, pair (i, i + s), the per-row kernels' block reduction. W is
 // the block size the wrappers' `_block` (ops/fused_eval.py) picks from the
-// per-row layout's shared memory, not the tile kernels' thread count: the
-// tile kernels run W / TILE_ROWS threads, thread i owns lanes
-// TILE_ROWS * i ... TILE_ROWS * i + TILE_ROWS - 1, a tile is W consecutive
-// rows (one row of each lane) and the tiles run in row order. Two bit
-// checks rest on this order: kernel #2 with one constant vector equals #1's
-// plain form (both run tree_loss_sums), and kernel #3's loss, whose lanes
-// sum the same terms in the same order at the same W (its gradient lanes
-// sum each constant's cotangents so too), equals #2's on the same constant
-// vectors. Kernel #4 sums nothing, so it has no lane order.
+// per-row layout's shared memory, not the tile kernels' thread count: a
+// tile kernel runs W / K threads (K = TILE_ROWS for #1, #2 and #4,
+// GRAD_ROWS for #3 and #5), thread i owns lanes K * i ... K * i + K - 1, a
+// tile is W consecutive rows (one row of each lane) and the tiles run in
+// row order. Three bit checks rest on this order: kernel #2 with one
+// constant vector equals #1's plain form (both run tree_loss_sums); kernel
+// #3's loss, whose lanes sum the same terms in the same order at the same W
+// (its gradient lanes sum each constant's cotangents so too), equals #2's
+// on the same constant vectors; and #5's gcomp, whose lanes sum each
+// constant's cotangents so, equals the per-row #5's. Kernel #4 sums
+// nothing, so it has no lane order.
 //
 // The value buffer of a tile is [R + tile_slots(L)][W] in the storage
 // type: R per-row rows (the X features, then the parametric form's
@@ -381,8 +293,8 @@ __device__ __forceinline__ void mark_held(int a, int u, int base, int zero_addr,
   if (a >= base && a < zero_addr && a - base < u - 1) atomicMax(&slast[a - base], u);
 }
 
-// The operand at buffer address `a` of step u, as RowBufT::rd reads it:
-// per-row value (a < R), constant, an earlier step, or the zero row.
+// The operand at buffer address `a` of step u: per-row value (a < R),
+// constant, an earlier step, or the zero row.
 __device__ __forceinline__ int operand_desc(int a, int u, int R, int base, int zero_addr,
                                             int CMAX, int W, const int* sflag) {
   if (a < R) return (a * W) << 2 | OPD_ROW;
@@ -488,11 +400,14 @@ __device__ __forceinline__ void tile_operand(int desc, const S* col, const S* cv
 
 // Runs the decoded program on the thread's K rows of the tile, whose
 // per-row values are loaded in its column `col`, with the constants `cv`
-// (CMAX + 1 of them, the last 0): each step computes as eval_step does,
-// rounds to S and keeps the stored value for the next step; root[k] is the
-// last step's stored value, as run_steps returns it. chk[k] stays 0 while
-// every step's float value on row k is finite and is NaN after (r * 0 is
-// NaN exactly for an infinite or NaN r, and NaN stays).
+// (CMAX + 1 of them, the last 0): each step applies its operator
+// (apply_binary, apply_unary, or the merged add/sub branch), rounds to S and
+// keeps the stored value for the next step; root[k] is the last step's
+// stored value. chk[k] stays 0 while every step's float value on row k is
+// finite and is NaN after (r * 0 is NaN exactly for an infinite or NaN r,
+// and NaN stays). With a bf16 buffer a finite value past bf16's range
+// stores as inf with chk still 0: the inf surfaces in the next step or in
+// the loss, as in the TPU kernel.
 template <typename S, int K>
 __device__ __forceinline__ void run_tile(const int4* __restrict__ stab, int m, S* col,
                                          const S* cv, float (&root)[K], float (&chk)[K]) {
@@ -579,9 +494,10 @@ __device__ __forceinline__ RowPack<T, K> load_rows(const T* __restrict__ src, in
   return p;
 }
 
-// Sums `count` arrays of W floats (x[c * W + i], W a power of two) with
-// block_sum's pairing: strides W/2 down to 1, x[i] = x[i] + x[i + s]. The
-// sums land in x[c * W]. Every thread of the block calls it.
+// Sums `count` arrays of W floats (x[c * W + i], W a power of two) in the
+// fixed lane order's pairing: strides W/2 down to 1, x[i] = x[i] + x[i + s].
+// The sums land in x[c * W]. No float atomics, so one input always gives
+// one result. Every thread of the block calls it.
 __device__ __forceinline__ void lane_tree_sum(float* x, int W, int count) {
   int sh = 0;
   while ((1 << sh) < W) ++sh;
@@ -895,6 +811,253 @@ __device__ __forceinline__ float loss_vjp(float p, float y, float ct) {
   const float ct_a = __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(0.5f, a), ct1),
                                          __fmul_rn(0.5f, __fmul_rn(ct1, a))), ct2);
   return d >= 0.0f ? ct_a : -ct_a;
+}
+
+// ---------------------------------------------------------------------------
+// Reverse sweep of kernels #3 and #5 (program_grad.cu, program_predict_vjp.cu)
+// ---------------------------------------------------------------------------
+//
+// Every node of a tree has one parent, so each step's cotangent is written
+// once per row and each constant slot has one reader: a constant's cotangent
+// adds straight into its lane sums. The zero row's cotangent is never read,
+// nor, in kernel #3, X's. Kernel #5 with per-member X keeps X's (GX): an
+// argument may appear at several leaves (x1 * x1 reads address 0 twice), so
+// each feature's cotangent adds into its gx row from 0.0f, steps last to
+// first and within a step operand 1 before operand 2, as the JAX package's
+// `store_adj` does.
+
+// The reverse table (decode_grad_program): for step u, x = op | sign << 8
+// | (slot + 1) << 9, slot the adjoint row its cotangent waits in (-1: it
+// arrives in registers from step u + 1, or is the root's seed); y and z
+// the operands' values as value_desc gives them; w = dest1 | dest2 << 16,
+// where each operand's cotangent goes: CTD_NEXT the registers of step
+// u - 1 (the operand is step u - 1, the last of u's operands in
+// post-order), CTD_ADJ | slot << 2 an adjoint row (an earlier step, in its
+// liveness row: its cotangent is written at u and read at the step itself,
+// the interval it was held over in the forward sweep), CTD_CONST | c << 2
+// constant c's gradient accumulator (c < nc; each constant slot has one
+// reader), CTD_NONE nowhere (the zero row, constants past nc, X without
+// GX). With GX, X feature f's cotangent goes to gx row f, as CTD_NONE |
+// (f + 1) << 2 (the 2-bit kind is full; CTD_NONE alone stays 0).
+enum : int { CTD_NONE = 0, CTD_NEXT = 1, CTD_ADJ = 2, CTD_CONST = 3 };
+
+// The operand at buffer address `a` as the reverse sweep reads it: as
+// operand_desc gives it, but a step's result in its own row R + j.
+__device__ __forceinline__ int value_desc(int a, int R, int base, int zero_addr, int CMAX, int W) {
+  if (a < R) return (a * W) << 2 | OPD_ROW;
+  if (a < base) return (a - R) << 2 | OPD_CONST;
+  if (a >= zero_addr) return CMAX << 2 | OPD_CONST;
+  return ((R + a - base) * W) << 2 | OPD_ROW;
+}
+
+// Where step u sends the cotangent of its operand at address `a` (see
+// CTD_NONE).
+template <bool GX>
+__device__ __forceinline__ int ct_dest(int a, int u, int R, int base, int zero_addr, int nc,
+                                       const int* sflag) {
+  if (a < R || a >= zero_addr) return (GX && a < R) ? (a + 1) << 2 | CTD_NONE : CTD_NONE;
+  if (a < base) return a - R < nc ? (a - R) << 2 | CTD_CONST : CTD_NONE;
+  const int j = a - base;
+  if (j == u - 1) return CTD_NEXT;
+  if (j > u - 1 || sflag[j] < 0) __trap();   // not a tree's post-order program
+  return sflag[j] << 2 | CTD_ADJ;
+}
+
+// Decodes the tree's m words into the forward table `stab` [m] (as
+// decode_tile_program does, but every step result that the reverse sweep
+// reads, as an operand of a binary or unary step, or that a later step
+// reads is stored in its own row R + u) and the reverse table `rtab` [m]
+// (see CTD_NONE), whose adjoint rows are the liveness rows tile_liveness
+// gives (`nslot` of them). `nc` is the tree's constant count. Scratch:
+// `sflag`, `slast` and `sneed` [m], `sfree` [nslot]. Every thread of the
+// block calls it; it ends with a barrier. Kept out of line: inlined, it
+// shifts the kernel's register allocation and made #3 9-13% slower on the
+// H100 (PERF.md section 6).
+template <bool GX>
+__device__ __noinline__ void decode_grad_program(const int* __restrict__ words, int m,
+                                    const int* __restrict__ optab, int code_mask, int sign_shift,
+                                    int R, int CMAX, int L, int W, int nc, int nslot, int* sflag,
+                                    int* slast, int* sneed, int* sfree, int4* stab, int4* rtab) {
+  const int tid = threadIdx.x;
+  const int P = blockDim.x;
+  const int base = R + CMAX;
+  const int zero_addr = base + L;
+  for (int u = tid; u < m; u += P) sneed[u] = 0;
+  tile_liveness(words, m, optab, code_mask, base, zero_addr, nslot, sflag, slast, sfree);
+  for (int u = tid; u < m; u += P) {
+    const int word = words[u];
+    const int kind = optab[(word >> 24) & code_mask] >> 8;
+    const int a1 = (word >> 12) & 0xFFF, a2 = word & 0xFFF;
+    if (kind == K_BINARY || kind == K_UNARY) {
+      if (a1 >= base && a1 < zero_addr) sneed[a1 - base] = 1;
+      if (kind == K_BINARY && a2 >= base && a2 < zero_addr) sneed[a2 - base] = 1;
+    }
+  }
+  __syncthreads();
+  for (int u = tid; u < m; u += P) {
+    const int word = words[u];
+    const int entry = optab[(word >> 24) & code_mask];
+    const int kind = entry >> 8;
+    const bool two = kind == K_BINARY || kind == K_ADDSUB;
+    const int a1 = (word >> 12) & 0xFFF, a2 = word & 0xFFF;
+    const int c1 = ct_dest<GX>(a1, u, R, base, zero_addr, nc, sflag);
+    const int c2 = two ? ct_dest<GX>(a2, u, R, base, zero_addr, nc, sflag) : CTD_NONE;
+    const int v1 = value_desc(a1, R, base, zero_addr, CMAX, W);
+    const int v2 = two ? value_desc(a2, R, base, zero_addr, CMAX, W) : 0;
+    const int op = tile_op(entry) | ((word >> sign_shift) & 1) << 8;
+    // Forward operands: the previous step's result from registers.
+    stab[u] = make_int4(op, (c1 & 3) == CTD_NEXT ? OPD_PREV : v1,
+                        (c2 & 3) == CTD_NEXT ? OPD_PREV : v2,
+                        (sneed[u] || slast[u] >= 0) ? (R + u) * W : -1);
+    rtab[u] = make_int4(op | (sflag[u] + 1) << 9, v1, v2, c1 | c2 << 16);
+  }
+  __syncthreads();
+}
+
+// Sends one operand's cotangents on (see CTD_NONE): into `next` (step
+// u - 1's), the thread's column of an adjoint row of `adj`, constant c's
+// gradient accumulator row of `gacc` on the first `live` rows only (the
+// thread's rows below n), or, with GX, feature f's row of `gx` (every row;
+// the caller stores only those below n).
+template <int K, bool GX>
+__device__ __forceinline__ void route_ct(int dest, const float (&d)[K], float (&next)[K],
+                                         float* adj, float* gacc, float* gx, int W, int live) {
+  const int kind = dest & 3;
+  if (kind == CTD_NEXT) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) next[k] = d[k];
+  } else if (kind == CTD_ADJ) {
+    RowPack<float, K> p;
+#pragma unroll
+    for (int k = 0; k < K; ++k) p.v[k] = d[k];
+    *reinterpret_cast<RowPack<float, K>*>(adj + (dest >> 2) * W) = p;
+  } else if (kind == CTD_CONST) {
+    RowPack<float, K>* at = reinterpret_cast<RowPack<float, K>*>(gacc + (dest >> 2) * W);
+    RowPack<float, K> g = *at;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (k < live) g.v[k] = __fadd_rn(g.v[k], d[k]);
+    }
+    *at = g;
+  } else if (GX && dest != CTD_NONE) {
+    RowPack<float, K>* at = reinterpret_cast<RowPack<float, K>*>(gx + ((dest >> 2) - 1) * W);
+    RowPack<float, K> g = *at;
+#pragma unroll
+    for (int k = 0; k < K; ++k) g.v[k] = __fadd_rn(g.v[k], d[k]);
+    *at = g;
+  }
+}
+
+// The reverse sweep over the table `rtab` (decode_grad_program), after
+// run_tile stored the values it reads in `col`: the thread's K rows enter
+// with the root's cotangents in `ct`; each step, last to first, takes its
+// cotangents (from the registers, or from its adjoint row of `adj`, the
+// thread's column), computes its operands' cotangents with vjp_binary /
+// vjp_unary, as the JAX package's `_bwd_dispatch` does row by row, and
+// routes them (route_ct), operand 1 before operand 2. Each constant's
+// cotangent adds into its row of `gacc` (the thread's column of one
+// constant vector's gradient accumulators) on the `live` rows; with GX each
+// feature's adds into its row of `gx` (the thread's column, zeroed by the
+// caller). The zero row's cotangents are not kept.
+template <typename S, int K, bool GX>
+__device__ __forceinline__ void run_tile_reverse(const int4* __restrict__ rtab, int m, const S* col,
+                                                 const S* cv, float* adj, float* gacc, float* gx,
+                                                 int W, int live, float (&ct)[K]) {
+  const float none[K] = {};
+  for (int s = m - 1; s >= 0; --s) {
+    const int4 e = rtab[s];
+    const int slot = (e.x >> 9) - 1;
+    if (slot >= 0) {
+      const RowPack<float, K> p = *reinterpret_cast<const RowPack<float, K>*>(adj + slot * W);
+#pragma unroll
+      for (int k = 0; k < K; ++k) ct[k] = p.v[k];
+    }
+    float a[K], b[K], d1[K], d2[K];
+#define SR_REV_BIN(ID)                                                          \
+  case ID:                                                                      \
+    tile_operand<S, K>(e.y, col, cv, none, a);                                  \
+    tile_operand<S, K>(e.z, col, cv, none, b);                                  \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) vjp_binary(ID, a[k], b[k], ct[k], d1[k], d2[k]); \
+    break;
+#define SR_REV_UN(ID)                                                          \
+  case ID:                                                                     \
+    tile_operand<S, K>(e.y, col, cv, none, a);                                 \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) d1[k] = vjp_unary(ID, a[k], ct[k]); \
+    break;
+    switch (e.x & 0xFF) {
+      case OPX_ADDSUB: {
+        const float sg = (e.x & 0x100) ? -1.0f : 1.0f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          d1[k] = ct[k];
+          d2[k] = __fmul_rn(sg, ct[k]);
+        }
+        break;
+      }
+      case OPX_IDENT:
+#pragma unroll
+        for (int k = 0; k < K; ++k) d1[k] = ct[k];
+        break;
+      SR_REV_BIN(B_ADD) SR_REV_BIN(B_SUB) SR_REV_BIN(B_MUL) SR_REV_BIN(B_DIV)
+      SR_REV_BIN(B_POW) SR_REV_BIN(B_MOD) SR_REV_BIN(B_MAX) SR_REV_BIN(B_MIN)
+      SR_REV_BIN(B_ATAN2) SR_REV_BIN(B_GT) SR_REV_BIN(B_LT) SR_REV_BIN(B_GE)
+      SR_REV_BIN(B_LE) SR_REV_BIN(B_COND) SR_REV_BIN(B_OR) SR_REV_BIN(B_AND)
+      SR_REV_UN(U_EXP) SR_REV_UN(U_ABS) SR_REV_UN(U_LOG) SR_REV_UN(U_LOG2)
+      SR_REV_UN(U_LOG10) SR_REV_UN(U_LOG1P) SR_REV_UN(U_SQRT) SR_REV_UN(U_CBRT)
+      SR_REV_UN(U_SIN) SR_REV_UN(U_COS) SR_REV_UN(U_TAN) SR_REV_UN(U_SINH)
+      SR_REV_UN(U_COSH) SR_REV_UN(U_TANH) SR_REV_UN(U_ASIN) SR_REV_UN(U_ACOS)
+      SR_REV_UN(U_ATAN) SR_REV_UN(U_ASINH) SR_REV_UN(U_ACOSH) SR_REV_UN(U_ATANH)
+      SR_REV_UN(U_ATANH_CLIP) SR_REV_UN(U_ERF) SR_REV_UN(U_ERFC) SR_REV_UN(U_GAMMA)
+      SR_REV_UN(U_SQUARE) SR_REV_UN(U_CUBE) SR_REV_UN(U_NEG) SR_REV_UN(U_INV)
+      SR_REV_UN(U_RELU) SR_REV_UN(U_ROUND) SR_REV_UN(U_FLOOR) SR_REV_UN(U_CEIL)
+      SR_REV_UN(U_SIGN)
+      default:   // OPX_NAN: vjp_binary's and vjp_unary's zero for an unknown id
+#pragma unroll
+        for (int k = 0; k < K; ++k) d1[k] = d2[k] = 0.0f;
+    }
+#undef SR_REV_BIN
+#undef SR_REV_UN
+    float next[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) next[k] = ct[k];
+    route_ct<K, GX>(e.w & 0xFFFF, d1, next, adj, gacc, gx, W, live);
+    route_ct<K, GX>(e.w >> 16, d2, next, adj, gacc, gx, W, live);
+#pragma unroll
+    for (int k = 0; k < K; ++k) ct[k] = next[k];
+  }
+}
+
+// Rows each thread of a reverse-sweep kernel carries (W / GRAD_ROWS threads
+// a block): two, not the forward kernels' TILE_ROWS, because the reverse
+// sweep's values and dispatch need more registers per row, and more threads
+// on fewer rows each hide the shared-memory latency better. The register cap
+// gives GRAD_MIN_BLOCKS blocks per SM.
+constexpr int GRAD_ROWS = 2;
+constexpr int GRAD_MIN_BLOCKS = 8;
+
+// The step-count classes of a reverse-sweep call: every value the sweep
+// reads lives until the sweep reaches its reader, so a block's shared
+// memory grows with its tree. Class i takes the trees with
+// GRAD_STEP_CAPS[i - 1] < m <= GRAD_STEP_CAPS[i] (the last class every m up
+// to L), each launched with the shared memory its largest tree needs, so the
+// many small trees run more blocks per SM than the few large ones.
+constexpr int GRAD_STEP_CAPS[] = {4, 12};
+
+// Calls launch(mlo, mhi) for each class in turn: it launches one grid whose
+// blocks return at once for a tree outside mlo < m <= mhi, and returns
+// cudaGetLastError(). Stops at the first error and returns it.
+template <typename Launch>
+inline cudaError_t launch_step_classes(int L, Launch launch) {
+  int mlo = -1;   // the first class takes every m up to its cap
+  for (int i = 0; mlo < L; ++i) {
+    const int ncap = (int)(sizeof(GRAD_STEP_CAPS) / sizeof(int));
+    const int mhi = i < ncap ? min(GRAD_STEP_CAPS[i], L) : L;
+    if (mhi <= mlo) continue;
+    const cudaError_t err = launch(mlo, mhi);
+    if (err != cudaSuccess) return err;
+    mlo = mhi;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace sr

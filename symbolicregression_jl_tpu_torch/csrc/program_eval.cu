@@ -64,8 +64,9 @@
 // step reads it, in a row reused by liveness, so the buffer holds
 // R + (L - 2) / 3 rows (14 at the bench shapes, where every step had one
 // before). Each lane's loss terms add in row order into its own float;
-// the lanes reduce in block_sum's fixed pairwise order (see interp.cuh): no
-// float atomics, and the sums keep the per-row loop's bits.
+// the lanes reduce in lane_tree_sum's fixed pairwise order (the fixed lane
+// order of interp.cuh): no float atomics, and the sums keep the per-row
+// kernel's bits.
 //
 // What bounds it on the H100. The work is FP32 ALU and SFU work: per
 // (step, row) the operator's own instructions (one for + - *, about ten

@@ -9,11 +9,10 @@
 // Per row: the forward sweep (kernel #2's arithmetic, so the loss is
 // bit-equal to kernel #2's), the loss cotangent seeded with the row's
 // weight and zeroed where w <= 0, then a reverse sweep over the steps that
-// mirrors the JAX package's `_bwd_dispatch`. Every node has one parent, so
-// each step's cotangent is written once per row and each constant slot has
-// one reader: the constant's cotangent adds straight into its row's
-// per-lane gradient sum. X's and the zero row's cotangents are never read,
-// so they are not kept. Weight-0 rows are not masked (their cotangent is
+// mirrors the JAX package's `_bwd_dispatch` (interp.cuh's reverse sweep,
+// shared with kernel #5): each constant's cotangent adds straight into its
+// row's per-lane gradient sum; X's and the zero row's cotangents are never
+// read, so they are not kept. Weight-0 rows are not masked (their cotangent is
 // exactly 0 and 0 * inf is NaN inside an operator's derivative, as in the
 // JAX package); the wrapper zeroes non-finite gradients.
 //
@@ -30,12 +29,12 @@
 // others in adjoint rows reused by liveness. Each lane's loss terms and
 // constant cotangents add in row order into per-lane float sums in shared
 // memory (one row for the loss and one per constant, for each vector of
-// the pass); the block sums each with lane_tree_sum, block_sum's pairing.
-// W is the lane count the per-row layout gave (sr_program_grad_smem, the
-// wrapper's `_block`), so every sum keeps the order of the per-row kernel
-// this replaced: lane j sums rows j, j + W, ... from 0.0f. Hence the loss
-// equals kernel #2's at the same W bit for bit, and loss, valid and gcomp
-// equal the per-row kernel's.
+// the pass); the block sums each with lane_tree_sum (the fixed lane order
+// of interp.cuh). W is the lane count the per-row layout gave
+// (sr_program_grad_smem, the wrapper's `_block`), so every sum keeps the
+// order of the per-row kernel this replaced: lane j sums rows j, j + W, ...
+// from 0.0f. Hence the loss equals kernel #2's at the same W bit for bit,
+// and loss, valid and gcomp equal the per-row kernel's.
 //
 // Shared memory against occupancy. A block's rows grow with its tree:
 // F + m - 1 value rows, up to tile_slots adjoint rows and 1 + nc rows of
@@ -59,209 +58,6 @@
 using namespace sr;
 
 namespace {
-
-// The reverse table (decode_grad_program): for step u, x = op | sign << 8
-// | (slot + 1) << 9, slot the adjoint row its cotangent waits in (-1: it
-// arrives in registers from step u + 1, or is the root's seed); y and z
-// the operands' values as value_desc gives them; w = dest1 | dest2 << 16,
-// where each operand's cotangent goes: CTD_NEXT the registers of step
-// u - 1 (the operand is step u - 1, the last of u's operands in
-// post-order), CTD_ADJ | slot << 2 an adjoint row (an earlier step, in its
-// liveness row: its cotangent is written at u and read at the step itself,
-// the interval it was held over in the forward sweep), CTD_CONST | c << 2
-// constant c's gradient accumulator (c < nc; each constant slot has one
-// reader), CTD_NONE nowhere (X, the zero row, constants past nc).
-enum : int { CTD_NONE = 0, CTD_NEXT = 1, CTD_ADJ = 2, CTD_CONST = 3 };
-
-// The operand at buffer address `a` as the reverse sweep reads it: as
-// operand_desc gives it, but a step's result in its own row R + j.
-__device__ __forceinline__ int value_desc(int a, int R, int base, int zero_addr, int CMAX, int W) {
-  if (a < R) return (a * W) << 2 | OPD_ROW;
-  if (a < base) return (a - R) << 2 | OPD_CONST;
-  if (a >= zero_addr) return CMAX << 2 | OPD_CONST;
-  return ((R + a - base) * W) << 2 | OPD_ROW;
-}
-
-// Where step u sends the cotangent of its operand at address `a` (see
-// CTD_NONE).
-__device__ __forceinline__ int ct_dest(int a, int u, int R, int base, int zero_addr, int nc,
-                                       const int* sflag) {
-  if (a < R || a >= zero_addr) return CTD_NONE;
-  if (a < base) return a - R < nc ? (a - R) << 2 | CTD_CONST : CTD_NONE;
-  const int j = a - base;
-  if (j == u - 1) return CTD_NEXT;
-  if (j > u - 1 || sflag[j] < 0) __trap();   // not a tree's post-order program
-  return sflag[j] << 2 | CTD_ADJ;
-}
-
-// Decodes the tree's m words into the forward table `stab` [m] (as
-// decode_tile_program does, but every step result that the reverse sweep
-// reads, as an operand of a binary or unary step, or that a later step
-// reads is stored in its own row R + u) and the reverse table `rtab` [m]
-// (see CTD_NONE), whose adjoint rows are the liveness rows tile_liveness
-// gives (`nslot` of them). `nc` is the tree's constant count. Scratch:
-// `sflag`, `slast` and `sneed` [m], `sfree` [nslot]. Every thread of the
-// block calls it; it ends with a barrier. Kept out of line: inlined, it
-// shifts the kernel's register allocation and made #3 9-13% slower on the
-// H100 (PERF.md section 6).
-__device__ __noinline__ void decode_grad_program(const int* __restrict__ words, int m,
-                                    const int* __restrict__ optab, int code_mask, int sign_shift,
-                                    int R, int CMAX, int L, int W, int nc, int nslot, int* sflag,
-                                    int* slast, int* sneed, int* sfree, int4* stab, int4* rtab) {
-  const int tid = threadIdx.x;
-  const int P = blockDim.x;
-  const int base = R + CMAX;
-  const int zero_addr = base + L;
-  for (int u = tid; u < m; u += P) sneed[u] = 0;
-  tile_liveness(words, m, optab, code_mask, base, zero_addr, nslot, sflag, slast, sfree);
-  for (int u = tid; u < m; u += P) {
-    const int word = words[u];
-    const int kind = optab[(word >> 24) & code_mask] >> 8;
-    const int a1 = (word >> 12) & 0xFFF, a2 = word & 0xFFF;
-    if (kind == K_BINARY || kind == K_UNARY) {
-      if (a1 >= base && a1 < zero_addr) sneed[a1 - base] = 1;
-      if (kind == K_BINARY && a2 >= base && a2 < zero_addr) sneed[a2 - base] = 1;
-    }
-  }
-  __syncthreads();
-  for (int u = tid; u < m; u += P) {
-    const int word = words[u];
-    const int entry = optab[(word >> 24) & code_mask];
-    const int kind = entry >> 8;
-    const bool two = kind == K_BINARY || kind == K_ADDSUB;
-    const int a1 = (word >> 12) & 0xFFF, a2 = word & 0xFFF;
-    const int c1 = ct_dest(a1, u, R, base, zero_addr, nc, sflag);
-    const int c2 = two ? ct_dest(a2, u, R, base, zero_addr, nc, sflag) : CTD_NONE;
-    const int v1 = value_desc(a1, R, base, zero_addr, CMAX, W);
-    const int v2 = two ? value_desc(a2, R, base, zero_addr, CMAX, W) : 0;
-    const int op = tile_op(entry) | ((word >> sign_shift) & 1) << 8;
-    // Forward operands: the previous step's result from registers.
-    stab[u] = make_int4(op, (c1 & 3) == CTD_NEXT ? OPD_PREV : v1,
-                        (c2 & 3) == CTD_NEXT ? OPD_PREV : v2,
-                        (sneed[u] || slast[u] >= 0) ? (R + u) * W : -1);
-    rtab[u] = make_int4(op | (sflag[u] + 1) << 9, v1, v2, c1 | c2 << 16);
-  }
-  __syncthreads();
-}
-
-// Sends one operand's cotangents on (see CTD_NONE): into `next` (step
-// u - 1's), the thread's column of an adjoint row of `adj`, or constant
-// c's gradient accumulator row of `gacc`, on the first `live` rows only
-// (the thread's rows below n).
-template <int K>
-__device__ __forceinline__ void route_ct(int dest, const float (&d)[K], float (&next)[K],
-                                         float* adj, float* gacc, int W, int live) {
-  const int kind = dest & 3;
-  if (kind == CTD_NEXT) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) next[k] = d[k];
-  } else if (kind == CTD_ADJ) {
-    RowPack<float, K> p;
-#pragma unroll
-    for (int k = 0; k < K; ++k) p.v[k] = d[k];
-    *reinterpret_cast<RowPack<float, K>*>(adj + (dest >> 2) * W) = p;
-  } else if (kind == CTD_CONST) {
-    RowPack<float, K>* at = reinterpret_cast<RowPack<float, K>*>(gacc + (dest >> 2) * W);
-    RowPack<float, K> g = *at;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      if (k < live) g.v[k] = __fadd_rn(g.v[k], d[k]);
-    }
-    *at = g;
-  }
-}
-
-// The reverse sweep over the table `rtab` (decode_grad_program), after
-// run_tile stored the values it reads in `col`: the thread's K rows enter
-// with the root's cotangents in `ct`; each step, last to first, takes its
-// cotangents (from the registers, or from its adjoint row of `adj`, the
-// thread's column), computes its operands' cotangents with vjp_binary /
-// vjp_unary, as the per-row sweep of the JAX package's `_bwd_dispatch`
-// does, and routes them (route_ct). Each constant's cotangent adds into its
-// row of `gacc` (the thread's column of one constant vector's gradient
-// accumulators) on the `live` rows. X's and the zero row's cotangents are
-// not kept.
-template <typename S, int K>
-__device__ __forceinline__ void run_tile_reverse(const int4* __restrict__ rtab, int m, const S* col,
-                                                 const S* cv, float* adj, float* gacc, int W,
-                                                 int live, float (&ct)[K]) {
-  const float none[K] = {};
-  for (int s = m - 1; s >= 0; --s) {
-    const int4 e = rtab[s];
-    const int slot = (e.x >> 9) - 1;
-    if (slot >= 0) {
-      const RowPack<float, K> p = *reinterpret_cast<const RowPack<float, K>*>(adj + slot * W);
-#pragma unroll
-      for (int k = 0; k < K; ++k) ct[k] = p.v[k];
-    }
-    float a[K], b[K], d1[K], d2[K];
-#define SR_REV_BIN(ID)                                                          \
-  case ID:                                                                      \
-    tile_operand<S, K>(e.y, col, cv, none, a);                                  \
-    tile_operand<S, K>(e.z, col, cv, none, b);                                  \
-    _Pragma("unroll") for (int k = 0; k < K; ++k) vjp_binary(ID, a[k], b[k], ct[k], d1[k], d2[k]); \
-    break;
-#define SR_REV_UN(ID)                                                          \
-  case ID:                                                                     \
-    tile_operand<S, K>(e.y, col, cv, none, a);                                 \
-    _Pragma("unroll") for (int k = 0; k < K; ++k) d1[k] = vjp_unary(ID, a[k], ct[k]); \
-    break;
-    switch (e.x & 0xFF) {
-      case OPX_ADDSUB: {
-        const float sg = (e.x & 0x100) ? -1.0f : 1.0f;
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          d1[k] = ct[k];
-          d2[k] = __fmul_rn(sg, ct[k]);
-        }
-        break;
-      }
-      case OPX_IDENT:
-#pragma unroll
-        for (int k = 0; k < K; ++k) d1[k] = ct[k];
-        break;
-      SR_REV_BIN(B_ADD) SR_REV_BIN(B_SUB) SR_REV_BIN(B_MUL) SR_REV_BIN(B_DIV)
-      SR_REV_BIN(B_POW) SR_REV_BIN(B_MOD) SR_REV_BIN(B_MAX) SR_REV_BIN(B_MIN)
-      SR_REV_BIN(B_ATAN2) SR_REV_BIN(B_GT) SR_REV_BIN(B_LT) SR_REV_BIN(B_GE)
-      SR_REV_BIN(B_LE) SR_REV_BIN(B_COND) SR_REV_BIN(B_OR) SR_REV_BIN(B_AND)
-      SR_REV_UN(U_EXP) SR_REV_UN(U_ABS) SR_REV_UN(U_LOG) SR_REV_UN(U_LOG2)
-      SR_REV_UN(U_LOG10) SR_REV_UN(U_LOG1P) SR_REV_UN(U_SQRT) SR_REV_UN(U_CBRT)
-      SR_REV_UN(U_SIN) SR_REV_UN(U_COS) SR_REV_UN(U_TAN) SR_REV_UN(U_SINH)
-      SR_REV_UN(U_COSH) SR_REV_UN(U_TANH) SR_REV_UN(U_ASIN) SR_REV_UN(U_ACOS)
-      SR_REV_UN(U_ATAN) SR_REV_UN(U_ASINH) SR_REV_UN(U_ACOSH) SR_REV_UN(U_ATANH)
-      SR_REV_UN(U_ATANH_CLIP) SR_REV_UN(U_ERF) SR_REV_UN(U_ERFC) SR_REV_UN(U_GAMMA)
-      SR_REV_UN(U_SQUARE) SR_REV_UN(U_CUBE) SR_REV_UN(U_NEG) SR_REV_UN(U_INV)
-      SR_REV_UN(U_RELU) SR_REV_UN(U_ROUND) SR_REV_UN(U_FLOOR) SR_REV_UN(U_CEIL)
-      SR_REV_UN(U_SIGN)
-      default:   // OPX_NAN: vjp_binary's and vjp_unary's zero for an unknown id
-#pragma unroll
-        for (int k = 0; k < K; ++k) d1[k] = d2[k] = 0.0f;
-    }
-#undef SR_REV_BIN
-#undef SR_REV_UN
-    float next[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) next[k] = ct[k];
-    route_ct<K>(e.w & 0xFFFF, d1, next, adj, gacc, W, live);
-    route_ct<K>(e.w >> 16, d2, next, adj, gacc, W, live);
-#pragma unroll
-    for (int k = 0; k < K; ++k) ct[k] = next[k];
-  }
-}
-
-// The launches of one call, by the trees' step counts m: class i takes the
-// trees with GRAD_STEP_CAPS[i - 1] < m <= GRAD_STEP_CAPS[i] (the last class
-// every m up to L), each with the shared memory its largest tree needs, so
-// the many small trees run more blocks per SM than the few large ones.
-constexpr int GRAD_STEP_CAPS[] = {4, 12};
-
-// Rows each thread carries (W / GRAD_ROWS threads a block): two, not the
-// forward kernels' TILE_ROWS, because the reverse sweep's values and
-// dispatch need more registers per row, and more threads on fewer rows
-// each hide the shared-memory latency better. The register cap gives
-// GRAD_MIN_BLOCKS blocks per SM.
-constexpr int GRAD_ROWS = 2;
-constexpr int GRAD_MIN_BLOCKS = 8;
 
 // The shared memory of a class whose trees have at most `mhi` steps: its
 // tables, value and adjoint rows, and `acc` rows of W float sums.
@@ -322,7 +118,7 @@ __global__ void __launch_bounds__(TILE_MAX_W / GRAD_ROWS, GRAD_MIN_BLOCKS) progr
   const int G = 1 + nc;                    // sum rows per vector: the loss, then each constant
   if (G > lay.acc) __trap();               // more constants than a tree of m steps has
   const int vch = min(V, lay.acc / G);     // vectors per pass
-  decode_grad_program(instr + (size_t)t * L, m, optab, code_mask, sign_shift, F, CMAX, L, W, nc,
+  decode_grad_program<false>(instr + (size_t)t * L, m, optab, code_mask, sign_shift, F, CMAX, L, W, nc,
                       lay.nslot, reinterpret_cast<int*>(smem + lay.sflag),
                       reinterpret_cast<int*>(smem + lay.slast),
                       reinterpret_cast<int*>(smem + lay.sneed),
@@ -383,7 +179,7 @@ __global__ void __launch_bounds__(TILE_MAX_W / GRAD_ROWS, GRAD_MIN_BLOCKS) progr
         }
         *reinterpret_cast<RowPack<float, K>*>(av) = lsum;
         if (!ok) sok[c] = 0;
-        run_tile_reverse<float, K>(rtab, m, col, cv, adj, av + W, W, live, ct);
+        run_tile_reverse<float, K, false>(rtab, m, col, cv, adj, av + W, nullptr, W, live, ct);
       }
     }
 
@@ -412,11 +208,7 @@ cudaError_t launch_grad(int T, int W, cudaStream_t stream, const int* instr, con
   if (W % GRAD_ROWS != 0 || W > TILE_MAX_W || (W & (W - 1)) != 0) return cudaErrorInvalidValue;
   if (grad_layout(W, L, L, CMAX, F).total > kSmemLimit) return cudaErrorInvalidValue;
   auto kern = program_grad_kernel<LOSS, GRAD_ROWS>;
-  int mlo = -1;   // the first class takes every m up to its cap
-  for (int i = 0; mlo < L; ++i) {
-    const int ncap = (int)(sizeof(GRAD_STEP_CAPS) / sizeof(int));
-    const int mhi = i < ncap ? min(GRAD_STEP_CAPS[i], L) : L;
-    if (mhi <= mlo) continue;
+  return launch_step_classes(L, [&](int mlo, int mhi) {
     const size_t smem = grad_layout(W, mhi, L, CMAX, F).total;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -424,11 +216,8 @@ cudaError_t launch_grad(int T, int W, cudaStream_t stream, const int* instr, con
     kern<<<T, W / GRAD_ROWS, smem, stream>>>(instr, nsteps, nconst, cvals_v, X, y, w, optab, V,
                                              L, CMAX, F, n, W, mlo, mhi, code_mask, sign_shift,
                                              loss, valid, gcomp);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    mlo = mhi;
-  }
-  return cudaSuccess;
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace

@@ -21,7 +21,7 @@
 // tile's X sits in shared memory once for all of them, and each vector's
 // constants (rounded to the storage type) sit side by side, with a
 // per-lane float sum per vector in shared memory. A pair's sum keeps the
-// per-row loop's lane order (interp.cuh), so a pair gives kernel #1's
+// per-row kernel's lane order (interp.cuh), so a pair gives kernel #1's
 // plain-form bits for the same constants, kernel #3's loss bits, and two
 // launches give the same bits. The TPU kernel's V-chunking and tree
 // blocks worked around its VMEM size and its per-step scalar dispatch;

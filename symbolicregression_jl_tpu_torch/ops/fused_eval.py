@@ -587,9 +587,9 @@ class _ProgramKernel:
     def _block(self, L: int, CMAX: int, F: int, NP: int = 0, NC: int = 0) -> int:
         """The lane count W: the largest block whose shared-memory layout
         fits (a bf16 buffer takes half the bytes, so it fits a larger block
-        sooner). Kernel #5 runs W threads; the tile kernels run W / 4 (#1,
-        #2, #4) or W / 2 (#3) and keep W lanes, so each sum keeps the same
-        order (csrc/interp.cuh). #1-#3 size W by their old per-row layout;
+        sooner). The tile kernels run W / 4 (#1, #2, #4) or W / 2 (#3, #5)
+        threads and keep W lanes, so each sum keeps the same order
+        (csrc/interp.cuh). #1-#3 and #5 size W by their old per-row layout;
         #4, which sums nothing, by its tile layout."""
         smem = self._smem_fn(self.library())
         extra = self._smem_extra(NP, NC)

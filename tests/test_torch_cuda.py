@@ -867,3 +867,54 @@ def test_tile_predict_kernel_holds_its_contracts(cuda_device, case):
     assert torch.equal(vk, vp) and 0 < int(vp.sum()) < T
     _pred_close(pk, pp)
     assert k4.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_member,F", [(False, 1), (True, 2)])
+def test_tile_predict_vjp_kernel_on_step_classes(cuda_device, per_member, F):
+    """Kernel #5 on the tile interpreter's reverse sweep, on random trees of
+    + - * cos in all three step-count classes (m <= 4, 5-12 and 13 or more
+    steps) and the written ones, every 97th row's X at +-1e20 (in every
+    seventh tree's X when per-member), random cotangents: gcomp non-finite
+    in the same places as the plain version's (but where the absolute terms
+    overflow, which the order of the sum decides) and otherwise within 1e-4
+    of the absolute row sums; gx close
+    (``_pred_close``); two launches bit-identical; one launch count per
+    call."""
+    n = 777
+    opts = _options(("+", "-", "*"), unary_operators=["cos"], maxsize=30)
+    ops = opts.operators
+    cfg = evolve_config_from_options(opts, F, cuda_device)
+    trees = with_written(random_trees(23, 4, 64, cfg.mctx, (2, 8, 16), cuda_device), ops, F)
+    T = trees.arity.shape[0]
+    prog = compile_program(trees, F, len(ops.binary))
+    g = np.random.default_rng(n + F)
+    Xn = g.uniform(-2, 2, (T, F, n) if per_member else (F, n)).astype(np.float32)
+    big = Xn[::7, :, ::97] if per_member else Xn[:, ::97]
+    big[...] = np.where(big < 0, -1e20, 1e20)
+    instr, nsteps, cvals, X = SF._predict_inputs(prog, torch.from_numpy(Xn).to(cuda_device), F,
+                                                 ops)
+    ct = torch.from_numpy(g.normal(size=(T, n)).astype(np.float32)).to(cuda_device)
+    nconst = prog.nconst.to(torch.int32).contiguous()
+    m = nsteps.cpu()
+    assert bool((m <= 4).any()) and bool(((m > 4) & (m <= 12)).any()) and bool((m > 12).any())
+    k5 = SF.ProgramPredictVjpKernel()
+    gk, xk = k5(instr, nsteps, nconst, cvals, X, ct, ops)
+    gk2, xk2 = k5(instr, nsteps, nconst, cvals, X, ct, ops)
+    assert k5.launches == 2
+    assert torch.equal(_bits(gk), _bits(gk2))
+    gp, xp, gabs = SF.program_predict_vjp_plain(instr, nsteps, nconst, cvals, X, ct, ops,
+                                                return_abs=True)
+    # Where the absolute per-row terms overflow (gabs inf), the order of the
+    # sum decides between finite, +-inf and NaN; everywhere else the
+    # non-finite places agree.
+    order = torch.isinf(gabs)
+    assert torch.equal(torch.isfinite(gk)[~order], torch.isfinite(gp)[~order])
+    assert torch.equal(torch.isnan(gk)[~order], torch.isnan(gp)[~order])
+    assert bool(torch.isfinite(gk).any())
+    both = torch.isfinite(gabs) & torch.isfinite(gk)
+    assert bool(((gk - gp).abs()[both] <= 1e-4 * gabs[both]).all())
+    assert (xk is None) == (not per_member)
+    if per_member:
+        assert torch.equal(_bits(xk), _bits(xk2))
+        _pred_close(xk.reshape(T, -1), xp.reshape(T, -1))

@@ -1,7 +1,7 @@
-"""The port's CUDA kernels #2, #3 and #4 compiled for the host CPU.
+"""The port's CUDA kernels #2, #3, #4 and #5 compiled for the host CPU.
 
 The CUDA sources under ``symbolicregression_jl_tpu_torch/csrc/`` build
-only with nvcc for the card. This file builds three of them with g++
+only with nvcc for the card. This file builds four of them with g++
 through a small shim instead: each CUDA thread of a block runs as a
 ``std::thread``, ``__syncthreads`` and ``__syncthreads_and`` are a
 barrier of the block's threads, a launch runs its blocks one after
@@ -23,13 +23,18 @@ arithmetic or summation order does. The tests hold:
   and +-inf in the same places and otherwise within rtol 1e-5, or within
   1e-5 of the tree's largest finite |prediction| where the rows cancel
   (chip_smoke.py phase 8's tolerance);
+- #5's gcomp NaN and +-inf in the same places as
+  ``program_predict_vjp_plain``'s and otherwise within 1e-4 of the sum of
+  the absolute per-row terms, and its gx by #4's rule (chip_smoke.py
+  phase 8's tolerances);
 - two launches of each bit-identical;
 
 on ragged row counts, lane counts W of 32, 64 and 256, V of 1, 3 and 24,
-per-member X, constant-only trees and one-step programs. They skip where
-g++ is missing. ``build_host_library`` also builds another checkout's
-sources, so two versions of a kernel can be held against each other bit
-for bit: ``python tests/test_torch_tile_host.py OLD_CSRC NEW_CSRC``.
+shared and per-member X, repeated arguments, constant-only trees, one-step
+programs and trees of every step-count class. They skip where g++ is
+missing. ``build_host_library`` also builds another checkout's sources, so
+two versions of a kernel can be held against each other bit for bit:
+``python tests/test_torch_tile_host.py OLD_CSRC NEW_CSRC``.
 """
 
 from __future__ import annotations
@@ -50,16 +55,19 @@ import symbolicregression_jl_tpu_torch as S
 from symbolicregression_jl_tpu_torch.core import losses as SL
 from symbolicregression_jl_tpu_torch.evolve.step import evolve_config_from_options
 from symbolicregression_jl_tpu_torch.ops import fused_eval as SF
+from symbolicregression_jl_tpu_torch.ops.encoding import encode_population
 from symbolicregression_jl_tpu_torch.ops.program import compile_program
+from symbolicregression_jl_tpu_torch.ops.tree import parse_expression
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from kernel_trees import random_trees, with_written  # noqa: E402
+from kernel_trees import cat_trees, random_trees, with_written  # noqa: E402
 from torch_parity import cap_torch_threads  # noqa: E402
 
 cap_torch_threads()
 
 CSRC = Path(SF.__file__).resolve().parent.parent / "csrc"
-SOURCES = ("program_multi.cu", "program_grad.cu", "program_predict.cu")
+SOURCES = ("program_multi.cu", "program_grad.cu", "program_predict.cu",
+           "program_predict_vjp.cu")
 
 SHIM = r"""
 #pragma once
@@ -227,7 +235,8 @@ def load_host_libraries(csrc: Path, out_dir: Path):
     libs = {s: ctypes.CDLL(str(p)) for s, p in zip(SOURCES, paths)}
     for kernel, name in ((SF.ProgramMultiKernel(), "program_multi.cu"),
                          (SF.ProgramGradKernel(), "program_grad.cu"),
-                         (SF.ProgramPredictKernel(), "program_predict.cu")):
+                         (SF.ProgramPredictKernel(), "program_predict.cu"),
+                         (SF.ProgramPredictVjpKernel(), "program_predict_vjp.cu")):
         kernel._bind(libs[name])
         getattr(libs[name], kernel._entry).restype = ctypes.c_int
     return libs
@@ -275,6 +284,21 @@ def run_predict(lib, ops, instr, nsteps, cvals, ok, X, W):
                                 _code_mask(ops), 30, _p(pred), _p(valid), None)
     assert rc == 0
     return pred, valid
+
+
+def run_predict_vjp(lib, ops, instr, nsteps, nconst, cvals, X, ct, W):
+    T = instr.shape[0]
+    F, n = X.shape[-2:]
+    per_member = X.dim() == 3
+    gcomp = torch.full((T, cvals.shape[1]), -7.0)
+    gx = torch.full((T, F, n), -7.0) if per_member else None
+    optab = torch.tensor(SF._optab_list(ops), dtype=torch.int32)
+    rc = lib.sr_program_predict_vjp(_p(instr), _p(nsteps), _p(nconst), _p(cvals), _p(X), _p(ct),
+                                    _p(optab), T, instr.shape[1], cvals.shape[1], F, n, W,
+                                    int(per_member), _code_mask(ops), 30, _p(gcomp),
+                                    _p(gx) if per_member else None, None)
+    assert rc == 0
+    return gcomp, gx
 
 
 def _code_mask(ops) -> int:
@@ -465,9 +489,92 @@ def test_predict_kernel_on_host(host_libs, case):
     assert bool(((err <= 1e-5 * pp.abs()[fb]) | (err <= 1e-5 * scale[fb])).all())
 
 
+# Trees whose arguments repeat, so one feature's cotangent adds up from
+# several leaves (operand 1 before operand 2), beside the random ones.
+REPEATED = ("x1 * x1", "x1 + x1", "x1 - x1", "(x1 * x1) * x1", "cos(x1) * x1",
+            "(x1 + 0.5) * (x1 - 0.5)")
+
+VJP_CASES = {
+    # n not a multiple of the lanes or of the rows per thread
+    "shared_ragged_W256": dict(n=1001, F=1, per_member=False, W=256, nlength=5),
+    "shared_F3_W32": dict(n=250, F=3, per_member=False, W=32, nlength=5),
+    "per_member_F2_W64": dict(n=203, F=2, per_member=True, W=64, nlength=5),
+    "per_member_aligned_W256": dict(n=512, F=2, per_member=True, W=256, nlength=5),
+    "one_step_per_member_W32": dict(n=130, F=1, per_member=True, W=32, nlength=1),
+    # every step-count class (m <= 4, 5-12 and 13 or more steps) in one call
+    "step_classes_shared_W64": dict(n=203, F=2, per_member=False, W=64, nlength=(2, 8, 16)),
+    "step_classes_per_member_W256": dict(n=301, F=2, per_member=True, W=256,
+                                         nlength=(2, 8, 16)),
+}
+
+
+def vjp_case(case: str):
+    """(operators, launch arguments after the library, W) of a VJP_CASES
+    case: random trees of + - * cos (maxsize 30) of the case's step counts,
+    the written ones (constant-only and one-step trees among them) and
+    REPEATED, X on [-2, 2] with every 97th row at +-1e20 (in every seventh
+    tree's X when per-member), random row cotangents."""
+    spec = VJP_CASES[case]
+    n, F, per_member, W = spec["n"], spec["F"], spec["per_member"], spec["W"]
+    opts = S.Options(binary_operators=["+", "-", "*"], unary_operators=["cos"], maxsize=30,
+                     populations=4, population_size=32, tournament_selection_n=8,
+                     should_optimize_constants=False, save_to_file=False)
+    ops = opts.operators
+    cfg = evolve_config_from_options(opts, F, torch.device("cpu"))
+    trees = with_written(random_trees(19 + F, 1, 24, cfg.mctx, spec["nlength"], "cpu"), ops, F)
+    names = [f"x{i + 1}" for i in range(F)]
+    trees = cat_trees([trees, encode_population([parse_expression(e, ops, names)
+                                                 for e in REPEATED], trees.max_nodes, ops,
+                                                device="cpu")])
+    T = trees.arity.shape[0]
+    prog = compile_program(trees, F, len(ops.binary))
+    g = np.random.default_rng(n + 7 * F)
+    Xn = g.uniform(-2, 2, (T, F, n) if per_member else (F, n)).astype(np.float32)
+    big = Xn[::7, :, ::97] if per_member else Xn[:, ::97]
+    big[...] = np.where(big < 0, -1e20, 1e20)
+    instr, nsteps, cvals, X = SF._predict_inputs(prog, torch.from_numpy(Xn), F, ops)
+    ct = torch.from_numpy(g.normal(size=(T, n)).astype(np.float32))
+    nconst = prog.nconst.to(torch.int32).contiguous()
+    return ops, (instr, nsteps, nconst, cvals, X, ct), W
+
+
+@pytest.mark.parametrize("case", sorted(VJP_CASES))
+def test_predict_vjp_kernel_on_host(host_libs, case):
+    ops, args, W = vjp_case(case)
+    lib = host_libs["program_predict_vjp.cu"]
+    gk, xk = run_predict_vjp(lib, ops, *args, W)
+    gk2, xk2 = run_predict_vjp(lib, ops, *args, W)
+    assert _same(gk, gk2) and (xk is None or _same(xk, xk2))
+    gp, xp, gabs = SF.program_predict_vjp_plain(*args, ops, return_abs=True)
+    nsteps, nconst = args[1], args[2]
+    assert int(nsteps.min()) == 1
+    if isinstance(VJP_CASES[case]["nlength"], tuple):
+        assert int(nsteps.max()) > 12 and bool(((nsteps > 4) & (nsteps <= 12)).any())
+    # Where the absolute per-row terms overflow (gabs inf), the order of the
+    # sum decides between finite, +-inf and NaN; everywhere else the
+    # non-finite places agree.
+    order = torch.isinf(gabs)
+    assert torch.equal(torch.isfinite(gk)[~order], torch.isfinite(gp)[~order])
+    assert torch.equal(torch.isnan(gk)[~order], torch.isnan(gp)[~order])
+    assert bool(torch.isfinite(gk).any())
+    both = torch.isfinite(gabs) & torch.isfinite(gk)
+    assert bool(((gk - gp).abs()[both] <= 1e-4 * gabs[both]).all())
+    used = torch.arange(gk.shape[1])[None, :] < nconst[:, None]
+    assert bool((gk[~used] == 0).all())
+    assert (xk is None) == (xp is None)
+    if xk is not None:
+        T = xk.shape[0]
+        xk, xp = xk.reshape(T, -1), xp.reshape(T, -1)
+        _nonfinite_match(xk, xp)
+        fb = torch.isfinite(xp)
+        scale = torch.where(fb, xp.abs(), 0.0).amax(dim=-1, keepdim=True).expand_as(xp)
+        assert bool(((xk - xp).abs()[fb] <= 1e-5 * scale[fb]).all())
+
+
 def main(argv) -> int:
-    """Hold two csrc directories' kernels #3 (loss, valid, gcomp) and #4
-    (pred, valid) against each other bit for bit on every case above."""
+    """Hold two csrc directories' kernels #3 (loss, valid, gcomp), #4
+    (pred, valid) and #5 (gcomp, gx) against each other bit for bit on
+    every case above."""
     import tempfile
 
     dirs = [Path(a) for a in argv[1:3]]
@@ -487,6 +594,12 @@ def main(argv) -> int:
             same = all(_same(p, q) for p, q in zip(a, b))
             bad += not same
             print(f"#4 {case}: {'bit-equal' if same else 'DIFFERENT'}")
+        for case in sorted(VJP_CASES):
+            ops, args, W = vjp_case(case)
+            a, b = (run_predict_vjp(lib["program_predict_vjp.cu"], ops, *args, W) for lib in libs)
+            same = all(p is q or _same(p, q) for p, q in zip(a, b))
+            bad += not same
+            print(f"#5 {case}: {'bit-equal' if same else 'DIFFERENT'}")
     return 1 if bad else 0
 
 
