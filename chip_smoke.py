@@ -135,8 +135,37 @@ Phases (any failure exits nonzero and prints no result line):
    15's parametric problem: kernels 1b, 2b and 1b's parametric form only;
    the best member's loss recomputed on the host in float64 from its
    decoded expression within the bf16 tolerance BF16_SEARCH_TOL.
+20. Phase 5's configuration with minibatches (batching=True, batch_size
+   50, the Options default) at BATCH_CYCLES = 10 cycles: per iteration
+   exactly 10 launches of #1 over 50 rows and 1 (the finalize) over 10,000,
+   8 of #2 and 9 of #3 over 50 rows, read from every launch's row count;
+   #1-#3 replayed on the path's own first 50-row inputs against their plain
+   versions (phases 3-4's checks) and timed (CUDA events) beside phases 3
+   and 4's 10,000-row times, with their bounds; evals/s counts an
+   evaluation as batch_size / n of one, as the JAX package does; the best
+   member of the last finalize's population (scored on every row; the hall
+   of fame also keeps the cycles' best with their batch losses, and
+   migration copies them into the islands, as in the JAX package)
+   recomputed on the host in float64 within rtol 1e-5.
+21. equation_search at phase 20's configuration without minibatches,
+   writing CSVs and a checkpoint every iteration into a temporary
+   directory: 3 iterations straight through against 2, then resume="auto"
+   to 3 under the same run_id; then the newest checkpoint corrupted and the
+   resume repeated from the one before. Every state tensor bit-equal (the
+   device evaluation counter restarts at 0 on resume, as in the JAX
+   package, so the totals are compared), the CSVs byte-equal. Prints the
+   checkpoint's bytes and write seconds.
+22. SRRegressor(niterations=2) with the default device_scale="auto" (512
+   x 256, tournament 16, 100 cycles: pinning ncycles_per_iteration would
+   turn the scale off, as in the JAX package) on phase 5's X with a target
+   the bench operators express, seeded with an initial population that
+   holds it: predict on 2,000 held-out rows against a float64 host
+   evaluation of get_best() within rtol 1e-5 (or 1e-5 of the predictions'
+   RMS where rows cancel); MultitargetSRRegressor on two targets at 64
+   islands x 256, 10 cycles, returns two equations.
 
-The line before the last is the kernel table as JSON; the last line is
+Every file a phase writes goes to a temporary directory, removed at the
+end. The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -145,8 +174,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -184,13 +215,15 @@ def bench_data():
 
 
 def bench_options(sr, ncycles: int, populations: int = 0, optimize: bool = True, **kw):
-    """The headline configuration; ``populations`` 0 means ISLANDS."""
+    """The headline configuration; ``populations`` 0 means ISLANDS. No
+    files unless ``kw`` asks for them."""
     populations = populations or ISLANDS
+    kw.setdefault("save_to_file", False)
     return sr.Options(
         binary_operators=["+", "-", "*", "/"], unary_operators=["exp", "abs", "cos"],
         maxsize=30, populations=populations, population_size=256,
         tournament_selection_n=16, ncycles_per_iteration=ncycles,
-        should_optimize_constants=optimize, save_to_file=False, **kw)
+        should_optimize_constants=optimize, **kw)
 
 
 def was(name: str) -> str:
@@ -746,11 +779,13 @@ def phase_no_optimizer(torch, sr, dev, ncycles: int):
         raise RuntimeError(f"no-optimizer path launched {launches}, expected {expected}")
 
 
-def phase_search(sr, dev):
-    """Phase 7: equation_search with the default Options on the bench data."""
+def phase_search(sr, dev, out_base):
+    """Phase 7: equation_search with the default Options on the bench data;
+    its files (save_to_file is on by default) go under ``out_base``."""
     X, y = bench_data()
     t0 = time.perf_counter()
-    hof = sr.equation_search(X, y, niterations=2, seed=0, device=dev)
+    hof = sr.equation_search(X, y, options=sr.Options(output_directory=out_base), niterations=2,
+                             seed=0, device=dev, verbosity=0)
     best = min(hof.entries, key=lambda e: e.loss)
     print(f"  default Options: {time.perf_counter() - t0:.2f} s, best loss {best.loss:.6g} at "
           f"complexity {best.complexity}: {best.equation_string()}")
@@ -1671,6 +1706,343 @@ def phase_stage_search(torch, sr, dev):
     return launches, plaunches
 
 
+# ---------------------------------------------------------------------------
+# The search API: minibatches, checkpoints and resume, SRRegressor
+# ---------------------------------------------------------------------------
+
+BATCH_SIZE = 50             # Options' default batch_size
+BATCH_CYCLES = 10           # phases 20-21's cut depth (one optimizer run per iteration whatever it)
+CKPT_ITERS = 3              # phase 21: the uninterrupted run's iterations; the killed run stops at 2
+
+
+class RowRecorder:
+    """Wraps the ``__call__`` of kernels #1-#3's wrappers: records the rows
+    of every launch on the card and keeps a copy of the first launch's
+    arguments at each row count (to replay the path's own inputs against
+    the plain versions). ``close`` restores the wrappers."""
+
+    X_ARG = {"program_eval": 4, "program_multi": 3, "program_grad": 4}
+    device_type = "cuda"   # the device whose calls are launches
+
+    def __init__(self, torch):
+        from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+        self.rows = {name: [] for name in self.X_ARG}
+        self.first = {}
+        self._saved = {}
+        copy = lambda v: v.clone() if torch.is_tensor(v) else v
+        for k in (FE.PROGRAM_EVAL, FE.PROGRAM_MULTI, FE.PROGRAM_GRAD):
+            cls = type(k)
+            if cls in self._saved:
+                continue
+            orig = cls.__call__
+            self._saved[cls] = orig
+
+            def call(wrapper, *args, _orig=orig, **kw):
+                at = self.X_ARG.get(wrapper.name)
+                if at is not None and args[at].device.type == self.device_type:
+                    n = int(args[at].shape[-1])
+                    self.rows[wrapper.name].append(n)
+                    if (wrapper.name, n) not in self.first:
+                        self.first[(wrapper.name, n)] = (
+                            [copy(a) for a in args], {k2: copy(v) for k2, v in kw.items()})
+                return _orig(wrapper, *args, **kw)
+
+            cls.__call__ = call
+
+    def close(self):
+        for cls, orig in self._saved.items():
+            cls.__call__ = orig
+
+
+def eval_bound(torch, args):
+    """(bound ms, bound_by) of kernel #1's cost form on ``args`` (phase 3's
+    count: one operation per step and row, four for the loss term and sum;
+    inputs read once, loss, validity and cost written once)."""
+    instr, nsteps, cvals, _, X, _, _ = args[:7]
+    T, L = instr.shape
+    F, n = X.shape
+    CMAX = cvals.shape[1]
+    ops_count = float(nsteps.to(torch.float64).sum()) * n + 4.0 * n * T
+    bytes_moved = 4.0 * (T * L + T + T * CMAX + T + F * n + 2 * n + T + 3 + 3 * T)
+    return bound(ops_count, bytes_moved)
+
+
+def multi_bound(torch, args):
+    """(bound ms, bound_by) of kernel #2 on ``args`` (phase 4's count)."""
+    instr, nsteps, cv, X = args[:4]
+    T, V, CMAX = cv.shape
+    L, n = instr.shape[1], X.shape[1]
+    ops2 = (float(nsteps.to(torch.float64).sum()) + 4.0 * T) * V * n
+    return bound(ops2, 4.0 * (T * L + T + T * V * CMAX + X.shape[0] * n + 2 * n + 2 * T * V))
+
+
+def phase_batched_main_path(torch, sr, dev, kernel_rows):
+    """Phase 20: phase 5's configuration with minibatches of BATCH_SIZE
+    rows, BATCH_CYCLES cycles. Per iteration: #1 once per cycle on the
+    batch's rows and once in the finalize on every row, #2 8 times and #3
+    9 times on the batch's rows. #1-#3 replayed on the path's own 50-row
+    inputs against their plain versions and timed beside phases 3 and 4's
+    10,000-row times. The best member of the last finalize's population
+    (scored on every row) recomputed on the host in float64."""
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+    from symbolicregression_jl_tpu_torch.ops.encoding import decode_tree
+
+    options = bench_options(sr, BATCH_CYCLES, batching=True, batch_size=BATCH_SIZE)
+    recorder = {}
+    finalized = []
+
+    def install(engine):
+        if not engine.cfg.batching or engine.cfg.batch_size != BATCH_SIZE:
+            raise RuntimeError("the engine did not take the minibatch options")
+        finalize = engine._finalize_costs
+
+        def kept(pops, data):
+            out = finalize(pops, data)
+            finalized[:] = [out]
+            return out
+
+        engine._finalize_costs = kept
+        recorder["r"] = RowRecorder(torch)
+
+    iters = 2
+    try:
+        launches, _, _, _ = run_engine(torch, sr, dev, options, iters, on_engine=install)
+    finally:
+        if "r" in recorder:
+            recorder["r"].close()
+    rec = recorder["r"]
+    it = options.optimizer_iterations
+    expected = expect(launches, program_eval=iters * (BATCH_CYCLES + 1),
+                      program_multi=iters * it, program_grad=iters * (it + 1))
+    print(f"  expected {expected}")
+    if launches != expected:
+        raise RuntimeError(f"batched main path launched {launches}, expected {expected}")
+    want_rows = {"program_eval": ([BATCH_SIZE] * BATCH_CYCLES + [N_ROWS]) * iters,
+                 "program_multi": [BATCH_SIZE] * (iters * it),
+                 "program_grad": [BATCH_SIZE] * (iters * (it + 1))}
+    print(f"  rows per launch: #1 {rec.rows['program_eval'][:BATCH_CYCLES + 1]} (each "
+          f"iteration), #2 {sorted(set(rec.rows['program_multi']))}, #3 "
+          f"{sorted(set(rec.rows['program_grad']))}")
+    if rec.rows != want_rows:
+        raise RuntimeError(f"batched launches read rows {rec.rows}, expected {want_rows}")
+
+    check = Checks()
+    ops, el = options.operators, options.elementwise_loss
+    eargs, ekw = rec.first[("program_eval", BATCH_SIZE)]
+    T1 = eargs[0].shape[0]
+    lk, vk, ck = FE.PROGRAM_EVAL(*eargs, **ekw)
+    lk2, vk2, ck2 = FE.PROGRAM_EVAL(*eargs, **ekw)
+    lp, vp, cp = FE.program_eval_plain(*eargs, **ekw)
+    check("#1 (50 rows) two launches bit-identical", same(torch, lk, lk2)
+          and same(torch, vk, vk2) and same(torch, ck, ck2))
+    check("#1 (50 rows) validity bit-equal", same(torch, vk, vp))
+    same_inf, within, rel1, abs1 = close(torch, lk, lp)
+    check(f"#1 (50 rows) loss within rtol {RTOL}, inf in the same places (max rel err "
+          f"{rel1:.3g})", same_inf and within)
+    same_inf, within, relc, _ = close(torch, ck, cp)
+    check(f"#1 (50 rows) cost within rtol {RTOL} (max rel err {relc:.3g})", same_inf and within)
+    margs, _ = rec.first[("program_multi", BATCH_SIZE)]
+    ml, mv = FE.PROGRAM_MULTI(*margs)
+    pl, pv = FE.program_multi_plain(*margs)
+    check("#2 (50 rows) validity bit-equal", same(torch, mv, pv))
+    same_inf, within, rel2, abs2 = close(torch, torch.where(pv, ml, torch.inf),
+                                         torch.where(pv, pl, torch.inf))
+    check(f"#2 (50 rows) loss sum within rtol {RTOL} (max rel err {rel2:.3g})",
+          same_inf and within)
+    gargs, _ = rec.first[("program_grad", BATCH_SIZE)]
+    abs3, _, gvalid = grad_checks(torch, check, " (50 rows)", tuple(gargs[:7]), ops, el)
+    check.raise_if_failed("kernels #1-#3 on the batched path's inputs")
+
+    ms1 = cuda_ms(torch, lambda: FE.PROGRAM_EVAL(*eargs, **ekw), reps=20)
+    ms2 = cuda_ms(torch, lambda: FE.PROGRAM_MULTI(*margs), reps=20)
+    ms3 = cuda_ms(torch, lambda: FE.PROGRAM_GRAD(*gargs), reps=20)
+    b1, by1 = eval_bound(torch, eargs)
+    b2, by2 = multi_bound(torch, margs)
+    b3, by3, _, _ = grad_bound(torch, tuple(gargs[:7]))
+    full = {r["name"]: r["ms"] for r in kernel_rows}
+    T2, V2 = margs[2].shape[:2]
+    T3, V3 = gargs[3].shape[:2]
+    print(f"  #1 per 50-row launch ({T1} trees, cost form): {ms1:.4f} ms, bound {b1:.4f} ms "
+          f"({by1}); phase 3's 10,000-row launch {full['program_eval']:.4f} ms")
+    print(f"  #2 per 50-row launch ({T2} trees x V = {V2}): {ms2:.4f} ms, bound {b2:.4f} ms "
+          f"({by2}); phase 4's 10,000-row launch {full['program_multi']:.4f} ms")
+    print(f"  #3 per 50-row launch ({T3} trees x V = {V3}, {gvalid} pairs valid): {ms3:.4f} ms, "
+          f"bound {b3:.4f} ms ({by3}); phase 4's 10,000-row launch "
+          f"{full['program_grad']:.4f} ms")
+    print(f"  (CUDA events, mean of 20 on the path's own first 50-row inputs; max abs err "
+          f"#1 {abs1:.3g}, #2 {abs2:.3g}, #3 {abs3:.3g})")
+
+    # The last finalize's population, scored on every row. (After it, the
+    # hall of fame keeps the cycles' best with their batch losses, and
+    # migration copies hall-of-fame members into the islands, as in the JAX
+    # package.)
+    pops = finalized[0]
+    flat = pops.loss.reshape(-1)
+    i = int(torch.argmin(torch.where(torch.isfinite(flat), flat, torch.inf)))
+    P = options.population_size
+    fields = [f[i // P, i % P].cpu().numpy() for f in pops.trees.fields()]
+    tree = decode_tree(*fields, ops)
+    X, y = bench_data()
+    p = host_predict(torch, tree, X.astype(np.float64)).numpy()
+    host = float(np.mean((p - y.astype(np.float64)) ** 2))
+    got = float(flat[i])
+    print(f"  the last finalize's best member {sr.string_tree(tree)}: loss {got:.8g} (all "
+          f"rows), host float64 {host:.8g}")
+    if not abs(got - host) <= RTOL * abs(host):
+        raise RuntimeError(f"the finalize's loss {got} is off the host's {host}")
+    return launches
+
+
+def state_tensors(torch, state):
+    """The tensors of a SearchDeviceState, in field order."""
+    from symbolicregression_jl_tpu_torch.api.checkpoint import map_arrays
+
+    out = []
+    map_arrays(state, lambda t: out.append(t) or t)
+    return out
+
+
+def phase_checkpoint_resume(torch, sr, dev, out_base):
+    """Phase 21: equation_search at phase 20's configuration without
+    minibatches, BATCH_CYCLES cycles, writing CSVs and a checkpoint every
+    iteration under ``out_base``: CKPT_ITERS iterations straight through
+    against CKPT_ITERS - 1 then resume="auto" to CKPT_ITERS under the same
+    run_id; then the newest checkpoint corrupted and the resume repeated
+    from the previous one. Every state tensor bit-equal (the device
+    evaluation counter restarts at 0 on resume, so the totals are
+    compared), the CSVs byte-equal."""
+    import filecmp
+
+    from symbolicregression_jl_tpu_torch.api import checkpoint as CK
+
+    X, y = bench_data()
+    run = dict(verbosity=0, run_id="smoke", device=dev)
+    opts = lambda d: bench_options(sr, BATCH_CYCLES, save_to_file=True,
+                                   output_directory=os.path.join(out_base, d))
+    ropt = lambda n: sr.RuntimeOptions(niterations=n, checkpoint_every_n=1, seed=0,
+                                       verbosity=0, run_id="smoke")
+    writes = []
+    save = CK.save_search_state
+
+    def timed_save(path, state):
+        t0 = time.perf_counter()
+        save(path, state)
+        writes.append((time.perf_counter() - t0, os.path.getsize(path)))
+
+    CK.save_search_state = timed_save
+    from symbolicregression_jl_tpu_torch.shield import checkpoints as shield
+
+    shield.save_search_state = timed_save
+    try:
+        t0 = time.perf_counter()
+        straight, _ = sr.equation_search(X, y, options=opts("straight"),
+                                         runtime_options=ropt(CKPT_ITERS), return_state=True,
+                                         device=dev)
+        t1 = time.perf_counter()
+        sr.equation_search(X, y, options=opts("killed"), runtime_options=ropt(CKPT_ITERS - 1),
+                           device=dev)
+        t2 = time.perf_counter()
+        # The seed must not matter: the key comes from the checkpoint.
+        resumed, _ = sr.equation_search(X, y, options=opts("killed"), niterations=CKPT_ITERS,
+                                        resume="auto", return_state=True, seed=99, **run)
+        t3 = time.perf_counter()
+    finally:
+        CK.save_search_state = save
+        shield.save_search_state = save
+    print(f"  straight {CKPT_ITERS} iterations {t1 - t0:.2f} s; killed after "
+          f"{CKPT_ITERS - 1} {t2 - t1:.2f} s; resumed to {CKPT_ITERS} {t3 - t2:.2f} s")
+    secs, sizes = zip(*writes)
+    print(f"  {len(writes)} checkpoint writes: {sizes[0]} bytes each "
+          f"({sizes[0] / 2**20:.1f} MiB), {min(secs):.3f}-{max(secs):.3f} s a write "
+          f"(mean {sum(secs) / len(secs):.3f} s; digest, fsync, read-back, replace)")
+    check = Checks()
+    base_a = os.path.join(out_base, "straight", "smoke")
+    base_b = os.path.join(out_base, "killed", "smoke")
+
+    def compare(tag, state):
+        ta, tb = state_tensors(torch, straight.device_states[0]), state_tensors(
+            torch, state.device_states[0])
+        nev = straight.device_states[0].num_evals
+        diff = [k for k, (a, b) in enumerate(zip(ta, tb))
+                if a is not nev and not same(torch, a, b)]
+        check(f"{tag}: {len(ta) - 1} state tensors bit-equal", len(ta) == len(tb) and not diff)
+        check(f"{tag}: iterations_done {state.iterations_done}, total evaluations "
+              f"{state.num_evals:.9g} against {straight.num_evals:.9g}",
+              state.iterations_done == CKPT_ITERS
+              and abs(state.num_evals - straight.num_evals) <= 1e-6 * straight.num_evals)
+        check(f"{tag}: hall-of-fame CSVs byte-equal",
+              filecmp.cmp(os.path.join(base_a, "hall_of_fame.csv"),
+                          os.path.join(base_b, "hall_of_fame.csv"), shallow=False))
+
+    compare("resume", resumed)
+    newest = os.path.join(base_b, "search_state.pkl")
+    with open(newest, "r+b") as f:
+        f.seek(-64, os.SEEK_END)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([b[0] ^ 0xFF]))
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fallback, _ = sr.equation_search(X, y, options=opts("killed"), niterations=CKPT_ITERS,
+                                         resume="auto", return_state=True, seed=99, **run)
+    check("corrupt newest checkpoint: resume warned and fell back",
+          any("corrupt" in str(w.message) for w in caught))
+    compare("resume past the corrupt checkpoint", fallback)
+    check.raise_if_failed("checkpoint and resume")
+
+
+def phase_regressor(torch, sr, dev):
+    """Phase 22: SRRegressor with the default device_scale="auto" (512 x
+    256, 100 cycles) on phase 5's X with a target the bench operators
+    express, seeded with an initial population that holds it; predictions
+    on held-out rows against a float64 host evaluation of get_best();
+    MultitargetSRRegressor on two targets at 64 islands."""
+    X, _ = bench_data()
+    truth = "cos(2.13 * x1) + 0.5 * (x2 * abs(x3))"
+    f = lambda A: (np.cos(np.float32(2.13) * A[:, 0]) + np.float32(0.5) * (A[:, 1] * np.abs(
+        A[:, 2]))).astype(np.float32)
+    y = f(X)
+    held = np.random.default_rng(1).uniform(-3, 3, (2_000, N_FEATURES)).astype(np.float32)
+    kw = dict(binary_operators=["+", "-", "*", "/"], unary_operators=["exp", "abs", "cos"],
+              maxsize=30, save_to_file=False)
+    t0 = time.perf_counter()
+    model = sr.SRRegressor(niterations=2, seed=0, device=dev, **kw)
+    model.fit(X, y, initial_population=[truth, "cos(2.13 * x1)", "x2 * abs(x3)", "x1"])
+    o = model.options_
+    print(f"  SRRegressor: {time.perf_counter() - t0:.2f} s, device-scaled "
+          f"{model.device_scaled_} ({o.populations} x {o.population_size}, tournament "
+          f"{o.tournament_selection_n}, {o.ncycles_per_iteration} cycles)")
+    scale = model._DEVICE_SCALE_CONFIG
+    if not model.device_scaled_ or o.populations != scale["populations"] \
+            or o.population_size != scale["population_size"]:
+        raise RuntimeError("SRRegressor did not take the device scale on the card")
+    best = model.get_best()
+    print(f"  best: complexity {best.complexity}, loss {best.loss:.6g}: {best.equation}")
+    pred = model.predict(held)
+    host = host_predict(torch, best.tree, held.astype(np.float64)).numpy()
+    atol = 1e-5 * float(np.sqrt(np.mean(host ** 2)))
+    err = np.abs(pred - host)
+    print(f"  predict on {held.shape[0]} held-out rows: max |err| {err.max():.3g} against "
+          f"rtol 1e-5 or 1e-5 of the predictions' RMS ({atol:.3g}); R^2 on them "
+          f"{model.score(held, f(held)):.6f}")
+    if not np.all((err <= 1e-5 * np.abs(host)) | (err <= atol)):
+        raise RuntimeError("SRRegressor.predict disagrees with the host evaluation")
+    t0 = time.perf_counter()
+    multi = sr.MultitargetSRRegressor(niterations=2, seed=0, device=dev, populations=64,
+                                      population_size=256, tournament_selection_n=16,
+                                      ncycles_per_iteration=BATCH_CYCLES, **kw)
+    multi.fit(X, np.stack([y, X[:, 0] * X[:, 1]], axis=1))
+    eqs = multi.get_best()
+    print(f"  MultitargetSRRegressor (64 x 256, {BATCH_CYCLES} cycles): "
+          f"{time.perf_counter() - t0:.2f} s; " + "; ".join(
+              f"output {j + 1}: loss {e.loss:.6g}, {e.equation}" for j, e in enumerate(eqs)))
+    if len(eqs) != 2 or multi.predict(held).shape != (held.shape[0], 2):
+        raise RuntimeError("MultitargetSRRegressor did not return two equations")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ncycles", type=int, default=100,
@@ -1692,6 +2064,16 @@ def main() -> int:
     from symbolicregression_jl_tpu_torch.ops import cuda_build
 
     dev = torch.device("cuda")
+    # Every file a phase writes (hall-of-fame CSVs, checkpoints) goes here,
+    # never into the checkout; removed on the way out.
+    out_base = tempfile.mkdtemp(prefix="sr_chip_smoke_")
+    try:
+        return run_phases(args, torch, sr, cuda_build, dev, out_base)
+    finally:
+        shutil.rmtree(out_base, ignore_errors=True)
+
+
+def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
     print("[1] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -1736,7 +2118,7 @@ def main() -> int:
     phase_no_optimizer(torch, sr, dev, args.ncycles_plain)
 
     print("[7] equation_search")
-    phase_search(sr, dev)
+    phase_search(sr, dev, out_base)
 
     print("[8] kernels #4 and #5 against their plain versions")
     rows += phase_predict_kernels(torch, sr, dev)
@@ -1780,6 +2162,16 @@ def main() -> int:
     print("[19] equation_search with staged_eval, eval_precision='bf16' and the bf16 line search")
     _, plaunches = phase_stage_search(torch, sr, dev)
     bf16_rows[1]["launches"] = plaunches["program_eval_param_bf16"]
+
+    print("[20] batched main path (batching=True, batch_size 50)")
+    blaunches = phase_batched_main_path(torch, sr, dev, rows)
+    print(f"  launches of the batched main path (2 iterations): {blaunches}")
+
+    print("[21] checkpoints and resume at full width")
+    phase_checkpoint_resume(torch, sr, dev, out_base)
+
+    print("[22] SRRegressor and MultitargetSRRegressor on the card")
+    phase_regressor(torch, sr, dev)
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -15,12 +15,20 @@ backward (``csrc/program_predict.cu``, ``csrc/program_predict_vjp.cu``);
 the rest is eager PyTorch. Module paths mirror the JAX package so each
 module's counterpart is easy to find.
 
+The search API is the JAX package's: ``equation_search`` with guesses,
+``initial_population``, warm starts (``saved_state``), checkpoints and
+``resume``, hall-of-fame CSVs, several outputs and minibatching
+(``Options(batching=True)``); ``SRRegressor`` and
+``MultitargetSRRegressor`` fit and predict on top of it.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without CUDA and without that request they raise.
 """
 
-from .api.hall_of_fame import HallOfFame, HallOfFameEntry
-from .api.search import equation_search
+from .api.hall_of_fame import (HallOfFame, HallOfFameEntry, load_hall_of_fame_csv,
+                               save_hall_of_fame_csv)
+from .api.regressor import MultitargetSRRegressor, SRRegressor
+from .api.search import RuntimeOptions, SearchState, equation_search, warmup
 from .core.dataset import Dataset, make_dataset
 from .core.options import MutationWeights, Options
 from .evolve.engine import Engine
@@ -34,15 +42,22 @@ __all__ = [
     "ExpressionSpec",
     "HallOfFame",
     "HallOfFameEntry",
+    "MultitargetSRRegressor",
     "MutationWeights",
     "Node",
     "Op",
     "OperatorSet",
     "Options",
     "ParametricExpressionSpec",
+    "RuntimeOptions",
+    "SRRegressor",
+    "SearchState",
     "TemplateExpressionSpec",
     "equation_search",
+    "load_hall_of_fame_csv",
     "make_dataset",
     "parse_expression",
+    "save_hall_of_fame_csv",
     "string_tree",
+    "warmup",
 ]

@@ -1,26 +1,28 @@
-"""Host-side hall of fame: pareto frontier, scores, formatting.
+"""Host-side hall of fame: pareto frontier, scores, formatting, CSV files.
 
 Port of ``symbolicregression_jl_tpu/api/hall_of_fame.py``. The
 device-resident `HofState` (best member per complexity, evolve/step.py) is
 decoded into host `Node` trees here (with their (n_params, n_classes)
 parameter matrix for parametric members), or into a
 `HostTemplateExpression` of named subtrees and parameter values for
-template members.
+template members. The CSV files are byte-equal to the JAX package's for
+the same entries, and each package reads the other's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
 
 from ..ops.encoding import decode_tree
 from ..ops.operators import OperatorSet
-from ..ops.tree import Node, string_tree
+from ..ops.tree import Node, parse_expression, string_tree
 
 __all__ = ["HallOfFameEntry", "HallOfFame", "calculate_pareto_frontier", "compute_scores",
-           "string_dominating_pareto_curve"]
+           "string_dominating_pareto_curve", "save_hall_of_fame_csv", "load_hall_of_fame_csv"]
 
 
 @dataclasses.dataclass
@@ -140,3 +142,56 @@ def string_dominating_pareto_curve(hof: HallOfFame, operators: OperatorSet,
         lines.append("│ " + row.ljust(width - 2) + " │")
     lines.append("└" + sep + "┘")
     return "\n".join(lines)
+
+
+def save_hall_of_fame_csv(path: str, hof: HallOfFame, operators: OperatorSet,
+                          variable_names: Optional[Sequence[str]] = None,
+                          precision: int = 12) -> None:
+    """Write a ``Complexity,Loss,Equation`` CSV: the body goes to
+    ``path + ".bak"`` first and is then moved over ``path``, so a crash
+    mid-write never leaves a half-written file. Parametric entries add a
+    ``Parameters`` column, the (n_params, n_classes) bank flattened and
+    ;-separated, so a warm start restores the fitted parameters."""
+    del operators
+    parametric = any(e.params is not None for e in hof.entries)
+    header = "Complexity,Loss,Equation"
+    rows = [header + ",Parameters" if parametric else header]
+    for e in hof.entries:
+        eq = e.equation_string(variable_names=variable_names, precision=precision)
+        row = f'{e.complexity},{e.loss!r},"{eq}"'
+        if parametric:
+            p = (";".join(repr(float(v)) for v in np.asarray(e.params).ravel())
+                 if e.params is not None else "")
+            row += f',"{p}"'
+        rows.append(row)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    bak = path + ".bak"
+    with open(bak, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    os.replace(bak, path)
+
+
+def load_hall_of_fame_csv(path: str, operators: OperatorSet,
+                          variable_names: Optional[Sequence[str]] = None,
+                          return_params: bool = False):
+    """Parse a hall-of-fame CSV back into trees (the warm-start path).
+    ``return_params=True`` also returns each entry's flat parameter vector
+    from the ``Parameters`` column (None where absent)."""
+    import csv
+
+    trees: List[Node] = []
+    params: List[Optional[np.ndarray]] = []
+    with open(path) as f:
+        reader = csv.reader(f)
+        header = next(reader, None)
+        if header is None or not header[0].startswith("Complexity"):
+            raise ValueError(f"Not a hall-of-fame CSV: {path}")
+        has_params = len(header) > 3 and header[3] == "Parameters"
+        for parts in reader:
+            if not parts:
+                continue
+            trees.append(parse_expression(parts[2].strip(), operators,
+                                          variable_names=variable_names))
+            params.append(np.asarray([float(v) for v in parts[3].split(";")])
+                          if has_params and len(parts) > 3 and parts[3] else None)
+    return (trees, params) if return_params else trees

@@ -49,21 +49,29 @@ class DeviceData:
     def n(self) -> int:
         return int(self.Xt.shape[1])
 
+    def take_rows(self, idx: torch.Tensor) -> "DeviceData":
+        """Rows ``idx`` [B] (any order, repeats allowed) as a DeviceData of
+        their own: X, y, weights and classes gathered into contiguous
+        tensors (the kernels read contiguous [F, n] storage), the baseline
+        normalization the full data's. A minibatch is gathered once per
+        iteration and read by every cycle and the constant optimizer."""
+        idx = idx.to(self.device).long()
+        take = lambda t: None if t is None else t.index_select(-1, idx).contiguous()
+        return DeviceData(Xt=take(self.Xt), y=take(self.y), weights=take(self.weights),
+                          baseline_loss=self.baseline_loss, use_baseline=self.use_baseline,
+                          class_idx=take(self.class_idx))
+
     def strided_sample(self, sample_rows: int) -> "DeviceData":
         """graftstage's screening rows (``ops.fused_eval.strided_sample_indices``)
-        as a DeviceData of their own: X, y, weights and classes gathered
-        once per size and kept, the baseline normalization the full data's."""
+        as a DeviceData of their own (``take_rows``), made once per size and
+        kept. On a minibatch these are the batch's strided rows, as the JAX
+        package's ``take(batch_idx, strided)``."""
         sample = self._samples.get(sample_rows)
         if sample is None:
             from ..ops.fused_eval import strided_sample_indices
 
-            idx = torch.from_numpy(strided_sample_indices(self.n, sample_rows)).to(
-                self.device).long()
-            take = lambda t: None if t is None else t[..., idx].contiguous()
-            sample = DeviceData(Xt=take(self.Xt), y=take(self.y), weights=take(self.weights),
-                                baseline_loss=self.baseline_loss,
-                                use_baseline=self.use_baseline,
-                                class_idx=take(self.class_idx))
+            sample = self.take_rows(torch.from_numpy(
+                strided_sample_indices(self.n, sample_rows)))
             self._samples[sample_rows] = sample
         return sample
 
@@ -75,6 +83,7 @@ class Dataset:
     data: DeviceData
     n: int
     nfeatures: int
+    index: int = 1                   # the output this dataset holds, from 1
     avg_y: Optional[float] = None
     variable_names: Sequence[str] = ()
     display_variable_names: Sequence[str] = ()
@@ -132,8 +141,10 @@ def make_dataset(
     *,
     weights=None,
     variable_names: Optional[Sequence[str]] = None,
+    display_variable_names: Optional[Sequence[str]] = None,
     y_variable_name: Optional[str] = None,
     extra: Optional[Dict[str, Any]] = None,
+    index: int = 1,
     device=None,
 ) -> Dataset:
     """Build a Dataset from ``X: (n, nfeatures)`` and ``y: (n,)`` on
@@ -141,7 +152,8 @@ def make_dataset(
 
     ``extra={"class": values}`` (or ``"classes"``) gives each row a class
     for parametric expressions: ``class_idx`` holds each value's index
-    among the sorted unique values."""
+    among the sorted unique values. ``index`` numbers the output this
+    dataset holds in a multi-output search (from 1)."""
     dev = resolve_device(device)
     X = np.asarray(X)
     if X.ndim != 2:
@@ -161,10 +173,9 @@ def make_dataset(
 
     variable_names = list(variable_names or [f"x{i + 1}" for i in range(nfeatures)])
     default_names = [f"x{i + 1}" for i in range(nfeatures)]
-    display_variable_names = (
+    display_variable_names = list(display_variable_names or (
         variable_names if variable_names != default_names
-        else [f"x{_subscriptify(i + 1)}" for i in range(nfeatures)]
-    )
+        else [f"x{_subscriptify(i + 1)}" for i in range(nfeatures)]))
     if y_variable_name is None:
         y_variable_name = "y" if "y" not in variable_names else "target"
 
@@ -183,7 +194,7 @@ def make_dataset(
         class_idx=None if class_idx is None else t(class_idx),
     )
     return Dataset(
-        data=data, n=n, nfeatures=nfeatures, avg_y=avg_y,
+        data=data, n=n, nfeatures=nfeatures, index=index, avg_y=avg_y,
         variable_names=variable_names,
         display_variable_names=display_variable_names,
         y_variable_name=y_variable_name,

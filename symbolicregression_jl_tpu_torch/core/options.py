@@ -2,8 +2,8 @@
 
 `Options` carries every search hyperparameter with the same defaults and
 the same validation errors as the JAX package. The PyTorch port runs
-plain expressions and template expressions without parameters;
-:func:`check_supported` refuses, by name and with the later slice that
+plain, parametric and template expressions, minibatching and graftstage;
+:func:`check_supported` refuses, by name and with the ROADMAP item that
 brings it, every option this port does not carry yet.
 """
 
@@ -730,9 +730,14 @@ class Options:
 
 def _refuse(what: str, where: str) -> None:
     raise NotImplementedError(
-        f"{what} is not in the PyTorch port yet; it comes with {where} "
-        f"(ROADMAP.md queue 1)."
-    )
+        f"{what} is not in the PyTorch port yet; it comes with {where}.")
+
+
+# The slices that bring what the port still refuses, as ROADMAP.md queue 1
+# numbers them.
+SEARCH_API_REST = "the rest of the search-API slice (ROADMAP.md queue 1 item 3)"
+PLUGIN_SLICE = "the expression-plugin slice (ROADMAP.md queue 1 item 4)"
+OBSERVABILITY_SLICE = "the observability slice (ROADMAP.md queue 1 item 5)"
 
 
 def _check_expression_spec(options: Options) -> None:
@@ -745,30 +750,28 @@ def _check_expression_spec(options: Options) -> None:
     if spec is None or type(spec) is ExpressionSpec or isinstance(spec, ParametricExpressionSpec):
         return
     if not isinstance(spec, TemplateExpressionSpec):
-        _refuse(f"expression_spec of type {type(spec).__name__}", "a later slice")
+        _refuse(f"expression_spec of type {type(spec).__name__}", PLUGIN_SLICE)
     if spec.structure.uses_deriv and options.should_optimize_constants:
         _refuse("constant optimization of a template with D(...) call sites "
                 "(should_optimize_constants=True; it needs second-order derivatives)",
-                "the interpreter-path slice of templates (step 8)")
+                PLUGIN_SLICE)
 
 
 def check_supported(options: Options) -> None:
     """Raise NotImplementedError for every option outside the
     elementwise-loss paths this port carries (plain, parametric and
-    template expressions, with graftstage's staged and bf16 evaluation)."""
-    if options.batching:
-        _refuse("batching=True (minibatched evaluation)",
-                "the engine slice that ports minibatching")
+    template expressions, minibatching, graftstage's staged and bf16
+    evaluation), naming the ROADMAP item that brings it."""
     _check_expression_spec(options)
     if options.dimensional_constraint_penalty is not None:
-        _refuse("dimensional_constraint_penalty (units)",
-                "the expression-plugin slice (step 8)")
+        _refuse("dimensional_constraint_penalty (units)", PLUGIN_SLICE)
     if options.loss_function is not None or options.loss_function_expression is not None:
         _refuse("loss_function / loss_function_expression (custom "
-                "whole-prediction losses)", "the search-API slice (step 6)")
+                "whole-prediction losses)", SEARCH_API_REST)
     if options.telemetry:
-        _refuse("telemetry=True", "the observability slice (step 9)")
+        _refuse("telemetry=True", OBSERVABILITY_SLICE)
     if options.use_recorder:
-        _refuse("use_recorder=True", "the observability slice (step 9)")
+        _refuse("use_recorder=True", OBSERVABILITY_SLICE)
     if str(options.eval_dtype) not in ("float32", "f32"):
-        _refuse(f"eval_dtype={options.eval_dtype!r}", "a later slice (f32 only)")
+        _refuse(f"eval_dtype={options.eval_dtype!r} (the kernels compute in float32)",
+                SEARCH_API_REST)

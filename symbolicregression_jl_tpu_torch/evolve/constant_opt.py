@@ -388,8 +388,8 @@ def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, dat
     if template.uses_deriv:
         raise NotImplementedError(
             "constant optimization of templates with D(...) call sites needs second-order "
-            "derivatives; it comes with the interpreter-path slice (ROADMAP.md queue 1 "
-            "step 8).")
+            "derivatives; it comes with the expression-plugin slice (ROADMAP.md queue 1 "
+            "item 4).")
     K, L = trees.arity.shape[-2:]
     lead = trees.length.shape[:-1]
     T = template.total_params

@@ -7,10 +7,16 @@ reference iteration for every island at once:
     s_r_cycle (ncycles bulk generation steps over the annealing ramp)
     -> constant folding (simplify)
     -> constant optimization of the selected members (evolve/constant_opt.py)
-    -> finalize costs (the whole population re-scored, duplicates once)
+    -> finalize costs (the whole population re-scored on every row,
+       duplicates once)
     -> hall-of-fame merge across islands
     -> migration (island <- best members of all islands, island <- HoF)
     -> running-statistics update (frequency histogram, windowing)
+
+With ``Options(batching=True)`` the cycles and the optimizer read one
+minibatch of ``batch_size`` rows an iteration (``draw_batch``: the fifth
+key's ``randint``, as the JAX package draws it), gathered once into
+contiguous tensors; the evaluation count scales by ``batch_size / n``.
 
 The optimizer's randomness is drawn as the JAX package draws it
 (``_epilogue_draws``), so one key gives the same selection in both.
@@ -205,6 +211,14 @@ class Engine:
             key=k_state,
         )
 
+    def draw_batch(self, k_batch, data: DeviceData) -> Optional[DeviceData]:
+        """With ``batching``, this iteration's minibatch: ``batch_size``
+        rows drawn as ``jax.random.randint(k_batch, (batch_size,), 0, n)``
+        and gathered into contiguous tensors; else None."""
+        if not self.cfg.batching:
+            return None
+        return data.take_rows(rng.randint(k_batch, (self.cfg.batch_size,), 0, data.n))
+
     # ------------------------------------------------------------------
     def run_iteration(self, state: SearchDeviceState, data: DeviceData,
                       cur_maxsize: int) -> SearchDeviceState:
@@ -214,18 +228,24 @@ class Engine:
         I = state.birth.shape[0]
         P = cfg.population_size
         ks = rng.split(state.key, 5)
-        key, _k_batch, k_cycle, k_opt, k_mig = (ks[i] for i in range(5))
+        key, k_batch, k_cycle, k_opt, k_mig = (ks[i] for i in range(5))
+        # Minibatching: one batch of rows per iteration, gathered once, read
+        # by every cycle and the constant optimizer (the finalize reads all
+        # rows); evaluations count as batch_size / n of a full one.
+        batch = self.draw_batch(k_batch, data)
+        eval_fraction = cfg.batch_size / data.n if batch is not None else 1.0
+        cycle_data = batch if batch is not None else data
 
         pops, best_seen, nev, birth, ref, marks = s_r_cycle(
-            rng.split(k_cycle, I), state.pops, data, state.stats.normalized_frequencies,
+            rng.split(k_cycle, I), state.pops, cycle_data, state.stats.normalized_frequencies,
             cur_maxsize, state.birth, state.ref, cfg, options, self.tables,
             options.elementwise_loss)
-        num_evals = state.num_evals + torch.sum(nev)
+        num_evals = state.num_evals + torch.sum(nev) * eval_fraction
 
         k_sel, scores, gate, ko2 = self._epilogue_draws(k_opt, I)
         pops, ref, f_calls = self._island_epilogue(pops, ref, marks[0], marks[1], scores,
-                                                   gate, ko2, data, k_sel)
-        num_evals = num_evals + f_calls
+                                                   gate, ko2, data, k_sel, batch=batch)
+        num_evals = num_evals + f_calls * eval_fraction
         num_evals = num_evals + I * P  # the finalize re-eval
 
         # ---- merge best_seen + final pops into the global HoF ----
@@ -269,9 +289,11 @@ class Engine:
                                  num_evals=num_evals, key=key)
 
     def _island_epilogue(self, pops: PopulationState, ref, simp_mark, opt_mark, scores, gate,
-                         opt_key, data: DeviceData, k_sel: int):
-        """Fold constants, optimize the selected members' constants,
-        finalize costs, rotate lineage refs. Returns (pops, ref, f_calls)."""
+                         opt_key, data: DeviceData, k_sel: int,
+                         batch: Optional[DeviceData] = None):
+        """Fold constants, optimize the selected members' constants (on the
+        minibatch ``batch`` where there is one), finalize costs on every
+        row, rotate lineage refs. Returns (pops, ref, f_calls)."""
         cfg = self.cfg
         options = self.options
         I, P = pops.cost.shape
@@ -285,7 +307,8 @@ class Engine:
             pops = dataclasses.replace(pops, trees=select_tree(simp_mark, folded, pops.trees))
         f_calls = torch.zeros((), dtype=torch.float32, device=self.device)
         if scores is not None:
-            pops, f_calls = self._optimize(pops, opt_mark, scores, gate, opt_key, data, k_sel)
+            pops, f_calls = self._optimize(pops, opt_mark, scores, gate, opt_key,
+                                           batch if batch is not None else data, k_sel)
         pops = self._finalize_costs(pops, data)
         new_refs = ref[:, None] + torch.arange(P, dtype=torch.int32, device=self.device)[None, :]
         pops = dataclasses.replace(pops, parent=pops.ref, ref=new_refs)

@@ -22,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["key", "split", "fold_in", "random_bits", "uniform", "bernoulli",
+__all__ = ["key", "split", "fold_in", "random_bits", "uniform", "randint", "bernoulli",
            "gumbel", "categorical", "permutation", "normal", "USlice", "u_randint",
            "u_masked_choice", "u_bernoulli", "u_normal", "u_categorical_weights"]
 
@@ -125,6 +125,21 @@ def uniform(k: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) ->
     # rounded to float32 gives the fused result.
     scaled = (floats.double() * (hi - lo).double() + lo.double()).to(torch.float32)
     return torch.maximum(lo, scaled)
+
+
+def randint(k: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` for int32:
+    [..., *shape] in [minval, maxval). Two 32-bit words per value (from
+    the two halves of a split key) reduced modulo the span, with JAX's
+    uint32 arithmetic (int64 here, masked back to 32 bits)."""
+    span = max(int(maxval) - int(minval), 1)
+    ks = split(k, 2)
+    mask = 0xFFFFFFFF
+    hi = random_bits(ks[..., 0, :], shape).to(torch.int64) & mask
+    lo = random_bits(ks[..., 1, :], shape).to(torch.int64) & mask
+    multiplier = (((1 << 16) % span) ** 2 & mask) % span
+    offset = ((hi % span) * multiplier + lo % span) & mask
+    return (int(minval) + offset % span).to(torch.int32)
 
 
 def bernoulli(k: torch.Tensor, p: float, shape) -> torch.Tensor:

@@ -108,6 +108,10 @@ class EvolveConfig(NamedTuple):
     staged_sample_fraction: float = 0.125
     rescore_fraction: float = 0.25
     eval_tile_rows: int = KERNEL_TILE_ROWS
+    # Minibatching: each iteration's cycles and constant optimizer read
+    # ``batch_size`` rows drawn once per iteration (the finalize reads all).
+    batching: bool = False
+    batch_size: int = 50
 
     @property
     def n_slots(self) -> int:
@@ -165,6 +169,8 @@ def evolve_config_from_options(options: Options, nfeatures: int, device: torch.d
         staged_sample_fraction=options.staged_sample_fraction,
         rescore_fraction=options.rescore_fraction,
         eval_tile_rows=options.eval_geometry().tile_rows,
+        batching=options.batching,
+        batch_size=options.batch_size,
     )
 
 

@@ -171,8 +171,8 @@ class ComposableExpression:
     def derivative(self, argnum: int = 1) -> "ComposableExpression":
         raise NotImplementedError(
             "the host-side symbolic derivative of a ComposableExpression (ops/diff.py) is "
-            "not in the PyTorch port yet; it comes with the symbolic-differentiation slice "
-            "(ROADMAP.md queue 1 step 8).")
+            "not in the PyTorch port yet; it comes with the expression-plugin slice "
+            "(ROADMAP.md queue 1 item 4).")
 
     def _compose(self, args: Sequence["ComposableExpression"]):
         if len(args) < self.nfeatures:

@@ -555,6 +555,9 @@ TILE_CASES = {
     "ragged": dict(n=1001, nlength=6),
     # fewer rows than lanes: one partial tile, most lanes empty
     "n_below_lanes": dict(n=100, nlength=6),
+    # a minibatch (batch_size 50, the Options default) and a single row
+    "batch_50": dict(n=50, nlength=6),
+    "one_row": dict(n=1, nlength=6),
     # graftstage's screening sample of a 10,000-row dataset
     "sample_1250": dict(n=1250, nlength=8),
     # one step per tree: its result is the root, nothing is stored
@@ -757,6 +760,9 @@ GRAD_CASES = {
     "ragged": dict(n=1001, nlength=6),
     # fewer rows than lanes: one partial tile
     "n_below_lanes": dict(n=100, nlength=6),
+    # a minibatch (batch_size 50, the Options default) and a single row
+    "batch_50": dict(n=50, nlength=6),
+    "one_row": dict(n=1, nlength=(2, 8, 16)),
     # one step per tree: its result is the root
     "one_step": dict(n=512, nlength=1),
     # trees of every step-count class of csrc/program_grad.cu in one call

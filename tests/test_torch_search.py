@@ -92,7 +92,8 @@ def test_kernel_wrapper_not_launched_on_cpu():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(batching=True),
+    dict(loss_function_expression="(prediction - target)^2"),
+    dict(eval_dtype="float64"),
     dict(telemetry=True),
     dict(use_recorder=True),
     dict(dimensional_constraint_penalty=1000.0),
@@ -146,14 +147,30 @@ def test_default_options_search_runs_the_constant_optimizer(monkeypatch):
     assert np.isfinite(min(e.loss for e in hof.entries))
 
 
-@pytest.mark.parametrize("kw", [dict(resume="auto"), dict(saved_state=object()),
-                                dict(X_units=["m", "s"]), dict(return_state=True),
-                                dict(runtime_options=object()), dict(dtype=np.float64),
-                                dict(guesses=["x1"]), dict(extra={"weights2": [1.0]})])
+@pytest.mark.parametrize("kw", [dict(y_units="m"),
+                                dict(runtime_options=S.RuntimeOptions(n_data_shards=2)),
+                                dict(X_units=["m", "s"]),
+                                dict(runtime_options=S.RuntimeOptions(logger=object())),
+                                dict(runtime_options=S.RuntimeOptions(mesh_runtime=True)),
+                                dict(dtype=np.float64),
+                                dict(runtime_options=S.RuntimeOptions(engine_cache=object())),
+                                dict(extra={"weights2": [1.0]})])
 def test_search_arguments_outside_the_slice_refuse(kw):
     with pytest.raises(NotImplementedError, match="PyTorch port"):
         S.equation_search(*_problem(n=16), options=_options(), niterations=1, device="cpu",
                           **kw)
+
+
+def test_regressor_export_refuses():
+    """latex() and sympy() of a fitted SRRegressor name the export slice."""
+    X, y = _problem(n=16)
+    model = S.SRRegressor(niterations=1, seed=0, device="cpu", binary_operators=["+", "*"],
+                          populations=2, population_size=8, ncycles_per_iteration=2,
+                          tournament_selection_n=4, should_optimize_constants=False,
+                          save_to_file=False).fit(X, y)
+    for export in (model.latex, model.sympy):
+        with pytest.raises(NotImplementedError, match="PyTorch port"):
+            export()
 
 
 def test_progress_false_runs_and_progress_true_refuses():
@@ -177,7 +194,8 @@ def test_parametric_search_on_the_cpu():
     through kernel #1p's wrapper, its plain version here, which counts no
     launch): its entries carry (1, 3) banks and print their parameter
     leaves; one seed gives one hall of fame; without the class column it
-    raises ValueError, and guesses stay refused."""
+    raises ValueError; a guess with its fitted bank enters the hall of
+    fame with that bank."""
     from symbolicregression_jl_tpu_torch.ops.fused_eval import PROGRAM_EVAL_PARAM
 
     rng = np.random.default_rng(3)
@@ -199,9 +217,10 @@ def test_parametric_search_on_the_cpu():
     assert any("p1" in e.equation_string() for e in hof.entries)
     with pytest.raises(ValueError, match="class"):
         S.equation_search(X, y, options=o, niterations=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="PyTorch port"):
-        S.equation_search(X, y, options=o, niterations=1, device="cpu", guesses=["x1"],
-                          extra={"class": cls})
+    bank = np.array([[1.0, -2.0, 0.5]])
+    guessed = S.equation_search(X, y, options=o, niterations=1, seed=1, device="cpu",
+                                guesses=[("2.0 * x1 + p1", bank)], extra={"class": cls})
+    assert min(e.loss for e in guessed.entries) <= 1e-10
 
 
 def test_entry_points_refuse_missing_cuda(monkeypatch):

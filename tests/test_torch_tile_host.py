@@ -29,7 +29,8 @@ arithmetic or summation order does. The tests hold:
   phase 8's tolerances);
 - two launches of each bit-identical;
 
-on ragged row counts, lane counts W of 32, 64 and 256, V of 1, 3 and 24,
+on ragged row counts, a minibatch's 50 rows and a single row (fewer rows
+than lanes), lane counts W of 32, 64 and 256, V of 1, 3 and 24,
 shared and per-member X, repeated arguments, constant-only trees, one-step
 programs and trees of every step-count class. They skip where g++ is
 missing. ``build_host_library`` also builds another checkout's sources, so
@@ -398,6 +399,11 @@ GRAD_CASES = {
     # two vectors
     "step_classes_W64_V3": dict(n=203, W=64, V=3, nlength=(2, 8, 16)),
     "long_W256_V24": dict(n=301, W=256, V=24, nlength=24),
+    # a minibatch's rows (batch_size 50) and a single row: fewer rows than
+    # lanes, at the lane count of the bench shapes
+    "batch50_W256_V24": dict(n=50, W=256, V=24, nlength=6),
+    "batch50_step_classes_W256_V3": dict(n=50, W=256, V=3, nlength=(2, 8, 16)),
+    "one_row_W256_V3": dict(n=1, W=256, V=3, nlength=6),
 }
 
 
@@ -444,6 +450,9 @@ PREDICT_CASES = {
     "shared_F3_W32": dict(n=250, F=3, per_member=False, W=32),
     "per_member_F2_W64": dict(n=203, F=2, per_member=True, W=64),
     "per_member_F2_aligned_W256": dict(n=512, F=2, per_member=True, W=256),
+    # a minibatch's rows and a single row: fewer rows than lanes
+    "shared_batch50_W256": dict(n=50, F=1, per_member=False, W=256),
+    "per_member_one_row_W256": dict(n=1, F=2, per_member=True, W=256),
 }
 
 
@@ -505,6 +514,9 @@ VJP_CASES = {
     "step_classes_shared_W64": dict(n=203, F=2, per_member=False, W=64, nlength=(2, 8, 16)),
     "step_classes_per_member_W256": dict(n=301, F=2, per_member=True, W=256,
                                          nlength=(2, 8, 16)),
+    # a minibatch's rows and a single row: fewer rows than lanes
+    "shared_batch50_W256": dict(n=50, F=1, per_member=False, W=256, nlength=5),
+    "per_member_one_row_W256": dict(n=1, F=2, per_member=True, W=256, nlength=(2, 8, 16)),
 }
 
 
