@@ -40,9 +40,9 @@ Phases (any failure exits nonzero and prints no result line):
    iteration: ncycles + 1 of #1, 8 of #2, 9 of #3), peak memory.
 6. The same without the constant optimizer (the first slice's path) at a
    cut depth: launches of #1 only.
-7. `equation_search(X, y, niterations=2, device="cuda")` with the default
-   Options on the same data; two iterations keep the whole script well
-   within its time limit.
+7. `equation_search(X, y, niterations=1, device="cuda")` with the default
+   Options on the same data; one iteration (two until phases 23-25 came)
+   keeps the whole script well within its time limit.
 8. Hold kernels #4 and #5 against their plain versions at the template
    cycle's shapes: 16,384 random trees (maxsize 30, + - * cos), 10,000
    rows, random cotangents for #5, every fifth tree's const_ok cleared;
@@ -163,6 +163,37 @@ Phases (any failure exits nonzero and prints no result line):
    evaluation of get_best() within rtol 1e-5 (or 1e-5 of the predictions'
    RMS where rows cancel); MultitargetSRRegressor on two targets at 64
    islands x 256, 10 cycles, returns two equations.
+
+23. Telemetry at full width: equation_search on phase 5's configuration
+   at TELEM_CYCLES = 10 cycles, TELEM_ITERS = 3 iterations, with
+   telemetry=True (use_recorder off) and off, in turns (off, on, on, off):
+   every state tensor and the hall of fame bit-identical; the JSONL valid,
+   its events run_start, 3 x iteration, run_end; per iteration the
+   identities between the counters (the JAX package's meaning: per island
+   in the cycles, plus the finalize) and kernel #1's calls read by
+   wrapping its wrapper's __call__ (W calls, the last the dedup'd finalize
+   over every row): eval_launches = I (W - 1) + 1, eval_rows = the cycle
+   launches' trees + I P, finalize_rows = I P; host syncs per iteration
+   (warnings under torch.cuda.set_sync_debug_mode("warn"), on in every
+   run) equal with telemetry on and off; s/iteration on and off, host_fraction, and the
+   sr:* ranges of one torch.profiler capture of an iteration. Then the
+   plain-staged cell (phase 17's) the same way: screen_launches and
+   rescore_launches = I x the screen (1,250-row) and rescore (10,000-row)
+   calls, screen_rows and rescore_rows = their trees, eval_rows =
+   screen_rows + I P.
+24. The mini matrix's quality: the 12 non-sharded cells of
+   benchmarks/baseline.json (plain, plain-staged, plain-bf16,
+   plain-staged-bf16, parametric, template x seeds 0 and 1; bench/cell.py
+   MINI) through the port's bench/cell.py on the card, each on its kernel
+   (#1, 1b, #1p, #4 by the wrappers' launch counters), gated by the port's
+   bench/gate.py: band excursions soft (another library than the
+   baseline's), the backstops (best_loss 10x, pareto_volume 0.1x) hard.
+   Prints each cell's best_loss and pareto_volume beside the baseline's.
+25. A stop between chunks: phase 5's configuration at 100 cycles; a
+   single-chunk iteration (timed) and a chunked one ([25] x 4, no stop)
+   from one state bit-identical; equation_search with timeout_in_seconds
+   at a quarter of that iteration stops within its first iteration, after
+   the epilogue (the counters give the cycles run). Prints the overshoot.
 
 Every file a phase writes goes to a temporary directory, removed at the
 end. The line before the last is the kernel table as JSON; the last line is
@@ -784,7 +815,7 @@ def phase_search(sr, dev, out_base):
     its files (save_to_file is on by default) go under ``out_base``."""
     X, y = bench_data()
     t0 = time.perf_counter()
-    hof = sr.equation_search(X, y, options=sr.Options(output_directory=out_base), niterations=2,
+    hof = sr.equation_search(X, y, options=sr.Options(output_directory=out_base), niterations=1,
                              seed=0, device=dev, verbosity=0)
     best = min(hof.entries, key=lambda e: e.loss)
     print(f"  default Options: {time.perf_counter() - t0:.2f} s, best loss {best.loss:.6g} at "
@@ -2043,6 +2074,350 @@ def phase_regressor(torch, sr, dev):
         raise RuntimeError("MultitargetSRRegressor did not return two equations")
 
 
+# ---------------------------------------------------------------------------
+# Observability: telemetry at full width, the mini matrix's quality, a stop
+# between chunks (phases 23-25)
+# ---------------------------------------------------------------------------
+
+TELEM_CYCLES = 10           # phase 23's cut depth (one optimizer run per iteration whatever it)
+TELEM_ITERS = 3
+QUALITY_SEEDS = (0, 1)
+QUALITY_KERNEL = {"plain": "program_eval", "plain-staged": "program_eval",
+                  "plain-bf16": "program_eval_bf16", "plain-staged-bf16": "program_eval_bf16",
+                  "parametric": "program_eval_param", "template": "program_predict"}
+
+
+class TreeRecorder:
+    """Wraps the ``__call__`` of kernel #1's wrapper: records (trees, rows)
+    of every call that launches it (tensors on ``device_type``), for the
+    counters' identities. ``close`` restores the wrapper."""
+
+    device_type = "cuda"   # the device whose calls are launches
+
+    def __init__(self):
+        from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+        self.calls = []
+        self._cls = type(FE.PROGRAM_EVAL)
+        self._orig = orig = self._cls.__call__
+
+        def call(wrapper, *args, **kw):
+            if wrapper.name == "program_eval" and args[4].device.type == self.device_type:
+                self.calls.append((int(args[0].shape[0]), int(args[4].shape[-1])))
+            return orig(wrapper, *args, **kw)
+
+        self._cls.__call__ = call
+
+    def close(self):
+        self._cls.__call__ = self._orig
+
+
+def telemetry_search(torch, sr, dev, options, data, out_base, run_id, count_syncs=False,
+                     recorder=None):
+    """equation_search(niterations=TELEM_ITERS) with a stop hook that marks
+    each iteration's end (it runs once per iteration, at the boundary):
+    the host clock, the sync warnings seen so far (under
+    torch.cuda.set_sync_debug_mode("warn") when ``count_syncs``; a warning
+    costs microseconds, against seconds an iteration) and the recorder's
+    calls so far. Returns (state, marks, syncs per iteration after the
+    first)."""
+    import warnings
+
+    X, y = data
+    marks = []
+    caught = []
+
+    def syncs_seen():
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    def hook():
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), syncs_seen(),
+                      len(recorder.calls) if recorder is not None else 0))
+        return None
+
+    ropt = sr.RuntimeOptions(niterations=TELEM_ITERS, seed=0, verbosity=0, run_id=run_id,
+                             stop_hook=hook)
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        caught = got
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), 0, len(recorder.calls) if recorder else 0))
+        if count_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, _ = sr.equation_search(X, y, options=options, runtime_options=ropt,
+                                          return_state=True, device=dev)
+        finally:
+            if count_syncs:
+                torch.cuda.set_sync_debug_mode(0)
+    syncs = [b[1] - a[1] for a, b in zip(marks[1:], marks[2:])] if count_syncs else None
+    return state, marks, syncs
+
+
+def calls_by_iteration(check, tag, calls, marks, r0, n_members):
+    """Kernel #1's calls split at the iterations' ends; the first call is
+    init_state's scoring of the initial population (every member, every
+    row), which precedes iteration 1."""
+    bounds = [m[2] - r0 for m in marks]
+    per = [calls[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    check(f"{tag}: the first call of #1 is init_state's ({calls[0][0]} trees)",
+          calls[0] == (n_members, N_ROWS))
+    per[0] = per[0][1:]
+    return per
+
+
+def check_counter_identities(check, tag, events, calls_by_iter, I, P, n_rows, staged):
+    """The identities between the JSONL counters (the JAX package's
+    meaning: per island in the cycles, plus the finalize's rows and launch)
+    and kernel #1's calls in each iteration: W calls, the last the
+    finalize (n_rows rows); the cycles' calls each cover every island."""
+    for k, (ev, calls) in enumerate(zip(events, calls_by_iter), start=1):
+        c = ev["outputs"][0]["counters"]
+        W = len(calls)
+        fin_trees, fin_rows = calls[-1]
+        cyc = calls[:-1]
+        check(f"{tag} iteration {k}: eval_launches {c['eval_launches']} == I (W - 1) + 1 = "
+              f"{I} x ({W} - 1) + 1", c["eval_launches"] == I * (W - 1) + 1
+              and fin_rows == n_rows)
+        if staged:
+            screen = [t for t, r in cyc if r < n_rows]
+            rescore = [t for t, r in cyc if r == n_rows]
+            check(f"{tag} iteration {k}: screen_launches {c['screen_launches']} == I x "
+                  f"{len(screen)}, rescore_launches {c['rescore_launches']} == I x "
+                  f"{len(rescore)}", c["screen_launches"] == I * len(screen)
+                  and c["rescore_launches"] == I * len(rescore) and len(screen) == len(rescore))
+            check(f"{tag} iteration {k}: screen_rows {c['screen_rows']} == sum of the screen "
+                  f"launches' trees {sum(screen)}; rescore_rows {c['rescore_rows']} == "
+                  f"{sum(rescore)}; eval_rows {c['eval_rows']} == screen_rows + I P",
+                  c["screen_rows"] == sum(screen) and c["rescore_rows"] == sum(rescore)
+                  and c["eval_rows"] == sum(screen) + I * P)
+        else:
+            check(f"{tag} iteration {k}: eval_rows {c['eval_rows']} == the cycle launches' "
+                  f"trees {sum(t for t, _ in cyc)} + I P ({I * P})",
+                  c["eval_rows"] == sum(t for t, _ in cyc) + I * P
+                  and c["screen_rows"] == c["rescore_rows"] == 0)
+        check(f"{tag} iteration {k}: finalize_rows {c['dedup']['rows']} == I P; "
+              f"finalize_unique {c['dedup']['unique']} (post-migration population) beside the "
+              f"dedup'd finalize launch's {fin_trees} trees (pre-migration)",
+              c["dedup"]["rows"] == I * P and 1 <= c["dedup"]["unique"] <= I * P)
+
+
+def phase_telemetry(torch, sr, dev, out_base, card):
+    """Phase 23: the optimizer cell (TELEM_CYCLES cycles, TELEM_ITERS
+    iterations) through equation_search with telemetry on and off in turns
+    (off, on, on, off): bit-identical states and halls of fame; the JSONL
+    valid with run_start, TELEM_ITERS x iteration, run_end; the counters'
+    identities with kernel #1's calls; equal host syncs per iteration on
+    and off (set_sync_debug_mode("warn")); s/iteration on and off; the
+    sr:* spans of one torch.profiler capture of an iteration; then the
+    plain-staged cell with its screen and rescore counters."""
+    import dataclasses
+
+    from symbolicregression_jl_tpu_torch.telemetry.schema import load_events
+
+    check = Checks()
+    X, y = bench_data()
+    tfile = lambda rid: os.path.join(out_base, f"{rid}.jsonl")
+    opts = lambda on, rid: bench_options(sr, TELEM_CYCLES, telemetry=on, use_recorder=False,
+                                         telemetry_file=tfile(rid))
+    I, P = opts(False, "shape").populations, opts(False, "shape").population_size
+    states, per_iter, sync_counts = {}, {"on": [], "off": []}, {"on": [], "off": []}
+    rec = TreeRecorder()
+    try:
+        runs = {}
+        for i, mode in enumerate(("off", "on", "on", "off")):
+            rid = f"telem_{mode}_{i}"
+            r0 = len(rec.calls)
+            state, marks, syncs = telemetry_search(torch, sr, dev, opts(mode == "on", rid),
+                                                   (X, y), out_base, rid, count_syncs=True,
+                                                   recorder=rec)
+            states[rid] = state
+            sync_counts[mode].append(syncs)
+            its = [b[0] - a[0] for a, b in zip(marks[:-1], marks[1:])]
+            per_iter[mode].append(sum(its[1:]) / len(its[1:]))
+            runs[rid] = calls_by_iteration(check, rid, rec.calls[r0:], marks, r0, I * P)
+            print(f"  {mode}: s/iteration {', '.join(f'{t:.3f}' for t in its)} (the first "
+                  f"includes init)")
+    finally:
+        rec.close()
+    ref = state_tensors(torch, states["telem_off_0"].device_states[0])
+    for rid, st in states.items():
+        t = state_tensors(torch, dataclasses.replace(st.device_states[0], telem=None))
+        hof_same = [e.equation_string() for e in st.hofs[0].entries] == [
+            e.equation_string() for e in states["telem_off_0"].hofs[0].entries]
+        check(f"{rid}: every state tensor bit-equal to the first off run's, hall of fame equal",
+              len(t) == len(ref) and all(same(torch, a, b) for a, b in zip(t, ref)) and hof_same)
+    check(f"host syncs per iteration (iterations 2-{TELEM_ITERS}) equal with telemetry on "
+          f"{sync_counts['on']} and off {sync_counts['off']}",
+          len({tuple(c) for c in sync_counts["on"] + sync_counts["off"]}) == 1
+          and len(sync_counts["on"][0]) == TELEM_ITERS - 1)
+    mean = lambda v: sum(v) / len(v)
+    print(f"  {card}: s/iteration (iterations 2-{TELEM_ITERS}, in turns off, on, on, off) "
+          f"off {per_iter['off'][0]:.4f} / {per_iter['off'][1]:.4f}, on {per_iter['on'][0]:.4f}"
+          f" / {per_iter['on'][1]:.4f}: on / off {mean(per_iter['on']) / mean(per_iter['off']):.4f}")
+    for rid in ("telem_on_1", "telem_on_2"):
+        events = load_events(tfile(rid))
+        check(f"{rid}: JSONL valid, events run_start, {TELEM_ITERS} x iteration, run_end",
+              [e["event"] for e in events] == ["run_start"] + ["iteration"] * TELEM_ITERS
+              + ["run_end"])
+        iters = events[1:-1]
+        check_counter_identities(check, rid, iters, runs[rid], I, P, N_ROWS, staged=False)
+        print(f"  {rid}: host_fraction {[round(e['host_fraction'], 4) for e in iters]}, "
+              f"recompiles {[e['recompiles'] for e in iters]}, finalize unique "
+              f"{[e['outputs'][0]['counters']['dedup']['unique'] for e in iters]} of {I * P}, "
+              f"the finalize launch's trees {[c[-1][0] for c in runs[rid]]}")
+    c = load_events(tfile("telem_on_1"))[1]["outputs"][0]["counters"]
+    print(f"  iteration 1's counters: {json.dumps(c)}")
+
+    # One torch.profiler capture of a one-iteration search: its sr:* ranges.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sr.equation_search(X, y, options=opts(True, "prof"), niterations=1, seed=0, verbosity=0,
+                           device=dev)
+        torch.cuda.synchronize()
+    spans = sorted({e.key for e in prof.key_averages() if e.key.startswith("sr:")})
+    print(f"  sr:* spans in one torch.profiler capture of an iteration: {spans}")
+    check("the capture shows sr:iteration, sr:host:hof_decode, sr:host:checkpoint, "
+          "sr:host:sinks and sr:constant_optimizer",
+          {"sr:iteration", "sr:host:hof_decode", "sr:host:checkpoint", "sr:host:sinks",
+           "sr:constant_optimizer"} <= set(spans))
+
+    # The plain-staged cell: the screen and rescore counters.
+    rec = TreeRecorder()
+    try:
+        staged = {}
+        for on in (True, False):
+            rid = f"staged_{'on' if on else 'off'}"
+            r0 = len(rec.calls)
+            o = stage_options(sr, "plain-staged", TELEM_CYCLES, telemetry=on,
+                              telemetry_file=tfile(rid))
+            st, marks, _ = telemetry_search(torch, sr, dev, o, stage_data(), out_base, rid,
+                                            recorder=rec)
+            staged[rid] = (st, calls_by_iteration(check, rid, rec.calls[r0:], marks, r0, I * P))
+    finally:
+        rec.close()
+    ta = state_tensors(torch, dataclasses.replace(staged["staged_on"][0].device_states[0],
+                                                  telem=None))
+    tb = state_tensors(torch, staged["staged_off"][0].device_states[0])
+    check("plain-staged: every state tensor bit-equal with telemetry on and off",
+          len(ta) == len(tb) and all(same(torch, a, b) for a, b in zip(ta, tb)))
+    events = load_events(tfile("staged_on"))
+    check_counter_identities(check, "plain-staged", events[1:-1], staged["staged_on"][1], I, P,
+                             N_ROWS, staged=True)
+    c = events[1]["outputs"][0]["counters"]
+    print(f"  plain-staged iteration 1: screen_rows {c['screen_rows']}, rescore_rows "
+          f"{c['rescore_rows']} (observed fraction {c['rescore_rows'] / c['screen_rows']:.4f}), "
+          f"screen/rescore launches {c['screen_launches']}/{c['rescore_launches']}, eval_rows "
+          f"{c['eval_rows']}, eval_launches {c['eval_launches']}")
+    check.raise_if_failed("telemetry at full width")
+
+
+def phase_quality(torch, sr, dev, out_base):
+    """Phase 24: the 12 non-sharded cells of benchmarks/baseline.json (6
+    variants x seeds 0 and 1, MINI shapes) through the port's bench/cell.py
+    on the card, each on its kernel (launch counters), gated by the port's
+    bench/gate.py under the library-drift rule."""
+    from symbolicregression_jl_tpu_torch.bench import cell as C
+    from symbolicregression_jl_tpu_torch.bench import gate as G
+
+    check = Checks()
+    baseline = G.load_baseline(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                            "benchmarks", "baseline.json"))
+    recs = []
+    t0 = time.perf_counter()
+    for variant in QUALITY_KERNEL:
+        for seed in QUALITY_SEEDS:
+            cid = f"{variant}/seed{seed}"
+            for k in kernels():
+                k.launches = 0
+            r = C.run_cell({"variant": variant, "seed": seed, "shape": C.MINI, "cell_id": cid,
+                            "out_dir": os.path.join(out_base, "matrix")}, device=dev)
+            launched = {k.name: k.launches for k in kernels() if k.launches}
+            kname = QUALITY_KERNEL[variant]
+            check(f"{cid} ran on {kname}: launches {launched}", launched.get(kname, 0) > 0)
+            b = baseline["cells"][cid]["metrics"]
+            m = r["metrics"]
+            print(f"  {cid}: best_loss {m['best_loss']:.6g} (baseline {b['best_loss']:.6g}), "
+                  f"pareto_volume {m['pareto_volume']:.6g} (baseline {b['pareto_volume']:.6g}), "
+                  f"{r['wall_s']:.2f} s")
+            recs.append(r)
+    print(f"  12 cells in {time.perf_counter() - t0:.1f} s")
+    result = G.make_result(recs, matrix="mini", platform="gpu")
+    findings = G.diff_result(result, baseline, cells_filter=[r["cell_id"] for r in recs])
+    for line in G.format_findings(findings).splitlines():
+        print(f"  {line}")
+    check("the 12 cells pass the quality rule (backstops hard, band excursions soft)",
+          not G.gate_failed(findings))
+    check.raise_if_failed("the mini matrix's quality")
+    return findings
+
+
+def phase_stop_between_chunks(torch, sr, dev, out_base):
+    """Phase 25: the optimizer cell at 100 cycles. A single-chunk iteration
+    (timed: the measured iteration) and a chunked one ([25] x 4, no stop)
+    from the same state, bit-identical; then equation_search with
+    timeout_in_seconds at a quarter of the measured iteration: it stops
+    within the first iteration (after its epilogue), and the counters say
+    how many of the 100 cycles ran. Prints the overshoot."""
+    from symbolicregression_jl_tpu_torch.evolve import rng
+    from symbolicregression_jl_tpu_torch.evolve.engine import Engine
+    from symbolicregression_jl_tpu_torch.telemetry.schema import load_events
+
+    check = Checks()
+    ncycles = 100
+    X, y = bench_data()
+    options = bench_options(sr, ncycles)
+    ds = sr.make_dataset(X, y, device=dev)
+    ds.update_baseline_loss(options.elementwise_loss)
+    engine = Engine(options, X.shape[1], device=dev)
+    s0 = engine.init_state(rng.key(0, device=dev), ds.data, options.populations)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = engine.run_iteration(s0, ds.data, options.maxsize)
+    torch.cuda.synchronize()
+    t_iter = time.perf_counter() - t0
+    polls = []
+
+    def poll(pending):
+        polls.append(1)
+        return False
+
+    t0 = time.perf_counter()
+    chunked = engine.run_iteration(s0, ds.data, options.maxsize, chunk_sizes=[25] * 4,
+                                   should_stop=poll)
+    torch.cuda.synchronize()
+    t_chunked = time.perf_counter() - t0
+    ta, tb = state_tensors(torch, one), state_tensors(torch, chunked)
+    check(f"chunked ([25] x 4, {len(polls)} polls) and single-chunk 100-cycle iterations "
+          f"bit-identical", len(ta) == len(tb) and all(same(torch, a, b) for a, b in zip(ta, tb))
+          and len(polls) == 3)
+    print(f"  one 100-cycle iteration {t_iter:.3f} s; chunked {t_chunked:.3f} s")
+    del one, chunked, s0
+    timeout = t_iter / 4
+    path = os.path.join(out_base, "stop.jsonl")
+    o = bench_options(sr, ncycles, timeout_in_seconds=timeout, telemetry=True,
+                      telemetry_file=path)
+    t0 = time.perf_counter()
+    state, _ = sr.equation_search(X, y, options=o, niterations=10, seed=0, verbosity=0,
+                                  return_state=True, device=dev)
+    wall = time.perf_counter() - t0
+    events = load_events(path)
+    end = events[-1]
+    c = events[1]["outputs"][0]["counters"]
+    cycles_run = (c["eval_launches"] - 1) // options.populations
+    print(f"  timeout {timeout:.3f} s: stopped '{end['stop_reason']}' after "
+          f"{state.iterations_done} iteration(s), {cycles_run} of {ncycles} cycles; "
+          f"search elapsed {end['elapsed_s']:.3f} s (overshoot {end['elapsed_s'] - timeout:.3f} "
+          f"s; a whole iteration would be {t_iter - timeout:.3f} s), call {wall:.3f} s")
+    check("the timeout stopped the search within its first iteration, after the epilogue",
+          end["stop_reason"] == "timeout" and state.iterations_done == 1
+          and cycles_run < ncycles
+          and c["dedup"]["rows"] == options.populations * options.population_size)
+    check.raise_if_failed("a stop between chunks")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ncycles", type=int, default=100,
@@ -2172,6 +2547,15 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
 
     print("[22] SRRegressor and MultitargetSRRegressor on the card")
     phase_regressor(torch, sr, dev)
+
+    print("[23] telemetry at full width (optimizer cell and plain-staged cell)")
+    phase_telemetry(torch, sr, dev, out_base, card)
+
+    print("[24] the mini matrix's quality (12 non-sharded cells of benchmarks/baseline.json)")
+    phase_quality(torch, sr, dev, out_base)
+
+    print("[25] a stop between chunks of cycles (timeout at a quarter of an iteration)")
+    phase_stop_between_chunks(torch, sr, dev, out_base)
 
     print(card)
     print(json.dumps({"kernels": rows}))

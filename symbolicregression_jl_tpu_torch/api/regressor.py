@@ -183,6 +183,14 @@ class SRRegressor:
         return self
 
     def _build_report(self) -> None:
+        # sr:host:report span (telemetry/spans.py): pareto scoring and
+        # equation strings as a named host phase in a profiler capture.
+        from ..telemetry.spans import host_span
+
+        with host_span("report"):
+            self._build_report_inner()
+
+    def _build_report_inner(self) -> None:
         tables: List[List[EquationRecord]] = []
         best_idx: List[int] = []
         for hof in self.hofs_:

@@ -9,8 +9,17 @@ vectors included), one or several outputs, on one device. The loop runs
 maxsize warm-up, decodes the halls of fame after each iteration, writes
 their CSVs and a rolling checkpoint every ``checkpoint_every_n``
 iterations (``save_to_file``), and stops early on ``timeout_in_seconds``,
-``max_evals``, ``early_stop_condition`` or ``RuntimeOptions.stop_hook``,
-all checked at iteration boundaries.
+``max_evals`` or a 'q' on stdin (``user_quit``), checked between chunks
+of an iteration's cycles and at its end, or on ``early_stop_condition``
+or ``RuntimeOptions.stop_hook``, checked at iteration boundaries.
+
+Observability (``telemetry/``, ``utils/``): ``Options(telemetry=True)``
+writes the graftscope JSONL stream (``telemetry_file`` in the run's
+output directory) with the engine's device counters; ``use_recorder``
+writes the genealogy record; ``RuntimeOptions.progress`` and ``logger``
+are per-iteration sinks of the same hub. Each iteration is an
+``sr:iteration`` range, and the host phases ``sr:host:*`` ranges, in a
+``torch.profiler`` capture (and NVTX ranges on a CUDA device).
 
 Warm starts: ``guesses`` (per output where nested; an ``(expression,
 params)`` pair carries a fitted parameter bank) replace island 0's worst
@@ -26,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 import time
 import uuid
 import warnings
@@ -35,16 +45,22 @@ import numpy as np
 import torch
 
 from ..core.dataset import Dataset, make_dataset
-from ..core.options import OBSERVABILITY_SLICE, PLUGIN_SLICE, SEARCH_API_REST, Options, \
-    check_supported
+from ..core.options import PLUGIN_SLICE, SEARCH_API_REST, Options, check_supported
 from ..device import resolve_device
 from ..evolve import rng
 from ..evolve.engine import Engine, SearchDeviceState
 from ..evolve.population import init_params
 from ..evolve.step import update_hof
+from ..ledger.context import mint_run_trace
 from ..models.spec import ParametricExpressionSpec
 from ..ops.encoding import TreeBatch, encode_population
 from ..ops.tree import Node, parse_expression
+from ..telemetry.hub import IterationContext, LoggerSink, ProgressSink, RecorderSink, Telemetry
+from ..telemetry.spans import host_span, set_nvtx, step_span
+from ..utils.monitor import ResourceMonitor
+from ..utils.progress import ProgressBar
+from ..utils.recorder import Recorder
+from ..utils.stdin_quit import StdinQuitWatcher
 from .checkpoint import map_arrays
 from .hall_of_fame import HallOfFame, save_hall_of_fame_csv, string_dominating_pareto_curve
 
@@ -64,9 +80,12 @@ class RuntimeOptions:
     """Execution (not search) parameters, with the JAX package's names
     and defaults. The port runs on one device (``equation_search``'s
     ``device``); a field that asks for a subsystem of a later slice
-    (devices and meshes, the logger, the engine cache, trace contexts,
-    profiler captures, the capacity gauge, an input stream) raises
-    NotImplementedError naming that slice when it leaves its default."""
+    (devices and meshes, the engine cache, trace contexts, profiler
+    captures, the capacity gauge) raises NotImplementedError naming that
+    slice when it leaves its default. ``progress`` draws a progress bar,
+    ``logger`` (an ``SRLogger`` or anything with ``log_iteration``) is
+    called every ``log_every_n`` iterations, and ``input_stream`` is
+    watched for a 'q' that stops the search (``user_quit``)."""
 
     niterations: int = 40
     devices: Optional[Sequence] = None
@@ -111,9 +130,6 @@ _RUNTIME_LATER = {
     "mesh_runtime": (False, MULTI_DEVICE_SLICE),
     "mesh_dedup": (True, MULTI_DEVICE_SLICE),
     "mesh_exchange_every": (8, MULTI_DEVICE_SLICE),
-    "progress": (False, OBSERVABILITY_SLICE),
-    "logger": (None, OBSERVABILITY_SLICE),
-    "input_stream": (None, OBSERVABILITY_SLICE),
     "engine_cache": (None, SERVING_SLICE),
     "trace": (None, SERVING_SLICE),
     "pulse_trace_on": (False, SERVING_SLICE),
@@ -176,6 +192,33 @@ def _resolve_datasets(X, y, weights, variable_names, display_variable_names,
             display_variable_names=display_variable_names, y_variable_name=y_name,
             extra=extra, index=j + 1, device=device))
     return datasets
+
+
+# Chunked iterations: the chunk count adapts toward this stop latency, up
+# to _MAX_CHUNKS chunks an iteration.
+_STOP_LATENCY_TARGET_S = 1.0
+_MAX_CHUNKS = 16
+
+
+def _chunk_sizes(nc: int, n_chunks: int) -> List[int]:
+    """Chunk lengths summing to ``nc``, about ``n_chunks`` of them: equal
+    lengths that divide ``nc`` (at most twice the requested count), else
+    near-equal chunks (the JAX package's rule, which keeps its compiled
+    chunk programs few; here it only sets where the budget is polled)."""
+    target = max(nc // n_chunks, 1)
+    length = next((d for d in range(target, nc + 1) if nc % d == 0), nc)
+    if length <= 2 * target or n_chunks == 1:
+        return [length] * (nc // length)
+    base, rem = divmod(nc, n_chunks)
+    sizes = [base + (1 if c < rem else 0) for c in range(n_chunks)]
+    return [c for c in sizes if c > 0]
+
+
+def _stdin_is_tty() -> bool:
+    try:
+        return sys.stdin is not None and sys.stdin.isatty()
+    except (AttributeError, ValueError, OSError):
+        return False
 
 
 def get_cur_maxsize(maxsize: int, warmup_maxsize_by: float, total_cycles: int,
@@ -370,9 +413,9 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
     ``return_state`` and ``seed`` arguments, which override its fields,
     are the JAX package's. ``seed`` (or ``options.seed``) fixes every
     random draw. See the module docstring for warm starts and resume.
-    Units, ``extra`` columns other than ``class``, ``dtype``,
-    ``progress=True`` and the RuntimeOptions fields of later slices raise
-    NotImplementedError naming their slice."""
+    Units, ``extra`` columns other than ``class``, ``dtype`` and the
+    RuntimeOptions fields of later slices raise NotImplementedError
+    naming their slice."""
     other_extra = {k: v for k, v in (extra or {}).items() if k not in ("class", "classes")}
     later = {"X_units": (X_units, PLUGIN_SLICE), "y_units": (y_units, PLUGIN_SLICE),
              "extra": (other_extra or None, PLUGIN_SLICE),
@@ -523,48 +566,165 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
     start_time = time.time()
     stop_reason = None
     cycles_remaining = total_cycles - start_iter * options.ncycles_per_iteration
+
+    # ---- graftscope telemetry hub (telemetry/hub.py) ----
+    # One object owns every per-iteration consumer (the SRLogger, the
+    # genealogy Recorder, the ProgressBar) as registered sinks, plus the
+    # schema-versioned JSONL stream when options.telemetry is set; every
+    # event carries a trace minted from run_id.
+    search_trace = mint_run_trace(ropt.run_id)
+    hub = Telemetry(
+        options, run_id=ropt.run_id, out_dir=out_dir, niterations=ropt.niterations,
+        nout=len(datasets), backend=dev.type, trace=search_trace,
+        engine_info=[{"output": j + 1, "turbo": bool(e.cfg.turbo),
+                      "fuse_cost": bool(e.cfg.fuse_cost),
+                      "collect_telemetry": bool(e.cfg.collect_telemetry),
+                      "n_islands": int(options.populations), "n_island_shards": 1,
+                      "nfeatures": int(e.nfeatures), "mesh_runtime": False}
+                     for j, e in enumerate(engines)])
+    if options.use_recorder:
+        rec_path = (os.path.join(out_dir, options.recorder_file) if out_dir is not None
+                    else options.recorder_file)
+        # stream_path caps recorder_verbosity>=2 memory: iteration event
+        # batches spill to disk as they are assembled (utils/recorder.py).
+        recorder = Recorder(options, stream_path=rec_path + ".stream")
+        hub.add_sink(RecorderSink(recorder, [ds.variable_names for ds in datasets], rec_path))
+    if ropt.logger is not None:
+        hub.add_sink(LoggerSink(ropt.logger, every=ropt.log_every_n))
+    if ropt.progress:
+        hub.add_sink(ProgressSink(ProgressBar(ropt.niterations)))
+    set_nvtx(dev.type == "cuda")
+
     last_ckpt_it = -1
     it = start_iter
-    while it < ropt.niterations and stop_reason is None:
-        cur_maxsize = get_cur_maxsize(options.maxsize, options.warmup_maxsize_by,
-                                      total_cycles, cycles_remaining)
-        for j, (engine, ds) in enumerate(zip(engines, datasets)):
-            states[j] = engine.run_iteration(states[j], ds.data, cur_maxsize)
-        cycles_remaining -= options.ncycles_per_iteration
-        it += 1
-        if ropt.stop_hook is not None:
-            hook_reason = ropt.stop_hook()
-            if hook_reason:
-                stop_reason = str(hook_reason)
-        hofs = [HallOfFame.from_device(s.hof, options.operators, template=e.template)
-                for s, e in zip(states, engines)]
-        if out_dir is not None:
-            for j, ds in enumerate(datasets):
-                fname = ("hall_of_fame.csv" if len(datasets) == 1
-                         else f"hall_of_fame_output{j + 1}.csv")
-                save_hall_of_fame_csv(os.path.join(out_dir, fname), hofs[j], options.operators,
-                                      variable_names=ds.variable_names)
-            if it % ropt.checkpoint_every_n == 0:
-                ckpt.save(checkpoint_state())
-                last_ckpt_it = it
-        if ropt.verbosity >= 2:
+    try:
+        # The stdin watcher engages only for an injected stream or an
+        # interactive session (Options(interactive_quit=True) and a real
+        # TTY); otherwise no thread reads stdin.
+        if ropt.input_stream is not None:
+            watcher = StdinQuitWatcher(ropt.input_stream, force=True)
+        elif options.interactive_quit and _stdin_is_tty():
+            watcher = StdinQuitWatcher()
+        else:
+            watcher = StdinQuitWatcher.disabled()
+
+        def _budget_stop(pending_evals=None) -> Optional[str]:
+            """The stop checks that also run between cycle chunks:
+            ``pending_evals`` is a thunk for the evaluations of a partly
+            run iteration, forced only when max_evals is set (it waits for
+            the device). The stop hook is polled at the iteration boundary
+            only, so a stop never truncates an iteration and the
+            checkpointed state stays on the bit-identical resume="auto"
+            trajectory."""
+            if watcher.check():
+                return "user_quit"
+            if options.timeout_in_seconds is not None \
+                    and time.time() - start_time > options.timeout_in_seconds:
+                return "timeout"
+            if options.max_evals is not None:
+                pending = pending_evals() if pending_evals is not None else 0.0
+                if total_evals() + pending >= options.max_evals:
+                    return "max_evals"
+            return None
+
+        def _budget_hit(pending_evals=None) -> bool:
+            nonlocal stop_reason
+            if stop_reason is None:
+                stop_reason = _budget_stop(pending_evals)
+            return stop_reason is not None
+
+        # Each iteration's cycles run in chunks with the budget polled
+        # between them, so a timeout, max_evals or quit cannot overshoot
+        # by a whole iteration (the reference checks once per dispatched
+        # cycle batch). The chunk count adapts toward a stop latency of
+        # about a second from the measured iteration time, in powers of
+        # two; chunked and single-chunk iterations are bit-identical.
+        n_chunks = min(4, options.ncycles_per_iteration)
+        monitor = ResourceMonitor()
+        host_t0 = time.time()
+        while it < ropt.niterations and stop_reason is None:
+            cur_maxsize = get_cur_maxsize(options.maxsize, options.warmup_maxsize_by,
+                                          total_cycles, cycles_remaining)
+            dev_t0 = time.time()
+            monitor_host = dev_t0 - host_t0  # bookkeeping since the last iteration
+            sizes = _chunk_sizes(options.ncycles_per_iteration, n_chunks)
+            iter_events = [None] * len(engines)
+            with step_span(it + 1, trace_id=search_trace.trace_id,
+                           span_id=search_trace.span_id):
+                for j, (engine, ds) in enumerate(zip(engines, datasets)):
+                    out = engine.run_iteration(states[j], ds.data, cur_maxsize,
+                                               chunk_sizes=sizes if len(sizes) > 1 else None,
+                                               should_stop=_budget_hit)
+                    if engine.cfg.record_events:
+                        states[j], iter_events[j] = out
+                    else:
+                        states[j] = out
+                hub.prefetch(states)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            host_t0 = time.time()
+            if it > start_iter:   # the first iteration builds kernels and warms caches
+                target = (host_t0 - dev_t0) / _STOP_LATENCY_TARGET_S
+                cap = min(options.ncycles_per_iteration, _MAX_CHUNKS)
+                n_chunks = 1
+                while n_chunks < cap and n_chunks * 2 <= target:
+                    n_chunks *= 2
+            monitor.record(host_t0 - dev_t0, monitor_host)
+            monitor.check_and_warn(ropt.verbosity)
+            cycles_remaining -= options.ncycles_per_iteration
+            it += 1
+            if stop_reason is None and ropt.stop_hook is not None:
+                hook_reason = ropt.stop_hook()
+                if hook_reason:
+                    stop_reason = str(hook_reason)
+            with host_span("hof_decode"):
+                hofs = [HallOfFame.from_device(s.hof, options.operators, template=e.template)
+                        for s, e in zip(states, engines)]
+            with host_span("checkpoint"):
+                if out_dir is not None:
+                    for j, ds in enumerate(datasets):
+                        fname = ("hall_of_fame.csv" if len(datasets) == 1
+                                 else f"hall_of_fame_output{j + 1}.csv")
+                        save_hall_of_fame_csv(os.path.join(out_dir, fname), hofs[j],
+                                              options.operators,
+                                              variable_names=ds.variable_names)
+                    if it % ropt.checkpoint_every_n == 0:
+                        ckpt.save(checkpoint_state())
+                        last_ckpt_it = it
+            elapsed = time.time() - start_time
             best = min((e.loss for h in hofs for e in h.entries), default=np.inf)
-            print(f"[iter {it}/{ropt.niterations}] best_loss={best:.6g} "
-                  f"evals={total_evals():.3g}")
-        if stop_reason is None and options.early_stop_condition is not None and any(
-                options.early_stop_condition(e.loss, e.complexity)
-                for h in hofs for e in h.entries):
-            stop_reason = "early_stop_condition"
-        if stop_reason is None and options.timeout_in_seconds is not None \
-                and time.time() - start_time > options.timeout_in_seconds:
-            stop_reason = "timeout"
-        if stop_reason is None and options.max_evals is not None \
-                and total_evals() >= options.max_evals:
-            stop_reason = "max_evals"
-    # The final or stopping state is always checkpointed, once; a resume
-    # that ran nothing writes nothing (each save rotates a generation out).
-    if ckpt is not None and it > start_iter and it != last_ckpt_it:
-        ckpt.save(checkpoint_state())
+            evals = total_evals()
+            rate = evals / max(elapsed, 1e-9)
+            hub.iteration(IterationContext(
+                iteration=it, states=states, hofs=hofs, options=options, num_evals=evals,
+                elapsed=elapsed, best_loss=best, evals_per_sec=rate,
+                device_s=host_t0 - dev_t0, host_s=monitor_host,
+                host_fraction=monitor.estimate_work_fraction(), events=iter_events))
+            if ropt.verbosity >= 2:
+                print(f"[iter {it}/{ropt.niterations}] best_loss={best:.6g} "
+                      f"evals={evals:.3g} ({rate:.3g}/s, host "
+                      f"{monitor.estimate_work_fraction():.0%})")
+            if stop_reason is None and options.early_stop_condition is not None and any(
+                    options.early_stop_condition(e.loss, e.complexity)
+                    for h in hofs for e in h.entries):
+                stop_reason = "early_stop_condition"
+            if stop_reason is None:
+                stop_reason = _budget_stop()
+        watcher.stop()
+        # The final or stopping state is always checkpointed, once; a
+        # resume that ran nothing writes nothing (each save rotates a
+        # generation out).
+        if ckpt is not None and it > start_iter and it != last_ckpt_it:
+            ckpt.save(checkpoint_state())
+        # Flush any partial telemetry interval, emit run_end, close sinks
+        # (ProgressBar close, Recorder final state and write).
+        hub.finish(stop_reason=stop_reason or "niterations", num_evals=total_evals(),
+                   elapsed=time.time() - start_time)
+    finally:
+        # A failing or interrupted search still releases the hub's
+        # kernel-build listener (idempotent after a clean finish).
+        hub.close()
+        set_nvtx(False)
 
     if ropt.verbosity >= 1:
         for j, (hof, ds) in enumerate(zip(hofs, datasets)):

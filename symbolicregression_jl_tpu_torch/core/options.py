@@ -737,7 +737,6 @@ def _refuse(what: str, where: str) -> None:
 # numbers them.
 SEARCH_API_REST = "the rest of the search-API slice (ROADMAP.md queue 1 item 3)"
 PLUGIN_SLICE = "the expression-plugin slice (ROADMAP.md queue 1 item 4)"
-OBSERVABILITY_SLICE = "the observability slice (ROADMAP.md queue 1 item 5)"
 
 
 def _check_expression_spec(options: Options) -> None:
@@ -768,10 +767,6 @@ def check_supported(options: Options) -> None:
     if options.loss_function is not None or options.loss_function_expression is not None:
         _refuse("loss_function / loss_function_expression (custom "
                 "whole-prediction losses)", SEARCH_API_REST)
-    if options.telemetry:
-        _refuse("telemetry=True", OBSERVABILITY_SLICE)
-    if options.use_recorder:
-        _refuse("use_recorder=True", OBSERVABILITY_SLICE)
     if str(options.eval_dtype) not in ("float32", "f32"):
         _refuse(f"eval_dtype={options.eval_dtype!r} (the kernels compute in float32)",
                 SEARCH_API_REST)

@@ -28,6 +28,15 @@ parametric members' per-class parameters (``n_params``, ``n_classes``),
 or a template's parameter vector as [total_params, 1]. The optimizer
 takes the banks jointly with the constants, on the eager path.
 
+``run_iteration(chunk_sizes=, should_stop=)`` runs the cycles in chunks
+with a host callback polled between them (the search's timeout,
+``max_evals`` and quit checks); a stop skips the remaining cycles and runs
+the epilogue once, and chunked iterations are bit-identical to
+single-chunk ones. With ``Options(telemetry=True)`` the iteration leaves
+its counters on ``state.telem`` (`telemetry.counters.IterationTelemetry`),
+computed on the device from values it already has; with ``use_recorder``
+it returns ``(state, CycleEvents)``.
+
 graftstage (``docs/PRECISION.md``): with ``eval_precision="bf16"`` the
 init eval, the cycles and the finalize score on the bf16 value buffer;
 the finalize and the optimizer always read every row (only the cycles'
@@ -40,7 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
@@ -54,7 +63,7 @@ from .constant_opt import (OptimizerConfig, optimize_constants_batch, optimize_c
                            optimize_constants_template)
 from .population import PopulationState, init_params, init_population, init_template_population
 from .simplify import fold_constants_batch
-from .step import (EvolveConfig, HofState, _take_rows, empty_hof, eval_cost_batch,
+from .step import (CycleEvents, EvolveConfig, HofState, _take_rows, empty_hof, eval_cost_batch,
                    evolve_config_from_options, s_r_cycle, take_members, template_k, update_hof)
 
 __all__ = ["RunningStats", "SearchDeviceState", "Engine"]
@@ -79,6 +88,9 @@ class SearchDeviceState:
     ref: torch.Tensor       # [I] int32 per-island lineage counters
     num_evals: torch.Tensor  # 0-d float32
     key: torch.Tensor       # [2] threefry key words
+    # The last iteration's counters (telemetry.counters.IterationTelemetry)
+    # with Options(telemetry=True), else None.
+    telem: Optional[object] = None
 
 
 def _move_window(freq, window_size: float, maxsize: int):
@@ -200,6 +212,11 @@ class Engine:
             params=params,
         )
         freq = torch.ones(cfg.maxsize, dtype=torch.float32, device=dev)
+        telem = None
+        if cfg.collect_telemetry:
+            from ..telemetry.counters import empty_iteration_telemetry
+
+            telem = empty_iteration_telemetry(cfg.maxsize, dev)
         return SearchDeviceState(
             pops=pops,
             hof=empty_hof((), cfg.maxsize, cfg.max_nodes, dev, template_k=template_k(cfg),
@@ -209,6 +226,7 @@ class Engine:
             ref=torch.full((n_islands,), P, dtype=torch.int32, device=dev),
             num_evals=torch.tensor(float(n_islands * P), dtype=torch.float32, device=dev),
             key=k_state,
+            telem=telem,
         )
 
     def draw_batch(self, k_batch, data: DeviceData) -> Optional[DeviceData]:
@@ -220,13 +238,24 @@ class Engine:
         return data.take_rows(rng.randint(k_batch, (self.cfg.batch_size,), 0, data.n))
 
     # ------------------------------------------------------------------
-    def run_iteration(self, state: SearchDeviceState, data: DeviceData,
-                      cur_maxsize: int) -> SearchDeviceState:
-        """One full iteration of every island."""
+    def run_iteration(self, state: SearchDeviceState, data: DeviceData, cur_maxsize: int,
+                      chunk_sizes: Optional[Sequence[int]] = None,
+                      should_stop: Optional[Callable] = None):
+        """One full iteration of every island.
+
+        ``chunk_sizes`` (summing to ``ncycles_per_iteration``) runs the
+        cycles in chunks with ``should_stop`` polled between them; it gets
+        a thunk for the evaluations of the cycles run so far (forcing it
+        waits for the device, so only a ``max_evals`` check calls it) and
+        returns True to stop. A stop skips the remaining chunks but still
+        runs the epilogue (optimize, simplify, finalize, migrate) exactly
+        once; the annealing ramp and the per-cycle keys use global cycle
+        indices, so chunked and single-chunk iterations are otherwise
+        bit-identical. Returns the new state, or ``(state, CycleEvents)``
+        with ``use_recorder``."""
         cfg = self.cfg
         options = self.options
         I = state.birth.shape[0]
-        P = cfg.population_size
         ks = rng.split(state.key, 5)
         key, k_batch, k_cycle, k_opt, k_mig = (ks[i] for i in range(5))
         # Minibatching: one batch of rows per iteration, gathered once, read
@@ -235,11 +264,49 @@ class Engine:
         batch = self.draw_batch(k_batch, data)
         eval_fraction = cfg.batch_size / data.n if batch is not None else 1.0
         cycle_data = batch if batch is not None else data
+        if not chunk_sizes:
+            chunk_sizes = [cfg.ncycles]
+        if sum(chunk_sizes) != cfg.ncycles:
+            raise ValueError(f"chunk_sizes {list(chunk_sizes)} must sum to {cfg.ncycles}")
 
-        pops, best_seen, nev, birth, ref, marks = s_r_cycle(
-            rng.split(k_cycle, I), state.pops, cycle_data, state.stats.normalized_frequencies,
-            cur_maxsize, state.birth, state.ref, cfg, options, self.tables,
-            options.elementwise_loss)
+        keys = rng.split(k_cycle, I)
+        pops, birth, ref = state.pops, state.birth, state.ref
+        carry = None
+        events = []
+        c0 = 0
+        for i, nc in enumerate(chunk_sizes):
+            out = s_r_cycle(keys, pops, cycle_data, state.stats.normalized_frequencies,
+                            cur_maxsize, birth, ref, cfg._replace(ncycles=nc), options,
+                            self.tables, options.elementwise_loss, c0=c0,
+                            total_cycles=cfg.ncycles, carry_in=carry)
+            pops, best_seen, nev, birth, ref, marks = out[:6]
+            carry = (best_seen, nev, marks) + ((out[6],) if cfg.collect_telemetry else ())
+            if cfg.record_events:
+                events.append(out[-1])
+            c0 += nc
+            # No sync here: quit and timeout polls read the host clock; only
+            # a max_evals check forces the thunk.
+            if should_stop is not None and i < len(chunk_sizes) - 1 and should_stop(
+                    lambda nv=nev: float(torch.sum(nv)) * eval_fraction):
+                break
+        tele = carry[3] if cfg.collect_telemetry else None
+        new_state = self._epilogue(state, data, cur_maxsize, pops, best_seen, nev, birth, ref,
+                                   marks, tele, key, k_opt, k_mig, batch, eval_fraction)
+        if cfg.record_events:
+            return new_state, CycleEvents(*(torch.cat(f, dim=1) for f in zip(*events)))
+        return new_state
+
+    def _epilogue(self, state: SearchDeviceState, data: DeviceData, cur_maxsize: int, pops,
+                  best_seen, nev, birth, ref, marks, tele, key, k_opt, k_mig,
+                  batch: Optional[DeviceData], eval_fraction: float) -> SearchDeviceState:
+        """Everything after the cycles, once per iteration: optimize and
+        simplify, the full-dataset finalize, lineage rotation, the
+        hall-of-fame merge, migration, running statistics and, with
+        telemetry, the iteration's counters."""
+        cfg = self.cfg
+        options = self.options
+        I = state.birth.shape[0]
+        P = cfg.population_size
         num_evals = state.num_evals + torch.sum(nev) * eval_fraction
 
         k_sel, scores, gate, ko2 = self._epilogue_draws(k_opt, I)
@@ -285,8 +352,26 @@ class Engine:
             0, torch.where(in_range, sizes - 1, 0).long(), in_range.to(torch.float32))
         freq = _move_window(state.stats.frequencies + hist, self.window_size, cfg.maxsize)
         stats = RunningStats(freq, freq / torch.sum(freq))
+
+        telem = None
+        if cfg.collect_telemetry:
+            # The cycles' per-island counters summed over islands, plus the
+            # finalize re-eval (every member, one launch), the
+            # post-migration loss histogram, the member-duplication stats
+            # and the complexity histogram, all on the device.
+            from ..telemetry.counters import (CycleTelemetry, IterationTelemetry,
+                                              loss_histogram, member_dup_stats)
+
+            cyc = CycleTelemetry(*(f.sum(dim=0, dtype=torch.int32) for f in tele.fields()))
+            cyc.eval_rows = cyc.eval_rows + I * P
+            cyc.eval_launches = cyc.eval_launches + 1
+            fin_rows, fin_unique = member_dup_stats(pops.trees)
+            telem = IterationTelemetry(cycle=cyc, finalize_rows=fin_rows,
+                                       finalize_unique=fin_unique,
+                                       loss_hist=loss_histogram(pops.loss),
+                                       cx_hist=hist.to(torch.int32))
         return SearchDeviceState(pops=pops, hof=hof, stats=stats, birth=birth, ref=ref,
-                                 num_evals=num_evals, key=key)
+                                 num_evals=num_evals, key=key, telem=telem)
 
     def _island_epilogue(self, pops: PopulationState, ref, simp_mark, opt_mark, scores, gate,
                          opt_key, data: DeviceData, k_sel: int,

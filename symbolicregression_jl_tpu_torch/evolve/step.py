@@ -17,7 +17,14 @@ crossover's pair) that replace the oldest members. The speculative
 constraints.
 
 `s_r_cycle` runs ``ncycles`` steps over the annealing ramp and keeps the
-best member seen per complexity.
+best member seen per complexity; a chunk of an iteration's cycles runs
+the same steps from a global cycle offset, so chunked and single-chunk
+iterations are bit-identical.
+
+With ``Options(telemetry=True)`` each step also counts what it did
+(`telemetry.counters.step_telemetry`, from values it already computed),
+and with ``use_recorder`` it emits `CycleEvents` for the genealogy
+recorder; neither changes what the step computes.
 
 graftstage (``docs/PRECISION.md``): ``eval_precision="bf16"`` scores
 candidates on a bfloat16 value buffer (kernel 1b, or the interpreter's
@@ -48,7 +55,8 @@ from .population import PopulationState
 from .rng import USlice, u_bernoulli, u_categorical_weights, u_randint
 from .tournament import tournament_select
 
-__all__ = ["EvolveConfig", "HofState", "evolve_config_from_options", "eval_cost_batch",
+__all__ = ["CycleEvents", "EvolveConfig", "HofState", "evolve_config_from_options",
+           "eval_cost_batch",
            "generation_step", "empty_hof", "update_hof", "s_r_cycle", "take_members",
            "template_check_batch", "template_k", "MIN_SAMPLE_ROWS", "resolve_sample_rows",
            "rescore_count"]
@@ -61,6 +69,28 @@ _IMMEDIATE_KINDS = (_KIND["simplify"], _KIND["do_nothing"], _KIND["optimize"],
 # matmul (0 * inf would be NaN there): non-finite constants come back as
 # +-3e38, and callers that must keep a NaN verdict track it separately.
 _CLAMP = 3.0e38
+
+
+class CycleEvents(NamedTuple):
+    """Per-cycle genealogy events of every island, one entry per candidate
+    baby [I, 2B] (the reference's per-mutation recorder stream), emitted
+    from values the step already computed.
+
+    ``kind`` is the sampled mutation-kind index; ``len(MUTATION_KINDS)``
+    denotes crossover and -1 a phantom second row of a mutation slot.
+    ``died_ref`` is the ref of the member the baby replaced (-1 when it
+    replaced none). ``reject_reason``: 0 none, 1 constraint / no valid
+    candidate, 2 non-finite cost, 3 annealing/frequency rejection; a
+    kept-parent fallback row carries ``accepted`` and its reason."""
+
+    kind: torch.Tensor           # int32 [I, 2B]
+    parent_ref: torch.Tensor     # int32 [I, 2B]
+    parent2_ref: torch.Tensor    # int32 [I, 2B]  (-1 unless crossover)
+    child_ref: torch.Tensor      # int32 [I, 2B]
+    died_ref: torch.Tensor       # int32 [I, 2B]
+    accepted: torch.Tensor       # bool  [I, 2B]
+    cost_delta: torch.Tensor     # f32   [I, 2B]  child cost - parent cost
+    reject_reason: torch.Tensor  # int32 [I, 2B]
 
 
 class EvolveConfig(NamedTuple):
@@ -112,6 +142,11 @@ class EvolveConfig(NamedTuple):
     # ``batch_size`` rows drawn once per iteration (the finalize reads all).
     batching: bool = False
     batch_size: int = 50
+    # graftscope device counters (options.telemetry) and the recorder's
+    # CycleEvents (options.use_recorder): both read what the step already
+    # computed, so the search is bit-identical with them on or off.
+    collect_telemetry: bool = False
+    record_events: bool = False
 
     @property
     def n_slots(self) -> int:
@@ -171,6 +206,8 @@ def evolve_config_from_options(options: Options, nfeatures: int, device: torch.d
         eval_tile_rows=options.eval_geometry().tile_rows,
         batching=options.batching,
         batch_size=options.batch_size,
+        collect_telemetry=bool(options.telemetry),
+        record_events=bool(options.use_recorder),
     )
 
 
@@ -517,7 +554,9 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
 
     ``key`` [I, 2]; ``pop`` fields [I, P, ...]; ``birth0``/``ref0`` [I];
     ``marks`` = (simplify_mark, optimize_mark), bool [I, P]. Returns
-    (new_pop, num_evals [I], birth0 + 2B, ref0 + 2B, new_marks)."""
+    (new_pop, num_evals [I], birth0 + 2B, ref0 + 2B, new_marks), then the
+    step's `CycleTelemetry` [I] with ``cfg.collect_telemetry`` and its
+    `CycleEvents` with ``cfg.record_events``."""
     B = cfg.n_slots
     A = cfg.attempts
     P = cfg.population_size
@@ -700,6 +739,7 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
         if has_p:
             slot_bad2 = slot_bad2 | ~torch.isfinite(cand2_params).reshape(I, B, -1).all(-1)
             packed_params = torch.cat([cand1_params, _take_floats(cand2_params, sel2)], dim=1)
+        n_eval_rows = B + k2
         c_all, l_all, x_all = _eval(packed, packed_params)
 
         def unpack(v, default):
@@ -716,6 +756,7 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
         xo_success = xo_success & ~overflow
         needs_eval2 = needs_eval2 & ~overflow
     elif k2 == 0:
+        n_eval_rows = B
         cost1, loss1, cx1 = _eval(cand1, cand1_params)
         cost = torch.stack([cost1, inf.expand(I, B)], dim=-1)
         loss = torch.stack([loss1, inf.expand(I, B)], dim=-1)
@@ -723,6 +764,7 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
     else:
         both = TreeBatch(*(torch.stack([a, b], dim=2)
                            for a, b in zip(cand1.fields(), cand2.fields())))
+        n_eval_rows = 2 * B
         cost, loss, complexity = _eval(both, torch.stack([cand1_params, cand2_params], dim=2)
                                        if has_p else cand1_params)
     needs_eval = torch.stack([needs_eval1, needs_eval2], dim=-1)
@@ -773,6 +815,20 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
 
     xo_nan = torch.isnan(cost[..., 0]) | torch.isnan(cost[..., 1])
     xo_replace = xo_success & ~xo_nan
+
+    tele = None
+    if cfg.collect_telemetry:
+        from ..telemetry.counters import step_telemetry
+
+        tele = step_telemetry(
+            kind=kind, is_xover=is_xover, immediate=immediate,
+            accepted_mut=accepted_mut, xo_replace=xo_replace,
+            mut_success=mut_success, xo_success=xo_success,
+            after_cost=after_cost, xo_nan=xo_nan, anneal_ok=anneal_ok,
+            cost=cost, needs_eval1=needs_eval1, needs_eval2=needs_eval2,
+            n_eval_rows=n_eval_rows,
+            n_screen_rows=n_eval_rows if staged else 0,
+            n_rescore_rows=rescore_count(cfg, n_eval_rows) if staged else 0)
     replace1 = torch.where(is_xover, xo_replace, mut_replace)
     replace2 = is_xover & xo_replace
     baby1_tree = select_tree(is_xover, cand1, baby1_tree)
@@ -817,7 +873,36 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
     simp_flags = flat(not_xover & (kind == _KIND["simplify"]) & replace1, zeros2)
     opt_flags = flat(not_xover & (kind == _KIND["optimize"]) & replace1, zeros2)
     new_marks = (scat(simp_mark, simp_flags), scat(opt_mark, opt_flags))
-    return new_pop, num_evals, birth0 + nb, ref0 + nb, new_marks
+    out = (new_pop, num_evals, birth0 + nb, ref0 + nb, new_marks)
+    if cfg.collect_telemetry:
+        out = out + (tele,)
+    if cfg.record_events:
+        XO = len(MUTATION_KINDS)   # the crossover pseudo-kind
+        ref_i1 = torch.gather(pop.ref, 1, i1.long())
+        ref_i2 = torch.gather(pop.ref, 1, i2.long())
+        # child-2 rows exist only for crossover slots; -1 marks the
+        # phantom rows so they never count as rejected crossovers
+        k1 = torch.where(is_xover, XO, kind)
+        k2_kind = torch.where(is_xover, XO, -1)
+        parent_cost2 = flat(m1_cost, torch.gather(pop.cost, 1, i2.long()))
+        mut_reason = torch.where(
+            ~mut_success, 1,
+            torch.where(~torch.isfinite(after_cost), 2, torch.where(~anneal_ok, 3, 0)))
+        xo_reason = torch.where(~xo_success, 1, torch.where(xo_nan, 2, 0))
+        reason1 = torch.where(is_xover, xo_reason, torch.where(immediate, 0, mut_reason))
+        reason2 = torch.where(is_xover, xo_reason, 0)
+        died = torch.gather(pop.ref, 1, torch.gather(order, 1, torch.clamp(rank, 0, P - 1).long()))
+        i32 = lambda t: t.to(torch.int32)
+        out = out + (CycleEvents(
+            kind=i32(flat(k1, k2_kind)),
+            parent_ref=baby_parent,
+            parent2_ref=i32(flat(torch.where(is_xover, ref_i2, -1), ref_i1)),
+            child_ref=ref0[:, None] + steps,
+            died_ref=i32(torch.where(survives, died, -1)),
+            accepted=survives,
+            cost_delta=baby_cost - parent_cost2,
+            reject_reason=i32(flat(reason1, reason2))),)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -882,29 +967,59 @@ def update_hof(hof: HofState, trees: TreeBatch, cost, loss, complexity,
 
 def s_r_cycle(key, pop: PopulationState, data, stats_nf, cur_maxsize, birth0, ref0,
               cfg: EvolveConfig, options: Options, tables: ComplexityTables,
-              elementwise_loss):
+              elementwise_loss, c0: int = 0, total_cycles=None, carry_in=None):
     """``cfg.ncycles`` generation steps of every island over the annealing
     ramp. ``key`` [I, 2]. Returns (pop, best_seen [I, maxsize], num_evals
-    [I], birth0, ref0, marks)."""
+    [I], birth0, ref0, marks), then the summed `CycleTelemetry` [I] with
+    ``cfg.collect_telemetry`` and the `CycleEvents` [I, ncycles, 2B] with
+    ``cfg.record_events``.
+
+    A chunk of an iteration: ``c0`` is the global index of its first
+    cycle, ``total_cycles`` the iteration's cycle count (the annealing
+    ramp and the per-cycle key fold-in use global indices, so chunked and
+    single-chunk iterations are bit-identical), and ``carry_in`` =
+    (best_seen, num_evals, marks[, telemetry]) from the earlier chunks."""
     I, P = pop.cost.shape
     dev = pop.cost.device
-    hof = empty_hof((I,), cfg.maxsize, cfg.max_nodes, dev, template_k=template_k(cfg),
-                    n_params=cfg.n_params, n_classes=cfg.n_classes)
-    marks = (torch.zeros((I, P), dtype=torch.bool, device=dev),
-             torch.zeros((I, P), dtype=torch.bool, device=dev))
-    nev = torch.zeros(I, dtype=torch.float32, device=dev)
-    total = cfg.ncycles
-    for c in range(cfg.ncycles):
+    total = total_cycles if total_cycles is not None else cfg.ncycles
+    if carry_in is not None:
+        hof, nev, marks = carry_in[:3]
+        tele = carry_in[3] if cfg.collect_telemetry else None
+    else:
+        hof = empty_hof((I,), cfg.maxsize, cfg.max_nodes, dev, template_k=template_k(cfg),
+                        n_params=cfg.n_params, n_classes=cfg.n_classes)
+        marks = (torch.zeros((I, P), dtype=torch.bool, device=dev),
+                 torch.zeros((I, P), dtype=torch.bool, device=dev))
+        nev = torch.zeros(I, dtype=torch.float32, device=dev)
+        tele = None
+        if cfg.collect_telemetry:
+            from ..telemetry.counters import empty_cycle_telemetry
+
+            tele = empty_cycle_telemetry((I,), dev)
+    events = []
+    for c in range(c0, c0 + cfg.ncycles):
         gc = torch.tensor(c, dtype=torch.float32, device=dev)
         if cfg.annealing and total > 1:
             temperature = 1.0 - gc / (total - 1)
         else:
             temperature = torch.ones((), dtype=torch.float32, device=dev)
         k = rng.fold_in(key, c)
-        pop, nev_c, birth0, ref0, marks = generation_step(
+        out = generation_step(
             k, pop, data, stats_nf, temperature, cur_maxsize, birth0, ref0, cfg, options,
             tables, elementwise_loss, marks)
+        pop, nev_c, birth0, ref0, marks = out[:5]
+        if cfg.collect_telemetry:
+            from ..telemetry.counters import add_cycle_telemetry
+
+            tele = add_cycle_telemetry(tele, out[5])
+        if cfg.record_events:
+            events.append(out[-1])
         nev = nev + nev_c
         hof = update_hof(hof, pop.trees, pop.cost, pop.loss, pop.complexity, cfg.maxsize,
                          params=pop.params)
-    return pop, hof, nev, birth0, ref0, marks
+    ret = (pop, hof, nev, birth0, ref0, marks)
+    if cfg.collect_telemetry:
+        ret = ret + (tele,)
+    if cfg.record_events:
+        ret = ret + (CycleEvents(*(torch.stack(f, dim=1) for f in zip(*events))),)
+    return ret

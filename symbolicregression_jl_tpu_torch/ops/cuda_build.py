@@ -20,10 +20,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 __all__ = ["NVCC_FLAGS", "build_dir", "build_all", "load_library", "source_path",
-           "build_seconds", "build_log"]
+           "build_seconds", "build_log", "add_listener", "remove_listener"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -32,6 +32,25 @@ _PKG = Path(__file__).resolve().parent.parent
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _BUILD_SECONDS: Dict[str, float] = {}
+# Callbacks told of every build (``("build", name, seconds)``, one per nvcc
+# run) and every library load into this process (``("load", name,
+# seconds)``): the telemetry hub counts them as the port's compile events.
+_LISTENERS: List[Callable[[str, str, float], None]] = []
+
+
+def add_listener(fn: Callable[[str, str, float], None]) -> None:
+    """Call ``fn(kind, source name, seconds)`` on each build and load."""
+    _LISTENERS.append(fn)
+
+
+def remove_listener(fn: Callable[[str, str, float], None]) -> None:
+    if fn in _LISTENERS:
+        _LISTENERS.remove(fn)
+
+
+def _notify(kind: str, name: str, seconds: float) -> None:
+    for fn in list(_LISTENERS):
+        fn(kind, name, seconds)
 
 
 def source_path(name: str) -> Path:
@@ -87,6 +106,7 @@ def build_all(names) -> Dict[str, Path]:
         so.with_suffix(".log").write_text(stderr)
         os.replace(tmp, so)
         _BUILD_SECONDS[name] = time.perf_counter() - t0
+        _notify("build", name, _BUILD_SECONDS[name])
     if failed:
         raise RuntimeError("\n".join(failed))
     return out
@@ -102,8 +122,10 @@ def load_library(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(build(name)))
             _LOADED[name] = lib
+            _notify("load", name, time.perf_counter() - t0)
         return lib
 
 
