@@ -7,8 +7,9 @@ Phases (any failure exits nonzero and prints no result line):
 
 1. Require CUDA (no CPU fallback); print the card's name and power limit.
 2. Build the kernels' five sources (csrc/program_eval.cu, which holds
-   #1, its parametric form #1p and their bf16 forms 1b, program_multi.cu
-   with #2 and its bf16 form 2b, program_grad.cu,
+   #1, its parametric form #1p, their bf16 forms 1b and their float64
+   forms, program_multi.cu with #2 and its bf16 and float64 forms 2b and
+   2 f64, program_grad.cu with #3 and its float64 form,
    program_predict.cu, program_predict_vjp.cu) from the checkout, one
    nvcc per source, all started together. Prints ptxas's registers,
    stack and spills of every instantiation of #1-#5 (the tile
@@ -195,6 +196,29 @@ Phases (any failure exits nonzero and prints no result line):
    at a quarter of that iteration stops within its first iteration, after
    the epilogue (the counters give the cycles run). Prints the overshoot.
 
+26. Every library loss besides L2 (L1, Huber at deltas 0.5, 1 and 2,
+   log-cosh, the logit distance, sigmoid cross-entropy on 0/1 targets,
+   the periodic L2 at periods 2 pi and 1) on kernels #1 (cost form), #1p,
+   1b, #2, 2b and #3 against their plain versions on the first
+   LOSS_SUBSET (#1, #1p, 1b) or LOSS_SUBSET_MULTI (#2, 2b, #3) trees of
+   phases 3, 12 and 4's inputs (rtol 1e-5, 1b and 2b by phase 16's bf16
+   rule, #3's loss bit-equal to #2's, gradients within 1e-4 of the
+   absolute row sums), log-cosh on every tree too; each kind's #1, #2 and
+   #3 timed at the full shapes (CUDA events) beside its bound. Then the
+   float64 forms of #1 (cost form), #1p, #2 and #3 at the full shapes in
+   float64 against their float64 plain versions (rtol 1e-9; #3's loss
+   bit-equal to #2's), timed, bounds at FP64's 34 TFLOP/s, and every kind
+   on their subsets.
+27. The optimizer cell at LOSS_CYCLES = 10 cycles with
+   elementwise_loss="logcosh" (launches of #1-#3 only: 11, 8 and 9 an
+   iteration) and with eval_dtype="float64" (the same counts of their
+   float64 forms, none of the float32 kernels), and the parametric cell
+   in float64 (#1p's float64 form only); each best member's loss
+   recomputed on the host in float64 (log-cosh within rtol 1e-3, float64
+   within 1e-9).
+28. ``python -m symbolicregression_jl_tpu_torch.bench.headline`` in its own
+   process: its JSON line (the headline metric) printed.
+
 Every file a phase writes goes to a temporary directory, removed at the
 end. The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -330,6 +354,8 @@ def same(torch, a, b):
     """Bit-for-bit equality (NaN payloads included)."""
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
     return bool(torch.equal(a, b))
 
 
@@ -428,6 +454,7 @@ def phase_kernel(torch, sr, dev):
     _close = lambda a, b: close(torch, a, b)
 
     check("two launches bit-identical", _same(loss_k, loss_k2) and _same(valid_k, valid_k2))
+    print(f"  bits #1: {digest(loss_k, valid_k, lossc_k, validc_k, cost_k)}")
     check("validity bit-equal (plain form)", _same(valid_k, valid_p))
     check("validity bit-equal (cost form)", _same(validc_k, validc_p))
     # The plain form's loss sum is only meaningful for valid trees.
@@ -650,6 +677,7 @@ def phase_opt_kernels(torch, sr, dev):
     torch.cuda.synchronize()
     plain_ms_multi = (time.perf_counter() - t0) * 1e3
     check("#2 two launches bit-identical", _same(lk, lk2) and _same(vk, vk2))
+    print(f"  bits #2: {digest(lk, vk)}")
     check("#2 validity bit-equal", _same(vk, vp))
     same_inf, within, rel2, abs2 = _close(torch.where(vp, lk, torch.inf),
                                           torch.where(vp, lp, torch.inf))
@@ -707,7 +735,8 @@ def phase_opt_kernels(torch, sr, dev):
 
 KERNEL_NAMES = ("PROGRAM_EVAL", "PROGRAM_MULTI", "PROGRAM_GRAD", "PROGRAM_PREDICT",
                 "PROGRAM_PREDICT_VJP", "PROGRAM_EVAL_PARAM", "PROGRAM_EVAL_BF16",
-                "PROGRAM_EVAL_PARAM_BF16", "PROGRAM_MULTI_BF16")
+                "PROGRAM_EVAL_PARAM_BF16", "PROGRAM_MULTI_BF16", "PROGRAM_EVAL_F64",
+                "PROGRAM_EVAL_PARAM_F64", "PROGRAM_MULTI_F64", "PROGRAM_GRAD_F64")
 
 
 def kernels():
@@ -723,23 +752,26 @@ def run_engine(torch, sr, dev, options, iters: int = 2, data=None, on_engine=Non
     for parametric options; ``on_engine`` sees the engine before the
     timed iterations. Returns (launches by kernel name, state, engine,
     evaluations in the timed iterations)."""
+    from symbolicregression_jl_tpu_torch.core.options import float_dtype
     from symbolicregression_jl_tpu_torch.evolve import rng
     from symbolicregression_jl_tpu_torch.evolve.engine import Engine
 
     X, y = bench_data() if data is None else data
-    ds = sr.make_dataset(X, y, extra=extra, device=dev)
+    dtype = float_dtype(options.eval_dtype)
+    ds = sr.make_dataset(X, y, extra=extra, device=dev, dtype=dtype)
     ds.update_baseline_loss(options.elementwise_loss)
     n_params = n_classes = 0
     if isinstance(options.expression_spec, sr.ParametricExpressionSpec):
         n_params, n_classes = options.expression_spec.max_parameters, ds.n_classes
-    engine = Engine(options, X.shape[1], device=dev, n_params=n_params, n_classes=n_classes)
+    engine = Engine(options, X.shape[1], device=dev, n_params=n_params, n_classes=n_classes,
+                    dtype=dtype)
     print(f"  islands {options.populations} x members {options.population_size}, "
           f"rows {X.shape[0]} x features {X.shape[1]}, ncycles_per_iteration "
           f"{options.ncycles_per_iteration}, constant optimizer "
           f"{options.should_optimize_constants} (probability {options.optimizer_probability}), "
           f"template {engine.template is not None}, parameter banks "
           f"{engine.cfg.n_params} x {engine.cfg.n_classes}, turbo {engine.cfg.turbo}, fused cost "
-          f"{engine.cfg.fuse_cost}")
+          f"{engine.cfg.fuse_cost}, loss {options.elementwise_loss!r}, dtype {engine.dtype}")
     t0 = time.perf_counter()
     state = engine.init_state(rng.key(0, device=dev), ds.data, options.populations)
     state = engine.run_iteration(state, ds.data, options.maxsize)
@@ -1182,6 +1214,7 @@ def phase_param_kernel(torch, sr, dev):
 
     check = Checks()
     check("two launches bit-identical", same(torch, lk, lk2) and same(torch, vk, vk2))
+    print(f"  bits #1p: {digest(lk, vk)}")
     check("validity bit-equal", same(torch, vk, vp))
     check("loss sums NaN and +-inf in the same places", nonfinite_match(torch, lk, lp))
     same_inf, within, rel, abs_err = close(torch, torch.where(vp, lk, torch.inf),
@@ -1415,6 +1448,7 @@ def phase_bf16_kernels(torch, sr, dev):
     lp, vp = FE.program_eval_plain(*argsb, ops, el, bf16=True)
     check("1b two launches bit-identical (plain and cost forms)",
           _same(lk, lk2) and _same(vk, vk2) and _same(lck, lck2) and _same(ck, ck2))
+    print(f"  bits 1b: {digest(lk, vk, lck, vck, ck)}")
     check("1b validity bit-equal (plain and cost forms)", _same(vk, vp) and _same(vck, vcp))
     errs = []
     for what, a, b in (("plain-form loss sum", torch.where(vp, lk, torch.inf),
@@ -1509,6 +1543,7 @@ def phase_bf16_kernels(torch, sr, dev):
     MT = instr.shape[0]
     min_ = inexact_trees(torch, instr, nsteps, mops)
     check("2b two launches bit-identical", _same(mk, mk2) and _same(mv, mv2))
+    print(f"  bits 2b: {digest(mk, mv)}")
     check("2b validity bit-equal", _same(mv, mvp))
     ok, wex, med, win, merr = bf16_close(torch, torch.where(mvp, mk, torch.inf),
                                          torch.where(mvp, mp, torch.inf), min_)
@@ -2418,6 +2453,436 @@ def phase_stop_between_chunks(torch, sr, dev, out_base):
     check.raise_if_failed("a stop between chunks")
 
 
+# ---------------------------------------------------------------------------
+# Phases 26-28: every library loss and the float64 forms on kernels #1-#3,
+# the logcosh and float64 searches, the headline bench
+# ---------------------------------------------------------------------------
+
+RTOL64 = 1e-9               # float64 kernels against their float64 plain versions
+H100_FP64_FLOPS = 34e12     # non-tensor-core FP64 peak, H100 SXM data sheet
+LOSS_SUBSET = 2048          # trees of #1, #1p and 1b held against the plain version per kind
+LOSS_SUBSET_MULTI = 256     # trees of #2, 2b and #3 likewise
+LOSS_CYCLES = 10            # phase 27's cut depth (one optimizer run per iteration whatever it)
+# Operations of each loss kind's formula per row (csrc/interp.cuh
+# loss_of_kind), the weight and the row sum included.
+LOSS_OPS = {0: 4, 1: 4, 2: 7, 3: 12, 4: 14, 5: 11, 6: 9}
+
+
+def loss_cases():
+    """(name, loss) of every library loss besides L2 and each factory at
+    two parameters (core/losses.py KernelLoss)."""
+    from symbolicregression_jl_tpu_torch.core import losses as L
+
+    return [("L1DistLoss", L.l1_dist_loss), ("huber_loss(0.5)", L.huber_loss(0.5)),
+            ("huber_loss(1)", L.LOSS_REGISTRY["huber"]), ("huber_loss(2)", L.huber_loss(2.0)),
+            ("logcosh", L.log_cosh_loss), ("LogitDistLoss", L.logit_dist_loss),
+            ("sigmoid_cross_entropy_loss", L.sigmoid_cross_entropy_loss),
+            ("periodic_l2_loss(2 pi)", L.periodic_l2_loss()),
+            ("periodic_l2_loss(1)", L.periodic_l2_loss(1.0))]
+
+
+SIGMOID_CE = 5   # core/losses.py LOSS_SIGMOID_CE
+
+
+def binary_targets(torch, groups, ys):
+    """Phase 26's argument tuples ``groups`` with each target of ``ys``
+    replaced by 0/1 (y above its median): sigmoid cross-entropy takes a
+    logit and a class. With real-valued targets max(p, 0) - p y cancels
+    within a row, and an ULP of log1p(exp(-|p|)) is then more of the row's
+    value than rtol allows."""
+    to01 = {id(y): (y > y.median()).to(y.dtype).contiguous() for y in ys}
+    return tuple(tuple(to01.get(id(a), a) for a in g) for g in groups)
+
+
+def bound64(ops_count: float, bytes_moved: float):
+    """(bound ms, bound_by) of a float64 kernel: FP64 operations at 34
+    TFLOP/s or bytes at 3.35 TB/s, whichever is larger."""
+    bound_ops = ops_count / H100_FP64_FLOPS * 1e3
+    bound_bytes = bytes_moved / H100_HBM_BYTES_S * 1e3
+    return max(bound_ops, bound_bytes), "operations" if bound_ops >= bound_bytes else "bytes"
+
+
+def close_at(torch, a, b, rtol):
+    """``close`` at another tolerance: (same non-finite places, within
+    rtol, max rel err, max abs err)."""
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    same_inf = nonfinite_match(torch, a, b)
+    if not same_inf:
+        return False, False, float("inf"), float("inf")
+    err = (a[fa] - b[fb]).abs()
+    if not err.numel():
+        return True, True, 0.0, 0.0
+    rel = float((err / b[fb].abs().clamp(min=1e-300)).max())
+    return True, bool((err <= rtol * b[fb].abs()).all()), rel, float(err.max())
+
+
+def head(args, k: int, idx):
+    """``args`` with the tensors at positions ``idx`` cut to their first
+    ``k`` trees (contiguous)."""
+    return tuple(a[:k].contiguous() if i in idx else a for i, a in enumerate(args))
+
+
+def grad_close(torch, check, tag, kernel_out, plain_out, rtol):
+    """Kernel #3 (or its float64 form) against its plain version: validity
+    bit-equal, loss sums within rtol on valid pairs, gradients non-finite
+    in the same places and otherwise within rtol of the sum of the
+    absolute per-row terms. Returns the largest gradient error."""
+    gl, gv, gg = kernel_out
+    pl, pv, pg, pabs = plain_out
+    check(f"{tag} validity bit-equal", same(torch, gv, pv))
+    same_inf, within, rel, _ = close_at(torch, torch.where(pv, gl, torch.inf),
+                                        torch.where(pv, pl, torch.inf), rtol)
+    check(f"{tag} loss sum within rtol {rtol:g} (max rel err {rel:.3g})", same_inf and within)
+    live = pv[..., None].expand_as(pg)
+    fin_k, fin_p = torch.isfinite(gg), torch.isfinite(pg)
+    check(f"{tag} gradients non-finite in the same places",
+          bool(torch.equal(fin_k[live], fin_p[live])))
+    both = live & fin_k & fin_p
+    gerr = (gg - pg).abs()[both]
+    ratio = float((gerr / pabs[both].clamp(min=1e-300)).max()) if gerr.numel() else 0.0
+    check(f"{tag} gradients within {rtol:g} of the absolute row sums (max err / scale "
+          f"{ratio:.3g})", bool((gerr <= rtol * pabs[both]).all()))
+    return float(gerr.max()) if gerr.numel() else 0.0
+
+
+def phase_loss_kernels(torch, sr, dev):
+    """Phase 26: every library loss besides L2 on kernels #1 (cost form),
+    #1p, 1b, #2, 2b and #3 against their plain versions (the first
+    LOSS_SUBSET or LOSS_SUBSET_MULTI trees of phases 3, 12 and 4's inputs),
+    each timed at the full shapes; then the float64 forms of #1, #1p, #2
+    and #3 against their float64 plain versions at the full shapes, every
+    kind on the subsets. Returns the kernel-table rows of the float64 forms
+    and of #1-#3 with logcosh."""
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+    check = Checks()
+    rows = []
+    options, data, trees, cx, prog, args, scal, cxf = kernel1_inputs(torch, sr, dev)
+    ops = options.operators
+    T, n = trees.length.shape[0], N_ROWS
+    L, CMAX = args[0].shape[1], args[2].shape[1]
+    K1 = LOSS_SUBSET
+    a1 = head(args, K1, (0, 1, 2, 3))
+    cx1 = cxf[:K1].contiguous()
+    inexact1 = inexact_trees(torch, a1[0], a1[1], ops)
+    a1b = a1[:4] + (FE._bf16_rows(a1[4]),) + a1[5:]
+    popts, _, _, _, pargs = param_kernel_inputs(torch, sr, dev)
+    pops = popts.operators
+    ap = head(pargs, K1, (0, 1, 2, 3, 4))
+    (oopts, otrees, oprog, (oinstr, onsteps, ocvals, _, oXt, oyt, ow), onconst, R, V_ls,
+     cv_ls, cv_g) = opt_kernel_inputs(torch, sr, dev)
+    K2 = LOSS_SUBSET_MULTI
+    a2 = (oinstr[:K2].contiguous(), onsteps[:K2].contiguous(), cv_ls[:K2].contiguous(), oXt,
+          oyt, ow)
+    a3 = (oinstr[:K2].contiguous(), onsteps[:K2].contiguous(), onconst[:K2].contiguous(),
+          cv_g[:K2].contiguous(), oXt, oyt, ow)
+    inexact2 = inexact_trees(torch, a2[0], a2[1], ops)
+    a2b = a2[:3] + (FE._bf16_rows(oXt),) + a2[4:]
+    g3full = (oinstr, onsteps, onconst, cv_g, oXt, oyt, ow)
+    steps1 = float(prog.nsteps.to(torch.float64).sum())
+    steps2 = float(onsteps.to(torch.float64).sum())
+    To = oinstr.shape[0]
+
+    print(f"  {len(loss_cases())} kinds; #1, #1p and 1b on the first {K1} of {T} trees, #2, 2b "
+          f"and #3 on the first {K2} of {To} trees (V = {V_ls} and {R}) against their plain "
+          f"versions; times at the full shapes (CUDA events)")
+    base = (args, a1, a1b, ap, a2, a2b, a3, g3full, (oinstr, onsteps, cv_ls, oXt, oyt, ow))
+    for name, el in loss_cases():
+        tag = f"{name}:"
+        (args, a1, a1b, ap, a2, a2b, a3, g3full, m_full) = (
+            binary_targets(torch, base, (args[5], pargs[7], oyt)) if el.kind == SIGMOID_CE
+            else base)
+        lk, vk, ck = FE.PROGRAM_EVAL(*a1, ops, el, cx=cx1, scal=scal)
+        lp, vp, cp = FE.program_eval_plain(*a1, ops, el, cx=cx1, scal=scal)
+        check(f"{tag} #1 validity bit-equal", same(torch, vk, vp))
+        s1, w1, r1, _ = close(torch, lk, lp)
+        s2, w2, r2, _ = close(torch, ck, cp)
+        check(f"{tag} #1 loss and cost within rtol {RTOL}, inf in the same places (max rel "
+              f"err {max(r1, r2):.3g})", s1 and w1 and s2 and w2)
+        lk, vk = FE.PROGRAM_EVAL_PARAM(*ap, pops, el)
+        lp, vp = FE.program_eval_plain(*ap[:4], *ap[6:], pops, el, bank=ap[4], class_idx=ap[5])
+        s1, w1, r1, _ = close(torch, torch.where(vp, lk, torch.inf), torch.where(vp, lp, torch.inf))
+        check(f"{tag} #1p validity bit-equal, loss sums within rtol {RTOL} (max rel err "
+              f"{r1:.3g})", same(torch, vk, vp) and s1 and w1)
+        lk, vk, ck = FE.PROGRAM_EVAL_BF16(*a1b, ops, el, cx=cx1, scal=scal)
+        lp, vp, cp = FE.program_eval_plain(*a1b, ops, el, cx=cx1, scal=scal, bf16=True)
+        ok, wex, med, win, _ = bf16_close(torch, ck, cp, inexact1)
+        check(f"{tag} 1b validity bit-equal, cost by the bf16 rule (exact trees {wex:.3g}, "
+              f"median {med:.3g}, worst {win:.3g})", same(torch, vk, vp) and ok)
+        lk, vk = FE.PROGRAM_MULTI(*a2, ops, el)
+        lp, vp = FE.program_multi_plain(*a2, ops, el)
+        s1, w1, r1, _ = close(torch, torch.where(vp, lk, torch.inf), torch.where(vp, lp, torch.inf))
+        check(f"{tag} #2 validity bit-equal, loss sums within rtol {RTOL} (max rel err "
+              f"{r1:.3g})", same(torch, vk, vp) and s1 and w1)
+        lk, vk = FE.PROGRAM_MULTI_BF16(*a2b, ops, el)
+        lp, vp = FE.program_multi_plain(*a2b, ops, el, bf16=True)
+        ok, wex, med, win, _ = bf16_close(torch, torch.where(vp, lk, torch.inf),
+                                          torch.where(vp, lp, torch.inf), inexact2)
+        check(f"{tag} 2b validity bit-equal, loss sums by the bf16 rule (exact trees "
+              f"{wex:.3g}, median {med:.3g}, worst {win:.3g})", same(torch, vk, vp) and ok)
+        gk = FE.PROGRAM_GRAD(*a3, ops, el)
+        mk = FE.PROGRAM_MULTI(a3[0], a3[1], a3[3], *a3[4:], ops, el)
+        check(f"{tag} #3 loss == #2's on the same variants (bit)",
+              same(torch, gk[0], mk[0]) and same(torch, gk[1], mk[1]))
+        err3 = grad_close(torch, check, f"{tag} #3", gk,
+                          FE.program_grad_plain(*a3, ops, el, return_abs=True), 1e-4)
+        ms1 = cuda_ms(torch, lambda: FE.PROGRAM_EVAL(*args, ops, el, cx=cxf, scal=scal), reps=5)
+        ms2 = cuda_ms(torch, lambda: FE.PROGRAM_MULTI(*m_full, ops, el), reps=3)
+        ms3 = cuda_ms(torch, lambda: FE.PROGRAM_GRAD(*g3full, ops, el), reps=3)
+        lo = LOSS_OPS[el.kind]
+        b1, by1 = bound(steps1 * n + lo * n * T, 4.0 * (T * (L + CMAX + 5) + 7 * n))
+        b2, by2 = bound((steps2 + lo * To) * V_ls * n,
+                        4.0 * (To * (L + 3 + V_ls * CMAX) + 7 * n))
+        b3, by3, _, _ = grad_bound(torch, g3full)
+        print(f"  {name} (kind {el.kind}, parameter {el.param:g}): #1 {ms1:.4f} ms (bound "
+              f"{b1:.4f} {by1}), #2 {ms2:.4f} ms (bound {b2:.4f} {by2}), #3 {ms3:.4f} ms "
+              f"(bound {b3:.4f} {by3}); #3 largest gradient error {err3:.3g}")
+        if name == "logcosh":
+            rows += logcosh_rows(torch, check, (args, cxf, scal, ops), m_full, g3full,
+                                 el, ((ms1, b1, by1), (ms2, b2, by2), (ms3, b3, by3)))
+    (args, a1, a1b, ap, a2, a2b, a3, g3full, _) = base
+    check.raise_if_failed("phase 26, loss kinds")
+
+    # The float64 forms at the full shapes, L2 (the default loss).
+    d = lambda t: t.double().contiguous()
+    el = options.elementwise_loss
+    a64 = args[:2] + (d(args[2]), args[3], d(args[4]), d(args[5]), d(args[6]))
+    cx64, scal64 = d(cxf), d(scal)
+    k = FE.PROGRAM_EVAL_F64
+    lk, vk, ck = k(*a64, ops, el, cx=cx64, scal=scal64)
+    lk2, _, ck2 = k(*a64, ops, el, cx=cx64, scal=scal64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp, vp, cp = FE.program_eval_plain(*a64, ops, el, cx=cx64, scal=scal64)
+    torch.cuda.synchronize()
+    plain1 = (time.perf_counter() - t0) * 1e3
+    check("#1 f64 two launches bit-identical", same(torch, lk, lk2) and same(torch, ck, ck2))
+    check("#1 f64 validity bit-equal", same(torch, vk, vp))
+    s1, w1, r1, e1 = close_at(torch, lk, lp, RTOL64)
+    s2, w2, r2, _ = close_at(torch, ck, cp, RTOL64)
+    check(f"#1 f64 loss and cost within rtol {RTOL64:g}, inf in the same places (max rel err "
+          f"{max(r1, r2):.3g})", s1 and w1 and s2 and w2)
+    ms = cuda_ms(torch, lambda: k(*a64, ops, el, cx=cx64, scal=scal64), reps=5)
+    b, by = bound64(steps1 * n + 4.0 * n * T, 8.0 * (T * (L + CMAX + 5) + 7 * n))
+    print(f"  #1 program_eval_f64: {ms:.4f} ms (cost form, CUDA events, mean of 5), plain "
+          f"{plain1:.1f} ms, bound {b:.4f} ms ({by}); {int(vk.sum())} of {T} valid")
+    rows.append(table_row(k, e1, ms, plain1, b, by))
+
+    pinstr, pnsteps, pcvals, pok, pbank, pcls, pX, py, pw = pargs
+    p64 = (pinstr, pnsteps, d(pcvals), pok, d(pbank), pcls, d(pX), d(py), d(pw))
+    k = FE.PROGRAM_EVAL_PARAM_F64
+    lk, vk = k(*p64, pops, el)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp, vp = FE.program_eval_plain(*p64[:4], *p64[6:], pops, el, bank=p64[4], class_idx=pcls)
+    torch.cuda.synchronize()
+    plainp = (time.perf_counter() - t0) * 1e3
+    check("#1p f64 validity bit-equal", same(torch, vk, vp))
+    s1, w1, r1, e1 = close_at(torch, torch.where(vp, lk, torch.inf),
+                              torch.where(vp, lp, torch.inf), RTOL64)
+    check(f"#1p f64 loss sums within rtol {RTOL64:g} (max rel err {r1:.3g})", s1 and w1)
+    ms = cuda_ms(torch, lambda: k(*p64, pops, el), reps=5)
+    TP, LP, CP = pinstr.shape[0], pinstr.shape[1], pcvals.shape[1]
+    stepsp = float(pnsteps.to(torch.float64).sum())
+    b, by = bound64(stepsp * n + 4.0 * n * TP,
+                    8.0 * (TP * (LP + CP + 3) + TP * pbank.shape[1] * pbank.shape[2] + 6 * n))
+    print(f"  #1p program_eval_param_f64: {ms:.4f} ms (CUDA events, mean of 5), plain "
+          f"{plainp:.1f} ms, bound {b:.4f} ms ({by})")
+    rows.append(table_row(k, e1, ms, plainp, b, by))
+
+    m64 = (oinstr, onsteps, d(cv_ls), d(oXt), d(oyt), d(ow))
+    k = FE.PROGRAM_MULTI_F64
+    lk, vk = k(*m64, ops, el)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp, vp = FE.program_multi_plain(*m64, ops, el)
+    torch.cuda.synchronize()
+    plain2 = (time.perf_counter() - t0) * 1e3
+    check("#2 f64 validity bit-equal", same(torch, vk, vp))
+    s1, w1, r1, e1 = close_at(torch, torch.where(vp, lk, torch.inf),
+                              torch.where(vp, lp, torch.inf), RTOL64)
+    check(f"#2 f64 loss sums within rtol {RTOL64:g} (max rel err {r1:.3g})", s1 and w1)
+    ms = cuda_ms(torch, lambda: k(*m64, ops, el), reps=3)
+    b, by = bound64((steps2 + 4.0 * To) * V_ls * n, 8.0 * (To * (L + 3 + V_ls * CMAX) + 7 * n))
+    print(f"  #2 program_multi_f64: {ms:.4f} ms (V={V_ls}, CUDA events, mean of 3), plain "
+          f"{plain2:.1f} ms, bound {b:.4f} ms ({by})")
+    rows.append(table_row(k, e1, ms, plain2, b, by))
+
+    g64 = (oinstr, onsteps, onconst, d(cv_g), d(oXt), d(oyt), d(ow))
+    k = FE.PROGRAM_GRAD_F64
+    gk = k(*g64, ops, el)
+    mk = FE.PROGRAM_MULTI_F64(oinstr, onsteps, d(cv_g), *g64[4:], ops, el)
+    check("#3 f64 loss == #2 f64's on the same variants (bit)",
+          same(torch, gk[0], mk[0]) and same(torch, gk[1], mk[1]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gp = FE.program_grad_plain(*g64, ops, el, return_abs=True)
+    torch.cuda.synchronize()
+    plain3 = (time.perf_counter() - t0) * 1e3
+    e3 = grad_close(torch, check, "#3 f64", gk, gp, RTOL64)
+    ms = cuda_ms(torch, lambda: k(*g64, ops, el), reps=3)
+    _, _, ops3, bytes3 = grad_bound(torch, g3full)
+    b, by = bound64(ops3, 2.0 * bytes3)
+    print(f"  #3 program_grad_f64: {ms:.4f} ms (V={R}, CUDA events, mean of 3), plain "
+          f"{plain3:.1f} ms, bound {b:.4f} ms ({by})")
+    rows.append(table_row(k, e3, ms, plain3, b, by))
+
+    # Every kind on the float64 forms, on the subsets.
+    for name, el in loss_cases():
+        a = head(a64, K1, (0, 1, 2, 3))
+        lk, vk, ck = FE.PROGRAM_EVAL_F64(*a, ops, el, cx=cx64[:K1].contiguous(), scal=scal64)
+        lp, vp, cp = FE.program_eval_plain(*a, ops, el, cx=cx64[:K1].contiguous(), scal=scal64)
+        s1, w1, r1, _ = close_at(torch, ck, cp, RTOL64)
+        ap64 = head(p64, K1, (0, 1, 2, 3, 4))
+        lk2, vk2 = FE.PROGRAM_EVAL_PARAM_F64(*ap64, pops, el)
+        lp2, vp2 = FE.program_eval_plain(*ap64[:4], *ap64[6:], pops, el, bank=ap64[4],
+                                         class_idx=pcls)
+        s2, w2, r2, _ = close_at(torch, torch.where(vp2, lk2, torch.inf),
+                                 torch.where(vp2, lp2, torch.inf), RTOL64)
+        am = head(m64, K2, (0, 1, 2))
+        lk3, vk3 = FE.PROGRAM_MULTI_F64(*am, ops, el)
+        lp3, vp3 = FE.program_multi_plain(*am, ops, el)
+        s3, w3, r3, _ = close_at(torch, torch.where(vp3, lk3, torch.inf),
+                                 torch.where(vp3, lp3, torch.inf), RTOL64)
+        check(f"{name}: #1, #1p and #2 f64 validity bit-equal, within rtol {RTOL64:g} (max rel "
+              f"err {max(r1, r2, r3):.3g})",
+              same(torch, vk, vp) and same(torch, vk2, vp2) and same(torch, vk3, vp3)
+              and s1 and w1 and s2 and w2 and s3 and w3)
+        ag = head(g64, K2, (0, 1, 2, 3))
+        grad_close(torch, check, f"{name}: #3 f64", FE.PROGRAM_GRAD_F64(*ag, ops, el),
+                   FE.program_grad_plain(*ag, ops, el, return_abs=True), 1e-8)
+    check.raise_if_failed("phase 26, float64 forms")
+    return rows
+
+
+def logcosh_rows(torch, check, a1, a2, a3, el, times):
+    """Kernel-table rows of #1-#3 with logcosh: each held against its plain
+    version at the full shapes (phase 26's subset checks, on every tree),
+    with the plain version's time, beside the kernel times of ``times``."""
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+    args, cxf, scal, ops = a1
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp, vp, cp = FE.program_eval_plain(*args, ops, el, cx=cxf, scal=scal)
+    torch.cuda.synchronize()
+    p1 = (time.perf_counter() - t0) * 1e3
+    lk, vk, ck = FE.PROGRAM_EVAL(*args, ops, el, cx=cxf, scal=scal)
+    s1, w1, r1, e1 = close(torch, lk, lp)
+    check(f"logcosh #1 at the full shapes: validity bit-equal, loss within rtol {RTOL} (max "
+          f"rel err {r1:.3g})", same(torch, vk, vp) and s1 and w1)
+    t0 = time.perf_counter()
+    lp, vp = FE.program_multi_plain(*a2, ops, el)
+    torch.cuda.synchronize()
+    p2 = (time.perf_counter() - t0) * 1e3
+    lk, vk = FE.PROGRAM_MULTI(*a2, ops, el)
+    s2, w2, r2, e2 = close(torch, torch.where(vp, lk, torch.inf), torch.where(vp, lp, torch.inf))
+    check(f"logcosh #2 at the full shapes: validity bit-equal, loss sums within rtol {RTOL} "
+          f"(max rel err {r2:.3g})", same(torch, vk, vp) and s2 and w2)
+    t0 = time.perf_counter()
+    gp = FE.program_grad_plain(*a3, ops, el, return_abs=True)
+    torch.cuda.synchronize()
+    p3 = (time.perf_counter() - t0) * 1e3
+    e3 = grad_close(torch, check, "logcosh #3 at the full shapes", FE.PROGRAM_GRAD(*a3, ops, el),
+                    gp, 1e-4)
+    for k, err, plain, (ms, b, by) in ((FE.PROGRAM_EVAL, e1, p1, times[0]),
+                                       (FE.PROGRAM_MULTI, e2, p2, times[1]),
+                                       (FE.PROGRAM_GRAD, e3, p3, times[2])):
+        row = table_row(k, err, ms, plain, b, by)
+        row["name"] = f"{k.name} logcosh"
+        row["replaces"] = k.replaces + " with elementwise_loss='logcosh'"
+        out.append(row)
+        print(f"  {row['name']}: {ms:.4f} ms, plain {plain:.1f} ms, bound {b:.4f} ms ({by})")
+    return out
+
+
+def table_row(k, err, ms, plain_ms, b, by):
+    return {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "library_ms": None}
+
+
+def host_loss64(torch, state, operators, X, y, loss):
+    """(reported, host) loss of the hall of fame's best member: its tree
+    decoded and evaluated on the host in float64, ``loss`` elementwise."""
+    from symbolicregression_jl_tpu_torch.ops.encoding import decode_population
+
+    ex = state.hof.exists
+    i = int(torch.where(ex, state.hof.loss, torch.inf).argmin())
+    node = decode_population(state.hof.trees.reshape(-1)[i:i + 1], operators)[0]
+    p = host_predict(torch, node, X.astype(np.float64))
+    host = float(loss(p, torch.from_numpy(y.astype(np.float64))).mean())
+    return float(state.hof.loss[i]), host
+
+
+def phase_loss_searches(torch, sr, dev):
+    """Phase 27: the optimizer cell (512 x 256, 10,000 rows x 5) at
+    LOSS_CYCLES cycles with elementwise_loss="logcosh" (kernels #1-#3 with
+    LOSS_ANY), and with eval_dtype="float64" (their float64 forms), and the
+    parametric cell with eval_dtype="float64" (#1p's float64 form): each on
+    its kernels alone by the launch counters, its best member's loss
+    recomputed on the host in float64. Returns the launches of each run."""
+    out = {}
+    X, y = bench_data()
+    it = 2
+    nc = LOSS_CYCLES
+    opt_iters = 8
+    for tag, kw, names, rtol in (
+            ("logcosh", dict(elementwise_loss="logcosh"),
+             ("program_eval", "program_multi", "program_grad"), 1e-3),
+            ("float64", dict(eval_dtype="float64"),
+             ("program_eval_f64", "program_multi_f64", "program_grad_f64"), 1e-9)):
+        print(f"  {tag}:")
+        options = bench_options(sr, nc, **kw)
+        launches, state, engine, _ = run_engine(torch, sr, dev, options, it)
+        expected = expect(launches, **{names[0]: it * (nc + 1), names[1]: it * opt_iters,
+                                       names[2]: it * (opt_iters + 1)})
+        if launches != expected:
+            raise RuntimeError(f"{tag} search launched {launches}, expected {expected}")
+        if tag == "float64" and state.pops.cost.dtype != torch.float64:
+            raise RuntimeError(f"float64 search keeps costs in {state.pops.cost.dtype}")
+        rep, host = host_loss64(torch, state, options.operators, X, y,
+                                options.elementwise_loss)
+        print(f"  {tag}: best loss {rep:.10g}, host float64 {host:.10g}")
+        if not abs(rep - host) <= rtol * abs(host):
+            raise RuntimeError(f"{tag}: reported loss {rep} but the host computes {host}")
+        out[tag] = launches
+    print("  parametric float64:")
+    Xp, yp, cls = parametric_data()
+    options = parametric_options(sr, nc, eval_dtype="float64")
+    launches, state, _, _ = run_engine(torch, sr, dev, options, it, data=(Xp, yp),
+                                       extra={"class": cls})
+    expected = expect(launches, program_eval_param_f64=it * (nc + 1))
+    if launches != expected:
+        raise RuntimeError(f"parametric float64 launched {launches}, expected {expected}")
+    print(f"  parametric float64: best loss {best_loss(state):.10g}")
+    out["parametric float64"] = launches
+    return out
+
+
+def phase_headline(torch):
+    """Phase 28: the port's headline bench as a user runs it, once:
+    ``python -m symbolicregression_jl_tpu_torch.bench.headline``. Prints
+    its JSON line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "symbolicregression_jl_tpu_torch.bench.headline"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"bench.headline exit {proc.returncode}:\n{proc.stdout}\n"
+                           f"{proc.stderr[-4000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    rec = json.loads(line)
+    print(f"  {line}")
+    print(f"  {time.perf_counter() - t0:.1f} s in all (process start, init, 1 warm-up and 3 "
+          f"measured iterations)")
+    if rec.get("metric") != "full_dataset_expr_evals_per_sec_10k_rows" or not rec["value"] > 0:
+        raise RuntimeError(f"bench.headline printed {line}")
+    return rec
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ncycles", type=int, default=100,
@@ -2556,6 +3021,25 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
 
     print("[25] a stop between chunks of cycles (timeout at a quarter of an iteration)")
     phase_stop_between_chunks(torch, sr, dev, out_base)
+
+    print("[26] every library loss on kernels #1-#3, and their float64 forms, against their "
+          "plain versions")
+    loss_rows = phase_loss_kernels(torch, sr, dev)
+    rows += loss_rows
+
+    print("[27] a logcosh search and float64 searches at the optimizer cell's width")
+    slaunches = phase_loss_searches(torch, sr, dev)
+    for row in loss_rows:
+        name = row["name"]
+        if name.endswith(" logcosh"):
+            row["launches"] = slaunches["logcosh"][name[:-len(" logcosh")]]
+        elif name == "program_eval_param_f64":
+            row["launches"] = slaunches["parametric float64"][name]
+        else:
+            row["launches"] = slaunches["float64"][name]
+
+    print("[28] the headline bench (python -m symbolicregression_jl_tpu_torch.bench.headline)")
+    phase_headline(torch)
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -30,6 +30,7 @@ from typing import TYPE_CHECKING, Optional
 import numpy as np
 import torch
 
+from ..core.losses import KernelLoss
 from ..device import resolve_device
 
 if TYPE_CHECKING:  # pragma: no cover
@@ -114,6 +115,8 @@ def _value_fp(v) -> str:
         return "{" + ",".join(f"{k}:{x}" for k, x in items) + "}"
     if dataclasses.is_dataclass(v) and not isinstance(v, type):
         return type(v).__name__ + _value_fp(dataclasses.asdict(v))
+    if isinstance(v, KernelLoss):
+        return f"loss:{v.kind}:{v.param!r}"
     if callable(v):
         code = getattr(v, "__code__", None)
         if code is None:

@@ -16,7 +16,7 @@ from typing import Any, Callable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..core.options import Options, SEARCH_API_REST
+from ..core.options import Options
 from ..device import resolve_device
 from ..ops.encoding import encode_population
 from ..ops.eval import eval_tree_batch
@@ -25,8 +25,6 @@ from .hall_of_fame import HallOfFame, calculate_pareto_frontier, compute_scores
 from .search import RuntimeOptions, SearchState, equation_search
 
 __all__ = ["SRRegressor", "MultitargetSRRegressor", "EquationRecord", "choose_best"]
-
-EXPORT_SLICE = SEARCH_API_REST + ", with utils/export.py"
 
 
 def _coerce_table(X):
@@ -298,13 +296,49 @@ class SRRegressor:
             return [recs[i] for recs, i in zip(self.equations_, self.best_idx_)]
         return self.equations_[self.best_idx_]
 
-    def latex(self, idx: Optional[int] = None):
-        raise NotImplementedError(f"SRRegressor.latex() is not in the PyTorch port yet; it "
-                                  f"comes with {EXPORT_SLICE}.")
+    @staticmethod
+    def _export_tree(rec):
+        if rec.tree is None:
+            raise NotImplementedError(
+                "sympy export is not supported for template expressions — "
+                "use the record's `.equation` string (per-subexpression "
+                "strings via .template_expr) or .latex()"
+            )
+        return rec.tree
+
+    def _latex_one(self, rec) -> str:
+        from ..utils.export import template_to_latex, to_latex
+
+        if rec.template_expr is not None:
+            return template_to_latex(rec.template_expr)
+        return to_latex(rec.tree, variable_names=self.variable_names_)
+
+    def latex(self, idx: Optional[int] = None) -> Union[str, List[str]]:
+        """LaTeX form of the selected equation(s); template expressions
+        render as an aligned per-component block."""
+        self._check_fitted()
+        if self._MULTITARGET:
+            return [
+                self._latex_one(recs[i if idx is None else idx])
+                for recs, i in zip(self.equations_, self.best_idx_)
+            ]
+        i = int(idx) if idx is not None else int(self.best_idx_)
+        return self._latex_one(self.equations_[i])
 
     def sympy(self, idx: Optional[int] = None):
-        raise NotImplementedError(f"SRRegressor.sympy() is not in the PyTorch port yet; it "
-                                  f"comes with {EXPORT_SLICE}.")
+        """SymPy expression of the selected equation (requires sympy)."""
+        from ..utils.export import to_sympy
+
+        self._check_fitted()
+        if self._MULTITARGET:
+            return [
+                to_sympy(self._export_tree(recs[i if idx is None else idx]),
+                         variable_names=self.variable_names_)
+                for recs, i in zip(self.equations_, self.best_idx_)
+            ]
+        i = int(idx) if idx is not None else int(self.best_idx_)
+        return to_sympy(self._export_tree(self.equations_[i]),
+                        variable_names=self.variable_names_)
 
     def __repr__(self) -> str:  # pragma: no cover
         fitted = "fitted" if self.equations_ is not None else "unfitted"

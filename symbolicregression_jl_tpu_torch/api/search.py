@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..core.dataset import Dataset, make_dataset
-from ..core.options import PLUGIN_SLICE, SEARCH_API_REST, Options, check_supported
+from ..core.options import PLUGIN_SLICE, Options, check_supported, float_dtype
 from ..device import resolve_device
 from ..evolve import rng
 from ..evolve.engine import Engine, SearchDeviceState
@@ -169,9 +169,9 @@ def _on_device(state: SearchDeviceState, dev: torch.device) -> SearchDeviceState
 
 
 def _resolve_datasets(X, y, weights, variable_names, display_variable_names,
-                      y_variable_names, extra, device) -> List[Dataset]:
-    """One Dataset per output. ``X`` may be a Dataset or a list of them;
-    else ``y`` is [n] or [nout, n]."""
+                      y_variable_names, extra, device, dtype=torch.float32) -> List[Dataset]:
+    """One Dataset per output, its data ``dtype``. ``X`` may be a Dataset or
+    a list of them; else ``y`` is [n] or [nout, n]."""
     if isinstance(X, Dataset):
         return [X]
     if isinstance(X, (list, tuple)) and X and isinstance(X[0], Dataset):
@@ -190,7 +190,7 @@ def _resolve_datasets(X, y, weights, variable_names, display_variable_names,
         datasets.append(make_dataset(
             X, ys[j], weights=weights, variable_names=variable_names,
             display_variable_names=display_variable_names, y_variable_name=y_name,
-            extra=extra, index=j + 1, device=device))
+            extra=extra, index=j + 1, device=device, dtype=dtype))
     return datasets
 
 
@@ -311,18 +311,19 @@ def _seed_population(engine: Engine, state: SearchDeviceState, trees: Sequence[N
         if params is not None:
             params = kept_params
     enc = encoded if encoded is not None else encode_population(
-        list(trees)[:I * P], cfg.max_nodes, cfg.operators, device=engine.device)
+        list(trees)[:I * P], cfg.max_nodes, cfg.operators, device=engine.device,
+        dtype=engine.dtype)
     n_seed = enc.length.shape[0]
     ks = rng.split(state.key, 2)
     state = dataclasses.replace(state, key=ks[1])
-    seed_params = init_params(ks[0], (n_seed,), cfg.n_params, cfg.n_classes)
+    seed_params = init_params(ks[0], (n_seed,), cfg.n_params, cfg.n_classes, engine.dtype)
     if params is not None and cfg.n_params > 0:
         seed_params = seed_params.clone()
         for i, p in enumerate(list(params)[:n_seed]):
             if p is not None:
                 seed_params[i] = torch.as_tensor(
-                    np.asarray(p, np.float32).reshape(cfg.n_params, cfg.n_classes),
-                    device=seed_params.device)
+                    np.asarray(p).reshape(cfg.n_params, cfg.n_classes),
+                    dtype=seed_params.dtype, device=seed_params.device)
     cost, loss, cx = engine._eval(enc, seed_params, data, fuse_cost=cfg.fuse_cost)
 
     if mode == "replace_worst":
@@ -413,21 +414,23 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
     ``return_state`` and ``seed`` arguments, which override its fields,
     are the JAX package's. ``seed`` (or ``options.seed``) fixes every
     random draw. See the module docstring for warm starts and resume.
-    Units, ``extra`` columns other than ``class``, ``dtype`` and the
-    RuntimeOptions fields of later slices raise NotImplementedError
-    naming their slice."""
+    ``dtype`` (float32 or float64; default ``options.eval_dtype``) is the
+    data's, the constants', the costs' and the hall of fame's floating type:
+    float64 runs the kernels' double forms. Units, ``extra`` columns other
+    than ``class`` and the RuntimeOptions fields of later slices raise
+    NotImplementedError naming their slice."""
     other_extra = {k: v for k, v in (extra or {}).items() if k not in ("class", "classes")}
     later = {"X_units": (X_units, PLUGIN_SLICE), "y_units": (y_units, PLUGIN_SLICE),
-             "extra": (other_extra or None, PLUGIN_SLICE),
-             "dtype": (None if dtype in (None, np.float32, torch.float32, "float32") else dtype,
-                       SEARCH_API_REST)}
+             "extra": (other_extra or None, PLUGIN_SLICE)}
     for name, (value, where) in later.items():
         if value is not None:
             raise NotImplementedError(
                 f"equation_search({name}=...) is not in the PyTorch port yet; it comes with "
                 f"{where}.")
     options = options or Options()
-    check_supported(options)
+    dev = resolve_device(device)
+    check_supported(options, dev, dtype)
+    fdtype = float_dtype(dtype if dtype is not None else options.eval_dtype)
     # A copy: the caller's RuntimeOptions may serve several searches.
     ropt = (dataclasses.replace(runtime_options) if runtime_options is not None
             else RuntimeOptions(niterations=niterations))
@@ -448,7 +451,6 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
         raise ValueError("deterministic=True requires a seed (pass seed= or Options(seed=...))")
     if resume is not None and saved_state is not None:
         raise ValueError("pass either resume= or saved_state=, not both")
-    dev = resolve_device(device)
     out_base = _output_base(options)
 
     if isinstance(saved_state, (str, os.PathLike)):
@@ -473,7 +475,7 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
             start_iter = int(saved_state.iterations_done)
 
     datasets = _resolve_datasets(X, y, weights, variable_names, display_variable_names,
-                                 y_variable_names, extra, dev)
+                                 y_variable_names, extra, dev, fdtype)
     for ds in datasets:
         ds.update_baseline_loss(options.elementwise_loss)
     key = rng.key(ropt.seed if ropt.seed is not None else np.random.randint(0, 2**31 - 1),
@@ -491,7 +493,7 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
                                  "extra={'class': ...}")
             n_params, n_classes = options.expression_spec.max_parameters, ds.n_classes
         engine = Engine(options, ds.nfeatures, device=dev, n_params=n_params,
-                        n_classes=n_classes)
+                        n_classes=n_classes, dtype=ds.data.Xt.dtype)
         template = engine.template
         if template is not None and ds.nfeatures != template.n_variables:
             raise ValueError(f"Template combiner consumes {template.n_variables} variables "

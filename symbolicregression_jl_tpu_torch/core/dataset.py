@@ -20,6 +20,11 @@ from .losses import aggregate_loss
 __all__ = ["Dataset", "DeviceData", "make_dataset"]
 
 
+def to_numpy_dtype(dtype: torch.dtype):
+    """numpy's float32 or float64 for the torch dtype."""
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
 def _subscriptify(i: int) -> str:
     subs = "₀₁₂₃₄₅₆₇₈₉"
     return "".join(subs[int(c)] for c in str(i))
@@ -29,10 +34,10 @@ def _subscriptify(i: int) -> str:
 class DeviceData:
     """The device tensors of a Dataset."""
 
-    Xt: torch.Tensor                 # [nfeatures, n] float32
-    y: torch.Tensor                  # [n] float32
-    weights: Optional[torch.Tensor]  # [n] float32 or None
-    baseline_loss: torch.Tensor      # 0-d float32
+    Xt: torch.Tensor                 # [nfeatures, n] float32 (or float64)
+    y: torch.Tensor                  # [n], X's dtype
+    weights: Optional[torch.Tensor]  # [n], X's dtype, or None
+    baseline_loss: torch.Tensor      # 0-d, X's dtype
     use_baseline: torch.Tensor       # 0-d bool
     # Each row's class [n] int32 (the ``class`` column of ``extra``, as
     # indices into its sorted unique values), or None.
@@ -116,7 +121,7 @@ class Dataset:
         if self.avg_y is None:
             return
         y = self.data.y
-        pred = torch.full_like(y, float(np.float32(self.avg_y)))
+        pred = torch.full_like(y, float(np.asarray(self.avg_y, to_numpy_dtype(y.dtype))))
         loss = aggregate_loss(elementwise_loss, pred, y,
                               torch.ones((), dtype=torch.bool, device=y.device),
                               self.data.weights)
@@ -124,13 +129,13 @@ class Dataset:
         if np.isfinite(loss_f):
             self.data = dataclasses.replace(
                 self.data,
-                baseline_loss=torch.tensor(loss_f, dtype=torch.float32, device=y.device),
+                baseline_loss=torch.tensor(loss_f, dtype=y.dtype, device=y.device),
                 use_baseline=torch.tensor(True, device=y.device),
             )
         else:
             self.data = dataclasses.replace(
                 self.data,
-                baseline_loss=torch.ones((), dtype=torch.float32, device=y.device),
+                baseline_loss=torch.ones((), dtype=y.dtype, device=y.device),
                 use_baseline=torch.tensor(False, device=y.device),
             )
 
@@ -146,9 +151,11 @@ def make_dataset(
     extra: Optional[Dict[str, Any]] = None,
     index: int = 1,
     device=None,
+    dtype=torch.float32,
 ) -> Dataset:
     """Build a Dataset from ``X: (n, nfeatures)`` and ``y: (n,)`` on
-    ``device`` (CUDA unless ``device="cpu"``). Data is float32.
+    ``device`` (CUDA unless ``device="cpu"``). Data is ``dtype``: float32,
+    or float64 (``eval_dtype="float64"``, as the JAX package under x64).
 
     ``extra={"class": values}`` (or ``"classes"``) gives each row a class
     for parametric expressions: ``class_idx`` holds each value's index
@@ -159,10 +166,11 @@ def make_dataset(
     if X.ndim != 2:
         raise ValueError(f"X must be 2D (n, nfeatures); got shape {X.shape}")
     n, nfeatures = X.shape
-    y_arr = np.asarray(y, np.float32).reshape(-1)
+    ndt = to_numpy_dtype(dtype)
+    y_arr = np.asarray(y, ndt).reshape(-1)
     if y_arr.shape[0] != n:
         raise ValueError(f"y has {y_arr.shape[0]} rows but X has {n}")
-    w_arr = None if weights is None else np.asarray(weights, np.float32).reshape(-1)
+    w_arr = None if weights is None else np.asarray(weights, ndt).reshape(-1)
     if w_arr is not None and w_arr.shape[0] != n:
         raise ValueError(f"weights has {w_arr.shape[0]} rows but X has {n}")
     extra = dict(extra or {})
@@ -186,10 +194,10 @@ def make_dataset(
 
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     data = DeviceData(
-        Xt=t(X.T.astype(np.float32)),
+        Xt=t(X.T.astype(ndt)),
         y=t(y_arr),
         weights=None if w_arr is None else t(w_arr),
-        baseline_loss=torch.ones((), dtype=torch.float32, device=dev),
+        baseline_loss=torch.ones((), dtype=dtype, device=dev),
         use_baseline=torch.tensor(True, device=dev),
         class_idx=None if class_idx is None else t(class_idx),
     )

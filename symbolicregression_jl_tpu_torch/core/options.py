@@ -2,7 +2,8 @@
 
 `Options` carries every search hyperparameter with the same defaults and
 the same validation errors as the JAX package. The PyTorch port runs
-plain, parametric and template expressions, minibatching and graftstage;
+plain, parametric and template expressions, minibatching, graftstage,
+custom whole-prediction losses and float64 data;
 :func:`check_supported` refuses, by name and with the ROADMAP item that
 brings it, every option this port does not carry yet.
 """
@@ -19,7 +20,7 @@ from ..ops.operators import DEFAULT_BINARY, DEFAULT_UNARY, OperatorSet
 
 __all__ = ["MutationWeights", "ComplexityMapping", "Options", "MUTATION_KINDS",
            "EvalGeometry", "KERNEL_TREE_BLOCK", "KERNEL_TILE_ROWS",
-           "check_supported"]
+           "check_supported", "float_dtype", "turbo_requested"]
 
 # Candidate-eval kernel launch-geometry defaults (ops/fused_eval.py's
 # fused_cost/fused_loss wrappers). These are THE defaults: every layer
@@ -737,6 +738,8 @@ def _refuse(what: str, where: str) -> None:
 # numbers them.
 SEARCH_API_REST = "the rest of the search-API slice (ROADMAP.md queue 1 item 3)"
 PLUGIN_SLICE = "the expression-plugin slice (ROADMAP.md queue 1 item 4)"
+USER_CALLABLES_ON_KERNELS = ("ROADMAP.md queue 3's item 'user elementwise callables and user "
+                             "operators on the kernels'")
 
 
 def _check_expression_spec(options: Options) -> None:
@@ -756,17 +759,89 @@ def _check_expression_spec(options: Options) -> None:
                 PLUGIN_SLICE)
 
 
-def check_supported(options: Options) -> None:
-    """Raise NotImplementedError for every option outside the
-    elementwise-loss paths this port carries (plain, parametric and
-    template expressions, minibatching, graftstage's staged and bf16
-    evaluation), naming the ROADMAP item that brings it."""
+def float_dtype(name) -> "torch.dtype":
+    """The torch dtype of an ``eval_dtype`` name or an
+    ``equation_search(dtype=...)`` value (a name, numpy or torch dtype):
+    float32 or float64."""
+    import torch
+
+    if isinstance(name, torch.dtype):
+        key = str(name)[6:]
+    else:
+        try:
+            key = np.dtype(name).name
+        except TypeError:
+            key = str(name)
+    key = {"f32": "float32", "f64": "float64"}.get(key, key)
+    if key == "float32":
+        return torch.float32
+    if key == "float64":
+        return torch.float64
+    if key == "bfloat16":
+        _refuse(f"eval_dtype={name!r} (bfloat16 data; eval_precision='bf16' is the bf16 value "
+                "buffer the port runs)", SEARCH_API_REST)
+    raise ValueError(f"Unsupported dtype {name!r}: use float32 or float64")
+
+
+def turbo_requested(options: Options, device) -> bool:
+    """Whether the search asks for the interpreter kernels: an explicit
+    ``turbo=True``, or ``turbo=None`` on a CUDA device."""
+    if options.turbo is not None:
+        return bool(options.turbo)
+    return device is not None and getattr(device, "type", str(device)) == "cuda"
+
+
+def _user_operators(options: Options) -> List[str]:
+    """Names of the operators the kernels do not implement (not built in)."""
+    from ..ops.fused_eval import _KERNEL_OP_IDS
+    from ..ops.operators import OPERATOR_REGISTRY
+
+    out = []
+    for op in list(options.operators.binary) + list(options.operators.unary):
+        builtin = OPERATOR_REGISTRY.get(op.name)
+        if builtin is None or builtin.fn is not op.fn or op.name not in _KERNEL_OP_IDS:
+            out.append(op.name)
+    return out
+
+
+def check_supported(options: Options, device=None, dtype=None) -> None:
+    """Raise NotImplementedError, before the search starts, for every
+    option outside what this port carries, naming the ROADMAP item that
+    brings it. With ``device`` it also refuses what the interpreter
+    kernels cannot run where turbo is on (``turbo_requested``): a user
+    elementwise callable (outside a template, where the loss is applied
+    to kernel #4's predictions) and a user operator; ``turbo=False`` runs
+    both on the eager path, the JAX package's own path with turbo off.
+    ``dtype`` (``equation_search(dtype=...)``) overrides ``eval_dtype``."""
+    import torch
+
+    from ..models.spec import TemplateExpressionSpec
+
     _check_expression_spec(options)
     if options.dimensional_constraint_penalty is not None:
         _refuse("dimensional_constraint_penalty (units)", PLUGIN_SLICE)
-    if options.loss_function is not None or options.loss_function_expression is not None:
-        _refuse("loss_function / loss_function_expression (custom "
-                "whole-prediction losses)", SEARCH_API_REST)
-    if str(options.eval_dtype) not in ("float32", "f32"):
-        _refuse(f"eval_dtype={options.eval_dtype!r} (the kernels compute in float32)",
+    fdt = float_dtype(dtype if dtype is not None else options.eval_dtype)
+    template = isinstance(options.expression_spec, TemplateExpressionSpec)
+    if fdt == torch.float64 and template:
+        _refuse("float64 with template expressions (kernels #4 and #5 compute in float32)",
                 SEARCH_API_REST)
+    if fdt == torch.float64 and options.eval_precision == "bf16":
+        _refuse("float64 data with eval_precision='bf16'", SEARCH_API_REST)
+    if device is None or not turbo_requested(options, device):
+        return
+    if options.resolved_loss_function is not None:
+        return   # a custom whole-prediction loss runs on the eager path
+    from .losses import kernel_loss
+
+    why = []
+    if kernel_loss(options.elementwise_loss) is None and not template:
+        why.append(f"the user elementwise loss {options.elementwise_loss!r}")
+    user_ops = _user_operators(options)
+    if user_ops:
+        why.append(f"the user operators {user_ops}")
+    if why:
+        raise NotImplementedError(
+            f"{' and '.join(why)} cannot run on the CUDA interpreter kernels, which the search "
+            f"uses with turbo on; pass turbo=False to run them on the eager path (the JAX "
+            f"package's own path with turbo off). Running them on the kernels is "
+            f"{USER_CALLABLES_ON_KERNELS}.")

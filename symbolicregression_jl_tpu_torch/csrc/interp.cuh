@@ -5,8 +5,14 @@
 // this header, so all five compute every forward step, every elementwise
 // loss and every row reduction with the same code: a (tree, constant
 // vector) pair gives the same bits in each of them. The value buffer's
-// storage is a template parameter: float for #1-#5, bf16 for the bf16
-// forms of #1 and #2 (1b and 2b), which compute in float too.
+// storage is a template parameter S, and the compute type C follows it
+// (Compute<S>): float storage computes in float (#1-#5), bf16 storage in
+// float too (the bf16 forms of #1 and #2, 1b and 2b), and double storage in
+// double (the float64 forms of #1, #1p, #2 and #3). Every operation is
+// written once against C: rn_add, rn_mul, ... are __fadd_rn, __fmul_rn, ...
+// for float and __dadd_rn, __dmul_rn, ... for double (no contraction), and
+// the m_* math functions are expf, ... for float and exp, ... for double,
+// so the float instantiations compile to what they were.
 //
 // Instruction word: sign << 30 | code << 24 | src1 << 12 | src2, decoded
 // as the JAX package's `_fwd_dispatch` decodes it. `optab[code]` maps
@@ -42,151 +48,298 @@ enum : int {
 };
 
 enum : int { K_IDENTITY = 0, K_BINARY = 1, K_UNARY = 2, K_ADDSUB = 3 };
-enum : int { LOSS_L2 = 0, LOSS_L1 = 1, LOSS_HUBER = 2 };
 
-__device__ __forceinline__ float qnan() { return __int_as_float(0x7fc00000); }
+// Elementwise loss kinds (core/losses.py `KernelLoss.kind` holds the same
+// numbers). A kernel is instantiated twice over the loss: LOSS_L2, the hot
+// default, with its formula inlined, and LOSS_ANY, which switches at run
+// time on the launch's LossSpec (every kind, L2 included), so each new kind
+// costs no instantiation.
+enum : int {
+  LOSS_L2 = 0, LOSS_L1 = 1, LOSS_HUBER = 2, LOSS_LOGCOSH = 3, LOSS_LOGIT_DIST = 4,
+  LOSS_SIGMOID_CE = 5, LOSS_PERIODIC_L2 = 6, LOSS_ANY = 100
+};
+
+// A launch's loss: its kind and its one parameter (Huber's delta, the
+// periodic L2's period; unused by the others), rounded to the compute type.
+template <typename C>
+struct LossSpec {
+  int kind;
+  C param;
+};
+
+// ---------------------------------------------------------------------------
+// The compute type: rounded arithmetic and math functions for float and
+// double
+// ---------------------------------------------------------------------------
+
+template <typename S> struct Compute { typedef float type; };
+template <> struct Compute<double> { typedef double type; };
+template <typename S> using CT = typename Compute<S>::type;
+
+__device__ __forceinline__ float rn_add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double rn_add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float rn_sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double rn_sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float rn_mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double rn_mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float rn_div(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double rn_div(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float rn_fma(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double rn_fma(double a, double b, double c) { return __fma_rn(a, b, c); }
+
+#define SR_MATH1(NAME, F, D)                                            \
+  __device__ __forceinline__ float NAME(float x) { return F(x); }      \
+  __device__ __forceinline__ double NAME(double x) { return D(x); }
+#define SR_MATH2(NAME, F, D)                                                   \
+  __device__ __forceinline__ float NAME(float x, float y) { return F(x, y); }  \
+  __device__ __forceinline__ double NAME(double x, double y) { return D(x, y); }
+SR_MATH1(m_exp, expf, exp) SR_MATH1(m_abs, fabsf, fabs) SR_MATH1(m_log, logf, log)
+SR_MATH1(m_log2, log2f, log2) SR_MATH1(m_log10, log10f, log10) SR_MATH1(m_log1p, log1pf, log1p)
+SR_MATH1(m_sqrt, sqrtf, sqrt) SR_MATH1(m_cbrt, cbrtf, cbrt) SR_MATH1(m_sin, sinf, sin)
+SR_MATH1(m_cos, cosf, cos) SR_MATH1(m_tan, tanf, tan) SR_MATH1(m_sinh, sinhf, sinh)
+SR_MATH1(m_cosh, coshf, cosh) SR_MATH1(m_tanh, tanhf, tanh) SR_MATH1(m_asin, asinf, asin)
+SR_MATH1(m_acos, acosf, acos) SR_MATH1(m_atan, atanf, atan) SR_MATH1(m_asinh, asinhf, asinh)
+SR_MATH1(m_acosh, acoshf, acosh) SR_MATH1(m_atanh, atanhf, atanh) SR_MATH1(m_erf, erff, erf)
+SR_MATH1(m_erfc, erfcf, erfc) SR_MATH1(m_lgamma, lgammaf, lgamma) SR_MATH1(m_rint, rintf, rint)
+SR_MATH1(m_floor, floorf, floor) SR_MATH1(m_ceil, ceilf, ceil)
+SR_MATH2(m_pow, powf, pow) SR_MATH2(m_fmod, fmodf, fmod) SR_MATH2(m_fmax, fmaxf, fmax)
+SR_MATH2(m_fmin, fminf, fmin) SR_MATH2(m_atan2, atan2f, atan2)
+#undef SR_MATH1
+#undef SR_MATH2
+
+// Constants at each type's rounding (the float ones as the JAX package's
+// float32 derivatives take them).
+template <typename C> struct Num;
+template <> struct Num<float> {
+  __host__ __device__ static constexpr float pi() { return 3.14159265358979323846f; }
+  __host__ __device__ static constexpr float ln2() { return 0.693147182464599609375f; }
+  __host__ __device__ static constexpr float inv_ln10() { return 0.4342944920063018798828125f; }
+  __host__ __device__ static constexpr float third() { return 0.3333333432674407958984375f; }
+  __host__ __device__ static constexpr float two_over_sqrt_pi() {
+    return 1.12837922573089599609375f;
+  }
+};
+template <> struct Num<double> {
+  __host__ __device__ static constexpr double pi() { return 3.14159265358979323846; }
+  __host__ __device__ static constexpr double ln2() { return 0.69314718055994530942; }
+  __host__ __device__ static constexpr double inv_ln10() { return 0.43429448190325182765; }
+  __host__ __device__ static constexpr double third() { return 1.0 / 3.0; }
+  __host__ __device__ static constexpr double two_over_sqrt_pi() {
+    return 1.12837916709551257390;
+  }
+};
+
+template <typename C> __device__ __forceinline__ C qnan();
+template <> __device__ __forceinline__ float qnan<float>() { return __int_as_float(0x7fc00000); }
+template <> __device__ __forceinline__ double qnan<double>() {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
 
 // Python-style remainder (sign of the divisor), as jnp.mod / torch.remainder.
-__device__ __forceinline__ float py_mod(float a, float b) {
-  float m = fmodf(a, b);
-  if (m != 0.0f && ((m < 0.0f) != (b < 0.0f))) m = __fadd_rn(m, b);
+template <typename C>
+__device__ __forceinline__ C py_mod(C a, C b) {
+  C m = m_fmod(a, b);
+  if (m != C(0) && ((m < C(0)) != (b < C(0)))) m = rn_add(m, b);
   return m;
 }
 
-__device__ __forceinline__ float nan_max(float a, float b) {
-  if (a != a || b != b) return qnan();
-  return fmaxf(a, b);
+template <typename C>
+__device__ __forceinline__ C nan_max(C a, C b) {
+  if (a != a || b != b) return qnan<C>();
+  return m_fmax(a, b);
 }
 
-__device__ __forceinline__ float nan_min(float a, float b) {
-  if (a != a || b != b) return qnan();
-  return fminf(a, b);
+template <typename C>
+__device__ __forceinline__ C nan_min(C a, C b) {
+  if (a != a || b != b) return qnan<C>();
+  return m_fmin(a, b);
 }
 
-__device__ __forceinline__ float safe_pow(float x, float y) {
-  const bool is_int = (y == rintf(y));
-  const bool is_odd = fabsf(py_mod(y, 2.0f)) == 1.0f;
-  const float mag = powf(fabsf(x), y);
+template <typename C>
+__device__ __forceinline__ C safe_pow(C x, C y) {
+  const bool is_int = (y == m_rint(y));
+  const bool is_odd = m_abs(py_mod(y, C(2))) == C(1);
+  const C mag = m_pow(m_abs(x), y);
   if (is_int) {
-    if (y < 0.0f && x == 0.0f) return qnan();
-    return (is_odd && x < 0.0f) ? -mag : mag;
+    if (y < C(0) && x == C(0)) return qnan<C>();
+    return (is_odd && x < C(0)) ? -mag : mag;
   }
-  const bool bad = (y > 0.0f && x < 0.0f) || (y < 0.0f && x <= 0.0f);
-  return bad ? qnan() : mag;
+  const bool bad = (y > C(0) && x < C(0)) || (y < C(0) && x <= C(0));
+  return bad ? qnan<C>() : mag;
 }
 
-__device__ __forceinline__ float sign_of(float x) {
+template <typename C>
+__device__ __forceinline__ C sign_of(C x) {
   if (x != x) return x;
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+  return x > C(0) ? C(1) : (x < C(0) ? C(-1) : C(0));
 }
 
-__device__ __forceinline__ float gamma_fn(float x) {
-  const float s = x > 0.0f ? 1.0f : sign_of(sinf(__fmul_rn(3.14159265358979323846f, x)));
-  const float out = __fmul_rn(s, expf(lgammaf(x)));
-  return isinf(out) ? qnan() : out;
+template <typename C>
+__device__ __forceinline__ C gamma_fn(C x) {
+  const C s = x > C(0) ? C(1) : sign_of(m_sin(rn_mul(Num<C>::pi(), x)));
+  const C out = rn_mul(s, m_exp(m_lgamma(x)));
+  return isinf(out) ? qnan<C>() : out;
 }
 
-__device__ float apply_binary(int id, float a, float b) {
+template <typename C>
+__device__ C apply_binary(int id, C a, C b) {
   switch (id) {
-    case B_ADD: return __fadd_rn(a, b);
-    case B_SUB: return __fsub_rn(a, b);
-    case B_MUL: return __fmul_rn(a, b);
-    case B_DIV: return __fdiv_rn(a, b);
+    case B_ADD: return rn_add(a, b);
+    case B_SUB: return rn_sub(a, b);
+    case B_MUL: return rn_mul(a, b);
+    case B_DIV: return rn_div(a, b);
     case B_POW: return safe_pow(a, b);
     case B_MOD: return py_mod(a, b);
     case B_MAX: return nan_max(a, b);
     case B_MIN: return nan_min(a, b);
-    case B_ATAN2: return atan2f(a, b);
-    case B_GT: return a > b ? 1.0f : 0.0f;
-    case B_LT: return a < b ? 1.0f : 0.0f;
-    case B_GE: return a >= b ? 1.0f : 0.0f;
-    case B_LE: return a <= b ? 1.0f : 0.0f;
-    case B_COND: return a > 0.0f ? b : 0.0f;
-    case B_OR: return (a > 0.0f || b > 0.0f) ? 1.0f : 0.0f;
-    case B_AND: return (a > 0.0f && b > 0.0f) ? 1.0f : 0.0f;
-    default: return qnan();
+    case B_ATAN2: return m_atan2(a, b);
+    case B_GT: return a > b ? C(1) : C(0);
+    case B_LT: return a < b ? C(1) : C(0);
+    case B_GE: return a >= b ? C(1) : C(0);
+    case B_LE: return a <= b ? C(1) : C(0);
+    case B_COND: return a > C(0) ? b : C(0);
+    case B_OR: return (a > C(0) || b > C(0)) ? C(1) : C(0);
+    case B_AND: return (a > C(0) && b > C(0)) ? C(1) : C(0);
+    default: return qnan<C>();
   }
 }
 
-__device__ float apply_unary(int id, float x) {
+template <typename C>
+__device__ C apply_unary(int id, C x) {
   switch (id) {
-    case U_EXP: return expf(x);
-    case U_ABS: return fabsf(x);
-    case U_LOG: return x > 0.0f ? logf(x) : qnan();
-    case U_LOG2: return x > 0.0f ? log2f(x) : qnan();
-    case U_LOG10: return x > 0.0f ? log10f(x) : qnan();
-    case U_LOG1P: return x > -1.0f ? log1pf(x) : qnan();
-    case U_SQRT: return x >= 0.0f ? sqrtf(x) : qnan();
-    case U_CBRT: return cbrtf(x);
-    case U_SIN: return sinf(x);
-    case U_COS: return cosf(x);
-    case U_TAN: return tanf(x);
-    case U_SINH: return sinhf(x);
-    case U_COSH: return coshf(x);
-    case U_TANH: return tanhf(x);
-    case U_ASIN: return (x >= -1.0f && x <= 1.0f) ? asinf(x) : qnan();
-    case U_ACOS: return (x >= -1.0f && x <= 1.0f) ? acosf(x) : qnan();
-    case U_ATAN: return atanf(x);
-    case U_ASINH: return asinhf(x);
-    case U_ACOSH: return x >= 1.0f ? acoshf(x) : qnan();
-    case U_ATANH: return (x >= -1.0f && x <= 1.0f) ? atanhf(x) : qnan();
-    case U_ATANH_CLIP: return atanhf(__fsub_rn(py_mod(__fadd_rn(x, 1.0f), 2.0f), 1.0f));
-    case U_ERF: return erff(x);
-    case U_ERFC: return erfcf(x);
+    case U_EXP: return m_exp(x);
+    case U_ABS: return m_abs(x);
+    case U_LOG: return x > C(0) ? m_log(x) : qnan<C>();
+    case U_LOG2: return x > C(0) ? m_log2(x) : qnan<C>();
+    case U_LOG10: return x > C(0) ? m_log10(x) : qnan<C>();
+    case U_LOG1P: return x > C(-1) ? m_log1p(x) : qnan<C>();
+    case U_SQRT: return x >= C(0) ? m_sqrt(x) : qnan<C>();
+    case U_CBRT: return m_cbrt(x);
+    case U_SIN: return m_sin(x);
+    case U_COS: return m_cos(x);
+    case U_TAN: return m_tan(x);
+    case U_SINH: return m_sinh(x);
+    case U_COSH: return m_cosh(x);
+    case U_TANH: return m_tanh(x);
+    case U_ASIN: return (x >= C(-1) && x <= C(1)) ? m_asin(x) : qnan<C>();
+    case U_ACOS: return (x >= C(-1) && x <= C(1)) ? m_acos(x) : qnan<C>();
+    case U_ATAN: return m_atan(x);
+    case U_ASINH: return m_asinh(x);
+    case U_ACOSH: return x >= C(1) ? m_acosh(x) : qnan<C>();
+    case U_ATANH: return (x >= C(-1) && x <= C(1)) ? m_atanh(x) : qnan<C>();
+    case U_ATANH_CLIP: return m_atanh(rn_sub(py_mod(rn_add(x, C(1)), C(2)), C(1)));
+    case U_ERF: return m_erf(x);
+    case U_ERFC: return m_erfc(x);
     case U_GAMMA: return gamma_fn(x);
-    case U_SQUARE: return __fmul_rn(x, x);
-    case U_CUBE: return __fmul_rn(__fmul_rn(x, x), x);
+    case U_SQUARE: return rn_mul(x, x);
+    case U_CUBE: return rn_mul(rn_mul(x, x), x);
     case U_NEG: return -x;
-    case U_INV: return __fdiv_rn(1.0f, x);
-    case U_RELU: return x > 0.0f ? x : 0.0f;
-    case U_ROUND: return rintf(x);
-    case U_FLOOR: return floorf(x);
-    case U_CEIL: return ceilf(x);
+    case U_INV: return rn_div(C(1), x);
+    case U_RELU: return x > C(0) ? x : C(0);
+    case U_ROUND: return m_rint(x);
+    case U_FLOOR: return m_floor(x);
+    case U_CEIL: return m_ceil(x);
     case U_SIGN: return sign_of(x);
-    default: return qnan();
+    default: return qnan<C>();
   }
 }
 
-template <int LOSS>
-__device__ __forceinline__ float elementwise_loss(float p, float y) {
-  const float d = __fsub_rn(p, y);
-  if (LOSS == LOSS_L2) return __fmul_rn(d, d);
-  const float a = fabsf(d);
-  if (LOSS == LOSS_L1) return a;
-  // Huber with delta = 1: where(a <= 1, 0.5 * a * a, 1 * (a - 0.5)).
-  return a <= 1.0f ? __fmul_rn(__fmul_rn(0.5f, a), a) : __fsub_rn(a, 0.5f);
+// ---------------------------------------------------------------------------
+// Elementwise losses (plain versions: core/losses.py), each the JAX
+// package's formula (symbolicregression_jl_tpu/core/losses.py) operation for
+// operation
+// ---------------------------------------------------------------------------
+
+// jnp.logaddexp(a, b): max(a, b) + log1p(exp(-|a - b|)), or a + b where
+// a - b is NaN (NaNs, or infinities of one sign).
+template <typename C>
+__device__ __forceinline__ C logaddexp(C a, C b) {
+  const C delta = rn_sub(a, b);
+  if (delta != delta) return rn_add(a, b);
+  return rn_add(nan_max(a, b), m_log1p(m_exp(-m_abs(delta))));
 }
 
-// Storage of the value buffer: float (kernels #1-#5), or __nv_bfloat16
+// JAX's _replace_inf: +inf becomes 0 (logaddexp's JVP).
+template <typename C>
+__device__ __forceinline__ C replace_inf(C x) { return x == C(INFINITY) ? C(0) : x; }
+
+// The loss of one row of any kind (LOSS_ANY's run-time switch).
+template <typename C>
+__device__ __forceinline__ C loss_of_kind(const LossSpec<C>& ls, C p, C y) {
+  const C d = rn_sub(p, y);
+  switch (ls.kind) {
+    case LOSS_L2: return rn_mul(d, d);
+    case LOSS_L1: return m_abs(d);
+    case LOSS_HUBER: {
+      // where(a <= delta, 0.5 * a * a, delta * (a - 0.5 * delta))
+      const C a = m_abs(d);
+      return a <= ls.param ? rn_mul(rn_mul(C(0.5), a), a)
+                           : rn_mul(ls.param, rn_sub(a, rn_mul(C(0.5), ls.param)));
+    }
+    case LOSS_LOGCOSH:
+      // logaddexp(p - y, y - p) - log(2)
+      return rn_sub(logaddexp(d, rn_sub(y, p)), Num<C>::ln2());
+    case LOSS_LOGIT_DIST: {
+      // 2 * (logaddexp(d / 2, -d / 2) - log(2))
+      const C h = rn_div(d, C(2));
+      return rn_mul(C(2), rn_sub(logaddexp(h, rn_div(-d, C(2))), Num<C>::ln2()));
+    }
+    case LOSS_SIGMOID_CE:
+      // maximum(p, 0) - p * y + log1p(exp(-|p|))
+      return rn_add(rn_sub(nan_max(p, C(0)), rn_mul(p, y)), m_log1p(m_exp(-m_abs(p))));
+    case LOSS_PERIODIC_L2: {
+      // e = mod(p - y + c / 2, c) - c / 2; e * e
+      const C half = rn_mul(ls.param, C(0.5));
+      const C e = rn_sub(py_mod(rn_add(d, half), ls.param), half);
+      return rn_mul(e, e);
+    }
+    default: return qnan<C>();
+  }
+}
+
+template <int LOSS, typename C>
+__device__ __forceinline__ C elementwise_loss(const LossSpec<C>& ls, C p, C y) {
+  if (LOSS == LOSS_L2) {
+    const C d = rn_sub(p, y);
+    return rn_mul(d, d);
+  }
+  return loss_of_kind(ls, p, y);
+}
+
+// Storage of the value buffer: float (kernels #1-#5), __nv_bfloat16
 // (the bf16 forms 1b and 2b, graftstage's eval_precision="bf16" and
-// optimizer_bf16_linesearch). A bf16 buffer is only storage: every step
-// reads its operands as float, computes in float and rounds the result to
-// bf16 (round to nearest even) as it stores it. For float both
-// conversions are the identity, so the f32 kernels compile as before.
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// optimizer_bf16_linesearch) or double (the float64 forms). A bf16 buffer
+// is only storage: every step reads its operands as float, computes in
+// float and rounds the result to bf16 (round to nearest even) as it stores
+// it. For float and double both conversions are the identity.
+__device__ __forceinline__ float to_c(float v) { return v; }
+__device__ __forceinline__ double to_c(double v) { return v; }
+__device__ __forceinline__ float to_c(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename S>
-__device__ __forceinline__ S from_f32(float v);
+__device__ __forceinline__ S from_c(typename Compute<S>::type v);
 template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+__device__ __forceinline__ float from_c<float>(float v) { return v; }
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+__device__ __forceinline__ double from_c<double>(double v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_c<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Elements of storage type S in front of a block's float scratch, rounded
-// up to keep the scratch 4-byte aligned (a no-op for float).
+// Elements of storage type S in front of a block's compute-type scratch,
+// rounded up to keep the scratch 4-byte aligned (a no-op for float and
+// double).
 template <typename S>
 __host__ __device__ constexpr size_t padded(size_t count) {
   return sizeof(S) >= 4 ? count : (count + 1) & ~(size_t)1;
 }
 
 // The loss term of one row: where(w > 0, elt, 0) * w.
-template <int LOSS>
-__device__ __forceinline__ float loss_term(float v, float yr, float wr) {
-  const float elt = elementwise_loss<LOSS>(v, yr);
-  return __fmul_rn(wr > 0.0f ? elt : 0.0f, wr);
+template <int LOSS, typename C>
+__device__ __forceinline__ C loss_term(const LossSpec<C>& ls, C v, C yr, C wr) {
+  const C elt = elementwise_loss<LOSS>(ls, v, yr);
+  return rn_mul(wr > C(0) ? elt : C(0), wr);
 }
 
 // ---------------------------------------------------------------------------
@@ -240,6 +393,13 @@ constexpr int TILE_MAX_W = 256;           // the largest lane count `_block` pic
 constexpr int TILE_VCH = 8;               // constant vectors per pass over the rows (#2)
 constexpr int TILE_LOADS = 4;             // per-row rows loaded before any is stored
 constexpr int TILE_MIN_BLOCKS = 16;       // #1: blocks per SM its registers must allow (64 a thread)
+
+// #1's blocks per SM for the compute type C: a double takes two registers,
+// so the float64 forms allow half as many blocks (128 registers a thread).
+template <typename C>
+__host__ __device__ constexpr int tile_min_blocks() {
+  return sizeof(C) == 8 ? TILE_MIN_BLOCKS / 2 : TILE_MIN_BLOCKS;
+}
 constexpr size_t kSmemLimit = 232448;     // bytes of shared memory one H100 block may use
 
 // Rows for held step results in a program of L steps (see above).
@@ -254,9 +414,9 @@ enum : int { OPX_ADDSUB = 16, OPX_IDENT = 17, OPX_NAN = 18 };
 enum : int { OPD_ROW = 0, OPD_CONST = 1, OPD_PREV = 2 };
 
 // One thread's TILE_ROWS consecutive values of a buffer row, moved as one
-// vector load or store.
+// vector load or store (two for a pack of 32 bytes, aligned to 16).
 template <typename S, int K>
-struct alignas(sizeof(S) * K) RowPack {
+struct alignas(sizeof(S) * K > 16 ? 16 : sizeof(S) * K) RowPack {
   S v[K];
 };
 
@@ -273,11 +433,12 @@ template <typename S>
 __host__ __device__ inline TileLayout tile_layout(int W, int L, int CMAX, int R, int NP, int NC,
                                                   int vch) {
   const int rows = R + tile_slots(L);
+  const size_t csize = sizeof(typename Compute<S>::type);
   TileLayout o;
   o.stab = 0;                                                             // int4 [L]
   o.sv = align_up(o.stab + 16 * (size_t)L, 16);                           // S [rows * W]
-  o.sacc = align_up(o.sv + sizeof(S) * (size_t)rows * W, 16);             // float [vch * W]
-  o.sc = o.sacc + 4 * (size_t)vch * W;                                    // S [vch * (CMAX+1)]
+  o.sacc = align_up(o.sv + sizeof(S) * (size_t)rows * W, 16);             // C [vch * W]
+  o.sc = o.sacc + csize * (size_t)vch * W;                                // S [vch * (CMAX+1)]
   o.sbank = o.sc + sizeof(S) * (size_t)vch * (CMAX + 1);                  // S [NP * NC]
   o.sok = align_up(o.sbank + sizeof(S) * (size_t)NP * NC, 4);             // int [vch]
   o.sflag = o.sok + 4 * (size_t)vch;                                      // int [L]
@@ -380,16 +541,16 @@ __device__ void decode_tile_program(const int* __restrict__ words, int m,
 
 // One operand for the thread's K rows: its column of a buffer row, a
 // constant of the vector `cv`, or the previous step's values.
-template <typename S, int K>
+template <typename S, int K, typename C = typename Compute<S>::type>
 __device__ __forceinline__ void tile_operand(int desc, const S* col, const S* cv,
-                                             const float (&prev)[K], float (&out)[K]) {
+                                             const C (&prev)[K], C (&out)[K]) {
   const int kind = desc & 3;
   if (kind == OPD_ROW) {
     const RowPack<S, K> p = *reinterpret_cast<const RowPack<S, K>*>(col + (desc >> 2));
 #pragma unroll
-    for (int k = 0; k < K; ++k) out[k] = to_f32(p.v[k]);
+    for (int k = 0; k < K; ++k) out[k] = to_c(p.v[k]);
   } else if (kind == OPD_CONST) {
-    const float c = to_f32(cv[desc >> 2]);
+    const C c = to_c(cv[desc >> 2]);
 #pragma unroll
     for (int k = 0; k < K; ++k) out[k] = c;
   } else {
@@ -408,37 +569,37 @@ __device__ __forceinline__ void tile_operand(int desc, const S* col, const S* cv
 // and NaN stays). With a bf16 buffer a finite value past bf16's range
 // stores as inf with chk still 0: the inf surfaces in the next step or in
 // the loss, as in the TPU kernel.
-template <typename S, int K>
+template <typename S, int K, typename C = typename Compute<S>::type>
 __device__ __forceinline__ void run_tile(const int4* __restrict__ stab, int m, S* col,
-                                         const S* cv, float (&root)[K], float (&chk)[K]) {
-  float prev[K];
+                                         const S* cv, C (&root)[K], C (&chk)[K]) {
+  C prev[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    prev[k] = 0.0f;
-    chk[k] = 0.0f;
+    prev[k] = C(0);
+    chk[k] = C(0);
   }
   int4 d = m > 0 ? stab[0] : make_int4(0, 0, 0, -1);
   for (int s = 0; s < m; ++s) {
     const int4 dn = s + 1 < m ? stab[s + 1] : d;   // the next step's entry, ahead of its use
-    float a[K], b[K], r[K];
+    C a[K], b[K], r[K];
     tile_operand<S, K>(d.y, col, cv, prev, a);
     // The second operand loads inside the binary cases: fewer values live
     // across the dispatch (64 registers hold the unrolled operators).
 #define SR_TILE_BIN(ID)                        \
   case ID:                                     \
     tile_operand<S, K>(d.z, col, cv, prev, b); \
-    _Pragma("unroll") for (int k = 0; k < K; ++k) r[k] = apply_binary(ID, a[k], b[k]); \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) r[k] = apply_binary<C>(ID, a[k], b[k]); \
     break;
 #define SR_TILE_UN(ID) \
   case ID:             \
-    _Pragma("unroll") for (int k = 0; k < K; ++k) r[k] = apply_unary(ID, a[k]); \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) r[k] = apply_unary<C>(ID, a[k]); \
     break;
     switch (d.x & 0xFF) {
       case OPX_ADDSUB: {
         tile_operand<S, K>(d.z, col, cv, prev, b);
-        const float sg = (d.x & 0x100) ? -1.0f : 1.0f;
+        const C sg = (d.x & 0x100) ? C(-1) : C(1);
 #pragma unroll
-        for (int k = 0; k < K; ++k) r[k] = __fadd_rn(a[k], __fmul_rn(sg, b[k]));
+        for (int k = 0; k < K; ++k) r[k] = rn_add(a[k], rn_mul(sg, b[k]));
         break;
       }
       case OPX_IDENT:
@@ -460,16 +621,16 @@ __device__ __forceinline__ void run_tile(const int4* __restrict__ stab, int m, S
       SR_TILE_UN(U_SIGN)
       default:
 #pragma unroll
-        for (int k = 0; k < K; ++k) r[k] = qnan();
+        for (int k = 0; k < K; ++k) r[k] = qnan<C>();
     }
 #undef SR_TILE_BIN
 #undef SR_TILE_UN
     RowPack<S, K> st;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      chk[k] = __fmaf_rn(r[k], 0.0f, chk[k]);
-      st.v[k] = from_f32<S>(r[k]);
-      prev[k] = to_f32(st.v[k]);
+      chk[k] = rn_fma(r[k], C(0), chk[k]);
+      st.v[k] = from_c<S>(r[k]);
+      prev[k] = to_c(st.v[k]);
     }
     if (d.w >= 0) *reinterpret_cast<RowPack<S, K>*>(col + d.w) = st;
     d = dn;
@@ -494,19 +655,20 @@ __device__ __forceinline__ RowPack<T, K> load_rows(const T* __restrict__ src, in
   return p;
 }
 
-// Sums `count` arrays of W floats (x[c * W + i], W a power of two) in the
+// Sums `count` arrays of W values (x[c * W + i], W a power of two) in the
 // fixed lane order's pairing: strides W/2 down to 1, x[i] = x[i] + x[i + s].
 // The sums land in x[c * W]. No float atomics, so one input always gives
 // one result. Every thread of the block calls it.
-__device__ __forceinline__ void lane_tree_sum(float* x, int W, int count) {
+template <typename C>
+__device__ __forceinline__ void lane_tree_sum(C* x, int W, int count) {
   int sh = 0;
   while ((1 << sh) < W) ++sh;
   for (int s = W >> 1; s > 0; s >>= 1) {
     --sh;
     for (int idx = threadIdx.x; idx < count * s; idx += blockDim.x) {
-      float* row = x + (idx >> sh) * W;
+      C* row = x + (idx >> sh) * W;
       const int i = idx & (s - 1);
-      row[i] = __fadd_rn(row[i], row[i + s]);
+      row[i] = rn_add(row[i], row[i + s]);
     }
     __syncthreads();
   }
@@ -518,27 +680,28 @@ __device__ __forceinline__ void lane_tree_sum(float* x, int W, int count) {
 // parametric form (PARAM) fills per-row rows F..F+NP-1 with bank[p,
 // class[r]] (the tree's bank [NP, NC], class clipped to [0, NC)). Calls
 // emit(v, sum, ok) once per vector from one thread; ok: every step finite
-// on every row below n.
+// on every row below n. `ls` is the launch's loss (LOSS_ANY reads it).
 template <typename S, int LOSS, bool PARAM, int K, typename Emit>
 __device__ __forceinline__ void tree_loss_sums(
-    const int* __restrict__ words, int m, const float* __restrict__ cvals,
-    const float* __restrict__ bank, const int* __restrict__ class_idx,
-    const S* __restrict__ X, const float* __restrict__ y, const float* __restrict__ w,
+    const int* __restrict__ words, int m, const CT<S>* __restrict__ cvals,
+    const CT<S>* __restrict__ bank, const int* __restrict__ class_idx,
+    const S* __restrict__ X, const CT<S>* __restrict__ y, const CT<S>* __restrict__ w,
     const int* __restrict__ optab, int V, int vch, int L, int CMAX, int F, int NP, int NC, int n,
-    int W, int code_mask, int sign_shift, unsigned char* smem, Emit emit) {
+    int W, int code_mask, int sign_shift, LossSpec<CT<S>> ls, unsigned char* smem, Emit emit) {
+  typedef CT<S> C;
   const int tid = threadIdx.x;
   const int P = blockDim.x;
   const int R = F + NP;
   const TileLayout lay = tile_layout<S>(W, L, CMAX, R, NP, NC, vch);
   int4* stab = reinterpret_cast<int4*>(smem + lay.stab);
   S* sv = reinterpret_cast<S*>(smem + lay.sv);
-  float* sacc = reinterpret_cast<float*>(smem + lay.sacc);
+  C* sacc = reinterpret_cast<C*>(smem + lay.sacc);
   S* sc = reinterpret_cast<S*>(smem + lay.sc);
   S* sbank = reinterpret_cast<S*>(smem + lay.sbank);
   int* sok = reinterpret_cast<int*>(smem + lay.sok);
 
   if (PARAM) {
-    for (int i = tid; i < NP * NC; i += P) sbank[i] = from_f32<S>(bank[i]);
+    for (int i = tid; i < NP * NC; i += P) sbank[i] = from_c<S>(bank[i]);
   }
   decode_tile_program(words, m, optab, code_mask, sign_shift, R, CMAX, L, W,
                       reinterpret_cast<int*>(smem + lay.sflag),
@@ -546,21 +709,21 @@ __device__ __forceinline__ void tree_loss_sums(
                       reinterpret_cast<int*>(smem + lay.sfree), stab);
 
   S* col = sv + K * tid;
-  float* acol = sacc + K * tid;
+  C* acol = sacc + K * tid;
   const bool vec_x = n % K == 0 && reinterpret_cast<uintptr_t>(X) % sizeof(RowPack<S, K>) == 0;
-  const bool vec_yw = n % K == 0 && reinterpret_cast<uintptr_t>(y) % sizeof(RowPack<float, K>) == 0
-                      && reinterpret_cast<uintptr_t>(w) % sizeof(RowPack<float, K>) == 0;
+  const bool vec_yw = n % K == 0 && reinterpret_cast<uintptr_t>(y) % sizeof(RowPack<C, K>) == 0
+                      && reinterpret_cast<uintptr_t>(w) % sizeof(RowPack<C, K>) == 0;
   const int CS = CMAX + 1;
   for (int v0 = 0; v0 < V; v0 += vch) {
     const int nv = min(vch, V - v0);
     for (int i = tid; i < nv * CS; i += P) {
       const int c = i / CS, j = i - c * CS;
-      sc[i] = from_f32<S>(j < CMAX ? cvals[(size_t)(v0 + c) * CMAX + j] : 0.0f);
+      sc[i] = from_c<S>(j < CMAX ? cvals[(size_t)(v0 + c) * CMAX + j] : C(0));
     }
     for (int c = tid; c < nv; c += P) sok[c] = 1;
     for (int c = 0; c < nv; ++c) {
 #pragma unroll
-      for (int k = 0; k < K; ++k) acol[c * W + k] = 0.0f;
+      for (int k = 0; k < K; ++k) acol[c * W + k] = C(0);
     }
     __syncthreads();
 
@@ -568,8 +731,8 @@ __device__ __forceinline__ void tree_loss_sums(
       const int r = r0 + K * tid;
       // The tile's loads are issued before their values are stored, so
       // they travel together (TILE_LOADS features at a time).
-      const RowPack<float, K> yk = load_rows<float, K>(y, r, n, vec_yw, 0.0f);
-      const RowPack<float, K> wk = load_rows<float, K>(w, r, n, vec_yw, 0.0f);
+      const RowPack<C, K> yk = load_rows<C, K>(y, r, n, vec_yw, C(0));
+      const RowPack<C, K> wk = load_rows<C, K>(w, r, n, vec_yw, C(0));
       int cls[K];
       if (PARAM) {
 #pragma unroll
@@ -580,7 +743,7 @@ __device__ __forceinline__ void tree_loss_sums(
 #pragma unroll
         for (int j = 0; j < TILE_LOADS; ++j) {
           if (f0 + j < F) xs[j] = load_rows<S, K>(X + (size_t)(f0 + j) * n, r, n, vec_x,
-                                                   from_f32<S>(0.0f));
+                                                   from_c<S>(C(0)));
         }
 #pragma unroll
         for (int j = 0; j < TILE_LOADS; ++j) {
@@ -596,18 +759,18 @@ __device__ __forceinline__ void tree_loss_sums(
         }
       }
       for (int c = 0; c < nv; ++c) {
-        float root[K], chk[K];
+        C root[K], chk[K];
         run_tile<S, K>(stab, m, col, sc + c * CS, root, chk);
-        RowPack<float, K> acc = *reinterpret_cast<RowPack<float, K>*>(acol + c * W);
+        RowPack<C, K> acc = *reinterpret_cast<RowPack<C, K>*>(acol + c * W);
         bool ok = true;
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           if (r + k < n) {
-            acc.v[k] = __fadd_rn(acc.v[k], loss_term<LOSS>(root[k], yk.v[k], wk.v[k]));
-            ok = ok && chk[k] == 0.0f;
+            acc.v[k] = rn_add(acc.v[k], loss_term<LOSS>(ls, root[k], yk.v[k], wk.v[k]));
+            ok = ok && chk[k] == C(0);
           }
         }
-        *reinterpret_cast<RowPack<float, K>*>(acol + c * W) = acc;
+        *reinterpret_cast<RowPack<C, K>*>(acol + c * W) = acc;
         if (!ok) sok[c] = 0;
       }
     }
@@ -624,23 +787,28 @@ __device__ __forceinline__ void tree_loss_sums(
 // ---------------------------------------------------------------------------
 
 // JAX's _balanced_eq: 1 where x is the max/min, halved on a tie.
-__device__ __forceinline__ float balanced(float x, float ans, float other) {
-  return __fdiv_rn(x == ans ? 1.0f : 0.0f, other == ans ? 2.0f : 1.0f);
+template <typename C>
+__device__ __forceinline__ C balanced(C x, C ans, C other) {
+  return rn_div(x == ans ? C(1) : C(0), other == ans ? C(2) : C(1));
 }
 
-__device__ __forceinline__ float recip2(float v) { return __fdiv_rn(1.0f, __fmul_rn(v, v)); }
+template <typename C>
+__device__ __forceinline__ C recip2(C v) { return rn_div(C(1), rn_mul(v, v)); }
 
-__device__ __forceinline__ float rsqrt_ieee(float v) { return __fdiv_rn(1.0f, sqrtf(v)); }
+template <typename C>
+__device__ __forceinline__ C rsqrt_ieee(C v) { return rn_div(C(1), m_sqrt(v)); }
 
 // Cotangent through clip(x, -1, 1) = min(1, max(-1, x)).
-__device__ __forceinline__ float clip_vjp(float x, float ct_c) {
-  const float m = nan_max(-1.0f, x);
-  const float c = nan_min(1.0f, m);
-  const float ct_m = __fmul_rn(ct_c, balanced(m, c, 1.0f));
-  return __fmul_rn(ct_m, balanced(x, m, -1.0f));
+template <typename C>
+__device__ __forceinline__ C clip_vjp(C x, C ct_c) {
+  const C m = nan_max(C(-1), x);
+  const C c = nan_min(C(1), m);
+  const C ct_m = rn_mul(ct_c, balanced(m, c, C(1)));
+  return rn_mul(ct_m, balanced(x, m, C(-1)));
 }
 
-__device__ __forceinline__ float clip1(float x) { return nan_min(1.0f, nan_max(-1.0f, x)); }
+template <typename C>
+__device__ __forceinline__ C clip1(C x) { return nan_min(C(1), nan_max(C(-1), x)); }
 
 // Digamma in double: reflection below 0, recurrence to x >= 6, then the
 // asymptotic series. Poles as torch.digamma: -inf at +0, +inf at -0, NaN at
@@ -663,154 +831,205 @@ __device__ double digamma_d(double x) {
   return r + log(x) - 0.5 / x + t;
 }
 
-__device__ void vjp_binary(int id, float a, float b, float ct, float& da, float& db) {
+template <typename C>
+__device__ void vjp_binary(int id, C a, C b, C ct, C& da, C& db) {
   switch (id) {
     case B_ADD: da = ct; db = ct; return;
     case B_SUB: da = ct; db = -ct; return;
-    case B_MUL: da = __fmul_rn(ct, b); db = __fmul_rn(a, ct); return;
+    case B_MUL: da = rn_mul(ct, b); db = rn_mul(a, ct); return;
     case B_DIV:
-      da = __fdiv_rn(ct, b);
-      db = -__fmul_rn(__fmul_rn(ct, recip2(b)), a);
+      da = rn_div(ct, b);
+      db = -rn_mul(rn_mul(ct, recip2(b)), a);
       return;
     case B_POW: {
-      const bool is_int = (b == rintf(b));
-      const bool is_odd = fabsf(py_mod(b, 2.0f)) == 1.0f;
-      const float ax = fabsf(a);
-      const float mag = powf(ax, b);
-      const float ct_int = is_int ? ct : 0.0f;
-      const float ct_non = is_int ? 0.0f : ct;
-      const float ct_s = (b < 0.0f && a == 0.0f) ? 0.0f : ct_int;
-      const float ct_m1 = (is_odd && a < 0.0f) ? -ct_s : ct_s;
-      const bool bad = (b > 0.0f && a < 0.0f) || (b < 0.0f && a <= 0.0f);
-      const float ct_m2 = bad ? 0.0f : ct_non;
-      const float jac_x = __fmul_rn(b, powf(ax, __fsub_rn(b, 1.0f)));
-      const float jac_y = __fmul_rn(logf(ax == 0.0f ? 1.0f : ax), mag);
-      const float d_ax = __fadd_rn(__fmul_rn(ct_m1, jac_x), __fmul_rn(ct_m2, jac_x));
-      da = a >= 0.0f ? d_ax : -d_ax;
-      db = __fadd_rn(__fmul_rn(ct_m1, jac_y), __fmul_rn(ct_m2, jac_y));
+      const bool is_int = (b == m_rint(b));
+      const bool is_odd = m_abs(py_mod(b, C(2))) == C(1);
+      const C ax = m_abs(a);
+      const C mag = m_pow(ax, b);
+      const C ct_int = is_int ? ct : C(0);
+      const C ct_non = is_int ? C(0) : ct;
+      const C ct_s = (b < C(0) && a == C(0)) ? C(0) : ct_int;
+      const C ct_m1 = (is_odd && a < C(0)) ? -ct_s : ct_s;
+      const bool bad = (b > C(0) && a < C(0)) || (b < C(0) && a <= C(0));
+      const C ct_m2 = bad ? C(0) : ct_non;
+      const C jac_x = rn_mul(b, m_pow(ax, rn_sub(b, C(1))));
+      const C jac_y = rn_mul(m_log(ax == C(0) ? C(1) : ax), mag);
+      const C d_ax = rn_add(rn_mul(ct_m1, jac_x), rn_mul(ct_m2, jac_x));
+      da = a >= C(0) ? d_ax : -d_ax;
+      db = rn_add(rn_mul(ct_m1, jac_y), rn_mul(ct_m2, jac_y));
       return;
     }
     case B_MOD: {
-      const float tm = fmodf(a, b);
-      const bool do_plus = ((tm < 0.0f) != (b < 0.0f)) && tm != 0.0f;
-      const float q = __fdiv_rn(a, b);
-      const float jac = __fmul_rn(sign_of(q), floorf(fabsf(q)));
+      const C tm = m_fmod(a, b);
+      const bool do_plus = ((tm < C(0)) != (b < C(0))) && tm != C(0);
+      const C q = rn_div(a, b);
+      const C jac = rn_mul(sign_of(q), m_floor(m_abs(q)));
       da = ct;
-      db = __fadd_rn(-__fmul_rn(ct, jac), do_plus ? ct : 0.0f);
+      db = rn_add(-rn_mul(ct, jac), do_plus ? ct : C(0));
       return;
     }
     case B_MAX: {
-      const float ans = nan_max(a, b);
-      da = __fmul_rn(ct, balanced(a, ans, b));
-      db = __fmul_rn(ct, balanced(b, ans, a));
+      const C ans = nan_max(a, b);
+      da = rn_mul(ct, balanced(a, ans, b));
+      db = rn_mul(ct, balanced(b, ans, a));
       return;
     }
     case B_MIN: {
-      const float ans = nan_min(a, b);
-      da = __fmul_rn(ct, balanced(a, ans, b));
-      db = __fmul_rn(ct, balanced(b, ans, a));
+      const C ans = nan_min(a, b);
+      da = rn_mul(ct, balanced(a, ans, b));
+      db = rn_mul(ct, balanced(b, ans, a));
       return;
     }
     case B_ATAN2: {
-      const float den = __fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b));
-      da = __fmul_rn(ct, __fdiv_rn(b, den));
-      db = __fmul_rn(ct, __fdiv_rn(-a, den));
+      const C den = rn_add(rn_mul(a, a), rn_mul(b, b));
+      da = rn_mul(ct, rn_div(b, den));
+      db = rn_mul(ct, rn_div(-a, den));
       return;
     }
-    case B_COND: da = 0.0f; db = a > 0.0f ? ct : 0.0f; return;
-    default: da = 0.0f; db = 0.0f; return;  // comparisons and logical ops
+    case B_COND: da = C(0); db = a > C(0) ? ct : C(0); return;
+    default: da = C(0); db = C(0); return;  // comparisons and logical ops
   }
 }
 
-__device__ float vjp_unary(int id, float x, float ct) {
+template <typename C>
+__device__ C vjp_unary(int id, C x, C ct) {
   switch (id) {
-    case U_EXP: return __fmul_rn(ct, expf(x));
-    case U_ABS: return x >= 0.0f ? ct : -ct;
-    case U_LOG: return x > 0.0f ? __fdiv_rn(ct, x) : 0.0f;
-    case U_LOG2: return x > 0.0f ? __fdiv_rn(__fdiv_rn(ct, 0.693147182464599609375f), x) : 0.0f;
-    case U_LOG10: return x > 0.0f ? __fdiv_rn(__fmul_rn(ct, 0.4342944920063018798828125f), x)
-                                  : 0.0f;
-    case U_LOG1P: return x > -1.0f ? __fdiv_rn(ct, __fadd_rn(x, 1.0f)) : 0.0f;
-    case U_SQRT: return x >= 0.0f ? __fmul_rn(ct, __fdiv_rn(0.5f, sqrtf(x))) : 0.0f;
+    case U_EXP: return rn_mul(ct, m_exp(x));
+    case U_ABS: return x >= C(0) ? ct : -ct;
+    case U_LOG: return x > C(0) ? rn_div(ct, x) : C(0);
+    case U_LOG2: return x > C(0) ? rn_div(rn_div(ct, Num<C>::ln2()), x) : C(0);
+    case U_LOG10: return x > C(0) ? rn_div(rn_mul(ct, Num<C>::inv_ln10()), x) : C(0);
+    case U_LOG1P: return x > C(-1) ? rn_div(ct, rn_add(x, C(1))) : C(0);
+    case U_SQRT: return x >= C(0) ? rn_mul(ct, rn_div(C(0.5), m_sqrt(x))) : C(0);
     case U_CBRT: {
-      const float ans = (float)cbrt((double)x);
-      return __fmul_rn(ct, __fmul_rn(0.3333333432674407958984375f, recip2(ans)));
+      const C ans = (C)cbrt((double)x);
+      return rn_mul(ct, rn_mul(Num<C>::third(), recip2(ans)));
     }
-    case U_SIN: return __fmul_rn(ct, cosf(x));
-    case U_COS: return __fmul_rn(-ct, sinf(x));
+    case U_SIN: return rn_mul(ct, m_cos(x));
+    case U_COS: return rn_mul(-ct, m_sin(x));
     case U_TAN: {
-      const float t = tanf(x);
-      return __fmul_rn(ct, __fadd_rn(1.0f, __fmul_rn(t, t)));
+      const C t = m_tan(x);
+      return rn_mul(ct, rn_add(C(1), rn_mul(t, t)));
     }
-    case U_SINH: return __fmul_rn(ct, (float)cosh((double)x));
-    case U_COSH: return __fmul_rn(ct, (float)sinh((double)x));
+    case U_SINH: return rn_mul(ct, (C)cosh((double)x));
+    case U_COSH: return rn_mul(ct, (C)sinh((double)x));
     case U_TANH: {
-      const float ans = tanhf(x);
-      const float t = __fmul_rn(ct, __fsub_rn(1.0f, ans));
-      return __fadd_rn(t, __fmul_rn(t, ans));
+      const C ans = m_tanh(x);
+      const C t = rn_mul(ct, rn_sub(C(1), ans));
+      return rn_add(t, rn_mul(t, ans));
     }
     case U_ASIN:
     case U_ACOS: {
-      const bool ok = x >= -1.0f && x <= 1.0f;
-      const float c = clip1(x);
-      float r = rsqrt_ieee(__fsub_rn(1.0f, __fmul_rn(c, c)));
+      const bool ok = x >= C(-1) && x <= C(1);
+      const C c = clip1(x);
+      C r = rsqrt_ieee(rn_sub(C(1), rn_mul(c, c)));
       if (id == U_ACOS) r = -r;
-      return clip_vjp(x, __fmul_rn(ok ? ct : 0.0f, r));
+      return clip_vjp(x, rn_mul(ok ? ct : C(0), r));
     }
-    case U_ATAN: return __fdiv_rn(ct, __fadd_rn(1.0f, __fmul_rn(x, x)));
-    case U_ASINH: return __fmul_rn(ct, rsqrt_ieee(__fadd_rn(__fmul_rn(x, x), 1.0f)));
-    case U_ACOSH: return x >= 1.0f ? __fmul_rn(ct, rsqrt_ieee(__fsub_rn(__fmul_rn(x, x), 1.0f)))
-                                   : 0.0f;
+    case U_ATAN: return rn_div(ct, rn_add(C(1), rn_mul(x, x)));
+    case U_ASINH: return rn_mul(ct, rsqrt_ieee(rn_add(rn_mul(x, x), C(1))));
+    case U_ACOSH: return x >= C(1) ? rn_mul(ct, rsqrt_ieee(rn_sub(rn_mul(x, x), C(1)))) : C(0);
     case U_ATANH: {
-      const bool ok = x >= -1.0f && x <= 1.0f;
-      const float c = clip1(x);
-      const float r = __fdiv_rn(1.0f, __fadd_rn(1.0f, c));
-      return clip_vjp(x, __fdiv_rn(__fmul_rn(r, ok ? ct : 0.0f), __fsub_rn(1.0f, c)));
+      const bool ok = x >= C(-1) && x <= C(1);
+      const C c = clip1(x);
+      const C r = rn_div(C(1), rn_add(C(1), c));
+      return clip_vjp(x, rn_div(rn_mul(r, ok ? ct : C(0)), rn_sub(C(1), c)));
     }
     case U_ATANH_CLIP: {
-      const float u = __fsub_rn(py_mod(__fadd_rn(x, 1.0f), 2.0f), 1.0f);
-      const float r = __fdiv_rn(1.0f, __fadd_rn(1.0f, u));
-      return __fdiv_rn(__fmul_rn(r, ct), __fsub_rn(1.0f, u));
+      const C u = rn_sub(py_mod(rn_add(x, C(1)), C(2)), C(1));
+      const C r = rn_div(C(1), rn_add(C(1), u));
+      return rn_div(rn_mul(r, ct), rn_sub(C(1), u));
     }
     case U_ERF:
-      return __fmul_rn(1.12837922573089599609375f, __fmul_rn(ct, expf(-__fmul_rn(x, x))));
+      return rn_mul(Num<C>::two_over_sqrt_pi(), rn_mul(ct, m_exp(-rn_mul(x, x))));
     case U_ERFC:
-      return __fmul_rn(-1.12837922573089599609375f, __fmul_rn(ct, expf(-__fmul_rn(x, x))));
+      return rn_mul(-Num<C>::two_over_sqrt_pi(), rn_mul(ct, m_exp(-rn_mul(x, x))));
     case U_GAMMA: {
       const double xd = (double)x;
-      const double sign = xd > 0.0 ? 1.0 : (double)sign_of((float)sin(3.14159265358979323846 * xd));
+      const double sign = xd > 0.0 ? 1.0 : (double)sign_of((C)sin(3.14159265358979323846 * xd));
       const double e = exp(lgamma(xd));
-      const float out = (float)(sign * e);
-      const float ct_o = isinf(out) ? 0.0f : ct;
-      const float ct_lg = __fmul_rn(__fmul_rn((float)sign, ct_o), (float)e);
-      return __fmul_rn(ct_lg, (float)digamma_d(xd));
+      const C out = (C)(sign * e);
+      const C ct_o = isinf(out) ? C(0) : ct;
+      const C ct_lg = rn_mul(rn_mul((C)sign, ct_o), (C)e);
+      return rn_mul(ct_lg, (C)digamma_d(xd));
     }
-    case U_SQUARE: return __fadd_rn(__fmul_rn(ct, x), __fmul_rn(x, ct));
+    case U_SQUARE: return rn_add(rn_mul(ct, x), rn_mul(x, ct));
     case U_CUBE: {
-      const float p = __fmul_rn(x, x);
-      const float ct_p = __fmul_rn(ct, x);
-      return __fadd_rn(__fmul_rn(p, ct), __fadd_rn(__fmul_rn(ct_p, x), __fmul_rn(x, ct_p)));
+      const C p = rn_mul(x, x);
+      const C ct_p = rn_mul(ct, x);
+      return rn_add(rn_mul(p, ct), rn_add(rn_mul(ct_p, x), rn_mul(x, ct_p)));
     }
     case U_NEG: return -ct;
-    case U_INV: return -__fmul_rn(__fmul_rn(ct, recip2(x)), 1.0f);
-    case U_RELU: return x > 0.0f ? ct : 0.0f;
-    default: return 0.0f;  // round, floor, ceil, sign
+    case U_INV: return -rn_mul(rn_mul(ct, recip2(x)), C(1));
+    case U_RELU: return x > C(0) ? ct : C(0);
+    default: return C(0);  // round, floor, ceil, sign
   }
 }
 
-// d elementwise_loss / d pred, cotangent `ct`.
-template <int LOSS>
-__device__ __forceinline__ float loss_vjp(float p, float y, float ct) {
-  const float d = __fsub_rn(p, y);
-  if (LOSS == LOSS_L2) return __fadd_rn(__fmul_rn(ct, d), __fmul_rn(d, ct));
-  if (LOSS == LOSS_L1) return d >= 0.0f ? ct : -ct;
-  const float a = fabsf(d);
-  const bool near = a <= 1.0f;
-  const float ct1 = near ? ct : 0.0f;
-  const float ct2 = near ? 0.0f : ct;
-  const float ct_a = __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(0.5f, a), ct1),
-                                         __fmul_rn(0.5f, __fmul_rn(ct1, a))), ct2);
-  return d >= 0.0f ? ct_a : -ct_a;
+// d logaddexp(a, b) = ta * exp(ri(a) - ri(out)) + tb * exp(ri(b) - ri(out))
+// (JAX's custom JVP, ri = replace_inf): the two factors.
+template <typename C>
+__device__ __forceinline__ void logaddexp_jac(C a, C b, C& ea, C& eb) {
+  const C out = replace_inf(logaddexp(a, b));
+  ea = m_exp(rn_sub(replace_inf(a), out));
+  eb = m_exp(rn_sub(replace_inf(b), out));
+}
+
+// d elementwise_loss / d pred of any kind, cotangent `ct`: the transpose of
+// the JVP JAX takes of each loss's formula (core/losses.py `_loss_vjp` is
+// its plain version).
+template <typename C>
+__device__ __forceinline__ C loss_vjp_of_kind(const LossSpec<C>& ls, C p, C y, C ct) {
+  const C d = rn_sub(p, y);
+  switch (ls.kind) {
+    case LOSS_L2: return rn_add(rn_mul(ct, d), rn_mul(d, ct));
+    case LOSS_L1: return d >= C(0) ? ct : -ct;
+    case LOSS_HUBER: {
+      const C a = m_abs(d);
+      const bool near = a <= ls.param;
+      const C ct1 = near ? ct : C(0);
+      const C ct2 = near ? C(0) : ct;
+      const C ct_a = rn_add(rn_add(rn_mul(rn_mul(C(0.5), a), ct1), rn_mul(C(0.5), rn_mul(ct1, a))),
+                            rn_mul(ct2, ls.param));
+      return d >= C(0) ? ct_a : -ct_a;
+    }
+    case LOSS_LOGCOSH: {
+      C ea, eb;
+      logaddexp_jac(d, rn_sub(y, p), ea, eb);
+      return rn_add(rn_mul(ct, ea), -rn_mul(ct, eb));
+    }
+    case LOSS_LOGIT_DIST: {
+      C ea, eb;
+      logaddexp_jac(rn_div(d, C(2)), rn_div(-d, C(2)), ea, eb);
+      const C c2 = rn_mul(ct, C(2));
+      return rn_add(rn_div(rn_mul(c2, ea), C(2)), -rn_div(rn_mul(c2, eb), C(2)));
+    }
+    case LOSS_SIGMOID_CE: {
+      // maximum(p, 0) - p * y + log1p(exp(-|p|)): the log1p term's
+      // cotangent, then the product's, then the maximum's (JAX's order).
+      const C e = m_exp(-m_abs(p));
+      const C c3 = -rn_mul(rn_div(ct, rn_add(e, C(1))), e);
+      const C c_log = p >= C(0) ? c3 : -c3;
+      const C c_mul = rn_mul(-ct, y);
+      const C c_max = rn_mul(ct, balanced(p, nan_max(p, C(0)), C(0)));
+      return rn_add(rn_add(c_log, c_mul), c_max);
+    }
+    case LOSS_PERIODIC_L2: {
+      const C half = rn_mul(ls.param, C(0.5));
+      const C e = rn_sub(py_mod(rn_add(d, half), ls.param), half);
+      return rn_add(rn_mul(ct, e), rn_mul(e, ct));
+    }
+    default: return qnan<C>();
+  }
+}
+
+template <int LOSS, typename C>
+__device__ __forceinline__ C loss_vjp(const LossSpec<C>& ls, C p, C y, C ct) {
+  if (LOSS == LOSS_L2) {
+    const C d = rn_sub(p, y);
+    return rn_add(rn_mul(ct, d), rn_mul(d, ct));
+  }
+  return loss_vjp_of_kind(ls, p, y, ct);
 }
 
 // ---------------------------------------------------------------------------
@@ -919,31 +1138,31 @@ __device__ __noinline__ void decode_grad_program(const int* __restrict__ words, 
 // gradient accumulator row of `gacc` on the first `live` rows only (the
 // thread's rows below n), or, with GX, feature f's row of `gx` (every row;
 // the caller stores only those below n).
-template <int K, bool GX>
-__device__ __forceinline__ void route_ct(int dest, const float (&d)[K], float (&next)[K],
-                                         float* adj, float* gacc, float* gx, int W, int live) {
+template <int K, bool GX, typename C>
+__device__ __forceinline__ void route_ct(int dest, const C (&d)[K], C (&next)[K],
+                                         C* adj, C* gacc, C* gx, int W, int live) {
   const int kind = dest & 3;
   if (kind == CTD_NEXT) {
 #pragma unroll
     for (int k = 0; k < K; ++k) next[k] = d[k];
   } else if (kind == CTD_ADJ) {
-    RowPack<float, K> p;
+    RowPack<C, K> p;
 #pragma unroll
     for (int k = 0; k < K; ++k) p.v[k] = d[k];
-    *reinterpret_cast<RowPack<float, K>*>(adj + (dest >> 2) * W) = p;
+    *reinterpret_cast<RowPack<C, K>*>(adj + (dest >> 2) * W) = p;
   } else if (kind == CTD_CONST) {
-    RowPack<float, K>* at = reinterpret_cast<RowPack<float, K>*>(gacc + (dest >> 2) * W);
-    RowPack<float, K> g = *at;
+    RowPack<C, K>* at = reinterpret_cast<RowPack<C, K>*>(gacc + (dest >> 2) * W);
+    RowPack<C, K> g = *at;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      if (k < live) g.v[k] = __fadd_rn(g.v[k], d[k]);
+      if (k < live) g.v[k] = rn_add(g.v[k], d[k]);
     }
     *at = g;
   } else if (GX && dest != CTD_NONE) {
-    RowPack<float, K>* at = reinterpret_cast<RowPack<float, K>*>(gx + ((dest >> 2) - 1) * W);
-    RowPack<float, K> g = *at;
+    RowPack<C, K>* at = reinterpret_cast<RowPack<C, K>*>(gx + ((dest >> 2) - 1) * W);
+    RowPack<C, K> g = *at;
 #pragma unroll
-    for (int k = 0; k < K; ++k) g.v[k] = __fadd_rn(g.v[k], d[k]);
+    for (int k = 0; k < K; ++k) g.v[k] = rn_add(g.v[k], d[k]);
     *at = g;
   }
 }
@@ -961,36 +1180,37 @@ __device__ __forceinline__ void route_ct(int dest, const float (&d)[K], float (&
 // caller). The zero row's cotangents are not kept.
 template <typename S, int K, bool GX>
 __device__ __forceinline__ void run_tile_reverse(const int4* __restrict__ rtab, int m, const S* col,
-                                                 const S* cv, float* adj, float* gacc, float* gx,
-                                                 int W, int live, float (&ct)[K]) {
-  const float none[K] = {};
+                                                 const S* cv, CT<S>* adj, CT<S>* gacc, CT<S>* gx,
+                                                 int W, int live, CT<S> (&ct)[K]) {
+  typedef CT<S> C;
+  const C none[K] = {};
   for (int s = m - 1; s >= 0; --s) {
     const int4 e = rtab[s];
     const int slot = (e.x >> 9) - 1;
     if (slot >= 0) {
-      const RowPack<float, K> p = *reinterpret_cast<const RowPack<float, K>*>(adj + slot * W);
+      const RowPack<C, K> p = *reinterpret_cast<const RowPack<C, K>*>(adj + slot * W);
 #pragma unroll
       for (int k = 0; k < K; ++k) ct[k] = p.v[k];
     }
-    float a[K], b[K], d1[K], d2[K];
+    C a[K], b[K], d1[K], d2[K];
 #define SR_REV_BIN(ID)                                                          \
   case ID:                                                                      \
     tile_operand<S, K>(e.y, col, cv, none, a);                                  \
     tile_operand<S, K>(e.z, col, cv, none, b);                                  \
-    _Pragma("unroll") for (int k = 0; k < K; ++k) vjp_binary(ID, a[k], b[k], ct[k], d1[k], d2[k]); \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) vjp_binary<C>(ID, a[k], b[k], ct[k], d1[k], d2[k]); \
     break;
 #define SR_REV_UN(ID)                                                          \
   case ID:                                                                     \
     tile_operand<S, K>(e.y, col, cv, none, a);                                 \
-    _Pragma("unroll") for (int k = 0; k < K; ++k) d1[k] = vjp_unary(ID, a[k], ct[k]); \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) d1[k] = vjp_unary<C>(ID, a[k], ct[k]); \
     break;
     switch (e.x & 0xFF) {
       case OPX_ADDSUB: {
-        const float sg = (e.x & 0x100) ? -1.0f : 1.0f;
+        const C sg = (e.x & 0x100) ? C(-1) : C(1);
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           d1[k] = ct[k];
-          d2[k] = __fmul_rn(sg, ct[k]);
+          d2[k] = rn_mul(sg, ct[k]);
         }
         break;
       }
@@ -1013,11 +1233,11 @@ __device__ __forceinline__ void run_tile_reverse(const int4* __restrict__ rtab, 
       SR_REV_UN(U_SIGN)
       default:   // OPX_NAN: vjp_binary's and vjp_unary's zero for an unknown id
 #pragma unroll
-        for (int k = 0; k < K; ++k) d1[k] = d2[k] = 0.0f;
+        for (int k = 0; k < K; ++k) d1[k] = d2[k] = C(0);
     }
 #undef SR_REV_BIN
 #undef SR_REV_UN
-    float next[K];
+    C next[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) next[k] = ct[k];
     route_ct<K, GX>(e.w & 0xFFFF, d1, next, adj, gacc, gx, W, live);

@@ -46,6 +46,17 @@
 // epilogue stay float. The buffer halves, so a block of 256 threads fits
 // where the float buffer needed a smaller one.
 //
+// Loss kinds (interp.cuh LossSpec): L2 runs its own instantiation with the
+// formula inlined; L1, Huber with any delta, log-cosh, the logit distance,
+// sigmoid cross-entropy and the periodic L2 run one LOSS_ANY instantiation
+// that switches on the launch's kind (warp-uniform), each the JAX
+// package's formula operation for operation.
+//
+// float64 forms (sr_program_eval_f64, sr_program_eval_param_f64; the TPU
+// kernel under jax_enable_x64): X, y, w, the constants, the bank, every
+// step, the loss terms, the row sums and the cost epilogue in double
+// (__dadd_rn, __dmul_rn, ...: no contraction), in the same lane order.
+//
 // The operator code and the tile interpreter live in interp.cuh, shared
 // with kernels #2 (program_multi.cu) and #3-#5.
 //
@@ -93,39 +104,39 @@ namespace {
 template <typename S>
 size_t row_layout_smem(int block, int L, int CMAX, int F, int NP, int NC) {
   return sizeof(S) * padded<S>((size_t)(F + NP + L) * block + CMAX + (size_t)NP * NC) +
-         sizeof(float) * block + sizeof(int) * L;
+         sizeof(typename Compute<S>::type) * block + sizeof(int) * L;
 }
 
-template <typename S, int LOSS, bool COST, bool PARAM>
-__global__ void __launch_bounds__(TILE_MAX_W / TILE_ROWS, TILE_MIN_BLOCKS) program_eval_kernel(
+template <typename S, int LOSS, bool COST, bool PARAM, typename C = typename Compute<S>::type>
+__global__ void __launch_bounds__(TILE_MAX_W / TILE_ROWS, tile_min_blocks<C>()) program_eval_kernel(
     const int* __restrict__ instr,      // [T, L]
     const int* __restrict__ nsteps,     // [T]
-    const float* __restrict__ cvals,    // [T, CMAX]
+    const C* __restrict__ cvals,        // [T, CMAX]
     const int* __restrict__ const_ok,   // [T]
-    const float* __restrict__ bank,     // [T, NP, NC]  (parametric form)
+    const C* __restrict__ bank,         // [T, NP, NC]  (parametric form)
     const int* __restrict__ class_idx,  // [n]          (parametric form)
     const S* __restrict__ X,            // [F, n]
-    const float* __restrict__ y,        // [n]
-    const float* __restrict__ w,        // [n]
-    const float* __restrict__ cx,       // [T]   (cost form)
-    const float* __restrict__ scal,     // [3]   denom, norm, parsimony (cost form)
+    const C* __restrict__ y,            // [n]
+    const C* __restrict__ w,            // [n]
+    const C* __restrict__ cx,           // [T]   (cost form)
+    const C* __restrict__ scal,         // [3]   denom, norm, parsimony (cost form)
     const int* __restrict__ optab,      // [n_codes]
     int L, int CMAX, int F, int NP, int NC, int n, int W, int code_mask, int sign_shift,
-    float* __restrict__ loss_out, int* __restrict__ valid_out,
-    float* __restrict__ cost_out) {
+    LossSpec<C> ls, C* __restrict__ loss_out, int* __restrict__ valid_out,
+    C* __restrict__ cost_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = blockIdx.x;
   tree_loss_sums<S, LOSS, PARAM, TILE_ROWS>(
       instr + (size_t)t * L, min(nsteps[t], L), cvals + (size_t)t * CMAX,
       PARAM ? bank + (size_t)t * NP * NC : nullptr, class_idx, X, y, w, optab, 1, 1, L, CMAX,
-      F, NP, NC, n, W, code_mask, sign_shift, smem, [&](int, float total, bool all_ok) {
+      F, NP, NC, n, W, code_mask, sign_shift, ls, smem, [&](int, C total, bool all_ok) {
         const int valid = (all_ok && isfinite(total) && const_ok[t] != 0) ? 1 : 0;
         valid_out[t] = valid;
         if (COST) {
-          const float mean = __fdiv_rn(total, scal[0]);
-          const float lossf = (valid && isfinite(mean)) ? mean : INFINITY;
+          const C mean = rn_div(total, scal[0]);
+          const C lossf = (valid && isfinite(mean)) ? mean : C(INFINITY);
           loss_out[t] = lossf;
-          cost_out[t] = __fadd_rn(__fdiv_rn(lossf, scal[1]), __fmul_rn(scal[2], cx[t]));
+          cost_out[t] = rn_add(rn_div(lossf, scal[1]), rn_mul(scal[2], cx[t]));
         } else {
           loss_out[t] = total;
         }
@@ -134,11 +145,11 @@ __global__ void __launch_bounds__(TILE_MAX_W / TILE_ROWS, TILE_MIN_BLOCKS) progr
 
 template <typename S, int LOSS, bool COST, bool PARAM>
 cudaError_t launch_one(int T, int W, cudaStream_t stream, const int* instr, const int* nsteps,
-                       const float* cvals, const int* const_ok, const float* bank,
-                       const int* class_idx, const S* X, const float* y, const float* w,
-                       const float* cx, const float* scal, const int* optab, int L, int CMAX,
-                       int F, int NP, int NC, int n, int code_mask, int sign_shift, float* loss,
-                       int* valid, float* cost) {
+                       const CT<S>* cvals, const int* const_ok, const CT<S>* bank,
+                       const int* class_idx, const S* X, const CT<S>* y, const CT<S>* w,
+                       const CT<S>* cx, const CT<S>* scal, const int* optab, int L, int CMAX,
+                       int F, int NP, int NC, int n, int code_mask, int sign_shift,
+                       LossSpec<CT<S>> ls, CT<S>* loss, int* valid, CT<S>* cost) {
   if (W % TILE_ROWS != 0 || W > TILE_MAX_W || (W & (W - 1)) != 0) return cudaErrorInvalidValue;
   const size_t smem = tile_layout<S>(W, L, CMAX, F + NP, NP, NC, 1).total;
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
@@ -148,61 +159,64 @@ cudaError_t launch_one(int T, int W, cudaStream_t stream, const int* instr, cons
   if (err != cudaSuccess) return err;
   kern<<<T, W / TILE_ROWS, smem, stream>>>(instr, nsteps, cvals, const_ok, bank, class_idx, X, y,
                                            w, cx, scal, optab, L, CMAX, F, NP, NC, n, W,
-                                           code_mask, sign_shift, loss, valid, cost);
+                                           code_mask, sign_shift, ls, loss, valid, cost);
   return cudaGetLastError();
 }
 
-// The cost and plain forms: `cost` == nullptr selects the plain form.
-template <typename S>
-int eval_entry(const int* instr, const int* nsteps, const float* cvals, const int* const_ok,
-               const S* X, const float* y, const float* w, const float* cx,
-               const float* scal, const int* optab, int T, int L, int CMAX, int F, int n,
-               int W, int loss_kind, int code_mask, int sign_shift, float* loss,
-               int* valid, float* cost, void* stream) {
+// The cost and plain forms: `cost` == nullptr selects the plain form. L2
+// runs its own instantiation; every other kind runs LOSS_ANY's.
+template <typename S, typename C = CT<S>>
+int eval_entry(const int* instr, const int* nsteps, const C* cvals, const int* const_ok,
+               const S* X, const C* y, const C* w, const C* cx, const C* scal,
+               const int* optab, int T, int L, int CMAX, int F, int n, int W, int loss_kind,
+               double loss_param, int code_mask, int sign_shift, C* loss, int* valid, C* cost,
+               void* stream) {
   if (T == 0) return 0;
+  if (loss_kind < LOSS_L2 || loss_kind > LOSS_PERIODIC_L2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const LossSpec<C> ls{loss_kind, (C)loss_param};
   cudaError_t err;
 #define SR_LAUNCH(LK)                                                                     \
   err = (cost != nullptr)                                                                 \
             ? launch_one<S, LK, true, false>(T, W, s, instr, nsteps, cvals, const_ok,     \
                                              nullptr, nullptr, X, y, w, cx, scal, optab,  \
                                              L, CMAX, F, 0, 0, n, code_mask, sign_shift,  \
-                                             loss, valid, cost)                           \
+                                             ls, loss, valid, cost)                       \
             : launch_one<S, LK, false, false>(T, W, s, instr, nsteps, cvals, const_ok,    \
                                               nullptr, nullptr, X, y, w, cx, scal, optab, \
                                               L, CMAX, F, 0, 0, n, code_mask, sign_shift, \
-                                              loss, valid, cost);
-  switch (loss_kind) {
-    case LOSS_L2: SR_LAUNCH(LOSS_L2) break;
-    case LOSS_L1: SR_LAUNCH(LOSS_L1) break;
-    case LOSS_HUBER: SR_LAUNCH(LOSS_HUBER) break;
-    default: return (int)cudaErrorInvalidValue;
+                                              ls, loss, valid, cost);
+  if (loss_kind == LOSS_L2) {
+    SR_LAUNCH(LOSS_L2)
+  } else {
+    SR_LAUNCH(LOSS_ANY)
   }
 #undef SR_LAUNCH
   return (int)err;
 }
 
 // The parametric form (plain form only).
-template <typename S>
-int param_entry(const int* instr, const int* nsteps, const float* cvals, const int* const_ok,
-                const float* bank, const int* class_idx, const S* X, const float* y,
-                const float* w, const int* optab, int T, int L, int CMAX, int F, int NP,
-                int NC, int n, int W, int loss_kind, int code_mask, int sign_shift,
-                float* loss, int* valid, void* stream) {
+template <typename S, typename C = typename Compute<S>::type>
+int param_entry(const int* instr, const int* nsteps, const C* cvals, const int* const_ok,
+                const C* bank, const int* class_idx, const S* X, const C* y, const C* w,
+                const int* optab, int T, int L, int CMAX, int F, int NP, int NC, int n, int W,
+                int loss_kind, double loss_param, int code_mask, int sign_shift, C* loss,
+                int* valid, void* stream) {
   if (T == 0) return 0;
   if (NP < 1 || NC < 1) return (int)cudaErrorInvalidValue;
+  if (loss_kind < LOSS_L2 || loss_kind > LOSS_PERIODIC_L2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const LossSpec<C> ls{loss_kind, (C)loss_param};
   cudaError_t err;
 #define SR_LAUNCH(LK)                                                                   \
   err = launch_one<S, LK, false, true>(T, W, s, instr, nsteps, cvals, const_ok, bank,   \
                                        class_idx, X, y, w, nullptr, nullptr, optab, L,  \
-                                       CMAX, F, NP, NC, n, code_mask, sign_shift, loss, \
-                                       valid, nullptr);
-  switch (loss_kind) {
-    case LOSS_L2: SR_LAUNCH(LOSS_L2) break;
-    case LOSS_L1: SR_LAUNCH(LOSS_L1) break;
-    case LOSS_HUBER: SR_LAUNCH(LOSS_HUBER) break;
-    default: return (int)cudaErrorInvalidValue;
+                                       CMAX, F, NP, NC, n, code_mask, sign_shift, ls,   \
+                                       loss, valid, nullptr);
+  if (loss_kind == LOSS_L2) {
+    SR_LAUNCH(LOSS_L2)
+  } else {
+    SR_LAUNCH(LOSS_ANY)
   }
 #undef SR_LAUNCH
   return (int)err;
@@ -211,32 +225,34 @@ int param_entry(const int* instr, const int* nsteps, const float* cvals, const i
 }  // namespace
 
 // Shared memory of the per-row layout with `block` threads ((F + NP + L)
-// values per thread, the constants, the bank, one reduction float per
+// values per thread, the constants, the bank, one reduction value per
 // thread, the words): the wrappers' `_block` picks the lane count W as the
 // largest block whose per-row layout fits, as it did when the kernel ran
 // that layout, so W, and with it every sum's order, stays as it was.
-// `esize` is the buffer's element size (4: float, 2: bf16), NP = NC = 0
-// for the non-parametric forms.
+// `esize` is the buffer's element size (4: float, 2: bf16, 8: double),
+// NP = NC = 0 for the non-parametric forms.
 extern "C" size_t sr_program_eval_smem(int block, int L, int CMAX, int F, int NP, int NC,
                                        int esize) {
-  return esize == 2 ? row_layout_smem<__nv_bfloat16>(block, L, CMAX, F, NP, NC)
-                    : row_layout_smem<float>(block, L, CMAX, F, NP, NC);
+  return esize == 2   ? row_layout_smem<__nv_bfloat16>(block, L, CMAX, F, NP, NC)
+         : esize == 8 ? row_layout_smem<double>(block, L, CMAX, F, NP, NC)
+                      : row_layout_smem<float>(block, L, CMAX, F, NP, NC);
 }
 
 // Launch on `stream` with W = `block` lanes (W / TILE_ROWS threads);
 // returns cudaGetLastError() (0 on success). `cost` == nullptr selects the
-// plain form.
+// plain form. `loss_kind` is one of the LOSS_* kinds, `loss_param` its
+// parameter (interp.cuh LossSpec).
 extern "C" int sr_program_eval(const int* instr, const int* nsteps,
                                const float* cvals, const int* const_ok,
                                const float* X, const float* y, const float* w,
                                const float* cx, const float* scal,
                                const int* optab, int T, int L, int CMAX, int F,
-                               int n, int block, int loss_kind, int code_mask,
-                               int sign_shift, float* loss, int* valid,
+                               int n, int block, int loss_kind, double loss_param,
+                               int code_mask, int sign_shift, float* loss, int* valid,
                                float* cost, void* stream) {
   return eval_entry<float>(instr, nsteps, cvals, const_ok, X, y, w, cx, scal, optab, T, L,
-                           CMAX, F, n, block, loss_kind, code_mask, sign_shift, loss, valid,
-                           cost, stream);
+                           CMAX, F, n, block, loss_kind, loss_param, code_mask, sign_shift, loss,
+                           valid, cost, stream);
 }
 
 // Kernel 1b: the same over a bf16 value buffer; X is [F, n] bf16.
@@ -245,12 +261,26 @@ extern "C" int sr_program_eval_bf16(const int* instr, const int* nsteps,
                                     const __nv_bfloat16* X, const float* y, const float* w,
                                     const float* cx, const float* scal,
                                     const int* optab, int T, int L, int CMAX, int F,
-                                    int n, int block, int loss_kind, int code_mask,
-                                    int sign_shift, float* loss, int* valid,
+                                    int n, int block, int loss_kind, double loss_param,
+                                    int code_mask, int sign_shift, float* loss, int* valid,
                                     float* cost, void* stream) {
   return eval_entry<__nv_bfloat16>(instr, nsteps, cvals, const_ok, X, y, w, cx, scal, optab,
-                                   T, L, CMAX, F, n, block, loss_kind, code_mask, sign_shift,
-                                   loss, valid, cost, stream);
+                                   T, L, CMAX, F, n, block, loss_kind, loss_param, code_mask,
+                                   sign_shift, loss, valid, cost, stream);
+}
+
+// The float64 form: every input, output and step in double.
+extern "C" int sr_program_eval_f64(const int* instr, const int* nsteps,
+                                   const double* cvals, const int* const_ok,
+                                   const double* X, const double* y, const double* w,
+                                   const double* cx, const double* scal,
+                                   const int* optab, int T, int L, int CMAX, int F,
+                                   int n, int block, int loss_kind, double loss_param,
+                                   int code_mask, int sign_shift, double* loss, int* valid,
+                                   double* cost, void* stream) {
+  return eval_entry<double>(instr, nsteps, cvals, const_ok, X, y, w, cx, scal, optab, T, L,
+                            CMAX, F, n, block, loss_kind, loss_param, code_mask, sign_shift,
+                            loss, valid, cost, stream);
 }
 
 // The parametric form (plain form only): `bank` [T, NP, NC], `class_idx`
@@ -261,11 +291,11 @@ extern "C" int sr_program_eval_param(const int* instr, const int* nsteps,
                                      const float* X, const float* y, const float* w,
                                      const int* optab, int T, int L, int CMAX, int F,
                                      int NP, int NC, int n, int block, int loss_kind,
-                                     int code_mask, int sign_shift, float* loss,
-                                     int* valid, void* stream) {
+                                     double loss_param, int code_mask, int sign_shift,
+                                     float* loss, int* valid, void* stream) {
   return param_entry<float>(instr, nsteps, cvals, const_ok, bank, class_idx, X, y, w, optab,
-                            T, L, CMAX, F, NP, NC, n, block, loss_kind, code_mask, sign_shift,
-                            loss, valid, stream);
+                            T, L, CMAX, F, NP, NC, n, block, loss_kind, loss_param, code_mask,
+                            sign_shift, loss, valid, stream);
 }
 
 // Kernel 1b's parametric form: X is [F, n] bf16, the bank rounds to bf16
@@ -276,9 +306,24 @@ extern "C" int sr_program_eval_param_bf16(const int* instr, const int* nsteps,
                                           const __nv_bfloat16* X, const float* y,
                                           const float* w, const int* optab, int T, int L,
                                           int CMAX, int F, int NP, int NC, int n, int block,
-                                          int loss_kind, int code_mask, int sign_shift,
-                                          float* loss, int* valid, void* stream) {
+                                          int loss_kind, double loss_param, int code_mask,
+                                          int sign_shift, float* loss, int* valid,
+                                          void* stream) {
   return param_entry<__nv_bfloat16>(instr, nsteps, cvals, const_ok, bank, class_idx, X, y, w,
                                     optab, T, L, CMAX, F, NP, NC, n, block, loss_kind,
-                                    code_mask, sign_shift, loss, valid, stream);
+                                    loss_param, code_mask, sign_shift, loss, valid, stream);
+}
+
+// The parametric form in float64.
+extern "C" int sr_program_eval_param_f64(const int* instr, const int* nsteps,
+                                         const double* cvals, const int* const_ok,
+                                         const double* bank, const int* class_idx,
+                                         const double* X, const double* y, const double* w,
+                                         const int* optab, int T, int L, int CMAX, int F,
+                                         int NP, int NC, int n, int block, int loss_kind,
+                                         double loss_param, int code_mask, int sign_shift,
+                                         double* loss, int* valid, void* stream) {
+  return param_entry<double>(instr, nsteps, cvals, const_ok, bank, class_idx, X, y, w, optab,
+                             T, L, CMAX, F, NP, NC, n, block, loss_kind, loss_param, code_mask,
+                             sign_shift, loss, valid, stream);
 }

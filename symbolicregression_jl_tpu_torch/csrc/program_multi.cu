@@ -33,6 +33,10 @@
 // vector's constants round to bf16 as the block loads them, steps compute
 // in float and store rounded; the loss and its row sum stay float.
 //
+// Loss kinds and the float64 form (sr_program_multi_f64) as kernel #1's
+// (program_eval.cu): L2 inlined, every other kind behind LOSS_ANY's run-time
+// switch; double storage computes in double.
+//
 // What bounds it on the H100. Like kernel #1 it is FP32 ALU and SFU work,
 // (steps x rows) operator evaluations per pair; X (200 KB at the bench
 // shapes) stays in L2, and each tree reads it ceil(V / TILE_VCH) times,
@@ -52,37 +56,37 @@ namespace {
 // sr_program_multi_smem).
 template <typename S>
 size_t row_layout_smem(int block, int L, int CMAX, int F) {
-  return sizeof(S) * padded<S>((size_t)(F + L) * block + CMAX) + sizeof(float) * block +
-         sizeof(int) * L;
+  return sizeof(S) * padded<S>((size_t)(F + L) * block + CMAX) +
+         sizeof(typename Compute<S>::type) * block + sizeof(int) * L;
 }
 
-template <typename S, int LOSS>
+template <typename S, int LOSS, typename C = typename Compute<S>::type>
 __global__ void __launch_bounds__(TILE_MAX_W / TILE_ROWS) program_multi_kernel(
     const int* __restrict__ instr,      // [T, L]
     const int* __restrict__ nsteps,     // [T]
-    const float* __restrict__ cvals_v,  // [T, V, CMAX]
+    const C* __restrict__ cvals_v,      // [T, V, CMAX]
     const S* __restrict__ X,            // [F, n]
-    const float* __restrict__ y,        // [n]
-    const float* __restrict__ w,        // [n]
+    const C* __restrict__ y,            // [n]
+    const C* __restrict__ w,            // [n]
     const int* __restrict__ optab,      // [n_codes]
     int V, int vch, int L, int CMAX, int F, int n, int W, int code_mask, int sign_shift,
-    float* __restrict__ loss_out, int* __restrict__ valid_out) {
+    LossSpec<C> ls, C* __restrict__ loss_out, int* __restrict__ valid_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = blockIdx.x;
   tree_loss_sums<S, LOSS, false, TILE_ROWS>(
       instr + (size_t)t * L, min(nsteps[t], L), cvals_v + (size_t)t * V * CMAX, nullptr, nullptr,
-      X, y, w, optab, V, vch, L, CMAX, F, 0, 0, n, W, code_mask, sign_shift, smem,
-      [&](int v, float total, bool all_ok) {
+      X, y, w, optab, V, vch, L, CMAX, F, 0, 0, n, W, code_mask, sign_shift, ls, smem,
+      [&](int v, C total, bool all_ok) {
         loss_out[(size_t)t * V + v] = total;
         valid_out[(size_t)t * V + v] = (all_ok && isfinite(total)) ? 1 : 0;
       });
 }
 
-template <typename S, int LOSS>
+template <typename S, int LOSS, typename C = typename Compute<S>::type>
 cudaError_t launch_multi(int T, int W, cudaStream_t stream, const int* instr, const int* nsteps,
-                         const float* cvals_v, const S* X, const float* y, const float* w,
+                         const C* cvals_v, const S* X, const C* y, const C* w,
                          const int* optab, int V, int L, int CMAX, int F, int n,
-                         int code_mask, int sign_shift, float* loss, int* valid) {
+                         int code_mask, int sign_shift, LossSpec<C> ls, C* loss, int* valid) {
   if (W % TILE_ROWS != 0 || W > TILE_MAX_W || (W & (W - 1)) != 0) return cudaErrorInvalidValue;
   // The most vectors per pass (up to TILE_VCH) whose layout fits.
   int vch = min(V, TILE_VCH);
@@ -94,55 +98,56 @@ cudaError_t launch_multi(int T, int W, cudaStream_t stream, const int* instr, co
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kern<<<T, W / TILE_ROWS, smem, stream>>>(instr, nsteps, cvals_v, X, y, w, optab, V, vch, L,
-                                           CMAX, F, n, W, code_mask, sign_shift, loss, valid);
+                                           CMAX, F, n, W, code_mask, sign_shift, ls, loss,
+                                           valid);
   return cudaGetLastError();
 }
 
-template <typename S>
-int multi_entry(const int* instr, const int* nsteps, const float* cvals_v, const S* X,
-                const float* y, const float* w, const int* optab, int T, int V, int L,
-                int CMAX, int F, int n, int W, int loss_kind, int code_mask,
-                int sign_shift, float* loss, int* valid, void* stream) {
+template <typename S, typename C = typename Compute<S>::type>
+int multi_entry(const int* instr, const int* nsteps, const C* cvals_v, const S* X,
+                const C* y, const C* w, const int* optab, int T, int V, int L,
+                int CMAX, int F, int n, int W, int loss_kind, double loss_param, int code_mask,
+                int sign_shift, C* loss, int* valid, void* stream) {
   if ((long long)T * V == 0) return 0;
+  if (loss_kind < LOSS_L2 || loss_kind > LOSS_PERIODIC_L2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (loss_kind) {
-#define SR_LAUNCH(LK)                                                                 \
-  case LK:                                                                            \
-    return (int)launch_multi<S, LK>(T, W, s, instr, nsteps, cvals_v, X, y, w, optab, V, \
-                                    L, CMAX, F, n, code_mask, sign_shift, loss, valid);
-    SR_LAUNCH(LOSS_L2)
-    SR_LAUNCH(LOSS_L1)
-    SR_LAUNCH(LOSS_HUBER)
-#undef SR_LAUNCH
-    default: return (int)cudaErrorInvalidValue;
+  const LossSpec<C> ls{loss_kind, (C)loss_param};
+  if (loss_kind == LOSS_L2) {
+    return (int)launch_multi<S, LOSS_L2>(T, W, s, instr, nsteps, cvals_v, X, y, w, optab, V, L,
+                                         CMAX, F, n, code_mask, sign_shift, ls, loss, valid);
   }
+  return (int)launch_multi<S, LOSS_ANY>(T, W, s, instr, nsteps, cvals_v, X, y, w, optab, V, L,
+                                        CMAX, F, n, code_mask, sign_shift, ls, loss, valid);
 }
 
 }  // namespace
 
 // Shared memory of the per-row layout with `block` threads ((F + L) values
-// per thread, the constants, one reduction float per thread, the words):
+// per thread, the constants, one reduction value per thread, the words):
 // the wrapper's `_block` picks the lane count W as the largest block whose
 // per-row layout fits, as it did when the kernel ran that layout, so W,
 // and with it every sum's order, stays as it was (and equal to kernel #1's
 // and #3's at the same shapes). `esize` is the buffer's element size (4:
-// float, 2: bf16).
+// float, 2: bf16, 8: double).
 extern "C" size_t sr_program_multi_smem(int block, int L, int CMAX, int F, int esize) {
-  return esize == 2 ? row_layout_smem<__nv_bfloat16>(block, L, CMAX, F)
-                    : row_layout_smem<float>(block, L, CMAX, F);
+  return esize == 2   ? row_layout_smem<__nv_bfloat16>(block, L, CMAX, F)
+         : esize == 8 ? row_layout_smem<double>(block, L, CMAX, F)
+                      : row_layout_smem<float>(block, L, CMAX, F);
 }
 
 // Launch on `stream` with W = `block` lanes (W / TILE_ROWS threads per
-// tree); returns cudaGetLastError() (0 on success).
+// tree); returns cudaGetLastError() (0 on success). `loss_kind` is one of
+// the LOSS_* kinds, `loss_param` its parameter (interp.cuh LossSpec).
 extern "C" int sr_program_multi(const int* instr, const int* nsteps,
                                 const float* cvals_v, const float* X,
                                 const float* y, const float* w, const int* optab,
                                 int T, int V, int L, int CMAX, int F, int n,
-                                int block, int loss_kind, int code_mask,
+                                int block, int loss_kind, double loss_param, int code_mask,
                                 int sign_shift, float* loss, int* valid,
                                 void* stream) {
   return multi_entry<float>(instr, nsteps, cvals_v, X, y, w, optab, T, V, L, CMAX, F, n,
-                            block, loss_kind, code_mask, sign_shift, loss, valid, stream);
+                            block, loss_kind, loss_param, code_mask, sign_shift, loss, valid,
+                            stream);
 }
 
 // Kernel 2b: the same over a bf16 value buffer; X is [F, n] bf16.
@@ -150,10 +155,23 @@ extern "C" int sr_program_multi_bf16(const int* instr, const int* nsteps,
                                      const float* cvals_v, const __nv_bfloat16* X,
                                      const float* y, const float* w, const int* optab,
                                      int T, int V, int L, int CMAX, int F, int n,
-                                     int block, int loss_kind, int code_mask,
-                                     int sign_shift, float* loss, int* valid,
+                                     int block, int loss_kind, double loss_param,
+                                     int code_mask, int sign_shift, float* loss, int* valid,
                                      void* stream) {
   return multi_entry<__nv_bfloat16>(instr, nsteps, cvals_v, X, y, w, optab, T, V, L, CMAX, F,
-                                    n, block, loss_kind, code_mask, sign_shift, loss, valid,
-                                    stream);
+                                    n, block, loss_kind, loss_param, code_mask, sign_shift,
+                                    loss, valid, stream);
+}
+
+// The float64 form: every input, output and step in double.
+extern "C" int sr_program_multi_f64(const int* instr, const int* nsteps,
+                                    const double* cvals_v, const double* X,
+                                    const double* y, const double* w, const int* optab,
+                                    int T, int V, int L, int CMAX, int F, int n,
+                                    int block, int loss_kind, double loss_param,
+                                    int code_mask, int sign_shift, double* loss, int* valid,
+                                    void* stream) {
+  return multi_entry<double>(instr, nsteps, cvals_v, X, y, w, optab, T, V, L, CMAX, F, n,
+                             block, loss_kind, loss_param, code_mask, sign_shift, loss, valid,
+                             stream);
 }

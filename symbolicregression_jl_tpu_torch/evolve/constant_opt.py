@@ -37,7 +37,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.losses import aggregate_loss
+from ..core.losses import loss_from_pred
 from ..ops.encoding import LEAF_CONST, TreeBatch
 from ..ops.eval import eval_tree_batch
 from ..ops.fused_eval import fused_grad_multi, fused_loss_multi
@@ -202,8 +202,8 @@ def optimize_constants_fused(key, trees: TreeBatch, do_opt: torch.Tensor, data,
     CM = prog.cmax
     used = torch.arange(CM, device=dev)[None, :] < prog.nconst[:, None]
 
-    eps = rng.normal(key, (P, cfg.nrestarts, CM))
-    base = prog.cvals
+    base = prog.cvals.to(X.dtype)
+    eps = rng.normal(key, (P, cfg.nrestarts, CM), base.dtype)
     starts = torch.cat([base[:, None], base[:, None] * (1.0 + 0.5 * eps)], dim=1)
     mask_r = used.repeat_interleave(R, dim=0)
     M = P * R
@@ -238,7 +238,7 @@ def optimize_constants_fused(key, trees: TreeBatch, do_opt: torch.Tensor, data,
 
 def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
                              elementwise_loss, operators, cfg: OptimizerConfig,
-                             params: Optional[torch.Tensor] = None):
+                             params: Optional[torch.Tensor] = None, loss_function=None):
     """Dense BFGS with a backtracking Armijo line search on the eager
     interpreter, per member and restart.
 
@@ -250,7 +250,11 @@ def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
 
     ``params`` [..., NP, NC] are parametric members' banks, read through
     the dataset's class column and optimized jointly with the constants
-    (one flat vector of L + NP * NC values per member)."""
+    (one flat vector of L + NP * NC values per member).
+
+    ``loss_function`` is the custom whole-prediction loss, when the
+    search has one (core/losses.loss_from_pred); ``torch.autograd``
+    differentiates through it."""
     lead = trees.batch_shape
     L = trees.max_nodes
     keys = rng.split(key, lead[-1]).reshape(-1, 2)
@@ -280,7 +284,7 @@ def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
                            flat.length[idx])
         prows = c[:, L:].reshape(-1, NP, NC)[..., cls] if parametric else None
         pred, valid = eval_tree_batch(member, X, operators, prows)
-        return aggregate_loss(elementwise_loss, pred, y, valid, w)
+        return loss_from_pred(pred, valid, y, w, elementwise_loss, loss_function)
 
     # Rows per interpreter call: its [rows, L, n] value buffer holds about
     # 2^28 elements without gradients and 2^27 with them, whose autograd
@@ -316,7 +320,7 @@ def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
 
     with torch.no_grad():
         baseline = loss_of(x0, 1)
-    eps = rng.normal(keys, (cfg.nrestarts, D))
+    eps = rng.normal(keys, (cfg.nrestarts, D), x0.dtype)
     x = torch.cat([x0[:, None], x0[:, None] * (1.0 + 0.5 * eps)], dim=1).reshape(P * R, D)
     M = P * R
     ts = _step_sizes(cfg, dev)
@@ -366,7 +370,8 @@ def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
 
 def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, data,
                                 elementwise_loss, operators, cfg: OptimizerConfig, template,
-                                fused: bool = False, params: Optional[torch.Tensor] = None):
+                                fused: bool = False, params: Optional[torch.Tensor] = None,
+                                loss_function=None):
     """Joint L-BFGS over every subexpression's constants of template
     members and their parameter vectors, one flat vector of K * L + T
     values per member (T = the template's total parameters).
@@ -382,7 +387,8 @@ def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, dat
     every restart's C candidate steps. ``params`` [..., T, 1] are the
     members' parameter vectors. Returns (new_const, improved, new_loss,
     f_calls) with the leading dims of ``trees``, and new_params last when
-    ``params`` is given."""
+    ``params`` is given. ``loss_function`` is the custom whole-prediction
+    loss, as in :func:`optimize_constants_batch`."""
     from ..models.template import eval_template_batch
 
     if template.uses_deriv:
@@ -394,7 +400,7 @@ def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, dat
     lead = trees.length.shape[:-1]
     T = template.total_params
     Dm = K * L + T
-    eps = rng.normal(key, (lead[-1], cfg.nrestarts, Dm))
+    eps = rng.normal(key, (lead[-1], cfg.nrestarts, Dm), trees.const.dtype)
     flat = trees.reshape(-1, K)
     do_opt = do_opt.reshape(-1)
     P = flat.length.shape[0]
@@ -419,7 +425,7 @@ def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, dat
         member = TreeBatch(rep(flat.arity), rep(flat.op), rep(flat.feat), c, rep(flat.length))
         pred, valid = eval_template_batch(member, X, template, operators,
                                           params=xb[:, K * L:] if T else None, fused=fused)
-        return aggregate_loss(elementwise_loss, pred, y, valid, w)
+        return loss_from_pred(pred, valid, y, w, elementwise_loss, loss_function)
 
     mask_r = xmask.repeat_interleave(R, dim=0)
 

@@ -54,7 +54,7 @@ from typing import Callable, Optional, Sequence, Union
 import torch
 
 from ..core.dataset import DeviceData
-from ..core.options import Options, check_supported
+from ..core.options import Options, check_supported, float_dtype
 from ..device import resolve_device
 from ..ops.complexity import ComplexityTables, build_complexity_tables
 from ..ops.encoding import TreeBatch
@@ -125,11 +125,14 @@ class Engine:
 
     def __init__(self, options: Options, nfeatures: int,
                  device: Optional[Union[str, torch.device]] = None,
-                 window_size: int = 100_000, n_params: int = 0, n_classes: int = 0):
-        check_supported(options)
+                 window_size: int = 100_000, n_params: int = 0, n_classes: int = 0,
+                 dtype: Optional[torch.dtype] = None):
+        self.device = resolve_device(device)
+        check_supported(options, self.device)
         self.options = options
         self.nfeatures = nfeatures
-        self.device = resolve_device(device)
+        # The floating type of the data, constants, costs and hall of fame.
+        self.dtype = dtype if dtype is not None else float_dtype(options.eval_dtype)
         self.template = _template_of(options)
         if self.template is not None:
             # Template parameters ride the member bank as [total_params, 1].
@@ -138,7 +141,8 @@ class Engine:
         self.cfg: EvolveConfig = evolve_config_from_options(options, nfeatures, self.device,
                                                             n_params=n_params,
                                                             n_classes=n_classes,
-                                                            template=self.template)
+                                                            template=self.template,
+                                                            dtype=self.dtype)
         self.tables: ComplexityTables = build_complexity_tables(options, nfeatures, self.device)
         self.opt_cfg = OptimizerConfig(
             iterations=options.optimizer_iterations, nrestarts=options.optimizer_nrestarts,
@@ -154,7 +158,8 @@ class Engine:
                                cfg.operators, cfg.parsimony,
                                member_params=params if cfg.n_params else None,
                                turbo=cfg.turbo, fuse_cost=fuse_cost, dedup=dedup,
-                               template=cfg.template, bf16=cfg.eval_bf16)
+                               template=cfg.template, bf16=cfg.eval_bf16,
+                               loss_function=self.options.resolved_loss_function)
 
     def _epilogue_draws(self, k_opt, I: int):
         """The optimizer's selection size and its island-major random
@@ -179,8 +184,8 @@ class Engine:
         ko2 = k_opt
         if do_optimize:
             ko1, ko2, ko3 = rng.split(k_opt, 3)
-            scores = rng.uniform(ko1, (I, P))
-            gate = rng.bernoulli(ko3, gate_p, (I, k_sel))
+            scores = rng.uniform(ko1, (I, P), dtype=self.dtype)
+            gate = rng.bernoulli(ko3, gate_p, (I, k_sel), dtype=self.dtype)
         return k_sel, scores, gate, ko2
 
     # ------------------------------------------------------------------
@@ -196,7 +201,7 @@ class Engine:
                                              cfg.mctx)
         else:
             trees = init_population(rng.split(k_init, n_islands), P, cfg.mctx)
-        params = init_params(k_params, (n_islands, P), cfg.n_params, cfg.n_classes)
+        params = init_params(k_params, (n_islands, P), cfg.n_params, cfg.n_classes, self.dtype)
         cost, loss, cx = self._eval(_flat_trees(trees), _flat(params), data,
                                     fuse_cost=cfg.fuse_cost)
         arange = torch.arange(P, dtype=torch.int32, device=dev)
@@ -220,7 +225,7 @@ class Engine:
         return SearchDeviceState(
             pops=pops,
             hof=empty_hof((), cfg.maxsize, cfg.max_nodes, dev, template_k=template_k(cfg),
-                          n_params=cfg.n_params, n_classes=cfg.n_classes),
+                          n_params=cfg.n_params, n_classes=cfg.n_classes, dtype=self.dtype),
             stats=RunningStats(freq, freq / torch.sum(freq)),
             birth=torch.full((n_islands,), P, dtype=torch.int32, device=dev),
             ref=torch.full((n_islands,), P, dtype=torch.int32, device=dev),
@@ -335,7 +340,7 @@ class Engine:
                 params=_flat(pool.params))
             km = rng.split(k_mig, 4)
             pops, birth = _migrate(km[0], pops, pool, options.fraction_replaced, birth, I, P,
-                                   candidate_mask=torch.isfinite(pool.cost))
+                                   candidate_mask=torch.isfinite(pool.cost), dtype=self.dtype)
             if options.hof_migration:
                 zeros = torch.zeros(cfg.maxsize, dtype=torch.int32, device=self.device)
                 hof_pool = PopulationState(
@@ -343,7 +348,7 @@ class Engine:
                     loss=hof.loss, complexity=hof.complexity, birth=zeros, ref=zeros,
                     parent=zeros, params=hof.params)
                 pops, birth = _migrate(km[1], pops, hof_pool, options.fraction_replaced_hof,
-                                       birth, I, P, candidate_mask=hof.exists)
+                                       birth, I, P, candidate_mask=hof.exists, dtype=self.dtype)
 
         # ---- running statistics ----
         sizes = pops.complexity.reshape(-1)
@@ -425,7 +430,8 @@ class Engine:
                 # islands' members run as one batch.
                 out = optimize_constants_template(
                     rng.split(opt_key, I), sub, gate, data, options.elementwise_loss,
-                    cfg.operators, self.opt_cfg, cfg.template, fused=cfg.turbo, params=sub_p)
+                    cfg.operators, self.opt_cfg, cfg.template, fused=cfg.turbo, params=sub_p,
+                    loss_function=options.resolved_loss_function)
             elif cfg.turbo and not cfg.n_params:
                 out = optimize_constants_fused(
                     opt_key, sub.reshape(I * k_sel), gate.reshape(I * k_sel), data,
@@ -434,7 +440,8 @@ class Engine:
             else:
                 out = optimize_constants_batch(
                     rng.split(opt_key, I), sub, gate, data, options.elementwise_loss,
-                    cfg.operators, self.opt_cfg, params=sub_p)
+                    cfg.operators, self.opt_cfg, params=sub_p,
+                    loss_function=options.resolved_loss_function)
         # (new_const, improved, new_loss, f_calls[, new_params])
         new_const, f_calls = out[0], out[3]
         idx = sel_idx.reshape(I, k_sel, *(1,) * (new_const.dim() - 2)).expand(new_const.shape)
@@ -460,7 +467,7 @@ class Engine:
 
 
 def _migrate(key, pops: PopulationState, pool: PopulationState, frac: float, birth,
-             I: int, P: int, candidate_mask):
+             I: int, P: int, candidate_mask, dtype: torch.dtype = torch.float32):
     """Replace each member with a random pool candidate with probability
     ``frac``; replaced members get fresh birth ticks. Only a pack of
     about 3 sigma above the binomial mean is gathered; replacements past
@@ -468,8 +475,8 @@ def _migrate(key, pops: PopulationState, pool: PopulationState, frac: float, bir
     if frac <= 0:
         return pops, birth
     k1, k2 = rng.split(key, 2)
-    replace = rng.bernoulli(k1, frac, (I, P))
-    logits = torch.where(candidate_mask, 0.0, -math.inf)
+    replace = rng.bernoulli(k1, frac, (I, P), dtype=dtype)
+    logits = torch.where(candidate_mask, 0.0, -math.inf).to(dtype)
     pick = rng.categorical(k2, logits, shape=(I, P))
     replace = replace & candidate_mask.any()
 

@@ -44,6 +44,7 @@ class MutationContext(NamedTuple):
     perturbation_factor: float
     probability_negate_constant: float
     n_params: int = 0
+    dtype: torch.dtype = torch.float32   # constants and the draws they come from
 
 
 _SCRATCH_NU = 4 * MAX_ARITY
@@ -254,7 +255,7 @@ def _make_leaf_scratch(u, ctx: MutationContext):
     arity = torch.zeros((N, S), dtype=torch.int32, device=dev)
     op = torch.zeros((N, S), dtype=torch.int32, device=dev)
     feat = torch.zeros((N, S), dtype=torch.int32, device=dev)
-    const = torch.zeros((N, S), dtype=torch.float32, device=dev)
+    const = torch.zeros((N, S), dtype=ctx.dtype, device=dev)
     for j in range(MAX_ARITY):
         code, fj, cj = _sample_leaf(u[:, 4 * j:4 * j + 4], ctx)
         op[:, j] = code
@@ -541,7 +542,7 @@ def _single_leaf(u4, ctx: MutationContext):
     N, L = u4.shape[0], ctx.max_nodes
     dev = u4.device
     z = lambda dt: torch.zeros((N, L), dtype=dt, device=dev)
-    op, feat, const = z(torch.int32), z(torch.int32), z(torch.float32)
+    op, feat, const = z(torch.int32), z(torch.int32), z(ctx.dtype)
     op[:, 0], feat[:, 0], const[:, 0] = code, f0, c0
     return TreeBatch(z(torch.int32), op, feat, const,
                      torch.ones(N, dtype=torch.int32, device=dev))
@@ -551,7 +552,7 @@ def gen_random_tree(keys: torch.Tensor, nlength: int, ctx: MutationContext) -> T
     """One random tree per key (keys [N, 2]) from ``nlength`` weighted
     operator draws; sizes land in [nlength + 1, 2 nlength + 1]."""
     L = ctx.max_nodes
-    u = rng.uniform(keys, (8 * L,))
+    u = rng.uniform(keys, (8 * L,), dtype=ctx.dtype)
     s = USlice(u)
     nuna = ctx.nops[0] if len(ctx.nops) >= 1 else 0
     nbin = ctx.nops[1] if len(ctx.nops) >= 2 else 0

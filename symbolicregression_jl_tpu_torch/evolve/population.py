@@ -42,17 +42,19 @@ class PopulationState:
         return self.params.shape[-2]
 
 
-def zero_params(batch_shape, n_params: int, n_classes: int, device) -> torch.Tensor:
-    return torch.zeros((*batch_shape, n_params, n_classes), dtype=torch.float32, device=device)
+def zero_params(batch_shape, n_params: int, n_classes: int, device,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return torch.zeros((*batch_shape, n_params, n_classes), dtype=dtype, device=device)
 
 
-def init_params(key: torch.Tensor, batch_shape, n_params: int, n_classes: int) -> torch.Tensor:
-    """Standard-normal parameter banks [*batch_shape, NP, NC], drawn as
-    ``jax.random.normal(key, shape)`` draws them; zero-sized without
-    parameters."""
+def init_params(key: torch.Tensor, batch_shape, n_params: int, n_classes: int,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Standard-normal parameter banks [*batch_shape, NP, NC] in ``dtype``,
+    drawn as ``jax.random.normal(key, shape, dtype)`` draws them;
+    zero-sized without parameters."""
     if n_params == 0:
-        return zero_params(batch_shape, n_params, n_classes, key.device)
-    return rng.normal(key, (*batch_shape, n_params, n_classes))
+        return zero_params(batch_shape, n_params, n_classes, key.device, dtype)
+    return rng.normal(key, (*batch_shape, n_params, n_classes), dtype)
 
 
 def init_population(keys: torch.Tensor, population_size: int, ctx: MutationContext,

@@ -111,8 +111,30 @@ def random_bits(k: torch.Tensor, shape) -> torch.Tensor:
     return b1 ^ b2
 
 
-def uniform(k: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` float32 in [minval, maxval): [..., *shape]."""
+def _uniform64(k: torch.Tensor, shape, minval: float, maxval: float) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float64)`` (under x64): 64 random
+    bits per value, the two threefry outputs as the high and low words,
+    their top 52 bits as the mantissa of a float in [1, 2)."""
+    b1, b2 = _hash_shape(k, shape)
+    mask = 0xFFFFFFFF
+    bits = ((b1.to(torch.int64) & mask) << 32) | (b2.to(torch.int64) & mask)
+    fbits = ((bits >> 12) & ((1 << 52) - 1)) | 0x3FF0000000000000
+    floats = fbits.view(torch.float64) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return floats
+    # XLA may fuse the scaling into one multiply-add; here it is two
+    # roundings, so a scaled draw can sit an ULP from JAX's.
+    lo = torch.tensor(minval, dtype=torch.float64, device=k.device)
+    return torch.maximum(lo, floats * (maxval - minval) + minval)
+
+
+def uniform(k: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.uniform`` in [minval, maxval): [..., *shape], float32
+    (32 random bits per value) or float64 (64 bits, as the JAX package
+    draws its default-dtype uniforms under x64)."""
+    if dtype == torch.float64:
+        return _uniform64(k, shape, minval, maxval)
     bits = random_bits(k, shape)
     fbits = ((bits >> 9) & 0x7FFFFF) | 0x3F800000
     floats = fbits.view(torch.float32) - 1.0
@@ -142,13 +164,16 @@ def randint(k: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
     return (int(minval) + offset % span).to(torch.int32)
 
 
-def bernoulli(k: torch.Tensor, p: float, shape) -> torch.Tensor:
-    return uniform(k, shape) < torch.tensor(p, dtype=torch.float32, device=k.device)
+def bernoulli(k: torch.Tensor, p: float, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.bernoulli``: a ``dtype`` uniform below p (float64 under
+    x64, where p's dtype is float64)."""
+    return uniform(k, shape, dtype=dtype) < torch.tensor(p, dtype=dtype, device=k.device)
 
 
-def gumbel(k: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.gumbel`` (mode "low"), float32."""
-    return -torch.log(-torch.log(uniform(k, shape, minval=_TINY, maxval=1.0)))
+def gumbel(k: torch.Tensor, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.gumbel`` (mode "low") in ``dtype``."""
+    tiny = float(torch.finfo(dtype).tiny)
+    return -torch.log(-torch.log(uniform(k, shape, minval=tiny, maxval=1.0, dtype=dtype)))
 
 
 def categorical(k: torch.Tensor, logits: torch.Tensor, shape=None) -> torch.Tensor:
@@ -156,13 +181,15 @@ def categorical(k: torch.Tensor, logits: torch.Tensor, shape=None) -> torch.Tens
 
     ``k`` is one key [2] (``shape`` = batch shape of the draw, default
     ``logits.shape[:-1]``) or a batch of keys [..., 2] each drawing one
-    sample from ``logits`` [..., n] (broadcast)."""
+    sample from ``logits`` [..., n] (broadcast). The Gumbel noise takes
+    the logits' dtype, as in JAX."""
     n = logits.shape[-1]
+    dt = torch.float64 if logits.dtype == torch.float64 else torch.float32
     if k.dim() == 1:
         batch = tuple(logits.shape[:-1]) if shape is None else tuple(shape)
-        g = gumbel(k, batch + (n,))
+        g = gumbel(k, batch + (n,), dt)
     else:
-        g = gumbel(k, (n,))
+        g = gumbel(k, (n,), dt)
     return torch.argmax(g + logits, dim=-1).to(torch.int32)
 
 
@@ -251,7 +278,13 @@ _NDTRI_Q2 = (1.0, 6.02427039364742014255E0, 3.67983563856160859403E0,
 def _polyval(coeffs, x):
     """Horner's rule with each step one fused multiply-add, as XLA
     contracts it: the float64 product of two float32 values is exact, so
-    a float64 add rounded to float32 gives the fused result."""
+    a float64 add rounded to float32 gives the fused result. A float64 x
+    takes plain float64 steps (an ULP from a fused evaluation at most)."""
+    if x.dtype == torch.float64:
+        y = torch.zeros_like(x)
+        for c in coeffs:
+            y = y * x + c
+        return y
     y = torch.zeros_like(x, dtype=torch.float64)
     x64 = x.double()
     for c in coeffs:
@@ -264,26 +297,28 @@ def _f32(v: float) -> float:
 
 
 def ndtri(p: torch.Tensor) -> torch.Tensor:
-    """Inverse normal CDF, float32: the same Cephes piecewise rational
+    """Inverse normal CDF: the same Cephes piecewise rational
     approximation, in the same operation order, as
-    ``jax.scipy.special.ndtri``. The central branch gives the JAX
-    package's bits; the tails go through ``log``, whose float32 results
-    differ from XLA's CPU ones by an ULP here and there."""
-    big = _f32(-np.expm1(-2.0))
+    ``jax.scipy.special.ndtri``. In float32 the central branch gives the
+    JAX package's bits; the tails go through ``log``, whose float32 results
+    differ from XLA's CPU ones by an ULP here and there. float64 takes its
+    constants unrounded."""
+    cv = float if p.dtype == torch.float64 else _f32
+    big = cv(-np.expm1(-2.0))
     mcp = torch.where(p > big, 1.0 - p, p)
     mcp = torch.where(mcp == 0.0, 0.5, mcp)
     w = mcp - 0.5
     ww = w * w
     x_big = w + w * ww * (_polyval(_NDTRI_P0, ww) / _polyval(_NDTRI_Q0, ww))
-    x_big = x_big * -_f32(np.sqrt(2.0 * np.pi))
+    x_big = x_big * -cv(np.sqrt(2.0 * np.pi))
     z = torch.sqrt(-2.0 * torch.log(mcp))
     first = z - torch.log(z) / z
     iz = 1 / z
     second_small = _polyval(_NDTRI_P2, iz) / _polyval(_NDTRI_Q2, iz) / z
     second_other = _polyval(_NDTRI_P1, iz) / _polyval(_NDTRI_Q1, iz) / z
-    x = torch.where(mcp > _f32(np.exp(-2.0)), x_big,
+    x = torch.where(mcp > cv(np.exp(-2.0)), x_big,
                     torch.where(z >= 8.0, first - second_small, first - second_other))
-    x = torch.where(p > _f32(1.0 - np.exp(-2.0)), x, -x)
+    x = torch.where(p > cv(1.0 - np.exp(-2.0)), x, -x)
     x = torch.where(p == 0.0, -torch.inf, torch.where(p == 1.0, torch.inf, x))
     return x
 
@@ -362,9 +397,14 @@ def _erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * torch.inf, p * x)
 
 
-def normal(k: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.normal`` float32: sqrt(2) * erf_inv(u), u uniform on
-    (nextafter(-1, 0), 1): [..., *shape]."""
+def normal(k: torch.Tensor, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.normal``: sqrt(2) * erf_inv(u), u uniform on
+    (nextafter(-1, 0), 1): [..., *shape]. float64 draws 64-bit uniforms
+    (JAX under x64) and takes ``torch.special.erfinv``, within an ULP or
+    two of XLA's float64 ErfInv."""
+    if dtype == torch.float64:
+        lo64 = float(np.nextafter(-1.0, 0.0))
+        return math.sqrt(2.0) * torch.special.erfinv(uniform(k, shape, lo64, 1.0, torch.float64))
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     return _f32(np.sqrt(2.0)) * _erf_inv(uniform(k, shape, lo, 1.0))
 

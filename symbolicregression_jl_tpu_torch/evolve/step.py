@@ -42,8 +42,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.losses import aggregate_loss, loss_to_cost
-from ..core.options import KERNEL_TILE_ROWS, MUTATION_KINDS, Options
+from ..core.losses import aggregate_loss, loss_from_pred, loss_to_cost
+from ..core.options import KERNEL_TILE_ROWS, MUTATION_KINDS, Options, turbo_requested
 from ..ops.complexity import ComplexityTables, check_constraints_batch, compute_complexity_batch
 from ..ops.encoding import LEAF_CONST, LEAF_VAR, TreeBatch, select_tree, structure_from_arity
 from ..ops.eval import eval_tree_batch
@@ -147,6 +147,10 @@ class EvolveConfig(NamedTuple):
     # computed, so the search is bit-identical with them on or off.
     collect_telemetry: bool = False
     record_events: bool = False
+    # The floating type of constants, costs and the bulk uniforms
+    # (eval_dtype / equation_search(dtype=...)): float32, or float64 as the
+    # JAX package runs under x64.
+    dtype: torch.dtype = torch.float32
 
     @property
     def n_slots(self) -> int:
@@ -162,15 +166,19 @@ class EvolveConfig(NamedTuple):
             probability_negate_constant=self.probability_negate_constant,
             # Template parameters live in the bank, not in tree leaves.
             n_params=0 if self.template is not None else self.n_params,
+            dtype=self.dtype,
         )
 
 
 def evolve_config_from_options(options: Options, nfeatures: int, device: torch.device,
                                n_params: int = 0, n_classes: int = 0,
-                               template=None) -> EvolveConfig:
-    """``turbo`` defaults to on for a CUDA device and off on the CPU."""
-    turbo = options.turbo if options.turbo is not None else device.type == "cuda"
-    turbo = bool(turbo) and supports_fused_eval(options.operators)
+                               template=None, dtype: torch.dtype = torch.float32) -> EvolveConfig:
+    """``turbo`` defaults to on for a CUDA device and off on the CPU, and
+    is off with a custom whole-prediction loss (the JAX package's eager
+    path for it); ``core.options.check_supported`` has refused, up front,
+    what turbo cannot run."""
+    turbo = turbo_requested(options, device) and options.resolved_loss_function is None
+    turbo = turbo and supports_fused_eval(options.operators)
     return EvolveConfig(
         operators=options.operators,
         maxsize=options.maxsize,
@@ -208,6 +216,7 @@ def evolve_config_from_options(options: Options, nfeatures: int, device: torch.d
         batch_size=options.batch_size,
         collect_telemetry=bool(options.telemetry),
         record_events=bool(options.use_recorder),
+        dtype=dtype,
     )
 
 
@@ -219,7 +228,7 @@ def evolve_config_from_options(options: Options, nfeatures: int, device: torch.d
 def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: ComplexityTables,
                     operators: OperatorSet, parsimony: float, *, member_params=None,
                     turbo: bool = False, fuse_cost: bool = False, dedup: bool = False,
-                    template=None, bf16: bool = False):
+                    template=None, bf16: bool = False, loss_function=None):
     """(cost, loss, complexity) per tree, any batch shape, on the rows of
     ``data``: the dataset, or a row subset of it such as graftstage's
     screening sample (``DeviceData.strided_sample``, whose baseline
@@ -247,7 +256,14 @@ def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: Complexity
     parametric members; no dedup), else the interpreter on bf16 X and
     constants with the prediction cast back to float32 before the loss
     (plain members; parametric ones stay float32 there, as in the JAX
-    package)."""
+    package).
+
+    ``loss_function`` is the custom whole-prediction loss
+    (``Options.resolved_loss_function``): with it every member is
+    predicted by the eager interpreter (or the template combiner) and
+    the loss is ``loss_function(pred, y, w, valid)`` per tree, a NaN or
+    an invalid tree giving inf (core/losses.loss_from_pred), as the JAX
+    package's ``_loss_from_pred`` computes it; ``turbo`` is off for it."""
     X, y, w = data.Xt, data.y, data.weights
     has_params = member_params is not None and member_params.shape[-2] > 0
     if template is not None:
@@ -258,13 +274,19 @@ def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: Complexity
         with torch.profiler.record_function("sr:template_eval"):
             pred, valid = eval_template_batch(trees, X, template, operators, params=t_params,
                                               fused=turbo)
-            loss = aggregate_loss(elementwise_loss, pred, y, valid, w)
+            loss = loss_from_pred(pred, valid, y, w, elementwise_loss, loss_function)
         complexity = compute_complexity_batch(trees, tables).sum(dim=-1).to(torch.int32)
         cost = loss_to_cost(loss, data.baseline_loss, data.use_baseline, complexity, parsimony)
         return cost, loss, complexity
     if has_params and data.class_idx is None:
         raise ValueError("Parametric evaluation requires a `class` column in the dataset")
     complexity = compute_complexity_batch(trees, tables)
+    if loss_function is not None:
+        prows = member_params[..., data.class_idx.long()] if has_params else None
+        pred, valid = eval_tree_batch(trees, X, operators, params=prows)
+        loss = loss_from_pred(pred, valid, y, w, elementwise_loss, loss_function)
+        cost = loss_to_cost(loss, data.baseline_loss, data.use_baseline, complexity, parsimony)
+        return cost, loss, complexity
     if turbo and fuse_cost and not dedup and not has_params:
         cost, loss, _ = fused_cost(
             trees, X, y, w, complexity, operators, elementwise_loss,
@@ -586,7 +608,7 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
     template = cfg.template
     TK = 2 if template is not None else 0     # template key draws
     SLOT_NU = 1 + NKINDS + TK + A * ATT_NU + A * L2 + 1 + 1 + 4
-    u = rng.uniform(slot_keys3[..., 2, :], (SLOT_NU,))   # [I, B, SLOT_NU]
+    u = rng.uniform(slot_keys3[..., 2, :], (SLOT_NU,), dtype=cfg.dtype)   # [I, B, SLOT_NU]
     s = USlice(u)
     is_xover = u_bernoulli(s.take1(), cfg.crossover_probability)
 
@@ -689,7 +711,8 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
     def _eval_on(flat: TreeBatch, p_flat, rows):
         return eval_cost_batch(flat, rows, elementwise_loss, tables, cfg.operators,
                                cfg.parsimony, member_params=p_flat, turbo=cfg.turbo,
-                               fuse_cost=cfg.fuse_cost, template=template, bf16=cfg.eval_bf16)
+                               fuse_cost=cfg.fuse_cost, template=template, bf16=cfg.eval_bf16,
+                               loss_function=options.resolved_loss_function)
 
     # graftstage's staged path (templates excepted, as in the JAX package):
     # every candidate is screened on the strided sample, each island's best
@@ -697,8 +720,9 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
     # is rescored on every row, and the others keep NaN cost and inf loss,
     # so acceptance keeps their parents and no sample cost enters the
     # population. One screen launch and one rescore launch per cycle.
-    sample_rows = resolve_sample_rows(cfg, data.n) if cfg.staged_eval and template is None \
-        else data.n
+    staged_ok = (cfg.staged_eval and template is None
+                 and options.resolved_loss_function is None)
+    sample_rows = resolve_sample_rows(cfg, data.n) if staged_ok else data.n
     staged = sample_rows < data.n
 
     def _eval(trees: TreeBatch, params):
@@ -728,7 +752,7 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
         loss[sel] = torch.where(bad, math.inf, l_r)
         return cost.reshape(bshape), loss.reshape(bshape), cx.reshape(bshape)
 
-    inf = torch.tensor(math.inf, dtype=torch.float32, device=dev)
+    inf = torch.tensor(math.inf, dtype=cfg.dtype, device=dev)
     if 0 < k2 < B:
         sel2 = _stable_top(is_xover, k2)                         # [I, k2]
         cand2_sel = _take_trees(cand2, sel2)
@@ -921,17 +945,19 @@ class HofState:
 
 
 def empty_hof(batch_shape, maxsize: int, max_nodes: int, device,
-              template_k: int = 0, n_params: int = 0, n_classes: int = 0) -> HofState:
-    """``template_k`` > 0 gives the trees the template key axis."""
+              template_k: int = 0, n_params: int = 0, n_classes: int = 0,
+              dtype: torch.dtype = torch.float32) -> HofState:
+    """``template_k`` > 0 gives the trees the template key axis; constants,
+    costs, losses and banks are ``dtype``."""
     shape = (*batch_shape, maxsize)
     tree_shape = (*shape, template_k) if template_k else shape
     return HofState(
-        trees=TreeBatch.empty(tree_shape, max_nodes, device),
-        cost=torch.full(shape, math.inf, dtype=torch.float32, device=device),
-        loss=torch.full(shape, math.inf, dtype=torch.float32, device=device),
+        trees=TreeBatch.empty(tree_shape, max_nodes, device, dtype),
+        cost=torch.full(shape, math.inf, dtype=dtype, device=device),
+        loss=torch.full(shape, math.inf, dtype=dtype, device=device),
         complexity=torch.zeros(shape, dtype=torch.int32, device=device),
         exists=torch.zeros(shape, dtype=torch.bool, device=device),
-        params=torch.zeros((*shape, n_params, n_classes), dtype=torch.float32, device=device),
+        params=torch.zeros((*shape, n_params, n_classes), dtype=dtype, device=device),
     )
 
 
@@ -987,7 +1013,7 @@ def s_r_cycle(key, pop: PopulationState, data, stats_nf, cur_maxsize, birth0, re
         tele = carry_in[3] if cfg.collect_telemetry else None
     else:
         hof = empty_hof((I,), cfg.maxsize, cfg.max_nodes, dev, template_k=template_k(cfg),
-                        n_params=cfg.n_params, n_classes=cfg.n_classes)
+                        n_params=cfg.n_params, n_classes=cfg.n_classes, dtype=cfg.dtype)
         marks = (torch.zeros((I, P), dtype=torch.bool, device=dev),
                  torch.zeros((I, P), dtype=torch.bool, device=dev))
         nev = torch.zeros(I, dtype=torch.float32, device=dev)

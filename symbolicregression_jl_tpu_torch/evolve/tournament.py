@@ -41,7 +41,8 @@ def tournament_select(keys: torch.Tensor, cost: torch.Tensor, complexity: torch.
     if p >= 1.0:
         best = torch.argmin(c, dim=-1, keepdim=True)
         return torch.gather(picks, -1, best)[..., 0].to(torch.int32)
-    ks_ = torch.arange(tournament_n, device=cost.device, dtype=torch.float32)
+    ks_ = torch.arange(tournament_n, device=cost.device,
+                       dtype=torch.float64 if cost.dtype == torch.float64 else torch.float32)
     place_weights = p * (1 - p) ** ks_
     place = rng.categorical(k2, torch.log(place_weights))
     order = torch.argsort(c, dim=-1, stable=True)

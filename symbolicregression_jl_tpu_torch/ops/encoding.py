@@ -152,12 +152,12 @@ def select_tree(pred: torch.Tensor, a: TreeBatch, b: TreeBatch) -> TreeBatch:
 # ---------------------------------------------------------------------------
 
 
-def encode_tree(tree: Node, max_nodes: int, operators: OperatorSet):
+def encode_tree(tree: Node, max_nodes: int, operators: OperatorSet, const_dtype=np.float32):
     """Encode a host `Node` into per-slot numpy arrays (postfix order)."""
     arity = np.zeros(max_nodes, np.int32)
     op = np.zeros(max_nodes, np.int32)
     feat = np.zeros(max_nodes, np.int32)
-    const = np.zeros(max_nodes, np.float32)
+    const = np.zeros(max_nodes, const_dtype)
     k = 0
     for n in tree.nodes():
         if k >= max_nodes:
@@ -219,19 +219,21 @@ def decode_tree(arity, op, feat, const, length, operators: OperatorSet) -> Node:
 
 
 def encode_population(trees: Sequence[Node], max_nodes: int,
-                      operators: OperatorSet, device=None) -> TreeBatch:
+                      operators: OperatorSet, device=None,
+                      dtype: torch.dtype = torch.float32) -> TreeBatch:
     """Host trees -> a [len(trees), max_nodes] TreeBatch on ``device``
-    (CUDA unless the caller asks for the CPU)."""
+    (CUDA unless the caller asks for the CPU), constants in ``dtype``."""
     dev = resolve_device(device)
     n = len(trees)
+    cdt = np.float64 if dtype == torch.float64 else np.float32
     arity = np.zeros((n, max_nodes), np.int32)
     op = np.zeros((n, max_nodes), np.int32)
     feat = np.zeros((n, max_nodes), np.int32)
-    const = np.zeros((n, max_nodes), np.float32)
+    const = np.zeros((n, max_nodes), cdt)
     length = np.zeros((n,), np.int32)
     for i, t in enumerate(trees):
         arity[i], op[i], feat[i], const[i], length[i] = encode_tree(
-            t, max_nodes, operators)
+            t, max_nodes, operators, cdt)
     return TreeBatch(*(torch.from_numpy(a).to(dev)
                        for a in (arity, op, feat, const, length)))
 

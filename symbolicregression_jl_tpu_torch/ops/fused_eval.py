@@ -36,6 +36,14 @@ operands, computes in float32, checks finiteness on the float32 value
 and stores the value rounded to bf16; the root (the prediction) is the
 stored value. y, w, the loss, the row sums and the cost epilogue stay
 float32. Losses rank reliably but are not bit-exact against float32.
+
+float64 (``eval_dtype="float64"``, the JAX package under x64): kernels #1,
+#1p, #2 and #3 have ``double`` forms (:data:`PROGRAM_EVAL_F64`,
+:data:`PROGRAM_EVAL_PARAM_F64`, :data:`PROGRAM_MULTI_F64`,
+:data:`PROGRAM_GRAD_F64`) that store and compute every value in double;
+the entry points pick them when X is float64. Every library loss
+(core/losses.py ``KernelLoss``) runs in the kernels, named by its kind
+and parameter; a user callable is refused.
 The TPU kernels' V-chunking and tree blocks worked around VMEM and are not
 carried over: each call is one launch.
 """
@@ -50,13 +58,14 @@ from typing import Callable, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ..core.losses import LOSS_REGISTRY, baseline_normalization, l1_dist_loss, l2_dist_loss
+from ..core.losses import baseline_normalization, kernel_loss
 from .encoding import LEAF_PARAM, TreeBatch
 from .operators import OPERATOR_REGISTRY, OperatorSet
 from .program import TreeProgram, compile_program, scatter_const_grads
 from .vjp import loss_vjp, vjp_binary, vjp_unary
 
 __all__ = ["PROGRAM_EVAL", "PROGRAM_EVAL_PARAM", "PROGRAM_EVAL_BF16", "PROGRAM_EVAL_PARAM_BF16",
+           "PROGRAM_EVAL_F64", "PROGRAM_EVAL_PARAM_F64", "PROGRAM_MULTI_F64", "PROGRAM_GRAD_F64",
            "PROGRAM_MULTI", "PROGRAM_MULTI_BF16", "PROGRAM_GRAD", "PROGRAM_PREDICT",
            "PROGRAM_PREDICT_VJP", "strided_sample_indices", "fused_loss", "fused_loss_program",
            "fused_loss_dedup",
@@ -502,14 +511,6 @@ _KERNEL_OP_IDS = {
 }
 _K_IDENTITY, _K_BINARY, _K_UNARY, _K_ADDSUB = 0, 1, 2, 3
 
-# Elementwise losses the kernel implements (identity of the function).
-_KERNEL_LOSS = {
-    l2_dist_loss: 0,
-    l1_dist_loss: 1,
-    LOSS_REGISTRY["HuberLoss"]: 2,
-    LOSS_REGISTRY["huber"]: 2,
-}
-
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 
 
@@ -545,12 +546,14 @@ class _ProgramKernel:
     use), the block size, the opcode table on the device and the input
     checks. ``launches`` counts kernel launches; each wrapper increments
     it where it launches its kernel and nowhere else. ``bf16`` wrappers
-    run the kernel over a bfloat16 value buffer and take X as bfloat16."""
+    run the kernel over a bfloat16 value buffer and take X as bfloat16;
+    ``f64`` wrappers take every float operand as float64."""
 
     name = ""
     source = ""
     replaces = ""
     bf16 = False
+    f64 = False
     _file = ""
     _entry = ""
     _smem = ""        # the shared-memory size function ("": ``_entry + "_smem"``)
@@ -614,18 +617,27 @@ class _ProgramKernel:
         block = self._block(L, CMAX, F, NP, NC)
         return self._device_optab(operators, X.device), block, code_mask
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype of the wrapper's float operands and outputs."""
+        return torch.float64 if self.f64 else torch.float32
+
     def _check(self, X, loss_fn, ints, floats):
         """Device, dtype and contiguity of every input (``X`` bfloat16 for a
-        bf16 wrapper, the other floats float32); the loss kind (None for the
-        kernels that compute no loss)."""
+        bf16 wrapper, the other floats float32, or float64 for an f64
+        wrapper); the loss's (kind, parameter) (None for the kernels that
+        compute no loss)."""
         if X.device.type != "cuda":
             raise ValueError(f"{self.name}: unsupported device {X.device}")
-        loss_kind = _KERNEL_LOSS.get(loss_fn) if loss_fn is not None else None
-        if loss_kind is None and loss_fn is not None:
-            raise NotImplementedError(
-                f"the CUDA kernel {self.name} implements the L2, L1 and Huber "
-                f"elementwise losses only")
-        for group, dtype in ((ints, torch.int32), (floats, torch.float32)):
+        loss = None
+        if loss_fn is not None:
+            kl = kernel_loss(loss_fn)
+            if kl is None:
+                raise NotImplementedError(
+                    f"the CUDA kernel {self.name} implements the library elementwise losses "
+                    f"(core/losses.py), not the user callable {loss_fn!r}")
+            loss = (kl.kind, kl.param)
+        for group, dtype in ((ints, torch.int32), (floats, self.dtype)):
             for nm, t in group.items():
                 want = torch.bfloat16 if (nm == "X" and self.bf16) else dtype
                 if t.device != X.device:
@@ -634,7 +646,7 @@ class _ProgramKernel:
                     raise ValueError(f"{self.name}: {nm} must be contiguous")
                 if t.dtype != want:
                     raise TypeError(f"{self.name}: {nm} must be {str(want)[6:]}")
-        return loss_kind
+        return loss
 
     def _launch(self, *args):
         rc = getattr(self.library(), self._entry)(*args)
@@ -663,11 +675,11 @@ class ProgramEvalKernel(_ProgramKernel):
     _smem_nargs = 7
 
     def _smem_extra(self, NP, NC):
-        return (NP, NC, 2 if self.bf16 else 4)
+        return (NP, NC, 2 if self.bf16 else (8 if self.f64 else 4))
 
     def _bind(self, lib):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        getattr(lib, self._entry).argtypes = [p] * 10 + [i] * 9 + [p, p, p, p]
+        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        getattr(lib, self._entry).argtypes = [p] * 10 + [i] * 7 + [d, i, i] + [p, p, p, p]
 
     def __call__(self, instr, nsteps, cvals, const_ok, X, y, w, operators: OperatorSet,
                  loss_fn: Callable, cx=None, scal=None):
@@ -681,19 +693,19 @@ class ProgramEvalKernel(_ProgramKernel):
         floats = dict(cvals=cvals, X=X, y=y, w=w)
         if cost_form:
             floats.update(cx=cx, scal=scal)
-        loss_kind = self._check(X, loss_fn, dict(instr=instr, nsteps=nsteps,
-                                                 const_ok=const_ok), floats)
+        loss_kind, loss_param = self._check(X, loss_fn, dict(instr=instr, nsteps=nsteps,
+                                                             const_ok=const_ok), floats)
         if (nsteps.shape != (T,) or const_ok.shape != (T,) or cvals.shape[0] != T
                 or y.shape != (n,) or w.shape != (n,)
                 or (cost_form and (cx.shape != (T,) or scal.shape != (3,)))):
             raise ValueError("program_eval: inconsistent shapes")
         optab, block, code_mask = self._layout(operators, X, L, CMAX, F)
-        loss = torch.empty(T, dtype=torch.float32, device=X.device)
+        loss = torch.empty(T, dtype=self.dtype, device=X.device)
         valid = torch.empty(T, dtype=torch.int32, device=X.device)
-        cost = torch.empty(T, dtype=torch.float32, device=X.device) if cost_form else None
+        cost = torch.empty(T, dtype=self.dtype, device=X.device) if cost_form else None
         self._launch(
             _ptr(instr), _ptr(nsteps), _ptr(cvals), _ptr(const_ok), _ptr(X), _ptr(y), _ptr(w),
-            _ptr(cx), _ptr(scal), _ptr(optab), T, L, CMAX, F, n, block, loss_kind,
+            _ptr(cx), _ptr(scal), _ptr(optab), T, L, CMAX, F, n, block, loss_kind, loss_param,
             code_mask, 30, _ptr(loss), _ptr(valid), _ptr(cost),
             _stream(X))
         if cost_form:
@@ -717,11 +729,11 @@ class ProgramEvalParamKernel(_ProgramKernel):
     _smem_nargs = 7
 
     def _smem_extra(self, NP, NC):
-        return (NP, NC, 2 if self.bf16 else 4)
+        return (NP, NC, 2 if self.bf16 else (8 if self.f64 else 4))
 
     def _bind(self, lib):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        getattr(lib, self._entry).argtypes = [p] * 10 + [i] * 11 + [p, p, p]
+        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        getattr(lib, self._entry).argtypes = [p] * 10 + [i] * 9 + [d, i, i] + [p, p, p]
 
     def __call__(self, instr, nsteps, cvals, const_ok, bank, class_idx, X, y, w,
                  operators: OperatorSet, loss_fn: Callable):
@@ -732,20 +744,20 @@ class ProgramEvalParamKernel(_ProgramKernel):
         F, n = X.shape
         CMAX = cvals.shape[1]
         NP, NC = bank.shape[1:]
-        loss_kind = self._check(X, loss_fn, dict(instr=instr, nsteps=nsteps, const_ok=const_ok,
-                                                 class_idx=class_idx),
-                                dict(cvals=cvals, bank=bank, X=X, y=y, w=w))
+        loss_kind, loss_param = self._check(
+            X, loss_fn, dict(instr=instr, nsteps=nsteps, const_ok=const_ok, class_idx=class_idx),
+            dict(cvals=cvals, bank=bank, X=X, y=y, w=w))
         if (nsteps.shape != (T,) or const_ok.shape != (T,) or cvals.shape[0] != T
                 or bank.shape[0] != T or NP < 1 or NC < 1 or class_idx.shape != (n,)
                 or y.shape != (n,) or w.shape != (n,)):
             raise ValueError("program_eval_param: inconsistent shapes")
         optab, block, code_mask = self._layout(operators, X, L, CMAX, F, NP, NC)
-        loss = torch.empty(T, dtype=torch.float32, device=X.device)
+        loss = torch.empty(T, dtype=self.dtype, device=X.device)
         valid = torch.empty(T, dtype=torch.int32, device=X.device)
         self._launch(
             _ptr(instr), _ptr(nsteps), _ptr(cvals), _ptr(const_ok), _ptr(bank), _ptr(class_idx),
             _ptr(X), _ptr(y), _ptr(w), _ptr(optab), T, L, CMAX, F, NP, NC, n, block,
-            loss_kind, code_mask, 30, _ptr(loss), _ptr(valid), _stream(X))
+            loss_kind, loss_param, code_mask, 30, _ptr(loss), _ptr(valid), _stream(X))
         return loss, valid.bool()
 
 
@@ -762,11 +774,11 @@ class ProgramMultiKernel(_ProgramKernel):
     _smem_nargs = 5
 
     def _smem_extra(self, NP, NC):
-        return (2 if self.bf16 else 4,)
+        return (2 if self.bf16 else (8 if self.f64 else 4),)
 
     def _bind(self, lib):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        getattr(lib, self._entry).argtypes = [p] * 7 + [i] * 10 + [p, p, p]
+        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        getattr(lib, self._entry).argtypes = [p] * 7 + [i] * 8 + [d, i, i] + [p, p, p]
 
     def __call__(self, instr, nsteps, cvals_v, X, y, w, operators: OperatorSet,
                  loss_fn: Callable):
@@ -776,17 +788,17 @@ class ProgramMultiKernel(_ProgramKernel):
         T, L = instr.shape
         F, n = X.shape
         V, CMAX = cvals_v.shape[1], cvals_v.shape[2]
-        loss_kind = self._check(X, loss_fn, dict(instr=instr, nsteps=nsteps),
-                                dict(cvals_v=cvals_v, X=X, y=y, w=w))
+        loss_kind, loss_param = self._check(X, loss_fn, dict(instr=instr, nsteps=nsteps),
+                                            dict(cvals_v=cvals_v, X=X, y=y, w=w))
         if (nsteps.shape != (T,) or cvals_v.shape[0] != T or y.shape != (n,)
                 or w.shape != (n,)):
             raise ValueError("program_multi: inconsistent shapes")
         optab, block, code_mask = self._layout(operators, X, L, CMAX, F)
-        loss = torch.empty((T, V), dtype=torch.float32, device=X.device)
+        loss = torch.empty((T, V), dtype=self.dtype, device=X.device)
         valid = torch.empty((T, V), dtype=torch.int32, device=X.device)
         self._launch(
             _ptr(instr), _ptr(nsteps), _ptr(cvals_v), _ptr(X), _ptr(y), _ptr(w), _ptr(optab),
-            T, V, L, CMAX, F, n, block, loss_kind, code_mask, 30,
+            T, V, L, CMAX, F, n, block, loss_kind, loss_param, code_mask, 30,
             _ptr(loss), _ptr(valid), _stream(X))
         return loss, valid.bool()
 
@@ -803,8 +815,8 @@ class ProgramGradKernel(_ProgramKernel):
     _entry = "sr_program_grad"
 
     def _bind(self, lib):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sr_program_grad.argtypes = [p] * 8 + [i] * 10 + [p, p, p, p]
+        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        getattr(lib, self._entry).argtypes = [p] * 8 + [i] * 8 + [d, i, i] + [p, p, p, p]
 
     def __call__(self, instr, nsteps, nconst, cvals_v, X, y, w, operators: OperatorSet,
                  loss_fn: Callable):
@@ -814,18 +826,19 @@ class ProgramGradKernel(_ProgramKernel):
         T, L = instr.shape
         F, n = X.shape
         V, CMAX = cvals_v.shape[1], cvals_v.shape[2]
-        loss_kind = self._check(X, loss_fn, dict(instr=instr, nsteps=nsteps, nconst=nconst),
-                                dict(cvals_v=cvals_v, X=X, y=y, w=w))
+        loss_kind, loss_param = self._check(
+            X, loss_fn, dict(instr=instr, nsteps=nsteps, nconst=nconst),
+            dict(cvals_v=cvals_v, X=X, y=y, w=w))
         if (nsteps.shape != (T,) or nconst.shape != (T,) or cvals_v.shape[0] != T
                 or y.shape != (n,) or w.shape != (n,)):
             raise ValueError("program_grad: inconsistent shapes")
         optab, block, code_mask = self._layout(operators, X, L, CMAX, F)
-        loss = torch.empty((T, V), dtype=torch.float32, device=X.device)
+        loss = torch.empty((T, V), dtype=self.dtype, device=X.device)
         valid = torch.empty((T, V), dtype=torch.int32, device=X.device)
-        gcomp = torch.empty((T, V, CMAX), dtype=torch.float32, device=X.device)
+        gcomp = torch.empty((T, V, CMAX), dtype=self.dtype, device=X.device)
         self._launch(
             _ptr(instr), _ptr(nsteps), _ptr(nconst), _ptr(cvals_v), _ptr(X), _ptr(y), _ptr(w),
-            _ptr(optab), T, V, L, CMAX, F, n, block, loss_kind,
+            _ptr(optab), T, V, L, CMAX, F, n, block, loss_kind, loss_param,
             code_mask, 30, _ptr(loss), _ptr(valid), _ptr(gcomp),
             _stream(X))
         return loss, valid.bool(), gcomp
@@ -943,6 +956,51 @@ class ProgramMultiBf16Kernel(ProgramMultiKernel):
     _entry = "sr_program_multi_bf16"
 
 
+class ProgramEvalF64Kernel(ProgramEvalKernel):
+    """Wrapper of ``sr_program_eval_f64`` (csrc/program_eval.cu): kernel
+    #1's cost and plain forms in float64 (every operand, step and sum in
+    double)."""
+
+    name = "program_eval_f64"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:505 (_program_launch / "
+                "_make_program_kernel under jax_enable_x64)")
+    f64 = True
+    _entry = "sr_program_eval_f64"
+
+
+class ProgramEvalParamF64Kernel(ProgramEvalParamKernel):
+    """Wrapper of ``sr_program_eval_param_f64`` (csrc/program_eval.cu):
+    kernel #1p in float64."""
+
+    name = "program_eval_param_f64"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:379 (_make_program_kernel "
+                "nparam > 0 under jax_enable_x64)")
+    f64 = True
+    _entry = "sr_program_eval_param_f64"
+
+
+class ProgramMultiF64Kernel(ProgramMultiKernel):
+    """Wrapper of ``sr_program_multi_f64`` (csrc/program_multi.cu): kernel
+    #2 in float64."""
+
+    name = "program_multi_f64"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:830 (fused_loss_multi under "
+                "jax_enable_x64)")
+    f64 = True
+    _entry = "sr_program_multi_f64"
+
+
+class ProgramGradF64Kernel(ProgramGradKernel):
+    """Wrapper of ``sr_program_grad_f64`` (csrc/program_grad.cu): kernel #3
+    in float64."""
+
+    name = "program_grad_f64"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:1250 (fused_grad_multi under "
+                "jax_enable_x64)")
+    f64 = True
+    _entry = "sr_program_grad_f64"
+
+
 PROGRAM_EVAL = ProgramEvalKernel()
 PROGRAM_EVAL_PARAM = ProgramEvalParamKernel()
 PROGRAM_EVAL_BF16 = ProgramEvalBf16Kernel()
@@ -952,6 +1010,20 @@ PROGRAM_MULTI_BF16 = ProgramMultiBf16Kernel()
 PROGRAM_GRAD = ProgramGradKernel()
 PROGRAM_PREDICT = ProgramPredictKernel()
 PROGRAM_PREDICT_VJP = ProgramPredictVjpKernel()
+PROGRAM_EVAL_F64 = ProgramEvalF64Kernel()
+PROGRAM_EVAL_PARAM_F64 = ProgramEvalParamF64Kernel()
+PROGRAM_MULTI_F64 = ProgramMultiF64Kernel()
+PROGRAM_GRAD_F64 = ProgramGradF64Kernel()
+
+
+def _pick(X, bf16: bool, f32, b16, f64):
+    """The wrapper for X's dtype: ``b16`` with ``bf16``, ``f64`` for a
+    float64 X, else ``f32``."""
+    if X.dtype == torch.float64:
+        if bf16:
+            raise ValueError("the bf16 kernels take float32 data, not float64")
+        return f64
+    return b16 if bf16 else f32
 
 
 # ---------------------------------------------------------------------------
@@ -1013,11 +1085,14 @@ def fused_loss_program(prog: TreeProgram, X, y, weights, nfeatures: int,
     bfloat16 value buffer, float32 loss)."""
     if params is None:
         args = _launch_inputs(prog, X, y, weights, nfeatures, operators, bf16=bf16)
-        loss_sum, valid = (PROGRAM_EVAL_BF16 if bf16 else PROGRAM_EVAL)(*args, operators, loss_fn)
+        kernel = _pick(X, bf16, PROGRAM_EVAL, PROGRAM_EVAL_BF16, PROGRAM_EVAL_F64)
+        loss_sum, valid = kernel(*args, operators, loss_fn)
     else:
         instr, nsteps, cvals, ok, Xc, yc, w = _launch_inputs(prog, X, y, weights, nfeatures,
                                                              operators, params.shape[1], bf16)
-        loss_sum, valid = (PROGRAM_EVAL_PARAM_BF16 if bf16 else PROGRAM_EVAL_PARAM)(
+        kernel = _pick(X, bf16, PROGRAM_EVAL_PARAM, PROGRAM_EVAL_PARAM_BF16,
+                       PROGRAM_EVAL_PARAM_F64)
+        loss_sum, valid = kernel(
             instr, nsteps, cvals, ok, params.to(X.dtype).contiguous(),
             class_idx.to(torch.int32).contiguous(), Xc, yc, w, operators, loss_fn)
     loss = loss_sum / _denominator(weights, X)
@@ -1036,7 +1111,7 @@ def fused_cost_program(prog: TreeProgram, X, y, weights, complexity, nfeatures: 
     scal = torch.stack([denom.to(X.dtype), norm.to(X.dtype),
                         torch.tensor(parsimony, dtype=X.dtype, device=X.device)])
     args = _launch_inputs(prog, X, y, weights, nfeatures, operators, bf16=bf16)
-    kernel = PROGRAM_EVAL_BF16 if bf16 else PROGRAM_EVAL
+    kernel = _pick(X, bf16, PROGRAM_EVAL, PROGRAM_EVAL_BF16, PROGRAM_EVAL_F64)
     loss, valid, cost = kernel(*args, operators, loss_fn,
                                cx=complexity.to(X.dtype).contiguous(), scal=scal)
     return cost, loss, valid
@@ -1056,7 +1131,8 @@ def fused_loss_dedup(prog: TreeProgram, X, y, weights, nfeatures: int,
     dev = prog.code.device
     live = torch.arange(L, device=dev)[None, :] < prog.nsteps[:, None]
     word = torch.where(live, (prog.code << 24) | (prog.src1 << 12) | prog.src2, 0)
-    cbits = prog.cvals.to(torch.float32).contiguous().view(torch.int32)
+    cbits = prog.cvals.to(X.dtype).contiguous()
+    cbits = cbits.view(torch.int64 if cbits.dtype == torch.float64 else torch.int32)
     cused = torch.arange(CMAX, device=dev)[None, :] < prog.nconst[:, None]
     cbits = torch.where(cused, cbits, 0)
     key = torch.cat([word, cbits, prog.nsteps[:, None]], dim=1)
@@ -1166,7 +1242,7 @@ def fused_loss_multi(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
     gradient kernel's loss and its descent check)."""
     (instr, nsteps, cv, Xc, yc, w), ok_v = _multi_inputs(prog, cvals_v, X, y, weights,
                                                          nfeatures, operators, bf16)
-    kernel = PROGRAM_MULTI_BF16 if bf16 else PROGRAM_MULTI
+    kernel = _pick(X, bf16, PROGRAM_MULTI, PROGRAM_MULTI_BF16, PROGRAM_MULTI_F64)
     loss_sum, valid = kernel(instr, nsteps, cv, Xc, yc, w, operators, loss_fn)
     valid = valid & ok_v
     loss = loss_sum / _denominator(weights, X)
@@ -1183,8 +1259,8 @@ def fused_grad_multi(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
     (instr, nsteps, cv, Xc, yc, w), ok_v = _multi_inputs(prog, cvals_v, X, y, weights,
                                                          nfeatures, operators)
     nconst = prog.nconst.to(torch.int32).contiguous()
-    loss_sum, valid, gcomp = PROGRAM_GRAD(instr, nsteps, nconst, cv, Xc, yc, w,
-                                          operators, loss_fn)
+    kernel = _pick(X, False, PROGRAM_GRAD, None, PROGRAM_GRAD_F64)
+    loss_sum, valid, gcomp = kernel(instr, nsteps, nconst, cv, Xc, yc, w, operators, loss_fn)
     valid = valid & ok_v
     denom = _denominator(weights, X)
     loss = loss_sum / denom

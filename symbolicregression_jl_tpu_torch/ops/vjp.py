@@ -19,7 +19,8 @@ non-finite values land where they land in the JAX package:
 
 The CUDA gradient kernel (``csrc/interp.cuh``) holds the same table; this
 one is its plain PyTorch version. Operators and losses outside the table
-raise ``NotImplementedError``.
+raise ``NotImplementedError``. Each function keeps its input's dtype
+(float32 or float64); constants are taken at that dtype's rounding.
 """
 
 from __future__ import annotations
@@ -30,15 +31,25 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
-from ..core.losses import LOSS_REGISTRY, l1_dist_loss, l2_dist_loss
+from ..core.losses import (LOSS_HUBER, LOSS_L1, LOSS_L2, LOSS_LOGCOSH, LOSS_LOGIT_DIST,
+                           LOSS_PERIODIC_L2, LOSS_SIGMOID_CE, _logaddexp, kernel_loss)
 from .operators import _sign, py_mod
 
 __all__ = ["vjp_binary", "vjp_unary", "loss_vjp", "BINARY_VJP", "UNARY_VJP"]
 
-_LN2 = float(np.float32(math.log(2.0)))
-_INV_LN10 = float(np.float32(0.4342944819032518))
-_THIRD = float(np.float32(1.0 / 3.0))
-_TWO_OVER_SQRT_PI = float(np.float32(2.0 / math.sqrt(math.pi)))
+
+
+def _at(x, value: float) -> float:
+    """``value`` at the rounding of x's dtype: float32-rounded for float32
+    (as the JAX package's float32 derivatives take their constants), exact
+    for float64."""
+    return value if x.dtype == torch.float64 else float(np.float32(value))
+
+
+_LN2 = math.log(2.0)
+_INV_LN10 = 0.4342944819032518
+_THIRD = 1.0 / 3.0
+_TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
 
 
 def _zero(x):
@@ -210,13 +221,14 @@ UNARY_VJP: Dict[str, Callable] = {
     "exp": lambda x, ct: ct * torch.exp(x),
     "abs": lambda x, ct: torch.where(x >= 0, ct, -ct),
     "log": lambda x, ct: torch.where(x > 0, ct / torch.where(x > 0, x, 1.0), 0.0),
-    "log2": lambda x, ct: torch.where(x > 0, (ct / _LN2) / torch.where(x > 0, x, 1.0), 0.0),
-    "log10": lambda x, ct: torch.where(x > 0, (ct * _INV_LN10) / torch.where(x > 0, x, 1.0),
-                                       0.0),
+    "log2": lambda x, ct: torch.where(
+        x > 0, (ct / _at(x, _LN2)) / torch.where(x > 0, x, 1.0), 0.0),
+    "log10": lambda x, ct: torch.where(
+        x > 0, (ct * _at(x, _INV_LN10)) / torch.where(x > 0, x, 1.0), 0.0),
     "log1p": lambda x, ct: torch.where(x > -1, ct / (torch.where(x > -1, x, 0.0) + 1.0), 0.0),
     "sqrt": lambda x, ct: torch.where(
         x >= 0, ct * (0.5 / torch.sqrt(torch.where(x >= 0, x, 0.0))), 0.0),
-    "cbrt": lambda x, ct: ct * (_THIRD * _recip2(
+    "cbrt": lambda x, ct: ct * (_at(x, _THIRD) * _recip2(
         (torch.sign(x.double()) * torch.abs(x.double()).pow(1.0 / 3.0)).to(x.dtype))),
     "sin": lambda x, ct: ct * torch.cos(x),
     "cos": lambda x, ct: (-ct) * torch.sin(x),
@@ -232,8 +244,8 @@ UNARY_VJP: Dict[str, Callable] = {
         x >= 1, ct * _rsqrt(_sq(torch.where(x >= 1, x, 1.0)) - 1.0), 0.0),
     "atanh": _d_atanh,
     "atanh_clip": _d_atanh_clip,
-    "erf": lambda x, ct: _TWO_OVER_SQRT_PI * (ct * torch.exp(-(x * x))),
-    "erfc": lambda x, ct: -_TWO_OVER_SQRT_PI * (ct * torch.exp(-(x * x))),
+    "erf": lambda x, ct: _at(x, _TWO_OVER_SQRT_PI) * (ct * torch.exp(-(x * x))),
+    "erfc": lambda x, ct: -_at(x, _TWO_OVER_SQRT_PI) * (ct * torch.exp(-(x * x))),
     "gamma": _d_gamma,
     "square": lambda x, ct: ct * x + x * ct,
     "cube": _d_cube,
@@ -271,33 +283,79 @@ def vjp_unary(op) -> Callable[..., torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
-def _l2_vjp(p, y, ct):
+def _replace_inf(x):
+    """JAX's ``_replace_inf`` (logaddexp's JVP): +inf becomes 0."""
+    return torch.where(x == torch.inf, 0.0, x)
+
+
+def _logaddexp_jac(a, b):
+    """The factors of logaddexp's custom JVP, exp(ri(a) - ri(out)) and
+    exp(ri(b) - ri(out))."""
+    out = _replace_inf(_logaddexp(a, b))
+    return torch.exp(_replace_inf(a) - out), torch.exp(_replace_inf(b) - out)
+
+
+def _l2_vjp(p, y, ct, param):
     d = p - y
     return ct * d + d * ct
 
 
-def _l1_vjp(p, y, ct):
+def _l1_vjp(p, y, ct, param):
     return torch.where(p - y >= 0, ct, -ct)
 
 
-def _huber_vjp(p, y, ct):
+def _huber_vjp(p, y, ct, delta):
     d = p - y
     a = torch.abs(d)
-    near = a <= 1.0
+    near = a <= delta
     ct1 = torch.where(near, ct, 0.0)
     ct2 = torch.where(near, 0.0, ct)
-    ct_a = (0.5 * a) * ct1 + 0.5 * (ct1 * a) + ct2
+    ct_a = (0.5 * a) * ct1 + 0.5 * (ct1 * a) + ct2 * delta
     return torch.where(d >= 0, ct_a, -ct_a)
 
 
+def _log_cosh_vjp(p, y, ct, param):
+    ea, eb = _logaddexp_jac(p - y, y - p)
+    return ct * ea + -(ct * eb)
+
+
+def _logit_dist_vjp(p, y, ct, param):
+    d = p - y
+    ea, eb = _logaddexp_jac(d / 2, -d / 2)
+    c2 = ct * 2.0
+    return (c2 * ea) / 2 + -((c2 * eb) / 2)
+
+
+def _sigmoid_ce_vjp(p, y, ct, param):
+    # The log1p term's cotangent, then the product's, then the maximum's
+    # (the order JAX's transpose accumulates them in).
+    e = torch.exp(-torch.abs(p))
+    c3 = -((ct / (e + 1.0)) * e)
+    c_log = torch.where(p >= 0, c3, -c3)
+    zero = torch.zeros_like(p)
+    c_max = ct * _balanced(p, torch.maximum(p, zero), zero)
+    return (c_log + (-ct) * y) + c_max
+
+
+def _periodic_l2_vjp(p, y, ct, c):
+    e = py_mod(p - y + c / 2, torch.full_like(p, c)) - c / 2
+    return ct * e + e * ct
+
+
+_LOSS_VJP = {LOSS_L2: _l2_vjp, LOSS_L1: _l1_vjp, LOSS_HUBER: _huber_vjp,
+             LOSS_LOGCOSH: _log_cosh_vjp, LOSS_LOGIT_DIST: _logit_dist_vjp,
+             LOSS_SIGMOID_CE: _sigmoid_ce_vjp, LOSS_PERIODIC_L2: _periodic_l2_vjp}
+
+
 def loss_vjp(loss_fn: Callable) -> Callable:
-    """d elementwise_loss / d pred for the losses the kernels implement."""
-    if loss_fn is l2_dist_loss:
-        return _l2_vjp
-    if loss_fn is l1_dist_loss:
-        return _l1_vjp
-    if loss_fn is LOSS_REGISTRY["HuberLoss"] or loss_fn is LOSS_REGISTRY["huber"]:
-        return _huber_vjp
-    raise NotImplementedError(
-        "the constant optimizer's gradient implements the L2, L1 and Huber "
-        "elementwise losses only")
+    """d elementwise_loss / d pred, ``(pred, target, ct) -> d pred``, for
+    the library losses (core/losses.py ``KernelLoss``): the transpose of the
+    JVP JAX takes of each loss's formula, as csrc/interp.cuh
+    ``loss_vjp_of_kind`` computes it."""
+    kl = kernel_loss(loss_fn)
+    if kl is None:
+        raise NotImplementedError(
+            "the constant optimizer's kernel gradient covers the library elementwise "
+            "losses only (core/losses.py LOSS_REGISTRY and its factories)")
+    fn = _LOSS_VJP[kl.kind]
+    return lambda p, y, ct: fn(p, y, ct, kl.param)

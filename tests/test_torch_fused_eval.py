@@ -335,9 +335,9 @@ def test_multi_refusals():
     _, sops, _, st = _batch("merged", 0, T=8)
     X, y, _ = _data(16, False)
     sp = compile_program(st, 3, len(sops.binary))
-    with pytest.raises(NotImplementedError, match="L2, L1 and Huber"):
+    with pytest.raises(NotImplementedError, match="library elementwise losses"):
         SF.fused_grad_multi(sp, sp.cvals[:, None], _t(X), _t(y), None, 3, sops,
-                            SL.LOSS_REGISTRY["logcosh"])
+                            lambda p, t: (p - t) ** 4)
     custom = S.OperatorSet(["+", "*"], [S.Op("twice", 1, lambda x: 2 * x)])
     with pytest.raises(NotImplementedError, match="built-in operators only"):
         SF.program_grad_plain(torch.zeros((1, 2), dtype=torch.int32),

@@ -146,12 +146,18 @@ def test_initial_population_reaches_the_truth():
 
 
 def test_export_and_units_refuse():
+    """latex() and sympy() export the best equation (utils/export.py; held
+    against the JAX package's in tests/test_torch_export.py); units are
+    still refused."""
     X, y = _problem(32)
     model = S.SRRegressor(niterations=1, seed=0, **SMALL).fit(X, y)
-    with pytest.raises(NotImplementedError, match="search-API"):
-        model.latex()
-    with pytest.raises(NotImplementedError, match="search-API"):
-        model.sympy()
+    assert isinstance(model.latex(), str) and model.latex()
+    try:
+        import sympy  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        assert str(model.sympy())
     with pytest.raises(NotImplementedError, match="expression-plugin"):
         model.predict(X, with_units=True)
     with pytest.raises(NotImplementedError, match="expression-plugin"):

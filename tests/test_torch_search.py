@@ -92,12 +92,9 @@ def test_kernel_wrapper_not_launched_on_cpu():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(loss_function_expression="(prediction - target)^2"),
-    dict(eval_dtype="float64"),
     dict(eval_dtype="bfloat16"),
     dict(expression_spec=type("UnitsSpec", (S.ExpressionSpec,), {})()),
     dict(dimensional_constraint_penalty=1000.0),
-    dict(loss_function=lambda pred, y, w: 0.0),
     dict(expression_spec=template_spec(expressions=("f",))(lambda f, x1, x2: D(f, 1)(x1) + x2),
          should_optimize_constants=True),
 ])
@@ -110,6 +107,28 @@ def test_options_outside_the_slice_refuse(kw):
         Engine(opts, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="PyTorch port"):
         S.equation_search(*_problem(n=16), options=opts, niterations=1, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(loss_function_expression=lambda pred, y, w, valid: torch.mean((pred - y) ** 2)),
+    dict(eval_dtype="float64"),
+    dict(loss_function=lambda pred, y, w, valid: torch.mean(torch.abs(pred - y))),
+], ids=["loss_function_expression", "float64", "loss_function"])
+def test_options_once_refused_now_run(kw):
+    """Custom whole-prediction losses and float64 data, refused by earlier
+    slices, build an engine and run a search: finite losses; float64 keeps
+    the state in float64."""
+    base = dict(binary_operators=["+", "*"], save_to_file=False, should_optimize_constants=False,
+                populations=2, population_size=16, ncycles_per_iteration=2,
+                tournament_selection_n=8)
+    base.update(kw)
+    opts = S.Options(**base)
+    Engine(opts, 2, device="cpu")
+    state, hof = S.equation_search(*_problem(n=16), options=opts, niterations=1, device="cpu",
+                                   seed=0, return_state=True)
+    assert any(np.isfinite(e.loss) for e in hof.entries)
+    want = torch.float64 if kw.get("eval_dtype") == "float64" else torch.float32
+    assert state.device_states[0].pops.cost.dtype == want
 
 
 def test_default_options_refuse_without_constant_optimizer_off():
@@ -152,7 +171,7 @@ def test_default_options_search_runs_the_constant_optimizer(monkeypatch):
                                 dict(X_units=["m", "s"]),
                                 dict(runtime_options=S.RuntimeOptions(trace=object())),
                                 dict(runtime_options=S.RuntimeOptions(mesh_runtime=True)),
-                                dict(dtype=np.float64),
+                                dict(dtype="bfloat16"),
                                 dict(runtime_options=S.RuntimeOptions(engine_cache=object())),
                                 dict(extra={"weights2": [1.0]})])
 def test_search_arguments_outside_the_slice_refuse(kw):
@@ -162,15 +181,19 @@ def test_search_arguments_outside_the_slice_refuse(kw):
 
 
 def test_regressor_export_refuses():
-    """latex() and sympy() of a fitted SRRegressor name the export slice."""
+    """latex() and sympy() of a fitted SRRegressor, refused until the
+    export slice came, now export the best equation (utils/export.py,
+    held against the JAX package's in tests/test_torch_export.py)."""
     X, y = _problem(n=16)
     model = S.SRRegressor(niterations=1, seed=0, device="cpu", binary_operators=["+", "*"],
                           populations=2, population_size=8, ncycles_per_iteration=2,
                           tournament_selection_n=4, should_optimize_constants=False,
                           save_to_file=False).fit(X, y)
-    for export in (model.latex, model.sympy):
-        with pytest.raises(NotImplementedError, match="PyTorch port"):
-            export()
+    from symbolicregression_jl_tpu_torch.utils.export import to_latex
+
+    assert model.latex() == to_latex(model.get_best().tree, model.variable_names_)
+    pytest.importorskip("sympy")
+    assert str(model.sympy())
 
 
 def test_progress_false_runs_and_progress_true_refuses():

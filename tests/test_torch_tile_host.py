@@ -1,7 +1,7 @@
-"""The port's CUDA kernels #2, #3, #4 and #5 compiled for the host CPU.
+"""The port's CUDA kernels #1-#5 compiled for the host CPU.
 
 The CUDA sources under ``symbolicregression_jl_tpu_torch/csrc/`` build
-only with nvcc for the card. This file builds four of them with g++
+only with nvcc for the card. This file builds all five with g++
 through a small shim instead: each CUDA thread of a block runs as a
 ``std::thread``, ``__syncthreads`` and ``__syncthreads_and`` are a
 barrier of the block's threads, a launch runs its blocks one after
@@ -28,6 +28,9 @@ arithmetic or summation order does. The tests hold:
   the absolute per-row terms, and its gx by #4's rule (chip_smoke.py
   phase 8's tolerances);
 - two launches of each bit-identical;
+- #1 (cost form), #2 and #3 with every library loss kind, in float32 and
+  in their float64 forms, against their plain versions (#3's loss
+  bit-equal to #2's);
 
 on ragged row counts, a minibatch's 50 rows and a single row (fewer rows
 than lanes), lane counts W of 32, 64 and 256, V of 1, 3 and 24,
@@ -68,7 +71,7 @@ cap_torch_threads()
 
 CSRC = Path(SF.__file__).resolve().parent.parent / "csrc"
 SOURCES = ("program_multi.cu", "program_grad.cu", "program_predict.cu",
-           "program_predict_vjp.cu")
+           "program_predict_vjp.cu", "program_eval.cu")
 
 SHIM = r"""
 #pragma once
@@ -118,6 +121,12 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
+inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
+inline double __longlong_as_double(long long i) { double d; memcpy(&d, &i, 8); return d; }
 inline int atomicMax(int* p, int v) {
   int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
   while (old < v && !__atomic_compare_exchange_n(p, &old, v, false, __ATOMIC_SEQ_CST,
@@ -237,7 +246,11 @@ def load_host_libraries(csrc: Path, out_dir: Path):
     for kernel, name in ((SF.ProgramMultiKernel(), "program_multi.cu"),
                          (SF.ProgramGradKernel(), "program_grad.cu"),
                          (SF.ProgramPredictKernel(), "program_predict.cu"),
-                         (SF.ProgramPredictVjpKernel(), "program_predict_vjp.cu")):
+                         (SF.ProgramPredictVjpKernel(), "program_predict_vjp.cu"),
+                         (SF.ProgramEvalKernel(), "program_eval.cu"),
+                         (SF.ProgramEvalF64Kernel(), "program_eval.cu"),
+                         (SF.ProgramMultiF64Kernel(), "program_multi.cu"),
+                         (SF.ProgramGradF64Kernel(), "program_grad.cu")):
         kernel._bind(libs[name])
         getattr(libs[name], kernel._entry).restype = ctypes.c_int
     return libs
@@ -249,12 +262,13 @@ def _p(t):
 
 def run_multi(lib, ops, loss_fn, instr, nsteps, cv, X, y, w, W):
     T, V = cv.shape[:2]
-    loss = torch.full((T, V), -7.0)
+    loss = torch.full((T, V), -7.0, dtype=cv.dtype)
     valid = torch.full((T, V), -7, dtype=torch.int32)
     optab = torch.tensor(SF._optab_list(ops), dtype=torch.int32)
-    rc = lib.sr_program_multi(_p(instr), _p(nsteps), _p(cv), _p(X), _p(y), _p(w), _p(optab),
+    entry = lib.sr_program_multi_f64 if cv.dtype == torch.float64 else lib.sr_program_multi
+    rc = entry(_p(instr), _p(nsteps), _p(cv), _p(X), _p(y), _p(w), _p(optab),
                               T, V, instr.shape[1], cv.shape[2], X.shape[0], X.shape[1], W,
-                              SF._KERNEL_LOSS[loss_fn], _code_mask(ops), 30, _p(loss),
+                              loss_fn.kind, loss_fn.param, _code_mask(ops), 30, _p(loss),
                               _p(valid), None)
     assert rc == 0
     return loss, valid
@@ -262,13 +276,14 @@ def run_multi(lib, ops, loss_fn, instr, nsteps, cv, X, y, w, W):
 
 def run_grad(lib, ops, loss_fn, instr, nsteps, nconst, cv, X, y, w, W):
     T, V, CMAX = cv.shape
-    loss = torch.full((T, V), -7.0)
+    loss = torch.full((T, V), -7.0, dtype=cv.dtype)
     valid = torch.full((T, V), -7, dtype=torch.int32)
-    gcomp = torch.full((T, V, CMAX), -7.0)
+    gcomp = torch.full((T, V, CMAX), -7.0, dtype=cv.dtype)
     optab = torch.tensor(SF._optab_list(ops), dtype=torch.int32)
-    rc = lib.sr_program_grad(_p(instr), _p(nsteps), _p(nconst), _p(cv), _p(X), _p(y), _p(w),
+    entry = lib.sr_program_grad_f64 if cv.dtype == torch.float64 else lib.sr_program_grad
+    rc = entry(_p(instr), _p(nsteps), _p(nconst), _p(cv), _p(X), _p(y), _p(w),
                              _p(optab), T, V, instr.shape[1], CMAX, X.shape[0], X.shape[1], W,
-                             SF._KERNEL_LOSS[loss_fn], _code_mask(ops), 30, _p(loss),
+                             loss_fn.kind, loss_fn.param, _code_mask(ops), 30, _p(loss),
                              _p(valid), _p(gcomp), None)
     assert rc == 0
     return loss, valid, gcomp
@@ -302,15 +317,33 @@ def run_predict_vjp(lib, ops, instr, nsteps, nconst, cvals, X, ct, W):
     return gcomp, gx
 
 
+def run_eval_cost(lib, ops, loss_fn, instr, nsteps, cvals, const_ok, X, y, w, cx, scal, W):
+    """Kernel #1's cost form (float32, or float64 for float64 inputs)."""
+    T = instr.shape[0]
+    loss = torch.full((T,), -7.0, dtype=X.dtype)
+    cost = torch.full((T,), -7.0, dtype=X.dtype)
+    valid = torch.full((T,), -7, dtype=torch.int32)
+    optab = torch.tensor(SF._optab_list(ops), dtype=torch.int32)
+    entry = lib.sr_program_eval_f64 if X.dtype == torch.float64 else lib.sr_program_eval
+    rc = entry(_p(instr), _p(nsteps), _p(cvals), _p(const_ok), _p(X), _p(y), _p(w), _p(cx),
+               _p(scal), _p(optab), T, instr.shape[1], cvals.shape[1], X.shape[0], X.shape[1], W,
+               loss_fn.kind, loss_fn.param, _code_mask(ops), 30, _p(loss), _p(valid), _p(cost),
+               None)
+    assert rc == 0
+    return loss, valid, cost
+
+
 def _code_mask(ops) -> int:
     return 0x3F if SF._dispatch_plan(ops).merged else 0x7F
 
 
 def _bits(t):
     """Integer view of a tensor, every float NaN as one quiet NaN."""
-    if t.dtype != torch.float32:
+    if t.dtype not in (torch.float32, torch.float64):
         return t
-    return torch.where(torch.isnan(t), torch.tensor(float("nan")), t).view(torch.int32)
+    nan = torch.tensor(float("nan"), dtype=t.dtype)
+    return torch.where(torch.isnan(t), nan, t).view(
+        torch.int64 if t.dtype == torch.float64 else torch.int32)
 
 
 def _same(a, b) -> bool:
@@ -443,6 +476,62 @@ def test_grad_kernel_on_host(host_libs, case, loss_fn):
     assert bool(((gg - pg).abs()[both] <= 1e-4 * pabs[both]).all())
     used = torch.arange(cv.shape[2])[None, None, :] < nconst[:, None, None]
     assert bool((gg[~used.expand_as(gg)] == 0).all())
+
+
+# Every library loss besides L2 and Huber(1) (the kinds of csrc/interp.cuh
+# that run in LOSS_ANY's run-time switch), and each with float64 inputs.
+KIND_LOSSES = {"l1": SL.l1_dist_loss, "huber(0.5)": SL.huber_loss(0.5),
+               "huber(2)": SL.huber_loss(2.0), "logcosh": SL.LOSS_REGISTRY["logcosh"],
+               "logit": SL.LOSS_REGISTRY["LogitDistLoss"],
+               "sigmoid_ce": SL.sigmoid_cross_entropy_loss,
+               "periodic(2pi)": SL.periodic_l2_loss(), "periodic(1)": SL.periodic_l2_loss(1.0)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("loss_name", sorted(KIND_LOSSES) + ["l2"])
+def test_loss_kinds_and_float64_on_host(host_libs, loss_name, dtype):
+    """Kernels #1 (cost form), #2 and #3 with every loss kind, in float32
+    and in their float64 forms, on GRAD_CASES' ragged W = 256 case: #3's
+    loss bit-equal to #2's, validity equal to the plain versions', losses
+    on trees of exact operators within rtol 1e-5 (float32) or 1e-9
+    (float64) with inf in the same places, gradients non-finite in the same
+    places and otherwise within 1e-4 (1e-9) of the absolute row sums, #1's
+    cost form against its plain version the same way."""
+    loss_fn = KIND_LOSSES.get(loss_name, SL.l2_dist_loss)
+    rtol = 1e-9 if dtype == "float64" else 1e-5
+    gtol = 1e-9 if dtype == "float64" else 1e-4
+    ops, _, args, W = grad_case("ragged_W256_V3", loss_fn)
+    instr, nsteps, nconst, cv, X, y, w = args
+    if dtype == "float64":
+        cv, X, y, w = (t.double().contiguous() for t in (cv, X, y, w))
+        args = (instr, nsteps, nconst, cv, X, y, w)
+    gl, gv, gg = run_grad(host_libs["program_grad.cu"], ops, loss_fn, *args, W)
+    ml, mv = run_multi(host_libs["program_multi.cu"], ops, loss_fn, instr, nsteps, cv, X, y, w,
+                       W)
+    assert gl.dtype == cv.dtype
+    assert _same(gl, ml) and _same(gv, mv), "#3's loss differs from #2's"
+    pl, pv, pg, pabs = SF.program_grad_plain(*args, ops, loss_fn, return_abs=True)
+    assert torch.equal(gv.bool(), pv) and 0 < int(pv.sum()) < pv.numel()
+    exact = pv & ~_inexact(instr, nsteps, ops)[:, None]
+    np.testing.assert_allclose(gl[exact].numpy(), pl[exact].numpy(), rtol=rtol, atol=0)
+    live = pv[..., None].expand_as(pg)
+    fin_k, fin_p = torch.isfinite(gg), torch.isfinite(pg)
+    assert torch.equal(fin_k[live], fin_p[live])
+    both = exact[..., None].expand_as(pg) & fin_k & fin_p
+    assert bool(((gg - pg).abs()[both] <= gtol * pabs[both]).all())
+
+    cvals = cv[:, 0].contiguous()
+    ok = torch.ones(instr.shape[0], dtype=torch.int32)
+    cx = torch.arange(instr.shape[0], dtype=X.dtype) % 7 + 1
+    scal = torch.tensor([float(w.sum()), 1.3, 0.01], dtype=X.dtype)
+    lk, vk, ck = run_eval_cost(host_libs["program_eval.cu"], ops, loss_fn, instr, nsteps, cvals,
+                               ok, X, y, w, cx, scal, W)
+    lp, vp, cp = SF.program_eval_plain(instr, nsteps, cvals, ok, X, y, w, ops, loss_fn, cx=cx,
+                                       scal=scal)
+    assert torch.equal(vk.bool(), vp)
+    ex1 = vp & ~_inexact(instr, nsteps, ops)
+    assert torch.equal(torch.isinf(lk), torch.isinf(lp))
+    np.testing.assert_allclose(ck[ex1].numpy(), cp[ex1].numpy(), rtol=rtol, atol=0)
 
 
 PREDICT_CASES = {
