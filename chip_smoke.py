@@ -35,7 +35,8 @@ Phases (any failure exits nonzero and prints no result line):
    (bench/kernel_turns.py compares two checkouts' digests).
 5. Main path: `Engine` at the headline configuration, 512 islands x 256
    members x 10,000 rows x 5 features, tournament 16, maxsize 30, the
-   constant optimizer on (the default): init_state, one warm-up
+   constant optimizer on (the default), --ncycles cycles (30; phase 28
+   runs the cell's 100): init_state, one warm-up
    iteration, two timed iterations. Prints evals/s (the optimizer's
    f_calls included), seconds per iteration, launches per kernel (per
    iteration: ncycles + 1 of #1, 8 of #2, 9 of #3), peak memory.
@@ -64,7 +65,8 @@ Phases (any failure exits nonzero and prints no result line):
    cell (bench/cell.py FULL, variant "template": 512 islands x 256
    members, tournament 16, maxsize 30, + - * cos, 10,000 rows x 2
    features from seed 1234, structure f(x1) * f(x1) + g(x2),
-   optimizer_probability 0, 100 cycles): init_state, one warm-up
+   optimizer_probability 0; cut from 100 to TEMPLATE_CYCLES = 30 cycles):
+   init_state, one warm-up
    iteration, two timed iterations. Launches of #4 must be 3 x (ncycles +
    1) per iteration,
    none of #1-#3 or #5; the best hall-of-fame member's loss is recomputed
@@ -93,7 +95,8 @@ Phases (any failure exits nonzero and prints no result line):
    parametric cell (bench/cell.py FULL, variant "parametric": 512 islands
    x 256 members, tournament 16, maxsize 30, + - * cos, 10,000 rows x 2
    features from seed 1234, class = integers(0, 3), y = amp[class] cos(x1)
-   + x2, max_parameters 1, optimizer_probability 0, 100 cycles): launches
+   + x2, max_parameters 1, optimizer_probability 0, TEMPLATE_CYCLES = 30
+   cycles): launches
    of #1p must be ncycles + 1 per iteration, none of the other kernels;
    prints the best member with its (1, 3) bank.
 14. The parametric constant optimizer (eager BFGS over constants and
@@ -123,7 +126,7 @@ Phases (any failure exits nonzero and prints no result line):
    x 256, tournament 16, maxsize 30, + - * cos, 10,000 rows x 2 features
    from seed 1234, y = cos(2.13 x1) + 0.5 x2, optimizer_probability 0,
    sample fraction 0.125, rescore fraction 0.25) at --ncycles-stage cycles
-   (30): launches per iteration exactly ncycles + 1 of #1 / 1b, or 2 x
+   (10): launches per iteration exactly ncycles + 1 of #1 / 1b, or 2 x
    ncycles + 1 staged (a screen and a rescore per cycle, the finalize
    without dedup under bf16); after the staged runs every population cost
    equals an unstaged re-eval at the same precision within rtol 1e-5.
@@ -190,8 +193,8 @@ Phases (any failure exits nonzero and prints no result line):
    bench/gate.py: band excursions soft (another library than the
    baseline's), the backstops (best_loss 10x, pareto_volume 0.1x) hard.
    Prints each cell's best_loss and pareto_volume beside the baseline's.
-25. A stop between chunks: phase 5's configuration at 100 cycles; a
-   single-chunk iteration (timed) and a chunked one ([25] x 4, no stop)
+25. A stop between chunks: phase 5's configuration at STOP_CYCLES = 40
+   cycles; a single-chunk iteration (timed) and a chunked one ([10] x 4, no stop)
    from one state bit-identical; equation_search with timeout_in_seconds
    at a quarter of that iteration stops within its first iteration, after
    the epilogue (the counters give the cycles run). Prints the overshoot.
@@ -219,8 +222,38 @@ Phases (any failure exits nonzero and prints no result line):
 28. ``python -m symbolicregression_jl_tpu_torch.bench.headline`` in its own
    process: its JSON line (the headline metric) printed.
 
+29. A user elementwise callable (ops/fused_eval.py's user-loss route:
+   kernel #4's predictions in chunks, the callable in PyTorch, kernel #5
+   in the backward of its gradient) at the optimizer cell's shapes, phase
+   4's 18,432 trees over 10,000 rows: for (p - t) ** 2 and abs(p - t) the
+   cost form, the line search (V = 24) and the gradient (V = 3) against
+   the L2 / L1 forms of kernels #1, #2 and #3 on the same trees (validity
+   bit-equal, costs and losses within rtol 1e-5) and, on the first
+   USER_SUBSET trees, against the route's plain version (#4 and #5's plain
+   versions), gradients within 1e-4 of #3's absolute row sums; times of
+   the route beside the library kernels', its launches of #4 and #5, and
+   one launch of #4 and #5 over all the trees. Then the optimizer cell at
+   USER_CYCLES = 10 cycles with elementwise_loss = lambda p, t: abs(p - t):
+   launches of #4 and #5 only, s/iteration, the best member's loss
+   recomputed on the host in float64 within rtol 1e-4.
+30. graftshield at the optimizer cell (ROBUST_CYCLES = 10 cycles,
+   ROBUST_ITERS = 3 iterations, telemetry on): shield off, on, on, off in
+   turns, every state tensor bit-identical, s/iteration of each; two
+   injected "CUDA out of memory" failures of the second attempt retried,
+   the state bit-identical to the clean run; a real
+   torch.cuda.OutOfMemoryError (an oversized torch.empty) classified as
+   an out-of-memory, and an attempt that held 60% of the free memory and
+   then asked for as much again retried successfully after the runner
+   freed it; island 3 NaN-poisoned at iteration 1, quarantined, finite
+   after; in a child process a SIGTERM at iteration 2 ending "preempted"
+   with an emergency checkpoint, then resume="auto" bit-identical to the
+   uninterrupted run; in another child a spin kernel
+   (``torch.cuda._sleep``) in the second iteration attempt under
+   iteration_deadline = ROBUST_DEADLINE: exit code 124, the dump naming
+   the phase and iteration, the main thread's last frames printed.
+
 Every file a phase writes goes to a temporary directory, removed at the
-end. The line before the last is the kernel table as JSON; the last line is
+end. Each phase prints its seconds when the next one starts. The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -240,7 +273,8 @@ import numpy as np
 N_ROWS = 10_000
 N_FEATURES = 5
 ISLANDS = 512               # the headline and template cells' width
-TEMPLATE_CYCLES = 100       # the template cell's ncycles_per_iteration (bench/cell.py FULL)
+TEMPLATE_CYCLES = 30        # the template and parametric cells' cut depth (bench/cell.py FULL
+                            # has 100; phases 9 and 13)
 TEMPLATE_OPT_CYCLES = 10    # the template optimizer phase's cut depth (phase 10)
 RTOL = 1e-5
 H100_FP32_FLOPS = 67e12     # non-tensor-core FP32 peak, H100 SXM data sheet
@@ -2389,19 +2423,23 @@ def phase_quality(torch, sr, dev, out_base):
     return findings
 
 
+STOP_CYCLES = 40            # phase 25's cut depth (four chunks of 10)
+
+
 def phase_stop_between_chunks(torch, sr, dev, out_base):
-    """Phase 25: the optimizer cell at 100 cycles. A single-chunk iteration
-    (timed: the measured iteration) and a chunked one ([25] x 4, no stop)
-    from the same state, bit-identical; then equation_search with
-    timeout_in_seconds at a quarter of the measured iteration: it stops
-    within the first iteration (after its epilogue), and the counters say
-    how many of the 100 cycles ran. Prints the overshoot."""
+    """Phase 25: the optimizer cell at STOP_CYCLES cycles. A single-chunk
+    iteration (timed: the measured iteration) and a chunked one (four
+    equal chunks, no stop) from the same state, bit-identical; then
+    equation_search with timeout_in_seconds at a quarter of the measured
+    iteration: it stops within the first iteration (after its epilogue),
+    and the counters say how many of the cycles ran. Prints the
+    overshoot."""
     from symbolicregression_jl_tpu_torch.evolve import rng
     from symbolicregression_jl_tpu_torch.evolve.engine import Engine
     from symbolicregression_jl_tpu_torch.telemetry.schema import load_events
 
     check = Checks()
-    ncycles = 100
+    ncycles = STOP_CYCLES
     X, y = bench_data()
     options = bench_options(sr, ncycles)
     ds = sr.make_dataset(X, y, device=dev)
@@ -2420,15 +2458,16 @@ def phase_stop_between_chunks(torch, sr, dev, out_base):
         return False
 
     t0 = time.perf_counter()
-    chunked = engine.run_iteration(s0, ds.data, options.maxsize, chunk_sizes=[25] * 4,
-                                   should_stop=poll)
+    chunked = engine.run_iteration(s0, ds.data, options.maxsize,
+                                   chunk_sizes=[ncycles // 4] * 4, should_stop=poll)
     torch.cuda.synchronize()
     t_chunked = time.perf_counter() - t0
     ta, tb = state_tensors(torch, one), state_tensors(torch, chunked)
-    check(f"chunked ([25] x 4, {len(polls)} polls) and single-chunk 100-cycle iterations "
+    check(f"chunked ([{ncycles // 4}] x 4, {len(polls)} polls) and single-chunk "
+          f"{ncycles}-cycle iterations "
           f"bit-identical", len(ta) == len(tb) and all(same(torch, a, b) for a, b in zip(ta, tb))
           and len(polls) == 3)
-    print(f"  one 100-cycle iteration {t_iter:.3f} s; chunked {t_chunked:.3f} s")
+    print(f"  one {ncycles}-cycle iteration {t_iter:.3f} s; chunked {t_chunked:.3f} s")
     del one, chunked, s0
     timeout = t_iter / 4
     path = os.path.join(out_base, "stop.jsonl")
@@ -2883,13 +2922,392 @@ def phase_headline(torch):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: user elementwise losses on kernels #4 and #5
+# ---------------------------------------------------------------------------
+
+USER_CYCLES = 10            # phase 29's search depth (one optimizer run per iteration whatever it)
+USER_SUBSET = 256           # phase 4's first trees (with their variants) held against the
+                            # plain route
+
+
+def user_losses():
+    """(name, user callable, the library loss it computes) of phase 29."""
+    from symbolicregression_jl_tpu_torch.core import losses as L
+
+    return [("(p - t) ** 2", lambda p, t: (p - t) ** 2, L.l2_dist_loss),
+            ("abs(p - t)", lambda p, t: abs(p - t), L.l1_dist_loss)]
+
+
+def route_launches(torch, fn):
+    """(result of ``fn()``, launches of #4, launches of #5 in it)."""
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+    p0, v0 = FE.PROGRAM_PREDICT.launches, FE.PROGRAM_PREDICT_VJP.launches
+    out = fn()
+    torch.cuda.synchronize()
+    return out, FE.PROGRAM_PREDICT.launches - p0, FE.PROGRAM_PREDICT_VJP.launches - v0
+
+
+def first_trees(prog, k: int):
+    """The first ``k`` trees of a compiled program."""
+    import dataclasses
+
+    return dataclasses.replace(prog, **{f.name: getattr(prog, f.name)[:k].contiguous()
+                                        for f in dataclasses.fields(prog)})
+
+
+def grad_within(torch, a, b, scale, rtol=1e-4):
+    """Gradients ``a`` and ``b`` agree within rtol of the absolute row sums
+    ``scale`` (equal where the scale is not finite). Returns (ok, worst
+    error over the scale)."""
+    err = (a - b).abs()
+    ok = (err <= rtol * scale) | (err == 0)
+    ratio = float((err / scale.clamp(min=1e-30)).nan_to_num(0.0, 0.0, 0.0).max()) \
+        if err.numel() else 0.0
+    return bool(ok.all()), ratio
+
+
+def phase_user_loss(torch, sr, dev):
+    """Phase 29: a user elementwise callable on kernel #4's predictions
+    and, for its gradient, kernel #5 (ops/fused_eval.py's user-loss route)
+    at the optimizer cell's shapes: phase 4's 18,432 trees over 10,000
+    rows, the cost form, the line search's V = 24 variants and the
+    gradient's V = 3. For (p - t) ** 2 and abs(p - t): the route's
+    validity bit-equal to the library L2 / L1 forms of kernels #1 (cost
+    form), #2 and #3 on the same trees, costs and losses within rtol 1e-5;
+    on the first USER_SUBSET trees the route against its plain version
+    (#4 and #5's plain versions) and the gradients of both against #3's
+    within 1e-4 of the absolute row sums. Then the optimizer cell at
+    USER_CYCLES cycles with the abs(p - t) callable: launches of #4 and #5
+    only, the best member's loss recomputed on the host in float64.
+    Prints the route's times and launches beside the library kernels'.
+    Returns the search's launches."""
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+    from symbolicregression_jl_tpu_torch.ops.complexity import (build_complexity_tables,
+                                                                compute_complexity_batch)
+
+    (options, trees, prog, (instr, nsteps, cvals, const_ok, Xt, yt, w), nconst, R, V_ls, cv_ls,
+     cv_g) = opt_kernel_inputs(torch, sr, dev)
+    T = trees.length.shape[0]
+    F, ops, k = N_FEATURES, options.operators, USER_SUBSET
+    X, y = bench_data()
+    cx = compute_complexity_batch(trees, build_complexity_tables(options, F, dev))
+    sub = first_trees(prog, k)
+    check = Checks()
+    print(f"  {T} trees, {N_ROWS} rows; chunks of at most {FE.USER_LOSS_CHUNK_BYTES} bytes")
+    for name, user, lib in user_losses():
+        tag = f"user {name}"
+        ds = sr.make_dataset(X, y, device=dev)
+        ds.update_baseline_loss(lib)
+        kw = dict(baseline_loss=ds.data.baseline_loss, use_baseline=ds.data.use_baseline,
+                  parsimony=options.parsimony)
+        cost_args = (prog, Xt, yt, None, cx, F, ops)
+        (cu, lu, vu), n4c, _ = route_launches(
+            torch, lambda: FE.fused_cost_program(*cost_args, user, **kw))
+        ck, lk, vk = FE.fused_cost_program(*cost_args, lib, **kw)
+        check(f"{tag}: cost form, validity == #1 {lib.name}'s (bit)", same(torch, vu, vk))
+        s1, w1, r1, e1 = close(torch, cu, ck)
+        s2, w2, r2, _ = close(torch, lu, lk)
+        check(f"{tag}: cost and loss within rtol {RTOL} of #1's (max rel err {r1:.3g}, "
+              f"{r2:.3g})", s1 and w1 and s2 and w2)
+        pl, pv = FE.user_loss_program(sub, Xt, yt, None, F, ops, user, plain=True)
+        s3, w3, r3, _ = close(torch, lu[:k], pl)
+        check(f"{tag}: first {k} trees' losses == the plain route's (validity bit, rtol "
+              f"{RTOL}: max rel err {r3:.3g})", same(torch, vu[:k], pv) and s3 and w3)
+
+        ls_args = (prog, cv_ls, Xt, yt, None, F, ops)
+        (lm, vm), n4l, _ = route_launches(torch, lambda: FE.user_loss_multi(*ls_args, user))
+        lm2, vm2 = FE.fused_loss_multi(*ls_args, lib)
+        s4, w4, r4, _ = close(torch, lm, lm2)
+        check(f"{tag}: line search (V = {V_ls}) == #2's (validity bit, rtol {RTOL}: max rel "
+              f"err {r4:.3g})", same(torch, vm, vm2) and s4 and w4)
+
+        g_args = (prog, cv_g, Xt, yt, None, F, ops)
+        (gl, gv, gg), n4g, n5g = route_launches(torch, lambda: FE.user_grad_multi(*g_args, user))
+        kl, kv, kg = FE.fused_grad_multi(*g_args, lib)
+        s5, w5, r5, _ = close(torch, gl, kl)
+        check(f"{tag}: gradient route's loss (V = {R}) == #3's (validity bit, rtol {RTOL}: "
+              f"max rel err {r5:.3g})", same(torch, gv, kv) and s5 and w5)
+        pgl, pgv, pgg = FE.user_grad_multi(sub, cv_g[:k].contiguous(), Xt, yt, None, F, ops,
+                                           user, plain=True)
+        *_, pabs = FE.program_grad_plain(instr[:k].contiguous(), nsteps[:k].contiguous(),
+                                         nconst[:k].contiguous(), cv_g[:k].contiguous(), Xt, yt,
+                                         w, ops, lib, return_abs=True)
+        scale = pabs / float(N_ROWS)
+        ok6, q6 = grad_within(torch, gg[:k], kg[:k], scale)
+        ok7, q7 = grad_within(torch, gg[:k], pgg, scale)
+        check(f"{tag}: first {k} trees' gradients within 1e-4 of the absolute row sums of "
+              f"#3's (worst {q6:.3g}) and of the plain route's (worst {q7:.3g})",
+              ok6 and ok7 and same(torch, gv[:k], pgv))
+
+        ms_cost = cuda_ms(torch, lambda: FE.fused_cost_program(*cost_args, user, **kw), reps=3)
+        ms_cost1 = cuda_ms(torch, lambda: FE.fused_cost_program(*cost_args, lib, **kw), reps=5)
+        ms_ls = cuda_ms(torch, lambda: FE.user_loss_multi(*ls_args, user), reps=2)
+        ms_ls2 = cuda_ms(torch, lambda: FE.fused_loss_multi(*ls_args, lib), reps=3)
+        ms_g = cuda_ms(torch, lambda: FE.user_grad_multi(*g_args, user), reps=2)
+        ms_g3 = cuda_ms(torch, lambda: FE.fused_grad_multi(*g_args, lib), reps=3)
+        print(f"  {tag}: cost form {ms_cost:.3f} ms ({n4c} launches of #4) against #1's "
+              f"{ms_cost1:.4f} ms; line search {ms_ls:.2f} ms ({n4l} of #4) against #2's "
+              f"{ms_ls2:.3f} ms; gradient {ms_g:.2f} ms ({n4g} of #4, {n5g} of #5) against "
+              f"#3's {ms_g3:.3f} ms (CUDA events; {int(vu.sum())} of {T} trees, "
+              f"{int(vm.sum())} of {T * V_ls} and {int(gv.sum())} of {T * R} pairs valid)")
+    ct = torch.randn((T, N_ROWS), generator=torch.Generator(device=dev).manual_seed(3),
+                     device=dev)
+    ms4 = cuda_ms(torch, lambda: FE.PROGRAM_PREDICT(instr, nsteps, cvals, const_ok, Xt, ops),
+                  reps=5)
+    ms5 = cuda_ms(torch, lambda: FE.PROGRAM_PREDICT_VJP(instr, nsteps, nconst, cvals, Xt, ct,
+                                                        ops), reps=3)
+    print(f"  one launch over all {T} trees: #4 {ms4:.4f} ms, #5 {ms5:.4f} ms (CUDA events)")
+    check.raise_if_failed("user-loss route")
+
+    name, user, _ = user_losses()[1]
+    print(f"  search with elementwise_loss = lambda p, t: {name}:")
+    opts = bench_options(sr, USER_CYCLES, elementwise_loss=user)
+    iters = 2
+    launches, state, engine, _ = run_engine(torch, sr, dev, opts, iters)
+    if engine.cfg.fuse_cost or not engine.cfg.turbo:
+        raise RuntimeError(f"user-loss engine: turbo {engine.cfg.turbo}, fused cost "
+                           f"{engine.cfg.fuse_cost}")
+    route = {"program_predict": launches["program_predict"],
+             "program_predict_vjp": launches["program_predict_vjp"]}
+    if launches != expect(launches, **route) or 0 in route.values():
+        raise RuntimeError(f"user-loss search launched {launches}: #4 and #5 only")
+    rep, host = host_loss64(torch, state, opts.operators, X, y, user)
+    print(f"  best loss {rep:.10g}, host float64 {host:.10g}")
+    if not abs(rep - host) <= 1e-4 * abs(host):
+        raise RuntimeError(f"user-loss search: reported loss {rep} but the host computes {host}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 30: robustness at full width
+# ---------------------------------------------------------------------------
+
+ROBUST_CYCLES = 10          # phase 30's depth (the optimizer cell, cut as phase 23's)
+ROBUST_ITERS = 3
+ROBUST_DEADLINE = 10.0      # iteration_deadline (s) of the spin-kernel child, over 3x an iteration
+SPIN_CYCLES = 30 * 2 * 10**9   # the spin kernel: 30-60 s at the card's 1-2 GHz clock
+
+
+def robust_search(torch, sr, dev, out_dir, run_id, niterations=ROBUST_ITERS, resume=None,
+                  seed=0, **kw):
+    """equation_search on the optimizer cell at ROBUST_CYCLES cycles with
+    telemetry, its files under ``out_dir``. Returns (state, the run's
+    telemetry events, seconds)."""
+    X, y = bench_data()
+    options = bench_options(sr, ROBUST_CYCLES, save_to_file=True, output_directory=out_dir,
+                            telemetry=True, **kw)
+    t0 = time.perf_counter()
+    state, _ = sr.equation_search(X, y, options=options, niterations=niterations, seed=seed,
+                                  run_id=run_id, verbosity=0, device=dev, return_state=True,
+                                  resume=resume)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return state, run_events(os.path.join(out_dir, run_id)), secs
+
+
+def seconds_per_iteration(events) -> float:
+    """Host seconds per iteration after the first (the telemetry's
+    elapsed_s), so the first iteration's kernel loads are left out."""
+    its = [e for e in events if e["event"] == "iteration"]
+    return (its[-1]["elapsed_s"] - its[0]["elapsed_s"]) / (len(its) - 1)
+
+
+def run_events(path):
+    """The telemetry records of a run directory ([] when it wrote none)."""
+    path = os.path.join(path, "telemetry.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def fault_events(events, kind=None):
+    return [e for e in events if e["event"] == "fault" and kind in (None, e["kind"])]
+
+
+def child_search(out_dir: str, run_id: str, device: str = "cuda", deadline=None,
+                 spin_at: int = 0) -> None:
+    """Phase 30's search in a process of its own (``python -c``): with
+    SR_FAULT_PLAN from the environment, and with ``spin_at`` a spin kernel
+    (``torch.cuda._sleep``) launched at the start of that iteration
+    attempt, inside its watchdog phase, under ``iteration_deadline``."""
+    import torch
+
+    import symbolicregression_jl_tpu_torch as sr
+    from symbolicregression_jl_tpu_torch.shield import faults
+
+    if spin_at:
+        class SpinInjector(faults.FaultInjector):
+            def on_dispatch(self, iteration):
+                super().on_dispatch(iteration)
+                if self.dispatches == spin_at:
+                    self._record("spin_kernel", iteration, dispatch=self.dispatches,
+                                 cycles=SPIN_CYCLES)
+                    torch.cuda._sleep(SPIN_CYCLES)
+
+        faults.install(SpinInjector(faults.FaultPlan()))
+    robust_search(torch, sr, torch.device(device), out_dir, run_id, iteration_deadline=deadline)
+    print("child search finished")
+
+
+def run_child(out_dir: str, run_id: str, env_extra=None, timeout=600, **kw):
+    """Runs child_search in a new process; returns (exit code, stdout,
+    stderr, seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    args = ", ".join([repr(out_dir), repr(run_id)] + [f"{k}={v!r}" for k, v in kw.items()])
+    code = f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; " \
+           f"chip_smoke.child_search({args})"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                          timeout=timeout, env=dict(os.environ, **(env_extra or {})))
+    return proc.returncode, proc.stdout, proc.stderr, time.perf_counter() - t0
+
+
+def phase_robustness(torch, sr, dev, out_base):
+    """Phase 30: graftshield at the optimizer cell (512 x 256, 10,000 rows,
+    ROBUST_CYCLES cycles, ROBUST_ITERS iterations, telemetry on): shield
+    off, on, on, off in turns, every state bit-identical, s/iteration of
+    each; two injected CUDA out-of-memory failures of the second attempt
+    retried, the state bit-identical to the clean run; a real
+    torch.cuda.OutOfMemoryError classified as an out-of-memory and a
+    retry of an attempt that held most of the card succeeding after the
+    runner freed it; island 3 NaN-poisoned at the end of iteration 1,
+    quarantined and finite afterwards; a SIGTERM at the end of iteration 2
+    in a child process ending "preempted" with an emergency checkpoint,
+    and resume="auto" from it bit-identical to the uninterrupted run; a
+    spin kernel in a child's second iteration attempt under
+    iteration_deadline exiting with code 124 and a dump."""
+    from symbolicregression_jl_tpu_torch.shield import faults
+    from symbolicregression_jl_tpu_torch.shield.degrade import (ShieldRunner, _is_oom,
+                                                                is_transient_failure)
+    from symbolicregression_jl_tpu_torch.telemetry.schema import validate_event
+
+    check = Checks()
+    base = os.path.join(out_base, "robust")
+    nev = lambda s: s.device_states[0].num_evals
+
+    def same_state(a, b):
+        ta, tb = state_tensors(torch, a.device_states[0]), state_tensors(torch, b.device_states[0])
+        return len(ta) == len(tb) and all(x is nev(a) or same(torch, x, y)
+                                          for x, y in zip(ta, tb))
+
+    runs = {}
+    for i, shield in enumerate((False, True, True, False)):
+        state, events, secs = robust_search(torch, sr, dev, base, f"turn{i}", shield=shield)
+        runs[i] = state
+        print(f"  shield {'on ' if shield else 'off'} (turn {i + 1}): "
+              f"{seconds_per_iteration(events):.3f} s/iteration after the first, {secs:.2f} s "
+              f"in all, faults {fault_events(events)}")
+    ref = runs[1]
+    check("shield on and off: every state tensor bit-identical in all four turns",
+          all(same_state(ref, runs[i]) for i in (0, 2, 3)))
+
+    faults.install(faults.FaultInjector(faults.FaultPlan(
+        raise_on_dispatch=2, raise_count=2,
+        raise_message="CUDA out of memory. Tried to allocate 2.00 GiB (injected)")))
+    try:
+        state, events, secs = robust_search(torch, sr, dev, base, "retry", retry_backoff=0.05)
+    finally:
+        faults.clear()
+    retries = fault_events(events, "retry")
+    print(f"  retry: {secs:.2f} s, {[(e['iteration'], e['detail']['attempt']) for e in retries]}")
+    check("injected out-of-memory: two retries of iteration 2, state bit-identical to the clean "
+          "run", [e["detail"]["attempt"] for e in retries] == [1, 2]
+          and all(e["iteration"] == 2 for e in retries) and same_state(ref, state))
+
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    try:
+        torch.empty(2 * total, dtype=torch.uint8, device=dev)
+        real = None
+    except torch.cuda.OutOfMemoryError as e:
+        real = e
+    check(f"a real {type(real).__name__} is transient and an out-of-memory",
+          real is not None and is_transient_failure(real) and _is_oom(real))
+    calls = []
+
+    def attempt():
+        held = torch.empty(int(free * 0.6), dtype=torch.uint8, device=dev)
+        calls.append(torch.cuda.memory_reserved())
+        if len(calls) == 1:   # more than is left: a real out-of-memory
+            torch.empty(int(free * 0.6), dtype=torch.uint8, device=dev)
+        return held.numel()
+
+    runner = ShieldRunner(max_retries=1, backoff=0.0)
+    got = runner.run(attempt)
+    after = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    print(f"  real out-of-memory: {free / 2**30:.1f} GiB free of {total / 2**30:.1f}; attempts "
+          f"reserved {[round(c / 2**30, 1) for c in calls]} GiB, {after / 2**30:.1f} GiB after")
+    check("the retry of an attempt that held 60% of the free memory succeeded after the "
+          "runner freed it", got == int(free * 0.6) and runner.retries_total == 1)
+
+    faults.install(faults.FaultInjector(faults.FaultPlan(nan_poison_island=(3, 1))))
+    try:
+        state, events, secs = robust_search(torch, sr, dev, base, "poison")
+    finally:
+        faults.clear()
+    q = fault_events(events, "quarantine")
+    finite3 = float(torch.isfinite(state.device_states[0].pops.loss[3]).float().mean())
+    print(f"  NaN poison: {secs:.2f} s, quarantine records "
+          f"{[(e['iteration'], e['detail']['islands']) for e in q]}, island 3 finite "
+          f"{finite3:.3f}")
+    check("island 3 poisoned after iteration 1: quarantined then, its losses finite after",
+          len(q) == 1 and q[0]["iteration"] == 1 and q[0]["detail"]["islands"] == [3]
+          and finite3 > 0.5)
+
+    sig_base = os.path.join(out_base, "sigterm")
+    rc, out, err, secs = run_child(sig_base, "pre", device=str(dev), env_extra={
+        "SR_FAULT_PLAN": json.dumps({"sigterm_at_iteration": 2})})
+    pre = run_events(os.path.join(sig_base, "pre"))
+    end = [e for e in pre if e["event"] == "run_end"]
+    kinds = [e["kind"] for e in fault_events(pre)]
+    print(f"  SIGTERM child: exit {rc} in {secs:.1f} s; faults {kinds}; run_end "
+          f"{end[0]['stop_reason'] if end else None} after {end[0]['iterations'] if end else None}")
+    check("SIGTERM at iteration 2: exit 0, stop_reason preempted after 2 iterations, an "
+          "emergency checkpoint", rc == 0 and end and end[0]["stop_reason"] == "preempted"
+          and end[0]["iterations"] == 2 and "emergency_checkpoint" in kinds
+          and "preempt_signal" in kinds)
+    if rc != 0:
+        raise RuntimeError(f"the SIGTERM child exited {rc}:\n{err[-3000:]}")
+    state, events, secs = robust_search(torch, sr, dev, sig_base, "res", resume="auto", seed=99)
+    res = [(e["kind"], e["detail"].get("iterations_done")) for e in fault_events(events)]
+    print(f"  resume: {secs:.2f} s, {res}")
+    check("resume='auto' from the emergency checkpoint: every state tensor bit-identical to the "
+          "uninterrupted run", state.iterations_done == ROBUST_ITERS and same_state(ref, state)
+          and abs(state.num_evals - ref.num_evals) <= 1e-6 * ref.num_evals)
+
+    rc, out, err, secs = run_child(base, "hang", device=str(dev), deadline=ROBUST_DEADLINE,
+                                   spin_at=2)
+    dump_path = os.path.join(base, "hang", "watchdog_dump.txt")
+    dump = open(dump_path).read() if os.path.exists(dump_path) else ""
+    hang = run_events(os.path.join(base, "hang"))
+    if rc != 124:
+        print(err[-3000:])
+    kinds = [(e["kind"], e["detail"].get("fault")) for e in fault_events(hang)]
+    main_stack = dump.split("(main)", 1)[-1].split("--- thread", 1)[0].strip().splitlines()
+    print(f"  spin kernel under iteration_deadline {ROBUST_DEADLINE} s: exit {rc} in "
+          f"{secs:.1f} s; faults {kinds}; the main thread's last frames:")
+    for line in main_stack[-4:]:
+        print(f"    {line}")
+    check("a real hang: exit 124 with a dump naming phase 'iteration' and iteration 2, and a "
+          "watchdog_timeout record", rc == 124 and "phase      : iteration" in dump
+          and "iteration  : 2" in dump and "phase deadline exceeded" in err
+          and ("watchdog_timeout", None) in kinds and "child search finished" not in out)
+    bad = [e for run in (pre, hang, events) for e in run if validate_event(e)]
+    check("every telemetry record of the child and resumed runs validates", not bad)
+    check.raise_if_failed("robustness")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--ncycles", type=int, default=100,
+    ap.add_argument("--ncycles", type=int, default=30,
                     help="ncycles_per_iteration of the main path (depth only)")
-    ap.add_argument("--ncycles-plain", type=int, default=30,
+    ap.add_argument("--ncycles-plain", type=int, default=10,
                     help="ncycles_per_iteration of the no-optimizer path (depth only)")
-    ap.add_argument("--ncycles-stage", type=int, default=30,
+    ap.add_argument("--ncycles-stage", type=int, default=10,
                     help="ncycles_per_iteration of the four graftstage cells (depth only)")
     args = ap.parse_args()
 
@@ -2914,7 +3332,18 @@ def main() -> int:
 
 
 def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
-    print("[1] device")
+    t_phase = [time.perf_counter(), time.perf_counter()]
+
+    def header(text):
+        """Print the last phase's seconds, then the next phase's header."""
+        now = time.perf_counter()
+        if text != "[1] device":
+            print(f"  (phase took {now - t_phase[0]:.1f} s; {now - t_phase[1]:.1f} s so far)")
+        t_phase[0] = now
+        if text:
+            print(text)
+
+    header("[1] device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip()
@@ -2922,7 +3351,7 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
-    print("[2] build")
+    header("[2] build")
     t0 = time.perf_counter()
     files = list(dict.fromkeys(k._file for k in kernels()))
     cuda_build.build_all(files)
@@ -2943,91 +3372,91 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
             print(f"  ptxas {name}: {regs} registers, stack {stack} B, spill stores "
                   f"{spill_st} B, spill loads {spill_ld} B")
 
-    print("[3] kernel #1 against its plain version")
+    header("[3] kernel #1 against its plain version")
     rows = [phase_kernel(torch, sr, dev)]
 
-    print("[4] kernels #2 and #3 against their plain versions")
+    header("[4] kernels #2 and #3 against their plain versions")
     rows += phase_opt_kernels(torch, sr, dev)
 
-    print("[5] main path (constant optimizer on)")
+    header("[5] main path (constant optimizer on)")
     launches, f32_best = phase_main_path(torch, sr, dev, args.ncycles)
     for row in rows:
         row["launches"] = launches[row["name"]]
 
-    print("[6] no-optimizer path")
+    header("[6] no-optimizer path")
     phase_no_optimizer(torch, sr, dev, args.ncycles_plain)
 
-    print("[7] equation_search")
+    header("[7] equation_search")
     phase_search(sr, dev, out_base)
 
-    print("[8] kernels #4 and #5 against their plain versions")
+    header("[8] kernels #4 and #5 against their plain versions")
     rows += phase_predict_kernels(torch, sr, dev)
 
-    print("[9] template main path")
+    header("[9] template main path")
     launches = phase_template_main_path(torch, sr, dev)
     rows[3]["launches"] = launches["program_predict"]
 
-    print("[10] template constant optimizer")
+    header("[10] template constant optimizer")
     launches = phase_template_optimizer(torch, sr, dev)
     rows[4]["launches"] = launches["program_predict_vjp"]
 
-    print("[11] template composition search")
+    header("[11] template composition search")
     phase_template_search(torch, sr, dev)
 
-    print("[12] kernel #1p (parametric form of #1) against its plain version")
+    header("[12] kernel #1p (parametric form of #1) against its plain version")
     rows.append(phase_param_kernel(torch, sr, dev))
 
-    print("[13] parametric main path")
+    header("[13] parametric main path")
     launches = phase_parametric_main_path(torch, sr, dev)
     rows[5]["launches"] = launches["program_eval_param"]
 
-    print("[14] parametric constant optimizer")
+    header("[14] parametric constant optimizer")
     phase_parametric_optimizer(torch, sr, dev)
 
-    print("[15] parametric search and template search with parameters")
+    header("[15] parametric search and template search with parameters")
     phase_plugin_searches(torch, sr, dev)
 
-    print("[16] kernels 1b and 2b (bf16 value buffers) against their plain versions")
+    header("[16] kernels 1b and 2b (bf16 value buffers) against their plain versions")
     bf16_rows = phase_bf16_kernels(torch, sr, dev)
     rows += bf16_rows
 
-    print("[17] graftstage cells")
+    header("[17] graftstage cells")
     cells = phase_stage_cells(torch, sr, dev, args.ncycles_stage)
     bf16_rows[0]["launches"] = cells["plain-staged-bf16"]["program_eval_bf16"]
 
-    print("[18] bf16 line search")
+    header("[18] bf16 line search")
     launches = phase_bf16_line_search(torch, sr, dev, STAGE_LS_CYCLES, f32_best)
     bf16_rows[2]["launches"] = launches["program_multi_bf16"]
 
-    print("[19] equation_search with staged_eval, eval_precision='bf16' and the bf16 line search")
+    header("[19] equation_search with staged_eval, eval_precision='bf16' and the bf16 line search")
     _, plaunches = phase_stage_search(torch, sr, dev)
     bf16_rows[1]["launches"] = plaunches["program_eval_param_bf16"]
 
-    print("[20] batched main path (batching=True, batch_size 50)")
+    header("[20] batched main path (batching=True, batch_size 50)")
     blaunches = phase_batched_main_path(torch, sr, dev, rows)
     print(f"  launches of the batched main path (2 iterations): {blaunches}")
 
-    print("[21] checkpoints and resume at full width")
+    header("[21] checkpoints and resume at full width")
     phase_checkpoint_resume(torch, sr, dev, out_base)
 
-    print("[22] SRRegressor and MultitargetSRRegressor on the card")
+    header("[22] SRRegressor and MultitargetSRRegressor on the card")
     phase_regressor(torch, sr, dev)
 
-    print("[23] telemetry at full width (optimizer cell and plain-staged cell)")
+    header("[23] telemetry at full width (optimizer cell and plain-staged cell)")
     phase_telemetry(torch, sr, dev, out_base, card)
 
-    print("[24] the mini matrix's quality (12 non-sharded cells of benchmarks/baseline.json)")
+    header("[24] the mini matrix's quality (12 non-sharded cells of benchmarks/baseline.json)")
     phase_quality(torch, sr, dev, out_base)
 
-    print("[25] a stop between chunks of cycles (timeout at a quarter of an iteration)")
+    header("[25] a stop between chunks of cycles (timeout at a quarter of an iteration)")
     phase_stop_between_chunks(torch, sr, dev, out_base)
 
-    print("[26] every library loss on kernels #1-#3, and their float64 forms, against their "
+    header("[26] every library loss on kernels #1-#3, and their float64 forms, against their "
           "plain versions")
     loss_rows = phase_loss_kernels(torch, sr, dev)
     rows += loss_rows
 
-    print("[27] a logcosh search and float64 searches at the optimizer cell's width")
+    header("[27] a logcosh search and float64 searches at the optimizer cell's width")
     slaunches = phase_loss_searches(torch, sr, dev)
     for row in loss_rows:
         name = row["name"]
@@ -3038,9 +3467,17 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
         else:
             row["launches"] = slaunches["float64"][name]
 
-    print("[28] the headline bench (python -m symbolicregression_jl_tpu_torch.bench.headline)")
+    header("[28] the headline bench (python -m symbolicregression_jl_tpu_torch.bench.headline)")
     phase_headline(torch)
 
+    header("[29] a user elementwise loss on kernels #4 and #5")
+    phase_user_loss(torch, sr, dev)
+
+    header("[30] robustness at the optimizer cell's width (retry, OOM, quarantine, SIGTERM, "
+          "watchdog)")
+    phase_robustness(torch, sr, dev, out_base)
+
+    header("")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -29,10 +29,24 @@ its expressions over every island's members; ``saved_state`` (a
 iterations; ``resume="auto"`` or ``resume=<path>`` continues the newest
 valid checkpoint to ``niterations`` in total, so a killed and resumed
 search ends bit-identical to one that ran through.
+
+graftshield (``shield/``, on with ``Options(shield=True)``, the default):
+SIGTERM or SIGINT stops the search at the next iteration boundary with
+``stop_reason="preempted"`` and an emergency checkpoint; each iteration
+attempt runs under ``ShieldRunner`` (transient failures such as a CUDA
+out-of-memory retry with backoff) and under the watchdog's deadline
+(``iteration_deadline``, or ``compile_budget`` for the first iteration,
+where the kernels build, and for re-attempts), which exits with code 124
+and a thread dump; an island whose members are all non-finite is reseeded
+from the hall of fame (``island_quarantine``). ``SR_FAULT_PLAN`` (or
+``shield.faults.install``) injects faults for tests. Every fault and
+recovery, and every corrupt checkpoint a resume passes over, is a
+``fault`` record of the telemetry stream.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -458,8 +472,10 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
 
         saved_state = load_search_state(os.fspath(saved_state), options, device=dev)
     # resume: the newest valid checkpoint (past corrupt ones) continues to
-    # niterations in total.
+    # niterations in total; the corrupt ones passed over and the file used
+    # become fault records once the hub exists.
     start_iter = 0
+    resume_events: List[Tuple[str, Dict[str, Any]]] = []
     if resume is not None:
         from ..shield.checkpoints import discover_resume_path, load_newest_valid
 
@@ -471,8 +487,13 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
             if ropt.verbosity >= 1:
                 print(f"resume='auto': no checkpoint under {search_base}; starting fresh")
         else:
-            saved_state, _ = load_newest_valid(candidates, options, device=dev)
+            corrupt_log: List[Tuple[str, str]] = []
+            saved_state, used_path = load_newest_valid(candidates, options, device=dev,
+                                                       corrupt_log=corrupt_log)
             start_iter = int(saved_state.iterations_done)
+            resume_events = [("checkpoint_corrupt", {"path": bad, "error": err[:500]})
+                             for bad, err in corrupt_log]
+            resume_events.append(("resume", {"path": used_path, "iterations_done": start_iter}))
 
     datasets = _resolve_datasets(X, y, weights, variable_names, display_variable_names,
                                  y_variable_names, extra, dev, fdtype)
@@ -597,9 +618,38 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
         hub.add_sink(ProgressSink(ProgressBar(ropt.niterations)))
     set_nvtx(dev.type == "cuda")
 
+    # ---- graftshield supervision (shield/) ----
+    # The guard turns SIGTERM/SIGINT into a stop at the next iteration
+    # boundary, whose end-of-loop save is the emergency checkpoint; the
+    # watchdog puts a deadline on each iteration attempt and its sync; the
+    # runner retries transient failures and steps the engine down; the
+    # quarantine reseeds NaN-collapsed islands.
+    from ..shield.degrade import ShieldRunner
+    from ..shield.faults import active_injector
+    from ..shield.quarantine import IslandQuarantine
+    from ..shield.signals import PreemptionGuard
+    from ..shield.watchdog import Watchdog
+
+    shield_on = bool(options.shield)
+    guard = PreemptionGuard()
+    watchdog = runner = quarantine = injector = None
+    if shield_on:
+        watchdog = Watchdog(dump_path=(os.path.join(out_dir, "watchdog_dump.txt")
+                                       if out_dir is not None else None), telemetry=hub)
+        runner = ShieldRunner(max_retries=options.max_retries, backoff=options.retry_backoff,
+                              telemetry=hub)
+        if options.island_quarantine:
+            quarantine = IslandQuarantine(threshold=options.quarantine_invalid_fraction,
+                                          telemetry=hub)
+        injector = active_injector(telemetry=hub)
+    for kind, detail in resume_events:
+        hub.fault(kind, iteration=start_iter, **detail)
+
     last_ckpt_it = -1
     it = start_iter
     try:
+        if shield_on:
+            guard.install()
         # The stdin watcher engages only for an injected stream or an
         # interactive session (Options(interactive_quit=True) and a real
         # TTY); otherwise no thread reads stdin.
@@ -644,6 +694,21 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
         n_chunks = min(4, options.ncycles_per_iteration)
         monitor = ResourceMonitor()
         host_t0 = time.time()
+        attempts = 0     # the current iteration's attempts, over every output
+
+        def _phase():
+            """The watchdog phase of one attempt or sync: "compile" (under
+            compile_budget) on this process's first iteration, where the
+            kernels build and load, and on any re-attempt; "iteration"
+            (under iteration_deadline) otherwise. None budgets are
+            unsupervised."""
+            if watchdog is None:
+                return contextlib.nullcontext()
+            comp = it == start_iter or attempts > len(engines)
+            return watchdog.phase("compile" if comp else "iteration",
+                                  options.compile_budget if comp else options.iteration_deadline,
+                                  iteration=it + 1)
+
         while it < ropt.niterations and stop_reason is None:
             cur_maxsize = get_cur_maxsize(options.maxsize, options.warmup_maxsize_by,
                                           total_cycles, cycles_remaining)
@@ -651,19 +716,32 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
             monitor_host = dev_t0 - host_t0  # bookkeeping since the last iteration
             sizes = _chunk_sizes(options.ncycles_per_iteration, n_chunks)
             iter_events = [None] * len(engines)
+            attempts = 0
             with step_span(it + 1, trace_id=search_trace.trace_id,
                            span_id=search_trace.span_id):
                 for j, (engine, ds) in enumerate(zip(engines, datasets)):
-                    out = engine.run_iteration(states[j], ds.data, cur_maxsize,
-                                               chunk_sizes=sizes if len(sizes) > 1 else None,
-                                               should_stop=_budget_hit)
+                    def attempt(j=j, engine=engine, ds=ds):
+                        nonlocal attempts
+                        attempts += 1
+                        with _phase():
+                            # inside the phase, so an injected hang meets the deadline
+                            if injector is not None:
+                                injector.on_dispatch(it + 1)
+                            return engine.run_iteration(
+                                states[j], ds.data, cur_maxsize,
+                                chunk_sizes=sizes if len(sizes) > 1 else None,
+                                should_stop=_budget_hit)
+
+                    out = (runner.run(attempt, iteration=it + 1, engine=engine, output=j + 1)
+                           if runner is not None else attempt())
                     if engine.cfg.record_events:
                         states[j], iter_events[j] = out
                     else:
                         states[j] = out
                 hub.prefetch(states)
                 if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
+                    with _phase():
+                        torch.cuda.synchronize(dev)
             host_t0 = time.time()
             if it > start_iter:   # the first iteration builds kernels and warms caches
                 target = (host_t0 - dev_t0) / _STOP_LATENCY_TARGET_S
@@ -675,6 +753,18 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
             monitor.check_and_warn(ropt.verbosity)
             cycles_remaining -= options.ncycles_per_iteration
             it += 1
+            # The boundary's shield work: injected faults first (a poisoned
+            # island must meet the quarantine's scan, as a real storm
+            # would), then the quarantine, then the preemption flag.
+            if injector is not None:
+                states = injector.on_iteration_end(it, states)
+            if quarantine is not None:
+                for j, engine in enumerate(engines):
+                    states[j] = quarantine.check_and_reseed(engine, states[j], iteration=it,
+                                                            output=j + 1)
+            if guard.requested and stop_reason is None:
+                stop_reason = "preempted"
+                hub.fault("preempt_signal", iteration=it, signal=guard.signal_name)
             if stop_reason is None and ropt.stop_hook is not None:
                 hook_reason = ropt.stop_hook()
                 if hook_reason:
@@ -718,15 +808,22 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
         # generation out).
         if ckpt is not None and it > start_iter and it != last_ckpt_it:
             ckpt.save(checkpoint_state())
+        if ckpt is not None and it > 0 and stop_reason == "preempted":
+            hub.fault("emergency_checkpoint", iteration=it, path=ckpt.base,
+                      iterations_done=it)
         # Flush any partial telemetry interval, emit run_end, close sinks
         # (ProgressBar close, Recorder final state and write).
         hub.finish(stop_reason=stop_reason or "niterations", num_evals=total_evals(),
                    elapsed=time.time() - start_time)
     finally:
         # A failing or interrupted search still releases the hub's
-        # kernel-build listener (idempotent after a clean finish).
+        # kernel-build listener (idempotent after a clean finish), the
+        # signal handlers and the watchdog's thread.
         hub.close()
         set_nvtx(False)
+        guard.uninstall()
+        if watchdog is not None:
+            watchdog.stop()
 
     if ropt.verbosity >= 1:
         for j, (hof, ds) in enumerate(zip(hofs, datasets)):

@@ -738,8 +738,7 @@ def _refuse(what: str, where: str) -> None:
 # numbers them.
 SEARCH_API_REST = "the rest of the search-API slice (ROADMAP.md queue 1 item 3)"
 PLUGIN_SLICE = "the expression-plugin slice (ROADMAP.md queue 1 item 4)"
-USER_CALLABLES_ON_KERNELS = ("ROADMAP.md queue 3's item 'user elementwise callables and user "
-                             "operators on the kernels'")
+USER_CALLABLES_ON_KERNELS = "ROADMAP.md queue 3's item 'user operators on the kernels'"
 
 
 def _check_expression_spec(options: Options) -> None:
@@ -809,13 +808,15 @@ def check_supported(options: Options, device=None, dtype=None) -> None:
     option outside what this port carries, naming the ROADMAP item that
     brings it. With ``device`` it also refuses what the interpreter
     kernels cannot run where turbo is on (``turbo_requested``): a user
-    elementwise callable (outside a template, where the loss is applied
-    to kernel #4's predictions) and a user operator; ``turbo=False`` runs
-    both on the eager path, the JAX package's own path with turbo off.
+    operator, and a user elementwise callable (which runs on kernel #4's
+    predictions, ``ops/fused_eval.py`` ``user_loss_program``) in a
+    parametric, float64 or bf16 search, forms kernel #4 lacks; a template
+    applies any loss to kernel #4's predictions. ``turbo=False`` runs them
+    on the eager path, the JAX package's own path with turbo off.
     ``dtype`` (``equation_search(dtype=...)``) overrides ``eval_dtype``."""
     import torch
 
-    from ..models.spec import TemplateExpressionSpec
+    from ..models.spec import ParametricExpressionSpec, TemplateExpressionSpec
 
     _check_expression_spec(options)
     if options.dimensional_constraint_penalty is not None:
@@ -835,7 +836,15 @@ def check_supported(options: Options, device=None, dtype=None) -> None:
 
     why = []
     if kernel_loss(options.elementwise_loss) is None and not template:
-        why.append(f"the user elementwise loss {options.elementwise_loss!r}")
+        forms = [name for name, on in (
+            ("parametric", isinstance(options.expression_spec, ParametricExpressionSpec)),
+            ("float64", fdt == torch.float64),
+            ("eval_precision='bf16'", options.eval_precision == "bf16"),
+            ("optimizer_bf16_linesearch", options.optimizer_bf16_linesearch)) if on]
+        if forms:
+            why.append(f"the user elementwise loss {options.elementwise_loss!r} in a "
+                       f"{' and '.join(forms)} search (it runs on kernel #4's predictions, "
+                       f"which have no such form)")
     user_ops = _user_operators(options)
     if user_ops:
         why.append(f"the user operators {user_ops}")

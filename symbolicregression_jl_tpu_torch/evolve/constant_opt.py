@@ -10,7 +10,10 @@ optimization. Two forms, as in the JAX package:
   one launch of kernel #2 for all R*C line-search candidates (kernel 2b,
   a bfloat16 value buffer, with ``ls_bf16``) and one of kernel #3 for the
   accepted point's loss and gradient (one more kernel #3
-  launch comes before the loop).
+  launch comes before the loop). A user elementwise callable takes the
+  user-loss route of ``ops/fused_eval.py`` instead: the line search is
+  kernel #4's predictions in chunks and the callable, the gradient
+  ``torch.autograd`` through the callable with kernel #5 in the backward.
 - :func:`optimize_constants_batch` (the eager path): dense BFGS with a
   backtracking Armijo line search over the eager interpreter
   (``ops/eval.py``), differentiated by ``torch.autograd``; the JAX

@@ -150,6 +150,71 @@ class Engine:
                      and self.device.type == "cuda"))
         self.window_size = float(window_size)
 
+    def degrade_eval_tile_rows(self, floor: int = 512) -> Optional[int]:
+        """graftshield's degradation step (shield/degrade.py): halve
+        ``cfg.eval_tile_rows``, which in the port caps graftstage's
+        screening sample (``step.resolve_sample_rows``). Returns the new
+        cap, or None at the floor (the ladder is exhausted)."""
+        cur = int(self.cfg.eval_tile_rows)
+        new = max(cur // 2, int(floor))
+        if new >= cur:
+            return None
+        self.cfg = self.cfg._replace(eval_tile_rows=new)
+        return new
+
+    # ------------------------------------------------------------------
+    # graftshield quarantine primitives (shield/quarantine.py drives them
+    # from the host loop)
+    # ------------------------------------------------------------------
+    def island_invalid_fractions(self, state: SearchDeviceState) -> torch.Tensor:
+        """[I] fraction of non-finite member losses per island, the NaN-storm
+        detector's input."""
+        return torch.mean((~torch.isfinite(state.pops.loss)).to(torch.float32), dim=1)
+
+    def reseed_islands(self, state: SearchDeviceState, mask: torch.Tensor) -> SearchDeviceState:
+        """Reseed the islands ``mask`` ([I] bool) selects from the hall of
+        fame: each such island's members become the existing entries tiled
+        across its slots, with their costs, losses, complexities and
+        banks (hall-of-fame costs are full-dataset ones, so nothing is
+        re-scored), fresh birth and lineage ticks and no parent; the
+        islands' birth and lineage counters move on by P. Other islands
+        are left as they are, and an empty hall of fame makes it an
+        identity. It draws nothing at random, so a resumed search
+        quarantines as an uninterrupted one does, and it reads nothing
+        back to the host. New tensors: the input state is left as it was."""
+        P = self.cfg.population_size
+        hof, pops = state.hof, state.pops
+        I = pops.cost.shape[0]
+        exists = hof.exists
+        n_exist = torch.sum(exists.to(torch.int32))
+        mask = mask.to(torch.bool) & (n_exist > 0)
+        # The existing entries' indices in order first (jnp.nonzero(size=)).
+        exist_idx = torch.argsort((~exists).to(torch.int8), stable=True)
+        slot = exist_idx[torch.arange(P, device=exists.device) % torch.clamp(n_exist, min=1)]
+
+        def sel(orig, entries):   # orig [I, P, ...], entries [maxsize, ...]
+            repl = entries[slot]
+            m = mask.reshape((I,) + (1,) * (orig.dim() - 1))
+            return torch.where(m, repl.unsqueeze(0).to(orig.dtype), orig)
+
+        fresh = state.birth[:, None] + torch.arange(P, dtype=torch.int32,
+                                                    device=state.birth.device)[None, :]
+        m2 = mask[:, None]
+        new_pops = dataclasses.replace(
+            pops,
+            trees=TreeBatch(*(sel(o, h) for o, h in zip(pops.trees.fields(),
+                                                        hof.trees.fields()))),
+            cost=sel(pops.cost, torch.where(exists, hof.cost, math.inf)),
+            loss=sel(pops.loss, hof.loss),
+            complexity=sel(pops.complexity, hof.complexity),
+            birth=torch.where(m2, fresh, pops.birth),
+            parent=torch.where(m2, torch.full_like(pops.parent, -1), pops.parent),
+            ref=torch.where(m2, fresh, pops.ref),
+            params=sel(pops.params, hof.params))
+        bump = mask.to(torch.int32) * P
+        return dataclasses.replace(state, pops=new_pops, birth=state.birth + bump,
+                                   ref=state.ref + bump)
+
     def _eval(self, trees: TreeBatch, params, data: DeviceData, *, fuse_cost: bool,
               dedup: bool = False):
         """Costs of flat members ``trees`` with their banks ``params``."""

@@ -42,7 +42,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.losses import aggregate_loss, loss_from_pred, loss_to_cost
+from ..core.losses import aggregate_loss, kernel_loss, loss_from_pred, loss_to_cost
 from ..core.options import KERNEL_TILE_ROWS, MUTATION_KINDS, Options, turbo_requested
 from ..ops.complexity import ComplexityTables, check_constraints_batch, compute_complexity_batch
 from ..ops.encoding import LEAF_CONST, LEAF_VAR, TreeBatch, select_tree, structure_from_arity
@@ -176,7 +176,9 @@ def evolve_config_from_options(options: Options, nfeatures: int, device: torch.d
     """``turbo`` defaults to on for a CUDA device and off on the CPU, and
     is off with a custom whole-prediction loss (the JAX package's eager
     path for it); ``core.options.check_supported`` has refused, up front,
-    what turbo cannot run."""
+    what turbo cannot run. A user elementwise callable runs with turbo on
+    the user-loss route (``ops/fused_eval.py``: kernel #4's predictions and
+    the callable), so it has no cost epilogue: kernel #1 never sees it."""
     turbo = turbo_requested(options, device) and options.resolved_loss_function is None
     turbo = turbo and supports_fused_eval(options.operators)
     return EvolveConfig(
@@ -202,7 +204,8 @@ def evolve_config_from_options(options: Options, nfeatures: int, device: torch.d
         probability_negate_constant=options.probability_negate_constant,
         ncycles=options.ncycles_per_iteration,
         turbo=turbo,
-        fuse_cost=turbo and options.fuse_cost_epilogue is not False,
+        fuse_cost=(turbo and options.fuse_cost_epilogue is not False
+                   and kernel_loss(options.elementwise_loss) is not None),
         n_params=n_params,
         n_classes=n_classes,
         template=template,
@@ -236,8 +239,11 @@ def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: Complexity
 
     ``turbo`` runs the interpreter kernel (ops/fused_eval.py); with
     ``fuse_cost`` (and not ``dedup``) the kernel's epilogue also computes
-    the cost. Otherwise the eager interpreter (ops/eval.py) predicts and
-    the loss and cost follow in PyTorch.
+    the cost. A user elementwise callable with ``turbo`` (``fuse_cost``
+    off) takes ``fused_loss``'s user-loss route, kernel #4's predictions
+    and the callable, for candidates and the deduplicated finalize alike.
+    Otherwise the eager interpreter (ops/eval.py) predicts and the loss
+    and cost follow in PyTorch.
 
     ``member_params`` [..., NP, NC] are the members' parameter banks.
     Parametric members read theirs through the dataset's class column

@@ -43,7 +43,11 @@ float64 (``eval_dtype="float64"``, the JAX package under x64): kernels #1,
 :data:`PROGRAM_GRAD_F64`) that store and compute every value in double;
 the entry points pick them when X is float64. Every library loss
 (core/losses.py ``KernelLoss``) runs in the kernels, named by its kind
-and parameter; a user callable is refused.
+and parameter. A user elementwise callable takes the user-loss route
+(:func:`user_loss_program`, :func:`user_loss_multi`,
+:func:`user_grad_multi`), which the entry points below pick for it:
+kernel #4's predictions in chunks of trees, the callable applied in
+PyTorch, and for its gradient kernel #5 under ``torch.autograd``.
 The TPU kernels' V-chunking and tree blocks worked around VMEM and are not
 carried over: each call is one launch.
 """
@@ -73,7 +77,8 @@ __all__ = ["PROGRAM_EVAL", "PROGRAM_EVAL_PARAM", "PROGRAM_EVAL_BF16", "PROGRAM_E
            "fused_grad_program", "fused_loss_and_const_grad", "fused_predict_program",
            "fused_predict_vjp_program", "fused_predict", "fused_predict_ad",
            "program_eval_plain", "program_multi_plain", "program_grad_plain",
-           "program_predict_plain", "program_predict_vjp_plain", "supports_fused_eval"]
+           "program_predict_plain", "program_predict_vjp_plain", "supports_fused_eval",
+           "user_loss_program", "user_loss_multi", "user_grad_multi", "USER_LOSS_CHUNK_BYTES"]
 
 
 def supports_fused_eval(operators: OperatorSet) -> bool:
@@ -1082,7 +1087,14 @@ def fused_loss_program(prog: TreeProgram, X, y, weights, nfeatures: int,
     Parametric programs (compiled with ``n_params = NP``) pass their
     banks ``params`` [T, NP, NC] and the rows' ``class_idx`` [n]; they run
     the parametric form of the kernel. ``bf16`` runs kernel 1b (a
-    bfloat16 value buffer, float32 loss)."""
+    bfloat16 value buffer, float32 loss). A user elementwise callable
+    takes the user-loss route (plain members in float32 only)."""
+    if kernel_loss(loss_fn) is None:
+        if params is not None or bf16:
+            raise NotImplementedError(
+                "a user elementwise loss runs on kernel #4's predictions, which have no "
+                "parametric or bf16 form")
+        return user_loss_program(prog, X, y, weights, nfeatures, operators, loss_fn)
     if params is None:
         args = _launch_inputs(prog, X, y, weights, nfeatures, operators, bf16=bf16)
         kernel = _pick(X, bf16, PROGRAM_EVAL, PROGRAM_EVAL_BF16, PROGRAM_EVAL_F64)
@@ -1105,9 +1117,14 @@ def fused_cost_program(prog: TreeProgram, X, y, weights, complexity, nfeatures: 
                        use_baseline, parsimony, bf16: bool = False):
     """(cost, loss, valid) per compiled program, the cost computed in the
     kernel's epilogue with ``core.losses.loss_to_cost``'s operation order
-    (kernel 1b with ``bf16``)."""
+    (kernel 1b with ``bf16``). A user elementwise callable takes the
+    user-loss route, and the cost follows on the host in the same order."""
     denom = _denominator(weights, X)
     norm = baseline_normalization(baseline_loss.to(X.dtype), use_baseline)
+    if kernel_loss(loss_fn) is None:
+        loss, valid = fused_loss_program(prog, X, y, weights, nfeatures, operators, loss_fn,
+                                         bf16=bf16)
+        return loss / norm.to(X.dtype) + parsimony * complexity.to(X.dtype), loss, valid
     scal = torch.stack([denom.to(X.dtype), norm.to(X.dtype),
                         torch.tensor(parsimony, dtype=X.dtype, device=X.device)])
     args = _launch_inputs(prog, X, y, weights, nfeatures, operators, bf16=bf16)
@@ -1239,7 +1256,12 @@ def fused_loss_multi(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
     ``bf16`` runs kernel 2b (a bfloat16 value buffer, float32 loss): the
     losses rank reliably but are not bit-exact, so a caller re-verifies an
     accepted point in float32 (the L-BFGS line search does, through the
-    gradient kernel's loss and its descent check)."""
+    gradient kernel's loss and its descent check). A user elementwise
+    callable takes the user-loss route (float32 only)."""
+    if kernel_loss(loss_fn) is None:
+        if bf16:
+            raise NotImplementedError("a user elementwise loss has no bf16 line search")
+        return user_loss_multi(prog, cvals_v, X, y, weights, nfeatures, operators, loss_fn)
     (instr, nsteps, cv, Xc, yc, w), ok_v = _multi_inputs(prog, cvals_v, X, y, weights,
                                                          nfeatures, operators, bf16)
     kernel = _pick(X, bf16, PROGRAM_MULTI, PROGRAM_MULTI_BF16, PROGRAM_MULTI_F64)
@@ -1255,7 +1277,10 @@ def fused_grad_multi(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
     """(loss [T, V], valid [T, V], dloss/dcvals [T, V, CMAX]) per (tree,
     constant-variant) pair, from one launch of kernel #3. A bad pair (an
     invalid one, or one whose mean loss is not finite) gets loss inf and a
-    zero gradient; a non-finite gradient component becomes 0."""
+    zero gradient; a non-finite gradient component becomes 0. A user
+    elementwise callable takes the user-loss route."""
+    if kernel_loss(loss_fn) is None:
+        return user_grad_multi(prog, cvals_v, X, y, weights, nfeatures, operators, loss_fn)
     (instr, nsteps, cv, Xc, yc, w), ok_v = _multi_inputs(prog, cvals_v, X, y, weights,
                                                          nfeatures, operators)
     nconst = prog.nconst.to(torch.int32).contiguous()
@@ -1385,3 +1410,149 @@ def fused_predict_ad(trees: TreeBatch, X, operators: OperatorSet, *, plain: bool
     receives its row cotangents, shared ``X`` [F, n] zeros; ``valid`` takes
     no gradient. ``plain`` runs the kernels' plain versions."""
     return _PredictAD.apply(trees.const, X, trees, operators, plain)
+
+
+# ---------------------------------------------------------------------------
+# User elementwise losses: kernel #4's predictions, the callable in PyTorch
+# (the JAX package traces the callable into kernels #1-#3, :466, :805 and
+# the VJP at :1187-1193)
+# ---------------------------------------------------------------------------
+
+#: Bytes one chunk of the user-loss route may take: its [rows, n]
+#: predictions and the loss's temporaries, about _USER_LOSS_TEMPS tensors
+#: of that size (the elementwise loss, the masked and weighted terms, and
+#: under autograd their gradients).
+USER_LOSS_CHUNK_BYTES = 1 << 30
+_USER_LOSS_TEMPS = 6
+
+
+class _RowsPredictAD(torch.autograd.Function):
+    """Kernel #4 forward and kernel #5 backward over packed program rows,
+    differentiable in their compressed constants ``cvals`` [R, CMAX]
+    (``fused_predict_ad`` in the optimizer's constant space)."""
+
+    @staticmethod
+    def forward(ctx, cvals, instr, nsteps, nconst, ok, X, operators, plain):
+        run = program_predict_plain if plain else PROGRAM_PREDICT
+        pred, valid = run(instr, nsteps, cvals, ok, X, operators)
+        ctx.save_for_backward(instr, nsteps, nconst, cvals, X)
+        ctx.operators, ctx.plain = operators, plain
+        ctx.mark_non_differentiable(valid)
+        return pred, valid
+
+    @staticmethod
+    def backward(ctx, ct_pred, _ct_valid):
+        instr, nsteps, nconst, cvals, X = ctx.saved_tensors
+        run = program_predict_vjp_plain if ctx.plain else PROGRAM_PREDICT_VJP
+        gcomp, _ = run(instr, nsteps, nconst, cvals, X, ct_pred.contiguous(), ctx.operators)
+        return gcomp, None, None, None, None, None, None, None
+
+
+def _user_loss_sum(pred, y, w, loss_fn):
+    """sum_r w_r * loss_fn(pred, y)_r over the rows, zero-weight rows inert."""
+    elt = loss_fn(pred, y)
+    return torch.sum(torch.where(w > 0, elt, 0.0) * w, dim=-1)
+
+
+def _user_route(prog: TreeProgram, cv, ok, tree, X, y, weights, nfeatures: int,
+                operators: OperatorSet, loss_fn: Callable, grad: bool, plain: bool = False):
+    """(loss [R], valid [R], dloss/dcv [R, CMAX] or None) of R program rows:
+    row r is tree ``tree[r]`` with constants ``cv[r]`` and constant
+    validity ``ok[r]``. The rows run in chunks of at most
+    USER_LOSS_CHUNK_BYTES: kernel #4 predicts, ``loss_fn`` takes the
+    predictions, and with ``grad`` kernel #5 runs in the backward of
+    ``torch.autograd`` through it, the rows' cotangents zeroed where the
+    weight is 0 (as the JAX kernel masks its loss VJP). The kernels'
+    contract follows: a row whose steps, loss sum or mean are not finite
+    is invalid, with loss inf and a zero gradient; a non-finite gradient
+    component becomes 0. ``plain`` runs the kernels' plain versions."""
+    if X.dtype != torch.float32:
+        raise NotImplementedError("the user-loss route runs kernel #4, which computes in "
+                                  "float32")
+    instr, nsteps, _, Xc = _predict_inputs(prog, X, nfeatures, operators)
+    nconst = prog.nconst.to(torch.int32)
+    n = X.shape[1]
+    w = (torch.ones(n, dtype=X.dtype, device=X.device) if weights is None
+         else weights.to(X.dtype).contiguous())
+    denom = _denominator(weights, X)
+    R = cv.shape[0]
+    step = max(1, USER_LOSS_CHUNK_BYTES // (_USER_LOSS_TEMPS * max(n, 1) * X.element_size()))
+    sums, valids, grads = [], [], []
+    for s in range(0, R, step):
+        t = tree[s:s + step]
+        args = (instr[t].contiguous(), nsteps[t].contiguous(), nconst[t].contiguous(),
+                ok[s:s + step].to(torch.int32).contiguous())
+        c = cv[s:s + step].to(X.dtype).contiguous()
+        if not grad:
+            run = program_predict_plain if plain else PROGRAM_PREDICT
+            pred, valid = run(args[0], args[1], c, args[3], Xc, operators)
+            sums.append(_user_loss_sum(pred, y, w, loss_fn))
+            valids.append(valid)
+            continue
+        with torch.enable_grad():
+            c = c.detach().requires_grad_(True)
+            pred, valid = _RowsPredictAD.apply(c, *args, Xc, operators, plain)
+            pred.register_hook(lambda g: torch.where(w > 0, g, 0.0))
+            total = _user_loss_sum(pred, y, w, loss_fn)
+            (g,) = torch.autograd.grad(total.sum(), c)
+        sums.append(total.detach())
+        valids.append(valid)
+        grads.append(g)
+    if not sums:
+        empty = torch.zeros(0, dtype=X.dtype, device=X.device)
+        return (empty, torch.zeros(0, dtype=torch.bool, device=X.device),
+                torch.zeros((0, cv.shape[1]), dtype=X.dtype, device=X.device) if grad else None)
+    total = torch.cat(sums)
+    valid = torch.cat(valids) & torch.isfinite(total)
+    loss = total / denom
+    bad = ~(valid & torch.isfinite(loss))
+    loss = torch.where(bad, torch.inf, loss)
+    if not grad:
+        return loss, valid, None
+    g = torch.cat(grads) / denom
+    return loss, valid, torch.where(bad[:, None] | ~torch.isfinite(g), 0.0, g)
+
+
+def user_loss_program(prog: TreeProgram, X, y, weights, nfeatures: int,
+                      operators: OperatorSet, loss_fn: Callable, *, plain: bool = False):
+    """`fused_loss_program` for a user elementwise callable ``loss_fn``:
+    (loss [T], valid [T]) by kernel #4's predictions and the callable
+    (``plain``: its plain version)."""
+    T = prog.code.shape[0]
+    tree = torch.arange(T, device=X.device)
+    loss, valid, _ = _user_route(prog, prog.cvals, prog.const_ok, tree, X, y, weights,
+                                 nfeatures, operators, loss_fn, grad=False, plain=plain)
+    return loss, valid
+
+
+def _pair_rows(prog: TreeProgram, cvals_v):
+    """Rows of every (tree, variant) pair: constants [T * V, CMAX], their
+    validity (every used constant finite) and each row's tree."""
+    T, V, CM = cvals_v.shape
+    used = torch.arange(CM, device=cvals_v.device)[None, None, :] < prog.nconst[:, None, None]
+    ok = torch.all(torch.isfinite(cvals_v) | ~used, dim=-1)
+    tree = torch.arange(T, device=cvals_v.device).repeat_interleave(V)
+    return cvals_v.reshape(T * V, CM), ok.reshape(T * V), tree
+
+
+def user_loss_multi(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
+                    operators: OperatorSet, loss_fn: Callable, *, plain: bool = False):
+    """`fused_loss_multi` for a user elementwise callable: (loss, valid)
+    [T, V] of every (tree, constant-variant) pair, by kernel #4."""
+    T, V, _ = cvals_v.shape
+    cv, ok, tree = _pair_rows(prog, cvals_v)
+    loss, valid, _ = _user_route(prog, cv, ok, tree, X, y, weights, nfeatures, operators,
+                                 loss_fn, grad=False, plain=plain)
+    return loss.reshape(T, V), valid.reshape(T, V)
+
+
+def user_grad_multi(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
+                    operators: OperatorSet, loss_fn: Callable, *, plain: bool = False):
+    """`fused_grad_multi` for a user elementwise callable: (loss [T, V],
+    valid [T, V], dloss/dcvals [T, V, CMAX]), kernel #4 forward and #5
+    backward under ``torch.autograd`` through the callable."""
+    T, V, CM = cvals_v.shape
+    cv, ok, tree = _pair_rows(prog, cvals_v)
+    loss, valid, grad = _user_route(prog, cv, ok, tree, X, y, weights, nfeatures, operators,
+                                    loss_fn, grad=True, plain=plain)
+    return loss.reshape(T, V), valid.reshape(T, V), grad.reshape(T, V, CM)

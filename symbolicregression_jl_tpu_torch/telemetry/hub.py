@@ -219,6 +219,9 @@ class Telemetry:
         self._pending = False
         self._last_ctx: Optional[IterationContext] = None
         self._iterations_seen = 0
+        # graftshield fault audit: per-kind counts, kept whether or not
+        # the JSONL stream is on (run_end carries them).
+        self.fault_counts: Dict[str, int] = {}
 
         self.path: Optional[str] = None
         if bool(getattr(options, "telemetry", False)):
@@ -279,6 +282,28 @@ class Telemetry:
             try:
                 self._emit(event)
             except OSError:
+                pass
+        return event
+
+    def fault(self, kind: str, *, iteration: int = 0,
+              **detail) -> Dict[str, Any]:
+        """Record a graftshield fault or recovery event (schema ``fault``):
+        a retry, a degrade step, a quarantine, an injected fault, a
+        preemption signal, an emergency checkpoint, a watchdog timeout or
+        a corrupt checkpoint passed over on resume. Cheap, and never
+        raises into the recovery path it audits: counted in-process with
+        the stream off, emitted with it on."""
+        event = {
+            "event": "fault",
+            "kind": str(kind),
+            "iteration": int(iteration),
+            "detail": {k: v for k, v in detail.items() if v is not None},
+        }
+        self.fault_counts[kind] = self.fault_counts.get(kind, 0) + 1
+        if self.path is not None:
+            try:
+                self._emit(event)
+            except (OSError, TypeError, ValueError):  # auditing must not break the recovery
                 pass
         return event
 
@@ -408,6 +433,8 @@ class Telemetry:
                     k: v for k, v in self._compiles.snapshot().items()
                     if k != "transfer_guard_hits"
                 },
+                # schema-optional: the run's graftshield fault counts by kind
+                "faults_total": dict(self.fault_counts),
             })
         summary = {
             "stop_reason": stop_reason,

@@ -332,12 +332,22 @@ def test_fused_grad_program_and_const_grad_scatter():
 
 
 def test_multi_refusals():
+    """Kernel #3's plain version takes the library losses only; the entry
+    point sends a user callable to the user-loss route instead
+    (tests/test_torch_user_loss.py), and a user operator is refused."""
     _, sops, _, st = _batch("merged", 0, T=8)
     X, y, _ = _data(16, False)
     sp = compile_program(st, 3, len(sops.binary))
+    quartic = lambda p, t: (p - t) ** 4  # noqa: E731
+    instr = SF._pack_instr(sp, sops, 3 + sp.cmax + sp.max_steps)
     with pytest.raises(NotImplementedError, match="library elementwise losses"):
-        SF.fused_grad_multi(sp, sp.cvals[:, None], _t(X), _t(y), None, 3, sops,
-                            lambda p, t: (p - t) ** 4)
+        SF.program_grad_plain(instr, sp.nsteps, sp.nconst, sp.cvals[:, None], _t(X), _t(y),
+                              torch.ones(16), sops, quartic)
+    loss, valid, grad = SF.fused_grad_multi(sp, sp.cvals[:, None], _t(X), _t(y), None, 3, sops,
+                                            quartic)
+    ref, ref_valid = SF.fused_loss(st, _t(X), _t(y), None, sops, quartic)
+    assert torch.equal(valid[:, 0], ref_valid) and torch.equal(loss[:, 0], ref)
+    assert grad.shape == (st.length.shape[0], 1, sp.cmax)
     custom = S.OperatorSet(["+", "*"], [S.Op("twice", 1, lambda x: 2 * x)])
     with pytest.raises(NotImplementedError, match="built-in operators only"):
         SF.program_grad_plain(torch.zeros((1, 2), dtype=torch.int32),
