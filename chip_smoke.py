@@ -252,6 +252,36 @@ Phases (any failure exits nonzero and prints no result line):
    iteration_deadline = ROBUST_DEADLINE: exit code 124, the dump naming
    the phase and iteration, the main thread's last frames printed.
 
+31. Zero-weight padding on the kernels (pack/padding.py): phase 3's 16,384
+   trees and phase 4's 18,432 trees (V = 24 line-search and V = 3 gradient
+   variants) on the bench data's first 6,000 rows (weights 1), against the
+   same rows padded to their 8,192-row bucket with cyclic and with edge
+   replicas at weight 0: kernels #1 (plain and cost forms), #2 and #3
+   bit-equal (loss sums, costs, validity, gradients), and their plain
+   versions too (#1 on every tree, #2 and #3 on PLAIN_SUBSET trees). Times
+   #1 at 6,000 and at 8,192 rows.
+32. SearchServer(pack=PackPolicy()) on the card at the optimizer cell's
+   widths (512 islands x 256, tournament 16, maxsize 30, + - * /, exp abs
+   cos, the optimizer on; SERVE_CYCLES = 10 cycles, SERVE_ITERS = 2
+   iterations): four requests of 5,000-8,000 rows x 5 features (seeds
+   0-3, y as in the optimizer cell), one 8,192-row bucket, submitted
+   before start() so they form one cohort: every request done, a launch
+   of 4 tenants, only #1-#3 launched (#2 8 and #3 9 a search iteration,
+   #1 as many as the four solo runs together), one cache miss then hits,
+   each fingerprint equal to the request's run alone on a fresh server;
+   then a child server takes requests 0 and 1 and SIGKILLs itself at the
+   first checkpoint, and a server over the same root finishes both with
+   the unkilled fingerprints. Prints requests/s, seconds a cohort round,
+   peak memory.
+33. equation_search at the optimizer cell, DIAG_CYCLES = 10 cycles,
+   DIAG_ITERS = 3 iterations, telemetry on, ledger/pulse/gauge off / on /
+   on / off: the state bit-identical across turns, ledger.jsonl valid,
+   gauge memory events with torch.cuda bytes, `telemetry timeline`
+   valid; at 64 islands and 2 cycles an injected out-of-memory dumps a
+   valid pulse bundle and a torch.profiler window over one iteration holds
+   the kernels' launches; then bench/load.py's run_load on the card (its
+   requests/s, p99 poll latency, cache hit rate and shed fraction).
+
 Every file a phase writes goes to a temporary directory, removed at the
 end. Each phase prints its seconds when the next one starts. The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2224,6 +2254,14 @@ def telemetry_search(torch, sr, dev, options, data, out_base, run_id, count_sync
     return state, marks, syncs
 
 
+def core_events(events):
+    """A run's telemetry records without graftgauge's ``gauge`` records,
+    which every search with a telemetry stream writes by default (a memory
+    sample each iteration, the watermarks and the dispatch latency at the
+    end)."""
+    return [e for e in events if e["event"] != "gauge"]
+
+
 def calls_by_iteration(check, tag, calls, marks, r0, n_members):
     """Kernel #1's calls split at the iterations' ends; the first call is
     init_state's scoring of the initial population (every member, every
@@ -2326,7 +2364,7 @@ def phase_telemetry(torch, sr, dev, out_base, card):
           f"off {per_iter['off'][0]:.4f} / {per_iter['off'][1]:.4f}, on {per_iter['on'][0]:.4f}"
           f" / {per_iter['on'][1]:.4f}: on / off {mean(per_iter['on']) / mean(per_iter['off']):.4f}")
     for rid in ("telem_on_1", "telem_on_2"):
-        events = load_events(tfile(rid))
+        events = core_events(load_events(tfile(rid)))
         check(f"{rid}: JSONL valid, events run_start, {TELEM_ITERS} x iteration, run_end",
               [e["event"] for e in events] == ["run_start"] + ["iteration"] * TELEM_ITERS
               + ["run_end"])
@@ -2336,7 +2374,7 @@ def phase_telemetry(torch, sr, dev, out_base, card):
               f"recompiles {[e['recompiles'] for e in iters]}, finalize unique "
               f"{[e['outputs'][0]['counters']['dedup']['unique'] for e in iters]} of {I * P}, "
               f"the finalize launch's trees {[c[-1][0] for c in runs[rid]]}")
-    c = load_events(tfile("telem_on_1"))[1]["outputs"][0]["counters"]
+    c = core_events(load_events(tfile("telem_on_1")))[1]["outputs"][0]["counters"]
     print(f"  iteration 1's counters: {json.dumps(c)}")
 
     # One torch.profiler capture of a one-iteration search: its sr:* ranges.
@@ -2372,7 +2410,7 @@ def phase_telemetry(torch, sr, dev, out_base, card):
     tb = state_tensors(torch, staged["staged_off"][0].device_states[0])
     check("plain-staged: every state tensor bit-equal with telemetry on and off",
           len(ta) == len(tb) and all(same(torch, a, b) for a, b in zip(ta, tb)))
-    events = load_events(tfile("staged_on"))
+    events = core_events(load_events(tfile("staged_on")))
     check_counter_identities(check, "plain-staged", events[1:-1], staged["staged_on"][1], I, P,
                              N_ROWS, staged=True)
     c = events[1]["outputs"][0]["counters"]
@@ -2477,7 +2515,7 @@ def phase_stop_between_chunks(torch, sr, dev, out_base):
     state, _ = sr.equation_search(X, y, options=o, niterations=10, seed=0, verbosity=0,
                                   return_state=True, device=dev)
     wall = time.perf_counter() - t0
-    events = load_events(path)
+    events = core_events(load_events(path))
     end = events[-1]
     c = events[1]["outputs"][0]["counters"]
     cycles_run = (c["eval_launches"] - 1) // options.populations
@@ -3301,6 +3339,360 @@ def phase_robustness(torch, sr, dev, out_base):
     check.raise_if_failed("robustness")
 
 
+# ---------------------------------------------------------------------------
+# Serving: zero-weight padding on the kernels, the server at full width,
+# the default diagnostics and the load bench (phases 31-33)
+# ---------------------------------------------------------------------------
+
+PAD_REAL = 6000             # phase 31's real rows (phase 3's and 4's first 6,000)
+PAD_BUCKET = 8192           # their admission bucket (serve/admission.py shape_bucket)
+PLAIN_SUBSET = 256          # trees of #2 and #3 whose plain versions are held padded/unpadded
+SERVE_ROWS = (5000, 6000, 7000, 8000)   # phase 32's requests, seeds 0-3: one 8,192-row bucket
+SERVE_CYCLES = 10
+SERVE_ITERS = 2
+DIAG_CYCLES = 10
+DIAG_ITERS = 3
+
+
+def padded_data(torch, sr, dev, fill):
+    """Phase 31's data: the bench data's first PAD_REAL rows (weights 1),
+    or the same rows padded to PAD_BUCKET with ``fill`` replicas at weight
+    0 (pack/padding.py). Returns the DeviceData."""
+    from symbolicregression_jl_tpu_torch.pack import pad_to_bucket
+
+    X, y = bench_data()
+    X, y = X[:PAD_REAL], y[:PAD_REAL]
+    if fill is None:
+        w = np.ones(PAD_REAL, np.float32)
+    else:
+        X, y, w = pad_to_bucket(X, y, rows=PAD_BUCKET, fill=fill)
+    return sr.make_dataset(X, y, weights=w, device=dev).data
+
+
+def phase_padding(torch, sr, dev, card):
+    """Phase 31: phase 3's and phase 4's trees on 6,000 real rows against
+    the same rows padded to 8,192 with cyclic and with edge replicas at
+    weight 0: kernels #1 (plain and cost forms), #2 and #3 bit-equal, and
+    the plain versions of #1 (every tree) and #2/#3 (PLAIN_SUBSET trees)
+    bit-equal too."""
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+    options, _, trees, cx, prog, _, scal, cxf = kernel1_inputs(torch, sr, dev)
+    (_, _, prog2, _, nconst, _, _, cv_ls, cv_g) = opt_kernel_inputs(torch, sr, dev)
+    ops, el = options.operators, options.elementwise_loss
+    # one scalar row for every side: the kernels' denominator is sum(w),
+    # 6,000 on each; the baseline normalization is the host's, not theirs
+    scal = scal.clone()
+    scal[0] = float(PAD_REAL)
+    check = Checks()
+    outs, times = {}, {}
+    sub = slice(0, PLAIN_SUBSET)
+    for fill in (None, "cyclic", "edge"):
+        data = padded_data(torch, sr, dev, fill)
+        a1 = FE._launch_inputs(prog, data.Xt, data.y, data.weights, N_FEATURES, ops)
+        instr, nsteps, cvals, ok, Xt, yt, w = FE._launch_inputs(prog2, data.Xt, data.y,
+                                                                data.weights, N_FEATURES, ops)
+        got = [*FE.PROGRAM_EVAL(*a1, ops, el), *FE.PROGRAM_EVAL(*a1, ops, el, cx=cxf, scal=scal),
+               *FE.PROGRAM_MULTI(instr, nsteps, cv_ls, Xt, yt, w, ops, el),
+               *FE.PROGRAM_GRAD(instr, nsteps, nconst, cv_g, Xt, yt, w, ops, el)]
+        plain = [*FE.program_eval_plain(*a1, ops, el, cx=cxf, scal=scal),
+                 *FE.program_multi_plain(instr[sub], nsteps[sub], cv_ls[sub], Xt, yt, w, ops, el),
+                 *FE.program_grad_plain(instr[sub], nsteps[sub], nconst[sub], cv_g[sub], Xt, yt,
+                                        w, ops, el)]
+        torch.cuda.synchronize()
+        outs[fill] = (got, plain)
+        times[fill] = cuda_ms(torch, lambda: FE.PROGRAM_EVAL(*a1, ops, el, cx=cxf, scal=scal), 10)
+        print(f"  {fill or 'unpadded'}: {Xt.shape[1]} rows, #1 cost form {times[fill]:.4f} ms "
+              f"(CUDA events, mean of 10; {card})")
+    names = ["#1 loss sum", "#1 validity", "#1 cost-form loss", "#1 cost-form validity",
+             "#1 cost", "#2 loss sum", "#2 validity", "#3 loss sum", "#3 validity",
+             "#3 gradient"]
+    pnames = ["#1 plain loss", "#1 plain validity", "#1 plain cost", "#2 plain loss sum",
+              "#2 plain validity", "#3 plain loss sum", "#3 plain validity", "#3 plain gradient"]
+    ref, pref = outs[None]
+    print(f"  valid: #1 {int(ref[1].sum())} of {ref[1].numel()}, #2 {int(ref[6].sum())} of "
+          f"{ref[6].numel()}, #3 {int(ref[8].sum())} of {ref[8].numel()}; digest "
+          f"{digest(*ref)}")
+    nonfin = ~torch.isfinite(ref[9])
+    print(f"  #3's unpadded gradient: {int(nonfin.sum())} of {nonfin.numel()} components "
+          f"non-finite (a replica row's 0 x inf would reach these without n_grad)")
+    for fill in ("cyclic", "edge"):
+        got, plain = outs[fill]
+        diff = ref[9].view(torch.int32) != got[9].view(torch.int32)
+        if bool(diff.any()):
+            print(f"  {fill}: {int(diff.sum())} gradient components differ, "
+                  f"{int((diff & nonfin).sum())} of them non-finite unpadded")
+        for nm, a, b in zip(names, ref, got):
+            check(f"{fill}: {nm} bit-equal to the unpadded launch", same(torch, a, b))
+        for nm, a, b in zip(pnames, pref, plain):
+            check(f"{fill}: {nm} bit-equal to the unpadded plain version", same(torch, a, b))
+    check.raise_if_failed("zero-weight padding")
+
+
+def serve_request_data(seed: int, rows: int):
+    """Phase 32's request data: ``rows`` x 5 features from ``seed``, y as in
+    the optimizer cell (bench_data's law and noise)."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-3.0, 3.0, (rows, N_FEATURES)).astype(np.float32)
+    y = (np.cos(2.13 * X[:, 0]) + 0.5 * X[:, 1] * np.abs(X[:, 2]) ** 0.9
+         - 0.3 * np.abs(X[:, 3]) ** 1.5 + 1e-1 * rng.standard_normal(rows)).astype(np.float32)
+    return X, y
+
+
+def serve_options():
+    """The optimizer cell's widths as a serve request's JSON options."""
+    return dict(binary_operators=["+", "-", "*", "/"], unary_operators=["exp", "abs", "cos"],
+                maxsize=30, populations=ISLANDS, population_size=256, tournament_selection_n=16,
+                ncycles_per_iteration=SERVE_CYCLES)
+
+
+def serve_submit(server, index: int) -> str:
+    X, y = serve_request_data(index, SERVE_ROWS[index])
+    return server.submit(X, y, options=serve_options(), niterations=SERVE_ITERS, seed=index)
+
+
+def serve_child(root: str, device: str = "cuda") -> None:
+    """Phase 32's crash: a server in a process of its own takes requests 0
+    and 1 and is SIGKILLed (by itself) once the first checkpoint lands."""
+    import signal
+    import threading
+
+    from symbolicregression_jl_tpu_torch.pack import PackPolicy
+    from symbolicregression_jl_tpu_torch.serve import SearchServer
+
+    server = SearchServer(root, pack=PackPolicy(), device=device)
+    ids = [serve_submit(server, i) for i in (0, 1)]
+
+    def kill_at_first_checkpoint():
+        paths = [os.path.join(root, "requests", r, r, "search_state.pkl") for r in ids]
+        while not any(os.path.exists(p) for p in paths):
+            time.sleep(0.01)
+        print("child: first checkpoint written; SIGKILL", flush=True)
+        os.kill(os.getpid(), signal.SIGKILL)
+
+    threading.Thread(target=kill_at_first_checkpoint, daemon=True).start()
+    server.start()
+    server.wait_idle(timeout=600)
+    print("child: finished without being killed", flush=True)
+
+
+def serve_events(root):
+    with open(os.path.join(root, "serve_telemetry.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_server(torch, sr, dev, out_base, card):
+    """Phase 32: SearchServer(pack=PackPolicy()) at the optimizer cell's
+    widths on the card: four requests of one 8,192-row bucket in one
+    cohort, each fingerprint against its run alone on a fresh server, the
+    launches, the cache, and a SIGKILLed child server replayed."""
+    from symbolicregression_jl_tpu_torch.pack import PackPolicy
+    from symbolicregression_jl_tpu_torch.serve import SearchServer
+
+    check = Checks()
+    root = os.path.join(out_base, "serve_packed")
+    server = SearchServer(root, pack=PackPolicy(), device=dev)
+    ids = [serve_submit(server, i) for i in range(len(SERVE_ROWS))]
+    for k in kernels():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server.start()
+    snaps = [server.wait(r, timeout=900) for r in ids]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    server.stop(drain=True, timeout=60)
+    launches = {k.name: k.launches for k in kernels()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for s in snaps:
+        if s["state"] != "done":
+            print(f"  {s['request_id']}: {s['state']}: {s['error']}")
+    check("every request done", all(s["state"] == "done" for s in snaps))
+    if check.failures:
+        print(f"  snapshots {snaps}")
+        check.raise_if_failed("serve")
+    ev = serve_events(root)
+    launch_ev = [e for e in ev if e["kind"] == "pack_launch"]
+    done_ev = [e for e in ev if e["kind"] == "pack_done"]
+    sizes = [len(e["detail"]["tenants"]) for e in launch_ev]
+    rounds = sum(e["detail"]["rounds"] for e in done_ev)
+    cohort_s = sum(d["t"] - l["t"] for l, d in zip(launch_ev, done_ev))
+    stats = server.cache.stats()
+    print(f"  {card}: 4 requests ({', '.join(map(str, SERVE_ROWS))} rows -> bucket "
+          f"{snaps[0]['bucket']}, pad rows {[s['pad_rows'] for s in snaps]}) in {wall:.2f} s: "
+          f"{len(ids) / wall:.4f} requests/s; launches of tenants {sizes}, {rounds} cohort "
+          f"rounds, {cohort_s / max(rounds, 1):.3f} s a round; peak device memory "
+          f"{peak:.3f} GiB; cache {stats['hits']} hits / {stats['misses']} misses (hit rate "
+          f"{stats['hit_rate']})")
+    print(f"  launches {launches}")
+    check("a launch holds 4 tenants", max(sizes, default=0) == 4)
+    opt = SERVE_ITERS * len(ids)
+    check("only #1-#3 launched, #2 8 and #3 9 a search iteration",
+          launches == expect(launches, program_eval=launches["program_eval"],
+                             program_multi=8 * opt, program_grad=9 * opt)
+          and launches["program_eval"] > 0)
+    check("cache: one miss, then hits", stats["misses"] == 1 and stats["hits"] == len(ids) - 1)
+    packed = [s["result"]["fingerprint"] for s in snaps]
+    solo_eval = 0
+    for i in range(len(ids)):
+        solo_root = os.path.join(out_base, f"serve_solo{i}")
+        solo = SearchServer(solo_root, pack=PackPolicy(), device=dev)
+        for k in kernels():
+            k.launches = 0
+        rid = serve_submit(solo, i)
+        t1 = time.perf_counter()
+        solo.start()
+        s = solo.wait(rid, timeout=600)
+        solo.stop(drain=True, timeout=60)
+        solo_eval += next(k.launches for k in kernels() if k.name == "program_eval")
+        print(f"  request {i} alone: {time.perf_counter() - t1:.2f} s ({card}), fingerprint "
+              f"{s['result']['fingerprint'][:16]}, packed {packed[i][:16]}")
+        check(f"request {i}: packed fingerprint == solo", s["result"]["fingerprint"] == packed[i])
+    check("#1's launches packed == the solo runs' sum", launches["program_eval"] == solo_eval)
+    # Crash replay: a child server takes requests 0 and 1, dies by SIGKILL
+    # at its first checkpoint; a server over the same root finishes both.
+    # The child needs the card's memory: this process's servers are gone,
+    # and the allocator's cache goes back to the driver.
+    del server, solo
+    torch.cuda.empty_cache()
+    crash_root = os.path.join(out_base, "serve_crash")
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+            f"chip_smoke.serve_child({crash_root!r}, {str(dev)!r})")
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=here, capture_output=True,
+                          text=True, timeout=600)
+    print(f"  child server: exit code {proc.returncode} after {time.perf_counter() - t1:.2f} s; "
+          f"{proc.stdout.strip()}")
+    check("child server SIGKILLed", proc.returncode == -9)
+    if proc.returncode != -9:
+        print(proc.stderr[-3000:])
+        with open(os.path.join(crash_root, "requests.jsonl")) as f:
+            for line in f:
+                rec = json.loads(line)
+                if rec["event"] == "failed":
+                    print(f"  child's {rec['request_id']} failed: {rec['detail']}")
+    t1 = time.perf_counter()
+    replay = SearchServer(crash_root, pack=PackPolicy(), device=dev).start()
+    rs = [replay.wait(r, timeout=600) for r in ("req00001", "req00002")]
+    replay.stop(drain=True, timeout=60)
+    print(f"  replay: {time.perf_counter() - t1:.2f} s ({card}), states "
+          f"{[s['state'] for s in rs]}, resumed {[s['resumed'] for s in rs]}")
+    for s in rs:
+        if s["state"] != "done":
+            print(f"  replayed {s['request_id']}: {s['state']}: {s['error']}")
+    check("replay finishes both", all(s["state"] == "done" for s in rs))
+    check("replayed fingerprints == unkilled",
+          [s["result"]["fingerprint"] for s in rs if s["result"]] == packed[:2])
+    check.raise_if_failed("serve")
+
+
+def diag_search(torch, sr, dev, out_dir, run_id, niterations=DIAG_ITERS, populations=0,
+                ncycles=0, **ropt):
+    """equation_search on the optimizer cell at ``ncycles`` (DIAG_CYCLES)
+    cycles with telemetry and its files under ``out_dir``; ``ropt``
+    RuntimeOptions fields. Returns (state, seconds)."""
+    X, y = bench_data()
+    options = bench_options(sr, ncycles or DIAG_CYCLES, populations, save_to_file=True,
+                            output_directory=out_dir, telemetry=True)
+    t0 = time.perf_counter()
+    state, _ = sr.equation_search(
+        X, y, options=options, device=dev, runtime_options=sr.RuntimeOptions(
+            niterations=niterations, seed=0, verbosity=0, run_id=run_id, return_state=True,
+            **ropt))
+    torch.cuda.synchronize()
+    return state, time.perf_counter() - t0
+
+
+def phase_diagnostics(torch, sr, dev, out_base, card):
+    """Phase 33: ledger, pulse and gauge off / on / on / off at the
+    optimizer cell; an injected fault's bundle and a profiler window; the
+    timeline; then the load bench on the card."""
+    from symbolicregression_jl_tpu_torch.bench import load as L
+    from symbolicregression_jl_tpu_torch.ledger.ledger import load_accounts
+    from symbolicregression_jl_tpu_torch.ledger.timeline import validate_chrome_trace
+    from symbolicregression_jl_tpu_torch.pulse.recorder import validate_bundle
+    from symbolicregression_jl_tpu_torch.shield import faults
+    from symbolicregression_jl_tpu_torch.telemetry import report
+
+    check = Checks()
+    d = os.path.join(out_base, "diag")
+    off = dict(ledger=False, pulse=False, gauge=False)
+    turns = []
+    for i, on in enumerate((False, True, True, False)):
+        state, secs = diag_search(torch, sr, dev, d, f"turn{i}", **({} if on else off))
+        run_dir = os.path.join(d, f"turn{i}")
+        turns.append((on, state_tensors(torch, state.device_states[0]), run_dir))
+        print(f"  turn {i} (ledger, pulse, gauge {'on' if on else 'off'}): {secs:.2f} s, "
+              f"{seconds_per_iteration(run_events(run_dir)):.3f} s/iteration after the first "
+              f"({card})")
+    ref = turns[0][1]
+    check("hall of fame and state bit-identical across turns",
+          all(len(t) == len(ref) and all(same(torch, a, b) for a, b in zip(ref, t))
+              for _, t, _ in turns[1:]))
+    for on, _, run_dir in turns:
+        ev = run_events(run_dir)
+        gauge = [e for e in ev if e["event"] == "gauge"]
+        if not on:
+            check(f"{os.path.basename(run_dir)}: no ledger, no gauge events",
+                  not os.path.exists(os.path.join(run_dir, "ledger.jsonl")) and not gauge)
+            continue
+        accts = load_accounts(os.path.join(run_dir, "ledger.jsonl"))
+        check(f"{os.path.basename(run_dir)}: ledger.jsonl validates, {DIAG_ITERS} iterations",
+              len(accts) == 1 and accts[0]["deterministic"]["iterations"] == DIAG_ITERS)
+        mem = [e["detail"] for e in gauge if e["kind"] == "memory"]
+        total = torch.cuda.get_device_properties(dev).total_memory
+        check(f"{os.path.basename(run_dir)}: gauge memory events carry torch.cuda bytes",
+              len(mem) == DIAG_ITERS and all(m["live_bytes"] > 0 and m["bytes_in_use"] > 0
+                                             and m["bytes_limit"] == total for m in mem))
+        print(f"  {os.path.basename(run_dir)}: ledger device_s {accts[0]['wall']['device_s']:.3f} "
+              f"host_s {accts[0]['wall']['host_s']:.3f}, compile "
+              f"{accts[0]['wall']['compile']}; gauge live bytes "
+              f"{[m['live_bytes'] for m in mem]}, peak in use "
+              f"{max(m['peak_bytes_in_use'] for m in mem) / 2**30:.3f} GiB ({card})")
+    out = os.path.join(d, "timeline.json")
+    rc = report.main(["timeline", turns[1][2], "--out", out])
+    with open(out) as f:
+        doc = json.load(f)
+    check("telemetry timeline renders a valid Chrome trace",
+          rc == 0 and validate_chrome_trace(doc) == [] and len(doc["traceEvents"]) > 10)
+    # An injected out-of-memory (retried) dumps the flight recorder's
+    # bundle; a profiler window over one iteration; at 64 islands and 2
+    # cycles, which bounds the trace (about 6,400 launches a cycle).
+    faults.install(faults.FaultInjector(faults.FaultPlan(
+        raise_on_dispatch=2, raise_count=1, raise_message="CUDA out of memory (injected)")))
+    try:
+        _, secs = diag_search(torch, sr, dev, d, "fault", niterations=2, populations=64,
+                              ncycles=2, pulse_trace_on=True, pulse_trace_iterations=1)
+    finally:
+        faults.clear()
+    run_dir = os.path.join(d, "fault")
+    bundle_path = os.path.join(run_dir, "pulse_bundle.json")
+    with open(bundle_path) as f:
+        bundle = json.load(f)
+    check("the injected fault dumped a valid pulse bundle",
+          validate_bundle(bundle) == [] and bundle["trigger"]["reason"] == "fault")
+    trace = os.path.join(run_dir, "pulse_traces", "capture01", "trace.json")
+    with open(trace) as f:
+        tdoc = json.load(f)
+    kern = sum(1 for e in tdoc.get("traceEvents", [])
+               if e.get("cat") == "kernel" and "program_" in str(e.get("name")))
+    print(f"  fault run (64 islands, 2 cycles, 2 iterations): {secs:.2f} s; bundle trigger "
+          f"{bundle['trigger']}; profiler window {os.path.getsize(trace) / 2**20:.1f} MiB, "
+          f"{len(tdoc.get('traceEvents', []))} events, {kern} of them launches of #1-#3")
+    check("one torch.profiler window written, with the kernels on the device", kern > 0)
+    # The load bench on the card: the storm's four numbers.
+    rep = L.run_load(os.path.join(out_base, "load"), device=str(dev), log=lambda *a: None)
+    p99 = rep["poll_latency_s"]["p99"]
+    print(f"  load bench ({card}): {rep['requests_per_sec']} requests/s, p99 poll latency "
+          f"{p99} s, cache hit rate {rep['cache_hit_rate']}, shed fraction "
+          f"{rep['shed_fraction']}; {rep['completed']}/{rep['submitted']} done, "
+          f"{rep['rejected']} rejects retried, {rep['wall_s']} s")
+    check("load bench ok", rep["ok"])
+    check.raise_if_failed("diagnostics")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ncycles", type=int, default=30,
@@ -3476,6 +3868,16 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
     header("[30] robustness at the optimizer cell's width (retry, OOM, quarantine, SIGTERM, "
           "watchdog)")
     phase_robustness(torch, sr, dev, out_base)
+
+    header("[31] zero-weight padding on kernels #1-#3 (6,000 rows against 8,192)")
+    phase_padding(torch, sr, dev, card)
+
+    header("[32] SearchServer with packing at the optimizer cell's widths")
+    phase_server(torch, sr, dev, out_base, card)
+
+    header("[33] ledger, pulse and gauge in turns, a fault's bundle, a profiler window, the "
+           "load bench")
+    phase_diagnostics(torch, sr, dev, out_base, card)
 
     header("")
     print(card)

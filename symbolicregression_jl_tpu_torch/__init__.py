@@ -15,6 +15,13 @@ backward (``csrc/program_predict.cu``, ``csrc/program_predict_vjp.cu``);
 the rest is eager PyTorch. Module paths mirror the JAX package so each
 module's counterpart is easy to find.
 
+The serving stack (``serve/``, ``pack/``): ``SearchServer`` takes many
+searches from many tenants on one card, journals every request so it
+survives a kill, and packs same-shape requests into lockstep cohorts;
+``equation_search`` writes the default diagnostics of ``ledger/``,
+``pulse/`` and ``gauge/`` (a cost account, a flight recorder, memory
+samples).
+
 The search API is the JAX package's: ``equation_search`` with guesses,
 ``initial_population``, warm starts (``saved_state``), checkpoints and
 ``resume``, hall-of-fame CSVs, several outputs and minibatching
@@ -60,4 +67,15 @@ __all__ = [
     "save_hall_of_fame_csv",
     "string_tree",
     "warmup",
+    "SearchServer",
+    "ServerSaturated",
 ]
+
+
+def __getattr__(name):
+    # The serve layer on first use, as in the JAX package.
+    if name in ("SearchServer", "ServerSaturated"):
+        from . import serve
+
+        return getattr(serve, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

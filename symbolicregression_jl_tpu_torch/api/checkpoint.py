@@ -132,6 +132,11 @@ def _value_fp(v) -> str:
                     target = getattr(target, part, None)
                 if target is v:
                     return f"lib:{mod}.{qn}"
+                # torch's functions (torch.cos: qualname
+                # "_VariableFunctionsClass.cos") resolve by their name
+                name = getattr(v, "__name__", None)
+                if name and getattr(sys.modules.get(mod), name, None) is v:
+                    return f"lib:{mod}.{name}"
             raise _Unfingerprintable(repr(v))
         # A non-module global can be rebound between runs without changing
         # the code object.

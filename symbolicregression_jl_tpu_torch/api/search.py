@@ -11,7 +11,8 @@ their CSVs and a rolling checkpoint every ``checkpoint_every_n``
 iterations (``save_to_file``), and stops early on ``timeout_in_seconds``,
 ``max_evals`` or a 'q' on stdin (``user_quit``), checked between chunks
 of an iteration's cycles and at its end, or on ``early_stop_condition``
-or ``RuntimeOptions.stop_hook``, checked at iteration boundaries.
+or ``RuntimeOptions.stop_hook``, checked at iteration boundaries (the
+serve layer's cancel and deadline wire, ``serve/server.py``).
 
 Observability (``telemetry/``, ``utils/``): ``Options(telemetry=True)``
 writes the graftscope JSONL stream (``telemetry_file`` in the run's
@@ -29,6 +30,20 @@ its expressions over every island's members; ``saved_state`` (a
 iterations; ``resume="auto"`` or ``resume=<path>`` continues the newest
 valid checkpoint to ``niterations`` in total, so a killed and resumed
 search ends bit-identical to one that ran through.
+
+Diagnostics on by default, as in the JAX package, host-side and
+bit-neutral (``RuntimeOptions(ledger=, pulse=, gauge=)``): the graftledger
+cost account appended to ``<run_dir>/ledger.jsonl`` (``ledger/``); the
+graftpulse flight recorder, which dumps ``<run_dir>/pulse_bundle.json`` on
+a fault or an exception, the anomaly detector and, with
+``pulse_trace_on``, an anomaly or SIGUSR2, ``torch.profiler`` windows
+under ``<run_dir>/pulse_traces/`` (``pulse/``); graftgauge's memory
+samples (``gauge`` events, with a telemetry stream or the opt-in
+headroom degrader), dispatch-latency histogram and, with
+``gauge_footprint``, one footprint probe iteration per engine
+(``gauge/``). ``RuntimeOptions(engine_cache=)`` shares engines between
+searches (``serve/cache.py``) and ``trace`` threads a served request's
+trace context through.
 
 graftshield (``shield/``, on with ``Options(shield=True)``, the default):
 SIGTERM or SIGINT stops the search at the next iteration boundary with
@@ -66,11 +81,12 @@ from ..evolve.engine import Engine, SearchDeviceState
 from ..evolve.population import init_params
 from ..evolve.step import update_hof
 from ..ledger.context import mint_run_trace
+from ..ledger.ledger import CostLedger
 from ..models.spec import ParametricExpressionSpec
 from ..ops.encoding import TreeBatch, encode_population
 from ..ops.tree import Node, parse_expression
 from ..telemetry.hub import IterationContext, LoggerSink, ProgressSink, RecorderSink, Telemetry
-from ..telemetry.spans import host_span, set_nvtx, step_span
+from ..telemetry.spans import host_span, set_nvtx, set_span_observer, step_span
 from ..utils.monitor import ResourceMonitor
 from ..utils.progress import ProgressBar
 from ..utils.recorder import Recorder
@@ -81,7 +97,6 @@ from .hall_of_fame import HallOfFame, save_hall_of_fame_csv, string_dominating_p
 __all__ = ["RuntimeOptions", "SearchState", "equation_search", "get_cur_maxsize", "warmup"]
 
 MULTI_DEVICE_SLICE = "the multi-device slice (ROADMAP.md queue 1 item 9)"
-SERVING_SLICE = "the serving-stack slice (ROADMAP.md queue 1 item 7)"
 
 
 def _default_run_id() -> str:
@@ -93,10 +108,9 @@ def _default_run_id() -> str:
 class RuntimeOptions:
     """Execution (not search) parameters, with the JAX package's names
     and defaults. The port runs on one device (``equation_search``'s
-    ``device``); a field that asks for a subsystem of a later slice
-    (devices and meshes, the engine cache, trace contexts, profiler
-    captures, the capacity gauge) raises NotImplementedError naming that
-    slice when it leaves its default. ``progress`` draws a progress bar,
+    ``device``); a field that asks for devices or meshes (the
+    multi-device slice) raises NotImplementedError naming that slice
+    when it leaves its default. ``progress`` draws a progress bar,
     ``logger`` (an ``SRLogger`` or anything with ``log_iteration``) is
     called every ``log_every_n`` iterations, and ``input_stream`` is
     watched for a 'q' that stops the search (``user_quit``)."""
@@ -144,12 +158,6 @@ _RUNTIME_LATER = {
     "mesh_runtime": (False, MULTI_DEVICE_SLICE),
     "mesh_dedup": (True, MULTI_DEVICE_SLICE),
     "mesh_exchange_every": (8, MULTI_DEVICE_SLICE),
-    "engine_cache": (None, SERVING_SLICE),
-    "trace": (None, SERVING_SLICE),
-    "pulse_trace_on": (False, SERVING_SLICE),
-    "gauge_footprint": (False, SERVING_SLICE),
-    "gauge_headroom_fraction": (None, SERVING_SLICE),
-    "gauge_limit_bytes": (None, SERVING_SLICE),
 }
 
 
@@ -513,8 +521,17 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
                 raise ValueError("ParametricExpressionSpec requires a `class` column: pass "
                                  "extra={'class': ...}")
             n_params, n_classes = options.expression_spec.max_parameters, ds.n_classes
-        engine = Engine(options, ds.nfeatures, device=dev, n_params=n_params,
-                        n_classes=n_classes, dtype=ds.data.Xt.dtype)
+        # graftserve's engine cache: an equivalent canonical config reuses
+        # an earlier request's Engine; None (no cache, or an uncacheable
+        # config) builds a fresh one.
+        engine = None
+        if ropt.engine_cache is not None:
+            engine = ropt.engine_cache.get_engine(
+                options, nfeatures=ds.nfeatures, dtype=ds.data.Xt.dtype, n_params=n_params,
+                n_classes=n_classes, device=dev, rows=int(ds.data.y.shape[0]))
+        if engine is None:
+            engine = Engine(options, ds.nfeatures, device=dev, n_params=n_params,
+                            n_classes=n_classes, dtype=ds.data.Xt.dtype)
         template = engine.template
         if template is not None and ds.nfeatures != template.n_variables:
             raise ValueError(f"Template combiner consumes {template.n_variables} variables "
@@ -594,8 +611,10 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
     # One object owns every per-iteration consumer (the SRLogger, the
     # genealogy Recorder, the ProgressBar) as registered sinks, plus the
     # schema-versioned JSONL stream when options.telemetry is set; every
-    # event carries a trace minted from run_id.
-    search_trace = mint_run_trace(ropt.run_id)
+    # event carries the search's trace: a child span of a served request's
+    # journaled root TraceContext, else one minted from run_id.
+    search_trace = (ropt.trace.child("search") if ropt.trace is not None
+                    else mint_run_trace(ropt.run_id))
     hub = Telemetry(
         options, run_id=ropt.run_id, out_dir=out_dir, niterations=ropt.niterations,
         nout=len(datasets), backend=dev.type, trace=search_trace,
@@ -617,6 +636,89 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
     if ropt.progress:
         hub.add_sink(ProgressSink(ProgressBar(ropt.niterations)))
     set_nvtx(dev.type == "cuda")
+
+    # ---- graftpulse diagnostics (pulse/) ----
+    # The flight recorder is a sink (the per-iteration ring) and a watcher
+    # (a fault dumps the bundle, before a watchdog abort can end the
+    # process); the anomaly detector arms the budgeted profiler capture.
+    from ..pulse import AnomalyDetector, FlightRecorder, SignalArm, TraceCapture
+
+    pulse_rec = pulse_cap = pulse_sig = pulse_det = None
+    if ropt.pulse:
+        pulse_rec = FlightRecorder(
+            capacity=ropt.pulse_ring, run_id=ropt.run_id, hub=hub,
+            path=os.path.join(out_dir, "pulse_bundle.json") if out_dir is not None else None)
+        hub.add_sink(pulse_rec)
+        hub.add_watcher(pulse_rec.on_event)
+        if out_dir is not None:
+            pulse_cap = TraceCapture(out_dir, hub=hub,
+                                     window_iterations=ropt.pulse_trace_iterations,
+                                     max_captures=ropt.pulse_trace_budget)
+            if ropt.pulse_trace_on:
+                pulse_cap.arm("option", 0)
+            pulse_sig = SignalArm().install()
+        pulse_det = AnomalyDetector(
+            hub, on_anomaly=pulse_cap.arm if pulse_cap is not None else None,
+            expected_rescore_fraction=(float(options.rescore_fraction)
+                                       if options.staged_eval else None))
+        hub.add_sink(pulse_det)
+
+    # ---- graftledger cost account (ledger/ledger.py) ----
+    # One account segment per search attempt, appended to
+    # <run_dir>/ledger.jsonl: device and host seconds per iteration, kernel
+    # load and build seconds, the host spans (this thread's observer only,
+    # so concurrent serve tenants each see their own), checkpoint bytes.
+    ledger_sink = None
+    if ropt.ledger:
+        ledger_sink = CostLedger(
+            os.path.join(out_dir, "ledger.jsonl") if out_dir is not None else None,
+            run_id=ropt.run_id, trace=search_trace, hub=hub)
+        hub.add_sink(ledger_sink)
+        set_span_observer(ledger_sink.note_phase)
+
+    # ---- graftgauge capacity observability (gauge/) ----
+    # The memory sampler arms only when something reads it (a telemetry
+    # stream or the opt-in headroom degrader); the dispatch-latency
+    # histogram is always on with gauge.
+    from ..gauge import DispatchLatency, MemorySampler, ProactiveDegrader
+    from ..gauge import global_latency as _gauge_global_latency
+
+    gauge_sampler = gauge_lat = None
+    if ropt.gauge:
+        gauge_degrader = None
+        if ropt.gauge_headroom_fraction is not None:
+            def _degrade_all_engines():
+                new_rows = None
+                for e in engines:
+                    r = e.degrade_eval_tile_rows()
+                    if r is not None:
+                        new_rows = r
+                return new_rows
+
+            gauge_degrader = ProactiveDegrader(
+                _degrade_all_engines, headroom_fraction=ropt.gauge_headroom_fraction,
+                limit_bytes=ropt.gauge_limit_bytes, hub=hub)
+        if hub.path is not None or gauge_degrader is not None:
+            gauge_sampler = MemorySampler(hub, detector=pulse_det, recorder=pulse_rec,
+                                          degrader=gauge_degrader, device=dev)
+            hub.add_sink(gauge_sampler)
+        gauge_lat = DispatchLatency()
+        if ropt.gauge_footprint:
+            from ..gauge import probe_engine_iteration
+
+            for j, (e, st, ds) in enumerate(zip(engines, states, datasets)):
+                entry = probe_engine_iteration(e, st, ds.data)
+                if entry is not None:
+                    hub.gauge("footprint", iteration=0, output=j + 1, **entry)
+        if gauge_sampler is not None:
+            if ledger_sink is not None:
+                def _observe_span(name, seconds, _ledger=ledger_sink, _smp=gauge_sampler):
+                    _ledger.note_phase(name, seconds)
+                    _smp.note_phase(name, seconds)
+
+                set_span_observer(_observe_span)
+            else:
+                set_span_observer(gauge_sampler.note_phase)
 
     # ---- graftshield supervision (shield/) ----
     # The guard turns SIGTERM/SIGINT into a stop at the next iteration
@@ -644,6 +746,16 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
         injector = active_injector(telemetry=hub)
     for kind, detail in resume_events:
         hub.fault(kind, iteration=start_iter, **detail)
+
+    def _note_checkpoint_bytes(saved_path: Optional[str]) -> None:
+        # graftledger: the bytes of each full-state checkpoint (wall: a
+        # re-save after a resume makes the count schedule-dependent)
+        if ledger_sink is None or not saved_path:
+            return
+        try:
+            ledger_sink.note_checkpoint(os.path.getsize(saved_path))
+        except OSError:
+            pass
 
     last_ckpt_it = -1
     it = start_iter
@@ -717,6 +829,13 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
             sizes = _chunk_sizes(options.ncycles_per_iteration, n_chunks)
             iter_events = [None] * len(engines)
             attempts = 0
+            # graftpulse capture boundary: an armed window opens before
+            # this iteration's device work (SIGUSR2 arms here too; its
+            # handler only set a flag).
+            if pulse_cap is not None:
+                if pulse_sig is not None and pulse_sig.consume():
+                    pulse_cap.arm("sigusr2", it + 1)
+                pulse_cap.maybe_start(it + 1)
             with step_span(it + 1, trace_id=search_trace.trace_id,
                            span_id=search_trace.span_id):
                 for j, (engine, ds) in enumerate(zip(engines, datasets)):
@@ -732,8 +851,15 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
                                 chunk_sizes=sizes if len(sizes) > 1 else None,
                                 should_stop=_budget_hit)
 
+                    # graftgauge dispatch latency: the host time of the
+                    # launch call (the blocking sync is timed below).
+                    lat_t0 = time.perf_counter() if gauge_lat is not None else None
                     out = (runner.run(attempt, iteration=it + 1, engine=engine, output=j + 1)
                            if runner is not None else attempt())
+                    if lat_t0 is not None:
+                        lat_dt = time.perf_counter() - lat_t0
+                        gauge_lat.observe(lat_dt)
+                        _gauge_global_latency().observe(lat_dt)
                     if engine.cfg.record_events:
                         states[j], iter_events[j] = out
                     else:
@@ -769,6 +895,7 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
                 hook_reason = ropt.stop_hook()
                 if hook_reason:
                     stop_reason = str(hook_reason)
+                    hub.fault("external_stop", iteration=it, reason=stop_reason)
             with host_span("hof_decode"):
                 hofs = [HallOfFame.from_device(s.hof, options.operators, template=e.template)
                         for s, e in zip(states, engines)]
@@ -781,7 +908,7 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
                                               options.operators,
                                               variable_names=ds.variable_names)
                     if it % ropt.checkpoint_every_n == 0:
-                        ckpt.save(checkpoint_state())
+                        _note_checkpoint_bytes(ckpt.save(checkpoint_state()))
                         last_ckpt_it = it
             elapsed = time.time() - start_time
             best = min((e.loss for h in hofs for e in h.entries), default=np.inf)
@@ -792,6 +919,10 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
                 elapsed=elapsed, best_loss=best, evals_per_sec=rate,
                 device_s=host_t0 - dev_t0, host_s=monitor_host,
                 host_fraction=monitor.estimate_work_fraction(), events=iter_events))
+            # Close a trace window once it has covered its iterations
+            # (after hub.iteration, so it holds the sinks' spans too).
+            if pulse_cap is not None:
+                pulse_cap.maybe_stop(it)
             if ropt.verbosity >= 2:
                 print(f"[iter {it}/{ropt.niterations}] best_loss={best:.6g} "
                       f"evals={evals:.3g} ({rate:.3g}/s, host "
@@ -807,15 +938,33 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
         # resume that ran nothing writes nothing (each save rotates a
         # generation out).
         if ckpt is not None and it > start_iter and it != last_ckpt_it:
-            ckpt.save(checkpoint_state())
+            _note_checkpoint_bytes(ckpt.save(checkpoint_state()))
         if ckpt is not None and it > 0 and stop_reason == "preempted":
             hub.fault("emergency_checkpoint", iteration=it, path=ckpt.base,
                       iterations_done=it)
+        # graftgauge's end-of-run records, before run_end: the memory
+        # watermarks and the dispatch-latency histogram.
+        if gauge_sampler is not None:
+            gauge_sampler.emit_final(iteration=int(it))
+        if gauge_lat is not None and gauge_lat.count:
+            hub.gauge("dispatch_latency", iteration=int(it), **gauge_lat.to_detail())
         # Flush any partial telemetry interval, emit run_end, close sinks
         # (ProgressBar close, Recorder final state and write).
         hub.finish(stop_reason=stop_reason or "niterations", num_evals=total_evals(),
                    elapsed=time.time() - start_time)
     finally:
+        # graftpulse teardown first, while the hub is open: dump the
+        # flight recorder's ring when the search is leaving on an error
+        # (a fault already dumped it), close any open trace window,
+        # release SIGUSR2.
+        exc_type = sys.exc_info()[0]
+        if pulse_rec is not None and exc_type is not None:
+            pulse_rec.dump(trigger={"reason": "exception", "kind": exc_type.__name__,
+                                    "iteration": int(it)})
+        if pulse_cap is not None:
+            pulse_cap.close(int(it))
+        if pulse_sig is not None:
+            pulse_sig.uninstall()
         # A failing or interrupted search still releases the hub's
         # kernel-build listener (idempotent after a clean finish), the
         # signal handlers and the watchdog's thread.
@@ -824,6 +973,10 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
         guard.uninstall()
         if watchdog is not None:
             watchdog.stop()
+        if ledger_sink is not None or gauge_sampler is not None:
+            # a serve worker thread runs searches back to back: the next
+            # one must not bill its phases to this one's ledger
+            set_span_observer(None)
 
     if ropt.verbosity >= 1:
         for j, (hof, ds) in enumerate(zip(hofs, datasets)):

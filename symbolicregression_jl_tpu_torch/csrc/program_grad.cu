@@ -106,7 +106,7 @@ program_grad_kernel(
     const C* __restrict__ y,            // [n]
     const C* __restrict__ w,            // [n]
     const int* __restrict__ optab,      // [n_codes]
-    int V, int L, int CMAX, int F, int n, int W, int mlo, int mhi, int code_mask,
+    int V, int L, int CMAX, int F, int n, int n_grad, int W, int mlo, int mhi, int code_mask,
     int sign_shift, LossSpec<C> ls, C* __restrict__ loss_out, int* __restrict__ valid_out,
     C* __restrict__ gcomp_out) {        // [T, V, CMAX]
   extern __shared__ __align__(16) unsigned char smem[];
@@ -157,6 +157,8 @@ program_grad_kernel(
       const int r = r0 + K * tid;
       if (r >= n) break;   // no barrier in the row loop
       const int live = min(K, n - r);
+      // the rows whose constants' cotangents count: those before n_grad
+      const int glive = max(0, min(live, n_grad - r));
       const RowPack<C, K> yk = load_rows<C, K>(y, r, n, vec_yw, C(0));
       const RowPack<C, K> wk = load_rows<C, K>(w, r, n, vec_yw, C(0));
       for (int f0 = 0; f0 < F; f0 += TILE_LOADS) {
@@ -188,7 +190,7 @@ program_grad_kernel(
         }
         *reinterpret_cast<RowPack<C, K>*>(av) = lsum;
         if (!ok) sok[c] = 0;
-        run_tile_reverse<C, K, false>(rtab, m, col, cv, adj, av + W, nullptr, W, live, ct);
+        run_tile_reverse<C, K, false>(rtab, m, col, cv, adj, av + W, nullptr, W, glive, ct);
       }
     }
 
@@ -213,8 +215,8 @@ template <typename C, int LOSS>
 cudaError_t launch_grad(int T, int W, cudaStream_t stream, const int* instr, const int* nsteps,
                         const int* nconst, const C* cvals_v, const C* X, const C* y,
                         const C* w, const int* optab, int V, int L, int CMAX, int F, int n,
-                        int code_mask, int sign_shift, LossSpec<C> ls, C* loss, int* valid,
-                        C* gcomp) {
+                        int n_grad, int code_mask, int sign_shift, LossSpec<C> ls, C* loss,
+                        int* valid, C* gcomp) {
   if (W % GRAD_ROWS != 0 || W > TILE_MAX_W || (W & (W - 1)) != 0) return cudaErrorInvalidValue;
   if (grad_layout(W, L, L, CMAX, F, sizeof(C)).total > kSmemLimit) return cudaErrorInvalidValue;
   auto kern = program_grad_kernel<C, LOSS, GRAD_ROWS>;
@@ -224,8 +226,8 @@ cudaError_t launch_grad(int T, int W, cudaStream_t stream, const int* instr, con
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     kern<<<T, W / GRAD_ROWS, smem, stream>>>(instr, nsteps, nconst, cvals_v, X, y, w, optab, V,
-                                             L, CMAX, F, n, W, mlo, mhi, code_mask, sign_shift,
-                                             ls, loss, valid, gcomp);
+                                             L, CMAX, F, n, n_grad, W, mlo, mhi, code_mask,
+                                             sign_shift, ls, loss, valid, gcomp);
     return cudaGetLastError();
   });
 }
@@ -233,7 +235,7 @@ cudaError_t launch_grad(int T, int W, cudaStream_t stream, const int* instr, con
 template <typename C>
 int grad_entry(const int* instr, const int* nsteps, const int* nconst, const C* cvals_v,
                const C* X, const C* y, const C* w, const int* optab, int T, int V, int L,
-               int CMAX, int F, int n, int block, int loss_kind, double loss_param,
+               int CMAX, int F, int n, int n_grad, int block, int loss_kind, double loss_param,
                int code_mask, int sign_shift, C* loss, int* valid, C* gcomp, void* stream) {
   if ((long long)T * V == 0) return 0;
   if (loss_kind < LOSS_L2 || loss_kind > LOSS_PERIODIC_L2) return (int)cudaErrorInvalidValue;
@@ -241,12 +243,12 @@ int grad_entry(const int* instr, const int* nsteps, const int* nconst, const C* 
   const LossSpec<C> ls{loss_kind, (C)loss_param};
   if (loss_kind == LOSS_L2) {
     return (int)launch_grad<C, LOSS_L2>(T, block, s, instr, nsteps, nconst, cvals_v, X, y, w,
-                                        optab, V, L, CMAX, F, n, code_mask, sign_shift, ls,
-                                        loss, valid, gcomp);
+                                        optab, V, L, CMAX, F, n, n_grad, code_mask, sign_shift,
+                                        ls, loss, valid, gcomp);
   }
   return (int)launch_grad<C, LOSS_ANY>(T, block, s, instr, nsteps, nconst, cvals_v, X, y, w,
-                                       optab, V, L, CMAX, F, n, code_mask, sign_shift, ls, loss,
-                                       valid, gcomp);
+                                       optab, V, L, CMAX, F, n, n_grad, code_mask, sign_shift, ls,
+                                       loss, valid, gcomp);
 }
 
 template <typename C>
@@ -276,26 +278,31 @@ extern "C" size_t sr_program_grad_f64_smem(int block, int L, int CMAX, int F) {
 // Launch on `stream` with W = `block` lanes (W / GRAD_ROWS threads per
 // tree), one launch per step-count class; returns cudaGetLastError() (0 on
 // success). `loss_kind` is one of the LOSS_* kinds, `loss_param` its
-// parameter (interp.cuh LossSpec).
+// parameter (interp.cuh LossSpec). The gradient sums the constants'
+// cotangents of rows 0 .. n_grad - 1 only (n_grad <= n: the wrapper passes
+// the rows up to the last one of positive weight), so zero-weight rows
+// appended to a request (pack/padding.py) leave every bit of it as it was,
+// even where a row's derivative is not finite (0 x inf); the loss and the
+// validity read all n rows.
 extern "C" int sr_program_grad(const int* instr, const int* nsteps, const int* nconst,
                                const float* cvals_v, const float* X, const float* y,
                                const float* w, const int* optab, int T, int V, int L,
-                               int CMAX, int F, int n, int block, int loss_kind,
+                               int CMAX, int F, int n, int n_grad, int block, int loss_kind,
                                double loss_param, int code_mask, int sign_shift, float* loss,
                                int* valid, float* gcomp, void* stream) {
   return grad_entry<float>(instr, nsteps, nconst, cvals_v, X, y, w, optab, T, V, L, CMAX, F, n,
-                           block, loss_kind, loss_param, code_mask, sign_shift, loss, valid,
-                           gcomp, stream);
+                           n_grad, block, loss_kind, loss_param, code_mask, sign_shift, loss,
+                           valid, gcomp, stream);
 }
 
 // The float64 form: every input, output, value, adjoint and sum in double.
 extern "C" int sr_program_grad_f64(const int* instr, const int* nsteps, const int* nconst,
                                    const double* cvals_v, const double* X, const double* y,
                                    const double* w, const int* optab, int T, int V, int L,
-                                   int CMAX, int F, int n, int block, int loss_kind,
+                                   int CMAX, int F, int n, int n_grad, int block, int loss_kind,
                                    double loss_param, int code_mask, int sign_shift,
                                    double* loss, int* valid, double* gcomp, void* stream) {
   return grad_entry<double>(instr, nsteps, nconst, cvals_v, X, y, w, optab, T, V, L, CMAX, F,
-                            n, block, loss_kind, loss_param, code_mask, sign_shift, loss, valid,
-                            gcomp, stream);
+                            n, n_grad, block, loss_kind, loss_param, code_mask, sign_shift, loss,
+                            valid, gcomp, stream);
 }

@@ -1,8 +1,7 @@
 """graftledger trace context: deterministic causal ids for one request.
 
-A copy of the JAX package's ``ledger/context.py``, less ``mint_trace``
-(served requests, ROADMAP.md queue 1 item 7): the telemetry hub stamps
-these ids on every event.
+A copy of the JAX package's ``ledger/context.py``: both packages mint the
+same ids from the same request, so their journals and streams join.
 
 A :class:`TraceContext` is the W3C-traceparent-shaped triple
 ``(trace_id, span_id, parent_id)`` that ties every graftscope event a
@@ -18,7 +17,7 @@ by hashing request *content* (request id, seed, iteration budget), so
   detail, and :meth:`TraceContext.from_detail` reads it back verbatim —
   the hash is only the minting rule, never re-derived on replay), and
 - two servers running the same request set over different roots agree
-  on every id, which is what lets `tools/ledger_smoke.py` compare
+  on every id, which is what lets a test compare
   deterministic ledger fingerprints across an uninterrupted root and a
   killed-and-resumed one.
 
@@ -31,7 +30,7 @@ import dataclasses
 import hashlib
 from typing import Any, Dict, Optional
 
-__all__ = ["TraceContext", "mint_run_trace"]
+__all__ = ["TraceContext", "mint_trace", "mint_run_trace"]
 
 _MINT_DOMAIN = "graftledger"
 
@@ -83,6 +82,22 @@ class TraceContext:
         parent = obj.get("parent_id")
         return cls(trace_id=trace_id, span_id=span_id,
                    parent_id=parent if isinstance(parent, str) else None)
+
+
+def mint_trace(request_id: str, *, seed: int, niterations: int
+               ) -> TraceContext:
+    """Root span for one served request, minted at ``submit()``.
+
+    Hashes only request content — never the serve root path — so
+    identical request sets over different roots mint identical ids.
+    """
+    trace_id = _hex(
+        f"{_MINT_DOMAIN}:{request_id}:{seed}:{niterations}", 32)
+    return TraceContext(
+        trace_id=trace_id,
+        span_id=_hex(f"{trace_id}:root", 16),
+        parent_id=None,
+    )
 
 
 def mint_run_trace(run_id: str) -> TraceContext:

@@ -56,8 +56,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 import weakref
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -267,6 +268,40 @@ def _plain_forward(instr, nsteps, cvals, X, operators: OperatorSet, prows=None,
     return buf, vmask, words
 
 
+def _weighted_rows(w) -> int:
+    """The rows up to the last one of positive weight. A row of weight 0
+    adds exactly +0.0 to every sum of the kernels (csrc/interp.cuh
+    ``loss_term``; its loss cotangent is 0 too), and the kernels' lanes
+    take the rows in order, so trailing rows of weight 0 change no bit of
+    a kernel's sums. The plain versions leave them out of their row sums
+    to the same end: a request padded with zero-weight rows to its bucket
+    (pack/padding.py) sums the same terms in the same layout as the
+    unpadded request. Their validity still reads every row."""
+    pos = torch.nonzero(w > 0)
+    return int(pos[-1]) + 1 if pos.numel() else 0
+
+
+# id(w) -> (weak reference to w, w's version counter, _weighted_rows(w)):
+# kernel #3's wrapper needs the count on the host at every launch, and a
+# search passes the same weights every time, so it is read back once.
+_WEIGHTED_ROWS: dict = {}
+_WEIGHTED_LOCK = threading.Lock()
+
+
+def weighted_rows(w) -> int:
+    """``_weighted_rows(w)``, cached while ``w`` lives unmodified (one host
+    read of a CUDA tensor per weights tensor)."""
+    with _WEIGHTED_LOCK:
+        hit = _WEIGHTED_ROWS.get(id(w))
+        if hit is not None and hit[0]() is w and hit[1] == w._version:
+            return hit[2]
+        rows = _weighted_rows(w)
+        for k in [k for k, v in _WEIGHTED_ROWS.items() if v[0]() is None]:
+            del _WEIGHTED_ROWS[k]
+        _WEIGHTED_ROWS[id(w)] = (weakref.ref(w), w._version, rows)
+        return rows
+
+
 def _root(buf, nsteps, base: int):
     """Each tree's last step row [T, n]."""
     rows = torch.arange(buf.shape[0], device=buf.device)
@@ -296,7 +331,11 @@ def program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators: Opera
     F, n = X.shape
     NP = 0 if bank is None else bank.shape[1]
     BASE = F + NP + cvals.shape[1]
-    chunk = max(1, max_elems // max((BASE + L + 1) * n, 1))
+    n_sum = _weighted_rows(w)
+    # chunks and row blocks by the summed rows, so a padded request's sums
+    # run over the same shapes as the unpadded one's (CUDA's reductions
+    # split by shape); n // 2 bounds the memory of a sparse tail
+    chunk = max(1, max_elems // max((BASE + L + 1) * max(n_sum, n // 2), 1))
     loss_parts, valid_parts = [], []
     for s in range(0, T, chunk):
         e = s + chunk
@@ -305,7 +344,7 @@ def program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators: Opera
                                        prows, bf16=bf16)
         elt = loss_fn(_root(buf, nsteps[s:e], BASE), y)
         elt = torch.where(w > 0, elt, 0.0)
-        total = torch.sum(elt * w, dim=-1)
+        total = torch.sum((elt * w)[..., :n_sum].contiguous(), dim=-1)
         valid = vmask.all(dim=-1) & torch.isfinite(total) & (const_ok[s:e] != 0)
         loss_parts.append(total)
         valid_parts.append(valid)
@@ -391,10 +430,10 @@ def _plain_backward(buf, words, nsteps, seed, base: int, operators: OperatorSet,
     return adj
 
 
-def _const_sums(adj, nconst, F: int, CMAX: int):
-    """Row sums of the constants' adjoints [T, CMAX] (0 past nconst) and
-    of their absolute values."""
-    cadj = adj[:, F:F + CMAX]
+def _const_sums(adj, nconst, F: int, CMAX: int, n_sum: int):
+    """Row sums over the first ``n_sum`` rows of the constants' adjoints
+    [T, CMAX] (0 past nconst) and of their absolute values."""
+    cadj = adj[:, F:F + CMAX, :n_sum]
     used = torch.arange(CMAX, device=adj.device)[None, :] < nconst.long()[:, None]
     return (torch.where(used, cadj.sum(dim=-1), 0.0),
             torch.where(used, cadj.abs().sum(dim=-1), 0.0))
@@ -420,18 +459,19 @@ def program_grad_plain(instr, nsteps, nconst, cvals_v, X, y, w, operators: Opera
     m_all = nsteps.repeat_interleave(V, dim=0)
     nc_all = nconst.repeat_interleave(V, dim=0)
     cv_all = cvals_v.reshape(P, CMAX)
-    chunk = max(1, max_elems // max(2 * (BASE + L + 1) * n, 1))
+    n_sum = _weighted_rows(w)
+    chunk = max(1, max_elems // max(2 * (BASE + L + 1) * max(n_sum, n // 2), 1))
     parts = []
     for s in range(0, P, chunk):
         e = s + chunk
         buf, vmask, words = _plain_forward(ins_all[s:e], m_all[s:e], cv_all[s:e], X, operators)
         pred = _root(buf, m_all[s:e], BASE)
         elt = torch.where(w > 0, loss_fn(pred, y), 0.0)
-        total = torch.sum(elt * w, dim=-1)
+        total = torch.sum((elt * w)[..., :n_sum].contiguous(), dim=-1)
         valid = vmask.all(dim=-1) & torch.isfinite(total)
         seed = torch.where(w > 0, dloss(pred, y, w.expand_as(pred)), 0.0)
         adj = _plain_backward(buf, words, m_all[s:e], seed, BASE, operators)
-        gcomp, gabs = _const_sums(adj, nc_all[s:e], F, CMAX)
+        gcomp, gabs = _const_sums(adj, nc_all[s:e], F, CMAX, n_sum)
         parts.append((total, valid, gcomp, gabs))
     if parts:
         total, valid, gcomp, gabs = (torch.cat(z) for z in zip(*parts))
@@ -486,7 +526,7 @@ def program_predict_vjp_plain(instr, nsteps, nconst, cvals, X, ct, operators: Op
         buf, _, words = _plain_forward(instr[s:e], nsteps[s:e], cvals[s:e],
                                        X[s:e] if per_member else X, operators)
         adj = _plain_backward(buf, words, nsteps[s:e], ct[s:e], BASE, operators, acc_below=F)
-        gcomp, gabs = _const_sums(adj, nconst[s:e], F, CMAX)
+        gcomp, gabs = _const_sums(adj, nconst[s:e], F, CMAX, n)
         parts.append((gcomp, gabs, adj[:, :F] if per_member else None))
     if parts:
         gcomp = torch.cat([p[0] for p in parts])
@@ -552,7 +592,9 @@ class _ProgramKernel:
     checks. ``launches`` counts kernel launches; each wrapper increments
     it where it launches its kernel and nowhere else. ``bf16`` wrappers
     run the kernel over a bfloat16 value buffer and take X as bfloat16;
-    ``f64`` wrappers take every float operand as float64."""
+    ``f64`` wrappers take every float operand as float64. Serve tenants
+    launch from threads of one process: the count is kept under a lock,
+    and the library binds once under it."""
 
     name = ""
     source = ""
@@ -568,6 +610,7 @@ class _ProgramKernel:
         self.launches = 0
         self._lib = None
         self._optab = {}
+        self._lock = threading.Lock()
 
     def _bind(self, lib):
         raise NotImplementedError
@@ -584,12 +627,14 @@ class _ProgramKernel:
         if self._lib is None:
             from .cuda_build import load_library
 
-            lib = load_library(self._file)
-            self._smem_fn(lib).argtypes = [ctypes.c_int] * self._smem_nargs
-            self._smem_fn(lib).restype = ctypes.c_size_t
-            getattr(lib, self._entry).restype = ctypes.c_int
-            self._bind(lib)
-            self._lib = lib
+            with self._lock:
+                if self._lib is None:
+                    lib = load_library(self._file)
+                    self._smem_fn(lib).argtypes = [ctypes.c_int] * self._smem_nargs
+                    self._smem_fn(lib).restype = ctypes.c_size_t
+                    getattr(lib, self._entry).restype = ctypes.c_int
+                    self._bind(lib)
+                    self._lib = lib
         return self._lib
 
     def _block(self, L: int, CMAX: int, F: int, NP: int = 0, NC: int = 0) -> int:
@@ -657,7 +702,8 @@ class _ProgramKernel:
         rc = getattr(self.library(), self._entry)(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {rc}")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
 
 
 def _ptr(t):
@@ -821,10 +867,13 @@ class ProgramGradKernel(_ProgramKernel):
 
     def _bind(self, lib):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        getattr(lib, self._entry).argtypes = [p] * 8 + [i] * 8 + [d, i, i] + [p, p, p, p]
+        getattr(lib, self._entry).argtypes = [p] * 8 + [i] * 9 + [d, i, i] + [p, p, p, p]
 
     def __call__(self, instr, nsteps, nconst, cvals_v, X, y, w, operators: OperatorSet,
-                 loss_fn: Callable):
+                 loss_fn: Callable, n_grad: Optional[int] = None):
+        """``n_grad``: the gradient sums rows up to it (default: up to the
+        last row of positive weight, ``weighted_rows(w)``, which the plain
+        version always takes); the loss and validity read every row."""
         if X.device.type == "cpu":
             return program_grad_plain(instr, nsteps, nconst, cvals_v, X, y, w, operators,
                                       loss_fn)
@@ -838,12 +887,14 @@ class ProgramGradKernel(_ProgramKernel):
                 or y.shape != (n,) or w.shape != (n,)):
             raise ValueError("program_grad: inconsistent shapes")
         optab, block, code_mask = self._layout(operators, X, L, CMAX, F)
+        if n_grad is None:
+            n_grad = weighted_rows(w)
         loss = torch.empty((T, V), dtype=self.dtype, device=X.device)
         valid = torch.empty((T, V), dtype=torch.int32, device=X.device)
         gcomp = torch.empty((T, V, CMAX), dtype=self.dtype, device=X.device)
         self._launch(
             _ptr(instr), _ptr(nsteps), _ptr(nconst), _ptr(cvals_v), _ptr(X), _ptr(y), _ptr(w),
-            _ptr(optab), T, V, L, CMAX, F, n, block, loss_kind, loss_param,
+            _ptr(optab), T, V, L, CMAX, F, n, int(n_grad), block, loss_kind, loss_param,
             code_mask, 30, _ptr(loss), _ptr(valid), _ptr(gcomp),
             _stream(X))
         return loss, valid.bool(), gcomp
@@ -1038,21 +1089,24 @@ def _pick(X, bf16: bool, f32, b16, f64):
 
 # X rounded to bfloat16 for the bf16 kernels, one copy per dataset tensor:
 # id(X) -> (weak reference to X, X's version counter, the bf16 copy). A
-# search reads the same X every cycle, so the copy is made once.
+# search reads the same X every cycle, so the copy is made once. Served
+# searches share the cache from several threads, hence its lock.
 _BF16_ROWS: dict = {}
+_BF16_LOCK = threading.Lock()
 
 
 def _bf16_rows(X: torch.Tensor) -> torch.Tensor:
     """``X`` as a contiguous bfloat16 tensor (round to nearest even),
     cached while ``X`` lives unmodified."""
-    hit = _BF16_ROWS.get(id(X))
-    if hit is not None and hit[0]() is X and hit[1] == X._version:
-        return hit[2]
-    xb = X.to(torch.bfloat16).contiguous()
-    for k in [k for k, v in _BF16_ROWS.items() if v[0]() is None]:
-        del _BF16_ROWS[k]
-    _BF16_ROWS[id(X)] = (weakref.ref(X), X._version, xb)
-    return xb
+    with _BF16_LOCK:
+        hit = _BF16_ROWS.get(id(X))
+        if hit is not None and hit[0]() is X and hit[1] == X._version:
+            return hit[2]
+        xb = X.to(torch.bfloat16).contiguous()
+        for k in [k for k, v in _BF16_ROWS.items() if v[0]() is None]:
+            del _BF16_ROWS[k]
+        _BF16_ROWS[id(X)] = (weakref.ref(X), X._version, xb)
+        return xb
 
 
 def _launch_inputs(prog: TreeProgram, X, y, weights, nfeatures: int,
@@ -1285,7 +1339,9 @@ def fused_grad_multi(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
                                                          nfeatures, operators)
     nconst = prog.nconst.to(torch.int32).contiguous()
     kernel = _pick(X, False, PROGRAM_GRAD, None, PROGRAM_GRAD_F64)
-    loss_sum, valid, gcomp = kernel(instr, nsteps, nconst, cv, Xc, yc, w, operators, loss_fn)
+    n_grad = X.shape[1] if weights is None else weighted_rows(weights)
+    loss_sum, valid, gcomp = kernel(instr, nsteps, nconst, cv, Xc, yc, w, operators, loss_fn,
+                                    n_grad=n_grad)
     valid = valid & ok_v
     denom = _denominator(weights, X)
     loss = loss_sum / denom

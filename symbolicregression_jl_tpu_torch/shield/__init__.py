@@ -20,20 +20,23 @@ A supervision layer around ``equation_search``'s host loop and
    checkpoint; ``SR_FAULT_PLAN`` sets a plan for a whole process.
 
 Every fault, retry, degradation and quarantine is a ``fault`` record of
-the telemetry stream. The serving half of the JAX package's ``shield/``
-(``OverloadLadder``, ``ServeFaultPlan``, ``ServeFaultInjector``) comes with
-the serving stack, ROADMAP.md queue 1 item 7.
+the telemetry stream. The serving half (``OverloadLadder``,
+``ServeFaultPlan``, ``ServeFaultInjector``) sheds and rejects requests
+under overload and injects service-level faults for the serve layer
+(``serve/``).
 """
 
 from .checkpoints import (RollingCheckpointer, discover_resume_path, load_newest_valid,
                           rolled_paths)
-from .degrade import ShieldRunner, is_transient_failure
-from .faults import FaultInjector, FaultPlan, InjectedFault, active_injector
+from .degrade import OverloadLadder, ShieldRunner, is_transient_failure
+from .faults import (FaultInjector, FaultPlan, InjectedFault, ServeFaultInjector,
+                     ServeFaultPlan, active_injector, active_serve_injector)
 from .quarantine import IslandQuarantine
 from .signals import PreemptionGuard
 from .watchdog import Watchdog, WatchdogTimeout
 
 __all__ = ["RollingCheckpointer", "discover_resume_path", "load_newest_valid", "rolled_paths",
-           "ShieldRunner", "is_transient_failure", "FaultInjector", "FaultPlan",
-           "InjectedFault", "active_injector", "IslandQuarantine", "PreemptionGuard", "Watchdog",
+           "ShieldRunner", "OverloadLadder", "is_transient_failure", "FaultInjector",
+           "FaultPlan", "InjectedFault", "active_injector", "ServeFaultPlan", "ServeFaultInjector",
+           "active_serve_injector", "IslandQuarantine", "PreemptionGuard", "Watchdog",
            "WatchdogTimeout"]

@@ -1,9 +1,10 @@
 """Graceful degradation: transient-failure retries and a step-down of the
 screening sample.
 
-Port of the search half of ``symbolicregression_jl_tpu/shield/degrade.py``
-(``OverloadLadder``, the serving half, comes with the serving stack,
-ROADMAP.md queue 1 item 7). Transient device failures (a CUDA
+Port of ``symbolicregression_jl_tpu/shield/degrade.py``: the search's
+retry and step-down, and the serve layer's :class:`OverloadLadder` (a copy
+of the JAX package's, the same levels and sheds for the same sequence).
+Transient device failures (a CUDA
 out-of-memory under memory pressure from a neighbour on a shared card, an
 unavailable peer) should cost a bounded retry, not the whole search. The
 :class:`ShieldRunner` wraps each ``Engine.run_iteration`` attempt:
@@ -41,7 +42,8 @@ from typing import Callable
 
 import torch
 
-__all__ = ["ShieldRunner", "is_transient_failure", "TRANSIENT_MARKERS", "STICKY_MARKERS"]
+__all__ = ["ShieldRunner", "OverloadLadder", "is_transient_failure", "TRANSIENT_MARKERS",
+           "STICKY_MARKERS"]
 
 # Substrings (case-sensitive) that mark a failure as worth retrying. Every
 # _OOM_MARKERS entry is here too: an out-of-memory must be transient, or
@@ -113,6 +115,114 @@ def _free_cached_memory(exc: BaseException) -> None:
     traceback.clear_frames(exc.__traceback__)
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.empty_cache()
+
+
+class OverloadLadder:
+    """Load-shedding ladder for the multi-tenant serve layer
+    (docs/SERVING.md): degrade admitted work before refusing it.
+
+    Given the queue utilization at admission time (``depth/capacity``),
+    the ladder returns one of four levels and the concrete shed to
+    apply — the same degrade-don't-die philosophy as the eval-tile
+    step-down above, applied at the request level:
+
+    - ``normal``      (< shed_sample_at): admit untouched;
+    - ``shed_sample`` (>= shed_sample_at): admit, but row-sample the
+      request's dataset down to ``sample_fraction`` (never below
+      ``min_sample_rows``) — smaller evals, faster drain. The shed is
+      recorded on the accepted request (journaled), so a replay after a
+      crash re-runs the identical degraded search;
+    - ``shed_priority`` (>= shed_priority_at): additionally demote the
+      request's queue priority so interactive work admitted earlier
+      drains first;
+    - ``reject`` (>= reject_at): refuse with a structured backpressure
+      error (serve/admission.py) carrying a retry-after hint.
+
+    Every non-normal decision emits a ``fault`` audit record
+    (``overload_shed`` / ``overload_reject``) when a telemetry hub is
+    attached.
+    """
+
+    LEVELS = ("normal", "shed_sample", "shed_priority", "reject")
+
+    def __init__(
+        self,
+        *,
+        shed_sample_at: float = 0.5,
+        shed_priority_at: float = 0.75,
+        reject_at: float = 1.0,
+        sample_fraction: float = 0.5,
+        min_sample_rows: int = 64,
+        telemetry=None,
+    ) -> None:
+        if not (0.0 < shed_sample_at <= shed_priority_at <= reject_at):
+            raise ValueError(
+                "ladder thresholds must satisfy "
+                "0 < shed_sample_at <= shed_priority_at <= reject_at"
+            )
+        if not (0.0 < sample_fraction <= 1.0):
+            raise ValueError("sample_fraction must be in (0, 1]")
+        self.shed_sample_at = float(shed_sample_at)
+        self.shed_priority_at = float(shed_priority_at)
+        self.reject_at = float(reject_at)
+        self.sample_fraction = float(sample_fraction)
+        self.min_sample_rows = int(min_sample_rows)
+        self.telemetry = telemetry
+        self.sheds_total = 0
+        self.rejects_total = 0
+
+    def level(self, utilization: float) -> str:
+        u = float(utilization)
+        if u >= self.reject_at:
+            return "reject"
+        if u >= self.shed_priority_at:
+            return "shed_priority"
+        if u >= self.shed_sample_at:
+            return "shed_sample"
+        return "normal"
+
+    def apply(self, utilization: float, *, n_rows: int, priority: int,
+              request_id: str = "") -> dict:
+        """Admission-time decision for one request: returns
+        ``{"level", "admit", "sample_rows", "priority"}`` where
+        ``sample_rows`` is None (no shed) or the reduced row count."""
+        lvl = self.level(utilization)
+        out = {"level": lvl, "admit": lvl != "reject",
+               "sample_rows": None, "priority": int(priority)}
+        if lvl == "reject":
+            self.rejects_total += 1
+            self._fault("overload_reject", request_id,
+                        utilization=utilization)
+            return out
+        if lvl in ("shed_sample", "shed_priority"):
+            shed = max(int(n_rows * self.sample_fraction),
+                       min(self.min_sample_rows, int(n_rows)))
+            if shed < int(n_rows):
+                out["sample_rows"] = shed
+            if lvl == "shed_priority":
+                out["priority"] = int(priority) + 1
+            # audit only a shed that actually changed the request — a
+            # tiny dataset already at min_sample_rows is admitted
+            # untouched and must not inflate the degradation counters
+            if (out["sample_rows"] is not None
+                    or out["priority"] != int(priority)):
+                self.sheds_total += 1
+                self._fault(
+                    "overload_shed", request_id, level=lvl,
+                    utilization=utilization,
+                    sample_rows=out["sample_rows"],
+                    priority=out["priority"],
+                )
+        return out
+
+    def _fault(self, kind: str, request_id: str, **detail) -> None:
+        if self.telemetry is not None:
+            try:
+                self.telemetry.fault(
+                    kind, iteration=0, request_id=request_id or None,
+                    **detail)
+            except Exception:  # pragma: no cover - audit is best-effort
+                pass
 
 
 class ShieldRunner:

@@ -1,8 +1,9 @@
 """Deterministic fault injection: the harness the recovery tests drive.
 
-Port of the search half of ``symbolicregression_jl_tpu/shield/faults.py``
-(the serving half, ``ServeFaultPlan``/``ServeFaultInjector``, comes with
-the serving stack, ROADMAP.md queue 1 item 7). Every recovery path is
+Port of ``symbolicregression_jl_tpu/shield/faults.py``, the search's
+faults and the serve layer's (``ServeFaultPlan``/``ServeFaultInjector``:
+kill the server at the k-th request start, corrupt the n-th journal
+record, cancel a request mid-flight). Every recovery path is
 pinned by injecting the fault it exists for, at an exact, reproducible
 point in the search:
 
@@ -37,7 +38,9 @@ import time
 from typing import Optional, Tuple
 
 __all__ = ["FaultPlan", "FaultInjector", "InjectedFault", "install", "clear",
-           "active_injector", "poison_island", "truncate_file", "flip_byte"]
+           "active_injector", "poison_island", "truncate_file", "flip_byte",
+           "ServeFaultPlan", "ServeFaultInjector", "install_serve", "clear_serve",
+           "active_serve_injector"]
 
 
 class InjectedFault(RuntimeError):
@@ -135,6 +138,106 @@ def poison_island(state, island: int):
 
 
 # ---------------------------------------------------------------------------
+# Service-level faults (graftserve, docs/SERVING.md)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ServeFaultPlan:
+    """A deterministic schedule of *service-level* faults for one
+    graftserve process — the request-fleet analogue of
+    :class:`FaultPlan` (which schedules faults inside one search).
+
+    Driven by the serve tests and ``chip_smoke.py`` phase 32; headless
+    runs set ``SR_SERVE_FAULT_PLAN`` to the plan as JSON, exactly like
+    ``SR_FAULT_PLAN``.
+    """
+
+    # Deliver kill_signal to this process when the k-th accepted
+    # request STARTS running (1-based) — the kill-restart-replay
+    # scenario: the journal + per-request shield checkpoints must make
+    # a restarted server finish every accepted request bit-identically.
+    kill_server_at_request: Optional[int] = None
+    kill_signal: str = "SIGTERM"
+    # Flip one byte inside the n-th appended journal record (1-based),
+    # right after it is written — pins the per-record sha256
+    # verification + skip-and-audit replay path.
+    corrupt_journal_record: Optional[int] = None
+    # (k-th accepted request 1-based, iteration): cancel that request
+    # while its search is mid-flight, honored at the next iteration
+    # boundary — the cancel-mid-iteration scenario.
+    cancel_request_at_iteration: Optional[Tuple[int, int]] = None
+    # Smoke-driver knob: number of extra storm submissions thrown at a
+    # saturated queue to pin the structured-reject path (consumed by a
+    # smoke driver, not by the injector hooks).
+    queue_overflow_storm: Optional[int] = None
+
+    @staticmethod
+    def from_json(text: str) -> "ServeFaultPlan":
+        d = json.loads(text)
+        if d.get("cancel_request_at_iteration") is not None:
+            d["cancel_request_at_iteration"] = tuple(
+                d["cancel_request_at_iteration"])
+        return ServeFaultPlan(**d)
+
+
+class ServeFaultInjector:
+    """Stateful executor of a :class:`ServeFaultPlan` for one server."""
+
+    def __init__(self, plan: ServeFaultPlan, telemetry=None) -> None:
+        self.plan = plan
+        self.telemetry = telemetry
+        self.journal_records = 0
+        self.injected = []  # audit trail of (kind, detail) tuples
+
+    def _record(self, kind: str, **detail) -> None:
+        self.injected.append((kind, detail))
+        if self.telemetry is not None:
+            try:
+                d = dict(detail)
+                # pop: request_id is serve()'s positional arg — passing
+                # it again via ** would TypeError and lose the audit
+                rid = d.pop("request_id", "")
+                self.telemetry.serve("injected", rid, fault=kind, **d)
+            except Exception:  # pragma: no cover - audit is best-effort
+                pass
+
+    # -- hook: a request transitioned queued -> running -----------------
+    def on_request_start(self, index: int, request_id: str) -> None:
+        p = self.plan
+        if p.kill_server_at_request is not None and (
+                index == p.kill_server_at_request):
+            self._record("kill_server", request_id=request_id, index=index,
+                         signal=p.kill_signal)
+            os.kill(os.getpid(), getattr(signal, p.kill_signal))
+
+    # -- hook: one record was appended to the request journal -----------
+    def on_journal_append(self, path: str, record_index: int,
+                          offset: int, length: int) -> None:
+        p = self.plan
+        self.journal_records = record_index
+        if p.corrupt_journal_record is not None and (
+                record_index == p.corrupt_journal_record):
+            self._record("corrupt_journal", record=record_index, path=path)
+            # flip a byte in the middle of the record's payload (past
+            # the opening brace, before the trailing newline)
+            flip_byte(path, offset + max(length // 2, 1))
+
+    # -- hook: per-iteration probe of a running request's search --------
+    def should_cancel(self, index: int, iteration: int,
+                      request_id: str = "") -> bool:
+        p = self.plan
+        if p.cancel_request_at_iteration is None:
+            return False
+        k, at_it = p.cancel_request_at_iteration
+        if index == k and iteration >= at_it:
+            self._record("cancel_request", request_id=request_id,
+                         index=index, iteration=iteration)
+            return True
+        return False
+
+
+# ---------------------------------------------------------------------------
 # Checkpoint corruption helpers (tests and the chip smoke run)
 # ---------------------------------------------------------------------------
 
@@ -162,6 +265,7 @@ def flip_byte(path: str, offset: int = -64) -> None:
 # ---------------------------------------------------------------------------
 
 _ACTIVE: Optional[FaultInjector] = None
+_ACTIVE_SERVE: Optional[ServeFaultInjector] = None
 
 
 def install(injector: FaultInjector) -> FaultInjector:
@@ -173,6 +277,32 @@ def install(injector: FaultInjector) -> FaultInjector:
 def clear() -> None:
     global _ACTIVE
     _ACTIVE = None
+
+
+def install_serve(injector: ServeFaultInjector) -> ServeFaultInjector:
+    global _ACTIVE_SERVE
+    _ACTIVE_SERVE = injector
+    return injector
+
+
+def clear_serve() -> None:
+    global _ACTIVE_SERVE
+    _ACTIVE_SERVE = None
+
+
+def active_serve_injector(telemetry=None) -> Optional[ServeFaultInjector]:
+    """The serve injector the current server should consult: an
+    installed one, else one built from ``SR_SERVE_FAULT_PLAN`` (JSON)
+    if set, else None."""
+    if _ACTIVE_SERVE is not None:
+        if telemetry is not None and _ACTIVE_SERVE.telemetry is None:
+            _ACTIVE_SERVE.telemetry = telemetry
+        return _ACTIVE_SERVE
+    env = os.environ.get("SR_SERVE_FAULT_PLAN")
+    if env:
+        return ServeFaultInjector(
+            ServeFaultPlan.from_json(env), telemetry=telemetry)
+    return None
 
 
 def active_injector(telemetry=None) -> Optional[FaultInjector]:

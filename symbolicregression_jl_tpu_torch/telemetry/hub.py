@@ -29,7 +29,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -82,6 +82,11 @@ class _CompileEventCounter:
         self.traces = 0
         self.backend_compiles = 0
         self.transfer_guard_hits = 0
+        # graftledger: the seconds the same events took (the cost ledger
+        # diffs them; wall-clock, so ledger accounts keep them out of the
+        # deterministic view)
+        self.trace_secs = 0.0
+        self.backend_compile_secs = 0.0
         self._active = False
 
     def _on_event(self, kind: str, name: str, secs: float) -> None:
@@ -89,8 +94,10 @@ class _CompileEventCounter:
             return
         if kind == "load":
             self.traces += 1
+            self.trace_secs += float(secs or 0.0)
         elif kind == "build":
             self.backend_compiles += 1
+            self.backend_compile_secs += float(secs or 0.0)
 
     def start(self) -> None:
         from ..ops import cuda_build
@@ -109,6 +116,15 @@ class _CompileEventCounter:
             "traces": self.traces,
             "backend_compiles": self.backend_compiles,
             "transfer_guard_hits": self.transfer_guard_hits,
+        }
+
+    def seconds_snapshot(self) -> Dict[str, float]:
+        """Cumulative compile seconds (kept out of :meth:`snapshot` so
+        count consumers — recompiles_total, the anomaly detector — never
+        see float fields)."""
+        return {
+            "trace_s": self.trace_secs,
+            "backend_compile_s": self.backend_compile_secs,
         }
 
 
@@ -222,6 +238,14 @@ class Telemetry:
         # graftshield fault audit: per-kind counts, kept whether or not
         # the JSONL stream is on (run_end carries them).
         self.fault_counts: Dict[str, int] = {}
+        # graftpulse: per-metric anomaly counts (the same always-tracked
+        # contract as fault_counts) and event watchers — callbacks that
+        # observe every out-of-band event (fault/mesh/anomaly/pulse/gauge)
+        # even when the JSONL stream is off. The flight recorder
+        # (pulse/recorder.py) registers here so a fault can trigger its
+        # bundle dump before a watchdog abort ends the process.
+        self.anomaly_counts: Dict[str, int] = {}
+        self._watchers: List[Callable[[Dict[str, Any]], None]] = []
 
         self.path: Optional[str] = None
         if bool(getattr(options, "telemetry", False)):
@@ -268,22 +292,80 @@ class Telemetry:
         self._sinks.append(sink)
         return self
 
+    def add_watcher(self, fn: Callable[[Dict[str, Any]], None]
+                    ) -> "Telemetry":
+        """Register an out-of-band event observer: called with every
+        fault/mesh/anomaly/pulse/gauge event dict, stream on or off.
+        Watcher exceptions are swallowed — observation must never break
+        the path it observes (the same contract sinks have)."""
+        self._watchers.append(fn)
+        return self
+
+    def _notify(self, event: Dict[str, Any]) -> None:
+        for fn in self._watchers:
+            try:
+                fn(event)
+            except Exception:  # observers must never break the search
+                pass
+
+    def _out_of_band(self, event: Dict[str, Any]) -> Dict[str, Any]:
+        """Stream one out-of-band event (when the stream is on) and tell
+        the watchers; never raises into the loop it observes."""
+        if self.path is not None:
+            try:
+                self._emit(event)
+            except (OSError, TypeError, ValueError):
+                pass
+        self._notify(event)
+        return event
+
     def pulse(self, kind: str, *, iteration: int = 0,
               **detail) -> Dict[str, Any]:
-        """Record a diagnostics audit event (schema ``pulse``), such as
-        the profiler-unusable warning."""
-        event = {
+        """Record a graftpulse diagnostics audit event (schema ``pulse``):
+        capture windows armed/started/stopped, bundle dumps,
+        profiler-unusable warnings."""
+        return self._out_of_band({
             "event": "pulse",
             "kind": str(kind),
             "iteration": int(iteration),
             "detail": {k: v for k, v in detail.items() if v is not None},
-        }
-        if self.path is not None:
-            try:
-                self._emit(event)
-            except OSError:
-                pass
-        return event
+        })
+
+    def anomaly(self, metric: str, *, iteration: int = 0,
+                **detail) -> Dict[str, Any]:
+        """Record a graftpulse anomaly-detector finding (schema
+        ``anomaly``): a rolling-statistics excursion on one watched
+        per-iteration metric. Counted in-process always, streamed when
+        the JSONL stream is on."""
+        self.anomaly_counts[metric] = self.anomaly_counts.get(metric, 0) + 1
+        return self._out_of_band({
+            "event": "anomaly",
+            "metric": str(metric),
+            "iteration": int(iteration),
+            "detail": {k: v for k, v in detail.items() if v is not None},
+        })
+
+    def gauge(self, kind: str, *, iteration: int = 0,
+              **detail) -> Dict[str, Any]:
+        """Record a graftgauge capacity event (schema ``gauge``):
+        per-iteration memory samples, footprints, end-of-run watermarks
+        and dispatch-latency summaries."""
+        return self._out_of_band({
+            "event": "gauge",
+            "kind": str(kind),
+            "iteration": int(iteration),
+            "detail": {k: v for k, v in detail.items() if v is not None},
+        })
+
+    def compile_snapshot(self) -> Dict[str, int]:
+        """Cumulative kernel load and build counts seen so far (the
+        anomaly detector diffs consecutive snapshots)."""
+        return self._compiles.snapshot()
+
+    def compile_seconds_snapshot(self) -> Dict[str, float]:
+        """Cumulative kernel load and build seconds (the cost ledger
+        diffs these)."""
+        return self._compiles.seconds_snapshot()
 
     def fault(self, kind: str, *, iteration: int = 0,
               **detail) -> Dict[str, Any]:
@@ -300,12 +382,7 @@ class Telemetry:
             "detail": {k: v for k, v in detail.items() if v is not None},
         }
         self.fault_counts[kind] = self.fault_counts.get(kind, 0) + 1
-        if self.path is not None:
-            try:
-                self._emit(event)
-            except (OSError, TypeError, ValueError):  # auditing must not break the recovery
-                pass
-        return event
+        return self._out_of_band(event)
 
     def _emit(self, obj: Dict[str, Any]) -> None:
         # run_id on EVERY event so concatenated streams stay attributable
@@ -433,8 +510,10 @@ class Telemetry:
                     k: v for k, v in self._compiles.snapshot().items()
                     if k != "transfer_guard_hits"
                 },
-                # schema-optional: the run's graftshield fault counts by kind
+                # schema-optional: the run's graftshield fault counts by
+                # kind and graftpulse anomaly counts by metric
                 "faults_total": dict(self.fault_counts),
+                "anomalies_total": dict(self.anomaly_counts),
             })
         summary = {
             "stop_reason": stop_reason,

@@ -728,8 +728,10 @@ commands:
   validate <run.jsonl>             check every line against graftscope.v1
   tail <run.jsonl> [--interval S]  follow a live stream with a refreshing
        [--once]                    single-screen summary (--once: one shot)
-  timeline <root> --out <t.json>   not in the PyTorch port yet (ROADMAP.md
-                                   queue 1 item 7)
+  timeline <root> --out <t.json>   merge a serve root's journal, request
+                                   streams and cost ledgers into one
+                                   Chrome trace-event file (Perfetto /
+                                   chrome://tracing openable)
 
 report tolerates a torn final line (the crash artifact of a killed
 writer): it is skipped and counted on stderr, like journal replay.
@@ -798,8 +800,33 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         return tail_main(rest)
     if cmd == "timeline":
-        raise NotImplementedError(
-            "telemetry timeline is not in the PyTorch port yet; it comes with the "
-            "serving-stack slice (ROADMAP.md queue 1 item 7), which brings ledger/timeline.py.")
+        from ..ledger.timeline import write_timeline
+
+        out = None
+        paths = []
+        i = 0
+        while i < len(rest):
+            if rest[i] == "--out":
+                if i + 1 >= len(rest):
+                    print(_USAGE, end="", file=sys.stderr)
+                    return 2
+                out = rest[i + 1]
+                i += 2
+            elif rest[i].startswith("-"):
+                print(_USAGE, end="", file=sys.stderr)
+                return 2
+            else:
+                paths.append(rest[i])
+                i += 1
+        if len(paths) != 1 or not out:
+            print(_USAGE, end="", file=sys.stderr)
+            return 2
+        doc = write_timeline(paths[0], out)
+        n = len(doc.get("traceEvents", []))
+        if n == 0:
+            print(f"{paths[0]}: no telemetry found", file=sys.stderr)
+            return 1
+        print(f"{out}: {n} trace events")
+        return 0
     print(_USAGE, end="", file=sys.stderr)
     return 2

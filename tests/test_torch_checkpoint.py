@@ -238,8 +238,9 @@ def test_resume_auto_is_bit_identical(tmp_path, batching):
     S.equation_search(X, y, options=ob, niterations=2, runtime_options=S.RuntimeOptions(
         niterations=2, checkpoint_every_n=1, **{k: v for k, v in run.items()
                                                 if k != "device"}), device="cpu")
+    # ledger.jsonl: the cost account (RuntimeOptions(ledger=True), the default)
     assert sorted(os.listdir(tmp_path / "b" / "r")) == [
-        "hall_of_fame.csv", "search_state.pkl", "search_state.pkl.1"]
+        "hall_of_fame.csv", "ledger.jsonl", "search_state.pkl", "search_state.pkl.1"]
     sb, _ = S.equation_search(X, y, options=ob, niterations=3, resume="auto",
                               return_state=True, **dict(run, seed=99))
     assert sb.iterations_done == 3 and sb.num_evals == sa.num_evals

@@ -169,10 +169,10 @@ def test_default_options_search_runs_the_constant_optimizer(monkeypatch):
 @pytest.mark.parametrize("kw", [dict(y_units="m"),
                                 dict(runtime_options=S.RuntimeOptions(n_data_shards=2)),
                                 dict(X_units=["m", "s"]),
-                                dict(runtime_options=S.RuntimeOptions(trace=object())),
+                                dict(runtime_options=S.RuntimeOptions(devices=["cuda:0"])),
                                 dict(runtime_options=S.RuntimeOptions(mesh_runtime=True)),
                                 dict(dtype="bfloat16"),
-                                dict(runtime_options=S.RuntimeOptions(engine_cache=object())),
+                                dict(runtime_options=S.RuntimeOptions(mesh_exchange_every=4)),
                                 dict(extra={"weights2": [1.0]})])
 def test_search_arguments_outside_the_slice_refuse(kw):
     with pytest.raises(NotImplementedError, match="PyTorch port"):

@@ -389,7 +389,7 @@ def test_datasets_as_input_and_per_output_csvs(tmp_path):
     assert len(hofs) == 2 and len(state.device_states) == 2
     files = sorted(os.listdir(tmp_path / "two"))
     assert files == ["hall_of_fame_output1.csv", "hall_of_fame_output2.csv",
-                     "search_state.pkl"]
+                     "ledger.jsonl", "search_state.pkl"]
 
 
 def test_staged_bf16_batched_search_runs():

@@ -329,6 +329,11 @@ def test_stream_valid_under_both_validators_and_reports_agree(tmp_path, capsys):
         lines = f.readlines()
     assert SSchema.validate_lines(lines) == [] and JSchema.validate_lines(lines) == []
     events = [json.loads(l) for l in lines]
+    # graftgauge's events ride the stream by default: a memory sample
+    # each iteration, the watermarks and the dispatch latency at the end
+    gauge = [e["kind"] for e in events if e["event"] == "gauge"]
+    assert gauge == ["memory"] * 3 + ["watermark", "dispatch_latency"]
+    events = [e for e in events if e["event"] != "gauge"]
     assert [e["event"] for e in events] == ["run_start"] + ["iteration"] * 3 + ["run_end"]
     assert events[0]["schema"] == SSchema.SCHEMA_VERSION == JSchema.SCHEMA_VERSION
     assert events[0]["backend"] == "cpu" and events[0]["engines"][0]["collect_telemetry"]
@@ -350,8 +355,17 @@ def test_stream_valid_under_both_validators_and_reports_agree(tmp_path, capsys):
     assert SR.main([path]) == 0
     out = capsys.readouterr().out
     assert "acceptance by kind" in out and "host-fraction" in out
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SR.main(["timeline", str(tmp_path), "--out", str(tmp_path / "t.json")])
+    # the timeline of the run directory (ledger/timeline.py) is a valid
+    # Chrome trace under both packages' checks
+    from symbolicregression_jl_tpu.ledger.timeline import validate_chrome_trace as jvalid
+    from symbolicregression_jl_tpu_torch.ledger.timeline import validate_chrome_trace
+
+    out_json = str(tmp_path / "t.json")
+    assert SR.main(["timeline", os.path.dirname(path), "--out", out_json]) == 0
+    with open(out_json) as f:
+        doc = json.load(f)
+    assert validate_chrome_trace(doc) == [] and jvalid(doc) == []
+    assert sum(e["name"].startswith("iteration ") for e in doc["traceEvents"]) == 3
 
 
 def test_telemetry_interval_accumulates(tmp_path):

@@ -282,9 +282,9 @@ def run_grad(lib, ops, loss_fn, instr, nsteps, nconst, cv, X, y, w, W):
     optab = torch.tensor(SF._optab_list(ops), dtype=torch.int32)
     entry = lib.sr_program_grad_f64 if cv.dtype == torch.float64 else lib.sr_program_grad
     rc = entry(_p(instr), _p(nsteps), _p(nconst), _p(cv), _p(X), _p(y), _p(w),
-                             _p(optab), T, V, instr.shape[1], CMAX, X.shape[0], X.shape[1], W,
-                             loss_fn.kind, loss_fn.param, _code_mask(ops), 30, _p(loss),
-                             _p(valid), _p(gcomp), None)
+                             _p(optab), T, V, instr.shape[1], CMAX, X.shape[0], X.shape[1],
+                             SF._weighted_rows(w), W, loss_fn.kind, loss_fn.param,
+                             _code_mask(ops), 30, _p(loss), _p(valid), _p(gcomp), None)
     assert rc == 0
     return loss, valid, gcomp
 
@@ -476,6 +476,42 @@ def test_grad_kernel_on_host(host_libs, case, loss_fn):
     assert bool(((gg - pg).abs()[both] <= 1e-4 * pabs[both]).all())
     used = torch.arange(cv.shape[2])[None, None, :] < nconst[:, None, None]
     assert bool((gg[~used.expand_as(gg)] == 0).all())
+
+
+@pytest.mark.parametrize("fill", ["cyclic", "edge"])
+def test_zero_weight_padding_bit_inert_on_host(host_libs, fill):
+    """pack/padding.py's contract on the CUDA sources: the ragged case's
+    trees on its 1,001 rows (a tenth of the weights 0, every 97th row's X
+    at +-1e20, so some rows' derivatives overflow) and on the same rows
+    padded to their 2,048-row bucket with ``fill`` replicas at weight 0:
+    #1's cost form, #2 and #3 (loss sums, validity, gradients) bit-equal.
+    #3 sums the constants' cotangents up to the last row of positive
+    weight, so a replica's 0 x inf never reaches a gradient."""
+    from symbolicregression_jl_tpu_torch.pack import pad_to_bucket
+
+    ops, loss_fn, args, W = grad_case("ragged_W256_V3", SL.l2_dist_loss)
+    instr, nsteps, nconst, cv, X, y, w = args
+    n = X.shape[1]
+    Xp, yp, _ = pad_to_bucket(X.T.numpy(), y.numpy(), rows=2048, fill=fill)
+    wp = np.concatenate([w.numpy(), np.zeros(2048 - n, np.float32)])
+    padded = (torch.from_numpy(np.ascontiguousarray(Xp.T)), torch.from_numpy(yp),
+              torch.from_numpy(wp))
+    cvals = cv[:, 0, :].contiguous()
+    ok = torch.ones(instr.shape[0], dtype=torch.int32)
+    cx = torch.full((instr.shape[0],), 3.0)
+    scal = torch.tensor([float(w.sum()), 1.5, 0.01])
+    outs = []
+    for Xs, ys, ws in ((X, y, w), padded):
+        outs.append((*run_eval_cost(host_libs["program_eval.cu"], ops, loss_fn, instr, nsteps,
+                                    cvals, ok, Xs, ys, ws, cx, scal, W),
+                     *run_multi(host_libs["program_multi.cu"], ops, loss_fn, instr, nsteps, cv,
+                                Xs, ys, ws, W),
+                     *run_grad(host_libs["program_grad.cu"], ops, loss_fn, instr, nsteps, nconst,
+                               cv, Xs, ys, ws, W)))
+    for a, b in zip(*outs):
+        assert _same(a, b)
+    gv, gg = outs[0][-2].bool(), outs[0][-1]
+    assert 0 < int(gv.sum()) < gv.numel() and bool(torch.isfinite(gg).all()) is False
 
 
 # Every library loss besides L2 and Huber(1) (the kinds of csrc/interp.cuh
