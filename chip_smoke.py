@@ -102,8 +102,8 @@ Phases (any failure exits nonzero and prints no result line):
 14. The parametric constant optimizer (eager BFGS over constants and
    banks, torch.autograd through the interpreter): the same problem at 64
    islands x 256, the default optimizer_probability 0.14, cut to
-   TEMPLATE_OPT_CYCLES = 10 cycles; prints the f_calls share and the peak
-   memory.
+   TEMPLATE_OPT_CYCLES = 10 cycles, one iteration after init (no warm-up
+   iteration); prints the f_calls share and the peak memory.
 15. `equation_search(..., device="cuda")` on tests/test_parametric.py's
    per-class-offset problem (extra={"class": ...}) and on
    tests/test_template.py's template with parameters f(x1) + p[0] x2 +
@@ -169,10 +169,10 @@ Phases (any failure exits nonzero and prints no result line):
    islands x 256, 10 cycles, returns two equations.
 
 23. Telemetry at full width: equation_search on phase 5's configuration
-   at TELEM_CYCLES = 10 cycles, TELEM_ITERS = 3 iterations, with
+   at TELEM_CYCLES = 10 cycles, TELEM_ITERS = 2 iterations, with
    telemetry=True (use_recorder off) and off, in turns (off, on, on, off):
    every state tensor and the hall of fame bit-identical; the JSONL valid,
-   its events run_start, 3 x iteration, run_end; per iteration the
+   its events run_start, 2 x iteration, run_end; per iteration the
    identities between the counters (the JAX package's meaning: per island
    in the cycles, plus the finalize) and kernel #1's calls read by
    wrapping its wrapper's __call__ (W calls, the last the dedup'd finalize
@@ -281,6 +281,36 @@ Phases (any failure exits nonzero and prints no result line):
    valid pulse bundle and a torch.profiler window over one iteration holds
    the kernels' launches; then bench/load.py's run_load on the card (its
    requests/s, p99 poll latency, cache hit rate and shed fraction).
+
+34. Units at the optimizer cell's widths (UNITS_CYCLES = 10 cycles, 2
+   timed iterations) on 10,000 rows from seed 0 of m (kg), v (m/s) and h
+   (m), y = 0.5 m v^2 + 9.81 m h (J), dimensional_constraint_penalty
+   1000, in turns with the same search without units (off, on, on, off):
+   launches of #1-#3 only (phase 5's counts), the dimensional check on
+   every evaluation with units and on none without; prints each cycle's
+   share of violating candidates, s/iteration on and off, and the lowest-
+   cost equation's dimensions, which must not violate.
+35. A D template, -D(V, 1)(x1) on y = -dV/dx1 for V = x1^2 cos(x1), at the
+   template cell's widths (512 x 256, + - * cos, 10,000 rows from seed
+   1234, D_CYCLES = 10 cycles, optimizer off): #4 and #5 once an
+   evaluation and nothing else; one batch of 4,096 members' D values from
+   #5 against the plain version (phase 8's rule) and beside the eager
+   forward mode; then the constant optimizer at 64 islands (probability
+   0.14; one iteration after init, no warm-up): the gradient on the eager interpreter's second-order path (no
+   launch), the line search on #4 and #5 (once each a line search);
+   prints s/iteration, the optimizer's seconds and f_calls share, the
+   peak memory.
+36. Tooling: `python -m symbolicregression_jl_tpu_torch.bench run` on the
+   plain and template mini cells (each a subprocess on the card; their
+   kernels launched), `bench gate` against benchmarks/baseline.json and
+   `bench trend` over both files, exit codes 0; phase 32's cohort of 4
+   under SearchServer(debug_checks=True), cut to DEBUG_SERVE_ITERS = 1
+   iteration: every request done, no lock-order violation, every
+   observed edge inside lint/lock_order.py's blessed order; one optimizer
+   cell iteration with Options(debug_checks=True) and the audit's
+   seconds; compile_count_guard(0) around a warm iteration;
+   lint/runtime.py's no_transfer around a kernel #1 launch (passes) and
+   around an .item() (raises).
 
 Every file a phase writes goes to a temporary directory, removed at the
 end. Each phase prints its seconds when the next one starts. The line before the last is the kernel table as JSON; the last line is
@@ -809,20 +839,23 @@ def kernels():
     return [getattr(FE, k) for k in KERNEL_NAMES]
 
 
-def run_engine(torch, sr, dev, options, iters: int = 2, data=None, on_engine=None, extra=None):
-    """init_state, one warm-up iteration, then ``iters`` timed iterations
-    with every kernel's launch count set to 0 just before them. ``data``
+def run_engine(torch, sr, dev, options, iters: int = 2, data=None, on_engine=None, extra=None,
+               units=None, timing=None, warmup: bool = True):
+    """init_state, one warm-up iteration (none with ``warmup=False``), then
+    ``iters`` timed iterations with every kernel's launch count set to 0
+    just before them. ``data``
     is (X, y), the bench problem by default; ``extra`` its class column
-    for parametric options; ``on_engine`` sees the engine before the
-    timed iterations. Returns (launches by kernel name, state, engine,
-    evaluations in the timed iterations)."""
+    for parametric options; ``units`` the dataset's X_units/y_units;
+    ``on_engine`` sees the engine before the timed iterations; ``timing``
+    (a list) gets the timed seconds per iteration. Returns (launches by
+    kernel name, state, engine, evaluations in the timed iterations)."""
     from symbolicregression_jl_tpu_torch.core.options import float_dtype
     from symbolicregression_jl_tpu_torch.evolve import rng
     from symbolicregression_jl_tpu_torch.evolve.engine import Engine
 
     X, y = bench_data() if data is None else data
     dtype = float_dtype(options.eval_dtype)
-    ds = sr.make_dataset(X, y, extra=extra, device=dev, dtype=dtype)
+    ds = sr.make_dataset(X, y, extra=extra, device=dev, dtype=dtype, **(units or {}))
     ds.update_baseline_loss(options.elementwise_loss)
     n_params = n_classes = 0
     if isinstance(options.expression_spec, sr.ParametricExpressionSpec):
@@ -838,9 +871,10 @@ def run_engine(torch, sr, dev, options, iters: int = 2, data=None, on_engine=Non
           f"{engine.cfg.fuse_cost}, loss {options.elementwise_loss!r}, dtype {engine.dtype}")
     t0 = time.perf_counter()
     state = engine.init_state(rng.key(0, device=dev), ds.data, options.populations)
-    state = engine.run_iteration(state, ds.data, options.maxsize)
+    if warmup:
+        state = engine.run_iteration(state, ds.data, options.maxsize)
     torch.cuda.synchronize()
-    print(f"  init + warm-up iteration: {time.perf_counter() - t0:.2f} s")
+    print(f"  init{' + warm-up iteration' if warmup else ''}: {time.perf_counter() - t0:.2f} s")
     if on_engine is not None:
         on_engine(engine)
 
@@ -857,6 +891,8 @@ def run_engine(torch, sr, dev, options, iters: int = 2, data=None, on_engine=Non
     evals = float(state.num_evals) - evals0
     print(f"  {iters} timed iterations: {elapsed / iters:.3f} s/iteration, "
           f"{evals / elapsed:.6g} evals/s ({evals:.0f} evals)")
+    if timing is not None:
+        timing.append(elapsed / iters)
     print(f"  launches {launches}")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if not bool(torch.isfinite(state.hof.loss[state.hof.exists]).all()) \
@@ -1339,7 +1375,8 @@ def phase_parametric_main_path(torch, sr, dev):
 
 def phase_parametric_optimizer(torch, sr, dev):
     """Phase 14: the parametric constant optimizer (eager BFGS over the
-    constants and the banks) at 64 islands and 10 cycles."""
+    constants and the banks) at 64 islands and 10 cycles, one iteration
+    after init (no warm-up: eager code has nothing to compile)."""
     options = parametric_options(sr, TEMPLATE_OPT_CYCLES, populations=ISLANDS // 8,
                                  optimizer_probability=0.14)
     X, y, cls = parametric_data()
@@ -1358,7 +1395,7 @@ def phase_parametric_optimizer(torch, sr, dev):
     iters = 1
     t0 = time.perf_counter()
     launches, _, _, evals = run_engine(torch, sr, dev, options, iters, data=(X, y),
-                                       extra={"class": cls}, on_engine=record)
+                                       extra={"class": cls}, on_engine=record, warmup=False)
     if launches["program_eval_param"] != iters * (TEMPLATE_OPT_CYCLES + 1) or any(
             v for k, v in launches.items() if k != "program_eval_param"):
         raise RuntimeError(f"parametric optimizer path launched {launches}")
@@ -2179,7 +2216,7 @@ def phase_regressor(torch, sr, dev):
 # ---------------------------------------------------------------------------
 
 TELEM_CYCLES = 10           # phase 23's cut depth (one optimizer run per iteration whatever it)
-TELEM_ITERS = 3
+TELEM_ITERS = 2
 QUALITY_SEEDS = (0, 1)
 QUALITY_KERNEL = {"plain": "program_eval", "plain-staged": "program_eval",
                   "plain-bf16": "program_eval_bf16", "plain-staged-bf16": "program_eval_bf16",
@@ -3446,9 +3483,10 @@ def serve_options():
                 ncycles_per_iteration=SERVE_CYCLES)
 
 
-def serve_submit(server, index: int) -> str:
+def serve_submit(server, index: int, niterations: int = 0) -> str:
     X, y = serve_request_data(index, SERVE_ROWS[index])
-    return server.submit(X, y, options=serve_options(), niterations=SERVE_ITERS, seed=index)
+    return server.submit(X, y, options=serve_options(), niterations=niterations or SERVE_ITERS,
+                         seed=index)
 
 
 def serve_child(root: str, device: str = "cuda") -> None:
@@ -3693,6 +3731,344 @@ def phase_diagnostics(torch, sr, dev, out_base, card):
     check.raise_if_failed("diagnostics")
 
 
+# ---------------------------------------------------------------------------
+# Units, D and the tooling (phases 34-36)
+# ---------------------------------------------------------------------------
+
+UNITS_CYCLES = 10           # phase 34's depth (one optimizer run per iteration whatever it)
+UNITS = {"X_units": ["kg", "m/s", "m"], "y_units": "J"}
+D_CYCLES = 10               # phase 35's depth
+DEBUG_SERVE_ITERS = 1       # phase 36's cohort, cut from phase 32's SERVE_ITERS
+BENCH_CLI_VARIANTS = ("plain", "template")   # phase 36's slice of the mini matrix
+
+
+def units_data():
+    """Phase 34's problem: 10,000 rows from seed 0 of a mass m (kg), a
+    speed v (m/s) and a height h (m); y = 0.5 m v^2 + 9.81 m h (J)."""
+    rng = np.random.default_rng(0)
+    m = rng.uniform(1.0, 10.0, N_ROWS)
+    v = rng.uniform(-10.0, 10.0, N_ROWS)
+    h = rng.uniform(0.0, 10.0, N_ROWS)
+    X = np.stack([m, v, h], 1).astype(np.float32)
+    y = (0.5 * m * v * v + 9.81 * m * h).astype(np.float32)
+    return X, y
+
+
+def phase_units(torch, sr, dev, card):
+    """Phase 34: the optimizer cell's widths on the units problem with
+    dimensional_constraint_penalty=1000 and X_units/y_units, in turns with
+    the same search without units (off, on, on, off): launches of #1-#3
+    only, each cycle's share of violating candidates (the violation masks
+    kept on the device and read after the timed iterations), s/iteration
+    on and off, and the best equation's dimensions, which must not violate."""
+    from fractions import Fraction
+
+    from symbolicregression_jl_tpu_torch.core.units import Dimensions, parse_unit, pretty_dims
+    from symbolicregression_jl_tpu_torch.ops import dims_eval as DE
+    from symbolicregression_jl_tpu_torch.ops.encoding import encode_population
+
+    check = Checks()
+    ncycles, iters = UNITS_CYCLES, 2
+    options = bench_options(sr, ncycles, dimensional_constraint_penalty=1000.0)
+    X, y = units_data()
+    orig = DE.dimensional_violations_batch
+    masks = []
+
+    def recorded(*a, **kw):
+        v = orig(*a, **kw)
+        masks.append(v.detach())
+        return v
+
+    times = {"off": [], "on": []}
+    kept = None
+    for turn in ("off", "on", "on", "off"):
+        print(f"  units {turn}:")
+        DE.dimensional_violations_batch = recorded
+        try:
+            launches, state, engine, _ = run_engine(
+                torch, sr, dev, options, iters, data=(X, y),
+                units=UNITS if turn == "on" else None, timing=times[turn],
+                on_engine=lambda e: masks.clear())
+        finally:
+            DE.dimensional_violations_batch = orig
+        expected = expect(launches, program_eval=iters * (ncycles + 1),
+                          program_multi=iters * options.optimizer_iterations,
+                          program_grad=iters * (options.optimizer_iterations + 1))
+        check(f"units {turn}: launches of #1-#3 only, as phase 5", launches == expected)
+        check(f"units {turn}: the check ran {'on every evaluation' if turn == 'on' else 'never'}",
+              len(masks) == (iters * (ncycles + 1) if turn == "on" else 0))
+        if turn == "on" and kept is None:
+            kept = (state, engine, [(int(m.sum()), m.numel()) for m in masks])
+    state, engine, counts = kept
+    per_cycle = [f"{v / n:.3f}" for v, n in counts[:ncycles]]
+    print(f"  violating share of each cycle's candidates (first timed iteration): "
+          f"{', '.join(per_cycle)}; finalize {counts[ncycles][0] / counts[ncycles][1]:.3f} "
+          f"of {counts[ncycles][1]} members")
+    on, off = times["on"], times["off"]
+    print(f"  {card}: s/iteration off {off[0]:.3f}, on {on[0]:.3f}, on {on[1]:.3f}, off "
+          f"{off[1]:.3f} (units on / off {sum(on) / sum(off):.3f})")
+    hof = sr.HallOfFame.from_device(state.hof, options.operators)
+    best = min(hof.entries, key=lambda e: e.cost)
+    ds = sr.make_dataset(X, y, device=dev, **UNITS)
+    batch = encode_population([best.tree], max(best.tree.count_nodes(), 1), options.operators,
+                              device=dev)
+    viol, root, wild = DE.dimensional_violations_batch(
+        batch, ds.data.dims_row, ds.data.x_dims, ds.data.y_dims, True, options.operators,
+        return_root=True)
+    dims = "a wildcard" if bool(wild[0]) else (pretty_dims(Dimensions(tuple(
+        Fraction(e).limit_denominator(1000) for e in root[0].tolist()))) or "dimensionless")
+    print(f"  best (lowest cost): loss {best.loss:.6g}, cost {best.cost:.6g}, complexity "
+          f"{best.complexity}: {best.equation_string(variable_names=['m', 'v', 'h'])}; dims "
+          f"{dims} against y's {pretty_dims(parse_unit(UNITS['y_units']).dims)}; violates "
+          f"{bool(viol[0])}")
+    check("the best equation does not violate its units", not bool(viol[0]))
+    check.raise_if_failed("units")
+
+
+def d_data():
+    """Phase 35's problem: 10,000 rows of x1 from seed 1234 uniform on
+    [-2, 2]; y = -dV/dx1 for V = x1^2 cos(x1)."""
+    rng = np.random.default_rng(1234)
+    X = rng.uniform(-2.0, 2.0, (N_ROWS, 1)).astype(np.float32)
+    x1 = X[:, 0].astype(np.float64)
+    y = -(2.0 * x1 * np.cos(x1) - x1 * x1 * np.sin(x1))
+    return X, y.astype(np.float32)
+
+
+def d_options(sr, ncycles: int, populations: int = 0, **kw):
+    """The template cell's widths with the structure -D(V, 1)(x1)."""
+    from symbolicregression_jl_tpu_torch.models import D, template_spec
+
+    spec = template_spec(expressions=("V",))(lambda V, x1: -D(V, 1)(x1))
+    base = dict(binary_operators=["+", "-", "*"], unary_operators=["cos"], maxsize=30,
+                populations=populations or ISLANDS, population_size=256,
+                tournament_selection_n=16, ncycles_per_iteration=ncycles,
+                optimizer_probability=0.0, expression_spec=spec, save_to_file=False)
+    base.update(kw)
+    return sr.Options(**base)
+
+
+def phase_d_template(torch, sr, dev, card):
+    """Phase 35: a D template at the template cell's widths (kernel #4
+    forward and #5's row cotangents per evaluation), then its constant
+    optimizer at 64 islands (the gradient on the eager interpreter's
+    second-order path, the line search on #4 and #5), and one batch of D
+    values from #5 against the plain version."""
+    from symbolicregression_jl_tpu_torch.evolve import constant_opt as CO
+    from symbolicregression_jl_tpu_torch.models import template as ST
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+    from symbolicregression_jl_tpu_torch.ops.encoding import TreeBatch
+
+    check = Checks()
+    ncycles, iters = D_CYCLES, 2
+    options = d_options(sr, ncycles)
+    launches, state, engine, _ = run_engine(torch, sr, dev, options, iters, data=d_data())
+    evals = iters * (ncycles + 1)
+    check("the D template launches #4 and #5 once an evaluation, nothing else",
+          launches == expect(launches, program_predict=evals, program_predict_vjp=evals))
+    hof = sr.HallOfFame.from_device(state.hof, options.operators, template=engine.template)
+    best = min(hof.entries, key=lambda e: e.loss)
+    print(f"  best: loss {best.loss:.6g} at complexity {best.complexity}: "
+          f"{best.equation_string()}")
+    check("a finite best loss", bool(np.isfinite(best.loss)))
+
+    # One batch of D values: #5 (gx of the all-ones cotangent) against its
+    # plain version, and the eager interpreter's forward mode beside them.
+    X, _ = d_data()
+    x = torch.from_numpy(X[:, 0]).to(dev)
+    flat = state.pops.trees.reshape(-1, 1)
+    M = min(4096, flat.length.shape[0])
+    sub = TreeBatch(*(f[:M, 0] for f in (flat.arity, flat.op, flat.feat, flat.const)),
+                    flat.length[:M, 0])
+    ops = options.operators
+    d_k = ST._BatchedTreeCallable("V", sub, 1, ops, N_ROWS, True).derivative(1, x)
+    with torch.enable_grad():
+        xm = x.expand(M, 1, N_ROWS).contiguous().requires_grad_(True)
+        pred, v = FE.fused_predict_ad(TreeBatch(sub.arity, sub.op, sub.feat, sub.const,
+                                                sub.length), xm, ops, plain=True)
+        (gx,) = torch.autograd.grad(pred, xm, torch.ones_like(pred))
+    d_p = gx[:, 0]
+    d_f = ST._BatchedTreeCallable("V", sub, 1, ops, N_ROWS, False).derivative(1, x)
+    torch.cuda.synchronize()
+    raw_ok = torch.isfinite(d_p).all(dim=-1) & v
+    good, rel, scl, _ = tree_close(torch, d_k.x[raw_ok], d_p[raw_ok])
+    check(f"#5's D values against the plain version on {int(raw_ok.sum())} of {M} members "
+          f"(NaN and +-inf alike, within rtol {RTOL} or {RTOL} of the member's largest |D|; "
+          f"worst relative {rel:.3g}, over the scale {scl:.3g})", good)
+    check("#5's D validity equal to the plain version's",
+          bool(torch.equal(d_k.valid, raw_ok & v)))
+    # The forward mode beside #5: where D cancels to zero the two orders
+    # leave different ULP-sized remainders, so the error is taken over the
+    # member's larger |D| of the two, floored at 1e-6.
+    both = d_k.valid & d_f.valid
+    a, b = d_k.x[both], d_f.x[both]
+    scale = torch.maximum(a.abs().amax(dim=1), b.abs().amax(dim=1)).clamp(min=1e-6)
+    err = (a - b).abs().amax(dim=1) / scale
+    print(f"  forward mode (eager interpreter) beside #5 on {int(both.sum())} members both "
+          f"call valid: {float((err <= 1e-4).float().mean()):.4f} of them within 1e-4 of the "
+          f"member's scale, worst {float(err.max()):.3g}; validity equal on "
+          f"{float((d_k.valid == d_f.valid).float().mean()):.4f}")
+    ms_k = cuda_ms(torch, lambda: ST._BatchedTreeCallable("V", sub, 1, ops, N_ROWS, True)
+                   .derivative(1, x), reps=5)
+    print(f"  D of {M} members over {N_ROWS} rows through #4 + #5: {ms_k:.4f} ms ({card})")
+
+    # The constant optimizer at 64 islands: the eager interpreter's
+    # forward-mode derivative under autograd (second order).
+    options = d_options(sr, ncycles, populations=ISLANDS // 8, optimizer_probability=0.14)
+    f_calls, opt_s = [], []
+
+    def record(engine):
+        optimize = engine._optimize
+
+        def recorded(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pops, calls = optimize(*a, **kw)
+            torch.cuda.synchronize()
+            opt_s.append(time.perf_counter() - t0)
+            f_calls.append(float(calls))
+            return pops, calls
+
+        engine._optimize = recorded
+
+    timing = []
+    launches, state, engine, evals = run_engine(torch, sr, dev, options, 1, data=d_data(),
+                                                on_engine=record, timing=timing, warmup=False)
+    n1 = ncycles + 1 + options.optimizer_iterations
+    check("#4 and #5 once an evaluation and once a line search (the gradient passes on the "
+          "eager interpreter launch nothing)",
+          launches == expect(launches, program_predict=n1, program_predict_vjp=n1))
+    print(f"  {card}: {timing[0]:.3f} s/iteration at {ISLANDS // 8} islands, the optimizer "
+          f"{opt_s[-1]:.3f} s of it; f_calls {sum(f_calls[-1:]):.0f} of {evals:.0f} evaluations "
+          f"({f_calls[-1] / evals:.1%}); peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+          f"(chunks of {CO.D_CHUNK_BYTES / 2**20:.0f} MiB of value buffer)")
+    hof = sr.HallOfFame.from_device(state.hof, options.operators, template=engine.template)
+    best = min(hof.entries, key=lambda e: e.loss)
+    print(f"  best after the optimizer: loss {best.loss:.6g}: {best.equation_string()}")
+    check("a finite best loss after the optimizer", bool(np.isfinite(best.loss)))
+    check.raise_if_failed("D template")
+
+
+def phase_tooling(torch, sr, dev, out_base, card):
+    """Phase 36: ``bench run`` (two mini cells through the matrix runner,
+    each a subprocess on the card), ``bench gate`` on its result against
+    benchmarks/baseline.json and ``bench trend`` over both files; phase
+    32's cohort of 4 under SearchServer(debug_checks=True), its observed
+    lock edges inside lint/lock_order.py's blessed order; one iteration of
+    the optimizer cell with Options(debug_checks=True) and the audit's
+    seconds; compile_count_guard(0) around a warm iteration; no_transfer
+    around a kernel #1 launch (passes) and an .item() (raises)."""
+    from symbolicregression_jl_tpu_torch.bench.__main__ import main as BENCH_MAIN
+    from symbolicregression_jl_tpu_torch.lint import racecheck as RC
+    from symbolicregression_jl_tpu_torch.lint.lock_order import BLESSED_EDGES, blessed_closure
+    from symbolicregression_jl_tpu_torch.lint.runtime import compile_count_guard, no_transfer
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+    from symbolicregression_jl_tpu_torch.pack import PackPolicy
+    from symbolicregression_jl_tpu_torch.serve import SearchServer
+
+    check = Checks()
+    here = os.path.dirname(os.path.abspath(__file__))
+    bench = os.path.join(out_base, "bench_cli")
+    res, gated = os.path.join(bench, "result.json"), os.path.join(bench, "gated.json")
+    sl = ["--variants", *BENCH_CLI_VARIANTS, "--seeds", "0"]
+    t0 = time.perf_counter()
+    # The CLI's entry function in this process; the matrix runner starts
+    # each cell in a process of its own.
+    for name, argv in (("run", ["run", *sl, "--workdir", os.path.join(bench, "work"), "--out",
+                                res, "--device", dev.type]),
+                       ("gate", ["gate", "--result", res, *sl, "--out", gated, "--baseline",
+                                 os.path.join(here, "benchmarks", "baseline.json")]),
+                       ("trend", ["trend", gated, res])):
+        print(f"  python -m symbolicregression_jl_tpu_torch.bench {' '.join(argv)}")
+        check(f"bench {name} exit code 0", BENCH_MAIN(argv) == 0)
+    print(f"  bench run + gate + trend: {time.perf_counter() - t0:.1f} s")
+    if os.path.exists(res):
+        with open(res) as f:
+            result = json.load(f)
+        print(f"  provenance {result['provenance']}")
+        kern = {"plain": "program_eval", "template": "program_predict"}
+        for v in BENCH_CLI_VARIANTS:
+            rec = result["cells"].get(f"{v}/seed0", {})
+            check(f"bench cell {v}/seed0 ran on the card on {kern[v]}: launches "
+                  f"{rec.get('launches')}", rec.get("backend") == dev.type
+                  and rec.get("launches", {}).get(kern[v], 0) > 0)
+        check("the result's platform is gpu", result["platform"] == "gpu")
+
+    # Phase 32's cohort under the runtime lock-order auditor.
+    torch.cuda.empty_cache()
+    root = os.path.join(out_base, "serve_debug")
+    server = SearchServer(root, pack=PackPolicy(), device=dev, debug_checks=True)
+    ids = [serve_submit(server, i, DEBUG_SERVE_ITERS) for i in range(len(SERVE_ROWS))]
+    t0 = time.perf_counter()
+    server.start()
+    snaps = [server.wait(r, timeout=900) for r in ids]
+    wall = time.perf_counter() - t0
+    server.stop(drain=True, timeout=60)
+    rec = RC.global_recorder()
+    closure = blessed_closure(BLESSED_EDGES)
+    edges = sorted(rec.edges)
+    print(f"  {card}: the cohort of 4 under debug_checks ({DEBUG_SERVE_ITERS} iteration) in "
+          f"{wall:.2f} s; observed lock edges "
+          f"{[(a, b, rec.edges[(a, b)]) for a, b in edges]}")
+    check("every request done", all(s["state"] == "done" for s in snaps))
+    check("no lock-order violation", rec.violations == [])
+    check("every observed edge lies inside BLESSED_EDGES' order",
+          all(b in closure.get(a, ()) for a, b in edges))
+    del server
+    torch.cuda.empty_cache()
+
+    # debug_checks on an engine iteration, then the guards.
+    options = bench_options(sr, UNITS_CYCLES, debug_checks=True)
+    audit_s = []
+
+    def record(engine):
+        audit = engine._audit_state
+
+        def timed(st, where):
+            t0 = time.perf_counter()
+            audit(st, where)
+            audit_s.append(time.perf_counter() - t0)
+
+        engine._audit_state = timed
+
+    timing = []
+    _, state, engine, _ = run_engine(torch, sr, dev, options, 1, on_engine=record,
+                                     timing=timing)
+    print(f"  {card}: one iteration with debug_checks {timing[0]:.3f} s, of which the audit "
+          f"(population and hall of fame to the host, the invariants) {audit_s[-1]:.3f} s")
+    check("the audit ran after the timed iteration", len(audit_s) == 1)
+    X, y = bench_data()
+    ds = sr.make_dataset(X, y, device=dev)
+    ds.update_baseline_loss(options.elementwise_loss)
+    with compile_count_guard(0, what="a warm iteration") as stats:
+        engine.run_iteration(state, ds.data, options.maxsize)
+        torch.cuda.synchronize()
+    print(f"  compile_count_guard(0) around a warm iteration: {stats.traces} loads, "
+          f"{stats.backend_compiles} builds")
+    opts, _, _, _, _, args, scal, cxf = kernel1_inputs(torch, sr, dev)
+    kernel, el = FE.PROGRAM_EVAL, opts.elementwise_loss
+    kernel(*args, opts.operators, el, cx=cxf, scal=scal)
+    torch.cuda.synchronize()
+    before = kernel.launches
+    try:
+        with no_transfer():
+            kernel(*args, opts.operators, el, cx=cxf, scal=scal)
+        launched = True
+    except RuntimeError as e:
+        print(f"  no_transfer around a kernel #1 launch raised: {e}")
+        launched = False
+    check("no_transfer passes a kernel #1 launch", launched and kernel.launches == before + 1)
+    try:
+        with no_transfer():
+            torch.ones(4, device=dev).sum().item()
+        raised = False
+    except RuntimeError as e:
+        raised = "synchroniz" in str(e)
+        print(f"  no_transfer around .item(): {str(e).splitlines()[0]}")
+    check("no_transfer raises on an .item()", raised)
+    check.raise_if_failed("tooling")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ncycles", type=int, default=30,
@@ -3878,6 +4254,17 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
     header("[33] ledger, pulse and gauge in turns, a fault's bundle, a profiler window, the "
            "load bench")
     phase_diagnostics(torch, sr, dev, out_base, card)
+
+    header("[34] units at the optimizer cell's widths, in turns with the same search without")
+    phase_units(torch, sr, dev, card)
+
+    header("[35] a D template at the template cell's widths, its constant optimizer, #5's D "
+           "values")
+    phase_d_template(torch, sr, dev, card)
+
+    header("[36] tooling: bench run/gate/trend, the cohort under debug_checks, the audits and "
+           "guards")
+    phase_tooling(torch, sr, dev, out_base, card)
 
     header("")
     print(card)

@@ -22,6 +22,14 @@ survives a kill, and packs same-shape requests into lockstep cohorts;
 ``pulse/`` and ``gauge/`` (a cost account, a flight recorder, memory
 samples).
 
+Units (``equation_search(X_units=, y_units=)`` with
+``Options(dimensional_constraint_penalty=)``) run a dimensional check on
+the device; ``D`` differentiates host trees symbolically, or template
+subexpressions row by row (``eval_diff_tree_array`` and
+``eval_grad_tree_array`` take forward-mode derivatives). ``lint/`` holds
+the static analyzer and the runtime audits (``Options(debug_checks=True)``),
+``bench/`` the matrix, gate and trend CLI.
+
 The search API is the JAX package's: ``equation_search`` with guesses,
 ``initial_population``, warm starts (``saved_state``), checkpoints and
 ``resume``, hall-of-fame CSVs, several outputs and minibatching
@@ -69,13 +77,44 @@ __all__ = [
     "warmup",
     "SearchServer",
     "ServerSaturated",
+    "D",
+    "eval_tree_array",
+    "eval_diff_tree_array",
+    "eval_grad_tree_array",
+    "differentiable_eval_tree_array",
 ]
 
 
 def __getattr__(name):
-    # The serve layer on first use, as in the JAX package.
+    # The serve layer and the differentiation API on first use, as in the
+    # JAX package.
     if name in ("SearchServer", "ServerSaturated"):
         from . import serve
 
         return getattr(serve, name)
+    if name in ("eval_tree_array", "eval_diff_tree_array", "eval_grad_tree_array",
+                "differentiable_eval_tree_array"):
+        from .ops import diff
+
+        return getattr(diff, name)
+    if name == "D":
+        return _dispatch_D
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def _dispatch_D(obj, arg=1):
+    """The exported ``D`` (src/SymbolicRegression.jl:172 of the Julia
+    reference), as the JAX package dispatches it:
+
+    - on a host ``Node``: the symbolic derivative w.r.t. variable index
+      ``arg`` (0-based feature, ops/diff.py ``D``);
+    - on template or composable subexpression callables: a derivative
+      callable w.r.t. argument slot ``arg`` (1-based, the template idiom
+      ``D(V, 1)(x)``; models/template.py ``D``)."""
+    if isinstance(obj, Node):
+        from .ops import diff
+
+        return diff.D(obj, arg)
+    from .models import template as _template
+
+    return _template.D(obj, arg)

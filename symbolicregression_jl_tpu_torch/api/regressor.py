@@ -4,8 +4,8 @@
 `equation_search` on `fit` (on ``device``, CUDA unless ``device="cpu"``),
 refits warm by running only the iterations it has not run yet, and
 predicts with the `choose_best` selection rule or an equation the caller
-picks. LaTeX and SymPy export and unit-typed predictions come with later
-slices and raise NotImplementedError.
+picks. With ``y_units`` given at fit, ``predict(with_units=True)`` returns
+a ``QuantityArray`` (core/units.py) that echoes them.
 """
 
 from __future__ import annotations
@@ -102,6 +102,7 @@ class SRRegressor:
         self.variable_names_: Optional[Sequence[str]] = None
         self.fitted_iterations_: int = 0
         self.classes_: Optional[np.ndarray] = None
+        self.y_units_ = None
         self._named_fit_ = False
 
     def _make_options(self) -> Options:
@@ -149,6 +150,7 @@ class SRRegressor:
         self.nfeatures_ = X.shape[1]
         self.variable_names_ = (list(variable_names) if variable_names is not None
                                 else [f"x{i + 1}" for i in range(X.shape[1])])
+        self.y_units_ = y_units
         extra = None
         self.classes_ = None
         if category is not None:
@@ -249,11 +251,10 @@ class SRRegressor:
                 with_units: bool = False):
         """Predict with the selected (or ``idx``-chosen) equation. Column
         tables (DataFrames, dicts of columns) are reordered by the fitted
-        variable names."""
-        if with_units:
-            raise NotImplementedError("predict(with_units=True) is not in the PyTorch port "
-                                      "yet; it comes with the expression-plugin slice "
-                                      "(ROADMAP.md queue 1 item 4).")
+        variable names. With ``with_units=True`` (and ``y_units`` given at
+        fit) the result is a :class:`~..core.units.QuantityArray` echoing
+        those units, the unit-typed predict of the Julia reference
+        (src/MLJInterface.jl:366-380)."""
         self._check_fitted()
         X, table_names = _coerce_table(X)
         if table_names is not None and self.variable_names_ is not None:
@@ -269,10 +270,16 @@ class SRRegressor:
                 idxs = [int(idx)] * len(self.equations_)
             else:
                 idxs = list(idx)
-            return np.stack([self._predict_one(recs, i, X, category)
-                             for recs, i in zip(self.equations_, idxs)], axis=1)
-        i = int(idx) if idx is not None else int(self.best_idx_)
-        return self._predict_one(self.equations_, i, X, category)
+            out = np.stack([self._predict_one(recs, i, X, category)
+                            for recs, i in zip(self.equations_, idxs)], axis=1)
+        else:
+            i = int(idx) if idx is not None else int(self.best_idx_)
+            out = self._predict_one(self.equations_, i, X, category)
+        if with_units and self.y_units_ is not None:
+            from ..core.units import QuantityArray
+
+            return QuantityArray(out, self.y_units_)
+        return out
 
     def score(self, X, y, *, sample_weight=None, category=None) -> float:
         """Coefficient of determination R^2."""

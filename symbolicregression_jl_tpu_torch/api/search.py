@@ -74,7 +74,7 @@ import numpy as np
 import torch
 
 from ..core.dataset import Dataset, make_dataset
-from ..core.options import PLUGIN_SLICE, Options, check_supported, float_dtype
+from ..core.options import Options, check_supported, float_dtype
 from ..device import resolve_device
 from ..evolve import rng
 from ..evolve.engine import Engine, SearchDeviceState
@@ -191,7 +191,8 @@ def _on_device(state: SearchDeviceState, dev: torch.device) -> SearchDeviceState
 
 
 def _resolve_datasets(X, y, weights, variable_names, display_variable_names,
-                      y_variable_names, extra, device, dtype=torch.float32) -> List[Dataset]:
+                      y_variable_names, extra, device, dtype=torch.float32, X_units=None,
+                      y_units=None) -> List[Dataset]:
     """One Dataset per output, its data ``dtype``. ``X`` may be a Dataset or
     a list of them; else ``y`` is [n] or [nout, n]."""
     if isinstance(X, Dataset):
@@ -212,6 +213,9 @@ def _resolve_datasets(X, y, weights, variable_names, display_variable_names,
         datasets.append(make_dataset(
             X, ys[j], weights=weights, variable_names=variable_names,
             display_variable_names=display_variable_names, y_variable_name=y_name,
+            X_units=X_units,
+            y_units=(y_units[j] if (y_units is not None and not isinstance(y_units, str))
+                     else y_units),
             extra=extra, index=j + 1, device=device, dtype=dtype))
     return datasets
 
@@ -438,17 +442,13 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
     random draw. See the module docstring for warm starts and resume.
     ``dtype`` (float32 or float64; default ``options.eval_dtype``) is the
     data's, the constants', the costs' and the hall of fame's floating type:
-    float64 runs the kernels' double forms. Units, ``extra`` columns other
-    than ``class`` and the RuntimeOptions fields of later slices raise
-    NotImplementedError naming their slice."""
-    other_extra = {k: v for k, v in (extra or {}).items() if k not in ("class", "classes")}
-    later = {"X_units": (X_units, PLUGIN_SLICE), "y_units": (y_units, PLUGIN_SLICE),
-             "extra": (other_extra or None, PLUGIN_SLICE)}
-    for name, (value, where) in later.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"equation_search({name}=...) is not in the PyTorch port yet; it comes with "
-                f"{where}.")
+    float64 runs the kernels' double forms. ``X_units`` (one unit spec per
+    feature) and ``y_units`` (one per output, or one for all) turn on the
+    dimensional analysis: a tree that violates them pays
+    ``options.dimensional_constraint_penalty`` (1000 by default) on its
+    cost. ``extra`` columns ride the Dataset (``class`` gives parametric
+    expressions their classes). The RuntimeOptions fields of later slices
+    raise NotImplementedError naming their slice."""
     options = options or Options()
     dev = resolve_device(device)
     check_supported(options, dev, dtype)
@@ -504,7 +504,8 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
             resume_events.append(("resume", {"path": used_path, "iterations_done": start_iter}))
 
     datasets = _resolve_datasets(X, y, weights, variable_names, display_variable_names,
-                                 y_variable_names, extra, dev, fdtype)
+                                 y_variable_names, extra, dev, fdtype, X_units=X_units,
+                                 y_units=y_units)
     for ds in datasets:
         ds.update_baseline_loss(options.elementwise_loss)
     key = rng.key(ropt.seed if ropt.seed is not None else np.random.randint(0, 2**31 - 1),

@@ -6,15 +6,21 @@ and the JAX package's cell of the same id run the same problem. A cell
 runs in-process on the given device (``run_cell``), and its metrics come
 from its graftscope telemetry JSONL through bench/extract.py — not from
 ad-hoc timers — so the quality check measures what observability
-reports. The matrix runner, baseline calibration and the CLI come with
-the tooling slice (ROADMAP.md queue 1 item 8).
+reports. The matrix runner (bench/matrix.py) runs each cell in a clean
+subprocess through :func:`cell_main` (``python -m
+symbolicregression_jl_tpu_torch.bench _cell SPEC``), which prints the
+record on a ``GRAFTBENCH_CELL`` line.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from typing import Any, Dict
+
+# The prefix of the one stdout line that carries a subprocess cell's record.
+CELL_SENTINEL = "GRAFTBENCH_CELL"
 
 # Mini (CPU/CI) shapes and chip-sized shapes (the bench.py headline
 # config), as in the JAX package.
@@ -89,11 +95,20 @@ def _options(shape: Dict[str, Any], variant: str, out_dir: str):
     )
 
 
+def _launch_counts() -> Dict[str, int]:
+    """Every kernel wrapper's launch counter (ops/fused_eval.py), by name."""
+    from ..ops import fused_eval
+
+    return {k.name: k.launches for k in vars(fused_eval).values()
+            if isinstance(k, fused_eval._ProgramKernel)}
+
+
 def run_cell(spec: Dict[str, Any], device=None) -> Dict[str, Any]:
     """Run one cell per its spec (``variant``, ``seed``, ``shape``,
-    ``cell_id``, ``out_dir``) on ``device`` (CUDA unless ``"cpu"``);
-    returns the cell result record, metrics extracted from the telemetry
-    JSONL."""
+    ``cell_id``, ``out_dir``) on ``device`` (CUDA unless ``"cpu"``; a
+    ``device`` key of the spec stands in for the argument); returns the
+    cell result record, metrics extracted from the telemetry JSONL, and
+    the kernel launches the cell made (``launches``, by kernel)."""
     from ..api.search import equation_search
     from ..device import resolve_device
     from ..telemetry.schema import load_events
@@ -104,7 +119,7 @@ def run_cell(spec: Dict[str, Any], device=None) -> Dict[str, Any]:
         raise NotImplementedError(
             f"the {variant!r} cell is not in the PyTorch port yet; it comes with the "
             "multi-device slice (ROADMAP.md queue 1 item 9).")
-    dev = resolve_device(device)
+    dev = resolve_device(device if device is not None else spec.get("device"))
     seed = int(spec["seed"])
     shape = dict(spec["shape"])
     cell_id = spec["cell_id"]
@@ -114,6 +129,7 @@ def run_cell(spec: Dict[str, Any], device=None) -> Dict[str, Any]:
     X, y, extra = _problem(shape, variant)
     options = _options(shape, variant, out_dir)
 
+    before = _launch_counts()
     t0 = time.perf_counter()
     equation_search(
         X, y, options=options, extra=extra,
@@ -121,6 +137,8 @@ def run_cell(spec: Dict[str, Any], device=None) -> Dict[str, Any]:
         verbosity=0, run_id=run_id, seed=seed, device=dev,
     )
     wall_s = time.perf_counter() - t0
+    launches = {k: n - before.get(k, 0) for k, n in _launch_counts().items()
+                if n != before.get(k, 0)}
 
     telemetry_path = os.path.join(out_dir, run_id, "telemetry.jsonl")
     metrics = extract_metrics(load_events(telemetry_path))
@@ -133,4 +151,12 @@ def run_cell(spec: Dict[str, Any], device=None) -> Dict[str, Any]:
         "wall_s": round(wall_s, 2),
         "telemetry": telemetry_path,
         "metrics": metrics,
+        "launches": launches,
     }
+
+
+def cell_main(spec_json: str) -> int:
+    """Subprocess entry: run the cell, print the sentinel result line."""
+    rec = run_cell(json.loads(spec_json))
+    print(f"{CELL_SENTINEL} {json.dumps(rec)}", flush=True)
+    return 0

@@ -95,13 +95,30 @@ def load_baseline(path: str) -> Dict[str, Any]:
 
 
 def library_provenance() -> Dict[str, Optional[str]]:
-    """torch/numpy versions behind a result."""
+    """What a result ran on: the torch and numpy versions, the CUDA
+    version torch was built for, the driver's version and the card's
+    name (None where there is no CUDA). Best-effort."""
     versions: Dict[str, Optional[str]] = {}
     for name in ("torch", "numpy"):
         try:
             versions[name] = __import__(name).__version__
         except Exception:  # noqa: BLE001 - provenance is best-effort
             versions[name] = None
+    versions["cuda"] = versions["driver"] = versions["device"] = None
+    try:
+        import torch
+
+        versions["cuda"] = torch.version.cuda
+        if torch.cuda.is_available():
+            versions["device"] = torch.cuda.get_device_name(0)
+            import subprocess
+
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=30)
+            versions["driver"] = out.stdout.strip().splitlines()[0] if out.stdout.strip() else None
+    except Exception:  # noqa: BLE001 - provenance is best-effort
+        pass
     return versions
 
 

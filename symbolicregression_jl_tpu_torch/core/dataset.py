@@ -42,6 +42,13 @@ class DeviceData:
     # Each row's class [n] int32 (the ``class`` column of ``extra``, as
     # indices into its sorted unique values), or None.
     class_idx: Optional[torch.Tensor] = None
+    # Dimensional analysis (None when the dataset has no units): SI
+    # exponent vectors read by ops.dims_eval, and the row the single-sample
+    # check reads (the full dataset's first row, kept by take_rows, as the
+    # JAX package reads ``data.Xt[:, 0]`` under a minibatch too).
+    x_dims: Optional[torch.Tensor] = None    # [nfeatures, 7] float32
+    y_dims: Optional[torch.Tensor] = None    # [7] float32
+    dims_row: Optional[torch.Tensor] = None  # [nfeatures], X's dtype
     # Row samples made by strided_sample, by size (a replace() starts empty).
     _samples: Dict[int, "DeviceData"] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
@@ -64,7 +71,8 @@ class DeviceData:
         take = lambda t: None if t is None else t.index_select(-1, idx).contiguous()
         return DeviceData(Xt=take(self.Xt), y=take(self.y), weights=take(self.weights),
                           baseline_loss=self.baseline_loss, use_baseline=self.use_baseline,
-                          class_idx=take(self.class_idx))
+                          class_idx=take(self.class_idx), x_dims=self.x_dims,
+                          y_dims=self.y_dims, dims_row=self.dims_row)
 
     def strided_sample(self, sample_rows: int) -> "DeviceData":
         """graftstage's screening rows (``ops.fused_eval.strided_sample_indices``)
@@ -93,6 +101,16 @@ class Dataset:
     variable_names: Sequence[str] = ()
     display_variable_names: Sequence[str] = ()
     y_variable_name: str = "y"
+    # Units as given (unit specs per feature, and of y), or None.
+    X_units: Optional[Sequence[Any]] = None
+    y_units: Optional[Any] = None
+    # The ``extra`` columns as given (``class`` among them), carried with
+    # the dataset as in the JAX package.
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def has_units(self) -> bool:
+        return self.X_units is not None or self.y_units is not None
 
     @property
     def X(self):
@@ -149,6 +167,8 @@ def make_dataset(
     display_variable_names: Optional[Sequence[str]] = None,
     y_variable_name: Optional[str] = None,
     extra: Optional[Dict[str, Any]] = None,
+    X_units=None,
+    y_units=None,
     index: int = 1,
     device=None,
     dtype=torch.float32,
@@ -159,7 +179,11 @@ def make_dataset(
 
     ``extra={"class": values}`` (or ``"classes"``) gives each row a class
     for parametric expressions: ``class_idx`` holds each value's index
-    among the sorted unique values. ``index`` numbers the output this
+    among the sorted unique values; every ``extra`` column is carried in
+    ``Dataset.extra``. ``X_units`` (one unit spec per feature) and
+    ``y_units`` give the dimensional analysis its ``x_dims``/``y_dims``
+    (core/units.py ``units_to_dims_arrays``), and string units annotate
+    the display names (``x1[m]``). ``index`` numbers the output this
     dataset holds in a multi-output search (from 1)."""
     dev = resolve_device(device)
     X = np.asarray(X)
@@ -178,12 +202,19 @@ def make_dataset(
     if "class" in extra or "classes" in extra:
         cls = np.asarray(extra.get("class", extra.get("classes"))).reshape(-1)
         class_idx = np.searchsorted(np.unique(cls), cls).astype(np.int32)
+        extra["class"] = cls
 
     variable_names = list(variable_names or [f"x{i + 1}" for i in range(nfeatures)])
     default_names = [f"x{i + 1}" for i in range(nfeatures)]
     display_variable_names = list(display_variable_names or (
         variable_names if variable_names != default_names
         else [f"x{_subscriptify(i + 1)}" for i in range(nfeatures)]))
+    if X_units is not None:
+        # Unit-annotated printing, as in the JAX package: only plain string
+        # specs annotate.
+        display_variable_names = [
+            f"{name}[{u}]" if isinstance(u, str) and u not in ("", "1") else name
+            for name, u in zip(display_variable_names, X_units)]
     if y_variable_name is None:
         y_variable_name = "y" if "y" not in variable_names else "target"
 
@@ -192,6 +223,9 @@ def make_dataset(
     else:
         avg_y = float(np.mean(y_arr))
 
+    from .units import units_to_dims_arrays
+
+    x_dims_np, y_dims_np = units_to_dims_arrays(X_units, nfeatures, y_units)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     data = DeviceData(
         Xt=t(X.T.astype(ndt)),
@@ -200,10 +234,16 @@ def make_dataset(
         baseline_loss=torch.ones((), dtype=dtype, device=dev),
         use_baseline=torch.tensor(True, device=dev),
         class_idx=None if class_idx is None else t(class_idx),
+        x_dims=None if x_dims_np is None else t(x_dims_np),
+        y_dims=None if y_dims_np is None else t(y_dims_np),
+        dims_row=None if x_dims_np is None else t(X[0].astype(ndt)),
     )
     return Dataset(
         data=data, n=n, nfeatures=nfeatures, index=index, avg_y=avg_y,
         variable_names=variable_names,
         display_variable_names=display_variable_names,
         y_variable_name=y_variable_name,
+        X_units=list(X_units) if X_units is not None else None,
+        y_units=y_units,
+        extra=extra,
     )

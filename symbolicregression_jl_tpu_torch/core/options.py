@@ -743,8 +743,7 @@ USER_CALLABLES_ON_KERNELS = "ROADMAP.md queue 3's item 'user operators on the ke
 
 def _check_expression_spec(options: Options) -> None:
     """Plain, parametric and template expressions run (templates with
-    parameter vectors too); a template with D(...) call sites runs without
-    the constant optimizer."""
+    parameter vectors and D(...) call sites too)."""
     from ..models.spec import ExpressionSpec, ParametricExpressionSpec, TemplateExpressionSpec
 
     spec = options.expression_spec
@@ -752,10 +751,6 @@ def _check_expression_spec(options: Options) -> None:
         return
     if not isinstance(spec, TemplateExpressionSpec):
         _refuse(f"expression_spec of type {type(spec).__name__}", PLUGIN_SLICE)
-    if spec.structure.uses_deriv and options.should_optimize_constants:
-        _refuse("constant optimization of a template with D(...) call sites "
-                "(should_optimize_constants=True; it needs second-order derivatives)",
-                PLUGIN_SLICE)
 
 
 def float_dtype(name) -> "torch.dtype":
@@ -819,8 +814,6 @@ def check_supported(options: Options, device=None, dtype=None) -> None:
     from ..models.spec import ParametricExpressionSpec, TemplateExpressionSpec
 
     _check_expression_spec(options)
-    if options.dimensional_constraint_penalty is not None:
-        _refuse("dimensional_constraint_penalty (units)", PLUGIN_SLICE)
     fdt = float_dtype(dtype if dtype is not None else options.eval_dtype)
     template = isinstance(options.expression_spec, TemplateExpressionSpec)
     if fdt == torch.float64 and template:

@@ -371,6 +371,14 @@ def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
     return out + (new_x[:, L:].reshape(params.shape) if parametric else params,)
 
 
+#: Bytes of the eager interpreter's value buffer ([rows, L, data rows]) one
+#: chunk of a D structure's optimizer may take. Its forward-mode tangents
+#: and the second-order graph cost several times that, so members are
+#: processed in chunks (each member's loss depends on its own constants
+#: only, so chunking changes no value).
+D_CHUNK_BYTES = 1 << 30
+
+
 def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, data,
                                 elementwise_loss, operators, cfg: OptimizerConfig, template,
                                 fused: bool = False, params: Optional[torch.Tensor] = None,
@@ -387,18 +395,25 @@ def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, dat
     iteration is one gradient pass (``torch.autograd`` through
     :func:`~..models.template.eval_template_batch`: kernel #4 forward,
     kernel #5 backward when ``fused``) and one batched line search of
-    every restart's C candidate steps. ``params`` [..., T, 1] are the
+    every restart's C candidate steps. A structure with ``D(...)`` call
+    sites takes its gradient pass on the eager interpreter whatever
+    ``fused``: each derivative is then the interpreter's forward-mode
+    derivative under autograd, so the constants' gradient is the
+    derivative's own gradient (second order), which kernel #5's
+    first-order backward cannot give (the JAX engine runs such structures
+    on its interpreter path). Its line search needs no gradient and runs
+    on the kernels with ``fused``. The eager interpreter keeps a
+    [members, L, rows] buffer, so its passes run the members in chunks of
+    at most ``D_CHUNK_BYTES`` of buffer. ``params`` [..., T, 1] are the
     members' parameter vectors. Returns (new_const, improved, new_loss,
     f_calls) with the leading dims of ``trees``, and new_params last when
     ``params`` is given. ``loss_function`` is the custom whole-prediction
     loss, as in :func:`optimize_constants_batch`."""
     from ..models.template import eval_template_batch
 
-    if template.uses_deriv:
-        raise NotImplementedError(
-            "constant optimization of templates with D(...) call sites needs second-order "
-            "derivatives; it comes with the expression-plugin slice (ROADMAP.md queue 1 "
-            "item 4).")
+    # D call sites: the gradient pass on the eager interpreter (second
+    # order); the line search needs no gradient, so it keeps the kernels.
+    grad_fused = fused and not template.uses_deriv
     K, L = trees.arity.shape[-2:]
     lead = trees.length.shape[:-1]
     T = template.total_params
@@ -419,32 +434,47 @@ def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, dat
           else torch.zeros((P, T), dtype=flat.const.dtype, device=dev))
     x0 = torch.cat([flat.const.reshape(P, K * L), p0], dim=1)
 
-    def loss_of(xb, reps: int):
-        """Loss of each member with the constants and parameters ``xb``
-        [P*reps, K*L + T]."""
+    def loss_of(xb, reps: int, lo: int = 0, hi: int = P, fused: bool = fused):
+        """Loss of each of members ``lo:hi`` with the constants and
+        parameters ``xb`` [(hi - lo)*reps, K*L + T]."""
         m = xb.shape[0]
-        rep = lambda a: a.repeat_interleave(reps, dim=0)
+        rep = lambda a: a[lo:hi].repeat_interleave(reps, dim=0)
         c = torch.where(rep(cmask), xb[:, :K * L].reshape(m, K, L), rep(flat.const))
         member = TreeBatch(rep(flat.arity), rep(flat.op), rep(flat.feat), c, rep(flat.length))
         pred, valid = eval_template_batch(member, X, template, operators,
                                           params=xb[:, K * L:] if T else None, fused=fused)
         return loss_from_pred(pred, valid, y, w, elementwise_loss, loss_function)
 
+    def spans(rows_per_member: int, fused: bool):
+        """Member chunks: one for the kernels; for the eager interpreter of
+        a D structure, at most D_CHUNK_BYTES of value buffer each."""
+        per = P if fused or not template.uses_deriv else D_CHUNK_BYTES // (
+            K * L * X.shape[-1] * X.element_size() * rows_per_member)
+        per = max(per, 1)
+        return [(lo, min(lo + per, P)) for lo in range(0, max(P, 1), per)]
+
+    grad_spans, line_spans = spans(R, grad_fused), spans(R * C, fused)
     mask_r = xmask.repeat_interleave(R, dim=0)
 
     def value_and_grad(xb, _active):
         """Each member's loss depends on its own constants only, so the
-        gradient of the summed finite losses is every member's own."""
-        xb = xb.detach().requires_grad_(True)
-        with torch.enable_grad():
-            loss = loss_of(xb, R)
-            total = torch.where(torch.isfinite(loss), loss, 0.0).sum()
-            (g,) = torch.autograd.grad(total, xb)
-        g = torch.where(mask_r, g, 0.0)
-        return loss.detach(), torch.where(torch.isfinite(g), g, 0.0)
+        gradient of the summed finite losses is every member's own (and
+        chunks of members are independent)."""
+        losses, grads = [], []
+        for lo, hi in grad_spans:
+            xc = xb[lo * R:hi * R].detach().requires_grad_(True)
+            with torch.enable_grad():
+                loss = loss_of(xc, R, lo, hi, fused=grad_fused)
+                total = torch.where(torch.isfinite(loss), loss, 0.0).sum()
+                (g,) = torch.autograd.grad(total, xc)
+            losses.append(loss.detach())
+            grads.append(g)
+        g = torch.where(mask_r, torch.cat(grads), 0.0)
+        return torch.cat(losses), torch.where(torch.isfinite(g), g, 0.0)
 
     def line_losses(cand_x, _active):
-        return loss_of(cand_x.reshape(-1, Dm), R * C).reshape(P * R, C)
+        return torch.cat([loss_of(cand_x[lo * R:hi * R].reshape(-1, Dm), R * C, lo, hi)
+                          for lo, hi in line_spans]).reshape(P * R, C)
 
     eps = eps.reshape(P, cfg.nrestarts, Dm)
     starts = torch.cat([x0[:, None], x0[:, None] * (1.0 + 0.5 * eps)], dim=1)

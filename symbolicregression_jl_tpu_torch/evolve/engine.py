@@ -224,7 +224,9 @@ class Engine:
                                member_params=params if cfg.n_params else None,
                                turbo=cfg.turbo, fuse_cost=fuse_cost, dedup=dedup,
                                template=cfg.template, bf16=cfg.eval_bf16,
-                               loss_function=self.options.resolved_loss_function)
+                               loss_function=self.options.resolved_loss_function,
+                               dim_penalty=cfg.dim_penalty,
+                               wildcard_constants=cfg.wildcard_constants)
 
     def _epilogue_draws(self, k_opt, I: int):
         """The optimizer's selection size and its island-major random
@@ -287,7 +289,7 @@ class Engine:
             from ..telemetry.counters import empty_iteration_telemetry
 
             telem = empty_iteration_telemetry(cfg.maxsize, dev)
-        return SearchDeviceState(
+        state = SearchDeviceState(
             pops=pops,
             hof=empty_hof((), cfg.maxsize, cfg.max_nodes, dev, template_k=template_k(cfg),
                           n_params=cfg.n_params, n_classes=cfg.n_classes, dtype=self.dtype),
@@ -298,6 +300,28 @@ class Engine:
             key=k_state,
             telem=telem,
         )
+        if self.options.debug_checks:
+            self._audit_state(state, where="init_state")
+        return state
+
+    def _audit_state(self, state: SearchDeviceState, where: str) -> None:
+        """graftlint's runtime audit (``Options(debug_checks=True)``): the
+        postfix-encoding invariants of the population and the hall of fame
+        after mutation, crossover and migration rewrote them
+        (lint/runtime.py). Copies the tables to the host; debug tier only."""
+        from ..lint.runtime import validate_programs
+
+        cfg = self.cfg
+        # Template members carry a subexpression axis whose feature counts
+        # vary by slot: no feature-range check there.
+        nfeat = None if cfg.template is not None else self.nfeatures
+        n_params = None if cfg.template is not None else cfg.n_params
+        validate_programs(state.pops.trees, cfg.operators, nfeatures=nfeat,
+                          n_params=n_params, where=f"engine {where}: population")
+        # Empty hall-of-fame slots hold the all-padding single-constant
+        # tree, which is itself valid.
+        validate_programs(state.hof.trees, cfg.operators, nfeatures=nfeat,
+                          n_params=n_params, where=f"engine {where}: hall of fame")
 
     def draw_batch(self, k_batch, data: DeviceData) -> Optional[DeviceData]:
         """With ``batching``, this iteration's minibatch: ``batch_size``
@@ -334,6 +358,7 @@ class Engine:
         batch = self.draw_batch(k_batch, data)
         eval_fraction = cfg.batch_size / data.n if batch is not None else 1.0
         cycle_data = batch if batch is not None else data
+        chunked = bool(chunk_sizes) and list(chunk_sizes) != [cfg.ncycles]
         if not chunk_sizes:
             chunk_sizes = [cfg.ncycles]
         if sum(chunk_sizes) != cfg.ncycles:
@@ -362,6 +387,9 @@ class Engine:
         tele = carry[3] if cfg.collect_telemetry else None
         new_state = self._epilogue(state, data, cur_maxsize, pops, best_seen, nev, birth, ref,
                                    marks, tele, key, k_opt, k_mig, batch, eval_fraction)
+        if options.debug_checks:
+            self._audit_state(new_state,
+                              where="run_iteration(chunked)" if chunked else "run_iteration")
         if cfg.record_events:
             return new_state, CycleEvents(*(torch.cat(f, dim=1) for f in zip(*events)))
         return new_state
@@ -495,7 +523,11 @@ class Engine:
                 # islands' members run as one batch.
                 out = optimize_constants_template(
                     rng.split(opt_key, I), sub, gate, data, options.elementwise_loss,
-                    cfg.operators, self.opt_cfg, cfg.template, fused=cfg.turbo, params=sub_p,
+                    cfg.operators, self.opt_cfg, cfg.template,
+                    # D call sites take their gradient on the eager
+                    # interpreter (second order; kernel #5's backward is
+                    # first order) and their line search on the kernels.
+                    fused=cfg.turbo, params=sub_p,
                     loss_function=options.resolved_loss_function)
             elif cfg.turbo and not cfg.n_params:
                 out = optimize_constants_fused(

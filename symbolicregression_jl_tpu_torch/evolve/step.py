@@ -151,6 +151,11 @@ class EvolveConfig(NamedTuple):
     # (eval_dtype / equation_search(dtype=...)): float32, or float64 as the
     # JAX package runs under x64.
     dtype: torch.dtype = torch.float32
+    # Dimensional analysis: the cost penalty for a unit violation (applied
+    # only where the dataset carries units), and whether constants are
+    # wildcards (off with ``dimensionless_constants_only``).
+    dim_penalty: float = 1000.0
+    wildcard_constants: bool = True
 
     @property
     def n_slots(self) -> int:
@@ -220,6 +225,10 @@ def evolve_config_from_options(options: Options, nfeatures: int, device: torch.d
         collect_telemetry=bool(options.telemetry),
         record_events=bool(options.use_recorder),
         dtype=dtype,
+        dim_penalty=(options.dimensional_constraint_penalty
+                     if options.dimensional_constraint_penalty is not None
+                     else 1000.0),  # src/LossFunctions.jl:236-245's default
+        wildcard_constants=not options.dimensionless_constants_only,
     )
 
 
@@ -231,7 +240,8 @@ def evolve_config_from_options(options: Options, nfeatures: int, device: torch.d
 def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: ComplexityTables,
                     operators: OperatorSet, parsimony: float, *, member_params=None,
                     turbo: bool = False, fuse_cost: bool = False, dedup: bool = False,
-                    template=None, bf16: bool = False, loss_function=None):
+                    template=None, bf16: bool = False, loss_function=None,
+                    dim_penalty: float = 1000.0, wildcard_constants: bool = True):
     """(cost, loss, complexity) per tree, any batch shape, on the rows of
     ``data``: the dataset, or a row subset of it such as graftstage's
     screening sample (``DeviceData.strided_sample``, whose baseline
@@ -269,7 +279,14 @@ def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: Complexity
     predicted by the eager interpreter (or the template combiner) and
     the loss is ``loss_function(pred, y, w, valid)`` per tree, a NaN or
     an invalid tree giving inf (core/losses.loss_from_pred), as the JAX
-    package's ``_loss_from_pred`` computes it; ``turbo`` is off for it."""
+    package's ``_loss_from_pred`` computes it; ``turbo`` is off for it.
+
+    Where ``data`` carries units (``x_dims``), every plain or parametric
+    tree gets the single-sample dimensional check on the full dataset's
+    first row (ops/dims_eval.py; src/DimensionalAnalysis.jl:223-257 of the
+    Julia reference) and ``dim_penalty`` times its violation added to its
+    cost (src/LossFunctions.jl:236-245); templates are excluded, as in
+    the JAX package."""
     X, y, w = data.Xt, data.y, data.weights
     has_params = member_params is not None and member_params.shape[-2] > 0
     if template is not None:
@@ -292,13 +309,15 @@ def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: Complexity
         pred, valid = eval_tree_batch(trees, X, operators, params=prows)
         loss = loss_from_pred(pred, valid, y, w, elementwise_loss, loss_function)
         cost = loss_to_cost(loss, data.baseline_loss, data.use_baseline, complexity, parsimony)
-        return cost, loss, complexity
+        return _dims_penalty(cost, trees, data, operators, dim_penalty,
+                             wildcard_constants), loss, complexity
     if turbo and fuse_cost and not dedup and not has_params:
         cost, loss, _ = fused_cost(
             trees, X, y, w, complexity, operators, elementwise_loss,
             baseline_loss=data.baseline_loss, use_baseline=data.use_baseline,
             parsimony=parsimony, bf16=bf16)
-        return cost, loss, complexity
+        return _dims_penalty(cost, trees, data, operators, dim_penalty,
+                             wildcard_constants), loss, complexity
     if turbo and has_params:
         loss, _ = fused_loss(trees, X, y, w, operators, elementwise_loss, params=member_params,
                              class_idx=data.class_idx, bf16=bf16)
@@ -316,7 +335,23 @@ def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: Complexity
         pred, valid = eval_tree_batch(trees, X, operators, params=prows)
         loss = aggregate_loss(elementwise_loss, pred, y, valid, w)
     cost = loss_to_cost(loss, data.baseline_loss, data.use_baseline, complexity, parsimony)
-    return cost, loss, complexity
+    return _dims_penalty(cost, trees, data, operators, dim_penalty,
+                         wildcard_constants), loss, complexity
+
+
+def _dims_penalty(cost, trees: TreeBatch, data, operators: OperatorSet, dim_penalty: float,
+                  wildcard_constants: bool):
+    """``cost + dim_penalty * violates`` where the data carries units, else
+    ``cost``: the single-sample check on the full dataset's first row."""
+    if data.x_dims is None:
+        return cost
+    from ..ops.dims_eval import N_DIMS, dimensional_violations_batch
+
+    viol = dimensional_violations_batch(
+        trees, data.dims_row, data.x_dims,
+        (torch.zeros(N_DIMS, device=cost.device) if data.y_dims is None else data.y_dims),
+        data.y_dims is not None, operators, wildcard_constants=wildcard_constants)
+    return cost + torch.as_tensor(dim_penalty, dtype=cost.dtype, device=cost.device) * viol
 
 
 # ---------------------------------------------------------------------------
@@ -718,7 +753,9 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
         return eval_cost_batch(flat, rows, elementwise_loss, tables, cfg.operators,
                                cfg.parsimony, member_params=p_flat, turbo=cfg.turbo,
                                fuse_cost=cfg.fuse_cost, template=template, bf16=cfg.eval_bf16,
-                               loss_function=options.resolved_loss_function)
+                               loss_function=options.resolved_loss_function,
+                               dim_penalty=cfg.dim_penalty,
+                               wildcard_constants=cfg.wildcard_constants)
 
     # graftstage's staged path (templates excepted, as in the JAX package):
     # every candidate is screened on the strided sample, each island's best

@@ -73,7 +73,11 @@ def device_data(d, device=None) -> DeviceData:
         weights=None if d.weights is None else tensor(d.weights, device),
         baseline_loss=tensor(d.baseline_loss, device),
         use_baseline=tensor(d.use_baseline, device),
-        class_idx=None if d.class_idx is None else tensor(d.class_idx, device))
+        class_idx=None if d.class_idx is None else tensor(d.class_idx, device),
+        x_dims=None if getattr(d, "x_dims", None) is None else tensor(d.x_dims, device),
+        y_dims=None if getattr(d, "y_dims", None) is None else tensor(d.y_dims, device),
+        dims_row=(None if getattr(d, "x_dims", None) is None
+                  else tensor(np.asarray(d.Xt)[:, 0], device)))
 
 
 def search_state(s, device=None) -> SearchDeviceState:

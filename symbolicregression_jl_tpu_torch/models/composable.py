@@ -169,10 +169,28 @@ class ComposableExpression:
         return self._evaluate(args)
 
     def derivative(self, argnum: int = 1) -> "ComposableExpression":
-        raise NotImplementedError(
-            "the host-side symbolic derivative of a ComposableExpression (ops/diff.py) is "
-            "not in the PyTorch port yet; it comes with the expression-plugin slice "
-            "(ROADMAP.md queue 1 item 4).")
+        """Symbolic row-wise derivative w.r.t. argument slot ``argnum``
+        (1-based), the host-side face of the template ``D`` operator: a new
+        ComposableExpression of the same arity whose tree is the simplified
+        symbolic derivative (ops/diff.py ``D``). Derivative rules can bring
+        operators outside the original set (``neg``/``sin`` from d cos); the
+        result's operator set is extended with the derivative rules' Op
+        objects (a user operator is not in the registry)."""
+        from ..ops.diff import D as symbolic_D
+
+        if not 1 <= argnum <= max(self.nfeatures, 1):
+            raise ValueError(f"derivative argnum {argnum} out of range 1..{self.nfeatures}")
+        dtree = symbolic_D(self.tree, argnum - 1)
+        have = {(op.name, d) for d, ops_d in self.operators.ops.items() for op in ops_d}
+        need = {(n.op, n.degree) for n in dtree.nodes() if n.degree > 0}
+        operators = self.operators
+        missing = [(op, d) for op, d in need if (op.name, d) not in have]
+        if missing:
+            by_arity = {d: list(ops_d) for d, ops_d in self.operators.ops.items()}
+            for op, d in sorted(missing, key=lambda t: (t[1], t[0].name)):
+                by_arity.setdefault(d, []).append(op)
+            operators = OperatorSet(ops_by_arity={d: tuple(o) for d, o in by_arity.items()})
+        return ComposableExpression(dtree, operators, self.nfeatures, self.device)
 
     def _compose(self, args: Sequence["ComposableExpression"]):
         if len(args) < self.nfeatures:

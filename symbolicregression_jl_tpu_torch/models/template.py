@@ -317,21 +317,41 @@ class _BatchedTreeCallable:
 
     def derivative(self, argnum: int, *args) -> ValidVector:
         """Row-wise d self(args) / d args[argnum - 1], the ``D`` operator:
-        rows are independent, so it is the VJP with an all-ones cotangent,
-        one launch of kernel #5 (its gx). First order only: the result
-        carries no gradient (structures with D call sites do not run the
-        constant optimizer in this port)."""
+        rows are independent, so it is the VJP with an all-ones cotangent.
+        With ``fused`` it is one launch of kernel #5 (its gx), first order:
+        the result carries no gradient. Otherwise it is the forward-mode
+        derivative of the eager interpreter (ops/eval.py, every step a
+        PyTorch op; ``torch.autograd.forward_ad``, as the JAX package's
+        interpreter path takes ``jax.jvp``), so an operator the tree does
+        not select cannot spread a non-finite derivative into it, and
+        where the constants carry a gradient the tangent keeps its graph
+        to them: the constant optimizer differentiates the derivative
+        itself (second order)."""
         if not 1 <= argnum <= self.arity_expected:
             raise ValueError(f"D argnum {argnum} out of range 1..{self.arity_expected} "
                              f"for subexpression {self.key!r}")
         rows, _, valid_in = self._prep_args(args)
         tr = self.trees
-        with torch.enable_grad():
-            xm = self._member_x(rows).detach().requires_grad_(True)
-            detached = TreeBatch(tr.arity, tr.op, tr.feat, tr.const.detach(), tr.length)
-            pred, v = fused_predict_ad(detached, xm, self.operators, plain=not self.fused)
-            (gx,) = torch.autograd.grad(pred, xm, torch.ones_like(pred))
-        deriv = gx[:, argnum - 1, :]
+        if self.fused:
+            with torch.enable_grad():
+                xm = self._member_x(rows).detach().requires_grad_(True)
+                detached = TreeBatch(tr.arity, tr.op, tr.feat, tr.const.detach(), tr.length)
+                pred, v = fused_predict_ad(detached, xm, self.operators)
+                (gx,) = torch.autograd.grad(pred, xm, torch.ones_like(pred))
+            deriv = gx[:, argnum - 1, :]
+        else:
+            import torch.autograd.forward_ad as fwAD
+
+            from ..ops.eval import eval_tree_batch
+
+            xm = self._member_x(rows).detach()
+            tangent = torch.zeros_like(xm)
+            tangent[:, argnum - 1] = 1.0
+            with fwAD.dual_level():
+                pred, v = eval_tree_batch(tr, fwAD.make_dual(xm, tangent), self.operators)
+                deriv = fwAD.unpack_dual(pred).tangent
+            if deriv is None:   # the tree does not read its arguments
+                deriv = torch.zeros_like(xm[:, 0])
         # Non-finite derivative rows invalidate the member.
         v = v & torch.isfinite(deriv).all(dim=-1)
         deriv = torch.where(torch.isfinite(deriv), deriv, 0.0)

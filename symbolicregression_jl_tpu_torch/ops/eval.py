@@ -17,7 +17,7 @@ import torch
 from .encoding import LEAF_CONST, LEAF_PARAM, TreeBatch, tree_structure_arrays
 from .operators import OperatorSet
 
-__all__ = ["eval_tree_batch"]
+__all__ = ["eval_tree_batch", "eval_single_tree"]
 
 
 def _select(fns, o, *args):
@@ -29,7 +29,10 @@ def _select(fns, o, *args):
 
 def eval_tree_batch(batch: TreeBatch, X: torch.Tensor, operators: OperatorSet,
                     params: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Evaluate a batch of trees over all rows of ``X`` [F, n].
+    """Evaluate a batch of trees over all rows of ``X`` [F, n], or of each
+    tree's own rows ``X`` [T, F, n] (T the batch's size; template call
+    sites with per-member arguments). Every step is a PyTorch op, so the
+    result is differentiable in the constants and ``X`` to any order.
 
     ``params`` [..., NP, n] (parametric expressions) holds each tree's
     parameter values per row, already gathered by class; a LEAF_PARAM
@@ -43,7 +46,7 @@ def eval_tree_batch(batch: TreeBatch, X: torch.Tensor, operators: OperatorSet,
     Returns ``(y[..., n], valid[...])`` with the batch's leading dims."""
     batch_shape = batch.batch_shape
     L = batch.max_nodes
-    F, n = X.shape
+    F, n = X.shape[-2:]
     flat = batch.reshape(-1)
     T = flat.length.shape[0]
     child, _, _ = tree_structure_arrays(flat, need_depth=False)
@@ -61,7 +64,8 @@ def eval_tree_batch(batch: TreeBatch, X: torch.Tensor, operators: OperatorSet,
         o = flat.op[:, k]
         c0 = buf[rows, child[:, k, 0]]
         c1 = buf[rows, child[:, k, 1]]
-        x_row = X[torch.clamp(flat.feat[:, k].long(), 0, F - 1)]
+        fi = torch.clamp(flat.feat[:, k].long(), 0, F - 1)
+        x_row = X[rows, fi] if X.dim() == 3 else X[fi]
         leaf = torch.where((o == LEAF_CONST)[:, None], flat.const[:, k, None], x_row)
         if p_flat is not None:
             pi = torch.clamp(flat.feat[:, k].long(), 0, p_flat.shape[1] - 1)
@@ -83,3 +87,19 @@ def eval_tree_batch(batch: TreeBatch, X: torch.Tensor, operators: OperatorSet,
     root = torch.clamp(flat.length.long() - 1, 0, L - 1)
     y = buf[rows, root]
     return y.reshape(*batch_shape, n), valid.reshape(batch_shape)
+
+
+def eval_single_tree(arity: torch.Tensor, op: torch.Tensor, feat: torch.Tensor,
+                     const: torch.Tensor, length, X: torch.Tensor, operators: OperatorSet,
+                     params: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Evaluate one postfix tree (slot fields [L], ``length`` a scalar) over
+    every row of ``X`` [F, n]: (y [n], valid), as the JAX package's
+    ``eval_single_tree`` (which also takes the child table; the port
+    derives it from ``arity``). ``params`` [NP, n] are the parameter
+    values per row, already gathered by class. Differentiable in
+    ``const``, ``X`` and ``params`` to any order."""
+    batch = TreeBatch(arity[None], op[None], feat[None], const[None],
+                      torch.as_tensor(length, dtype=torch.int32, device=arity.device)[None])
+    y, valid = eval_tree_batch(batch, X, operators,
+                               params=None if params is None else params[None])
+    return y[0], valid[0]

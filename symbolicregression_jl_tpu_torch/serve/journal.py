@@ -141,7 +141,7 @@ class RequestJournal:
             # _lock exists precisely to serialize seq assignment with
             # this file append+fsync (a record's durability is its
             # acknowledgement); callers never hold any other lock here
-            with open(self.path, "a+b") as f:
+            with open(self.path, "a+b") as f:  # graftlint: disable=GL009
                 f.seek(0, os.SEEK_END)
                 if f.tell() > 0:
                     f.seek(-1, os.SEEK_END)
@@ -157,7 +157,7 @@ class RequestJournal:
                 offset = f.tell()
                 f.write(line)
                 f.flush()
-                os.fsync(f.fileno())
+                os.fsync(f.fileno())  # graftlint: disable=GL009
             self._records_written += 1
             if self.injector is not None:
                 self.injector.on_journal_append(

@@ -329,9 +329,9 @@ class SearchServer:
     begin (or resume) draining. ``workers=0`` with ``start()`` never
     called is valid — submissions queue (or reject) without running,
     which the admission tests use. Requests run on ``device`` (CUDA
-    unless ``device="cpu"``). ``debug_checks=True`` (the JAX package's
-    runtime lock-order auditor, ``lint/racecheck.py``) raises
-    NotImplementedError: it comes with the tooling slice.
+    unless ``device="cpu"``). ``debug_checks=True`` (or ``SR_RACECHECK=1``)
+    instruments the server's locks with the runtime lock-order auditor
+    (``lint/racecheck.py``).
     """
 
     def __init__(
@@ -350,11 +350,6 @@ class SearchServer:
         pack=None,
         device=None,
     ) -> None:
-        if debug_checks or os.environ.get("SR_RACECHECK"):
-            raise NotImplementedError(
-                "SearchServer(debug_checks=True) needs the runtime lock-order auditor "
-                "(lint/racecheck.py), which is not in the PyTorch port yet; it comes with "
-                "the tooling slice (ROADMAP.md queue 1 item 8).")
         self.device = resolve_device(device)
         self.root = os.path.abspath(root)
         os.makedirs(self.root, exist_ok=True)
@@ -428,6 +423,17 @@ class SearchServer:
 
             self.metrics = MetricsServer(self.metrics_text,
                                          port=metrics_port)
+        # graftwarden's runtime auditor (lint/racecheck.py): wraps every
+        # serve/shield lock and the kernel launch path's process-wide
+        # locks, asserts the actual acquisition order against the blessed
+        # lint/lock_order.py manifest, and honours SR_RACE_PLAN's
+        # deterministic context-switch windows. Opt-in (the flag or
+        # SR_RACECHECK=1), so production pays nothing.
+        self.debug_checks = bool(debug_checks) or bool(os.environ.get("SR_RACECHECK"))
+        if self.debug_checks:
+            from ..lint.racecheck import instrument_server
+
+            self._race_recorder = instrument_server(self)
         self._recover()
 
     # ------------------------------------------------------------------
@@ -496,7 +502,7 @@ class SearchServer:
             self.admission.readmit(r.request.bucket)
             # construction-time: _recover runs from __init__ before any
             # worker thread exists, so the queue counter is unshared
-            self._qseq += 1
+            self._qseq += 1  # graftlint: disable=GL011
             heapq.heappush(self._queue, (priority, self._qseq, rid))
             self.log.serve(
                 "replay", rid, trace=r.request.trace, resumed=r.resumed,

@@ -61,7 +61,7 @@ class ServeLog:
             # _lock is this log's own line-serialization lock (held for
             # one buffered write, nothing else nests inside it); the
             # server-wide lock is never held around log calls
-            with self._lock, open(self.path, "a") as f:
+            with self._lock, open(self.path, "a") as f:  # graftlint: disable=GL009
                 f.write(json.dumps(obj) + "\n")
         except OSError:  # auditing must never break serving
             pass

@@ -147,8 +147,9 @@ def test_initial_population_reaches_the_truth():
 
 def test_export_and_units_refuse():
     """latex() and sympy() export the best equation (utils/export.py; held
-    against the JAX package's in tests/test_torch_export.py); units are
-    still refused."""
+    against the JAX package's in tests/test_torch_export.py); units came
+    with the expression-plugin slice, and the dtypes that are still
+    refused are refused through the regressor too."""
     X, y = _problem(32)
     model = S.SRRegressor(niterations=1, seed=0, **SMALL).fit(X, y)
     assert isinstance(model.latex(), str) and model.latex()
@@ -158,7 +159,8 @@ def test_export_and_units_refuse():
         pass
     else:
         assert str(model.sympy())
-    with pytest.raises(NotImplementedError, match="expression-plugin"):
-        model.predict(X, with_units=True)
-    with pytest.raises(NotImplementedError, match="expression-plugin"):
-        S.SRRegressor(niterations=1, **SMALL).fit(X, y, y_units="m")
+    with pytest.raises(NotImplementedError, match="search-API"):
+        S.SRRegressor(niterations=1, eval_dtype="bfloat16", **SMALL).fit(X, y)
+    with pytest.raises(NotImplementedError, match="search-API"):
+        S.SRRegressor(niterations=1, eval_dtype="float64", eval_precision="bf16",
+                      **SMALL).fit(X, y)

@@ -94,9 +94,9 @@ def test_kernel_wrapper_not_launched_on_cpu():
 @pytest.mark.parametrize("kw", [
     dict(eval_dtype="bfloat16"),
     dict(expression_spec=type("UnitsSpec", (S.ExpressionSpec,), {})()),
-    dict(dimensional_constraint_penalty=1000.0),
+    dict(eval_dtype="float64", eval_precision="bf16"),
     dict(expression_spec=template_spec(expressions=("f",))(lambda f, x1, x2: D(f, 1)(x1) + x2),
-         should_optimize_constants=True),
+         eval_dtype="float64"),
 ])
 def test_options_outside_the_slice_refuse(kw):
     base = dict(binary_operators=["+", "*"], save_to_file=False)
@@ -166,14 +166,14 @@ def test_default_options_search_runs_the_constant_optimizer(monkeypatch):
     assert np.isfinite(min(e.loss for e in hof.entries))
 
 
-@pytest.mark.parametrize("kw", [dict(y_units="m"),
+@pytest.mark.parametrize("kw", [dict(runtime_options=S.RuntimeOptions(mesh_dedup=False)),
                                 dict(runtime_options=S.RuntimeOptions(n_data_shards=2)),
-                                dict(X_units=["m", "s"]),
+                                dict(runtime_options=S.RuntimeOptions(n_data_shards=4)),
                                 dict(runtime_options=S.RuntimeOptions(devices=["cuda:0"])),
                                 dict(runtime_options=S.RuntimeOptions(mesh_runtime=True)),
                                 dict(dtype="bfloat16"),
                                 dict(runtime_options=S.RuntimeOptions(mesh_exchange_every=4)),
-                                dict(extra={"weights2": [1.0]})])
+                                dict(runtime_options=S.RuntimeOptions(mesh_exchange_every=2))])
 def test_search_arguments_outside_the_slice_refuse(kw):
     with pytest.raises(NotImplementedError, match="PyTorch port"):
         S.equation_search(*_problem(n=16), options=_options(), niterations=1, device="cpu",

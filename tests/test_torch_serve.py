@@ -147,8 +147,19 @@ def test_journals_read_across_packages(tmp_path, writer):
 
 
 def test_debug_checks_refused_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="racecheck.*item 8"):
-        _server(tmp_path / "r", debug_checks=True)
+    """``debug_checks=True`` instruments the server (lint/racecheck.py,
+    tests/test_torch_racecheck.py); an option the port still refuses fails
+    its request with the NotImplementedError that names its slice."""
+    srv = _server(tmp_path / "r", debug_checks=True, workers=1).start()
+    X = np.random.default_rng(0).normal(size=(32, 2)).astype(np.float32)
+    rid = srv.submit(X, X[:, 0], options=dict(
+        binary_operators=["+", "*"], populations=2, population_size=8,
+        ncycles_per_iteration=2, tournament_selection_n=4, eval_dtype="bfloat16"),
+        niterations=1)
+    snap = srv.wait(rid, timeout=120)
+    srv.stop()
+    assert snap["state"] == "failed"
+    assert "NotImplementedError" in snap["error"] and "item 3" in snap["error"]
 
 
 # ---------------------------------------------------------------------------

@@ -136,7 +136,9 @@ def test_validvector_arithmetic_and_safe_domains():
 def test_composable_expression_composes_and_evaluates():
     """Calling on ComposableExpressions splices trees; calling on data
     evaluates (invalid gives NaN), as in the JAX package. The symbolic
-    derivative comes with a later slice."""
+    derivative came with the expression-plugin slice (tests/test_torch_diff.py);
+    a nested D on the device evaluator is still refused, as in the JAX
+    package."""
     jops, sops = J.OperatorSet(BINARY, UNARY), S.OperatorSet(BINARY, UNARY)
     jf = JM.ComposableExpression(J.parse_expression("cos(x1) * x2", jops), jops, 2)
     sf = SM.ComposableExpression(S.parse_expression("cos(x1) * x2", sops), sops, 2, device="cpu")
@@ -148,8 +150,12 @@ def test_composable_expression_composes_and_evaluates():
     assert sf(0.5, 2.0) == pytest.approx(jf(0.5, 2.0), rel=1e-6)
     vv = sf(SM.ValidVector(torch.from_numpy(a), torch.tensor(True)), 1.0)
     assert bool(vv.valid)
-    with pytest.raises(NotImplementedError, match="PyTorch port"):
-        sf.derivative(1)
+    from symbolicregression_jl_tpu_torch.ops.encoding import encode_population
+
+    cb = ST._BatchedTreeCallable("f", encode_population([sf.tree], 8, sops, device="cpu"), 2,
+                                 sops, 7, False)
+    with pytest.raises(NotImplementedError, match="Nested D"):
+        ST.D(ST.D(cb, 1), 1)(torch.from_numpy(a), 1.0)
 
 
 @pytest.mark.parametrize("name", ["square_plus", "compose", "deriv"])
