@@ -35,7 +35,7 @@ Phases (any failure exits nonzero and prints no result line):
    (bench/kernel_turns.py compares two checkouts' digests).
 5. Main path: `Engine` at the headline configuration, 512 islands x 256
    members x 10,000 rows x 5 features, tournament 16, maxsize 30, the
-   constant optimizer on (the default), --ncycles cycles (30; phase 28
+   constant optimizer on (the default), --ncycles cycles (20; phase 28
    runs the cell's 100): init_state, one warm-up
    iteration, two timed iterations. Prints evals/s (the optimizer's
    f_calls included), seconds per iteration, launches per kernel (per
@@ -65,7 +65,7 @@ Phases (any failure exits nonzero and prints no result line):
    cell (bench/cell.py FULL, variant "template": 512 islands x 256
    members, tournament 16, maxsize 30, + - * cos, 10,000 rows x 2
    features from seed 1234, structure f(x1) * f(x1) + g(x2),
-   optimizer_probability 0; cut from 100 to TEMPLATE_CYCLES = 30 cycles):
+   optimizer_probability 0; cut from 100 to TEMPLATE_CYCLES = 20 cycles):
    init_state, one warm-up
    iteration, two timed iterations. Launches of #4 must be 3 x (ncycles +
    1) per iteration,
@@ -74,7 +74,7 @@ Phases (any failure exits nonzero and prints no result line):
 10. The template constant optimizer: the same structure at 64 islands x
    256 (the default optimizer_probability 0.14; at 512 islands the
    line search's 442,368 members would need 17.7 GB per [members, rows]
-   tensor), cut to TEMPLATE_OPT_CYCLES = 10 cycles (the optimizer runs
+   tensor), cut to TEMPLATE_OPT_CYCLES = 5 cycles (the optimizer runs
    once per iteration whatever the depth, so the cut saves the evolution
    cycles' time within the time limit and leaves the optimizer's launches
    as they are). Launches of #5 must be 27 per iteration (9
@@ -95,14 +95,14 @@ Phases (any failure exits nonzero and prints no result line):
    parametric cell (bench/cell.py FULL, variant "parametric": 512 islands
    x 256 members, tournament 16, maxsize 30, + - * cos, 10,000 rows x 2
    features from seed 1234, class = integers(0, 3), y = amp[class] cos(x1)
-   + x2, max_parameters 1, optimizer_probability 0, TEMPLATE_CYCLES = 30
+   + x2, max_parameters 1, optimizer_probability 0, TEMPLATE_CYCLES = 20
    cycles): launches
    of #1p must be ncycles + 1 per iteration, none of the other kernels;
    prints the best member with its (1, 3) bank.
 14. The parametric constant optimizer (eager BFGS over constants and
    banks, torch.autograd through the interpreter): the same problem at 64
    islands x 256, the default optimizer_probability 0.14, cut to
-   TEMPLATE_OPT_CYCLES = 10 cycles, one iteration after init (no warm-up
+   TEMPLATE_OPT_CYCLES = 5 cycles, one iteration after init (no warm-up
    iteration); prints the f_calls share and the peak memory.
 15. `equation_search(..., device="cuda")` on tests/test_parametric.py's
    per-class-offset problem (extra={"class": ...}) and on
@@ -126,12 +126,12 @@ Phases (any failure exits nonzero and prints no result line):
    x 256, tournament 16, maxsize 30, + - * cos, 10,000 rows x 2 features
    from seed 1234, y = cos(2.13 x1) + 0.5 x2, optimizer_probability 0,
    sample fraction 0.125, rescore fraction 0.25) at --ncycles-stage cycles
-   (10): launches per iteration exactly ncycles + 1 of #1 / 1b, or 2 x
+   (5): launches per iteration exactly ncycles + 1 of #1 / 1b, or 2 x
    ncycles + 1 staged (a screen and a rescore per cycle, the finalize
    without dedup under bf16); after the staged runs every population cost
    equals an unstaged re-eval at the same precision within rtol 1e-5.
 18. Phase 5's configuration with optimizer_bf16_linesearch at
-   STAGE_LS_CYCLES = 10 cycles: 8 launches of 2b and 9 of #3 per
+   STAGE_LS_CYCLES = 5 cycles: 8 launches of 2b and 9 of #3 per
    iteration, none of #2; the f_calls share and the best loss beside
    phase 5's.
 19. equation_search with staged_eval, eval_precision="bf16" and the bf16
@@ -140,7 +140,7 @@ Phases (any failure exits nonzero and prints no result line):
    the best member's loss recomputed on the host in float64 from its
    decoded expression within the bf16 tolerance BF16_SEARCH_TOL.
 20. Phase 5's configuration with minibatches (batching=True, batch_size
-   50, the Options default) at BATCH_CYCLES = 10 cycles: per iteration
+   50, the Options default) at BATCH_CYCLES = 5 cycles: per iteration
    exactly 10 launches of #1 over 50 rows and 1 (the finalize) over 10,000,
    8 of #2 and 9 of #3 over 50 rows, read from every launch's row count;
    #1-#3 replayed on the path's own first 50-row inputs against their plain
@@ -169,7 +169,7 @@ Phases (any failure exits nonzero and prints no result line):
    islands x 256, 10 cycles, returns two equations.
 
 23. Telemetry at full width: equation_search on phase 5's configuration
-   at TELEM_CYCLES = 10 cycles, TELEM_ITERS = 2 iterations, with
+   at TELEM_CYCLES = 3 cycles, TELEM_ITERS = 2 iterations, with
    telemetry=True (use_recorder off) and off, in turns (off, on, on, off):
    every state tensor and the hall of fame bit-identical; the JSONL valid,
    its events run_start, 2 x iteration, run_end; per iteration the
@@ -212,7 +212,7 @@ Phases (any failure exits nonzero and prints no result line):
    float64 against their float64 plain versions (rtol 1e-9; #3's loss
    bit-equal to #2's), timed, bounds at FP64's 34 TFLOP/s, and every kind
    on their subsets.
-27. The optimizer cell at LOSS_CYCLES = 10 cycles with
+27. The optimizer cell at LOSS_CYCLES = 3 cycles with
    elementwise_loss="logcosh" (launches of #1-#3 only: 11, 8 and 9 an
    iteration) and with eval_dtype="float64" (the same counts of their
    float64 forms, none of the float32 kernels), and the parametric cell
@@ -233,10 +233,10 @@ Phases (any failure exits nonzero and prints no result line):
    versions), gradients within 1e-4 of #3's absolute row sums; times of
    the route beside the library kernels', its launches of #4 and #5, and
    one launch of #4 and #5 over all the trees. Then the optimizer cell at
-   USER_CYCLES = 10 cycles with elementwise_loss = lambda p, t: abs(p - t):
+   USER_CYCLES = 3 cycles with elementwise_loss = lambda p, t: abs(p - t):
    launches of #4 and #5 only, s/iteration, the best member's loss
    recomputed on the host in float64 within rtol 1e-4.
-30. graftshield at the optimizer cell (ROBUST_CYCLES = 10 cycles,
+30. graftshield at the optimizer cell (ROBUST_CYCLES = 3 cycles,
    ROBUST_ITERS = 3 iterations, telemetry on): shield off, on, on, off in
    turns, every state tensor bit-identical, s/iteration of each; two
    injected "CUDA out of memory" failures of the second attempt retried,
@@ -282,7 +282,7 @@ Phases (any failure exits nonzero and prints no result line):
    the kernels' launches; then bench/load.py's run_load on the card (its
    requests/s, p99 poll latency, cache hit rate and shed fraction).
 
-34. Units at the optimizer cell's widths (UNITS_CYCLES = 10 cycles, 2
+34. Units at the optimizer cell's widths (UNITS_CYCLES = 3 cycles, 2
    timed iterations) on 10,000 rows from seed 0 of m (kg), v (m/s) and h
    (m), y = 0.5 m v^2 + 9.81 m h (J), dimensional_constraint_penalty
    1000, in turns with the same search without units (off, on, on, off):
@@ -292,7 +292,7 @@ Phases (any failure exits nonzero and prints no result line):
    cost equation's dimensions, which must not violate.
 35. A D template, -D(V, 1)(x1) on y = -dV/dx1 for V = x1^2 cos(x1), at the
    template cell's widths (512 x 256, + - * cos, 10,000 rows from seed
-   1234, D_CYCLES = 10 cycles, optimizer off): #4 and #5 once an
+   1234, D_CYCLES = 3 cycles, optimizer off): #4 and #5 once an
    evaluation and nothing else; one batch of 4,096 members' D values from
    #5 against the plain version (phase 8's rule) and beside the eager
    forward mode; then the constant optimizer at 64 islands (probability
@@ -311,6 +311,37 @@ Phases (any failure exits nonzero and prints no result line):
    seconds; compile_count_guard(0) around a warm iteration;
    lint/runtime.py's no_transfer around a kernel #1 launch (passes) and
    around an .item() (raises).
+37. User operators: gauss(x) = exp(-x * x), softplus(x) = log1p(exp(x))
+   and pdiv(a, b) = where(b == 0, 0, a / b), torch callables traced by
+   ops/user_ops.py into a generated header; phase 2 builds the five
+   sources with it beside the built-in ones (the same set with / in
+   pdiv's place runs on those libraries, whose set covers it, and must
+   build none of its own). #1 (cost and plain forms), #2
+   (V = 24) and #3 (V = 3) on phase 4's 18,432 trees drawn from + - *
+   pdiv / exp gauss softplus, #4 and #5 on phase 8's shapes (shared X,
+   F = 1; per-member X, F = 2), the kernels on every tree and the plain
+   versions on the first USER_OP_SUBSET = 2,048, against them under phases
+   3, 4 and 8's rules, with their times and bounds; then
+   equation_search(device="cuda") with turbo on at the optimizer cell's
+   widths (USER_OP_CYCLES = 10 cycles, one iteration): #1-#3 launched, its
+   best loss recomputed on the host in float64; and the engine with pdiv
+   and with / in its place, in turns (pdiv, /, /, pdiv; one timed
+   iteration each after init, no warm-up): phase 5's launch counts, the eager
+   interpreter called no time, s/iteration of each.
+38. The dtype forms: #4 and #5's double forms (shared and per-member X)
+   and #4's bf16 form against their plain versions on phase 8's shapes;
+   1b (cost and parametric forms) and 2b for float64 data (bf16 buffer,
+   float32 steps, float64 loss spine) and for bf16 data (a bf16 loss
+   spine) on phases 3, 12 and 4's inputs under phase 16's rules (2b's
+   plain version on the first USER_OP_SUBSET trees); then
+   DTYPE_CYCLES = 10 cycles and one timed iteration after init each: a
+   float64 template search at the template cell's widths and its
+   optimizer at 64 islands, the optimizer cell with float64 data,
+   eval_precision="bf16" and the bf16 line search, the optimizer cell with
+   eval_dtype="bfloat16", the parametric cell in both, and a user
+   elementwise loss abs(p - t) in a parametric, a float64 and a bf16
+   search (the last with phase 37's operators): each on its forms alone by
+   the launch counters.
 
 Every file a phase writes goes to a temporary directory, removed at the
 end. Each phase prints its seconds when the next one starts. The line before the last is the kernel table as JSON; the last line is
@@ -326,6 +357,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -333,9 +365,9 @@ import numpy as np
 N_ROWS = 10_000
 N_FEATURES = 5
 ISLANDS = 512               # the headline and template cells' width
-TEMPLATE_CYCLES = 30        # the template and parametric cells' cut depth (bench/cell.py FULL
+TEMPLATE_CYCLES = 20        # the template and parametric cells' cut depth (bench/cell.py FULL
                             # has 100; phases 9 and 13)
-TEMPLATE_OPT_CYCLES = 10    # the template optimizer phase's cut depth (phase 10)
+TEMPLATE_OPT_CYCLES = 5     # the template optimizer phase's cut depth (phase 10)
 RTOL = 1e-5
 H100_FP32_FLOPS = 67e12     # non-tensor-core FP32 peak, H100 SXM data sheet
 H100_HBM_BYTES_S = 3.35e12  # HBM3 bandwidth, H100 SXM data sheet
@@ -365,14 +397,14 @@ def bench_data():
 
 def bench_options(sr, ncycles: int, populations: int = 0, optimize: bool = True, **kw):
     """The headline configuration; ``populations`` 0 means ISLANDS. No
-    files unless ``kw`` asks for them."""
+    files unless ``kw`` asks for them; ``kw`` may replace the operators."""
     populations = populations or ISLANDS
-    kw.setdefault("save_to_file", False)
-    return sr.Options(
-        binary_operators=["+", "-", "*", "/"], unary_operators=["exp", "abs", "cos"],
-        maxsize=30, populations=populations, population_size=256,
-        tournament_selection_n=16, ncycles_per_iteration=ncycles,
-        should_optimize_constants=optimize, **kw)
+    base = dict(binary_operators=["+", "-", "*", "/"], unary_operators=["exp", "abs", "cos"],
+                maxsize=30, populations=populations, population_size=256,
+                tournament_selection_n=16, ncycles_per_iteration=ncycles,
+                should_optimize_constants=optimize, save_to_file=False)
+    base.update(kw)
+    return sr.Options(**base)
 
 
 def was(name: str) -> str:
@@ -494,9 +526,10 @@ def bound(ops_count: float, bytes_moved: float):
     return max(bound_ops, bound_bytes), "operations" if bound_ops >= bound_bytes else "bytes"
 
 
-def kernel1_inputs(torch, sr, dev):
+def kernel1_inputs(torch, sr, dev, options=None):
     """Kernel #1's inputs at the bench shapes (phases 3 and 16): 16,384
-    random trees (maxsize 30, + - * / exp abs cos) over the bench data."""
+    random trees (maxsize 30, + - * / exp abs cos, or ``options``'
+    operators) over the bench data."""
     from symbolicregression_jl_tpu_torch.evolve import rng
     from symbolicregression_jl_tpu_torch.evolve.population import init_population
     from symbolicregression_jl_tpu_torch.evolve.step import evolve_config_from_options
@@ -505,7 +538,7 @@ def kernel1_inputs(torch, sr, dev):
                                                                 compute_complexity_batch)
     from symbolicregression_jl_tpu_torch.ops.program import compile_program
 
-    options = bench_options(sr, 1)
+    options = options or bench_options(sr, 1)
     X, y = bench_data()
     ds = sr.make_dataset(X, y, device=dev)
     ds.update_baseline_loss(options.elementwise_loss)
@@ -601,17 +634,18 @@ def phase_kernel(torch, sr, dev):
     }
 
 
-def opt_kernel_inputs(torch, sr, dev):
+def opt_kernel_inputs(torch, sr, dev, options=None):
     """Kernels #2/#3's inputs at the constant optimizer's bench shapes
     (phases 4 and 16): 18,432 trees (512 islands x 36 selected), their
-    constants perturbed V = 24 (line search) and V = 3 (gradient) ways."""
+    constants perturbed V = 24 (line search) and V = 3 (gradient) ways;
+    ``options`` (the bench options by default) give the operators."""
     from symbolicregression_jl_tpu_torch.evolve import rng
     from symbolicregression_jl_tpu_torch.evolve.population import init_population
     from symbolicregression_jl_tpu_torch.evolve.step import evolve_config_from_options
     from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
     from symbolicregression_jl_tpu_torch.ops.program import compile_program
 
-    options = bench_options(sr, 1)
+    options = options or bench_options(sr, 1)
     X, y = bench_data()
     ds = sr.make_dataset(X, y, device=dev)
     data = ds.data
@@ -830,7 +864,11 @@ def phase_opt_kernels(torch, sr, dev):
 KERNEL_NAMES = ("PROGRAM_EVAL", "PROGRAM_MULTI", "PROGRAM_GRAD", "PROGRAM_PREDICT",
                 "PROGRAM_PREDICT_VJP", "PROGRAM_EVAL_PARAM", "PROGRAM_EVAL_BF16",
                 "PROGRAM_EVAL_PARAM_BF16", "PROGRAM_MULTI_BF16", "PROGRAM_EVAL_F64",
-                "PROGRAM_EVAL_PARAM_F64", "PROGRAM_MULTI_F64", "PROGRAM_GRAD_F64")
+                "PROGRAM_EVAL_PARAM_F64", "PROGRAM_MULTI_F64", "PROGRAM_GRAD_F64",
+                "PROGRAM_EVAL_BF16_F64", "PROGRAM_EVAL_PARAM_BF16_F64", "PROGRAM_EVAL_BF16_DATA",
+                "PROGRAM_EVAL_PARAM_BF16_DATA", "PROGRAM_MULTI_BF16_F64",
+                "PROGRAM_MULTI_BF16_DATA", "PROGRAM_PREDICT_F64", "PROGRAM_PREDICT_BF16",
+                "PROGRAM_PREDICT_VJP_F64")
 
 
 def kernels():
@@ -1010,20 +1048,21 @@ OVERFLOW = 1e20   # x * x overflows float32 at this |x|; x + c, x * c and cos(x)
 
 
 def predict_inputs(torch, sr, dev, F: int, per_member: bool, overflow: bool, g,
-                   mixed: bool = False):
+                   mixed: bool = False, options=None):
     """Kernel #4/#5 inputs at the template cycle's shapes: 16,384 random
     trees over F arguments (every fifth tree's const_ok cleared), X on
     [-2, 2] (shared [F, n] or per-member [T, F, n]), random cotangents.
     ``overflow`` sets every 97th row to +-OVERFLOW: in every tree's X when
     shared, in every seventh tree's when per-member. ``mixed``: 512 islands
     of 32 trees of MIXED_NLENGTHS operator draws, so that their step counts
-    fall in all three launch classes of #5, in place of 5 draws each."""
+    fall in all three launch classes of #5, in place of 5 draws each.
+    ``options`` (the template cell's by default) give the operators."""
     from symbolicregression_jl_tpu_torch.evolve import rng
     from symbolicregression_jl_tpu_torch.evolve.population import init_population
     from symbolicregression_jl_tpu_torch.evolve.step import evolve_config_from_options
     from symbolicregression_jl_tpu_torch.ops.program import compile_program
 
-    options = template_options(sr, 1)
+    options = options or template_options(sr, 1)
     T, n = ISLANDS * 2 * 16, N_ROWS   # the cycle's candidates: islands x 2 x ceil(256 / 16)
     cfg = evolve_config_from_options(options, F, dev)
     if mixed:
@@ -1457,7 +1496,7 @@ def phase_plugin_searches(torch, sr, dev):
 # ---------------------------------------------------------------------------
 
 STAGE_CELLS = ("plain", "plain-staged", "plain-bf16", "plain-staged-bf16")
-STAGE_LS_CYCLES = 10                # phase 18's cut depth (the optimizer runs once per iteration)
+STAGE_LS_CYCLES = 5                 # phase 18's cut depth (the optimizer runs once per iteration)
 BF16_TRANSCENDENTAL_MEDIAN = 1e-4   # kernel vs plain, trees with a transcendental step
 BF16_TRANSCENDENTAL_MAX = 1e-2
 
@@ -1878,7 +1917,7 @@ def phase_stage_search(torch, sr, dev):
 # ---------------------------------------------------------------------------
 
 BATCH_SIZE = 50             # Options' default batch_size
-BATCH_CYCLES = 10           # phases 20-21's cut depth (one optimizer run per iteration whatever it)
+BATCH_CYCLES = 5            # phases 20-21's cut depth (one optimizer run per iteration whatever it)
 CKPT_ITERS = 3              # phase 21: the uninterrupted run's iterations; the killed run stops at 2
 
 
@@ -2215,7 +2254,7 @@ def phase_regressor(torch, sr, dev):
 # between chunks (phases 23-25)
 # ---------------------------------------------------------------------------
 
-TELEM_CYCLES = 10           # phase 23's cut depth (one optimizer run per iteration whatever it)
+TELEM_CYCLES = 3            # phase 23's cut depth (one optimizer run per iteration whatever it)
 TELEM_ITERS = 2
 QUALITY_SEEDS = (0, 1)
 QUALITY_KERNEL = {"plain": "program_eval", "plain-staged": "program_eval",
@@ -2574,9 +2613,9 @@ def phase_stop_between_chunks(torch, sr, dev, out_base):
 
 RTOL64 = 1e-9               # float64 kernels against their float64 plain versions
 H100_FP64_FLOPS = 34e12     # non-tensor-core FP64 peak, H100 SXM data sheet
-LOSS_SUBSET = 2048          # trees of #1, #1p and 1b held against the plain version per kind
-LOSS_SUBSET_MULTI = 256     # trees of #2, 2b and #3 likewise
-LOSS_CYCLES = 10            # phase 27's cut depth (one optimizer run per iteration whatever it)
+LOSS_SUBSET = 512           # trees of #1, #1p and 1b held against the plain version per kind
+LOSS_SUBSET_MULTI = 64      # trees of #2, 2b and #3 likewise
+LOSS_CYCLES = 3             # phase 27's cut depth (one optimizer run per iteration whatever it)
 # Operations of each loss kind's formula per row (csrc/interp.cuh
 # loss_of_kind), the weight and the row sum included.
 LOSS_OPS = {0: 4, 1: 4, 2: 7, 3: 12, 4: 14, 5: 11, 6: 9}
@@ -2911,12 +2950,6 @@ def logcosh_rows(torch, check, a1, a2, a3, el, times):
     return out
 
 
-def table_row(k, err, ms, plain_ms, b, by):
-    return {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b, "bound_by": by, "library_ms": None}
-
-
 def host_loss64(torch, state, operators, X, y, loss):
     """(reported, host) loss of the hall of fame's best member: its tree
     decoded and evaluated on the host in float64, ``loss`` elementwise."""
@@ -3001,7 +3034,7 @@ def phase_headline(torch):
 # Phase 29: user elementwise losses on kernels #4 and #5
 # ---------------------------------------------------------------------------
 
-USER_CYCLES = 10            # phase 29's search depth (one optimizer run per iteration whatever it)
+USER_CYCLES = 3             # phase 29's search depth (one optimizer run per iteration whatever it)
 USER_SUBSET = 256           # phase 4's first trees (with their variants) held against the
                             # plain route
 
@@ -3159,7 +3192,7 @@ def phase_user_loss(torch, sr, dev):
 # Phase 30: robustness at full width
 # ---------------------------------------------------------------------------
 
-ROBUST_CYCLES = 10          # phase 30's depth (the optimizer cell, cut as phase 23's)
+ROBUST_CYCLES = 3           # phase 30's depth (the optimizer cell, cut as phase 23's)
 ROBUST_ITERS = 3
 ROBUST_DEADLINE = 10.0      # iteration_deadline (s) of the spin-kernel child, over 3x an iteration
 SPIN_CYCLES = 30 * 2 * 10**9   # the spin kernel: 30-60 s at the card's 1-2 GHz clock
@@ -3735,9 +3768,9 @@ def phase_diagnostics(torch, sr, dev, out_base, card):
 # Units, D and the tooling (phases 34-36)
 # ---------------------------------------------------------------------------
 
-UNITS_CYCLES = 10           # phase 34's depth (one optimizer run per iteration whatever it)
+UNITS_CYCLES = 3            # phase 34's depth (one optimizer run per iteration whatever it)
 UNITS = {"X_units": ["kg", "m/s", "m"], "y_units": "J"}
-D_CYCLES = 10               # phase 35's depth
+D_CYCLES = 3                # phase 35's depth
 DEBUG_SERVE_ITERS = 1       # phase 36's cohort, cut from phase 32's SERVE_ITERS
 BENCH_CLI_VARIANTS = ("plain", "template")   # phase 36's slice of the mini matrix
 
@@ -4069,13 +4102,662 @@ def phase_tooling(torch, sr, dev, out_base, card):
     check.raise_if_failed("tooling")
 
 
+# ---------------------------------------------------------------------------
+# Phase 37: user operators generated into kernels #1-#5
+# ---------------------------------------------------------------------------
+
+USER_OP_CYCLES = 10         # phase 37's search depth (one optimizer run per iteration whatever it)
+USER_OP_SUBSET = 2048       # phase 37's and 38's first trees held against the plain versions
+                            # (the kernels run on all of them; plain ms is on these)
+_USER_OPS = {}
+
+
+def user_ops():
+    """Phase 37's user operators, written in torch (the same Op objects on
+    every call, so their operator set's kernels build once): gauss(x) =
+    exp(-x * x), softplus(x) = log1p(exp(x)) and pdiv(a, b) = where(b == 0,
+    0, a / b)."""
+    import torch
+    from symbolicregression_jl_tpu_torch.ops.operators import Op
+
+    if not _USER_OPS:
+        _USER_OPS["gauss"] = Op("gauss", 1, lambda x: torch.exp(-x * x))
+        _USER_OPS["softplus"] = Op("softplus", 1, lambda x: torch.log1p(torch.exp(x)))
+        _USER_OPS["pdiv"] = Op("pdiv", 2, lambda a, b: torch.where(b == 0, 0, a / b))
+    return _USER_OPS
+
+
+def user_op_options(sr, ncycles: int, pdiv: bool = True, **kw):
+    """The optimizer cell (512 x 256, 10,000 rows x 5) with + - * and pdiv
+    (or /), exp and the two user unary operators."""
+    u = user_ops()
+    return bench_options(sr, ncycles,
+                         binary_operators=["+", "-", "*", u["pdiv"] if pdiv else "/"],
+                         unary_operators=["exp", u["gauss"], u["softplus"]], **kw)
+
+
+def user_op_header(sr, pdiv: bool = True):
+    """The generated CUDA header of phase 37's operator set (``pdiv``
+    False: the set with / in pdiv's place, whose user unary operators need
+    libraries of their own)."""
+    from symbolicregression_jl_tpu_torch.ops.user_ops import user_op_set
+
+    return user_op_set(user_op_options(sr, 1, pdiv=pdiv).operators).header
+
+
+def bound_mixed(ops32: float, spine_ops: float, esize: int, bytes_moved: float):
+    """(bound ms, bound_by) of a kernel whose steps are FP32 operations and
+    whose loss spine's operations are FP64 (``esize`` 8) or FP32."""
+    t_ops = (ops32 / H100_FP32_FLOPS
+             + spine_ops / (H100_FP64_FLOPS if esize == 8 else H100_FP32_FLOPS)) * 1e3
+    t_bytes = bytes_moved / H100_HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def table_row(k, err, ms, plain_ms, b, by, name=None):
+    return {"name": name or k.name, "route": "cuda", "source": k.source,
+            "replaces": k.replaces, "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None}
+
+
+def timed_plain(torch, fn):
+    """(result of ``fn()``, its milliseconds on the host clock)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def predict_pair_checks(torch, check, tag, k4, k5, ops, instr, nsteps, nconst, cvals, ok, Xc,
+                        ct, per_member, k: int = 0):
+    """Kernels #4 and #5 (``k4``, ``k5``) against their plain versions under
+    phase 8's rules: the kernels on every tree, the plain versions on the
+    first ``k`` (0: all). Returns (largest #4 error, largest #5 error, plain
+    ms of #4 and #5 on those trees)."""
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+    _same = lambda a, b: same(torch, a, b)
+    k = k or instr.shape[0]
+    sub = lambda t: t[:k].contiguous()
+    Xs = sub(Xc) if per_member else Xc
+    pk, vk = k4(instr, nsteps, cvals, ok, Xc, ops)
+    pk2, vk2 = k4(instr, nsteps, cvals, ok, Xc, ops)
+    check(f"#4 {tag}: two launches bit-identical", _same(pk, pk2) and _same(vk, vk2))
+    (pp, vp), plain4 = timed_plain(torch, lambda: FE.program_predict_plain(
+        sub(instr), sub(nsteps), sub(cvals), sub(ok), Xs, ops, bf16=k4.bf16))
+    pk, vk = pk[:k], vk[:k]
+    check(f"#4 {tag}: validity bit-equal", _same(vk, vp))
+    good, rel4, scl4, abs4 = tree_close(torch, pk, pp)
+    check(f"#4 {tag}: predictions NaN and +-inf in the same places, otherwise within rtol "
+          f"{RTOL} or {RTOL} of the tree's largest |pred| (worst relative error {rel4:.3g}, "
+          f"worst over the tree's scale {scl4:.3g})", good)
+    print(f"  bits #4 {tag}: {digest(pk, vk)}; {int(vk.sum())} of {vk.numel()} valid, "
+          f"{int((~torch.isfinite(pk)).sum())} non-finite predictions")
+    if k5 is None:
+        return abs4, 0.0, plain4, 0.0
+    gk, xk = k5(instr, nsteps, nconst, cvals, Xc, ct, ops)
+    gk2, xk2 = k5(instr, nsteps, nconst, cvals, Xc, ct, ops)
+    (gp, xp, gabs), plain5 = timed_plain(torch, lambda: FE.program_predict_vjp_plain(
+        sub(instr), sub(nsteps), sub(nconst), sub(cvals), Xs, sub(ct), ops, return_abs=True))
+    check(f"#5 {tag}: two launches bit-identical",
+          _same(gk, gk2) and (xk is None or _same(xk, xk2)))
+    gk, xk = gk[:k], (None if xk is None else xk[:k])
+    # Where the absolute per-row terms overflow (gabs inf) the order of the
+    # sum decides between finite, +-inf and NaN (tests/test_torch_tile_host.py
+    # holds the same rule); everywhere else the non-finite places agree.
+    order = torch.isinf(gabs)
+    miss = ~((torch.isnan(gk) == torch.isnan(gp)) & (torch.isposinf(gk) == torch.isposinf(gp))
+             & (torch.isneginf(gk) == torch.isneginf(gp)))
+    for t, c in torch.nonzero(miss & ~order)[:5].tolist():
+        print(f"  #5 {tag}: tree {t} constant {c}: kernel {float(gk[t, c])!r}, plain "
+              f"{float(gp[t, c])!r}, absolute row sum {float(gabs[t, c])!r}")
+    check(f"#5 {tag}: gcomp NaN and +-inf in the same places where the absolute row sums are "
+          f"finite ({int((miss & order).sum())} of {int(order.sum())} entries with an "
+          f"overflowing row sum differ)", not bool((miss & ~order).any()))
+    both = torch.isfinite(gabs) & torch.isfinite(gk) & torch.isfinite(gp)
+    gerr = (gk - gp).abs()[both]
+    gscale = float((gerr / gabs[both].clamp(min=1e-30)).max()) if gerr.numel() else 0.0
+    check(f"#5 {tag}: gcomp within 1e-4 of the absolute row sums (worst error over that "
+          f"scale {gscale:.3g})", bool((gerr <= 1e-4 * gabs[both]).all()))
+    err5 = float(gerr.max()) if gerr.numel() else 0.0
+    if per_member:
+        good, relx, sclx, absx = tree_close(torch, xk, xp)
+        check(f"#5 {tag}: gx NaN and +-inf in the same places, otherwise within rtol {RTOL} or "
+              f"{RTOL} of the tree's largest |gx| (worst relative error {relx:.3g})", good)
+        err5 = max(err5, absx)
+    print(f"  bits #5 {tag}: {digest(gk, xk)}")
+    return abs4, err5, plain4, plain5
+
+
+def predict_bounds(nsteps, nconst, T, L, CMAX, F, n, per_member, esize):
+    """(#4's bound, #5's bound) as phase 8 reckons them, in values of
+    ``esize`` bytes (FP32 or FP64 operations by the table)."""
+    import torch
+
+    steps = float(nsteps.to(torch.float64).sum())
+    nc = float(nconst.to(torch.float64).sum())
+    bnd = bound if esize == 4 else bound64
+    xbytes = esize * (T if per_member else 1) * F * n
+    b4 = bnd(steps * n, 4.0 * (T * L + 2 * T) + esize * T * CMAX + xbytes + esize * T * n
+             + 4.0 * T)
+    b5 = bnd((3.0 * steps + nc) * n, 4.0 * (T * L + 2 * T) + esize * (2 * T * CMAX + T * n)
+             + xbytes + (xbytes if per_member else 0.0))
+    return b4, b5
+
+
+class EagerCount:
+    """Counts calls of the eager interpreter (ops/eval.py eval_tree_batch,
+    as evolve/step.py and the constant optimizer call it) while entered."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __enter__(self):
+        from symbolicregression_jl_tpu_torch.evolve import constant_opt, step
+
+        self._saved = [(mod, mod.eval_tree_batch) for mod in (step, constant_opt)]
+        for mod, fn in self._saved:
+            def counted(*a, _fn=fn, **kw):
+                self.calls += 1
+                return _fn(*a, **kw)
+            mod.eval_tree_batch = counted
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn in self._saved:
+            mod.eval_tree_batch = fn
+
+
+def phase_user_ops(torch, sr, dev, card):
+    """Phase 37: the user operators gauss, softplus and pdiv (torch
+    callables, traced by ops/user_ops.py and generated into every kernel
+    source). Their libraries' build seconds; #1 (cost and plain forms), #2
+    (V = 24) and #3 (V = 3) on phase 4's 18,432 trees drawn from the user
+    operator set, and #4 and #5 on phase 8's 16,384 trees (shared X, F = 1,
+    and per-member X, F = 2), against their plain versions under phases 3,
+    4 and 8's rules; then equation_search(device="cuda") with turbo on at
+    the optimizer cell's widths (USER_OP_CYCLES cycles): #1-#3 launched, the
+    eager interpreter called no time, the best member's loss recomputed on
+    the host in float64; and the engine's s/iteration in turns with the
+    same search with pdiv replaced by /. Returns the kernel-table rows."""
+    from symbolicregression_jl_tpu_torch.ops import cuda_build
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+    t37 = time.perf_counter()
+    into = lambda what: print(f"  ({what}: {time.perf_counter() - t37:.1f} s into the phase)")
+    header = user_op_header(sr)
+    t0 = time.perf_counter()
+    cuda_build.build_all(cuda_build.SOURCES, header)
+    print(f"  user-op libraries ready in {time.perf_counter() - t0:.2f} s (nvcc "
+          f"{', '.join(f'{cuda_build.build_seconds(f, header):.2f}' for f in cuda_build.SOURCES)} "
+          f"s, in parallel; 0.00: built beside phase 2's)")
+    for f, kname in (("program_eval.cu", "program_eval_kernel"),
+                     ("program_grad.cu", "program_grad_kernel"),
+                     ("program_predict_vjp.cu", "program_predict_vjp_kernel")):
+        for name, regs, stack, sst, sld in ptxas_report(cuda_build.build_log(f, header), kname):
+            print(f"  ptxas (user ops) {name}: {regs} registers, stack {stack} B, spill stores "
+                  f"{sst} B, spill loads {sld} B")
+    options = user_op_options(sr, 1)
+    ops, el = options.operators, options.elementwise_loss
+    check = Checks()
+    _same = lambda a, b: same(torch, a, b)
+    rows = []
+    X, y = bench_data()
+    ds = sr.make_dataset(X, y, device=dev)
+    ds.update_baseline_loss(el)
+    data = ds.data
+
+    # #1, #2, #3 on phase 4's trees: the kernels on all, the plain versions
+    # on the first USER_OP_SUBSET (with their variants).
+    (_, trees, prog, (instr, nsteps, cvals, const_ok, Xt, yt, w), nconst, R, V_ls, cv_ls,
+     cv_g) = opt_kernel_inputs(torch, sr, dev, options)
+    T, L, CMAX, n = instr.shape[0], instr.shape[1], cvals.shape[1], N_ROWS
+    K = min(USER_OP_SUBSET, T)
+    sub = lambda t: t[:K].contiguous()
+    from symbolicregression_jl_tpu_torch.ops.complexity import (build_complexity_tables,
+                                                                compute_complexity_batch)
+    cxf = compute_complexity_batch(trees, build_complexity_tables(options, N_FEATURES, dev)) \
+        .to(torch.float32).contiguous()
+    norm = FE.baseline_normalization(data.baseline_loss, data.use_baseline)
+    scal = torch.stack([FE._denominator(None, Xt), norm,
+                        torch.tensor(options.parsimony, dtype=torch.float32, device=dev)])
+    args1 = (instr, nsteps, cvals, const_ok, Xt, yt, w)
+    sargs1 = tuple(map(sub, args1[:4])) + args1[4:]
+    k1 = FE.PROGRAM_EVAL
+    lk, vk, ck = k1(*args1, ops, el, cx=cxf, scal=scal)
+    lk2, vk2, ck2 = k1(*args1, ops, el, cx=cxf, scal=scal)
+    sk, svk = k1(*args1, ops, el)
+    (lp, vp, cp), plain1 = timed_plain(torch, lambda: FE.program_eval_plain(
+        *sargs1, ops, el, cx=sub(cxf), scal=scal))
+    sp, svp = FE.program_eval_plain(*sargs1, ops, el)
+    check("#1 user ops: two launches bit-identical", _same(lk, lk2) and _same(ck, ck2))
+    check(f"#1 user ops: validity bit-equal on the first {K} trees (cost and plain forms)",
+          _same(vk[:K], vp) and _same(svk[:K], svp))
+    s1, w1, r1, e1 = close(torch, lk[:K], lp)
+    s2, w2, r2, _ = close(torch, ck[:K], cp)
+    s3, w3, r3, _ = close(torch, torch.where(svp, sk[:K], torch.inf),
+                          torch.where(svp, sp, torch.inf))
+    check(f"#1 user ops: loss, cost and plain-form sums inf in the same places and within rtol "
+          f"{RTOL} (max rel err {r1:.3g}, {r2:.3g}, {r3:.3g})",
+          s1 and w1 and s2 and w2 and s3 and w3)
+    print(f"  bits #1 user ops: {digest(lk, vk, ck)}; {int(vk.sum())} of {T} trees valid, mean "
+          f"steps {float(nsteps.double().mean()):.3f}; plain versions on the first {K}")
+    ms1 = cuda_ms(torch, lambda: k1(*args1, ops, el, cx=cxf, scal=scal), reps=10)
+    steps = float(nsteps.to(torch.float64).sum())
+    b1, by1 = bound(steps * n + 4.0 * n * T,
+                    4.0 * (T * L + T + T * CMAX + T + N_FEATURES * n + 2 * n + T + 3 + 3 * T))
+    print(f"  #1 program_eval, user ops (cost form, {T} trees): {ms1:.4f} ms (CUDA events, mean "
+          f"of 10), plain {plain1:.1f} ms on {K} trees, bound {b1:.4f} ms ({by1})")
+    rows.append(table_row(k1, e1, ms1, plain1, b1, by1, "program_eval user ops"))
+
+    k2 = FE.PROGRAM_MULTI
+    mk, mv = k2(instr, nsteps, cv_ls, Xt, yt, w, ops, el)
+    mk2, mv2 = k2(instr, nsteps, cv_ls, Xt, yt, w, ops, el)
+    (mp, mvp), plain2 = timed_plain(torch, lambda: FE.program_multi_plain(
+        sub(instr), sub(nsteps), sub(cv_ls), Xt, yt, w, ops, el))
+    check("#2 user ops: two launches bit-identical", _same(mk, mk2) and _same(mv, mv2))
+    check(f"#2 user ops: validity bit-equal on the first {K} trees", _same(mv[:K], mvp))
+    s4, w4, r4, e2 = close(torch, torch.where(mvp, mk[:K], torch.inf),
+                           torch.where(mvp, mp, torch.inf))
+    check(f"#2 user ops: loss sums inf in the same places, within rtol {RTOL} (max rel err "
+          f"{r4:.3g})", s4 and w4)
+    print(f"  bits #2 user ops: {digest(mk, mv)}")
+    ms2 = cuda_ms(torch, lambda: k2(instr, nsteps, cv_ls, Xt, yt, w, ops, el), reps=5)
+    b2, by2 = bound((steps + 4.0 * T) * V_ls * n,
+                    4.0 * (T * L + T + T * V_ls * CMAX + N_FEATURES * n + 2 * n + 2 * T * V_ls))
+    print(f"  #2 program_multi, user ops (V = {V_ls}): {ms2:.4f} ms (CUDA events, mean of 5), "
+          f"plain {plain2:.1f} ms on {K} trees, bound {b2:.4f} ms ({by2})")
+    rows.append(table_row(k2, e2, ms2, plain2, b2, by2, "program_multi user ops"))
+
+    gargs = (instr, nsteps, nconst, cv_g, Xt, yt, w)
+    gl, gv, gg = FE.PROGRAM_GRAD(*gargs, ops, el)
+    gl2, gv2, gg2 = FE.PROGRAM_GRAD(*gargs, ops, el)
+    ml, mvv = k2(instr, nsteps, cv_g, Xt, yt, w, ops, el)
+    (pl, pv, pg, pabs), plain3 = timed_plain(torch, lambda: FE.program_grad_plain(
+        *map(sub, gargs[:4]), Xt, yt, w, ops, el, return_abs=True))
+    check("#3 user ops: two launches bit-identical",
+          _same(gl, gl2) and _same(gv, gv2) and _same(gg, gg2))
+    check("#3 user ops: loss == #2's on the same variants (bit)", _same(gl, ml) and _same(gv, mvv))
+    print(f"  bits #3 user ops: {digest(gl, gv, gg)}")
+    gl, gv, gg = gl[:K], gv[:K], gg[:K]
+    check(f"#3 user ops: validity bit-equal on the first {K} trees", _same(gv, pv))
+    s5, w5, r5, _ = close(torch, torch.where(pv, gl, torch.inf), torch.where(pv, pl, torch.inf))
+    check(f"#3 user ops: loss sum within rtol {RTOL} (max rel err {r5:.3g})", s5 and w5)
+    live = pv[..., None].expand_as(pg)
+    check("#3 user ops: gradients non-finite in the same places",
+          bool(torch.equal(torch.isfinite(gg)[live], torch.isfinite(pg)[live])))
+    both = live & torch.isfinite(gg) & torch.isfinite(pg)
+    gerr = (gg - pg).abs()[both]
+    check(f"#3 user ops: gradients within 1e-4 of the absolute row sums (max err / scale "
+          f"{float((gerr / pabs[both].clamp(min=1e-30)).max()) if gerr.numel() else 0.0:.3g})",
+          bool((gerr <= 1e-4 * pabs[both]).all()))
+    e3 = float(gerr.max()) if gerr.numel() else 0.0
+    ms3 = cuda_ms(torch, lambda: FE.PROGRAM_GRAD(*gargs, ops, el), reps=5)
+    b3, by3, _, _ = grad_bound(torch, gargs)
+    print(f"  #3 program_grad, user ops (V = {R}): {ms3:.4f} ms (CUDA events, mean of 5), plain "
+          f"{plain3:.1f} ms on {K} trees, bound {b3:.4f} ms ({by3})")
+    rows.append(table_row(FE.PROGRAM_GRAD, e3, ms3, plain3, b3, by3,
+                          "program_grad user ops"))
+    del cv_ls, mk, mk2, mp, mv, mv2, mvp
+    torch.cuda.empty_cache()
+    into("#1-#3 checked")
+
+    # #4 and #5 on phase 8's trees.
+    g = torch.Generator(device=dev).manual_seed(37)
+    popts = template_options(sr, 1, binary_operators=list(options.operators.binary),
+                             unary_operators=list(options.operators.unary))
+    t4 = t5 = None
+    err4 = err5 = 0.0
+    for mode, F, per_member in (("shared, user ops", 1, False), ("per-member, user ops", 2, True)):
+        pops, pprog, PX, ct, pok = predict_inputs(torch, sr, dev, F, per_member, False, g,
+                                                  options=popts)
+        pin, pns, pcv, PXc = FE._predict_inputs(pprog, PX, F, pops)
+        pnc = pprog.nconst.to(torch.int32).contiguous()
+        KP = min(USER_OP_SUBSET, pin.shape[0])
+        a4, a5, p4, p5 = predict_pair_checks(torch, check, mode, FE.PROGRAM_PREDICT,
+                                             FE.PROGRAM_PREDICT_VJP, pops, pin, pns, pnc, pcv,
+                                             pok, PXc, ct, per_member, k=KP)
+        err4, err5 = max(err4, a4), max(err5, a5)
+        if not per_member:
+            PT = pin.shape[0]
+            ms4 = cuda_ms(torch, lambda: FE.PROGRAM_PREDICT(pin, pns, pcv, pok, PXc, pops), 5)
+            ms5 = cuda_ms(torch, lambda: FE.PROGRAM_PREDICT_VJP(pin, pns, pnc, pcv, PXc, ct,
+                                                                pops), 5)
+            bb4, bb5 = predict_bounds(pns, pnc, PT, pin.shape[1], pcv.shape[1], F, n, False, 4)
+            t4, t5 = (ms4, p4) + bb4, (ms5, p5) + bb5
+            print(f"  #4 program_predict, user ops: {ms4:.4f} ms, plain {p4:.1f} ms on {KP} "
+                  f"trees, bound {bb4[0]:.4f} ms ({bb4[1]}); #5 program_predict_vjp, user ops: "
+                  f"{ms5:.4f} ms, "
+                  f"plain {p5:.1f} ms on {KP} trees, bound {bb5[0]:.4f} ms ({bb5[1]}) (CUDA "
+                  f"events, mean of 5)")
+        del PX, ct, PXc
+        torch.cuda.empty_cache()
+    rows.append(table_row(FE.PROGRAM_PREDICT, err4, *t4, name="program_predict user ops"))
+    rows.append(table_row(FE.PROGRAM_PREDICT_VJP, err5, *t5, name="program_predict_vjp user ops"))
+    check.raise_if_failed("user operators on kernels #1-#5")
+    into("#4 and #5 checked")
+
+    # equation_search with the user operators, turbo on (the default on the card).
+    t0 = time.perf_counter()
+    uopts = user_op_options(sr, USER_OP_CYCLES)
+    for k in kernels():
+        k.launches = 0
+    hof = sr.equation_search(X, y, options=uopts, niterations=1, seed=0, device=dev,
+                             verbosity=0)
+    search_launches = {k.name: k.launches for k in kernels()}
+    best = min(hof.entries, key=lambda e: e.loss)
+    p = host_predict(torch, best.tree, X.astype(np.float64)).numpy()
+    host = float(np.mean((p - y.astype(np.float64)) ** 2))
+    print(f"  equation_search(device='cuda') with gauss, softplus and pdiv: "
+          f"{time.perf_counter() - t0:.2f} s, launches {search_launches}; best loss "
+          f"{best.loss:.6g} at complexity {best.complexity}: {best.equation_string()}; host "
+          f"float64 {host:.6g}")
+    if 0 in (search_launches[k] for k in ("program_eval", "program_multi", "program_grad")):
+        raise RuntimeError(f"the user-op search launched {search_launches}: #1-#3 expected")
+    if not abs(best.loss - host) <= 1e-3 * max(abs(host), 1e-6):
+        raise RuntimeError(f"user-op search: reported loss {best.loss}, host {host}")
+    into("the search")
+
+    # s/iteration in turns: pdiv, /, /, pdiv; the eager interpreter counted.
+    timing = {True: [], False: []}
+    launches = None
+    with EagerCount() as eager:
+        for use_pdiv in (True, False, False, True):
+            print(f"  {'pdiv' if use_pdiv else '/'}:")
+            opts = user_op_options(sr, USER_OP_CYCLES, pdiv=use_pdiv)
+            lch, state, _, _ = run_engine(torch, sr, dev, opts, iters=1,
+                                          timing=timing[use_pdiv], warmup=False)
+            if use_pdiv:
+                launches = lch
+    if eager.calls:
+        raise RuntimeError(f"the eager interpreter ran {eager.calls} times with turbo on")
+    slash = user_op_header(sr, pdiv=False)
+    if any(cuda_build.build_seconds(f, slash) for f in cuda_build.SOURCES):
+        raise RuntimeError("the set with / built libraries of its own; pdiv's set covers it")
+    ratio = [a / b for a, b in zip(timing[True], timing[False][::-1])]
+    print(f"  s/iteration with pdiv {timing[True]}, with / {timing[False]} (in turns; pdiv / '/' "
+          f"{', '.join(f'{r:.3f}' for r in ratio)}); eager interpreter calls {eager.calls}; "
+          f"{card}")
+    expected = expect(launches, program_eval=USER_OP_CYCLES + 1,
+                      program_multi=uopts.optimizer_iterations,
+                      program_grad=uopts.optimizer_iterations + 1)
+    if launches != expected:
+        raise RuntimeError(f"user-op engine launched {launches}, expected {expected}")
+    for row, name in zip(rows[:3], ("program_eval", "program_multi", "program_grad")):
+        row["launches"] = launches[name]
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 38: the dtype forms
+# ---------------------------------------------------------------------------
+
+DTYPE_CYCLES = 10           # phase 38's search depth
+
+
+def phase_dtype_forms(torch, sr, dev, card):
+    """Phase 38: #4 and #5's double forms on phase 8's shapes and #4's bf16
+    form on its shared input, 1b and 2b for float64 data (a float64 loss
+    spine) and for bf16 data (a bf16 loss spine) on phases 3, 12 and 4's
+    inputs, against their plain versions; then, DTYPE_CYCLES cycles each, one
+    timed iteration: a float64 template search at the template cell's
+    widths and its optimizer at 64 islands (as phase 10), the optimizer cell
+    with float64 data and eval_precision="bf16" (with the bf16 line search),
+    the optimizer cell with eval_dtype="bfloat16", the parametric cell in
+    both, and a user elementwise loss in a parametric, a float64 and a bf16
+    search (the last with phase 37's user operators), printing their
+    launches of #4 and #5. Returns the kernel-table rows."""
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
+    check = Checks()
+    _same = lambda a, b: same(torch, a, b)
+    rows = {}
+    n = N_ROWS
+
+    # #4 / #5 double, #4 bf16.
+    g = torch.Generator(device=dev).manual_seed(38)
+    for mode, F, per_member in (("shared, float64", 1, False), ("per-member, float64", 2, True),
+                                ("shared, bf16", 1, False)):
+        ops, prog, X, ct, ok = predict_inputs(torch, sr, dev, F, per_member, False, g)
+        bf = mode.endswith("bf16")
+        X = X.double() if not bf else X
+        ct = ct.double() if not bf else ct
+        pin, pns, pcv, PXc = FE._predict_inputs(prog, X, F, ops)
+        pnc = prog.nconst.to(torch.int32).contiguous()
+        k4 = FE.PROGRAM_PREDICT_BF16 if bf else FE.PROGRAM_PREDICT_F64
+        k5 = None if bf else FE.PROGRAM_PREDICT_VJP_F64
+        Xk = FE._bf16_rows(PXc) if bf else PXc
+        a4, a5, p4, p5 = predict_pair_checks(torch, check, mode, k4, k5, ops, pin, pns, pnc, pcv,
+                                             ok, Xk, ct, per_member)
+        if not per_member:
+            PT = pin.shape[0]
+            ms4 = cuda_ms(torch, lambda: k4(pin, pns, pcv, ok, Xk, ops), 5)
+            bb4, bb5 = predict_bounds(pns, pnc, PT, pin.shape[1], pcv.shape[1], F, n, False,
+                                      4 if bf else 8)
+            rows[k4.name] = table_row(k4, a4, ms4, p4, *bb4)
+            line = f"  #4 {k4.name}: {ms4:.4f} ms, plain {p4:.1f} ms, bound {bb4[0]:.4f} ms"
+            if k5 is not None:
+                ms5 = cuda_ms(torch, lambda: k5(pin, pns, pnc, pcv, Xk, ct, ops), 5)
+                rows[k5.name] = table_row(k5, a5, ms5, p5, *bb5)
+                line += (f"; #5 {k5.name}: {ms5:.4f} ms, plain {p5:.1f} ms, bound "
+                         f"{bb5[0]:.4f} ms")
+            print(line + " (CUDA events, mean of 5)")
+        elif rows.get(FE.PROGRAM_PREDICT_VJP_F64.name):
+            r = rows[FE.PROGRAM_PREDICT_VJP_F64.name]
+            r["max_abs_err"] = max(r["max_abs_err"], a5)
+        del X, ct, PXc, Xk
+        torch.cuda.empty_cache()
+
+    # 1b / 2b with a float64 or a bf16 loss spine, on phases 3 and 4's inputs.
+    options, data, trees, cx, prog, args, scal, cxf = kernel1_inputs(torch, sr, dev)
+    ops, el = options.operators, options.elementwise_loss
+    T, L, CMAX = args[0].shape[0], args[0].shape[1], args[2].shape[1]
+    inexact = inexact_trees(torch, args[0], args[1], ops)
+    steps = float(prog.nsteps.to(torch.float64).sum())
+    rb = lambda t: t.to(torch.bfloat16).to(torch.float32)
+    for spine, kern in (("float64", FE.PROGRAM_EVAL_BF16_F64),
+                        ("bf16", FE.PROGRAM_EVAL_BF16_DATA)):
+        if spine == "float64":
+            a = (args[0], args[1], args[2].double(), args[3], FE._bf16_rows(args[4].double()),
+                 args[5].double(), args[6].double())
+            cxs, sc = cxf.double(), scal.double()
+        else:
+            a = (args[0], args[1], args[2], args[3], FE._bf16_rows(args[4]), rb(args[5]),
+                 rb(args[6]))
+            cxs, sc = cxf, scal
+        lk, vk, ck = kern(*a, ops, el, cx=cxs, scal=sc)
+        lk2, vk2, ck2 = kern(*a, ops, el, cx=cxs, scal=sc)
+        (lp, vp, cp), plain = timed_plain(torch, lambda: FE.program_eval_plain(
+            *a, ops, el, cx=cxs, scal=sc, bf16="data" if spine == "bf16" else True))
+        check(f"1b {spine} spine: two launches bit-identical",
+              _same(lk, lk2) and _same(ck, ck2) and _same(vk, vk2))
+        check(f"1b {spine} spine: validity bit-equal", _same(vk, vp))
+        errs = []
+        for what, x, z in (("loss", lk, lp), ("cost", ck, cp)):
+            good, wex, med, win, aerr = bf16_close(torch, x, z, inexact)
+            errs.append(aerr)
+            check(f"1b {spine} spine {what}: non-finite in the same places; + - * / abs trees "
+                  f"within rtol {RTOL} (worst {wex:.3g}); transcendental trees median "
+                  f"{med:.3g}, worst {win:.3g}", good)
+        print(f"  bits 1b {spine} spine: {digest(lk, vk, ck)}")
+        ms = cuda_ms(torch, lambda: kern(*a, ops, el, cx=cxs, scal=sc), reps=10)
+        es = 8 if spine == "float64" else 4
+        b, by = bound_mixed(steps * n, 4.0 * n * T, es,
+                            4.0 * (T * L + 2 * T) + es * (T * CMAX + 2 * n + T + 3 + 2 * T)
+                            + 2.0 * N_FEATURES * n)
+        print(f"  1b {kern.name}: {ms:.4f} ms (CUDA events, mean of 10), plain {plain:.1f} ms, "
+              f"bound {b:.4f} ms ({by})")
+        rows[kern.name] = table_row(kern, max(errs), ms, plain, b, by)
+    del args
+    torch.cuda.empty_cache()
+
+    poptions, ptrees, PX, Py, pargs = param_kernel_inputs(torch, sr, dev)
+    instr, nsteps, cvals, ok_, bank, cls, Xc, yc, w = pargs
+    pops, pel = poptions.operators, poptions.elementwise_loss
+    pin_ = inexact_trees(torch, instr, nsteps, pops)
+    PT, PL, PC = instr.shape[0], instr.shape[1], cvals.shape[1]
+    psteps = float(nsteps.to(torch.float64).sum())
+    for spine, kern in (("float64", FE.PROGRAM_EVAL_PARAM_BF16_F64),
+                        ("bf16", FE.PROGRAM_EVAL_PARAM_BF16_DATA)):
+        if spine == "float64":
+            a = (instr, nsteps, cvals.double(), ok_, bank.double(), cls,
+                 FE._bf16_rows(Xc.double()), yc.double(), w.double())
+        else:
+            a = (instr, nsteps, cvals, ok_, bank, cls, FE._bf16_rows(Xc), rb(yc), rb(w))
+        lk, vk = kern(*a, pops, pel)
+        lk2, vk2 = kern(*a, pops, pel)
+        (lp, vp), plain = timed_plain(torch, lambda: FE.program_eval_plain(
+            *a[:4], *a[6:], pops, pel, bank=a[4], class_idx=a[5],
+            bf16="data" if spine == "bf16" else True))
+        check(f"1b parametric {spine} spine: two launches bit-identical",
+              _same(lk, lk2) and _same(vk, vk2))
+        check(f"1b parametric {spine} spine: validity bit-equal", _same(vk, vp))
+        good, wex, med, win, aerr = bf16_close(torch, torch.where(vp, lk, torch.inf),
+                                               torch.where(vp, lp, torch.inf), pin_)
+        check(f"1b parametric {spine} spine: + - * trees within rtol {RTOL} (worst {wex:.3g}); "
+              f"transcendental trees median {med:.3g}, worst {win:.3g}", good)
+        ms = cuda_ms(torch, lambda: kern(*a, pops, pel), reps=10)
+        es = 8 if spine == "float64" else 4
+        b, by = bound_mixed(psteps * n, 4.0 * n * PT, es,
+                            4.0 * (PT * PL + 3 * PT) + es * (PT * PC + PT * 2 * 3 + 2 * n + PT)
+                            + 4.0 * n + 2.0 * 2 * n)
+        print(f"  1b {kern.name}: {ms:.4f} ms (CUDA events, mean of 10), plain {plain:.1f} ms, "
+              f"bound {b:.4f} ms ({by})")
+        rows[kern.name] = table_row(kern, aerr, ms, plain, b, by)
+    del pargs
+    torch.cuda.empty_cache()
+
+    (moptions, mtrees, mprog, (instr, nsteps, cvals, _, Xt, yt, w), nconst, R, V_ls, cv_ls,
+     _) = opt_kernel_inputs(torch, sr, dev)
+    mops, mel = moptions.operators, moptions.elementwise_loss
+    min_ = inexact_trees(torch, instr, nsteps, mops)
+    MT, ML, MC = instr.shape[0], instr.shape[1], cvals.shape[1]
+    msteps = float(nsteps.to(torch.float64).sum())
+    for spine, kern in (("float64", FE.PROGRAM_MULTI_BF16_F64),
+                        ("bf16", FE.PROGRAM_MULTI_BF16_DATA)):
+        if spine == "float64":
+            a = (instr, nsteps, cv_ls.double(), FE._bf16_rows(Xt.double()), yt.double(),
+                 w.double())
+        else:
+            a = (instr, nsteps, cv_ls, FE._bf16_rows(Xt), rb(yt), rb(w))
+        mk, mv = kern(*a, mops, mel)
+        mk2, mv2 = kern(*a, mops, mel)
+        KM = min(USER_OP_SUBSET, MT)
+        (mp, mvp), plain = timed_plain(torch, lambda: FE.program_multi_plain(
+            *(t[:KM].contiguous() for t in a[:3]), *a[3:], mops, mel,
+            bf16="data" if spine == "bf16" else True))
+        check(f"2b {spine} spine: two launches bit-identical", _same(mk, mk2) and _same(mv, mv2))
+        print(f"  bits 2b {spine} spine: {digest(mk, mv)}")
+        mk, mv = mk[:KM], mv[:KM]
+        check(f"2b {spine} spine: validity bit-equal on the first {KM} trees", _same(mv, mvp))
+        good, wex, med, win, aerr = bf16_close(torch, torch.where(mvp, mk, torch.inf),
+                                               torch.where(mvp, mp, torch.inf), min_[:KM])
+        check(f"2b {spine} spine: + - * / abs trees within rtol {RTOL} (worst {wex:.3g}); "
+              f"transcendental trees median {med:.3g}, worst {win:.3g}", good)
+        ms = cuda_ms(torch, lambda: kern(*a, mops, mel), reps=5)
+        es = 8 if spine == "float64" else 4
+        b, by = bound_mixed(msteps * V_ls * n, 4.0 * MT * V_ls * n, es,
+                            4.0 * (MT * ML + MT) + es * (MT * V_ls * MC + 2 * n)
+                            + 4.0 * MT * V_ls + es * MT * V_ls + 2.0 * N_FEATURES * n)
+        print(f"  2b {kern.name}: {ms:.4f} ms (CUDA events, mean of 5), plain {plain:.1f} ms "
+              f"on {KM} trees, bound {b:.4f} ms ({by})")
+        rows[kern.name] = table_row(kern, aerr, ms, plain, b, by)
+    del cv_ls, mk, mk2, mp
+    torch.cuda.empty_cache()
+    check.raise_if_failed("the dtype forms of kernels #1, #2, #4 and #5")
+
+    # The searches, one timed iteration each after init.
+    nc, it = DTYPE_CYCLES, 1
+    runs = {}
+
+    def search(tag, options, data=None, extra=None, **expected):
+        print(f"  {tag}:")
+        launches, state, _, _ = run_engine(torch, sr, dev, options, it, data=data, extra=extra,
+                                           warmup=False)
+        got = {k: v for k, v in launches.items() if v}
+        print(f"  {tag}: launches of #4 and #5 {launches['program_predict']}, "
+              f"{launches['program_predict_f64']}, {launches['program_predict_bf16']} / "
+              f"{launches['program_predict_vjp']}, {launches['program_predict_vjp_f64']}; "
+              f"best loss {best_loss(state):.10g}; all {got}")
+        for name, count in expected.items():
+            if (count is None and not launches[name]) or (count is not None
+                                                          and launches[name] != count):
+                raise RuntimeError(f"{tag}: launched {launches}, expected {name} {count}")
+        extra_names = set(got) - set(expected)
+        if extra_names:
+            raise RuntimeError(f"{tag}: launched {sorted(extra_names)} too: {launches}")
+        runs[tag] = launches
+        return state
+
+    passes = 8 + 1
+    state = search("float64 template", template_options(sr, nc, eval_dtype="float64"),
+                   data=template_data(), program_predict_f64=3 * (nc + 1))
+    if state.pops.cost.dtype != torch.float64:
+        raise RuntimeError("the float64 template search keeps float32 costs")
+    search("float64 template optimizer (64 islands)",
+           template_options(sr, nc, populations=ISLANDS // 8, optimizer_probability=0.14,
+                            eval_dtype="float64"),
+           data=template_data(), program_predict_f64=3 * (nc + 1 + passes + 8),
+           program_predict_vjp_f64=3 * passes)
+    search("float64 data, eval_precision='bf16', bf16 line search",
+           bench_options(sr, nc, eval_dtype="float64", eval_precision="bf16",
+                         optimizer_bf16_linesearch=True),
+           program_eval_bf16_f64=nc + 1, program_multi_bf16_f64=8, program_grad_f64=passes)
+    search("eval_dtype='bfloat16'", bench_options(sr, nc, eval_dtype="bfloat16"),
+           program_eval_bf16_data=nc + 1, program_multi_bf16_data=8, program_grad=passes)
+    Xp, yp, clsp = parametric_data()
+    search("parametric, float64 data, eval_precision='bf16'",
+           parametric_options(sr, nc, eval_dtype="float64", eval_precision="bf16"),
+           data=(Xp, yp), extra={"class": clsp}, program_eval_param_bf16_f64=nc + 1)
+    search("parametric, eval_dtype='bfloat16'", parametric_options(sr, nc, eval_dtype="bfloat16"),
+           data=(Xp, yp), extra={"class": clsp}, program_eval_param_bf16_data=nc + 1)
+    user = lambda p, t: abs(p - t)
+    search("user loss, parametric",
+           parametric_options(sr, nc, elementwise_loss=user), data=(Xp, yp),
+           extra={"class": clsp}, program_predict=None)
+    search("user loss, float64", bench_options(sr, nc, eval_dtype="float64",
+                                              elementwise_loss=user),
+           program_predict_f64=None, program_predict_vjp_f64=None)
+    search("user loss, eval_precision='bf16', user operators",
+           user_op_options(sr, nc, eval_precision="bf16", elementwise_loss=user),
+           program_predict_bf16=None, program_predict=None, program_predict_vjp=None)
+
+    for name, tag in (("program_predict_f64", "float64 template"),
+                      ("program_predict_vjp_f64", "float64 template optimizer (64 islands)"),
+                      ("program_predict_bf16", "user loss, eval_precision='bf16', user operators"),
+                      ("program_eval_bf16_f64",
+                       "float64 data, eval_precision='bf16', bf16 line search"),
+                      ("program_multi_bf16_f64",
+                       "float64 data, eval_precision='bf16', bf16 line search"),
+                      ("program_eval_bf16_data", "eval_dtype='bfloat16'"),
+                      ("program_multi_bf16_data", "eval_dtype='bfloat16'"),
+                      ("program_eval_param_bf16_f64",
+                       "parametric, float64 data, eval_precision='bf16'"),
+                      ("program_eval_param_bf16_data", "parametric, eval_dtype='bfloat16'")):
+        rows[name]["launches"] = runs[tag][name]
+    print(f"  {card}")
+    user_route = runs["user loss, eval_precision='bf16', user operators"]
+    return list(rows.values()), user_route
+
+
+def _build_or_error(cuda_build, header):
+    """Builds every source with ``header``; returns the error instead of
+    raising it (the caller re-raises it on its own thread)."""
+    try:
+        cuda_build.build_all(cuda_build.SOURCES, header)
+    except BaseException as e:  # noqa: BLE001 - re-raised by the caller
+        return e
+    return None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--ncycles", type=int, default=30,
+    ap.add_argument("--ncycles", type=int, default=20,
                     help="ncycles_per_iteration of the main path (depth only)")
     ap.add_argument("--ncycles-plain", type=int, default=10,
                     help="ncycles_per_iteration of the no-optimizer path (depth only)")
-    ap.add_argument("--ncycles-stage", type=int, default=10,
+    ap.add_argument("--ncycles-stage", type=int, default=5,
                     help="ncycles_per_iteration of the four graftstage cells (depth only)")
     args = ap.parse_args()
 
@@ -4122,7 +4804,17 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
     header("[2] build")
     t0 = time.perf_counter()
     files = list(dict.fromkeys(k._file for k in kernels()))
+    # Phase 37's user-operator set builds beside the built-in one, all ten
+    # nvcc processes at once (the set with / in pdiv's place runs on these
+    # libraries, whose set covers it); a failure of either raises here.
+    user_build = {}
+    thread = threading.Thread(target=lambda: user_build.update(done=_build_or_error(
+        cuda_build, user_op_header(sr))))
+    thread.start()
     cuda_build.build_all(files)
+    thread.join()
+    if isinstance(user_build.get("done"), BaseException):
+        raise user_build["done"]
     for k in kernels():
         k.library()
     print(f"  {', '.join(files)}: {time.perf_counter() - t0:.2f} s "
@@ -4265,6 +4957,17 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
     header("[36] tooling: bench run/gate/trend, the cohort under debug_checks, the audits and "
            "guards")
     phase_tooling(torch, sr, dev, out_base, card)
+
+    header("[37] user operators (gauss, softplus, pdiv) generated into kernels #1-#5")
+    rows += phase_user_ops(torch, sr, dev, card)
+
+    header("[38] the dtype forms: #4/#5 double, #4 bf16, 1b/2b with a float64 or bf16 loss "
+           "spine, and their searches")
+    drows, user_route = phase_dtype_forms(torch, sr, dev, card)
+    for row in rows:
+        if row["name"] in ("program_predict user ops", "program_predict_vjp user ops"):
+            row["launches"] = user_route[row["name"][:-len(" user ops")]]
+    rows += drows
 
     header("")
     print(card)

@@ -440,9 +440,11 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
     ``return_state`` and ``seed`` arguments, which override its fields,
     are the JAX package's. ``seed`` (or ``options.seed``) fixes every
     random draw. See the module docstring for warm starts and resume.
-    ``dtype`` (float32 or float64; default ``options.eval_dtype``) is the
-    data's, the constants', the costs' and the hall of fame's floating type:
-    float64 runs the kernels' double forms. ``X_units`` (one unit spec per
+    ``dtype`` (float32, float64 or bfloat16; default ``options.eval_dtype``)
+    is the data's, the constants', the costs' and the hall of fame's
+    floating type: float64 runs the kernels' double forms; bfloat16 rounds
+    the data to bf16 and keeps a float32 state, its losses rounded to bf16
+    (kernels 1b and 2b's bf16-data forms). ``X_units`` (one unit spec per
     feature) and ``y_units`` (one per output, or one for all) turn on the
     dimensional analysis: a tree that violates them pays
     ``options.dimensional_constraint_penalty`` (1000 by default) on its
@@ -526,13 +528,15 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
         # an earlier request's Engine; None (no cache, or an uncacheable
         # config) builds a fresh one.
         engine = None
+        # bf16 data is held in float32; the engine is told it is bf16.
+        edtype = fdtype if fdtype == torch.bfloat16 else ds.data.Xt.dtype
         if ropt.engine_cache is not None:
             engine = ropt.engine_cache.get_engine(
-                options, nfeatures=ds.nfeatures, dtype=ds.data.Xt.dtype, n_params=n_params,
+                options, nfeatures=ds.nfeatures, dtype=edtype, n_params=n_params,
                 n_classes=n_classes, device=dev, rows=int(ds.data.y.shape[0]))
         if engine is None:
             engine = Engine(options, ds.nfeatures, device=dev, n_params=n_params,
-                            n_classes=n_classes, dtype=ds.data.Xt.dtype)
+                            n_classes=n_classes, dtype=edtype)
         template = engine.template
         if template is not None and ds.nfeatures != template.n_variables:
             raise ValueError(f"Template combiner consumes {template.n_variables} variables "

@@ -84,17 +84,19 @@ def parametric_data(n_rows: int = 10_000):
     return X, y, cls
 
 
-# Kernel names as the profiler reports them: the first template argument
-# of program_eval_kernel and program_multi_kernel is the value buffer's
-# storage (float, or __nv_bfloat16 for 1b and 2b); #1's parametric form is
-# the instantiation whose last template argument is true.
+# Kernel names as the profiler reports them: the first two template
+# arguments of program_eval_kernel and program_multi_kernel are the value
+# buffer's storage (float, or __nv_bfloat16 for 1b and 2b) and the loss
+# spine's type (float for both); #1's parametric form is the instantiation
+# whose PARAM argument is true.
 _KERNEL_PATTERNS = {
-    "program_eval": r"program_eval_kernel<float, \d+, (true|false), false>",
-    "program_eval_param": r"program_eval_kernel<float, \d+, (true|false), true>",
-    "program_eval_bf16": r"program_eval_kernel<__nv_bfloat16, \d+, (true|false), false>",
-    "program_eval_param_bf16": r"program_eval_kernel<__nv_bfloat16, \d+, (true|false), true>",
-    "program_multi": r"program_multi_kernel<float", "program_grad": r"program_grad_kernel",
-    "program_multi_bf16": r"program_multi_kernel<__nv_bfloat16",
+    "program_eval": r"program_eval_kernel<float, float, \d+, (true|false), false",
+    "program_eval_param": r"program_eval_kernel<float, float, \d+, (true|false), true",
+    "program_eval_bf16": r"program_eval_kernel<__nv_bfloat16, float, \d+, (true|false), false",
+    "program_eval_param_bf16": r"program_eval_kernel<__nv_bfloat16, float, \d+, (true|false), "
+                               r"true",
+    "program_multi": r"program_multi_kernel<float, float", "program_grad": r"program_grad_kernel",
+    "program_multi_bf16": r"program_multi_kernel<__nv_bfloat16, float",
     "program_predict": r"program_predict_kernel",
     "program_predict_vjp": r"program_predict_vjp_kernel",
 }

@@ -20,6 +20,12 @@ from .losses import aggregate_loss
 __all__ = ["Dataset", "DeviceData", "make_dataset"]
 
 
+def _round_bf16(a) -> np.ndarray:
+    """``a`` rounded to bfloat16 (round to nearest even), as float32."""
+    t = torch.as_tensor(np.asarray(a, np.float32))
+    return t.to(torch.bfloat16).to(torch.float32).numpy()
+
+
 def to_numpy_dtype(dtype: torch.dtype):
     """numpy's float32 or float64 for the torch dtype."""
     return np.float64 if dtype == torch.float64 else np.float32
@@ -175,7 +181,8 @@ def make_dataset(
 ) -> Dataset:
     """Build a Dataset from ``X: (n, nfeatures)`` and ``y: (n,)`` on
     ``device`` (CUDA unless ``device="cpu"``). Data is ``dtype``: float32,
-    or float64 (``eval_dtype="float64"``, as the JAX package under x64).
+    float64 (``eval_dtype="float64"``, as the JAX package under x64), or
+    bfloat16 (its values rounded to bf16, held in float32).
 
     ``extra={"class": values}`` (or ``"classes"``) gives each row a class
     for parametric expressions: ``class_idx`` holds each value's index
@@ -191,6 +198,13 @@ def make_dataset(
         raise ValueError(f"X must be 2D (n, nfeatures); got shape {X.shape}")
     n, nfeatures = X.shape
     ndt = to_numpy_dtype(dtype)
+    if dtype == torch.bfloat16:
+        # bf16 data (eval_dtype="bfloat16"): the values rounded to bf16, held
+        # in float32 (core/options.py state_dtype).
+        X = _round_bf16(X)
+        y = _round_bf16(y)
+        weights = None if weights is None else _round_bf16(weights)
+        dtype = torch.float32
     y_arr = np.asarray(y, ndt).reshape(-1)
     if y_arr.shape[0] != n:
         raise ValueError(f"y has {y_arr.shape[0]} rows but X has {n}")

@@ -20,7 +20,7 @@ from ..ops.operators import DEFAULT_BINARY, DEFAULT_UNARY, OperatorSet
 
 __all__ = ["MutationWeights", "ComplexityMapping", "Options", "MUTATION_KINDS",
            "EvalGeometry", "KERNEL_TREE_BLOCK", "KERNEL_TILE_ROWS",
-           "check_supported", "float_dtype", "turbo_requested"]
+           "check_supported", "float_dtype", "state_dtype", "turbo_requested"]
 
 # Candidate-eval kernel launch-geometry defaults (ops/fused_eval.py's
 # fused_cost/fused_loss wrappers). These are THE defaults: every layer
@@ -734,11 +734,9 @@ def _refuse(what: str, where: str) -> None:
         f"{what} is not in the PyTorch port yet; it comes with {where}.")
 
 
-# The slices that bring what the port still refuses, as ROADMAP.md queue 1
-# numbers them.
-SEARCH_API_REST = "the rest of the search-API slice (ROADMAP.md queue 1 item 3)"
+# The slice that brings what the port still refuses, as ROADMAP.md queue 1
+# numbers it.
 PLUGIN_SLICE = "the expression-plugin slice (ROADMAP.md queue 1 item 4)"
-USER_CALLABLES_ON_KERNELS = "ROADMAP.md queue 3's item 'user operators on the kernels'"
 
 
 def _check_expression_spec(options: Options) -> None:
@@ -756,7 +754,9 @@ def _check_expression_spec(options: Options) -> None:
 def float_dtype(name) -> "torch.dtype":
     """The torch dtype of an ``eval_dtype`` name or an
     ``equation_search(dtype=...)`` value (a name, numpy or torch dtype):
-    float32 or float64."""
+    float32, float64 or bfloat16 (bf16 data, as the JAX package's
+    ``_np_dtype`` reads it; the search state stays float32, see
+    :func:`state_dtype`)."""
     import torch
 
     if isinstance(name, torch.dtype):
@@ -766,15 +766,24 @@ def float_dtype(name) -> "torch.dtype":
             key = np.dtype(name).name
         except TypeError:
             key = str(name)
-    key = {"f32": "float32", "f64": "float64"}.get(key, key)
+    key = {"f32": "float32", "f64": "float64", "bf16": "bfloat16"}.get(key, key)
     if key == "float32":
         return torch.float32
     if key == "float64":
         return torch.float64
     if key == "bfloat16":
-        _refuse(f"eval_dtype={name!r} (bfloat16 data; eval_precision='bf16' is the bf16 value "
-                "buffer the port runs)", SEARCH_API_REST)
-    raise ValueError(f"Unsupported dtype {name!r}: use float32 or float64")
+        return torch.bfloat16
+    raise ValueError(f"Unsupported dtype {name!r}: use float32, float64 or bfloat16")
+
+
+def state_dtype(data_dtype) -> "torch.dtype":
+    """The dtype of the search state (constants, losses, costs, hall of
+    fame) for data of ``data_dtype``: bf16 data keeps a float32 state, its
+    values rounded to bf16 where they enter the kernels' value buffer and
+    each loss rounded to bf16 (kernels 1b and 2b's bf16-data forms)."""
+    import torch
+
+    return torch.float32 if data_dtype == torch.bfloat16 else data_dtype
 
 
 def turbo_requested(options: Options, device) -> bool:
@@ -785,65 +794,21 @@ def turbo_requested(options: Options, device) -> bool:
     return device is not None and getattr(device, "type", str(device)) == "cuda"
 
 
-def _user_operators(options: Options) -> List[str]:
-    """Names of the operators the kernels do not implement (not built in)."""
-    from ..ops.fused_eval import _KERNEL_OP_IDS
-    from ..ops.operators import OPERATOR_REGISTRY
-
-    out = []
-    for op in list(options.operators.binary) + list(options.operators.unary):
-        builtin = OPERATOR_REGISTRY.get(op.name)
-        if builtin is None or builtin.fn is not op.fn or op.name not in _KERNEL_OP_IDS:
-            out.append(op.name)
-    return out
-
-
 def check_supported(options: Options, device=None, dtype=None) -> None:
     """Raise NotImplementedError, before the search starts, for every
-    option outside what this port carries, naming the ROADMAP item that
-    brings it. With ``device`` it also refuses what the interpreter
-    kernels cannot run where turbo is on (``turbo_requested``): a user
-    operator, and a user elementwise callable (which runs on kernel #4's
-    predictions, ``ops/fused_eval.py`` ``user_loss_program``) in a
-    parametric, float64 or bf16 search, forms kernel #4 lacks; a template
-    applies any loss to kernel #4's predictions. ``turbo=False`` runs them
-    on the eager path, the JAX package's own path with turbo off.
-    ``dtype`` (``equation_search(dtype=...)``) overrides ``eval_dtype``."""
-    import torch
-
-    from ..models.spec import ParametricExpressionSpec, TemplateExpressionSpec
-
+    option outside what this port carries, naming what it is. With
+    ``device`` it also refuses what the interpreter kernels cannot run
+    where turbo is on (``turbo_requested``): a user operator whose
+    function the tracer cannot take (ops/user_ops.py; the refusal names
+    the function). ``turbo=False`` runs it on the eager path, the JAX
+    package's own path with turbo off. ``dtype``
+    (``equation_search(dtype=...)``) overrides ``eval_dtype``."""
     _check_expression_spec(options)
-    fdt = float_dtype(dtype if dtype is not None else options.eval_dtype)
-    template = isinstance(options.expression_spec, TemplateExpressionSpec)
-    if fdt == torch.float64 and template:
-        _refuse("float64 with template expressions (kernels #4 and #5 compute in float32)",
-                SEARCH_API_REST)
-    if fdt == torch.float64 and options.eval_precision == "bf16":
-        _refuse("float64 data with eval_precision='bf16'", SEARCH_API_REST)
+    float_dtype(dtype if dtype is not None else options.eval_dtype)
     if device is None or not turbo_requested(options, device):
         return
     if options.resolved_loss_function is not None:
         return   # a custom whole-prediction loss runs on the eager path
-    from .losses import kernel_loss
+    from ..ops.user_ops import user_op_set
 
-    why = []
-    if kernel_loss(options.elementwise_loss) is None and not template:
-        forms = [name for name, on in (
-            ("parametric", isinstance(options.expression_spec, ParametricExpressionSpec)),
-            ("float64", fdt == torch.float64),
-            ("eval_precision='bf16'", options.eval_precision == "bf16"),
-            ("optimizer_bf16_linesearch", options.optimizer_bf16_linesearch)) if on]
-        if forms:
-            why.append(f"the user elementwise loss {options.elementwise_loss!r} in a "
-                       f"{' and '.join(forms)} search (it runs on kernel #4's predictions, "
-                       f"which have no such form)")
-    user_ops = _user_operators(options)
-    if user_ops:
-        why.append(f"the user operators {user_ops}")
-    if why:
-        raise NotImplementedError(
-            f"{' and '.join(why)} cannot run on the CUDA interpreter kernels, which the search "
-            f"uses with turbo on; pass turbo=False to run them on the eager path (the JAX "
-            f"package's own path with turbo off). Running them on the kernels is "
-            f"{USER_CALLABLES_ON_KERNELS}.")
+    user_op_set(options.operators)

@@ -26,6 +26,13 @@
 // JVP rules JAX applies to the operators' own definitions; its plain
 // PyTorch version is symbolicregression_jl_tpu_torch/ops/vjp.py, which
 // says where the non-finite values land and why.
+//
+// User operators (ids USER_B0.. and USER_U0..) are generated device
+// functions: ops/user_ops.py traces each into an IR and writes its forward
+// and its adjoint into a header of the operator set, which this file
+// includes where SR_USER_OPS is defined (ops/cuda_build.py builds each
+// operator set's libraries with it). Without it the user cases expand to
+// nothing and every built-in instantiation is what it was.
 
 #pragma once
 
@@ -46,6 +53,10 @@ enum : int {
   U_ASINH, U_ACOSH, U_ATANH, U_ATANH_CLIP, U_ERF, U_ERFC, U_GAMMA,
   U_SQUARE, U_CUBE, U_NEG, U_INV, U_RELU, U_ROUND, U_FLOOR, U_CEIL, U_SIGN
 };
+
+// User operators: binary USER_B0..USER_U0 - 1, unary USER_U0..USER_END - 1
+// (ops/user_ops.py numbers them in the operator set's order).
+enum : int { USER_B0 = 96, USER_U0 = 112, USER_END = 128 };
 
 enum : int { K_IDENTITY = 0, K_BINARY = 1, K_UNARY = 2, K_ADDSUB = 3 };
 
@@ -244,6 +255,30 @@ __device__ C apply_unary(int id, C x) {
   }
 }
 
+// The reverse-mode table (below), declared for the user operators' adjoints,
+// which take a built-in operator's derivative from it.
+template <typename C>
+__device__ void vjp_binary(int id, C a, C b, C ct, C& da, C& db);
+template <typename C>
+__device__ C vjp_unary(int id, C x, C ct);
+
+// Operand j's cotangent of built-in binary operator `id`.
+template <typename C>
+__device__ __forceinline__ C user_vjp_part(int id, C a, C b, C ct, int j) {
+  C da, db;
+  vjp_binary<C>(id, a, b, ct, da, db);
+  return j == 0 ? da : db;
+}
+
+// SR_USER_OPS_CASES(BIN, UN) lists the user operators as BIN(id, forward,
+// adjoint) and UN(id, forward, adjoint); run_tile and run_tile_reverse
+// expand it into their switches.
+#ifdef SR_USER_OPS
+#include "sr_user_ops.cuh"
+#else
+#define SR_USER_OPS_CASES(BIN, UN)
+#endif
+
 // ---------------------------------------------------------------------------
 // Elementwise losses (plain versions: core/losses.py), each the JAX
 // package's formula (symbolicregression_jl_tpu/core/losses.py) operation for
@@ -325,6 +360,20 @@ __device__ __forceinline__ double from_c<double>(double v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_c<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// The loss spine's type A: y, w, the constants, the loss terms and the sums
+// are CT<A> values; a bf16 spine (kernels 1b and 2b's bf16-data forms,
+// eval_dtype="bfloat16") rounds each loss term and each sum to bf16, as the
+// JAX kernel computes its loss in the data's dtype. For float and double
+// the rounding is the identity.
+template <typename A>
+__device__ __forceinline__ typename Compute<A>::type round_to(typename Compute<A>::type v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // Elements of storage type S in front of a block's compute-type scratch,
@@ -429,11 +478,11 @@ struct TileLayout {
   size_t stab, sv, sacc, sc, sbank, sok, sflag, slast, sfree, total;
 };
 
-template <typename S>
+template <typename S, typename A = typename Compute<S>::type>
 __host__ __device__ inline TileLayout tile_layout(int W, int L, int CMAX, int R, int NP, int NC,
                                                   int vch) {
   const int rows = R + tile_slots(L);
-  const size_t csize = sizeof(typename Compute<S>::type);
+  const size_t csize = sizeof(typename Compute<A>::type);
   TileLayout o;
   o.stab = 0;                                                             // int4 [L]
   o.sv = align_up(o.stab + 16 * (size_t)L, 16);                           // S [rows * W]
@@ -472,8 +521,10 @@ __device__ __forceinline__ int tile_op(int entry) {
   const int kind = entry >> 8;
   const int id = entry & 0xFF;
   if (kind == K_ADDSUB) return OPX_ADDSUB;
-  if (kind == K_BINARY) return id < 16 ? id : OPX_NAN;
-  if (kind == K_UNARY) return (id >= U_EXP && id <= U_SIGN) ? id : OPX_NAN;
+  if (kind == K_BINARY) return (id < 16 || (id >= USER_B0 && id < USER_U0)) ? id : OPX_NAN;
+  if (kind == K_UNARY) {
+    return ((id >= U_EXP && id <= U_SIGN) || (id >= USER_U0 && id < USER_END)) ? id : OPX_NAN;
+  }
   return OPX_IDENT;
 }
 
@@ -594,6 +645,15 @@ __device__ __forceinline__ void run_tile(const int4* __restrict__ stab, int m, S
   case ID:             \
     _Pragma("unroll") for (int k = 0; k < K; ++k) r[k] = apply_unary<C>(ID, a[k]); \
     break;
+#define SR_TILE_UBIN(ID, F, VF)                \
+  case ID:                                     \
+    tile_operand<S, K>(d.z, col, cv, prev, b); \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) r[k] = F<C>(a[k], b[k]); \
+    break;
+#define SR_TILE_UUN(ID, F, VF) \
+  case ID:                     \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) r[k] = F<C>(a[k]); \
+    break;
     switch (d.x & 0xFF) {
       case OPX_ADDSUB: {
         tile_operand<S, K>(d.z, col, cv, prev, b);
@@ -619,12 +679,15 @@ __device__ __forceinline__ void run_tile(const int4* __restrict__ stab, int m, S
       SR_TILE_UN(U_SQUARE) SR_TILE_UN(U_CUBE) SR_TILE_UN(U_NEG) SR_TILE_UN(U_INV)
       SR_TILE_UN(U_RELU) SR_TILE_UN(U_ROUND) SR_TILE_UN(U_FLOOR) SR_TILE_UN(U_CEIL)
       SR_TILE_UN(U_SIGN)
+      SR_USER_OPS_CASES(SR_TILE_UBIN, SR_TILE_UUN)
       default:
 #pragma unroll
         for (int k = 0; k < K; ++k) r[k] = qnan<C>();
     }
 #undef SR_TILE_BIN
 #undef SR_TILE_UN
+#undef SR_TILE_UBIN
+#undef SR_TILE_UUN
     RowPack<S, K> st;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
@@ -680,28 +743,32 @@ __device__ __forceinline__ void lane_tree_sum(C* x, int W, int count) {
 // parametric form (PARAM) fills per-row rows F..F+NP-1 with bank[p,
 // class[r]] (the tree's bank [NP, NC], class clipped to [0, NC)). Calls
 // emit(v, sum, ok) once per vector from one thread; ok: every step finite
-// on every row below n. `ls` is the launch's loss (LOSS_ANY reads it).
-template <typename S, int LOSS, bool PARAM, int K, typename Emit>
+// on every row below n. `ls` is the launch's loss (LOSS_ANY reads it). A is
+// the loss spine's type (round_to): the constants, the bank, y, w, the loss
+// and the sums are CT<A> (D below), the steps C = CT<S>; the root enters the
+// loss as a D, the constants and the bank the buffer as a C first.
+template <typename S, int LOSS, bool PARAM, int K, typename A = CT<S>, typename Emit>
 __device__ __forceinline__ void tree_loss_sums(
-    const int* __restrict__ words, int m, const CT<S>* __restrict__ cvals,
-    const CT<S>* __restrict__ bank, const int* __restrict__ class_idx,
-    const S* __restrict__ X, const CT<S>* __restrict__ y, const CT<S>* __restrict__ w,
+    const int* __restrict__ words, int m, const CT<A>* __restrict__ cvals,
+    const CT<A>* __restrict__ bank, const int* __restrict__ class_idx,
+    const S* __restrict__ X, const CT<A>* __restrict__ y, const CT<A>* __restrict__ w,
     const int* __restrict__ optab, int V, int vch, int L, int CMAX, int F, int NP, int NC, int n,
-    int W, int code_mask, int sign_shift, LossSpec<CT<S>> ls, unsigned char* smem, Emit emit) {
+    int W, int code_mask, int sign_shift, LossSpec<CT<A>> ls, unsigned char* smem, Emit emit) {
   typedef CT<S> C;
+  typedef CT<A> D;
   const int tid = threadIdx.x;
   const int P = blockDim.x;
   const int R = F + NP;
-  const TileLayout lay = tile_layout<S>(W, L, CMAX, R, NP, NC, vch);
+  const TileLayout lay = tile_layout<S, A>(W, L, CMAX, R, NP, NC, vch);
   int4* stab = reinterpret_cast<int4*>(smem + lay.stab);
   S* sv = reinterpret_cast<S*>(smem + lay.sv);
-  C* sacc = reinterpret_cast<C*>(smem + lay.sacc);
+  D* sacc = reinterpret_cast<D*>(smem + lay.sacc);
   S* sc = reinterpret_cast<S*>(smem + lay.sc);
   S* sbank = reinterpret_cast<S*>(smem + lay.sbank);
   int* sok = reinterpret_cast<int*>(smem + lay.sok);
 
   if (PARAM) {
-    for (int i = tid; i < NP * NC; i += P) sbank[i] = from_c<S>(bank[i]);
+    for (int i = tid; i < NP * NC; i += P) sbank[i] = from_c<S>((C)bank[i]);
   }
   decode_tile_program(words, m, optab, code_mask, sign_shift, R, CMAX, L, W,
                       reinterpret_cast<int*>(smem + lay.sflag),
@@ -709,21 +776,21 @@ __device__ __forceinline__ void tree_loss_sums(
                       reinterpret_cast<int*>(smem + lay.sfree), stab);
 
   S* col = sv + K * tid;
-  C* acol = sacc + K * tid;
+  D* acol = sacc + K * tid;
   const bool vec_x = n % K == 0 && reinterpret_cast<uintptr_t>(X) % sizeof(RowPack<S, K>) == 0;
-  const bool vec_yw = n % K == 0 && reinterpret_cast<uintptr_t>(y) % sizeof(RowPack<C, K>) == 0
-                      && reinterpret_cast<uintptr_t>(w) % sizeof(RowPack<C, K>) == 0;
+  const bool vec_yw = n % K == 0 && reinterpret_cast<uintptr_t>(y) % sizeof(RowPack<D, K>) == 0
+                      && reinterpret_cast<uintptr_t>(w) % sizeof(RowPack<D, K>) == 0;
   const int CS = CMAX + 1;
   for (int v0 = 0; v0 < V; v0 += vch) {
     const int nv = min(vch, V - v0);
     for (int i = tid; i < nv * CS; i += P) {
       const int c = i / CS, j = i - c * CS;
-      sc[i] = from_c<S>(j < CMAX ? cvals[(size_t)(v0 + c) * CMAX + j] : C(0));
+      sc[i] = from_c<S>(j < CMAX ? (C)cvals[(size_t)(v0 + c) * CMAX + j] : C(0));
     }
     for (int c = tid; c < nv; c += P) sok[c] = 1;
     for (int c = 0; c < nv; ++c) {
 #pragma unroll
-      for (int k = 0; k < K; ++k) acol[c * W + k] = C(0);
+      for (int k = 0; k < K; ++k) acol[c * W + k] = D(0);
     }
     __syncthreads();
 
@@ -731,8 +798,8 @@ __device__ __forceinline__ void tree_loss_sums(
       const int r = r0 + K * tid;
       // The tile's loads are issued before their values are stored, so
       // they travel together (TILE_LOADS features at a time).
-      const RowPack<C, K> yk = load_rows<C, K>(y, r, n, vec_yw, C(0));
-      const RowPack<C, K> wk = load_rows<C, K>(w, r, n, vec_yw, C(0));
+      const RowPack<D, K> yk = load_rows<D, K>(y, r, n, vec_yw, D(0));
+      const RowPack<D, K> wk = load_rows<D, K>(w, r, n, vec_yw, D(0));
       int cls[K];
       if (PARAM) {
 #pragma unroll
@@ -761,23 +828,24 @@ __device__ __forceinline__ void tree_loss_sums(
       for (int c = 0; c < nv; ++c) {
         C root[K], chk[K];
         run_tile<S, K>(stab, m, col, sc + c * CS, root, chk);
-        RowPack<C, K> acc = *reinterpret_cast<RowPack<C, K>*>(acol + c * W);
+        RowPack<D, K> acc = *reinterpret_cast<RowPack<D, K>*>(acol + c * W);
         bool ok = true;
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           if (r + k < n) {
-            acc.v[k] = rn_add(acc.v[k], loss_term<LOSS>(ls, root[k], yk.v[k], wk.v[k]));
+            const D term = round_to<A>(loss_term<LOSS>(ls, (D)root[k], yk.v[k], wk.v[k]));
+            acc.v[k] = rn_add(acc.v[k], term);
             ok = ok && chk[k] == C(0);
           }
         }
-        *reinterpret_cast<RowPack<C, K>*>(acol + c * W) = acc;
+        *reinterpret_cast<RowPack<D, K>*>(acol + c * W) = acc;
         if (!ok) sok[c] = 0;
       }
     }
 
     __syncthreads();
     lane_tree_sum(sacc, W, nv);
-    for (int c = tid; c < nv; c += P) emit(v0 + c, sacc[c * W], sok[c] != 0);
+    for (int c = tid; c < nv; c += P) emit(v0 + c, round_to<A>(sacc[c * W]), sok[c] != 0);
     __syncthreads();
   }
 }
@@ -1204,6 +1272,17 @@ __device__ __forceinline__ void run_tile_reverse(const int4* __restrict__ rtab, 
     tile_operand<S, K>(e.y, col, cv, none, a);                                 \
     _Pragma("unroll") for (int k = 0; k < K; ++k) d1[k] = vjp_unary<C>(ID, a[k], ct[k]); \
     break;
+#define SR_REV_UBIN(ID, F, VF)                                                  \
+  case ID:                                                                      \
+    tile_operand<S, K>(e.y, col, cv, none, a);                                  \
+    tile_operand<S, K>(e.z, col, cv, none, b);                                  \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) VF<C>(a[k], b[k], ct[k], d1[k], d2[k]); \
+    break;
+#define SR_REV_UUN(ID, F, VF)                                                  \
+  case ID:                                                                     \
+    tile_operand<S, K>(e.y, col, cv, none, a);                                 \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) d1[k] = VF<C>(a[k], ct[k]); \
+    break;
     switch (e.x & 0xFF) {
       case OPX_ADDSUB: {
         const C sg = (e.x & 0x100) ? C(-1) : C(1);
@@ -1231,12 +1310,15 @@ __device__ __forceinline__ void run_tile_reverse(const int4* __restrict__ rtab, 
       SR_REV_UN(U_SQUARE) SR_REV_UN(U_CUBE) SR_REV_UN(U_NEG) SR_REV_UN(U_INV)
       SR_REV_UN(U_RELU) SR_REV_UN(U_ROUND) SR_REV_UN(U_FLOOR) SR_REV_UN(U_CEIL)
       SR_REV_UN(U_SIGN)
+      SR_USER_OPS_CASES(SR_REV_UBIN, SR_REV_UUN)
       default:   // OPX_NAN: vjp_binary's and vjp_unary's zero for an unknown id
 #pragma unroll
         for (int k = 0; k < K; ++k) d1[k] = d2[k] = C(0);
     }
 #undef SR_REV_BIN
 #undef SR_REV_UN
+#undef SR_REV_UBIN
+#undef SR_REV_UUN
     C next[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) next[k] = ct[k];

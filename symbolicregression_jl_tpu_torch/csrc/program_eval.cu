@@ -57,6 +57,14 @@
 // step, the loss terms, the row sums and the cost epilogue in double
 // (__dadd_rn, __dmul_rn, ...: no contraction), in the same lane order.
 //
+// The loss spine (interp.cuh round_to): 1b over float64 data
+// (sr_program_eval_bf16_f64, ..._param_bf16_f64; the TPU kernel with
+// bf16=True under jax_enable_x64) keeps the bf16 buffer and its float steps
+// and takes y, w, the constants, the bank, the loss terms, the sums and the
+// cost epilogue in double; 1b over bf16 data (..._bf16_data, eval_dtype=
+// "bfloat16") rounds each loss term, each sum and the epilogue's results to
+// bf16.
+//
 // The operator code and the tile interpreter live in interp.cuh, shared
 // with kernels #2 (program_multi.cu) and #3-#5.
 //
@@ -107,7 +115,7 @@ size_t row_layout_smem(int block, int L, int CMAX, int F, int NP, int NC) {
          sizeof(typename Compute<S>::type) * block + sizeof(int) * L;
 }
 
-template <typename S, int LOSS, bool COST, bool PARAM, typename C = typename Compute<S>::type>
+template <typename S, typename A, int LOSS, bool COST, bool PARAM, typename C = CT<A>>
 __global__ void __launch_bounds__(TILE_MAX_W / TILE_ROWS, tile_min_blocks<C>()) program_eval_kernel(
     const int* __restrict__ instr,      // [T, L]
     const int* __restrict__ nsteps,     // [T]
@@ -126,34 +134,36 @@ __global__ void __launch_bounds__(TILE_MAX_W / TILE_ROWS, tile_min_blocks<C>()) 
     C* __restrict__ cost_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = blockIdx.x;
-  tree_loss_sums<S, LOSS, PARAM, TILE_ROWS>(
+  tree_loss_sums<S, LOSS, PARAM, TILE_ROWS, A>(
       instr + (size_t)t * L, min(nsteps[t], L), cvals + (size_t)t * CMAX,
       PARAM ? bank + (size_t)t * NP * NC : nullptr, class_idx, X, y, w, optab, 1, 1, L, CMAX,
       F, NP, NC, n, W, code_mask, sign_shift, ls, smem, [&](int, C total, bool all_ok) {
         const int valid = (all_ok && isfinite(total) && const_ok[t] != 0) ? 1 : 0;
         valid_out[t] = valid;
         if (COST) {
-          const C mean = rn_div(total, scal[0]);
+          const C mean = round_to<A>(rn_div(total, scal[0]));
           const C lossf = (valid && isfinite(mean)) ? mean : C(INFINITY);
           loss_out[t] = lossf;
-          cost_out[t] = rn_add(rn_div(lossf, scal[1]), rn_mul(scal[2], cx[t]));
+          cost_out[t] = round_to<A>(rn_add(round_to<A>(rn_div(lossf, scal[1])),
+                                           round_to<A>(rn_mul(scal[2], cx[t]))));
         } else {
           loss_out[t] = total;
         }
       });
 }
 
-template <typename S, int LOSS, bool COST, bool PARAM>
+// C = CT<A> (not deduced: the forms pass nullptr for what they lack).
+template <typename S, typename A, int LOSS, bool COST, bool PARAM>
 cudaError_t launch_one(int T, int W, cudaStream_t stream, const int* instr, const int* nsteps,
-                       const CT<S>* cvals, const int* const_ok, const CT<S>* bank,
-                       const int* class_idx, const S* X, const CT<S>* y, const CT<S>* w,
-                       const CT<S>* cx, const CT<S>* scal, const int* optab, int L, int CMAX,
+                       const CT<A>* cvals, const int* const_ok, const CT<A>* bank,
+                       const int* class_idx, const S* X, const CT<A>* y, const CT<A>* w,
+                       const CT<A>* cx, const CT<A>* scal, const int* optab, int L, int CMAX,
                        int F, int NP, int NC, int n, int code_mask, int sign_shift,
-                       LossSpec<CT<S>> ls, CT<S>* loss, int* valid, CT<S>* cost) {
+                       LossSpec<CT<A>> ls, CT<A>* loss, int* valid, CT<A>* cost) {
   if (W % TILE_ROWS != 0 || W > TILE_MAX_W || (W & (W - 1)) != 0) return cudaErrorInvalidValue;
-  const size_t smem = tile_layout<S>(W, L, CMAX, F + NP, NP, NC, 1).total;
+  const size_t smem = tile_layout<S, A>(W, L, CMAX, F + NP, NP, NC, 1).total;
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  auto kern = program_eval_kernel<S, LOSS, COST, PARAM>;
+  auto kern = program_eval_kernel<S, A, LOSS, COST, PARAM>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -164,8 +174,9 @@ cudaError_t launch_one(int T, int W, cudaStream_t stream, const int* instr, cons
 }
 
 // The cost and plain forms: `cost` == nullptr selects the plain form. L2
-// runs its own instantiation; every other kind runs LOSS_ANY's.
-template <typename S, typename C = CT<S>>
+// runs its own instantiation; every other kind runs LOSS_ANY's. S is the
+// value buffer's storage, A the loss spine's type (interp.cuh round_to).
+template <typename S, typename A = CT<S>, typename C = CT<A>>
 int eval_entry(const int* instr, const int* nsteps, const C* cvals, const int* const_ok,
                const S* X, const C* y, const C* w, const C* cx, const C* scal,
                const int* optab, int T, int L, int CMAX, int F, int n, int W, int loss_kind,
@@ -178,14 +189,14 @@ int eval_entry(const int* instr, const int* nsteps, const C* cvals, const int* c
   cudaError_t err;
 #define SR_LAUNCH(LK)                                                                     \
   err = (cost != nullptr)                                                                 \
-            ? launch_one<S, LK, true, false>(T, W, s, instr, nsteps, cvals, const_ok,     \
-                                             nullptr, nullptr, X, y, w, cx, scal, optab,  \
-                                             L, CMAX, F, 0, 0, n, code_mask, sign_shift,  \
-                                             ls, loss, valid, cost)                       \
-            : launch_one<S, LK, false, false>(T, W, s, instr, nsteps, cvals, const_ok,    \
-                                              nullptr, nullptr, X, y, w, cx, scal, optab, \
-                                              L, CMAX, F, 0, 0, n, code_mask, sign_shift, \
-                                              ls, loss, valid, cost);
+            ? launch_one<S, A, LK, true, false>(T, W, s, instr, nsteps, cvals, const_ok,  \
+                                                nullptr, nullptr, X, y, w, cx, scal,      \
+                                                optab, L, CMAX, F, 0, 0, n, code_mask,    \
+                                                sign_shift, ls, loss, valid, cost)        \
+            : launch_one<S, A, LK, false, false>(T, W, s, instr, nsteps, cvals, const_ok, \
+                                                 nullptr, nullptr, X, y, w, cx, scal,     \
+                                                 optab, L, CMAX, F, 0, 0, n, code_mask,   \
+                                                 sign_shift, ls, loss, valid, cost);
   if (loss_kind == LOSS_L2) {
     SR_LAUNCH(LOSS_L2)
   } else {
@@ -196,7 +207,7 @@ int eval_entry(const int* instr, const int* nsteps, const C* cvals, const int* c
 }
 
 // The parametric form (plain form only).
-template <typename S, typename C = typename Compute<S>::type>
+template <typename S, typename A = CT<S>, typename C = CT<A>>
 int param_entry(const int* instr, const int* nsteps, const C* cvals, const int* const_ok,
                 const C* bank, const int* class_idx, const S* X, const C* y, const C* w,
                 const int* optab, int T, int L, int CMAX, int F, int NP, int NC, int n, int W,
@@ -208,11 +219,11 @@ int param_entry(const int* instr, const int* nsteps, const C* cvals, const int* 
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const LossSpec<C> ls{loss_kind, (C)loss_param};
   cudaError_t err;
-#define SR_LAUNCH(LK)                                                                   \
-  err = launch_one<S, LK, false, true>(T, W, s, instr, nsteps, cvals, const_ok, bank,   \
-                                       class_idx, X, y, w, nullptr, nullptr, optab, L,  \
-                                       CMAX, F, NP, NC, n, code_mask, sign_shift, ls,   \
-                                       loss, valid, nullptr);
+#define SR_LAUNCH(LK)                                                                      \
+  err = launch_one<S, A, LK, false, true>(T, W, s, instr, nsteps, cvals, const_ok, bank,   \
+                                          class_idx, X, y, w, nullptr, nullptr, optab, L,  \
+                                          CMAX, F, NP, NC, n, code_mask, sign_shift, ls,   \
+                                          loss, valid, nullptr);
   if (loss_kind == LOSS_L2) {
     SR_LAUNCH(LOSS_L2)
   } else {
@@ -326,4 +337,73 @@ extern "C" int sr_program_eval_param_f64(const int* instr, const int* nsteps,
   return param_entry<double>(instr, nsteps, cvals, const_ok, bank, class_idx, X, y, w, optab,
                              T, L, CMAX, F, NP, NC, n, block, loss_kind, loss_param, code_mask,
                              sign_shift, loss, valid, stream);
+}
+
+// float64 data on a bf16 value buffer (the TPU kernel under
+// jax_enable_x64 with bf16=True): X is [F, n] bf16 (the wrapper rounds the
+// float64 data once), the constants round to bf16 as the block loads them
+// (through float, as the plain version's conversion), every step computes
+// in float, and the prediction enters a float64 loss: y, w, the loss terms,
+// the row sums and the cost epilogue in double.
+extern "C" int sr_program_eval_bf16_f64(const int* instr, const int* nsteps,
+                                        const double* cvals, const int* const_ok,
+                                        const __nv_bfloat16* X, const double* y,
+                                        const double* w, const double* cx, const double* scal,
+                                        const int* optab, int T, int L, int CMAX, int F, int n,
+                                        int block, int loss_kind, double loss_param,
+                                        int code_mask, int sign_shift, double* loss, int* valid,
+                                        double* cost, void* stream) {
+  return eval_entry<__nv_bfloat16, double>(instr, nsteps, cvals, const_ok, X, y, w, cx, scal,
+                                           optab, T, L, CMAX, F, n, block, loss_kind,
+                                           loss_param, code_mask, sign_shift, loss, valid, cost,
+                                           stream);
+}
+
+// The parametric form of float64 data on a bf16 buffer.
+extern "C" int sr_program_eval_param_bf16_f64(const int* instr, const int* nsteps,
+                                              const double* cvals, const int* const_ok,
+                                              const double* bank, const int* class_idx,
+                                              const __nv_bfloat16* X, const double* y,
+                                              const double* w, const int* optab, int T, int L,
+                                              int CMAX, int F, int NP, int NC, int n, int block,
+                                              int loss_kind, double loss_param, int code_mask,
+                                              int sign_shift, double* loss, int* valid,
+                                              void* stream) {
+  return param_entry<__nv_bfloat16, double>(instr, nsteps, cvals, const_ok, bank, class_idx, X,
+                                            y, w, optab, T, L, CMAX, F, NP, NC, n, block,
+                                            loss_kind, loss_param, code_mask, sign_shift, loss,
+                                            valid, stream);
+}
+
+// bf16 data (eval_dtype="bfloat16"): kernel 1b with a bf16 loss spine. y
+// and w hold bf16 values in float, each row's loss term, each sum and the
+// cost epilogue's results round to bf16 (interp.cuh round_to).
+extern "C" int sr_program_eval_bf16_data(const int* instr, const int* nsteps,
+                                         const float* cvals, const int* const_ok,
+                                         const __nv_bfloat16* X, const float* y, const float* w,
+                                         const float* cx, const float* scal, const int* optab,
+                                         int T, int L, int CMAX, int F, int n, int block,
+                                         int loss_kind, double loss_param, int code_mask,
+                                         int sign_shift, float* loss, int* valid, float* cost,
+                                         void* stream) {
+  return eval_entry<__nv_bfloat16, __nv_bfloat16>(instr, nsteps, cvals, const_ok, X, y, w, cx,
+                                                  scal, optab, T, L, CMAX, F, n, block,
+                                                  loss_kind, loss_param, code_mask, sign_shift,
+                                                  loss, valid, cost, stream);
+}
+
+// The parametric form of bf16 data.
+extern "C" int sr_program_eval_param_bf16_data(const int* instr, const int* nsteps,
+                                               const float* cvals, const int* const_ok,
+                                               const float* bank, const int* class_idx,
+                                               const __nv_bfloat16* X, const float* y,
+                                               const float* w, const int* optab, int T, int L,
+                                               int CMAX, int F, int NP, int NC, int n, int block,
+                                               int loss_kind, double loss_param, int code_mask,
+                                               int sign_shift, float* loss, int* valid,
+                                               void* stream) {
+  return param_entry<__nv_bfloat16, __nv_bfloat16>(instr, nsteps, cvals, const_ok, bank,
+                                                   class_idx, X, y, w, optab, T, L, CMAX, F, NP,
+                                                   NC, n, block, loss_kind, loss_param,
+                                                   code_mask, sign_shift, loss, valid, stream);
 }

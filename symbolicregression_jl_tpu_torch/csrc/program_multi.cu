@@ -33,9 +33,10 @@
 // vector's constants round to bf16 as the block loads them, steps compute
 // in float and store rounded; the loss and its row sum stay float.
 //
-// Loss kinds and the float64 form (sr_program_multi_f64) as kernel #1's
-// (program_eval.cu): L2 inlined, every other kind behind LOSS_ANY's run-time
-// switch; double storage computes in double.
+// Loss kinds, the float64 form (sr_program_multi_f64) and 2b's float64 and
+// bf16 loss spines (sr_program_multi_bf16_f64, sr_program_multi_bf16_data)
+// as kernel #1's (program_eval.cu): L2 inlined, every other kind behind
+// LOSS_ANY's run-time switch; double storage computes in double.
 //
 // What bounds it on the H100. Like kernel #1 it is FP32 ALU and SFU work,
 // (steps x rows) operator evaluations per pair; X (200 KB at the bench
@@ -60,7 +61,7 @@ size_t row_layout_smem(int block, int L, int CMAX, int F) {
          sizeof(typename Compute<S>::type) * block + sizeof(int) * L;
 }
 
-template <typename S, int LOSS, typename C = typename Compute<S>::type>
+template <typename S, typename A, int LOSS, typename C = CT<A>>
 __global__ void __launch_bounds__(TILE_MAX_W / TILE_ROWS) program_multi_kernel(
     const int* __restrict__ instr,      // [T, L]
     const int* __restrict__ nsteps,     // [T]
@@ -73,7 +74,7 @@ __global__ void __launch_bounds__(TILE_MAX_W / TILE_ROWS) program_multi_kernel(
     LossSpec<C> ls, C* __restrict__ loss_out, int* __restrict__ valid_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = blockIdx.x;
-  tree_loss_sums<S, LOSS, false, TILE_ROWS>(
+  tree_loss_sums<S, LOSS, false, TILE_ROWS, A>(
       instr + (size_t)t * L, min(nsteps[t], L), cvals_v + (size_t)t * V * CMAX, nullptr, nullptr,
       X, y, w, optab, V, vch, L, CMAX, F, 0, 0, n, W, code_mask, sign_shift, ls, smem,
       [&](int v, C total, bool all_ok) {
@@ -82,7 +83,7 @@ __global__ void __launch_bounds__(TILE_MAX_W / TILE_ROWS) program_multi_kernel(
       });
 }
 
-template <typename S, int LOSS, typename C = typename Compute<S>::type>
+template <typename S, typename A, int LOSS, typename C = CT<A>>
 cudaError_t launch_multi(int T, int W, cudaStream_t stream, const int* instr, const int* nsteps,
                          const C* cvals_v, const S* X, const C* y, const C* w,
                          const int* optab, int V, int L, int CMAX, int F, int n,
@@ -90,10 +91,10 @@ cudaError_t launch_multi(int T, int W, cudaStream_t stream, const int* instr, co
   if (W % TILE_ROWS != 0 || W > TILE_MAX_W || (W & (W - 1)) != 0) return cudaErrorInvalidValue;
   // The most vectors per pass (up to TILE_VCH) whose layout fits.
   int vch = min(V, TILE_VCH);
-  while (vch > 1 && tile_layout<S>(W, L, CMAX, F, 0, 0, vch).total > kSmemLimit) vch >>= 1;
-  const size_t smem = tile_layout<S>(W, L, CMAX, F, 0, 0, vch).total;
+  while (vch > 1 && tile_layout<S, A>(W, L, CMAX, F, 0, 0, vch).total > kSmemLimit) vch >>= 1;
+  const size_t smem = tile_layout<S, A>(W, L, CMAX, F, 0, 0, vch).total;
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  auto kern = program_multi_kernel<S, LOSS>;
+  auto kern = program_multi_kernel<S, A, LOSS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -103,7 +104,9 @@ cudaError_t launch_multi(int T, int W, cudaStream_t stream, const int* instr, co
   return cudaGetLastError();
 }
 
-template <typename S, typename C = typename Compute<S>::type>
+// S is the value buffer's storage, A the loss spine's type (interp.cuh
+// round_to).
+template <typename S, typename A = CT<S>, typename C = CT<A>>
 int multi_entry(const int* instr, const int* nsteps, const C* cvals_v, const S* X,
                 const C* y, const C* w, const int* optab, int T, int V, int L,
                 int CMAX, int F, int n, int W, int loss_kind, double loss_param, int code_mask,
@@ -113,11 +116,12 @@ int multi_entry(const int* instr, const int* nsteps, const C* cvals_v, const S* 
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const LossSpec<C> ls{loss_kind, (C)loss_param};
   if (loss_kind == LOSS_L2) {
-    return (int)launch_multi<S, LOSS_L2>(T, W, s, instr, nsteps, cvals_v, X, y, w, optab, V, L,
-                                         CMAX, F, n, code_mask, sign_shift, ls, loss, valid);
+    return (int)launch_multi<S, A, LOSS_L2>(T, W, s, instr, nsteps, cvals_v, X, y, w, optab, V,
+                                            L, CMAX, F, n, code_mask, sign_shift, ls, loss,
+                                            valid);
   }
-  return (int)launch_multi<S, LOSS_ANY>(T, W, s, instr, nsteps, cvals_v, X, y, w, optab, V, L,
-                                        CMAX, F, n, code_mask, sign_shift, ls, loss, valid);
+  return (int)launch_multi<S, A, LOSS_ANY>(T, W, s, instr, nsteps, cvals_v, X, y, w, optab, V, L,
+                                           CMAX, F, n, code_mask, sign_shift, ls, loss, valid);
 }
 
 }  // namespace
@@ -174,4 +178,34 @@ extern "C" int sr_program_multi_f64(const int* instr, const int* nsteps,
   return multi_entry<double>(instr, nsteps, cvals_v, X, y, w, optab, T, V, L, CMAX, F, n,
                              block, loss_kind, loss_param, code_mask, sign_shift, loss, valid,
                              stream);
+}
+
+// Kernel 2b for float64 data (optimizer_bf16_linesearch under
+// jax_enable_x64): a bf16 value buffer with float steps, each vector's
+// constants rounded to bf16 through float, and y, w, the loss and its sums
+// in double (program_eval.cu sr_program_eval_bf16_f64).
+extern "C" int sr_program_multi_bf16_f64(const int* instr, const int* nsteps,
+                                         const double* cvals_v, const __nv_bfloat16* X,
+                                         const double* y, const double* w, const int* optab,
+                                         int T, int V, int L, int CMAX, int F, int n, int block,
+                                         int loss_kind, double loss_param, int code_mask,
+                                         int sign_shift, double* loss, int* valid,
+                                         void* stream) {
+  return multi_entry<__nv_bfloat16, double>(instr, nsteps, cvals_v, X, y, w, optab, T, V, L,
+                                            CMAX, F, n, block, loss_kind, loss_param, code_mask,
+                                            sign_shift, loss, valid, stream);
+}
+
+// Kernel 2b for bf16 data (eval_dtype="bfloat16"): the loss terms and the
+// sums rounded to bf16 (program_eval.cu sr_program_eval_bf16_data).
+extern "C" int sr_program_multi_bf16_data(const int* instr, const int* nsteps,
+                                          const float* cvals_v, const __nv_bfloat16* X,
+                                          const float* y, const float* w, const int* optab,
+                                          int T, int V, int L, int CMAX, int F, int n, int block,
+                                          int loss_kind, double loss_param, int code_mask,
+                                          int sign_shift, float* loss, int* valid,
+                                          void* stream) {
+  return multi_entry<__nv_bfloat16, __nv_bfloat16>(instr, nsteps, cvals_v, X, y, w, optab, T, V,
+                                                   L, CMAX, F, n, block, loss_kind, loss_param,
+                                                   code_mask, sign_shift, loss, valid, stream);
 }

@@ -17,6 +17,10 @@
 // The operator code and the tile interpreter live in interp.cuh, shared
 // with kernels #1-#3: each step computes as in every other kernel, so a
 // tree's predictions are the very values kernel #1 feeds into its loss.
+// Forms: float (sr_program_predict), double (sr_program_predict_f64:
+// float64 templates and the float64 user-loss route) and a bf16 value
+// buffer as kernel 1b keeps it (sr_program_predict_bf16: the user-loss
+// route of a bf16 search; float predictions).
 //
 // Design. One CTA per tree on the tile interpreter: the block decodes the
 // tree's words once into a table of resolved steps (decode_tile_program,
@@ -44,26 +48,32 @@ using namespace sr;
 
 namespace {
 
+// S is the value buffer's storage (float; double for the float64 form;
+// bf16 for the bf16 form, whose steps compute in float), C = CT<S> the type
+// of the constants and the predictions.
+template <typename S, typename C = CT<S>>
 __global__ void __launch_bounds__(TILE_MAX_W / TILE_ROWS) program_predict_kernel(
     const int* __restrict__ instr,      // [T, L]
     const int* __restrict__ nsteps,     // [T]
-    const float* __restrict__ cvals,    // [T, CMAX]
+    const C* __restrict__ cvals,        // [T, CMAX]
     const int* __restrict__ const_ok,   // [T]
-    const float* __restrict__ X,        // [F, n] shared or [T, F, n] per member
+    const S* __restrict__ X,            // [F, n] shared or [T, F, n] per member
     const int* __restrict__ optab,      // [n_codes]
     int L, int CMAX, int F, int n, int W, int per_member, int code_mask, int sign_shift,
-    float* __restrict__ pred_out,       // [T, n]
+    C* __restrict__ pred_out,           // [T, n]
     int* __restrict__ valid_out) {      // [T]
   constexpr int K = TILE_ROWS;
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const int P = blockDim.x;
-  const TileLayout lay = tile_layout<float>(W, L, CMAX, F, 0, 0, 1);
-  float* sc = reinterpret_cast<float*>(smem + lay.sc);
+  const TileLayout lay = tile_layout<S>(W, L, CMAX, F, 0, 0, 1);
+  S* sc = reinterpret_cast<S*>(smem + lay.sc);
   const int4* stab = reinterpret_cast<const int4*>(smem + lay.stab);
 
-  for (int i = tid; i <= CMAX; i += P) sc[i] = i < CMAX ? cvals[(size_t)t * CMAX + i] : 0.0f;
+  for (int i = tid; i <= CMAX; i += P) {
+    sc[i] = from_c<S>(i < CMAX ? cvals[(size_t)t * CMAX + i] : C(0));
+  }
   const int m = min(nsteps[t], L);
   decode_tile_program(instr + (size_t)t * L, m, optab, code_mask, sign_shift, F, CMAX, L, W,
                       reinterpret_cast<int*>(smem + lay.sflag),
@@ -71,34 +81,36 @@ __global__ void __launch_bounds__(TILE_MAX_W / TILE_ROWS) program_predict_kernel
                       reinterpret_cast<int*>(smem + lay.sfree),
                       reinterpret_cast<int4*>(smem + lay.stab));
 
-  const float* Xt = per_member ? X + (size_t)t * F * n : X;
-  float* out = pred_out + (size_t)t * n;
-  float* col = reinterpret_cast<float*>(smem + lay.sv) + K * tid;
-  const bool vec_x = n % K == 0 && reinterpret_cast<uintptr_t>(Xt) % sizeof(RowPack<float, K>) == 0;
+  const S* Xt = per_member ? X + (size_t)t * F * n : X;
+  C* out = pred_out + (size_t)t * n;
+  S* col = reinterpret_cast<S*>(smem + lay.sv) + K * tid;
+  const bool vec_x = n % K == 0 && reinterpret_cast<uintptr_t>(Xt) % sizeof(RowPack<S, K>) == 0;
   const bool vec_out = n % K == 0
-                       && reinterpret_cast<uintptr_t>(out) % sizeof(RowPack<float, K>) == 0;
+                       && reinterpret_cast<uintptr_t>(out) % sizeof(RowPack<C, K>) == 0;
   bool ok = true;
   for (int r0 = 0; r0 < n; r0 += W) {
     const int r = r0 + K * tid;
     if (r >= n) break;   // no barrier in the row loop
     for (int f0 = 0; f0 < F; f0 += TILE_LOADS) {
-      RowPack<float, K> xs[TILE_LOADS];
+      RowPack<S, K> xs[TILE_LOADS];
 #pragma unroll
       for (int j = 0; j < TILE_LOADS; ++j) {
-        if (f0 + j < F) xs[j] = load_rows<float, K>(Xt + (size_t)(f0 + j) * n, r, n, vec_x, 0.0f);
+        if (f0 + j < F) {
+          xs[j] = load_rows<S, K>(Xt + (size_t)(f0 + j) * n, r, n, vec_x, from_c<S>(C(0)));
+        }
       }
 #pragma unroll
       for (int j = 0; j < TILE_LOADS; ++j) {
-        if (f0 + j < F) *reinterpret_cast<RowPack<float, K>*>(col + (f0 + j) * W) = xs[j];
+        if (f0 + j < F) *reinterpret_cast<RowPack<S, K>*>(col + (f0 + j) * W) = xs[j];
       }
     }
-    float root[K], chk[K];
-    run_tile<float, K>(stab, m, col, sc, root, chk);
+    C root[K], chk[K];
+    run_tile<S, K>(stab, m, col, sc, root, chk);
     if (vec_out && r + K <= n) {
-      RowPack<float, K> p;
+      RowPack<C, K> p;
 #pragma unroll
       for (int k = 0; k < K; ++k) p.v[k] = root[k];
-      *reinterpret_cast<RowPack<float, K>*>(out + r) = p;
+      *reinterpret_cast<RowPack<C, K>*>(out + r) = p;
     } else {
 #pragma unroll
       for (int k = 0; k < K; ++k) {
@@ -106,11 +118,31 @@ __global__ void __launch_bounds__(TILE_MAX_W / TILE_ROWS) program_predict_kernel
       }
     }
 #pragma unroll
-    for (int k = 0; k < K; ++k) ok = ok && (r + k >= n || chk[k] == 0.0f);
+    for (int k = 0; k < K; ++k) ok = ok && (r + k >= n || chk[k] == C(0));
   }
 
   const int all_ok = __syncthreads_and(ok ? 1 : 0);
   if (tid == 0) valid_out[t] = (all_ok && const_ok[t] != 0) ? 1 : 0;
+}
+
+template <typename S, typename C = CT<S>>
+int predict_entry(const int* instr, const int* nsteps, const C* cvals, const int* const_ok,
+                  const S* X, const int* optab, int T, int L, int CMAX, int F, int n, int block,
+                  int per_member, int code_mask, int sign_shift, C* pred, int* valid,
+                  void* stream) {
+  if (T == 0) return 0;
+  const int W = block;
+  if (W % TILE_ROWS != 0 || W > TILE_MAX_W) return (int)cudaErrorInvalidValue;
+  const size_t smem = tile_layout<S>(W, L, CMAX, F, 0, 0, 1).total;
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  auto kern = program_predict_kernel<S>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<T, W / TILE_ROWS, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      instr, nsteps, cvals, const_ok, X, optab, L, CMAX, F, n, W, per_member, code_mask,
+      sign_shift, pred, valid);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -128,16 +160,39 @@ extern "C" int sr_program_predict(const int* instr, const int* nsteps, const flo
                                   int T, int L, int CMAX, int F, int n, int block,
                                   int per_member, int code_mask, int sign_shift,
                                   float* pred, int* valid, void* stream) {
-  if (T == 0) return 0;
-  const int W = block;
-  if (W % TILE_ROWS != 0 || W > TILE_MAX_W) return (int)cudaErrorInvalidValue;
-  const size_t smem = tile_layout<float>(W, L, CMAX, F, 0, 0, 1).total;
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      program_predict_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  program_predict_kernel<<<T, W / TILE_ROWS, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
-      instr, nsteps, cvals, const_ok, X, optab, L, CMAX, F, n, W, per_member, code_mask,
-      sign_shift, pred, valid);
-  return (int)cudaGetLastError();
+  return predict_entry<float>(instr, nsteps, cvals, const_ok, X, optab, T, L, CMAX, F, n, block,
+                              per_member, code_mask, sign_shift, pred, valid, stream);
+}
+
+// The float64 form (the TPU kernel under jax_enable_x64): X, the
+// constants, every step and the predictions in double.
+extern "C" size_t sr_program_predict_f64_smem(int block, int L, int CMAX, int F) {
+  return tile_layout<double>(block, L, CMAX, F, 0, 0, 1).total;
+}
+
+extern "C" int sr_program_predict_f64(const int* instr, const int* nsteps, const double* cvals,
+                                      const int* const_ok, const double* X, const int* optab,
+                                      int T, int L, int CMAX, int F, int n, int block,
+                                      int per_member, int code_mask, int sign_shift,
+                                      double* pred, int* valid, void* stream) {
+  return predict_entry<double>(instr, nsteps, cvals, const_ok, X, optab, T, L, CMAX, F, n,
+                               block, per_member, code_mask, sign_shift, pred, valid, stream);
+}
+
+// The bf16 form (the user-loss route of a bf16 search): a bf16 value
+// buffer as kernel 1b keeps it (X bf16, the constants rounded as the block
+// loads them, float steps stored rounded), float predictions (the stored
+// root).
+extern "C" size_t sr_program_predict_bf16_smem(int block, int L, int CMAX, int F) {
+  return tile_layout<__nv_bfloat16>(block, L, CMAX, F, 0, 0, 1).total;
+}
+
+extern "C" int sr_program_predict_bf16(const int* instr, const int* nsteps, const float* cvals,
+                                       const int* const_ok, const __nv_bfloat16* X,
+                                       const int* optab, int T, int L, int CMAX, int F, int n,
+                                       int block, int per_member, int code_mask, int sign_shift,
+                                       float* pred, int* valid, void* stream) {
+  return predict_entry<__nv_bfloat16>(instr, nsteps, cvals, const_ok, X, optab, T, L, CMAX, F,
+                                      n, block, per_member, code_mask, sign_shift, pred, valid,
+                                      stream);
 }

@@ -11,6 +11,8 @@
 //                  (per-member X only; raw, since the template `D`
 //                  operator reads a NaN there as invalid).
 //
+// The float64 form (sr_program_predict_vjp_f64) runs the same in double.
+//
 // Per row: kernel #4's forward sweep (the tile interpreter of interp.cuh,
 // so the values are kernel #4's), the root's cotangent seeded with ct, then
 // the reverse sweep kernel #3 runs (interp.cuh's run_tile_reverse, which
@@ -62,13 +64,15 @@ namespace {
 
 // The shared memory of a class whose trees have at most `mhi` steps: its
 // tables, value and adjoint rows, `nx` gx rows (F per-member, else 0) and
-// `acc` rows of W float sums (one per constant).
+// `acc` rows of W sums (one per constant), in values of `cs` bytes (4:
+// float, 8: the float64 form's double).
 struct VjpLayout {
   int nslot, acc;
   size_t stab, rtab, sv, sadj, sgx, sacc, sc, sflag, slast, sneed, sfree, total;
 };
 
-__host__ __device__ inline VjpLayout vjp_layout(int W, int mhi, int L, int CMAX, int F, int nx) {
+__host__ __device__ inline VjpLayout vjp_layout(int W, int mhi, int L, int CMAX, int F, int nx,
+                                                size_t cs) {
   VjpLayout o;
   // A tree of m steps has at most 2m + 1 nodes, so it holds at most
   // tile_slots(2m + 1) results at once and has at most m + 1 constants.
@@ -76,12 +80,12 @@ __host__ __device__ inline VjpLayout vjp_layout(int W, int mhi, int L, int CMAX,
   o.acc = min(CMAX, mhi + 1);
   o.stab = 0;                                                      // int4 [mhi] forward
   o.rtab = o.stab + 16 * (size_t)mhi;                              // int4 [mhi] reverse
-  o.sv = align_up(o.rtab + 16 * (size_t)mhi, 16);                  // float [(F + mhi - 1) * W]
-  o.sadj = o.sv + 4 * (size_t)(F + mhi - 1) * W;                   // float [nslot * W]
-  o.sgx = o.sadj + 4 * (size_t)o.nslot * W;                        // float [nx * W]
-  o.sacc = o.sgx + 4 * (size_t)nx * W;                             // float [acc * W]
-  o.sc = o.sacc + 4 * (size_t)o.acc * W;                           // float [CMAX + 1]
-  o.sflag = o.sc + 4 * (size_t)(CMAX + 1);                         // int [mhi]
+  o.sv = align_up(o.rtab + 16 * (size_t)mhi, 16);                  // C [(F + mhi - 1) * W]
+  o.sadj = o.sv + cs * (size_t)(F + mhi - 1) * W;                  // C [nslot * W]
+  o.sgx = o.sadj + cs * (size_t)o.nslot * W;                       // C [nx * W]
+  o.sacc = o.sgx + cs * (size_t)nx * W;                            // C [acc * W]
+  o.sc = o.sacc + cs * (size_t)o.acc * W;                          // C [CMAX + 1]
+  o.sflag = o.sc + cs * (size_t)(CMAX + 1);                        // int [mhi]
   o.slast = o.sflag + 4 * (size_t)mhi;                             // int [mhi]
   o.sneed = o.slast + 4 * (size_t)mhi;                             // int [mhi]
   o.sfree = o.sneed + 4 * (size_t)mhi;                             // int [nslot]
@@ -89,36 +93,38 @@ __host__ __device__ inline VjpLayout vjp_layout(int W, int mhi, int L, int CMAX,
   return o;
 }
 
-// GX: per-member X, whose cotangents are kept and stored to gx_out.
-template <int K, bool GX>
-__global__ void __launch_bounds__(TILE_MAX_W / GRAD_ROWS, GRAD_MIN_BLOCKS)
+// GX: per-member X, whose cotangents are kept and stored to gx_out. C:
+// float, or double (the float64 form).
+template <typename C, int K, bool GX>
+__global__ void __launch_bounds__(TILE_MAX_W / GRAD_ROWS,
+                                  sizeof(C) == 8 ? GRAD_MIN_BLOCKS / 2 : GRAD_MIN_BLOCKS)
 program_predict_vjp_kernel(
     const int* __restrict__ instr,      // [T, L]
     const int* __restrict__ nsteps,     // [T]
     const int* __restrict__ nconst,     // [T]
-    const float* __restrict__ cvals,    // [T, CMAX]
-    const float* __restrict__ X,        // [F, n] shared or [T, F, n] per member (GX)
-    const float* __restrict__ ct,       // [T, n]
+    const C* __restrict__ cvals,        // [T, CMAX]
+    const C* __restrict__ X,            // [F, n] shared or [T, F, n] per member (GX)
+    const C* __restrict__ ct,           // [T, n]
     const int* __restrict__ optab,      // [n_codes]
     int L, int CMAX, int F, int n, int W, int mlo, int mhi, int code_mask, int sign_shift,
-    float* __restrict__ gcomp_out,      // [T, CMAX]
-    float* __restrict__ gx_out) {       // [T, F, n] (GX only)
+    C* __restrict__ gcomp_out,          // [T, CMAX]
+    C* __restrict__ gx_out) {           // [T, F, n] (GX only)
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = blockIdx.x;
   const int m = min(nsteps[t], L);
   if (m <= mlo || m > mhi) return;   // another class's tree
   const int tid = threadIdx.x;
   const int P = blockDim.x;
-  const VjpLayout lay = vjp_layout(W, mhi, L, CMAX, F, GX ? F : 0);
-  float* sacc = reinterpret_cast<float*>(smem + lay.sacc);
-  float* sc = reinterpret_cast<float*>(smem + lay.sc);
+  const VjpLayout lay = vjp_layout(W, mhi, L, CMAX, F, GX ? F : 0, sizeof(C));
+  C* sacc = reinterpret_cast<C*>(smem + lay.sacc);
+  C* sc = reinterpret_cast<C*>(smem + lay.sc);
   const int4* stab = reinterpret_cast<const int4*>(smem + lay.stab);
   const int4* rtab = reinterpret_cast<const int4*>(smem + lay.rtab);
 
   const int nc = min(max(nconst[t], 0), CMAX);
   if (nc > lay.acc) __trap();   // more constants than a tree of m steps has
-  for (int i = tid; i <= CMAX; i += P) sc[i] = i < CMAX ? cvals[(size_t)t * CMAX + i] : 0.0f;
-  for (int i = tid; i < nc * W; i += P) sacc[i] = 0.0f;
+  for (int i = tid; i <= CMAX; i += P) sc[i] = i < CMAX ? cvals[(size_t)t * CMAX + i] : C(0);
+  for (int i = tid; i < nc * W; i += P) sacc[i] = C(0);
   decode_grad_program<GX>(instr + (size_t)t * L, m, optab, code_mask, sign_shift, F, CMAX, L, W,
                           nc, lay.nslot, reinterpret_cast<int*>(smem + lay.sflag),
                           reinterpret_cast<int*>(smem + lay.slast),
@@ -127,50 +133,50 @@ program_predict_vjp_kernel(
                           reinterpret_cast<int4*>(smem + lay.stab),
                           reinterpret_cast<int4*>(smem + lay.rtab));
 
-  const float* Xt = GX ? X + (size_t)t * F * n : X;
-  const float* ctt = ct + (size_t)t * n;
-  float* gxt = GX ? gx_out + (size_t)t * F * n : nullptr;
-  float* col = reinterpret_cast<float*>(smem + lay.sv) + K * tid;
-  float* adj = reinterpret_cast<float*>(smem + lay.sadj) + K * tid;
-  float* gcol = reinterpret_cast<float*>(smem + lay.sgx) + K * tid;
-  float* acol = sacc + K * tid;
+  const C* Xt = GX ? X + (size_t)t * F * n : X;
+  const C* ctt = ct + (size_t)t * n;
+  C* gxt = GX ? gx_out + (size_t)t * F * n : nullptr;
+  C* col = reinterpret_cast<C*>(smem + lay.sv) + K * tid;
+  C* adj = reinterpret_cast<C*>(smem + lay.sadj) + K * tid;
+  C* gcol = reinterpret_cast<C*>(smem + lay.sgx) + K * tid;
+  C* acol = sacc + K * tid;
   // n % K == 0 keeps every row of X, ct and gx (n apart) as aligned as its base.
-  const bool vec_x = n % K == 0 && reinterpret_cast<uintptr_t>(Xt) % sizeof(RowPack<float, K>) == 0;
+  const bool vec_x = n % K == 0 && reinterpret_cast<uintptr_t>(Xt) % sizeof(RowPack<C, K>) == 0;
   const bool vec_ct = n % K == 0
-                      && reinterpret_cast<uintptr_t>(ctt) % sizeof(RowPack<float, K>) == 0;
+                      && reinterpret_cast<uintptr_t>(ctt) % sizeof(RowPack<C, K>) == 0;
   const bool vec_gx = GX && n % K == 0
-                      && reinterpret_cast<uintptr_t>(gxt) % sizeof(RowPack<float, K>) == 0;
+                      && reinterpret_cast<uintptr_t>(gxt) % sizeof(RowPack<C, K>) == 0;
   for (int r0 = 0; r0 < n; r0 += W) {
     const int r = r0 + K * tid;
     if (r >= n) break;   // no barrier in the row loop
     const int live = min(K, n - r);
-    const RowPack<float, K> ck = load_rows<float, K>(ctt, r, n, vec_ct, 0.0f);
+    const RowPack<C, K> ck = load_rows<C, K>(ctt, r, n, vec_ct, C(0));
     for (int f0 = 0; f0 < F; f0 += TILE_LOADS) {
-      RowPack<float, K> xs[TILE_LOADS];
+      RowPack<C, K> xs[TILE_LOADS];
 #pragma unroll
       for (int j = 0; j < TILE_LOADS; ++j) {
-        if (f0 + j < F) xs[j] = load_rows<float, K>(Xt + (size_t)(f0 + j) * n, r, n, vec_x, 0.0f);
+        if (f0 + j < F) xs[j] = load_rows<C, K>(Xt + (size_t)(f0 + j) * n, r, n, vec_x, C(0));
       }
 #pragma unroll
       for (int j = 0; j < TILE_LOADS; ++j) {
-        if (f0 + j < F) *reinterpret_cast<RowPack<float, K>*>(col + (f0 + j) * W) = xs[j];
+        if (f0 + j < F) *reinterpret_cast<RowPack<C, K>*>(col + (f0 + j) * W) = xs[j];
       }
     }
     if (GX) {
-      const RowPack<float, K> zero = {};
-      for (int f = 0; f < F; ++f) *reinterpret_cast<RowPack<float, K>*>(gcol + f * W) = zero;
+      const RowPack<C, K> zero = {};
+      for (int f = 0; f < F; ++f) *reinterpret_cast<RowPack<C, K>*>(gcol + f * W) = zero;
     }
-    float root[K], chk[K], cts[K];
-    run_tile<float, K>(stab, m, col, sc, root, chk);
+    C root[K], chk[K], cts[K];
+    run_tile<C, K>(stab, m, col, sc, root, chk);
 #pragma unroll
     for (int k = 0; k < K; ++k) cts[k] = ck.v[k];
-    run_tile_reverse<float, K, GX>(rtab, m, col, sc, adj, acol, gcol, W, live, cts);
+    run_tile_reverse<C, K, GX>(rtab, m, col, sc, adj, acol, gcol, W, live, cts);
     if (GX) {
       for (int f = 0; f < F; ++f) {
-        const RowPack<float, K> g = *reinterpret_cast<const RowPack<float, K>*>(gcol + f * W);
-        float* out = gxt + (size_t)f * n;
+        const RowPack<C, K> g = *reinterpret_cast<const RowPack<C, K>*>(gcol + f * W);
+        C* out = gxt + (size_t)f * n;
         if (vec_gx && live == K) {
-          *reinterpret_cast<RowPack<float, K>*>(out + r) = g;
+          *reinterpret_cast<RowPack<C, K>*>(out + r) = g;
         } else {
 #pragma unroll
           for (int k = 0; k < K; ++k) {
@@ -183,19 +189,21 @@ program_predict_vjp_kernel(
 
   __syncthreads();
   lane_tree_sum(sacc, W, nc);
-  for (int j = tid; j < CMAX; j += P) gcomp_out[(size_t)t * CMAX + j] = j < nc ? sacc[j * W] : 0.0f;
+  for (int j = tid; j < CMAX; j += P) gcomp_out[(size_t)t * CMAX + j] = j < nc ? sacc[j * W] : C(0);
 }
 
-template <bool GX>
+template <typename C, bool GX>
 cudaError_t launch_vjp(int T, int W, cudaStream_t stream, const int* instr, const int* nsteps,
-                       const int* nconst, const float* cvals, const float* X, const float* ct,
+                       const int* nconst, const C* cvals, const C* X, const C* ct,
                        const int* optab, int L, int CMAX, int F, int n, int code_mask,
-                       int sign_shift, float* gcomp, float* gx) {
+                       int sign_shift, C* gcomp, C* gx) {
   const int nx = GX ? F : 0;
-  if (vjp_layout(W, L, L, CMAX, F, nx).total > kSmemLimit) return cudaErrorInvalidValue;
-  auto kern = program_predict_vjp_kernel<GRAD_ROWS, GX>;
+  if (vjp_layout(W, L, L, CMAX, F, nx, sizeof(C)).total > kSmemLimit) {
+    return cudaErrorInvalidValue;
+  }
+  auto kern = program_predict_vjp_kernel<C, GRAD_ROWS, GX>;
   return launch_step_classes(L, [&](int mlo, int mhi) {
-    const size_t smem = vjp_layout(W, mhi, L, CMAX, F, nx).total;
+    const size_t smem = vjp_layout(W, mhi, L, CMAX, F, nx, sizeof(C)).total;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -204,6 +212,30 @@ cudaError_t launch_vjp(int T, int W, cudaStream_t stream, const int* instr, cons
                                              gx);
     return cudaGetLastError();
   });
+}
+
+template <typename C>
+int vjp_entry(const int* instr, const int* nsteps, const int* nconst, const C* cvals, const C* X,
+              const C* ct, const int* optab, int T, int L, int CMAX, int F, int n, int block,
+              int per_member, int code_mask, int sign_shift, C* gcomp, C* gx, void* stream) {
+  if (T == 0) return 0;
+  const int W = block;
+  if (W % GRAD_ROWS != 0 || W > TILE_MAX_W || (W & (W - 1)) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (per_member && gx == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return per_member
+      ? (int)launch_vjp<C, true>(T, W, s, instr, nsteps, nconst, cvals, X, ct, optab, L, CMAX, F,
+                                 n, code_mask, sign_shift, gcomp, gx)
+      : (int)launch_vjp<C, false>(T, W, s, instr, nsteps, nconst, cvals, X, ct, optab, L, CMAX,
+                                  F, n, code_mask, sign_shift, gcomp, gx);
+}
+
+template <typename C>
+size_t vjp_row_smem(int block, int L, int CMAX, int F) {
+  const size_t rows = (size_t)(F + L) + (F + CMAX + L + 1) + CMAX;
+  return sizeof(C) * (rows * block + CMAX + block) + sizeof(int) * L;
 }
 
 }  // namespace
@@ -215,8 +247,12 @@ cudaError_t launch_vjp(int T, int W, cudaStream_t stream, const int* instr, cons
 // per-row layout fits, as it did when the kernel ran that layout, so W, and
 // with it every sum's order, stays as it was.
 extern "C" size_t sr_program_predict_vjp_smem(int block, int L, int CMAX, int F) {
-  const size_t rows = (size_t)(F + L) + (F + CMAX + L + 1) + CMAX;
-  return sizeof(float) * (rows * block + CMAX + block) + sizeof(int) * L;
+  return vjp_row_smem<float>(block, L, CMAX, F);
+}
+
+// The same for the float64 form (values of 8 bytes).
+extern "C" size_t sr_program_predict_vjp_f64_smem(int block, int L, int CMAX, int F) {
+  return vjp_row_smem<double>(block, L, CMAX, F);
 }
 
 // Launch on `stream` with W = `block` lanes (W / GRAD_ROWS threads per
@@ -227,16 +263,18 @@ extern "C" int sr_program_predict_vjp(const int* instr, const int* nsteps, const
                                       const int* optab, int T, int L, int CMAX, int F, int n,
                                       int block, int per_member, int code_mask, int sign_shift,
                                       float* gcomp, float* gx, void* stream) {
-  if (T == 0) return 0;
-  const int W = block;
-  if (W % GRAD_ROWS != 0 || W > TILE_MAX_W || (W & (W - 1)) != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (per_member && gx == nullptr) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return per_member
-      ? (int)launch_vjp<true>(T, W, s, instr, nsteps, nconst, cvals, X, ct, optab, L, CMAX, F, n,
-                              code_mask, sign_shift, gcomp, gx)
-      : (int)launch_vjp<false>(T, W, s, instr, nsteps, nconst, cvals, X, ct, optab, L, CMAX, F,
-                               n, code_mask, sign_shift, gcomp, gx);
+  return vjp_entry<float>(instr, nsteps, nconst, cvals, X, ct, optab, T, L, CMAX, F, n, block,
+                          per_member, code_mask, sign_shift, gcomp, gx, stream);
+}
+
+// The float64 form (the TPU kernel under jax_enable_x64): every input,
+// output, value, adjoint and sum in double.
+extern "C" int sr_program_predict_vjp_f64(const int* instr, const int* nsteps,
+                                          const int* nconst, const double* cvals,
+                                          const double* X, const double* ct, const int* optab,
+                                          int T, int L, int CMAX, int F, int n, int block,
+                                          int per_member, int code_mask, int sign_shift,
+                                          double* gcomp, double* gx, void* stream) {
+  return vjp_entry<double>(instr, nsteps, nconst, cvals, X, ct, optab, T, L, CMAX, F, n, block,
+                           per_member, code_mask, sign_shift, gcomp, gx, stream);
 }

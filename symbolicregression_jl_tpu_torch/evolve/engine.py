@@ -54,7 +54,7 @@ from typing import Callable, Optional, Sequence, Union
 import torch
 
 from ..core.dataset import DeviceData
-from ..core.options import Options, check_supported, float_dtype
+from ..core.options import Options, check_supported, float_dtype, state_dtype
 from ..device import resolve_device
 from ..ops.complexity import ComplexityTables, build_complexity_tables
 from ..ops.encoding import TreeBatch
@@ -131,8 +131,11 @@ class Engine:
         check_supported(options, self.device)
         self.options = options
         self.nfeatures = nfeatures
-        # The floating type of the data, constants, costs and hall of fame.
-        self.dtype = dtype if dtype is not None else float_dtype(options.eval_dtype)
+        # The floating type of the constants, costs and hall of fame (and of
+        # the data, whose bf16 values it holds for eval_dtype="bfloat16").
+        data_dtype = dtype if dtype is not None else float_dtype(options.eval_dtype)
+        bf16_data = data_dtype == torch.bfloat16
+        self.dtype = state_dtype(data_dtype)
         self.template = _template_of(options)
         if self.template is not None:
             # Template parameters ride the member bank as [total_params, 1].
@@ -144,10 +147,16 @@ class Engine:
                                                             template=self.template,
                                                             dtype=self.dtype)
         self.tables: ComplexityTables = build_complexity_tables(options, nfeatures, self.device)
+        if bf16_data:
+            # bf16 data: every evaluation on the bf16 value buffer with a
+            # bf16 loss spine (kernels 1b and 2b's bf16-data forms), the
+            # gradient on kernel #3 in float32, as in the JAX package.
+            self.cfg = self.cfg._replace(eval_bf16="data")
         self.opt_cfg = OptimizerConfig(
             iterations=options.optimizer_iterations, nrestarts=options.optimizer_nrestarts,
-            ls_bf16=(options.optimizer_bf16_linesearch and self.cfg.turbo
-                     and self.device.type == "cuda"))
+            ls_bf16=("data" if bf16_data and self.cfg.turbo else
+                     (options.optimizer_bf16_linesearch and self.cfg.turbo
+                      and self.device.type == "cuda")))
         self.window_size = float(window_size)
 
     def degrade_eval_tile_rows(self, floor: int = 512) -> Optional[int]:

@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
 import torch
 
@@ -132,7 +132,7 @@ class EvolveConfig(NamedTuple):
     # followed by the full-data rescore of ``rescore_fraction`` of them.
     # ``eval_tile_rows`` is the resolved eval geometry; here it only caps
     # the screen's sample.
-    eval_bf16: bool = False
+    eval_bf16: Union[bool, str] = False   # True: a bf16 value buffer; "data": bf16 data
     staged_eval: bool = False
     staged_sample_rows: int = 0
     staged_sample_fraction: float = 0.125
@@ -240,7 +240,7 @@ def evolve_config_from_options(options: Options, nfeatures: int, device: torch.d
 def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: ComplexityTables,
                     operators: OperatorSet, parsimony: float, *, member_params=None,
                     turbo: bool = False, fuse_cost: bool = False, dedup: bool = False,
-                    template=None, bf16: bool = False, loss_function=None,
+                    template=None, bf16: Union[bool, str] = False, loss_function=None,
                     dim_penalty: float = 1000.0, wildcard_constants: bool = True):
     """(cost, loss, complexity) per tree, any batch shape, on the rows of
     ``data``: the dataset, or a row subset of it such as graftstage's
@@ -268,7 +268,9 @@ def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: Complexity
     ``fuse_cost``/``dedup``/``bf16`` do not apply.
 
     ``bf16`` (``eval_precision="bf16"``) evaluates on a bfloat16 value
-    buffer with a float32 loss: kernel 1b with ``turbo`` (plain and
+    buffer with a loss in the data's dtype (``"data"``, bf16 data from
+    ``eval_dtype="bfloat16"``: the loss rounded to bf16 as well): kernel 1b
+    with ``turbo`` (plain and
     parametric members; no dedup), else the interpreter on bf16 X and
     constants with the prediction cast back to float32 before the loss
     (plain members; parametric ones stay float32 there, as in the JAX
@@ -326,14 +328,16 @@ def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: Complexity
                              bf16=bf16)
     elif bf16 and not has_params:
         # The interpreter's mirror of kernel 1b: bf16 X and constants, the
-        # prediction back in float32 before the loss.
+        # prediction back in the data's dtype before the loss.
         trees_b = dataclasses.replace(trees, const=trees.const.to(torch.bfloat16))
         pred, valid = eval_tree_batch(trees_b, X.to(torch.bfloat16), operators)
-        loss = aggregate_loss(elementwise_loss, pred.to(torch.float32), y, valid, w)
+        loss = aggregate_loss(elementwise_loss, pred.to(X.dtype), y, valid, w)
     else:
         prows = member_params[..., data.class_idx.long()] if has_params else None
         pred, valid = eval_tree_batch(trees, X, operators, params=prows)
         loss = aggregate_loss(elementwise_loss, pred, y, valid, w)
+    if bf16 == "data" and not turbo:
+        loss = loss.to(torch.bfloat16).to(loss.dtype)   # bf16 data: a bf16 loss
     cost = loss_to_cost(loss, data.baseline_loss, data.use_baseline, complexity, parsimony)
     return _dims_penalty(cost, trees, data, operators, dim_penalty,
                          wildcard_constants), loss, complexity

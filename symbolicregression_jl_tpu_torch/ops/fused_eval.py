@@ -34,20 +34,31 @@ X, the constants and the parameter values round to bfloat16 (round to
 nearest even) where the buffer takes them, every step reads bf16
 operands, computes in float32, checks finiteness on the float32 value
 and stores the value rounded to bf16; the root (the prediction) is the
-stored value. y, w, the loss, the row sums and the cost epilogue stay
-float32. Losses rank reliably but are not bit-exact against float32.
+stored value. y, w, the loss, the row sums and the cost epilogue stay in
+the data's dtype: float32, or float64 (the ``_bf16_f64`` forms of 1b and
+2b: float32 steps, a float64 loss spine, as the JAX kernel casts the
+prediction to y's dtype). Losses rank reliably but are not bit-exact
+against float32. ``bf16="data"`` (``eval_dtype="bfloat16"``, bf16 data)
+runs the ``_bf16_data`` forms, which round each loss term, each sum and
+the cost epilogue's results to bf16 as well (a bf16 loss spine).
 
 float64 (``eval_dtype="float64"``, the JAX package under x64): kernels #1,
-#1p, #2 and #3 have ``double`` forms (:data:`PROGRAM_EVAL_F64`,
+#1p, #2, #3, #4 and #5 have ``double`` forms (:data:`PROGRAM_EVAL_F64`,
 :data:`PROGRAM_EVAL_PARAM_F64`, :data:`PROGRAM_MULTI_F64`,
-:data:`PROGRAM_GRAD_F64`) that store and compute every value in double;
-the entry points pick them when X is float64. Every library loss
-(core/losses.py ``KernelLoss``) runs in the kernels, named by its kind
-and parameter. A user elementwise callable takes the user-loss route
-(:func:`user_loss_program`, :func:`user_loss_multi`,
-:func:`user_grad_multi`), which the entry points below pick for it:
-kernel #4's predictions in chunks of trees, the callable applied in
-PyTorch, and for its gradient kernel #5 under ``torch.autograd``.
+:data:`PROGRAM_GRAD_F64`, :data:`PROGRAM_PREDICT_F64`,
+:data:`PROGRAM_PREDICT_VJP_F64`) that store and compute every value in
+double; the entry points pick each kernel's form from X's dtype and
+``bf16`` (``_pick``). Every library loss (core/losses.py ``KernelLoss``)
+runs in the kernels, named by its kind and parameter. A user elementwise
+callable takes the user-loss route (:func:`user_loss_program`,
+:func:`user_loss_multi`, :func:`user_grad_multi`), which the entry points
+below pick for it: kernel #4's predictions in chunks of trees (its
+``double``, bf16 or per-member form for float64, bf16 or parametric
+searches), the callable applied in PyTorch, and for its gradient kernel
+#5 under ``torch.autograd``. A user operator (ops/user_ops.py) runs in
+every kernel as generated device functions, in the libraries built for
+its operator set; the plain versions call its function and differentiate
+it with ``torch.autograd``.
 The TPU kernels' V-chunking and tree blocks worked around VMEM and are not
 carried over: each call is one launch.
 """
@@ -99,8 +110,10 @@ def strided_sample_indices(n_rows: int, sample_rows: int) -> np.ndarray:
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
-    """float32 values rounded to bfloat16 (round to nearest even) and back."""
-    return x.to(torch.bfloat16).to(torch.float32)
+    """Values rounded to bfloat16 (round to nearest even) and back to their
+    dtype (float32 for bfloat16 values)."""
+    dt = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    return x.to(torch.bfloat16).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +232,7 @@ def _branches(operators: OperatorSet):
 
 
 def _plain_forward(instr, nsteps, cvals, X, operators: OperatorSet, prows=None,
-                   bf16: bool = False):
+                   bf16=False):
     """Forward sweep of packed programs on a [T, F + NP + CMAX + L + 1, n]
     value buffer (X rows, parameter rows, constants, one row per step, the
     zero row), as the kernels run it. ``X`` is [F, n] (shared) or [T, F,
@@ -236,9 +249,9 @@ def _plain_forward(instr, nsteps, cvals, X, operators: OperatorSet, prows=None,
     R = F + (0 if prows is None else prows.shape[1])
     BASE = R + cvals.shape[1]
     dev = X.device
-    store = _round_bf16 if bf16 else (lambda v: v)
+    store = (lambda v: _round_bf16(v).to(torch.float32)) if bf16 else (lambda v: v)
     if bf16:
-        X = X.to(torch.float32)
+        X = X.to(torch.float32) if X.dtype == torch.bfloat16 else store(X)
     branches = _branches(operators)
     code_mask = 0x3F if plan.merged else 0x7F
     m = nsteps.long()
@@ -317,7 +330,7 @@ def _param_rows(bank, class_idx):
 
 def program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators: OperatorSet,
                        loss_fn: Callable, cx=None, scal=None, bank=None, class_idx=None,
-                       max_elems: int = 1 << 26, bf16: bool = False):
+                       max_elems: int = 1 << 26, bf16=False):
     """Eager version of the kernel: an explicit loop over program steps on
     [trees, rows] tensors with the kernel's masking and reduction.
 
@@ -325,7 +338,10 @@ def program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators: Opera
     with the cost epilogue when ``cx`` [T] and ``scal`` [3] are given.
     The parametric form takes ``bank`` [T, NP, NC] and ``class_idx`` [n]:
     parameter p of row r is ``bank[t, p, class_idx[r]]`` (a gather).
-    ``bf16`` is kernel 1b's bf16 value buffer (``X`` float32 or bfloat16).
+    ``bf16`` is kernel 1b's bf16 value buffer (``X`` float32, float64 or
+    bfloat16; with float64 data the prediction enters a float64 loss), and
+    ``bf16="data"`` its bf16-data form: each row's loss term, the sum and
+    the cost epilogue's results rounded to bf16 (interp.cuh ``round_to``).
     Trees run in chunks of at most ``max_elems`` buffer elements."""
     T, L = instr.shape
     F, n = X.shape
@@ -336,35 +352,38 @@ def program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators: Opera
     # run over the same shapes as the unpadded one's (CUDA's reductions
     # split by shape); n // 2 bounds the memory of a sparse tail
     chunk = max(1, max_elems // max((BASE + L + 1) * max(n_sum, n // 2), 1))
+    spine = _round_bf16 if bf16 == "data" else (lambda v: v)
     loss_parts, valid_parts = [], []
     for s in range(0, T, chunk):
         e = s + chunk
         prows = None if bank is None else _param_rows(bank[s:e], class_idx)
         buf, vmask, _ = _plain_forward(instr[s:e], nsteps[s:e], cvals[s:e], X, operators,
                                        prows, bf16=bf16)
-        elt = loss_fn(_root(buf, nsteps[s:e], BASE), y)
+        elt = loss_fn(_root(buf, nsteps[s:e], BASE).to(y.dtype), y)
         elt = torch.where(w > 0, elt, 0.0)
-        total = torch.sum((elt * w)[..., :n_sum].contiguous(), dim=-1)
+        total = torch.sum(spine((elt * w)[..., :n_sum]).contiguous(), dim=-1)
         valid = vmask.all(dim=-1) & torch.isfinite(total) & (const_ok[s:e] != 0)
         loss_parts.append(total)
         valid_parts.append(valid)
     dev = X.device
     total = torch.cat(loss_parts) if loss_parts else torch.zeros(0, dtype=y.dtype, device=dev)
+    total = spine(total)
     valid = torch.cat(valid_parts) if valid_parts else torch.zeros(0, dtype=torch.bool, device=dev)
     if cx is None:
         return total, valid
-    mean = total / scal[0]
+    mean = spine(total / scal[0])
     loss = torch.where(valid & torch.isfinite(mean), mean, torch.inf)
-    cost = loss / scal[1] + scal[2] * cx
+    cost = spine(spine(loss / scal[1]) + spine(scal[2] * cx))
     return loss, valid, cost
 
 
 def program_multi_plain(instr, nsteps, cvals_v, X, y, w, operators: OperatorSet,
-                        loss_fn: Callable, bf16: bool = False):
+                        loss_fn: Callable, bf16=False):
     """Eager version of kernel #2: the plain form of :func:`program_eval_plain`
     for every (tree, variant) pair of ``cvals_v`` [T, V, CMAX]. Returns
     (loss_sum [T, V], valid [T, V]); constant validity is the caller's.
-    ``bf16`` is kernel 2b's bf16 value buffer."""
+    ``bf16`` is kernel 2b's bf16 value buffer (``"data"``: its bf16-data
+    form)."""
     T, V, CMAX = cvals_v.shape
     ok = torch.ones(T * V, dtype=torch.int32, device=X.device)
     loss, valid = program_eval_plain(
@@ -484,11 +503,12 @@ def program_grad_plain(instr, nsteps, nconst, cvals_v, X, y, w, operators: Opera
 
 
 def program_predict_plain(instr, nsteps, cvals, const_ok, X, operators: OperatorSet,
-                          max_elems: int = 1 << 26):
+                          max_elems: int = 1 << 26, bf16: bool = False):
     """Eager version of kernel #4: each tree's raw row predictions (the
     last step's value) and validity (every step finite on every row, and
     ``const_ok``). ``X`` is [F, n] or [T, F, n]. Returns (pred [T, n],
-    valid [T])."""
+    valid [T]); ``bf16``: #4's bf16 form (a bf16 value buffer as kernel
+    1b's, float32 predictions)."""
     T, L = instr.shape
     F, n = X.shape[-2:]
     BASE = F + cvals.shape[1]
@@ -498,11 +518,11 @@ def program_predict_plain(instr, nsteps, cvals, const_ok, X, operators: Operator
     for s in range(0, T, chunk):
         e = s + chunk
         buf, vmask, _ = _plain_forward(instr[s:e], nsteps[s:e], cvals[s:e],
-                                       X[s:e] if per_member else X, operators)
+                                       X[s:e] if per_member else X, operators, bf16=bf16)
         preds.append(_root(buf, nsteps[s:e], BASE))
         valids.append(vmask.all(dim=-1) & (const_ok[s:e] != 0))
     if not preds:
-        return (torch.zeros((0, n), dtype=X.dtype, device=X.device),
+        return (torch.zeros((0, n), dtype=torch.float32 if bf16 else X.dtype, device=X.device),
                 torch.zeros(0, dtype=torch.bool, device=X.device))
     return torch.cat(preds), torch.cat(valids)
 
@@ -559,13 +579,15 @@ _K_IDENTITY, _K_BINARY, _K_UNARY, _K_ADDSUB = 0, 1, 2, 3
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 
 
-def _kernel_op_id(op) -> int:
-    builtin = OPERATOR_REGISTRY.get(op.name)
-    if builtin is None or builtin.fn is not op.fn or op.name not in _KERNEL_OP_IDS:
-        raise NotImplementedError(
-            f"operator {op.name!r} is not a built-in operator; the CUDA "
-            f"interpreter kernel runs built-in operators only")
-    return _KERNEL_OP_IDS[op.name]
+def _kernel_op_id(op, operators: OperatorSet) -> int:
+    """The kernels' id of ``op``: a built-in operator's, or its number
+    among the operator set's user operators (ops/user_ops.py, whose tracer
+    refuses an operator it cannot take)."""
+    from .user_ops import is_builtin, user_op_set
+
+    if is_builtin(op):
+        return _KERNEL_OP_IDS[op.name]
+    return user_op_set(operators).op_id(op)
 
 
 @functools.lru_cache(maxsize=None)
@@ -576,13 +598,13 @@ def _optab_list(operators: OperatorSet) -> Tuple[int, ...]:
     if plan.merged:
         tab.append(_K_ADDSUB << 8)
         for j in plan.other_bin:
-            tab.append(_K_BINARY << 8 | _kernel_op_id(operators.binary[j]))
+            tab.append(_K_BINARY << 8 | _kernel_op_id(operators.binary[j], operators))
     else:
         tab.append(_K_IDENTITY << 8)
         for op in operators.binary:
-            tab.append(_K_BINARY << 8 | _kernel_op_id(op))
+            tab.append(_K_BINARY << 8 | _kernel_op_id(op, operators))
     for op in operators.unary:
-        tab.append(_K_UNARY << 8 | _kernel_op_id(op))
+        tab.append(_K_UNARY << 8 | _kernel_op_id(op, operators))
     return tuple(tab)
 
 
@@ -590,7 +612,10 @@ class _ProgramKernel:
     """Shared parts of the kernels' wrappers: the library (built at first
     use), the block size, the opcode table on the device and the input
     checks. ``launches`` counts kernel launches; each wrapper increments
-    it where it launches its kernel and nowhere else. ``bf16`` wrappers
+    it where it launches its kernel and nowhere else. An operator set with
+    user operators binds the library built with its generated header
+    (ops/user_ops.py, ops/cuda_build.py), one per operator set, or one
+    already loaded whose operator set covers it (``UserOpSet.covers``). ``bf16`` wrappers
     run the kernel over a bfloat16 value buffer and take X as bfloat16;
     ``f64`` wrappers take every float operand as float64. Serve tenants
     launch from threads of one process: the count is kept under a lock,
@@ -601,6 +626,7 @@ class _ProgramKernel:
     replaces = ""
     bf16 = False
     f64 = False
+    bf16_data = False
     _file = ""
     _entry = ""
     _smem = ""        # the shared-memory size function ("": ``_entry + "_smem"``)
@@ -608,7 +634,8 @@ class _ProgramKernel:
 
     def __init__(self):
         self.launches = 0
-        self._lib = None
+        self._libs = {}
+        self._user_sets = []   # (UserOpSet, library) of each user-op library loaded
         self._optab = {}
         self._lock = threading.Lock()
 
@@ -622,29 +649,46 @@ class _ProgramKernel:
         """The size function's arguments after (block, L, CMAX, F)."""
         return ()
 
-    def library(self):
-        """Build (at first use) and bind the shared library."""
-        if self._lib is None:
+    @property
+    def plain_bf16(self):
+        """The plain version's ``bf16``: False, True or "data"."""
+        return "data" if self.bf16_data else self.bf16
+
+    def library(self, operators: Optional[OperatorSet] = None):
+        """Build (at first use) and bind the shared library: the built-in
+        one, or that of ``operators``' user operators."""
+        from .user_ops import user_op_set
+
+        uset = None if operators is None else user_op_set(operators)
+        key = None if uset is None else uset.digest
+        lib = self._libs.get(key)
+        if lib is None:
             from .cuda_build import load_library
 
             with self._lock:
-                if self._lib is None:
-                    lib = load_library(self._file)
+                lib = self._libs.get(key)
+                if lib is None and uset is not None:
+                    lib = next((olib for oset, olib in self._user_sets if oset.covers(uset)),
+                               None)
+                if lib is None:
+                    lib = load_library(self._file, None if uset is None else uset.header)
                     self._smem_fn(lib).argtypes = [ctypes.c_int] * self._smem_nargs
                     self._smem_fn(lib).restype = ctypes.c_size_t
                     getattr(lib, self._entry).restype = ctypes.c_int
                     self._bind(lib)
-                    self._lib = lib
-        return self._lib
+                    if uset is not None:
+                        self._user_sets.append((uset, lib))
+                self._libs[key] = lib
+        return lib
 
-    def _block(self, L: int, CMAX: int, F: int, NP: int = 0, NC: int = 0) -> int:
+    def _block(self, L: int, CMAX: int, F: int, NP: int = 0, NC: int = 0, lib=None) -> int:
         """The lane count W: the largest block whose shared-memory layout
         fits (a bf16 buffer takes half the bytes, so it fits a larger block
         sooner). The tile kernels run W / 4 (#1, #2, #4) or W / 2 (#3, #5)
         threads and keep W lanes, so each sum keeps the same order
         (csrc/interp.cuh). #1-#3 and #5 size W by their old per-row layout;
         #4, which sums nothing, by its tile layout."""
-        smem = self._smem_fn(self.library())
+        smem = self._smem_fn(lib if lib is not None else self.library())
         extra = self._smem_extra(NP, NC)
         for block in (256, 128, 64, 32):
             if smem(block, L, CMAX, F, *extra) <= _SMEM_LIMIT:
@@ -664,7 +708,7 @@ class _ProgramKernel:
         """(opcode table on the device, block size, opcode mask) of a launch."""
         _check_packable(operators, F + NP + CMAX, L)
         code_mask = 0x3F if _dispatch_plan(operators).merged else 0x7F
-        block = self._block(L, CMAX, F, NP, NC)
+        block = self._block(L, CMAX, F, NP, NC, self.library(operators))
         return self._device_optab(operators, X.device), block, code_mask
 
     @property
@@ -698,8 +742,8 @@ class _ProgramKernel:
                     raise TypeError(f"{self.name}: {nm} must be {str(want)[6:]}")
         return loss
 
-    def _launch(self, *args):
-        rc = getattr(self.library(), self._entry)(*args)
+    def _launch(self, operators: OperatorSet, *args):
+        rc = getattr(self.library(operators), self._entry)(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {rc}")
         with self._lock:
@@ -736,7 +780,7 @@ class ProgramEvalKernel(_ProgramKernel):
                  loss_fn: Callable, cx=None, scal=None):
         if X.device.type == "cpu":
             return program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w,
-                                      operators, loss_fn, cx=cx, scal=scal, bf16=self.bf16)
+                                      operators, loss_fn, cx=cx, scal=scal, bf16=self.plain_bf16)
         T, L = instr.shape
         F, n = X.shape
         CMAX = cvals.shape[1]
@@ -755,6 +799,7 @@ class ProgramEvalKernel(_ProgramKernel):
         valid = torch.empty(T, dtype=torch.int32, device=X.device)
         cost = torch.empty(T, dtype=self.dtype, device=X.device) if cost_form else None
         self._launch(
+            operators,
             _ptr(instr), _ptr(nsteps), _ptr(cvals), _ptr(const_ok), _ptr(X), _ptr(y), _ptr(w),
             _ptr(cx), _ptr(scal), _ptr(optab), T, L, CMAX, F, n, block, loss_kind, loss_param,
             code_mask, 30, _ptr(loss), _ptr(valid), _ptr(cost),
@@ -790,7 +835,8 @@ class ProgramEvalParamKernel(_ProgramKernel):
                  operators: OperatorSet, loss_fn: Callable):
         if X.device.type == "cpu":
             return program_eval_plain(instr, nsteps, cvals, const_ok, X, y, w, operators,
-                                      loss_fn, bank=bank, class_idx=class_idx, bf16=self.bf16)
+                                      loss_fn, bank=bank, class_idx=class_idx,
+                                      bf16=self.plain_bf16)
         T, L = instr.shape
         F, n = X.shape
         CMAX = cvals.shape[1]
@@ -806,6 +852,7 @@ class ProgramEvalParamKernel(_ProgramKernel):
         loss = torch.empty(T, dtype=self.dtype, device=X.device)
         valid = torch.empty(T, dtype=torch.int32, device=X.device)
         self._launch(
+            operators,
             _ptr(instr), _ptr(nsteps), _ptr(cvals), _ptr(const_ok), _ptr(bank), _ptr(class_idx),
             _ptr(X), _ptr(y), _ptr(w), _ptr(optab), T, L, CMAX, F, NP, NC, n, block,
             loss_kind, loss_param, code_mask, 30, _ptr(loss), _ptr(valid), _stream(X))
@@ -835,7 +882,7 @@ class ProgramMultiKernel(_ProgramKernel):
                  loss_fn: Callable):
         if X.device.type == "cpu":
             return program_multi_plain(instr, nsteps, cvals_v, X, y, w, operators, loss_fn,
-                                       bf16=self.bf16)
+                                       bf16=self.plain_bf16)
         T, L = instr.shape
         F, n = X.shape
         V, CMAX = cvals_v.shape[1], cvals_v.shape[2]
@@ -848,6 +895,7 @@ class ProgramMultiKernel(_ProgramKernel):
         loss = torch.empty((T, V), dtype=self.dtype, device=X.device)
         valid = torch.empty((T, V), dtype=torch.int32, device=X.device)
         self._launch(
+            operators,
             _ptr(instr), _ptr(nsteps), _ptr(cvals_v), _ptr(X), _ptr(y), _ptr(w), _ptr(optab),
             T, V, L, CMAX, F, n, block, loss_kind, loss_param, code_mask, 30,
             _ptr(loss), _ptr(valid), _stream(X))
@@ -893,6 +941,7 @@ class ProgramGradKernel(_ProgramKernel):
         valid = torch.empty((T, V), dtype=torch.int32, device=X.device)
         gcomp = torch.empty((T, V, CMAX), dtype=self.dtype, device=X.device)
         self._launch(
+            operators,
             _ptr(instr), _ptr(nsteps), _ptr(nconst), _ptr(cvals_v), _ptr(X), _ptr(y), _ptr(w),
             _ptr(optab), T, V, L, CMAX, F, n, int(n_grad), block, loss_kind, loss_param,
             code_mask, 30, _ptr(loss), _ptr(valid), _ptr(gcomp),
@@ -914,11 +963,12 @@ class ProgramPredictKernel(_ProgramKernel):
 
     def _bind(self, lib):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sr_program_predict.argtypes = [p] * 6 + [i] * 9 + [p, p, p]
+        getattr(lib, self._entry).argtypes = [p] * 6 + [i] * 9 + [p, p, p]
 
     def __call__(self, instr, nsteps, cvals, const_ok, X, operators: OperatorSet):
         if X.device.type == "cpu":
-            return program_predict_plain(instr, nsteps, cvals, const_ok, X, operators)
+            return program_predict_plain(instr, nsteps, cvals, const_ok, X, operators,
+                                         bf16=self.bf16)
         T, L = instr.shape
         F, n = X.shape[-2:]
         CMAX = cvals.shape[1]
@@ -929,9 +979,10 @@ class ProgramPredictKernel(_ProgramKernel):
                 or X.dim() not in (2, 3) or (per_member and X.shape[0] != T)):
             raise ValueError("program_predict: inconsistent shapes")
         optab, block, code_mask = self._layout(operators, X, L, CMAX, F)
-        pred = torch.empty((T, n), dtype=torch.float32, device=X.device)
+        pred = torch.empty((T, n), dtype=self.dtype, device=X.device)
         valid = torch.empty(T, dtype=torch.int32, device=X.device)
         self._launch(
+            operators,
             _ptr(instr), _ptr(nsteps), _ptr(cvals), _ptr(const_ok), _ptr(X), _ptr(optab),
             T, L, CMAX, F, n, block, int(per_member), code_mask, 30,
             _ptr(pred), _ptr(valid), _stream(X))
@@ -952,7 +1003,7 @@ class ProgramPredictVjpKernel(_ProgramKernel):
 
     def _bind(self, lib):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sr_program_predict_vjp.argtypes = [p] * 7 + [i] * 9 + [p, p, p]
+        getattr(lib, self._entry).argtypes = [p] * 7 + [i] * 9 + [p, p, p]
 
     def __call__(self, instr, nsteps, nconst, cvals, X, ct, operators: OperatorSet):
         if X.device.type == "cpu":
@@ -968,10 +1019,11 @@ class ProgramPredictVjpKernel(_ProgramKernel):
                 or (per_member and X.shape[0] != T)):
             raise ValueError("program_predict_vjp: inconsistent shapes")
         optab, block, code_mask = self._layout(operators, X, L, CMAX, F)
-        gcomp = torch.empty((T, CMAX), dtype=torch.float32, device=X.device)
-        gx = (torch.empty((T, F, n), dtype=torch.float32, device=X.device)
+        gcomp = torch.empty((T, CMAX), dtype=self.dtype, device=X.device)
+        gx = (torch.empty((T, F, n), dtype=self.dtype, device=X.device)
               if per_member else None)
         self._launch(
+            operators,
             _ptr(instr), _ptr(nsteps), _ptr(nconst), _ptr(cvals), _ptr(X), _ptr(ct),
             _ptr(optab), T, L, CMAX, F, n, block, int(per_member), code_mask, 30,
             _ptr(gcomp), _ptr(gx), _stream(X))
@@ -1057,6 +1109,114 @@ class ProgramGradF64Kernel(ProgramGradKernel):
     _entry = "sr_program_grad_f64"
 
 
+class ProgramEvalBf16F64Kernel(ProgramEvalKernel):
+    """Wrapper of ``sr_program_eval_bf16_f64`` (csrc/program_eval.cu):
+    kernel 1b for float64 data, a bf16 value buffer with float32 steps and
+    a float64 loss spine (y, w, the loss, the sums and the cost)."""
+
+    name = "program_eval_bf16_f64"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:519 (_program_launch bf16=True "
+                "under jax_enable_x64: f32 steps :224-228, the f64 loss :465-468)")
+    bf16 = True
+    f64 = True
+    _entry = "sr_program_eval_bf16_f64"
+
+
+class ProgramEvalParamBf16F64Kernel(ProgramEvalParamKernel):
+    """Wrapper of ``sr_program_eval_param_bf16_f64``: the parametric form
+    of float64 data on a bf16 buffer."""
+
+    name = "program_eval_param_bf16_f64"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:379 (_make_program_kernel "
+                "nparam > 0, bf16 buffer, under jax_enable_x64)")
+    bf16 = True
+    f64 = True
+    _entry = "sr_program_eval_param_bf16_f64"
+
+
+class ProgramEvalBf16DataKernel(ProgramEvalKernel):
+    """Wrapper of ``sr_program_eval_bf16_data``: kernel 1b for bf16 data
+    (``eval_dtype="bfloat16"``), each loss term, sum and cost rounded to
+    bf16 (y and w hold bf16 values in float32)."""
+
+    name = "program_eval_bf16_data"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:505 (_program_launch with "
+                "bfloat16 data: pred cast to y's dtype :465-468)")
+    bf16 = True
+    bf16_data = True
+    _entry = "sr_program_eval_bf16_data"
+
+
+class ProgramEvalParamBf16DataKernel(ProgramEvalParamKernel):
+    """Wrapper of ``sr_program_eval_param_bf16_data``: the parametric form
+    of bf16 data."""
+
+    name = "program_eval_param_bf16_data"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:379 (_make_program_kernel "
+                "nparam > 0 with bfloat16 data)")
+    bf16 = True
+    bf16_data = True
+    _entry = "sr_program_eval_param_bf16_data"
+
+
+class ProgramMultiBf16F64Kernel(ProgramMultiKernel):
+    """Wrapper of ``sr_program_multi_bf16_f64`` (csrc/program_multi.cu):
+    kernel 2b for float64 data (a float64 loss spine)."""
+
+    name = "program_multi_bf16_f64"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:855 (fused_loss_multi bf16=True "
+                "under jax_enable_x64)")
+    bf16 = True
+    f64 = True
+    _entry = "sr_program_multi_bf16_f64"
+
+
+class ProgramMultiBf16DataKernel(ProgramMultiKernel):
+    """Wrapper of ``sr_program_multi_bf16_data``: kernel 2b for bf16 data
+    (the loss terms and sums rounded to bf16)."""
+
+    name = "program_multi_bf16_data"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:830 (fused_loss_multi with "
+                "bfloat16 data)")
+    bf16 = True
+    bf16_data = True
+    _entry = "sr_program_multi_bf16_data"
+
+
+class ProgramPredictF64Kernel(ProgramPredictKernel):
+    """Wrapper of ``sr_program_predict_f64`` (csrc/program_predict.cu):
+    kernel #4 in float64 (float64 templates, the float64 user-loss route)."""
+
+    name = "program_predict_f64"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:1612 (fused_predict_program under "
+                "jax_enable_x64)")
+    f64 = True
+    _entry = "sr_program_predict_f64"
+
+
+class ProgramPredictBf16Kernel(ProgramPredictKernel):
+    """Wrapper of ``sr_program_predict_bf16``: kernel #4 over a bf16 value
+    buffer, as kernel 1b stores and computes, X bfloat16, float32
+    predictions (the user-loss route of a bf16 search)."""
+
+    name = "program_predict_bf16"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:519 (_program_launch bf16=True, "
+                "the user loss traced in at :466)")
+    bf16 = True
+    _entry = "sr_program_predict_bf16"
+
+
+class ProgramPredictVjpF64Kernel(ProgramPredictVjpKernel):
+    """Wrapper of ``sr_program_predict_vjp_f64``
+    (csrc/program_predict_vjp.cu): kernel #5 in float64."""
+
+    name = "program_predict_vjp_f64"
+    replaces = ("symbolicregression_jl_tpu/ops/fused_eval.py:1832 (_fused_predict_vjp_program "
+                "under jax_enable_x64)")
+    f64 = True
+    _entry = "sr_program_predict_vjp_f64"
+
+
 PROGRAM_EVAL = ProgramEvalKernel()
 PROGRAM_EVAL_PARAM = ProgramEvalParamKernel()
 PROGRAM_EVAL_BF16 = ProgramEvalBf16Kernel()
@@ -1070,16 +1230,51 @@ PROGRAM_EVAL_F64 = ProgramEvalF64Kernel()
 PROGRAM_EVAL_PARAM_F64 = ProgramEvalParamF64Kernel()
 PROGRAM_MULTI_F64 = ProgramMultiF64Kernel()
 PROGRAM_GRAD_F64 = ProgramGradF64Kernel()
+PROGRAM_EVAL_BF16_F64 = ProgramEvalBf16F64Kernel()
+PROGRAM_EVAL_PARAM_BF16_F64 = ProgramEvalParamBf16F64Kernel()
+PROGRAM_EVAL_BF16_DATA = ProgramEvalBf16DataKernel()
+PROGRAM_EVAL_PARAM_BF16_DATA = ProgramEvalParamBf16DataKernel()
+PROGRAM_MULTI_BF16_F64 = ProgramMultiBf16F64Kernel()
+PROGRAM_MULTI_BF16_DATA = ProgramMultiBf16DataKernel()
+PROGRAM_PREDICT_F64 = ProgramPredictF64Kernel()
+PROGRAM_PREDICT_BF16 = ProgramPredictBf16Kernel()
+PROGRAM_PREDICT_VJP_F64 = ProgramPredictVjpF64Kernel()
 
 
-def _pick(X, bf16: bool, f32, b16, f64):
-    """The wrapper for X's dtype: ``b16`` with ``bf16``, ``f64`` for a
-    float64 X, else ``f32``."""
-    if X.dtype == torch.float64:
-        if bf16:
-            raise ValueError("the bf16 kernels take float32 data, not float64")
-        return f64
-    return b16 if bf16 else f32
+# The forms of each kernel by (X's dtype, bf16): False, True (a bf16 value
+# buffer) or "data" (bf16 data, a bf16 loss spine); the wrappers by their
+# module names, looked up at each call.
+_FORMS = {
+    "eval": {(torch.float32, False): "PROGRAM_EVAL", (torch.float32, True): "PROGRAM_EVAL_BF16",
+             (torch.float32, "data"): "PROGRAM_EVAL_BF16_DATA",
+             (torch.float64, False): "PROGRAM_EVAL_F64",
+             (torch.float64, True): "PROGRAM_EVAL_BF16_F64"},
+    "param": {(torch.float32, False): "PROGRAM_EVAL_PARAM",
+              (torch.float32, True): "PROGRAM_EVAL_PARAM_BF16",
+              (torch.float32, "data"): "PROGRAM_EVAL_PARAM_BF16_DATA",
+              (torch.float64, False): "PROGRAM_EVAL_PARAM_F64",
+              (torch.float64, True): "PROGRAM_EVAL_PARAM_BF16_F64"},
+    "multi": {(torch.float32, False): "PROGRAM_MULTI", (torch.float32, True): "PROGRAM_MULTI_BF16",
+              (torch.float32, "data"): "PROGRAM_MULTI_BF16_DATA",
+              (torch.float64, False): "PROGRAM_MULTI_F64",
+              (torch.float64, True): "PROGRAM_MULTI_BF16_F64"},
+    "grad": {(torch.float32, False): "PROGRAM_GRAD", (torch.float64, False): "PROGRAM_GRAD_F64"},
+    "predict": {(torch.float32, False): "PROGRAM_PREDICT",
+                (torch.float32, True): "PROGRAM_PREDICT_BF16",
+                (torch.float64, False): "PROGRAM_PREDICT_F64",
+                (torch.float64, True): "PROGRAM_PREDICT_BF16"},
+    "vjp": {(torch.float32, False): "PROGRAM_PREDICT_VJP",
+            (torch.float64, False): "PROGRAM_PREDICT_VJP_F64"},
+}
+
+
+def _pick(kind: str, X, bf16=False):
+    """The wrapper of kernel ``kind`` for X's dtype and ``bf16``."""
+    dt = torch.float64 if X.dtype == torch.float64 else torch.float32
+    key = (dt, bf16 if bf16 == "data" else bool(bf16))
+    if key not in _FORMS[kind]:
+        raise ValueError(f"kernel {kind} has no form for {dt} data with bf16={bf16!r}")
+    return globals()[_FORMS[kind][key]]
 
 
 # ---------------------------------------------------------------------------
@@ -1110,7 +1305,7 @@ def _bf16_rows(X: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_inputs(prog: TreeProgram, X, y, weights, nfeatures: int,
-                   operators: OperatorSet, n_params: int = 0, bf16: bool = False):
+                   operators: OperatorSet, n_params: int = 0, bf16=False):
     T, L = prog.code.shape
     CMAX = prog.cmax
     n = X.shape[1]
@@ -1134,41 +1329,37 @@ def _denominator(weights, X):
 
 def fused_loss_program(prog: TreeProgram, X, y, weights, nfeatures: int,
                        operators: OperatorSet, loss_fn: Callable, *, params=None,
-                       class_idx=None, bf16: bool = False):
+                       class_idx=None, bf16=False):
     """Mean elementwise loss per compiled program (flat [T]); invalid
     programs get loss inf. Returns (loss, valid).
 
     Parametric programs (compiled with ``n_params = NP``) pass their
     banks ``params`` [T, NP, NC] and the rows' ``class_idx`` [n]; they run
     the parametric form of the kernel. ``bf16`` runs kernel 1b (a
-    bfloat16 value buffer, float32 loss). A user elementwise callable
-    takes the user-loss route (plain members in float32 only)."""
+    bfloat16 value buffer; the loss in X's dtype, float32 or float64), and
+    ``bf16="data"`` its bf16-data form (the loss rounded to bf16). A user
+    elementwise callable takes the user-loss route."""
     if kernel_loss(loss_fn) is None:
-        if params is not None or bf16:
-            raise NotImplementedError(
-                "a user elementwise loss runs on kernel #4's predictions, which have no "
-                "parametric or bf16 form")
-        return user_loss_program(prog, X, y, weights, nfeatures, operators, loss_fn)
+        return user_loss_program(prog, X, y, weights, nfeatures, operators, loss_fn,
+                                 params=params, class_idx=class_idx, bf16=bf16)
+    spine = _round_bf16 if bf16 == "data" else (lambda v: v)
     if params is None:
         args = _launch_inputs(prog, X, y, weights, nfeatures, operators, bf16=bf16)
-        kernel = _pick(X, bf16, PROGRAM_EVAL, PROGRAM_EVAL_BF16, PROGRAM_EVAL_F64)
-        loss_sum, valid = kernel(*args, operators, loss_fn)
+        loss_sum, valid = _pick("eval", X, bf16)(*args, operators, loss_fn)
     else:
         instr, nsteps, cvals, ok, Xc, yc, w = _launch_inputs(prog, X, y, weights, nfeatures,
                                                              operators, params.shape[1], bf16)
-        kernel = _pick(X, bf16, PROGRAM_EVAL_PARAM, PROGRAM_EVAL_PARAM_BF16,
-                       PROGRAM_EVAL_PARAM_F64)
-        loss_sum, valid = kernel(
+        loss_sum, valid = _pick("param", X, bf16)(
             instr, nsteps, cvals, ok, params.to(X.dtype).contiguous(),
             class_idx.to(torch.int32).contiguous(), Xc, yc, w, operators, loss_fn)
-    loss = loss_sum / _denominator(weights, X)
+    loss = spine(loss_sum / _denominator(weights, X))
     loss = torch.where(valid & torch.isfinite(loss), loss, torch.inf)
     return loss, valid
 
 
 def fused_cost_program(prog: TreeProgram, X, y, weights, complexity, nfeatures: int,
                        operators: OperatorSet, loss_fn: Callable, *, baseline_loss,
-                       use_baseline, parsimony, bf16: bool = False):
+                       use_baseline, parsimony, bf16=False):
     """(cost, loss, valid) per compiled program, the cost computed in the
     kernel's epilogue with ``core.losses.loss_to_cost``'s operation order
     (kernel 1b with ``bf16``). A user elementwise callable takes the
@@ -1182,9 +1373,8 @@ def fused_cost_program(prog: TreeProgram, X, y, weights, complexity, nfeatures: 
     scal = torch.stack([denom.to(X.dtype), norm.to(X.dtype),
                         torch.tensor(parsimony, dtype=X.dtype, device=X.device)])
     args = _launch_inputs(prog, X, y, weights, nfeatures, operators, bf16=bf16)
-    kernel = _pick(X, bf16, PROGRAM_EVAL, PROGRAM_EVAL_BF16, PROGRAM_EVAL_F64)
-    loss, valid, cost = kernel(*args, operators, loss_fn,
-                               cx=complexity.to(X.dtype).contiguous(), scal=scal)
+    loss, valid, cost = _pick("eval", X, bf16)(*args, operators, loss_fn,
+                                               cx=complexity.to(X.dtype).contiguous(), scal=scal)
     return cost, loss, valid
 
 
@@ -1237,7 +1427,7 @@ def _params_ok(trees: TreeBatch, params, class_idx):
 
 def fused_loss(trees: TreeBatch, X, y, weights, operators: OperatorSet,
                loss_fn: Callable, *, params=None, class_idx=None, dedup: bool = False,
-               bf16: bool = False):
+               bf16=False):
     """Mean elementwise loss per tree (batch dims kept); invalid trees get
     loss inf. ``dedup`` evaluates each distinct (structure, constants)
     program once and shares the result (bit-equal). ``bf16`` runs kernel
@@ -1270,7 +1460,7 @@ def fused_loss(trees: TreeBatch, X, y, weights, operators: OperatorSet,
 
 def fused_cost(trees: TreeBatch, X, y, weights, complexity, operators: OperatorSet,
                loss_fn: Callable, *, baseline_loss, use_baseline, parsimony,
-               bf16: bool = False):
+               bf16=False):
     """(cost, loss, valid) per tree with the loss -> cost epilogue in the
     kernel: the candidate-scoring hot path of the evolve cycle (kernel 1b
     with ``bf16``)."""
@@ -1292,7 +1482,7 @@ def fused_cost(trees: TreeBatch, X, y, weights, complexity, operators: OperatorS
 
 
 def _multi_inputs(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
-                  operators: OperatorSet, bf16: bool = False):
+                  operators: OperatorSet, bf16=False):
     """Kernel #2/#3 inputs and each pair's constant validity [T, V]."""
     instr, nsteps, _, _, Xc, yc, w = _launch_inputs(prog, X, y, weights, nfeatures, operators,
                                                     bf16=bf16)
@@ -1302,7 +1492,7 @@ def _multi_inputs(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
 
 
 def fused_loss_multi(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
-                     operators: OperatorSet, loss_fn: Callable, *, bf16: bool = False):
+                     operators: OperatorSet, loss_fn: Callable, *, bf16=False):
     """Mean loss for every (tree, constant-variant) pair: (loss, valid)
     [T, V] each, from one launch of kernel #2. Invalid pairs (a non-finite
     step or loss, or a non-finite used constant) get loss inf.
@@ -1310,18 +1500,19 @@ def fused_loss_multi(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
     ``bf16`` runs kernel 2b (a bfloat16 value buffer, float32 loss): the
     losses rank reliably but are not bit-exact, so a caller re-verifies an
     accepted point in float32 (the L-BFGS line search does, through the
-    gradient kernel's loss and its descent check). A user elementwise
-    callable takes the user-loss route (float32 only)."""
+    gradient kernel's loss and its descent check); ``bf16="data"`` is its
+    bf16-data form. A user elementwise callable takes the user-loss route
+    (kernel #4's bf16 form with ``bf16``)."""
     if kernel_loss(loss_fn) is None:
-        if bf16:
-            raise NotImplementedError("a user elementwise loss has no bf16 line search")
-        return user_loss_multi(prog, cvals_v, X, y, weights, nfeatures, operators, loss_fn)
+        return user_loss_multi(prog, cvals_v, X, y, weights, nfeatures, operators, loss_fn,
+                               bf16=bf16)
     (instr, nsteps, cv, Xc, yc, w), ok_v = _multi_inputs(prog, cvals_v, X, y, weights,
                                                          nfeatures, operators, bf16)
-    kernel = _pick(X, bf16, PROGRAM_MULTI, PROGRAM_MULTI_BF16, PROGRAM_MULTI_F64)
-    loss_sum, valid = kernel(instr, nsteps, cv, Xc, yc, w, operators, loss_fn)
+    loss_sum, valid = _pick("multi", X, bf16)(instr, nsteps, cv, Xc, yc, w, operators, loss_fn)
     valid = valid & ok_v
     loss = loss_sum / _denominator(weights, X)
+    if bf16 == "data":
+        loss = _round_bf16(loss)
     loss = torch.where(valid & torch.isfinite(loss), loss, torch.inf)
     return loss, valid
 
@@ -1338,7 +1529,7 @@ def fused_grad_multi(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
     (instr, nsteps, cv, Xc, yc, w), ok_v = _multi_inputs(prog, cvals_v, X, y, weights,
                                                          nfeatures, operators)
     nconst = prog.nconst.to(torch.int32).contiguous()
-    kernel = _pick(X, False, PROGRAM_GRAD, None, PROGRAM_GRAD_F64)
+    kernel = _pick("grad", X)
     n_grad = X.shape[1] if weights is None else weighted_rows(weights)
     loss_sum, valid, gcomp = kernel(instr, nsteps, nconst, cv, Xc, yc, w, operators, loss_fn,
                                     n_grad=n_grad)
@@ -1403,7 +1594,7 @@ def fused_predict_program(prog: TreeProgram, X, nfeatures: int, operators: Opera
     kernel's plain version (the turbo-off path)."""
     instr, nsteps, cvals, Xc = _predict_inputs(prog, X, nfeatures, operators)
     ok = prog.const_ok.to(torch.int32).contiguous()
-    run = program_predict_plain if plain else PROGRAM_PREDICT
+    run = program_predict_plain if plain else _pick("predict", X)
     return run(instr, nsteps, cvals, ok, Xc, operators)
 
 
@@ -1414,7 +1605,7 @@ def fused_predict_vjp_program(prog: TreeProgram, X, ct, nfeatures: int,
     one launch of kernel #5."""
     instr, nsteps, cvals, Xc = _predict_inputs(prog, X, nfeatures, operators)
     nconst = prog.nconst.to(torch.int32).contiguous()
-    run = program_predict_vjp_plain if plain else PROGRAM_PREDICT_VJP
+    run = program_predict_vjp_plain if plain else _pick("vjp", X)
     gcomp, gx = run(instr, nsteps, nconst, cvals, Xc, ct.to(X.dtype).contiguous(), operators)
     return torch.where(torch.isfinite(gcomp), gcomp, 0.0), gx
 
@@ -1489,7 +1680,7 @@ class _RowsPredictAD(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cvals, instr, nsteps, nconst, ok, X, operators, plain):
-        run = program_predict_plain if plain else PROGRAM_PREDICT
+        run = program_predict_plain if plain else _pick("predict", X)
         pred, valid = run(instr, nsteps, cvals, ok, X, operators)
         ctx.save_for_backward(instr, nsteps, nconst, cvals, X)
         ctx.operators, ctx.plain = operators, plain
@@ -1499,7 +1690,7 @@ class _RowsPredictAD(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_pred, _ct_valid):
         instr, nsteps, nconst, cvals, X = ctx.saved_tensors
-        run = program_predict_vjp_plain if ctx.plain else PROGRAM_PREDICT_VJP
+        run = program_predict_vjp_plain if ctx.plain else _pick("vjp", X)
         gcomp, _ = run(instr, nsteps, nconst, cvals, X, ct_pred.contiguous(), ctx.operators)
         return gcomp, None, None, None, None, None, None, None
 
@@ -1511,7 +1702,8 @@ def _user_loss_sum(pred, y, w, loss_fn):
 
 
 def _user_route(prog: TreeProgram, cv, ok, tree, X, y, weights, nfeatures: int,
-                operators: OperatorSet, loss_fn: Callable, grad: bool, plain: bool = False):
+                operators: OperatorSet, loss_fn: Callable, grad: bool, plain: bool = False,
+                params=None, class_idx=None, bf16=False):
     """(loss [R], valid [R], dloss/dcv [R, CMAX] or None) of R program rows:
     row r is tree ``tree[r]`` with constants ``cv[r]`` and constant
     validity ``ok[r]``. The rows run in chunks of at most
@@ -1521,33 +1713,54 @@ def _user_route(prog: TreeProgram, cv, ok, tree, X, y, weights, nfeatures: int,
     weight is 0 (as the JAX kernel masks its loss VJP). The kernels'
     contract follows: a row whose steps, loss sum or mean are not finite
     is invalid, with loss inf and a zero gradient; a non-finite gradient
-    component becomes 0. ``plain`` runs the kernels' plain versions."""
-    if X.dtype != torch.float32:
-        raise NotImplementedError("the user-loss route runs kernel #4, which computes in "
-                                  "float32")
-    instr, nsteps, _, Xc = _predict_inputs(prog, X, nfeatures, operators)
+    component becomes 0. ``plain`` runs the kernels' plain versions.
+
+    The forms: X's dtype (float32, or float64 on #4's and #5's ``double``
+    forms); parametric rows (``params`` [R, NP, NC] by row, the program
+    compiled with ``n_params = NP``) predict on #4's per-member form, each
+    row's X block carrying its parameter rows by class after the features;
+    ``bf16`` predicts on #4's bf16 form (a bf16 value buffer, float32
+    steps) and the loss takes the predictions in X's dtype (rounded to bf16
+    with ``bf16="data"``). The gradient stays on the float forms of #4 and
+    #5, as kernel #3 computes a bf16 search's gradient."""
+    NP = 0 if params is None else params.shape[1]
+    nf = nfeatures + NP
+    instr, nsteps, _, Xc = _predict_inputs(prog, X, nf, operators)
     nconst = prog.nconst.to(torch.int32)
     n = X.shape[1]
     w = (torch.ones(n, dtype=X.dtype, device=X.device) if weights is None
          else weights.to(X.dtype).contiguous())
     denom = _denominator(weights, X)
     R = cv.shape[0]
-    step = max(1, USER_LOSS_CHUNK_BYTES // (_USER_LOSS_TEMPS * max(n, 1) * X.element_size()))
+    pb16 = bool(bf16) and not grad
+    cdt = torch.float32 if pb16 else X.dtype
+    Xk = (_bf16_rows(Xc) if pb16 else Xc)
+    cls = None if params is None else torch.clamp(class_idx.long(), 0, params.shape[-1] - 1)
+    per_row = X.element_size() * (_USER_LOSS_TEMPS + NP + (nfeatures if NP else 0))
+    step = max(1, USER_LOSS_CHUNK_BYTES // (per_row * max(n, 1)))
+    spine = _round_bf16 if bf16 == "data" else (lambda v: v)
     sums, valids, grads = [], [], []
     for s in range(0, R, step):
         t = tree[s:s + step]
         args = (instr[t].contiguous(), nsteps[t].contiguous(), nconst[t].contiguous(),
                 ok[s:s + step].to(torch.int32).contiguous())
-        c = cv[s:s + step].to(X.dtype).contiguous()
+        c = cv[s:s + step].to(cdt).contiguous()
+        Xr = Xk
+        if params is not None:
+            prow = params[s:s + step][:, :, cls].to(Xk.dtype)
+            Xr = torch.cat([Xk[None].expand(prow.shape[0], -1, -1), prow], dim=1).contiguous()
         if not grad:
-            run = program_predict_plain if plain else PROGRAM_PREDICT
-            pred, valid = run(args[0], args[1], c, args[3], Xc, operators)
-            sums.append(_user_loss_sum(pred, y, w, loss_fn))
+            run = program_predict_plain if plain else _pick("predict", X, pb16)
+            if plain:
+                pred, valid = run(args[0], args[1], c, args[3], Xr, operators, bf16=pb16)
+            else:
+                pred, valid = run(args[0], args[1], c, args[3], Xr, operators)
+            sums.append(spine(_user_loss_sum(pred.to(X.dtype), y, w, loss_fn)))
             valids.append(valid)
             continue
         with torch.enable_grad():
             c = c.detach().requires_grad_(True)
-            pred, valid = _RowsPredictAD.apply(c, *args, Xc, operators, plain)
+            pred, valid = _RowsPredictAD.apply(c, *args, Xr, operators, plain)
             pred.register_hook(lambda g: torch.where(w > 0, g, 0.0))
             total = _user_loss_sum(pred, y, w, loss_fn)
             (g,) = torch.autograd.grad(total.sum(), c)
@@ -1560,7 +1773,7 @@ def _user_route(prog: TreeProgram, cv, ok, tree, X, y, weights, nfeatures: int,
                 torch.zeros((0, cv.shape[1]), dtype=X.dtype, device=X.device) if grad else None)
     total = torch.cat(sums)
     valid = torch.cat(valids) & torch.isfinite(total)
-    loss = total / denom
+    loss = spine(total / denom)
     bad = ~(valid & torch.isfinite(loss))
     loss = torch.where(bad, torch.inf, loss)
     if not grad:
@@ -1570,14 +1783,17 @@ def _user_route(prog: TreeProgram, cv, ok, tree, X, y, weights, nfeatures: int,
 
 
 def user_loss_program(prog: TreeProgram, X, y, weights, nfeatures: int,
-                      operators: OperatorSet, loss_fn: Callable, *, plain: bool = False):
+                      operators: OperatorSet, loss_fn: Callable, *, plain: bool = False,
+                      params=None, class_idx=None, bf16=False):
     """`fused_loss_program` for a user elementwise callable ``loss_fn``:
     (loss [T], valid [T]) by kernel #4's predictions and the callable
-    (``plain``: its plain version)."""
+    (``plain``: its plain version); parametric programs pass ``params``
+    [T, NP, NC] and ``class_idx``, a bf16 search ``bf16``."""
     T = prog.code.shape[0]
     tree = torch.arange(T, device=X.device)
     loss, valid, _ = _user_route(prog, prog.cvals, prog.const_ok, tree, X, y, weights,
-                                 nfeatures, operators, loss_fn, grad=False, plain=plain)
+                                 nfeatures, operators, loss_fn, grad=False, plain=plain,
+                                 params=params, class_idx=class_idx, bf16=bf16)
     return loss, valid
 
 
@@ -1592,13 +1808,15 @@ def _pair_rows(prog: TreeProgram, cvals_v):
 
 
 def user_loss_multi(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
-                    operators: OperatorSet, loss_fn: Callable, *, plain: bool = False):
+                    operators: OperatorSet, loss_fn: Callable, *, plain: bool = False,
+                    bf16=False):
     """`fused_loss_multi` for a user elementwise callable: (loss, valid)
-    [T, V] of every (tree, constant-variant) pair, by kernel #4."""
+    [T, V] of every (tree, constant-variant) pair, by kernel #4 (its bf16
+    form with ``bf16``)."""
     T, V, _ = cvals_v.shape
     cv, ok, tree = _pair_rows(prog, cvals_v)
     loss, valid, _ = _user_route(prog, cv, ok, tree, X, y, weights, nfeatures, operators,
-                                 loss_fn, grad=False, plain=plain)
+                                 loss_fn, grad=False, plain=plain, bf16=bf16)
     return loss.reshape(T, V), valid.reshape(T, V)
 
 

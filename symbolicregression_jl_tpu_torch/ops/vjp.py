@@ -18,8 +18,10 @@ non-finite values land where they land in the JAX package:
   computed on both branches and summed.
 
 The CUDA gradient kernel (``csrc/interp.cuh``) holds the same table; this
-one is its plain PyTorch version. Operators and losses outside the table
-raise ``NotImplementedError``. Each function keeps its input's dtype
+one is its plain PyTorch version. A user operator's derivative is
+``torch.autograd`` through its own function, the plain version of the
+adjoint ops/user_ops.py generates for the kernels. Losses outside the
+table raise ``NotImplementedError``. Each function keeps its input's dtype
 (float32 or float64); constants are taken at that dtype's rounding.
 """
 
@@ -260,22 +262,38 @@ UNARY_VJP: Dict[str, Callable] = {
 
 
 def _builtin(op, table):
-    from .operators import OPERATOR_REGISTRY
+    from .user_ops import is_builtin
 
-    builtin = OPERATOR_REGISTRY.get(op.name)
-    if builtin is None or builtin.fn is not op.fn or op.name not in table:
-        raise NotImplementedError(
-            f"operator {op.name!r} is not a built-in operator; the constant "
-            f"optimizer's gradient covers built-in operators only")
-    return table[op.name]
+    return table[op.name] if is_builtin(op) and op.name in table else None
+
+
+def _autograd_vjp(op):
+    """A user operator's derivative: ``torch.autograd`` through ``op.fn``
+    (the plain version of the kernels' generated adjoint, ops/user_ops.py),
+    zeros for an argument the operator does not read."""
+
+    def vjp(*args):
+        *xs, ct = args
+        with torch.enable_grad():
+            req = [x.detach().requires_grad_(True) for x in xs]
+            out = op.fn(*req)
+            gs = torch.autograd.grad(out, req, ct, allow_unused=True)
+        return tuple(torch.zeros_like(ct) if g is None else g for g in gs)
+
+    return vjp
 
 
 def vjp_binary(op) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
-    return _builtin(op, BINARY_VJP)
+    fn = _builtin(op, BINARY_VJP)
+    return fn if fn is not None else _autograd_vjp(op)
 
 
 def vjp_unary(op) -> Callable[..., torch.Tensor]:
-    return _builtin(op, UNARY_VJP)
+    fn = _builtin(op, UNARY_VJP)
+    if fn is not None:
+        return fn
+    vjp = _autograd_vjp(op)
+    return lambda x, ct: vjp(x, ct)[0]
 
 
 # ---------------------------------------------------------------------------

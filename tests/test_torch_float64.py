@@ -289,17 +289,40 @@ def test_float64_search_runs():
 @pytest.mark.parametrize("case", ["bfloat16_data", "f64_with_bf16_buffer", "f64_with_template"])
 def test_float64_refusals(case):
     """eval_dtype="bfloat16", float64 with eval_precision="bf16" and
-    float64 with template expressions are refused before the search
-    starts, naming the ROADMAP item."""
+    float64 with template expressions, refused by earlier slices, build an
+    engine with turbo on and run a search (the kernels' plain versions on
+    the CPU). The best loss against numpy: bf16 data against a float32
+    evaluation of the bf16-rounded data within 3e-2 (a bf16 value buffer
+    and a bf16 loss); float64 data on a bf16 buffer against a float64
+    evaluation within 3e-2 (the buffer's rounding, a float64 loss spine);
+    the float64 template against a float64 evaluation within rtol 1e-9."""
     from symbolicregression_jl_tpu_torch.models import template_spec
 
     kw = {"bfloat16_data": dict(eval_dtype="bfloat16"),
           "f64_with_bf16_buffer": dict(eval_precision="bf16"),
           "f64_with_template": dict(expression_spec=template_spec(expressions=("f",))(
-              lambda f, x1, x2: f(x1) + x2))}[case]
-    opts = _options(S, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SEngine(opts, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.equation_search(*problem(0, n=16, nfeatures=2), options=opts, niterations=1,
-                          device="cpu")
+              lambda f, x1, x2: f(x1) + x2), maxsize=2 * MAXSIZE)}[case]
+    opts = _options(S, turbo=True, **kw)
+    assert SEngine(opts, 2, device="cpu").cfg.turbo
+    X, y = problem(4, n=96, nfeatures=2)
+    state, hof = S.equation_search(X, y, options=opts, niterations=2, seed=0, device="cpu",
+                                   return_state=True)
+    pops = state.device_states[0].pops
+    best = min(hof.entries, key=lambda e: e.loss)
+    if case == "bfloat16_data":
+        assert pops.cost.dtype == torch.float32
+        r = lambda a: torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float().numpy()
+        loss = to_np(pops.loss).reshape(-1)
+        f = np.isfinite(loss)
+        assert np.array_equal(r(loss[f]), loss[f])   # every loss a bf16 value
+        host = _numpy_loss(best.tree, r(X).astype(np.float64), r(y).astype(np.float64))
+        np.testing.assert_allclose(best.loss, np.float32(host), rtol=3e-2)
+        return
+    assert pops.cost.dtype == torch.float64
+    X64, y64 = X.astype(np.float64), y.astype(np.float64)
+    if case == "f64_with_bf16_buffer":
+        np.testing.assert_allclose(best.loss, _numpy_loss(best.tree, X64, y64), rtol=3e-2)
+    else:
+        f = best.template_expr.trees["f"]
+        host = _numpy_loss(f, X64[:, :1], y64 - X64[:, 1])
+        np.testing.assert_allclose(best.loss, host, rtol=RTOL64)

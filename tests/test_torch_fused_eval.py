@@ -334,7 +334,10 @@ def test_fused_grad_program_and_const_grad_scatter():
 def test_multi_refusals():
     """Kernel #3's plain version takes the library losses only; the entry
     point sends a user callable to the user-loss route instead
-    (tests/test_torch_user_loss.py), and a user operator is refused."""
+    (tests/test_torch_user_loss.py). A user operator, once refused, runs:
+    its rows take torch.autograd through its own function (bit-equal to
+    the same operator written another way with the same derivative;
+    tests/test_torch_user_ops.py holds them against the JAX package)."""
     _, sops, _, st = _batch("merged", 0, T=8)
     X, y, _ = _data(16, False)
     sp = compile_program(st, 3, len(sops.binary))
@@ -348,12 +351,27 @@ def test_multi_refusals():
     ref, ref_valid = SF.fused_loss(st, _t(X), _t(y), None, sops, quartic)
     assert torch.equal(valid[:, 0], ref_valid) and torch.equal(loss[:, 0], ref)
     assert grad.shape == (st.length.shape[0], 1, sp.cmax)
-    custom = S.OperatorSet(["+", "*"], [S.Op("twice", 1, lambda x: 2 * x)])
-    with pytest.raises(NotImplementedError, match="built-in operators only"):
-        SF.program_grad_plain(torch.zeros((1, 2), dtype=torch.int32),
-                              torch.ones(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
-                              torch.zeros((1, 1, 1)), _t(X), _t(y), torch.ones(16), custom,
-                              SL.l2_dist_loss)
+    from symbolicregression_jl_tpu_torch.evolve import rng as SR
+    from symbolicregression_jl_tpu_torch.evolve.population import init_population
+    from symbolicregression_jl_tpu_torch.evolve.step import evolve_config_from_options
+
+    twice = S.Op("twice", 1, lambda x: 2 * x)
+    twin = S.Op("twice", 1, lambda x: x + x)   # the same values and derivative
+    cfg = evolve_config_from_options(S.Options(binary_operators=["+", "*"],
+                                               unary_operators=[twice], maxsize=MAXSIZE,
+                                               save_to_file=False), 3, "cpu")
+    trees = init_population(SR.split(SR.key(4), 2), 8, cfg.mctx).reshape(-1)
+    assert bool((trees.op[trees.arity == 1] == 0).any())   # twice is drawn
+    outs = []
+    for op in (twice, twin):
+        ops = S.OperatorSet(["+", "*"], [op])
+        prog = compile_program(trees, 3, 2)
+        ins = SF._pack_instr(prog, ops, 3 + prog.cmax + prog.max_steps)
+        outs.append(SF.program_grad_plain(ins, prog.nsteps, prog.nconst, prog.cvals[:, None],
+                                          _t(X), _t(y), torch.ones(16), ops, SL.l2_dist_loss))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert bool(outs[0][1].any()) and bool(torch.isfinite(outs[0][2]).all())
 
 
 # ---------------------------------------------------------------------------

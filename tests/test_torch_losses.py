@@ -278,11 +278,12 @@ _USER_OP = dict(unary_operators=[S.Op("twice", 1, lambda x: 2 * x)])
 
 @pytest.mark.parametrize("kw", [_USER_LOSS, _USER_OP], ids=["user_loss", "user_op"])
 def test_turbo_refuses_user_callables_up_front(kw):
-    """A user operator with turbo on is refused when the engine (or the
-    search) is built, naming the ROADMAP item and turbo=False. A user
-    elementwise callable runs with turbo on: the engine keeps turbo and
-    drops the cost epilogue (the callable takes kernel #4's user-loss
-    route, tests/test_torch_user_loss.py). With turbo=False, and with
+    """A user elementwise callable runs with turbo on: the engine keeps
+    turbo and drops the cost epilogue (the callable takes kernel #4's
+    user-loss route, tests/test_torch_user_loss.py). A traceable user
+    operator, once refused, runs with turbo on too (ops/user_ops.py); an
+    untraceable one is refused when the engine (or the search) is built,
+    naming its function and turbo=False. With turbo=False, and with
     turbo=None on the CPU, both run on the eager path."""
     base = dict(binary_operators=["+", "*"], maxsize=10, populations=2, population_size=16,
                 ncycles_per_iteration=2, tournament_selection_n=8, save_to_file=False)
@@ -295,10 +296,16 @@ def test_turbo_refuses_user_callables_up_front(kw):
                                 seed=0, device="cpu")
         assert any(np.isfinite(e.loss) for e in hof.entries)
     else:
-        with pytest.raises(NotImplementedError, match="turbo=False.*ROADMAP"):
-            SEngine(S.Options(turbo=True, **base), 3, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            S.equation_search(X, y, options=S.Options(turbo=True, **base), niterations=1,
+        engine = SEngine(S.Options(turbo=True, **base), 3, device="cpu")
+        assert engine.cfg.turbo and engine.cfg.fuse_cost
+        hof = S.equation_search(X, y, options=S.Options(turbo=True, **base), niterations=1,
+                                seed=0, device="cpu")
+        assert any(np.isfinite(e.loss) for e in hof.entries)
+        bad = dict(base, unary_operators=[S.Op("sh", 1, lambda x: torch.sinh(x))])
+        with pytest.raises(NotImplementedError, match="torch.sinh.*turbo=False"):
+            SEngine(S.Options(turbo=True, **bad), 3, device="cpu")
+        with pytest.raises(NotImplementedError, match="torch.sinh"):
+            S.equation_search(X, y, options=S.Options(turbo=True, **bad), niterations=1,
                               device="cpu")
     for turbo in (False, None):
         hof = S.equation_search(X, y, options=S.Options(turbo=turbo, **base), niterations=1,

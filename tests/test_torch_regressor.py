@@ -148,8 +148,9 @@ def test_initial_population_reaches_the_truth():
 def test_export_and_units_refuse():
     """latex() and sympy() export the best equation (utils/export.py; held
     against the JAX package's in tests/test_torch_export.py); units came
-    with the expression-plugin slice, and the dtypes that are still
-    refused are refused through the regressor too."""
+    with the expression-plugin slice; bf16 data and float64 data on a bf16
+    buffer, refused by earlier slices, fit and predict through the
+    regressor."""
     X, y = _problem(32)
     model = S.SRRegressor(niterations=1, seed=0, **SMALL).fit(X, y)
     assert isinstance(model.latex(), str) and model.latex()
@@ -159,8 +160,7 @@ def test_export_and_units_refuse():
         pass
     else:
         assert str(model.sympy())
-    with pytest.raises(NotImplementedError, match="search-API"):
-        S.SRRegressor(niterations=1, eval_dtype="bfloat16", **SMALL).fit(X, y)
-    with pytest.raises(NotImplementedError, match="search-API"):
-        S.SRRegressor(niterations=1, eval_dtype="float64", eval_precision="bf16",
-                      **SMALL).fit(X, y)
+    for kw in (dict(eval_dtype="bfloat16"), dict(eval_dtype="float64", eval_precision="bf16")):
+        fitted = S.SRRegressor(niterations=1, seed=0, **kw, **SMALL).fit(X, y)
+        assert np.isfinite(fitted.get_best().loss)
+        assert np.all(np.isfinite(fitted.predict(X)))

@@ -91,22 +91,40 @@ def test_kernel_wrapper_not_launched_on_cpu():
     assert PROGRAM_EVAL.launches == before
 
 
+_UNITS_SPEC = dict(expression_spec=type("UnitsSpec", (S.ExpressionSpec,), {})())
+
+
 @pytest.mark.parametrize("kw", [
     dict(eval_dtype="bfloat16"),
-    dict(expression_spec=type("UnitsSpec", (S.ExpressionSpec,), {})()),
+    _UNITS_SPEC,
     dict(eval_dtype="float64", eval_precision="bf16"),
     dict(expression_spec=template_spec(expressions=("f",))(lambda f, x1, x2: D(f, 1)(x1) + x2),
          eval_dtype="float64"),
 ])
 def test_options_outside_the_slice_refuse(kw):
+    """An expression spec of a type the port lacks is refused. bf16 data,
+    float64 data on a bf16 buffer and a float64 D template, refused by
+    earlier slices, build an engine (turbo on) and run a search to finite
+    losses, float64 state where the data is float64."""
     base = dict(binary_operators=["+", "*"], save_to_file=False)
     base.setdefault("should_optimize_constants", False)
     base.update(kw)
     opts = S.Options(**base)
-    with pytest.raises(NotImplementedError, match="PyTorch port"):
-        Engine(opts, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="PyTorch port"):
-        S.equation_search(*_problem(n=16), options=opts, niterations=1, device="cpu")
+    if kw is _UNITS_SPEC:
+        with pytest.raises(NotImplementedError, match="PyTorch port"):
+            Engine(opts, 2, device="cpu")
+        with pytest.raises(NotImplementedError, match="PyTorch port"):
+            S.equation_search(*_problem(n=16), options=opts, niterations=1, device="cpu")
+        return
+    base.update(populations=2, population_size=16, ncycles_per_iteration=2,
+                tournament_selection_n=8, turbo=True)
+    opts = S.Options(**base)
+    assert Engine(opts, 2, device="cpu").cfg.turbo
+    state, hof = S.equation_search(*_problem(n=16), options=opts, niterations=1, device="cpu",
+                                   seed=0, return_state=True)
+    assert any(np.isfinite(e.loss) for e in hof.entries)
+    want = torch.float64 if kw.get("eval_dtype") == "float64" else torch.float32
+    assert state.device_states[0].pops.cost.dtype == want
 
 
 @pytest.mark.parametrize("kw", [
@@ -175,6 +193,17 @@ def test_default_options_search_runs_the_constant_optimizer(monkeypatch):
                                 dict(runtime_options=S.RuntimeOptions(mesh_exchange_every=4)),
                                 dict(runtime_options=S.RuntimeOptions(mesh_exchange_every=2))])
 def test_search_arguments_outside_the_slice_refuse(kw):
+    """The multi-device RuntimeOptions fields are refused, naming their
+    slice; dtype="bfloat16", refused by an earlier slice, runs (bf16 data,
+    a float32 state, every loss a bf16 value)."""
+    if kw.get("dtype") == "bfloat16":
+        state, hof = S.equation_search(*_problem(n=16), options=_options(), niterations=1,
+                                       device="cpu", seed=0, return_state=True, **kw)
+        loss = state.device_states[0].pops.loss
+        assert loss.dtype == torch.float32
+        fin = torch.isfinite(loss)
+        assert bool(fin.any()) and torch.equal(loss[fin].bfloat16().float(), loss[fin])
+        return
     with pytest.raises(NotImplementedError, match="PyTorch port"):
         S.equation_search(*_problem(n=16), options=_options(), niterations=1, device="cpu",
                           **kw)

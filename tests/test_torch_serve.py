@@ -148,8 +148,9 @@ def test_journals_read_across_packages(tmp_path, writer):
 
 def test_debug_checks_refused_by_name(tmp_path):
     """``debug_checks=True`` instruments the server (lint/racecheck.py,
-    tests/test_torch_racecheck.py); an option the port still refuses fails
-    its request with the NotImplementedError that names its slice."""
+    tests/test_torch_racecheck.py); a request with bf16 data, refused by an
+    earlier slice with the NotImplementedError that named it, now runs to
+    its end under the instrumented locks."""
     srv = _server(tmp_path / "r", debug_checks=True, workers=1).start()
     X = np.random.default_rng(0).normal(size=(32, 2)).astype(np.float32)
     rid = srv.submit(X, X[:, 0], options=dict(
@@ -158,8 +159,7 @@ def test_debug_checks_refused_by_name(tmp_path):
         niterations=1)
     snap = srv.wait(rid, timeout=120)
     srv.stop()
-    assert snap["state"] == "failed"
-    assert "NotImplementedError" in snap["error"] and "item 3" in snap["error"]
+    assert snap["state"] == "done", snap
 
 
 # ---------------------------------------------------------------------------

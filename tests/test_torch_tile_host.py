@@ -215,9 +215,11 @@ def _host_source(text: str) -> str:
                   r"shim::launch([&]() { \1(\3); }, \2);", text, flags=re.S)
 
 
-def build_host_library(src: Path, out_dir: Path) -> Path:
+def build_host_library(src: Path, out_dir: Path, user_header: str = None) -> Path:
     """Compile the CUDA source ``src`` (and the headers beside it) for the
-    host with the shim into ``out_dir``; returns the shared library."""
+    host with the shim into ``out_dir``; returns the shared library.
+    ``user_header``: an operator set's generated user operators
+    (ops/user_ops.py), compiled in as ops/cuda_build.py does."""
     out_dir.mkdir(parents=True, exist_ok=True)
     inc = out_dir / "include"
     inc.mkdir(exist_ok=True)
@@ -227,8 +229,12 @@ def build_host_library(src: Path, out_dir: Path) -> Path:
     cpp = out_dir / (src.stem + ".cpp")
     cpp.write_text(_host_source(src.read_text()))
     lib = out_dir / f"lib{src.stem}.so"
+    user = []
+    if user_header is not None:
+        (inc / "sr_user_ops.cuh").write_text(user_header)
+        user = ["-DSR_USER_OPS"]
     cmd = ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fno-strict-aliasing", "-fPIC",
-           "-shared", "-pthread", "-w", f"-I{inc}", f"-I{src.parent}", "-include",
+           "-shared", "-pthread", "-w", *user, f"-I{inc}", f"-I{src.parent}", "-include",
            "cuda_host_shim.h", "-o", str(lib), str(cpp)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -706,6 +712,140 @@ def test_predict_vjp_kernel_on_host(host_libs, case):
         fb = torch.isfinite(xp)
         scale = torch.where(fb, xp.abs(), 0.0).amax(dim=-1, keepdim=True).expand_as(xp)
         assert bool(((xk - xp).abs()[fb] <= 1e-5 * scale[fb]).all())
+
+
+# ---------------------------------------------------------------------------
+# User operators: the generated header (ops/user_ops.py) compiled in
+# ---------------------------------------------------------------------------
+
+USER_OPS = {}
+
+
+def user_opset():
+    """+ - * pdiv / exp gauss softplus, the user operators written in torch
+    (tests/test_torch_user_ops.py holds them against the JAX package)."""
+    if not USER_OPS:
+        USER_OPS["set"] = S.OperatorSet(
+            ["+", "-", "*", S.Op("pdiv", 2, lambda a, b: torch.where(b == 0, 0, a / b))],
+            ["exp", S.Op("gauss", 1, lambda x: torch.exp(-x * x)),
+             S.Op("softplus", 1, lambda x: torch.log1p(torch.exp(x)))])
+    return USER_OPS["set"]
+
+
+@pytest.fixture(scope="module")
+def user_host_libs(tmp_path_factory):
+    """Kernels #3, #4 and #5 built for the host with the user operators'
+    generated header."""
+    from symbolicregression_jl_tpu_torch.ops.user_ops import user_op_set
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the CUDA sources for the host")
+    header = user_op_set(user_opset()).header
+    out = tmp_path_factory.mktemp("tile_host_user")
+    names = ("program_grad.cu", "program_predict.cu", "program_predict_vjp.cu")
+    with ThreadPoolExecutor(len(names)) as ex:
+        paths = list(ex.map(lambda s: build_host_library(CSRC / s, out / Path(s).stem, header),
+                            names))
+    libs = {s: ctypes.CDLL(str(p)) for s, p in zip(names, paths)}
+    for kernel, name in ((SF.ProgramGradKernel(), "program_grad.cu"),
+                         (SF.ProgramPredictKernel(), "program_predict.cu"),
+                         (SF.ProgramPredictVjpKernel(), "program_predict_vjp.cu")):
+        kernel._bind(libs[name])
+        getattr(libs[name], kernel._entry).restype = ctypes.c_int
+    return libs
+
+
+def _user_case(F: int, n: int, per_member: bool = False):
+    """Random trees of the user operator set in every step-count class,
+    X on [-3, 3] with the last feature 0 on every fifth row (pdiv's b = 0)
+    and a few rows large enough for exp to overflow."""
+    ops = user_opset()
+    opts = S.Options(binary_operators=list(ops.binary), unary_operators=list(ops.unary),
+                     maxsize=30, populations=4, population_size=32, tournament_selection_n=8,
+                     should_optimize_constants=False, save_to_file=False)
+    cfg = evolve_config_from_options(opts, F, torch.device("cpu"))
+    trees = random_trees(23 + F, 1, 24, cfg.mctx, (2, 8, 16), "cpu")
+    T = trees.arity.shape[0]
+    g = np.random.default_rng(n + F)
+    Xn = g.uniform(-3, 3, (T, F, n) if per_member else (F, n)).astype(np.float32)
+    Xn[..., -1, ::5] = 0.0
+    Xn[..., 0, 3::17] = 95.0
+    return ops, compile_program(trees, F, len(ops.binary)), torch.from_numpy(Xn), g
+
+
+@pytest.mark.parametrize("kernel", ["grad", "predict", "vjp_shared", "vjp_per_member"])
+def test_user_ops_on_host(user_host_libs, kernel):
+    """Kernels #3, #4 and #5 with the generated user operators against their
+    plain versions (which call the operators' own functions and
+    torch.autograd) under this file's rules, on trees of every step-count
+    class: validity bit-equal, losses within rtol 1e-5 on the trees whose
+    values libm and PyTorch compute alike, gradients non-finite in the same
+    places where the absolute row sums are finite and otherwise within 1e-4
+    of them, predictions and gx by #4's rule, two launches bit-identical."""
+    if kernel == "grad":
+        ops, prog, X, g = _user_case(3, 203)
+        n = X.shape[1]
+        y = torch.from_numpy(g.normal(size=n).astype(np.float32))
+        w = torch.from_numpy(np.where(g.random(n) < 0.1, 0.0, 1.0).astype(np.float32))
+        instr, nsteps, cvals, _, Xc, yc, wc = SF._launch_inputs(prog, X, y, w, 3, ops)
+        args = (instr, nsteps, prog.nconst.to(torch.int32).contiguous(),
+                _variants(cvals, 3, seed=3), Xc, yc, wc)
+        lib = user_host_libs["program_grad.cu"]
+        gl, gv, gg = run_grad(lib, ops, SL.l2_dist_loss, *args, 64)
+        gl2, gv2, gg2 = run_grad(lib, ops, SL.l2_dist_loss, *args, 64)
+        assert _same(gl, gl2) and _same(gg, gg2)
+        pl, pv, pg, pabs = SF.program_grad_plain(*args, ops, SL.l2_dist_loss, return_abs=True)
+        assert torch.equal(gv.bool(), pv) and 0 < int(pv.sum()) < pv.numel()
+        nsteps_ok = torch.isfinite(pabs)
+        live = pv[..., None].expand_as(pg) & nsteps_ok
+        assert torch.equal(torch.isfinite(gg)[live], torch.isfinite(pg)[live])
+        assert torch.equal(torch.isnan(gg)[live], torch.isnan(pg)[live])
+        both = live & torch.isfinite(gg) & torch.isfinite(pg)
+        assert bool(((gg - pg).abs()[both] <= 1e-4 * pabs[both]).all())
+        fin = pv & torch.isfinite(pl)
+        rel = ((gl - pl).abs() / pl.abs().clamp(min=1e-30))[fin]
+        assert float(rel.median()) < 1e-5 and float(rel.max()) < 1e-2
+        return
+    per_member = kernel == "vjp_per_member"
+    ops, prog, X, g = _user_case(2, 161, per_member)
+    F = X.shape[-2]
+    instr, nsteps, cvals, Xc = SF._predict_inputs(prog, X, F, ops)
+    T, n = instr.shape[0], Xc.shape[-1]
+    if kernel == "predict":
+        ok = prog.const_ok.to(torch.int32).contiguous()
+        lib = user_host_libs["program_predict.cu"]
+        pk, vk = run_predict(lib, ops, instr, nsteps, cvals, ok, Xc, 64)
+        pk2, vk2 = run_predict(lib, ops, instr, nsteps, cvals, ok, Xc, 64)
+        assert _same(pk, pk2) and _same(vk, vk2)
+        pp, vp = SF.program_predict_plain(instr, nsteps, cvals, ok, Xc, ops)
+        assert torch.equal(vk.bool(), vp) and 0 < int(vp.sum()) < T
+        _nonfinite_match(pk, pp)
+        fb = torch.isfinite(pp)
+        scale = torch.where(fb, pp.abs(), 0.0).amax(dim=-1, keepdim=True).expand_as(pp)
+        err = (pk - pp).abs()[fb]
+        assert bool(((err <= 1e-5 * pp.abs()[fb]) | (err <= 1e-5 * scale[fb])).all())
+        return
+    nconst = prog.nconst.to(torch.int32).contiguous()
+    ct = torch.from_numpy(g.normal(size=(T, n)).astype(np.float32))
+    lib = user_host_libs["program_predict_vjp.cu"]
+    gk, xk = run_predict_vjp(lib, ops, instr, nsteps, nconst, cvals, Xc, ct, 64)
+    gk2, xk2 = run_predict_vjp(lib, ops, instr, nsteps, nconst, cvals, Xc, ct, 64)
+    assert _same(gk, gk2) and (xk is None or _same(xk, xk2))
+    gp, xp, gabs = SF.program_predict_vjp_plain(instr, nsteps, nconst, cvals, Xc, ct, ops,
+                                                return_abs=True)
+    order = torch.isinf(gabs)
+    assert torch.equal(torch.isfinite(gk)[~order], torch.isfinite(gp)[~order])
+    assert torch.equal(torch.isnan(gk)[~order], torch.isnan(gp)[~order])
+    both = torch.isfinite(gabs) & torch.isfinite(gk)
+    assert bool(((gk - gp).abs()[both] <= 1e-4 * gabs[both]).all())
+    assert (xk is None) == (xp is None) == (not per_member)
+    if per_member:
+        xk, xp = xk.reshape(T, -1), xp.reshape(T, -1)
+        _nonfinite_match(xk, xp)
+        fb = torch.isfinite(xp)
+        scale = torch.where(fb, xp.abs(), 0.0).amax(dim=-1, keepdim=True).expand_as(xp)
+        err = (xk - xp).abs()[fb]
+        assert bool(((err <= 1e-5 * xp.abs()[fb]) | (err <= 1e-5 * scale[fb])).all())
 
 
 def main(argv) -> int:
