@@ -262,18 +262,20 @@ Phases (any failure exits nonzero and prints no result line):
    #1 at 6,000 and at 8,192 rows.
 32. SearchServer(pack=PackPolicy()) on the card at the optimizer cell's
    widths (512 islands x 256, tournament 16, maxsize 30, + - * /, exp abs
-   cos, the optimizer on; SERVE_CYCLES = 10 cycles, SERVE_ITERS = 2
+   cos, the optimizer on; SERVE_CYCLES = 5 cycles, SERVE_ITERS = 2
    iterations): four requests of 5,000-8,000 rows x 5 features (seeds
    0-3, y as in the optimizer cell), one 8,192-row bucket, submitted
    before start() so they form one cohort: every request done, a launch
    of 4 tenants, only #1-#3 launched (#2 8 and #3 9 a search iteration,
-   #1 as many as the four solo runs together), one cache miss then hits,
+   each iteration the shield retried counted again, read from the
+   requests' fault records; #1 as many as the four solo runs together,
+   give or take a retried iteration's), one cache miss then hits,
    each fingerprint equal to the request's run alone on a fresh server;
    then a child server takes requests 0 and 1 and SIGKILLs itself at the
    first checkpoint, and a server over the same root finishes both with
    the unkilled fingerprints. Prints requests/s, seconds a cohort round,
    peak memory.
-33. equation_search at the optimizer cell, DIAG_CYCLES = 10 cycles,
+33. equation_search at the optimizer cell, DIAG_CYCLES = 5 cycles,
    DIAG_ITERS = 3 iterations, telemetry on, ledger/pulse/gauge off / on /
    on / off: the state bit-identical across turns, ledger.jsonl valid,
    gauge memory events with torch.cuda bytes, `telemetry timeline`
@@ -342,6 +344,22 @@ Phases (any failure exits nonzero and prints no result line):
    elementwise loss abs(p - t) in a parametric, a float64 and a bf16
    search (the last with phase 37's operators): each on its forms alone by
    the launch counters.
+
+39. Multi-device search (parallel/, mesh/) at the optimizer cell's full
+   width (512 islands x 256, tournament 16, maxsize 30, + - * / exp abs
+   cos, 10,000 rows x 5 from seed 0, the optimizer on) at MESH_CYCLES = 10
+   cycles, one iteration each: (a) in a 1-rank nccl group on cuda:0, the
+   plain Engine, the mesh runtime (MeshEngine) and the legacy sharded
+   runtime (Engine(plan=)) from the same init, the digests of pops, hof and
+   num_evals of both runtimes equal to the plain Engine's, each with #1 11,
+   #2 8 and #3 9 launches; (b) two gloo ranks spawned on the one card
+   (NCCL refuses two ranks on one device; each rank and the pair under
+   MESH_TIMEOUT_S): with the optimizer off the 2-shard MeshEngine's
+   digests equal the unsharded Engine's from (a)'s process, with it on
+   finite populations, a hall of fame that decodes and migration that
+   moved genomes across the shards; each rank's s/iteration, gather bytes
+   and seconds, launches of #1-#3 and peak memory; (c) one dedup_exchange
+   (rows = shard_unique + local_dup, shard_unique >= global_unique).
 
 Every file a phase writes goes to a temporary directory, removed at the
 end. Each phase prints its seconds when the next one starts. The line before the last is the kernel table as JSON; the last line is
@@ -3418,9 +3436,9 @@ PAD_REAL = 6000             # phase 31's real rows (phase 3's and 4's first 6,00
 PAD_BUCKET = 8192           # their admission bucket (serve/admission.py shape_bucket)
 PLAIN_SUBSET = 256          # trees of #2 and #3 whose plain versions are held padded/unpadded
 SERVE_ROWS = (5000, 6000, 7000, 8000)   # phase 32's requests, seeds 0-3: one 8,192-row bucket
-SERVE_CYCLES = 10
+SERVE_CYCLES = 5
 SERVE_ITERS = 2
-DIAG_CYCLES = 10
+DIAG_CYCLES = 5
 DIAG_ITERS = 3
 
 
@@ -3547,6 +3565,21 @@ def serve_child(root: str, device: str = "cuda") -> None:
     print("child: finished without being killed", flush=True)
 
 
+def serve_retries(root, ids):
+    """The iterations the shield retried in each request, from the fault
+    records of its flight-recorder bundle (a fault dumps it)."""
+    out = {}
+    for rid in ids:
+        path = os.path.join(root, "requests", rid, rid, "pulse_bundle.json")
+        events = []
+        if os.path.exists(path):
+            with open(path) as f:
+                events = json.load(f).get("events", [])
+        out[rid] = sum(1 for e in events if e.get("event") == "fault"
+                       and e.get("kind") == "retry")
+    return out
+
+
 def serve_events(root):
     with open(os.path.join(root, "serve_telemetry.jsonl")) as f:
         return [json.loads(line) for line in f]
@@ -3598,14 +3631,22 @@ def phase_server(torch, sr, dev, out_base, card):
           f"{stats['hit_rate']})")
     print(f"  launches {launches}")
     check("a launch holds 4 tenants", max(sizes, default=0) == 4)
-    opt = SERVE_ITERS * len(ids)
-    check("only #1-#3 launched, #2 8 and #3 9 a search iteration",
+    # A retried iteration (graftshield: an out-of-memory of one of the
+    # four tenants sharing the card) runs its launches again, up to a whole
+    # iteration's: the rule counts it from the requests' fault records.
+    retries = serve_retries(root, ids)
+    print(f"  {card}: shield retries of an iteration by request {retries}")
+    opt, extra = SERVE_ITERS * len(ids), sum(retries.values())
+    within = lambda n, per: per * opt <= n <= per * (opt + extra)
+    check("only #1-#3 launched, #2 8 and #3 9 a search iteration (and a retried one's)",
           launches == expect(launches, program_eval=launches["program_eval"],
-                             program_multi=8 * opt, program_grad=9 * opt)
-          and launches["program_eval"] > 0)
+                             program_multi=launches["program_multi"],
+                             program_grad=launches["program_grad"])
+          and launches["program_eval"] > 0 and within(launches["program_multi"], 8)
+          and within(launches["program_grad"], 9))
     check("cache: one miss, then hits", stats["misses"] == 1 and stats["hits"] == len(ids) - 1)
     packed = [s["result"]["fingerprint"] for s in snaps]
-    solo_eval = 0
+    solo_eval = solo_retries = 0
     for i in range(len(ids)):
         solo_root = os.path.join(out_base, f"serve_solo{i}")
         solo = SearchServer(solo_root, pack=PackPolicy(), device=dev)
@@ -3617,10 +3658,13 @@ def phase_server(torch, sr, dev, out_base, card):
         s = solo.wait(rid, timeout=600)
         solo.stop(drain=True, timeout=60)
         solo_eval += next(k.launches for k in kernels() if k.name == "program_eval")
+        solo_retries += sum(serve_retries(solo_root, [rid]).values())
         print(f"  request {i} alone: {time.perf_counter() - t1:.2f} s ({card}), fingerprint "
               f"{s['result']['fingerprint'][:16]}, packed {packed[i][:16]}")
         check(f"request {i}: packed fingerprint == solo", s["result"]["fingerprint"] == packed[i])
-    check("#1's launches packed == the solo runs' sum", launches["program_eval"] == solo_eval)
+    check("#1's launches packed == the solo runs' sum (give or take a retried iteration's)",
+          abs(launches["program_eval"] - solo_eval)
+          <= (SERVE_CYCLES + 1) * (extra + solo_retries))
     # Crash replay: a child server takes requests 0 and 1, dies by SIGKILL
     # at its first checkpoint; a server over the same root finishes both.
     # The child needs the card's memory: this process's servers are gone,
@@ -4741,6 +4785,199 @@ def phase_dtype_forms(torch, sr, dev, card):
     return list(rows.values()), user_route
 
 
+MESH_CYCLES = 10            # phase 39's depth (one iteration of each run)
+MESH_RANKS = 2              # phase 39(b): two gloo ranks on the one card
+MESH_TIMEOUT_S = 300        # each group's collectives and the ranks' deadline
+MESH_ONE_RANK_BACKEND = "nccl"
+MESH_POP = 256              # members per island (the optimizer cell's)
+
+
+def state_digests(state):
+    """Digests of a full state's populations, hall of fame and evaluation
+    count (phase 39's bit-identity)."""
+    from symbolicregression_jl_tpu_torch.api.checkpoint import map_arrays
+
+    def leaves(obj):
+        out = []
+        map_arrays(obj, out.append)
+        return out
+
+    return {"pops": digest(*leaves(state.pops)), "hof": digest(*leaves(state.hof)),
+            "num_evals": digest(state.num_evals)}
+
+
+def mesh_rank_run(ncycles: int = MESH_CYCLES, islands: int = 0, population_size: int = 256,
+                  device: str = "cuda"):
+    """Phase 39(b) on one rank of a gloo group of ranks sharing the card
+    (run by parallel/launch.py in a process of its own): the optimizer
+    cell's MeshEngine for one iteration with the optimizer off, then with
+    it on, each from its init; a dedup-key exchange after the second.
+    Returns each run's s/iteration, launches, gather bytes and seconds,
+    peak memory, full-state digests and checks."""
+    import torch
+
+    import symbolicregression_jl_tpu_torch as sr
+    from symbolicregression_jl_tpu_torch.evolve import rng
+    from symbolicregression_jl_tpu_torch.mesh import MeshEngine, MeshPlan
+    from symbolicregression_jl_tpu_torch.mesh.dryrun import (check_migration_mixed,
+                                                             check_populations)
+    from symbolicregression_jl_tpu_torch.parallel import multihost
+    from symbolicregression_jl_tpu_torch.parallel.collectives import collective_stats
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    X, y = bench_data()
+    ds = sr.make_dataset(X, y, device=dev)
+    plan = MeshPlan.build()
+    out = {"rank": multihost.process_index(), "runs": {}}
+    for optimize in (False, True):
+        options = bench_options(sr, ncycles, islands, optimize=optimize,
+                                population_size=population_size)
+        ds.update_baseline_loss(options.elementwise_loss)
+        engine = MeshEngine(options, X.shape[1], plan, device=dev)
+        data = plan.place_data(ds.data)
+        state = engine.init_state(rng.key(0), data, options.populations)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for k in kernels():
+            k.launches = 0
+        collective_stats(reset=True)
+        t0 = time.perf_counter()
+        state = engine.run_iteration(state, data, options.maxsize)
+        if cuda:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        run = {"s_per_iteration": dt,
+               "launches": {k.name: k.launches for k in kernels() if k.launches},
+               "collectives": collective_stats(),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+               "local_islands": int(state.birth.shape[0])}
+        full = plan.gather_state(state)
+        run["digests"] = state_digests(full)
+        if optimize:
+            check_populations(engine, state, options)
+            check_migration_mixed(engine, state, options)
+            run["checks"] = "finite populations, a hall of fame that decodes, mixed migration"
+            run["exchange"] = engine.dedup_exchange(state)
+        out["runs"]["on" if optimize else "off"] = run
+    return out
+
+
+def phase_mesh(torch, sr, dev, out_base, card, ncycles: int = MESH_CYCLES):
+    """Phase 39: the multi-device search at the optimizer cell's width (the
+    module docstring's 39). Returns each kernel's launches per rank in the
+    2-rank run and in the 1-rank group's mesh run."""
+    from symbolicregression_jl_tpu_torch.evolve import rng
+    from symbolicregression_jl_tpu_torch.evolve.engine import Engine
+    from symbolicregression_jl_tpu_torch.mesh import MeshEngine, MeshPlan
+    from symbolicregression_jl_tpu_torch.parallel import multihost
+    from symbolicregression_jl_tpu_torch.parallel.launch import run_ranks
+
+    check = Checks()
+    X, y = bench_data()
+    ds = sr.make_dataset(X, y, device=dev)
+    main_counts = dict(program_eval=ncycles + 1, program_multi=8, program_grad=9)
+
+    def one(engine, options):
+        """init and one iteration: (digests, launches, seconds)."""
+        ds.update_baseline_loss(options.elementwise_loss)
+        state = engine.init_state(rng.key(0), ds.data, options.populations)
+        torch.cuda.synchronize()
+        for k in kernels():
+            k.launches = 0
+        t0 = time.perf_counter()
+        state = engine.run_iteration(state, ds.data, options.maxsize)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return state_digests(state), {k.name: k.launches for k in kernels()}, dt
+
+    # (a) a 1-rank group on cuda:0
+    store = os.path.join(out_base, "mesh_store")
+    multihost.initialize_multihost(num_processes=1, process_id=0, init_method="file://" + store,
+                                   backend=MESH_ONE_RANK_BACKEND, timeout_s=MESH_TIMEOUT_S)
+    try:
+        options = bench_options(sr, ncycles, population_size=MESH_POP)
+        print(f"  (a) a 1-rank {multihost.backend()} group on {dev}: islands "
+              f"{options.populations} x {options.population_size}, {ncycles} cycles, the "
+              f"optimizer on, rows {X.shape[0]} x {X.shape[1]}")
+        runs = {}
+        for name, make in (
+                ("plain Engine", lambda: Engine(options, X.shape[1], device=dev)),
+                ("MeshEngine", lambda: MeshEngine(options, X.shape[1], MeshPlan.build(),
+                                                  device=dev)),
+                ("legacy sharded runtime", lambda: Engine(options, X.shape[1], device=dev,
+                                                          plan=MeshPlan.build()))):
+            torch.cuda.reset_peak_memory_stats()
+            runs[name] = one(make(), options)
+            d, launches, dt = runs[name]
+            print(f"  {card}: {name}: {dt:.3f} s/iteration, launches "
+                  f"{ {k: v for k, v in launches.items() if v} }, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, digests {d}")
+            check(f"{name}: #1 {ncycles + 1}, #2 8, #3 9 launches, no other",
+                  launches == expect(launches, **main_counts))
+        for name in ("MeshEngine", "legacy sharded runtime"):
+            check(f"{name} bit-identical to the plain Engine (pops, hof, num_evals)",
+                  runs[name][0] == runs["plain Engine"][0])
+        off = bench_options(sr, ncycles, optimize=False, population_size=MESH_POP)
+        unsharded_off, _, dt = one(Engine(off, X.shape[1], device=dev), off)
+        print(f"  {card}: unsharded Engine, optimizer off: {dt:.3f} s/iteration, digests "
+              f"{unsharded_off}")
+    finally:
+        multihost.shutdown()
+    one_rank = runs["MeshEngine"][1]
+
+    # (b) two gloo ranks on the one card, (c) the dedup exchange
+    here = os.path.dirname(os.path.abspath(__file__))
+    logs = []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks("chip_smoke:mesh_rank_run", MESH_RANKS,
+                      kwargs={"ncycles": ncycles, "islands": ISLANDS, "population_size": MESH_POP,
+                              "device": str(dev)}, backend="gloo",
+                      timeout_s=MESH_TIMEOUT_S, sys_path=[here],
+                      workdir=os.path.join(out_base, "mesh_ranks"), logs=logs)
+    print(f"  (b) {MESH_RANKS} gloo ranks on {dev}: {time.perf_counter() - t0:.1f} s with "
+          f"their start-up")
+    for r in ranks:
+        for mode, run in r["runs"].items():
+            c = run["collectives"]
+            print(f"  {card}: rank {r['rank']}, optimizer {mode}: {run['local_islands']} "
+                  f"islands, {run['s_per_iteration']:.3f} s/iteration, gathers "
+                  f"{c['collectives']} collectives, {c['bytes']} B received in "
+                  f"{c['seconds']:.3f} s, launches {run['launches']}, peak "
+                  f"{run['peak_gib'] or 0.0:.3f} GiB")
+    off_runs = [r["runs"]["off"] for r in ranks]
+    on_runs = [r["runs"]["on"] for r in ranks]
+    check("optimizer off: the 2-shard MeshEngine bit-identical to the unsharded Engine",
+          all(run["digests"] == unsharded_off for run in off_runs))
+    check("optimizer on: both ranks hold the same state", on_runs[0]["digests"]
+          == on_runs[1]["digests"])
+    check("optimizer on: " + on_runs[0]["checks"], all("checks" in run for run in on_runs))
+    for run in on_runs:
+        check(f"optimizer on: rank launches #1 {ncycles + 1}, #2 8, #3 9",
+              all(run["launches"].get(k, 0) == v for k, v in main_counts.items())
+              and set(run["launches"]) == set(main_counts))
+    for run in off_runs:
+        check(f"optimizer off: rank launches #1 {ncycles + 1} only",
+              run["launches"] == {"program_eval": ncycles + 1})
+    ex = on_runs[0]["exchange"]
+    print(f"  (c) dedup exchange: {ex['rows']} rows, {ex['shard_unique']} shard-unique "
+          f"{ex['per_shard_unique']}, {ex['global_unique']} global-unique, local dup "
+          f"{ex['local_dup']}, cross-shard dup {ex['cross_shard_dup']}, "
+          f"{ex['exchanged_bytes']} B in {ex['exchange_time_s']:.4f} s ({card})")
+    check("exchange: rows = shard_unique + local_dup",
+          ex["rows"] == ex["shard_unique"] + ex["local_dup"])
+    check("exchange: shard_unique >= global_unique", ex["shard_unique"] >= ex["global_unique"])
+    check("exchange: rows = islands x members", ex["rows"] == ISLANDS * MESH_POP)
+    if check.failures:
+        for i, log in enumerate(logs):
+            print(f"  rank {i} output:\n{log[-3000:]}")
+    check.raise_if_failed("mesh")
+    return ({k: on_runs[0]["launches"].get(k, 0) for k in main_counts},
+            {k: one_rank.get(k, 0) for k in main_counts})
+
+
 def _build_or_error(cuda_build, header):
     """Builds every source with ``header``; returns the error instead of
     raising it (the caller re-raises it on its own thread)."""
@@ -4968,6 +5205,16 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
         if row["name"] in ("program_predict user ops", "program_predict_vjp user ops"):
             row["launches"] = user_route[row["name"][:-len(" user ops")]]
     rows += drows
+
+    header("[39] multi-device search: a 1-rank nccl group, two gloo ranks on the card, the "
+           "dedup exchange")
+    per_rank, one_rank = phase_mesh(torch, sr, dev, out_base, card)
+    for row in rows:
+        if row["name"] in per_rank:
+            row["mesh_launches_per_rank"] = per_rank[row["name"]]
+            row["mesh_launches_1rank"] = one_rank[row["name"]]
+            if not per_rank[row["name"]] or not one_rank[row["name"]]:
+                raise RuntimeError(f"phase 39 launched {row['name']} no time")
 
     header("")
     print(card)

@@ -14,18 +14,26 @@ checks). The digest is verified on write (the ``.bak`` file is read back
 before the atomic replace) and on load, so a truncated or bit-flipped file
 raises :class:`CheckpointCorruptError` and never a raw unpickling error;
 ``shield/checkpoints.py`` then falls back to the previous rolling file.
-Rank shards of a multi-process run come with the multi-device slice.
+
+A multi-process run (``torch.distributed``, the island mesh) writes one
+file per rank, ``path.rank{k}``, holding that rank's block of the islands
+and its place in the mesh (``SearchState.placement``); no collective is
+needed to save. Loading a base path whose rank files exist reassembles
+the full state from the whole set (checking that every rank's file is
+there and of the same generation); the search then places it again on
+the ranks, so a kill and resume under shards stays bit-identical.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import hashlib
 import os
 import pickle
 import types
 import warnings
-from typing import TYPE_CHECKING, Optional
+from typing import TYPE_CHECKING, List, Optional
 
 import numpy as np
 import torch
@@ -38,7 +46,8 @@ if TYPE_CHECKING:  # pragma: no cover
     from .search import SearchState
 
 __all__ = ["CheckpointCorruptError", "save_search_state", "load_search_state",
-           "options_compat_header", "options_fingerprint"]
+           "options_compat_header", "options_fingerprint", "rank_shard_paths",
+           "checkpoint_exists"]
 
 _FORMAT_VERSION = 2
 _ENVELOPE_MAGIC = "srckpt.v2"
@@ -65,7 +74,7 @@ def options_compat_header(options: "Options") -> dict:
                      st.n_variables)
         code = getattr(st.combine, "__code__", None)
         fp = (getattr(st.combine, "__qualname__", repr(st.combine)),
-              _code_digest(code) if code is not None else None)
+              _function_digest(st.combine) if code is not None else None)
     header = {f: getattr(options, f) for f in type(options)._WARM_START_FIELDS
               if f != "expression_spec"}
     header["operators"] = (tuple(op.name for op in options.operators.unary),
@@ -184,10 +193,27 @@ def options_fingerprint(options: "Options") -> Optional[str]:
 
 
 def _code_digest(code) -> str:
-    """Process-stable digest of a code object and its nested code objects."""
+    """Process-stable digest of a code object and its nested code objects:
+    their bytecode, constants and the names they read (``torch.abs`` and
+    ``torch.square`` differ only in ``co_names``)."""
     h = hashlib.sha1(code.co_code)
+    h.update(repr(code.co_names).encode())
     for c in code.co_consts:
         h.update(_code_digest(c).encode() if hasattr(c, "co_code") else repr(c).encode())
+    return h.hexdigest()[:16]
+
+
+def _function_digest(fn, depth: int = 3) -> str:
+    """A function's code digest with those of the functions its closure
+    holds (``template_spec``'s combiner wraps the user's function in one)."""
+    h = hashlib.sha1(_code_digest(fn.__code__).encode())
+    for cell in getattr(fn, "__closure__", None) or ():
+        try:
+            v = cell.cell_contents
+        except ValueError:   # an empty cell
+            continue
+        if depth > 0 and getattr(v, "__code__", None) is not None:
+            h.update(_function_digest(v, depth - 1).encode())
     return h.hexdigest()[:16]
 
 
@@ -288,9 +314,31 @@ def _read_payload(path: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def rank_shard_paths(path: str, process_count: Optional[int] = None) -> List[str]:
+    """The rank files of a base checkpoint path: with ``process_count``
+    the expected set, else the ``path.rank<int>`` files that exist, in
+    rank order (a torn ``.rank2.bak`` does not count)."""
+    if process_count is not None:
+        return [f"{path}.rank{k}" for k in range(process_count)]
+    found = []
+    for p in glob.glob(glob.escape(path) + ".rank*"):
+        try:
+            found.append((int(p.rsplit(".rank", 1)[1]), p))
+        except ValueError:
+            continue
+    return [p for _, p in sorted(found)]
+
+
+def checkpoint_exists(path: str) -> bool:
+    """A checkpoint file, or a set of rank files, is at ``path``."""
+    return os.path.exists(path) or bool(rank_shard_paths(path))
+
+
 def save_search_state(path: str, state: "SearchState") -> None:
-    """Write a SearchState (``return_state=True``'s result) to ``path``."""
-    _write_envelope(path, {
+    """Write a SearchState (``return_state=True``'s result) to ``path``;
+    a rank's block of a multi-process run (``state.placement``) goes to
+    ``path.rank{k}`` with its place in the mesh."""
+    payload = {
         "format_version": _FORMAT_VERSION,
         "compat": options_compat_header(state.options),
         "num_evals": float(state.num_evals),
@@ -298,7 +346,12 @@ def save_search_state(path: str, state: "SearchState") -> None:
         "key_impl": "threefry2x32",
         "nfeatures": state.nfeatures,
         "device_states": [_to_numpy_state(ds) for ds in state.device_states],
-    })
+    }
+    placement = getattr(state, "placement", None)
+    if placement is not None:
+        payload["multihost"] = dict(placement)
+        path = f"{path}.rank{placement['rank']}"
+    _write_envelope(path, payload)
 
 
 def _check_compat(payload: dict, options: "Options") -> None:
@@ -323,8 +376,15 @@ def load_search_state(path: str, options: "Options", device=None) -> "SearchStat
     from .search import SearchState
 
     if not os.path.exists(path):
+        rank_files = rank_shard_paths(path)
+        if rank_files:
+            return _load_rank_set(path, rank_files, options, device)
         raise FileNotFoundError(path)
     payload = _read_payload(path)
+    if "multihost" in payload:
+        # A rank file passed directly: load the whole set it belongs to.
+        base = path.rsplit(".rank", 1)[0]
+        return _load_rank_set(base, rank_shard_paths(base), options, device)
     if payload.get("key_impl", "threefry2x32") != "threefry2x32":
         raise CheckpointCorruptError(
             f"checkpoint {path} uses PRNG key impl {payload['key_impl']!r}; the port draws "
@@ -335,3 +395,60 @@ def load_search_state(path: str, options: "Options", device=None) -> "SearchStat
         hofs=[], options=options, num_evals=float(payload["num_evals"]),
         nfeatures=payload.get("nfeatures"),
         iterations_done=int(payload.get("iterations_done", 0)))
+
+
+def _concat_islands(blocks):
+    """Island blocks of one numpy state tree, joined along the island axis."""
+    head = blocks[0]
+    if isinstance(head, np.ndarray):
+        return np.concatenate(blocks, axis=0)
+    return dataclasses.replace(head, **{
+        f.name: _concat_islands([getattr(b, f.name) for b in blocks])
+        for f in dataclasses.fields(head) if f.init})
+
+
+def _load_rank_set(base: str, rank_files: List[str], options: "Options", device):
+    """The full state of a multi-process checkpoint from its rank files."""
+    from .search import SearchState
+
+    if not rank_files:
+        raise FileNotFoundError(base)
+    payloads = [_read_payload(p) for p in rank_files]
+    places = [p.get("multihost") for p in payloads]
+    counts = {pl["process_count"] if pl else None for pl in places}
+    if len(counts) != 1 or counts.pop() != len(payloads):
+        raise CheckpointCorruptError(
+            f"multi-process checkpoint {base} has {len(payloads)} rank file(s) but they "
+            f"declare process counts {sorted(str(pl and pl['process_count']) for pl in places)}")
+    # The same generation on every rank: a rank that died at another
+    # iteration leaves files of another state.
+    gens = {(int(p.get("iterations_done", 0)), float(p["num_evals"])) for p in payloads}
+    if len(gens) != 1:
+        raise CheckpointCorruptError(
+            f"multi-process checkpoint {base} mixes generations: the rank files disagree on "
+            f"(iterations_done, num_evals): {sorted(gens)}")
+    head = payloads[0]
+    if head.get("key_impl", "threefry2x32") != "threefry2x32":
+        raise CheckpointCorruptError(f"checkpoint {base} uses PRNG key impl "
+                                     f"{head['key_impl']!r}")
+    _check_compat(head, options)
+    n_shards = int(places[0]["n_island_shards"])
+    by_block = {}
+    for p, pl in zip(payloads, places):
+        if int(pl["data_index"]) == 0:
+            by_block[int(pl["island_index"])] = p
+    if sorted(by_block) != list(range(n_shards)):
+        raise CheckpointCorruptError(
+            f"multi-process checkpoint {base} is missing island shards: has "
+            f"{sorted(by_block)} of {n_shards}")
+    device_states = []
+    for j in range(len(head["device_states"])):
+        blocks = [by_block[i]["device_states"][j] for i in range(n_shards)]
+        merged = dataclasses.replace(
+            blocks[0], pops=_concat_islands([b.pops for b in blocks]),
+            birth=_concat_islands([b.birth for b in blocks]),
+            ref=_concat_islands([b.ref for b in blocks]))
+        device_states.append(_to_device_state(merged, device))
+    return SearchState(device_states=device_states, hofs=[], options=options,
+                       num_evals=float(head["num_evals"]), nfeatures=head.get("nfeatures"),
+                       iterations_done=int(head.get("iterations_done", 0)))

@@ -68,8 +68,11 @@ class SRRegressor:
     ``device_scale="auto"`` applies ``_DEVICE_SCALE_CONFIG`` (512 islands
     x 256 members, tournament 16, 100 cycles) where the JAX package does
     on its accelerator: here when ``device`` is CUDA, unless the caller
-    sets any of those four options. ``device`` replaces the JAX package's
-    ``devices``: the port runs on one device."""
+    sets any of those four options. ``device`` is this process's device;
+    ``devices`` (the ranks of a ``torch.distributed`` group, None for the
+    whole group) and ``n_data_shards`` are the JAX package's, passed to
+    ``RuntimeOptions``: in a process group every rank fits the same
+    estimator."""
 
     _MULTITARGET = False
 
@@ -80,8 +83,9 @@ class SRRegressor:
     def __init__(self, *, niterations: int = 40, selection_method: Callable = choose_best,
                  seed: Optional[int] = None, verbosity: int = 0, progress: bool = False,
                  run_id: Optional[str] = None, warm_start: bool = True,
-                 device: Optional[Union[str, torch.device]] = None,
-                 device_scale: Union[str, bool] = "auto", **option_kwargs: Any):
+                 device: Optional[Union[str, torch.device]] = None, devices=None,
+                 n_data_shards: int = 1, device_scale: Union[str, bool] = "auto",
+                 **option_kwargs: Any):
         self.niterations = int(niterations)
         self.selection_method = selection_method
         self.seed = seed
@@ -90,6 +94,8 @@ class SRRegressor:
         self.run_id = run_id
         self.warm_start = bool(warm_start)
         self.device = device
+        self.devices = devices
+        self.n_data_shards = int(n_data_shards)
         self.device_scale = device_scale
         self.option_kwargs = dict(option_kwargs)
         self.options_: Optional[Options] = None
@@ -164,7 +170,8 @@ class SRRegressor:
             if niterations == 0:
                 self._build_report()
                 return self
-        ropt = RuntimeOptions(niterations=niterations, verbosity=self.verbosity,
+        ropt = RuntimeOptions(niterations=niterations, devices=self.devices,
+                              n_data_shards=self.n_data_shards, verbosity=self.verbosity,
                               progress=self.progress, seed=self.seed, return_state=True)
         if self.run_id is not None:
             ropt.run_id = self.run_id

@@ -1,10 +1,11 @@
-"""`equation_search`: the search API and its host loop on one device.
+"""`equation_search`: the search API and its host loop, on one device or
+over the ranks of a ``torch.distributed`` group (the island mesh).
 
 Port of ``symbolicregression_jl_tpu/api/search.py`` for plain,
 parametric (``Options(expression_spec=ParametricExpressionSpec(...))``
 with ``extra={"class": ...}``) and template expressions
 (``Options(expression_spec=TemplateExpressionSpec(...))``, parameter
-vectors included), one or several outputs, on one device. The loop runs
+vectors included), one or several outputs. The loop runs
 `Engine.run_iteration` for every output ``niterations`` times with the
 maxsize warm-up, decodes the halls of fame after each iteration, writes
 their CSVs and a rolling checkpoint every ``checkpoint_every_n``
@@ -64,6 +65,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import re
 import sys
 import time
 import uuid
@@ -73,7 +75,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..core.dataset import Dataset, make_dataset
+from ..core.dataset import Dataset, DeviceData, make_dataset
 from ..core.options import Options, check_supported, float_dtype
 from ..device import resolve_device
 from ..evolve import rng
@@ -82,6 +84,7 @@ from ..evolve.population import init_params
 from ..evolve.step import update_hof
 from ..ledger.context import mint_run_trace
 from ..ledger.ledger import CostLedger
+from ..mesh.engine import MeshEngine, make_engine
 from ..models.spec import ParametricExpressionSpec
 from ..ops.encoding import TreeBatch, encode_population
 from ..ops.tree import Node, parse_expression
@@ -96,7 +99,7 @@ from .hall_of_fame import HallOfFame, save_hall_of_fame_csv, string_dominating_p
 
 __all__ = ["RuntimeOptions", "SearchState", "equation_search", "get_cur_maxsize", "warmup"]
 
-MULTI_DEVICE_SLICE = "the multi-device slice (ROADMAP.md queue 1 item 9)"
+_DEFAULT_RUN_ID_RE = re.compile(r"^\d{8}_\d{6}_[0-9a-f]{6}$")
 
 
 def _default_run_id() -> str:
@@ -107,10 +110,14 @@ def _default_run_id() -> str:
 @dataclasses.dataclass
 class RuntimeOptions:
     """Execution (not search) parameters, with the JAX package's names
-    and defaults. The port runs on one device (``equation_search``'s
-    ``device``); a field that asks for devices or meshes (the
-    multi-device slice) raises NotImplementedError naming that slice
-    when it leaves its default. ``progress`` draws a progress bar,
+    and defaults. ``devices`` are the ranks of the ``torch.distributed``
+    group the search spreads over (None: the whole group; a process with
+    no group is the single-device path), ``n_data_shards`` splits the
+    dataset's rows over that many ranks of each island shard,
+    ``mesh_runtime`` takes the mesh runtime (``mesh/engine.MeshEngine``)
+    over the legacy one, with per-shard finalize dedup
+    (``mesh_dedup``) and a dedup-key exchange every
+    ``mesh_exchange_every`` iterations. ``progress`` draws a progress bar,
     ``logger`` (an ``SRLogger`` or anything with ``log_iteration``) is
     called every ``log_every_n`` iterations, and ``input_stream`` is
     watched for a 'q' that stops the search (``user_quit``)."""
@@ -150,23 +157,46 @@ class RuntimeOptions:
     gauge_limit_bytes: Optional[int] = None
 
 
-# RuntimeOptions fields whose subsystems come with later slices: each
-# must keep its default.
-_RUNTIME_LATER = {
-    "devices": (None, MULTI_DEVICE_SLICE),
-    "n_data_shards": (1, MULTI_DEVICE_SLICE),
-    "mesh_runtime": (False, MULTI_DEVICE_SLICE),
-    "mesh_dedup": (True, MULTI_DEVICE_SLICE),
-    "mesh_exchange_every": (8, MULTI_DEVICE_SLICE),
-}
+def _mesh_plan(ropt: RuntimeOptions, options: Options):
+    """The island mesh of this search, or None for the single-device path
+    (no process group, no ``devices``, one data shard, the legacy runtime).
+    The island-shard count is the largest divisor of ``populations`` that
+    fits the ranks (spare ranks idle rather than resize the user's
+    islands), as in the JAX package. Every rank of the process group
+    makes the mesh's subgroups here."""
+    from ..mesh.plan import MeshPlan
+    from ..parallel import multihost
 
-
-def _check_runtime_options(ropt: RuntimeOptions) -> None:
-    for name, (default, where) in _RUNTIME_LATER.items():
-        if getattr(ropt, name) != default:
-            raise NotImplementedError(
-                f"RuntimeOptions({name}={getattr(ropt, name)!r}) is not in the PyTorch port "
-                f"yet; it comes with {where}.")
+    grouped = multihost.is_initialized()
+    if (not grouped and ropt.devices is None and ropt.n_data_shards == 1
+            and not ropt.mesh_runtime):
+        return None
+    ranks = list(ropt.devices) if ropt.devices is not None else list(
+        range(multihost.process_count()))
+    bad = [r for r in ranks if isinstance(r, bool) or not isinstance(r, (int, np.integer))]
+    if bad:
+        raise ValueError(f"RuntimeOptions(devices=...) are ranks of the torch.distributed "
+                         f"group (ints), not {bad!r}; a rank's device is its own")
+    if not grouped and len(ranks) > 1:
+        raise ValueError(
+            f"RuntimeOptions(devices={ropt.devices!r}) names {len(ranks)} ranks but this process "
+            "is in no torch.distributed group: call parallel.initialize_multihost first")
+    max_shards = max(len(ranks) // ropt.n_data_shards, 1)
+    n_island_shards = max(d for d in range(1, max_shards + 1) if options.populations % d == 0)
+    plan = MeshPlan.build(ranks, n_island_shards=n_island_shards,
+                          n_data_shards=ropt.n_data_shards, sharded_dedup=ropt.mesh_dedup,
+                          dedup_exchange_every=max(int(ropt.mesh_exchange_every), 0))
+    if ropt.mesh_runtime and ropt.n_data_shards != 1:
+        raise ValueError(
+            "mesh_runtime shards the island axis only; data-row sharding (n_data_shards > 1) "
+            "stays on the legacy GSPMD path (docs/SCALING.md)")
+    plan.mesh.groups()
+    if not plan.mesh.contains():
+        raise ValueError(
+            f"rank {plan.mesh.rank} is not in the search's mesh (ranks {plan.mesh.ranks}: "
+            f"{n_island_shards} island shard(s) of {options.populations} islands x "
+            f"{ropt.n_data_shards} data shard(s))")
+    return plan
 
 
 @dataclasses.dataclass
@@ -184,6 +214,10 @@ class SearchState:
     num_evals: float = 0.0
     nfeatures: Optional[List[int]] = None
     iterations_done: int = 0
+    # A rank's block of a multi-process run, as its checkpoint holds it:
+    # the device states hold that rank's islands (api/checkpoint.py).
+    # None for a full state.
+    placement: Optional[Dict[str, Any]] = None
 
 
 def _on_device(state: SearchDeviceState, dev: torch.device) -> SearchDeviceState:
@@ -449,8 +483,15 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
     dimensional analysis: a tree that violates them pays
     ``options.dimensional_constraint_penalty`` (1000 by default) on its
     cost. ``extra`` columns ride the Dataset (``class`` gives parametric
-    expressions their classes). The RuntimeOptions fields of later slices
-    raise NotImplementedError naming their slice."""
+    expressions their classes).
+
+    In a ``torch.distributed`` group (``parallel.initialize_multihost``)
+    every rank calls this with the same arguments: the islands split over
+    the ranks (``RuntimeOptions``' ``devices``, ``n_data_shards``,
+    ``mesh_runtime``), rank 0 writes the CSVs and the telemetry, every
+    rank writes its checkpoint block (``search_state.pkl.rank{k}``), and
+    every rank returns the same hall of fame (and the full state with
+    ``return_state``)."""
     options = options or Options()
     dev = resolve_device(device)
     check_supported(options, dev, dtype)
@@ -470,7 +511,19 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
         ropt.seed = seed
     elif ropt.seed is None:
         ropt.seed = options.seed
-    _check_runtime_options(ropt)
+    from ..parallel import multihost
+    from ..parallel.collectives import first_of_ranks
+
+    plan = _mesh_plan(ropt, options)
+    if multihost.process_count() > 1 and _DEFAULT_RUN_ID_RE.match(ropt.run_id):
+        # Every rank writes its checkpoint block into the same run
+        # directory: a defaulted (random) run_id becomes a seed-derived one.
+        if ropt.seed is None:
+            raise ValueError("multi-process runs need an identity shared by every rank: pass "
+                             "run_id= (the same on every rank) or a seed")
+        ropt.run_id = f"multihost_seed{ropt.seed}"
+    is_rank0 = multihost.process_index() == 0
+    multi = plan is not None and plan.mesh.size > 1
     if options.deterministic and ropt.seed is None:
         raise ValueError("deterministic=True requires a seed (pass seed= or Options(seed=...))")
     if resume is not None and saved_state is not None:
@@ -517,6 +570,7 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
 
     engines: List[Engine] = []
     states: List[SearchDeviceState] = []
+    datas: List[DeviceData] = []
     for j, ds in enumerate(datasets):
         n_params = n_classes = 0
         if isinstance(options.expression_spec, ParametricExpressionSpec):
@@ -533,10 +587,14 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
         if ropt.engine_cache is not None:
             engine = ropt.engine_cache.get_engine(
                 options, nfeatures=ds.nfeatures, dtype=edtype, n_params=n_params,
-                n_classes=n_classes, device=dev, rows=int(ds.data.y.shape[0]))
+                n_classes=n_classes, device=dev, rows=int(ds.data.y.shape[0]), plan=plan,
+                mesh_runtime=ropt.mesh_runtime)
         if engine is None:
-            engine = Engine(options, ds.nfeatures, device=dev, n_params=n_params,
-                            n_classes=n_classes, dtype=edtype)
+            engine = make_engine(options, ds.nfeatures, device=dev, n_params=n_params,
+                                 n_classes=n_classes, dtype=edtype, plan=plan,
+                                 mesh_runtime=ropt.mesh_runtime)
+        # This rank's rows (all of them with one data shard).
+        data = plan.place_data(ds.data) if plan is not None else ds.data
         template = engine.template
         if template is not None and ds.nfeatures != template.n_variables:
             raise ValueError(f"Template combiner consumes {template.n_variables} variables "
@@ -560,32 +618,43 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
                 raise ValueError(
                     f"Warm start incompatible: saved parametric state has "
                     f"{state.pops.params.shape[-1]} classes but the dataset has {ds.n_classes}")
+            if plan is not None:
+                state = plan.place_state(state)   # the full saved state: this rank's block
         else:
-            state = engine.init_state(k_init, ds.data, options.populations)
+            state = engine.init_state(k_init, data, options.populations)
+        seeding = (saved_state is None or j >= len(saved_state.device_states)) and bool(
+            initial_population) or guesses is not None
+        if plan is not None and seeding:
+            # Seeds go into the full state, as the unsharded search seeds it.
+            state = plan.gather_state(state)
+        if saved_state is None or j >= len(saved_state.device_states):
             if initial_population:
                 if template is not None:
                     enc, gparams = _encode_template_seeds(
                         engine, [(g, None) for g in initial_population], options.operators)
-                    state = _seed_population(engine, state, [], ds.data, mode="tile",
+                    state = _seed_population(engine, state, [], data, mode="tile",
                                              params=gparams, encoded=enc)
                 else:
                     trees = [_parse_guess(g, options.operators, ds.variable_names)
                              for g in initial_population]
-                    state = _seed_population(engine, state, trees, ds.data, mode="tile")
+                    state = _seed_population(engine, state, trees, data, mode="tile")
         if guesses is not None:
             gs = guesses[j] if _is_nested(guesses, len(datasets)) else guesses
             items = [g if _is_guess_pair(g) else (g, None) for g in gs]
             if template is not None:
                 enc, gparams = _encode_template_seeds(engine, items, options.operators)
-                state = _seed_population(engine, state, [], ds.data, mode="replace_worst",
+                state = _seed_population(engine, state, [], data, mode="replace_worst",
                                          params=gparams, encoded=enc)
             else:
                 trees = [_parse_guess(expr, options.operators, ds.variable_names)
                          for expr, _ in items]
-                state = _seed_population(engine, state, trees, ds.data, mode="replace_worst",
+                state = _seed_population(engine, state, trees, data, mode="replace_worst",
                                          params=[gp for _, gp in items])
+        if plan is not None and seeding:
+            state = plan.place_state(state)
         engines.append(engine)
         states.append(state)
+        datas.append(data)
 
     hofs = [HallOfFame(entries=[]) for _ in datasets]
     if saved_state is not None:
@@ -594,19 +663,37 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
                 for s, e in zip(states, engines)]
     num_evals0 = saved_state.num_evals if saved_state is not None else 0.0
     ckpt = None
+    # Only rank 0 of a multi-process run writes the CSVs, the telemetry
+    # stream and the diagnostics (they would race on the same files);
+    # every rank writes its checkpoint block.
+    io_dir = out_dir if is_rank0 else None
+    placement = None
+    if multihost.process_count() > 1:
+        placement = {"rank": multihost.process_index(),
+                     "process_count": multihost.process_count(),
+                     "island_index": plan.island_index, "data_index": plan.data_index,
+                     "n_island_shards": plan.n_island_shards,
+                     "n_data_shards": plan.n_data_shards, "n_islands": options.populations}
     if out_dir is not None:
         from ..shield.checkpoints import RollingCheckpointer
 
         ckpt = RollingCheckpointer(os.path.join(out_dir, "search_state.pkl"),
-                                   keep=options.checkpoint_keep)
+                                   keep=options.checkpoint_keep,
+                                   rank=placement["rank"] if placement else None)
 
     def total_evals() -> float:
         return num_evals0 + sum(float(s.num_evals) for s in states)
 
-    def checkpoint_state() -> SearchState:
-        return SearchState(device_states=list(states), hofs=hofs, options=options,
+    def checkpoint_state(full: bool = False) -> SearchState:
+        """The search state: this rank's blocks (a checkpoint of a
+        multi-process run), or with ``full`` the whole state (a collective
+        under a mesh)."""
+        dstates = list(states)
+        if full and plan is not None:
+            dstates = [plan.gather_state(s) for s in dstates]
+        return SearchState(device_states=dstates, hofs=hofs, options=options,
                            num_evals=total_evals(), nfeatures=[ds.nfeatures for ds in datasets],
-                           iterations_done=it)
+                           iterations_done=it, placement=None if full else placement)
 
     start_time = time.time()
     stop_reason = None
@@ -621,24 +708,27 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
     search_trace = (ropt.trace.child("search") if ropt.trace is not None
                     else mint_run_trace(ropt.run_id))
     hub = Telemetry(
-        options, run_id=ropt.run_id, out_dir=out_dir, niterations=ropt.niterations,
-        nout=len(datasets), backend=dev.type, trace=search_trace,
+        options, run_id=ropt.run_id, out_dir=io_dir, niterations=ropt.niterations,
+        nout=len(datasets), backend=dev.type, trace=search_trace, stream=is_rank0,
+        n_devices=plan.mesh.size if plan is not None else 1,
         engine_info=[{"output": j + 1, "turbo": bool(e.cfg.turbo),
                       "fuse_cost": bool(e.cfg.fuse_cost),
                       "collect_telemetry": bool(e.cfg.collect_telemetry),
-                      "n_islands": int(options.populations), "n_island_shards": 1,
-                      "nfeatures": int(e.nfeatures), "mesh_runtime": False}
+                      "n_islands": int(options.populations),
+                      "n_island_shards": int(e.n_island_shards),
+                      "nfeatures": int(e.nfeatures),
+                      "mesh_runtime": isinstance(e, MeshEngine)}
                      for j, e in enumerate(engines)])
-    if options.use_recorder:
-        rec_path = (os.path.join(out_dir, options.recorder_file) if out_dir is not None
+    if options.use_recorder and is_rank0:
+        rec_path = (os.path.join(io_dir, options.recorder_file) if io_dir is not None
                     else options.recorder_file)
         # stream_path caps recorder_verbosity>=2 memory: iteration event
         # batches spill to disk as they are assembled (utils/recorder.py).
         recorder = Recorder(options, stream_path=rec_path + ".stream")
         hub.add_sink(RecorderSink(recorder, [ds.variable_names for ds in datasets], rec_path))
-    if ropt.logger is not None:
+    if ropt.logger is not None and is_rank0:
         hub.add_sink(LoggerSink(ropt.logger, every=ropt.log_every_n))
-    if ropt.progress:
+    if ropt.progress and is_rank0:
         hub.add_sink(ProgressSink(ProgressBar(ropt.niterations)))
     set_nvtx(dev.type == "cuda")
 
@@ -649,14 +739,14 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
     from ..pulse import AnomalyDetector, FlightRecorder, SignalArm, TraceCapture
 
     pulse_rec = pulse_cap = pulse_sig = pulse_det = None
-    if ropt.pulse:
+    if ropt.pulse and is_rank0:
         pulse_rec = FlightRecorder(
             capacity=ropt.pulse_ring, run_id=ropt.run_id, hub=hub,
-            path=os.path.join(out_dir, "pulse_bundle.json") if out_dir is not None else None)
+            path=os.path.join(io_dir, "pulse_bundle.json") if io_dir is not None else None)
         hub.add_sink(pulse_rec)
         hub.add_watcher(pulse_rec.on_event)
-        if out_dir is not None:
-            pulse_cap = TraceCapture(out_dir, hub=hub,
+        if io_dir is not None:
+            pulse_cap = TraceCapture(io_dir, hub=hub,
                                      window_iterations=ropt.pulse_trace_iterations,
                                      max_captures=ropt.pulse_trace_budget)
             if ropt.pulse_trace_on:
@@ -674,9 +764,9 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
     # load and build seconds, the host spans (this thread's observer only,
     # so concurrent serve tenants each see their own), checkpoint bytes.
     ledger_sink = None
-    if ropt.ledger:
+    if ropt.ledger and is_rank0:
         ledger_sink = CostLedger(
-            os.path.join(out_dir, "ledger.jsonl") if out_dir is not None else None,
+            os.path.join(io_dir, "ledger.jsonl") if io_dir is not None else None,
             run_id=ropt.run_id, trace=search_trace, hub=hub)
         hub.add_sink(ledger_sink)
         set_span_observer(ledger_sink.note_phase)
@@ -689,7 +779,7 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
     from ..gauge import global_latency as _gauge_global_latency
 
     gauge_sampler = gauge_lat = None
-    if ropt.gauge:
+    if ropt.gauge and is_rank0:
         gauge_degrader = None
         if ropt.gauge_headroom_fraction is not None:
             def _degrade_all_engines():
@@ -711,8 +801,8 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
         if ropt.gauge_footprint:
             from ..gauge import probe_engine_iteration
 
-            for j, (e, st, ds) in enumerate(zip(engines, states, datasets)):
-                entry = probe_engine_iteration(e, st, ds.data)
+            for j, (e, st, d) in enumerate(zip(engines, states, datas)):
+                entry = probe_engine_iteration(e, st, d)
                 if entry is not None:
                     hub.gauge("footprint", iteration=0, output=j + 1, **entry)
         if gauge_sampler is not None:
@@ -738,14 +828,20 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
     from ..shield.watchdog import Watchdog
 
     shield_on = bool(options.shield)
+    rank_tag = "" if is_rank0 else f".rank{multihost.process_index()}"
     guard = PreemptionGuard()
     watchdog = runner = quarantine = injector = None
     if shield_on:
-        watchdog = Watchdog(dump_path=(os.path.join(out_dir, "watchdog_dump.txt")
+        watchdog = Watchdog(dump_path=(os.path.join(out_dir, f"watchdog_dump{rank_tag}.txt")
                                        if out_dir is not None else None), telemetry=hub)
-        runner = ShieldRunner(max_retries=options.max_retries, backoff=options.retry_backoff,
-                              telemetry=hub)
-        if options.island_quarantine:
+        # Under a multi-rank mesh a retry on one rank would re-enter the
+        # iteration's collectives alone: no retries there; the collectives'
+        # timeout fails the run instead.
+        runner = ShieldRunner(max_retries=0 if multi else options.max_retries,
+                              backoff=options.retry_backoff, telemetry=hub)
+        # The quarantine reseeds islands from one rank's view: single-process
+        # runs only, as in the JAX package.
+        if options.island_quarantine and multihost.process_count() == 1:
             quarantine = IslandQuarantine(threshold=options.quarantine_invalid_fraction,
                                           telemetry=hub)
         injector = active_injector(telemetry=hub)
@@ -808,7 +904,9 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
         # cycle batch). The chunk count adapts toward a stop latency of
         # about a second from the measured iteration time, in powers of
         # two; chunked and single-chunk iterations are bit-identical.
-        n_chunks = min(4, options.ncycles_per_iteration)
+        # Under a mesh the cycles run in one chunk: a stop between chunks
+        # would be one rank's decision inside the iteration's collectives.
+        n_chunks = 1 if plan is not None else min(4, options.ncycles_per_iteration)
         monitor = ResourceMonitor()
         host_t0 = time.time()
         attempts = 0     # the current iteration's attempts, over every output
@@ -843,8 +941,8 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
                 pulse_cap.maybe_start(it + 1)
             with step_span(it + 1, trace_id=search_trace.trace_id,
                            span_id=search_trace.span_id):
-                for j, (engine, ds) in enumerate(zip(engines, datasets)):
-                    def attempt(j=j, engine=engine, ds=ds):
+                for j, engine in enumerate(engines):
+                    def attempt(j=j, engine=engine):
                         nonlocal attempts
                         attempts += 1
                         with _phase():
@@ -852,7 +950,7 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
                             if injector is not None:
                                 injector.on_dispatch(it + 1)
                             return engine.run_iteration(
-                                states[j], ds.data, cur_maxsize,
+                                states[j], datas[j], cur_maxsize,
                                 chunk_sizes=sizes if len(sizes) > 1 else None,
                                 should_stop=_budget_hit)
 
@@ -874,7 +972,7 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
                     with _phase():
                         torch.cuda.synchronize(dev)
             host_t0 = time.time()
-            if it > start_iter:   # the first iteration builds kernels and warms caches
+            if it > start_iter and plan is None:   # the first builds kernels, warms caches
                 target = (host_t0 - dev_t0) / _STOP_LATENCY_TARGET_S
                 cap = min(options.ncycles_per_iteration, _MAX_CHUNKS)
                 n_chunks = 1
@@ -905,16 +1003,16 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
                 hofs = [HallOfFame.from_device(s.hof, options.operators, template=e.template)
                         for s, e in zip(states, engines)]
             with host_span("checkpoint"):
-                if out_dir is not None:
+                if io_dir is not None:
                     for j, ds in enumerate(datasets):
                         fname = ("hall_of_fame.csv" if len(datasets) == 1
                                  else f"hall_of_fame_output{j + 1}.csv")
-                        save_hall_of_fame_csv(os.path.join(out_dir, fname), hofs[j],
+                        save_hall_of_fame_csv(os.path.join(io_dir, fname), hofs[j],
                                               options.operators,
                                               variable_names=ds.variable_names)
-                    if it % ropt.checkpoint_every_n == 0:
-                        _note_checkpoint_bytes(ckpt.save(checkpoint_state()))
-                        last_ckpt_it = it
+                if out_dir is not None and it % ropt.checkpoint_every_n == 0:
+                    _note_checkpoint_bytes(ckpt.save(checkpoint_state()))
+                    last_ckpt_it = it
             elapsed = time.time() - start_time
             best = min((e.loss for h in hofs for e in h.entries), default=np.inf)
             evals = total_evals()
@@ -928,6 +1026,16 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
             # (after hub.iteration, so it holds the sinks' spans too).
             if pulse_cap is not None:
                 pulse_cap.maybe_stop(it)
+            # graftmesh: the periodic cross-shard dedup-key exchange, as
+            # telemetry ``mesh`` events. A collective, so every rank makes
+            # it (the gate is the same on every rank); observability only,
+            # it never touches the state.
+            if (options.telemetry and plan is not None and plan.dedup_exchange_every > 0
+                    and it % plan.dedup_exchange_every == 0):
+                for j, engine in enumerate(engines):
+                    if isinstance(engine, MeshEngine):
+                        hub.mesh(iteration=it, shards=plan.n_island_shards, output=j + 1,
+                                 **engine.dedup_exchange(states[j]))
             if ropt.verbosity >= 2:
                 print(f"[iter {it}/{ropt.niterations}] best_loss={best:.6g} "
                       f"evals={evals:.3g} ({rate:.3g}/s, host "
@@ -938,6 +1046,11 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
                 stop_reason = "early_stop_condition"
             if stop_reason is None:
                 stop_reason = _budget_stop()
+            if plan is not None:
+                # Every rank stops where the first rank (in rank order) with
+                # a reason stops: one rank's clock, signal or quit must not
+                # leave the others in the next iteration's collectives.
+                stop_reason = first_of_ranks(stop_reason, plan.mesh.all_group())
         watcher.stop()
         # The final or stopping state is always checkpointed, once; a
         # resume that ran nothing writes nothing (each save rotates a
@@ -983,7 +1096,7 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
             # one must not bill its phases to this one's ledger
             set_span_observer(None)
 
-    if ropt.verbosity >= 1:
+    if ropt.verbosity >= 1 and is_rank0:
         for j, (hof, ds) in enumerate(zip(hofs, datasets)):
             if len(datasets) > 1:
                 print(f"Output {j + 1} ({ds.y_variable_name}):")
@@ -994,7 +1107,7 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
             print(f"Search stopped early: {stop_reason}")
     result: Any = hofs if len(datasets) > 1 else hofs[0]
     if ropt.return_state:
-        return checkpoint_state(), result
+        return checkpoint_state(full=True), result
     return result
 
 

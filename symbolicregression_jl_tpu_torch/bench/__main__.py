@@ -13,8 +13,11 @@ Commands:
 - ``load``  — the serve-level submit/poll storm (bench/load.py's CLI).
 - ``_cell`` — internal: one matrix cell in a clean subprocess.
 
-Cells run on CUDA unless ``--device cpu``. The island-sharded variants
-come with the multi-device slice and are refused by name.
+Cells run on CUDA unless ``--device cpu``; the island-sharded cells on
+their own gloo ranks. ``run --baseline-out PATH`` pins the run(s) as a
+baseline with bands calibrated from ``--repeats`` (at least 2 for real
+bands); it writes only the path named, never over the committed
+``benchmarks/baseline.json``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,13 @@ import json
 import os
 import sys
 from typing import List, Optional
+
+
+# The JAX package's committed baseline: the port gates against it and never
+# writes it.
+COMMITTED_BASELINE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "benchmarks", "baseline.json")
 
 
 def _write_json(path: Optional[str], payload: dict, log=print) -> None:
@@ -58,6 +68,11 @@ def _matrix(args) -> dict:
 
 
 def cmd_run(args) -> int:
+    if args.baseline_out and (os.path.realpath(args.baseline_out)
+                              == os.path.realpath(COMMITTED_BASELINE)):
+        print(f"refusing to write over the committed {COMMITTED_BASELINE}; name another path",
+              file=sys.stderr)
+        return 2
     results = []
     for rep in range(max(args.repeats, 1)):
         print(f"matrix run {rep + 1}/{args.repeats} ({'full' if args.full else 'mini'}):")
@@ -65,6 +80,19 @@ def cmd_run(args) -> int:
     _write_json(args.out, results[-1])
     # failures of ANY repeat fail the run
     failed_cells = sorted({cid for r in results for cid in r["failures"]})
+    if args.baseline_out:
+        if failed_cells:
+            print(f"refusing to pin a baseline: cell(s) failed in at least one repeat: "
+                  f"{', '.join(failed_cells)}", file=sys.stderr)
+        else:
+            from .gate import calibrate_bands, make_baseline
+
+            try:
+                baseline = make_baseline(results, calibrate_bands(results))
+            except ValueError as e:
+                print(str(e), file=sys.stderr)
+                return 1
+            _write_json(args.baseline_out, baseline)
     if failed_cells:
         print(f"{len(failed_cells)} cell(s) failed across {len(results)} repeat(s)",
               file=sys.stderr)
@@ -81,8 +109,7 @@ def cmd_gate(args) -> int:
     except (OSError, ValueError, json.JSONDecodeError) as e:
         print(f"gate: cannot load baseline: {e}", file=sys.stderr)
         return 2
-    # The port gates the baseline's cells it runs: the sharded cells come
-    # with the multi-device slice. A sliced gate diffs only what was asked.
+    # A sliced gate diffs only what was asked.
     requested = [cid for cid, _, _ in matrix_cells(args.variants, args.seeds)]
     cells_filter = [cid for cid in requested if cid in baseline.get("cells", {})]
     if not cells_filter:
@@ -141,6 +168,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     _add_matrix_args(p)
     p.add_argument("--repeats", type=int, default=1, help="repeat the matrix N times")
     p.add_argument("--out", default=None, help="result JSON path")
+    p.add_argument("--baseline-out", default=None,
+                   help="pin the run(s) as a new baseline at this path (never over "
+                        "benchmarks/baseline.json)")
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("gate", help="diff a fresh matrix (or --result) against the baseline")

@@ -6,7 +6,11 @@ and the JAX package's cell of the same id run the same problem. A cell
 runs in-process on the given device (``run_cell``), and its metrics come
 from its graftscope telemetry JSONL through bench/extract.py — not from
 ad-hoc timers — so the quality check measures what observability
-reports. The matrix runner (bench/matrix.py) runs each cell in a clean
+reports. The island-sharded cells run on ``shape["shards"]`` ranks of a
+``torch.distributed`` group: spawned gloo ranks (parallel/launch.py),
+each with the cell on ``device``, or the caller's group when the process
+is in one; "sharded" takes the legacy runtime and "sharded-mesh" the mesh
+runtime (mesh/engine.MeshEngine). The matrix runner (bench/matrix.py) runs each cell in a clean
 subprocess through :func:`cell_main` (``python -m
 symbolicregression_jl_tpu_torch.bench _cell SPEC``), which prints the
 record on a ``GRAFTBENCH_CELL`` line.
@@ -31,8 +35,8 @@ FULL = dict(rows=10_000, populations=512,
             population_size=256, ncycles=100, maxsize=30, niterations=3,
             tournament_selection_n=16, shards=0)  # 0 = all devices
 
-# "sharded" / "sharded-mesh" are the island-sharded runtimes (multi-device
-# slice, ROADMAP.md queue 1 item 9). The "plain-staged" / "plain-bf16" /
+# "sharded" / "sharded-mesh" are the island-sharded runtimes (the legacy
+# and the mesh runtime over the plain problem). The "plain-staged" / "plain-bf16" /
 # "plain-staged-bf16" variants are the plain cell with the graftstage
 # modes on (docs/PRECISION.md) — same problem, same shapes.
 VARIANTS = ("plain", "template", "parametric", "sharded", "sharded-mesh",
@@ -114,11 +118,12 @@ def run_cell(spec: Dict[str, Any], device=None) -> Dict[str, Any]:
     from ..telemetry.schema import load_events
     from .extract import extract_metrics
 
+    from ..parallel import multihost
+
     variant = spec["variant"]
-    if variant in SHARDED_VARIANTS:
-        raise NotImplementedError(
-            f"the {variant!r} cell is not in the PyTorch port yet; it comes with the "
-            "multi-device slice (ROADMAP.md queue 1 item 9).")
+    shards = int(spec["shape"].get("shards") or 0) or 1
+    if variant in SHARDED_VARIANTS and shards > 1 and not multihost.is_initialized():
+        return _run_sharded_cell(spec, device, shards)
     dev = resolve_device(device if device is not None else spec.get("device"))
     seed = int(spec["seed"])
     shape = dict(spec["shape"])
@@ -129,11 +134,17 @@ def run_cell(spec: Dict[str, Any], device=None) -> Dict[str, Any]:
     X, y, extra = _problem(shape, variant)
     options = _options(shape, variant, out_dir)
 
+    runtime_options = None
+    if variant in SHARDED_VARIANTS:
+        from ..api.search import RuntimeOptions
+
+        runtime_options = RuntimeOptions(niterations=int(shape["niterations"]),
+                                         mesh_runtime=variant == "sharded-mesh")
     before = _launch_counts()
     t0 = time.perf_counter()
     equation_search(
         X, y, options=options, extra=extra,
-        niterations=int(shape["niterations"]),
+        niterations=int(shape["niterations"]), runtime_options=runtime_options,
         verbosity=0, run_id=run_id, seed=seed, device=dev,
     )
     wall_s = time.perf_counter() - t0
@@ -146,13 +157,30 @@ def run_cell(spec: Dict[str, Any], device=None) -> Dict[str, Any]:
         "cell_id": cell_id,
         "variant": variant,
         "seed": seed,
-        "n_devices": 1,
+        "n_devices": multihost.process_count(),
         "backend": dev.type,
         "wall_s": round(wall_s, 2),
         "telemetry": telemetry_path,
         "metrics": metrics,
         "launches": launches,
     }
+
+
+def _run_sharded_cell(spec: Dict[str, Any], device, shards: int) -> Dict[str, Any]:
+    """An island-sharded cell on ``shards`` spawned gloo ranks (several
+    ranks share one card under gloo); rank 0's record, with its wall time
+    the whole cell's, rank start-up included."""
+    from ..parallel.launch import run_ranks
+
+    dev = device if device is not None else spec.get("device")
+    t0 = time.perf_counter()
+    recs = run_ranks("symbolicregression_jl_tpu_torch.bench.cell:run_cell", shards,
+                     kwargs={"spec": dict(spec), "device": None if dev is None else str(dev)},
+                     backend="gloo", timeout_s=float(os.environ.get("SR_BENCH_CELL_BUDGET",
+                                                                    600)))
+    rec = recs[0]
+    rec["wall_s"] = round(time.perf_counter() - t0, 2)
+    return rec
 
 
 def cell_main(spec_json: str) -> int:

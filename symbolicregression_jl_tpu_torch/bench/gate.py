@@ -24,7 +24,7 @@ from typing import Any, Dict, List, Optional
 __all__ = [
     "BASELINE_SCHEMA", "RESULT_SCHEMA", "GATED_METRICS", "PORT_GATED", "Band", "Finding",
     "load_baseline", "library_provenance", "make_result", "diff_result", "gate_failed",
-    "format_findings",
+    "format_findings", "calibrate_bands", "make_baseline",
 ]
 
 BASELINE_SCHEMA = "graftbench.baseline.v1"
@@ -83,6 +83,76 @@ class Finding:
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
+
+
+def _spread_band(values: List[float], default: Band) -> Band:
+    """``default`` widened to cover the spread of repeated runs of one cell
+    (x2 for safety), never narrower than it."""
+    finite = [v for v in values if v is not None]
+    if len(finite) < 2:
+        return default
+    lo, hi = min(finite), max(finite)
+    mid = (lo + hi) / 2.0
+    if mid == 0:
+        return dataclasses.replace(default, abs=max(default.abs, 2.0 * (hi - lo)))
+    return dataclasses.replace(default, rel=max(default.rel, 2.0 * (hi - lo) / abs(mid)))
+
+
+def calibrate_bands(results: List[Dict[str, Any]]) -> Dict[str, Band]:
+    """Per-metric bands from two or more repeated matrix runs: the widest
+    per-cell spread seen across the repeats, at least GATED_METRICS'."""
+    bands = dict(GATED_METRICS)
+    if len(results) < 2:
+        return bands
+    cell_ids = set().union(*(r.get("cells", {}) for r in results))
+    for metric, default in GATED_METRICS.items():
+        widest = default
+        for cid in cell_ids:
+            vals = [r["cells"][cid]["metrics"].get(metric) for r in results
+                    if cid in r.get("cells", {})]
+            cand = _spread_band(vals, default)
+            if (cand.rel, cand.abs) > (widest.rel, widest.abs):
+                widest = cand
+        bands[metric] = widest
+    return bands
+
+
+def make_baseline(results: List[Dict[str, Any]],
+                  bands: Optional[Dict[str, Band]] = None) -> Dict[str, Any]:
+    """A ``graftbench.baseline.v1`` baseline from one or more runs of one
+    matrix kind: each cell's metric medians over the repeats, with bands
+    (calibrated from the repeats unless given). Raises ValueError for a
+    non-finite gated metric (a NaN pinned would fail every later gate)."""
+    if not results:
+        raise ValueError("need at least one matrix result")
+    kinds = {r.get("matrix") for r in results}
+    if len(kinds) != 1:
+        raise ValueError(f"mixed matrix kinds {kinds} cannot baseline")
+    bands = bands or calibrate_bands(results)
+    cells: Dict[str, Any] = {}
+    for cid in sorted(set().union(*(r.get("cells", {}) for r in results))):
+        recs = [r["cells"][cid] for r in results if cid in r.get("cells", {})]
+        metrics: Dict[str, Any] = {}
+        for k in sorted(set().union(*(rec["metrics"] for rec in recs))):
+            vals = sorted(rec["metrics"][k] for rec in recs
+                          if isinstance(rec["metrics"].get(k), (int, float)))
+            if k in GATED_METRICS and any(not math.isfinite(v) for v in vals):
+                raise ValueError(f"refusing to pin baseline: non-finite {k} in cell {cid}: "
+                                 f"{vals}")
+            metrics[k] = vals[len(vals) // 2] if vals else None
+        cells[cid] = {"metrics": metrics, "variant": recs[0].get("variant"),
+                      "seed": recs[0].get("seed")}
+    return {
+        "schema": BASELINE_SCHEMA,
+        "matrix": results[0].get("matrix"),
+        "platform": results[0].get("platform"),
+        "created": time.strftime("%Y-%m-%d", time.gmtime()),
+        "provenance": library_provenance(),
+        "repeats": len(results),
+        "bands": {m: {"direction": b.direction, "kind": b.kind, "rel": b.rel, "abs": b.abs}
+                  for m, b in bands.items()},
+        "cells": cells,
+    }
 
 
 def load_baseline(path: str) -> Dict[str, Any]:

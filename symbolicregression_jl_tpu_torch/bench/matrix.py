@@ -8,8 +8,8 @@ subprocess (``python -m symbolicregression_jl_tpu_torch.bench _cell``)
 on one device, and collects the cells' metrics from their graftscope
 JSONL (bench/cell.py + bench/extract.py). The result keeps the JAX
 package's ``graftbench.result.v1`` schema, so bench/gate.py reads it as
-it reads the JAX package's. The island-sharded variants come with the
-multi-device slice and are refused by name.
+it reads the JAX package's. The island-sharded cells spawn their ranks
+(bench/cell.py).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import sys
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from .cell import CELL_SENTINEL, FULL, MINI, SHARDED_VARIANTS, VARIANTS
+from .cell import CELL_SENTINEL, FULL, MINI, VARIANTS
 from .gate import RESULT_SCHEMA, library_provenance
 
 __all__ = ["RESULT_SCHEMA", "MATRIX_SHAPES", "PORT_VARIANTS", "DEFAULT_SEEDS",
@@ -29,8 +29,8 @@ __all__ = ["RESULT_SCHEMA", "MATRIX_SHAPES", "PORT_VARIANTS", "DEFAULT_SEEDS",
 
 MATRIX_SHAPES = {"mini": MINI, "full": FULL}
 
-# The variants the port runs: every variant but the island-sharded ones.
-PORT_VARIANTS = tuple(v for v in VARIANTS if v not in SHARDED_VARIANTS)
+# The variants the port runs: every variant of the JAX package's matrix.
+PORT_VARIANTS = VARIANTS
 
 DEFAULT_SEEDS = (0, 1)
 
@@ -42,16 +42,10 @@ def matrix_cells(
     variants: Sequence[str] = PORT_VARIANTS,
     seeds: Sequence[int] = DEFAULT_SEEDS,
 ) -> List[Tuple[str, str, int]]:
-    """[(cell_id, variant, seed)] for the requested matrix slice. The
-    sharded variants raise NotImplementedError naming their slice."""
+    """[(cell_id, variant, seed)] for the requested matrix slice."""
     bad = [v for v in variants if v not in VARIANTS]
     if bad:
         raise ValueError(f"unknown variants {bad}; pick from {VARIANTS}")
-    sharded = [v for v in variants if v in SHARDED_VARIANTS]
-    if sharded:
-        raise NotImplementedError(
-            f"the {sharded} cells are not in the PyTorch port yet; they come with the "
-            "multi-device slice (ROADMAP.md queue 1 item 9).")
     return [(f"{v}/seed{s}", v, s) for v in variants for s in seeds]
 
 

@@ -13,9 +13,15 @@ fold in:
   (a JSON object with ``metric`` and ``value``, or an artifact holding
   one under ``parsed`` or at the end of ``tail``).
 
+- multi-chip dryrun artifacts (``python -m
+  symbolicregression_jl_tpu_torch.mesh.dryrun --out``: ``n_devices``,
+  ``rc``, ``ok``, ``legs``), one row each, red when the dryrun ran and
+  failed (a skip is reported, not red);
+- mesh-scaling curves (schema ``graftmesh.scaling.v1``: shards against
+  evals/s), red when a point failed or none was measured.
+
 A NON-GREEN artifact (a failed cell, a failed gate, a nonzero rc, an
-unreadable file) is a RED row, never silently dropped. The JAX report's
-multi-chip and mesh-scaling rows come with the multi-device slice.
+unreadable file) is a RED row, never silently dropped.
 """
 
 from __future__ import annotations
@@ -80,6 +86,46 @@ def _bench_row(path: str, art: Dict[str, Any]) -> Dict[str, Any]:
     return row
 
 
+def _multichip_row(path: str, art: Dict[str, Any]) -> Dict[str, Any]:
+    ok = bool(art.get("ok"))
+    row: Dict[str, Any] = {
+        "round": art.get("n", _round_of(path)),
+        "file": os.path.basename(path),
+        "rc": art.get("rc"),
+        "ok": ok,
+        "skipped": bool(art.get("skipped")),
+        # red = the dryrun ran and failed; no device to run on is no regression
+        "red": not ok and not art.get("skipped"),
+        "n_devices": art.get("n_devices"),
+        "legs": dict(art.get("legs") or {}),
+    }
+    if row["red"]:
+        row["note"] = f"dryrun failed rc={art.get('rc')}"
+    return row
+
+
+def _mesh_scaling_row(path: str, rec: Dict[str, Any]) -> Dict[str, Any]:
+    points = rec.get("points") or []
+    errs = [p for p in points if "error" in p]
+    row: Dict[str, Any] = {
+        "file": os.path.basename(path),
+        "matrix": rec.get("matrix"),
+        "points": [{k: p.get(k) for k in ("shards", "evals_per_sec", "evals_per_sec_per_shard")}
+                   for p in points if "error" not in p],
+        "red": bool(errs) or not points,
+    }
+    if errs:
+        row["note"] = (f"{len(errs)} scaling point(s) failed: "
+                       + ", ".join(f"shards={p.get('shards')}" for p in errs))
+    elif not points:
+        row["note"] = "no measured points in artifact"
+    return row
+
+
+def _is_multichip(art: Dict[str, Any]) -> bool:
+    return "schema" not in art and "ok" in art and ("legs" in art or "n_devices" in art)
+
+
 def _gate_row(path: str, rec: Dict[str, Any]) -> Dict[str, Any]:
     cells = rec.get("cells", {})
     failures = rec.get("failures", {})
@@ -119,11 +165,14 @@ def _gate_row(path: str, rec: Dict[str, Any]) -> Dict[str, Any]:
 
 def build_trend(paths: Sequence[str]) -> Dict[str, Any]:
     """Machine-readable trajectory of the given files and directories:
-    headline rows (red ones flagged with their rc) and gate rows."""
+    headline rows (red ones flagged with their rc), gate rows, multi-chip
+    dryrun rows and mesh-scaling rows."""
     from .gate import RESULT_SCHEMA
 
     bench: List[Dict[str, Any]] = []
     gates: List[Dict[str, Any]] = []
+    multichip: List[Dict[str, Any]] = []
+    scaling: List[Dict[str, Any]] = []
     for path in trend_files(paths):
         try:
             with open(path) as f:
@@ -137,13 +186,19 @@ def build_trend(paths: Sequence[str]) -> Dict[str, Any]:
                           "note": "not a JSON object"})
         elif art.get("schema") == RESULT_SCHEMA:
             gates.append(_gate_row(path, art))
+        elif art.get("schema") == "graftmesh.scaling.v1":
+            scaling.append(_mesh_scaling_row(path, art))
+        elif _is_multichip(art):
+            multichip.append(_multichip_row(path, art))
         elif "schema" in art:
             gates.append({"file": os.path.basename(path), "red": True,
                           "note": f"unexpected schema {art.get('schema')!r}"})
         else:
             bench.append(_bench_row(path, art))
     bench.sort(key=lambda r: (r.get("round") or 0, r["file"]))
-    reds = [r for r in bench if r["red"]] + [r for r in gates if r.get("red")]
+    multichip.sort(key=lambda r: (r.get("round") or 0, r["file"]))
+    reds = ([r for r in bench if r["red"]] + [r for r in gates if r.get("red")]
+            + [r for r in multichip if r["red"]] + [r for r in scaling if r["red"]])
     greens = [r for r in bench if not r["red"] and r.get("evals_per_sec") is not None]
     flat_note = None
     if len(greens) >= 2:
@@ -156,6 +211,8 @@ def build_trend(paths: Sequence[str]) -> Dict[str, Any]:
         "schema": "graftbench.trend.v1",
         "bench": bench,
         "gates": gates,
+        "multichip": multichip,
+        "mesh_scaling": scaling,
         "red_count": len(reds),
         "flat_note": flat_note,
     }
@@ -187,6 +244,21 @@ def format_trend(trend: Dict[str, Any]) -> str:
                 f"anomalies={r.get('anomalies', '-')}  "
                 + (f"peak live {peak:,} B  " if peak else "")
                 + f"[{mark}]")
+    if trend.get("multichip"):
+        lines.append("multi-chip dryrun (python -m symbolicregression_jl_tpu_torch.mesh.dryrun):")
+        for r in trend["multichip"]:
+            mark = ("skipped" if r["skipped"] else "ok" if r["ok"]
+                    else f"RED rc={r['rc']}")
+            legs = ", ".join(f"{k} {v:.1f}s" for k, v in r["legs"].items()
+                             if isinstance(v, (int, float)))
+            lines.append(f"  {r['file']:<28} {r.get('n_devices') or '?'} rank(s)  [{mark}]"
+                         + (f"  {legs}" if legs else ""))
+    if trend.get("mesh_scaling"):
+        lines.append("measured mesh scaling:")
+        for r in trend["mesh_scaling"]:
+            pts = ", ".join(f"{p['shards']}:{_fmt(p.get('evals_per_sec'))}" for p in r["points"])
+            mark = f"RED ({r.get('note')})" if r["red"] else "green"
+            lines.append(f"  {r['file']:<28} shards:evals/s {pts or '-'}  [{mark}]")
     if not lines:
         lines.append("no benchmark artifacts given")
     if trend.get("flat_note"):

@@ -55,6 +55,10 @@ class DeviceData:
     x_dims: Optional[torch.Tensor] = None    # [nfeatures, 7] float32
     y_dims: Optional[torch.Tensor] = None    # [7] float32
     dims_row: Optional[torch.Tensor] = None  # [nfeatures], X's dtype
+    # This rank's block of a row-sharded dataset (mesh/plan.MeshPlan.place_data;
+    # parallel/collectives.RowShard): losses add the row partials of every
+    # block. None holds every row.
+    row_shard: Optional[object] = None
     # Row samples made by strided_sample, by size (a replace() starts empty).
     _samples: Dict[int, "DeviceData"] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)

@@ -167,7 +167,15 @@ def aggregate_loss(
     valid: torch.Tensor,     # bool [...]
     weights: Optional[torch.Tensor] = None,  # [n]
 ):
-    """Mean (or weighted-mean) loss with invalid -> inf and NaN -> inf."""
+    """Mean (or weighted-mean) loss with invalid -> inf and NaN -> inf.
+    Under an active data-row shard (parallel/collectives.row_shard) the
+    rows are this rank's block: the row partials and validity are
+    reduced over every block, in block order."""
+    from ..parallel.collectives import active_row_shard
+
+    shard = active_row_shard()
+    if shard is not None:
+        return _aggregate_sharded(elementwise(pred, target), valid, weights, shard)
     vals = elementwise(pred, target)
     if weights is None:
         loss = torch.mean(vals, dim=-1)
@@ -177,6 +185,21 @@ def aggregate_loss(
         vals = torch.where(w > 0, vals, 0.0)
         loss = torch.sum(vals * w, dim=-1) / torch.sum(w)
     loss = torch.where(valid, loss, math.inf)
+    return torch.where(torch.isnan(loss), math.inf, loss)
+
+
+def _aggregate_sharded(vals, valid, weights, shard):
+    from ..parallel.collectives import shard_all, shard_row_sum
+
+    if weights is None:
+        loss = shard_row_sum(torch.sum(vals, dim=-1), shard) / shard.n_rows
+    else:
+        w = weights
+        vals = torch.where(torch.isfinite(vals), vals, math.inf)
+        vals = torch.where(w > 0, vals, 0.0)
+        loss = shard_row_sum(torch.sum(vals * w, dim=-1), shard) / shard_row_sum(
+            torch.sum(w), shard)
+    loss = torch.where(shard_all(valid, shard), loss, math.inf)
     return torch.where(torch.isnan(loss), math.inf, loss)
 
 

@@ -45,6 +45,7 @@ from ..ops.encoding import LEAF_CONST, TreeBatch
 from ..ops.eval import eval_tree_batch
 from ..ops.fused_eval import fused_grad_multi, fused_loss_multi
 from ..ops.program import _scatter_drop, compile_program
+from ..parallel.collectives import sum_over_row_shards
 from . import rng
 
 __all__ = ["OptimizerConfig", "optimize_constants_batch", "optimize_constants_fused",
@@ -318,7 +319,8 @@ def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
                 (g,) = torch.autograd.grad(loss.sum(), xi)
             losses.append(loss.detach())
             grads.append(g)
-        g = torch.where(mask_r, torch.cat(grads), 0.0)
+        # Row-sharded data: the gradient partials of every shard, in shard order.
+        g = torch.where(mask_r, sum_over_row_shards(torch.cat(grads)), 0.0)
         return torch.cat(losses), torch.where(torch.isfinite(g), g, 0.0)
 
     with torch.no_grad():

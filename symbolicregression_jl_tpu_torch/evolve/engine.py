@@ -37,6 +37,25 @@ its counters on ``state.telem`` (`telemetry.counters.IterationTelemetry`),
 computed on the device from values it already has; with ``use_recorder``
 it returns ``(state, CycleEvents)``.
 
+Multi-device (``plan``, a ``mesh/plan.MeshPlan``): the engine holds this
+rank's block of the islands and runs the island-local phases (the
+cycles, simplify, the optimizer, the finalize) on them alone, with the
+kernels launched per rank. Every draw is taken island-major for the
+global island count before the shard boundary and then sliced, so the
+streams do not depend on the layout. The hall-of-fame merge, the
+migration pool and the running statistics run on every rank, identically,
+over populations gathered from all shards (parallel/collectives.py); each
+rank then carves its islands back out, and the counters are gathered
+and added in shard order. This is the legacy sharded runtime of the JAX
+package (``mesh_runtime=False``): no finalize dedup and zero duplication
+statistics under more than one island shard, the fused-cost finalize.
+``mesh/engine.MeshEngine`` is the mesh runtime on the same code. With the
+optimizer off, N island shards are bit-identical to the unsharded run;
+with it on, the restart key is decorrelated per shard
+(``fold_in(key, shard)``), as in the JAX package. With data-row shards
+(``n_data_shards > 1``) turbo goes off and the eager interpreter's row
+partials are added over the data axis (core/losses.aggregate_loss).
+
 graftstage (``docs/PRECISION.md``): with ``eval_precision="bf16"`` the
 init eval, the cycles and the finalize score on the bf16 value buffer;
 the finalize and the optimizer always read every row (only the cycles'
@@ -58,6 +77,7 @@ from ..core.options import Options, check_supported, float_dtype, state_dtype
 from ..device import resolve_device
 from ..ops.complexity import ComplexityTables, build_complexity_tables
 from ..ops.encoding import TreeBatch
+from ..parallel.collectives import all_gather_tree, ordered_sum, row_shard
 from . import rng
 from .constant_opt import (OptimizerConfig, optimize_constants_batch, optimize_constants_fused,
                            optimize_constants_template)
@@ -119,17 +139,20 @@ def _template_of(options: Options):
 
 
 class Engine:
-    """Search engine for one (options, dataset width) pair on one device.
+    """Search engine for one (options, dataset width) pair on one device,
+    or for this rank's islands of a mesh (``plan``; module docstring).
     ``n_params``/``n_classes`` size parametric members' banks; templates
     set them from their parameter vectors."""
 
     def __init__(self, options: Options, nfeatures: int,
                  device: Optional[Union[str, torch.device]] = None,
                  window_size: int = 100_000, n_params: int = 0, n_classes: int = 0,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, plan=None):
         self.device = resolve_device(device)
         check_supported(options, self.device)
         self.options = options
+        self.plan = plan
+        self.n_island_shards = plan.n_island_shards if plan is not None else 1
         self.nfeatures = nfeatures
         # The floating type of the constants, costs and hall of fame (and of
         # the data, whose bf16 values it holds for eval_dtype="bfloat16").
@@ -152,6 +175,12 @@ class Engine:
             # bf16 loss spine (kernels 1b and 2b's bf16-data forms), the
             # gradient on kernel #3 in float32, as in the JAX package.
             self.cfg = self.cfg._replace(eval_bf16="data")
+        if plan is not None and plan.n_data_shards > 1:
+            _check_row_sharding(options, self.template)
+            # The JAX package's evolve/step.py:201-207: turbo goes off under
+            # data-row shards; the eager interpreter's row partials are
+            # added over the data axis.
+            self.cfg = self.cfg._replace(turbo=False, fuse_cost=False)
         self.opt_cfg = OptimizerConfig(
             iterations=options.optimizer_iterations, nrestarts=options.optimizer_nrestarts,
             ls_bf16=("data" if bf16_data and self.cfg.turbo else
@@ -170,6 +199,47 @@ class Engine:
             return None
         self.cfg = self.cfg._replace(eval_tile_rows=new)
         return new
+
+    # ------------------------------------------------------------------
+    # The island mesh
+    # ------------------------------------------------------------------
+    def _islands(self, n_islands: int):
+        """[lo, hi) of this rank's islands of ``n_islands``."""
+        return (0, n_islands) if self.plan is None else self.plan.islands_of(n_islands)
+
+    def _island_group(self):
+        return None if self.plan is None else self.plan.island_group()
+
+    @staticmethod
+    def _rows(data: DeviceData):
+        """The data-row reduction of ``data``'s row shard, if any."""
+        return row_shard(data.row_shard)
+
+    def _dedup_eligible(self) -> bool:
+        """Whether the finalize can dedup: plain members on the kernels."""
+        cfg = self.cfg
+        return bool(cfg.turbo) and cfg.template is None and cfg.n_params == 0
+
+    def _use_dedup(self) -> bool:
+        """The finalize dedups where it is eligible and the island axis is
+        whole: the legacy runtime forfeits it under island shards, as in
+        the JAX package (mesh/engine.MeshEngine dedups per shard)."""
+        return self._dedup_eligible() and self.n_island_shards == 1
+
+    def _finalize_fuse_cost(self) -> bool:
+        """The finalize's cost epilogue (used where it does not dedup)."""
+        return self.cfg.fuse_cost
+
+    def _dup_stats(self, local_trees: TreeBatch, all_trees: TreeBatch):
+        """The finalize's member-duplication counters: the global ones on a
+        whole island axis, zeros under island shards (the legacy runtime,
+        as in the JAX package)."""
+        from ..telemetry.counters import member_dup_stats
+
+        if self.n_island_shards > 1:
+            zero = torch.zeros((), dtype=torch.int32, device=self.device)
+            return zero, zero
+        return member_dup_stats(all_trees)
 
     # ------------------------------------------------------------------
     # graftshield quarantine primitives (shield/quarantine.py drives them
@@ -228,14 +298,15 @@ class Engine:
               dedup: bool = False):
         """Costs of flat members ``trees`` with their banks ``params``."""
         cfg = self.cfg
-        return eval_cost_batch(trees, data, self.options.elementwise_loss, self.tables,
-                               cfg.operators, cfg.parsimony,
-                               member_params=params if cfg.n_params else None,
-                               turbo=cfg.turbo, fuse_cost=fuse_cost, dedup=dedup,
-                               template=cfg.template, bf16=cfg.eval_bf16,
-                               loss_function=self.options.resolved_loss_function,
-                               dim_penalty=cfg.dim_penalty,
-                               wildcard_constants=cfg.wildcard_constants)
+        with self._rows(data):
+            return eval_cost_batch(trees, data, self.options.elementwise_loss, self.tables,
+                                   cfg.operators, cfg.parsimony,
+                                   member_params=params if cfg.n_params else None,
+                                   turbo=cfg.turbo, fuse_cost=fuse_cost, dedup=dedup,
+                                   template=cfg.template, bf16=cfg.eval_bf16,
+                                   loss_function=self.options.resolved_loss_function,
+                                   dim_penalty=cfg.dim_penalty,
+                                   wildcard_constants=cfg.wildcard_constants)
 
     def _epilogue_draws(self, k_opt, I: int):
         """The optimizer's selection size and its island-major random
@@ -266,30 +337,35 @@ class Engine:
 
     # ------------------------------------------------------------------
     def init_state(self, key: torch.Tensor, data: DeviceData, n_islands: int) -> SearchDeviceState:
-        """Random populations, scored. ``key`` [2] threefry key words."""
+        """Random populations, scored. ``key`` [2] threefry key words.
+        ``n_islands`` is the global count; under a plan the state holds
+        this rank's islands, drawn as the unsharded run draws them."""
         cfg = self.cfg
         P = cfg.population_size
         dev = self.device
         key = key.to(dev)
         k_init, k_params, k_state = rng.split(key, 3)
+        lo, hi = self._islands(n_islands)
+        n_loc = hi - lo
         if cfg.template is not None:
-            trees = init_template_population(rng.split(k_init, n_islands), P, cfg.template,
-                                             cfg.mctx)
+            trees = init_template_population(rng.split(k_init, n_islands)[lo:hi], P,
+                                             cfg.template, cfg.mctx)
         else:
-            trees = init_population(rng.split(k_init, n_islands), P, cfg.mctx)
-        params = init_params(k_params, (n_islands, P), cfg.n_params, cfg.n_classes, self.dtype)
+            trees = init_population(rng.split(k_init, n_islands)[lo:hi], P, cfg.mctx)
+        params = init_params(k_params, (n_islands, P), cfg.n_params, cfg.n_classes,
+                             self.dtype)[lo:hi]
         cost, loss, cx = self._eval(_flat_trees(trees), _flat(params), data,
                                     fuse_cost=cfg.fuse_cost)
         arange = torch.arange(P, dtype=torch.int32, device=dev)
         pops = PopulationState(
             trees=trees,
-            cost=cost.reshape(n_islands, P),
-            loss=loss.reshape(n_islands, P),
-            complexity=cx.reshape(n_islands, P),
-            birth=arange.expand(n_islands, P).clone(),
-            ref=arange[None, :] + torch.arange(n_islands, dtype=torch.int32,
+            cost=cost.reshape(n_loc, P),
+            loss=loss.reshape(n_loc, P),
+            complexity=cx.reshape(n_loc, P),
+            birth=arange.expand(n_loc, P).clone(),
+            ref=arange[None, :] + torch.arange(lo, hi, dtype=torch.int32,
                                                device=dev)[:, None] * 1_000_000,
-            parent=torch.full((n_islands, P), -1, dtype=torch.int32, device=dev),
+            parent=torch.full((n_loc, P), -1, dtype=torch.int32, device=dev),
             params=params,
         )
         freq = torch.ones(cfg.maxsize, dtype=torch.float32, device=dev)
@@ -303,8 +379,8 @@ class Engine:
             hof=empty_hof((), cfg.maxsize, cfg.max_nodes, dev, template_k=template_k(cfg),
                           n_params=cfg.n_params, n_classes=cfg.n_classes, dtype=self.dtype),
             stats=RunningStats(freq, freq / torch.sum(freq)),
-            birth=torch.full((n_islands,), P, dtype=torch.int32, device=dev),
-            ref=torch.full((n_islands,), P, dtype=torch.int32, device=dev),
+            birth=torch.full((n_loc,), P, dtype=torch.int32, device=dev),
+            ref=torch.full((n_loc,), P, dtype=torch.int32, device=dev),
             num_evals=torch.tensor(float(n_islands * P), dtype=torch.float32, device=dev),
             key=k_state,
             telem=telem,
@@ -355,10 +431,19 @@ class Engine:
         once; the annealing ramp and the per-cycle keys use global cycle
         indices, so chunked and single-chunk iterations are otherwise
         bit-identical. Returns the new state, or ``(state, CycleEvents)``
-        with ``use_recorder``."""
+        with ``use_recorder``. Under a plan the state is this rank's
+        block and every rank of the mesh must make the call (the
+        epilogue's collectives); a ``should_stop`` must then decide alike
+        on every rank (the search runs mesh iterations in one chunk)."""
+        with self._rows(data):
+            return self._run_iteration(state, data, cur_maxsize, chunk_sizes, should_stop)
+
+    def _run_iteration(self, state: SearchDeviceState, data: DeviceData, cur_maxsize: int,
+                       chunk_sizes, should_stop):
         cfg = self.cfg
         options = self.options
-        I = state.birth.shape[0]
+        I = state.birth.shape[0] * self.n_island_shards   # the global island count
+        lo, hi = self._islands(I)
         ks = rng.split(state.key, 5)
         key, k_batch, k_cycle, k_opt, k_mig = (ks[i] for i in range(5))
         # Minibatching: one batch of rows per iteration, gathered once, read
@@ -373,7 +458,7 @@ class Engine:
         if sum(chunk_sizes) != cfg.ncycles:
             raise ValueError(f"chunk_sizes {list(chunk_sizes)} must sum to {cfg.ncycles}")
 
-        keys = rng.split(k_cycle, I)
+        keys = rng.split(k_cycle, I)[lo:hi]
         pops, birth, ref = state.pops, state.birth, state.ref
         carry = None
         events = []
@@ -400,7 +485,10 @@ class Engine:
             self._audit_state(new_state,
                               where="run_iteration(chunked)" if chunked else "run_iteration")
         if cfg.record_events:
-            return new_state, CycleEvents(*(torch.cat(f, dim=1) for f in zip(*events)))
+            ev = CycleEvents(*(torch.cat(f, dim=1) for f in zip(*events)))
+            if self.plan is not None:
+                ev = all_gather_tree(ev, group=self._island_group())
+            return new_state, ev
         return new_state
 
     def _epilogue(self, state: SearchDeviceState, data: DeviceData, cur_maxsize: int, pops,
@@ -412,13 +500,30 @@ class Engine:
         telemetry, the iteration's counters."""
         cfg = self.cfg
         options = self.options
-        I = state.birth.shape[0]
+        S = self.n_island_shards
+        I = state.birth.shape[0] * S     # the global island count
+        lo, hi = self._islands(I)
         P = cfg.population_size
-        num_evals = state.num_evals + torch.sum(nev) * eval_fraction
+        group = self._island_group()
 
+        # Every draw island-major for the global count, then this rank's
+        # block: the layout cannot change the streams.
         k_sel, scores, gate, ko2 = self._epilogue_draws(k_opt, I)
+        if scores is not None:
+            scores, gate = scores[lo:hi], gate[lo:hi]
+            if S > 1:
+                # decorrelate the shards' optimizer restart draws
+                ko2 = rng.fold_in(ko2, self.plan.island_index)
         pops, ref, f_calls = self._island_epilogue(pops, ref, marks[0], marks[1], scores,
                                                    gate, ko2, data, k_sel, batch=batch)
+        if self.plan is not None:
+            # The cross-shard phases read every island: gather the
+            # populations, birth counters, per-island bests and counters
+            # (one collective), and add the optimizer's calls in shard order.
+            pops, birth, best_seen, nev, tele = all_gather_tree(
+                pops, birth, best_seen, nev, tele, group=group)
+            f_calls = ordered_sum(f_calls, group)
+        num_evals = state.num_evals + torch.sum(nev) * eval_fraction
         num_evals = num_evals + f_calls * eval_fraction
         num_evals = num_evals + I * P  # the finalize re-eval
 
@@ -460,22 +565,26 @@ class Engine:
         freq = _move_window(state.stats.frequencies + hist, self.window_size, cfg.maxsize)
         stats = RunningStats(freq, freq / torch.sum(freq))
 
+        pops_all = pops
+        if self.plan is not None:
+            # carve this rank's islands back out of the migrated populations
+            pops, birth = _island_block(pops, lo, hi), birth[lo:hi]
+
         telem = None
         if cfg.collect_telemetry:
             # The cycles' per-island counters summed over islands, plus the
             # finalize re-eval (every member, one launch), the
             # post-migration loss histogram, the member-duplication stats
             # and the complexity histogram, all on the device.
-            from ..telemetry.counters import (CycleTelemetry, IterationTelemetry,
-                                              loss_histogram, member_dup_stats)
+            from ..telemetry.counters import CycleTelemetry, IterationTelemetry, loss_histogram
 
             cyc = CycleTelemetry(*(f.sum(dim=0, dtype=torch.int32) for f in tele.fields()))
             cyc.eval_rows = cyc.eval_rows + I * P
             cyc.eval_launches = cyc.eval_launches + 1
-            fin_rows, fin_unique = member_dup_stats(pops.trees)
+            fin_rows, fin_unique = self._dup_stats(pops.trees, pops_all.trees)
             telem = IterationTelemetry(cycle=cyc, finalize_rows=fin_rows,
                                        finalize_unique=fin_unique,
-                                       loss_hist=loss_histogram(pops.loss),
+                                       loss_hist=loss_histogram(pops_all.loss),
                                        cx_hist=hist.to(torch.int32))
         return SearchDeviceState(pops=pops, hof=hof, stats=stats, birth=birth, ref=ref,
                                  num_evals=num_evals, key=key, telem=telem)
@@ -560,16 +669,40 @@ class Engine:
 
     def _finalize_costs(self, pops: PopulationState, data: DeviceData) -> PopulationState:
         """Re-score every member on the whole dataset. On the kernel path
-        identical (structure, constants) members across all islands run
-        once (``fused_loss(dedup=True)``); results are bit-equal. Template
-        and parametric members are all re-scored (no dedup, as in the JAX
-        package)."""
+        identical (structure, constants) members across this engine's
+        islands run once (``fused_loss(dedup=True)``; ``_use_dedup``);
+        results are bit-equal. Template and parametric members are all
+        re-scored (no dedup, as in the JAX package)."""
         I, P = pops.cost.shape
-        cfg = self.cfg
         cost, loss, cx = self._eval(_flat_trees(pops.trees), _flat(pops.params), data,
-                                    fuse_cost=cfg.fuse_cost, dedup=cfg.turbo)
+                                    fuse_cost=self._finalize_fuse_cost(),
+                                    dedup=self._use_dedup())
         return dataclasses.replace(pops, cost=cost.reshape(I, P), loss=loss.reshape(I, P),
                                    complexity=cx.reshape(I, P))
+
+
+def _island_block(obj, lo: int, hi: int):
+    """Islands [lo, hi) of every tensor of a dataclass tree."""
+    if isinstance(obj, torch.Tensor):
+        return obj[lo:hi]
+    return dataclasses.replace(obj, **{f.name: _island_block(getattr(obj, f.name), lo, hi)
+                                       for f in dataclasses.fields(obj) if f.init})
+
+
+def _check_row_sharding(options: Options, template) -> None:
+    """What the port's data-row shards do not take: each needs a
+    reduction over the data axis that the eager row partials do not
+    give."""
+    what = [name for name, on in (
+        ("a template expression", template is not None),
+        ("a custom loss_function", options.resolved_loss_function is not None),
+        ("batching", options.batching),
+        ("staged_eval", options.staged_eval),
+    ) if on]
+    if what:
+        raise NotImplementedError(
+            f"n_data_shards > 1 with {', '.join(what)} is not in the PyTorch port: its "
+            "data-row shards reduce the elementwise loss of plain and parametric members")
 
 
 def _migrate(key, pops: PopulationState, pool: PopulationState, frac: float, birth,

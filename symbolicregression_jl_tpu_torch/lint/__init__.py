@@ -4,10 +4,13 @@ hazards, and runtime invariant auditing (port of the JAX package's
 
 Static side (pure-Python AST, no torch import needed):
 
-- :data:`~.rules.RULES`: GL001-GL007, the port's single-module hazards
+- :data:`~.rules.RULES`: GL001-GL008, the port's single-module hazards
   (threefry key reuse, host RNG, host syncs in the per-cycle hot loop,
   kernel builds in loops, in-place writes to saved tensors, debug hooks,
-  signal handlers), and the graftwarden concurrency rules GL009-GL014
+  signal handlers, and GL008 ``collective-hazard``: a ``torch.distributed``
+  collective under a rank-dependent branch, or a host sync between one
+  iteration's collectives, in ``mesh/`` and ``parallel/``), and the
+  graftwarden concurrency rules GL009-GL014
   (:mod:`.concurrency`, checked against the lock-order manifest of
   :mod:`.lock_order`);
 - :func:`~.cli.lint_source` / :func:`~.cli.lint_paths`;

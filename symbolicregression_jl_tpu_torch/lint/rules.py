@@ -13,9 +13,10 @@ each hazard: reuse of a threefry key of ``evolve/rng.py``, host RNG in
 ``evolve/`` and ``ops/``, a host sync in the per-cycle hot loop, a kernel
 build or a new launch-table key inside a loop, and an in-place write to
 a tensor that autograd saved. GL006 and GL007 (debug hooks, signal
-handlers) are the JAX package's rules; GL009-GL014 live in
-:mod:`.concurrency`. GL008 (collectives in ``shard_map`` bodies) comes
-with the multi-device slice.
+handlers) are the JAX package's rules; GL008 restates the JAX package's
+``shard_map`` hazard for ``torch.distributed`` (a collective under a
+rank-dependent branch, a host sync between one iteration's collectives,
+in the mesh modules); GL009-GL014 live in :mod:`.concurrency`.
 
 Suppression: append ``# graftlint: disable=GL003`` (or a bare
 ``# graftlint: disable``) to the *reported* line.
@@ -676,3 +677,95 @@ def check_signal_unsafe_handler(mod: ModuleAnalysis) -> Iterator[Finding]:
                 )
 
 
+
+
+# ---------------------------------------------------------------------------
+# GL008 — collective hazards in the mesh modules (torch.distributed)
+# ---------------------------------------------------------------------------
+
+# torch.distributed's collectives and the port's collective layer
+# (parallel/collectives.py, mesh/plan.py, mesh/engine.py): every rank of
+# a group must make each of them, in the same order.
+_COLLECTIVES = {
+    "all_gather", "all_gather_into_tensor", "all_gather_single", "all_gather_object",
+    "all_reduce", "reduce", "reduce_scatter", "reduce_scatter_tensor", "broadcast",
+    "broadcast_object_list", "barrier", "all_to_all", "all_to_all_single", "new_group",
+    "all_gather_islands", "all_gather_tree", "ordered_sum", "all_sum", "first_of_ranks",
+    "shard_row_sum", "shard_all", "sum_over_row_shards", "gather_state", "dedup_exchange",
+}
+# Names whose value differs from rank to rank.
+_RANK_NAMES = {"rank", "get_rank", "local_rank", "group_rank", "global_rank", "is_rank0",
+               "process_index", "island_index", "data_index"}
+
+
+def _call_name(call: ast.Call) -> Optional[str]:
+    dn = dotted_name(call.func)
+    return dn.rsplit(".", 1)[-1] if dn else None
+
+
+def _is_collective(node: ast.AST) -> bool:
+    return isinstance(node, ast.Call) and _call_name(node) in _COLLECTIVES
+
+
+def _rank_dependent(test: ast.AST) -> bool:
+    for n in ast.walk(test):
+        name = (n.id if isinstance(n, ast.Name) else n.attr if isinstance(n, ast.Attribute)
+                else None)
+        if name is not None and (name in _RANK_NAMES or name.endswith("_rank")):
+            return True
+    return False
+
+
+def _host_sync(call: ast.Call) -> bool:
+    dn = dotted_name(call.func)
+    if dn in _CAST_CALLS and call.args and not isinstance(call.args[0], ast.Constant):
+        return _reads_device_value(call.args[0])
+    return (isinstance(call.func, ast.Attribute) and call.func.attr in _SYNC_METHODS
+            and not call.args)
+
+
+@rule(
+    "GL008",
+    "collective-hazard",
+    "a collective under a rank-dependent branch, or a host sync between one "
+    "iteration's collectives, in the mesh modules",
+    "Every rank of a torch.distributed group must make each collective, in "
+    "the same order: a collective that only some ranks reach (it sits under "
+    "`if rank == 0:` or any branch on a rank, island or data index) leaves "
+    "the others waiting until the group's timeout, which is a deadlock. A "
+    "host sync (`.item()`, `.cpu()`, `float(t)`) between the collectives of "
+    "one iteration stalls every rank on the slowest's device queue. Decide "
+    "on every rank alike (agree first with `first_of_ranks`), and read "
+    "values back after the iteration's last collective "
+    "(mesh/engine.py and evolve/engine.py's epilogue are the reference).",
+    scope=("mesh", "parallel"),
+)
+def check_collective_hazard(mod: ModuleAnalysis) -> Iterator[Finding]:
+    seen: Set[Tuple[int, int]] = set()
+    for node in ast.walk(mod.tree):
+        if isinstance(node, (ast.If, ast.While, ast.IfExp)) and _rank_dependent(node.test):
+            parts = ([node.body, node.orelse] if isinstance(node, ast.IfExp)
+                     else node.body + node.orelse)
+            for part in parts:
+                for inner in ast.walk(part):
+                    if _is_collective(inner) and (inner.lineno, inner.col_offset) not in seen:
+                        seen.add((inner.lineno, inner.col_offset))
+                        yield _finding(
+                            mod, "GL008", inner,
+                            f"`{_call_name(inner)}(...)` under a rank-dependent branch: "
+                            f"the ranks that skip it leave the others waiting (deadlock)")
+    for fn in ast.walk(mod.tree):
+        if not isinstance(fn, FUNC_NODES):
+            continue
+        calls = [n for n in walk_pruned(fn, prune=FUNC_NODES) if isinstance(n, ast.Call)]
+        lines = [c.lineno for c in calls if _is_collective(c)]
+        if len(lines) < 2:
+            continue
+        first, last = min(lines), max(lines)
+        for c in calls:
+            if first < c.lineno < last and _host_sync(c):
+                yield _finding(
+                    mod, "GL008", c,
+                    f"`{dotted_name(c.func) or 'call'}` syncs with the host between the "
+                    f"collectives of `{getattr(fn, 'name', 'lambda')}`: every rank waits on the slowest device "
+                    f"queue there; read it after the last collective")

@@ -102,9 +102,14 @@ class ExecutableCache:
         device,
         rows: int,
         bucket: Optional[Tuple[int, int, int]] = None,
+        plan=None,
+        mesh_runtime: bool = False,
     ):
         """An Engine for this config — shared when possible, else fresh
-        (and cached), else None (uncacheable; caller builds its own)."""
+        (and cached), else None (uncacheable; caller builds its own).
+        Under an island mesh (``plan``) the key also takes the shard
+        counts, the rank grid, the dedup policy and the runtime, so a
+        mesh engine is never served to another layout or runtime."""
         from ..evolve.engine import _template_of
 
         if bucket is None:
@@ -126,7 +131,7 @@ class ExecutableCache:
                         "bucket": list(bucket)})
             return None
         key = (fp, int(nfeatures), str(dtype), int(n_params), int(n_classes),
-               str(device))
+               str(device), _plan_key(plan, mesh_runtime))
         with self._lock:
             engine = self._entries.get(key)
             if engine is not None:
@@ -141,13 +146,14 @@ class ExecutableCache:
                        {"bucket": list(bucket), "rows": int(rows),
                         "footprint_bytes": self._footprint_bytes(fp)})
             return engine
-        from ..evolve.engine import Engine
+        from ..mesh.engine import make_engine
 
         # build OUTSIDE the lock: a slow construction for one config
         # must not serialize other workers' lookups. Losing the insert
         # race costs at most one duplicated build.
-        engine = Engine(options, nfeatures, device=device, n_params=n_params,
-                        n_classes=n_classes, dtype=dtype)
+        engine = make_engine(options, nfeatures, device=device, n_params=n_params,
+                             n_classes=n_classes, dtype=dtype, plan=plan,
+                             mesh_runtime=mesh_runtime)
         with self._lock:
             existing = self._entries.get(key)
             if existing is not None:
@@ -183,3 +189,12 @@ class ExecutableCache:
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
+
+
+def _plan_key(plan, mesh_runtime: bool):
+    """The part of a cache key an island mesh adds (None without one)."""
+    if plan is None:
+        return None
+    return (int(plan.n_island_shards), int(plan.n_data_shards), plan.mesh.ranks,
+            int(plan.mesh.rank), bool(plan.sharded_dedup), int(plan.dedup_exchange_every),
+            bool(mesh_runtime))

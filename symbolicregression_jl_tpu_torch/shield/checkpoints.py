@@ -1,8 +1,8 @@
 """Rolling, discoverable, corruption-tolerant checkpoints.
 
-Port of ``symbolicregression_jl_tpu/shield/checkpoints.py`` for one
-process. ``api/checkpoint.py`` owns the file format; this module owns the
-policy around it:
+Port of ``symbolicregression_jl_tpu/shield/checkpoints.py``.
+``api/checkpoint.py`` owns the file format (a rank of a multi-process run
+writes ``<slot>.rank{k}``); this module owns the policy around it:
 
 - :class:`RollingCheckpointer` keeps the last K checkpoints
   (``search_state.pkl``, ``.1``, ``.2``, ...), rotating before each write,
@@ -19,7 +19,8 @@ import os
 import warnings
 from typing import List, Optional, Tuple
 
-from ..api.checkpoint import CheckpointCorruptError, load_search_state, save_search_state
+from ..api.checkpoint import (CheckpointCorruptError, checkpoint_exists, load_search_state,
+                              rank_shard_paths, save_search_state)
 
 __all__ = ["RollingCheckpointer", "rolled_paths", "load_newest_valid", "discover_resume_path"]
 
@@ -34,16 +35,19 @@ def rolled_paths(base: str, keep: int) -> List[str]:
 class RollingCheckpointer:
     """Writes ``base`` and keeps the previous ``keep - 1`` generations.
     Rotation happens before the write, so if the process dies mid-write
-    ``base.1`` still holds the complete previous state."""
+    ``base.1`` still holds the complete previous state. ``rank`` (a rank
+    of a multi-process run) rotates that rank's files,
+    ``<slot>.rank{rank}``."""
 
-    def __init__(self, base: str, keep: int = 3) -> None:
+    def __init__(self, base: str, keep: int = 3, rank: Optional[int] = None) -> None:
         self.base = base
         self.keep = max(int(keep), 1)
+        self.suffix = "" if rank is None else f".rank{int(rank)}"
 
     def _rotate(self) -> None:
         if self.keep == 1:
             return
-        slots = rolled_paths(self.base, self.keep)
+        slots = [p + self.suffix for p in rolled_paths(self.base, self.keep)]
         if os.path.exists(slots[-1]):
             os.remove(slots[-1])
         for n in range(self.keep - 2, -1, -1):
@@ -51,13 +55,14 @@ class RollingCheckpointer:
                 os.replace(slots[n], slots[n + 1])
 
     def save(self, state) -> str:
+        """Rotate, write ``state``; returns the file written."""
         self._rotate()
         save_search_state(self.base, state)
-        return self.base
+        return self.base + self.suffix
 
     def candidates(self) -> List[str]:
         """Newest-first checkpoint slots that exist on disk."""
-        return [p for p in rolled_paths(self.base, self.keep) if os.path.exists(p)]
+        return [p for p in rolled_paths(self.base, self.keep) if checkpoint_exists(p)]
 
 
 def load_newest_valid(paths: List[str], options, device=None,
@@ -71,7 +76,7 @@ def load_newest_valid(paths: List[str], options, device=None,
     last_error: Optional[Exception] = None
     tried = 0
     for p in paths:
-        if not os.path.exists(p):
+        if not checkpoint_exists(p):
             continue
         tried += 1
         try:
@@ -94,11 +99,11 @@ def discover_resume_path(base_dir: str, keep: int = 8) -> Optional[List[str]]:
     whose run directories are scanned newest first (by the modification
     time of their newest checkpoint). None where nothing is there."""
     if not os.path.isdir(base_dir):
-        return rolled_paths(base_dir, keep) if os.path.exists(base_dir) else None
+        return rolled_paths(base_dir, keep) if checkpoint_exists(base_dir) else None
 
     def run_candidates(d: str) -> List[str]:
         return [p for p in rolled_paths(os.path.join(d, CHECKPOINT_BASENAME), keep)
-                if os.path.exists(p)]
+                if checkpoint_exists(p)]
 
     direct = run_candidates(base_dir)
     if direct:
@@ -113,7 +118,8 @@ def discover_resume_path(base_dir: str, keep: int = 8) -> Optional[List[str]]:
         if os.path.isdir(d):
             cands = run_candidates(d)
             if cands:
-                runs.append((os.path.getmtime(cands[0]), cands))
+                newest = cands[0] if os.path.exists(cands[0]) else rank_shard_paths(cands[0])[0]
+                runs.append((os.path.getmtime(newest), cands))
     if not runs:
         return None
     runs.sort(key=lambda t: -t[0])

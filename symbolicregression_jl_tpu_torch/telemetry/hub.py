@@ -218,6 +218,8 @@ class Telemetry:
         backend: str = "cuda",
         engine_info: Optional[List[Dict[str, Any]]] = None,
         trace: Optional[TraceContext] = None,
+        stream: bool = True,
+        n_devices: int = 1,
     ) -> None:
         self.options = options
         self.run_id = run_id
@@ -248,7 +250,9 @@ class Telemetry:
         self._watchers: List[Callable[[Dict[str, Any]], None]] = []
 
         self.path: Optional[str] = None
-        if bool(getattr(options, "telemetry", False)):
+        # stream=False: a rank other than 0 of a multi-process run, whose
+        # stream would race rank 0's on the same file.
+        if stream and bool(getattr(options, "telemetry", False)):
             fname = getattr(options, "telemetry_file", "telemetry.jsonl")
             self.path = (
                 fname if os.path.isabs(fname)
@@ -270,7 +274,7 @@ class Telemetry:
                 "event": "run_start",
                 "run_id": run_id,
                 "backend": backend,
-                "n_devices": 1,
+                "n_devices": int(n_devices),
                 "nout": nout,
                 "niterations": int(niterations),
                 "telemetry_interval": self.interval,
@@ -330,6 +334,26 @@ class Telemetry:
             "iteration": int(iteration),
             "detail": {k: v for k, v in detail.items() if v is not None},
         })
+
+    def mesh(self, *, iteration: int, shards: int, **detail) -> Dict[str, Any]:
+        """Record an island-mesh event (schema ``mesh``): the periodic
+        cross-shard dedup-key exchange's results and shard balance
+        (mesh/engine.MeshEngine.dedup_exchange). Observability only: never
+        raises into the search loop, streamed only when the JSONL stream
+        is on."""
+        event = {
+            "event": "mesh",
+            "iteration": int(iteration),
+            "shards": int(shards),
+            "detail": {k: v for k, v in detail.items() if v is not None},
+        }
+        if self.path is not None:
+            try:
+                self._emit(event)
+            except OSError:  # observability must not break the search
+                pass
+        self._notify(event)
+        return event
 
     def anomaly(self, metric: str, *, iteration: int = 0,
                 **detail) -> Dict[str, Any]:

@@ -96,10 +96,13 @@ def test_gate_on_the_result_and_its_exit_codes(result):
 
 
 def test_sharded_variants_refused_by_name():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SMX.matrix_cells(["sharded"], [0])
-    assert "sharded" not in SMX.PORT_VARIANTS and "plain" in SMX.PORT_VARIANTS
-    assert SB.main(["run", "--variants", "sharded-mesh", "--device", "cpu"]) == 2
+    """The island-sharded variants are in the port's matrix now; what it
+    refuses by name is a variant it does not know."""
+    assert SMX.matrix_cells(["sharded", "sharded-mesh"], [0]) == [
+        ("sharded/seed0", "sharded", 0), ("sharded-mesh/seed0", "sharded-mesh", 0)]
+    assert "sharded" in SMX.PORT_VARIANTS and "plain" in SMX.PORT_VARIANTS
+    with pytest.raises(ValueError, match="unknown variants \\['meshy'\\]"):
+        SMX.matrix_cells(["meshy"], [0])
 
 
 def test_trend_folds_only_what_it_is_given(tmp_path, capsys):

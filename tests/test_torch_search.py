@@ -7,6 +7,7 @@ fame; a short search on y = x1*x1 + cos(x2) gets below a stated loss.
 """
 
 import ast
+import dataclasses
 import json
 import os
 import pathlib
@@ -193,9 +194,13 @@ def test_default_options_search_runs_the_constant_optimizer(monkeypatch):
                                 dict(runtime_options=S.RuntimeOptions(mesh_exchange_every=4)),
                                 dict(runtime_options=S.RuntimeOptions(mesh_exchange_every=2))])
 def test_search_arguments_outside_the_slice_refuse(kw):
-    """The multi-device RuntimeOptions fields are refused, naming their
-    slice; dtype="bfloat16", refused by an earlier slice, runs (bf16 data,
-    a float32 state, every loss a bf16 value)."""
+    """The multi-device RuntimeOptions fields, refused until the
+    multi-device slice came, now run or refuse as the JAX package does on
+    one device: with no torch.distributed group, n_data_shards > 1 has no
+    second device ("mesh shape 1x2 != 1 devices"), and devices name ranks,
+    not device strings; mesh_runtime runs a 1-rank mesh. dtype="bfloat16",
+    refused by an earlier slice, runs (bf16 data, a float32 state, every
+    loss a bf16 value)."""
     if kw.get("dtype") == "bfloat16":
         state, hof = S.equation_search(*_problem(n=16), options=_options(), niterations=1,
                                        device="cpu", seed=0, return_state=True, **kw)
@@ -204,9 +209,22 @@ def test_search_arguments_outside_the_slice_refuse(kw):
         fin = torch.isfinite(loss)
         assert bool(fin.any()) and torch.equal(loss[fin].bfloat16().float(), loss[fin])
         return
-    with pytest.raises(NotImplementedError, match="PyTorch port"):
-        S.equation_search(*_problem(n=16), options=_options(), niterations=1, device="cpu",
-                          **kw)
+    # one iteration (a RuntimeOptions' niterations replaces the argument)
+    ropt = dataclasses.replace(kw["runtime_options"], niterations=1)
+    kw = dict(runtime_options=ropt)
+    if ropt.n_data_shards > 1:
+        with pytest.raises(ValueError, match=f"mesh shape 1x{ropt.n_data_shards} != 1 devices"):
+            S.equation_search(*_problem(n=16), options=_options(), niterations=1,
+                              device="cpu", **kw)
+        return
+    if ropt.devices is not None:
+        with pytest.raises(ValueError, match="ranks of the torch.distributed group"):
+            S.equation_search(*_problem(n=16), options=_options(), niterations=1,
+                              device="cpu", **kw)
+        return
+    hof = S.equation_search(*_problem(n=16), options=_options(), niterations=1, device="cpu",
+                            seed=0, **kw)
+    assert np.isfinite(min(e.loss for e in hof.entries))
 
 
 def test_regressor_export_refuses():
