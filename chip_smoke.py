@@ -360,6 +360,21 @@ Phases (any failure exits nonzero and prints no result line):
    moved genomes across the shards; each rank's s/iteration, gather bytes
    and seconds, launches of #1-#3 and peak memory; (c) one dedup_exchange
    (rows = shard_unique + local_dup, shard_unique >= global_unique).
+40. Data-row shards (``RuntimeOptions(n_data_shards=2)``'s layout): two
+   gloo ranks on the one card, one island shard and ROW_RANKS = 2 data
+   shards, each rank holding a block of the rows (5,000 of the 10,000)
+   and launching the kernels on it; the wrappers add every block's row
+   sums before the mean. (a) The optimizer cell at full width and
+   ROW_CYCLES = 10: the init population's losses and costs within rtol
+   1e-5 of the unsharded Engine's (inf alike); one iteration launches #1
+   11 (none in the cost-epilogue form), #2 8 and #3 9 per rank; the same
+   seed twice bit-identical; both ranks hold the same state. (b) The
+   template cell at ROW_TEMPLATE_CYCLES = 3 (#4 per rank) and its
+   optimizer at 64 islands (#5 per rank). (c) One-iteration searches
+   (ROW_SMALL_ISLANDS x ROW_SMALL_POP) with batching (batch_size 50),
+   staged_eval and a custom loss (the mean absolute error): a finite hall
+   of fame each. Prints each rank's seconds, launches, collectives (count,
+   bytes, seconds) and peak memory.
 
 Every file a phase writes goes to a temporary directory, removed at the
 end. Each phase prints its seconds when the next one starts. The line before the last is the kernel table as JSON; the last line is
@@ -4978,6 +4993,184 @@ def phase_mesh(torch, sr, dev, out_base, card, ncycles: int = MESH_CYCLES):
             {k: one_rank.get(k, 0) for k in main_counts})
 
 
+ROW_CYCLES = 10             # phase 40(a)'s depth (one iteration, run twice)
+ROW_TEMPLATE_CYCLES = 3     # phase 40(b)'s template cell depth
+ROW_SMALL_ISLANDS = 32      # phase 40(c)'s searches: islands x ROW_SMALL_POP, 3 cycles
+ROW_SMALL_POP = 64
+ROW_RANKS = 2               # two gloo ranks on the one card, one data shard each
+ROW_NAMES = ("program_eval", "program_multi", "program_grad", "program_predict",
+             "program_predict_vjp")
+
+
+def row_abs_mean(pred, y, w, valid):
+    """Phase 40(c)'s custom whole-prediction loss: the mean absolute error."""
+    import torch
+
+    return torch.mean(torch.abs(pred - y))
+
+
+def row_shard_rank_run(device: str = "cuda"):
+    """Phase 40 on one rank of a gloo group of ROW_RANKS ranks sharing the
+    card (run by parallel/launch.py in a process of its own), one island
+    shard and ROW_RANKS data shards: each rank holds a block of the rows.
+    Returns each run's launches, seconds, collectives, peak memory and
+    checks."""
+    import torch
+
+    import symbolicregression_jl_tpu_torch as sr
+    from symbolicregression_jl_tpu_torch.api.search import RuntimeOptions
+    from symbolicregression_jl_tpu_torch.evolve import rng
+    from symbolicregression_jl_tpu_torch.evolve.engine import Engine
+    from symbolicregression_jl_tpu_torch.mesh import MeshPlan
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+    from symbolicregression_jl_tpu_torch.parallel import multihost
+    from symbolicregression_jl_tpu_torch.parallel.collectives import collective_stats
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    plan = MeshPlan.build(n_island_shards=1, n_data_shards=ROW_RANKS)
+    out = {"rank": multihost.process_index(), "runs": {}, "checks": {}}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def reset():
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        for k in kernels():
+            k.launches = 0
+        FE.PROGRAM_EVAL.cost_launches = 0
+        collective_stats(reset=True)
+        return time.perf_counter()
+
+    def record(name, t0, **extra):
+        sync()
+        out["runs"][name] = dict(
+            seconds=time.perf_counter() - t0,
+            launches={k.name: k.launches for k in kernels() if k.launches},
+            cost_launches=FE.PROGRAM_EVAL.cost_launches, collectives=collective_stats(),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None, **extra)
+
+    # (a) the optimizer cell
+    X, y = bench_data()
+    options = bench_options(sr, ROW_CYCLES)
+    ds = sr.make_dataset(X, y, device=dev)
+    ds.update_baseline_loss(options.elementwise_loss)
+    data = plan.place_data(ds.data)
+    whole = Engine(options, X.shape[1], device=dev).init_state(rng.key(0, device=dev), ds.data,
+                                                               options.populations)
+    engine = Engine(options, X.shape[1], device=dev, plan=plan)
+    state0 = engine.init_state(rng.key(0, device=dev), data, options.populations)
+    out["checks"]["init trees equal the unsharded Engine's"] = all(
+        torch.equal(a, b) for a, b in zip(whole.pops.trees.fields(), state0.pops.trees.fields()))
+    for f in ("loss", "cost"):
+        same_inf, within, rel, _ = close(torch, getattr(state0.pops, f), getattr(whole.pops, f))
+        out["checks"][f"init {f} within rtol 1e-5 of the unsharded Engine's (max rel "
+                      f"{rel:.3g}), inf alike"] = same_inf and within
+    out["rows"] = data.n
+    digests = []
+    for run in ("first", "second"):
+        t0 = reset()
+        state = engine.run_iteration(state0, data, options.maxsize)
+        record(f"optimizer cell ({run})", t0, best=best_loss(state))
+        digests.append(state_digests(state))
+    out["checks"]["the same seed twice: bit-identical"] = digests[0] == digests[1]
+    out["digest"] = digests[0]
+    del whole, state0, state, engine, data
+
+    # (b) the template cell, and its optimizer at ISLANDS // 8
+    Xt, yt = template_data()
+    for name, opts in (("template cell", template_options(sr, ROW_TEMPLATE_CYCLES)),
+                       ("template optimizer", template_options(
+                           sr, TEMPLATE_OPT_CYCLES, populations=ISLANDS // 8,
+                           optimizer_probability=0.14))):
+        tds = sr.make_dataset(Xt, yt, device=dev)
+        tds.update_baseline_loss(opts.elementwise_loss)
+        tdata = plan.place_data(tds.data)
+        eng = Engine(opts, Xt.shape[1], device=dev, plan=plan)
+        st = eng.init_state(rng.key(0, device=dev), tdata, opts.populations)
+        t0 = reset()
+        st = eng.run_iteration(st, tdata, opts.maxsize)
+        record(name, t0, best=best_loss(st), cycles=opts.ncycles_per_iteration,
+               optimizer_iterations=opts.optimizer_iterations)
+        del eng, st, tdata
+
+    # (c) equation_search with each feature the port used to refuse
+    for name, kw in (("batching", dict(batching=True, batch_size=BATCH_SIZE)),
+                     ("staged_eval", dict(staged_eval=True)),
+                     ("custom loss", dict(loss_function=row_abs_mean))):
+        opts = bench_options(sr, 3, populations=ROW_SMALL_ISLANDS,
+                             population_size=ROW_SMALL_POP, **kw)
+        t0 = reset()
+        hof = sr.equation_search(X, y, options=opts, device=dev, runtime_options=RuntimeOptions(
+            niterations=1, seed=0, verbosity=0, n_data_shards=ROW_RANKS))
+        losses = [float(e.loss) for e in hof.entries]
+        record(name, t0, hof=len(losses), best=min(losses) if losses else float("nan"))
+        out["checks"][f"{name}: a finite hall of fame"] = bool(losses) and bool(
+            np.isfinite(losses).all())
+    return out
+
+
+def phase_row_shards(torch, sr, dev, out_base, card):
+    """Phase 40: data-row shards on the card (the module docstring's 40).
+    Returns each kernel's launches per rank in (a), (b)'s template cell
+    and (b)'s optimizer."""
+    from symbolicregression_jl_tpu_torch.parallel.launch import run_ranks
+
+    check = Checks()
+    here = os.path.dirname(os.path.abspath(__file__))
+    logs = []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks("chip_smoke:row_shard_rank_run", ROW_RANKS, kwargs={"device": str(dev)},
+                      backend="gloo", timeout_s=MESH_TIMEOUT_S, sys_path=[here],
+                      workdir=os.path.join(out_base, "row_ranks"), logs=logs)
+    print(f"  {ROW_RANKS} gloo ranks on {dev}, one island shard and {ROW_RANKS} data shards: "
+          f"{time.perf_counter() - t0:.1f} s with their start-up; rows per rank "
+          f"{[r['rows'] for r in ranks]}")
+    for r in ranks:
+        for name, run in r["runs"].items():
+            c = run["collectives"]
+            print(f"  {card}: rank {r['rank']}, {name}: {run['seconds']:.3f} s, launches "
+                  f"{run['launches']} (cost-epilogue form {run['cost_launches']}), "
+                  f"{c['collectives']} collectives, {c['bytes']} B received in "
+                  f"{c['seconds']:.3f} s, peak {run['peak_gib'] or 0.0:.3f} GiB, best loss "
+                  f"{run['best']:.6g}")
+        for name, ok in r["checks"].items():
+            check(f"rank {r['rank']}: {name}", ok)
+    check("both ranks hold the same state", ranks[0]["digest"] == ranks[1]["digest"])
+    t = TEMPLATE_OPT_CYCLES
+    opt_iters = bench_options(sr, 1).optimizer_iterations
+    passes = opt_iters + 1
+    want = {"optimizer cell (first)": dict(program_eval=ROW_CYCLES + 1, program_multi=8,
+                                           program_grad=9),
+            "template cell": dict(program_predict=3 * (ROW_TEMPLATE_CYCLES + 1)),
+            "template optimizer": dict(program_predict=3 * (t + 1 + passes + opt_iters),
+                                       program_predict_vjp=3 * passes)}
+    want["optimizer cell (second)"] = want["optimizer cell (first)"]
+    for r in ranks:
+        for name, counts in want.items():
+            run = r["runs"][name]
+            check(f"rank {r['rank']}, {name}: launches {counts}, no other",
+                  run["launches"] == counts and run["cost_launches"] == 0)
+        for name in ("batching", "staged_eval", "custom loss"):
+            print(f"  rank {r['rank']}, {name}: hall of fame of {r['runs'][name]['hof']}")
+    if check.failures:
+        for i, log in enumerate(logs):
+            print(f"  rank {i} output:\n{log[-3000:]}")
+    check.raise_if_failed("row shards")
+    per_rank = {}
+    for name in ROW_NAMES:
+        per_rank[name] = sum(ranks[0]["runs"][run]["launches"].get(name, 0)
+                             for run in ("optimizer cell (first)", "template cell",
+                                         "template optimizer"))
+        if not per_rank[name]:
+            raise RuntimeError(f"phase 40 launched {name} no time")
+    return per_rank
+
+
 def _build_or_error(cuda_build, header):
     """Builds every source with ``header``; returns the error instead of
     raising it (the caller re-raises it on its own thread)."""
@@ -5215,6 +5408,12 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
             row["mesh_launches_1rank"] = one_rank[row["name"]]
             if not per_rank[row["name"]] or not one_rank[row["name"]]:
                 raise RuntimeError(f"phase 39 launched {row['name']} no time")
+
+    header("[40] data-row shards: two gloo ranks on the card, one block of the rows each "
+           "(optimizer cell, template cell and optimizer, batching, staged_eval, a custom loss)")
+    row_launches = phase_row_shards(torch, sr, dev, out_base, card)
+    for row in rows:
+        row["row_shard_launches_per_rank"] = row_launches.get(row["name"], 0)
 
     header("")
     print(card)

@@ -69,32 +69,47 @@ class DeviceData:
 
     @property
     def n(self) -> int:
+        """The rows this tensor holds (this rank's block under a row shard)."""
         return int(self.Xt.shape[1])
+
+    @property
+    def n_global(self) -> int:
+        """The rows of the whole dataset this is a part of: ``n`` without a
+        row shard, every shard's rows with one."""
+        return self.n if self.row_shard is None else int(self.row_shard.n_rows)
 
     def take_rows(self, idx: torch.Tensor) -> "DeviceData":
         """Rows ``idx`` [B] (any order, repeats allowed) as a DeviceData of
         their own: X, y, weights and classes gathered into contiguous
         tensors (the kernels read contiguous [F, n] storage), the baseline
         normalization the full data's. A minibatch is gathered once per
-        iteration and read by every cycle and the constant optimizer."""
+        iteration and read by every cycle and the constant optimizer.
+        Under a row shard ``idx`` index the whole dataset's rows
+        (``n_global``): this rank keeps those of its part, rebased to it,
+        and the result carries the row shard of the B taken rows
+        (``RowShard.take``), so its losses reduce over all of them."""
         idx = idx.to(self.device).long()
+        shard = self.row_shard
+        if shard is not None:
+            idx, shard = shard.take(idx)
         take = lambda t: None if t is None else t.index_select(-1, idx).contiguous()
         return DeviceData(Xt=take(self.Xt), y=take(self.y), weights=take(self.weights),
                           baseline_loss=self.baseline_loss, use_baseline=self.use_baseline,
                           class_idx=take(self.class_idx), x_dims=self.x_dims,
-                          y_dims=self.y_dims, dims_row=self.dims_row)
+                          y_dims=self.y_dims, dims_row=self.dims_row, row_shard=shard)
 
     def strided_sample(self, sample_rows: int) -> "DeviceData":
         """graftstage's screening rows (``ops.fused_eval.strided_sample_indices``)
         as a DeviceData of their own (``take_rows``), made once per size and
         kept. On a minibatch these are the batch's strided rows, as the JAX
-        package's ``take(batch_idx, strided)``."""
+        package's ``take(batch_idx, strided)``; under a row shard, the
+        global strided rows that fall in this rank's part."""
         sample = self._samples.get(sample_rows)
         if sample is None:
             from ..ops.fused_eval import strided_sample_indices
 
             sample = self.take_rows(torch.from_numpy(
-                strided_sample_indices(self.n, sample_rows)))
+                strided_sample_indices(self.n_global, sample_rows)))
             self._samples[sample_rows] = sample
         return sample
 

@@ -224,9 +224,21 @@ def loss_from_pred(pred, valid, y, w, elementwise_loss, loss_function=None):
     ``loss_function(pred, y, w, valid)``) or the elementwise path. An
     invalid tree, or a NaN from the hook, gets inf. The hook runs under
     ``torch.func.vmap`` over the trees, as the JAX package ``jax.vmap``s
-    it, and stays differentiable by ``torch.autograd``."""
+    it, and stays differentiable by ``torch.autograd``. Under an active
+    data-row shard the hook sees the whole prediction: every shard's rows
+    gathered in row order (their gradient flows back to this rank's
+    rows), the whole targets and weights, and validity over every shard,
+    so its loss is the unsharded one."""
     if loss_function is None:
         return aggregate_loss(elementwise_loss, pred, y, valid, w)
+    from ..parallel.collectives import active_row_shard, gather_rows, shard_all, whole_rows
+
+    shard = active_row_shard()
+    if shard is not None:
+        pred = gather_rows(pred, shard)
+        valid = shard_all(valid, shard)
+        y = whole_rows(y, shard, "y")
+        w = None if w is None else whole_rows(w, shard, "w")
     flat_pred = pred.reshape(-1, pred.shape[-1])
     flat_valid = valid.reshape(-1)
     one = lambda p, v: torch.as_tensor(loss_function(p, y, w, v), dtype=pred.dtype,

@@ -294,8 +294,10 @@ def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
     # 2^28 elements without gradients and 2^27 with them, whose autograd
     # graph (a few such buffers) each chunk frees by its own backward pass,
     # so the memory stays bounded whatever the number of members, and the
-    # chunks stay few: each costs the interpreter's eager launches.
-    per_row = max(L * X.shape[1], 1)
+    # chunks stay few: each costs the interpreter's eager launches. The
+    # whole dataset's rows size them, so every data-row shard runs the
+    # same chunks (each reduces over the shards).
+    per_row = max(L * data.n_global, 1)
     chunk_ng, chunk_g = max(1, (1 << 28) // per_row), max(1, (1 << 27) // per_row)
 
     def loss_of(xb, reps: int):
@@ -451,7 +453,7 @@ def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, dat
         """Member chunks: one for the kernels; for the eager interpreter of
         a D structure, at most D_CHUNK_BYTES of value buffer each."""
         per = P if fused or not template.uses_deriv else D_CHUNK_BYTES // (
-            K * L * X.shape[-1] * X.element_size() * rows_per_member)
+            K * L * max(data.n_global, 1) * X.element_size() * rows_per_member)
         per = max(per, 1)
         return [(lo, min(lo + per, P)) for lo in range(0, max(P, 1), per)]
 
@@ -471,7 +473,8 @@ def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, dat
                 (g,) = torch.autograd.grad(total, xc)
             losses.append(loss.detach())
             grads.append(g)
-        g = torch.where(mask_r, torch.cat(grads), 0.0)
+        # Row-sharded data: the gradient partials of every shard, in shard order.
+        g = torch.where(mask_r, sum_over_row_shards(torch.cat(grads)), 0.0)
         return torch.cat(losses), torch.where(torch.isfinite(g), g, 0.0)
 
     def line_losses(cand_x, _active):

@@ -53,8 +53,13 @@ statistics under more than one island shard, the fused-cost finalize.
 optimizer off, N island shards are bit-identical to the unsharded run;
 with it on, the restart key is decorrelated per shard
 (``fold_in(key, shard)``), as in the JAX package. With data-row shards
-(``n_data_shards > 1``) turbo goes off and the eager interpreter's row
-partials are added over the data axis (core/losses.aggregate_loss).
+(``n_data_shards > 1``) each rank holds a block of the rows and every
+loss, on the kernels or the eager interpreter, adds the row partials of
+every block before the mean (``ops/fused_eval._row_totals``,
+``core/losses.aggregate_loss``): templates, custom losses, minibatches
+(drawn over the whole dataset's rows) and graftstage's screening sample
+(the global strided rows) included. The cost epilogue of #1 is off there:
+it needs the whole loss.
 
 graftstage (``docs/PRECISION.md``): with ``eval_precision="bf16"`` the
 init eval, the cycles and the finalize score on the bf16 value buffer;
@@ -176,11 +181,12 @@ class Engine:
             # gradient on kernel #3 in float32, as in the JAX package.
             self.cfg = self.cfg._replace(eval_bf16="data")
         if plan is not None and plan.n_data_shards > 1:
-            _check_row_sharding(options, self.template)
-            # The JAX package's evolve/step.py:201-207: turbo goes off under
-            # data-row shards; the eager interpreter's row partials are
-            # added over the data axis.
-            self.cfg = self.cfg._replace(turbo=False, fuse_cost=False)
+            # Data-row shards keep the kernels: each launch sums this rank's
+            # rows and the wrappers add every shard's sums before the mean.
+            # The cost epilogue needs the whole loss, so the cost follows on
+            # the host (the JAX package turns turbo off here, a TPU
+            # workaround: evolve/step.py:201-207).
+            self.cfg = self.cfg._replace(fuse_cost=False)
         self.opt_cfg = OptimizerConfig(
             iterations=options.optimizer_iterations, nrestarts=options.optimizer_nrestarts,
             ls_bf16=("data" if bf16_data and self.cfg.turbo else
@@ -411,10 +417,12 @@ class Engine:
     def draw_batch(self, k_batch, data: DeviceData) -> Optional[DeviceData]:
         """With ``batching``, this iteration's minibatch: ``batch_size``
         rows drawn as ``jax.random.randint(k_batch, (batch_size,), 0, n)``
-        and gathered into contiguous tensors; else None."""
+        over the whole dataset's ``n`` rows and gathered into contiguous
+        tensors (under a data-row shard, those in this rank's block); else
+        None."""
         if not self.cfg.batching:
             return None
-        return data.take_rows(rng.randint(k_batch, (self.cfg.batch_size,), 0, data.n))
+        return data.take_rows(rng.randint(k_batch, (self.cfg.batch_size,), 0, data.n_global))
 
     # ------------------------------------------------------------------
     def run_iteration(self, state: SearchDeviceState, data: DeviceData, cur_maxsize: int,
@@ -450,7 +458,7 @@ class Engine:
         # by every cycle and the constant optimizer (the finalize reads all
         # rows); evaluations count as batch_size / n of a full one.
         batch = self.draw_batch(k_batch, data)
-        eval_fraction = cfg.batch_size / data.n if batch is not None else 1.0
+        eval_fraction = cfg.batch_size / data.n_global if batch is not None else 1.0
         cycle_data = batch if batch is not None else data
         chunked = bool(chunk_sizes) and list(chunk_sizes) != [cfg.ncycles]
         if not chunk_sizes:
@@ -634,8 +642,9 @@ class Engine:
         # Parametric and template members optimize their banks jointly with
         # their constants, on the eager path (never the fused L-BFGS).
         sub_p = _take_rows(pops.params, sel_idx) if cfg.n_params else None
-        # A named range for torch.profiler (bench/profile_iteration.py).
-        with torch.profiler.record_function("sr:constant_optimizer"):
+        # A named range for torch.profiler (bench/profile_iteration.py); the
+        # losses reduce over the row shard of the rows optimized on.
+        with torch.profiler.record_function("sr:constant_optimizer"), self._rows(data):
             if cfg.template is not None:
                 # One key per island, as the JAX package vmaps it; all
                 # islands' members run as one batch.
@@ -687,22 +696,6 @@ def _island_block(obj, lo: int, hi: int):
         return obj[lo:hi]
     return dataclasses.replace(obj, **{f.name: _island_block(getattr(obj, f.name), lo, hi)
                                        for f in dataclasses.fields(obj) if f.init})
-
-
-def _check_row_sharding(options: Options, template) -> None:
-    """What the port's data-row shards do not take: each needs a
-    reduction over the data axis that the eager row partials do not
-    give."""
-    what = [name for name, on in (
-        ("a template expression", template is not None),
-        ("a custom loss_function", options.resolved_loss_function is not None),
-        ("batching", options.batching),
-        ("staged_eval", options.staged_eval),
-    ) if on]
-    if what:
-        raise NotImplementedError(
-            f"n_data_shards > 1 with {', '.join(what)} is not in the PyTorch port: its "
-            "data-row shards reduce the elementwise loss of plain and parametric members")
 
 
 def _migrate(key, pops: PopulationState, pool: PopulationState, frac: float, birth,

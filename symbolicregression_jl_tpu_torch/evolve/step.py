@@ -49,6 +49,7 @@ from ..ops.encoding import LEAF_CONST, LEAF_VAR, TreeBatch, select_tree, structu
 from ..ops.eval import eval_tree_batch
 from ..ops.fused_eval import fused_cost, fused_loss, supports_fused_eval
 from ..ops.operators import OperatorSet
+from ..parallel.collectives import row_shard
 from . import mutation as M
 from . import rng
 from .population import PopulationState
@@ -288,7 +289,20 @@ def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: Complexity
     first row (ops/dims_eval.py; src/DimensionalAnalysis.jl:223-257 of the
     Julia reference) and ``dim_penalty`` times its violation added to its
     cost (src/LossFunctions.jl:236-245); templates are excluded, as in
-    the JAX package."""
+    the JAX package.
+
+    Under a data-row shard (``data.row_shard``) the rows are this rank's
+    part of them, and every loss reduces over every shard's part."""
+    with row_shard(getattr(data, "row_shard", None)):
+        return _eval_cost_batch(trees, data, elementwise_loss, tables, operators, parsimony,
+                                member_params, turbo, fuse_cost, dedup, template, bf16,
+                                loss_function, dim_penalty, wildcard_constants)
+
+
+def _eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: ComplexityTables,
+                     operators: OperatorSet, parsimony: float, member_params, turbo: bool,
+                     fuse_cost: bool, dedup: bool, template, bf16: Union[bool, str],
+                     loss_function, dim_penalty: float, wildcard_constants: bool):
     X, y, w = data.Xt, data.y, data.weights
     has_params = member_params is not None and member_params.shape[-2] > 0
     if template is not None:
@@ -769,8 +783,10 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
     # population. One screen launch and one rescore launch per cycle.
     staged_ok = (cfg.staged_eval and template is None
                  and options.resolved_loss_function is None)
-    sample_rows = resolve_sample_rows(cfg, data.n) if staged_ok else data.n
-    staged = sample_rows < data.n
+    # the whole dataset's rows under a data-row shard: the sample is the
+    # global strided rows (DeviceData.strided_sample)
+    sample_rows = resolve_sample_rows(cfg, data.n_global) if staged_ok else data.n_global
+    staged = sample_rows < data.n_global
 
     def _eval(trees: TreeBatch, params):
         bshape = _member_shape(trees, template)

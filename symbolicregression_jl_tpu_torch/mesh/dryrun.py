@@ -25,8 +25,8 @@ opaque timeout):
 - ``legacy-turbo`` / ``legacy-template`` / ``legacy-datagrid`` — the
   default runtime (``mesh_runtime=False``): plain and template
   expressions on the kernel path under island shards, and the (island,
-  data) grid with the rows' partials added over the data axis (four or
-  more ranks).
+  data) grid (four or more ranks): plain and template expressions on the
+  kernel path with the rows' partials added over the data axis.
 
 ``--fast`` runs ``mesh-jnp`` only.
 """
@@ -248,24 +248,33 @@ def _leg_cache(n: int) -> None:
 
 
 def _run_legacy(n: int, *, mode: str) -> None:
+    from ..models import template_spec
+
+    spec = template_spec(expressions=("f", "g"))(
+        lambda f, g, x1, x2, x3, x4, x5: f(x1, x2) + g(x3))
     if mode == "turbo":
         engine, state, data, options = _build(n, turbo=True, mesh_runtime=False)
         assert engine.cfg.turbo, "the legacy turbo leg must run the kernel path"
     elif mode == "template":
-        from ..models import template_spec
-
-        spec = template_spec(expressions=("f", "g"))(
-            lambda f, g, x1, x2, x3, x4, x5: f(x1, x2) + g(x3))
         engine, state, data, options = _build(n, turbo=True, mesh_runtime=False,
                                               expression_spec=spec)
     else:
         if n < 4 or n % 2:
             return
-        # the (island, data) grid on the eager path: rows split over the
-        # data axis, their partials added in shard order
-        engine, state, data, options = _build(n // 2, n_data_shards=2, turbo=False,
-                                              mesh_runtime=False)
-        assert not engine.cfg.turbo
+        # the (island, data) grid on the kernel path: rows split over the
+        # data axis, each launch's row sums added in shard order; a plain
+        # and a template search
+        _datagrid(n, None)
+        _datagrid(n, spec)
+        return
+    state = _iterate(engine, state, data, options)
+    check_populations(engine, state, options)
+
+
+def _datagrid(n: int, expression_spec) -> None:
+    engine, state, data, options = _build(n // 2, n_data_shards=2, turbo=True,
+                                          mesh_runtime=False, expression_spec=expression_spec)
+    assert engine.cfg.turbo and data.row_shard is not None
     state = _iterate(engine, state, data, options)
     check_populations(engine, state, options)
 

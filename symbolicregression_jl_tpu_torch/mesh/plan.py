@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel.collectives import row_block as block
 from ..parallel.mesh import DATA_AXIS, ISLAND_AXIS, RankMesh, make_mesh
 
 __all__ = ["MeshPlan"]
@@ -50,14 +51,6 @@ def _map(obj, fn):
         return dataclasses.replace(obj, **{f.name: _map(getattr(obj, f.name), fn)
                                            for f in dataclasses.fields(obj) if f.init})
     return obj
-
-
-def block(n: int, count: int, index: int) -> Tuple[int, int]:
-    """[lo, hi) of block ``index`` of ``count`` contiguous blocks of
-    ``n`` (ceil-sized; the last may be shorter)."""
-    size = -(-int(n) // int(count))
-    lo = min(int(index) * size, int(n))
-    return lo, min(lo + size, int(n))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -53,7 +53,16 @@ class ValidVector:
     def __mod__(self, o): return apply_operator("mod", self, o)
 
     def __getitem__(self, idx):
-        """Slices the data; validity unchanged."""
+        """Slices the data; validity unchanged. Every other operation of
+        the algebra is row-wise; this one reads rows by position, so it is
+        refused under a data-row shard, where each rank holds a block of
+        the rows (the JAX package's GSPMD slices the global array)."""
+        from ..parallel.collectives import active_row_shard
+
+        if active_row_shard() is not None:
+            raise NotImplementedError(
+                "ValidVector indexing (v[i]) reads rows by position and is not row-wise: it is "
+                "not available with data-row shards (RuntimeOptions(n_data_shards > 1))")
         return ValidVector(self.x[idx], self.valid)
 
 

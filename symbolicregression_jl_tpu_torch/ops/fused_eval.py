@@ -75,6 +75,7 @@ import numpy as np
 import torch
 
 from ..core.losses import baseline_normalization, kernel_loss
+from ..parallel.collectives import active_row_shard, shard_all, shard_reduce
 from .encoding import LEAF_PARAM, TreeBatch
 from .operators import OPERATOR_REGISTRY, OperatorSet
 from .program import TreeProgram, compile_program, scatter_const_grads
@@ -759,7 +760,9 @@ def _stream(X):
 
 
 class ProgramEvalKernel(_ProgramKernel):
-    """Wrapper of ``sr_program_eval`` (csrc/program_eval.cu)."""
+    """Wrapper of ``sr_program_eval`` (csrc/program_eval.cu).
+    ``cost_launches`` counts the launches of its cost-epilogue form (a
+    part of ``launches``)."""
 
     name = "program_eval"
     source = "symbolicregression_jl_tpu_torch/csrc/program_eval.cu"
@@ -768,6 +771,10 @@ class ProgramEvalKernel(_ProgramKernel):
     _entry = "sr_program_eval"
     _smem = "sr_program_eval_smem"
     _smem_nargs = 7
+
+    def __init__(self):
+        super().__init__()
+        self.cost_launches = 0
 
     def _smem_extra(self, NP, NC):
         return (NP, NC, 2 if self.bf16 else (8 if self.f64 else 4))
@@ -805,6 +812,8 @@ class ProgramEvalKernel(_ProgramKernel):
             code_mask, 30, _ptr(loss), _ptr(valid), _ptr(cost),
             _stream(X))
         if cost_form:
+            with self._lock:
+                self.cost_launches += 1
             return loss, valid.bool(), cost
         return loss, valid.bool()
 
@@ -1327,6 +1336,34 @@ def _denominator(weights, X):
     return torch.sum(weights.to(X.dtype))
 
 
+def _row_totals(sums, valid, weights, X):
+    """(sums, valid, denominator) of a launch's per-tree row sums ``sums``
+    (a list: the loss sums, and the constants' cotangent sums of #3 or #5)
+    and validity, before the mean. Without a row shard: as given, and the
+    rows' count or weight sum. Under an active data-row shard
+    (parallel/collectives.RowShard) the rows are this rank's part: each
+    sum is added over every shard in shard order, validity taken over
+    every shard (and the total's finiteness, as one launch over every row
+    has it), and the denominator is the whole dataset's row count or
+    weight sum, all in one collective."""
+    shard = active_row_shard()
+    if shard is None:
+        return sums, valid, _denominator(weights, X)
+    wsum = None if weights is None else torch.sum(weights.to(X.dtype))
+    sums, valid, wsum = shard_reduce(shard, sums, valid, wsum)
+    valid = valid & torch.isfinite(sums[0])
+    if weights is None:
+        return sums, valid, torch.tensor(float(shard.n_rows), dtype=X.dtype, device=X.device)
+    return sums, valid, wsum
+
+
+def _no_rows(X) -> bool:
+    """A rank whose part of a sharded dataset holds none of the rows (a
+    minibatch that missed it): its partials are zeros and it is "all
+    valid", without a launch over zero rows."""
+    return X.shape[-1] == 0
+
+
 def fused_loss_program(prog: TreeProgram, X, y, weights, nfeatures: int,
                        operators: OperatorSet, loss_fn: Callable, *, params=None,
                        class_idx=None, bf16=False):
@@ -1343,7 +1380,11 @@ def fused_loss_program(prog: TreeProgram, X, y, weights, nfeatures: int,
         return user_loss_program(prog, X, y, weights, nfeatures, operators, loss_fn,
                                  params=params, class_idx=class_idx, bf16=bf16)
     spine = _round_bf16 if bf16 == "data" else (lambda v: v)
-    if params is None:
+    T = prog.code.shape[0]
+    if _no_rows(X):
+        loss_sum = torch.zeros(T, dtype=X.dtype, device=X.device)
+        valid = torch.ones(T, dtype=torch.bool, device=X.device)
+    elif params is None:
         args = _launch_inputs(prog, X, y, weights, nfeatures, operators, bf16=bf16)
         loss_sum, valid = _pick("eval", X, bf16)(*args, operators, loss_fn)
     else:
@@ -1352,7 +1393,8 @@ def fused_loss_program(prog: TreeProgram, X, y, weights, nfeatures: int,
         loss_sum, valid = _pick("param", X, bf16)(
             instr, nsteps, cvals, ok, params.to(X.dtype).contiguous(),
             class_idx.to(torch.int32).contiguous(), Xc, yc, w, operators, loss_fn)
-    loss = spine(loss_sum / _denominator(weights, X))
+    (loss_sum,), valid, denom = _row_totals([loss_sum], valid, weights, X)
+    loss = spine(loss_sum / denom)
     loss = torch.where(valid & torch.isfinite(loss), loss, torch.inf)
     return loss, valid
 
@@ -1363,10 +1405,11 @@ def fused_cost_program(prog: TreeProgram, X, y, weights, complexity, nfeatures: 
     """(cost, loss, valid) per compiled program, the cost computed in the
     kernel's epilogue with ``core.losses.loss_to_cost``'s operation order
     (kernel 1b with ``bf16``). A user elementwise callable takes the
-    user-loss route, and the cost follows on the host in the same order."""
+    user-loss route, and the cost follows on the host in the same order; so
+    does a data-row shard's (the epilogue needs the whole loss)."""
     denom = _denominator(weights, X)
     norm = baseline_normalization(baseline_loss.to(X.dtype), use_baseline)
-    if kernel_loss(loss_fn) is None:
+    if kernel_loss(loss_fn) is None or active_row_shard() is not None:
         loss, valid = fused_loss_program(prog, X, y, weights, nfeatures, operators, loss_fn,
                                          bf16=bf16)
         return loss / norm.to(X.dtype) + parsimony * complexity.to(X.dtype), loss, valid
@@ -1449,7 +1492,11 @@ def fused_loss(trees: TreeBatch, X, y, weights, operators: OperatorSet,
         p_flat = params.reshape(-1, NP, params.shape[-1])
         loss, valid = fused_loss_program(prog, X, y, weights, F, operators, loss_fn,
                                          params=p_flat, class_idx=class_idx, bf16=bf16)
-        valid = valid & _params_ok(flat, p_flat, class_idx)
+        ok = _params_ok(flat, p_flat, class_idx)
+        shard = active_row_shard()
+        if shard is not None:   # the classes of every shard's rows
+            ok = shard_all(ok, shard)
+        valid = valid & ok
         loss = torch.where(valid, loss, torch.inf)
     elif dedup and not bf16:
         loss, valid = fused_loss_dedup(prog, X, y, weights, F, operators, loss_fn)
@@ -1508,9 +1555,15 @@ def fused_loss_multi(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
                                bf16=bf16)
     (instr, nsteps, cv, Xc, yc, w), ok_v = _multi_inputs(prog, cvals_v, X, y, weights,
                                                          nfeatures, operators, bf16)
-    loss_sum, valid = _pick("multi", X, bf16)(instr, nsteps, cv, Xc, yc, w, operators, loss_fn)
+    if _no_rows(X):
+        loss_sum = torch.zeros(cvals_v.shape[:2], dtype=X.dtype, device=X.device)
+        valid = torch.ones(cvals_v.shape[:2], dtype=torch.bool, device=X.device)
+    else:
+        loss_sum, valid = _pick("multi", X, bf16)(instr, nsteps, cv, Xc, yc, w, operators,
+                                                  loss_fn)
+    (loss_sum,), valid, denom = _row_totals([loss_sum], valid, weights, X)
     valid = valid & ok_v
-    loss = loss_sum / _denominator(weights, X)
+    loss = loss_sum / denom
     if bf16 == "data":
         loss = _round_bf16(loss)
     loss = torch.where(valid & torch.isfinite(loss), loss, torch.inf)
@@ -1529,12 +1582,17 @@ def fused_grad_multi(prog: TreeProgram, cvals_v, X, y, weights, nfeatures: int,
     (instr, nsteps, cv, Xc, yc, w), ok_v = _multi_inputs(prog, cvals_v, X, y, weights,
                                                          nfeatures, operators)
     nconst = prog.nconst.to(torch.int32).contiguous()
-    kernel = _pick("grad", X)
-    n_grad = X.shape[1] if weights is None else weighted_rows(weights)
-    loss_sum, valid, gcomp = kernel(instr, nsteps, nconst, cv, Xc, yc, w, operators, loss_fn,
-                                    n_grad=n_grad)
+    if _no_rows(X):
+        loss_sum = torch.zeros(cvals_v.shape[:2], dtype=X.dtype, device=X.device)
+        valid = torch.ones(cvals_v.shape[:2], dtype=torch.bool, device=X.device)
+        gcomp = torch.zeros(cvals_v.shape, dtype=X.dtype, device=X.device)
+    else:
+        # a row shard's own last row of positive weight bounds its sums
+        n_grad = X.shape[1] if weights is None else weighted_rows(weights)
+        loss_sum, valid, gcomp = _pick("grad", X)(instr, nsteps, nconst, cv, Xc, yc, w,
+                                                  operators, loss_fn, n_grad=n_grad)
+    (loss_sum, gcomp), valid, denom = _row_totals([loss_sum, gcomp], valid, weights, X)
     valid = valid & ok_v
-    denom = _denominator(weights, X)
     loss = loss_sum / denom
     grad = gcomp / denom
     bad = ~(valid & torch.isfinite(loss))
@@ -1592,6 +1650,10 @@ def fused_predict_program(prog: TreeProgram, X, nfeatures: int, operators: Opera
     programs from one launch of kernel #4. ``X`` is shared dataset columns
     [F, n] or per-member argument rows [T, F, n]; ``plain`` runs the
     kernel's plain version (the turbo-off path)."""
+    if _no_rows(X):
+        T = prog.code.shape[0]
+        return (torch.zeros((T, 0), dtype=X.dtype, device=X.device),
+                torch.ones(T, dtype=torch.bool, device=X.device))
     instr, nsteps, cvals, Xc = _predict_inputs(prog, X, nfeatures, operators)
     ok = prog.const_ok.to(torch.int32).contiguous()
     run = program_predict_plain if plain else _pick("predict", X)
@@ -1602,7 +1664,10 @@ def fused_predict_vjp_program(prog: TreeProgram, X, ct, nfeatures: int,
                               operators: OperatorSet, *, plain: bool = False):
     """d(sum(ct * pred))/d(cvals) [T, CMAX], non-finite entries zeroed,
     and in per-member mode the raw d/dX [T, F, n] (None for shared X), from
-    one launch of kernel #5."""
+    one launch of kernel #5 (none over zero rows)."""
+    if _no_rows(X):
+        gcomp = torch.zeros((prog.code.shape[0], prog.cmax), dtype=X.dtype, device=X.device)
+        return gcomp, (torch.zeros_like(X) if X.dim() == 3 else None)
     instr, nsteps, cvals, Xc = _predict_inputs(prog, X, nfeatures, operators)
     nconst = prog.nconst.to(torch.int32).contiguous()
     run = program_predict_vjp_plain if plain else _pick("vjp", X)
@@ -1730,7 +1795,6 @@ def _user_route(prog: TreeProgram, cv, ok, tree, X, y, weights, nfeatures: int,
     n = X.shape[1]
     w = (torch.ones(n, dtype=X.dtype, device=X.device) if weights is None
          else weights.to(X.dtype).contiguous())
-    denom = _denominator(weights, X)
     R = cv.shape[0]
     pb16 = bool(bf16) and not grad
     cdt = torch.float32 if pb16 else X.dtype
@@ -1740,7 +1804,7 @@ def _user_route(prog: TreeProgram, cv, ok, tree, X, y, weights, nfeatures: int,
     step = max(1, USER_LOSS_CHUNK_BYTES // (per_row * max(n, 1)))
     spine = _round_bf16 if bf16 == "data" else (lambda v: v)
     sums, valids, grads = [], [], []
-    for s in range(0, R, step):
+    for s in range(0, R if n else 0, step):
         t = tree[s:s + step]
         args = (instr[t].contiguous(), nsteps[t].contiguous(), nconst[t].contiguous(),
                 ok[s:s + step].to(torch.int32).contiguous())
@@ -1767,18 +1831,21 @@ def _user_route(prog: TreeProgram, cv, ok, tree, X, y, weights, nfeatures: int,
         sums.append(total.detach())
         valids.append(valid)
         grads.append(g)
-    if not sums:
-        empty = torch.zeros(0, dtype=X.dtype, device=X.device)
-        return (empty, torch.zeros(0, dtype=torch.bool, device=X.device),
-                torch.zeros((0, cv.shape[1]), dtype=X.dtype, device=X.device) if grad else None)
+    if not sums:   # no rows, or no programs: zero partials, all valid
+        sums = [torch.zeros(R, dtype=X.dtype, device=X.device)]
+        valids = [torch.ones(R, dtype=torch.bool, device=X.device)]
+        grads = [torch.zeros((R, cv.shape[1]), dtype=X.dtype, device=X.device)]
     total = torch.cat(sums)
     valid = torch.cat(valids) & torch.isfinite(total)
+    parts = [total, torch.cat(grads)] if grad else [total]
+    parts, valid, denom = _row_totals(parts, valid, weights, X)
+    total = parts[0]
     loss = spine(total / denom)
     bad = ~(valid & torch.isfinite(loss))
     loss = torch.where(bad, torch.inf, loss)
     if not grad:
         return loss, valid, None
-    g = torch.cat(grads) / denom
+    g = parts[1] / denom
     return loss, valid, torch.where(bad[:, None] | ~torch.isfinite(g), 0.0, g)
 
 

@@ -13,11 +13,16 @@ Every collective the multi-device search makes goes through this module:
 - :func:`first_of_ranks` agrees on host decisions (the stop reason).
 - The data-row shards' reduction (``n_data_shards > 1``):
   :func:`row_shard` makes a :class:`RowShard` active for the calling
-  thread, and ``core/losses.aggregate_loss`` then reduces each tree's
-  row partials over the shard's group (:func:`shard_row_sum`, which
-  autograd passes through) and takes validity over every shard
-  (:func:`shard_all`); the constant optimizer adds its gradient partials
-  with :func:`sum_over_row_shards`.
+  thread. ``core/losses.aggregate_loss`` then reduces each tree's row
+  partials over the shard's group (:func:`shard_row_sum`, which autograd
+  passes through) and takes validity over every shard
+  (:func:`shard_all`); the kernel wrappers reduce their row sums,
+  validity and denominator in one collective (:func:`shard_reduce`); a
+  custom whole-prediction loss reads every shard's predictions
+  (:func:`gather_rows`, whose backward is the rank's slice) and the whole
+  targets (:func:`whole_rows`); the constant optimizers add their
+  gradient partials with :func:`sum_over_row_shards`. A shard's rows may
+  be a minibatch or a sample of the dataset's (``RowShard.take``).
 
 A ``group`` of None means no process group: a single shard, where every
 function is the identity. Under ``gloo`` a CUDA tensor is copied to the
@@ -40,7 +45,8 @@ import torch
 
 __all__ = ["all_gather_islands", "all_gather_tree", "ordered_sum", "all_sum",
            "first_of_ranks", "collective_stats", "RowShard", "row_shard",
-           "active_row_shard", "shard_row_sum", "shard_all", "sum_over_row_shards"]
+           "active_row_shard", "shard_row_sum", "shard_all", "sum_over_row_shards",
+           "shard_reduce", "gather_rows", "whole_rows", "row_block"]
 
 _STATS = {"collectives": 0, "bytes": 0, "seconds": 0.0}
 
@@ -190,16 +196,50 @@ def first_of_ranks(obj, group=None):
 # ---------------------------------------------------------------------------
 
 
-@dataclasses.dataclass(frozen=True)
+def row_block(n: int, count: int, index: int):
+    """[lo, hi) of block ``index`` of ``count`` contiguous blocks of
+    ``n`` rows (ceil-sized; the last may be shorter)."""
+    size = -(-int(n) // int(count))
+    lo = min(int(index) * size, int(n))
+    return lo, min(lo + size, int(n))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class RowShard:
-    """This rank's block of the dataset's rows: ``group`` holds the ranks
-    of the other blocks (data index order), ``n_rows`` is the whole
-    dataset's row count."""
+    """This rank's part of a dataset's rows: ``group`` holds the ranks
+    of the other parts (data index order), ``n_rows`` is the whole
+    dataset's row count. ``positions`` are the rank's rows among the
+    ``n_rows``, ascending; None is the contiguous block ``row_block(n_rows,
+    count, index)`` (``MeshPlan.place_data``). ``cache`` keeps what a
+    shard gathers once (its row layout, the whole targets)."""
 
     group: Any
     n_rows: int
     index: int
     count: int
+    positions: Optional[torch.Tensor] = None
+    cache: Dict[str, Any] = dataclasses.field(default_factory=dict, repr=False)
+
+    def local_positions(self, device) -> torch.Tensor:
+        """The rank's rows among the ``n_rows`` [n_local], ascending."""
+        if self.positions is not None:
+            return self.positions.to(device)
+        lo, hi = row_block(self.n_rows, self.count, self.index)
+        return torch.arange(lo, hi, device=device)
+
+    def take(self, idx: torch.Tensor):
+        """Rows ``idx`` [B] of the ``n_rows`` (any order, repeats allowed):
+        (the local indices of those this rank holds, in ``idx`` order; the
+        row shard of the B taken rows)."""
+        pos = self.local_positions(idx.device)
+        if pos.numel():
+            j = torch.searchsorted(pos, idx)
+            hit = (j < pos.numel()) & (pos[torch.clamp(j, max=pos.numel() - 1)] == idx)
+        else:
+            j, hit = torch.zeros_like(idx), torch.zeros_like(idx, dtype=torch.bool)
+        taken = torch.arange(idx.numel(), device=idx.device)[hit]
+        return j[hit], RowShard(self.group, int(idx.numel()), self.index, self.count,
+                                positions=taken)
 
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("sr_row_shard", default=None)
@@ -248,3 +288,74 @@ def sum_over_row_shards(t: torch.Tensor) -> torch.Tensor:
     constants' gradient partials); the identity without one."""
     shard = active_row_shard()
     return t if shard is None else ordered_sum(t, shard.group)
+
+
+def shard_reduce(shard: RowShard, sums: Sequence[torch.Tensor], valid: torch.Tensor,
+                 weight_sum: Optional[torch.Tensor] = None):
+    """The kernel wrappers' reduction over the data axis, one collective:
+    each of ``sums`` added over every shard in shard order, validity over
+    every shard, and the weight sum (when given) over every shard.
+    Returns (sums, valid, weight_sum)."""
+    tensors = list(sums) + [valid.to(torch.bool)] + ([weight_sum] if weight_sum is not None
+                                                     else [])
+    stacked = _gather_stacked(tensors, shard.group)
+    out = [_add_in_order(s) for s in stacked[:len(sums)]]
+    ok = torch.all(stacked[len(sums)], dim=0)
+    wsum = _add_in_order(stacked[-1]) if weight_sum is not None else None
+    return out, ok, wsum
+
+
+def _row_layout(shard: RowShard, device):
+    """(each rank's row count, every rank's positions in rank order [n_rows]),
+    gathered once per shard (a contiguous block needs no collective)."""
+    lay = shard.cache.get("layout")
+    if lay is None:
+        if shard.positions is None:
+            blocks = [row_block(shard.n_rows, shard.count, d) for d in range(shard.count)]
+            counts = [hi - lo for lo, hi in blocks]
+            order = torch.arange(shard.n_rows, device=device)
+        else:
+            mine = torch.tensor([shard.positions.numel()], dtype=torch.int64, device=device)
+            counts = [int(c) for c in _gather_stacked([mine], shard.group)[0].reshape(-1)]
+            pos = torch.full((max(counts),), -1, dtype=torch.int64, device=device)
+            pos[:counts[shard.index]] = shard.positions.to(device)
+            allpos = _gather_stacked([pos], shard.group)[0]
+            order = torch.cat([allpos[d, :c] for d, c in enumerate(counts)])
+        lay = shard.cache["layout"] = (counts, order)
+    return lay
+
+
+class _GatherRows(torch.autograd.Function):
+    """Forward: every shard's rows of ``x`` [..., n_local] placed at their
+    positions [..., n_rows]. Backward: the cotangent at this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        counts, order = _row_layout(shard, x.device)
+        m = max(counts)
+        pad = torch.zeros(x.shape[:-1] + (m - x.shape[-1],), dtype=x.dtype, device=x.device)
+        stacked = _gather_stacked([torch.cat([x.detach(), pad], dim=-1)], shard.group)[0]
+        cat = torch.cat([stacked[d, ..., :c] for d, c in enumerate(counts)], dim=-1)
+        out = torch.empty_like(cat)
+        out[..., order.to(x.device)] = cat
+        ctx.shard = shard
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.index_select(-1, ctx.shard.local_positions(grad.device)), None
+
+
+def gather_rows(x: torch.Tensor, shard: RowShard) -> torch.Tensor:
+    """``x`` [..., n_local] of every shard as [..., n_rows] in the dataset's
+    row order (differentiable: the gradient of this rank's rows)."""
+    return _GatherRows.apply(x, shard)
+
+
+def whole_rows(t: torch.Tensor, shard: RowShard, name: str) -> torch.Tensor:
+    """:func:`gather_rows` of a dataset vector (the targets, the weights),
+    gathered once per shard and kept under ``name``."""
+    hit = shard.cache.get(name)
+    if hit is None or hit[0] is not t:
+        hit = shard.cache[name] = (t, gather_rows(t.detach(), shard))
+    return hit[1]

@@ -8,13 +8,13 @@ structures (tree encodings, ``exists``, the hall of fame's structure,
 ``num_evals``) must be exactly equal; costs and losses within rtol 1e-5
 with inf in the same places (the packages sum rows in different orders).
 The setup is tests/test_torch_evolve.py::test_run_iteration_equal's at 4
-islands, with the seeds whose unsharded iterations agree between the
-packages (annealing on: 3, 4, 5, 7; off: 1-5, 7). Seeds 0, 1, 2 and 6
-with annealing on, and 0 and 6 without, part in one member between the
-two packages' unsharded engines already (a 1-ULP cost tie, ROADMAP.md
-queue 3), and so their meshes part there too: the JAX mesh equals the JAX
-unsharded engine at every seed, and the port's mesh the port's unsharded
-engine (tests/test_torch_mesh_engine.py).
+islands, with seeds whose unsharded iterations agree between the
+packages. Seed 0 parts in one member's padding between the two packages'
+unsharded engines already (a 2-ULP cost tie in the hall-of-fame merge,
+tests/test_torch_island_tie.py), and seeds 1, 2 and 4 with annealing on
+a temperature-0 tie, so their meshes part there too: the JAX mesh equals
+the JAX unsharded engine at every seed, and the port's mesh the port's
+unsharded engine (tests/test_torch_mesh_engine.py).
 """
 
 import os
