@@ -30,16 +30,21 @@ Phases (any failure exits nonzero and prints no result line):
    and otherwise within 1e-4 of the sum of the absolute per-row terms;
    two launches bit-identical. #3's checks run again on 18,432 trees whose
    step counts span its three launch classes (MIXED_NLENGTHS). Times both
-   kernels (CUDA events, #3 on both inputs) and reckons their bounds.
-   Prints a digest of #3's output bits on each input
-   (bench/kernel_turns.py compares two checkouts' digests).
+   kernels (CUDA events, #3 on both inputs, both also over the first
+   BATCH_SIZE rows, a minibatch's launch) and reckons their bounds.
+   Prints a digest of #2's and #3's output bits on each input
+   (bench/kernel_turns.py compares two checkouts' digests), each step-count
+   class launch of #2 and #3 (its trees, blocks, threads, shared memory,
+   active blocks per SM) and the share of trees with no constant.
 5. Main path: `Engine` at the headline configuration, 512 islands x 256
    members x 10,000 rows x 5 features, tournament 16, maxsize 30, the
    constant optimizer on (the default), --ncycles cycles (20; phase 28
    runs the cell's 100): init_state, one warm-up
    iteration, two timed iterations. Prints evals/s (the optimizer's
    f_calls included), seconds per iteration, launches per kernel (per
-   iteration: ncycles + 1 of #1, 8 of #2, 9 of #3), peak memory.
+   iteration: ncycles + 1 of #1, 8 of #2, 9 of #3), peak memory, and the
+   shares of #3's trees with no constant and cut to one step by the
+   optimizer's early exit.
 6. The same without the constant optimizer (the first slice's path) at a
    cut depth: launches of #1 only.
 7. `equation_search(X, y, niterations=1, device="cuda")` with the default
@@ -815,6 +820,27 @@ def grad_bound(torch, args):
     return bound(ops3, bytes3) + (ops3, bytes3)
 
 
+def class_report(torch, kernel, tag, nsteps, nconst, L, CMAX):
+    """Phase 4's line for each step-count class launch of kernel #2 or #3 on
+    these trees (``nconst`` for #3, whose trees of more constants than its
+    register classes hold run in the last class): its trees, blocks,
+    threads, shared memory and active blocks per SM (the occupancy API).
+    Nothing for a checkout whose kernels launch no classes of their own
+    (bench/kernel_turns.py runs these phases on an older one too)."""
+    if not hasattr(kernel, "class_launches"):
+        return
+    info = kernel.class_launches(nsteps.shape[0], N_ROWS, L, CMAX, N_FEATURES)
+    m = nsteps.clamp(max=L)
+    cls = torch.where(m <= info[0]["mhi"], 0, torch.where(m <= info[1]["mhi"], 1, 2))
+    if nconst is not None:
+        cls = torch.where(nconst > info[0]["consts"], 2, cls)
+    for i, c in enumerate(info):
+        extra = f", {c['vectors']} vectors a thread" if "vectors" in c else ""
+        print(f"  {tag} class {i} (m <= {c['mhi']}): {int((cls == i).sum())} trees; "
+              f"{c['blocks']} blocks x {c['threads']} threads, {c['smem']} B shared memory, "
+              f"{c['blocks_per_sm']} active blocks per SM{extra}")
+
+
 def phase_opt_kernels(torch, sr, dev):
     """Phase 4: kernels #2 and #3 against their plain versions at the
     constant optimizer's bench shapes."""
@@ -859,6 +885,12 @@ def phase_opt_kernels(torch, sr, dev):
     ms_multi = cuda_ms(torch, lambda: multi(instr, nsteps, cv_ls, Xt, yt, w, ops, el), reps=5)
     ms_grad = cuda_ms(torch, lambda: grad(*gargs, ops, el), reps=5)
     ms_mixed = cuda_ms(torch, lambda: grad(*margs, mops, mel), reps=5)
+    # A minibatch's launches (phase 20's BATCH_SIZE rows: the first ones here).
+    rows50 = (Xt[:, :BATCH_SIZE].contiguous(), yt[:BATCH_SIZE].contiguous(),
+              w[:BATCH_SIZE].contiguous())
+    ms_multi50 = cuda_ms(torch, lambda: multi(instr, nsteps, cv_ls, *rows50, ops, el), reps=20)
+    ms_grad50 = cuda_ms(torch, lambda: grad(instr, nsteps, nconst, cv_g, *rows50, ops, el),
+                        reps=20)
     n = N_ROWS
     L, CMAX = instr.shape[1], cvals.shape[1]
     steps = float(nsteps.to(torch.float64).sum())
@@ -885,6 +917,16 @@ def phase_opt_kernels(torch, sr, dev):
     print(f"  #3 program_grad, mixed steps: {ms_mixed:.4f} ms (V={R}, CUDA events, mean of 5), "
           f"plain {plain_ms_mixed:.1f} ms, bound {b3m:.4f} ms ({by3m}: {ops3m:.4g} ops, "
           f"{bytes3m:.4g} B)")
+    print(f"  #2 program_multi, {BATCH_SIZE} rows: {ms_multi50:.4f} ms; #3 program_grad, "
+          f"{BATCH_SIZE} rows: {ms_grad50:.4f} ms (phase 4's trees, V = {V_ls} and {R}, CUDA "
+          f"events, mean of 20)")
+    class_report(torch, multi, "#2", nsteps, None, L, CMAX)
+    class_report(torch, grad, "#3", nsteps, nconst, L, CMAX)
+    class_report(torch, grad, "#3 (mixed steps)", margs[1], margs[2], margs[0].shape[1],
+                 margs[3].shape[2])
+    print(f"  trees with nconst == 0 (run once, for every vector): "
+          f"{float((nconst == 0).double().mean()):.2%} of phase 4's trees, "
+          f"{float((margs[2] == 0).double().mean()):.2%} of the mixed-step trees")
     check.raise_if_failed("kernels #2 and #3")
     row = lambda k, err, ms, plain, b, by: {
         "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
@@ -989,9 +1031,27 @@ def best_loss(state) -> float:
 def phase_main_path(torch, sr, dev, ncycles: int):
     """Phase 5: the headline configuration, constant optimizer on. Returns
     the launches and the hall of fame's best loss."""
+    from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
+
     options = bench_options(sr, ncycles)
     iters = 2
-    launches, state, _, _ = run_engine(torch, sr, dev, options, iters)
+    # Kernel #3's trees in every call (the line search's are the same):
+    # those with no constant, and those the early exit cut to one step.
+    seen, call = [], FE.ProgramGradKernel.__call__
+
+    def counting(self, instr, nsteps, nconst, *args, **kw):
+        seen.append((torch.stack([(nconst == 0).sum(), (nsteps == 1).sum()]), nconst.numel()))
+        return call(self, instr, nsteps, nconst, *args, **kw)
+
+    FE.ProgramGradKernel.__call__ = counting
+    try:
+        launches, state, _, _ = run_engine(torch, sr, dev, options, iters)
+    finally:
+        FE.ProgramGradKernel.__call__ = call
+    free, one = (int(v) for v in torch.stack([c for c, _ in seen]).sum(0).tolist())
+    trees = sum(t for _, t in seen)
+    print(f"  #3's trees over {len(seen)} calls: {free / trees:.2%} with nconst == 0, "
+          f"{one / trees:.2%} of one step (the early exit's)")
     expected = expect(launches,
                       program_eval=iters * (ncycles + 1),              # each cycle + finalize
                       program_multi=iters * options.optimizer_iterations,     # line searches
@@ -2016,7 +2076,7 @@ def multi_bound(torch, args):
     return bound(ops2, 4.0 * (T * L + T + T * V * CMAX + X.shape[0] * n + 2 * n + 2 * T * V))
 
 
-def phase_batched_main_path(torch, sr, dev, kernel_rows):
+def phase_batched_main_path(torch, sr, dev, kernel_rows=()):
     """Phase 20: phase 5's configuration with minibatches of BATCH_SIZE
     rows, BATCH_CYCLES cycles. Per iteration: #1 once per cycle on the
     batch's rows and once in the finalize on every row, #2 8 times and #3
@@ -2099,16 +2159,19 @@ def phase_batched_main_path(torch, sr, dev, kernel_rows):
     b1, by1 = eval_bound(torch, eargs)
     b2, by2 = multi_bound(torch, margs)
     b3, by3, _, _ = grad_bound(torch, tuple(gargs[:7]))
+    # Phases 3 and 4's rows (none where bench/kernel_turns.py runs this
+    # phase alone) give the 10,000-row launches beside these.
     full = {r["name"]: r["ms"] for r in kernel_rows}
+    ref = lambda name, phase: (f"; phase {phase}'s 10,000-row launch {full[name]:.4f} ms"
+                               if name in full else "")
     T2, V2 = margs[2].shape[:2]
     T3, V3 = gargs[3].shape[:2]
     print(f"  #1 per 50-row launch ({T1} trees, cost form): {ms1:.4f} ms, bound {b1:.4f} ms "
-          f"({by1}); phase 3's 10,000-row launch {full['program_eval']:.4f} ms")
+          f"({by1}){ref('program_eval', 3)}")
     print(f"  #2 per 50-row launch ({T2} trees x V = {V2}): {ms2:.4f} ms, bound {b2:.4f} ms "
-          f"({by2}); phase 4's 10,000-row launch {full['program_multi']:.4f} ms")
+          f"({by2}){ref('program_multi', 4)}")
     print(f"  #3 per 50-row launch ({T3} trees x V = {V3}, {gvalid} pairs valid): {ms3:.4f} ms, "
-          f"bound {b3:.4f} ms ({by3}); phase 4's 10,000-row launch "
-          f"{full['program_grad']:.4f} ms")
+          f"bound {b3:.4f} ms ({by3}){ref('program_grad', 4)}")
     print(f"  (CUDA events, mean of 20 on the path's own first 50-row inputs; max abs err "
           f"#1 {abs1:.3g}, #2 {abs2:.3g}, #3 {abs3:.3g})")
 

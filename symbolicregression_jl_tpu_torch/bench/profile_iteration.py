@@ -28,9 +28,10 @@ number of kernel launches, each named range (``sr:constant_optimizer``,
 ``sr:template_eval``: its span on the device summed over its occurrences,
 the device time of the port's kernels in it, that of the eager ops in it
 and the idle rest), the trees per launch and the mean steps per tree of
-each of the port's kernels in the profiled iteration (and for #3 and #5
-the share of trees in each step-count class of csrc/interp.cuh's
-launch_step_classes), and the ten kernels with the most device time.
+each of the port's kernels in the profiled iteration (and for #2, #3 and
+#5 the share of trees in each step-count class: csrc/interp.cuh's
+VEC_CAP0 and VEC_CAP1 for #2 and #3, launch_step_classes for #5), and the
+ten kernels with the most device time.
 Needs a CUDA device.
 """
 
@@ -99,6 +100,7 @@ _KERNEL_PATTERNS = {
     "program_multi_bf16": r"program_multi_kernel<__nv_bfloat16, float",
     "program_predict": r"program_predict_kernel",
     "program_predict_vjp": r"program_predict_vjp_kernel",
+    "vec_plan (#2 and #3's class lists)": r"vec_plan_kernel",
 }
 
 
@@ -174,7 +176,7 @@ def main() -> int:
 
     # Trees per launch: each wrapper class that defines __call__ records its
     # first argument's rows (instr [T, L]) by kernel name for this iteration.
-    trees, steps = {}, {}
+    trees, steps, consts = {}, {}, {}
     wrapped = [c for c in {type(getattr(FE, n)) for n in FE.__all__ if n.isupper()}
                for c in c.__mro__ if "__call__" in c.__dict__ and c.__module__ == FE.__name__]
     originals = {c: c.__dict__["__call__"] for c in set(wrapped)}
@@ -183,6 +185,8 @@ def main() -> int:
         def call(self, *a, **kw):
             trees.setdefault(self.name, []).append(int(a[0].shape[0]))
             steps.setdefault(self.name, []).append(a[1])   # nsteps, read after the profile
+            if self.name == "program_grad":
+                consts.setdefault(self.name, []).append(a[2])   # nconst
             return orig(self, *a, **kw)
         return call
 
@@ -202,8 +206,10 @@ def main() -> int:
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     # Named ranges (record_function) also appear on the device timeline as
     # annotations spanning the kernels they launched; they are not kernels.
-    spans = [e for e in events if e.name.startswith("sr:")]
-    kernels = [e for e in events if e.device_time_total > 0 and not e.name.startswith("sr:")]
+    # (The kernels of csrc/interp.cuh's namespace start "sr::".)
+    is_span = lambda e: e.name.startswith("sr:") and not e.name.startswith("sr::")
+    spans = [e for e in events if is_span(e)]
+    kernels = [e for e in events if e.device_time_total > 0 and not is_span(e)]
     device_us = sum(e.device_time_total for e in kernels)
     cell_name = ("template" if args.template else "template optimizer"
                  if args.template_optimizer else "parametric" if args.parametric
@@ -227,10 +233,16 @@ def main() -> int:
         print(f"{kname}: {len(sizes)} calls, trees per call min {sizes[0]}, median "
               f"{sizes[len(sizes) // 2]}, max {sizes[-1]}, total {sum(sizes)}; mean steps per "
               f"tree {float(m.mean()):.3f}")
-        if kname in ("program_grad", "program_predict_vjp"):
+        if kname in ("program_multi", "program_grad", "program_predict_vjp"):
             print(f"  {kname} trees by step count: <= 4 {float((m <= 4).double().mean()):.1%}, "
                   f"5-12 {float(((m > 4) & (m <= 12)).double().mean()):.1%}, > 12 "
-                  f"{float((m > 12).double().mean()):.1%}")
+                  f"{float((m > 12).double().mean()):.1%}; of one step "
+                  f"{float((m == 1).double().mean()):.1%}")
+        if kname in consts:
+            c = torch.cat(consts[kname]).to(torch.float64)
+            print(f"  {kname} trees by constants: 0 {float((c == 0).double().mean()):.1%}, 1-4 "
+                  f"{float(((c > 0) & (c <= 4)).double().mean()):.1%}, more "
+                  f"{float((c > 4).double().mean()):.1%}")
     for name in sorted({e.name for e in spans}):
         # Every occurrence of a named range: its span on the device, the
         # port's kernels and the other (eager) kernels inside it, the idle rest.
@@ -240,7 +252,8 @@ def main() -> int:
             t0_us, t1_us = span.time_range.start, span.time_range.end
             inside = [e for e in kernels
                       if t0_us <= e.time_range.start and e.time_range.end <= t1_us]
-            eager = [e for e in inside if "program_" not in e.name]
+            eager = [e for e in inside
+                     if "program_" not in e.name and "vec_plan_kernel" not in e.name]
             span_us += t1_us - t0_us
             inside_us += sum(e.device_time_total for e in inside)
             eager_us += sum(e.device_time_total for e in eager)

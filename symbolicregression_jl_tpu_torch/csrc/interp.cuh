@@ -396,15 +396,15 @@ __device__ __forceinline__ C loss_term(const LossSpec<C>& ls, C v, C yr, C wr) {
 // program_grad.cu, program_predict.cu, program_predict_vjp.cu)
 // ---------------------------------------------------------------------------
 //
-// A block owns one tree and, for kernels #2 and #3, all of the tree's
-// constant vectors. It decodes the tree's m instruction words once into a
-// table of resolved steps in shared memory (decode_tile_program); each
-// thread then carries K rows through every step (run_tile), so one table
-// read, one operator dispatch and one operand address serve K independent
-// evaluations; every step is warp-uniform. Kernels #2 and #3 run their
-// vectors in turn on each tile of rows, so the tile's X, y and w are read
-// from L2 once for all of them. Kernels #3 and #5 add a reverse sweep over
-// a second decoded table (decode_grad_program, run_tile_reverse, below).
+// A block owns one tree (kernels #2 and #3: one tree at a time, with all
+// of its constant vectors). It decodes the tree's m instruction words once
+// into a table of resolved steps in shared memory (decode_tile_program);
+// each thread then carries K rows through every step (run_tile), so one
+// table read, one operator dispatch and one operand address serve K
+// independent evaluations; every step is warp-uniform. Kernels #2 and #3
+// carry K rows of several constant vectors at once (run_vec, below).
+// Kernels #3 and #5 add a reverse sweep over a second decoded table
+// (decode_grad_program, run_tile_reverse, below; #3's run_vec_reverse).
 //
 // The fixed lane order. Every (tree, constant vector) sum keeps the order
 // of the per-row kernels these replaced, which ran one row per thread: W
@@ -413,16 +413,16 @@ __device__ __forceinline__ C loss_term(const LossSpec<C>& ls, C v, C yr, C wr) {
 // down to 1, pair (i, i + s), the per-row kernels' block reduction. W is
 // the block size the wrappers' `_block` (ops/fused_eval.py) picks from the
 // per-row layout's shared memory, not the tile kernels' thread count: a
-// tile kernel runs W / K threads (K = TILE_ROWS for #1, #2 and #4,
-// GRAD_ROWS for #3 and #5), thread i owns lanes K * i ... K * i + K - 1, a
-// tile is W consecutive rows (one row of each lane) and the tiles run in
-// row order. Three bit checks rest on this order: kernel #2 with one
-// constant vector equals #1's plain form (both run tree_loss_sums); kernel
-// #3's loss, whose lanes sum the same terms in the same order at the same W
-// (its gradient lanes sum each constant's cotangents so too), equals #2's
-// on the same constant vectors; and #5's gcomp, whose lanes sum each
-// constant's cotangents so, equals the per-row #5's. Kernel #4 sums
-// nothing, so it has no lane order.
+// tile kernel runs W / K threads (K = TILE_ROWS for #1 and #4, GRAD_ROWS
+// for #5, MULTI_ROWS and grad_rows for #2 and #3), thread i owns lanes
+// K * i ... K * i + K - 1, a tile is W consecutive rows (one row of each
+// lane) and the tiles run in row order. Three bit checks rest on this
+// order: kernel #2 with one constant vector equals #1's plain form (the
+// same terms, summed so); kernel #3's loss, whose lanes sum the same terms
+// in the same order at the same W (its gradient lanes sum each constant's
+// cotangents so too), equals #2's on the same constant vectors; and #5's
+// gcomp, whose lanes sum each constant's cotangents so, equals the per-row
+// #5's. Kernel #4 sums nothing, so it has no lane order.
 //
 // The value buffer of a tile is [R + tile_slots(L)][W] in the storage
 // type: R per-row rows (the X features, then the parametric form's
@@ -439,7 +439,6 @@ __device__ __forceinline__ C loss_term(const LossSpec<C>& ls, C v, C yr, C wr) {
 
 constexpr int TILE_ROWS = 4;              // rows each thread carries through a step
 constexpr int TILE_MAX_W = 256;           // the largest lane count `_block` picks
-constexpr int TILE_VCH = 8;               // constant vectors per pass over the rows (#2)
 constexpr int TILE_LOADS = 4;             // per-row rows loaded before any is stored
 constexpr int TILE_MIN_BLOCKS = 16;       // #1: blocks per SM its registers must allow (64 a thread)
 
@@ -721,13 +720,17 @@ __device__ __forceinline__ RowPack<T, K> load_rows(const T* __restrict__ src, in
 // Sums `count` arrays of W values (x[c * W + i], W a power of two) in the
 // fixed lane order's pairing: strides W/2 down to 1, x[i] = x[i] + x[i + s].
 // The sums land in x[c * W]. No float atomics, so one input always gives
-// one result. Every thread of the block calls it.
+// one result. Every thread of the block calls it. Where only the lanes
+// below `live` may be nonzero, a level whose pairs all read a zero lane
+// (s >= live) changes no sum and is skipped: no lane sum is -0.0 (each
+// starts at +0.0, and x + -x is +0.0).
 template <typename C>
-__device__ __forceinline__ void lane_tree_sum(C* x, int W, int count) {
+__device__ __forceinline__ void lane_tree_sum(C* x, int W, int count, int live = 1 << 30) {
   int sh = 0;
   while ((1 << sh) < W) ++sh;
   for (int s = W >> 1; s > 0; s >>= 1) {
     --sh;
+    if (s >= live) continue;
     for (int idx = threadIdx.x; idx < count * s; idx += blockDim.x) {
       C* row = x + (idx >> sh) * W;
       const int i = idx & (s - 1);
@@ -1101,7 +1104,9 @@ __device__ __forceinline__ C loss_vjp(const LossSpec<C>& ls, C p, C y, C ct) {
 }
 
 // ---------------------------------------------------------------------------
-// Reverse sweep of kernels #3 and #5 (program_grad.cu, program_predict_vjp.cu)
+// Reverse sweep of kernels #3 and #5 (program_grad.cu, program_predict_vjp.cu;
+// #3's vector-blocked form, run_vec_reverse, is below and reads the same
+// tables)
 // ---------------------------------------------------------------------------
 //
 // Every node of a tree has one parent, so each step's cotangent is written
@@ -1158,8 +1163,8 @@ __device__ __forceinline__ int ct_dest(int a, int u, int R, int base, int zero_a
 // gives (`nslot` of them). `nc` is the tree's constant count. Scratch:
 // `sflag`, `slast` and `sneed` [m], `sfree` [nslot]. Every thread of the
 // block calls it; it ends with a barrier. Kept out of line: inlined, it
-// shifts the kernel's register allocation and made #3 9-13% slower on the
-// H100 (PERF.md section 6).
+// shifts the kernel's register allocation (it made #3's tile form 9-13%
+// slower on the H100, PERF.md section 6).
 template <bool GX>
 __device__ __noinline__ void decode_grad_program(const int* __restrict__ words, int m,
                                     const int* __restrict__ optab, int code_mask, int sign_shift,
@@ -1329,15 +1334,15 @@ __device__ __forceinline__ void run_tile_reverse(const int4* __restrict__ rtab, 
   }
 }
 
-// Rows each thread of a reverse-sweep kernel carries (W / GRAD_ROWS threads
-// a block): two, not the forward kernels' TILE_ROWS, because the reverse
+// Rows each thread of kernel #5 carries (W / GRAD_ROWS threads a block):
+// two, not the forward kernels' TILE_ROWS, because the reverse
 // sweep's values and dispatch need more registers per row, and more threads
 // on fewer rows each hide the shared-memory latency better. The register cap
 // gives GRAD_MIN_BLOCKS blocks per SM.
 constexpr int GRAD_ROWS = 2;
 constexpr int GRAD_MIN_BLOCKS = 8;
 
-// The step-count classes of a reverse-sweep call: every value the sweep
+// The step-count classes of a call of kernel #5: every value the sweep
 // reads lives until the sweep reaches its reader, so a block's shared
 // memory grows with its tree. Class i takes the trees with
 // GRAD_STEP_CAPS[i - 1] < m <= GRAD_STEP_CAPS[i] (the last class every m up
@@ -1359,6 +1364,726 @@ inline cudaError_t launch_step_classes(int L, Launch launch) {
     if (err != cudaSuccess) return err;
     mlo = mhi;
   }
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// Vector-blocked interpreter of kernels #2 and #3 (program_multi.cu,
+// program_grad.cu)
+// ---------------------------------------------------------------------------
+//
+// Kernels #2 and #3 run one program for each of a tree's V constant vectors
+// over the same rows. Run vector by vector (run_tile), each step's table
+// read, operand decode and operator dispatch, and the load of a per-row
+// operand, are paid once per vector for K rows; for + - * they cost several
+// times the operator. Here each thread carries K rows of VR vectors through
+// each step (run_vec): one table read, one dispatch and one per-row operand
+// load serve K * VR evaluations, the operator unrolled over them. An
+// operator of many instructions (a libm function beyond exp, log and sqrt,
+// a user operator) runs in a loop over the K * VR values instead
+// (each_value), so its code is compiled four times per case, as run_tile's
+// is, not K * VR times.
+//
+// The value buffer: X's rows [F][W] in the storage type, shared by the
+// vectors, and the rows that hold step results, one per vector: row q of
+// vector j at (q * VR + j) * W (OPD_HELD, offset q * VR * W). A pass's
+// constants are [CMAX + 1][VR]. A thread reads and writes only its own
+// columns (K * i ... K * i + K - 1 of every row), so the row walk needs no
+// barrier.
+//
+// Every evaluation is run_tile's, operation for operation, and the fixed
+// lane order holds: thread i owns lanes K * i ... K * i + K - 1 and walks
+// the tiles in row order, each (lane, vector) sum in a register for the
+// whole walk, written to shared memory once for lane_tree_sum. So every
+// output is bit-identical to the tile interpreter's at the same W.
+
+// A held result's row, one per vector (see above).
+enum : int { OPD_HELD = 3 };
+
+// Held results a tree of at most `mhi` steps keeps at once: tile_slots of
+// its node count (at most 2 mhi + 1), and (mhi - 1) / 2 by steps: a held
+// result is a left operand whose parent waits for a right subtree with a
+// step, so h of them take 2 h + 1 steps.
+__host__ __device__ inline int vec_slots(int mhi, int L) {
+  const int by_nodes = tile_slots(L < 2 * mhi + 1 ? L : 2 * mhi + 1);
+  const int by_steps = mhi > 1 ? (mhi - 1) / 2 : 0;
+  return by_nodes < by_steps ? by_nodes : by_steps;
+}
+
+// The operand at buffer address `a` of step u: as operand_desc gives it,
+// but a held result in its row of `vr` vectors.
+__device__ __forceinline__ int vec_operand_desc(int a, int u, int R, int base, int zero_addr,
+                                                int CMAX, int W, int vr, const int* sflag) {
+  if (a < R) return (a * W) << 2 | OPD_ROW;
+  if (a < base) return (a - R) << 2 | OPD_CONST;
+  if (a >= zero_addr) return CMAX << 2 | OPD_CONST;
+  const int j = a - base;
+  if (j == u - 1) return OPD_PREV;
+  if (j > u - 1 || sflag[j] < 0) __trap();   // not a tree's post-order program
+  return (sflag[j] * vr * W) << 2 | OPD_HELD;
+}
+
+// Whether an operand reads one of the vector's constants (the zero row's
+// slot CMAX is 0 for every vector).
+__device__ __forceinline__ bool reads_const(int desc, int CMAX) {
+  return (desc & 3) == OPD_CONST && (desc >> 2) < CMAX;
+}
+
+// decode_tile_program for run_vec: held results in rows of `vr` vectors,
+// `nslot` of them. Returns to every thread whether the program reads any of
+// the vector's constants: one that reads none gives every vector the same
+// bits. Scratch: `slast` and `sflag` [m], `sfree` [nslot]. Every thread of
+// the block calls it; it ends with a barrier.
+__device__ bool decode_vec_program(const int* __restrict__ words, int m,
+                                   const int* __restrict__ optab, int code_mask, int sign_shift,
+                                   int R, int CMAX, int L, int W, int vr, int nslot, int* sflag,
+                                   int* slast, int* sfree, int4* stab) {
+  const int base = R + CMAX;
+  const int zero_addr = base + L;
+  tile_liveness(words, m, optab, code_mask, base, zero_addr, nslot, sflag, slast, sfree);
+  bool reads = false;
+  for (int u = threadIdx.x; u < m; u += blockDim.x) {
+    const int word = words[u];
+    const int entry = optab[(word >> 24) & code_mask];
+    const int kind = entry >> 8;
+    const bool two = kind == K_BINARY || kind == K_ADDSUB;
+    const int d1 = vec_operand_desc((word >> 12) & 0xFFF, u, R, base, zero_addr, CMAX, W, vr,
+                                    sflag);
+    const int d2 = two ? vec_operand_desc(word & 0xFFF, u, R, base, zero_addr, CMAX, W, vr, sflag)
+                       : 0;
+    reads = reads || reads_const(d1, CMAX) || reads_const(d2, CMAX);
+    const int sign = (word >> sign_shift) & 1;
+    stab[u] = make_int4(tile_op(entry) | sign << 8, d1, d2, sflag[u] >= 0 ? sflag[u] * vr * W : -1);
+  }
+  return !__syncthreads_and(!reads);
+}
+
+// One operand for the thread's K rows of VR vectors: its column of an X row
+// (one load for every vector), of a held row (one per vector), the pass's
+// constants `sc` [CMAX + 1][VR], or the previous step's values.
+template <typename S, int K, int VR, typename C = CT<S>>
+__device__ __forceinline__ void vec_operand(int desc, const S* colx, const S* colh, int W,
+                                            const S* sc, const C (&prev)[VR][K],
+                                            C (&out)[VR][K]) {
+  const int kind = desc & 3;
+  const int off = desc >> 2;
+  if (kind == OPD_ROW) {
+    const RowPack<S, K> p = *reinterpret_cast<const RowPack<S, K>*>(colx + off);
+#pragma unroll
+    for (int j = 0; j < VR; ++j) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) out[j][k] = to_c(p.v[k]);
+    }
+  } else if (kind == OPD_HELD) {
+#pragma unroll
+    for (int j = 0; j < VR; ++j) {
+      const RowPack<S, K> p = *reinterpret_cast<const RowPack<S, K>*>(colh + off + j * W);
+#pragma unroll
+      for (int k = 0; k < K; ++k) out[j][k] = to_c(p.v[k]);
+    }
+  } else if (kind == OPD_CONST) {
+#pragma unroll
+    for (int j = 0; j < VR; ++j) {
+      const C c = to_c(sc[off * VR + j]);
+#pragma unroll
+      for (int k = 0; k < K; ++k) out[j][k] = c;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VR; ++j) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) out[j][k] = prev[j][k];
+    }
+  }
+}
+
+// The values of a [VR][K] block one after another (see above): copied into
+// a local array, f applied in a loop unrolled four times (four independent
+// evaluations in flight, as run_tile's four rows), copied back.
+
+template <int VR, int K, typename C, typename F>
+__device__ __forceinline__ void each_value(const C (&a)[VR][K], const C (&b)[VR][K],
+                                           C (&r)[VR][K], F f) {
+  C ta[VR * K], tb[VR * K];
+#pragma unroll
+  for (int j = 0; j < VR; ++j) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      ta[j * K + k] = a[j][k];
+      tb[j * K + k] = b[j][k];
+    }
+  }
+#pragma unroll 4
+  for (int i = 0; i < VR * K; ++i) ta[i] = f(ta[i], tb[i]);
+#pragma unroll
+  for (int j = 0; j < VR; ++j) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) r[j][k] = ta[j * K + k];
+  }
+}
+
+template <int VR, int K, typename C, typename F>
+__device__ __forceinline__ void each_value1(const C (&a)[VR][K], C (&r)[VR][K], F f) {
+  C ta[VR * K];
+#pragma unroll
+  for (int j = 0; j < VR; ++j) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) ta[j * K + k] = a[j][k];
+  }
+#pragma unroll 4
+  for (int i = 0; i < VR * K; ++i) ta[i] = f(ta[i]);
+#pragma unroll
+  for (int j = 0; j < VR; ++j) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) r[j][k] = ta[j * K + k];
+  }
+}
+
+// vjp_binary's two cotangents value by value, as each_value.
+template <int VR, int K, typename C, typename F>
+__device__ __forceinline__ void each_vjp(const C (&a)[VR][K], const C (&b)[VR][K],
+                                         const C (&c)[VR][K], C (&d1)[VR][K], C (&d2)[VR][K],
+                                         F f) {
+  C ta[VR * K], tb[VR * K], tc[VR * K];
+#pragma unroll
+  for (int j = 0; j < VR; ++j) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      ta[j * K + k] = a[j][k];
+      tb[j * K + k] = b[j][k];
+      tc[j * K + k] = c[j][k];
+    }
+  }
+#pragma unroll 4
+  for (int i = 0; i < VR * K; ++i) {
+    C o1, o2;
+    f(ta[i], tb[i], tc[i], o1, o2);
+    ta[i] = o1;
+    tb[i] = o2;
+  }
+#pragma unroll
+  for (int j = 0; j < VR; ++j) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      d1[j][k] = ta[j * K + k];
+      d2[j][k] = tb[j * K + k];
+    }
+  }
+}
+
+// run_tile for K rows of VR vectors: the decoded program `stab` (held
+// results at offsets of `colh`, X in `colx`), the pass's constants `sc`;
+// root and chk as run_tile's, per vector.
+template <typename S, int K, int VR, typename C = CT<S>>
+__device__ __forceinline__ void run_vec(const int4* __restrict__ stab, int m, const S* colx,
+                                        S* colh, int W, const S* sc, C (&root)[VR][K],
+                                        C (&chk)[VR][K]) {
+  C prev[VR][K];
+#pragma unroll
+  for (int j = 0; j < VR; ++j) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      prev[j][k] = C(0);
+      chk[j][k] = C(0);
+    }
+  }
+  int4 d = m > 0 ? stab[0] : make_int4(0, 0, 0, -1);
+  for (int s = 0; s < m; ++s) {
+    const int4 dn = s + 1 < m ? stab[s + 1] : d;   // the next step's entry, ahead of its use
+    C a[VR][K], b[VR][K], r[VR][K];
+    vec_operand<S, K, VR>(d.y, colx, colh, W, sc, prev, a);
+#define SR_VEC_ALL(EXPR)                                                                 \
+  _Pragma("unroll") for (int j = 0; j < VR; ++j) {                                       \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) r[j][k] = EXPR;                        \
+  }
+#define SR_VEC_B(ID)                                              \
+  case ID:                                                        \
+    vec_operand<S, K, VR>(d.z, colx, colh, W, sc, prev, b);       \
+    SR_VEC_ALL(apply_binary<C>(ID, a[j][k], b[j][k]))             \
+    break;
+#define SR_VEC_SB(ID)                                                                   \
+  case ID:                                                                              \
+    vec_operand<S, K, VR>(d.z, colx, colh, W, sc, prev, b);                             \
+    each_value<VR, K>(a, b, r, [](C x, C y) { return apply_binary<C>(ID, x, y); });     \
+    break;
+#define SR_VEC_U(ID) \
+  case ID:           \
+    SR_VEC_ALL(apply_unary<C>(ID, a[j][k])) \
+    break;
+#define SR_VEC_SU(ID)                                                        \
+  case ID:                                                                   \
+    each_value1<VR, K>(a, r, [](C x) { return apply_unary<C>(ID, x); });     \
+    break;
+#define SR_VEC_UB(ID, F, VF)                                                \
+  case ID:                                                                  \
+    vec_operand<S, K, VR>(d.z, colx, colh, W, sc, prev, b);                 \
+    each_value<VR, K>(a, b, r, [](C x, C y) { return F<C>(x, y); });        \
+    break;
+#define SR_VEC_UU(ID, F, VF)                                     \
+  case ID:                                                       \
+    each_value1<VR, K>(a, r, [](C x) { return F<C>(x); });       \
+    break;
+    switch (d.x & 0xFF) {
+      case OPX_ADDSUB: {
+        vec_operand<S, K, VR>(d.z, colx, colh, W, sc, prev, b);
+        const C sg = (d.x & 0x100) ? C(-1) : C(1);
+        SR_VEC_ALL(rn_add(a[j][k], rn_mul(sg, b[j][k])))
+        break;
+      }
+      case OPX_IDENT:
+        SR_VEC_ALL(a[j][k])
+        break;
+      SR_VEC_B(B_ADD) SR_VEC_B(B_SUB) SR_VEC_B(B_MUL) SR_VEC_B(B_DIV)
+      SR_VEC_SB(B_POW) SR_VEC_SB(B_MOD) SR_VEC_B(B_MAX) SR_VEC_B(B_MIN)
+      SR_VEC_SB(B_ATAN2) SR_VEC_B(B_GT) SR_VEC_B(B_LT) SR_VEC_B(B_GE)
+      SR_VEC_B(B_LE) SR_VEC_B(B_COND) SR_VEC_B(B_OR) SR_VEC_B(B_AND)
+      SR_VEC_U(U_EXP) SR_VEC_U(U_ABS) SR_VEC_U(U_LOG) SR_VEC_SU(U_LOG2)
+      SR_VEC_SU(U_LOG10) SR_VEC_SU(U_LOG1P) SR_VEC_U(U_SQRT) SR_VEC_SU(U_CBRT)
+      SR_VEC_SU(U_SIN) SR_VEC_SU(U_COS) SR_VEC_SU(U_TAN) SR_VEC_SU(U_SINH)
+      SR_VEC_SU(U_COSH) SR_VEC_SU(U_TANH) SR_VEC_SU(U_ASIN) SR_VEC_SU(U_ACOS)
+      SR_VEC_SU(U_ATAN) SR_VEC_SU(U_ASINH) SR_VEC_SU(U_ACOSH) SR_VEC_SU(U_ATANH)
+      SR_VEC_SU(U_ATANH_CLIP) SR_VEC_SU(U_ERF) SR_VEC_SU(U_ERFC) SR_VEC_SU(U_GAMMA)
+      SR_VEC_U(U_SQUARE) SR_VEC_U(U_CUBE) SR_VEC_U(U_NEG) SR_VEC_U(U_INV)
+      SR_VEC_U(U_RELU) SR_VEC_U(U_ROUND) SR_VEC_U(U_FLOOR) SR_VEC_U(U_CEIL)
+      SR_VEC_U(U_SIGN)
+      SR_USER_OPS_CASES(SR_VEC_UB, SR_VEC_UU)
+      default:
+        SR_VEC_ALL(qnan<C>())
+    }
+#undef SR_VEC_B
+#undef SR_VEC_SB
+#undef SR_VEC_U
+#undef SR_VEC_SU
+#undef SR_VEC_UB
+#undef SR_VEC_UU
+    RowPack<S, K> st[VR];
+#pragma unroll
+    for (int j = 0; j < VR; ++j) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        chk[j][k] = rn_fma(r[j][k], C(0), chk[j][k]);
+        st[j].v[k] = from_c<S>(r[j][k]);
+        prev[j][k] = to_c(st[j].v[k]);
+      }
+    }
+    if (d.w >= 0) {
+#pragma unroll
+      for (int j = 0; j < VR; ++j) *reinterpret_cast<RowPack<S, K>*>(colh + d.w + j * W) = st[j];
+    }
+    d = dn;
+  }
+#pragma unroll
+  for (int j = 0; j < VR; ++j) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) root[j][k] = prev[j][k];
+  }
+}
+
+// The reverse sweep's counterparts: decode_grad_program for run_vec and
+// run_vec_reverse, with X's rows shared (OPD_ROW) and step u's value in its
+// row of `vr` vectors at u * vr * W (OPD_HELD); the adjoint slots are rows
+// of `vr` vectors (slot numbers in the tables, as there). Returns whether
+// the program reads any of the vector's constants. Kept out of line, as
+// decode_grad_program is.
+__device__ __noinline__ bool decode_grad_vec(const int* __restrict__ words, int m,
+                                             const int* __restrict__ optab, int code_mask,
+                                             int sign_shift, int R, int CMAX, int L, int W,
+                                             int vr, int nc, int nslot, int* sflag, int* slast,
+                                             int* sneed, int* sfree, int4* stab, int4* rtab) {
+  const int tid = threadIdx.x;
+  const int P = blockDim.x;
+  const int base = R + CMAX;
+  const int zero_addr = base + L;
+  for (int u = tid; u < m; u += P) sneed[u] = 0;
+  tile_liveness(words, m, optab, code_mask, base, zero_addr, nslot, sflag, slast, sfree);
+  for (int u = tid; u < m; u += P) {
+    const int word = words[u];
+    const int kind = optab[(word >> 24) & code_mask] >> 8;
+    const int a1 = (word >> 12) & 0xFFF, a2 = word & 0xFFF;
+    if (kind == K_BINARY || kind == K_UNARY) {
+      if (a1 >= base && a1 < zero_addr) sneed[a1 - base] = 1;
+      if (kind == K_BINARY && a2 >= base && a2 < zero_addr) sneed[a2 - base] = 1;
+    }
+  }
+  __syncthreads();
+  bool reads = false;
+  for (int u = tid; u < m; u += P) {
+    const int word = words[u];
+    const int entry = optab[(word >> 24) & code_mask];
+    const int kind = entry >> 8;
+    const bool two = kind == K_BINARY || kind == K_ADDSUB;
+    const int a1 = (word >> 12) & 0xFFF, a2 = word & 0xFFF;
+    const int c1 = ct_dest<false>(a1, u, R, base, zero_addr, nc, sflag);
+    const int c2 = two ? ct_dest<false>(a2, u, R, base, zero_addr, nc, sflag) : CTD_NONE;
+    const int v1 = value_desc(a1, R, base, zero_addr, CMAX, W);
+    const int v2 = two ? value_desc(a2, R, base, zero_addr, CMAX, W) : 0;
+    // value_desc's row R + j becomes step j's row of vr vectors
+    const int h1 = (v1 & 3) == OPD_ROW && a1 >= R ? ((a1 - base) * vr * W) << 2 | OPD_HELD : v1;
+    const int h2 = two && (v2 & 3) == OPD_ROW && a2 >= R ? ((a2 - base) * vr * W) << 2 | OPD_HELD
+                                                         : v2;
+    reads = reads || reads_const(h1, CMAX) || reads_const(h2, CMAX);
+    const int op = tile_op(entry) | ((word >> sign_shift) & 1) << 8;
+    stab[u] = make_int4(op, (c1 & 3) == CTD_NEXT ? OPD_PREV : h1,
+                        (c2 & 3) == CTD_NEXT ? OPD_PREV : h2,
+                        (sneed[u] || slast[u] >= 0) ? u * vr * W : -1);
+    rtab[u] = make_int4(op | (sflag[u] + 1) << 9, h1, h2, c1 | c2 << 16);
+  }
+  return !__syncthreads_and(!reads);
+}
+
+// Constant cotangent sums a register class of the gradient sweep keeps in
+// registers, per vector (trees with more constants run in the last class,
+// whose sums live in shared memory). Chosen on the H100 with
+// bench/tile_variants.py, which builds other values through the macro.
+#ifndef SR_GRAD_REG_CONSTS
+#define SR_GRAD_REG_CONSTS 6
+#endif
+constexpr int GRAD_REG_CONSTS = SR_GRAD_REG_CONSTS;
+
+// route_ct for K rows of VR vectors: adjoint rows at `adj` + slot *
+// adj_stride + j * W; a constant's cotangent into its register sum g[c]
+// (REG) or into the thread's column of row j * G + 1 + c of `gsm`, on the
+// first `live` rows only.
+template <int K, int VR, bool REG, typename C>
+__device__ __forceinline__ void route_vec(int dest, const C (&d)[VR][K], C (&next)[VR][K],
+                                          C* adj, int adj_stride, C* gsm, int G,
+                                          C (&g)[GRAD_REG_CONSTS][VR][K], int W, int live) {
+  const int kind = dest & 3;
+  if (kind == CTD_NEXT) {
+#pragma unroll
+    for (int j = 0; j < VR; ++j) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) next[j][k] = d[j][k];
+    }
+  } else if (kind == CTD_ADJ) {
+    C* at = adj + (dest >> 2) * adj_stride;
+#pragma unroll
+    for (int j = 0; j < VR; ++j) {
+      RowPack<C, K> p;
+#pragma unroll
+      for (int k = 0; k < K; ++k) p.v[k] = d[j][k];
+      *reinterpret_cast<RowPack<C, K>*>(at + j * W) = p;
+    }
+  } else if (kind == CTD_CONST) {
+    const int c = dest >> 2;
+    if (REG) {
+#pragma unroll
+      for (int q = 0; q < GRAD_REG_CONSTS; ++q) {
+        if (q == c) {
+#pragma unroll
+          for (int j = 0; j < VR; ++j) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              if (k < live) g[q][j][k] = rn_add(g[q][j][k], d[j][k]);
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < VR; ++j) {
+        RowPack<C, K>* at = reinterpret_cast<RowPack<C, K>*>(gsm + (j * G + 1 + c) * W);
+        RowPack<C, K> p = *at;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if (k < live) p.v[k] = rn_add(p.v[k], d[j][k]);
+        }
+        *at = p;
+      }
+    }
+  }
+}
+
+// run_tile_reverse for K rows of VR vectors (tables of decode_grad_vec),
+// after run_vec stored the values it reads at `colv`: the cotangents enter
+// in `ct`; each step takes its cotangents, computes its operands' with
+// vjp_binary / vjp_unary (unrolled, or value by value for the operators
+// of many instructions, as run_vec) and routes them (route_vec), operand 1
+// before operand 2.
+template <int K, int VR, bool REG, typename C>
+__device__ __forceinline__ void run_vec_reverse(const int4* __restrict__ rtab, int m,
+                                                const C* colx, const C* colv, C* adj,
+                                                int adj_stride, const C* sc, C* gsm, int G,
+                                                C (&g)[GRAD_REG_CONSTS][VR][K], int W, int live,
+                                                C (&ct)[VR][K]) {
+  C none[VR][K];
+#pragma unroll
+  for (int j = 0; j < VR; ++j) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) none[j][k] = C(0);
+  }
+  for (int s = m - 1; s >= 0; --s) {
+    const int4 e = rtab[s];
+    const int slot = (e.x >> 9) - 1;
+    if (slot >= 0) {
+#pragma unroll
+      for (int j = 0; j < VR; ++j) {
+        const RowPack<C, K> p =
+            *reinterpret_cast<const RowPack<C, K>*>(adj + slot * adj_stride + j * W);
+#pragma unroll
+        for (int k = 0; k < K; ++k) ct[j][k] = p.v[k];
+      }
+    }
+    C a[VR][K], b[VR][K], d1[VR][K], d2[VR][K];
+#define SR_RV_ALL(STMT)                                   \
+  _Pragma("unroll") for (int j = 0; j < VR; ++j) {        \
+    _Pragma("unroll") for (int k = 0; k < K; ++k) STMT;   \
+  }
+#define SR_RV_B(ID)                                                              \
+  case ID:                                                                       \
+    vec_operand<C, K, VR>(e.y, colx, colv, W, sc, none, a);                      \
+    vec_operand<C, K, VR>(e.z, colx, colv, W, sc, none, b);                      \
+    SR_RV_ALL(vjp_binary<C>(ID, a[j][k], b[j][k], ct[j][k], d1[j][k], d2[j][k])) \
+    break;
+#define SR_RV_SB(ID)                                                                       \
+  case ID:                                                                                 \
+    vec_operand<C, K, VR>(e.y, colx, colv, W, sc, none, a);                                \
+    vec_operand<C, K, VR>(e.z, colx, colv, W, sc, none, b);                                \
+    each_vjp<VR, K>(a, b, ct, d1, d2,                                                      \
+                    [](C x, C y, C c, C& o1, C& o2) { vjp_binary<C>(ID, x, y, c, o1, o2); }); \
+    break;
+#define SR_RV_U(ID)                                                 \
+  case ID:                                                          \
+    vec_operand<C, K, VR>(e.y, colx, colv, W, sc, none, a);         \
+    SR_RV_ALL(d1[j][k] = vjp_unary<C>(ID, a[j][k], ct[j][k]))       \
+    break;
+#define SR_RV_SU(ID)                                                                 \
+  case ID:                                                                           \
+    vec_operand<C, K, VR>(e.y, colx, colv, W, sc, none, a);                          \
+    each_value<VR, K>(a, ct, d1, [](C x, C c) { return vjp_unary<C>(ID, x, c); });   \
+    break;
+#define SR_RV_UB(ID, F, VF)                                                              \
+  case ID:                                                                               \
+    vec_operand<C, K, VR>(e.y, colx, colv, W, sc, none, a);                              \
+    vec_operand<C, K, VR>(e.z, colx, colv, W, sc, none, b);                              \
+    each_vjp<VR, K>(a, b, ct, d1, d2, [](C x, C y, C c, C& o1, C& o2) { VF<C>(x, y, c, o1, o2); }); \
+    break;
+#define SR_RV_UU(ID, F, VF)                                                          \
+  case ID:                                                                           \
+    vec_operand<C, K, VR>(e.y, colx, colv, W, sc, none, a);                          \
+    each_value<VR, K>(a, ct, d1, [](C x, C c) { return VF<C>(x, c); });              \
+    break;
+    switch (e.x & 0xFF) {
+      case OPX_ADDSUB: {
+        const C sg = (e.x & 0x100) ? C(-1) : C(1);
+        SR_RV_ALL((d1[j][k] = ct[j][k], d2[j][k] = rn_mul(sg, ct[j][k])))
+        break;
+      }
+      case OPX_IDENT:
+        SR_RV_ALL(d1[j][k] = ct[j][k])
+        break;
+      SR_RV_B(B_ADD) SR_RV_B(B_SUB) SR_RV_B(B_MUL) SR_RV_B(B_DIV)
+      SR_RV_SB(B_POW) SR_RV_SB(B_MOD) SR_RV_B(B_MAX) SR_RV_B(B_MIN)
+      SR_RV_SB(B_ATAN2) SR_RV_B(B_GT) SR_RV_B(B_LT) SR_RV_B(B_GE)
+      SR_RV_B(B_LE) SR_RV_B(B_COND) SR_RV_B(B_OR) SR_RV_B(B_AND)
+      SR_RV_U(U_EXP) SR_RV_U(U_ABS) SR_RV_U(U_LOG) SR_RV_SU(U_LOG2)
+      SR_RV_SU(U_LOG10) SR_RV_SU(U_LOG1P) SR_RV_U(U_SQRT) SR_RV_SU(U_CBRT)
+      SR_RV_SU(U_SIN) SR_RV_SU(U_COS) SR_RV_SU(U_TAN) SR_RV_SU(U_SINH)
+      SR_RV_SU(U_COSH) SR_RV_SU(U_TANH) SR_RV_SU(U_ASIN) SR_RV_SU(U_ACOS)
+      SR_RV_SU(U_ATAN) SR_RV_SU(U_ASINH) SR_RV_SU(U_ACOSH) SR_RV_SU(U_ATANH)
+      SR_RV_SU(U_ATANH_CLIP) SR_RV_SU(U_ERF) SR_RV_SU(U_ERFC) SR_RV_SU(U_GAMMA)
+      SR_RV_U(U_SQUARE) SR_RV_U(U_CUBE) SR_RV_U(U_NEG) SR_RV_U(U_INV)
+      SR_RV_U(U_RELU) SR_RV_U(U_ROUND) SR_RV_U(U_FLOOR) SR_RV_U(U_CEIL)
+      SR_RV_U(U_SIGN)
+      SR_USER_OPS_CASES(SR_RV_UB, SR_RV_UU)
+      default:   // OPX_NAN: vjp_binary's and vjp_unary's zero for an unknown id
+        SR_RV_ALL((d1[j][k] = C(0), d2[j][k] = C(0)))
+    }
+#undef SR_RV_ALL
+#undef SR_RV_B
+#undef SR_RV_SB
+#undef SR_RV_U
+#undef SR_RV_SU
+#undef SR_RV_UB
+#undef SR_RV_UU
+    C next[VR][K];
+#pragma unroll
+    for (int j = 0; j < VR; ++j) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) next[j][k] = ct[j][k];
+    }
+    route_vec<K, VR, REG>(e.w & 0xFFFF, d1, next, adj, adj_stride, gsm, G, g, W, live);
+    route_vec<K, VR, REG>(e.w >> 16, d2, next, adj, adj_stride, gsm, G, g, W, live);
+#pragma unroll
+    for (int j = 0; j < VR; ++j) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) ct[j][k] = next[j][k];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Step-count classes of kernels #2 and #3, with compacted tree lists
+// ---------------------------------------------------------------------------
+//
+// A block's shared memory grows with its tree (held results, and for #3
+// every stored value and adjoint), so each call launches once per class of
+// step counts, each launch with its class's shared memory. A one-block plan
+// kernel (vec_plan_kernel) first partitions the trees by class on the
+// device, stably; each class launch is one wave of persistent blocks
+// (active blocks per SM x SMs) that take the class's trees in list order
+// from a work counter, so no block is spent on another class's tree and no
+// host sync is needed. Which block runs a tree changes no bit of its
+// outputs.
+
+constexpr int VEC_CAP0 = 4;        // class 0: m <= 4 steps
+constexpr int VEC_CAP1 = 12;       // class 1: 5 <= m <= 12; class 2: the rest
+constexpr int VEC_CLASSES = 3;
+constexpr int PLAN_THREADS = 256;
+constexpr int PLAN_LOADS = 8;      // a plan thread's loads issued together
+
+// Ints of a call's plan: [T] trees by class, [VEC_CLASSES + 1] class
+// starts, [VEC_CLASSES] work counters.
+__host__ __device__ inline int vec_plan_ints(int T) { return T + 2 * VEC_CLASSES + 1; }
+
+// The largest step count of class `cls` of a program of L steps.
+__host__ __device__ inline int vec_class_cap(int cls, int L) {
+  const int cap = cls == 0 ? VEC_CAP0 : (cls == 1 ? VEC_CAP1 : L);
+  return cap < L ? cap : L;
+}
+
+// A tree's class: by its step count m, or the last class when it has more
+// than `ncr` constants (ncr >= 0).
+__host__ __device__ inline int vec_class_of(int m, int nc, int ncr) {
+  if (ncr >= 0 && nc > ncr) return VEC_CLASSES - 1;
+  return m <= VEC_CAP0 ? 0 : (m <= VEC_CAP1 ? 1 : 2);
+}
+
+// The plan of one call (one block, PLAN_THREADS threads, VEC_CLASSES *
+// PLAN_THREADS ints of shared memory): `plan` [0, T) the trees of class 0,
+// then 1, then 2, each in tree order; plan[T + c] class c's first position
+// (plan[T + VEC_CLASSES] = T); plan[T + VEC_CLASSES + 1 + c] class c's work
+// counter, zeroed. `nconst` (with ncr >= 0) sends trees of many constants
+// to the last class.
+__global__ void vec_plan_kernel(const int* __restrict__ nsteps, const int* __restrict__ nconst,
+                                int T, int L, int ncr, int* __restrict__ plan) {
+  extern __shared__ int plan_scan[];   // [VEC_CLASSES][blockDim.x]
+  const int tid = threadIdx.x;
+  const int P = blockDim.x;
+  const int per = (T + P - 1) / P;
+  const int lo = min(T, tid * per);
+  const int hi = min(T, lo + per);
+  int cnt[VEC_CLASSES];
+#pragma unroll
+  for (int q = 0; q < VEC_CLASSES; ++q) cnt[q] = 0;
+  for (int t0 = lo; t0 < hi; t0 += PLAN_LOADS) {   // PLAN_LOADS loads in flight
+    int m[PLAN_LOADS], nc[PLAN_LOADS];
+#pragma unroll
+    for (int u = 0; u < PLAN_LOADS; ++u) {
+      m[u] = t0 + u < hi ? nsteps[t0 + u] : 0;
+      nc[u] = t0 + u < hi && nconst != nullptr ? nconst[t0 + u] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < PLAN_LOADS; ++u) {
+      const int c = vec_class_of(min(m[u], L), nc[u], ncr);
+#pragma unroll
+      for (int q = 0; q < VEC_CLASSES; ++q) cnt[q] += (t0 + u < hi && q == c) ? 1 : 0;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < VEC_CLASSES; ++q) plan_scan[q * P + tid] = cnt[q];
+  __syncthreads();
+  for (int s = 1; s < P; s <<= 1) {   // inclusive scans of each class's counts
+    int add[VEC_CLASSES];
+#pragma unroll
+    for (int q = 0; q < VEC_CLASSES; ++q) add[q] = tid >= s ? plan_scan[q * P + tid - s] : 0;
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < VEC_CLASSES; ++q) plan_scan[q * P + tid] += add[q];
+    __syncthreads();
+  }
+  int pos[VEC_CLASSES];
+  int start = 0;
+#pragma unroll
+  for (int q = 0; q < VEC_CLASSES; ++q) {
+    pos[q] = start + plan_scan[q * P + tid] - cnt[q];
+    if (tid == 0) {
+      plan[T + q] = start;
+      plan[T + VEC_CLASSES + 1 + q] = 0;
+    }
+    start += plan_scan[q * P + P - 1];
+  }
+  if (tid == 0) plan[T + VEC_CLASSES] = T;
+  for (int t0 = lo; t0 < hi; t0 += PLAN_LOADS) {
+    int m[PLAN_LOADS], nc[PLAN_LOADS];
+#pragma unroll
+    for (int u = 0; u < PLAN_LOADS; ++u) {
+      m[u] = t0 + u < hi ? nsteps[t0 + u] : 0;
+      nc[u] = t0 + u < hi && nconst != nullptr ? nconst[t0 + u] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < PLAN_LOADS; ++u) {
+      const int c = vec_class_of(min(m[u], L), nc[u], ncr);
+#pragma unroll
+      for (int q = 0; q < VEC_CLASSES; ++q) {
+        if (t0 + u < hi && q == c) plan[pos[q]++] = t0 + u;
+      }
+    }
+  }
+}
+
+// Launches the plan kernel on `stream`; returns cudaGetLastError().
+inline cudaError_t launch_vec_plan(const int* nsteps, const int* nconst, int T, int L, int ncr,
+                                   int* plan, cudaStream_t stream) {
+  vec_plan_kernel<<<1, PLAN_THREADS, VEC_CLASSES * PLAN_THREADS * sizeof(int), stream>>>(
+      nsteps, nconst, T, L, ncr, plan);
+  return cudaGetLastError();
+}
+
+// Thread 0's first position in class `cls`'s list, from the class's work
+// counter (vec_next_tree takes each next one a tree ahead, so the atomic's
+// latency hides behind the tree before).
+__device__ __forceinline__ int vec_reserve(int* plan, int T, int cls) {
+  return threadIdx.x == 0 ? atomicAdd(plan + T + VEC_CLASSES + 1 + cls, 1) : 0;
+}
+
+// The calling block's next tree of class `cls`, or -1 when the class is
+// done: thread 0 broadcasts its reserved position through `snext` and
+// reserves the next. Every thread of the block calls it, and the tree's
+// decode barriers fall between one call's read of `snext` and the next
+// call's write.
+__device__ __forceinline__ int vec_next_tree(int* plan, int T, int cls, int* snext,
+                                             int& reserved) {
+  if (threadIdx.x == 0) {
+    *snext = reserved;
+    reserved = atomicAdd(plan + T + VEC_CLASSES + 1 + cls, 1);
+  }
+  __syncthreads();
+  const int i = plan[T + cls] + *snext;
+  return i < plan[T + cls + 1] ? plan[i] : -1;
+}
+
+// Whether class `cls` of the plan has no tree (its launch returns at once).
+__device__ __forceinline__ bool vec_class_empty(const int* plan, int T, int cls) {
+  return plan[T + cls] == plan[T + cls + 1];
+}
+
+// Lanes a launch of K rows a thread runs: W, or for fewer rows than half
+// of W the power of two at or above n (one warp of threads at least). The
+// lanes past it would hold zero sums only, which lane_tree_sum's `live`
+// skips, so every bit stays; a smaller block keeps more trees in flight,
+// which a short minibatch's launch needs (its time is each tree's fixed
+// cost: the decode, the barriers, the reduction).
+__host__ __device__ inline int vec_lanes(int W, int n, int K) {
+  int lanes = 32 * K;
+  while (lanes < n && lanes < W) lanes <<= 1;
+  return lanes < W ? lanes : W;
+}
+
+// Blocks of one class launch: one wave of `kern` with `threads` threads and
+// `smem` bytes each over every SM (at most T); its active blocks per SM in
+// *per_sm. cudaErrorInvalidValue when no block fits.
+template <typename Kern>
+inline cudaError_t vec_grid(Kern kern, int threads, size_t smem, int T, int* grid, int* per_sm) {
+  int dev = 0, nsm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, threads, smem);
+  }
+  if (err != cudaSuccess) return err;
+  if (*per_sm < 1 || nsm < 1) return cudaErrorInvalidValue;
+  *grid = min(T, *per_sm * nsm);
   return cudaSuccess;
 }
 

@@ -69,7 +69,7 @@ import ctypes
 import functools
 import threading
 import weakref
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -759,6 +759,30 @@ def _stream(X):
     return ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream)
 
 
+# Kernels #2 and #3 run a plan kernel before their step-count class
+# launches (csrc/interp.cuh vec_plan_kernel): it lists the trees by class
+# on the device into a scratch buffer of ``<entry>_plan_ints(T)`` int32s,
+# which the wrapper allocates; ``<entry>_classes`` reports the launches.
+def _bind_plan(lib, entry: str):
+    getattr(lib, entry + "_plan_ints").argtypes = [ctypes.c_int]
+    getattr(lib, entry + "_plan_ints").restype = ctypes.c_int
+    getattr(lib, entry + "_classes").argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    getattr(lib, entry + "_classes").restype = ctypes.c_int
+
+
+def _plan_buffer(lib, entry: str, T: int, device) -> torch.Tensor:
+    return torch.empty(getattr(lib, entry + "_plan_ints")(T), dtype=torch.int32, device=device)
+
+
+def _class_launches(fn, form: int, loss_any: bool, T: int, n: int, block: int, L: int,
+                    CMAX: int, F: int, keys) -> List[dict]:
+    out = (ctypes.c_int * (3 * len(keys)))()
+    rc = fn(form, int(loss_any), T, n, block, L, CMAX, F, out)
+    if rc != 0:
+        raise RuntimeError(f"the class launches do not fit: CUDA error {rc}")
+    return [dict(zip(keys, out[i * len(keys):(i + 1) * len(keys)])) for i in range(3)]
+
+
 class ProgramEvalKernel(_ProgramKernel):
     """Wrapper of ``sr_program_eval`` (csrc/program_eval.cu).
     ``cost_launches`` counts the launches of its cost-epilogue form (a
@@ -885,7 +909,23 @@ class ProgramMultiKernel(_ProgramKernel):
 
     def _bind(self, lib):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        getattr(lib, self._entry).argtypes = [p] * 7 + [i] * 8 + [d, i, i] + [p, p, p]
+        getattr(lib, self._entry).argtypes = [p] * 7 + [i] * 8 + [d, i, i] + [p, p, p, p]
+        _bind_plan(lib, "sr_program_multi")
+
+    # sr_program_multi_classes' form of each wrapper: (bf16, f64, bf16_data)
+    _FORM = {(False, False, False): 0, (True, False, False): 1, (False, True, False): 2,
+             (True, True, False): 3, (True, False, True): 4}
+
+    def class_launches(self, T: int, n: int, L: int, CMAX: int, F: int, loss_any: bool = False,
+                       operators: Optional[OperatorSet] = None) -> List[dict]:
+        """Each step-count class launch of a call over T trees and n rows:
+        its largest step count, threads, shared memory bytes, active blocks
+        per SM (the occupancy API) and blocks. Needs a CUDA device."""
+        form = self._FORM[(self.bf16, self.f64, self.bf16_data)]
+        lib = self.library(operators)
+        return _class_launches(lib.sr_program_multi_classes, form, loss_any, T, n,
+                               self._block(L, CMAX, F, lib=lib), L, CMAX, F,
+                               ("mhi", "threads", "smem", "blocks_per_sm", "blocks"))
 
     def __call__(self, instr, nsteps, cvals_v, X, y, w, operators: OperatorSet,
                  loss_fn: Callable):
@@ -903,11 +943,12 @@ class ProgramMultiKernel(_ProgramKernel):
         optab, block, code_mask = self._layout(operators, X, L, CMAX, F)
         loss = torch.empty((T, V), dtype=self.dtype, device=X.device)
         valid = torch.empty((T, V), dtype=torch.int32, device=X.device)
+        plan = _plan_buffer(self.library(operators), "sr_program_multi", T, X.device)
         self._launch(
             operators,
             _ptr(instr), _ptr(nsteps), _ptr(cvals_v), _ptr(X), _ptr(y), _ptr(w), _ptr(optab),
             T, V, L, CMAX, F, n, block, loss_kind, loss_param, code_mask, 30,
-            _ptr(loss), _ptr(valid), _stream(X))
+            _ptr(loss), _ptr(valid), _ptr(plan), _stream(X))
         return loss, valid.bool()
 
 
@@ -924,7 +965,21 @@ class ProgramGradKernel(_ProgramKernel):
 
     def _bind(self, lib):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        getattr(lib, self._entry).argtypes = [p] * 8 + [i] * 9 + [d, i, i] + [p, p, p, p]
+        getattr(lib, self._entry).argtypes = [p] * 8 + [i] * 9 + [d, i, i] + [p, p, p, p, p]
+        _bind_plan(lib, "sr_program_grad")
+
+    def class_launches(self, T: int, n: int, L: int, CMAX: int, F: int, loss_any: bool = False,
+                       operators: Optional[OperatorSet] = None) -> List[dict]:
+        """Each step-count class launch of a call over T trees and n rows, as
+        ``ProgramMultiKernel.class_launches`` gives it, with the vectors a
+        thread carries (``vectors``) and the most constants of its trees
+        (``consts``: a tree with more runs in the last class). Needs a CUDA
+        device."""
+        lib = self.library(operators)
+        return _class_launches(lib.sr_program_grad_classes, int(self.f64), loss_any, T, n,
+                               self._block(L, CMAX, F, lib=lib), L, CMAX, F,
+                               ("mhi", "threads", "smem", "blocks_per_sm", "blocks", "vectors",
+                                "consts"))
 
     def __call__(self, instr, nsteps, nconst, cvals_v, X, y, w, operators: OperatorSet,
                  loss_fn: Callable, n_grad: Optional[int] = None):
@@ -949,11 +1004,12 @@ class ProgramGradKernel(_ProgramKernel):
         loss = torch.empty((T, V), dtype=self.dtype, device=X.device)
         valid = torch.empty((T, V), dtype=torch.int32, device=X.device)
         gcomp = torch.empty((T, V, CMAX), dtype=self.dtype, device=X.device)
+        plan = _plan_buffer(self.library(operators), "sr_program_grad", T, X.device)
         self._launch(
             operators,
             _ptr(instr), _ptr(nsteps), _ptr(nconst), _ptr(cvals_v), _ptr(X), _ptr(y), _ptr(w),
             _ptr(optab), T, V, L, CMAX, F, n, int(n_grad), block, loss_kind, loss_param,
-            code_mask, 30, _ptr(loss), _ptr(valid), _ptr(gcomp),
+            code_mask, 30, _ptr(loss), _ptr(valid), _ptr(gcomp), _ptr(plan),
             _stream(X))
         return loss, valid.bool(), gcomp
 

@@ -38,7 +38,10 @@ shared and per-member X, repeated arguments, constant-only trees, one-step
 programs and trees of every step-count class. They skip where g++ is
 missing. ``build_host_library`` also builds another checkout's sources, so
 two versions of a kernel can be held against each other bit for bit:
-``python tests/test_torch_tile_host.py OLD_CSRC NEW_CSRC``.
+``python tests/test_torch_tile_host.py OLD_CSRC NEW_CSRC`` (#2 in float32,
+bf16 and float64, #3 in float32 and float64, #4 and #5).
+tests/test_torch_tile_host_vector.py holds #2's and #3's vectors against
+launches of each alone.
 """
 
 from __future__ import annotations
@@ -75,6 +78,7 @@ SOURCES = ("program_multi.cu", "program_grad.cu", "program_predict.cu",
 
 SHIM = r"""
 #pragma once
+#include <atomic>
 #include <cmath>
 #include <condition_variable>
 #include <cstdint>
@@ -133,6 +137,7 @@ inline int atomicMax(int* p, int v) {
                                                  __ATOMIC_SEQ_CST)) {}
   return old;
 }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline void __trap() { fprintf(stderr, "__trap\n"); abort(); }
 template <class T> inline T min(T a, T b) { return b < a ? b : a; }
 template <class T> inline T max(T a, T b) { return a < b ? b : a; }
@@ -144,26 +149,43 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F> inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
+// Two SMs of two blocks each: a persistent launch runs four blocks, the
+// first of which takes every item of a work counter (blocks run in turn).
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 2; return cudaSuccess; }
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int threads, size_t smem) {
+  *n = (threads <= 1024 && smem <= 232448) ? 2 : 0;
+  return cudaSuccess;
+}
 
 namespace shim {
 inline int last_error = 0;
 
 // One block's barrier; sync(p) returns the AND of every thread's p.
+// (A waiter yields a few times, then sleeps on the generation word, a futex
+// with no mutex: a condition variable woke a block of 256 threads into one
+// mutex in turn, and waiters that only yield starve the other test
+// processes of their cores.)
 struct Block {
-  std::mutex mu;
-  std::condition_variable cv;
-  int nthreads = 0, count = 0, acc = 1, result = 1;
-  long gen = 0;
+  int nthreads = 0, result = 1;
+  std::atomic<int> count{0}, acc{1}, gen{0};
   int sync(int p) {
-    std::unique_lock<std::mutex> lk(mu);
-    const long g = gen;
-    acc &= (p != 0);
-    if (++count == nthreads) {
-      result = acc; acc = 1; count = 0; ++gen;
-      cv.notify_all();
+    const int g = gen.load(std::memory_order_acquire);
+    if (!p) acc.store(0, std::memory_order_relaxed);
+    if (count.fetch_add(1, std::memory_order_acq_rel) + 1 == nthreads) {
+      result = acc.load(std::memory_order_relaxed);
+      acc.store(1, std::memory_order_relaxed);
+      count.store(0, std::memory_order_relaxed);
+      gen.fetch_add(1, std::memory_order_release);
+      gen.notify_all();
       return result;
     }
-    cv.wait(lk, [&] { return gen != g; });
+    for (int i = 0; i < 16 && gen.load(std::memory_order_acquire) == g; ++i) {
+      std::this_thread::yield();
+    }
+    while (gen.load(std::memory_order_acquire) == g) gen.wait(g, std::memory_order_acquire);
     return result;
   }
 };
@@ -226,6 +248,10 @@ def build_host_library(src: Path, out_dir: Path, user_header: str = None) -> Pat
     (inc / "cuda_host_shim.h").write_text(SHIM)
     for header in ("cuda_runtime.h", "cuda_bf16.h"):
         (inc / header).write_text('#pragma once\n#include "cuda_host_shim.h"\n')
+    # The headers beside the source, rewritten as the source is (found
+    # first: the include directory precedes the source's own).
+    for header in src.parent.glob("*.cuh"):
+        (inc / header.name).write_text(_host_source(header.read_text()))
     cpp = out_dir / (src.stem + ".cpp")
     cpp.write_text(_host_source(src.read_text()))
     lib = out_dir / f"lib{src.stem}.so"
@@ -233,7 +259,7 @@ def build_host_library(src: Path, out_dir: Path, user_header: str = None) -> Pat
     if user_header is not None:
         (inc / "sr_user_ops.cuh").write_text(user_header)
         user = ["-DSR_USER_OPS"]
-    cmd = ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fno-strict-aliasing", "-fPIC",
+    cmd = ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fno-strict-aliasing", "-fPIC",
            "-shared", "-pthread", "-w", *user, f"-I{inc}", f"-I{src.parent}", "-include",
            "cuda_host_shim.h", "-o", str(lib), str(cpp)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -256,10 +282,41 @@ def load_host_libraries(csrc: Path, out_dir: Path):
                          (SF.ProgramEvalKernel(), "program_eval.cu"),
                          (SF.ProgramEvalF64Kernel(), "program_eval.cu"),
                          (SF.ProgramMultiF64Kernel(), "program_multi.cu"),
+                         (SF.ProgramMultiBf16Kernel(), "program_multi.cu"),
                          (SF.ProgramGradF64Kernel(), "program_grad.cu")):
-        kernel._bind(libs[name])
-        getattr(libs[name], kernel._entry).restype = ctypes.c_int
+        _bind_host(kernel, libs[name])
     return libs
+
+
+def _planned(lib, entry: str) -> bool:
+    """Whether the library's #2 or #3 (``entry`` sr_program_multi or
+    sr_program_grad) takes a plan buffer: a source tree before the
+    vector-blocked kernels has neither it nor its size function."""
+    return hasattr(lib, entry + "_plan_ints")
+
+
+def _bind_host(kernel, lib):
+    """The wrapper's argument types, without the plan buffer for an older
+    source tree's #2 and #3."""
+    older = any(kernel._entry.startswith(e) and not _planned(lib, e)
+                for e in ("sr_program_multi", "sr_program_grad"))
+    try:
+        kernel._bind(lib)
+    except AttributeError:   # the plan's functions, missing from an older tree
+        if not older:
+            raise
+    fn = getattr(lib, kernel._entry)
+    fn.restype = ctypes.c_int
+    if older:
+        fn.argtypes = fn.argtypes[:-2] + fn.argtypes[-1:]
+
+
+def _plan_buf(lib, entry: str, T: int):
+    """The plan buffer of #2 or #3, filled with garbage (None for an older
+    tree)."""
+    if not _planned(lib, entry):
+        return None
+    return torch.full((getattr(lib, entry + "_plan_ints")(T),), -7, dtype=torch.int32)
 
 
 def _p(t):
@@ -267,15 +324,18 @@ def _p(t):
 
 
 def run_multi(lib, ops, loss_fn, instr, nsteps, cv, X, y, w, W):
+    """Kernel #2 (float32, float64, or 2b for a bfloat16 X)."""
     T, V = cv.shape[:2]
     loss = torch.full((T, V), -7.0, dtype=cv.dtype)
     valid = torch.full((T, V), -7, dtype=torch.int32)
     optab = torch.tensor(SF._optab_list(ops), dtype=torch.int32)
-    entry = lib.sr_program_multi_f64 if cv.dtype == torch.float64 else lib.sr_program_multi
+    entry = (lib.sr_program_multi_f64 if cv.dtype == torch.float64 else
+             lib.sr_program_multi_bf16 if X.dtype == torch.bfloat16 else lib.sr_program_multi)
+    plan = _plan_buf(lib, "sr_program_multi", T)
     rc = entry(_p(instr), _p(nsteps), _p(cv), _p(X), _p(y), _p(w), _p(optab),
-                              T, V, instr.shape[1], cv.shape[2], X.shape[0], X.shape[1], W,
-                              loss_fn.kind, loss_fn.param, _code_mask(ops), 30, _p(loss),
-                              _p(valid), None)
+               T, V, instr.shape[1], cv.shape[2], X.shape[0], X.shape[1], W,
+               loss_fn.kind, loss_fn.param, _code_mask(ops), 30, _p(loss),
+               _p(valid), *([] if plan is None else [_p(plan)]), None)
     assert rc == 0
     return loss, valid
 
@@ -287,10 +347,12 @@ def run_grad(lib, ops, loss_fn, instr, nsteps, nconst, cv, X, y, w, W):
     gcomp = torch.full((T, V, CMAX), -7.0, dtype=cv.dtype)
     optab = torch.tensor(SF._optab_list(ops), dtype=torch.int32)
     entry = lib.sr_program_grad_f64 if cv.dtype == torch.float64 else lib.sr_program_grad
+    plan = _plan_buf(lib, "sr_program_grad", T)
     rc = entry(_p(instr), _p(nsteps), _p(nconst), _p(cv), _p(X), _p(y), _p(w),
-                             _p(optab), T, V, instr.shape[1], CMAX, X.shape[0], X.shape[1],
-                             SF._weighted_rows(w), W, loss_fn.kind, loss_fn.param,
-                             _code_mask(ops), 30, _p(loss), _p(valid), _p(gcomp), None)
+               _p(optab), T, V, instr.shape[1], CMAX, X.shape[0], X.shape[1],
+               SF._weighted_rows(w), W, loss_fn.kind, loss_fn.param,
+               _code_mask(ops), 30, _p(loss), _p(valid), _p(gcomp),
+               *([] if plan is None else [_p(plan)]), None)
     assert rc == 0
     return loss, valid, gcomp
 
@@ -365,18 +427,32 @@ def _nonfinite_match(a, b):
     assert torch.equal(ia, ib) and torch.equal(a[ia], b[ib])
 
 
+# Trees that read no constant: kernels #2 and #3 run them once, for every
+# vector.
+CONST_FREE = ("x1 * x2", "cos(x1) - x3", "exp(x2) * (x1 + x3)", "(x1 * x1) / (x2 - x3)",
+              "abs(x1 - x2) + (x3 * x1)")
+
+
 def _grad_args(n: int, nlength, T: int, binary=("+", "-", "*", "/"), zero_weights=False,
-               nonfinite_const=False):
+               nonfinite_const=False, written=True, const_free=False):
     """T random trees over 3 features (maxsize 30) of each length of
     ``nlength`` (kernel_trees.random_trees) followed by the written ones the
-    operators can write, bench-like data with every 97th row's X at +-1e20
+    operators can write (unless ``written`` is False) and CONST_FREE (with
+    ``const_free``), bench-like data with every 97th row's X at +-1e20
     (x * x overflows, inf - inf gives NaN) and a tenth of the weights 0."""
     opts = S.Options(binary_operators=list(binary), unary_operators=["cos", "abs", "exp"],
                      maxsize=30, populations=4, population_size=32, tournament_selection_n=8,
                      should_optimize_constants=False, save_to_file=False)
     ops = opts.operators
     cfg = evolve_config_from_options(opts, 3, torch.device("cpu"))
-    trees = with_written(random_trees(11, 1, T, cfg.mctx, nlength, "cpu"), ops, 3)
+    trees = random_trees(11, 1, T, cfg.mctx, nlength, "cpu")
+    if written:
+        trees = with_written(trees, ops, 3)
+    if const_free:
+        names = ["x1", "x2", "x3"]
+        trees = cat_trees([trees, encode_population([parse_expression(e, ops, names)
+                                                     for e in CONST_FREE], trees.max_nodes, ops,
+                                                    device="cpu")])
     g = np.random.default_rng(n)
     Xn = g.uniform(-3, 3, (3, n)).astype(np.float32)
     Xn[:, ::97] = 1e20 * np.sign(g.normal(size=Xn[:, ::97].shape))
@@ -443,6 +519,13 @@ GRAD_CASES = {
     "batch50_W256_V24": dict(n=50, W=256, V=24, nlength=6),
     "batch50_step_classes_W256_V3": dict(n=50, W=256, V=3, nlength=(2, 8, 16)),
     "one_row_W256_V3": dict(n=1, W=256, V=3, nlength=6),
+    # V not a multiple of the vectors a thread carries (8 in #2, 3 in #3)
+    "V5_step_classes_W64": dict(n=203, W=64, V=5, nlength=(2, 8, 16)),
+    "V7_W32": dict(n=130, W=32, V=7, nlength=6),
+    # trees that read no constant among the others
+    "const_free_W64_V24": dict(n=150, W=64, V=24, nlength=(2, 8), const_free=True),
+    # trees of 1 and of 16 or more steps only: the middle class has none
+    "empty_class_W64_V3": dict(n=97, W=64, V=3, nlength=(1, 16), written=False),
 }
 
 
@@ -750,8 +833,7 @@ def user_host_libs(tmp_path_factory):
     for kernel, name in ((SF.ProgramGradKernel(), "program_grad.cu"),
                          (SF.ProgramPredictKernel(), "program_predict.cu"),
                          (SF.ProgramPredictVjpKernel(), "program_predict_vjp.cu")):
-        kernel._bind(libs[name])
-        getattr(libs[name], kernel._entry).restype = ctypes.c_int
+        _bind_host(kernel, libs[name])
     return libs
 
 
@@ -849,9 +931,10 @@ def test_user_ops_on_host(user_host_libs, kernel):
 
 
 def main(argv) -> int:
-    """Hold two csrc directories' kernels #3 (loss, valid, gcomp), #4
-    (pred, valid) and #5 (gcomp, gx) against each other bit for bit on
-    every case above."""
+    """Hold two csrc directories' kernels #2 (loss, valid; float32, 2b and
+    float64), #3 (loss, valid, gcomp; float32 and float64), #4 (pred,
+    valid) and #5 (gcomp, gx) against each other bit for bit on every case
+    above."""
     import tempfile
 
     dirs = [Path(a) for a in argv[1:3]]
@@ -861,10 +944,24 @@ def main(argv) -> int:
         for case in sorted(GRAD_CASES):
             for loss_name in ("l2", "huber"):
                 ops, loss_fn, args, W = grad_case(case, SL.LOSS_REGISTRY[loss_name])
-                a, b = (run_grad(lib["program_grad.cu"], ops, loss_fn, *args, W) for lib in libs)
-                same = all(_same(p, q) for p, q in zip(a, b))
-                bad += not same
-                print(f"#3 {case} {loss_name}: {'bit-equal' if same else 'DIFFERENT'}")
+                instr, nsteps, nconst, cv, X, y, w = args
+                f64 = tuple(t.double().contiguous() for t in (cv, X, y, w))
+                runs = {
+                    "#2": lambda lib: run_multi(lib["program_multi.cu"], ops, loss_fn, instr,
+                                                nsteps, cv, X, y, w, W),
+                    "2b": lambda lib: run_multi(lib["program_multi.cu"], ops, loss_fn, instr,
+                                                nsteps, cv, X.bfloat16(), y, w, W),
+                    "#2 f64": lambda lib: run_multi(lib["program_multi.cu"], ops, loss_fn, instr,
+                                                    nsteps, *f64, W),
+                    "#3": lambda lib: run_grad(lib["program_grad.cu"], ops, loss_fn, *args, W),
+                    "#3 f64": lambda lib: run_grad(lib["program_grad.cu"], ops, loss_fn, instr,
+                                                   nsteps, nconst, *f64, W),
+                }
+                for kernel, run in runs.items():
+                    a, b = (run(lib) for lib in libs)
+                    same = all(_same(p, q) for p, q in zip(a, b))
+                    bad += not same
+                    print(f"{kernel} {case} {loss_name}: {'bit-equal' if same else 'DIFFERENT'}")
         for case in sorted(PREDICT_CASES):
             ops, args, W = predict_case(case)
             a, b = (run_predict(lib["program_predict.cu"], ops, *args, W) for lib in libs)
