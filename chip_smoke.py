@@ -48,8 +48,8 @@ Phases (any failure exits nonzero and prints no result line):
 6. The same without the constant optimizer (the first slice's path) at a
    cut depth: launches of #1 only.
 7. `equation_search(X, y, niterations=1, device="cuda")` with the default
-   Options on the same data; one iteration (two until phases 23-25 came)
-   keeps the whole script well within its time limit.
+   Options on the same data, stopped after SEARCH_TIMEOUT_S = 10 s between
+   chunks of its iteration (PERF.md §4 lists the cuts).
 8. Hold kernels #4 and #5 against their plain versions at the template
    cycle's shapes: 16,384 random trees (maxsize 30, + - * cos), 10,000
    rows, random cotangents for #5, every fifth tree's const_ok cleared;
@@ -105,8 +105,8 @@ Phases (any failure exits nonzero and prints no result line):
    of #1p must be ncycles + 1 per iteration, none of the other kernels;
    prints the best member with its (1, 3) bank.
 14. The parametric constant optimizer (eager BFGS over constants and
-   banks, torch.autograd through the interpreter): the same problem at 64
-   islands x 256, the default optimizer_probability 0.14, cut to
+   banks, torch.autograd through the interpreter): the same problem at
+   EAGER_OPT_ISLANDS = 32 islands x 256, the default optimizer_probability 0.14, cut to
    TEMPLATE_OPT_CYCLES = 5 cycles, one iteration after init (no warm-up
    iteration); prints the f_calls share and the peak memory.
 15. `equation_search(..., device="cuda")` on tests/test_parametric.py's
@@ -175,7 +175,7 @@ Phases (any failure exits nonzero and prints no result line):
 
 23. Telemetry at full width: equation_search on phase 5's configuration
    at TELEM_CYCLES = 3 cycles, TELEM_ITERS = 2 iterations, with
-   telemetry=True (use_recorder off) and off, in turns (off, on, on, off):
+   telemetry=True (use_recorder off) and off, off then on:
    every state tensor and the hall of fame bit-identical; the JSONL valid,
    its events run_start, 2 x iteration, run_end; per iteration the
    identities between the counters (the JAX package's meaning: per island
@@ -190,9 +190,10 @@ Phases (any failure exits nonzero and prints no result line):
    rescore_launches = I x the screen (1,250-row) and rescore (10,000-row)
    calls, screen_rows and rescore_rows = their trees, eval_rows =
    screen_rows + I P.
-24. The mini matrix's quality: the 12 non-sharded cells of
+24. The mini matrix's quality: the 6 non-sharded seed-0 cells of
    benchmarks/baseline.json (plain, plain-staged, plain-bf16,
-   plain-staged-bf16, parametric, template x seeds 0 and 1; bench/cell.py
+   plain-staged-bf16, parametric, template x QUALITY_SEEDS = (0,);
+   bench/cell.py
    MINI) through the port's bench/cell.py on the card, each on its kernel
    (#1, 1b, #1p, #4 by the wrappers' launch counters), gated by the port's
    bench/gate.py: band excursions soft (another library than the
@@ -211,12 +212,14 @@ Phases (any failure exits nonzero and prints no result line):
    LOSS_SUBSET (#1, #1p, 1b) or LOSS_SUBSET_MULTI (#2, 2b, #3) trees of
    phases 3, 12 and 4's inputs (rtol 1e-5, 1b and 2b by phase 16's bf16
    rule, #3's loss bit-equal to #2's, gradients within 1e-4 of the
-   absolute row sums), log-cosh on every tree too; each kind's #1, #2 and
+   absolute row sums), log-cosh's #1 on every tree and its #2 and #3 on
+   the first LOSS_PLAIN_SUBSET = 2,048 trees too; each kind's #1, #2 and
    #3 timed at the full shapes (CUDA events) beside its bound. Then the
-   float64 forms of #1 (cost form), #1p, #2 and #3 at the full shapes in
-   float64 against their float64 plain versions (rtol 1e-9; #3's loss
-   bit-equal to #2's), timed, bounds at FP64's 34 TFLOP/s, and every kind
-   on their subsets.
+   float64 forms of #1 (cost form) and #1p at the full shapes, and of #2
+   and #3 on their first LOSS_PLAIN_SUBSET trees, in float64 against their
+   float64 plain versions (rtol 1e-9; #3's loss bit-equal to #2's on every
+   tree), each timed at the full shapes, bounds at FP64's 34 TFLOP/s, and
+   every kind on their subsets.
 27. The optimizer cell at LOSS_CYCLES = 3 cycles with
    elementwise_loss="logcosh" (launches of #1-#3 only: 11, 8 and 9 an
    iteration) and with eval_dtype="float64" (the same counts of their
@@ -224,8 +227,10 @@ Phases (any failure exits nonzero and prints no result line):
    in float64 (#1p's float64 form only); each best member's loss
    recomputed on the host in float64 (log-cosh within rtol 1e-3, float64
    within 1e-9).
-28. ``python -m symbolicregression_jl_tpu_torch.bench.headline`` in its own
-   process: its JSON line (the headline metric) printed.
+28. ``python -m symbolicregression_jl_tpu_torch.bench.headline --iterations
+   HEADLINE_ITERS`` in its own process (one measured iteration after the
+   warm-up; three by default): its JSON line (the headline metric)
+   printed.
 
 29. A user elementwise callable (ops/fused_eval.py's user-loss route:
    kernel #4's predictions in chunks, the callable in PyTorch, kernel #5
@@ -242,8 +247,8 @@ Phases (any failure exits nonzero and prints no result line):
    launches of #4 and #5 only, s/iteration, the best member's loss
    recomputed on the host in float64 within rtol 1e-4.
 30. graftshield at the optimizer cell (ROBUST_CYCLES = 3 cycles,
-   ROBUST_ITERS = 3 iterations, telemetry on): shield off, on, on, off in
-   turns, every state tensor bit-identical, s/iteration of each; two
+   ROBUST_ITERS = 3 iterations, telemetry on): shield off, then on, every
+   state tensor bit-identical, s/iteration of each; two
    injected "CUDA out of memory" failures of the second attempt retried,
    the state bit-identical to the clean run; a real
    torch.cuda.OutOfMemoryError (an oversized torch.empty) classified as
@@ -267,7 +272,7 @@ Phases (any failure exits nonzero and prints no result line):
    #1 at 6,000 and at 8,192 rows.
 32. SearchServer(pack=PackPolicy()) on the card at the optimizer cell's
    widths (512 islands x 256, tournament 16, maxsize 30, + - * /, exp abs
-   cos, the optimizer on; SERVE_CYCLES = 5 cycles, SERVE_ITERS = 2
+   cos, the optimizer on; SERVE_CYCLES = 3 cycles, SERVE_ITERS = 2
    iterations): four requests of 5,000-8,000 rows x 5 features (seeds
    0-3, y as in the optimizer cell), one 8,192-row bucket, submitted
    before start() so they form one cohort: every request done, a launch
@@ -280,9 +285,9 @@ Phases (any failure exits nonzero and prints no result line):
    first checkpoint, and a server over the same root finishes both with
    the unkilled fingerprints. Prints requests/s, seconds a cohort round,
    peak memory.
-33. equation_search at the optimizer cell, DIAG_CYCLES = 5 cycles,
-   DIAG_ITERS = 3 iterations, telemetry on, ledger/pulse/gauge off / on /
-   on / off: the state bit-identical across turns, ledger.jsonl valid,
+33. equation_search at the optimizer cell, DIAG_CYCLES = 3 cycles,
+   DIAG_ITERS = 3 iterations, telemetry on, ledger/pulse/gauge off, then on:
+   the state bit-identical across turns, ledger.jsonl valid,
    gauge memory events with torch.cuda bytes, `telemetry timeline`
    valid; at 64 islands and 2 cycles an injected out-of-memory dumps a
    valid pulse bundle and a torch.profiler window over one iteration holds
@@ -302,14 +307,14 @@ Phases (any failure exits nonzero and prints no result line):
    1234, D_CYCLES = 3 cycles, optimizer off): #4 and #5 once an
    evaluation and nothing else; one batch of 4,096 members' D values from
    #5 against the plain version (phase 8's rule) and beside the eager
-   forward mode; then the constant optimizer at 64 islands (probability
+   forward mode; then the constant optimizer at EAGER_OPT_ISLANDS = 32 islands (probability
    0.14; one iteration after init, no warm-up): the gradient on the eager interpreter's second-order path (no
    launch), the line search on #4 and #5 (once each a line search);
    prints s/iteration, the optimizer's seconds and f_calls share, the
    peak memory.
 36. Tooling: `python -m symbolicregression_jl_tpu_torch.bench run` on the
-   plain and template mini cells (each a subprocess on the card; their
-   kernels launched), `bench gate` against benchmarks/baseline.json and
+   plain mini cell (BENCH_CLI_VARIANTS; a subprocess on the card; its
+   kernel launched), `bench gate` against benchmarks/baseline.json and
    `bench trend` over both files, exit codes 0; phase 32's cohort of 4
    under SearchServer(debug_checks=True), cut to DEBUG_SERVE_ITERS = 1
    iteration: every request done, no lock-order violation, every
@@ -320,8 +325,9 @@ Phases (any failure exits nonzero and prints no result line):
    around an .item() (raises).
 37. User operators: gauss(x) = exp(-x * x), softplus(x) = log1p(exp(x))
    and pdiv(a, b) = where(b == 0, 0, a / b), torch callables traced by
-   ops/user_ops.py into a generated header; phase 2 builds the five
-   sources with it beside the built-in ones (the same set with / in
+   ops/user_ops.py into a generated header; phase 2 starts building the
+   five sources with it on a thread beside the built-in ones, joined here
+   (the same set with / in
    pdiv's place runs on those libraries, whose set covers it, and must
    build none of its own). #1 (cost and plain forms), #2
    (V = 24) and #3 (V = 3) on phase 4's 18,432 trees drawn from + - *
@@ -330,7 +336,7 @@ Phases (any failure exits nonzero and prints no result line):
    versions on the first USER_OP_SUBSET = 2,048, against them under phases
    3, 4 and 8's rules, with their times and bounds; then
    equation_search(device="cuda") with turbo on at the optimizer cell's
-   widths (USER_OP_CYCLES = 10 cycles, one iteration): #1-#3 launched, its
+   widths (USER_OP_CYCLES = 5 cycles, one iteration): #1-#3 launched, its
    best loss recomputed on the host in float64; and the engine with pdiv
    and with / in its place, in turns (pdiv, /, /, pdiv; one timed
    iteration each after init, no warm-up): phase 5's launch counts, the eager
@@ -341,7 +347,7 @@ Phases (any failure exits nonzero and prints no result line):
    float32 steps, float64 loss spine) and for bf16 data (a bf16 loss
    spine) on phases 3, 12 and 4's inputs under phase 16's rules (2b's
    plain version on the first USER_OP_SUBSET trees); then
-   DTYPE_CYCLES = 10 cycles and one timed iteration after init each: a
+   DTYPE_CYCLES = 5 cycles and one timed iteration after init each: a
    float64 template search at the template cell's widths and its
    optimizer at 64 islands, the optimizer cell with float64 data,
    eval_precision="bf16" and the bf16 line search, the optimizer cell with
@@ -352,7 +358,7 @@ Phases (any failure exits nonzero and prints no result line):
 
 39. Multi-device search (parallel/, mesh/) at the optimizer cell's full
    width (512 islands x 256, tournament 16, maxsize 30, + - * / exp abs
-   cos, 10,000 rows x 5 from seed 0, the optimizer on) at MESH_CYCLES = 10
+   cos, 10,000 rows x 5 from seed 0, the optimizer on) at MESH_CYCLES = 5
    cycles, one iteration each: (a) in a 1-rank nccl group on cuda:0, the
    plain Engine, the mesh runtime (MeshEngine) and the legacy sharded
    runtime (Engine(plan=)) from the same init, the digests of pops, hof and
@@ -370,7 +376,7 @@ Phases (any failure exits nonzero and prints no result line):
    shards, each rank holding a block of the rows (5,000 of the 10,000)
    and launching the kernels on it; the wrappers add every block's row
    sums before the mean. (a) The optimizer cell at full width and
-   ROW_CYCLES = 10: the init population's losses and costs within rtol
+   ROW_CYCLES = 5: the init population's losses and costs within rtol
    1e-5 of the unsharded Engine's (inf alike); one iteration launches #1
    11 (none in the cost-epilogue form), #2 8 and #3 9 per rank; the same
    seed twice bit-identical; both ranks hold the same state. (b) The
@@ -378,8 +384,29 @@ Phases (any failure exits nonzero and prints no result line):
    optimizer at 64 islands (#5 per rank). (c) One-iteration searches
    (ROW_SMALL_ISLANDS x ROW_SMALL_POP) with batching (batch_size 50),
    staged_eval and a custom loss (the mean absolute error): a finite hall
-   of fame each. Prints each rank's seconds, launches, collectives (count,
-   bytes, seconds) and peak memory.
+   of fame each. (d) Template searches whose combiners index rows
+   (ROW_INDEX_COMBINERS: a column's row 0 and a column reversed at 64
+   islands x 256, a subexpression's output reversed along its rows at 4),
+   ROW_TEMPLATE_CYCLES, the template optimizer on:
+   each index gathers every rank's rows and its gradient adds every
+   rank's cotangent; the init losses within rtol 1e-5 of the unsharded
+   Engine's (inf alike), one iteration twice from one seed bit-identical,
+   #4 and #5 launched on each rank. Prints each rank's seconds, launches,
+   collectives (count, bytes, seconds) and peak memory.
+41. The port's examples (symbolicregression_jl_tpu_torch/examples/) on the
+   card through their own ``main()`` (``device`` None: the card), each at
+   niterations=1 (llm_in_the_loop at two rounds; multi_device on two gloo
+   ranks sharing the card, its launches the ranks' own), and quickstart at
+   its default niterations=10, the two sets in two processes of their own
+   started before phase 39 with one OpenMP thread each, so that they run
+   beside phases 39-40 and each other (every example is host-bound, and
+   phases 39-41 time no kernel; each example's seconds are taken so):
+   each prints the JAX script's marker
+   lines and launches a kernel; prints each example's seconds and launches
+   of #1-#5 (#1p for the parametric one), and quickstart's best equation and train MSE
+   (the data's target is 2 cos(2.3 x0) - x1^2), which must beat the
+   constant fit's (y's variance, 8.749). Each kernel row of the result
+   line carries its launches per example.
 
 Every file a phase writes goes to a temporary directory, removed at the
 end. Each phase prints its seconds when the next one starts. The line before the last is the kernel table as JSON; the last line is
@@ -406,6 +433,8 @@ ISLANDS = 512               # the headline and template cells' width
 TEMPLATE_CYCLES = 20        # the template and parametric cells' cut depth (bench/cell.py FULL
                             # has 100; phases 9 and 13)
 TEMPLATE_OPT_CYCLES = 5     # the template optimizer phase's cut depth (phase 10)
+EAGER_OPT_ISLANDS = 32      # phases 14 and 35's eager optimizers (their seconds scale
+                            # with the members optimized)
 RTOL = 1e-5
 H100_FP32_FLOPS = 67e12     # non-tensor-core FP32 peak, H100 SXM data sheet
 H100_HBM_BYTES_S = 3.35e12  # HBM3 bandwidth, H100 SXM data sheet
@@ -720,6 +749,8 @@ def opt_kernel_inputs(torch, sr, dev, options=None):
 # or more) in the shares bench/profile_iteration.py counted for #3's trees
 # in the optimizer cell's 10-cycle iteration (65.8%, 33.6%, 0.6%): 337
 # islands of 1-4 draws, 172 of 5-12 and 3 of 16-18.
+MIXED_PLAIN_EVERY = 9       # phases 4 and 8: the trees held against the plain versions,
+                            # every 9th (a stride keeps each step-count class)
 MIXED_NLENGTHS = ([1 + i % 4 for i in range(337)] + [5 + i % 8 for i in range(172)]
                   + [16, 17, 18])
 
@@ -765,10 +796,12 @@ def mixed_grad_inputs(torch, sr, dev):
     return (instr, nsteps, nconst, cv.contiguous(), Xt, yt, w), ops, el
 
 
-def grad_checks(torch, check, tag, args, ops, el):
+def grad_checks(torch, check, tag, args, ops, el, plain_every: int = 1):
     """Kernel #3 on ``args`` against its plain version and kernel #2 (the
-    checks of phase 4, named with ``tag``). Returns (largest gradient error,
-    plain version's ms, valid pairs)."""
+    checks of phase 4, named with ``tag``); with ``plain_every`` > 1 the
+    plain version runs on every plain_every-th tree only (a stride keeps
+    every step-count class of trees grouped by class). Returns (largest
+    gradient error, plain version's ms, valid pairs)."""
     from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
 
     instr, nsteps, nconst, cv, Xt, yt, w = args
@@ -776,16 +809,21 @@ def grad_checks(torch, check, tag, args, ops, el):
     gl, gv, gg = FE.PROGRAM_GRAD(*args, ops, el)
     gl2, gv2, gg2 = FE.PROGRAM_GRAD(*args, ops, el)
     lm, vm = FE.PROGRAM_MULTI(instr, nsteps, cv, Xt, yt, w, ops, el)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pl, pv, pg, pabs = FE.program_grad_plain(*args, ops, el, return_abs=True)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
     check(f"#3{tag} two launches bit-identical",
           _same(gl, gl2) and _same(gv, gv2) and _same(gg, gg2))
     print(f"  bits #3{tag}: {digest(gl, gv, gg)}")
-    check(f"#3{tag} validity bit-equal", _same(gv, pv))
     check(f"#3{tag} loss == #2's on the same variants (bit)", _same(gl, lm) and _same(gv, vm))
+    valid = int(gv.sum())
+    sel = torch.arange(0, instr.shape[0], plain_every, device=instr.device)
+    pick = lambda t: t.index_select(0, sel).contiguous()
+    gl, gv, gg = pick(gl), pick(gv), pick(gg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pl, pv, pg, pabs = FE.program_grad_plain(pick(instr), pick(nsteps), pick(nconst), pick(cv),
+                                             Xt, yt, w, ops, el, return_abs=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(f"#3{tag} validity bit-equal", _same(gv, pv))
     same_inf, within, rel3, _ = close(torch, torch.where(pv, gl, torch.inf),
                                       torch.where(pv, pl, torch.inf))
     check(f"#3{tag} loss sum within rtol {RTOL} (max rel err {rel3:.3g})", same_inf and within)
@@ -802,7 +840,7 @@ def grad_checks(torch, check, tag, args, ops, el):
     gtol = 1e-4 * pabs[both]
     check(f"#3{tag} gradients within 1e-4 of the absolute row sums (max err / scale "
           f"{float((gerr / pabs[both].clamp(min=1e-30)).max()):.3g})", bool((gerr <= gtol).all()))
-    return (float(gerr.max()) if gerr.numel() else 0.0), plain_ms, int(gv.sum())
+    return (float(gerr.max()) if gerr.numel() else 0.0), plain_ms, valid
 
 
 def grad_bound(torch, args):
@@ -879,7 +917,8 @@ def phase_opt_kernels(torch, sr, dev):
     gargs = (instr, nsteps, nconst, cv_g, Xt, yt, w)
     abs3, plain_ms_grad, gvalid = grad_checks(torch, check, "", gargs, ops, el)
     margs, mops, mel = mixed_grad_inputs(torch, sr, dev)
-    abs3m, plain_ms_mixed, mvalid = grad_checks(torch, check, " (mixed steps)", margs, mops, mel)
+    abs3m, plain_ms_mixed, mvalid = grad_checks(torch, check, " (mixed steps)", margs, mops, mel,
+                                                plain_every=MIXED_PLAIN_EVERY)
     abs3 = max(abs3, abs3m)
 
     ms_multi = cuda_ms(torch, lambda: multi(instr, nsteps, cv_ls, Xt, yt, w, ops, el), reps=5)
@@ -915,7 +954,8 @@ def phase_opt_kernels(torch, sr, dev):
           f"5), plain "
           f"{plain_ms_grad:.1f} ms, bound {b3:.4f} ms ({by3}: {ops3:.4g} ops, {bytes3:.4g} B)")
     print(f"  #3 program_grad, mixed steps: {ms_mixed:.4f} ms (V={R}, CUDA events, mean of 5), "
-          f"plain {plain_ms_mixed:.1f} ms, bound {b3m:.4f} ms ({by3m}: {ops3m:.4g} ops, "
+          f"plain {plain_ms_mixed:.1f} ms on every {MIXED_PLAIN_EVERY}th tree, bound {b3m:.4f} "
+          f"ms ({by3m}: {ops3m:.4g} ops, "
           f"{bytes3m:.4g} B)")
     print(f"  #2 program_multi, {BATCH_SIZE} rows: {ms_multi50:.4f} ms; #3 program_grad, "
           f"{BATCH_SIZE} rows: {ms_grad50:.4f} ms (phase 4's trees, V = {V_ls} and {R}, CUDA "
@@ -1073,13 +1113,20 @@ def phase_no_optimizer(torch, sr, dev, ncycles: int):
         raise RuntimeError(f"no-optimizer path launched {launches}, expected {expected}")
 
 
+SEARCH_TIMEOUT_S = 10.0     # phase 7's timeout_in_seconds (the default 380-cycle
+                            # iteration takes 34-44 s)
+
+
 def phase_search(sr, dev, out_base):
-    """Phase 7: equation_search with the default Options on the bench data;
-    its files (save_to_file is on by default) go under ``out_base``."""
+    """Phase 7: equation_search with the default Options on the bench data,
+    stopped by ``timeout_in_seconds`` (SEARCH_TIMEOUT_S) between chunks of
+    its first iteration; its files (save_to_file is on by default) go
+    under ``out_base``."""
     X, y = bench_data()
     t0 = time.perf_counter()
-    hof = sr.equation_search(X, y, options=sr.Options(output_directory=out_base), niterations=1,
-                             seed=0, device=dev, verbosity=0)
+    hof = sr.equation_search(X, y, options=sr.Options(output_directory=out_base,
+                                                      timeout_in_seconds=SEARCH_TIMEOUT_S),
+                             niterations=1, seed=0, device=dev, verbosity=0)
     best = min(hof.entries, key=lambda e: e.loss)
     print(f"  default Options: {time.perf_counter() - t0:.2f} s, best loss {best.loss:.6g} at "
           f"complexity {best.complexity}: {best.equation_string()}")
@@ -1196,12 +1243,21 @@ def phase_predict_kernels(torch, sr, dev):
 
         pk, vk = k4(instr, nsteps, cvals, ok, Xc, ops)
         pk2, vk2 = k4(instr, nsteps, cvals, ok, Xc, ops)
+        # The plain versions on every tree of the shared input (the table's)
+        # and on every MIXED_PLAIN_EVERY-th tree of the others.
+        every = 1 if mode == "shared" else MIXED_PLAIN_EVERY
+        sel = torch.arange(0, instr.shape[0], every, device=dev)
+        pick = lambda t: t.index_select(0, sel).contiguous()
+        pX = pick(Xc) if per_member else Xc
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pp, vp = FE.program_predict_plain(instr, nsteps, cvals, ok, Xc, ops)
+        pp, vp = FE.program_predict_plain(pick(instr), pick(nsteps), pick(cvals), pick(ok), pX,
+                                          ops)
         torch.cuda.synchronize()
         plain4 = (time.perf_counter() - t0) * 1e3
         check(f"#4 {mode}: two launches bit-identical", _same(pk, pk2) and _same(vk, vk2))
+        pk_all, vk_all = pk, vk
+        pk, vk = pick(pk), pick(vk)
         check(f"#4 {mode}: validity bit-equal", _same(vk, vp))
         good, rel4, scl4, abs4 = tree_close(torch, pk, pp)
         check(f"#4 {mode}: predictions NaN and +-inf in the same places, otherwise within "
@@ -1213,12 +1269,15 @@ def phase_predict_kernels(torch, sr, dev):
         gk2, xk2 = k5(instr, nsteps, nconst, cvals, Xc, ct, ops)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        gp, xp, gabs = FE.program_predict_vjp_plain(instr, nsteps, nconst, cvals, Xc, ct, ops,
+        gp, xp, gabs = FE.program_predict_vjp_plain(pick(instr), pick(nsteps), pick(nconst),
+                                                    pick(cvals), pX, pick(ct), ops,
                                                     return_abs=True)
         torch.cuda.synchronize()
         plain5 = (time.perf_counter() - t0) * 1e3
         check(f"#5 {mode}: two launches bit-identical",
               _same(gk, gk2) and (xk is None or _same(xk, xk2)))
+        gk_all, xk_all = gk, xk
+        gk, xk = pick(gk), (None if xk is None else pick(xk))
         check(f"#5 {mode}: gcomp NaN and +-inf in the same places",
               nonfinite_match(torch, gk, gp))
         both = torch.isfinite(gabs) & torch.isfinite(gk) & torch.isfinite(gp)
@@ -1239,12 +1298,13 @@ def phase_predict_kernels(torch, sr, dev):
         print(f"  {mode} X (F = {F}): {T} trees, mean steps {steps / T:.3f} (m <= 4 "
               f"{int((mm <= 4).sum())}, 5-12 {int(((mm > 4) & (mm <= 12)).sum())}, 13 or more "
               f"{int((mm > 12).sum())}), mean constants "
-              f"{nc / T:.3f}, {int(vk.sum())} of {T} valid ({int((ok == 0).sum())} with "
-              f"const_ok cleared), {n} rows; {int((~torch.isfinite(pk)).sum())} of {pk.numel()} "
-              f"predictions non-finite ({int(torch.isnan(pk).sum())} NaN), "
-              f"{int((~torch.isfinite(gk)).sum())} of {gk.numel()} gcomp entries non-finite")
-        print(f"  bits #4 {mode}: {digest(pk, vk)}")
-        print(f"  bits #5 {mode}: {digest(gk, xk)}")
+              f"{nc / T:.3f}, {int(vk_all.sum())} of {T} valid ({int((ok == 0).sum())} with "
+              f"const_ok cleared), {n} rows; {int((~torch.isfinite(pk_all)).sum())} of "
+              f"{pk_all.numel()} predictions non-finite ({int(torch.isnan(pk_all).sum())} NaN), "
+              f"{int((~torch.isfinite(gk_all)).sum())} of {gk_all.numel()} gcomp entries "
+              f"non-finite; the plain versions on {sel.numel()} of the {T} trees")
+        print(f"  bits #4 {mode}: {digest(pk_all, vk_all)}")
+        print(f"  bits #5 {mode}: {digest(gk_all, xk_all)}")
 
         if not overflow or per_member:
             ms4 = cuda_ms(torch, lambda: k4(instr, nsteps, cvals, ok, Xc, ops), reps=5)
@@ -1259,15 +1319,16 @@ def phase_predict_kernels(torch, sr, dev):
             b5, by5 = bound((3.0 * steps + nc) * n,
                             4.0 * (T * L + 2 * T + 2 * T * CMAX + T * n) + xbytes
                             + (xbytes if per_member else 0.0))
+            on_trees = "" if every == 1 else f" on {sel.numel()} trees"
             # The per-row kernels' times (none for the mixed-step input).
             before = lambda k: was(f"{k.name} {mode}") if f"{k.name} {mode}" in PER_ROW_MS else ""
             print(f"  #4 program_predict: {ms4:.4f} ms{before(k4)} (CUDA events, "
                   f"mean of 5), plain "
-                  f"{plain4:.1f} ms, bound {b4:.4f} ms ({by4})")
+                  f"{plain4:.1f} ms{on_trees}, bound {b4:.4f} ms ({by4})")
             print(f"  #5 program_predict_vjp: {ms5:.4f} ms{before(k5)} (CUDA "
-                  f"events, mean of 5), plain {plain5:.1f} ms, bound {b5:.4f} ms ({by5})")
+                  f"events, mean of 5), plain {plain5:.1f} ms{on_trees}, bound {b5:.4f} ms ({by5})")
             report[mode] = {k4: (ms4, plain4, b4, by4), k5: (ms5, plain5, b5, by5)}
-        del pk, pk2, pp, gk, gk2, gp, gabs, xk, xk2, xp, X, ct
+        del pk, pk2, pp, gk, gk2, gp, gabs, xk, xk2, xp, X, ct, pk_all, gk_all, xk_all, pX
         torch.cuda.empty_cache()
     check.raise_if_failed("kernels #4 and #5")
 
@@ -1507,9 +1568,10 @@ def phase_parametric_main_path(torch, sr, dev):
 
 def phase_parametric_optimizer(torch, sr, dev):
     """Phase 14: the parametric constant optimizer (eager BFGS over the
-    constants and the banks) at 64 islands and 10 cycles, one iteration
-    after init (no warm-up: eager code has nothing to compile)."""
-    options = parametric_options(sr, TEMPLATE_OPT_CYCLES, populations=ISLANDS // 8,
+    constants and the banks) at EAGER_OPT_ISLANDS islands and
+    TEMPLATE_OPT_CYCLES cycles, one iteration after init (no warm-up:
+    eager code has nothing to compile)."""
+    options = parametric_options(sr, TEMPLATE_OPT_CYCLES, populations=EAGER_OPT_ISLANDS,
                                  optimizer_probability=0.14)
     X, y, cls = parametric_data()
     f_calls = []
@@ -2352,7 +2414,7 @@ def phase_regressor(torch, sr, dev):
 
 TELEM_CYCLES = 3            # phase 23's cut depth (one optimizer run per iteration whatever it)
 TELEM_ITERS = 2
-QUALITY_SEEDS = (0, 1)
+QUALITY_SEEDS = (0,)        # the baseline also has seed 1's cells
 QUALITY_KERNEL = {"plain": "program_eval", "plain-staged": "program_eval",
                   "plain-bf16": "program_eval_bf16", "plain-staged-bf16": "program_eval_bf16",
                   "parametric": "program_eval_param", "template": "program_predict"}
@@ -2484,8 +2546,8 @@ def check_counter_identities(check, tag, events, calls_by_iter, I, P, n_rows, st
 
 def phase_telemetry(torch, sr, dev, out_base, card):
     """Phase 23: the optimizer cell (TELEM_CYCLES cycles, TELEM_ITERS
-    iterations) through equation_search with telemetry on and off in turns
-    (off, on, on, off): bit-identical states and halls of fame; the JSONL
+    iterations) through equation_search with telemetry off, then on (off,
+    bit-identical states and halls of fame; the JSONL
     valid with run_start, TELEM_ITERS x iteration, run_end; the counters'
     identities with kernel #1's calls; equal host syncs per iteration on
     and off (set_sync_debug_mode("warn")); s/iteration on and off; the
@@ -2505,7 +2567,7 @@ def phase_telemetry(torch, sr, dev, out_base, card):
     rec = TreeRecorder()
     try:
         runs = {}
-        for i, mode in enumerate(("off", "on", "on", "off")):
+        for i, mode in enumerate(("off", "on")):
             rid = f"telem_{mode}_{i}"
             r0 = len(rec.calls)
             state, marks, syncs = telemetry_search(torch, sr, dev, opts(mode == "on", rid),
@@ -2531,11 +2593,10 @@ def phase_telemetry(torch, sr, dev, out_base, card):
           f"{sync_counts['on']} and off {sync_counts['off']}",
           len({tuple(c) for c in sync_counts["on"] + sync_counts["off"]}) == 1
           and len(sync_counts["on"][0]) == TELEM_ITERS - 1)
-    mean = lambda v: sum(v) / len(v)
-    print(f"  {card}: s/iteration (iterations 2-{TELEM_ITERS}, in turns off, on, on, off) "
-          f"off {per_iter['off'][0]:.4f} / {per_iter['off'][1]:.4f}, on {per_iter['on'][0]:.4f}"
-          f" / {per_iter['on'][1]:.4f}: on / off {mean(per_iter['on']) / mean(per_iter['off']):.4f}")
-    for rid in ("telem_on_1", "telem_on_2"):
+    print(f"  {card}: s/iteration (iterations 2-{TELEM_ITERS}, off then on) off "
+          f"{per_iter['off'][0]:.4f}, on {per_iter['on'][0]:.4f}: on / off "
+          f"{per_iter['on'][0] / per_iter['off'][0]:.4f}")
+    for rid in ("telem_on_1",):
         events = core_events(load_events(tfile(rid)))
         check(f"{rid}: JSONL valid, events run_start, {TELEM_ITERS} x iteration, run_end",
               [e["event"] for e in events] == ["run_start"] + ["iteration"] * TELEM_ITERS
@@ -2594,8 +2655,8 @@ def phase_telemetry(torch, sr, dev, out_base, card):
 
 
 def phase_quality(torch, sr, dev, out_base):
-    """Phase 24: the 12 non-sharded cells of benchmarks/baseline.json (6
-    variants x seeds 0 and 1, MINI shapes) through the port's bench/cell.py
+    """Phase 24: the non-sharded cells of benchmarks/baseline.json (6
+    variants x QUALITY_SEEDS, MINI shapes) through the port's bench/cell.py
     on the card, each on its kernel (launch counters), gated by the port's
     bench/gate.py under the library-drift rule."""
     from symbolicregression_jl_tpu_torch.bench import cell as C
@@ -2622,12 +2683,12 @@ def phase_quality(torch, sr, dev, out_base):
                   f"pareto_volume {m['pareto_volume']:.6g} (baseline {b['pareto_volume']:.6g}), "
                   f"{r['wall_s']:.2f} s")
             recs.append(r)
-    print(f"  12 cells in {time.perf_counter() - t0:.1f} s")
+    print(f"  {len(recs)} cells in {time.perf_counter() - t0:.1f} s")
     result = G.make_result(recs, matrix="mini", platform="gpu")
     findings = G.diff_result(result, baseline, cells_filter=[r["cell_id"] for r in recs])
     for line in G.format_findings(findings).splitlines():
         print(f"  {line}")
-    check("the 12 cells pass the quality rule (backstops hard, band excursions soft)",
+    check(f"the {len(recs)} cells pass the quality rule (backstops hard, band excursions soft)",
           not G.gate_failed(findings))
     check.raise_if_failed("the mini matrix's quality")
     return findings
@@ -2711,6 +2772,8 @@ RTOL64 = 1e-9               # float64 kernels against their float64 plain versio
 H100_FP64_FLOPS = 34e12     # non-tensor-core FP64 peak, H100 SXM data sheet
 LOSS_SUBSET = 512           # trees of #1, #1p and 1b held against the plain version per kind
 LOSS_SUBSET_MULTI = 64      # trees of #2, 2b and #3 likewise
+LOSS_PLAIN_SUBSET = 2048    # trees of logcosh's and float64's #2 and #3 held against (and
+                            # timed beside) the plain version; the kernels are timed on all
 LOSS_CYCLES = 3             # phase 27's cut depth (one optimizer run per iteration whatever it)
 # Operations of each loss kind's formula per row (csrc/interp.cuh
 # loss_of_kind), the weight and the row sum included.
@@ -2940,21 +3003,23 @@ def phase_loss_kernels(torch, sr, dev):
     rows.append(table_row(k, e1, ms, plainp, b, by))
 
     m64 = (oinstr, onsteps, d(cv_ls), d(oXt), d(oyt), d(ow))
+    KP = LOSS_PLAIN_SUBSET
+    mp64 = head(m64, KP, (0, 1, 2))
     k = FE.PROGRAM_MULTI_F64
-    lk, vk = k(*m64, ops, el)
+    lk, vk = k(*mp64, ops, el)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lp, vp = FE.program_multi_plain(*m64, ops, el)
+    lp, vp = FE.program_multi_plain(*mp64, ops, el)
     torch.cuda.synchronize()
     plain2 = (time.perf_counter() - t0) * 1e3
-    check("#2 f64 validity bit-equal", same(torch, vk, vp))
+    check(f"#2 f64 validity bit-equal ({KP} trees)", same(torch, vk, vp))
     s1, w1, r1, e1 = close_at(torch, torch.where(vp, lk, torch.inf),
                               torch.where(vp, lp, torch.inf), RTOL64)
     check(f"#2 f64 loss sums within rtol {RTOL64:g} (max rel err {r1:.3g})", s1 and w1)
     ms = cuda_ms(torch, lambda: k(*m64, ops, el), reps=3)
     b, by = bound64((steps2 + 4.0 * To) * V_ls * n, 8.0 * (To * (L + 3 + V_ls * CMAX) + 7 * n))
     print(f"  #2 program_multi_f64: {ms:.4f} ms (V={V_ls}, CUDA events, mean of 3), plain "
-          f"{plain2:.1f} ms, bound {b:.4f} ms ({by})")
+          f"{plain2:.1f} ms on {KP} trees, bound {b:.4f} ms ({by})")
     rows.append(table_row(k, e1, ms, plain2, b, by))
 
     g64 = (oinstr, onsteps, onconst, d(cv_g), d(oXt), d(oyt), d(ow))
@@ -2963,17 +3028,19 @@ def phase_loss_kernels(torch, sr, dev):
     mk = FE.PROGRAM_MULTI_F64(oinstr, onsteps, d(cv_g), *g64[4:], ops, el)
     check("#3 f64 loss == #2 f64's on the same variants (bit)",
           same(torch, gk[0], mk[0]) and same(torch, gk[1], mk[1]))
+    gp64 = head(g64, KP, (0, 1, 2, 3))
+    gk = k(*gp64, ops, el)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    gp = FE.program_grad_plain(*g64, ops, el, return_abs=True)
+    gp = FE.program_grad_plain(*gp64, ops, el, return_abs=True)
     torch.cuda.synchronize()
     plain3 = (time.perf_counter() - t0) * 1e3
-    e3 = grad_close(torch, check, "#3 f64", gk, gp, RTOL64)
+    e3 = grad_close(torch, check, f"#3 f64 ({KP} trees)", gk, gp, RTOL64)
     ms = cuda_ms(torch, lambda: k(*g64, ops, el), reps=3)
     _, _, ops3, bytes3 = grad_bound(torch, g3full)
     b, by = bound64(ops3, 2.0 * bytes3)
     print(f"  #3 program_grad_f64: {ms:.4f} ms (V={R}, CUDA events, mean of 3), plain "
-          f"{plain3:.1f} ms, bound {b:.4f} ms ({by})")
+          f"{plain3:.1f} ms on {KP} trees, bound {b:.4f} ms ({by})")
     rows.append(table_row(k, e3, ms, plain3, b, by))
 
     # Every kind on the float64 forms, on the subsets.
@@ -3005,9 +3072,10 @@ def phase_loss_kernels(torch, sr, dev):
 
 
 def logcosh_rows(torch, check, a1, a2, a3, el, times):
-    """Kernel-table rows of #1-#3 with logcosh: each held against its plain
-    version at the full shapes (phase 26's subset checks, on every tree),
-    with the plain version's time, beside the kernel times of ``times``."""
+    """Kernel-table rows of #1-#3 with logcosh: #1 held against its plain
+    version at the full shapes, #2 and #3 on their first LOSS_PLAIN_SUBSET
+    trees (phase 26's subset checks, on more trees), with the plain
+    version's time, beside the kernel times of ``times`` (all trees)."""
     from symbolicregression_jl_tpu_torch.ops import fused_eval as FE
 
     args, cxf, scal, ops = a1
@@ -3021,19 +3089,21 @@ def logcosh_rows(torch, check, a1, a2, a3, el, times):
     s1, w1, r1, e1 = close(torch, lk, lp)
     check(f"logcosh #1 at the full shapes: validity bit-equal, loss within rtol {RTOL} (max "
           f"rel err {r1:.3g})", same(torch, vk, vp) and s1 and w1)
+    K = LOSS_PLAIN_SUBSET
+    a2, a3 = head(a2, K, (0, 1, 2)), head(a3, K, (0, 1, 2, 3))
     t0 = time.perf_counter()
     lp, vp = FE.program_multi_plain(*a2, ops, el)
     torch.cuda.synchronize()
     p2 = (time.perf_counter() - t0) * 1e3
     lk, vk = FE.PROGRAM_MULTI(*a2, ops, el)
     s2, w2, r2, e2 = close(torch, torch.where(vp, lk, torch.inf), torch.where(vp, lp, torch.inf))
-    check(f"logcosh #2 at the full shapes: validity bit-equal, loss sums within rtol {RTOL} "
+    check(f"logcosh #2 on {K} trees: validity bit-equal, loss sums within rtol {RTOL} "
           f"(max rel err {r2:.3g})", same(torch, vk, vp) and s2 and w2)
     t0 = time.perf_counter()
     gp = FE.program_grad_plain(*a3, ops, el, return_abs=True)
     torch.cuda.synchronize()
     p3 = (time.perf_counter() - t0) * 1e3
-    e3 = grad_close(torch, check, "logcosh #3 at the full shapes", FE.PROGRAM_GRAD(*a3, ops, el),
+    e3 = grad_close(torch, check, f"logcosh #3 on {K} trees", FE.PROGRAM_GRAD(*a3, ops, el),
                     gp, 1e-4)
     for k, err, plain, (ms, b, by) in ((FE.PROGRAM_EVAL, e1, p1, times[0]),
                                        (FE.PROGRAM_MULTI, e2, p2, times[1]),
@@ -3042,7 +3112,9 @@ def logcosh_rows(torch, check, a1, a2, a3, el, times):
         row["name"] = f"{k.name} logcosh"
         row["replaces"] = k.replaces + " with elementwise_loss='logcosh'"
         out.append(row)
-        print(f"  {row['name']}: {ms:.4f} ms, plain {plain:.1f} ms, bound {b:.4f} ms ({by})")
+        where = "" if k is FE.PROGRAM_EVAL else f" on {K} trees"
+        print(f"  {row['name']}: {ms:.4f} ms, plain {plain:.1f} ms{where}, bound {b:.4f} ms "
+              f"({by})")
     return out
 
 
@@ -3104,12 +3176,16 @@ def phase_loss_searches(torch, sr, dev):
     return out
 
 
+HEADLINE_ITERS = 1          # phase 28's measured iterations (the bench's default is 3)
+
+
 def phase_headline(torch):
     """Phase 28: the port's headline bench as a user runs it, once:
     ``python -m symbolicregression_jl_tpu_torch.bench.headline``. Prints
     its JSON line."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "symbolicregression_jl_tpu_torch.bench.headline"],
+    proc = subprocess.run([sys.executable, "-m", "symbolicregression_jl_tpu_torch.bench.headline",
+                           "--iterations", str(HEADLINE_ITERS)],
                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
                           text=True)
     if proc.returncode != 0:
@@ -3118,8 +3194,8 @@ def phase_headline(torch):
     line = proc.stdout.strip().splitlines()[-1]
     rec = json.loads(line)
     print(f"  {line}")
-    print(f"  {time.perf_counter() - t0:.1f} s in all (process start, init, 1 warm-up and 3 "
-          f"measured iterations)")
+    print(f"  {time.perf_counter() - t0:.1f} s in all (process start, init, 1 warm-up and "
+          f"{HEADLINE_ITERS} measured iteration(s))")
     if rec.get("metric") != "full_dataset_expr_evals_per_sec_10k_rows" or not rec["value"] > 0:
         raise RuntimeError(f"bench.headline printed {line}")
     return rec
@@ -3372,7 +3448,7 @@ def run_child(out_dir: str, run_id: str, env_extra=None, timeout=600, **kw):
 def phase_robustness(torch, sr, dev, out_base):
     """Phase 30: graftshield at the optimizer cell (512 x 256, 10,000 rows,
     ROBUST_CYCLES cycles, ROBUST_ITERS iterations, telemetry on): shield
-    off, on, on, off in turns, every state bit-identical, s/iteration of
+    off, then on, every state bit-identical, s/iteration of
     each; two injected CUDA out-of-memory failures of the second attempt
     retried, the state bit-identical to the clean run; a real
     torch.cuda.OutOfMemoryError classified as an out-of-memory and a
@@ -3398,15 +3474,14 @@ def phase_robustness(torch, sr, dev, out_base):
                                           for x, y in zip(ta, tb))
 
     runs = {}
-    for i, shield in enumerate((False, True, True, False)):
+    for i, shield in enumerate((False, True)):
         state, events, secs = robust_search(torch, sr, dev, base, f"turn{i}", shield=shield)
         runs[i] = state
         print(f"  shield {'on ' if shield else 'off'} (turn {i + 1}): "
               f"{seconds_per_iteration(events):.3f} s/iteration after the first, {secs:.2f} s "
               f"in all, faults {fault_events(events)}")
     ref = runs[1]
-    check("shield on and off: every state tensor bit-identical in all four turns",
-          all(same_state(ref, runs[i]) for i in (0, 2, 3)))
+    check("shield on and off: every state tensor bit-identical", same_state(ref, runs[0]))
 
     faults.install(faults.FaultInjector(faults.FaultPlan(
         raise_on_dispatch=2, raise_count=2,
@@ -3514,9 +3589,9 @@ PAD_REAL = 6000             # phase 31's real rows (phase 3's and 4's first 6,00
 PAD_BUCKET = 8192           # their admission bucket (serve/admission.py shape_bucket)
 PLAIN_SUBSET = 256          # trees of #2 and #3 whose plain versions are held padded/unpadded
 SERVE_ROWS = (5000, 6000, 7000, 8000)   # phase 32's requests, seeds 0-3: one 8,192-row bucket
-SERVE_CYCLES = 5
+SERVE_CYCLES = 3
 SERVE_ITERS = 2
-DIAG_CYCLES = 5
+DIAG_CYCLES = 3
 DIAG_ITERS = 3
 
 
@@ -3813,7 +3888,7 @@ def phase_diagnostics(torch, sr, dev, out_base, card):
     d = os.path.join(out_base, "diag")
     off = dict(ledger=False, pulse=False, gauge=False)
     turns = []
-    for i, on in enumerate((False, True, True, False)):
+    for i, on in enumerate((False, True)):
         state, secs = diag_search(torch, sr, dev, d, f"turn{i}", **({} if on else off))
         run_dir = os.path.join(d, f"turn{i}")
         turns.append((on, state_tensors(torch, state.device_states[0]), run_dir))
@@ -3894,7 +3969,8 @@ UNITS_CYCLES = 3            # phase 34's depth (one optimizer run per iteration 
 UNITS = {"X_units": ["kg", "m/s", "m"], "y_units": "J"}
 D_CYCLES = 3                # phase 35's depth
 DEBUG_SERVE_ITERS = 1       # phase 36's cohort, cut from phase 32's SERVE_ITERS
-BENCH_CLI_VARIANTS = ("plain", "template")   # phase 36's slice of the mini matrix
+BENCH_CLI_VARIANTS = ("plain",)   # phase 36's slice of the mini matrix (phase 24 runs the
+                                  # template cells)
 
 
 def units_data():
@@ -4069,7 +4145,7 @@ def phase_d_template(torch, sr, dev, card):
 
     # The constant optimizer at 64 islands: the eager interpreter's
     # forward-mode derivative under autograd (second order).
-    options = d_options(sr, ncycles, populations=ISLANDS // 8, optimizer_probability=0.14)
+    options = d_options(sr, ncycles, populations=EAGER_OPT_ISLANDS, optimizer_probability=0.14)
     f_calls, opt_s = [], []
 
     def record(engine):
@@ -4093,7 +4169,7 @@ def phase_d_template(torch, sr, dev, card):
     check("#4 and #5 once an evaluation and once a line search (the gradient passes on the "
           "eager interpreter launch nothing)",
           launches == expect(launches, program_predict=n1, program_predict_vjp=n1))
-    print(f"  {card}: {timing[0]:.3f} s/iteration at {ISLANDS // 8} islands, the optimizer "
+    print(f"  {card}: {timing[0]:.3f} s/iteration at {EAGER_OPT_ISLANDS} islands, the optimizer "
           f"{opt_s[-1]:.3f} s of it; f_calls {sum(f_calls[-1:]):.0f} of {evals:.0f} evaluations "
           f"({f_calls[-1] / evals:.1%}); peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
           f"(chunks of {CO.D_CHUNK_BYTES / 2**20:.0f} MiB of value buffer)")
@@ -4228,7 +4304,7 @@ def phase_tooling(torch, sr, dev, out_base, card):
 # Phase 37: user operators generated into kernels #1-#5
 # ---------------------------------------------------------------------------
 
-USER_OP_CYCLES = 10         # phase 37's search depth (one optimizer run per iteration whatever it)
+USER_OP_CYCLES = 5          # phase 37's search depth (one optimizer run per iteration whatever it)
 USER_OP_SUBSET = 2048       # phase 37's and 38's first trees held against the plain versions
                             # (the kernels run on all of them; plain ms is on these)
 _USER_OPS = {}
@@ -4615,7 +4691,7 @@ def phase_user_ops(torch, sr, dev, card):
 # Phase 38: the dtype forms
 # ---------------------------------------------------------------------------
 
-DTYPE_CYCLES = 10           # phase 38's search depth
+DTYPE_CYCLES = 5            # phase 38's search depth
 
 
 def phase_dtype_forms(torch, sr, dev, card):
@@ -4863,7 +4939,7 @@ def phase_dtype_forms(torch, sr, dev, card):
     return list(rows.values()), user_route
 
 
-MESH_CYCLES = 10            # phase 39's depth (one iteration of each run)
+MESH_CYCLES = 5             # phase 39's depth (one iteration of each run)
 MESH_RANKS = 2              # phase 39(b): two gloo ranks on the one card
 MESH_TIMEOUT_S = 300        # each group's collectives and the ranks' deadline
 MESH_ONE_RANK_BACKEND = "nccl"
@@ -5056,11 +5132,21 @@ def phase_mesh(torch, sr, dev, out_base, card, ncycles: int = MESH_CYCLES):
             {k: one_rank.get(k, 0) for k in main_counts})
 
 
-ROW_CYCLES = 10             # phase 40(a)'s depth (one iteration, run twice)
+ROW_CYCLES = 5              # phase 40(a)'s depth (one iteration, run twice)
 ROW_TEMPLATE_CYCLES = 3     # phase 40(b)'s template cell depth
-ROW_SMALL_ISLANDS = 32      # phase 40(c)'s searches: islands x ROW_SMALL_POP, 3 cycles
+ROW_SMALL_ISLANDS = 16      # phase 40(c)'s searches: islands x ROW_SMALL_POP, 3 cycles
 ROW_SMALL_POP = 64
 ROW_RANKS = 2               # two gloo ranks on the one card, one data shard each
+# Phase 40(d)'s combiners and their islands (x 256 members, ROW_TEMPLATE_CYCLES
+# cycles): a column's rows by position (an int; a reversing slice), and a
+# subexpression's rows, whose gather carries every member's rows (13.0 GB
+# received per rank an iteration at 64 islands, 38-45 s; 4 islands here)
+# and whose gradient crosses the ranks.
+ROW_INDEX_COMBINERS = {
+    "f(x1) - x1[0] + g(x2)": (lambda f, g, x1, x2: f(x1) - x1[0] + g(x2), 64),
+    "f(x1) * g(x1[::-1])": (lambda f, g, x1, x2: f(x1) * g(x1[::-1]), 64),
+    "f(x1) * g(x2)[..., ::-1]": (lambda f, g, x1, x2: f(x1) * g(x2)[..., ::-1], 4),
+}
 ROW_NAMES = ("program_eval", "program_multi", "program_grad", "program_predict",
              "program_predict_vjp")
 
@@ -5173,6 +5259,31 @@ def row_shard_rank_run(device: str = "cuda"):
         record(name, t0, hof=len(losses), best=min(losses) if losses else float("nan"))
         out["checks"][f"{name}: a finite hall of fame"] = bool(losses) and bool(
             np.isfinite(losses).all())
+
+    # (d) template combiners that index rows: each index gathers every
+    # rank's rows (and its gradient adds every rank's cotangent)
+    for name, (combiner, islands) in ROW_INDEX_COMBINERS.items():
+        opts = template_options(sr, ROW_TEMPLATE_CYCLES, populations=islands,
+                                optimizer_probability=0.14, combiner=combiner)
+        tds = sr.make_dataset(Xt, yt, device=dev)
+        tds.update_baseline_loss(opts.elementwise_loss)
+        tdata = plan.place_data(tds.data)
+        key = rng.key(0, device=dev)
+        whole = Engine(opts, Xt.shape[1], device=dev).init_state(key, tds.data, opts.populations)
+        eng = Engine(opts, Xt.shape[1], device=dev, plan=plan)
+        st0 = eng.init_state(key, tdata, opts.populations)
+        same_inf, within, rel, _ = close(torch, st0.pops.loss, whole.pops.loss)
+        out["checks"][f"index {name}: init loss within rtol 1e-5 of the unsharded Engine's "
+                      f"(max rel {rel:.3g}), inf alike"] = same_inf and within
+        digests = []
+        for run in ("first", "second"):
+            t0 = reset()
+            st = eng.run_iteration(st0, tdata, opts.maxsize)
+            record(f"index {name} ({run})", t0, best=best_loss(st))
+            digests.append(state_digests(st))
+        out["checks"][f"index {name}: the same seed twice bit-identical"] = (
+            digests[0] == digests[1])
+        del whole, eng, st0, st, tdata
     return out
 
 
@@ -5220,6 +5331,12 @@ def phase_row_shards(torch, sr, dev, out_base, card):
                   run["launches"] == counts and run["cost_launches"] == 0)
         for name in ("batching", "staged_eval", "custom loss"):
             print(f"  rank {r['rank']}, {name}: hall of fame of {r['runs'][name]['hof']}")
+        for name in ROW_INDEX_COMBINERS:
+            for run in ("first", "second"):
+                launches = r["runs"][f"index {name} ({run})"]["launches"]
+                check(f"rank {r['rank']}, index {name} ({run}): #4 and #5 launched",
+                      launches.get("program_predict", 0) > 0
+                      and launches.get("program_predict_vjp", 0) > 0)
     if check.failures:
         for i, log in enumerate(logs):
             print(f"  rank {i} output:\n{log[-3000:]}")
@@ -5232,6 +5349,125 @@ def phase_row_shards(torch, sr, dev, out_base, card):
         if not per_rank[name]:
             raise RuntimeError(f"phase 40 launched {name} no time")
     return per_rank
+
+
+EXAMPLE_MARKERS = {
+    "quickstart": ("best:", "pareto front (complexity, loss, equation):", "train MSE:"),
+    "custom_initial_population": (),
+    "llm_in_the_loop": ("round 0: best loss", "final best:"),
+    "template_expression": ("best template instance:", "loss:"),
+    "parametric_expression": ("best parametric form:", "loss:", "fitted per-class parameters:"),
+    "dimensional_analysis": ("best dimensionally-consistent law:", "loss:"),
+    "recorder_genealogy": ("accepted events across",),
+    "multi_device": ("devices:",),
+}
+EXAMPLE_NAMES = ("program_eval", "program_eval_param", "program_multi", "program_grad",
+                 "program_predict", "program_predict_vjp")
+EXAMPLE_TIMEOUT_S = 600     # phase 41's processes (quickstart at 10 iterations: 84-200 s)
+
+
+def examples_run(which: str) -> None:
+    """Phase 41's examples in a process of its own (``which``: "all", each
+    example at niterations=1, or "quickstart10", quickstart at its default
+    10 iterations): for each, the launch counts set to 0, ``main()`` on the
+    card, then one line ``EXAMPLE {json}`` with its seconds, launches (the
+    ranks' own for multi_device) and output."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    from symbolicregression_jl_tpu_torch import examples
+
+    runs = ([(name, {"niterations": 1, **({"rounds": 2} if name == "llm_in_the_loop" else {})})
+             for name in examples.EXAMPLES] if which == "all" else [("quickstart", {})])
+    for name, kw in runs:
+        mod = importlib.import_module(f"symbolicregression_jl_tpu_torch.examples.{name}")
+        torch.cuda.synchronize()
+        for k in kernels():
+            k.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = mod.main(**kw)          # device=None: the card
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels() if k.launches}
+        if name == "multi_device":
+            launches = {k: v for k, v in result[0]["launches"].items() if v}
+        label = name if kw else f"{name} (niterations=10)"
+        print("EXAMPLE " + json.dumps({"name": name, "label": label, "seconds": dt,
+                                       "launches": launches, "out": buf.getvalue()}), flush=True)
+
+
+def start_examples(out_base):
+    """Phase 41's two processes, started before phase 39 (phases 39-41 time
+    no kernel, and every example is host-bound): the one-iteration
+    examples, and quickstart at 10 iterations. Each writes to files under
+    ``out_base`` and runs with one OpenMP thread (idle OpenMP threads spin
+    on the host's shared cores). Returns [(process, start time, paths)]."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    out = []
+    for which in ("all", "quickstart10"):
+        paths = tuple(os.path.join(out_base, f"examples_{which}.{ext}") for ext in ("out", "err"))
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+                "chip_smoke.examples_run(sys.argv[2])")
+        with open(paths[0], "w") as fo, open(paths[1], "w") as fe:
+            proc = subprocess.Popen([sys.executable, "-c", code, here, which], cwd=here, env=env,
+                                    stdout=fo, stderr=fe)
+        out.append((proc, time.perf_counter(), paths))
+    return out
+
+
+def phase_examples(torch, sr, dev, card, procs):
+    """Phase 41: every example of symbolicregression_jl_tpu_torch/examples/
+    on the card at niterations=1 (multi_device on two gloo ranks sharing
+    it), and quickstart at its default niterations=10, each set in its own
+    process (``start_examples``'s, started before phase 39) (the module
+    docstring's 41). Returns each kernel's launches per example."""
+    check = Checks()
+    per_example = {}
+    records = []
+    try:
+        for proc, t_start, paths in procs:
+            proc.wait(timeout=EXAMPLE_TIMEOUT_S)
+            wall = time.perf_counter() - t_start
+            with open(paths[0]) as fo, open(paths[1]) as fe:
+                out, err = fo.read(), fe.read()
+            lines = [json.loads(ln[len("EXAMPLE "):]) for ln in out.splitlines()
+                     if ln.startswith("EXAMPLE ")]
+            check(f"examples process {os.path.basename(paths[0])}: exit 0 (got "
+                  f"{proc.returncode}), {len(lines)} example(s), {wall:.1f} s from its start",
+                  proc.returncode == 0 and lines)
+            if proc.returncode != 0:
+                print(out[-3000:], err[-3000:])
+            records += lines
+    finally:
+        for proc, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rec in records:
+        name, label, text = rec["name"], rec["label"], rec["out"]
+        per_example[label] = rec["launches"]
+        print(f"  {card}: {label}: {rec['seconds']:.2f} s, launches {rec['launches']}")
+        for marker in EXAMPLE_MARKERS[name]:
+            check(f"{label} prints {marker!r}", marker in text)
+        check(f"{label}: a kernel launched", bool(rec["launches"]))
+        if label.endswith("(niterations=10)"):
+            best = next((ln for ln in text.splitlines() if ln.startswith("best:")), "")
+            mse_line = next((ln for ln in text.splitlines() if ln.startswith("train MSE:")), "")
+            print(f"  {best or 'best: (none)'}")
+            print(f"  {mse_line or 'train MSE: (none)'} (target 2 cos(2.3 x0) - x1^2)")
+            mse = float(mse_line.split(":")[1]) if mse_line else np.nan
+            check("quickstart at 10 iterations: a finite train MSE below y's variance (8.749, "
+                  "the constant fit's)", np.isfinite(mse) and mse < 8.749)
+    check("every example ran", set(EXAMPLE_MARKERS) <= {r["name"] for r in records}
+          and any(r["label"].endswith("(niterations=10)") for r in records))
+    check.raise_if_failed("examples")
+    return per_example
 
 
 def _build_or_error(cuda_build, header):
@@ -5297,17 +5533,15 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
     header("[2] build")
     t0 = time.perf_counter()
     files = list(dict.fromkeys(k._file for k in kernels()))
-    # Phase 37's user-operator set builds beside the built-in one, all ten
-    # nvcc processes at once (the set with / in pdiv's place runs on these
-    # libraries, whose set covers it); a failure of either raises here.
+    # Phase 37's user-operator set builds on a thread from here on, beside
+    # the built-in set and then beside phases 3-36 (none of which reads it),
+    # and is joined before phase 37 (the set with / in pdiv's place runs on
+    # these libraries, whose set covers it); its failure raises there.
     user_build = {}
     thread = threading.Thread(target=lambda: user_build.update(done=_build_or_error(
         cuda_build, user_op_header(sr))))
     thread.start()
     cuda_build.build_all(files)
-    thread.join()
-    if isinstance(user_build.get("done"), BaseException):
-        raise user_build["done"]
     for k in kernels():
         k.library()
     print(f"  {', '.join(files)}: {time.perf_counter() - t0:.2f} s "
@@ -5398,7 +5632,8 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
     header("[23] telemetry at full width (optimizer cell and plain-staged cell)")
     phase_telemetry(torch, sr, dev, out_base, card)
 
-    header("[24] the mini matrix's quality (12 non-sharded cells of benchmarks/baseline.json)")
+    header("[24] the mini matrix's quality (the seed-0 non-sharded cells of "
+           "benchmarks/baseline.json)")
     phase_quality(torch, sr, dev, out_base)
 
     header("[25] a stop between chunks of cycles (timeout at a quarter of an iteration)")
@@ -5452,6 +5687,11 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
     phase_tooling(torch, sr, dev, out_base, card)
 
     header("[37] user operators (gauss, softplus, pdiv) generated into kernels #1-#5")
+    t0 = time.perf_counter()
+    thread.join()
+    if isinstance(user_build.get("done"), BaseException):
+        raise user_build["done"]
+    print(f"  the user-op libraries' build (from phase 2 on) joined after {time.perf_counter() - t0:.2f} s")
     rows += phase_user_ops(torch, sr, dev, card)
 
     header("[38] the dtype forms: #4/#5 double, #4 bf16, 1b/2b with a float64 or bf16 loss "
@@ -5462,6 +5702,19 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
             row["launches"] = user_route[row["name"][:-len(" user ops")]]
     rows += drows
 
+    procs = start_examples(out_base)
+    try:
+        return _last_phases(torch, sr, dev, out_base, card, rows, header, procs)
+    finally:
+        for proc, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _last_phases(torch, sr, dev, out_base, card, rows, header, procs) -> int:
+    """Phases 39-41, with phase 41's examples running beside them in the
+    processes ``procs``."""
     header("[39] multi-device search: a 1-rank nccl group, two gloo ranks on the card, the "
            "dedup exchange")
     per_rank, one_rank = phase_mesh(torch, sr, dev, out_base, card)
@@ -5477,6 +5730,16 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
     row_launches = phase_row_shards(torch, sr, dev, out_base, card)
     for row in rows:
         row["row_shard_launches_per_rank"] = row_launches.get(row["name"], 0)
+
+    header("[41] the port's examples on the card (niterations=1), and quickstart at 10 "
+           "iterations, in processes started before phase 39")
+    per_example = phase_examples(torch, sr, dev, card, procs)
+    for row in rows:
+        row["example_launches"] = {ex: n[row["name"]] for ex, n in per_example.items()
+                                   if n.get(row["name"])}
+    for name in EXAMPLE_NAMES:
+        if not any(n.get(name) for n in per_example.values()):
+            raise RuntimeError(f"phase 41 launched {name} no time")
 
     header("")
     print(card)

@@ -45,13 +45,15 @@ from .api.hall_of_fame import (HallOfFame, HallOfFameEntry, load_hall_of_fame_cs
 from .api.regressor import MultitargetSRRegressor, SRRegressor
 from .api.search import RuntimeOptions, SearchState, equation_search, warmup
 from .core.dataset import Dataset, make_dataset
-from .core.options import MutationWeights, Options
+from .core.losses import LOSS_REGISTRY, resolve_loss
+from .core.options import ComplexityMapping, MutationWeights, Options
 from .evolve.engine import Engine
 from .models.spec import ExpressionSpec, ParametricExpressionSpec, TemplateExpressionSpec
 from .ops.operators import Op, OperatorSet
 from .ops.tree import Node, parse_expression, string_tree
 
 __all__ = [
+    "ComplexityMapping",
     "Dataset",
     "Engine",
     "ExpressionSpec",
@@ -69,10 +71,13 @@ __all__ = [
     "SearchState",
     "TemplateExpressionSpec",
     "equation_search",
+    "LOSS_REGISTRY",
     "load_hall_of_fame_csv",
     "make_dataset",
     "parse_expression",
+    "resolve_loss",
     "save_hall_of_fame_csv",
+    "search_key",
     "string_tree",
     "warmup",
     "SearchServer",
@@ -83,6 +88,15 @@ __all__ = [
     "eval_grad_tree_array",
     "differentiable_eval_tree_array",
 ]
+
+
+def search_key(seed, device=None):
+    """The search engine's key for ``seed``: the threefry2x32 key words of
+    ``jax.random.key(seed)`` as an int32 tensor [2] holding their uint32
+    bits (``evolve/rng.py``), on ``device`` (the CPU by default)."""
+    from .evolve import rng
+
+    return rng.key(seed, device=device)
 
 
 def __getattr__(name):

@@ -331,23 +331,22 @@ def _encode_template_seeds(engine: Engine, items, operators
     return TreeBatch(*(torch.stack(f) for f in zip(*(e.fields() for e in encs)))), params
 
 
-def _seed_population(engine: Engine, state: SearchDeviceState, trees: Sequence[Node], data,
-                     mode: str, params: Optional[Sequence[Optional[np.ndarray]]] = None,
-                     encoded: Optional[TreeBatch] = None) -> SearchDeviceState:
-    """Put host trees into the device population, scored on every row.
+def _seed_batch(engine: Engine, key: torch.Tensor, capacity: int, trees: Sequence[Node],
+                params: Optional[Sequence[Optional[np.ndarray]]] = None,
+                encoded: Optional[TreeBatch] = None):
+    """The seeds encoded, with their banks: ``(enc, seed_params, key)``,
+    ``key`` being what the state's key becomes, or None without a seed.
 
-    ``mode="replace_worst"`` (guesses) replaces island 0's worst members
-    with the seeds, which also enter the hall of fame at once;
-    ``mode="tile"`` (initial_population) tiles the seeds over every
-    island's members. Seeds larger than maxsize are skipped with a
-    warning. ``params`` are per-seed fitted banks (flat or (n_params,
-    n_classes)); a seed without one gets a fresh normal bank, drawn after
-    the state's key is split as the JAX package splits it. ``encoded``
-    is an already encoded [n, K, L] batch (template members)."""
+    Seeds larger than maxsize are skipped with a warning, and at most
+    ``capacity`` are kept. ``params`` are per-seed fitted banks (flat or
+    (n_params, n_classes)); a seed without one gets a fresh normal bank,
+    drawn after the state's ``key`` is split as the JAX package splits
+    it. ``encoded`` is an already encoded [n, K, L] batch (template
+    members)."""
     if encoded is None and not trees:
-        return state
+        return None
     cfg = engine.cfg
-    I = state.birth.shape[0]
+    I = capacity // cfg.population_size
     P = cfg.population_size
     if encoded is None:
         # Drop oversized seeds first, then cut to the islands x members
@@ -366,7 +365,7 @@ def _seed_population(engine: Engine, state: SearchDeviceState, trees: Sequence[N
             if ps is not None:
                 kept_params.append(ps[i] if i < len(ps) else None)
         if not kept:
-            return state
+            return None
         trees = kept
         if params is not None:
             params = kept_params
@@ -374,8 +373,7 @@ def _seed_population(engine: Engine, state: SearchDeviceState, trees: Sequence[N
         list(trees)[:I * P], cfg.max_nodes, cfg.operators, device=engine.device,
         dtype=engine.dtype)
     n_seed = enc.length.shape[0]
-    ks = rng.split(state.key, 2)
-    state = dataclasses.replace(state, key=ks[1])
+    ks = rng.split(key, 2)
     seed_params = init_params(ks[0], (n_seed,), cfg.n_params, cfg.n_classes, engine.dtype)
     if params is not None and cfg.n_params > 0:
         seed_params = seed_params.clone()
@@ -384,8 +382,52 @@ def _seed_population(engine: Engine, state: SearchDeviceState, trees: Sequence[N
                 seed_params[i] = torch.as_tensor(
                     np.asarray(p).reshape(cfg.n_params, cfg.n_classes),
                     dtype=seed_params.dtype, device=seed_params.device)
-    cost, loss, cx = engine._eval(enc, seed_params, data, fuse_cost=cfg.fuse_cost)
+    return enc, seed_params, ks[1]
 
+
+def _initial_state(engine: Engine, key: torch.Tensor, data, n_islands: int,
+                   trees: Sequence[Node], params=None,
+                   encoded: Optional[TreeBatch] = None) -> SearchDeviceState:
+    """``engine.init_state`` with ``initial_population``'s seeds tiled
+    over every island's members (``initial_trees``/``initial_params``),
+    scored on every row; the random populations without a seed."""
+    P = engine.cfg.population_size
+    seeded = _seed_batch(engine, engine.state_key(key.to(engine.device)), n_islands * P,
+                         trees, params=params, encoded=encoded)
+    if seeded is None:
+        return engine.init_state(key, data, n_islands)
+    enc, seed_params, state_key = seeded
+    idx = torch.arange(n_islands * P, device=engine.device) % enc.length.shape[0]
+
+    def tile(seeded):
+        return seeded[idx].reshape((n_islands, P) + seeded.shape[1:])
+
+    state = engine.init_state(key, data, n_islands,
+                              initial_trees=TreeBatch(*(tile(f) for f in enc.fields())),
+                              initial_params=tile(seed_params))
+    return dataclasses.replace(state, key=state_key)
+
+
+def _seed_population(engine: Engine, state: SearchDeviceState, trees: Sequence[Node], data,
+                     mode: str, params: Optional[Sequence[Optional[np.ndarray]]] = None,
+                     encoded: Optional[TreeBatch] = None) -> SearchDeviceState:
+    """Put host trees into the device population, scored on every row.
+
+    ``mode="replace_worst"`` (guesses) replaces island 0's worst members
+    with the seeds, which also enter the hall of fame at once;
+    ``mode="tile"`` tiles the seeds over every island's members, as
+    ``initial_population`` seeds a fresh state (``_initial_state``).
+    ``_seed_batch`` says how the seeds are encoded."""
+    cfg = engine.cfg
+    I = state.birth.shape[0]
+    P = cfg.population_size
+    seeded = _seed_batch(engine, state.key, I * P, trees, params=params, encoded=encoded)
+    if seeded is None:
+        return state
+    enc, seed_params, key = seeded
+    n_seed = enc.length.shape[0]
+    state = dataclasses.replace(state, key=key)
+    cost, loss, cx = engine._eval(enc, seed_params, data, fuse_cost=cfg.fuse_cost)
     if mode == "replace_worst":
         # Guesses enter the hall of fame directly, so an exact seed is
         # kept even if evolution replaces it before a cycle records it.
@@ -620,24 +662,24 @@ def equation_search(X, y=None, *, options: Optional[Options] = None, niterations
                     f"{state.pops.params.shape[-1]} classes but the dataset has {ds.n_classes}")
             if plan is not None:
                 state = plan.place_state(state)   # the full saved state: this rank's block
+        elif initial_population:
+            # The seeds tiled over every island's members are the engine's
+            # initial trees (each rank keeps its islands of them).
+            if template is not None:
+                enc, gparams = _encode_template_seeds(
+                    engine, [(g, None) for g in initial_population], options.operators)
+                state = _initial_state(engine, k_init, data, options.populations, [],
+                                       params=gparams, encoded=enc)
+            else:
+                trees = [_parse_guess(g, options.operators, ds.variable_names)
+                         for g in initial_population]
+                state = _initial_state(engine, k_init, data, options.populations, trees)
         else:
             state = engine.init_state(k_init, data, options.populations)
-        seeding = (saved_state is None or j >= len(saved_state.device_states)) and bool(
-            initial_population) or guesses is not None
+        seeding = guesses is not None
         if plan is not None and seeding:
             # Seeds go into the full state, as the unsharded search seeds it.
             state = plan.gather_state(state)
-        if saved_state is None or j >= len(saved_state.device_states):
-            if initial_population:
-                if template is not None:
-                    enc, gparams = _encode_template_seeds(
-                        engine, [(g, None) for g in initial_population], options.operators)
-                    state = _seed_population(engine, state, [], data, mode="tile",
-                                             params=gparams, encoded=enc)
-                else:
-                    trees = [_parse_guess(g, options.operators, ds.variable_names)
-                             for g in initial_population]
-                    state = _seed_population(engine, state, trees, data, mode="tile")
         if guesses is not None:
             gs = guesses[j] if _is_nested(guesses, len(datasets)) else guesses
             items = [g if _is_guess_pair(g) else (g, None) for g in gs]

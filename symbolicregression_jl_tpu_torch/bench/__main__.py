@@ -153,12 +153,18 @@ def cmd_trend(args) -> int:
     return 1 if (args.strict and trend["red_count"]) else 0
 
 
+def cmd_load(args) -> int:
+    """The ``load`` subcommand: ``args`` is its argument list, which
+    bench/load.py parses (``--packed``, ``--compare``, ...; its --help)."""
+    from .load import main as load_main
+
+    return load_main(list(args))
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv[:1] == ["load"]:
-        from .load import main as load_main
-
-        return load_main(argv[1:])
+        return cmd_load(argv[1:])
     ap = argparse.ArgumentParser(
         prog="python -m symbolicregression_jl_tpu_torch.bench",
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)

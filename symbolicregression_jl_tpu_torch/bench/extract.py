@@ -12,7 +12,15 @@ from typing import Any, Dict, List
 
 from ..telemetry.report import metrics_view, summarize
 
-__all__ = ["extract_metrics"]
+__all__ = ["extract_metrics", "GATE_METRIC_KEYS"]
+
+# The subset of metrics_view keys the JAX package's gate diffs; the rest
+# ride along in result files as context (the port gates the quality ones,
+# bench/gate.PORT_GATED).
+GATE_METRIC_KEYS = (
+    "evals_per_sec", "best_loss", "pareto_volume", "host_fraction",
+    "recompiles",
+)
 
 
 def extract_metrics(events: List[dict]) -> Dict[str, Any]:

@@ -22,7 +22,8 @@ import time
 from typing import Any, Dict, List, Optional
 
 __all__ = [
-    "BASELINE_SCHEMA", "RESULT_SCHEMA", "GATED_METRICS", "PORT_GATED", "Band", "Finding",
+    "BASELINE_SCHEMA", "RESULT_SCHEMA", "GATED_METRICS", "PORT_GATED",
+    "CPU_THROUGHPUT_BAND_FACTOR", "Band", "Finding",
     "load_baseline", "library_provenance", "make_result", "diff_result", "gate_failed",
     "format_findings", "calibrate_bands", "make_baseline",
 ]
@@ -61,6 +62,10 @@ GATED_METRICS: Dict[str, Band] = {
 # What the port's gate diffs: the quality metrics (throughput is not
 # comparable with the JAX package's CPU baseline).
 PORT_GATED = ("best_loss", "pareto_volume")
+
+# The JAX package widens throughput bands by this factor when reporting a
+# CPU result (shared cores are noisy); a baseline records it, as there.
+CPU_THROUGHPUT_BAND_FACTOR = 2.0
 
 # Backstops (any band width): a fresh value below COLLAPSE_FLOOR_FRACTION
 # x baseline ("lower is worse" metrics) or above max(BLOWUP_CEILING_FACTOR
@@ -149,6 +154,7 @@ def make_baseline(results: List[Dict[str, Any]],
         "created": time.strftime("%Y-%m-%d", time.gmtime()),
         "provenance": library_provenance(),
         "repeats": len(results),
+        "cpu_throughput_band_factor": CPU_THROUGHPUT_BAND_FACTOR,
         "bands": {m: {"direction": b.direction, "kind": b.kind, "rel": b.rel, "abs": b.abs}
                   for m, b in bands.items()},
         "cells": cells,
@@ -337,11 +343,14 @@ def gate_failed(findings: List[Finding]) -> bool:
                for f in findings)
 
 
-def format_findings(findings: List[Finding]) -> str:
+def format_findings(findings: List[Finding], verbose: bool = True) -> str:
     """Every finding on its own line (each cell's values and its band
-    status), then the verdict."""
+    status), then the verdict; ``verbose=False`` leaves out the in-band
+    (ok) lines, as the JAX package's default does."""
     lines: List[str] = []
     for f in findings:
+        if f.status == "ok" and not verbose:
+            continue
         if f.fresh is not None and f.allowed is not None:
             lines.append(
                 f"{f.status.upper():<12} {f.cell:<22} {f.metric:<14} "

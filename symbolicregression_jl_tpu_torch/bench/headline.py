@@ -10,7 +10,7 @@ primary live metric, "full dataset evaluations per second"
 cos(2.13 x1) + 0.5 x2 |x3|^0.9 - 0.3 |x4|^1.5 + noise) at 10,000 rows
 from seed 0, 512 islands x 256 members, tournament 16, 100 cycles an
 iteration, the constant optimizer on (the default). One warm-up
-iteration, then three measured ones through ``Engine.run_iteration``;
+iteration, then three measured ones (``--iterations``) through ``Engine.run_iteration``;
 ``torch.cuda.synchronize()`` closes the timed window.
 
 Prints ONE JSON line: ``metric``, ``value`` (evaluations per second,
@@ -95,6 +95,8 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> dict:
                     help="screening sample fraction (staged mode)")
     ap.add_argument("--rescore-fraction", type=float, default=0.25,
                     help="full-eval rescore fraction (staged mode)")
+    ap.add_argument("--iterations", type=int, default=MEASURE_ITERS,
+                    help="measured iterations after the warm-up")
     args = ap.parse_args(argv)
 
     dev = resolve_device(device)
@@ -125,7 +127,7 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> dict:
     sync()
     evals_before = float(state.num_evals)
     t0 = time.perf_counter()
-    for _ in range(MEASURE_ITERS):
+    for _ in range(args.iterations):
         state = engine.run_iteration(state, data, options.maxsize)
     sync()
     elapsed = time.perf_counter() - t0
@@ -141,7 +143,7 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> dict:
         "n_devices": 1,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "card": card() if dev.type == "cuda" else None,
-        "seconds_per_iteration": elapsed / MEASURE_ITERS,
+        "seconds_per_iteration": elapsed / args.iterations,
         "populations": options.populations,
         "population_size": options.population_size,
         "ncycles_per_iteration": options.ncycles_per_iteration,

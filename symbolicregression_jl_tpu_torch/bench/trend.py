@@ -32,7 +32,7 @@ import os
 import re
 from typing import Any, Dict, List, Optional, Sequence
 
-__all__ = ["build_trend", "format_trend", "trend_files"]
+__all__ = ["build_trend", "format_trend", "trend_files", "root_files"]
 
 _ROUND_RE = re.compile(r"_r(\d+)\.json$")
 
@@ -163,11 +163,30 @@ def _gate_row(path: str, rec: Dict[str, Any]) -> Dict[str, Any]:
     return row
 
 
-def build_trend(paths: Sequence[str]) -> Dict[str, Any]:
-    """Machine-readable trajectory of the given files and directories:
-    headline rows (red ones flagged with their rc), gate rows, multi-chip
-    dryrun rows and mesh-scaling rows."""
+def root_files(root: str = ".", gate_paths: Optional[Sequence[str]] = None) -> List[str]:
+    """The files a trend of ``root`` reads, as the JAX package's
+    ``build_trend(root, gate_paths)`` finds them: ``gate_paths``,
+    ``root/benchmarks/history/*.json`` and
+    ``root/profiling/MESH_SCALING*.json``. The root's ``BENCH_r*.json`` and
+    ``MULTICHIP_r*.json`` are the JAX package's TPU record and stay out."""
+    found = list(gate_paths or [])
+    found += sorted(glob.glob(os.path.join(root, "benchmarks", "history", "*.json")))
+    found += sorted(glob.glob(os.path.join(root, "profiling", "MESH_SCALING*.json")))
+    return found
+
+
+def build_trend(root=".", gate_paths: Optional[Sequence[str]] = None,
+                paths: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    """Machine-readable trajectory: headline rows (red ones flagged with
+    their rc), gate rows, multi-chip dryrun rows and mesh-scaling rows.
+    The files are ``paths`` (files, or directories whose ``*.json`` are
+    read), or a sequence given as the first argument, or else those of
+    ``root`` and ``gate_paths`` (:func:`root_files`)."""
     from .gate import RESULT_SCHEMA
+
+    if paths is None:
+        paths = (list(root) if not isinstance(root, (str, os.PathLike))
+                 else root_files(os.fspath(root), gate_paths))
 
     bench: List[Dict[str, Any]] = []
     gates: List[Dict[str, Any]] = []

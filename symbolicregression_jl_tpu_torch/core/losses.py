@@ -166,13 +166,18 @@ def aggregate_loss(
     target: torch.Tensor,    # [n]
     valid: torch.Tensor,     # bool [...]
     weights: Optional[torch.Tensor] = None,  # [n]
+    row_mask: Optional[torch.Tensor] = None,  # bool [n] (padded or batched rows)
 ):
     """Mean (or weighted-mean) loss with invalid -> inf and NaN -> inf.
+    ``row_mask`` keeps only the masked rows (a weight of 0 elsewhere).
     Under an active data-row shard (parallel/collectives.row_shard) the
     rows are this rank's block: the row partials and validity are
     reduced over every block, in block order."""
     from ..parallel.collectives import active_row_shard
 
+    if row_mask is not None:
+        w = torch.ones_like(target) if weights is None else weights
+        weights = w * row_mask.to(w.dtype)
     shard = active_row_shard()
     if shard is not None:
         return _aggregate_sharded(elementwise(pred, target), valid, weights, shard)
@@ -203,10 +208,15 @@ def _aggregate_sharded(vals, valid, weights, shard):
     return torch.where(torch.isnan(loss), math.inf, loss)
 
 
-def baseline_normalization(baseline_loss: torch.Tensor, use_baseline: torch.Tensor):
+def baseline_normalization(baseline_loss: torch.Tensor, use_baseline: torch.Tensor,
+                           dtype: Optional[torch.dtype] = None):
     """max(baseline, 0.01) with the 0.01 floor when the baseline is
-    unusable. Shared by `loss_to_cost` and the kernel's cost epilogue
+    unusable, in ``dtype`` (default the baseline's). Shared by
+    `loss_to_cost` and the kernel's cost epilogue
     (ops.fused_eval.fused_cost_program) so the two paths cannot drift."""
+    baseline_loss = torch.as_tensor(baseline_loss)
+    if dtype is not None:
+        baseline_loss = baseline_loss.to(dtype)
     floor = torch.full_like(baseline_loss, 0.01)
     return torch.where(use_baseline & (baseline_loss >= 0.01), baseline_loss, floor)
 

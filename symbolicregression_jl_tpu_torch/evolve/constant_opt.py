@@ -114,7 +114,7 @@ def _best_restart(x, fx, baseline, calls, do_opt):
 
 
 def _lbfgs_restarts(starts, do_opt, vg, line_losses, cfg: OptimizerConfig, active=None,
-                    descent_guard: bool = False):
+                    descent_guard: bool = False, diag: Optional[list] = None):
     """L-BFGS from every restart's start point, with all C step sizes of
     the Armijo line search evaluated in one batch; then each member's best
     restart (:func:`_best_restart` against restart 0's first loss).
@@ -126,7 +126,8 @@ def _lbfgs_restarts(starts, do_opt, vg, line_losses, cfg: OptimizerConfig, activ
     freezes a row once its line search fails and is passed on to both
     (None at the first gradient, and throughout without early exit).
     ``descent_guard`` also rejects a step that the accepted point's loss
-    calls uphill."""
+    calls uphill. ``diag``, a list, gets each iteration's count of live
+    rows."""
     P, R, D = starts.shape
     M = P * R
     C = cfg.max_linesearch
@@ -145,6 +146,9 @@ def _lbfgs_restarts(starts, do_opt, vg, line_losses, cfg: OptimizerConfig, activ
     rho = torch.zeros((hlen, M), dtype=x.dtype, device=dev)
 
     for _ in range(cfg.iterations):
+        if diag is not None:
+            diag.append(torch.tensor(M, dtype=torch.int32, device=dev) if active is None
+                        else active.sum(dtype=torch.int32))
         d = _lbfgs_direction(g, S, Y, rho)
         dg = torch.sum(d * g, dim=1)
         use_sd = (dg >= 0) | ~torch.all(torch.isfinite(d), dim=1)
@@ -187,11 +191,16 @@ def _lbfgs_restarts(starts, do_opt, vg, line_losses, cfg: OptimizerConfig, activ
 
 
 def optimize_constants_fused(key, trees: TreeBatch, do_opt: torch.Tensor, data,
-                             elementwise_loss, operators, cfg: OptimizerConfig):
+                             elementwise_loss, operators, cfg: OptimizerConfig,
+                             batch_idx: Optional[torch.Tensor] = None, return_diag: bool = False):
     """L-BFGS with a batched line search through kernels #2 and #3.
 
     ``trees`` [P, L], ``do_opt`` [P] bool. Returns (new_const [P, L],
-    improved [P], new_loss [P], f_calls [P])."""
+    improved [P], new_loss [P], f_calls [P]), then with ``return_diag``
+    the live rows of each iteration [iterations] int32. ``batch_idx``
+    [B] optimizes on those rows of ``data`` (``DeviceData.take_rows``)."""
+    if batch_idx is not None:
+        data = data.take_rows(batch_idx)
     P, L = trees.arity.shape
     R = cfg.nrestarts + 1
     C = cfg.max_linesearch
@@ -233,16 +242,22 @@ def optimize_constants_fused(key, trees: TreeBatch, do_opt: torch.Tensor, data,
         return loss.reshape(M, C)
 
     active = (do_opt & (prog.nconst > 0)).repeat_interleave(R) if cfg.early_exit else None
+    diag = [] if return_diag else None
     x_best, improved, new_loss, f_calls = _lbfgs_restarts(
-        starts, do_opt, vg, fused_many, cfg, active=active, descent_guard=True)
+        starts, do_opt, vg, fused_many, cfg, active=active, descent_guard=True, diag=diag)
     scattered = _scatter_drop(trees.const, prog.cslot, x_best, accumulate=False)
     new_const = torch.where(improved[:, None], scattered, trees.const)
-    return new_const, improved, new_loss, f_calls
+    out = (new_const, improved, new_loss, f_calls)
+    if return_diag:
+        return out + (torch.stack(diag) if diag else
+                      torch.zeros(0, dtype=torch.int32, device=dev),)
+    return out
 
 
 def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
                              elementwise_loss, operators, cfg: OptimizerConfig,
-                             params: Optional[torch.Tensor] = None, loss_function=None):
+                             params: Optional[torch.Tensor] = None, loss_function=None,
+                             batch_idx: Optional[torch.Tensor] = None):
     """Dense BFGS with a backtracking Armijo line search on the eager
     interpreter, per member and restart.
 
@@ -258,7 +273,10 @@ def optimize_constants_batch(key, trees: TreeBatch, do_opt: torch.Tensor, data,
 
     ``loss_function`` is the custom whole-prediction loss, when the
     search has one (core/losses.loss_from_pred); ``torch.autograd``
-    differentiates through it."""
+    differentiates through it.
+    ``batch_idx`` [B] optimizes on those rows of ``data``."""
+    if batch_idx is not None:
+        data = data.take_rows(batch_idx)
     lead = trees.batch_shape
     L = trees.max_nodes
     keys = rng.split(key, lead[-1]).reshape(-1, 2)
@@ -386,7 +404,7 @@ D_CHUNK_BYTES = 1 << 30
 def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, data,
                                 elementwise_loss, operators, cfg: OptimizerConfig, template,
                                 fused: bool = False, params: Optional[torch.Tensor] = None,
-                                loss_function=None):
+                                loss_function=None, batch_idx: Optional[torch.Tensor] = None):
     """Joint L-BFGS over every subexpression's constants of template
     members and their parameter vectors, one flat vector of K * L + T
     values per member (T = the template's total parameters).
@@ -412,7 +430,10 @@ def optimize_constants_template(key, trees: TreeBatch, do_opt: torch.Tensor, dat
     members' parameter vectors. Returns (new_const, improved, new_loss,
     f_calls) with the leading dims of ``trees``, and new_params last when
     ``params`` is given. ``loss_function`` is the custom whole-prediction
-    loss, as in :func:`optimize_constants_batch`."""
+    loss, as in :func:`optimize_constants_batch`.
+    ``batch_idx`` [B] optimizes on those rows of ``data``."""
+    if batch_idx is not None:
+        data = data.take_rows(batch_idx)
     from ..models.template import eval_template_batch
 
     # D call sites: the gradient pass on the eager interpreter (second

@@ -147,12 +147,21 @@ class Engine:
     """Search engine for one (options, dataset width) pair on one device,
     or for this rank's islands of a mesh (``plan``; module docstring).
     ``n_params``/``n_classes`` size parametric members' banks; templates
-    set them from their parameter vectors."""
+    set them from their parameter vectors. ``template`` is the
+    ``TemplateStructure`` (default: the options' template spec's).
+    Without a ``plan``, ``n_island_shards``/``n_data_shards`` > 1 or a
+    ``mesh`` (``parallel.make_mesh``'s grid of ranks) build one, as the
+    JAX engine takes its mesh."""
 
     def __init__(self, options: Options, nfeatures: int,
                  device: Optional[Union[str, torch.device]] = None,
                  window_size: int = 100_000, n_params: int = 0, n_classes: int = 0,
-                 dtype: Optional[torch.dtype] = None, plan=None):
+                 dtype: Optional[torch.dtype] = None, plan=None, template=None,
+                 n_data_shards: int = 1, n_island_shards: int = 1, mesh=None):
+        if plan is None:
+            from ..mesh.plan import MeshPlan
+
+            plan = MeshPlan.for_layout(n_island_shards, n_data_shards, mesh)
         self.device = resolve_device(device)
         check_supported(options, self.device)
         self.options = options
@@ -164,7 +173,7 @@ class Engine:
         data_dtype = dtype if dtype is not None else float_dtype(options.eval_dtype)
         bf16_data = data_dtype == torch.bfloat16
         self.dtype = state_dtype(data_dtype)
-        self.template = _template_of(options)
+        self.template = template if template is not None else _template_of(options)
         if self.template is not None:
             # Template parameters ride the member bank as [total_params, 1].
             n_params = self.template.total_params
@@ -173,26 +182,30 @@ class Engine:
                                                             n_params=n_params,
                                                             n_classes=n_classes,
                                                             template=self.template,
-                                                            dtype=self.dtype)
+                                                            dtype=self.dtype,
+                                                            n_data_shards=(
+                                                                1 if plan is None
+                                                                else plan.n_data_shards))
         self.tables: ComplexityTables = build_complexity_tables(options, nfeatures, self.device)
         if bf16_data:
             # bf16 data: every evaluation on the bf16 value buffer with a
             # bf16 loss spine (kernels 1b and 2b's bf16-data forms), the
             # gradient on kernel #3 in float32, as in the JAX package.
             self.cfg = self.cfg._replace(eval_bf16="data")
-        if plan is not None and plan.n_data_shards > 1:
-            # Data-row shards keep the kernels: each launch sums this rank's
-            # rows and the wrappers add every shard's sums before the mean.
-            # The cost epilogue needs the whole loss, so the cost follows on
-            # the host (the JAX package turns turbo off here, a TPU
-            # workaround: evolve/step.py:201-207).
-            self.cfg = self.cfg._replace(fuse_cost=False)
         self.opt_cfg = OptimizerConfig(
             iterations=options.optimizer_iterations, nrestarts=options.optimizer_nrestarts,
             ls_bf16=("data" if bf16_data and self.cfg.turbo else
                      (options.optimizer_bf16_linesearch and self.cfg.turbo
                       and self.device.type == "cuda")))
         self.window_size = float(window_size)
+
+    @property
+    def n_params(self) -> int:
+        return self.cfg.n_params
+
+    @property
+    def n_classes(self) -> int:
+        return self.cfg.n_classes
 
     def degrade_eval_tile_rows(self, floor: int = 512) -> Optional[int]:
         """graftshield's degradation step (shield/degrade.py): halve
@@ -342,10 +355,21 @@ class Engine:
         return k_sel, scores, gate, ko2
 
     # ------------------------------------------------------------------
-    def init_state(self, key: torch.Tensor, data: DeviceData, n_islands: int) -> SearchDeviceState:
+    @staticmethod
+    def state_key(key: torch.Tensor) -> torch.Tensor:
+        """The key ``init_state(key, ...)`` leaves in the state."""
+        return rng.split(key, 3)[2]
+
+    def init_state(self, key: torch.Tensor, data: DeviceData, n_islands: int,
+                   initial_trees: Optional[TreeBatch] = None,
+                   initial_params: Optional[torch.Tensor] = None) -> SearchDeviceState:
         """Random populations, scored. ``key`` [2] threefry key words.
         ``n_islands`` is the global count; under a plan the state holds
-        this rank's islands, drawn as the unsharded run draws them."""
+        this rank's islands, drawn as the unsharded run draws them.
+        ``initial_trees`` ([n_islands, P, L], or [n_islands, P, K, L] for
+        templates) and ``initial_params`` ([n_islands, P, NP, NC]) take the
+        place of the random trees and banks, as in the JAX engine; under a
+        plan they are the whole mesh's, and this rank keeps its islands."""
         cfg = self.cfg
         P = cfg.population_size
         dev = self.device
@@ -353,13 +377,19 @@ class Engine:
         k_init, k_params, k_state = rng.split(key, 3)
         lo, hi = self._islands(n_islands)
         n_loc = hi - lo
-        if cfg.template is not None:
+        if initial_trees is not None:
+            trees = initial_trees.map(lambda t: t.to(dev)[lo:hi])
+            trees = dataclasses.replace(trees, const=trees.const.to(self.dtype))
+        elif cfg.template is not None:
             trees = init_template_population(rng.split(k_init, n_islands)[lo:hi], P,
                                              cfg.template, cfg.mctx)
         else:
             trees = init_population(rng.split(k_init, n_islands)[lo:hi], P, cfg.mctx)
-        params = init_params(k_params, (n_islands, P), cfg.n_params, cfg.n_classes,
-                             self.dtype)[lo:hi]
+        if initial_params is not None:
+            params = initial_params.to(device=dev, dtype=self.dtype)[lo:hi]
+        else:
+            params = init_params(k_params, (n_islands, P), cfg.n_params, cfg.n_classes,
+                                 self.dtype)[lo:hi]
         cost, loss, cx = self._eval(_flat_trees(trees), _flat(params), data,
                                     fuse_cost=cfg.fuse_cost)
         arange = torch.arange(P, dtype=torch.int32, device=dev)

@@ -14,7 +14,7 @@ package, so the same uniforms give the same trees.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -28,7 +28,7 @@ __all__ = [
     "MutationContext", "branch_nu", "gen_tree_nu", "mutate_constant", "mutate_operator",
     "mutate_feature", "swap_operands", "rotate_tree", "add_node", "insert_random_op",
     "delete_node", "randomize_tree", "crossover_trees", "gen_random_tree", "mutate_parameter_row",
-    "gen_random_tree_fixed_size_u",
+    "gen_random_tree_fixed_size_u", "gen_random_tree_fixed_size",
 ]
 
 
@@ -548,9 +548,43 @@ def _single_leaf(u4, ctx: MutationContext):
                      torch.ones(N, dtype=torch.int32, device=dev))
 
 
-def gen_random_tree(keys: torch.Tensor, nlength: int, ctx: MutationContext) -> TreeBatch:
-    """One random tree per key (keys [N, 2]) from ``nlength`` weighted
-    operator draws; sizes land in [nlength + 1, 2 nlength + 1]."""
+def _keyed(key: torch.Tensor, trees_of_flat_keys):
+    """Run a generator of [N, 2] keys on one key [2] or a batch [..., 2]."""
+    tree = trees_of_flat_keys(key.reshape(-1, 2))
+    return tree[0] if key.dim() == 1 else tree.reshape(*key.shape[:-1])
+
+
+def gen_random_tree_fixed_size(key: torch.Tensor, node_count, ctx: MutationContext,
+                               dtype: Optional[torch.dtype] = None, n_steps=None) -> TreeBatch:
+    """Random trees of about ``node_count`` nodes, one per key (one key
+    [2] or a batch [..., 2]; ``node_count`` an int or a tensor of the
+    batch's shape), from ``uniform(key, (gen_tree_nu(ctx),))`` as the JAX
+    package draws them. ``dtype`` sets the constants' type (default
+    ``ctx.dtype``); ``n_steps`` is ignored, as there."""
+    del n_steps
+    if dtype is not None:
+        ctx = ctx._replace(dtype=dtype)
+
+    def gen(keys):
+        u = rng.uniform(keys, (gen_tree_nu(ctx),), dtype=ctx.dtype)
+        count = torch.as_tensor(node_count, device=u.device).to(torch.int32)
+        return gen_random_tree_fixed_size_u(u, count.reshape(-1).expand(keys.shape[0]), ctx)
+
+    return _keyed(key, gen)
+
+
+def gen_random_tree(key: torch.Tensor, nlength: int, ctx: MutationContext,
+                    dtype: Optional[torch.dtype] = None) -> TreeBatch:
+    """One random tree per key (one key [2] or a batch [..., 2]) from
+    ``nlength`` weighted operator draws; sizes land in [nlength + 1,
+    2 nlength + 1]. ``dtype`` sets the constants' type (default
+    ``ctx.dtype``)."""
+    if dtype is not None:
+        ctx = ctx._replace(dtype=dtype)
+    return _keyed(key, lambda keys: _gen_random_tree(keys, nlength, ctx))
+
+
+def _gen_random_tree(keys: torch.Tensor, nlength: int, ctx: MutationContext) -> TreeBatch:
     L = ctx.max_nodes
     u = rng.uniform(keys, (8 * L,), dtype=ctx.dtype)
     s = USlice(u)

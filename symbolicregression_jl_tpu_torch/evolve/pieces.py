@@ -14,7 +14,15 @@ import torch
 
 from ..ops.encoding import TreeBatch, lane_take
 
-__all__ = ["concat_pieces", "combine_sources", "splice_span"]
+__all__ = ["concat_pieces", "combine_sources", "splice_span", "tree_fields", "make_tree"]
+
+
+def tree_fields(t: TreeBatch):
+    return (t.arity, t.op, t.feat, t.const)
+
+
+def make_tree(arity, op, feat, const, length) -> TreeBatch:
+    return TreeBatch(arity=arity, op=op, feat=feat, const=const, length=length)
 
 
 def combine_sources(*trees: TreeBatch):

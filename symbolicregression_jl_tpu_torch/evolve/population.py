@@ -11,6 +11,7 @@ templates with parameters, and zero-sized (NP = NC = 0) otherwise.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -41,6 +42,23 @@ class PopulationState:
     def n_params(self) -> int:
         return self.params.shape[-2]
 
+    def member(self, idx) -> "PopulationState":
+        """The members ``idx`` (an int or an index tensor) along the member
+        axis, which is located from the cost's shape: template trees carry
+        a subexpression axis ([..., P, K, L], lengths [..., P, K])."""
+        extra = self.trees.arity.dim() - self.cost.dim() - 1   # 0, or 1 (template)
+        idx = torch.as_tensor(idx, device=self.cost.device)
+        take = lambda x, axis: torch.index_select(x, x.dim() + axis, idx.reshape(-1)).reshape(
+            x.shape[:x.dim() + axis] + idx.shape + x.shape[x.dim() + axis + 1:])
+        t = self.trees
+        return PopulationState(
+            trees=TreeBatch(*(take(f, -(2 + extra)) for f in (t.arity, t.op, t.feat, t.const)),
+                            take(t.length, -(1 + extra))),
+            cost=take(self.cost, -1), loss=take(self.loss, -1),
+            complexity=take(self.complexity, -1), birth=take(self.birth, -1),
+            ref=take(self.ref, -1), parent=take(self.parent, -1),
+            params=take(self.params, -3))
+
 
 def zero_params(batch_shape, n_params: int, n_classes: int, device,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -57,24 +75,24 @@ def init_params(key: torch.Tensor, batch_shape, n_params: int, n_classes: int,
     return rng.normal(key, (*batch_shape, n_params, n_classes), dtype)
 
 
-def init_population(keys: torch.Tensor, population_size: int, ctx: MutationContext,
-                    nlength: int = 3) -> TreeBatch:
+def init_population(key: torch.Tensor, population_size: int, ctx: MutationContext,
+                    dtype: Optional[torch.dtype] = None, nlength: int = 3) -> TreeBatch:
     """Random trees via `gen_random_tree(nlength=3)`, one population per
-    key: keys [..., 2] -> trees [..., P, L]. Costs are filled by the
-    caller's eval pass."""
-    member_keys = rng.split(keys, population_size)            # [..., P, 2]
-    flat = member_keys.reshape(-1, 2)
-    trees = gen_random_tree(flat, nlength, ctx)
-    return trees.reshape(*member_keys.shape[:-1])
+    key: key [..., 2] -> trees [..., P, L]. ``dtype`` sets the constants'
+    type (default ``ctx.dtype``). Costs are filled by the caller's eval
+    pass."""
+    member_keys = rng.split(key, population_size)             # [..., P, 2]
+    return gen_random_tree(member_keys, nlength, ctx, dtype)
 
 
-def init_template_population(keys: torch.Tensor, population_size: int, template,
-                             ctx: MutationContext, nlength: int = 3) -> TreeBatch:
+def init_template_population(key: torch.Tensor, population_size: int, template,
+                             ctx: MutationContext, dtype: Optional[torch.dtype] = None,
+                             nlength: int = 3) -> TreeBatch:
     """Random template members [..., P, K, L], one population per key:
     subexpression k is generated with its own argument count from
     ``fold_in(key, k)``, as the JAX package draws it."""
-    subs = [init_population(rng.fold_in(keys, k), population_size,
-                            ctx._replace(nfeatures=nf), nlength)
+    subs = [init_population(rng.fold_in(key, k), population_size,
+                            ctx._replace(nfeatures=nf), dtype, nlength)
             for k, nf in enumerate(template.num_features)]
     slot = lambda name: torch.stack([getattr(t, name) for t in subs], dim=-2)
     return TreeBatch(slot("arity"), slot("op"), slot("feat"), slot("const"),

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 __all__ = ["key", "split", "fold_in", "random_bits", "uniform", "randint", "bernoulli",
-           "gumbel", "categorical", "permutation", "normal", "USlice", "u_randint",
+           "gumbel", "categorical", "permutation", "normal", "randint_dyn", "masked_choice",
+           "categorical_from_weights", "USlice", "u_randint",
            "u_masked_choice", "u_bernoulli", "u_normal", "u_categorical_weights"]
 
 _ROT0 = (13, 15, 26, 6)
@@ -205,6 +206,31 @@ def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
         order = torch.argsort(sort_keys, dim=-1, stable=True)
         x = torch.gather(x, -1, order)
     return x
+
+
+def randint_dyn(key: torch.Tensor, n, shape=()) -> torch.Tensor:
+    """Uniform integer in [0, n) with an upper bound known only at run
+    time (an int or int tensor, n >= 1): ``min(int(u * n), n - 1)`` of a
+    float32 uniform, as the JAX package draws it."""
+    u = uniform(key, tuple(shape))
+    n = torch.as_tensor(n, device=u.device)
+    return torch.minimum((u * n).to(torch.int32), (n - 1).to(torch.int32))
+
+
+def masked_choice(key: torch.Tensor, mask: torch.Tensor):
+    """Uniform choice among the True entries of ``mask`` (last axis):
+    (index, has_any); index 0 and has_any False when none is True (the
+    caller treats the pick as a failed attempt)."""
+    logits = torch.where(mask, 0.0, -torch.inf)
+    has_any = mask.any(dim=-1)
+    return torch.where(has_any, categorical(key, logits), 0).to(torch.int32), has_any
+
+
+def categorical_from_weights(key: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """An index drawn in proportion to the non-negative ``weights`` (last axis)."""
+    w = weights.to(torch.float32) if weights.dtype != torch.float64 else weights
+    logits = torch.where(w > 0, torch.log(torch.clamp(w, min=1e-30)), -torch.inf)
+    return categorical(key, logits)
 
 
 # ---------------------------------------------------------------------------

@@ -178,13 +178,22 @@ class EvolveConfig(NamedTuple):
 
 def evolve_config_from_options(options: Options, nfeatures: int, device: torch.device,
                                n_params: int = 0, n_classes: int = 0,
-                               template=None, dtype: torch.dtype = torch.float32) -> EvolveConfig:
+                               template=None, dtype: torch.dtype = torch.float32,
+                               n_data_shards: int = 1, n_island_shards: int = 1) -> EvolveConfig:
     """``turbo`` defaults to on for a CUDA device and off on the CPU, and
     is off with a custom whole-prediction loss (the JAX package's eager
     path for it); ``core.options.check_supported`` has refused, up front,
     what turbo cannot run. A user elementwise callable runs with turbo on
     the user-loss route (``ops/fused_eval.py``: kernel #4's predictions and
-    the callable), so it has no cost epilogue: kernel #1 never sees it."""
+    the callable), so it has no cost epilogue: kernel #1 never sees it.
+
+    Data-row shards (``n_data_shards > 1``) keep the kernels: each launch
+    sums this rank's rows and the wrappers add every shard's sums before
+    the mean; the cost epilogue needs the whole loss, so the cost follows
+    on the host (the JAX package turns turbo off there, a TPU workaround:
+    its evolve/step.py:201-207). ``n_island_shards`` changes nothing here:
+    each rank launches the kernels on its own islands."""
+    del n_island_shards
     turbo = turbo_requested(options, device) and options.resolved_loss_function is None
     turbo = turbo and supports_fused_eval(options.operators)
     return EvolveConfig(
@@ -210,7 +219,7 @@ def evolve_config_from_options(options: Options, nfeatures: int, device: torch.d
         probability_negate_constant=options.probability_negate_constant,
         ncycles=options.ncycles_per_iteration,
         turbo=turbo,
-        fuse_cost=(turbo and options.fuse_cost_epilogue is not False
+        fuse_cost=(turbo and options.fuse_cost_epilogue is not False and n_data_shards == 1
                    and kernel_loss(options.elementwise_loss) is not None),
         n_params=n_params,
         n_classes=n_classes,
@@ -242,7 +251,8 @@ def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: Complexity
                     operators: OperatorSet, parsimony: float, *, member_params=None,
                     turbo: bool = False, fuse_cost: bool = False, dedup: bool = False,
                     template=None, bf16: Union[bool, str] = False, loss_function=None,
-                    dim_penalty: float = 1000.0, wildcard_constants: bool = True):
+                    dim_penalty: float = 1000.0, wildcard_constants: bool = True,
+                    batch_idx=None):
     """(cost, loss, complexity) per tree, any batch shape, on the rows of
     ``data``: the dataset, or a row subset of it such as graftstage's
     screening sample (``DeviceData.strided_sample``, whose baseline
@@ -292,7 +302,10 @@ def eval_cost_batch(trees: TreeBatch, data, elementwise_loss, tables: Complexity
     the JAX package.
 
     Under a data-row shard (``data.row_shard``) the rows are this rank's
-    part of them, and every loss reduces over every shard's part."""
+    part of them, and every loss reduces over every shard's part.
+    ``batch_idx`` [B] scores on those rows of ``data`` (``take_rows``)."""
+    if batch_idx is not None:
+        data = data.take_rows(batch_idx)
     with row_shard(getattr(data, "row_shard", None)):
         return _eval_cost_batch(trees, data, elementwise_loss, tables, operators, parsimony,
                                 member_params, turbo, fuse_cost, dedup, template, bf16,
@@ -630,14 +643,20 @@ def _scatter_rows(dst: torch.Tensor, target: torch.Tensor, src: torch.Tensor) ->
 
 def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_maxsize,
                     birth0, ref0, cfg: EvolveConfig, options: Options,
-                    tables: ComplexityTables, elementwise_loss, marks):
+                    tables: ComplexityTables, elementwise_loss, marks, batch_idx=None,
+                    return_candidates: bool = False):
     """One generation step of every island.
 
     ``key`` [I, 2]; ``pop`` fields [I, P, ...]; ``birth0``/``ref0`` [I];
     ``marks`` = (simplify_mark, optimize_mark), bool [I, P]. Returns
     (new_pop, num_evals [I], birth0 + 2B, ref0 + 2B, new_marks), then the
     step's `CycleTelemetry` [I] with ``cfg.collect_telemetry`` and its
-    `CycleEvents` with ``cfg.record_events``."""
+    `CycleEvents` with ``cfg.record_events``, then with
+    ``return_candidates`` the evaluated candidates, a TreeBatch [I, N, ...]
+    (N = B + crossovers kept, B, or 2B, in evaluation order). ``batch_idx``
+    [B] scores on those rows of ``data`` (``DeviceData.take_rows``)."""
+    if batch_idx is not None:
+        data = data.take_rows(batch_idx)
     B = cfg.n_slots
     A = cfg.attempts
     P = cfg.population_size
@@ -827,6 +846,7 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
             slot_bad2 = slot_bad2 | ~torch.isfinite(cand2_params).reshape(I, B, -1).all(-1)
             packed_params = torch.cat([cand1_params, _take_floats(cand2_params, sel2)], dim=1)
         n_eval_rows = B + k2
+        eval_batch = packed
         c_all, l_all, x_all = _eval(packed, packed_params)
 
         def unpack(v, default):
@@ -844,6 +864,7 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
         needs_eval2 = needs_eval2 & ~overflow
     elif k2 == 0:
         n_eval_rows = B
+        eval_batch = cand1
         cost1, loss1, cx1 = _eval(cand1, cand1_params)
         cost = torch.stack([cost1, inf.expand(I, B)], dim=-1)
         loss = torch.stack([loss1, inf.expand(I, B)], dim=-1)
@@ -852,6 +873,7 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
         both = TreeBatch(*(torch.stack([a, b], dim=2)
                            for a, b in zip(cand1.fields(), cand2.fields())))
         n_eval_rows = 2 * B
+        eval_batch = TreeBatch(*(f.reshape((I, 2 * B) + f.shape[3:]) for f in both.fields()))
         cost, loss, complexity = _eval(both, torch.stack([cand1_params, cand2_params], dim=2)
                                        if has_p else cand1_params)
     needs_eval = torch.stack([needs_eval1, needs_eval2], dim=-1)
@@ -989,6 +1011,8 @@ def generation_step(key, pop: PopulationState, data, stats_nf, temperature, cur_
             accepted=survives,
             cost_delta=baby_cost - parent_cost2,
             reject_reason=i32(flat(reason1, reason2))),)
+    if return_candidates:
+        out = out + (eval_batch,)
     return out
 
 
@@ -1024,11 +1048,16 @@ def empty_hof(batch_shape, maxsize: int, max_nodes: int, device,
     )
 
 
-def update_hof(hof: HofState, trees: TreeBatch, cost, loss, complexity,
-               maxsize: int, params=None) -> HofState:
+def update_hof(hof: HofState, trees=None, cost=None, loss=None, complexity=None,
+               maxsize: int = None, params=None, pop: PopulationState = None) -> HofState:
     """Per-complexity best update over the member axis (last axis of
     ``cost``); leading axes batch independent halls of fame. ``params``
-    are the members' banks (needed when the hall of fame has any)."""
+    are the members' banks (needed when the hall of fame has any).
+    ``pop`` gives all of them at once, as the JAX package's ``update_hof``
+    takes them."""
+    if pop is not None:
+        trees, cost, loss, complexity, params = (pop.trees, pop.cost, pop.loss,
+                                                 pop.complexity, pop.params)
     sizes = torch.arange(1, maxsize + 1, device=cost.device)[:, None]
     m = complexity[..., None, :] == sizes                       # [..., maxsize, P]
     cost_m = torch.where(m, cost[..., None, :], math.inf)
@@ -1056,7 +1085,8 @@ def update_hof(hof: HofState, trees: TreeBatch, cost, loss, complexity,
 
 def s_r_cycle(key, pop: PopulationState, data, stats_nf, cur_maxsize, birth0, ref0,
               cfg: EvolveConfig, options: Options, tables: ComplexityTables,
-              elementwise_loss, c0: int = 0, total_cycles=None, carry_in=None):
+              elementwise_loss, c0: int = 0, total_cycles=None, carry_in=None,
+              batch_idx=None):
     """``cfg.ncycles`` generation steps of every island over the annealing
     ramp. ``key`` [I, 2]. Returns (pop, best_seen [I, maxsize], num_evals
     [I], birth0, ref0, marks), then the summed `CycleTelemetry` [I] with
@@ -1067,7 +1097,10 @@ def s_r_cycle(key, pop: PopulationState, data, stats_nf, cur_maxsize, birth0, re
     cycle, ``total_cycles`` the iteration's cycle count (the annealing
     ramp and the per-cycle key fold-in use global indices, so chunked and
     single-chunk iterations are bit-identical), and ``carry_in`` =
-    (best_seen, num_evals, marks[, telemetry]) from the earlier chunks."""
+    (best_seen, num_evals, marks[, telemetry]) from the earlier chunks.
+    ``batch_idx`` [B] runs the cycles on those rows of ``data``."""
+    if batch_idx is not None:
+        data = data.take_rows(batch_idx)
     I, P = pop.cost.shape
     dev = pop.cost.device
     total = total_cycles if total_cycles is not None else cfg.ncycles

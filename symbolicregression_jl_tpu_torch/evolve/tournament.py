@@ -15,16 +15,16 @@ from . import rng
 __all__ = ["tournament_select"]
 
 
-def tournament_select(keys: torch.Tensor, cost: torch.Tensor, complexity: torch.Tensor,
+def tournament_select(key: torch.Tensor, cost: torch.Tensor, complexity: torch.Tensor,
                       normalized_frequencies: torch.Tensor, *, tournament_n: int, p: float,
                       use_frequency: bool, adaptive_parsimony_scaling: float,
                       maxsize: int) -> torch.Tensor:
     """Selected member index per tournament.
 
-    ``keys`` [..., 2]; ``cost``/``complexity`` [..., P] (the population
+    ``key`` [..., 2] (a batch of keys); ``cost``/``complexity`` [..., P] (the population
     each tournament draws from, broadcast against the key batch)."""
     P = cost.shape[-1]
-    ks = rng.split(keys, 2)
+    ks = rng.split(key, 2)
     k1, k2 = ks[..., 0, :], ks[..., 1, :]
     picks = rng.permutation(k1, P)[..., :tournament_n]
     c = torch.gather(cost.expand(*picks.shape[:-1], P), -1, picks)

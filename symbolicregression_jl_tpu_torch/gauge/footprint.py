@@ -74,13 +74,15 @@ def _tensor_bytes(obj) -> int:
     return 0
 
 
-def summarize_compiled(measured: Dict[str, Any]) -> Optional[Dict[str, Any]]:
-    """A probe's measurements as a ledger summary: the byte fields of
-    ``_MEMORY_FIELDS`` it has, ``peak_bytes`` when the allocator gave
-    one, and ``total_bytes`` over the byte fields; None when empty."""
+def summarize_compiled(compiled: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    """A probe's measurements of a built engine (the counterpart of a
+    ``jax.stages.Compiled``'s memory analysis) as a ledger summary: the
+    byte fields of ``_MEMORY_FIELDS`` it has, ``peak_bytes`` when the
+    allocator gave one, and ``total_bytes`` over the byte fields; None
+    when empty."""
     out: Dict[str, Any] = {}
     for field in _MEMORY_FIELDS + ("peak_bytes",):
-        v = measured.get(field)
+        v = compiled.get(field)
         if v is not None:
             out[field] = int(v)
     if not any(f in out for f in _MEMORY_FIELDS):

@@ -53,13 +53,14 @@ class MeshEngine(Engine):
 
     def __init__(self, options, nfeatures: int, plan: MeshPlan, device=None,
                  window_size: int = 100_000, n_params: int = 0, n_classes: int = 0,
-                 dtype=None):
+                 dtype=None, template=None):
         if plan.n_data_shards != 1:
             raise NotImplementedError(
                 "MeshEngine shards the island axis only; data-row sharded layouts stay on "
                 "the legacy GSPMD path (docs/SCALING.md)")
         super().__init__(options, nfeatures, device=device, window_size=window_size,
-                         n_params=n_params, n_classes=n_classes, dtype=dtype, plan=plan)
+                         n_params=n_params, n_classes=n_classes, dtype=dtype, plan=plan,
+                         template=template)
 
     def _use_dedup(self) -> bool:
         """Per-shard finalize dedup: the dedup's sorts run on this rank's

@@ -13,9 +13,12 @@ fame, running statistics, evaluation counter, key, telemetry) is whole
 on every rank; the dataset's rows split over the ``data`` axis when it
 has more than one shard, else every rank holds every row.
 
-The JAX plan's donation policy (``donate_state``, ``resolve_donation``)
-has no torch analogue: an iteration here builds new tensors and never
-donates its input. It is not ported.
+The specs (``island_spec``, ``state_specs``, ``data_specs``) say where
+each tensor lives, as the JAX plan's ``PartitionSpec`` pytrees do: a
+tuple naming the mesh axis each tensor axis is split over (``place_state``
+and ``place_data`` cut along them). The JAX plan's donation policy
+(``donate_state``, ``resolve_donation``) has no torch analogue: an
+iteration here builds new tensors and never donates its input.
 """
 
 from __future__ import annotations
@@ -72,22 +75,35 @@ class MeshPlan:
 
     # ------------------------------------------------------------------
     @classmethod
-    def build(cls, ranks: Optional[Sequence[int]] = None,
+    def build(cls, devices: Optional[Sequence[int]] = None,
               n_island_shards: Optional[int] = None, n_data_shards: int = 1,
               **kw) -> "MeshPlan":
-        """Build the ``(island, data)`` grid of ``ranks`` (default: the
-        whole process group) and wrap it in a plan."""
-        if ranks is None:
+        """Build the ``(island, data)`` grid of ``devices``, ranks here
+        (default: the whole process group), and wrap it in a plan."""
+        if devices is None:
             from ..parallel import multihost
 
-            ranks = list(range(multihost.process_count()))
-        ranks = list(ranks)
+            devices = list(range(multihost.process_count()))
+        ranks = list(devices)
         if n_island_shards is None:
             n_island_shards = len(ranks) // n_data_shards
         mesh = make_mesh(ranks[: n_island_shards * n_data_shards],
                          n_island_shards=n_island_shards, n_data_shards=n_data_shards)
         return cls(mesh=mesh, n_island_shards=n_island_shards,
                    n_data_shards=n_data_shards, **kw)
+
+    @classmethod
+    def for_layout(cls, n_island_shards: int = 1, n_data_shards: int = 1,
+                   mesh: Optional[RankMesh] = None) -> Optional["MeshPlan"]:
+        """The plan of an engine built, as the JAX engine is, from shard
+        counts or a mesh (``make_mesh``'s grid, whose shape wins); None for
+        one device."""
+        if mesh is not None:
+            return cls(mesh=mesh, n_island_shards=mesh.shape[ISLAND_AXIS],
+                       n_data_shards=mesh.shape[DATA_AXIS])
+        if n_island_shards > 1 or n_data_shards > 1:
+            return cls.build(n_island_shards=n_island_shards, n_data_shards=n_data_shards)
+        return None
 
     def replace(self, **kw) -> "MeshPlan":
         return dataclasses.replace(self, **kw)
@@ -125,6 +141,35 @@ class MeshPlan:
         one data shard."""
         d = self.data_index if data_index is None else data_index
         return block(n_rows, self.n_data_shards, d)
+
+    # ------------------------------------------------------------------
+    # Specs: the mesh axis each tensor axis is split over
+    # ------------------------------------------------------------------
+    def island_spec(self) -> Tuple[str, ...]:
+        """The leading axis over the island axis, the rest whole."""
+        return (ISLAND_AXIS,)
+
+    def replicated_spec(self) -> Tuple[str, ...]:
+        return ()
+
+    def state_specs(self, state):
+        """A ``SearchDeviceState``-shaped tree of specs: ``pops``, ``birth``
+        and ``ref`` over the island axis, the global fields whole."""
+        isl = lambda t: _map(t, lambda _: self.island_spec())
+        rep = lambda t: _map(t, lambda _: self.replicated_spec())
+        return dataclasses.replace(
+            rep(state), pops=isl(state.pops), birth=self.island_spec(), ref=self.island_spec())
+
+    def data_specs(self, data):
+        """A ``DeviceData``-shaped tree of specs: the row axes over the data
+        axis with more than one data shard, else every field whole."""
+        whole = _map(data, lambda _: self.replicated_spec())
+        if self.n_data_shards == 1:
+            return whole
+        row0 = (DATA_AXIS,)
+        rows = lambda t: None if t is None else row0
+        return dataclasses.replace(whole, Xt=(None, DATA_AXIS), y=rows(data.y),
+                                   weights=rows(data.weights), class_idx=rows(data.class_idx))
 
     # ------------------------------------------------------------------
     # Placement

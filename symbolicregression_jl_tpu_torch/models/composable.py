@@ -37,6 +37,10 @@ class ValidVector:
 
     x: torch.Tensor
     valid: torch.Tensor  # bool, scalar or [M]
+    # Whether the last axis of ``x`` holds the dataset's rows (what a
+    # data-row shard splits); an index that keeps fewer entries (a scalar
+    # row) gives a value that is the same on every rank.
+    rows: bool = True
 
     def __add__(self, o): return apply_operator("+", self, o)
     def __radd__(self, o): return apply_operator("+", o, self)
@@ -53,17 +57,93 @@ class ValidVector:
     def __mod__(self, o): return apply_operator("mod", self, o)
 
     def __getitem__(self, idx):
-        """Slices the data; validity unchanged. Every other operation of
-        the algebra is row-wise; this one reads rows by position, so it is
-        refused under a data-row shard, where each rank holds a block of
-        the rows (the JAX package's GSPMD slices the global array)."""
-        from ..parallel.collectives import active_row_shard
+        """``x[idx]`` with numpy's rules (a negative step included); validity
+        unchanged. What it indexes depends on the shape, as in the JAX
+        package: a dataset column [n] by rows (``x1[0]`` is row 0), a
+        subexpression's member-batched output [M, n] by members
+        (``f(x1)[0]`` is member 0's rows) unless a tuple index reaches the
+        last axis.
 
-        if active_row_shard() is not None:
-            raise NotImplementedError(
-                "ValidVector indexing (v[i]) reads rows by position and is not row-wise: it is "
-                "not available with data-row shards (RuntimeOptions(n_data_shards > 1))")
-        return ValidVector(self.x[idx], self.valid)
+        Every other operation of the algebra is row-wise; an index that
+        reaches the rows under a data-row shard (each rank holding a block
+        of them) reads every rank's rows (``gather_rows``), indexes the
+        whole array, as the JAX package's GSPMD does, and keeps this
+        rank's block where the result still has a row per dataset row,
+        else the whole result (the same on every rank). Its gradient adds
+        every rank's cotangent in rank order."""
+        from ..parallel.collectives import active_row_shard, gather_rows
+
+        x = self.x
+        reach = self.rows and _reaches_last_axis(x.dim(), idx)
+        shard = active_row_shard()
+        if reach and shard is not None:
+            full = gather_rows(x, shard, shared=False)
+            out = _np_index(full, idx)
+            rows = out.dim() >= 1 and out.shape[-1] == shard.n_rows
+            if rows:
+                out = out.index_select(-1, shard.local_positions(out.device))
+            return ValidVector(out, self.valid, rows)
+        out = _np_index(x, idx)
+        rows = self.rows and (out.dim() >= 1 and out.shape[-1] == x.shape[-1] if reach
+                              else out.dim() >= 1)
+        return ValidVector(out, self.valid, rows)
+
+
+def _consumed(i) -> int:
+    """The axes of ``x`` one item of an index consumes."""
+    if i is None or i is Ellipsis:
+        return 0
+    if isinstance(i, (torch.Tensor, np.ndarray)) and i.dtype in (torch.bool, np.bool_):
+        return max(i.ndim, 1)
+    return 1
+
+
+def _reaches_last_axis(ndim: int, idx) -> bool:
+    """Whether ``x[idx]`` indexes the last axis of an ``ndim``-axis ``x``."""
+    if ndim == 0:
+        return False
+    items = idx if isinstance(idx, tuple) else (idx,)
+    if any(i is Ellipsis for i in items):
+        after = items[[i is Ellipsis for i in items].index(True) + 1:]
+        return any(_consumed(i) for i in after)
+    return sum(_consumed(i) for i in items) >= ndim
+
+
+def _np_index(x: torch.Tensor, idx):
+    """``x[idx]`` as jax.numpy takes it where torch differs: a slice of
+    negative step (``[::-1]``; torch's slices step forward only), and an
+    integer array index, whose entries wrap once and are then clamped to
+    the axis (jax.numpy's gather clamps an index out of range)."""
+    items = idx if isinstance(idx, tuple) else (idx,)
+
+    def int_array(i):
+        if isinstance(i, (list, np.ndarray, torch.Tensor)):
+            t = torch.as_tensor(i)
+            return t if not t.dtype.is_floating_point and t.dtype != torch.bool else None
+        return None
+
+    if not any(isinstance(i, slice) and i.step is not None and i.step < 0
+               or int_array(i) is not None for i in items):
+        return x[idx]
+    items = [torch.as_tensor(i) if isinstance(i, (list, np.ndarray)) else i for i in items]
+    named = sum(_consumed(i) for i in items)
+    axis, kept = 0, []
+    for i in items:
+        if i is Ellipsis:
+            axis += x.dim() - named
+            kept.append(i)
+            continue
+        if isinstance(i, slice) and i.step is not None and i.step < 0:
+            sel = torch.tensor(list(range(x.shape[axis])[i]), dtype=torch.long, device=x.device)
+            x = x.index_select(axis, sel)
+            i = slice(None)
+        elif int_array(i) is not None:
+            n = x.shape[axis]
+            i = i.to(device=x.device, dtype=torch.long)
+            i = torch.clamp(torch.where(i < 0, i + n, i), 0, max(n - 1, 0))
+        kept.append(i)
+        axis += _consumed(i)
+    return x[tuple(kept)]
 
 
 def _is_vv(v) -> bool:
@@ -101,7 +181,7 @@ def apply_operator(op: Union[str, Any], *args) -> ValidVector:
     for a in args:
         if _is_vv(a):
             valid = valid & a.valid
-    return ValidVector(out, valid)
+    return ValidVector(out, valid, any(a.rows for a in args if _is_vv(a)))
 
 
 def _make_named(name):

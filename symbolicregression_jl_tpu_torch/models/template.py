@@ -278,13 +278,15 @@ class _BatchedTreeCallable:
     argument broadcast to [M, F, n]."""
 
     def __init__(self, key, trees: TreeBatch, arity_expected: int, operators: OperatorSet,
-                 n: int, fused: bool):
+                 n: int, fused: bool, plain: Optional[bool] = None):
         self.key = key
         self.trees = trees           # fields [M, L]
         self.arity_expected = arity_expected
         self.operators = operators
         self.n = n
         self.fused = fused
+        # The kernels' plain versions: without ``fused``, or asked for.
+        self.plain = (not fused) if plain is None else plain
 
     def _prep_args(self, args):
         """(rows, shared, valid_in) from the combiner's arguments."""
@@ -336,7 +338,7 @@ class _BatchedTreeCallable:
             with torch.enable_grad():
                 xm = self._member_x(rows).detach().requires_grad_(True)
                 detached = TreeBatch(tr.arity, tr.op, tr.feat, tr.const.detach(), tr.length)
-                pred, v = fused_predict_ad(detached, xm, self.operators)
+                pred, v = fused_predict_ad(detached, xm, self.operators, plain=self.plain)
                 (gx,) = torch.autograd.grad(pred, xm, torch.ones_like(pred))
             deriv = gx[:, argnum - 1, :]
         else:
@@ -366,7 +368,7 @@ class _BatchedTreeCallable:
             X = X.to(const.dtype)
         else:
             X = self._member_x(rows)
-        pred, v = fused_predict_ad(self.trees, X, self.operators, plain=not self.fused)
+        pred, v = fused_predict_ad(self.trees, X, self.operators, plain=self.plain)
         return ValidVector(pred, v & valid_in)
 
 
@@ -434,12 +436,27 @@ class _BatchedParamVec:
         return (self[i] for i in range(len(self)))
 
 
+def eval_template_single(trees: TreeBatch, X: torch.Tensor, structure: TemplateStructure,
+                         operators: OperatorSet, params_flat=None):
+    """One template member (trees [K, L]) over every row of ``X`` [F, n]:
+    (y [n], valid). The M = 1 case of :func:`eval_template_batch`, whose
+    combiner sees member-batched values, so an index into a
+    subexpression's output picks members, as in the JAX package."""
+    batched = TreeBatch(*(f[None] for f in trees.fields()))
+    p = None if params_flat is None else params_flat[None]
+    y, valid = eval_template_batch(batched, X, structure, operators, params=p)
+    return y[0], valid[0]
+
+
 def eval_template_batch(trees: TreeBatch, X: torch.Tensor, structure: TemplateStructure,
-                        operators: OperatorSet, params=None, fused: bool = False):
+                        operators: OperatorSet, params=None, fused: bool = False,
+                        interpret: bool = False):
     """Batched template evaluation of trees [..., K, L] over X [F, n];
     returns (y [..., n], valid [...]). The combiner runs once over
     member-batched callables; with ``fused`` each call site is one launch
-    of kernel #4, otherwise its plain version runs. A structure with
+    of kernel #4, otherwise its plain version runs; ``interpret`` runs the
+    fused route's kernels as their plain versions (the counterpart of the
+    JAX package's Pallas interpret mode). A structure with
     parameter vectors reads them from ``params`` [..., total_params].
     Differentiable with respect to ``trees.const`` (through kernel #5) and
     ``params``."""
@@ -452,7 +469,7 @@ def eval_template_batch(trees: TreeBatch, X: torch.Tensor, structure: TemplateSt
         key: _BatchedTreeCallable(
             key, TreeBatch(flat.arity[:, k], flat.op[:, k], flat.feat[:, k], flat.const[:, k],
                            flat.length[:, k]),
-            structure.num_features[k], operators, n, fused)
+            structure.num_features[k], operators, n, fused, plain=(not fused) or interpret)
         for k, key in enumerate(structure.expr_keys)
     }
     true = torch.ones((), dtype=torch.bool, device=X.device)
@@ -599,12 +616,14 @@ class HostTemplateExpression:
     def __repr__(self) -> str:  # pragma: no cover
         return f"HostTemplateExpression({self.string()})"
 
-    def encode(self, max_nodes: int, device=None) -> TreeBatch:
-        """Postfix-encode into a [K, max_nodes] TreeBatch (member layout)."""
+    def encode(self, max_nodes: int, dtype=np.float32, device=None) -> TreeBatch:
+        """Postfix-encode into a [K, max_nodes] TreeBatch (member layout),
+        constants in ``dtype`` (numpy or torch float32 / float64)."""
         from ..ops.encoding import encode_population
 
+        tdt = torch.float64 if dtype in (np.float64, torch.float64) else torch.float32
         return encode_population([self.trees[k] for k in self.structure.expr_keys], max_nodes,
-                                 self.operators, device=device)
+                                 self.operators, device=device, dtype=tdt)
 
     def __call__(self, X, device=None) -> np.ndarray:
         """Evaluate on host data ``X`` [n, F] on ``device`` (CUDA unless

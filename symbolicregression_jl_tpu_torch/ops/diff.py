@@ -92,7 +92,7 @@ def eval_tree_array(tree: Node, X, operators: OperatorSet, params: Optional[torc
     Xt = _as_xt(X, dtype, device)
     operators = extend_operators_for(tree, operators)
     a, o, f, c, ln = _encode_single(tree, operators, dtype, Xt.device)
-    return eval_single_tree(a, o, f, c, ln, Xt, operators, params=params)
+    return eval_single_tree(a, o, f, c, ln, None, Xt, operators, params=params)
 
 
 def _jvp(run, primal: torch.Tensor, tangent: torch.Tensor):
@@ -120,7 +120,7 @@ def eval_diff_tree_array(tree: Node, X, operators: OperatorSet, direction: int,
     a, o, f, c, ln = _encode_single(tree, operators, dtype, Xt.device)
     seed = torch.zeros_like(Xt)
     seed[direction] = 1.0
-    (y, valid), dy = _jvp(lambda x: eval_single_tree(a, o, f, c, ln, x, operators),
+    (y, valid), dy = _jvp(lambda x: eval_single_tree(a, o, f, c, ln, None, x, operators),
                           Xt, seed)
     return y, dy, valid
 
@@ -138,13 +138,13 @@ def eval_grad_tree_array(tree: Node, X, operators: OperatorSet, variable: bool =
     Xt = _as_xt(X, dtype, device)
     operators = extend_operators_for(tree, operators)
     a, o, f, c, ln = _encode_single(tree, operators, dtype, Xt.device)
-    y, valid = eval_single_tree(a, o, f, c, ln, Xt, operators)
+    y, valid = eval_single_tree(a, o, f, c, ln, None, Xt, operators)
     rows: List[torch.Tensor] = []
     if variable:
         for fidx in range(Xt.shape[0]):
             seed = torch.zeros_like(Xt)
             seed[fidx] = 1.0
-            rows.append(_jvp(lambda x: eval_single_tree(a, o, f, c, ln, x, operators),
+            rows.append(_jvp(lambda x: eval_single_tree(a, o, f, c, ln, None, x, operators),
                              Xt, seed)[1])
         return y, torch.stack(rows), valid
     # w.r.t. constants: one tangent per constant leaf's slot
@@ -153,7 +153,7 @@ def eval_grad_tree_array(tree: Node, X, operators: OperatorSet, variable: bool =
     for k in const_slots:
         seed = torch.zeros_like(c)
         seed[k] = 1.0
-        rows.append(_jvp(lambda c_: eval_single_tree(a, o, f, c_, ln, Xt, operators),
+        rows.append(_jvp(lambda c_: eval_single_tree(a, o, f, c_, ln, None, Xt, operators),
                          c, seed)[1])
     grad = torch.stack(rows) if rows else torch.zeros((0, Xt.shape[1]), dtype=Xt.dtype,
                                                         device=Xt.device)

@@ -38,6 +38,7 @@ __all__ = [
     "decode_population",
     "tree_structure_arrays",
     "lane_take",
+    "postfix_valid",
 ]
 
 LEAF_CONST = 0
@@ -152,12 +153,12 @@ def select_tree(pred: torch.Tensor, a: TreeBatch, b: TreeBatch) -> TreeBatch:
 # ---------------------------------------------------------------------------
 
 
-def encode_tree(tree: Node, max_nodes: int, operators: OperatorSet, const_dtype=np.float32):
+def encode_tree(tree: Node, max_nodes: int, operators: OperatorSet, dtype=np.float32):
     """Encode a host `Node` into per-slot numpy arrays (postfix order)."""
     arity = np.zeros(max_nodes, np.int32)
     op = np.zeros(max_nodes, np.int32)
     feat = np.zeros(max_nodes, np.int32)
-    const = np.zeros(max_nodes, const_dtype)
+    const = np.zeros(max_nodes, dtype)
     k = 0
     for n in tree.nodes():
         if k >= max_nodes:
@@ -300,3 +301,25 @@ def structure_from_arity(arity: torch.Tensor, need_depth: bool = True):
 def tree_structure_arrays(batch: TreeBatch, need_depth: bool = True):
     """Batched (child, size, depth) derivation over any leading dims."""
     return structure_from_arity(batch.arity, need_depth=need_depth)
+
+
+def postfix_valid(arity: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """Postfix validity on the device, ``[..., L] -> bool [...]``.
+
+    True iff the length is in bounds, every used slot's arity is in
+    ``[0, MAX_ARITY]``, padding slots hold arity 0, and the running
+    postfix stack height ``D(k) = sum_{j<=k} (1 - arity_j)`` stays >= 1
+    over used slots and ends at exactly 1: every subtree occupies the
+    contiguous span ``[k - size_k + 1, k]`` and exactly one root remains.
+    The structural subset of ``lint.runtime.check_programs`` without a
+    copy to the host."""
+    L = arity.shape[-1]
+    k = torch.arange(L, dtype=torch.int32, device=arity.device)
+    used = k < length[..., None]
+    arity_ok = torch.where(used, (arity >= 0) & (arity <= MAX_ARITY), arity == 0).all(dim=-1)
+    D = torch.cumsum(torch.where(used, 1 - arity, 0), dim=-1)
+    no_underflow = torch.where(used, D >= 1, True).all(dim=-1)
+    root = torch.clamp(length[..., None].long() - 1, 0, L - 1)
+    final = torch.take_along_dim(D, root, dim=-1)[..., 0]
+    len_ok = (length >= 1) & (length <= L)
+    return len_ok & arity_ok & no_underflow & (final == 1)

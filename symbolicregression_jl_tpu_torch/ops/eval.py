@@ -90,12 +90,14 @@ def eval_tree_batch(batch: TreeBatch, X: torch.Tensor, operators: OperatorSet,
 
 
 def eval_single_tree(arity: torch.Tensor, op: torch.Tensor, feat: torch.Tensor,
-                     const: torch.Tensor, length, X: torch.Tensor, operators: OperatorSet,
+                     const: torch.Tensor, length, child: Optional[torch.Tensor],
+                     X: torch.Tensor, operators: OperatorSet,
                      params: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Evaluate one postfix tree (slot fields [L], ``length`` a scalar) over
     every row of ``X`` [F, n]: (y [n], valid), as the JAX package's
-    ``eval_single_tree`` (which also takes the child table; the port
-    derives it from ``arity``). ``params`` [NP, n] are the parameter
+    ``eval_single_tree``. ``child`` [L, 2] is that function's child table
+    (``structure_from_arity``), or None: the interpreter derives the same
+    table from ``arity`` and reads no other. ``params`` [NP, n] are the parameter
     values per row, already gathered by class. Differentiable in
     ``const``, ``X`` and ``params`` to any order."""
     batch = TreeBatch(arity[None], op[None], feat[None], const[None],

@@ -91,7 +91,8 @@ __all__ = ["PROGRAM_EVAL", "PROGRAM_EVAL_PARAM", "PROGRAM_EVAL_BF16", "PROGRAM_E
            "fused_predict_vjp_program", "fused_predict", "fused_predict_ad",
            "program_eval_plain", "program_multi_plain", "program_grad_plain",
            "program_predict_plain", "program_predict_vjp_plain", "supports_fused_eval",
-           "user_loss_program", "user_loss_multi", "user_grad_multi", "USER_LOSS_CHUNK_BYTES"]
+           "user_loss_program", "user_loss_multi", "user_grad_multi", "USER_LOSS_CHUNK_BYTES",
+           "kernel_launches"]
 
 
 def supports_fused_eval(operators: OperatorSet) -> bool:
@@ -1304,6 +1305,12 @@ PROGRAM_MULTI_BF16_DATA = ProgramMultiBf16DataKernel()
 PROGRAM_PREDICT_F64 = ProgramPredictF64Kernel()
 PROGRAM_PREDICT_BF16 = ProgramPredictBf16Kernel()
 PROGRAM_PREDICT_VJP_F64 = ProgramPredictVjpF64Kernel()
+
+
+def kernel_launches():
+    """{wrapper name: launches} of every kernel wrapper of this module
+    (what a process launched since the counts were last set to 0)."""
+    return {k.name: k.launches for k in globals().values() if isinstance(k, _ProgramKernel)}
 
 
 # The forms of each kernel by (X's dtype, bf16): False, True (a bf16 value

@@ -55,6 +55,14 @@ def safe_pow(x, y):
     return torch.where(is_int, int_res, nonint_res)
 
 
+def erf(x):
+    return torch.erf(x)
+
+
+def erfc(x):
+    return torch.erfc(x)
+
+
 def safe_log(x):
     return torch.where(x > 0, torch.log(torch.where(x > 0, x, 1.0)), _nan(x))
 
@@ -256,8 +264,8 @@ _BUILTIN_OPS = [
     _unary("acosh", safe_acosh),
     _unary("atanh", safe_atanh),
     _unary("atanh_clip", atanh_clip),
-    _unary("erf", torch.erf),
-    _unary("erfc", torch.erfc),
+    _unary("erf", erf),
+    _unary("erfc", erfc),
     _unary("gamma", gamma),
     _unary("square", square),
     _unary("cube", cube),

@@ -19,7 +19,9 @@ Every collective the multi-device search makes goes through this module:
   (:func:`shard_all`); the kernel wrappers reduce their row sums,
   validity and denominator in one collective (:func:`shard_reduce`); a
   custom whole-prediction loss reads every shard's predictions
-  (:func:`gather_rows`, whose backward is the rank's slice) and the whole
+  (:func:`gather_rows`, whose backward is the rank's slice; a template
+  combiner's index into the rows gathers them too, its backward adding
+  every rank's cotangent first) and the whole
   targets (:func:`whole_rows`); the constant optimizers add their
   gradient partials with :func:`sum_over_row_shards`. A shard's rows may
   be a minibatch or a sample of the dataset's (``RowShard.take``).
@@ -327,10 +329,14 @@ def _row_layout(shard: RowShard, device):
 
 class _GatherRows(torch.autograd.Function):
     """Forward: every shard's rows of ``x`` [..., n_local] placed at their
-    positions [..., n_rows]. Backward: the cotangent at this rank's rows."""
+    positions [..., n_rows]. Backward: the cotangent at this rank's rows;
+    unless ``shared`` (every rank uses the whole array in the same way,
+    so its cotangent is the same on every rank), every rank's cotangent
+    is added first, in rank order (no float atomics: the same seed gives
+    the same bits)."""
 
     @staticmethod
-    def forward(ctx, x, shard):
+    def forward(ctx, x, shard, shared=True):
         counts, order = _row_layout(shard, x.device)
         m = max(counts)
         pad = torch.zeros(x.shape[:-1] + (m - x.shape[-1],), dtype=x.dtype, device=x.device)
@@ -339,17 +345,24 @@ class _GatherRows(torch.autograd.Function):
         out = torch.empty_like(cat)
         out[..., order.to(x.device)] = cat
         ctx.shard = shard
+        ctx.shared = shared
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        return grad.index_select(-1, ctx.shard.local_positions(grad.device)), None
+        if not ctx.shared:
+            grad = ordered_sum(grad.contiguous(), ctx.shard.group)
+        return grad.index_select(-1, ctx.shard.local_positions(grad.device)), None, None
 
 
-def gather_rows(x: torch.Tensor, shard: RowShard) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, shard: RowShard, shared: bool = True) -> torch.Tensor:
     """``x`` [..., n_local] of every shard as [..., n_rows] in the dataset's
-    row order (differentiable: the gradient of this rank's rows)."""
-    return _GatherRows.apply(x, shard)
+    row order. Differentiable: with ``shared`` (a custom loss, computed
+    alike on every rank from the whole prediction) the gradient of this
+    rank's rows is its own cotangent's; otherwise (ranks that read other
+    rows, such as an index in a template combiner) every rank's
+    cotangent is added in rank order first."""
+    return _GatherRows.apply(x, shard, shared)
 
 
 def whole_rows(t: torch.Tensor, shard: RowShard, name: str) -> torch.Tensor:

@@ -12,8 +12,10 @@ than one shard, else every rank holds every row.
 
 ``shard_search_state`` and ``shard_device_data`` delegate to
 ``mesh/plan.MeshPlan``, so the helpers and the mesh runtime cannot
-disagree about placement. The JAX package's ``replicated`` sharding has
-no torch analogue (a rank holds plain tensors) and is not ported.
+disagree about placement. A placement is a :class:`RankSharding`: the
+grid and a spec, the mesh axis each tensor axis is split over (the JAX
+package's ``NamedSharding`` and ``PartitionSpec`` as a tuple);
+:func:`replicated` is the whole tensor on every rank.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ import numpy as np
 
 from . import multihost
 
-__all__ = ["ISLAND_AXIS", "DATA_AXIS", "RankMesh", "make_mesh", "shard_search_state",
-           "shard_device_data"]
+__all__ = ["ISLAND_AXIS", "DATA_AXIS", "RankMesh", "RankSharding", "make_mesh", "replicated",
+           "shard_search_state", "shard_device_data"]
 
 ISLAND_AXIS = "island"
 DATA_AXIS = "data"
@@ -112,13 +114,13 @@ class RankMesh:
         return self._all
 
 
-def make_mesh(ranks: Optional[Sequence[int]] = None, n_island_shards: Optional[int] = None,
+def make_mesh(devices: Optional[Sequence[int]] = None, n_island_shards: Optional[int] = None,
               n_data_shards: int = 1) -> RankMesh:
-    """Arrange ``ranks`` (default: every rank of the process group, or
-    rank 0 without one) as an ``(island, data)`` grid. By default every
-    rank goes to the island axis; ``n_data_shards > 1`` splits each
-    island shard's rows over that many ranks."""
-    ranks = list(ranks if ranks is not None else range(multihost.process_count()))
+    """Arrange ``devices``, ranks here (default: every rank of the process
+    group, or rank 0 without one), as an ``(island, data)`` grid. By
+    default every rank goes to the island axis; ``n_data_shards > 1``
+    splits each island shard's rows over that many ranks."""
+    ranks = list(devices if devices is not None else range(multihost.process_count()))
     n = len(ranks)
     if n_island_shards is None:
         n_island_shards = n // n_data_shards
@@ -126,6 +128,21 @@ def make_mesh(ranks: Optional[Sequence[int]] = None, n_island_shards: Optional[i
         raise ValueError(f"mesh shape {n_island_shards}x{n_data_shards} != {n} devices")
     grid = np.array(ranks, dtype=np.int64).reshape(n_island_shards, n_data_shards)
     return RankMesh(grid=grid, rank=multihost.process_index())
+
+
+@dataclasses.dataclass(frozen=True)
+class RankSharding:
+    """Where a tensor lives on the grid: ``spec[i]`` names the mesh axis
+    tensor axis i is split over in contiguous blocks (None: whole), and
+    axes past the spec are whole, as in a ``PartitionSpec``."""
+
+    mesh: RankMesh
+    spec: Tuple[Optional[str], ...] = ()
+
+
+def replicated(mesh: RankMesh) -> RankSharding:
+    """Every rank holds the whole tensor."""
+    return RankSharding(mesh, ())
 
 
 def _plan_for(mesh: RankMesh):

@@ -104,19 +104,30 @@ class ExecutableCache:
         bucket: Optional[Tuple[int, int, int]] = None,
         plan=None,
         mesh_runtime: bool = False,
+        template=None,
+        n_data_shards: int = 1,
+        n_island_shards: int = 1,
+        mesh=None,
     ):
         """An Engine for this config — shared when possible, else fresh
         (and cached), else None (uncacheable; caller builds its own).
-        Under an island mesh (``plan``) the key also takes the shard
+        Under an island mesh (``plan``, or the JAX package's shard counts
+        and ``mesh``: ``MeshPlan.for_layout``) the key also takes the shard
         counts, the rank grid, the dedup policy and the runtime, so a
-        mesh engine is never served to another layout or runtime."""
+        mesh engine is never served to another layout or runtime. A
+        ``template`` (or the options' template spec) is never cached."""
         from ..evolve.engine import _template_of
+
+        if plan is None:
+            from ..mesh.plan import MeshPlan
+
+            plan = MeshPlan.for_layout(n_island_shards, n_data_shards, mesh)
 
         if bucket is None:
             from .admission import shape_bucket
 
             bucket = shape_bucket(rows, nfeatures)
-        if _template_of(options) is not None:
+        if template is not None or _template_of(options) is not None:
             # template structures hold host callables whose identity the
             # fingerprint cannot guarantee across requests
             self.uncacheable += 1

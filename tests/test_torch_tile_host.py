@@ -2,9 +2,10 @@
 
 The CUDA sources under ``symbolicregression_jl_tpu_torch/csrc/`` build
 only with nvcc for the card. This file builds all five with g++
-through a small shim instead: each CUDA thread of a block runs as a
-``std::thread``, ``__syncthreads`` and ``__syncthreads_and`` are a
-barrier of the block's threads, a launch runs its blocks one after
+through a small shim instead: each CUDA thread of a block runs as a fiber
+of the launching thread on x86-64 (a ``std::thread`` elsewhere), in
+thread order up to the next barrier; ``__syncthreads`` and
+``__syncthreads_and`` are that barrier, a launch runs its blocks one after
 another, and ``extern __shared__`` is a buffer of the block (refilled with
 a 0xA5 pattern before every block, so nothing may rely on its contents).
 ``-ffp-contract=off`` keeps every multiply and add apart, as the kernels'
@@ -162,6 +163,92 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int 
 
 namespace shim {
 inline int last_error = 0;
+#if defined(__x86_64__)
+// Each CUDA thread of a block is a fiber of the calling thread with a
+// stack of its own: it runs until it reaches a barrier (or returns), then
+// the next one runs, in thread order; when every fiber left waits at the
+// barrier, they go on, each given the AND of their predicates. No OS
+// thread per CUDA thread: a launch takes one core however busy the host
+// is (a block of 256 threads on a barrier of std::threads waited on the
+// scheduler at every __syncthreads when other processes held the cores).
+extern "C" void shim_switch(void** save_sp, void* next_sp);
+asm(".text\n.globl shim_switch\n.hidden shim_switch\n.type shim_switch,@function\n"
+    "shim_switch:\n  pushq %rbp\n  pushq %rbx\n  pushq %r12\n  pushq %r13\n  pushq %r14\n"
+    "  pushq %r15\n  movq %rsp, (%rdi)\n  movq %rsi, %rsp\n  popq %r15\n  popq %r14\n"
+    "  popq %r13\n  popq %r12\n  popq %rbx\n  popq %rbp\n  ret\n"
+    ".size shim_switch, .-shim_switch\n");
+
+struct Fiber { void* sp = nullptr; int pred = 1; bool done = false; };
+inline thread_local void* sched_sp = nullptr;
+inline thread_local Fiber* fibers = nullptr;
+inline thread_local int current = 0, barrier_result = 1;
+inline thread_local void (*run_body)(void*) = nullptr;
+inline thread_local void* body_arg = nullptr;
+inline thread_local unsigned char* dyn = nullptr;
+
+[[noreturn]] inline void fiber_main() {
+  run_body(body_arg);
+  fibers[current].done = true;
+  shim_switch(&fibers[current].sp, sched_sp);
+  __builtin_unreachable();
+}
+
+// A fresh fiber's stack: the first switch into it "returns" to fiber_main.
+inline void* fiber_stack(unsigned char* top) {
+  void** sp = reinterpret_cast<void**>(reinterpret_cast<uintptr_t>(top) & ~uintptr_t(15));
+  *--sp = nullptr;                                   // fiber_main's return slot
+  *--sp = reinterpret_cast<void*>(&fiber_main);
+  for (int i = 0; i < 6; ++i) *--sp = nullptr;       // rbp rbx r12-r15
+  return sp;
+}
+
+inline int sync(int p) {
+  fibers[current].pred = p;
+  shim_switch(&fibers[current].sp, sched_sp);
+  return barrier_result;
+}
+
+// grid blocks of `threads` threads in turn, `smem` bytes of dynamic
+// shared memory each; refuses what the card would refuse.
+template <class Body>
+void launch(Body body, long grid, long threads, size_t smem, cudaStream_t = nullptr) {
+  if (threads < 1 || threads > 1024 || smem > 232448) { last_error = 1; return; }
+  last_error = 0;
+  constexpr size_t kStack = size_t(1) << 18;
+  std::vector<unsigned char> buf(smem + 16);
+  unsigned char* base = buf.data() + (16 - (uintptr_t)buf.data() % 16) % 16;
+  unsigned char* stacks = static_cast<unsigned char*>(malloc(kStack * threads));
+  std::vector<Fiber> fs(threads);
+  fibers = fs.data();
+  dyn = base;
+  run_body = [](void* b) { (*static_cast<Body*>(b))(); };
+  body_arg = &body;
+  blockDim = {(unsigned)threads, 1, 1};
+  gridDim = {(unsigned)grid, 1, 1};
+  for (long g = 0; g < grid; ++g) {
+    memset(base, 0xA5, smem);
+    blockIdx = {(unsigned)g, 0, 0};
+    for (long t = 0; t < threads; ++t) fs[t] = Fiber{fiber_stack(stacks + (t + 1) * kStack)};
+    for (;;) {
+      int waiting = 0, acc = 1;
+      for (long t = 0; t < threads; ++t) {
+        if (fs[t].done) continue;
+        current = (int)t;
+        threadIdx = {(unsigned)t, 0, 0};
+        shim_switch(&sched_sp, fs[t].sp);
+        if (!fs[t].done) { ++waiting; acc &= fs[t].pred != 0; }
+      }
+      if (!waiting) break;
+      barrier_result = acc;
+    }
+  }
+  free(stacks);
+}
+}  // namespace shim
+
+inline void __syncthreads() { shim::sync(1); }
+inline int __syncthreads_and(int p) { return shim::sync(p); }
+#else
 
 // One block's barrier; sync(p) returns the AND of every thread's p.
 // (A waiter yields a few times, then sleeps on the generation word, a futex
@@ -224,6 +311,7 @@ void launch(Body body, long grid, long threads, size_t smem, cudaStream_t = null
 
 inline void __syncthreads() { shim::block->sync(1); }
 inline int __syncthreads_and(int p) { return shim::block->sync(p); }
+#endif
 inline cudaError_t cudaGetLastError() { return shim::last_error; }
 """
 

@@ -33,6 +33,38 @@ def template_structure():
     return template_spec(expressions=("f", "g"))(lambda f, g, x1, x2, x3: f(x1, x2) + g(x3))
 
 
+# Combiners that index: a column's rows (an int, a negative int, a
+# reversing slice, a permutation of the INDEX_ROWS rows), a subexpression's
+# members (``g(x2)[0]``: member 0's rows, as in the JAX package, whose
+# combiner sees member-batched [M, n] outputs) and a subexpression's rows
+# (``[..., ::-1]``, whose gradient crosses ranks).
+INDEX_ROWS = 203                                   # blocks of 102 and 101 rows
+PERM = np.random.default_rng(5).permutation(INDEX_ROWS)
+INDEX_COMBINERS = {
+    "int": lambda f, g, x1, x2: f(x1) - x1[0] + g(x2),
+    "negative": lambda f, g, x1, x2: f(x1) + g(x2) * x2[-1],
+    "reverse": lambda f, g, x1, x2: f(x1) * g(x1[::-1]),
+    "permutation": lambda f, g, x1, x2: f(x1[PERM]) + g(x2),
+    "member": lambda f, g, x1, x2: f(x1) + g(x2)[0],
+    "output_rows": lambda f, g, x1, x2: f(x1) * g(x2)[..., ::-1],
+}
+
+
+def index_spec(name: str):
+    return template_spec(expressions=("f", "g"))(INDEX_COMBINERS[name])
+
+
+def index_options(name: str, **kw):
+    """A template search whose combiner indexes (``INDEX_COMBINERS``)."""
+    base = dict(binary_operators=["+", "-", "*"], unary_operators=["cos"], maxsize=10,
+                populations=4, population_size=12, tournament_selection_n=4,
+                ncycles_per_iteration=3, save_to_file=False, turbo=True,
+                optimizer_probability=1.0, optimizer_iterations=4,
+                expression_spec=index_spec(name))
+    base.update(kw)
+    return srt.Options(**base)
+
+
 def abs_mean(pred, y, w, valid):
     """A custom whole-prediction loss: the mean absolute error."""
     return torch.mean(torch.abs(pred - y))
@@ -72,11 +104,11 @@ def _data(X, y, n_shards, weights=None, extra=None, elementwise_loss=None):
     return plan.place_data(ds.data)
 
 
-def template_grad(tt: TreeBatch, data):
+def template_grad(tt: TreeBatch, data, structure=None):
     """The gradient of template members' summed finite losses in every
     subexpression's constants (#4 forward, #5 backward), the row shards'
     partials added, as the template optimizer's gradient pass takes it."""
-    structure = template_structure().structure
+    structure = structure or template_structure().structure
     options = srt.Options(**OPERATORS)
     const = tt.const.clone().requires_grad_(True)
     with row_shard(data.row_shard), torch.enable_grad():
@@ -250,3 +282,43 @@ def search_feature(X, y, feature, niterations, seed, n_data_shards):
     map_arrays(state.device_states[0], lambda t: h.update(t.detach().cpu().numpy().tobytes()))
     return {"hof": [(e.complexity, float(e.loss), e.equation_string()) for e in hof.entries],
             "digest": h.hexdigest()}
+
+
+def index_checks(X, y, tmpl_trees, n_shards, names, engine_names, seed):
+    """The combiners of ``names`` on this rank's rows: template costs and
+    losses (#4 per call site, turbo on) and the constants' gradient
+    (#5 backward, the shards' partials added); for ``engine_names`` an
+    engine's initial losses and one iteration with the template optimizer,
+    twice from ``seed`` (the bits of both states)."""
+    from symbolicregression_jl_tpu_torch.api.checkpoint import map_arrays
+    from symbolicregression_jl_tpu_torch.evolve.step import eval_cost_batch
+
+    out = {}
+    tt = _tree(tmpl_trees)
+    for name in names:
+        options = index_options(name)
+        el = options.elementwise_loss
+        data = _data(X, y, n_shards, elementwise_loss=el)
+        engine = Engine(options, X.shape[1], device="cpu")
+        structure = engine.template
+        out[f"{name}_cost"], out[f"{name}_loss"], _ = eval_cost_batch(
+            tt, data, el, engine.tables, engine.cfg.operators, options.parsimony, turbo=True,
+            template=structure)
+        out[f"{name}_grad"] = template_grad(tt, data, structure)
+    res = {k: v.detach().numpy() for k, v in out.items()}
+    plan = MeshPlan.build(n_island_shards=1, n_data_shards=n_shards)
+    for name in engine_names:
+        options = index_options(name)
+        data = _data(X, y, n_shards, elementwise_loss=options.elementwise_loss)
+        digests = []
+        for _ in range(2):
+            eng = Engine(options, X.shape[1], device="cpu", plan=plan)
+            st = eng.init_state(rng.key(seed), data, options.populations)
+            res[f"{name}_init_loss"] = st.pops.loss.numpy()
+            st = eng.run_iteration(st, data, options.maxsize)
+            bits = []
+            map_arrays(st, lambda a: bits.append(a.detach().numpy().tobytes()))
+            digests.append(b"".join(bits))
+        res[f"{name}_iter_loss"] = st.pops.loss.numpy()
+        res[f"{name}_repeat_equal"] = digests[0] == digests[1]
+    return res
