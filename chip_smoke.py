@@ -407,6 +407,29 @@ Phases (any failure exits nonzero and prints no result line):
    (the data's target is 2 cos(2.3 x0) - x1^2), which must beat the
    constant fit's (y's variance, 8.749). Each kernel row of the result
    line carries its launches per example.
+42. The A/B variants of kernel #1's interpreter
+   (symbolicregression_jl_tpu_torch/profiling/kernel_variants.py,
+   csrc/program_variants.cu, built on a thread from the end of phase 2 on;
+   prints its nvcc seconds and ptxas's registers and spills of every
+   instantiation): the harness at the JAX script's defaults, 8,192 trees
+   of 8 steps from synth_program(seed=0) over the bench problem's 10,000
+   rows x 5, every row (the 14 variants, tb16 and tb32, and the shipped
+   kernel's prod, prodbf16 and screen), 1 warm-up and 30 chained launches
+   each (CUDA events), the variants' launch counts set to 0 just before and
+   read just after (31 a row). Then each variant once more on the same
+   program: against its plain version on the first VARIANT_PLAIN_TREES
+   trees (validity bit-equal; loss NaN and +-inf in the same places,
+   otherwise within rtol 1e-5, 1e-2 for bf16), the exact variants and the
+   tree blocks bit-equal to base on every tree; muldiv and opgroup with
+   validity equal to base's and NaN and +-inf in base's places, their worst
+   deviation from base printed, and on the trees past 1e-3 of base (their
+   a * (1 / b) rounds twice) within rtol 1e-5 of their plain version.
+   Prints a table: ms/launch (the
+   chain), the kernel alone (CUDA events, 10 launches), ns/step and its
+   difference from base's, the bound (T x S x n FP32 operations at 67
+   TFLOP/s), the plain version's ms on the subset, the check, and the
+   card's name and power limit. Each variant is a row of the result line
+   (no search launches it: its launches are the harness's).
 
 Every file a phase writes goes to a temporary directory, removed at the
 end. Each phase prints its seconds when the next one starts. The line before the last is the kernel table as JSON; the last line is
@@ -3231,9 +3254,14 @@ def route_launches(torch, fn):
 
 def first_trees(prog, k: int):
     """The first ``k`` trees of a compiled program."""
+    return pick_trees(prog, slice(None, k))
+
+
+def pick_trees(prog, idx):
+    """The trees ``idx`` (a slice or an index tensor) of a compiled program."""
     import dataclasses
 
-    return dataclasses.replace(prog, **{f.name: getattr(prog, f.name)[:k].contiguous()
+    return dataclasses.replace(prog, **{f.name: getattr(prog, f.name)[idx].contiguous()
                                         for f in dataclasses.fields(prog)})
 
 
@@ -5470,11 +5498,124 @@ def phase_examples(torch, sr, dev, card, procs):
     return per_example
 
 
-def _build_or_error(cuda_build, header):
-    """Builds every source with ``header``; returns the error instead of
-    raising it (the caller re-raises it on its own thread)."""
+VARIANT_T = 8192            # phase 42: the JAX script's defaults (trees, steps, timed launches)
+VARIANT_STEPS = 8
+VARIANT_REPS = 30
+VARIANT_PLAIN_TREES = 512   # phase 42: synth_program's first trees held against the plain versions
+
+
+def phase_kernel_variants(torch, sr, dev, card, cuda_build):
+    """Phase 42: the A/B variants of kernel #1's interpreter (the module
+    docstring's 42). Returns one result-line row per kernel row."""
+    from symbolicregression_jl_tpu_torch.profiling import kernel_variants as KV
+
+    src = "program_variants.cu"
+    print(f"  nvcc {src}: {cuda_build.build_seconds(src):.2f} s (on its thread)")
+    report = ptxas_report(cuda_build.build_log(src), "program_variants_kernel")
+    if not report:
+        raise RuntimeError(f"no ptxas report for program_variants_kernel in the build of {src}")
+    for name, regs, stack, spill_st, spill_ld in report:
+        print(f"  ptxas {name}: {regs} registers, stack {stack} B, spill stores {spill_st} B, "
+              f"spill loads {spill_ld} B")
+
+    kernel = KV.PROGRAM_VARIANTS
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    kernel.variant_launches.clear()
+    records, ctx = KV.harness(VARIANT_T, KV.ROWS, VARIANT_STEPS, dev, reps=VARIANT_REPS,
+                              out=lambda line: print("  " + line))
+    torch.cuda.synchronize()
+    launches = dict(kernel.variant_launches)
+    runs = [r for r in records if r["row"] not in ("prod", "prodbf16")
+            and not r["row"].startswith("screen")]
+    check = Checks()
+    check(f"the harness launched each variant row {1 + VARIANT_REPS} times ({launches})",
+          all(launches.get((r["variant"], r["tree_block"])) == 1 + VARIANT_REPS for r in runs)
+          and kernel.launches == (1 + VARIANT_REPS) * len(runs))
+
+    prog, ds, options = ctx["prog"], ctx["dataset"], ctx["options"]
+    ops, el = options.operators, options.elementwise_loss
+    X, y = ds.data.Xt, ds.data.y
+    F, n = X.shape
+    T, L = prog.code.shape
+    CMAX = prog.cmax
+    sub = first_trees(prog, VARIANT_PLAIN_TREES)
+    steps = float(prog.nsteps.to(torch.float64).sum())
+    KV.loss_variant_plain(sub, X, y, F, ops, el)      # warm-up: the first call's set-up untimed
+    out, table = {}, []
+    for r in runs:
+        row, variant, tb = r["row"], r["variant"], r["tree_block"]
+        call = lambda: kernel(prog, X, y, F, ops, el, tb, variant)
+        loss_k, valid_k = out[row] = call()
+        kernel_ms = cuda_ms(torch, call, reps=10)
+        (loss_p, valid_p), plain_ms = timed_plain(torch, lambda: KV.loss_variant_plain(
+            sub, X, y, F, ops, el, variant=variant))
+        k = sub.code.shape[0]
+        rtol = 1e-2 if variant == "bf16" else RTOL
+        check(f"{row}: validity bit-equal to the plain version on the first {k} trees",
+              same(torch, valid_k[:k], valid_p))
+        _, within, rel, abs_err = close_at(torch, loss_k[:k], loss_p, rtol)
+        check(f"{row}: loss NaN and +-inf where the plain version's are, otherwise within rtol "
+              f"{rtol} (worst relative error {rel:.3g})", within)
+        # one FP32 operation a step and row; each input read once, loss and valid written
+        b_ms, b_by = bound(steps * n, 4.0 * (T * L + 3 * T + T * CMAX + n + 2 * T)
+                           + (2 if variant == "bf16" else 4) * F * n)
+        table.append((row, r, kernel_ms, plain_ms, b_ms, b_by, abs_err))
+    base_loss, base_valid = out["base"]
+    for row, (loss, valid) in out.items():
+        if row in KV.EXACT or row.startswith("tb"):
+            check(f"{row}: bit-equal to base on all {T} trees", same(torch, loss, base_loss)
+                  and same(torch, valid, base_valid))
+        elif row in KV.APPROX:
+            # a * (1 / b) is not a / b: the deviation from base is the
+            # variant's arithmetic, held to the plain version on the trees
+            # past 1e-3
+            check(f"{row}: validity equal to base's on all {T} trees",
+                  same(torch, valid, base_valid))
+            nonfinite_same, worst, past = KV.approx_deviation(loss, base_loss)
+            check(f"{row}: loss NaN and +-inf where base's are", nonfinite_same)
+            print(f"  {row}: worst relative deviation from base {worst:.3g}; {past.numel()} of "
+                  f"{T} trees past 1e-3")
+            if past.numel():
+                idx = past[:64]
+                few = pick_trees(prog, idx)
+                lp, vp = KV.loss_variant_plain(few, X, y, F, ops, el, variant=row)
+                lb, _ = KV.loss_variant_plain(few, X, y, F, ops, el, variant="base")
+                _, within, rel, _ = close_at(torch, loss[idx], lp, RTOL)
+                _, dev, _ = KV.approx_deviation(lp, lb)
+                check(f"{row}: on the {idx.numel()} trees past 1e-3 of base, within rtol {RTOL} "
+                      f"of the plain version (worst relative error {rel:.3g}; the plain "
+                      f"versions' own deviation there {dev:.3g})",
+                      within and same(torch, valid[idx], vp))
+    print(f"  valid trees (base): {int(base_valid.sum())} of {T}; plain versions on the first "
+          f"{VARIANT_PLAIN_TREES}; {card}")
+    base_ns = next(r["ns_step"] for r in records if r["row"] == "base")
+    print(f"  {'row':10s} {'ms/launch':>10s} {'kernel ms':>10s} {'ns/step':>8s} {'-base':>7s} "
+          f"{'bound ms':>9s} {'plain ms':>9s}  check")
+    rows = []
+    for row, r, kernel_ms, plain_ms, b_ms, b_by, abs_err in table:
+        print(f"  {row:10s} {r['ms']:10.4f} {kernel_ms:10.4f} {r['ns_step']:8.2f} "
+              f"{r['ns_step'] - base_ns:+7.2f} {b_ms:9.4f} {plain_ms:9.1f}  "
+              f"{r['tag'] or '-'}  [{card}]")
+        rows.append({"name": f"{kernel.name} {row}", "route": "cuda", "source": kernel.source,
+                     "replaces": kernel.replaces,
+                     "launches": launches[(r["variant"], r["tree_block"])],
+                     "max_abs_err": abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    for r in records:
+        if r not in runs:
+            print(f"  {r['row']:10s} {r['ms']:10.4f} {'':10s} {r['ns_step']:8.2f} "
+                  f"{r['ns_step'] - base_ns:+7.2f} {r['bound_ms']:9.4f} (the shipped #1/1b)")
+    check("the harness's tags: no mismatch", not any("MISMATCH" in r["tag"] for r in records))
+    check.raise_if_failed("kernel variants")
+    return rows
+
+
+def _build_or_error(cuda_build, header, names=None):
+    """Builds ``names`` (every source) with ``header``; returns the error
+    instead of raising it (the caller re-raises it on its own thread)."""
     try:
-        cuda_build.build_all(cuda_build.SOURCES, header)
+        cuda_build.build_all(names or cuda_build.SOURCES, header)
     except BaseException as e:  # noqa: BLE001 - re-raised by the caller
         return e
     return None
@@ -5544,6 +5685,12 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
     cuda_build.build_all(files)
     for k in kernels():
         k.library()
+    # Phase 42's variants kernel builds on a thread from here on, beside
+    # phases 3-41 (none of which reads it); joined in phase 42.
+    variants_build = {}
+    variants_build["thread"] = threading.Thread(target=lambda: variants_build.update(
+        done=_build_or_error(cuda_build, None, ["program_variants.cu"])))
+    variants_build["thread"].start()
     print(f"  {', '.join(files)}: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {', '.join(f'{cuda_build.build_seconds(f):.2f}' for f in files)} "
           f"s, in parallel)")
@@ -5704,7 +5851,8 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
 
     procs = start_examples(out_base)
     try:
-        return _last_phases(torch, sr, dev, out_base, card, rows, header, procs)
+        return _last_phases(torch, sr, dev, out_base, card, rows, header, procs, cuda_build,
+                            variants_build)
     finally:
         for proc, _, _ in procs:
             if proc.poll() is None:
@@ -5712,9 +5860,11 @@ def run_phases(args, torch, sr, cuda_build, dev, out_base) -> int:
                 proc.wait()
 
 
-def _last_phases(torch, sr, dev, out_base, card, rows, header, procs) -> int:
-    """Phases 39-41, with phase 41's examples running beside them in the
-    processes ``procs``."""
+def _last_phases(torch, sr, dev, out_base, card, rows, header, procs, cuda_build,
+                 variants_build) -> int:
+    """Phases 39-42, with phase 41's examples running beside 39-40 in the
+    processes ``procs``; phase 42's library built on the thread of
+    ``variants_build``."""
     header("[39] multi-device search: a 1-rank nccl group, two gloo ranks on the card, the "
            "dedup exchange")
     per_rank, one_rank = phase_mesh(torch, sr, dev, out_base, card)
@@ -5740,6 +5890,16 @@ def _last_phases(torch, sr, dev, out_base, card, rows, header, procs) -> int:
     for name in EXAMPLE_NAMES:
         if not any(n.get(name) for n in per_example.values()):
             raise RuntimeError(f"phase 41 launched {name} no time")
+
+    header("[42] the A/B variants of kernel #1's interpreter "
+           "(python -m symbolicregression_jl_tpu_torch.profiling.kernel_variants)")
+    t0 = time.perf_counter()
+    variants_build["thread"].join()
+    if isinstance(variants_build.get("done"), BaseException):
+        raise variants_build["done"]
+    print(f"  the variants library's build (from phase 2 on) joined after "
+          f"{time.perf_counter() - t0:.2f} s")
+    rows += phase_kernel_variants(torch, sr, dev, card, cuda_build)
 
     header("")
     print(card)
